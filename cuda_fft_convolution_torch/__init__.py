@@ -1,0 +1,68 @@
+"""cuda_fft_convolution_torch — FFT filter-bank convolution on PyTorch and CUDA.
+
+The port of ``cuda_fft_convolution_tpu`` (JAX on a TPU) to PyTorch on an
+NVIDIA H100. The JAX package stays the reference: the port keeps its public
+layouts and entry points, and its tests hold each ported function to the JAX
+function of the same name. FFTs run on ``torch.fft``; the fused overlap-save
+block convolution is a CUDA kernel written for Hopper (``csrc/``), built with
+``nvcc`` at first use. This package imports ``torch`` and never ``jax``.
+
+  - ``fft_conv``        ≈ cudaConvolutionFFT
+  - ``fft_data``        ≈ cudaFFTData
+  - ``conv_spectral``   ≈ cudaConvFFTData
+  - ``fft_data_tiled``, ``fft_kernels``: reusable block and bank spectra
+"""
+
+from cuda_fft_convolution_torch.api import (
+    conv_spectral,
+    fft_conv,
+    fft_data,
+    fft_data_tiled,
+    fft_kernels,
+)
+from cuda_fft_convolution_torch.ops.block_conv import (
+    block_conv,
+    block_conv_reference,
+)
+from cuda_fft_convolution_torch.types import (
+    SpectralData,
+    SpectralKernels,
+    TiledSpectralData,
+)
+from cuda_fft_convolution_torch.utils.checkpoint import (
+    from_numpy,
+    load_spectral,
+    save_spectral,
+)
+from cuda_fft_convolution_torch.utils.config import get_config, set_config
+from cuda_fft_convolution_torch.utils.errors import InvalidInputError
+from cuda_fft_convolution_torch.utils.fft_size import (
+    FftSizePolicy,
+    compute_fft_size,
+    next_fast_len,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "SpectralData",
+    "SpectralKernels",
+    "TiledSpectralData",
+    "conv_spectral",
+    "fft_conv",
+    "fft_data",
+    "fft_data_tiled",
+    "fft_kernels",
+    "block_conv",
+    "block_conv_reference",
+    "from_numpy",
+    "load_spectral",
+    "save_spectral",
+    "get_config",
+    "set_config",
+    "InvalidInputError",
+    "FftSizePolicy",
+    "compute_fft_size",
+    "next_fast_len",
+    "__version__",
+]

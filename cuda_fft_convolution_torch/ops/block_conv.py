@@ -1,0 +1,182 @@
+"""Fused overlap-save block convolution: the Hopper kernel and its plain twin.
+
+Per cell (image b, block (i, j), kernel n) both compute what the JAX
+package's ``block_conv_pallas`` computes at fp32 (its v3 body,
+``cuda_fft_convolution_tpu/ops/block_conv.py`` ``_make_kernel_v3``):
+
+    S    = Σ_f K[n, f] ⊙ D[b, i, j, f]                complex MAC over F
+    X    = G · S        G = _inv_full_mats(Lh)[kh−1 : kh−1+Vh]   (Vh, Lh)
+    tile = Xr · Mr + Xi · Mi
+                        M = _inv_packed_mats(Lw)[:, kw−1 : kw−1+Vw]  (Wc, Vw)
+
+and write the tile into out[b, n, i·Vh : (i+1)·Vh, j·Vw : (j+1)·Vw], clipped
+at (out_h, out_w) — the 'full'-window linear-convolution maps, assembled in
+place with no reassembly pass.
+
+``block_conv`` is the wrapper: a tensor on the CPU takes
+``block_conv_reference`` (plain torch); a CUDA tensor launches the CUDA
+kernel (``csrc/block_conv.cu``) or raises. There is no fallback between the
+two.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from cuda_fft_convolution_torch.ops.dft import _inv_full_mats, _inv_packed_mats
+from cuda_fft_convolution_torch.utils.errors import InvalidInputError, validate
+
+# Mirrors csrc/block_conv.cu: a CTA holds X^T for 64 window rows (32 where
+# that does not fit) over the packed bins padded to 128, plus a staging area
+# of max(2·16·128 + 2·16·rows, 32·128) floats, within Hopper's 227 KB
+# (232,448 B) per-block shared-memory limit.
+SMEM_LIMIT_BYTES = 232448
+
+
+def _tile_smem_bytes(wc: int, rows: int) -> int:
+    wc_pad = -(-wc // 128) * 128
+    stage = max(2 * 16 * 128 + 2 * 16 * rows, 32 * 128)
+    return (2 * wc_pad * rows + stage) * 4
+
+
+def smem_bytes(wc: int) -> int:
+    """Shared memory the CUDA kernel needs at packed width ``wc`` (the
+    64-row configuration where it fits, else the 32-row one)."""
+    big = _tile_smem_bytes(wc, 64)
+    return big if big <= SMEM_LIMIT_BYTES else _tile_smem_bytes(wc, 32)
+
+
+def _geometry(dr, kr, block_h, block_w, kh, kw, out_h, out_w):
+    """Validate the operand shapes against the block geometry →
+    (b, nbh, nbw, f, n, lh, wc, vh, vw)."""
+    validate(dr.ndim == 6, f"data spectra must be (B, nbh, nbw, F, Lh, Wc); got {tuple(dr.shape)}")
+    validate(kr.ndim == 4, f"kernel spectra must be (N, F, Lh, Wc); got {tuple(kr.shape)}")
+    b, nbh, nbw, f, lh, wc = dr.shape
+    n = kr.shape[0]
+    vh, vw = block_h - kh + 1, block_w - kw + 1
+    validate(
+        lh == block_h and wc == block_w // 2 + 1,
+        f"spectra planes ({lh}, {wc}) do not match blocks ({block_h}, {block_w})",
+    )
+    validate(
+        tuple(kr.shape[1:]) == (f, lh, wc),
+        f"kernel spectra {tuple(kr.shape)} do not match data spectra {tuple(dr.shape)}",
+    )
+    validate(vh >= 1 and vw >= 1, f"kernel ({kh},{kw}) exceeds blocks ({block_h},{block_w})")
+    validate(
+        0 < out_h <= nbh * vh and 0 < out_w <= nbw * vw,
+        f"output ({out_h},{out_w}) not covered by {nbh}x{nbw} blocks of valid window ({vh},{vw})",
+    )
+    return b, nbh, nbw, f, n, lh, wc, vh, vw
+
+
+@functools.lru_cache(maxsize=16)
+def _window_mats(block_h: int, block_w: int, kh: int, kw: int, device: str):
+    """(G_re, G_im) windowed (Vh, Lh) and (M_re, M_im) windowed (Wc, Vw)
+    f32 planes on ``device``."""
+    vh, vw = block_h - kh + 1, block_w - kw + 1
+    gr, gi = _inv_full_mats(block_h)
+    mr, mi = _inv_packed_mats(block_w)
+
+    def t(x):
+        return torch.from_numpy(x.copy()).to(device)
+
+    return (
+        t(gr[kh - 1 : kh - 1 + vh]), t(gi[kh - 1 : kh - 1 + vh]),
+        t(mr[:, kw - 1 : kw - 1 + vw]), t(mi[:, kw - 1 : kw - 1 + vw]),
+    )
+
+
+def block_conv_reference(
+    dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32
+    kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32
+    block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
+) -> torch.Tensor:
+    """Plain torch version of the fused kernel → (B, N, out_h, out_w) f32.
+    Differentiable; used on the CPU and by the tests."""
+    b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
+        dr, kr, block_h, block_w, kh, kw, out_h, out_w
+    )
+    gr, gi, mr, mi = _window_mats(block_h, block_w, kh, kw, str(dr.device))
+
+    def mac(d, k):
+        return torch.einsum("bijfuv,nfuv->bijnuv", d, k)
+
+    s_re = mac(dr, kr) - mac(di, ki)  # (B, nbh, nbw, N, Lh, Wc)
+    s_im = mac(di, kr) + mac(dr, ki)
+    x_re = gr @ s_re - gi @ s_im  # (B, nbh, nbw, N, Vh, Wc)
+    x_im = gr @ s_im + gi @ s_re
+    tile = x_re @ mr + x_im @ mi  # (B, nbh, nbw, N, Vh, Vw)
+    maps = tile.permute(0, 3, 1, 4, 2, 5).reshape(b, n, nbh * vh, nbw * vw)
+    return maps[:, :, :out_h, :out_w].contiguous()
+
+
+def block_conv(
+    dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32
+    kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32
+    block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
+) -> torch.Tensor:
+    """→ (B, N, out_h, out_w) f32 maps. CPU tensors run
+    ``block_conv_reference``; CUDA tensors launch the CUDA kernel on the
+    current stream (no synchronisation) and count the launch in
+    ``block_conv.launches``."""
+    ops = (dr, di, kr, ki)
+    if all(t.device.type == "cpu" for t in ops):
+        return block_conv_reference(
+            dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w
+        )
+    dev = dr.device
+    validate(
+        dev.type == "cuda" and all(t.device == dev for t in ops),
+        f"block_conv operands must share one CUDA device; got "
+        f"{[str(t.device) for t in ops]}",
+    )
+    for t in ops:
+        if t.dtype != torch.float32:
+            raise InvalidInputError(
+                f"block_conv kernel takes float32 spectra, got {t.dtype} "
+                "(the bf16 tier is ROADMAP queue 1 item 6)"
+            )
+        validate(t.is_contiguous(), "block_conv kernel takes contiguous spectra")
+    validate(
+        di.shape == dr.shape and ki.shape == kr.shape,
+        "re/im planes differ in shape",
+    )
+    b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
+        dr, kr, block_h, block_w, kh, kw, out_h, out_w
+    )
+    validate(
+        smem_bytes(wc) <= SMEM_LIMIT_BYTES,
+        f"block width {block_w} needs {smem_bytes(wc)} B of shared memory "
+        f"(limit {SMEM_LIMIT_BYTES})",
+    )
+    from cuda_fft_convolution_torch._build import library
+
+    lib = library()
+    gt_re, gt_im, mr, mi = _kernel_mats(block_h, block_w, kh, kw, str(dev))
+    out = torch.empty((b, n, out_h, out_w), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fftconv_block_conv_f32(
+            dr.data_ptr(), di.data_ptr(), kr.data_ptr(), ki.data_ptr(),
+            gt_re.data_ptr(), gt_im.data_ptr(), mr.data_ptr(), mi.data_ptr(),
+            out.data_ptr(),
+            b, nbh, nbw, f, n, lh, wc, vh, vw, out_h, out_w, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"block_conv CUDA kernel launch failed: cudaError {err}")
+    block_conv.launches += 1
+    return out
+
+
+block_conv.launches = 0
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_mats(block_h: int, block_w: int, kh: int, kw: int, device: str):
+    """The kernel's matrix operands: G^T (Lh, Vh) contiguous — it stages G
+    by spectrum rows — and M as in ``_window_mats``."""
+    gr, gi, mr, mi = _window_mats(block_h, block_w, kh, kw, device)
+    return gr.t().contiguous(), gi.t().contiguous(), mr, mi

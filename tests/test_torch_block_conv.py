@@ -1,0 +1,127 @@
+"""The fused block-conv (ops/block_conv.py) against the JAX package's
+``block_conv_pallas``.
+
+On the CPU the port's wrapper runs the kernel's plain version, which is
+held here to the Pallas kernel run in interpret mode (where bf16x3 dots
+become HIGHEST, so the reference is exact fp32): its v3 body, the function
+the CUDA kernel reproduces, and the v5 body the TPU headline runs. The CUDA
+kernel itself is checked against the plain version on the card by
+``tests/test_torch_gpu.py`` and by ``chip_smoke.py``."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cuda_fft_convolution_torch.ops import block_conv as tbc
+from cuda_fft_convolution_torch.utils.errors import InvalidInputError
+from cuda_fft_convolution_tpu.ops.block_conv import (
+    block_conv_pallas,
+    radix_h_legal,
+    radix_w_legal,
+)
+from cuda_fft_convolution_tpu.ops.tiled import fft_data_blocks
+
+TOL = 1e-5
+
+
+def _operands(rng, b, f, n, bh, bw, kh, kw, out_h, out_w):
+    """Block spectra of random data with a baked 'same' window (JAX
+    fft_data_blocks) and random bank spectra, as numpy f32 planes."""
+    data = rng.standard_normal((b, f, out_h, out_w)).astype(np.float32)
+    d_re, d_im = fft_data_blocks(
+        jnp.asarray(data), bh, bw, kh, kw, origin_h=(kh - 1) // 2,
+        origin_w=(kw - 1) // 2, win_h=out_h, win_w=out_w,
+    )
+    wc = bw // 2 + 1
+    k_re = rng.standard_normal((n, f, bh, wc)).astype(np.float32)
+    k_im = rng.standard_normal((n, f, bh, wc)).astype(np.float32)
+    return np.array(d_re), np.array(d_im), k_re, k_im
+
+
+def _torch(*xs):
+    return [torch.as_tensor(x) for x in xs]
+
+
+def _rel(got, want):
+    want = np.asarray(want)
+    return float(np.abs(np.asarray(got) - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize(
+    "b,f,n,bh,bw,kh,kw,out_h,out_w",
+    [
+        # dense-DFT plan of 300×500 with 17×33 kernels: V = (16, 256)
+        (2, 3, 5, 32, 288, 17, 33, 100, 300),
+        # odd block, V = (36, 128); out not a multiple of V (clipped tiles)
+        (1, 2, 3, 45, 151, 10, 24, 100, 300),
+        # F=1, even block, full-height window
+        (1, 1, 4, 64, 256, 1, 1, 130, 270),
+    ],
+)
+def test_block_conv_reference_matches_jax_v3(rng, b, f, n, bh, bw, kh, kw,
+                                             out_h, out_w):
+    ops = _operands(rng, b, f, n, bh, bw, kh, kw, out_h, out_w)
+    want = block_conv_pallas(
+        *map(jnp.asarray, ops), bh, bw, kh, kw, out_h, out_w,
+        interpret=True, wstack=True, radix_h=False,
+    )
+    got = tbc.block_conv_reference(*_torch(*ops), bh, bw, kh, kw, out_h, out_w)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    assert _rel(got.numpy(), want) <= TOL
+
+
+def test_block_conv_reference_matches_jax_v5(rng):
+    """The production v5 body (radix-2 H stage + radix-2 DIF W stage) at its
+    registered fp32 F=1 plan: the port reproduces what the TPU headline
+    runs, not only the plain v3 form."""
+    bh, bw, kh, kw, out_h, out_w = 256, 512, 65, 129, 300, 500
+    assert radix_h_legal(bh, bh - kh + 1) and radix_w_legal(bw, kw, bw - kw + 1)
+    ops = _operands(rng, 1, 1, 2, bh, bw, kh, kw, out_h, out_w)
+    want = block_conv_pallas(
+        *map(jnp.asarray, ops), bh, bw, kh, kw, out_h, out_w,
+        interpret=True, radix_h=True, radix_w=True,
+    )
+    got = tbc.block_conv_reference(*_torch(*ops), bh, bw, kh, kw, out_h, out_w)
+    assert _rel(got.numpy(), want) <= TOL
+
+
+def test_block_conv_cpu_runs_plain_version(rng):
+    ops = _torch(*_operands(rng, 1, 2, 3, 45, 151, 10, 24, 100, 300))
+    before = tbc.block_conv.launches
+    got = tbc.block_conv(*ops, 45, 151, 10, 24, 100, 300)
+    want = tbc.block_conv_reference(*ops, 45, 151, 10, 24, 100, 300)
+    assert torch.equal(got, want)
+    assert tbc.block_conv.launches == before  # no kernel launched
+
+
+def test_block_conv_non_cpu_tensor_never_falls_back(rng):
+    """A tensor that is not on the CPU must reach the kernel or raise: here
+    'meta' tensors, which no kernel takes, raise."""
+    ops = [t.to("meta") for t in _torch(*_operands(rng, 1, 1, 2, 32, 288, 17, 33, 40, 60))]
+    before = tbc.block_conv.launches
+    with pytest.raises(InvalidInputError, match="one CUDA device"):
+        tbc.block_conv(*ops, 32, 288, 17, 33, 40, 60)
+    assert tbc.block_conv.launches == before
+
+
+def test_block_conv_validates_geometry(rng):
+    dr, di, kr, ki = _torch(*_operands(rng, 1, 1, 2, 32, 288, 17, 33, 40, 60))
+    with pytest.raises(InvalidInputError, match="do not match blocks"):
+        tbc.block_conv(dr, di, kr, ki, 32, 290, 17, 33, 40, 60)
+    with pytest.raises(InvalidInputError, match="not covered"):
+        tbc.block_conv(dr, di, kr, ki, 32, 288, 17, 33, 40 + 3 * 16, 60)
+    with pytest.raises(InvalidInputError, match="kernel spectra"):
+        tbc.block_conv(dr, di, kr[:, :, :-1], ki[:, :, :-1], 32, 288, 17, 33, 40, 60)
+
+
+def test_smem_model_matches_kernel_constants():
+    # 64-row tiles: 2 planes × 64 rows × bins padded to 128 + 6144 staging
+    # floats — 155,648 B at the headline width (Wc = 224), the figure the
+    # compiled kernel reports. Past Wc = 384 the 32-row tiles take over
+    # (5120 staging floats); JAX's largest block (1024) still fits.
+    assert tbc.smem_bytes(224) == 155648
+    assert tbc.smem_bytes(384) == (2 * 384 * 64 + 6144) * 4
+    assert tbc.smem_bytes(449) == (2 * 512 * 32 + 5120) * 4
+    assert tbc.smem_bytes(1024 // 2 + 1) <= tbc.SMEM_LIMIT_BYTES
+    assert tbc.smem_bytes(2048 // 2 + 1) > tbc.SMEM_LIMIT_BYTES

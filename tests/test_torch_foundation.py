@@ -1,0 +1,176 @@
+"""The port's foundation modules against their JAX twins: FFT-size policies,
+errors, zero padding, the windowed inverse-DFT matrices, the torch.fft
+transforms and the spectral MAC; plus the package's import contract (no
+jax, no nvcc, no CUDA needed)."""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import cuda_fft_convolution_torch as tfc
+from cuda_fft_convolution_torch.ops import conv as tconv
+from cuda_fft_convolution_torch.ops import dft as tdft
+from cuda_fft_convolution_torch.ops import spectral_mac as tmac
+from cuda_fft_convolution_torch.ops.padding import pad_to_fft
+from cuda_fft_convolution_torch.utils import fft_size as tsize
+from cuda_fft_convolution_tpu.ops import conv as jconv
+from cuda_fft_convolution_tpu.ops import dft as jdft
+from cuda_fft_convolution_tpu.ops import spectral_mac as jmac
+from cuda_fft_convolution_tpu.utils import fft_size as jsize
+from tests.oracles import rel_err
+
+TOL = 1e-5
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _t(x):
+    return torch.as_tensor(np.asarray(x))
+
+
+@pytest.mark.parametrize("policy", ["multiple16", "pow2", "fast", "tpu"])
+def test_compute_fft_size_matches_jax(policy):
+    for h in (1, 7, 64, 100, 513, 2048):
+        for k in (1, 4, 17, 64, 512):
+            assert tsize.compute_fft_size(h, h + 3, k, k + 1, policy) == (
+                jsize.compute_fft_size(h, h + 3, k, k + 1, policy)
+            )
+
+
+def test_size_helpers_match_jax():
+    for n in range(1, 1200):
+        assert tsize.next_fast_len(n) == jsize.next_fast_len(n)
+        assert tsize.next_multiple_of_16(n) == jsize.next_multiple_of_16(n)
+        assert tsize.next_pow2(n) == jsize.next_pow2(n)
+        assert tsize.next_fast_len_aligned(n, 128) == jsize.next_fast_len_aligned(n, 128)
+    assert [p.value for p in tsize.FftSizePolicy] == [
+        p.value for p in jsize.FftSizePolicy
+    ]
+
+
+def test_invalid_input_error_is_value_error():
+    with pytest.raises(ValueError):
+        tfc.fft_conv(np.zeros((8, 8, 1), np.float32), kernels=None)
+    with pytest.raises(tfc.InvalidInputError, match="mode must be"):
+        tfc.fft_conv(np.zeros((8, 8, 1), np.float32),
+                     kernels=np.zeros((1, 3, 3, 1), np.float32), mode="bogus")
+
+
+def test_pad_to_fft_matches_jax(rng):
+    x = rng.standard_normal((2, 3, 5, 7)).astype(np.float32)
+    np.testing.assert_array_equal(
+        pad_to_fft(_t(x), 9, 12).numpy(),
+        np.asarray(jnp.pad(x, ((0, 0), (0, 0), (0, 4), (0, 5)))),
+    )
+    assert pad_to_fft(_t(x), 5, 7).shape == (2, 3, 5, 7)
+    with pytest.raises(ValueError):
+        pad_to_fft(_t(x), 4, 7)
+
+
+@pytest.mark.parametrize("l", [8, 31, 64, 127, 447, 512])
+def test_inverse_dft_mats_equal_jax(l):
+    for port, ref in ((tdft._inv_full_mats, jdft._inv_full_mats),
+                      (tdft._inv_packed_mats, jdft._inv_packed_mats)):
+        for a, b in zip(port(l), ref(l)):
+            assert a.dtype == np.float32
+            assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("fft_h,fft_w", [(16, 32), (45, 151), (32, 47)])
+def test_rfft2_irfft2_planes_match_jax(rng, fft_h, fft_w):
+    x = rng.standard_normal((2, 3, 13, 29)).astype(np.float32)
+    tr, ti = tconv.rfft2_padded_planes(_t(x), fft_h, fft_w)
+    jr, ji = jconv.rfft2_padded_planes(jnp.asarray(x), fft_h, fft_w)
+    scale = float(np.abs(np.asarray(jr)).max())
+    assert tr.dtype == torch.float32 and tr.shape == jr.shape
+    assert np.abs(tr.numpy() - np.asarray(jr)).max() / scale < TOL
+    assert np.abs(ti.numpy() - np.asarray(ji)).max() / scale < TOL
+    back = tconv.irfft2_norm_planes(tr, ti, fft_h, fft_w)
+    want = jconv.irfft2_norm_planes(jr, ji, fft_h, fft_w)
+    assert back.shape == (2, 3, fft_h, fft_w)  # odd widths need s=
+    assert rel_err(back.numpy(), want) < TOL
+    assert rel_err(back[..., :13, :29].numpy(), x) < TOL
+
+
+def test_spectral_mac_matches_jax(rng):
+    def planes(*shape):
+        return [rng.standard_normal(shape).astype(np.float32) for _ in range(2)]
+
+    dr, di = planes(2, 3, 9, 11)
+    kr, ki = planes(5, 3, 9, 11)
+    got = tmac.spectral_mac_auto_planes(_t(dr), _t(di), _t(kr), _t(ki))
+    want = jmac.spectral_mac_auto_planes(*map(jnp.asarray, (dr, di, kr, ki)))
+    for g, w in zip(got, want):
+        assert g.shape == (2, 5, 9, 11)
+        assert rel_err(g.numpy(), w) < TOL
+    # ops/conv.py's single-image form: data (F, H, Wc), any bank axes
+    got1 = tconv.spectral_mac_planes(_t(dr[0]), _t(di[0]), _t(kr), _t(ki))
+    want1 = jconv.spectral_mac_planes(*map(jnp.asarray, (dr[0], di[0], kr, ki)))
+    for g, w in zip(got1, want1):
+        assert rel_err(g.numpy(), w) < TOL
+
+
+def test_spectral_mac_pallas_not_ported():
+    x = torch.zeros((1, 1, 2, 2))
+    with pytest.raises(tfc.InvalidInputError, match="queue 2 item 1"):
+        tmac.spectral_mac_auto_planes(x, x, x, x, use_pallas=True)
+
+
+def test_config_forces_engine(monkeypatch):
+    from cuda_fft_convolution_torch.utils import config
+
+    assert config.get_config().use_fused_block_conv is None
+    try:
+        assert tfc.set_config(use_fused_block_conv=False).use_fused_block_conv is False
+        assert tfc.get_config().use_fused_block_conv is False
+    finally:
+        tfc.set_config(use_fused_block_conv=None)
+    monkeypatch.setenv("FFTCONV_FUSED_BLOCK_CONV", "1")
+    assert config.Config.from_env().use_fused_block_conv is True
+    monkeypatch.setenv("FFTCONV_FUSED_BLOCK_CONV", "")
+    assert config.Config.from_env().use_fused_block_conv is None
+
+
+def test_port_imports_with_jax_blocked():
+    """The port imports torch and never jax: import it (and run a small
+    call) in a fresh interpreter where ``import jax`` fails."""
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import numpy as np\n"
+        "import cuda_fft_convolution_torch as fc\n"
+        "import cuda_fft_convolution_torch._build\n"
+        "out = fc.fft_conv(np.ones((40, 40, 1), np.float32),\n"
+        "                  kernels=np.ones((2, 5, 5, 1), np.float32), mode='same')\n"
+        "assert tuple(out.shape) == (2, 40, 40)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
+        "    'cuda_fft_convolution_tpu')) for m in sys.modules\n"
+        "    if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_build_library_named_by_source_hash(tmp_path):
+    """The library lands in build/ under a name hashed from the sources, so
+    an edited source never loads a stale build."""
+    from cuda_fft_convolution_torch import _build
+
+    sources = _build._sources()
+    assert [s.name for s in sources] == ["block_conv.cu"]
+    path = _build._library_path(sources)
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("libfftconv_torch_") and path.suffix == ".so"
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    edited = tmp_path / "block_conv.cu"
+    edited.write_bytes(sources[0].read_bytes() + b"\n")
+    assert _build._library_path([edited]) != path
