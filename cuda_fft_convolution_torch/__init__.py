@@ -4,13 +4,16 @@ The port of ``cuda_fft_convolution_tpu`` (JAX on a TPU) to PyTorch on an
 NVIDIA H100. The JAX package stays the reference: the port keeps its public
 layouts and entry points, and its tests hold each ported function to the JAX
 function of the same name. FFTs run on ``torch.fft``; the fused overlap-save
-block convolution is a CUDA kernel written for Hopper (``csrc/``), built with
-``nvcc`` at first use. This package imports ``torch`` and never ``jax``.
+block convolution, its peaks variant and the spectral MAC are CUDA kernels
+written for Hopper (``csrc/``), built with ``nvcc`` at first use. This
+package imports ``torch`` and never ``jax``.
 
   - ``fft_conv``        ≈ cudaConvolutionFFT
   - ``fft_data``        ≈ cudaFFTData
   - ``conv_spectral``   ≈ cudaConvFFTData
   - ``fft_data_tiled``, ``fft_kernels``: reusable block and bank spectra
+  - ``models.detect_peaks``, ``detect_top_k``, ``detect_local_peaks``: the
+    detection heads
 """
 
 from cuda_fft_convolution_torch.api import (
@@ -22,6 +25,8 @@ from cuda_fft_convolution_torch.api import (
 )
 from cuda_fft_convolution_torch.ops.block_conv import (
     block_conv,
+    block_conv_peaks,
+    block_conv_peaks_reference,
     block_conv_reference,
 )
 from cuda_fft_convolution_torch.types import (
@@ -55,6 +60,8 @@ __all__ = [
     "fft_kernels",
     "block_conv",
     "block_conv_reference",
+    "block_conv_peaks",
+    "block_conv_peaks_reference",
     "from_numpy",
     "load_spectral",
     "save_spectral",

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 At first use ``library()`` compiles every ``csrc/*.cu`` of the package with
-``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
-interface, writes it to ``build/`` at the repository root, and loads it with
-``ctypes``. The library's file name carries a hash of the sources and flags,
-so an edited source never loads a stale build. Nothing here runs at import:
-the package imports on machines with no ``nvcc`` and no CUDA.
+``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
+together, links the objects into one shared library with a plain C
+interface in ``build/`` at the repository root, and loads it with
+``ctypes``. The library's file name carries a hash of the sources, the
+headers (``csrc/*.cuh``) and the flags, so an edited file never loads a
+stale build. Nothing here runs at import: the package imports on machines
+with no ``nvcc`` and no CUDA.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ BUILD_DIR = _PKG.parent / "build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name → (argtypes, restype). Every pointer and the stream
@@ -34,6 +37,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fftconv_block_conv_f32": ([_P] * 9 + [_I] * 11 + [_P], ctypes.c_int),
     "fftconv_block_conv_f32_smem_bytes": ([_I], ctypes.c_longlong),
+    "fftconv_block_conv_f32_rows": ([_I], ctypes.c_int),
+    "fftconv_block_conv_peaks_f32": ([_P] * 10 + [_I] * 11 + [_P], ctypes.c_int),
+    "fftconv_spectral_mac_f32": (
+        [_P] * 6 + [_I] * 3 + [ctypes.c_longlong, _P], ctypes.c_int,
+    ),
 }
 
 _lock = threading.Lock()
@@ -58,11 +66,13 @@ def _nvcc() -> str:
 
 
 def _sources() -> list[pathlib.Path]:
-    return sorted(_CSRC.glob("*.cu"))
+    """Every file the library is built from: the ``.cu`` translation units
+    and the ``.cuh`` headers they include."""
+    return sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")])
 
 
 def _library_path(sources: list[pathlib.Path]) -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for s in sources:
         h.update(s.name.encode())
         h.update(s.read_bytes())
@@ -71,22 +81,31 @@ def _library_path(sources: list[pathlib.Path]) -> pathlib.Path:
 
 def _compile(sources: list[pathlib.Path], target: pathlib.Path) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}"
+    nvcc = _nvcc()
+    units = [s for s in sources if s.suffix == ".cu"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{s.stem}.o") for s in units]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-        os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return proc.stdout + proc.stderr
+            for s, o in zip(units, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(f"== {s.name}\n{out}" for s, out in zip(units, logs))
+        failed = [s.name for s, p in zip(units, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        lib = os.path.join(tmp, target.name)
+        link = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", lib, *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(lib, target)  # atomic: a concurrent build never sees half a file
+    return log + link.stdout
 
 
 def library() -> ctypes.CDLL:

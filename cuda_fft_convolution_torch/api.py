@@ -103,13 +103,6 @@ def _check_out_dtype(out_dtype) -> None:
     )
 
 
-def _check_pallas(use_pallas) -> None:
-    _not_ported(
-        bool(use_pallas), "use_pallas=True (the spectral-MAC kernel)",
-        "queue 2 item 1",
-    )
-
-
 # ---------------------------------------------------------------------------
 # layout helpers
 # ---------------------------------------------------------------------------
@@ -506,11 +499,14 @@ def conv_spectral(
     (N, Kh, Kw, F) array, or a precomputed ``SpectralKernels``. Returns maps
     (N, H', W') (batched: (B, N, H', W')), or a list per kernel for ragged
     windows. ``SpectralData`` runs the direct engine (MAC + one irfft2 per
-    kernel); ``TiledSpectralData`` runs the overlap-save engine."""
+    kernel); ``TiledSpectralData`` runs the overlap-save engine.
+    The spectral MAC of the direct engine and of the unfused tiled branch
+    always runs through the MAC kernel (``ops/spectral_mac.py
+    spectral_mac``); ``use_pallas``, the JAX package's selection between
+    its einsum and its Pallas kernel, is accepted with no effect."""
     validate(mode in _MODES, f"mode must be one of {_MODES}")
     _check_out_dtype(out_dtype)
     _check_padding_layout("zero", kernel_layout)
-    _check_pallas(use_pallas)
     _not_ported(
         getattr(spectral, "clamp", False), "padding='clamp' spectra",
         "queue 1 item 1",
@@ -687,12 +683,12 @@ def fft_conv(
     block-conv; 'auto' = tiled when ``choose_block_plan`` says it pays, else
     direct. ``max_kernel_h/w`` may be omitted (inferred from the bank).
     Uniform banks with mode 'same'/'valid' bake the window into the block
-    tiling, and mode 'fftmap' bakes the direct engine's canvas."""
+    tiling, and mode 'fftmap' bakes the direct engine's canvas.
+    ``use_pallas`` as in ``conv_spectral``."""
     validate(kernels is not None, "kernels is required")
     validate(mode in _MODES, f"mode must be one of {_MODES}")
     _check_out_dtype(out_dtype)
     _check_store_dtype(store_dtype)
-    _check_pallas(use_pallas)
     validate(
         algorithm in ("auto", "direct", "tiled"),
         "algorithm must be 'auto', 'direct', or 'tiled'",

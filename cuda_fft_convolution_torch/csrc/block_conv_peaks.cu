@@ -1,0 +1,106 @@
+// Fused overlap-save block convolution, fp32, for Hopper (sm_90a): the peaks
+// kernel.
+//
+// Replaces cuda_fft_convolution_tpu/ops/block_conv.py::block_conv_peaks_pallas
+// at one block per cell (mbh = mbw = 1; its v3 body _make_kernel_v3_peaks
+// and epilogue _peaks_reducer). It runs the transforms of block_conv.cuh
+// and, in place of the maps kernel's store, reduces each cell's valid
+// window to (max, global flat index y * out_w + x): the larger value wins,
+// between equal values the smaller index wins, and positions past
+// (out_h, out_w) count as -inf. A cell with no position inside the output
+// reports -inf at its first (out-of-range) position, as _peaks_reducer does.
+//
+// What bounds it: the maps kernel's arithmetic (~0.71 TFLOP at the headline
+// plan), without its 1.68 GB write of the maps; it writes 8 bytes per CTA.
+// Design: each thread keeps a running (max, index) over its TR x 4
+// accumulators across the column passes; at the end the CTA reduces them
+// with warp shuffles and one shared-memory round. A cell taller than the
+// CTA's ROWS is split across CTAs by row chunk, and each writes one pair:
+// the output is the partial pyramid (B, N, nbh, row_chunks, nbw), which the
+// wrapper (ops/block_conv.py block_conv_peaks) reduces over row chunks with
+// the same rule.
+
+#include <cmath>
+
+#include "block_conv.cuh"
+
+namespace {
+
+struct ReducePeaks {
+  struct Out {
+    float* vals;
+    int* idxs;
+  };
+  Out out;
+  long long slot;  // this CTA's entry of the partial pyramid
+  int gy0, gx0, vh, vw, out_h, out_w;
+  float best;
+  int best_i;
+
+  __device__ ReducePeaks(Out o, const Cell& c, const OutGeom& g)
+      : out(o),
+        slot((((c.bb * g.n + c.ni) * g.nbh + c.bi) * g.row_chunks + c.rc) * g.nbw + c.bj),
+        gy0(c.bi * g.vh), gx0(c.bj * g.vw), vh(g.vh), vw(g.vw),
+        out_h(g.out_h), out_w(g.out_w), best(-INFINITY), best_i(INT_MAX) {}
+
+  __device__ void take(float v, int i) {
+    if (v > best || (v == best && i < best_i)) {
+      best = v;
+      best_i = i;
+    }
+  }
+
+  template <int TR>
+  __device__ void tile(const float (&acc)[TR][4], int row0, int col0) {
+#pragma unroll
+    for (int a = 0; a < TR; ++a) {
+      const int row = row0 + a;
+      if (row >= vh) continue;
+      const int gy = gy0 + row;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = col0 + c;
+        if (col >= vw) continue;
+        const int gx = gx0 + col;
+        take(gy < out_h && gx < out_w ? acc[a][c] : -INFINITY, gy * out_w + gx);
+      }
+    }
+  }
+
+  __device__ void finish(float* scratch) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      take(__shfl_xor_sync(0xffffffffu, best, off), __shfl_xor_sync(0xffffffffu, best_i, off));
+    float* wv = scratch;                                 // [kThreads / 32]
+    int* wi = reinterpret_cast<int*>(scratch + kThreads / 32);
+    __syncthreads();  // every thread is past its last read of the staging area
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) {
+      wv[warp] = best;
+      wi[warp] = best_i;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < kThreads / 32; ++w) take(wv[w], wi[w]);
+      out.vals[slot] = best;
+      out.idxs[slot] = best_i;
+    }
+  }
+};
+
+}  // namespace
+
+// Writes the partial pyramid vals/idxs (B, N, nbh, row_chunks, nbw), with
+// row_chunks = ceil(vh / fftconv_block_conv_f32_rows(wc)). Launches on
+// `stream`; does not synchronise. Returns cudaGetLastError() after the
+// launch (0 = launched), or the error that stopped it.
+extern "C" int fftconv_block_conv_peaks_f32(
+    const float* d_re, const float* d_im, const float* k_re, const float* k_im,
+    const float* gt_re, const float* gt_im, const float* m_re, const float* m_im,
+    float* vals, int* idxs, int b, int nbh, int nbw, int f, int n, int lh,
+    int wc, int vh, int vw, int out_h, int out_w, void* stream) {
+  return launch_block_conv<ReducePeaks>(
+      d_re, d_im, k_re, k_im, gt_re, gt_im, m_re, m_im,
+      ReducePeaks::Out{vals, idxs}, b, nbh, nbw, f, n, lh, wc, vh, vw, out_h,
+      out_w, stream);
+}

@@ -1,0 +1,14 @@
+"""Model layer: the workloads the reference library serves.
+
+So far the detection heads (``models/detect.py``), the port of
+``cuda_fft_convolution_tpu.models.detect``. The pyramid, MOSSE, filter-bank
+and HOG models are still to port (ROADMAP queue 1 item 9).
+"""
+
+from cuda_fft_convolution_torch.models.detect import (
+    detect_local_peaks,
+    detect_peaks,
+    detect_top_k,
+)
+
+__all__ = ["detect_peaks", "detect_top_k", "detect_local_peaks"]

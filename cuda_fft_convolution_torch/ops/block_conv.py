@@ -1,4 +1,5 @@
-"""Fused overlap-save block convolution: the Hopper kernel and its plain twin.
+"""Fused overlap-save block convolution: the Hopper kernels and their plain
+twins.
 
 Per cell (image b, block (i, j), kernel n) both compute what the JAX
 package's ``block_conv_pallas`` computes at fp32 (its v3 body,
@@ -17,18 +18,26 @@ place with no reassembly pass.
 ``block_conv_reference`` (plain torch); a CUDA tensor launches the CUDA
 kernel (``csrc/block_conv.cu``) or raises. There is no fallback between the
 two.
+
+``block_conv_peaks`` computes the same tiles and keeps, per cell, only the
+max and its global flat index (the detection head's pyramid); its kernel
+(``csrc/block_conv_peaks.cu``) shares the transform stages of
+``csrc/block_conv.cuh`` with the maps kernel, and its plain version is
+``block_conv_peaks_reference``.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
+import torch.nn.functional as F
 
 from cuda_fft_convolution_torch.ops.dft import _inv_full_mats, _inv_packed_mats
 from cuda_fft_convolution_torch.utils.errors import InvalidInputError, validate
 
-# Mirrors csrc/block_conv.cu: a CTA holds X^T for 64 window rows (32 where
+# Mirrors csrc/block_conv.cuh: a CTA holds X^T for 64 window rows (32 where
 # that does not fit) over the packed bins padded to 128, plus a staging area
 # of max(2·16·128 + 2·16·rows, 32·128) floats, within Hopper's 227 KB
 # (232,448 B) per-block shared-memory limit.
@@ -41,11 +50,15 @@ def _tile_smem_bytes(wc: int, rows: int) -> int:
     return (2 * wc_pad * rows + stage) * 4
 
 
+def tile_rows(wc: int) -> int:
+    """Window rows one CTA owns at packed width ``wc``: 64 where that
+    configuration's shared memory fits, else 32."""
+    return 64 if _tile_smem_bytes(wc, 64) <= SMEM_LIMIT_BYTES else 32
+
+
 def smem_bytes(wc: int) -> int:
-    """Shared memory the CUDA kernel needs at packed width ``wc`` (the
-    64-row configuration where it fits, else the 32-row one)."""
-    big = _tile_smem_bytes(wc, 64)
-    return big if big <= SMEM_LIMIT_BYTES else _tile_smem_bytes(wc, 32)
+    """Shared memory the CUDA kernels need at packed width ``wc``."""
+    return _tile_smem_bytes(wc, tile_rows(wc))
 
 
 def _geometry(dr, kr, block_h, block_w, kh, kw, out_h, out_w):
@@ -113,6 +126,39 @@ def block_conv_reference(
     return maps[:, :, :out_h, :out_w].contiguous()
 
 
+def cuda_operands(name: str, ops) -> torch.device:
+    """Check what the port's CUDA kernels take of their (re, im, re, im)
+    spectra: one CUDA device, f32, contiguous, re/im planes of one shape
+    → the device."""
+    dr, di, kr, ki = ops
+    dev = dr.device
+    validate(
+        dev.type == "cuda" and all(t.device == dev for t in ops),
+        f"{name} operands must share one CUDA device; got "
+        f"{[str(t.device) for t in ops]}",
+    )
+    for t in ops:
+        if t.dtype != torch.float32:
+            raise InvalidInputError(
+                f"{name} kernel takes float32 spectra, got {t.dtype} "
+                "(the bf16 tier is ROADMAP queue 1 item 6)"
+            )
+        validate(t.is_contiguous(), f"{name} kernel takes contiguous spectra")
+    validate(
+        di.shape == dr.shape and ki.shape == kr.shape,
+        "re/im planes differ in shape",
+    )
+    return dev
+
+
+def _check_smem(block_w: int, wc: int) -> None:
+    validate(
+        smem_bytes(wc) <= SMEM_LIMIT_BYTES,
+        f"block width {block_w} needs {smem_bytes(wc)} B of shared memory "
+        f"(limit {SMEM_LIMIT_BYTES})",
+    )
+
+
 def block_conv(
     dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32
     kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32
@@ -127,31 +173,11 @@ def block_conv(
         return block_conv_reference(
             dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w
         )
-    dev = dr.device
-    validate(
-        dev.type == "cuda" and all(t.device == dev for t in ops),
-        f"block_conv operands must share one CUDA device; got "
-        f"{[str(t.device) for t in ops]}",
-    )
-    for t in ops:
-        if t.dtype != torch.float32:
-            raise InvalidInputError(
-                f"block_conv kernel takes float32 spectra, got {t.dtype} "
-                "(the bf16 tier is ROADMAP queue 1 item 6)"
-            )
-        validate(t.is_contiguous(), "block_conv kernel takes contiguous spectra")
-    validate(
-        di.shape == dr.shape and ki.shape == kr.shape,
-        "re/im planes differ in shape",
-    )
+    dev = cuda_operands("block_conv", ops)
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
-    validate(
-        smem_bytes(wc) <= SMEM_LIMIT_BYTES,
-        f"block width {block_w} needs {smem_bytes(wc)} B of shared memory "
-        f"(limit {SMEM_LIMIT_BYTES})",
-    )
+    _check_smem(block_w, wc)
     from cuda_fft_convolution_torch._build import library
 
     lib = library()
@@ -180,3 +206,132 @@ def _kernel_mats(block_h: int, block_w: int, kh: int, kw: int, device: str):
     by spectrum rows — and M as in ``_window_mats``."""
     gr, gi, mr, mi = _window_mats(block_h, block_w, kh, kw, device)
     return gr.t().contiguous(), gi.t().contiguous(), mr, mi
+
+
+def _check_index_range(nbh: int, nbw: int, vh: int, vw: int, out_w: int) -> None:
+    last = (nbh * vh - 1) * out_w + nbw * vw - 1
+    validate(
+        last < 2**31,
+        f"flat positions up to {last} do not fit the int32 peak indices",
+    )
+
+
+def cell_view(
+    maps: torch.Tensor, nbh: int, nbw: int, vh: int, vw: int
+) -> torch.Tensor:
+    """(B, N, out_h, out_w) maps → (B, N, nbh, nbw, vh·vw): cell (i, j) =
+    rows [i·vh, (i+1)·vh) × cols [j·vw, (j+1)·vw), row-major, with −inf at
+    the positions past the maps."""
+    b, n, out_h, out_w = maps.shape
+    full = F.pad(
+        maps, (0, nbw * vw - out_w, 0, nbh * vh - out_h), value=-math.inf
+    )
+    cells = full.reshape(b, n, nbh, vh, nbw, vw).permute(0, 1, 2, 4, 3, 5)
+    return cells.reshape(b, n, nbh, nbw, vh * vw)
+
+
+def cell_peaks(
+    maps: torch.Tensor, nbh: int, nbw: int, vh: int, vw: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, N, out_h, out_w) maps → per-cell ``(vals, idxs)``, each
+    (B, N, nbh, nbw): the max of each ``cell_view`` cell and its global
+    flat index y·out_w + x. The larger value wins, then the smaller index;
+    positions past the maps are −inf, so a cell with none inside reports
+    −inf at its first position — the rule of the JAX package's
+    ``_peaks_reducer``."""
+    out_w = maps.shape[-1]
+    _check_index_range(nbh, nbw, vh, vw, out_w)
+    cells = cell_view(maps, nbh, nbw, vh, vw)
+    # Row-major order inside a cell is flat-index order over its positions
+    # inside the maps, so the first maximum (torch.argmax's rule) is the
+    # one with the smallest index.
+    pos = cells.argmax(dim=-1)
+    vals = cells.gather(-1, pos[..., None])[..., 0]
+    dev = maps.device
+    gy = torch.arange(nbh, device=dev)[:, None] * vh + pos // vw
+    gx = torch.arange(nbw, device=dev) * vw + pos % vw
+    return vals, (gy * out_w + gx).to(torch.int32)
+
+
+def block_conv_peaks_reference(
+    dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32
+    kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32
+    block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of the peaks kernel: ``block_conv_reference``,
+    then ``cell_peaks`` over one-block cells → (vals f32, idxs int32), each
+    (B, N, nbh, nbw)."""
+    maps = block_conv_reference(
+        dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w
+    )
+    return cell_peaks(
+        maps, dr.shape[1], dr.shape[2], block_h - kh + 1, block_w - kw + 1
+    )
+
+
+def block_conv_peaks(
+    dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32
+    kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32
+    block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-cell block-max pyramid of the fused block conv, with no maps
+    written → ``(vals, idxs)``, each (B, N, nbh, nbw): the max response of
+    each block's valid window (clipped at (out_h, out_w)) and its global
+    flat index y·out_w + x (int32). Larger value wins; between equal values
+    the smaller index; positions past (out_h, out_w) never win.
+
+    This is the JAX package's ``block_conv_peaks_pallas(..., mbh=1,
+    mbw=1)``: one cell per block. The JAX package groups blocks into larger
+    cells by a model of TPU VMEM (``_choose_group``,
+    ``lookup_fused_group``); that grouping has no meaning on Hopper, where
+    a CTA holds one block's rows. Reducing the pyramid over cells gives the
+    exact per-kernel top-1 either way.
+
+    CPU tensors run ``block_conv_peaks_reference``; CUDA tensors launch the
+    CUDA kernel on the current stream and count the launch in
+    ``block_conv_peaks.launches``. The kernel writes one pair per (cell,
+    row chunk of ``tile_rows`` window rows); a cell split into several row
+    chunks is combined here (first maximum over chunks: chunk r's rows all
+    precede chunk r+1's, so that keeps the tie rule)."""
+    ops = (dr, di, kr, ki)
+    if all(t.device.type == "cpu" for t in ops):
+        return block_conv_peaks_reference(
+            dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w
+        )
+    dev = cuda_operands("block_conv_peaks", ops)
+    b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
+        dr, kr, block_h, block_w, kh, kw, out_h, out_w
+    )
+    _check_smem(block_w, wc)
+    _check_index_range(nbh, nbw, vh, vw, out_w)
+    from cuda_fft_convolution_torch._build import library
+
+    lib = library()
+    gt_re, gt_im, mr, mi = _kernel_mats(block_h, block_w, kh, kw, str(dev))
+    chunks = -(-vh // tile_rows(wc))
+    shape = (b, n, nbh, chunks, nbw)
+    vals = torch.empty(shape, dtype=torch.float32, device=dev)
+    idxs = torch.empty(shape, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fftconv_block_conv_peaks_f32(
+            dr.data_ptr(), di.data_ptr(), kr.data_ptr(), ki.data_ptr(),
+            gt_re.data_ptr(), gt_im.data_ptr(), mr.data_ptr(), mi.data_ptr(),
+            vals.data_ptr(), idxs.data_ptr(),
+            b, nbh, nbw, f, n, lh, wc, vh, vw, out_h, out_w, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"block_conv_peaks CUDA kernel launch failed: cudaError {err}"
+        )
+    block_conv_peaks.launches += 1
+    if chunks == 1:
+        return vals[:, :, :, 0], idxs[:, :, :, 0]
+    best = vals.argmax(dim=3, keepdim=True)
+    return (
+        vals.gather(3, best)[:, :, :, 0],
+        idxs.gather(3, best)[:, :, :, 0],
+    )
+
+
+block_conv_peaks.launches = 0

@@ -1,18 +1,27 @@
-"""Spectral multiply-accumulate on split planes (the einsum form).
+"""Spectral multiply-accumulate on split planes.
 
     out[b, n] = Σ_f data[b, f] ⊙ kernel[n, f]      (complex, per pixel)
 
-The JAX package's default path is this einsum too
-(``cuda_fft_convolution_tpu/ops/spectral_mac.py`` ``spectral_mac_auto_planes``
-with ``use_pallas`` falsy). Its Pallas MAC kernel (``_mac_kernel``) is not
-ported yet (ROADMAP queue 2 item 1), so ``use_pallas=True`` is rejected.
+Two implementations, as in the JAX package
+(``cuda_fft_convolution_tpu/ops/spectral_mac.py``):
+  - the einsum form, ``spectral_mac_planes`` — the plain version;
+  - the MAC kernel, ``spectral_mac`` — the CUDA kernel
+    ``csrc/spectral_mac.cu`` (replacing the Pallas ``_mac_kernel`` of
+    ``spectral_mac_pallas_planes``) on CUDA tensors, and its plain version
+    on CPU tensors.
+
+``spectral_mac_auto_planes``, which every engine calls, always runs the
+MAC kernel: it is faster than the einsum on the card, so the JAX package's
+``use_pallas`` selection has nothing to choose and is accepted with no
+effect. Its gradient is the einsum's, as ``_mac_pallas_ad`` defines it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cuda_fft_convolution_torch.utils.errors import InvalidInputError
+from cuda_fft_convolution_torch.ops.block_conv import cuda_operands
+from cuda_fft_convolution_torch.utils.errors import validate
 
 
 def spectral_mac_planes(
@@ -28,18 +37,78 @@ def spectral_mac_planes(
     return e(dr, kr) - e(di, ki), e(di, kr) + e(dr, ki)
 
 
+def spectral_mac(
+    dr: torch.Tensor, di: torch.Tensor,  # (B, F, H, Wc) f32
+    kr: torch.Tensor, ki: torch.Tensor,  # (N, F, H, Wc) f32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MAC kernel → (B, N, H, Wc) f32 planes. CPU tensors run
+    ``spectral_mac_planes``; CUDA tensors launch the CUDA kernel on the
+    current stream (no synchronisation) and count the launch in
+    ``spectral_mac.launches``."""
+    ops = (dr, di, kr, ki)
+    if all(t.device.type == "cpu" for t in ops):
+        return spectral_mac_planes(dr, di, kr, ki)
+    dev = cuda_operands("spectral_mac", ops)
+    validate(
+        dr.ndim == 4 and kr.ndim == 4 and dr.shape[1:] == kr.shape[1:],
+        f"spectral_mac takes (B, F, H, Wc) and (N, F, H, Wc) planes; got "
+        f"{tuple(dr.shape)} and {tuple(kr.shape)}",
+    )
+    b, f, h, wc = dr.shape
+    n = kr.shape[0]
+    from cuda_fft_convolution_torch._build import library
+
+    lib = library()
+    o_re = torch.empty((b, n, h, wc), dtype=torch.float32, device=dev)
+    o_im = torch.empty_like(o_re)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fftconv_spectral_mac_f32(
+            dr.data_ptr(), di.data_ptr(), kr.data_ptr(), ki.data_ptr(),
+            o_re.data_ptr(), o_im.data_ptr(), b, f, n, h * wc, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"spectral_mac CUDA kernel launch failed: cudaError {err}")
+    spectral_mac.launches += 1
+    return o_re, o_im
+
+
+spectral_mac.launches = 0
+
+
+class _SpectralMac(torch.autograd.Function):
+    """Forward: the MAC kernel. Backward: the einsum's autograd — the MAC
+    is linear in each plane, and both forms compute the same map
+    (``_mac_pallas_ad`` in the JAX package). The einsum is taken on the
+    saved planes themselves, and under ``create_graph`` its gradients keep
+    their graph, so higher derivatives are the einsum's too."""
+
+    @staticmethod
+    def forward(ctx, dr, di, kr, ki):
+        ctx.save_for_backward(dr, di, kr, ki)
+        return spectral_mac(*(p.contiguous() for p in (dr, di, kr, ki)))
+
+    @staticmethod
+    def backward(ctx, g_re, g_im):
+        planes = ctx.saved_tensors
+        create_graph = torch.is_grad_enabled()
+        with torch.enable_grad():
+            out = spectral_mac_planes(*planes)
+            wanted = [x for x, need in zip(planes, ctx.needs_input_grad) if need]
+            grads = iter(torch.autograd.grad(
+                out, wanted, (g_re, g_im), create_graph=create_graph))
+        return tuple(next(grads) if need else None for need in ctx.needs_input_grad)
+
+
 def spectral_mac_auto_planes(
     dr: torch.Tensor, di: torch.Tensor,
     kr: torch.Tensor, ki: torch.Tensor,
     *,
     use_pallas: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Implementation dispatch: the einsum. ``use_pallas=True`` asks for the
-    JAX package's Pallas MAC kernel, which has no Hopper port yet."""
-    if use_pallas:
-        raise InvalidInputError(
-            "use_pallas=True selects the spectral-MAC kernel, which is not "
-            "ported yet (ROADMAP queue 2 item 1: ops/spectral_mac.py "
-            "_mac_kernel); leave use_pallas unset to run the einsum MAC"
-        )
-    return spectral_mac_planes(dr, di, kr, ki)
+    """The MAC through the MAC kernel (its plain version on CPU tensors),
+    differentiable, backward = the einsum's. ``use_pallas`` is the JAX
+    package's selection between its einsum and its Pallas kernel, kept for
+    the signature; it has no effect here."""
+    del use_pallas
+    return _SpectralMac.apply(dr, di, kr, ki)

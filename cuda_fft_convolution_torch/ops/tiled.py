@@ -12,9 +12,17 @@ Two engines assemble the maps from block and bank spectra:
     clipped write in one pass;
   - unfused: spectral MAC, then ``torch.fft.irfft2`` per block, then the
     valid-window slice and reassembly.
+
+The detection reductions sit on top: ``conv_blocks_peaks`` and
+``conv_blocks_top_k`` take the fused branch through the peaks kernel
+(``block_conv_peaks``: one (max, argmax) per block, no maps written), and
+``peaks_from_maps``, ``top_k_from_maps`` and ``local_peaks_from_maps``
+reduce assembled maps.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +30,7 @@ import torch.nn.functional as F
 from cuda_fft_convolution_torch.ops.block_conv import (
     SMEM_LIMIT_BYTES,
     block_conv,
+    block_conv_peaks,
     smem_bytes,
 )
 from cuda_fft_convolution_torch.ops.conv import (
@@ -152,6 +161,13 @@ def fused_dispatch_auto(
     )
 
 
+def _fused(block_w: int, spec_dtype: torch.dtype) -> bool:
+    """``Config.use_fused_block_conv``, with None resolved by
+    ``fused_dispatch_auto``."""
+    fused = get_config().use_fused_block_conv
+    return fused_dispatch_auto(block_w, spec_dtype) if fused is None else fused
+
+
 def _conv_blocks_unfused(
     d_re: torch.Tensor,  # (B, nbh, nbw, F, Lh, Lwc)
     d_im: torch.Tensor,
@@ -163,18 +179,17 @@ def _conv_blocks_unfused(
     kw: int,
     out_h: int,
     out_w: int,
-    use_pallas: bool | None = None,
 ) -> torch.Tensor:
     """The unfused pipeline (MAC → irfft2 per block → valid window →
-    reassembly) in plain torch. The fallback when the fused kernel is off,
-    and the backward of ``fused_block_conv``."""
+    reassembly): the MAC kernel, then torch. The branch taken when the fused
+    kernel is off, and the backward of ``fused_block_conv``."""
     b, nbh, nbw, f, lh, lwc = d_re.shape
     n = k_re.shape[0]
     vh, vw = block_h - kh + 1, block_w - kw + 1
     p_re, p_im = spectral_mac_auto_planes(
         d_re.reshape(b * nbh * nbw, f, lh, lwc),
         d_im.reshape(b * nbh * nbw, f, lh, lwc),
-        k_re, k_im, use_pallas=use_pallas,
+        k_re, k_im,
     )
     maps = irfft2_norm_planes(p_re, p_im, block_h, block_w)
     valid = maps[:, :, kh - 1 : kh - 1 + vh, kw - 1 : kw - 1 + vw]
@@ -186,7 +201,8 @@ def _conv_blocks_unfused(
 class _FusedBlockConv(torch.autograd.Function):
     """Forward: the fused kernel. Backward: the unfused pipeline's autograd
     (the forward is bilinear in the spectra planes, and both engines compute
-    the same linear map) — mirroring the JAX package's custom VJP."""
+    the same linear map) — mirroring the JAX package's custom VJP. Under
+    ``create_graph`` the gradients keep their graph to the saved planes."""
 
     @staticmethod
     def forward(ctx, d_re, d_im, k_re, k_im, geom):
@@ -197,11 +213,11 @@ class _FusedBlockConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         planes = ctx.saved_tensors
+        create_graph = torch.is_grad_enabled()
         with torch.enable_grad():
-            leaves = [p.detach().requires_grad_(True) for p in planes]
-            out = _conv_blocks_unfused(*leaves, *ctx.geom)
-            wanted = [x for x, need in zip(leaves, ctx.needs_input_grad) if need]
-            grads = iter(torch.autograd.grad(out, wanted, g))
+            out = _conv_blocks_unfused(*planes, *ctx.geom)
+            wanted = [x for x, need in zip(planes, ctx.needs_input_grad) if need]
+            grads = iter(torch.autograd.grad(out, wanted, g, create_graph=create_graph))
         return (
             *(next(grads) if need else None for need in ctx.needs_input_grad[:4]),
             None,
@@ -238,20 +254,174 @@ def conv_blocks(
     kw: int,
     out_h: int,
     out_w: int,
-    use_pallas: bool | None = None,
 ) -> torch.Tensor:
     """Spectral MAC per block + inverse + overlap-save reassembly →
     (B, N, out_h, out_w) linear-convolution maps. ``Config.
     use_fused_block_conv`` None = ``fused_dispatch_auto``; True/False force
     the fused or unfused branch. Differentiable on both branches."""
-    fused = get_config().use_fused_block_conv
-    if fused is None:
-        fused = fused_dispatch_auto(block_w, d_re.dtype)
-    if fused:
+    if _fused(block_w, d_re.dtype):
         return fused_block_conv(
             d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
         )
     return _conv_blocks_unfused(
-        d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w,
-        use_pallas=use_pallas,
+        d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
     )
+
+
+# ---------------------------------------------------------------------------
+# detection reductions
+# ---------------------------------------------------------------------------
+
+
+def top_k_ordered(
+    x: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top ``k`` over the last axis in ``lax.top_k``'s order: values
+    descending, equal values by ascending index (``torch.topk`` promises no
+    order among ties, nor which of several tied candidates it keeps)."""
+    kth = torch.topk(x, k, dim=-1).values[..., -1:]
+    above = x > kth
+    tied = x == kth
+    need = k - above.sum(-1, keepdim=True, dtype=torch.int32)
+    keep = above | (tied & (tied.cumsum(-1, dtype=torch.int32) <= need))
+    # exactly k kept per row; nonzero lists them by ascending index
+    idx = keep.nonzero()[:, -1].reshape(*x.shape[:-1], k)
+    vals = x.gather(-1, idx)
+    order = torch.sort(vals, dim=-1, descending=True, stable=True).indices
+    return vals.gather(-1, order), idx.gather(-1, order)
+
+
+def peaks_from_maps(
+    maps: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, N, H, W) maps → per-kernel top-1 ``(vals, ys, xs)`` each (B, N);
+    the first maximum in row-major order (``jnp.argmax``'s rule)."""
+    b, n, h, w = maps.shape
+    flat = maps.reshape(b, n, h * w)
+    idx = flat.argmax(dim=-1)
+    vals = flat.gather(-1, idx[..., None])[..., 0]
+    return vals, (idx // w).to(torch.int32), (idx % w).to(torch.int32)
+
+
+def top_k_from_maps(
+    maps: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, N, H, W) maps → EXACT per-kernel top-k ``(vals, ys, xs)`` each
+    (B, N, k), values descending, ties by ascending flat index."""
+    b, n, h, w = maps.shape
+    kv, ki = top_k_ordered(maps.reshape(b, n, h * w), k)
+    return kv, (ki // w).to(torch.int32), (ki % w).to(torch.int32)
+
+
+def local_peaks_from_maps(
+    maps: torch.Tensor,
+    k: int,
+    window: int = 3,
+    threshold=None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, N, H, W) maps → per-kernel top-k LOCAL MAXIMA ``(vals, ys, xs)``
+    each (B, N, k), values descending. A local maximum equals the max of
+    its ``window``×``window`` neighbourhood and lies strictly above
+    ``threshold`` (None keeps every local max). The neighbourhood is
+    ``reduce_window``'s 'SAME' one: ``(window−1)//2`` before and the rest
+    after, so an even window reaches one further down and right; edge
+    pixels compare against their in-bounds neighbours. Slots beyond the
+    number of maxima carry ``−inf`` and (−1, −1) positions. A constant
+    plateau marks every plateau pixel (the JAX package's rule)."""
+    b, n, h, w = maps.shape
+    x = maps.to(torch.float32)
+    lo = (window - 1) // 2
+    hi = window - 1 - lo
+    dil = F.max_pool2d(
+        F.pad(x, (lo, hi, lo, hi), value=-math.inf), window, stride=1
+    )
+    is_peak = x >= dil
+    if threshold is not None:
+        is_peak = is_peak & (x > threshold)
+    scores = torch.where(is_peak, x, -math.inf)
+    kv, ki = top_k_ordered(scores.reshape(b, n, h * w), k)
+    hit = torch.isfinite(kv)
+    ys = torch.where(hit, ki // w, -1).to(torch.int32)
+    xs = torch.where(hit, ki % w, -1).to(torch.int32)
+    return kv, ys, xs
+
+
+def _cell_pyramid(
+    d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The peaks kernel's pyramid flattened over cells → (vals, idxs), each
+    (B, N, nbh·nbw) in row-major cell order."""
+    vals, idxs = block_conv_peaks(
+        d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
+    )
+    b, n = vals.shape[:2]
+    return vals.reshape(b, n, -1), idxs.reshape(b, n, -1)
+
+
+def conv_blocks_peaks(
+    d_re: torch.Tensor,  # (B, nbh, nbw, F, Lh, Lwc)
+    d_im: torch.Tensor,
+    k_re: torch.Tensor,  # (N, F, Lh, Lwc)
+    k_im: torch.Tensor,
+    block_h: int,
+    block_w: int,
+    kh: int,
+    kw: int,
+    out_h: int,
+    out_w: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Detection head over the overlap-save engine: per-kernel top-1
+    ``(vals, ys, xs)`` each (B, N), positions in the output window's frame.
+
+    On the fused branch (``conv_blocks``' dispatch) the peaks kernel
+    reduces each block to a (max, argmax) pair and the maps are never
+    written; the first-maximum cell of the pyramid then gives the exact
+    top-1. On the unfused branch the assembled maps are reduced."""
+    if _fused(block_w, d_re.dtype):
+        cells, idxs = _cell_pyramid(
+            d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
+        )
+        ci = cells.argmax(dim=-1, keepdim=True)
+        flat = idxs.gather(-1, ci)[..., 0]
+        return cells.gather(-1, ci)[..., 0], flat // out_w, flat % out_w
+    maps = _conv_blocks_unfused(
+        d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
+    )
+    return peaks_from_maps(maps)
+
+
+def conv_blocks_top_k(
+    d_re: torch.Tensor,  # (B, nbh, nbw, F, Lh, Lwc)
+    d_im: torch.Tensor,
+    k_re: torch.Tensor,  # (N, F, Lh, Lwc)
+    k_im: torch.Tensor,
+    block_h: int,
+    block_w: int,
+    kh: int,
+    kw: int,
+    out_h: int,
+    out_w: int,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k detection head over the overlap-save engine: per-kernel
+    ``(vals, ys, xs)`` each (B, N, k), values descending, positions in the
+    output window's frame.
+
+    On the fused branch the candidates are the peaks kernel's CELL maxima,
+    one per block: an approximate top-k whose hits are spatially distinct
+    (at most one per block's valid window — exact for k = 1). When k
+    exceeds the number of blocks, and on the unfused branch, the assembled
+    maps are reduced EXACTLY. The JAX package's cells are groups of blocks
+    sized for TPU VMEM, so its fused top-k can differ from this one for
+    k > 1."""
+    if _fused(block_w, d_re.dtype) and d_re.shape[1] * d_re.shape[2] >= k:
+        cells, idxs = _cell_pyramid(
+            d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
+        )
+        kv, ki = top_k_ordered(cells, k)
+        flat = idxs.gather(-1, ki)
+        return kv, flat // out_w, flat % out_w
+    maps = _conv_blocks_unfused(
+        d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
+    )
+    return top_k_from_maps(maps, k)

@@ -142,9 +142,22 @@ def test_ragged_bucketing_not_ported(rng):
         (dict(use_pallas=True), "queue 2 item 1"),
     ],
 )
-def test_options_not_ported_raise(kwargs, item):
-    data = np.ones((40, 40, 1), np.float32)
-    bank = np.ones((2, 5, 5, 1), np.float32)
+def test_options_not_ported_raise(rng, kwargs, item):
+    """Options whose ROADMAP item is open raise naming it. Queue 2 item 1
+    (``use_pallas=True``, the spectral-MAC kernel) is ported, and the port
+    runs the kernel path whatever the option says: its case checks the
+    option against the default call and the JAX package."""
+    data = rng.standard_normal((40, 40, 1)).astype(np.float32)
+    bank = rng.standard_normal((2, 5, 5, 1)).astype(np.float32)
+    if item == "queue 2 item 1":
+        for algorithm in ("direct", "tiled"):
+            got = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm, **kwargs)
+            want = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm)
+            jax_maps = jfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm,
+                                    **kwargs)
+            assert rel_err(got.numpy(), want.numpy()) < TOL
+            assert rel_err(got.numpy(), np.asarray(jax_maps)) < TOL
+        return
     with pytest.raises(tfc.InvalidInputError, match=item):
         tfc.fft_conv(data, kernels=bank, mode="same", **kwargs)
 

@@ -114,10 +114,20 @@ def test_spectral_mac_matches_jax(rng):
         assert rel_err(g.numpy(), w) < TOL
 
 
-def test_spectral_mac_pallas_not_ported():
-    x = torch.zeros((1, 1, 2, 2))
-    with pytest.raises(tfc.InvalidInputError, match="queue 2 item 1"):
-        tmac.spectral_mac_auto_planes(x, x, x, x, use_pallas=True)
+def test_spectral_mac_pallas_not_ported(rng):
+    """``use_pallas=True`` selects the JAX package's Pallas MAC, whose
+    Hopper port ``ops/spectral_mac.py spectral_mac`` the port always runs;
+    on CPU tensors it runs the plain version and matches the JAX package's
+    Pallas MAC (interpret mode)."""
+    planes = [rng.standard_normal(s).astype(np.float32)
+              for s in ((2, 3, 9, 11),) * 2 + ((5, 3, 9, 11),) * 2]
+    before = tmac.spectral_mac.launches
+    got = tmac.spectral_mac_auto_planes(*map(_t, planes), use_pallas=True)
+    want = jmac.spectral_mac_auto_planes(*map(jnp.asarray, planes), use_pallas=True)
+    assert tmac.spectral_mac.launches == before  # no kernel on the CPU
+    for g, w in zip(got, want):
+        assert g.shape == (2, 5, 9, 11)
+        assert rel_err(g.numpy(), w) < TOL
 
 
 def test_config_forces_engine(monkeypatch):
@@ -143,9 +153,13 @@ def test_port_imports_with_jax_blocked():
         "import numpy as np\n"
         "import cuda_fft_convolution_torch as fc\n"
         "import cuda_fft_convolution_torch._build\n"
+        "from cuda_fft_convolution_torch.models import detect_peaks\n"
         "out = fc.fft_conv(np.ones((40, 40, 1), np.float32),\n"
         "                  kernels=np.ones((2, 5, 5, 1), np.float32), mode='same')\n"
         "assert tuple(out.shape) == (2, 40, 40)\n"
+        "vals, pos = detect_peaks(np.ones((40, 40, 1), np.float32),\n"
+        "                         np.ones((2, 5, 5, 1), np.float32))\n"
+        "assert tuple(pos.shape) == (2, 2)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
         "    'cuda_fft_convolution_tpu')) for m in sys.modules\n"
         "    if sys.modules[m] is not None)\n"
@@ -166,11 +180,20 @@ def test_build_library_named_by_source_hash(tmp_path):
     from cuda_fft_convolution_torch import _build
 
     sources = _build._sources()
-    assert [s.name for s in sources] == ["block_conv.cu"]
+    assert [s.name for s in sources] == [
+        "block_conv.cu", "block_conv.cuh", "block_conv_peaks.cu", "spectral_mac.cu",
+    ]
     path = _build._library_path(sources)
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libfftconv_torch_") and path.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    edited = tmp_path / "block_conv.cu"
-    edited.write_bytes(sources[0].read_bytes() + b"\n")
-    assert _build._library_path([edited]) != path
+    # an edited header renames the library as an edited source does
+    edited = tmp_path / "block_conv.cuh"
+    edited.write_bytes(sources[1].read_bytes() + b"\n")
+    assert _build._library_path([sources[0], edited, *sources[2:]]) != path
+    # every C entry point the wrappers call has a signature
+    assert set(_build._SIGNATURES) == {
+        "fftconv_block_conv_f32", "fftconv_block_conv_f32_smem_bytes",
+        "fftconv_block_conv_f32_rows", "fftconv_block_conv_peaks_f32",
+        "fftconv_spectral_mac_f32",
+    }

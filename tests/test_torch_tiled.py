@@ -138,6 +138,27 @@ def test_fused_block_conv_grad_matches_jax(rng):
         assert torch.allclose(leaf.grad, r.grad, rtol=0, atol=1e-6 * float(r.grad.abs().max()))
 
 
+def test_fused_block_conv_second_derivative_matches_jax(rng):
+    """Under ``create_graph`` the fused backward keeps its graph: the
+    derivative by the bank's real plane of <d loss/d data's real plane,
+    tan> matches JAX's second derivative through ``_conv_blocks_unfused``."""
+    planes, geom = _spectra(rng, b=1, f=2, n=3)
+    wgt = rng.standard_normal((1, 3, geom[4], geom[5])).astype(np.float32)
+    tan = rng.standard_normal(planes[0].shape).astype(np.float32)
+
+    def jloss(*p):
+        return jnp.sum(jt._conv_blocks_unfused(*p, *geom) * wgt)
+
+    want = jax.grad(
+        lambda *p: jnp.sum(jax.grad(jloss)(*p) * tan), argnums=2,
+    )(*map(jnp.asarray, planes))
+    leaves = [torch.tensor(p, requires_grad=True) for p in planes]
+    loss = (tt.fused_block_conv(*leaves, *geom) * torch.as_tensor(wgt)).sum()
+    (g_dr,) = torch.autograd.grad(loss, [leaves[0]], create_graph=True)
+    (got,) = torch.autograd.grad((g_dr * torch.as_tensor(tan)).sum(), [leaves[2]])
+    assert rel_err(got.numpy(), np.asarray(want)) < TOL
+
+
 def test_fused_block_conv_grad_of_kernels_only(rng):
     """Gradients flow to whichever planes require them (a trained bank
     against fixed data spectra)."""
