@@ -37,16 +37,38 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      and F=3 channels;
   9. times the detection call against the maps path, the peaks kernel
      against its plain version, the direct call, and the MAC kernel
-     against the einsum at F=1 and F=3.
+     against the einsum at F=1 and F=3;
+ 10. the bf16 serving tier's kernel modes (steps 3 and 6 run them too: bf16
+     spectra within 1e-5 of the plain version on the same bf16 planes, bf16
+     maps within 5e-3 of its float32 maps): the MAC kernel on bf16 planes
+     against the einsum at F=1 and F=3 (1e-6);
+ 11. the headline at the tier — ``fft_conv(..., store_dtype='bfloat16')``,
+     the same with ``out_dtype='bfloat16'``, and float32 spectra with bf16
+     maps — against float64 numpy on 8 maps (2e-2, or 5e-3 for bf16 maps
+     alone), the direct engine at the tier, and ``detect_peaks`` at the
+     tier on the detection headline (every planted centre found); times
+     each call beside the float32 call, and each kernel mode at the
+     headline plan beside its plain version;
+ 12. the DPM/HOG detector path at full width: a 4096² image from the seed
+     through ``hog_features(cell=8, bins=31)`` to (512, 512, 31) features
+     cast to bf16, a bank of 1024 filters of 12×12×31, then
+     ``fft_data_tiled(trim_mode='same', store_dtype='bfloat16')``,
+     ``fft_kernels(store_dtype='bfloat16')`` and ``conv_spectral(mode=
+     'same')`` with float32 and with bf16 maps, each against float64 numpy
+     on 8 maps (2e-2); 8 filters planted in the features and found by
+     ``detect_peaks`` at the tier; the kernels against their plain versions
+     at that plan, and times.
 
-It prints one JSON line describing the three kernels, then, as its last
-line, ``{"ok": true, "device": {...}}``. Any failure raises and exits
-non-zero; without a CUDA device it exits 2 and prints no result.
+It prints one JSON line describing every kernel mode (the float32 and bf16
+entries of the three kernels), then, as its last line,
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+without a CUDA device it exits 2 and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import pathlib
 import statistics
@@ -57,10 +79,18 @@ import time
 import numpy as np
 
 TOL = 1e-5  # max |x − ref| / max |ref|: the repo's fp32 bar
+BF16_TOL = 2e-2  # the bf16 tier against float64 (tests/test_bf16_tier.py)
+BF16_OUT_TOL = 5e-3  # bf16 maps against float32 maps (tests/test_out_dtype.py)
+MAC_BF16_TOL = 1e-6  # MAC kernel vs einsum on bf16 planes: exact products
 HEADLINE = dict(size=2048, n=100, k=64)
 # The detection headline: the headline shape, each kernel planted once at
 # 3x amplitude, top-left corners on a grid x grid lattice.
 DETECT = dict(HEADLINE, grid=10, stride=200, offset=100, amplitude=3.0)
+# The DPM/HOG detector config (BASELINE.json configs[4], bench.py:358-462):
+# a 4096² image → HOG (cell 8, 31 bins) → 512²×31 bf16 features, 1024
+# filters of 12×12×31, 'same' maps; `plants` filters are planted in the
+# features at `amplitude` for the detection check.
+DPM = dict(image=4096, cell=8, bins=31, n=1024, k=12, plants=8, amplitude=0.1)
 RUNS = 7
 
 
@@ -103,23 +133,47 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def check_kernel(d_re, d_im, k_re, k_im, geom, label) -> float:
-    """Kernel against its plain version on the same CUDA inputs → max abs
-    error. Raises above TOL (relative to max |plain|)."""
+def check_kernel(d_re, d_im, k_re, k_im, geom, label, out_dtype=None, tol=TOL) -> float:
+    """Kernel against its plain version's float32 maps on the same CUDA
+    inputs → max abs error. Raises above ``tol`` (relative to max |plain|).
+    ``out_dtype=torch.bfloat16`` runs the bf16-maps entry."""
     import torch
 
     from cuda_fft_convolution_torch.ops.block_conv import block_conv, block_conv_reference
 
-    got = block_conv(d_re, d_im, k_re, k_im, *geom)
+    out_dtype = out_dtype or torch.float32
+    got = block_conv(d_re, d_im, k_re, k_im, *geom, out_dtype)
     want = block_conv_reference(d_re, d_im, k_re, k_im, *geom)
     torch.cuda.synchronize()
+    if got.dtype != out_dtype:
+        raise AssertionError(f"kernel maps are {got.dtype}, not {out_dtype} ({label})")
+    got = got.float()
     err = rel_err(got, want)
     abs_err = float((got - want).abs().max())
-    print(f"kernel vs plain [{label}] shape {tuple(got.shape)}: "
-          f"max abs {abs_err:.3e}, rel {err:.3e}")
-    if not (err <= TOL and torch.isfinite(got).all()):
+    print(f"kernel vs plain [{label}] {str(d_re.dtype)[6:]} spectra, {str(out_dtype)[6:]} "
+          f"maps {tuple(got.shape)}: max abs {abs_err:.3e}, rel {err:.3e} (bar {tol:g})")
+    if not (err <= tol and torch.isfinite(got).all()):
         raise AssertionError(f"kernel disagrees with its plain version ({label}): {err}")
     return abs_err
+
+
+def check_kernel_modes(d_re, d_im, k_re, k_im, geom, label) -> dict:
+    """The maps kernel in its four dtype modes and the peaks kernel in its
+    two on the same planes (bf16 modes: the planes rounded to bf16) →
+    {mode: max abs error}."""
+    import torch
+
+    bf16 = torch.bfloat16
+    ops = (d_re, d_im, k_re, k_im)
+    ops16 = tuple(x.to(bf16) for x in ops)
+    return {
+        "block_conv_f32": check_kernel(*ops, geom, label),
+        "block_conv_f32_bf16maps": check_kernel(*ops, geom, label, bf16, BF16_OUT_TOL),
+        "block_conv_bf16": check_kernel(*ops16, geom, label),
+        "block_conv_bf16_bf16maps": check_kernel(*ops16, geom, label, bf16, BF16_OUT_TOL),
+        "block_conv_peaks_f32": check_peaks(*ops, geom, label),
+        "block_conv_peaks_bf16": check_peaks(*ops16, geom, label),
+    }
 
 
 def check_kernel_shapes(fc, rng) -> None:
@@ -139,8 +193,7 @@ def check_kernel_shapes(fc, rng) -> None:
         nbh, nbw, wc = -(-out_h // vh), -(-out_w // vw), bw // 2 + 1
         d = (t(b, nbh, nbw, f, bh, wc), t(b, nbh, nbw, f, bh, wc))
         k = (t(n, f, bh, wc), t(n, f, bh, wc))
-        check_kernel(*d, *k, (bh, bw, kh, kw, out_h, out_w), label)
-        check_peaks(*d, *k, (bh, bw, kh, kw, out_h, out_w), label)
+        check_kernel_modes(*d, *k, (bh, bw, kh, kw, out_h, out_w), label)
 
     # The headline plan's geometry, real spectra, a few kernels.
     s, kk = HEADLINE["size"], HEADLINE["k"]
@@ -149,11 +202,7 @@ def check_kernel_shapes(fc, rng) -> None:
     spec = fc.fft_data_tiled(image, kk, kk, device="cuda", trim_mode="same")
     assert (spec.block_h, spec.block_w, spec.max_kh, spec.max_kw) == (127, 447, 64, 64)
     sk = fc.fft_kernels(bank, spectral=spec)
-    check_kernel(
-        spec.re[None], spec.im[None], sk.re, sk.im,
-        (127, 447, 64, 64, spec.out_h, spec.out_w), "headline plan, N=4",
-    )
-    check_peaks(
+    check_kernel_modes(
         spec.re[None], spec.im[None], sk.re, sk.im,
         (127, 447, 64, 64, spec.out_h, spec.out_w), "headline plan, N=4",
     )
@@ -205,7 +254,8 @@ def check_peaks(d_re, d_im, k_re, k_im, geom, label) -> float:
             raise AssertionError(
                 f"peaks kernel indices disagree outside near-tie cells ({label}): "
                 f"{int((~ok).sum())} cells")
-    print(f"peaks kernel vs plain [{label}] {tuple(got_v.shape)} cells: values max abs "
+    print(f"peaks kernel vs plain [{label}] {str(d_re.dtype)[6:]} spectra "
+          f"{tuple(got_v.shape)} cells: values max abs "
           f"{abs_err:.3e}, rel {abs_err / scale:.3e}; near-tie cells {int(near.sum())}, "
           f"index flips {int(flips.sum())}")
     return abs_err
@@ -216,7 +266,8 @@ def detection_headline(fc, seed):
     noise image holding each of 100 64² kernels once at 3× amplitude, on a
     10×10 grid of stride 200. Checks the positions against the planted
     centres and the ``fft_conv`` maps, and the top-k and local-peak heads
-    against the same maps → (image, bank on the card, peaks launches)."""
+    against the same maps → (image, bank on the card, launch counts of the
+    ``detect_peaks`` run by kernel mode)."""
     import torch
 
     from cuda_fft_convolution_torch.models import (
@@ -224,7 +275,7 @@ def detection_headline(fc, seed):
         detect_peaks,
         detect_top_k,
     )
-    from cuda_fft_convolution_torch.ops.block_conv import block_conv_peaks, cell_peaks
+    from cuda_fft_convolution_torch.ops.block_conv import cell_peaks
     from cuda_fft_convolution_torch.ops.tiled import (
         choose_block_plan,
         local_peaks_from_maps,
@@ -244,17 +295,15 @@ def detection_headline(fc, seed):
     image_d = torch.as_tensor(image, device="cuda")
     bank_d = torch.as_tensor(bank, device="cuda")
 
-    torch.cuda.synchronize()
-    block_conv_peaks.launches = 0
-    vals, pos = detect_peaks(image_d, bank_d, mode="same", correlation=True)
-    torch.cuda.synchronize()
-    launches = block_conv_peaks.launches
+    launches = collections.Counter()
+    vals, pos = main_path(
+        "detection headline, detect_peaks",
+        lambda: detect_peaks(image_d, bank_d, mode="same", correlation=True),
+        "block_conv_peaks_f32", launches,
+    )
     print(f"detection headline: detect_peaks values {tuple(vals.shape)} positions "
-          f"{tuple(pos.shape)} on {vals.device}, block_conv_peaks launches {launches}")
-    if launches < 1:
-        raise AssertionError("detect_peaks did not launch the peaks kernel")
-    centres = torch.tensor([(y0 + k // 2, x0 + k // 2) for y0, x0 in plants],
-                           dtype=torch.int32)
+          f"{tuple(pos.shape)} on {vals.device}")
+    centres = detection_centres()
     if not torch.equal(pos.cpu(), centres):
         bad = int((pos.cpu() != centres).any(-1).sum())
         raise AssertionError(f"detect_peaks missed {bad} of the {n} planted centres")
@@ -304,9 +353,55 @@ def detection_headline(fc, seed):
     return image_d, bank_d, launches
 
 
-def check_mac(ops) -> float:
+def detection_centres():
+    """(100, 2) int32 centres of the detection headline's planted kernels in
+    the 'same' frame."""
+    import torch
+
+    k = DETECT["k"]
+    at = [DETECT["offset"] + DETECT["stride"] * i for i in range(DETECT["grid"])]
+    return torch.tensor([(y0 + k // 2, x0 + k // 2) for y0 in at for x0 in at],
+                        dtype=torch.int32)
+
+
+def _wrappers():
+    from cuda_fft_convolution_torch.ops.block_conv import block_conv, block_conv_peaks
+    from cuda_fft_convolution_torch.ops.spectral_mac import spectral_mac
+
+    return block_conv, block_conv_peaks, spectral_mac
+
+
+def main_path(label, fn, mode, path_launches):
+    """Run one main-path call: every kernel launch count set to 0 just
+    before it and read just after. Fails unless kernel mode ``mode`` was
+    launched; adds the counts by mode to ``path_launches``."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.block_conv import reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches(*_wrappers())
+    out = fn()
+    torch.cuda.synchronize()
+    counts = collections.Counter()
+    for w in _wrappers():
+        counts.update(w.launches_by_mode)
+    print(f"{label}: kernel launches {dict(counts)}")
+    if counts[mode] < 1:
+        raise AssertionError(f"{label} did not launch the {mode} kernel")
+    path_launches.update(counts)
+    return out
+
+
+def max_rel_err_f64(maps, idx, want) -> float:
+    """Max over maps[idx] of max |map − want| / max |want| (float64)."""
+    got = maps[idx].double().cpu().numpy()
+    return max(float(np.abs(g - w_).max() / np.abs(w_).max()) for g, w_ in zip(got, want))
+
+
+def check_mac(ops, tol=TOL) -> float:
     """MAC kernel against the einsum on the same CUDA planes → max abs
-    error. Raises above TOL (relative to max |einsum|)."""
+    error. Raises above ``tol`` (relative to max |einsum|)."""
     import torch
 
     from cuda_fft_convolution_torch.ops.spectral_mac import (
@@ -319,9 +414,9 @@ def check_mac(ops) -> float:
     torch.cuda.synchronize()
     err = max(rel_err(g, w_) for g, w_ in zip(got, want))
     abs_err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
-    print(f"MAC kernel vs einsum at {tuple(ops[0].shape)} x {tuple(ops[2].shape)}: "
-          f"max abs {abs_err:.3e}, rel {err:.3e}")
-    if err > TOL:
+    print(f"MAC kernel vs einsum at {tuple(ops[0].shape)} x {tuple(ops[2].shape)} "
+          f"{str(ops[0].dtype)[6:]}: max abs {abs_err:.3e}, rel {err:.3e}")
+    if err > tol:
         raise AssertionError(f"MAC kernel disagrees with the einsum: {err}")
     return abs_err
 
@@ -343,6 +438,215 @@ def same_reference_f64(image, bank, idx) -> np.ndarray:
     return np.stack(out)
 
 
+def tier_headline(fc, image_d, bank_d, idx, want, path_launches) -> dict:
+    """The headline at the bf16 tier: ``fft_conv`` with bf16 spectra, with
+    bf16 spectra and bf16 maps, and with float32 spectra and bf16 maps, each
+    against float64 numpy on maps ``idx`` (``want``); the direct engine at
+    the tier; then times of each call beside the float32 call, in one run →
+    {label: ms}."""
+    import torch
+
+    s, n = HEADLINE["size"], HEADLINE["n"]
+    calls = {
+        "f32": (dict(), None, None),
+        "bf16 spectra": (dict(store_dtype="bfloat16"), "block_conv_bf16", BF16_TOL),
+        "bf16 spectra, bf16 maps": (dict(store_dtype="bfloat16", out_dtype="bfloat16"),
+                                    "block_conv_bf16_bf16maps", BF16_TOL),
+        "f32 spectra, bf16 maps": (dict(out_dtype="bfloat16"),
+                                   "block_conv_f32_bf16maps", BF16_OUT_TOL),
+        "direct, f32": (dict(algorithm="direct"), None, None),
+        "direct, bf16 spectra": (dict(algorithm="direct", store_dtype="bfloat16"),
+                                 "spectral_mac_bf16", BF16_TOL),
+    }
+    for label, (kw, mode, bar) in calls.items():
+        if mode is None:
+            continue
+        maps = main_path(
+            f"headline fft_conv, {label}",
+            lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same", **kw), mode,
+            path_launches,
+        )
+        dtype = torch.bfloat16 if kw.get("out_dtype") else torch.float32
+        if not (maps.dtype == dtype and tuple(maps.shape) == (n, s, s)
+                and torch.isfinite(maps).all()):
+            raise AssertionError(f"headline maps ({label}): {maps.dtype} {tuple(maps.shape)}")
+        err = max_rel_err_f64(maps, idx, want)
+        print(f"headline fft_conv, {label}: {str(dtype)[6:]} maps vs float64 numpy on "
+              f"kernels {idx}: max rel err {err:.3e} (bar {bar:g})")
+        if err > bar:
+            raise AssertionError(f"headline error ({label}) {err} above {bar}")
+        del maps
+    torch.cuda.empty_cache()
+    times = {}
+    for label, (kw, _, _) in calls.items():
+        times[label] = cuda_ms(lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same", **kw))
+        print(f"headline fft_conv, {label}: {times[label]:.3f} ms")
+    return times
+
+
+def dpm_inputs(seed):
+    """The DPM/HOG config's inputs on the card: HOG features of a 4096²
+    image from ``seed`` cast to bf16, (512, 512, 31), and the float32 bank
+    (1024, 12, 12, 31) → (features, bank, hog ms)."""
+    import torch
+
+    from cuda_fft_convolution_torch.models import hog_features
+
+    rng = np.random.default_rng(seed)
+    side, cell, bins = DPM["image"], DPM["cell"], DPM["bins"]
+    image = torch.as_tensor(rng.standard_normal((side, side)).astype(np.float32), device="cuda")
+    feats = hog_features(image, cell=cell, bins=bins)
+    torch.cuda.synchronize()
+    shape = (side // cell, side // cell, bins)
+    if not (tuple(feats.shape) == shape and torch.isfinite(feats).all()
+            and float(feats.min()) >= 0 and float(feats.max()) <= 1):
+        raise AssertionError(f"HOG features malformed: {tuple(feats.shape)}")
+    hog_ms = cuda_ms(lambda: hog_features(image, cell=cell, bins=bins))
+    print(f"DPM: hog_features of a {side}² image: {tuple(feats.shape)}, {hog_ms:.3f} ms")
+    bank = rng.standard_normal((DPM["n"], DPM["k"], DPM["k"], bins)).astype(np.float32)
+    return feats.to(torch.bfloat16), torch.as_tensor(bank, device="cuda"), hog_ms
+
+
+def dpm_reference_f64(feats, bank, idx) -> np.ndarray:
+    """float64 numpy 'same' maps (scipy offset, channels summed) of
+    (H, W, F) ``feats`` with ``bank[idx]``."""
+    h, w, _ = feats.shape
+    k = bank.shape[1]
+    ph, pw = h + k - 1, w + k - 1
+    spec = np.fft.rfft2(feats.transpose(2, 0, 1), s=(ph, pw))
+    out = []
+    for i in idx:
+        ks = np.fft.rfft2(bank[i].transpose(2, 0, 1).astype(np.float64), s=(ph, pw))
+        full = np.fft.irfft2((spec * ks).sum(0), s=(ph, pw))
+        o = (k - 1) // 2
+        out.append(full[o : o + h, o : o + w])
+    return np.stack(out)
+
+
+def dpm_path(fc, seed, path_launches) -> tuple[dict, dict]:
+    """The DPM/HOG detector config at full width on the card (module
+    docstring, step 12) → ({label: ms}, {kernel mode: (max abs err, ms,
+    plain ms)} at the DPM plan)."""
+    import torch
+
+    from cuda_fft_convolution_torch.models import detect_peaks
+    from cuda_fft_convolution_torch.ops.block_conv import (
+        block_conv,
+        block_conv_peaks,
+        block_conv_peaks_reference,
+        block_conv_reference,
+        tile_rows,
+    )
+
+    bf16 = torch.bfloat16
+    feats, bank, hog_ms = dpm_inputs(seed)
+    k, n = DPM["k"], DPM["n"]
+    times = {"hog_features": hog_ms}
+    sd = fc.fft_data_tiled(feats, k, k, trim_mode="same", store_dtype="bfloat16")
+    sk = fc.fft_kernels(bank, spectral=sd, store_dtype="bfloat16")
+    plan = (sd.block_h, sd.block_w, sd.max_kh, sd.max_kw)
+    if plan != (27, 139, 12, 12) or sd.re.dtype != bf16 or sk.re.dtype != bf16:
+        raise AssertionError(f"DPM spectra: plan {plan}, {sd.re.dtype}, {sk.re.dtype}")
+    vh, wc = sd.block_h - k + 1, sd.block_w // 2 + 1
+    rows = tile_rows(wc)
+    print(f"DPM: plan {plan}, {sd.re.shape[0]}x{sd.re.shape[1]} blocks, Vh={vh}, Wc={wc}: "
+          f"a {rows}-row CTA holds {vh} window rows ({rows - vh} of {rows} idle); "
+          f"bank spectra {2 * sk.re.numel() * sk.re.element_size() / 1e6:.1f} MB bf16")
+
+    idx = list(range(0, n, n // 8))[:8]
+    want = dpm_reference_f64(feats.double().cpu().numpy(), bank.cpu().numpy(), idx)
+    maps32 = None
+    for label, out_dtype, mode in (("f32 maps", None, "block_conv_bf16"),
+                                   ("bf16 maps", "bfloat16", "block_conv_bf16_bf16maps")):
+        maps = main_path(f"DPM conv_spectral, {label}",
+                         lambda: fc.conv_spectral(sd, sk, mode="same", out_dtype=out_dtype),
+                         mode, path_launches)
+        dtype = bf16 if out_dtype else torch.float32
+        if not (maps.dtype == dtype and tuple(maps.shape) == (n, 512, 512)
+                and torch.isfinite(maps).all()):
+            raise AssertionError(f"DPM maps ({label}): {maps.dtype} {tuple(maps.shape)}")
+        err = max_rel_err_f64(maps, idx, want)
+        print(f"DPM conv_spectral, {label} ({maps.numel() * maps.element_size() / 1e9:.2f} GB): "
+              f"vs float64 numpy on filters {idx}: max rel err {err:.3e} (bar {BF16_TOL:g})")
+        if err > BF16_TOL:
+            raise AssertionError(f"DPM error ({label}) {err} above {BF16_TOL}")
+        if maps32 is None:
+            maps32 = maps
+        else:
+            diff = rel_err(maps.float(), maps32)
+            print(f"DPM bf16 maps vs f32 maps: rel {diff:.3e} (bar {BF16_OUT_TOL:g})")
+            if diff > BF16_OUT_TOL:
+                raise AssertionError(f"DPM bf16 maps differ from the f32 maps: {diff}")
+        del maps
+    del maps32
+    torch.cuda.empty_cache()
+
+    # 8 filters planted in the features, found by detect_peaks at the tier
+    planted = [t * (n // DPM["plants"]) + 7 for t in range(DPM["plants"])]
+    corners = [(y0, x0) for y0 in (100, 350) for x0 in (60, 180, 300, 420)]
+    feats_p = feats.float()
+    for t, (y0, x0) in zip(planted, corners):
+        feats_p[y0 : y0 + k, x0 : x0 + k] += DPM["amplitude"] * bank[t]
+    feats_p = feats_p.to(bf16)
+    vals, pos = main_path(
+        "DPM detect_peaks at the tier",
+        lambda: detect_peaks(feats_p, bank, mode="same", correlation=True,
+                             store_dtype="bfloat16"),
+        "block_conv_peaks_bf16", path_launches)
+    centres = torch.tensor([(y0 + k // 2, x0 + k // 2) for y0, x0 in corners],
+                           dtype=torch.int32, device=pos.device)
+    found = (pos[planted] == centres).all(-1)
+    print(f"DPM detect_peaks: {tuple(vals.shape)} peaks; planted filters {planted} found at "
+          f"their centres: {int(found.sum())} of {len(planted)}")
+    if not found.all():
+        raise AssertionError(f"DPM detect_peaks missed {int((~found).sum())} planted centres")
+
+    # the kernels at the DPM plan against their plain versions
+    geom = (*plan, sd.out_h, sd.out_w)
+    ops = (sd.re[None], sd.im[None], sk.re, sk.im)
+    label = f"DPM plan, N={n}"
+    kernels = {
+        "block_conv_bf16": check_kernel(*ops, geom, label),
+        "block_conv_bf16_bf16maps": check_kernel(*ops, geom, label, bf16, BF16_OUT_TOL),
+    }
+    sdp = fc.fft_data_tiled(feats_p, k, k, trim_mode="same", store_dtype="bfloat16")
+    skc = fc.fft_kernels(bank, spectral=sdp, correlation=True, store_dtype="bfloat16")
+    pops = (sdp.re[None], sdp.im[None], skc.re, skc.im)
+    kernels["block_conv_peaks_bf16"] = check_peaks(*pops, geom, label)
+    torch.cuda.empty_cache()
+    ms = {
+        "block_conv_bf16": (lambda: block_conv(*ops, *geom),
+                            lambda: block_conv_reference(*ops, *geom)),
+        "block_conv_bf16_bf16maps": (lambda: block_conv(*ops, *geom, bf16),
+                                     lambda: block_conv_reference(*ops, *geom, bf16)),
+        "block_conv_peaks_bf16": (lambda: block_conv_peaks(*pops, *geom),
+                                  lambda: block_conv_peaks_reference(*pops, *geom)),
+    }
+    for mode, (kern, plain) in ms.items():
+        kernels[mode] = (kernels[mode], cuda_ms(kern), cuda_ms(plain))
+        torch.cuda.empty_cache()
+        print(f"{mode} alone at the DPM plan: {kernels[mode][1]:.3f} ms; "
+              f"plain version: {kernels[mode][2]:.3f} ms")
+    ops32 = tuple(x.float() for x in ops)
+    f32_ms = cuda_ms(lambda: block_conv(*ops32, *geom))
+    print(f"block_conv_f32 alone at the DPM plan (the same planes upcast): {f32_ms:.3f} ms")
+    times["kernel f32 at the DPM plan"] = f32_ms
+    del ops32
+    for label, fn in (
+        ("conv_spectral, f32 maps", lambda: fc.conv_spectral(sd, sk, mode="same")),
+        ("conv_spectral, bf16 maps",
+         lambda: fc.conv_spectral(sd, sk, mode="same", out_dtype="bfloat16")),
+        ("detect_peaks", lambda: detect_peaks(sdp, skc, mode="same")),
+        ("one-shot detect_peaks from the features",
+         lambda: detect_peaks(feats_p, bank, mode="same", correlation=True,
+                              store_dtype="bfloat16")),
+    ):
+        times[label] = cuda_ms(fn)
+        torch.cuda.empty_cache()
+        print(f"DPM {label}: {times[label]:.3f} ms")
+    return times, kernels
+
+
 def cuda_ms(fn, runs=RUNS) -> float:
     """Median milliseconds of ``fn()`` between CUDA events, after a warm-up."""
     import torch
@@ -359,6 +663,16 @@ def cuda_ms(fn, runs=RUNS) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+SOURCES = {
+    "block_conv": ("cuda_fft_convolution_torch/csrc/block_conv.cu",
+                   "cuda_fft_convolution_tpu/ops/block_conv.py:618"),
+    "block_conv_peaks": ("cuda_fft_convolution_torch/csrc/block_conv_peaks.cu",
+                         "cuda_fft_convolution_tpu/ops/block_conv.py:1833"),
+    "spectral_mac": ("cuda_fft_convolution_torch/csrc/spectral_mac.cu",
+                     "cuda_fft_convolution_tpu/ops/spectral_mac.py:206"),
+}
 
 
 def main(argv=None) -> int:
@@ -391,31 +705,31 @@ def main(argv=None) -> int:
     build_kernels()
     rng = np.random.default_rng(args.seed)
     check_kernel_shapes(fc, rng)
+    # kernel mode → launches in the main-path runs, and its JSON fields
+    path_launches = collections.Counter()
+    rows = {}
+    bf16 = torch.bfloat16
 
     # ---- the headline call ----
     s, n, k = HEADLINE["size"], HEADLINE["n"], HEADLINE["k"]
     image = rng.standard_normal((s, s, 1)).astype(np.float32)
     bank = rng.standard_normal((n, k, k, 1)).astype(np.float32)
-    torch.cuda.synchronize()
-    block_conv.launches = 0
-    maps = fc.fft_conv(image, kernels=bank, mode="same", device="cuda")
-    torch.cuda.synchronize()
-    launches = block_conv.launches
-    print(f"headline fft_conv: shape {tuple(maps.shape)} on {maps.device}, "
-          f"block_conv launches {launches}")
+    maps = main_path(
+        "headline fft_conv",
+        lambda: fc.fft_conv(image, kernels=bank, mode="same", device="cuda"),
+        "block_conv_f32", path_launches,
+    )
+    print(f"headline fft_conv: shape {tuple(maps.shape)} on {maps.device}")
     if not (maps.is_cuda and tuple(maps.shape) == (n, s, s)):
         raise AssertionError(f"headline maps: {maps.device} {tuple(maps.shape)}")
-    if launches < 1:
-        raise AssertionError("the headline call did not launch the fused kernel")
     if not torch.isfinite(maps).all():
         raise AssertionError("headline maps are not finite")
     idx = list(range(0, n, n // 8))[:8]
     want = same_reference_f64(image, bank, idx)
-    got = maps[idx].double().cpu().numpy()
-    errs = [float(np.abs(g - w_).max() / np.abs(w_).max()) for g, w_ in zip(got, want)]
-    print(f"headline vs float64 numpy on kernels {idx}: max rel err {max(errs):.3e}")
-    if max(errs) > TOL:
-        raise AssertionError(f"headline error {max(errs)} above {TOL}")
+    err = max_rel_err_f64(maps, idx, want)
+    print(f"headline vs float64 numpy on kernels {idx}: max rel err {err:.3e}")
+    if err > TOL:
+        raise AssertionError(f"headline error {err} above {TOL}")
 
     spec = fc.fft_data_tiled(image, k, k, device="cuda", trim_mode="same")
     sk = fc.fft_kernels(bank, spectral=spec)
@@ -445,6 +759,7 @@ def main(argv=None) -> int:
     abs_err = check_kernel(*ops, geom, f"headline plan, N={n}")
     kernel_ms = cuda_ms(lambda: block_conv(*ops, *geom))
     plain_ms = cuda_ms(lambda: block_conv_reference(*ops, *geom))
+    rows["block_conv_f32"] = (abs_err, kernel_ms, plain_ms)
     cells = spec.re.shape[0] * spec.re.shape[1] * n
     print(f"kernel alone at the headline plan: {kernel_ms:.3f} ms "
           f"({cells} cells); plain version: {plain_ms:.3f} ms")
@@ -452,48 +767,82 @@ def main(argv=None) -> int:
     flop = cells * (8 * lh * wc + 8 * vh * lh * wc + 4 * vh * wc * vw)
     print(f"kernel fp32 rate: {flop / kernel_ms / 1e9:.2f} TFLOP/s "
           f"({flop / 1e12:.3f} TFLOP useful, 4-mult complex H stage)")
-    del spec, sk, ops
+    # the other dtype modes at the headline plan, N=100
+    ops16 = tuple(x.to(bf16) for x in ops)
+    label = f"headline plan, N={n}"
+    rows["block_conv_f32_bf16maps"] = (
+        check_kernel(*ops, geom, label, bf16, BF16_OUT_TOL),
+        cuda_ms(lambda: block_conv(*ops, *geom, bf16)),
+        cuda_ms(lambda: block_conv_reference(*ops, *geom, bf16)),
+    )
+    check_kernel(*ops16, geom, label)
+    check_kernel(*ops16, geom, label, bf16, BF16_OUT_TOL)
+    headline_modes = {
+        "block_conv_f32_bf16maps": rows["block_conv_f32_bf16maps"][1:],
+        "block_conv_bf16": (cuda_ms(lambda: block_conv(*ops16, *geom)),
+                            cuda_ms(lambda: block_conv_reference(*ops16, *geom))),
+        "block_conv_bf16_bf16maps": (
+            cuda_ms(lambda: block_conv(*ops16, *geom, bf16)),
+            cuda_ms(lambda: block_conv_reference(*ops16, *geom, bf16))),
+    }
+    for mode, (t, t_plain) in headline_modes.items():
+        print(f"{mode} alone at the headline plan: {t:.3f} ms; plain version: {t_plain:.3f} ms")
+    del spec, sk, ops, ops16
     torch.cuda.empty_cache()
 
-    # ---- the detection headline ----
-    det_image, det_bank, peaks_launches = detection_headline(fc, args.seed)
+    # ---- the headline at the bf16 tier ----
+    tier_ms = tier_headline(fc, image_d, bank_d, idx, want, path_launches)
+
+    # ---- the detection headline, at float32 and at the tier ----
+    det_image, det_bank, det_launches = detection_headline(fc, args.seed)
+    path_launches.update(det_launches)
+    vals16, pos16 = main_path(
+        "detection headline at the tier",
+        lambda: detect_peaks(det_image, det_bank, mode="same", correlation=True,
+                             store_dtype="bfloat16"),
+        "block_conv_peaks_bf16", path_launches,
+    )
+    if not (vals16.dtype == torch.float32 and torch.equal(pos16.cpu(), detection_centres())):
+        bad = int((pos16.cpu() != detection_centres()).any(-1).sum())
+        raise AssertionError(f"detect_peaks at the tier missed {bad} of the {n} planted centres")
+    print(f"detect_peaks at the tier: all {n} planted centres found")
 
     # ---- the direct engine through the MAC kernel ----
-    spectral_mac.launches = 0
-    direct = fc.fft_conv(image_d, kernels=bank_d, mode="same", algorithm="direct")
-    torch.cuda.synchronize()
-    mac_launches = spectral_mac.launches
-    print(f"direct fft_conv: shape {tuple(direct.shape)}, "
-          f"spectral_mac launches {mac_launches}")
-    if mac_launches < 1:
-        raise AssertionError("the direct call did not launch the MAC kernel")
+    direct = main_path(
+        "direct fft_conv",
+        lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same", algorithm="direct"),
+        "spectral_mac_f32", path_launches,
+    )
     if not (tuple(direct.shape) == (n, s, s) and torch.isfinite(direct).all()):
         raise AssertionError("direct maps malformed")
-    got = direct[idx].double().cpu().numpy()
-    errs = [float(np.abs(g - w_).max() / np.abs(w_).max()) for g, w_ in zip(got, want)]
-    print(f"direct fft_conv vs float64 numpy on kernels {idx}: "
-          f"max rel err {max(errs):.3e}")
-    if max(errs) > TOL:
-        raise AssertionError(f"direct error {max(errs)} above {TOL}")
+    err = max_rel_err_f64(direct, idx, want)
+    print(f"direct fft_conv vs float64 numpy on kernels {idx}: max rel err {err:.3e}")
+    if err > TOL:
+        raise AssertionError(f"direct error {err} above {TOL}")
     del direct
     dspec = fc.fft_data(image_d, k, k)
     dsk = fc.fft_kernels(bank_d, spectral=dspec)
     mac_ops = (dspec.re[None], dspec.im[None], dsk.re, dsk.im)
     mac_abs = check_mac(mac_ops)
+    mac16_ops = tuple(x.to(bf16) for x in mac_ops)
+    mac16_abs = check_mac(mac16_ops, MAC_BF16_TOL)
     # F=3: the same pixels, three channels of random spectra
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     h, wc = dspec.re.shape[-2:]
     mac3_ops = tuple(torch.randn((m, 3, h, wc), generator=gen, device="cuda")
                      for m in (1, 1, n, n))
     check_mac(mac3_ops)
+    check_mac(tuple(x.to(bf16) for x in mac3_ops), MAC_BF16_TOL)
+    del dspec, dsk
     torch.cuda.empty_cache()
 
     # ---- times of the detection and MAC paths ----
     detect_ms = cuda_ms(lambda: detect_peaks(det_image, det_bank))
+    detect16_ms = cuda_ms(lambda: detect_peaks(det_image, det_bank, store_dtype="bfloat16"))
     maps_path_ms = cuda_ms(lambda: peaks_from_maps(
         fc.fft_conv(det_image, kernels=det_bank, mode="same", correlation=True)[None]))
-    print(f"detect_peaks call: {detect_ms:.3f} ms; maps path (fft_conv + "
-          f"peaks_from_maps): {maps_path_ms:.3f} ms")
+    print(f"detect_peaks call: {detect_ms:.3f} ms; at the bf16 tier: {detect16_ms:.3f} ms; "
+          f"maps path (fft_conv + peaks_from_maps): {maps_path_ms:.3f} ms")
     dspec_t = fc.fft_data_tiled(det_image, k, k, trim_mode="same")
     dsk_t = fc.fft_kernels(det_bank, spectral=dspec_t, correlation=True)
     geom = (dspec_t.block_h, dspec_t.block_w, dspec_t.max_kh, dspec_t.max_kw,
@@ -502,51 +851,49 @@ def main(argv=None) -> int:
     peaks_err = check_peaks(*pops, geom, f"headline plan, N={n}")
     peaks_ms = cuda_ms(lambda: block_conv_peaks(*pops, *geom))
     peaks_plain_ms = cuda_ms(lambda: block_conv_peaks_reference(*pops, *geom))
-    print(f"peaks kernel alone at the headline plan: {peaks_ms:.3f} ms; "
-          f"plain version: {peaks_plain_ms:.3f} ms")
-    del dspec_t, dsk_t, pops
+    rows["block_conv_peaks_f32"] = (peaks_err, peaks_ms, peaks_plain_ms)
+    pops16 = tuple(x.to(bf16) for x in pops)
+    check_peaks(*pops16, geom, f"headline plan, N={n}")
+    peaks16_ms = cuda_ms(lambda: block_conv_peaks(*pops16, *geom))
+    print(f"peaks kernel alone at the headline plan: {peaks_ms:.3f} ms, bf16 spectra "
+          f"{peaks16_ms:.3f} ms; plain version: {peaks_plain_ms:.3f} ms")
+    del dspec_t, dsk_t, pops, pops16
     torch.cuda.empty_cache()
-    direct_ms = cuda_ms(lambda: fc.fft_conv(
-        image_d, kernels=bank_d, mode="same", algorithm="direct"))
+    direct_ms = tier_ms["direct, f32"]
     print(f"direct fft_conv (MAC kernel): {direct_ms:.3f} ms")
     mac_ms = cuda_ms(lambda: spectral_mac(*mac_ops))
     einsum_ms = cuda_ms(lambda: spectral_mac_planes(*mac_ops))
+    rows["spectral_mac_f32"] = (mac_abs, mac_ms, einsum_ms)
     print(f"MAC kernel alone at the direct shape, F=1: {mac_ms:.3f} ms; "
           f"einsum: {einsum_ms:.3f} ms")
+    rows["spectral_mac_bf16"] = (mac16_abs, cuda_ms(lambda: spectral_mac(*mac16_ops)),
+                                 cuda_ms(lambda: spectral_mac_planes(*mac16_ops)))
+    print(f"MAC kernel alone at the direct shape, F=1, bf16 planes: "
+          f"{rows['spectral_mac_bf16'][1]:.3f} ms; einsum: {rows['spectral_mac_bf16'][2]:.3f} ms")
     mac3_ms = cuda_ms(lambda: spectral_mac(*mac3_ops))
     einsum3_ms = cuda_ms(lambda: spectral_mac_planes(*mac3_ops))
     print(f"MAC kernel alone at the direct shape, F=3: {mac3_ms:.3f} ms; "
           f"einsum: {einsum3_ms:.3f} ms")
+    del mac_ops, mac16_ops, mac3_ops, det_image, det_bank
+    torch.cuda.empty_cache()
+
+    # ---- the DPM/HOG detector path at full width ----
+    dpm_ms, dpm_kernels = dpm_path(fc, args.seed, path_launches)
+    rows.update(dpm_kernels)
     print(f"peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    print(json.dumps({"kernels": [{
-        "name": "block_conv_f32",
-        "route": "cuda",
-        "source": "cuda_fft_convolution_torch/csrc/block_conv.cu",
-        "replaces": "cuda_fft_convolution_tpu/ops/block_conv.py:618",
-        "launches": launches,
-        "max_abs_err": abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "block_conv_peaks_f32",
-        "route": "cuda",
-        "source": "cuda_fft_convolution_torch/csrc/block_conv_peaks.cu",
-        "replaces": "cuda_fft_convolution_tpu/ops/block_conv.py:1833",
-        "launches": peaks_launches,
-        "max_abs_err": peaks_err,
-        "ms": peaks_ms,
-        "plain_ms": peaks_plain_ms,
-    }, {
-        "name": "spectral_mac_f32",
-        "route": "cuda",
-        "source": "cuda_fft_convolution_torch/csrc/spectral_mac.cu",
-        "replaces": "cuda_fft_convolution_tpu/ops/spectral_mac.py:206",
-        "launches": mac_launches,
-        "max_abs_err": mac_abs,
-        "ms": mac_ms,
-        "plain_ms": einsum_ms,
-    }]}))
+    kernels = []
+    for mode, (err, ms, plain) in rows.items():
+        wrapper = mode.removesuffix("_bf16maps").rsplit("_", 1)[0]
+        source, replaces = SOURCES[wrapper]
+        kernels.append({
+            "name": mode, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": path_launches[mode], "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        })
+    missing = [m for m in rows if path_launches[m] < 1]
+    if missing:
+        raise AssertionError(f"kernel modes the main path never launched: {missing}")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

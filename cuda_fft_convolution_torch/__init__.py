@@ -5,15 +5,16 @@ NVIDIA H100. The JAX package stays the reference: the port keeps its public
 layouts and entry points, and its tests hold each ported function to the JAX
 function of the same name. FFTs run on ``torch.fft``; the fused overlap-save
 block convolution, its peaks variant and the spectral MAC are CUDA kernels
-written for Hopper (``csrc/``), built with ``nvcc`` at first use. This
-package imports ``torch`` and never ``jax``.
+written for Hopper (``csrc/``), built with ``nvcc`` at first use, each at
+float32 and at the bf16 serving tier (``store_dtype='bfloat16'``,
+``out_dtype='bfloat16'``). This package imports ``torch`` and never ``jax``.
 
   - ``fft_conv``        ≈ cudaConvolutionFFT
   - ``fft_data``        ≈ cudaFFTData
   - ``conv_spectral``   ≈ cudaConvFFTData
   - ``fft_data_tiled``, ``fft_kernels``: reusable block and bank spectra
   - ``models.detect_peaks``, ``detect_top_k``, ``detect_local_peaks``: the
-    detection heads
+    detection heads; ``models.hog_features``: the DPM path's HOG front end
 """
 
 from cuda_fft_convolution_torch.api import (

@@ -15,6 +15,12 @@ per kernel for ragged windows). Inputs may be numpy arrays or tensors.
 ``device`` is None); a tensor stays on its device unless ``device`` is given.
 Nothing picks a device by what is available.
 
+``store_dtype='bfloat16'`` is the JAX package's bf16 serving tier: the
+spectra are transformed in float32 and stored bfloat16, every MAC and
+inverse accumulates float32, and a bank meets data spectra of its own tier
+only. ``out_dtype='bfloat16'`` stores the output maps bfloat16. Both run
+through the CUDA kernels on the card.
+
 Options of the JAX package that are not ported yet raise
 ``InvalidInputError`` naming their ROADMAP item.
 """
@@ -81,25 +87,47 @@ def _check_padding_layout(padding: str, kernel_layout: str) -> None:
     )
 
 
-def _check_store_dtype(store_dtype: str) -> None:
+# ---------------------------------------------------------------------------
+# the bf16 serving tier
+# ---------------------------------------------------------------------------
+
+
+def _resolve_store_dtype(store_dtype: str) -> torch.dtype:
+    """'float32' | 'bfloat16' → the dtype stored spectra take."""
     validate(
         store_dtype in ("float32", "bfloat16"),
         "store_dtype must be 'float32' or 'bfloat16'",
     )
-    _not_ported(
-        store_dtype == "bfloat16", "store_dtype='bfloat16' (the bf16 tier)",
-        "queue 1 item 6",
-    )
+    return torch.float32 if store_dtype == "float32" else torch.bfloat16
 
 
-def _check_out_dtype(out_dtype) -> None:
+def _resolve_out_dtype(out_dtype) -> torch.dtype:
+    """None | 'float32' | 'bfloat16' → the maps' dtype (float32 unless
+    'bfloat16')."""
     validate(
         out_dtype in (None, "float32", "bfloat16"),
         f"out_dtype must be None, 'float32' or 'bfloat16', got {out_dtype!r}",
     )
-    _not_ported(
-        out_dtype == "bfloat16", "out_dtype='bfloat16' (bf16 maps)",
-        "queue 1 item 6",
+    return torch.bfloat16 if out_dtype == "bfloat16" else torch.float32
+
+
+def _store_dtype_of(spectral) -> str:
+    """The tier of stored spectra: 'bfloat16' or 'float32'."""
+    return "bfloat16" if spectral.re.dtype == torch.bfloat16 else "float32"
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _check_tier(sk: SpectralKernels, spectral) -> None:
+    """A bank meets data spectra of its own store dtype: a mixed pair is an
+    error, never a silent upcast."""
+    validate(
+        sk.re.dtype == spectral.re.dtype,
+        f"spectra store-dtype mismatch: kernels {_dtype_name(sk.re.dtype)}, "
+        f"data {_dtype_name(spectral.re.dtype)} — precompute both sides with "
+        "the same store_dtype ('bfloat16' tier pairs with a bf16 bank)",
     )
 
 
@@ -249,15 +277,18 @@ def fft_data(
 ) -> SpectralData:
     """Precompute the reusable data spectrum — ≈ ``cudaFFTData(data, Kh,
     Kw)``: zero padding, corner layout, FFT dims ``policy(data + maxK − 1)``
-    (default 'fast')."""
+    (default 'fast'). ``store_dtype='bfloat16'``: the transform runs in
+    float32 and the planes are stored bf16 (the serving tier; pair with
+    ``fft_kernels(..., store_dtype='bfloat16')``)."""
     validate(max_kernel_h >= 1 and max_kernel_w >= 1, "kernel dims must be >= 1")
     _check_padding_layout(padding, kernel_layout)
-    _check_store_dtype(store_dtype)
+    store_t = _resolve_store_dtype(store_dtype)
     policy = _resolve_policy(policy)
     data_cf, batched = _data_to_cfirst(data, device)
     b, f, h, w = data_cf.shape
     fft_h, fft_w = compute_fft_size(h, w, max_kernel_h, max_kernel_w, policy)
     re, im = rfft2_padded_planes(data_cf, fft_h, fft_w)
+    re, im = re.to(store_t), im.to(store_t)
     if not batched:
         re, im = re[0], im[0]
     return SpectralData(
@@ -289,9 +320,12 @@ def fft_data_tiled(
     max): the engine then writes the windowed maps directly, with no trim
     copy. ``trim_mode='fftmap'`` bakes the direct engine's FFT canvas
     (``policy(data + trim_kernel − 1)``, origin 0), so the assembled maps
-    equal the direct engine's raw circular maps."""
+    equal the direct engine's raw circular maps.
+
+    ``store_dtype='bfloat16'``: the block spectra are stored bf16 (the
+    serving tier, see ``fft_data``)."""
     validate(max_kernel_h >= 1 and max_kernel_w >= 1, "kernel dims must be >= 1")
-    _check_store_dtype(store_dtype)
+    store_t = _resolve_store_dtype(store_dtype)
     validate(
         trim_mode in ("full", "same", "valid", "fftmap"),
         "trim_mode must be 'full', 'same', 'valid', or 'fftmap'",
@@ -351,7 +385,7 @@ def fft_data_tiled(
         win_h = win_w = None
     re, im = fft_data_blocks(
         data_cf, block_h, block_w, max_kernel_h, max_kernel_w,
-        origin_h, origin_w, win_h, win_w,
+        origin_h, origin_w, win_h, win_w, dtype=store_t,
     )
     if not batched:
         re, im = re[0], im[0]
@@ -375,13 +409,15 @@ def fft_kernels(
     kernel_layout: str = "corner",
     store_dtype: str = "float32",
 ) -> SpectralKernels:
-    """Precompute a kernel bank's spectra at a fixed FFT size — planar f32.
-    Pass explicit (fft_h, fft_w) or the spectra the bank will be used
-    against (their block size for ``TiledSpectralData``); the bank then
-    lands on the spectra's device unless ``device`` is given.
+    """Precompute a kernel bank's spectra at a fixed FFT size — planar
+    planes, float32 or, with ``store_dtype='bfloat16'``, transformed in
+    float32 and stored bf16 (the serving tier; pair with bf16 data
+    spectra). Pass explicit (fft_h, fft_w) or the spectra the bank will be
+    used against (their block size for ``TiledSpectralData``); the bank
+    then lands on the spectra's device unless ``device`` is given.
     ``correlation=True`` flips each kernel spatially first."""
     _check_padding_layout("zero", kernel_layout)
-    _check_store_dtype(store_dtype)
+    store_t = _resolve_store_dtype(store_dtype)
     if isinstance(spectral, TiledSpectralData):
         fft_h, fft_w = spectral.block_h, spectral.block_w
         feature_dim = spectral.feature_dim
@@ -402,6 +438,7 @@ def fft_kernels(
     )
     kstack = _apply_correlation_flip(kstack, khs, kws, correlation)
     re, im = rfft2_padded_planes(kstack, fft_h, fft_w)
+    re, im = re.to(store_t), im.to(store_t)
     return SpectralKernels(
         re=re, im=im, fft_h=fft_h, fft_w=fft_w, kernel_hs=khs, kernel_ws=kws
     )
@@ -473,12 +510,12 @@ def _trim(
     return outs
 
 
-def _check_bank(sk: SpectralKernels, correlation: bool) -> None:
+def _check_bank(sk: SpectralKernels, spectral, correlation: bool) -> None:
     validate(not correlation, "correlation must be baked into fft_kernels "
              "when passing SpectralKernels")
     _not_ported(sk.centered, "a kernel_layout='centered' bank", "queue 1 item 1")
     _not_ported(sk.flat, "a storage='flat' bank", "queue 1 item 5")
-    _check_store_dtype("bfloat16" if sk.re.dtype == torch.bfloat16 else "float32")
+    _check_tier(sk, spectral)
 
 
 def conv_spectral(
@@ -503,25 +540,29 @@ def conv_spectral(
     The spectral MAC of the direct engine and of the unfused tiled branch
     always runs through the MAC kernel (``ops/spectral_mac.py
     spectral_mac``); ``use_pallas``, the JAX package's selection between
-    its einsum and its Pallas kernel, is accepted with no effect."""
+    its einsum and its Pallas kernel, is accepted with no effect.
+
+    bf16 spectra (the serving tier) take a bank of the same tier: raw
+    kernels are transformed at it, and a ``SpectralKernels`` of the other
+    tier is an error. On the direct engine their products are stored bf16
+    and the inverse runs on them upcast to float32; the maps are float32.
+    ``out_dtype='bfloat16'`` stores the maps bf16 (in the kernel on the
+    fused tiled branch)."""
     validate(mode in _MODES, f"mode must be one of {_MODES}")
-    _check_out_dtype(out_dtype)
+    out_t = _resolve_out_dtype(out_dtype)
     _check_padding_layout("zero", kernel_layout)
     _not_ported(
         getattr(spectral, "clamp", False), "padding='clamp' spectra",
         "queue 1 item 1",
     )
-    _check_store_dtype(
-        "bfloat16" if spectral.re.dtype == torch.bfloat16 else "float32"
-    )
     if isinstance(spectral, TiledSpectralData):
         return _conv_spectral_tiled(
             spectral, kernels, mode=mode, correlation=correlation,
-            same_offset=same_offset,
+            same_offset=same_offset, out_dtype=out_t,
         )
     if isinstance(kernels, SpectralKernels):
         sk = kernels
-        _check_bank(sk, correlation)
+        _check_bank(sk, spectral, correlation)
         validate(
             sk.fft_h == spectral.fft_h and sk.fft_w == spectral.fft_w,
             f"SpectralKernels FFT dims ({sk.fft_h},{sk.fft_w}) != "
@@ -533,7 +574,10 @@ def conv_spectral(
             f"data {spectral.feature_dim}",
         )
     else:
-        sk = fft_kernels(kernels, spectral=spectral, correlation=correlation)
+        sk = fft_kernels(
+            kernels, spectral=spectral, correlation=correlation,
+            store_dtype=_store_dtype_of(spectral),
+        )
     if mode != "fftmap":
         # Linear windows need FFT dims covering data + kernel − 1; a larger
         # kernel would return circularly aliased maps.
@@ -551,7 +595,11 @@ def conv_spectral(
     d_re = spectral.re if batched else spectral.re[None]
     d_im = spectral.im if batched else spectral.im[None]
     p_re, p_im = spectral_mac_auto_planes(d_re, d_im, sk.re, sk.im)
+    if d_re.dtype == torch.bfloat16:
+        # The tier stores its products bf16 too, as the JAX package does.
+        p_re, p_im = p_re.to(torch.bfloat16), p_im.to(torch.bfloat16)
     maps = irfft2_norm_planes(p_re, p_im, spectral.fft_h, spectral.fft_w)
+    maps = maps.to(out_t)
     return _trim(
         maps, spectral, sk.kernel_hs, sk.kernel_ws, mode, batched,
         same_offset=same_offset,
@@ -565,8 +613,10 @@ def _conv_spectral_tiled(
     mode: str,
     correlation: bool,
     same_offset: str = "scipy",
+    out_dtype: torch.dtype = torch.float32,
 ):
-    """Overlap-save bank convolution against precomputed block spectra."""
+    """Overlap-save bank convolution against precomputed block spectra,
+    maps in ``out_dtype``."""
     validate(
         mode != "fftmap" or spectral.fftmap_canvas,
         "mode='fftmap' (raw circular maps) needs spectra with the FFT "
@@ -575,14 +625,17 @@ def _conv_spectral_tiled(
     )
     if isinstance(kernels, SpectralKernels):
         sk = kernels
-        _check_bank(sk, correlation)
+        _check_bank(sk, spectral, correlation)
         validate(
             sk.fft_h == spectral.block_h and sk.fft_w == spectral.block_w,
             f"SpectralKernels FFT dims ({sk.fft_h},{sk.fft_w}) != block dims "
             f"({spectral.block_h},{spectral.block_w})",
         )
     else:
-        sk = fft_kernels(kernels, spectral=spectral, correlation=correlation)
+        sk = fft_kernels(
+            kernels, spectral=spectral, correlation=correlation,
+            store_dtype=_store_dtype_of(spectral),
+        )
     validate(
         max(sk.kernel_hs) <= spectral.max_kh
         and max(sk.kernel_ws) <= spectral.max_kw,
@@ -603,7 +656,7 @@ def _conv_spectral_tiled(
     d_re = spectral.re if batched else spectral.re[None]
     d_im = spectral.im if batched else spectral.im[None]
     chunk = _tiled_chunk_size(spectral, d_re, sk.num_kernels)
-    maps = _tiled_chunked_maps(spectral, d_re, d_im, sk, chunk)
+    maps = _tiled_chunked_maps(spectral, d_re, d_im, sk, chunk, out_dtype)
     return _trim(
         maps, spectral, sk.kernel_hs, sk.kernel_ws, mode, batched,
         same_offset=same_offset,
@@ -638,19 +691,20 @@ def _tiled_chunked_maps(
     d_im: torch.Tensor,
     sk: SpectralKernels,
     chunk_size: int,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Run the bank through conv_blocks in ``chunk_size`` slices (one call
-    when the whole bank fits)."""
+    when the whole bank fits), maps in ``out_dtype``."""
     n = sk.num_kernels
     geom = (
         spectral.block_h, spectral.block_w, spectral.max_kh, spectral.max_kw,
         spectral.out_h, spectral.out_w,
     )
     if chunk_size >= n:
-        return conv_blocks(d_re, d_im, sk.re, sk.im, *geom)
+        return conv_blocks(d_re, d_im, sk.re, sk.im, *geom, out_dtype)
     outs = [
         conv_blocks(d_re, d_im, sk.re[s : s + chunk_size],
-                    sk.im[s : s + chunk_size], *geom)
+                    sk.im[s : s + chunk_size], *geom, out_dtype)
         for s in range(0, n, chunk_size)
     ]
     return torch.cat(outs, dim=1)
@@ -684,11 +738,14 @@ def fft_conv(
     direct. ``max_kernel_h/w`` may be omitted (inferred from the bank).
     Uniform banks with mode 'same'/'valid' bake the window into the block
     tiling, and mode 'fftmap' bakes the direct engine's canvas.
-    ``use_pallas`` as in ``conv_spectral``."""
+    ``use_pallas`` as in ``conv_spectral``. ``store_dtype='bfloat16'`` runs
+    every spectrum at the bf16 serving tier (see ``fft_data``);
+    ``out_dtype='bfloat16'`` stores the maps bf16 (see ``conv_spectral``);
+    the two compose."""
     validate(kernels is not None, "kernels is required")
     validate(mode in _MODES, f"mode must be one of {_MODES}")
-    _check_out_dtype(out_dtype)
-    _check_store_dtype(store_dtype)
+    _resolve_out_dtype(out_dtype)
+    _resolve_store_dtype(store_dtype)
     validate(
         algorithm in ("auto", "direct", "tiled"),
         "algorithm must be 'auto', 'direct', or 'tiled'",
@@ -741,23 +798,24 @@ def fft_conv(
             if plan is None:
                 spectral = fft_data_tiled(
                     data, max_kernel_h, max_kernel_w, device=device,
-                    **trim_kwargs,
+                    store_dtype=store_dtype, **trim_kwargs,
                 )
             else:
                 lh, lw, pkh, pkw = plan
                 spectral = fft_data_tiled(
                     data, pkh, pkw, block_h=lh, block_w=lw, device=device,
-                    **trim_kwargs,
+                    store_dtype=store_dtype, **trim_kwargs,
                 )
             return conv_spectral(
                 spectral, kernels, mode=mode, correlation=correlation,
-                same_offset=same_offset,
+                same_offset=same_offset, out_dtype=out_dtype,
             )
     # algorithm == 'direct', or 'auto' with the planner declining to tile
     spectral = fft_data(
         data, max_kernel_h, max_kernel_w, policy=policy, device=device,
+        store_dtype=store_dtype,
     )
     return conv_spectral(
         spectral, kernels, mode=mode, correlation=correlation,
-        same_offset=same_offset,
+        same_offset=same_offset, out_dtype=out_dtype,
     )

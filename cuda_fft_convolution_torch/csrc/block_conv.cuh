@@ -1,7 +1,10 @@
-// Fused overlap-save block convolution, fp32, for Hopper (sm_90a): the
-// transform stages shared by the maps kernel (block_conv.cu) and the peaks
-// kernel (block_conv_peaks.cu). The two differ only in their epilogue, a
-// template argument of the one kernel below, so they cannot drift apart.
+// Fused overlap-save block convolution for Hopper (sm_90a): the transform
+// stages shared by the maps kernel (block_conv.cu) and the peaks kernel
+// (block_conv_peaks.cu). The two differ only in their epilogue, a template
+// argument of the one kernel below, so they cannot drift apart. The spectra
+// D and K are fp32 or bf16 (the serving tier, store_dtype='bfloat16'), a
+// second template argument: a bf16 load is converted to fp32 in registers,
+// and everything after it is fp32 whatever the spectra type.
 //
 // For each cell (image b, block (i, j), kernel n) the kernel computes
 //
@@ -15,6 +18,14 @@
 // JAX package's _inv_full_mats and _inv_packed_mats windows (ops/dft.py),
 // handed in as f32 planes; G arrives transposed, (Lh, Vh), so that its
 // staging loads coalesce.
+//
+// bf16 spectra. The JAX kernel's BF16IO mode feeds bf16 operands to
+// single-pass MXU dots with f32 accumulation and also rounds S, X, G and M
+// to bf16 on the way. Here only the loads of D and K are bf16: S, X, G, M
+// and every product stay IEEE fp32, so the result is the fp32 kernel's on
+// the bf16-rounded spectra, at least as accurate as BF16IO. What bf16
+// changes is the bytes of D and K streamed per cell (half), not the
+// arithmetic.
 //
 // What bounds it. At the 2048^2 x 100 x 64^2 headline plan (blocks 127 x 447,
 // valid window 64 x 384, Wc = 224, 192 blocks) one cell is ~37 MFLOP as
@@ -66,6 +77,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -92,6 +104,10 @@ struct Tile {
   static constexpr int kPerM = kKC * kCols / kThreads;  // M elements / thread
 };
 static_assert(kCols == 32 * 4 && kCols % kKC == 0, "column layout");
+
+// A spectra element as fp32: the identity for fp32, a widening for bf16.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 inline int padded_bins(int wc) { return (wc + kCols - 1) / kCols * kCols; }
 
@@ -120,10 +136,10 @@ struct OutGeom {
   int n, nbh, nbw, row_chunks, vh, vw, out_h, out_w;
 };
 
-template <int ROWS, int TR, int MIN_BLOCKS, class Epi>
-__global__ void __launch_bounds__(kThreads, MIN_BLOCKS) block_conv_f32_kernel(
-    const float* __restrict__ d_re, const float* __restrict__ d_im,
-    const float* __restrict__ k_re, const float* __restrict__ k_im,
+template <class TS, int ROWS, int TR, int MIN_BLOCKS, class Epi>
+__global__ void __launch_bounds__(kThreads, MIN_BLOCKS) block_conv_kernel(
+    const TS* __restrict__ d_re, const TS* __restrict__ d_im,
+    const TS* __restrict__ k_re, const TS* __restrict__ k_im,
     const float* __restrict__ gt_re, const float* __restrict__ gt_im,
     const float* __restrict__ m_re, const float* __restrict__ m_im,
     typename Epi::Out out, int nbh, int nbw, int f, int n, int lh, int wc,
@@ -157,10 +173,10 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) block_conv_f32_kernel(
   const int r0 = rc * ROWS;
 
   const long long plane = static_cast<long long>(lh) * wc;
-  const float* dr_c = d_re + cell * f * plane;
-  const float* di_c = d_im + cell * f * plane;
-  const float* kr_c = k_re + static_cast<long long>(ni) * f * plane;
-  const float* ki_c = k_im + static_cast<long long>(ni) * f * plane;
+  const TS* dr_c = d_re + cell * f * plane;
+  const TS* di_c = d_im + cell * f * plane;
+  const TS* kr_c = k_re + static_cast<long long>(ni) * f * plane;
+  const TS* ki_c = k_im + static_cast<long long>(ni) * f * plane;
 
   // ---- H stage: X[r, v] = sum_u G[r0 + r, u] S[u, v] ----
   for (int c0 = 0; c0 < wc_pad; c0 += kCols) {
@@ -180,10 +196,10 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) block_conv_f32_kernel(
         const int v = c0 + e % kCols;
         const bool ok = u < lh && v < wc;
         const long long off = ok ? static_cast<long long>(u) * wc + v + ff * plane : 0;
-        dk[q][0] = ok ? dr_c[off] : 0.f;
-        dk[q][1] = ok ? di_c[off] : 0.f;
-        dk[q][2] = ok ? kr_c[off] : 0.f;
-        dk[q][3] = ok ? ki_c[off] : 0.f;
+        dk[q][0] = ok ? to_f32(dr_c[off]) : 0.f;
+        dk[q][1] = ok ? to_f32(di_c[off]) : 0.f;
+        dk[q][2] = ok ? to_f32(kr_c[off]) : 0.f;
+        dk[q][3] = ok ? to_f32(ki_c[off]) : 0.f;
       }
     };
     load_dk(0, 0);
@@ -325,9 +341,9 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) block_conv_f32_kernel(
   epi.finish(stage);
 }
 
-template <int ROWS, int TR, int MIN_BLOCKS, class Epi>
-int launch(const float* d_re, const float* d_im, const float* k_re,
-           const float* k_im, const float* gt_re, const float* gt_im,
+template <class TS, int ROWS, int TR, int MIN_BLOCKS, class Epi>
+int launch(const TS* d_re, const TS* d_im, const TS* k_re,
+           const TS* k_im, const float* gt_re, const float* gt_im,
            const float* m_re, const float* m_im, typename Epi::Out out, int b,
            int nbh, int nbw, int f, int n, int lh, int wc, int vh, int vw,
            int out_h, int out_w, cudaStream_t stream) {
@@ -335,7 +351,7 @@ int launch(const float* d_re, const float* d_im, const float* k_re,
   const int row_chunks = (vh + ROWS - 1) / ROWS;
   const long long grid = static_cast<long long>(b) * nbh * nbw * row_chunks * n;
   if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  auto kernel = block_conv_f32_kernel<ROWS, TR, MIN_BLOCKS, Epi>;
+  auto kernel = block_conv_kernel<TS, ROWS, TR, MIN_BLOCKS, Epi>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -348,9 +364,9 @@ int launch(const float* d_re, const float* d_im, const float* k_re,
 // Checks the geometry and launches the configuration for its width on
 // `stream`; does not synchronise. Returns cudaGetLastError() after the
 // launch (0 = launched), or the error that stopped it.
-template <class Epi>
-int launch_block_conv(const float* d_re, const float* d_im, const float* k_re,
-                      const float* k_im, const float* gt_re, const float* gt_im,
+template <class TS, class Epi>
+int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
+                      const TS* k_im, const float* gt_re, const float* gt_im,
                       const float* m_re, const float* m_im, typename Epi::Out out,
                       int b, int nbh, int nbw, int f, int n, int lh, int wc,
                       int vh, int vw, int out_h, int out_w, void* stream) {
@@ -360,10 +376,10 @@ int launch_block_conv(const float* d_re, const float* d_im, const float* k_re,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wide(wc))
-    return launch<32, 4, 2, Epi>(d_re, d_im, k_re, k_im, gt_re, gt_im, m_re,
+    return launch<TS, 32, 4, 2, Epi>(d_re, d_im, k_re, k_im, gt_re, gt_im, m_re,
                                  m_im, out, b, nbh, nbw, f, n, lh, wc, vh, vw,
                                  out_h, out_w, s);
-  return launch<64, 8, 1, Epi>(d_re, d_im, k_re, k_im, gt_re, gt_im, m_re,
+  return launch<TS, 64, 8, 1, Epi>(d_re, d_im, k_re, k_im, gt_re, gt_im, m_re,
                                m_im, out, b, nbh, nbw, f, n, lh, wc, vh, vw,
                                out_h, out_w, s);
 }

@@ -1,9 +1,10 @@
-// Fused overlap-save block convolution, fp32, for Hopper (sm_90a): the peaks
-// kernel.
+// Fused overlap-save block convolution for Hopper (sm_90a): the peaks
+// kernel, on fp32 or bf16 spectra (block_conv.cuh).
 //
 // Replaces cuda_fft_convolution_tpu/ops/block_conv.py::block_conv_peaks_pallas
 // at one block per cell (mbh = mbw = 1; its v3 body _make_kernel_v3_peaks
-// and epilogue _peaks_reducer). It runs the transforms of block_conv.cuh
+// and epilogue _peaks_reducer), at fp32 spectra and at the bf16 tier; the
+// values are fp32 and the indices int32 either way. It runs the transforms of block_conv.cuh
 // and, in place of the maps kernel's store, reduces each cell's valid
 // window to (max, global flat index y * out_w + x): the larger value wins,
 // between equal values the smaller index wins, and positions past
@@ -90,17 +91,23 @@ struct ReducePeaks {
 
 }  // namespace
 
-// Writes the partial pyramid vals/idxs (B, N, nbh, row_chunks, nbw), with
-// row_chunks = ceil(vh / fftconv_block_conv_f32_rows(wc)). Launches on
-// `stream`; does not synchronise. Returns cudaGetLastError() after the
-// launch (0 = launched), or the error that stopped it.
-extern "C" int fftconv_block_conv_peaks_f32(
-    const float* d_re, const float* d_im, const float* k_re, const float* k_im,
-    const float* gt_re, const float* gt_im, const float* m_re, const float* m_im,
-    float* vals, int* idxs, int b, int nbh, int nbw, int f, int n, int lh,
-    int wc, int vh, int vw, int out_h, int out_w, void* stream) {
-  return launch_block_conv<ReducePeaks>(
-      d_re, d_im, k_re, k_im, gt_re, gt_im, m_re, m_im,
-      ReducePeaks::Out{vals, idxs}, b, nbh, nbw, f, n, lh, wc, vh, vw, out_h,
-      out_w, stream);
-}
+// Write the partial pyramid vals/idxs (B, N, nbh, row_chunks, nbw), with
+// row_chunks = ceil(vh / fftconv_block_conv_f32_rows(wc)), from fp32
+// (_f32) or bf16 (_bf16) spectra. Launch on `stream`; do not synchronise.
+// Return cudaGetLastError() after the launch (0 = launched), or the error
+// that stopped it.
+#define FFTCONV_PEAKS_ENTRY(NAME, TS)                                           \
+  extern "C" int NAME(const TS* d_re, const TS* d_im, const TS* k_re,           \
+                      const TS* k_im, const float* gt_re, const float* gt_im,   \
+                      const float* m_re, const float* m_im, float* vals,        \
+                      int* idxs, int b, int nbh, int nbw, int f, int n, int lh, \
+                      int wc, int vh, int vw, int out_h, int out_w,             \
+                      void* stream) {                                           \
+    return launch_block_conv<TS, ReducePeaks>(                                 \
+        d_re, d_im, k_re, k_im, gt_re, gt_im, m_re, m_im,                      \
+        ReducePeaks::Out{vals, idxs}, b, nbh, nbw, f, n, lh, wc, vh, vw,       \
+        out_h, out_w, stream);                                                 \
+  }
+
+FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_f32, float)
+FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_bf16, __nv_bfloat16)

@@ -14,6 +14,13 @@ Inputs are those of the JAX heads: channel-last data ((H, W, F) or
 (B, H, W, F), numpy or tensors — a tensor stays on its device), or
 precomputed ``SpectralData`` / ``TiledSpectralData``; a stacked bank
 (N, Kh, Kw, F), a list of (Kh, Kw, F) kernels, or ``SpectralKernels``.
+
+``store_dtype='bfloat16'`` runs the heads at the bf16 serving tier: the
+data spectra of an array input are stored bf16, and a raw bank is
+transformed at the tier of the spectra it meets (the peaks kernel then
+reads bf16 spectra; values stay float32, positions int32).
+``detect_local_peaks`` also takes ``out_dtype``, the dtype of the maps it
+reduces.
 """
 
 from __future__ import annotations
@@ -141,7 +148,13 @@ def _tiled_head_operands(
             "spectra (planar at the block FFT size required)",
         )
     else:
-        sk = _api.fft_kernels(kernels, spectral=sd, correlation=correlation)
+        # A raw bank takes the tier of the spectra it meets (the JAX head
+        # takes the head's store_dtype, the same tier on every array input).
+        sk = _api.fft_kernels(
+            kernels, spectral=sd, correlation=correlation,
+            store_dtype=_api._store_dtype_of(sd),
+        )
+    _api._check_tier(sk, sd)
     validate(
         kh <= sd.max_kh and kw <= sd.max_kw,
         f"kernel ({kh},{kw}) exceeds the tiled spectra's planned envelope "
@@ -261,9 +274,9 @@ def detect_peaks(
     ``algorithm='auto'|'tiled'`` routes through the overlap-save engine
     when the planner tiles — at fused geometries the peaks kernel, no maps
     written; 'direct' computes the direct engine's maps and reduces them.
-    ``store_dtype='bfloat16'`` is not ported (ROADMAP queue 1 item 6)."""
+    ``store_dtype='bfloat16'``: the bf16 serving tier (module docstring)."""
     _check_mode(mode, "detect_peaks", "global peak position")
-    _api._check_store_dtype(store_dtype)
+    _api._resolve_store_dtype(store_dtype)
     return _route(
         data, kernels, mode=mode, correlation=correlation,
         algorithm=algorithm, same_offset=same_offset,
@@ -298,7 +311,7 @@ def detect_top_k(
     descending, ties by ascending flat index)."""
     validate(int(k) >= 1, f"k must be >= 1; got {k}")
     _check_mode(mode, "detect_top_k", "global peak positions")
-    _api._check_store_dtype(store_dtype)
+    _api._resolve_store_dtype(store_dtype)
     return _route(
         data, kernels, mode=mode, correlation=correlation,
         algorithm=algorithm, same_offset=same_offset,
@@ -335,13 +348,14 @@ def detect_local_peaks(
     borders, so there is no per-block kernel: the maps come from the
     regular engine (``algorithm`` as in ``fft_conv``) and are reduced by
     ``local_peaks_from_maps``. Ragged cell lists are accepted for
-    mode='same'. bf16 spectra and maps are not ported (ROADMAP queue 1
-    item 6)."""
+    mode='same'. ``out_dtype='bfloat16'`` stores those maps bf16; the
+    scores compare in float32 after the upcast, and the values returned are
+    the upcast scores."""
     validate(int(k) >= 1, f"k must be >= 1; got {k}")
     validate(int(window) >= 2, f"window must be >= 2; got {window}")
     _check_mode(mode, "detect_local_peaks", "peak positions")
-    _api._check_store_dtype(store_dtype)
-    _api._check_out_dtype(out_dtype)
+    _api._resolve_store_dtype(store_dtype)
+    _api._resolve_out_dtype(out_dtype)
     if _ragged_sizes(kernels):
         validate(mode == "same", _RAGGED_MODE_MSG)
         maps = _ragged_same_maps(

@@ -2,7 +2,7 @@
 twins.
 
 Per cell (image b, block (i, j), kernel n) both compute what the JAX
-package's ``block_conv_pallas`` computes at fp32 (its v3 body,
+package's ``block_conv_pallas`` computes (its v3 body,
 ``cuda_fft_convolution_tpu/ops/block_conv.py`` ``_make_kernel_v3``):
 
     S    = Σ_f K[n, f] ⊙ D[b, i, j, f]                complex MAC over F
@@ -13,6 +13,15 @@ package's ``block_conv_pallas`` computes at fp32 (its v3 body,
 and write the tile into out[b, n, i·Vh : (i+1)·Vh, j·Vw : (j+1)·Vw], clipped
 at (out_h, out_w) — the 'full'-window linear-convolution maps, assembled in
 place with no reassembly pass.
+
+Dtypes. The spectra are float32, or bfloat16 for the serving tier
+(``store_dtype='bfloat16'``, the JAX kernel's BF16IO mode); the maps are
+float32, or bfloat16 with ``out_dtype=torch.bfloat16``. Both kernels read
+bf16 spectra and widen them to fp32 in registers, so all arithmetic is fp32
+and bf16 spectra give exactly the fp32 result on the bf16-rounded planes;
+bf16 maps round each fp32 value once, at its store. The plain versions do
+the same: they upcast bf16 planes to float32, run the fp32 computation, and
+cast the maps to ``out_dtype``.
 
 ``block_conv`` is the wrapper: a tensor on the CPU takes
 ``block_conv_reference`` (plain torch); a CUDA tensor launches the CUDA
@@ -28,6 +37,7 @@ max and its global flat index (the detection head's pyramid); its kernel
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 
@@ -42,6 +52,11 @@ from cuda_fft_convolution_torch.utils.errors import InvalidInputError, validate
 # of max(2·16·128 + 2·16·rows, 32·128) floats, within Hopper's 227 KB
 # (232,448 B) per-block shared-memory limit.
 SMEM_LIMIT_BYTES = 232448
+
+
+# Spectra dtype → the kernel-entry tag; maps dtype → the entry suffix.
+_SPECTRA_TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_MAPS_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16maps"}
 
 
 def _tile_smem_bytes(wc: int, rows: int) -> int:
@@ -102,16 +117,32 @@ def _window_mats(block_h: int, block_w: int, kh: int, kw: int, device: str):
     )
 
 
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """bf16 planes as float32 (exact); any other tensor as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _check_out_dtype(out_dtype: torch.dtype) -> None:
+    validate(
+        out_dtype in _MAPS_SUFFIX,
+        f"maps dtype must be torch.float32 or torch.bfloat16; got {out_dtype}",
+    )
+
+
 def block_conv_reference(
-    dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32
-    kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32
+    dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32/bf16
+    kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32/bf16
     block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Plain torch version of the fused kernel → (B, N, out_h, out_w) f32.
-    Differentiable; used on the CPU and by the tests."""
+    """Plain torch version of the fused kernel → (B, N, out_h, out_w) maps
+    in ``out_dtype``: bf16 planes are upcast to float32 first. Differentiable;
+    used on the CPU and by the tests."""
+    _check_out_dtype(out_dtype)
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
+    dr, di, kr, ki = (upcast(t) for t in (dr, di, kr, ki))
     gr, gi, mr, mi = _window_mats(block_h, block_w, kh, kw, str(dr.device))
 
     def mac(d, k):
@@ -123,13 +154,14 @@ def block_conv_reference(
     x_im = gr @ s_im + gi @ s_re
     tile = x_re @ mr + x_im @ mi  # (B, nbh, nbw, N, Vh, Vw)
     maps = tile.permute(0, 3, 1, 4, 2, 5).reshape(b, n, nbh * vh, nbw * vw)
-    return maps[:, :, :out_h, :out_w].contiguous()
+    return maps[:, :, :out_h, :out_w].contiguous().to(out_dtype)
 
 
-def cuda_operands(name: str, ops) -> torch.device:
+def cuda_operands(name: str, ops) -> tuple[torch.device, str]:
     """Check what the port's CUDA kernels take of their (re, im, re, im)
-    spectra: one CUDA device, f32, contiguous, re/im planes of one shape
-    → the device."""
+    spectra: one CUDA device, float32 or bfloat16 (one dtype for all four),
+    contiguous, re/im planes of one shape → (the device, the dtype's entry
+    tag 'f32' or 'bf16')."""
     dr, di, kr, ki = ops
     dev = dr.device
     validate(
@@ -137,18 +169,32 @@ def cuda_operands(name: str, ops) -> torch.device:
         f"{name} operands must share one CUDA device; got "
         f"{[str(t.device) for t in ops]}",
     )
+    if dr.dtype not in _SPECTRA_TAGS or any(t.dtype != dr.dtype for t in ops):
+        raise InvalidInputError(
+            f"{name} kernel takes float32 or bfloat16 spectra, one dtype for "
+            f"all four planes; got {[str(t.dtype) for t in ops]}"
+        )
     for t in ops:
-        if t.dtype != torch.float32:
-            raise InvalidInputError(
-                f"{name} kernel takes float32 spectra, got {t.dtype} "
-                "(the bf16 tier is ROADMAP queue 1 item 6)"
-            )
         validate(t.is_contiguous(), f"{name} kernel takes contiguous spectra")
     validate(
         di.shape == dr.shape and ki.shape == kr.shape,
         "re/im planes differ in shape",
     )
-    return dev
+    return dev, _SPECTRA_TAGS[dr.dtype]
+
+
+def count_launch(wrapper, mode: str) -> None:
+    """One launch of ``wrapper``'s kernel in dtype mode ``mode`` (the C
+    entry's name without its ``fftconv_`` prefix)."""
+    wrapper.launches += 1
+    wrapper.launches_by_mode[mode] += 1
+
+
+def reset_launches(*wrappers) -> None:
+    """Set the launch counts of ``wrappers`` to zero."""
+    for w in wrappers:
+        w.launches = 0
+        w.launches_by_mode.clear()
 
 
 def _check_smem(block_w: int, wc: int) -> None:
@@ -160,20 +206,23 @@ def _check_smem(block_w: int, wc: int) -> None:
 
 
 def block_conv(
-    dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32
-    kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32
+    dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32/bf16
+    kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32/bf16
     block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """→ (B, N, out_h, out_w) f32 maps. CPU tensors run
-    ``block_conv_reference``; CUDA tensors launch the CUDA kernel on the
-    current stream (no synchronisation) and count the launch in
-    ``block_conv.launches``."""
+    """→ (B, N, out_h, out_w) maps in ``out_dtype``. CPU tensors run
+    ``block_conv_reference``; CUDA tensors launch the CUDA kernel entry of
+    their (spectra, maps) dtypes on the current stream (no synchronisation)
+    and count the launch in ``block_conv.launches`` and, per mode, in
+    ``block_conv.launches_by_mode``."""
+    _check_out_dtype(out_dtype)
     ops = (dr, di, kr, ki)
     if all(t.device.type == "cpu" for t in ops):
         return block_conv_reference(
-            dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w
+            dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, out_dtype
         )
-    dev = cuda_operands("block_conv", ops)
+    dev, tag = cuda_operands("block_conv", ops)
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
@@ -182,10 +231,11 @@ def block_conv(
 
     lib = library()
     gt_re, gt_im, mr, mi = _kernel_mats(block_h, block_w, kh, kw, str(dev))
-    out = torch.empty((b, n, out_h, out_w), dtype=torch.float32, device=dev)
+    mode = f"block_conv_{tag}{_MAPS_SUFFIX[out_dtype]}"
+    out = torch.empty((b, n, out_h, out_w), dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fftconv_block_conv_f32(
+        err = getattr(lib, f"fftconv_{mode}")(
             dr.data_ptr(), di.data_ptr(), kr.data_ptr(), ki.data_ptr(),
             gt_re.data_ptr(), gt_im.data_ptr(), mr.data_ptr(), mi.data_ptr(),
             out.data_ptr(),
@@ -193,11 +243,12 @@ def block_conv(
         )
     if err != 0:
         raise RuntimeError(f"block_conv CUDA kernel launch failed: cudaError {err}")
-    block_conv.launches += 1
+    count_launch(block_conv, mode)
     return out
 
 
 block_conv.launches = 0
+block_conv.launches_by_mode = collections.Counter()
 
 
 @functools.lru_cache(maxsize=16)
@@ -254,13 +305,13 @@ def cell_peaks(
 
 
 def block_conv_peaks_reference(
-    dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32
-    kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32
+    dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32/bf16
+    kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32/bf16
     block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version of the peaks kernel: ``block_conv_reference``,
-    then ``cell_peaks`` over one-block cells → (vals f32, idxs int32), each
-    (B, N, nbh, nbw)."""
+    """Plain torch version of the peaks kernel: ``block_conv_reference``
+    (f32 maps, bf16 planes upcast), then ``cell_peaks`` over one-block
+    cells → (vals f32, idxs int32), each (B, N, nbh, nbw)."""
     maps = block_conv_reference(
         dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w
     )
@@ -270,15 +321,16 @@ def block_conv_peaks_reference(
 
 
 def block_conv_peaks(
-    dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32
-    kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32
+    dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32/bf16
+    kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32/bf16
     block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The per-cell block-max pyramid of the fused block conv, with no maps
     written → ``(vals, idxs)``, each (B, N, nbh, nbw): the max response of
     each block's valid window (clipped at (out_h, out_w)) and its global
     flat index y·out_w + x (int32). Larger value wins; between equal values
-    the smaller index; positions past (out_h, out_w) never win.
+    the smaller index; positions past (out_h, out_w) never win. The values
+    are float32 and the indices int32 at either spectra dtype.
 
     This is the JAX package's ``block_conv_peaks_pallas(..., mbh=1,
     mbw=1)``: one cell per block. The JAX package groups blocks into larger
@@ -288,8 +340,9 @@ def block_conv_peaks(
     exact per-kernel top-1 either way.
 
     CPU tensors run ``block_conv_peaks_reference``; CUDA tensors launch the
-    CUDA kernel on the current stream and count the launch in
-    ``block_conv_peaks.launches``. The kernel writes one pair per (cell,
+    CUDA kernel entry of their spectra dtype on the current stream and
+    count the launch in ``block_conv_peaks.launches`` and, per mode, in
+    ``block_conv_peaks.launches_by_mode``. The kernel writes one pair per (cell,
     row chunk of ``tile_rows`` window rows); a cell split into several row
     chunks is combined here (first maximum over chunks: chunk r's rows all
     precede chunk r+1's, so that keeps the tie rule)."""
@@ -298,7 +351,7 @@ def block_conv_peaks(
         return block_conv_peaks_reference(
             dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w
         )
-    dev = cuda_operands("block_conv_peaks", ops)
+    dev, tag = cuda_operands("block_conv_peaks", ops)
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
@@ -312,9 +365,10 @@ def block_conv_peaks(
     shape = (b, n, nbh, chunks, nbw)
     vals = torch.empty(shape, dtype=torch.float32, device=dev)
     idxs = torch.empty(shape, dtype=torch.int32, device=dev)
+    mode = f"block_conv_peaks_{tag}"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fftconv_block_conv_peaks_f32(
+        err = getattr(lib, f"fftconv_{mode}")(
             dr.data_ptr(), di.data_ptr(), kr.data_ptr(), ki.data_ptr(),
             gt_re.data_ptr(), gt_im.data_ptr(), mr.data_ptr(), mi.data_ptr(),
             vals.data_ptr(), idxs.data_ptr(),
@@ -324,7 +378,7 @@ def block_conv_peaks(
         raise RuntimeError(
             f"block_conv_peaks CUDA kernel launch failed: cudaError {err}"
         )
-    block_conv_peaks.launches += 1
+    count_launch(block_conv_peaks, mode)
     if chunks == 1:
         return vals[:, :, :, 0], idxs[:, :, :, 0]
     best = vals.argmax(dim=3, keepdim=True)
@@ -335,3 +389,4 @@ def block_conv_peaks(
 
 
 block_conv_peaks.launches = 0
+block_conv_peaks.launches_by_mode = collections.Counter()

@@ -14,13 +14,25 @@ Two implementations, as in the JAX package
 MAC kernel: it is faster than the einsum on the card, so the JAX package's
 ``use_pallas`` selection has nothing to choose and is accepted with no
 effect. Its gradient is the einsum's, as ``_mac_pallas_ad`` defines it.
+
+The bf16 serving tier (bf16 planes) takes the same route: bf16 operands,
+float32 accumulation, float32 outputs — the function of the JAX package's
+einsum at the tier (its Pallas MAC is f32 only and leaves the tier to the
+einsum). The kernel widens each bf16 load to fp32; the plain einsum upcasts
+the planes first.
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
-from cuda_fft_convolution_torch.ops.block_conv import cuda_operands
+from cuda_fft_convolution_torch.ops.block_conv import (
+    count_launch,
+    cuda_operands,
+    upcast,
+)
 from cuda_fft_convolution_torch.utils.errors import validate
 
 
@@ -29,7 +41,8 @@ def spectral_mac_planes(
     kr: torch.Tensor, ki: torch.Tensor,  # (N, F, H, Wc)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, F, H, Wc) × (N, F, H, Wc) → (B, N, H, Wc) split planes, four
-    real contractions over F."""
+    real contractions over F; bf16 planes are upcast to float32 first."""
+    dr, di, kr, ki = (upcast(t) for t in (dr, di, kr, ki))
 
     def e(a, b):
         return torch.einsum("bfhw,nfhw->bnhw", a, b)
@@ -38,17 +51,18 @@ def spectral_mac_planes(
 
 
 def spectral_mac(
-    dr: torch.Tensor, di: torch.Tensor,  # (B, F, H, Wc) f32
-    kr: torch.Tensor, ki: torch.Tensor,  # (N, F, H, Wc) f32
+    dr: torch.Tensor, di: torch.Tensor,  # (B, F, H, Wc) f32/bf16
+    kr: torch.Tensor, ki: torch.Tensor,  # (N, F, H, Wc) f32/bf16
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The MAC kernel → (B, N, H, Wc) f32 planes. CPU tensors run
-    ``spectral_mac_planes``; CUDA tensors launch the CUDA kernel on the
-    current stream (no synchronisation) and count the launch in
-    ``spectral_mac.launches``."""
+    ``spectral_mac_planes``; CUDA tensors launch the CUDA kernel entry of
+    their dtype on the current stream (no synchronisation) and count the
+    launch in ``spectral_mac.launches`` and, per mode, in
+    ``spectral_mac.launches_by_mode``."""
     ops = (dr, di, kr, ki)
     if all(t.device.type == "cpu" for t in ops):
         return spectral_mac_planes(dr, di, kr, ki)
-    dev = cuda_operands("spectral_mac", ops)
+    dev, tag = cuda_operands("spectral_mac", ops)
     validate(
         dr.ndim == 4 and kr.ndim == 4 and dr.shape[1:] == kr.shape[1:],
         f"spectral_mac takes (B, F, H, Wc) and (N, F, H, Wc) planes; got "
@@ -61,19 +75,21 @@ def spectral_mac(
     lib = library()
     o_re = torch.empty((b, n, h, wc), dtype=torch.float32, device=dev)
     o_im = torch.empty_like(o_re)
+    mode = f"spectral_mac_{tag}"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fftconv_spectral_mac_f32(
+        err = getattr(lib, f"fftconv_{mode}")(
             dr.data_ptr(), di.data_ptr(), kr.data_ptr(), ki.data_ptr(),
             o_re.data_ptr(), o_im.data_ptr(), b, f, n, h * wc, stream,
         )
     if err != 0:
         raise RuntimeError(f"spectral_mac CUDA kernel launch failed: cudaError {err}")
-    spectral_mac.launches += 1
+    count_launch(spectral_mac, mode)
     return o_re, o_im
 
 
 spectral_mac.launches = 0
+spectral_mac.launches_by_mode = collections.Counter()
 
 
 class _SpectralMac(torch.autograd.Function):

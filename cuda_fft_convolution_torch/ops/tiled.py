@@ -13,6 +13,10 @@ Two engines assemble the maps from block and bank spectra:
   - unfused: spectral MAC, then ``torch.fft.irfft2`` per block, then the
     valid-window slice and reassembly.
 
+Both take float32 spectra or the bf16 serving tier's bfloat16 spectra
+(f32 accumulation either way), and write float32 or bfloat16 maps
+(``out_dtype``).
+
 The detection reductions sit on top: ``conv_blocks_peaks`` and
 ``conv_blocks_top_k`` take the fused branch through the peaks kernel
 (``block_conv_peaks``: one (max, argmax) per block, no maps written), and
@@ -118,9 +122,11 @@ def fft_data_blocks(
     origin_w: int = 0,
     win_h: int | None = None,
     win_w: int | None = None,
+    dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Block spectra (B, nbh, nbw, F, block_h, block_w//2+1) split (re, im)
-    f32 planes.
+    planes, transformed in float32 and stored in ``dtype`` (float32, or
+    bfloat16 for the serving tier).
 
     Blocks start every V = L−K+1 output rows/cols; block g covers padded
     input rows [g·V, g·V+L) where the input carries K−1 leading zeros (the
@@ -143,20 +149,22 @@ def fft_data_blocks(
     # (B, F, nbh, Wp, Lh) → (B, F, nbh, nbw, Lh, Lw) → (B, nbh, nbw, F, Lh, Lw)
     xb = x.unfold(2, block_h, vh).unfold(3, block_w, vw)
     xb = xb.permute(0, 2, 3, 1, 4, 5)
-    return rfft2_padded_planes(xb, block_h, block_w)
+    re, im = rfft2_padded_planes(xb, block_h, block_w)
+    return re.to(dtype), im.to(dtype)
 
 
 def fused_dispatch_auto(
     block_w: int, spec_dtype: torch.dtype = torch.float32
 ) -> bool:
     """When ``conv_blocks`` runs the fused block-conv: the Hopper kernel's
-    own legality rule — fp32 spectra and a shared-memory need within the
-    per-block limit. The kernel takes any channel count, block height and
-    window; the JAX rule's geometry, backend and channel-count tests were
-    TPU v5e measurements. The rule is the same on the CPU, where the fused
-    branch runs the kernel's plain version."""
+    own legality rule — fp32 or bf16 spectra (the JAX rule admits both) and
+    a shared-memory need within the per-block limit. The kernel takes any
+    channel count, block height and window; the JAX rule's geometry,
+    backend and channel-count tests were TPU v5e measurements. The rule is
+    the same on the CPU, where the fused branch runs the kernel's plain
+    version."""
     return (
-        spec_dtype == torch.float32
+        spec_dtype in (torch.float32, torch.bfloat16)
         and smem_bytes(block_w // 2 + 1) <= SMEM_LIMIT_BYTES
     )
 
@@ -179,10 +187,16 @@ def _conv_blocks_unfused(
     kw: int,
     out_h: int,
     out_w: int,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """The unfused pipeline (MAC → irfft2 per block → valid window →
     reassembly): the MAC kernel, then torch. The branch taken when the fused
-    kernel is off, and the backward of ``fused_block_conv``."""
+    kernel is off, and the backward of ``fused_block_conv``.
+
+    At the bf16 tier the products are stored bf16, as in the JAX package
+    (``torch.fft`` has no bf16, so the inverse runs on them upcast to
+    float32, as JAX's inverse accumulates f32). ``out_dtype`` casts the
+    valid windows before the reassembly, as JAX does."""
     b, nbh, nbw, f, lh, lwc = d_re.shape
     n = k_re.shape[0]
     vh, vw = block_h - kh + 1, block_w - kw + 1
@@ -191,8 +205,11 @@ def _conv_blocks_unfused(
         d_im.reshape(b * nbh * nbw, f, lh, lwc),
         k_re, k_im,
     )
+    if d_re.dtype == torch.bfloat16:
+        p_re, p_im = p_re.to(torch.bfloat16), p_im.to(torch.bfloat16)
     maps = irfft2_norm_planes(p_re, p_im, block_h, block_w)
     valid = maps[:, :, kh - 1 : kh - 1 + vh, kw - 1 : kw - 1 + vw]
+    valid = valid.to(out_dtype)
     out = valid.reshape(b, nbh, nbw, n, vh, vw).permute(0, 3, 1, 4, 2, 5)
     out = out.reshape(b, n, nbh * vh, nbw * vw)
     return out[:, :, :out_h, :out_w]
@@ -202,24 +219,29 @@ class _FusedBlockConv(torch.autograd.Function):
     """Forward: the fused kernel. Backward: the unfused pipeline's autograd
     (the forward is bilinear in the spectra planes, and both engines compute
     the same linear map) — mirroring the JAX package's custom VJP. Under
-    ``create_graph`` the gradients keep their graph to the saved planes."""
+    ``create_graph`` the gradients keep their graph to the saved planes. A
+    bf16-maps forward receives its cotangent in bf16: the unfused pipeline
+    carries the same cast, so its backward upcasts the cotangent where the
+    forward rounded, as JAX's cast transpose does."""
 
     @staticmethod
-    def forward(ctx, d_re, d_im, k_re, k_im, geom):
+    def forward(ctx, d_re, d_im, k_re, k_im, geom, out_dtype):
         ctx.save_for_backward(d_re, d_im, k_re, k_im)
         ctx.geom = geom
-        return block_conv(d_re, d_im, k_re, k_im, *geom)
+        ctx.out_dtype = out_dtype
+        return block_conv(d_re, d_im, k_re, k_im, *geom, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         planes = ctx.saved_tensors
         create_graph = torch.is_grad_enabled()
         with torch.enable_grad():
-            out = _conv_blocks_unfused(*planes, *ctx.geom)
+            out = _conv_blocks_unfused(*planes, *ctx.geom, ctx.out_dtype)
             wanted = [x for x, need in zip(planes, ctx.needs_input_grad) if need]
             grads = iter(torch.autograd.grad(out, wanted, g, create_graph=create_graph))
         return (
             *(next(grads) if need else None for need in ctx.needs_input_grad[:4]),
+            None,
             None,
         )
 
@@ -235,18 +257,20 @@ def fused_block_conv(
     kw: int,
     out_h: int,
     out_w: int,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """The fused block-conv made differentiable: forward through
     ``block_conv``, backward through ``_conv_blocks_unfused``."""
     return _FusedBlockConv.apply(
-        d_re, d_im, k_re, k_im, (block_h, block_w, kh, kw, out_h, out_w)
+        d_re, d_im, k_re, k_im, (block_h, block_w, kh, kw, out_h, out_w),
+        out_dtype,
     )
 
 
 def conv_blocks(
-    d_re: torch.Tensor,  # (B, nbh, nbw, F, Lh, Lwc) f32
+    d_re: torch.Tensor,  # (B, nbh, nbw, F, Lh, Lwc) f32/bf16
     d_im: torch.Tensor,
-    k_re: torch.Tensor,  # (N, F, Lh, Lwc) f32 — at the BLOCK fft size
+    k_re: torch.Tensor,  # (N, F, Lh, Lwc) f32/bf16 — at the BLOCK fft size
     k_im: torch.Tensor,
     block_h: int,
     block_w: int,
@@ -254,17 +278,20 @@ def conv_blocks(
     kw: int,
     out_h: int,
     out_w: int,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Spectral MAC per block + inverse + overlap-save reassembly →
-    (B, N, out_h, out_w) linear-convolution maps. ``Config.
+    (B, N, out_h, out_w) linear-convolution maps in ``out_dtype``. ``Config.
     use_fused_block_conv`` None = ``fused_dispatch_auto``; True/False force
     the fused or unfused branch. Differentiable on both branches."""
     if _fused(block_w, d_re.dtype):
         return fused_block_conv(
-            d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
+            d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w,
+            out_dtype,
         )
     return _conv_blocks_unfused(
-        d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
+        d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w,
+        out_dtype,
     )
 
 

@@ -1,7 +1,8 @@
 """Spectral-state containers.
 
 The same three containers as the JAX package (``cuda_fft_convolution_tpu/
-types.py``), as plain dataclasses holding split (re, im) float32 tensors.
+types.py``), as plain dataclasses holding split (re, im) tensors: float32,
+or bfloat16 at the bf16 serving tier (``store_dtype='bfloat16'``).
 Field names and the static geometry fields are kept exactly, so a ``.npz``
 written by either package's ``save_spectral`` loads into the other
 (``utils/checkpoint.py``).
@@ -19,9 +20,9 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class SpectralData:
-    """rfft2 of zero-padded data as split f32 planes, plus static geometry."""
+    """rfft2 of zero-padded data as split planes, plus static geometry."""
 
-    # (F, fft_h, fft_w//2+1) f32 each, or (B, F, ...) when batched.
+    # (F, fft_h, fft_w//2+1) f32 or bf16 each, or (B, F, ...) when batched.
     re: torch.Tensor
     im: torch.Tensor
     fft_h: int
@@ -51,7 +52,8 @@ class TiledSpectralData:
     Valid only for kernels up to (max_kh, max_kw): the block stride
     V = block − maxK + 1 bakes the kernel pad in."""
 
-    # (nbh, nbw, F, block_h, block_w//2+1) f32 each, or (B, nbh, nbw, ...).
+    # (nbh, nbw, F, block_h, block_w//2+1) f32 or bf16 each, or
+    # (B, nbh, nbw, ...).
     re: torch.Tensor
     im: torch.Tensor
     block_h: int
@@ -98,7 +100,7 @@ class TiledSpectralData:
 class SpectralKernels:
     """rfft2 of a zero-padded stacked kernel bank, split planes."""
 
-    re: torch.Tensor  # (N, F, fft_h, fft_w//2+1) f32
+    re: torch.Tensor  # (N, F, fft_h, fft_w//2+1) f32 or bf16
     im: torch.Tensor
     fft_h: int
     fft_w: int

@@ -4,7 +4,9 @@ The keys are those of ``cuda_fft_convolution_tpu/utils/checkpoint.py``:
 ``kind`` (the container's class name), ``store_dtype``, ``fft_re`` and
 ``fft_im`` (f32 planes), and one entry per static field, with None written
 as −1. A bank's spectra or an image's block spectra saved by either package
-load into the other's containers.
+load into the other's containers. Spectra of the bf16 serving tier are
+saved as f32 planes (``.npz`` has no bfloat16; the widening is exact) with
+``store_dtype='bfloat16'``, and a load restores the tier.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from cuda_fft_convolution_torch.types import (
     SpectralKernels,
     TiledSpectralData,
 )
-from cuda_fft_convolution_torch.utils.errors import InvalidInputError, validate
+from cuda_fft_convolution_torch.utils.errors import validate
 
 _KINDS = {
     "SpectralData": SpectralData,
@@ -31,6 +33,7 @@ _KINDS = {
 _OPTIONAL = {"win_h", "win_w"}
 _BOOL = {"clamp", "fftmap_canvas", "centered", "flat"}
 _TUPLE = {"kernel_hs", "kernel_ws"}
+_STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def save_spectral(path: str, obj) -> None:
@@ -38,9 +41,10 @@ def save_spectral(path: str, obj) -> None:
     kind = type(obj).__name__
     validate(kind in _KINDS, f"not a spectral object: {type(obj)}")
     validate(
-        obj.re.dtype == torch.float32,
-        f"only float32 spectra are stored (got {obj.re.dtype})",
+        obj.re.dtype in _STORE_DTYPES.values(),
+        f"spectra must be float32 or bfloat16 (got {obj.re.dtype})",
     )
+    store_dtype = str(obj.re.dtype).removeprefix("torch.")
     meta = {
         f.name: getattr(obj, f.name)
         for f in dataclasses.fields(obj)
@@ -49,9 +53,9 @@ def save_spectral(path: str, obj) -> None:
     np.savez(
         path,
         kind=kind,
-        store_dtype="float32",
-        fft_re=obj.re.detach().cpu().numpy(),
-        fft_im=obj.im.detach().cpu().numpy(),
+        store_dtype=store_dtype,
+        fft_re=obj.re.detach().float().cpu().numpy(),
+        fft_im=obj.im.detach().float().cpu().numpy(),
         **{k: np.asarray(-1 if v is None else v) for k, v in meta.items()},
     )
 
@@ -62,15 +66,17 @@ def from_numpy(fields, device=None):
     when None)."""
     kind = str(fields["kind"])
     validate(kind in _KINDS, f"unknown spectral kind {kind!r}")
-    if "store_dtype" in fields and str(fields["store_dtype"]) != "float32":
-        raise InvalidInputError(
-            f"store_dtype={str(fields['store_dtype'])!r} spectra are not "
-            "ported to cuda_fft_convolution_torch yet (ROADMAP queue 1 item 6)"
-        )
+    store_dtype = str(fields["store_dtype"]) if "store_dtype" in fields else "float32"
+    validate(
+        store_dtype in _STORE_DTYPES,
+        f"unknown store_dtype {store_dtype!r} (float32 or bfloat16)",
+    )
     cls = _KINDS[kind]
     kwargs = {
-        "re": torch.as_tensor(np.asarray(fields["fft_re"], np.float32), device=device),
-        "im": torch.as_tensor(np.asarray(fields["fft_im"], np.float32), device=device),
+        key: torch.as_tensor(
+            np.asarray(fields[f"fft_{key}"], np.float32), device=device
+        ).to(_STORE_DTYPES[store_dtype])
+        for key in ("re", "im")
     }
     for f in dataclasses.fields(cls):
         if f.name in ("re", "im") or f.name not in fields:

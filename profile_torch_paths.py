@@ -8,7 +8,10 @@ builds the detection headline's inputs with ``chip_smoke.detection_headline``
 (a 2048² image holding each of 100 64² kernels once; the call also checks
 the detection heads), then runs ``torch.profiler`` over ``--calls`` calls
 each of ``detect_peaks``, the maps path (``fft_conv`` + ``peaks_from_maps``),
-the fused ``fft_conv`` and the direct ``fft_conv``. For each path it prints
+the fused ``fft_conv`` and the direct ``fft_conv``, the fused ``fft_conv`` at
+the bf16 tier, and the DPM/HOG config's calls at the tier on
+``chip_smoke.dpm_inputs`` (``conv_spectral`` with float32 and with bf16
+maps, and the one-shot ``detect_peaks``). For each path it prints
 the device's busy time per call (the union of the GPU kernel and copy spans)
 against the profiled span, their difference as the idle share, and the
 kernels with the most self device time.
@@ -90,6 +93,19 @@ def main(argv=None) -> int:
            args.calls)
     report("fft_conv, direct", lambda: fc.fft_conv(
         image, kernels=bank, mode="same", algorithm="direct"), args.calls)
+    report("fft_conv, bf16 tier", lambda: fc.fft_conv(
+        image, kernels=bank, mode="same", store_dtype="bfloat16"), args.calls)
+    del image, bank
+    feats, dbank, _ = chip_smoke.dpm_inputs(args.seed)
+    k = chip_smoke.DPM["k"]
+    sd = fc.fft_data_tiled(feats, k, k, trim_mode="same", store_dtype="bfloat16")
+    sk = fc.fft_kernels(dbank, spectral=sd, store_dtype="bfloat16")
+    report("DPM conv_spectral, bf16 tier, f32 maps",
+           lambda: fc.conv_spectral(sd, sk, mode="same"), args.calls)
+    report("DPM conv_spectral, bf16 tier, bf16 maps",
+           lambda: fc.conv_spectral(sd, sk, mode="same", out_dtype="bfloat16"), args.calls)
+    report("DPM detect_peaks from the features, bf16 tier",
+           lambda: detect_peaks(feats, dbank, store_dtype="bfloat16"), args.calls)
     return 0
 
 

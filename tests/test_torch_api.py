@@ -146,9 +146,23 @@ def test_options_not_ported_raise(rng, kwargs, item):
     """Options whose ROADMAP item is open raise naming it. Queue 2 item 1
     (``use_pallas=True``, the spectral-MAC kernel) is ported, and the port
     runs the kernel path whatever the option says: its case checks the
-    option against the default call and the JAX package."""
+    option against the default call and the JAX package. Queue 1 item 6
+    (the bf16 tier and bf16 maps) is ported: its cases check the maps'
+    dtype and values against the JAX call (2e-2, the tier's bar) and the
+    float32 call (the same bar)."""
     data = rng.standard_normal((40, 40, 1)).astype(np.float32)
     bank = rng.standard_normal((2, 5, 5, 1)).astype(np.float32)
+    if item == "queue 1 item 6":
+        for algorithm in ("direct", "tiled"):
+            kw = dict(mode="same", algorithm=algorithm, **kwargs)
+            got = tfc.fft_conv(data, kernels=bank, **kw)
+            jax_maps = jfc.fft_conv(data, kernels=bank, **kw)
+            want = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm)
+            assert str(got.dtype).removeprefix("torch.") == str(jax_maps.dtype)
+            got = got.float().numpy()
+            assert rel_err(got, np.asarray(jax_maps, np.float32)) < 2e-2
+            assert rel_err(got, want.numpy()) < 2e-2
+        return
     if item == "queue 2 item 1":
         for algorithm in ("direct", "tiled"):
             got = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm, **kwargs)
@@ -256,12 +270,18 @@ def test_checkpoint_port_to_jax_round_trip(tmp_path, bank_case):
 
 
 def test_checkpoint_rejects_layouts_not_ported():
+    """bf16-tier spectra (ported) load at their tier and an unknown store
+    dtype is refused; clamp spectra load but do not convolve (queue 1
+    item 1)."""
     fields = dict(kind=np.asarray("SpectralData"), store_dtype=np.asarray("bfloat16"),
-                  fft_re=np.zeros((1, 4, 3), np.float32), fft_im=np.zeros((1, 4, 3), np.float32),
+                  fft_re=np.full((1, 4, 3), 1.5, np.float32),
+                  fft_im=np.zeros((1, 4, 3), np.float32),
                   fft_h=np.asarray(4), fft_w=np.asarray(4), data_h=np.asarray(2),
                   data_w=np.asarray(2))
-    with pytest.raises(tfc.InvalidInputError, match="queue 1 item 6"):
-        tfc.from_numpy(fields)
+    spec = tfc.from_numpy(fields)
+    assert spec.re.dtype == spec.im.dtype == torch.bfloat16 and float(spec.re[0, 0, 0]) == 1.5
+    with pytest.raises(tfc.InvalidInputError, match="store_dtype"):
+        tfc.from_numpy({**fields, "store_dtype": np.asarray("float16")})
     fields["store_dtype"] = np.asarray("float32")
     spec = tfc.from_numpy({**fields, "clamp": np.asarray(True), "band_h": np.asarray(1)})
     assert spec.clamp is True and spec.band_h == 1 and spec.band_w == -1

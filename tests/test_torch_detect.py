@@ -336,10 +336,13 @@ def test_detect_heads_ragged_and_not_ported(rng):
     with pytest.raises(tfc.InvalidInputError, match="queue 1 item 5"):
         detect_peaks(data, [np.ones((3, 3, 1), np.float32), np.ones((20, 20, 1), np.float32)])
     bank = rng.standard_normal((2, 5, 5, 1)).astype(np.float32)
-    with pytest.raises(tfc.InvalidInputError, match="queue 1 item 6"):
-        detect_peaks(data, bank, store_dtype="bfloat16")
-    with pytest.raises(tfc.InvalidInputError, match="queue 1 item 6"):
-        detect_local_peaks(data, bank, out_dtype="bfloat16")
+    # the bf16 tier and bf16 maps (queue 1 item 6) are ported: the heads run
+    # them, at the positions of the JAX heads (tests/test_torch_bf16.py
+    # holds the values)
+    assert np.array_equal(detect_peaks(data, bank, store_dtype="bfloat16")[1].numpy(),
+                          j_peaks(data, bank, store_dtype="bfloat16")[1])
+    assert np.array_equal(detect_local_peaks(data, bank, out_dtype="bfloat16")[1].numpy(),
+                          j_local_peaks(data, bank, out_dtype="bfloat16")[1])
     with pytest.raises(tfc.InvalidInputError):
         detect_peaks(data, bank, mode="fftmap")
     with pytest.raises(tfc.InvalidInputError):

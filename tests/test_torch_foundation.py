@@ -191,9 +191,12 @@ def test_build_library_named_by_source_hash(tmp_path):
     edited = tmp_path / "block_conv.cuh"
     edited.write_bytes(sources[1].read_bytes() + b"\n")
     assert _build._library_path([sources[0], edited, *sources[2:]]) != path
-    # every C entry point the wrappers call has a signature
+    # every C entry point the wrappers call has a signature: one per kernel
+    # dtype mode, and the shared-memory model's two queries
     assert set(_build._SIGNATURES) == {
-        "fftconv_block_conv_f32", "fftconv_block_conv_f32_smem_bytes",
-        "fftconv_block_conv_f32_rows", "fftconv_block_conv_peaks_f32",
-        "fftconv_spectral_mac_f32",
+        "fftconv_block_conv_f32", "fftconv_block_conv_f32_bf16maps",
+        "fftconv_block_conv_bf16", "fftconv_block_conv_bf16_bf16maps",
+        "fftconv_block_conv_f32_smem_bytes", "fftconv_block_conv_f32_rows",
+        "fftconv_block_conv_peaks_f32", "fftconv_block_conv_peaks_bf16",
+        "fftconv_spectral_mac_f32", "fftconv_spectral_mac_bf16",
     }

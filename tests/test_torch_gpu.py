@@ -1,8 +1,10 @@
 """The port on a CUDA GPU: the fused block-conv, peaks and spectral-MAC
-kernels against their plain versions, and the one-shot call, the direct
-engine (through the MAC kernel) and ``detect_peaks`` on the card against
-the same calls on the CPU. These tests need a card and skip without one; they import neither jax
-nor the JAX package, so on a GPU host without jax they run as
+kernels against their plain versions, in every dtype mode (float32 or
+bfloat16 spectra, float32 or bfloat16 maps), and the one-shot call, the
+direct engine (through the MAC kernel) and ``detect_peaks`` on the card
+against the same calls on the CPU, at float32 and at the bf16 tier. These
+tests need a card and skip without one; they import neither jax nor the
+JAX package, so on a GPU host without jax they run as
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
@@ -16,6 +18,13 @@ from cuda_fft_convolution_torch.ops import block_conv as tbc
 from cuda_fft_convolution_torch.utils.errors import InvalidInputError
 
 TOL = 1e-5
+BF16_OUT_TOL = 5e-3  # bf16 rounding of the maps alone
+BF16_TOL = 2e-2  # the bf16 tier against float32 maps
+GEOMETRIES = [
+    (2, 3, 5, 45, 151, 10, 24, 100, 300),
+    (1, 1, 3, 127, 447, 64, 64, 2048, 2048),  # the headline plan
+    (1, 2, 2, 40, 901, 9, 101, 150, 1700),  # Wc = 451: 32-row tiles, 2 row chunks
+]
 
 
 @pytest.fixture
@@ -58,9 +67,87 @@ def test_block_conv_kernel_matches_plain_on_gpu(cuda, b, f, n, bh, bw, kh, kw,
     assert got.is_cuda and got.shape == want.shape
     assert _rel(got, want) <= TOL
     with pytest.raises(InvalidInputError, match="float32"):
-        tbc.block_conv(*(x.to(torch.bfloat16) for x in ops), bh, bw, kh, kw, out_h, out_w)
+        tbc.block_conv(*(x.half() for x in ops), bh, bw, kh, kw, out_h, out_w)
     with pytest.raises(InvalidInputError, match="contiguous"):
         tbc.block_conv(ops[0].transpose(1, 2), *ops[1:], bh, bw, kh, kw, out_h, out_w)
+
+
+def _planes(rng, cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
+    vh, vw = bh - kh + 1, bw - kw + 1
+    nbh, nbw, wc = -(-out_h // vh), -(-out_w // vw), bw // 2 + 1
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda)
+
+    return (t(b, nbh, nbw, f, bh, wc), t(b, nbh, nbw, f, bh, wc),
+            t(n, f, bh, wc), t(n, f, bh, wc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", GEOMETRIES)
+def test_block_conv_kernel_bf16_modes_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
+    """bf16 spectra: the fp32 result on the bf16-rounded planes (the plain
+    version on the same planes, within TOL); bf16 maps: within
+    BF16_OUT_TOL of the plain version's float32 maps. Each call counts one
+    launch on its own entry."""
+    rng = np.random.default_rng(13)
+    geom = (bh, bw, kh, kw, out_h, out_w)
+    ops = _planes(rng, cuda, b, f, n, *geom)
+    ops16 = tuple(x.to(torch.bfloat16) for x in ops)
+    want32 = tbc.block_conv_reference(*ops, *geom)
+    want16 = tbc.block_conv_reference(*ops16, *geom)
+    for planes, out_dtype, want, tol, mode in (
+        (ops16, torch.float32, want16, TOL, "block_conv_bf16"),
+        (ops16, torch.bfloat16, want16, BF16_OUT_TOL, "block_conv_bf16_bf16maps"),
+        (ops, torch.bfloat16, want32, BF16_OUT_TOL, "block_conv_f32_bf16maps"),
+    ):
+        before = tbc.block_conv.launches_by_mode[mode]
+        got = tbc.block_conv(*planes, *geom, out_dtype)
+        torch.cuda.synchronize()
+        assert tbc.block_conv.launches_by_mode[mode] == before + 1
+        assert got.dtype == out_dtype and got.shape == want.shape
+        assert _rel(got.float(), want) <= tol, mode
+    with pytest.raises(InvalidInputError, match="one dtype"):
+        tbc.block_conv(ops16[0], *ops[1:], *geom)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", GEOMETRIES)
+def test_block_conv_peaks_kernel_bf16_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
+    """bf16 spectra through the peaks kernel: values within TOL of the plain
+    version on the same planes, f32 values, int32 indices, equal indices
+    (random spectra: no near-ties at these sizes)."""
+    rng = np.random.default_rng(17)
+    geom = (bh, bw, kh, kw, out_h, out_w)
+    ops16 = tuple(x.to(torch.bfloat16) for x in _planes(rng, cuda, b, f, n, *geom))
+    before = tbc.block_conv_peaks.launches_by_mode["block_conv_peaks_bf16"]
+    got_v, got_i = tbc.block_conv_peaks(*ops16, *geom)
+    want_v, want_i = tbc.block_conv_peaks_reference(*ops16, *geom)
+    torch.cuda.synchronize()
+    assert tbc.block_conv_peaks.launches_by_mode["block_conv_peaks_bf16"] == before + 1
+    assert got_v.dtype == torch.float32 and got_i.dtype == torch.int32
+    assert _rel(got_v, want_v) <= TOL
+    assert torch.equal(got_i, want_i)
+
+
+@pytest.mark.gpu
+def test_kernel_build_failure_raises(cuda, monkeypatch, tmp_path):
+    """A kernel that cannot be built raises on a CUDA tensor; nothing falls
+    back to the plain version."""
+    from cuda_fft_convolution_torch import _build
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_library_path", lambda sources: tmp_path / "missing.so")
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    ops = _planes(np.random.default_rng(1), cuda, *GEOMETRIES[0])
+    before = tbc.block_conv.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tbc.block_conv(*(x.to(torch.bfloat16) for x in ops), *GEOMETRIES[0][3:])
+    assert tbc.block_conv.launches == before
 
 
 @pytest.mark.gpu
@@ -132,6 +219,16 @@ def test_spectral_mac_kernel_matches_einsum_on_gpu(cuda, f):
     for g, w in zip(got, want):
         assert g.shape == (2, 7, 67, 35)
         assert _rel(g, w) <= TOL
+    # bf16 planes: f32 accumulation and outputs, against the upcast einsum
+    ops16 = tuple(x.to(torch.bfloat16) for x in ops)
+    before16 = tmac.spectral_mac.launches_by_mode["spectral_mac_bf16"]
+    got16 = tmac.spectral_mac(*ops16)
+    want16 = tmac.spectral_mac_planes(*ops16)
+    torch.cuda.synchronize()
+    assert tmac.spectral_mac.launches_by_mode["spectral_mac_bf16"] == before16 + 1
+    for g, w in zip(got16, want16):
+        assert g.dtype == torch.float32 and w.dtype == torch.float32
+        assert _rel(g, w) <= 1e-6
     # the direct engine runs the kernel
     data = rng.standard_normal((90, 110, f)).astype(np.float32)
     bank = rng.standard_normal((3, 9, 7, f)).astype(np.float32)
@@ -159,3 +256,52 @@ def test_detect_peaks_on_gpu_matches_cpu(cuda):
     want_v, want_p = detect_peaks(data, bank)
     assert torch.equal(pos.cpu(), want_p)
     assert _rel(vals.cpu(), want_v) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ["tiled", "direct"])
+def test_bf16_tier_on_gpu_matches_cpu(cuda, algorithm):
+    """fft_conv at the bf16 tier and with bf16 maps on the card: the same
+    dtype and shape as on the CPU, within BF16_TOL of the CPU's float32
+    maps, through the bf16 entries of the kernels."""
+    from cuda_fft_convolution_torch.ops import spectral_mac as tmac
+
+    rng = np.random.default_rng(21)
+    data = rng.standard_normal((300, 500, 2)).astype(np.float32)
+    bank = rng.standard_normal((4, 17, 33, 2)).astype(np.float32)
+    want = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm)
+    counts = (tbc.block_conv.launches_by_mode if algorithm == "tiled"
+              else tmac.spectral_mac.launches_by_mode)
+    for out_dtype, entry in ((None, "bf16"), ("bfloat16", "bf16_bf16maps")):
+        key = f"block_conv_{entry}" if algorithm == "tiled" else "spectral_mac_bf16"
+        before = counts[key]
+        got = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm,
+                           store_dtype="bfloat16", out_dtype=out_dtype, device=cuda)
+        torch.cuda.synchronize()
+        assert counts[key] == before + 1
+        cpu = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm,
+                           store_dtype="bfloat16", out_dtype=out_dtype)
+        assert got.dtype == cpu.dtype and got.shape == want.shape
+        assert _rel(got.float().cpu(), want) <= BF16_TOL
+
+
+@pytest.mark.gpu
+def test_detect_peaks_bf16_tier_on_gpu(cuda):
+    """detect_peaks at the bf16 tier runs the peaks kernel's bf16 entry and
+    finds planted templates."""
+    from cuda_fft_convolution_torch.models import detect_peaks
+
+    rng = np.random.default_rng(23)
+    data = rng.standard_normal((300, 500, 2)).astype(np.float32)
+    bank = rng.standard_normal((4, 17, 33, 2)).astype(np.float32)
+    corners = [(20, 30), (150, 400), (240, 60), (100, 200)]
+    for t, (y0, x0) in enumerate(corners):
+        data[y0 : y0 + 17, x0 : x0 + 33] += 3.0 * bank[t]
+    before = tbc.block_conv_peaks.launches_by_mode["block_conv_peaks_bf16"]
+    vals, pos = detect_peaks(torch.as_tensor(data, device=cuda),
+                             torch.as_tensor(bank, device=cuda), store_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert tbc.block_conv_peaks.launches_by_mode["block_conv_peaks_bf16"] == before + 1
+    assert vals.dtype == torch.float32
+    want = torch.tensor([(y0 + 8, x0 + 16) for y0, x0 in corners], dtype=torch.int32)
+    assert torch.equal(pos.cpu(), want)

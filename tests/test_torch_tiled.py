@@ -108,11 +108,13 @@ def test_conv_blocks_both_branches_match_jax(rng, fused):
 
 
 def test_fused_dispatch_auto_is_the_kernel_legality_rule():
-    # fp32 at the headline blocks and at JAX's widest block (1024); not for
-    # bf16 spectra, nor for blocks too wide for the kernel's shared memory.
+    # fp32 at the headline blocks and at JAX's widest block (1024), and the
+    # bf16 tier's spectra, as JAX admits both; not other dtypes, nor blocks
+    # too wide for the kernel's shared memory.
     assert tt.fused_dispatch_auto(447)
     assert tt.fused_dispatch_auto(1024)
-    assert not tt.fused_dispatch_auto(447, torch.bfloat16)
+    assert tt.fused_dispatch_auto(447, torch.bfloat16)
+    assert not tt.fused_dispatch_auto(447, torch.float16)
     assert not tt.fused_dispatch_auto(2047)
 
 
