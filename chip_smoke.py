@@ -8,11 +8,14 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
 
   1. prints the card (nvidia-smi name and power limit), the PyTorch and CUDA
      versions, and turns TF32 off for matmuls and cuDNN;
-  2. builds the CUDA kernels from ``cuda_fft_convolution_torch/csrc`` and
-     prints what ptxas reports (registers, shared memory, spills);
+  2. builds the CUDA kernels from ``cuda_fft_convolution_torch/csrc``,
+     prints what ptxas reports (registers, shared memory, spills) and fails
+     on a spill, and holds the Python configuration model (shared memory,
+     rows, blocks per CTA) against the kernel's over (vh, wc) pairs;
   3. holds the fused block-conv kernel against its plain PyTorch version on
-     the card at a small ragged shape, a wide block and the headline plan's
-     geometry;
+     the card at a small ragged shape, a wide block, two short-window
+     shapes whose blocks stack in a CTA (a partial last group; rows
+     straddling blocks) and the headline plan's geometry;
   4. runs the headline call — ``fft_conv`` of a 2048² fp32 image with 100
      kernels of 64², mode 'same', on the GPU — checks that it went through
      the kernel and agrees with a float64 numpy reference on 8 kernels, and
@@ -56,11 +59,16 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      ``fft_kernels(store_dtype='bfloat16')`` and ``conv_spectral(mode=
      'same')`` with float32 and with bf16 maps, each against float64 numpy
      on 8 maps (2e-2); 8 filters planted in the features and found by
-     ``detect_peaks`` at the tier; the kernels against their plain versions
-     at that plan, and times.
+     ``detect_peaks`` at the tier; the blocks a CTA stacks there, its CTAs
+     and the MFLOP per cell it issues beside the useful ones; the kernels
+     against their plain versions at that plan, and times.
 
 It prints one JSON line describing every kernel mode (the float32 and bf16
-entries of the three kernels), then, as its last line,
+entries of the three kernels: launches on the main path, error, time,
+plain time, the bound worked out from the shapes — the larger of the fp32
+operations at 67 TFLOP/s and the bytes at 3.35 TB/s — and the time of the
+one PyTorch call that computes the same function, where there is one),
+then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits 2 and prints no result.
 """
@@ -112,21 +120,99 @@ def env_report() -> None:
 
 
 def build_kernels() -> None:
+    """Build the kernels, print what ptxas reports (and fail on a spill),
+    and hold the Python configuration mirror (shared memory, rows, blocks
+    per CTA) against the kernel's C entries over (vh, wc) pairs."""
     from cuda_fft_convolution_torch import _build
-    from cuda_fft_convolution_torch.ops.block_conv import smem_bytes, tile_rows
+    from cuda_fft_convolution_torch.ops.block_conv import (
+        blocks_per_cta,
+        smem_bytes,
+        tile_rows,
+    )
 
     t0 = time.perf_counter()
     lib = _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s")
+    spills = []
     for line in _build.build_log().splitlines():
-        if any(w in line for w in ("registers", "spill", "smem", "error")):
+        if any(w in line for w in ("Compiling entry", "registers", "spill", "error")):
             print(f"  ptxas: {line.strip()}")
-    for wc in (17, 76, 224, 384, 385, 451, 513, 769):
-        if lib.fftconv_block_conv_f32_smem_bytes(wc) != smem_bytes(wc):
-            raise AssertionError(f"shared-memory model differs from the kernel at Wc={wc}")
-        if lib.fftconv_block_conv_f32_rows(wc) != tile_rows(wc):
-            raise AssertionError(f"row-chunk model differs from the kernel at Wc={wc}")
-    print(f"  smem bytes at Wc=224: {smem_bytes(224)} (Python model = kernel)")
+        if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+            spills.append(line.strip())
+    if spills:
+        raise AssertionError(f"kernels spill registers: {spills}")
+    if not _build.build_log():
+        print("  (the library was built before this process: no ptxas report)")
+    pairs = 0
+    for wc in (17, 70, 76, 128, 129, 224, 256, 257, 320, 321, 384, 385, 451, 513, 769):
+        for vh in (1, 2, 3, 7, 8, 13, 16, 17, 21, 31, 32, 33, 64, 100):
+            got = (lib.fftconv_block_conv_f32_smem_bytes(wc, vh),
+                   lib.fftconv_block_conv_f32_rows(wc, vh),
+                   lib.fftconv_block_conv_f32_blocks(wc, vh))
+            want = (smem_bytes(wc, vh), tile_rows(wc, vh), blocks_per_cta(wc, vh))
+            if got != want:
+                raise AssertionError(
+                    f"configuration model differs from the kernel at Wc={wc}, Vh={vh}: "
+                    f"kernel (smem, rows, blocks) {got}, Python {want}")
+            pairs += 1
+    print(f"  configuration model = kernel at {pairs} (vh, wc) pairs; headline "
+          f"(Wc 224, Vh 64): {smem_bytes(224, 64)} B, {blocks_per_cta(224, 64)} block; "
+          f"DPM (Wc 70, Vh 16): {smem_bytes(70, 16)} B, {blocks_per_cta(70, 16)} blocks")
+
+
+# The H100 SXM's published peaks: fp32 on the CUDA cores, and HBM bandwidth.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def bound(flop: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take (ms): the larger of the
+    operations at the fp32 peak and the bytes at the HBM rate → (ms,
+    'operations' or 'bytes')."""
+    t_op, t_b = flop / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
+
+
+def cell_flop(f, lh, wc, vh, vw) -> int:
+    """Useful fp32 operations of one fused block-conv cell: the MAC over F
+    (a complex multiply-add, 8), the H stage (a complex (Vh x Lh)(Lh x Wc)
+    product) and the W stage (a real (Vh x 2Wc)(2Wc x Vw) product)."""
+    return 8 * f * lh * wc + 8 * vh * lh * wc + 4 * vh * wc * vw
+
+
+def block_conv_bound(ops, geom, out_bytes) -> tuple[float, str]:
+    """bound() of a fused block-conv call: every cell's useful operations;
+    the four spectra planes read once and ``out_bytes`` written."""
+    b, nbh, nbw, f, lh, wc = ops[0].shape
+    n = ops[2].shape[0]
+    bh, bw, kh, kw = geom[:4]
+    flop = b * nbh * nbw * n * cell_flop(f, lh, wc, bh - kh + 1, bw - kw + 1)
+    nbytes = sum(t.numel() * t.element_size() for t in ops) + out_bytes
+    return bound(flop, nbytes)
+
+
+def stacked_model(ops, geom) -> dict:
+    """The stacked configuration at a geometry, from the kernel's loop
+    counts (block_conv.cuh): blocks per CTA, CTAs, and the fp32 operations
+    issued per cell (the H stage on 64 rows x 128-column passes, the W
+    stage on 64 rows over bins padded to 32 and 128-column passes, the MAC
+    on 16 rows of columns padded to 32), beside the useful ones."""
+    from cuda_fft_convolution_torch.ops.block_conv import blocks_per_cta
+
+    b, nbh, nbw, f, lh, wc = ops[0].shape
+    n = ops[2].shape[0]
+    bh, bw, kh, kw = geom[:4]
+    vh, vw = bh - kh + 1, bw - kw + 1
+    g = blocks_per_cta(wc, vh)
+    kug = 16 // g
+    nuc = -(-lh // kug)
+    passes_h, bins = -(-wc // 128), -(-wc // 32) * 32
+    h = passes_h * nuc * kug * 64 * 128 * 8
+    w = 64 * 2 * bins * -(-vw // 128) * 128 * 2
+    mac = passes_h * nuc * g * kug * min(bins, 128) * f * 8
+    return dict(g=g, ctas=b * -(-nbh * nbw // g) * n,
+                issued_mflop=(h + w + mac) / g / 1e6,
+                useful_mflop=cell_flop(f, lh, wc, vh, vw) / 1e6)
 
 
 def rel_err(got, want) -> float:
@@ -183,11 +269,16 @@ def check_kernel_shapes(fc, rng) -> None:
         return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device="cuda")
 
     # Small ragged shape: B=2, F=3, N=5, odd blocks, out_h/out_w not
-    # multiples of the valid window (clipped edge tiles); then a block wide
-    # enough (Wc = 451) for the kernel's 32-row configuration, 2 row chunks.
+    # multiples of the valid window (clipped edge tiles); a block wide
+    # enough (Wc = 451) for the kernel's 32-row configuration, 2 row chunks;
+    # then short windows, whose blocks stack in a CTA: the DPM plan's blocks
+    # (Vh 16, Wc 70, F 31) with 15 blocks an image (a last group of 3 of 4)
+    # and clipped edges, and Vh 21 (3 blocks, thread tiles straddling two).
     for b, f, n, bh, bw, kh, kw, out_h, out_w, label in (
         (2, 3, 5, 45, 151, 10, 24, 100, 300, "small ragged"),
         (1, 2, 2, 40, 901, 9, 101, 150, 1700, "wide block, 32-row tiles"),
+        (2, 31, 3, 27, 139, 12, 12, 70, 300, "short window, stacked, partial group"),
+        (1, 3, 4, 45, 151, 25, 24, 100, 300, "Vh 21, stacked, straddling rows"),
     ):
         vh, vw = bh - kh + 1, bw - kw + 1
         nbh, nbw, wc = -(-out_h // vh), -(-out_w // vw), bw // 2 + 1
@@ -421,6 +512,29 @@ def check_mac(ops, tol=TOL) -> float:
     return abs_err
 
 
+def mac_bound(ops) -> tuple[float, str]:
+    """bound() of a MAC call: 8 operations per (b, n, f, h, w) complex
+    multiply-add; the planes read once and the two float32 output planes
+    written."""
+    b, f, h, w = ops[0].shape
+    n = ops[2].shape[0]
+    nbytes = sum(t.numel() * t.element_size() for t in ops) + 2 * b * n * h * w * 4
+    return bound(8 * b * n * f * h * w, nbytes)
+
+
+def complex_einsum_ms(ops) -> float:
+    """The one PyTorch call that computes the MAC: ``torch.einsum`` on the
+    complex64 spectra (built from the planes, bf16 upcast, before the
+    timing); a yardstick the port never calls."""
+    import torch
+
+    d = torch.complex(ops[0].float(), ops[1].float())
+    k = torch.complex(ops[2].float(), ops[3].float())
+    ms = cuda_ms(lambda: torch.einsum("bfhw,nfhw->bnhw", d, k))
+    del d, k
+    return ms
+
+
 def same_reference_f64(image, bank, idx) -> np.ndarray:
     """float64 numpy 'same' maps (scipy offset) for bank[idx]."""
     h, w = image.shape[:2]
@@ -535,7 +649,6 @@ def dpm_path(fc, seed, path_launches) -> tuple[dict, dict]:
         block_conv_peaks,
         block_conv_peaks_reference,
         block_conv_reference,
-        tile_rows,
     )
 
     bf16 = torch.bfloat16
@@ -548,9 +661,12 @@ def dpm_path(fc, seed, path_launches) -> tuple[dict, dict]:
     if plan != (27, 139, 12, 12) or sd.re.dtype != bf16 or sk.re.dtype != bf16:
         raise AssertionError(f"DPM spectra: plan {plan}, {sd.re.dtype}, {sk.re.dtype}")
     vh, wc = sd.block_h - k + 1, sd.block_w // 2 + 1
-    rows = tile_rows(wc)
+    geom = (*plan, sd.out_h, sd.out_w)
+    ops = (sd.re[None], sd.im[None], sk.re, sk.im)
+    m = stacked_model(ops, geom)
     print(f"DPM: plan {plan}, {sd.re.shape[0]}x{sd.re.shape[1]} blocks, Vh={vh}, Wc={wc}: "
-          f"a {rows}-row CTA holds {vh} window rows ({rows - vh} of {rows} idle); "
+          f"{m['g']} blocks stacked a CTA, {m['ctas']} CTAs; per cell "
+          f"{m['issued_mflop']:.3f} MFLOP issued for {m['useful_mflop']:.3f} useful; "
           f"bank spectra {2 * sk.re.numel() * sk.re.element_size() / 1e6:.1f} MB bf16")
 
     idx = list(range(0, n, n // 8))[:8]
@@ -602,8 +718,6 @@ def dpm_path(fc, seed, path_launches) -> tuple[dict, dict]:
         raise AssertionError(f"DPM detect_peaks missed {int((~found).sum())} planted centres")
 
     # the kernels at the DPM plan against their plain versions
-    geom = (*plan, sd.out_h, sd.out_w)
-    ops = (sd.re[None], sd.im[None], sk.re, sk.im)
     label = f"DPM plan, N={n}"
     kernels = {
         "block_conv_bf16": check_kernel(*ops, geom, label),
@@ -622,11 +736,19 @@ def dpm_path(fc, seed, path_launches) -> tuple[dict, dict]:
         "block_conv_peaks_bf16": (lambda: block_conv_peaks(*pops, *geom),
                                   lambda: block_conv_peaks_reference(*pops, *geom)),
     }
+    maps_bytes = n * sd.out_h * sd.out_w
+    bounds = {
+        "block_conv_bf16": block_conv_bound(ops, geom, 4 * maps_bytes),
+        "block_conv_bf16_bf16maps": block_conv_bound(ops, geom, 2 * maps_bytes),
+        "block_conv_peaks_bf16": block_conv_bound(pops, geom, 8 * pops[0].shape[1]
+                                                  * pops[0].shape[2] * n),
+    }
     for mode, (kern, plain) in ms.items():
-        kernels[mode] = (kernels[mode], cuda_ms(kern), cuda_ms(plain))
+        kernels[mode] = (kernels[mode], cuda_ms(kern), cuda_ms(plain), *bounds[mode], None)
         torch.cuda.empty_cache()
         print(f"{mode} alone at the DPM plan: {kernels[mode][1]:.3f} ms; "
-              f"plain version: {kernels[mode][2]:.3f} ms")
+              f"plain version: {kernels[mode][2]:.3f} ms; bound {kernels[mode][3]:.3f} ms "
+              f"({kernels[mode][4]})")
     ops32 = tuple(x.float() for x in ops)
     f32_ms = cuda_ms(lambda: block_conv(*ops32, *geom))
     print(f"block_conv_f32 alone at the DPM plan (the same planes upcast): {f32_ms:.3f} ms")
@@ -759,12 +881,15 @@ def main(argv=None) -> int:
     abs_err = check_kernel(*ops, geom, f"headline plan, N={n}")
     kernel_ms = cuda_ms(lambda: block_conv(*ops, *geom))
     plain_ms = cuda_ms(lambda: block_conv_reference(*ops, *geom))
-    rows["block_conv_f32"] = (abs_err, kernel_ms, plain_ms)
+    maps_elems = n * spec.out_h * spec.out_w
+    rows["block_conv_f32"] = (abs_err, kernel_ms, plain_ms,
+                              *block_conv_bound(ops, geom, 4 * maps_elems), None)
     cells = spec.re.shape[0] * spec.re.shape[1] * n
     print(f"kernel alone at the headline plan: {kernel_ms:.3f} ms "
-          f"({cells} cells); plain version: {plain_ms:.3f} ms")
-    vh, vw, lh, wc = 64, 384, 127, 224
-    flop = cells * (8 * lh * wc + 8 * vh * lh * wc + 4 * vh * wc * vw)
+          f"({cells} cells); plain version: {plain_ms:.3f} ms; bound "
+          f"{rows['block_conv_f32'][3]:.3f} ms ({rows['block_conv_f32'][4]})")
+    flop = cells * cell_flop(1, spec.block_h, spec.block_w // 2 + 1,
+                             spec.block_h - spec.max_kh + 1, spec.block_w - spec.max_kw + 1)
     print(f"kernel fp32 rate: {flop / kernel_ms / 1e9:.2f} TFLOP/s "
           f"({flop / 1e12:.3f} TFLOP useful, 4-mult complex H stage)")
     # the other dtype modes at the headline plan, N=100
@@ -774,11 +899,12 @@ def main(argv=None) -> int:
         check_kernel(*ops, geom, label, bf16, BF16_OUT_TOL),
         cuda_ms(lambda: block_conv(*ops, *geom, bf16)),
         cuda_ms(lambda: block_conv_reference(*ops, *geom, bf16)),
+        *block_conv_bound(ops, geom, 2 * maps_elems), None,
     )
     check_kernel(*ops16, geom, label)
     check_kernel(*ops16, geom, label, bf16, BF16_OUT_TOL)
     headline_modes = {
-        "block_conv_f32_bf16maps": rows["block_conv_f32_bf16maps"][1:],
+        "block_conv_f32_bf16maps": rows["block_conv_f32_bf16maps"][1:3],
         "block_conv_bf16": (cuda_ms(lambda: block_conv(*ops16, *geom)),
                             cuda_ms(lambda: block_conv_reference(*ops16, *geom))),
         "block_conv_bf16_bf16maps": (
@@ -851,7 +977,9 @@ def main(argv=None) -> int:
     peaks_err = check_peaks(*pops, geom, f"headline plan, N={n}")
     peaks_ms = cuda_ms(lambda: block_conv_peaks(*pops, *geom))
     peaks_plain_ms = cuda_ms(lambda: block_conv_peaks_reference(*pops, *geom))
-    rows["block_conv_peaks_f32"] = (peaks_err, peaks_ms, peaks_plain_ms)
+    rows["block_conv_peaks_f32"] = (peaks_err, peaks_ms, peaks_plain_ms,
+                                    *block_conv_bound(pops, geom, 8 * pops[0].shape[1]
+                                                      * pops[0].shape[2] * n), None)
     pops16 = tuple(x.to(bf16) for x in pops)
     check_peaks(*pops16, geom, f"headline plan, N={n}")
     peaks16_ms = cuda_ms(lambda: block_conv_peaks(*pops16, *geom))
@@ -863,11 +991,13 @@ def main(argv=None) -> int:
     print(f"direct fft_conv (MAC kernel): {direct_ms:.3f} ms")
     mac_ms = cuda_ms(lambda: spectral_mac(*mac_ops))
     einsum_ms = cuda_ms(lambda: spectral_mac_planes(*mac_ops))
-    rows["spectral_mac_f32"] = (mac_abs, mac_ms, einsum_ms)
+    rows["spectral_mac_f32"] = (mac_abs, mac_ms, einsum_ms, *mac_bound(mac_ops),
+                                complex_einsum_ms(mac_ops))
     print(f"MAC kernel alone at the direct shape, F=1: {mac_ms:.3f} ms; "
-          f"einsum: {einsum_ms:.3f} ms")
+          f"einsum: {einsum_ms:.3f} ms; one complex einsum: {rows['spectral_mac_f32'][5]:.3f} ms")
     rows["spectral_mac_bf16"] = (mac16_abs, cuda_ms(lambda: spectral_mac(*mac16_ops)),
-                                 cuda_ms(lambda: spectral_mac_planes(*mac16_ops)))
+                                 cuda_ms(lambda: spectral_mac_planes(*mac16_ops)),
+                                 *mac_bound(mac16_ops), complex_einsum_ms(mac16_ops))
     print(f"MAC kernel alone at the direct shape, F=1, bf16 planes: "
           f"{rows['spectral_mac_bf16'][1]:.3f} ms; einsum: {rows['spectral_mac_bf16'][2]:.3f} ms")
     mac3_ms = cuda_ms(lambda: spectral_mac(*mac3_ops))
@@ -883,12 +1013,15 @@ def main(argv=None) -> int:
     print(f"peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     kernels = []
-    for mode, (err, ms, plain) in rows.items():
+    for mode, (err, ms, plain, bound_ms, bound_by, library_ms) in rows.items():
         wrapper = mode.removesuffix("_bf16maps").rsplit("_", 1)[0]
         source, replaces = SOURCES[wrapper]
         kernels.append({
             "name": mode, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path_launches[mode], "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_kind": "compute" if bound_by == "operations" else "bytes",
+            "library_ms": library_ms,
         })
     missing = [m for m in rows if path_launches[m] < 1]
     if missing:

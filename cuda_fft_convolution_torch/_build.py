@@ -32,8 +32,8 @@ NVCC_FLAGS = (
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_MAPS = ([_P] * 9 + [_I] * 11 + [_P], ctypes.c_int)
-_PEAKS = ([_P] * 10 + [_I] * 11 + [_P], ctypes.c_int)
+_MAPS = ([_P] * 9 + [_I] * 12 + [_P], ctypes.c_int)
+_PEAKS = ([_P] * 10 + [_I] * 12 + [_P], ctypes.c_int)
 _MAC = ([_P] * 6 + [_I] * 3 + [ctypes.c_longlong, _P], ctypes.c_int)
 # C entry points: name → (argtypes, restype). Every pointer and the stream
 # are c_void_p; without argtypes ctypes would pass them as 32-bit ints. The
@@ -44,8 +44,9 @@ _SIGNATURES = {
     "fftconv_block_conv_f32_bf16maps": _MAPS,
     "fftconv_block_conv_bf16": _MAPS,
     "fftconv_block_conv_bf16_bf16maps": _MAPS,
-    "fftconv_block_conv_f32_smem_bytes": ([_I], ctypes.c_longlong),
-    "fftconv_block_conv_f32_rows": ([_I], ctypes.c_int),
+    "fftconv_block_conv_f32_smem_bytes": ([_I, _I], ctypes.c_longlong),
+    "fftconv_block_conv_f32_rows": ([_I, _I], ctypes.c_int),
+    "fftconv_block_conv_f32_blocks": ([_I, _I], ctypes.c_int),
     "fftconv_block_conv_peaks_f32": _PEAKS,
     "fftconv_block_conv_peaks_bf16": _PEAKS,
     "fftconv_spectral_mac_f32": _MAC,

@@ -11,9 +11,12 @@ Layouts are the JAX package's: data ``(H, W, F)`` or ``(B, H, W, F)``,
 kernels ``(N, Kh, Kw, F)``, one ``(Kh, Kw, F)`` array or a list of them
 (ragged sizes allowed), maps ``(N, H', W')`` or ``(B, N, H', W')`` (a list
 per kernel for ragged windows). Inputs may be numpy arrays or tensors.
-``device=`` says where the work runs: a numpy input goes there (the CPU when
-``device`` is None); a tensor stays on its device unless ``device`` is given.
-Nothing picks a device by what is available.
+``device=`` says where the work runs, and the card is the default: a numpy
+input goes to ``device``, or to ``torch.device('cuda')`` when ``device`` is
+None; a tensor stays on its device unless ``device`` is given;
+``device='cpu'`` runs on the CPU. With no CUDA device and no
+``device='cpu'`` a call on a numpy input raises ``InvalidInputError``:
+nothing falls back to the CPU (``utils/device.py``).
 
 ``store_dtype='bfloat16'`` is the JAX package's bf16 serving tier: the
 spectra are transformed in float32 and stored bfloat16, every MAC and
@@ -46,6 +49,7 @@ from cuda_fft_convolution_torch.types import (
     SpectralKernels,
     TiledSpectralData,
 )
+from cuda_fft_convolution_torch.utils.device import as_tensor
 from cuda_fft_convolution_torch.utils.errors import InvalidInputError, validate
 from cuda_fft_convolution_torch.utils.fft_size import (
     FftSizePolicy,
@@ -136,18 +140,10 @@ def _check_tier(sk: SpectralKernels, spectral) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _as_tensor(x, device=None) -> torch.Tensor:
-    """Tensor on ``device``; numpy/array-like input is copied to the CPU
-    when ``device`` is None, a tensor stays where it is."""
-    if isinstance(x, torch.Tensor):
-        return x if device is None else x.to(device)
-    return torch.tensor(np.asarray(x), device=device)
-
-
 def _data_to_cfirst(data, device=None) -> tuple[torch.Tensor, bool]:
     """(H, W, F) → (1, F, H, W); (B, H, W, F) → (B, F, H, W). Returns
     (tensor, batched)."""
-    data = _as_tensor(data, device)
+    data = as_tensor(data, device)
     validate(
         all(d > 0 for d in data.shape),
         f"data has zero-size dimension: shape {tuple(data.shape)}",
@@ -171,7 +167,7 @@ def _kernels_to_stack(
     (Kh, Kw, F) array, or a stacked (N, Kh, Kw, F) array. Returns
     (stack, kernel_hs, kernel_ws)."""
     if isinstance(kernels, (list, tuple)):
-        ks = [_as_tensor(k, device) for k in kernels]
+        ks = [as_tensor(k, device) for k in kernels]
         validate(len(ks) > 0, "kernel list is empty")
         for k in ks:
             validate(
@@ -195,7 +191,7 @@ def _kernels_to_stack(
             for k in ks
         ])
         return stack, khs, kws
-    k = _as_tensor(kernels, device)
+    k = as_tensor(kernels, device)
     if k.ndim == 3:  # single kernel (Kh, Kw, F)
         k = k[None]
     validate(

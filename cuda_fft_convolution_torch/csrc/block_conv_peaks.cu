@@ -19,7 +19,11 @@
 // CTA's ROWS is split across CTAs by row chunk, and each writes one pair:
 // the output is the partial pyramid (B, N, nbh, row_chunks, nbw), which the
 // wrapper (ops/block_conv.py block_conv_peaks) reduces over row chunks with
-// the same rule.
+// the same rule. A stacked CTA (short windows, block_conv.cuh) holds up to
+// 16 blocks, whose rows a thread's tile may straddle: each thread keeps a
+// (max, index) per tile row, and finish() reduces them per stacked row
+// over the column groups, then per block over its vh rows, in shared
+// memory, and writes one pair per block (row_chunks = 1).
 
 #include <cmath>
 
@@ -27,22 +31,48 @@
 
 namespace {
 
+// The reduction's rule: the larger value wins; between equal values the
+// smaller index.
+__device__ __forceinline__ bool beats(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+// The kernel's output argument, one type for both configurations.
+struct PeaksOut {
+  float* vals;
+  int* idxs;
+};
+
+template <bool STACKED>
 struct ReducePeaks {
-  struct Out {
-    float* vals;
-    int* idxs;
-  };
+  using Out = PeaksOut;
   Out out;
   long long slot;  // this CTA's entry of the partial pyramid
   int gy0, gx0, vh, vw, out_h, out_w;
   float best;
   int best_i;
+  // Stacked: the group (first block's pyramid base, blocks), and a running
+  // (max, index) per tile row of this thread, rows rrow.., column group rcg.
+  long long base;
+  int nbw, blk0, count, rrow, rcg;
+  float rb[8];
+  int ri[8];
 
   __device__ ReducePeaks(Out o, const Cell& c, const OutGeom& g)
       : out(o),
         slot((((c.bb * g.n + c.ni) * g.nbh + c.bi) * g.row_chunks + c.rc) * g.nbw + c.bj),
         gy0(c.bi * g.vh), gx0(c.bj * g.vw), vh(g.vh), vw(g.vw),
-        out_h(g.out_h), out_w(g.out_w), best(-INFINITY), best_i(INT_MAX) {}
+        out_h(g.out_h), out_w(g.out_w), best(-INFINITY), best_i(INT_MAX),
+        base((c.bb * g.n + c.ni) * static_cast<long long>(g.nbh) * g.nbw),
+        nbw(g.nbw), blk0(c.bi * g.nbw + c.bj), count(c.count), rrow(0), rcg(0) {
+    if constexpr (STACKED) {
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        rb[a] = -INFINITY;
+        ri[a] = INT_MAX;
+      }
+    }
+  }
 
   __device__ void take(float v, int i) {
     if (v > best || (v == best && i < best_i)) {
@@ -53,38 +83,103 @@ struct ReducePeaks {
 
   template <int TR>
   __device__ void tile(const float (&acc)[TR][4], int row0, int col0) {
+    if constexpr (STACKED) {
+      static_assert(TR <= 8, "a stacked thread tile has at most 8 rows");
+      rrow = row0;
+      rcg = (col0 % 128) / 4;
 #pragma unroll
-    for (int a = 0; a < TR; ++a) {
-      const int row = row0 + a;
-      if (row >= vh) continue;
-      const int gy = gy0 + row;
+      for (int a = 0; a < TR; ++a) {
+        const int t = (row0 + a) / vh;
+        if (t >= count) continue;
+        const int bi = (blk0 + t) / nbw;
+        const int gy = bi * vh + row0 + a - t * vh;
+        const int gxb = (blk0 + t - bi * nbw) * vw;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = col0 + c;
-        if (col >= vw) continue;
-        const int gx = gx0 + col;
-        take(gy < out_h && gx < out_w ? acc[a][c] : -INFINITY, gy * out_w + gx);
+        for (int c = 0; c < 4; ++c) {
+          const int col = col0 + c;
+          if (col >= vw) continue;
+          const int gx = gxb + col;
+          const float v = gy < out_h && gx < out_w ? acc[a][c] : -INFINITY;
+          const int i = gy * out_w + gx;
+          if (beats(v, i, rb[a], ri[a])) {
+            rb[a] = v;
+            ri[a] = i;
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int a = 0; a < TR; ++a) {
+        const int row = row0 + a;
+        if (row >= vh) continue;
+        const int gy = gy0 + row;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = col0 + c;
+          if (col >= vw) continue;
+          const int gx = gx0 + col;
+          take(gy < out_h && gx < out_w ? acc[a][c] : -INFINITY, gy * out_w + gx);
+        }
       }
     }
   }
 
   __device__ void finish(float* scratch) {
+    if constexpr (STACKED) {
+      // Per stacked row: its 32 column groups; per block: its vh rows.
+      float* sv = scratch;                                // [64][32]
+      int* si = reinterpret_cast<int*>(scratch + 64 * 32);  // [64][32]
+      __syncthreads();  // every thread is past its last read of the staging area
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      take(__shfl_xor_sync(0xffffffffu, best, off), __shfl_xor_sync(0xffffffffu, best_i, off));
-    float* wv = scratch;                                 // [kThreads / 32]
-    int* wi = reinterpret_cast<int*>(scratch + kThreads / 32);
-    __syncthreads();  // every thread is past its last read of the staging area
-    const int warp = threadIdx.x >> 5;
-    if ((threadIdx.x & 31) == 0) {
-      wv[warp] = best;
-      wi[warp] = best_i;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int w = 1; w < kThreads / 32; ++w) take(wv[w], wi[w]);
-      out.vals[slot] = best;
-      out.idxs[slot] = best_i;
+      for (int a = 0; a < 8; ++a) {
+        sv[(rrow + a) * 32 + rcg] = rb[a];
+        si[(rrow + a) * 32 + rcg] = ri[a];
+      }
+      __syncthreads();
+      const int tid = threadIdx.x;
+      if (tid < 64) {
+        float v = sv[tid * 32];
+        int i = si[tid * 32];
+        for (int k = 1; k < 32; ++k)
+          if (beats(sv[tid * 32 + k], si[tid * 32 + k], v, i)) {
+            v = sv[tid * 32 + k];
+            i = si[tid * 32 + k];
+          }
+        sv[tid * 32] = v;
+        si[tid * 32] = i;
+      }
+      __syncthreads();
+      if (tid < count) {
+        float v = -INFINITY;
+        int i = INT_MAX;
+        for (int r = tid * vh; r < (tid + 1) * vh; ++r)
+          if (beats(sv[r * 32], si[r * 32], v, i)) {
+            v = sv[r * 32];
+            i = si[r * 32];
+          }
+        const int bi = (blk0 + tid) / nbw;
+        const long long at = base + static_cast<long long>(bi) * nbw + (blk0 + tid - bi * nbw);
+        out.vals[at] = v;
+        out.idxs[at] = i;
+      }
+    } else {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        take(__shfl_xor_sync(0xffffffffu, best, off), __shfl_xor_sync(0xffffffffu, best_i, off));
+      float* wv = scratch;                                 // [kThreads / 32]
+      int* wi = reinterpret_cast<int*>(scratch + kThreads / 32);
+      __syncthreads();  // every thread is past its last read of the staging area
+      const int warp = threadIdx.x >> 5;
+      if ((threadIdx.x & 31) == 0) {
+        wv[warp] = best;
+        wi[warp] = best_i;
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        for (int w = 1; w < kThreads / 32; ++w) take(wv[w], wi[w]);
+        out.vals[slot] = best;
+        out.idxs[slot] = best_i;
+      }
     }
   }
 };
@@ -92,21 +187,22 @@ struct ReducePeaks {
 }  // namespace
 
 // Write the partial pyramid vals/idxs (B, N, nbh, row_chunks, nbw), with
-// row_chunks = ceil(vh / fftconv_block_conv_f32_rows(wc)), from fp32
-// (_f32) or bf16 (_bf16) spectra. Launch on `stream`; do not synchronise.
-// Return cudaGetLastError() after the launch (0 = launched), or the error
-// that stopped it.
+// row_chunks = 1 where fftconv_block_conv_f32_blocks(wc, vh) > 1 (stacked
+// blocks) and ceil(vh / fftconv_block_conv_f32_rows(wc, vh)) otherwise,
+// from fp32 (_f32) or bf16 (_bf16) spectra; `ktile` as for the maps
+// kernel. Launch on `stream`; do not synchronise. Return cudaGetLastError()
+// after the launch (0 = launched), or the error that stopped it.
 #define FFTCONV_PEAKS_ENTRY(NAME, TS)                                           \
   extern "C" int NAME(const TS* d_re, const TS* d_im, const TS* k_re,           \
                       const TS* k_im, const float* gt_re, const float* gt_im,   \
                       const float* m_re, const float* m_im, float* vals,        \
                       int* idxs, int b, int nbh, int nbw, int f, int n, int lh, \
-                      int wc, int vh, int vw, int out_h, int out_w,             \
+                      int wc, int vh, int vw, int out_h, int out_w, int ktile,  \
                       void* stream) {                                           \
     return launch_block_conv<TS, ReducePeaks>(                                 \
         d_re, d_im, k_re, k_im, gt_re, gt_im, m_re, m_im,                      \
-        ReducePeaks::Out{vals, idxs}, b, nbh, nbw, f, n, lh, wc, vh, vw,       \
-        out_h, out_w, stream);                                                 \
+        PeaksOut{vals, idxs}, b, nbh, nbw, f, n, lh, wc, vh,    \
+        vw, out_h, out_w, ktile, stream);                                      \
   }
 
 FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_f32, float)

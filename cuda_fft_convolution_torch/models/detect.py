@@ -11,9 +11,12 @@ elsewhere the maps are reduced in torch. Top-1 results are exact either
 way (every cell max is exact).
 
 Inputs are those of the JAX heads: channel-last data ((H, W, F) or
-(B, H, W, F), numpy or tensors — a tensor stays on its device), or
-precomputed ``SpectralData`` / ``TiledSpectralData``; a stacked bank
-(N, Kh, Kw, F), a list of (Kh, Kw, F) kernels, or ``SpectralKernels``.
+(B, H, W, F), numpy or tensors), or precomputed ``SpectralData`` /
+``TiledSpectralData``; a stacked bank (N, Kh, Kw, F), a list of
+(Kh, Kw, F) kernels, or ``SpectralKernels``. ``device=`` is ``api.py``'s:
+a numpy input goes to the card when ``device`` is None (and raises where
+there is none), ``device='cpu'`` runs on the CPU, a tensor stays on its
+device; a raw bank follows the data's spectra.
 
 ``store_dtype='bfloat16'`` runs the heads at the bf16 serving tier: the
 data spectra of an array input are stored bf16, and a raw bank is
@@ -42,6 +45,7 @@ from cuda_fft_convolution_torch.types import (
     SpectralKernels,
     TiledSpectralData,
 )
+from cuda_fft_convolution_torch.utils.device import as_tensor
 from cuda_fft_convolution_torch.utils.errors import validate
 
 _RAGGED_MODE_MSG = (
@@ -107,7 +111,7 @@ def _ragged_sizes(kernels) -> bool:
 
 def _ragged_same_maps(
     data, kernels, *, correlation, algorithm, same_offset, store_dtype,
-    out_dtype=None,
+    device, out_dtype=None,
 ) -> torch.Tensor:
     """Stacked 'same' score maps for a mixed-size cell array: every 'same'
     map is data-sized, so the per-cell maps stack into one (…, N, H, W)
@@ -130,7 +134,7 @@ def _ragged_same_maps(
         maps = _api.fft_conv(
             data, kernels=kernels, mode="same", correlation=correlation,
             algorithm=algorithm, same_offset=same_offset,
-            store_dtype=store_dtype, out_dtype=out_dtype,
+            store_dtype=store_dtype, out_dtype=out_dtype, device=device,
         )
     return torch.stack(list(maps), dim=-3)
 
@@ -197,7 +201,7 @@ def _top_k_tiled(sd, kernels, kh, kw, correlation, k):
 
 
 def _route(data, kernels, *, mode, correlation, algorithm, same_offset,
-           store_dtype, reduce, tiled, args=()):
+           store_dtype, device, reduce, tiled, args=()):
     """The routing the top-1 and top-k heads share: ragged cells → stacked
     'same' maps; ``SpectralData`` → ``conv_spectral`` maps;
     ``TiledSpectralData`` → the tiled head; arrays → the tiled head where
@@ -207,7 +211,7 @@ def _route(data, kernels, *, mode, correlation, algorithm, same_offset,
         validate(mode == "same", _RAGGED_MODE_MSG)
         maps = _ragged_same_maps(
             data, kernels, correlation=correlation, algorithm=algorithm,
-            same_offset=same_offset, store_dtype=store_dtype,
+            same_offset=same_offset, store_dtype=store_dtype, device=device,
         )
         return _positions(reduce, maps, *args)
     if isinstance(data, SpectralData):
@@ -226,7 +230,7 @@ def _route(data, kernels, *, mode, correlation, algorithm, same_offset,
         )
         return tiled(data, kernels, kh, kw, correlation, *args)
 
-    arr = _api._as_tensor(data)
+    arr = as_tensor(data, device)
     batched = arr.ndim == 4
     h, w = (arr.shape[1], arr.shape[2]) if batched else (arr.shape[0], arr.shape[1])
     kh, kw = _kernel_hw(kernels)
@@ -261,6 +265,7 @@ def detect_peaks(
     algorithm: str = "auto",
     same_offset: str = "scipy",
     store_dtype: str = "float32",
+    device=None,
 ):
     """Per-kernel top-1 detection: ``(values, positions)`` where ``values``
     is (N,) (or (B, N) batched) peak responses and ``positions`` is
@@ -274,13 +279,15 @@ def detect_peaks(
     ``algorithm='auto'|'tiled'`` routes through the overlap-save engine
     when the planner tiles — at fused geometries the peaks kernel, no maps
     written; 'direct' computes the direct engine's maps and reduces them.
-    ``store_dtype='bfloat16'``: the bf16 serving tier (module docstring)."""
+    ``store_dtype='bfloat16'``: the bf16 serving tier; ``device``: where an
+    array input runs (module docstring)."""
     _check_mode(mode, "detect_peaks", "global peak position")
     _api._resolve_store_dtype(store_dtype)
     return _route(
         data, kernels, mode=mode, correlation=correlation,
         algorithm=algorithm, same_offset=same_offset,
-        store_dtype=store_dtype, reduce=peaks_from_maps, tiled=_peaks_tiled,
+        store_dtype=store_dtype, device=device, reduce=peaks_from_maps,
+        tiled=_peaks_tiled,
     )
 
 
@@ -294,6 +301,7 @@ def detect_top_k(
     algorithm: str = "auto",
     same_offset: str = "scipy",
     store_dtype: str = "float32",
+    device=None,
 ):
     """Per-kernel top-k detection: ``(values, positions)`` with ``values``
     (N, k) descending (or (B, N, k) batched) and ``positions`` (N, k, 2) /
@@ -315,7 +323,8 @@ def detect_top_k(
     return _route(
         data, kernels, mode=mode, correlation=correlation,
         algorithm=algorithm, same_offset=same_offset,
-        store_dtype=store_dtype, reduce=top_k_from_maps, tiled=_top_k_tiled,
+        store_dtype=store_dtype, device=device, reduce=top_k_from_maps,
+        tiled=_top_k_tiled,
         args=(int(k),),
     )
 
@@ -333,6 +342,7 @@ def detect_local_peaks(
     same_offset: str = "scipy",
     store_dtype: str = "float32",
     out_dtype: str | None = None,
+    device=None,
 ):
     """Per-kernel thresholded LOCAL-MAXIMA detection — every candidate
     above a score cutoff, mutually non-adjacent — where
@@ -361,7 +371,7 @@ def detect_local_peaks(
         maps = _ragged_same_maps(
             data, kernels, correlation=correlation, algorithm=algorithm,
             same_offset=same_offset, store_dtype=store_dtype,
-            out_dtype=out_dtype,
+            device=device, out_dtype=out_dtype,
         )
     elif isinstance(data, (SpectralData, TiledSpectralData)):
         _kernel_hw(kernels)
@@ -374,7 +384,7 @@ def detect_local_peaks(
         maps = _api.fft_conv(
             data, kernels=kernels, mode=mode, correlation=correlation,
             algorithm=algorithm, same_offset=same_offset,
-            store_dtype=store_dtype, out_dtype=out_dtype,
+            store_dtype=store_dtype, out_dtype=out_dtype, device=device,
         )
     return _positions(
         local_peaks_from_maps, maps, int(k), int(window), threshold

@@ -12,21 +12,22 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
+from cuda_fft_convolution_torch.utils.device import as_tensor
 
-def hog_features(image, cell: int = 8, bins: int = 9) -> torch.Tensor:
+
+def hog_features(image, cell: int = 8, bins: int = 9, *, device=None) -> torch.Tensor:
     """(H, W) grayscale or (H, W, C) image (channels averaged), a numpy
-    array or a tensor (which stays on its device) → (H//cell, W//cell,
-    bins) float32 features.
+    array or a tensor → (H//cell, W//cell, bins) float32 features. A numpy
+    image goes to the card when ``device`` is None (``api.py``'s rule:
+    ``device='cpu'`` runs on the CPU, a tensor stays on its device).
 
     The JAX function builds a one-hot (H, W, bins) histogram per pixel and
     sums it over cells; here each pixel's two interpolated votes are added
     into its cell with ``scatter_add``, which gives the same sums without
     the per-pixel tensor (2 GB at a 4096² image and 31 bins)."""
-    img = image if isinstance(image, torch.Tensor) else torch.as_tensor(np.asarray(image))
-    img = img.to(torch.float32)
+    img = as_tensor(image, device).to(torch.float32)
     if img.ndim == 3:
         img = img.mean(dim=-1)
     h, w = img.shape

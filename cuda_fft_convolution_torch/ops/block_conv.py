@@ -47,11 +47,23 @@ import torch.nn.functional as F
 from cuda_fft_convolution_torch.ops.dft import _inv_full_mats, _inv_packed_mats
 from cuda_fft_convolution_torch.utils.errors import InvalidInputError, validate
 
-# Mirrors csrc/block_conv.cuh: a CTA holds X^T for 64 window rows (32 where
-# that does not fit) over the packed bins padded to 128, plus a staging area
-# of max(2·16·128 + 2·16·rows, 32·128) floats, within Hopper's 227 KB
-# (232,448 B) per-block shared-memory limit.
+# Mirrors csrc/block_conv.cuh's configuration rule. A CTA holds X^T for 64
+# rows (32 where that does not fit) over the packed bins padded to 128, plus
+# a staging area, within Hopper's 227 KB (232,448 B) per-block
+# shared-memory limit. For windows of at most 32 rows it stacks
+# g = min(64 // vh, 16) blocks of one (image, kernel) in 64 rows, where
+# that fits: its X^T covers the bins padded to 32, its staging is S and
+# G^T (5120 floats), and its ring holds 2 to 8 steps (as many as the limit
+# leaves room for) of 4, 2 or 1 channels (the most that leave room for 2
+# steps) × 2·(g + 1)·(16 // g) row segments, each the 16-byte chunks that
+# can hold min(wc, 128) fp32 values. bf16 spectra fill the same bytes with
+# up to 8 channels a step.
 SMEM_LIMIT_BYTES = 232448
+_COLS = 128
+_MAX_GROUP = 16
+_STACK_ROWS = 16
+_STACK_STAGE = 2 * _STACK_ROWS * _COLS + 2 * 8 * 64
+_MIN_STEPS, _MAX_STEPS = 2, 8
 
 
 # Spectra dtype → the kernel-entry tag; maps dtype → the entry suffix.
@@ -59,21 +71,77 @@ _SPECTRA_TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _MAPS_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16maps"}
 
 
-def _tile_smem_bytes(wc: int, rows: int) -> int:
-    wc_pad = -(-wc // 128) * 128
-    stage = max(2 * 16 * 128 + 2 * 16 * rows, 32 * 128)
+def _stack(wc: int, blocks: int) -> tuple[int, int]:
+    """(ring steps, shared-memory bytes) of a ``blocks``-block stack at
+    packed width ``wc``, with the most channels a step (4, 2, 1) that leave
+    room for 2 steps; (0, 0) where even 1 does not."""
+    bins = -(-wc // 32) * 32
+    segment = 4 * ((4 * min(wc, _COLS) + 11) // 16 + 1)
+    per_channel = 2 * (blocks + 1) * (_STACK_ROWS // blocks) * segment
+    left = SMEM_LIMIT_BYTES // 4 - 2 * bins * 64 - _STACK_STAGE
+    for channels in (4, 2, 1):
+        steps = min(max(left, 0) // (channels * per_channel), _MAX_STEPS)
+        if steps >= _MIN_STEPS:
+            ring = steps * channels * per_channel
+            return steps, (2 * bins * 64 + _STACK_STAGE + ring) * 4
+    return 0, 0
+
+
+def _tile_smem_bytes(wc: int, rows: int, blocks: int = 1) -> int:
+    """Shared memory of the configuration of ``rows`` rows stacking
+    ``blocks`` blocks at packed width ``wc``."""
+    if blocks > 1:
+        return _stack(wc, blocks)[1]
+    wc_pad = -(-wc // _COLS) * _COLS
+    stage = max(2 * 16 * _COLS + 2 * 16 * rows, 32 * _COLS)
     return (2 * wc_pad * rows + stage) * 4
 
 
-def tile_rows(wc: int) -> int:
-    """Window rows one CTA owns at packed width ``wc``: 64 where that
-    configuration's shared memory fits, else 32."""
+def blocks_per_cta(wc: int, vh: int) -> int:
+    """Blocks one CTA stacks at packed width ``wc`` and window height
+    ``vh``: min(64 // vh, 16) for windows of at most 32 rows where that
+    configuration fits with a ring of 2 steps or more, else 1."""
+    g = min(64 // vh, _MAX_GROUP) if vh <= 32 else 1
+    return g if g > 1 and _stack(wc, g)[0] >= _MIN_STEPS else 1
+
+
+def tile_rows(wc: int, vh: int) -> int:
+    """Rows one CTA holds: 64 (stacked, or one block's window rows where
+    that configuration's shared memory fits), else 32."""
+    if blocks_per_cta(wc, vh) > 1:
+        return 64
     return 64 if _tile_smem_bytes(wc, 64) <= SMEM_LIMIT_BYTES else 32
 
 
-def smem_bytes(wc: int) -> int:
-    """Shared memory the CUDA kernels need at packed width ``wc``."""
-    return _tile_smem_bytes(wc, tile_rows(wc))
+def smem_bytes(wc: int, vh: int) -> int:
+    """Shared memory the CUDA kernels need at packed width ``wc`` and window
+    height ``vh``."""
+    return _tile_smem_bytes(wc, tile_rows(wc, vh), blocks_per_cta(wc, vh))
+
+
+def row_chunks(wc: int, vh: int) -> int:
+    """CTAs that split one block's window rows: 1 where blocks stack, else
+    ceil(vh / tile_rows)."""
+    return 1 if blocks_per_cta(wc, vh) > 1 else -(-vh // tile_rows(wc, vh))
+
+
+# Kernel spectra (re and im) a launch tile of the stacked configuration
+# keeps in L2 while every block group passes them.
+L2_TILE_BYTES = 8 << 20
+
+
+def kernel_tile(wc: int, vh: int, bank: torch.Tensor) -> int:
+    """The stacked configuration's launch order: the kernels of one launch
+    tile, inside which the kernel index runs fastest and then the block
+    group. As many kernels as ``L2_TILE_BYTES`` of their spectra hold (the
+    whole bank where it fits: the kernel index fastest, the other
+    configurations' order), so a tile's spectra stay in L2 while the data
+    spectra pass once per tile."""
+    n = bank.shape[0]
+    if blocks_per_cta(wc, vh) == 1:
+        return n
+    per_kernel = 2 * bank[0].numel() * bank.element_size()
+    return max(1, min(n, L2_TILE_BYTES // per_kernel))
 
 
 def _geometry(dr, kr, block_h, block_w, kh, kw, out_h, out_w):
@@ -197,10 +265,10 @@ def reset_launches(*wrappers) -> None:
         w.launches_by_mode.clear()
 
 
-def _check_smem(block_w: int, wc: int) -> None:
+def _check_smem(block_w: int, wc: int, vh: int) -> None:
     validate(
-        smem_bytes(wc) <= SMEM_LIMIT_BYTES,
-        f"block width {block_w} needs {smem_bytes(wc)} B of shared memory "
+        smem_bytes(wc, vh) <= SMEM_LIMIT_BYTES,
+        f"block width {block_w} needs {smem_bytes(wc, vh)} B of shared memory "
         f"(limit {SMEM_LIMIT_BYTES})",
     )
 
@@ -226,12 +294,13 @@ def block_conv(
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
-    _check_smem(block_w, wc)
+    _check_smem(block_w, wc, vh)
     from cuda_fft_convolution_torch._build import library
 
     lib = library()
     gt_re, gt_im, mr, mi = _kernel_mats(block_h, block_w, kh, kw, str(dev))
     mode = f"block_conv_{tag}{_MAPS_SUFFIX[out_dtype]}"
+    ktile = kernel_tile(wc, vh, kr)
     out = torch.empty((b, n, out_h, out_w), dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -239,7 +308,7 @@ def block_conv(
             dr.data_ptr(), di.data_ptr(), kr.data_ptr(), ki.data_ptr(),
             gt_re.data_ptr(), gt_im.data_ptr(), mr.data_ptr(), mi.data_ptr(),
             out.data_ptr(),
-            b, nbh, nbw, f, n, lh, wc, vh, vw, out_h, out_w, stream,
+            b, nbh, nbw, f, n, lh, wc, vh, vw, out_h, out_w, ktile, stream,
         )
     if err != 0:
         raise RuntimeError(f"block_conv CUDA kernel launch failed: cudaError {err}")
@@ -335,17 +404,17 @@ def block_conv_peaks(
     This is the JAX package's ``block_conv_peaks_pallas(..., mbh=1,
     mbw=1)``: one cell per block. The JAX package groups blocks into larger
     cells by a model of TPU VMEM (``_choose_group``,
-    ``lookup_fused_group``); that grouping has no meaning on Hopper, where
-    a CTA holds one block's rows. Reducing the pyramid over cells gives the
-    exact per-kernel top-1 either way.
+    ``lookup_fused_group``); on Hopper a CTA may stack several short blocks
+    (``blocks_per_cta``), but it still writes one pair per block. Reducing
+    the pyramid over cells gives the exact per-kernel top-1 either way.
 
     CPU tensors run ``block_conv_peaks_reference``; CUDA tensors launch the
     CUDA kernel entry of their spectra dtype on the current stream and
     count the launch in ``block_conv_peaks.launches`` and, per mode, in
     ``block_conv_peaks.launches_by_mode``. The kernel writes one pair per (cell,
-    row chunk of ``tile_rows`` window rows); a cell split into several row
-    chunks is combined here (first maximum over chunks: chunk r's rows all
-    precede chunk r+1's, so that keeps the tie rule)."""
+    row chunk of ``tile_rows`` window rows; ``row_chunks``); a cell split into
+    several row chunks is combined here (first maximum over chunks: chunk
+    r's rows all precede chunk r+1's, so that keeps the tie rule)."""
     ops = (dr, di, kr, ki)
     if all(t.device.type == "cpu" for t in ops):
         return block_conv_peaks_reference(
@@ -355,13 +424,14 @@ def block_conv_peaks(
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
-    _check_smem(block_w, wc)
+    _check_smem(block_w, wc, vh)
     _check_index_range(nbh, nbw, vh, vw, out_w)
     from cuda_fft_convolution_torch._build import library
 
     lib = library()
     gt_re, gt_im, mr, mi = _kernel_mats(block_h, block_w, kh, kw, str(dev))
-    chunks = -(-vh // tile_rows(wc))
+    chunks = row_chunks(wc, vh)
+    ktile = kernel_tile(wc, vh, kr)
     shape = (b, n, nbh, chunks, nbw)
     vals = torch.empty(shape, dtype=torch.float32, device=dev)
     idxs = torch.empty(shape, dtype=torch.int32, device=dev)
@@ -372,7 +442,7 @@ def block_conv_peaks(
             dr.data_ptr(), di.data_ptr(), kr.data_ptr(), ki.data_ptr(),
             gt_re.data_ptr(), gt_im.data_ptr(), mr.data_ptr(), mi.data_ptr(),
             vals.data_ptr(), idxs.data_ptr(),
-            b, nbh, nbw, f, n, lh, wc, vh, vw, out_h, out_w, stream,
+            b, nbh, nbw, f, n, lh, wc, vh, vw, out_h, out_w, ktile, stream,
         )
     if err != 0:
         raise RuntimeError(

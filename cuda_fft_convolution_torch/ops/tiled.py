@@ -154,26 +154,28 @@ def fft_data_blocks(
 
 
 def fused_dispatch_auto(
-    block_w: int, spec_dtype: torch.dtype = torch.float32
+    block_w: int, spec_dtype: torch.dtype = torch.float32, vh: int = 64
 ) -> bool:
     """When ``conv_blocks`` runs the fused block-conv: the Hopper kernel's
     own legality rule — fp32 or bf16 spectra (the JAX rule admits both) and
-    a shared-memory need within the per-block limit. The kernel takes any
-    channel count, block height and window; the JAX rule's geometry,
+    a shared-memory need at window height ``vh`` within the per-block limit
+    (``smem_bytes``; blocks stack only where that fits, so the need is
+    within it wherever the one-block configurations are). The kernel takes
+    any channel count, block height and window; the JAX rule's geometry,
     backend and channel-count tests were TPU v5e measurements. The rule is
     the same on the CPU, where the fused branch runs the kernel's plain
     version."""
     return (
         spec_dtype in (torch.float32, torch.bfloat16)
-        and smem_bytes(block_w // 2 + 1) <= SMEM_LIMIT_BYTES
+        and smem_bytes(block_w // 2 + 1, vh) <= SMEM_LIMIT_BYTES
     )
 
 
-def _fused(block_w: int, spec_dtype: torch.dtype) -> bool:
+def _fused(block_w: int, spec_dtype: torch.dtype, vh: int) -> bool:
     """``Config.use_fused_block_conv``, with None resolved by
     ``fused_dispatch_auto``."""
     fused = get_config().use_fused_block_conv
-    return fused_dispatch_auto(block_w, spec_dtype) if fused is None else fused
+    return fused_dispatch_auto(block_w, spec_dtype, vh) if fused is None else fused
 
 
 def _conv_blocks_unfused(
@@ -284,7 +286,7 @@ def conv_blocks(
     (B, N, out_h, out_w) linear-convolution maps in ``out_dtype``. ``Config.
     use_fused_block_conv`` None = ``fused_dispatch_auto``; True/False force
     the fused or unfused branch. Differentiable on both branches."""
-    if _fused(block_w, d_re.dtype):
+    if _fused(block_w, d_re.dtype, block_h - kh + 1):
         return fused_block_conv(
             d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w,
             out_dtype,
@@ -404,7 +406,7 @@ def conv_blocks_peaks(
     reduces each block to a (max, argmax) pair and the maps are never
     written; the first-maximum cell of the pyramid then gives the exact
     top-1. On the unfused branch the assembled maps are reduced."""
-    if _fused(block_w, d_re.dtype):
+    if _fused(block_w, d_re.dtype, block_h - kh + 1):
         cells, idxs = _cell_pyramid(
             d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
         )
@@ -441,7 +443,7 @@ def conv_blocks_top_k(
     maps are reduced EXACTLY. The JAX package's cells are groups of blocks
     sized for TPU VMEM, so its fused top-k can differ from this one for
     k > 1."""
-    if _fused(block_w, d_re.dtype) and d_re.shape[1] * d_re.shape[2] >= k:
+    if _fused(block_w, d_re.dtype, block_h - kh + 1) and d_re.shape[1] * d_re.shape[2] >= k:
         cells, idxs = _cell_pyramid(
             d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
         )

@@ -21,6 +21,7 @@ from cuda_fft_convolution_torch.types import (
     SpectralKernels,
     TiledSpectralData,
 )
+from cuda_fft_convolution_torch.utils.device import resolve_device
 from cuda_fft_convolution_torch.utils.errors import validate
 
 _KINDS = {
@@ -62,8 +63,8 @@ def save_spectral(path: str, obj) -> None:
 
 def from_numpy(fields, device=None):
     """Build a spectral container from the arrays of a saved ``.npz`` (a
-    mapping of key → numpy array), with its planes on ``device`` (the CPU
-    when None)."""
+    mapping of key → numpy array), with its planes on ``device`` (the card
+    when None; ``utils/device.py``)."""
     kind = str(fields["kind"])
     validate(kind in _KINDS, f"unknown spectral kind {kind!r}")
     store_dtype = str(fields["store_dtype"]) if "store_dtype" in fields else "float32"
@@ -72,6 +73,7 @@ def from_numpy(fields, device=None):
         f"unknown store_dtype {store_dtype!r} (float32 or bfloat16)",
     )
     cls = _KINDS[kind]
+    device = resolve_device(device)
     kwargs = {
         key: torch.as_tensor(
             np.asarray(fields[f"fft_{key}"], np.float32), device=device
@@ -95,6 +97,6 @@ def from_numpy(fields, device=None):
 
 def load_spectral(path: str, device=None):
     """Load a container saved by either package's ``save_spectral``, with
-    its planes on ``device`` (the CPU when None)."""
+    its planes on ``device`` (the card when None, as ``from_numpy``)."""
     with np.load(path, allow_pickle=False) as z:
         return from_numpy({k: z[k] for k in z.files}, device)

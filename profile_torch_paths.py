@@ -15,12 +15,24 @@ maps, and the one-shot ``detect_peaks``). For each path it prints
 the device's busy time per call (the union of the GPU kernel and copy spans)
 against the profiled span, their difference as the idle share, and the
 kernels with the most self device time.
+
+    python3 profile_torch_paths.py --ab-parent PARENT/cuda_fft_convolution_torch/csrc
+
+instead builds the fused maps and peaks kernels of a parent checkout's
+``csrc`` (one whose C entries take no launch-order argument) beside this
+tree's and times both in turns — parent, this tree, this tree, parent,
+CUDA events, median of 7, each side a bare call of its C entry — at the
+headline plan (float32; the outputs must be bitwise equal) and at the DPM
+plan (bf16 spectra, and the same planes upcast to float32), printing how
+far the outputs differ.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import pathlib
+import subprocess
 import sys
 
 import chip_smoke
@@ -67,10 +79,142 @@ def report(label, fn, calls) -> None:
                   f"x{a.count // calls:<3d} {a.key[:90]}")
 
 
+def build_parent(csrc: pathlib.Path):
+    """The parent's maps and peaks kernels, built from ``csrc`` into
+    ``build/parent_ab`` with this tree's nvcc flags → the loaded library."""
+    from cuda_fft_convolution_torch import _build
+
+    out = _build.BUILD_DIR / "parent_ab"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    objs = [out / f"{name}.o" for name in ("block_conv", "block_conv_peaks")]
+    procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", str(csrc / f"{o.stem}.cu"),
+                               "-o", str(o)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for o in objs]
+    for proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the parent's sources:\n{log}")
+    lib_path = out / "libparent.so"
+    subprocess.run([nvcc, *_build.LINK_FLAGS, "-o", str(lib_path), *map(str, objs)],
+                   check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for tag in ("f32", "bf16"):
+        for name, pointers in ((f"fftconv_block_conv_{tag}", 9),
+                               (f"fftconv_block_conv_peaks_{tag}", 10)):
+            getattr(lib, name).argtypes = [p] * pointers + [i] * 11 + [p]
+            getattr(lib, name).restype = i
+    return lib
+
+
+def bare_call(lib, ops, geom, peaks: bool, *order):
+    """The C entry of ``lib`` (the parent's, or this tree's with its launch
+    order in ``order``) on ``ops`` at ``geom``, with no wrapper around it
+    → maps (B, N, out_h, out_w), or the per-block (vals, idxs) of a
+    one-row-chunk geometry."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.block_conv import _kernel_mats
+
+    b, nbh, nbw, f, lh, wc = ops[0].shape
+    n = ops[2].shape[0]
+    bh, bw, kh, kw, out_h, out_w = geom
+    vh, vw = bh - kh + 1, bw - kw + 1
+    mats = _kernel_mats(bh, bw, kh, kw, str(ops[0].device))
+    tag = "bf16" if ops[0].dtype == torch.bfloat16 else "f32"
+    if peaks:
+        vals = torch.empty((b, n, nbh, 1, nbw), device=ops[0].device)
+        idxs = torch.empty((b, n, nbh, 1, nbw), dtype=torch.int32, device=ops[0].device)
+        outs, name = (vals, idxs), f"fftconv_block_conv_peaks_{tag}"
+    else:
+        outs = (torch.empty((b, n, out_h, out_w), device=ops[0].device),)
+        name = f"fftconv_block_conv_{tag}"
+    err = getattr(lib, name)(
+        *(t.data_ptr() for t in (*ops, *mats, *outs)), b, nbh, nbw, f, n, lh, wc, vh, vw,
+        out_h, out_w, *order, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the parent's {name} failed: cudaError {err}")
+    return (outs[0][:, :, :, 0], outs[1][:, :, :, 0]) if peaks else outs[0]
+
+
+def ab_parent(csrc: pathlib.Path, seed: int) -> None:
+    """Time the parent's fused kernels against this tree's, in turns, at
+    the headline plan and the DPM plan (module docstring)."""
+    import numpy as np
+    import torch
+
+    import cuda_fft_convolution_torch as fc
+    from cuda_fft_convolution_torch import _build
+    from cuda_fft_convolution_torch.ops.block_conv import block_conv_reference, kernel_tile
+
+    lib = build_parent(csrc)
+    this = _build.library()
+
+    def calls(ops, geom, peaks):
+        """(the parent's call, this tree's call): both bare C entries, so
+        the timing holds no wrapper's host time."""
+        wc, vh = ops[0].shape[-1], geom[0] - geom[2] + 1
+        order = kernel_tile(wc, vh, ops[2])
+        return (lambda: bare_call(lib, ops, geom, peaks),
+                lambda: bare_call(this, ops, geom, peaks, order))
+
+    def turns(label, parent, new, runs=chip_smoke.RUNS):
+        t = [chip_smoke.cuda_ms(f, runs) for f in (parent, new, new, parent)]
+        print(f"A/B {label}: parent {t[0]:.3f}, this tree {t[1]:.3f}, this tree "
+              f"{t[2]:.3f}, parent {t[3]:.3f} ms")
+        torch.cuda.empty_cache()
+
+    def compare(label, parent, new, peaks):
+        a, b = parent(), new()
+        torch.cuda.synchronize()
+        if peaks:
+            rel = float((a[0] - b[0]).abs().max() / a[0].abs().max())
+            print(f"{label}: values rel {rel:.3e}, index flips {int((a[1] != b[1]).sum())} "
+                  f"of {a[1].numel()}, bitwise equal {torch.equal(a[0], b[0])}")
+        else:
+            rel = float((a - b).abs().max() / a.abs().max())
+            print(f"{label}: rel {rel:.3e}, bitwise equal {torch.equal(a, b)}")
+
+    rng = np.random.default_rng(seed)
+    s, n, k = chip_smoke.HEADLINE["size"], chip_smoke.HEADLINE["n"], chip_smoke.HEADLINE["k"]
+    image = torch.as_tensor(rng.standard_normal((s, s, 1)).astype(np.float32), device="cuda")
+    bank = torch.as_tensor(rng.standard_normal((n, k, k, 1)).astype(np.float32), device="cuda")
+    spec = fc.fft_data_tiled(image, k, k, trim_mode="same")
+    sk = fc.fft_kernels(bank, spectral=spec)
+    geom = (spec.block_h, spec.block_w, spec.max_kh, spec.max_kw, spec.out_h, spec.out_w)
+    ops = (spec.re[None], spec.im[None], sk.re, sk.im)
+    for peaks in (False, True):
+        label = f"headline plan, f32 {'peaks' if peaks else 'maps'}"
+        compare(label, *calls(ops, geom, peaks), peaks)
+        turns(label, *calls(ops, geom, peaks))
+    del spec, sk, ops
+    torch.cuda.empty_cache()
+
+    feats, dbank, _ = chip_smoke.dpm_inputs(seed)
+    k = chip_smoke.DPM["k"]
+    sd = fc.fft_data_tiled(feats, k, k, trim_mode="same", store_dtype="bfloat16")
+    sks = (fc.fft_kernels(dbank, spectral=sd, store_dtype="bfloat16"),
+           fc.fft_kernels(dbank, spectral=sd, correlation=True, store_dtype="bfloat16"))
+    geom = (sd.block_h, sd.block_w, sd.max_kh, sd.max_kw, sd.out_h, sd.out_w)
+    for peaks in (False, True):
+        ops = (sd.re[None], sd.im[None], sks[peaks].re, sks[peaks].im)
+        label = f"DPM plan, bf16 spectra, {'peaks' if peaks else 'f32 maps'}"
+        compare(label, *calls(ops, geom, peaks), peaks)
+        turns(label, *calls(ops, geom, peaks))
+    ops = (sd.re[None], sd.im[None], sks[0].re, sks[0].im)
+    print(f"DPM plan, plain version of the maps kernel: "
+          f"{chip_smoke.cuda_ms(lambda: block_conv_reference(*ops, *geom)):.3f} ms")
+    ops = tuple(t.float() for t in ops)
+    turns("DPM plan, the same planes upcast to f32, f32 maps", *calls(ops, geom, False), runs=3)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--calls", type=int, default=3)
+    parser.add_argument("--ab-parent", type=pathlib.Path, default=None,
+                        help="a parent checkout's cuda_fft_convolution_torch/csrc")
     args = parser.parse_args(argv)
 
     import torch
@@ -84,6 +228,9 @@ def main(argv=None) -> int:
     from cuda_fft_convolution_torch.ops.tiled import peaks_from_maps
 
     chip_smoke.env_report()
+    if args.ab_parent is not None:
+        ab_parent(args.ab_parent.resolve(), args.seed)
+        return 0
     image, bank, _ = chip_smoke.detection_headline(fc, args.seed)
     report("detect_peaks", lambda: detect_peaks(image, bank), args.calls)
     report("maps path (fft_conv + peaks_from_maps)", lambda: peaks_from_maps(

@@ -45,7 +45,7 @@ def _oracle(data, bank, mode, same_offset="scipy"):
 @pytest.mark.parametrize("mode", ["fftmap", "full", "same", "valid"])
 def test_fft_conv_matches_jax_and_oracle(bank_case, mode, algorithm):
     data, bank = bank_case
-    got = tfc.fft_conv(data, kernels=bank, mode=mode, algorithm=algorithm)
+    got = tfc.fft_conv(data, kernels=bank, mode=mode, algorithm=algorithm, device="cpu")
     want = np.asarray(jfc.fft_conv(data, kernels=bank, mode=mode, algorithm=algorithm))
     assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
     assert tuple(got.shape) == want.shape
@@ -71,11 +71,11 @@ def test_auto_engine_runs_the_fused_branch(bank_case, monkeypatch):
         return real(*a)
 
     monkeypatch.setattr(tt, "block_conv", counting)
-    fused = tfc.fft_conv(data, kernels=bank, mode="same")
+    fused = tfc.fft_conv(data, kernels=bank, mode="same", device="cpu")
     assert len(calls) == 1
     tfc.set_config(use_fused_block_conv=False)
     try:
-        unfused = tfc.fft_conv(data, kernels=bank, mode="same")
+        unfused = tfc.fft_conv(data, kernels=bank, mode="same", device="cpu")
     finally:
         tfc.set_config(use_fused_block_conv=None)
     assert len(calls) == 1
@@ -88,7 +88,7 @@ def test_correlation_and_same_offset_match_jax(rng, algorithm, same_offset):
     data = rng.standard_normal((120, 150, 1)).astype(np.float32)
     bank = rng.standard_normal((2, 8, 12, 1)).astype(np.float32)
     kw = dict(mode="same", algorithm=algorithm, correlation=True, same_offset=same_offset)
-    got = tfc.fft_conv(data, kernels=bank, **kw)
+    got = tfc.fft_conv(data, kernels=bank, **kw, device="cpu")
     want = np.asarray(jfc.fft_conv(data, kernels=bank, **kw))
     assert rel_err(got.numpy(), want) < TOL
     flipped = bank[:, ::-1, ::-1]
@@ -100,7 +100,7 @@ def test_correlation_and_same_offset_match_jax(rng, algorithm, same_offset):
 def test_batched_data_matches_jax(rng, algorithm, mode):
     data = rng.standard_normal((2, 100, 140, 3)).astype(np.float32)
     bank = rng.standard_normal((4, 7, 9, 3)).astype(np.float32)
-    got = tfc.fft_conv(data, kernels=bank, mode=mode, algorithm=algorithm)
+    got = tfc.fft_conv(data, kernels=bank, mode=mode, algorithm=algorithm, device="cpu")
     want = np.asarray(jfc.fft_conv(data, kernels=bank, mode=mode, algorithm=algorithm))
     assert tuple(got.shape) == want.shape and got.shape[:2] == (2, 4)
     assert rel_err(got.numpy(), want) < TOL
@@ -114,7 +114,7 @@ def test_ragged_bank_matches_jax(rng, correlation):
     for mode in ("full", "same", "valid"):
         kw = dict(mode=mode, correlation=correlation, algorithm="tiled",
                   bucket_ragged=False)
-        got = tfc.fft_conv(data, kernels=bank, **kw)
+        got = tfc.fft_conv(data, kernels=bank, **kw, device="cpu")
         want = jfc.fft_conv(data, kernels=bank, **kw)
         assert isinstance(got, list) and len(got) == 3
         for g, w in zip(got, want):
@@ -126,10 +126,10 @@ def test_ragged_bucketing_not_ported(rng):
     data = rng.standard_normal((60, 60, 1)).astype(np.float32)
     bank = [np.ones((3, 3, 1), np.float32), np.ones((20, 20, 1), np.float32)]
     with pytest.raises(tfc.InvalidInputError, match="queue 1 item 5"):
-        tfc.fft_conv(data, kernels=bank, mode="same")
+        tfc.fft_conv(data, kernels=bank, mode="same", device="cpu")
     # one pow-2 envelope: nothing to bucket, so the default runs
     same_env = [np.ones((9, 13, 1), np.float32), np.ones((12, 10, 1), np.float32)]
-    assert len(tfc.fft_conv(data, kernels=same_env, mode="same")) == 2
+    assert len(tfc.fft_conv(data, kernels=same_env, mode="same", device="cpu")) == 2
 
 
 @pytest.mark.parametrize(
@@ -155,9 +155,9 @@ def test_options_not_ported_raise(rng, kwargs, item):
     if item == "queue 1 item 6":
         for algorithm in ("direct", "tiled"):
             kw = dict(mode="same", algorithm=algorithm, **kwargs)
-            got = tfc.fft_conv(data, kernels=bank, **kw)
+            got = tfc.fft_conv(data, kernels=bank, **kw, device="cpu")
             jax_maps = jfc.fft_conv(data, kernels=bank, **kw)
-            want = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm)
+            want = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm, device="cpu")
             assert str(got.dtype).removeprefix("torch.") == str(jax_maps.dtype)
             got = got.float().numpy()
             assert rel_err(got, np.asarray(jax_maps, np.float32)) < 2e-2
@@ -165,29 +165,30 @@ def test_options_not_ported_raise(rng, kwargs, item):
         return
     if item == "queue 2 item 1":
         for algorithm in ("direct", "tiled"):
-            got = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm, **kwargs)
-            want = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm)
+            got = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm,
+                               device="cpu", **kwargs)
+            want = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm, device="cpu")
             jax_maps = jfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm,
                                     **kwargs)
             assert rel_err(got.numpy(), want.numpy()) < TOL
             assert rel_err(got.numpy(), np.asarray(jax_maps)) < TOL
         return
     with pytest.raises(tfc.InvalidInputError, match=item):
-        tfc.fft_conv(data, kernels=bank, mode="same", **kwargs)
+        tfc.fft_conv(data, kernels=bank, mode="same", **kwargs, device="cpu")
 
 
 def test_amortized_paths_match_one_shot(bank_case):
     data, bank = bank_case
-    one_shot = tfc.fft_conv(data, kernels=bank, mode="same")
-    tiled = tfc.fft_data_tiled(data, 9, 13, trim_mode="same")
+    one_shot = tfc.fft_conv(data, kernels=bank, mode="same", device="cpu")
+    tiled = tfc.fft_data_tiled(data, 9, 13, trim_mode="same", device="cpu")
     sk = tfc.fft_kernels(bank, spectral=tiled)
     assert (sk.fft_h, sk.fft_w) == (tiled.block_h, tiled.block_w)
     assert torch.equal(tfc.conv_spectral(tiled, sk, mode="same"), one_shot)
-    direct = tfc.fft_data(data, 9, 13)
+    direct = tfc.fft_data(data, 9, 13, device="cpu")
     maps = tfc.conv_spectral(direct, bank, mode="same")
     assert rel_err(maps.numpy(), one_shot.numpy()) < TOL
     # 'full' spectra serve every linear window
-    full = tfc.fft_data_tiled(data, 9, 13)
+    full = tfc.fft_data_tiled(data, 9, 13, device="cpu")
     sk_full = tfc.fft_kernels(bank, spectral=full)
     same = tfc.conv_spectral(full, sk_full, mode="same")
     assert rel_err(same.numpy(), one_shot.numpy()) < TOL
@@ -196,29 +197,81 @@ def test_amortized_paths_match_one_shot(bank_case):
 
 def test_spectral_validation(bank_case):
     data, bank = bank_case
-    tiled = tfc.fft_data_tiled(data, 9, 13, trim_mode="same")
+    tiled = tfc.fft_data_tiled(data, 9, 13, trim_mode="same", device="cpu")
     with pytest.raises(tfc.InvalidInputError, match="fftmap"):
         tfc.conv_spectral(tiled, bank, mode="fftmap")
     with pytest.raises(tfc.InvalidInputError, match="falls outside"):
         tfc.conv_spectral(tiled, bank, mode="full")
     with pytest.raises(tfc.InvalidInputError, match="exceed"):
         tfc.conv_spectral(tiled, np.ones((1, 15, 13, 2), np.float32), mode="same")
-    direct = tfc.fft_data(data, 5, 5)
+    direct = tfc.fft_data(data, 5, 5, device="cpu")
     with pytest.raises(tfc.InvalidInputError, match="aliased"):
         tfc.conv_spectral(direct, bank, mode="full")
     with pytest.raises(tfc.InvalidInputError, match="feature dim"):
-        tfc.fft_conv(data, kernels=np.ones((1, 3, 3, 1), np.float32))
+        tfc.fft_conv(data, kernels=np.ones((1, 3, 3, 1), np.float32), device="cpu")
 
 
 def test_device_argument(bank_case):
-    """numpy input runs where device= says (the CPU by default); a tensor
+    """numpy input runs where device= says (the card by default); a tensor
     stays on its device."""
     data, bank = bank_case
     out = tfc.fft_conv(data, kernels=bank, mode="same", device="cpu")
     assert out.device.type == "cpu"
-    spec = tfc.fft_data_tiled(torch.as_tensor(data), 9, 13)
+    spec = tfc.fft_data_tiled(torch.as_tensor(data), 9, 13, device="cpu")
     assert spec.re.device.type == "cpu" and spec.re.dtype == torch.float32
     assert tfc.fft_kernels(bank, spectral=spec).re.device == spec.re.device
+
+
+_ENTRIES = {
+    "fft_conv": lambda data, bank, **kw: tfc.fft_conv(data, kernels=bank, mode="same", **kw),
+    "fft_data": lambda data, bank, **kw: tfc.fft_data(data, 9, 13, **kw).re,
+    "fft_data_tiled": lambda data, bank, **kw: tfc.fft_data_tiled(data, 9, 13, **kw).re,
+    "fft_kernels": lambda data, bank, **kw: tfc.fft_kernels(bank, 32, 32, **kw).re,
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRIES))
+def test_numpy_input_runs_on_the_card_by_default(bank_case, entry):
+    """A numpy input with no device goes to the card; where there is none
+    the call raises, naming device='cpu', and nothing runs on the CPU
+    instead."""
+    data, bank = bank_case
+    if torch.cuda.is_available():
+        assert _ENTRIES[entry](data, bank).device.type == "cuda"
+    else:
+        with pytest.raises(tfc.InvalidInputError, match="device='cpu'"):
+            _ENTRIES[entry](data, bank)
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRIES))
+def test_cpu_device_and_cpu_tensors_run_on_the_cpu(bank_case, entry):
+    """device='cpu' runs a numpy input on the CPU; a CPU tensor with no
+    device stays there; both give the same result."""
+    data, bank = bank_case
+    on_cpu = _ENTRIES[entry](data, bank, device="cpu")
+    kept = _ENTRIES[entry](torch.as_tensor(data), torch.as_tensor(bank))
+    assert on_cpu.device.type == kept.device.type == "cpu"
+    assert torch.equal(on_cpu, kept)
+
+
+def test_load_spectral_device(tmp_path, bank_case):
+    """A checkpoint restores its planes to the card unless device='cpu'
+    (raising where there is no card)."""
+    data, bank = bank_case
+    path = str(tmp_path / "d.npz")
+    tfc.save_spectral(path, tfc.fft_data_tiled(data, 9, 13, device="cpu"))
+    assert tfc.load_spectral(path, device="cpu").re.device.type == "cpu"
+    with np.load(path) as z:
+        fields = {k: z[k] for k in z.files}
+    assert tfc.from_numpy(fields, device="cpu").im.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert tfc.load_spectral(path).re.device.type == "cuda"
+        assert tfc.from_numpy(fields).re.device.type == "cuda"
+        return
+    with pytest.raises(tfc.InvalidInputError, match="device='cpu'"):
+        tfc.load_spectral(path)
+    with pytest.raises(tfc.InvalidInputError, match="device='cpu'"):
+        tfc.from_numpy(fields)
 
 
 def _jax_maps(spec, bank_spec, mode):
@@ -238,7 +291,7 @@ def test_checkpoint_jax_to_port(tmp_path, bank_case):
     jbank = jfc.fft_kernels(bank, spectral=jspec)
     jfc.save_spectral(str(tmp_path / "d.npz"), jspec)
     jfc.save_spectral(str(tmp_path / "k.npz"), jbank)
-    spec = tfc.load_spectral(str(tmp_path / "d.npz"))
+    spec = tfc.load_spectral(str(tmp_path / "d.npz"), device="cpu")
     bank_spec = tfc.load_spectral(str(tmp_path / "k.npz"), device="cpu")
     assert isinstance(spec, tfc.TiledSpectralData)
     assert isinstance(bank_spec, tfc.SpectralKernels)
@@ -249,13 +302,14 @@ def test_checkpoint_jax_to_port(tmp_path, bank_case):
     assert rel_err(got.numpy(), _jax_maps(jspec, jbank, "same")) < TOL
     # the same through from_numpy on the raw arrays
     with np.load(tmp_path / "d.npz") as z:
-        again = tfc.from_numpy({k: z[k] for k in z.files})
+        again = tfc.from_numpy({k: z[k] for k in z.files}, device="cpu")
     assert torch.equal(again.re, spec.re) and again.win_h == spec.win_h
 
 
 def test_checkpoint_port_to_jax_round_trip(tmp_path, bank_case):
     data, bank = bank_case
-    for spec in (tfc.fft_data_tiled(data, 9, 13), tfc.fft_data(data, 9, 13)):
+    for spec in (tfc.fft_data_tiled(data, 9, 13, device="cpu"),
+                 tfc.fft_data(data, 9, 13, device="cpu")):
         bank_spec = tfc.fft_kernels(bank, spectral=spec)
         tfc.save_spectral(str(tmp_path / "d.npz"), spec)
         tfc.save_spectral(str(tmp_path / "k.npz"), bank_spec)
@@ -264,7 +318,7 @@ def test_checkpoint_port_to_jax_round_trip(tmp_path, bank_case):
         assert type(jspec).__name__ == type(spec).__name__
         want = tfc.conv_spectral(spec, bank_spec, mode="full")
         assert rel_err(want.numpy(), _jax_maps(jspec, jbank, "full")) < TOL
-        back = tfc.load_spectral(str(tmp_path / "d.npz"))
+        back = tfc.load_spectral(str(tmp_path / "d.npz"), device="cpu")
         assert torch.equal(back.re, spec.re) and torch.equal(back.im, spec.im)
         assert _meta(back) == _meta(spec)
 
@@ -278,12 +332,13 @@ def test_checkpoint_rejects_layouts_not_ported():
                   fft_im=np.zeros((1, 4, 3), np.float32),
                   fft_h=np.asarray(4), fft_w=np.asarray(4), data_h=np.asarray(2),
                   data_w=np.asarray(2))
-    spec = tfc.from_numpy(fields)
+    spec = tfc.from_numpy(fields, device="cpu")
     assert spec.re.dtype == spec.im.dtype == torch.bfloat16 and float(spec.re[0, 0, 0]) == 1.5
     with pytest.raises(tfc.InvalidInputError, match="store_dtype"):
-        tfc.from_numpy({**fields, "store_dtype": np.asarray("float16")})
+        tfc.from_numpy({**fields, "store_dtype": np.asarray("float16")}, device="cpu")
     fields["store_dtype"] = np.asarray("float32")
-    spec = tfc.from_numpy({**fields, "clamp": np.asarray(True), "band_h": np.asarray(1)})
+    spec = tfc.from_numpy({**fields, "clamp": np.asarray(True), "band_h": np.asarray(1)},
+                          device="cpu")
     assert spec.clamp is True and spec.band_h == 1 and spec.band_w == -1
     with pytest.raises(tfc.InvalidInputError, match="queue 1 item 1"):
         tfc.conv_spectral(spec, np.ones((1, 2, 2, 1), np.float32), mode="same")

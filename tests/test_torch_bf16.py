@@ -44,6 +44,11 @@ BF16_TOL = 2e-2
 BF16_OUT_TOL = 5e-3
 
 
+def _cpu(p):
+    """The port's CPU keyword for a call made through either package."""
+    return dict(device="cpu") if p is tfc else {}
+
+
 def _f32(x) -> np.ndarray:
     """Any array (torch bf16 included) as a float32 numpy array."""
     if isinstance(x, torch.Tensor):
@@ -205,7 +210,7 @@ def _oracle(data, bank, mode, fft_hw=None):
 def test_fft_conv_bf16_tier_matches_jax_and_oracle(tier_case, algorithm, mode):
     data, bank = tier_case
     kw = dict(mode=mode, algorithm=algorithm, store_dtype="bfloat16")
-    got = tfc.fft_conv(data, kernels=bank, **kw)
+    got = tfc.fft_conv(data, kernels=bank, **kw, device="cpu")
     want = jfc.fft_conv(data, kernels=bank, **kw)
     assert got.dtype == torch.float32 and want.dtype == jnp.float32
     assert tuple(got.shape) == want.shape
@@ -225,10 +230,10 @@ def test_conv_spectral_bf16_tier_amortized(tier_case, tiled):
 
         def make(p):
             return p.fft_data_tiled(data, 9, 13, block_h=lh, block_w=lw,
-                                    trim_mode="same", store_dtype="bfloat16")
+                                    trim_mode="same", store_dtype="bfloat16", **_cpu(p))
     else:
         def make(p):
-            return p.fft_data(data, 9, 13, store_dtype="bfloat16")
+            return p.fft_data(data, 9, 13, store_dtype="bfloat16", **_cpu(p))
     spec, jspec = make(tfc), make(jfc)
     assert spec.re.dtype == torch.bfloat16 and jspec.re.dtype == jnp.bfloat16
     # the transform runs in float32 and only the store rounds: the planes
@@ -249,7 +254,7 @@ def test_conv_spectral_bf16_tier_amortized(tier_case, tiled):
     assert want.dtype == jnp.float32
     assert rel_err(maps.numpy(), _f32(want)) < BF16_TOL
     one_shot = tfc.fft_conv(data, kernels=bank, mode="same", store_dtype="bfloat16",
-                            algorithm="tiled" if tiled else "direct")
+                            algorithm="tiled" if tiled else "direct", device="cpu")
     assert torch.equal(maps, one_shot)
 
 
@@ -259,9 +264,9 @@ def test_fftmap_tiled_bf16_tier(rng):
     engine's raw maps, as JAX's."""
     data = rng.standard_normal((90, 80, 2)).astype(np.float32)
     bank = rng.standard_normal((4, 7, 7, 2)).astype(np.float32)
-    want = tfc.fft_conv(data, kernels=bank, mode="fftmap", algorithm="direct")
+    want = tfc.fft_conv(data, kernels=bank, mode="fftmap", algorithm="direct", device="cpu")
     got = tfc.fft_conv(data, kernels=bank, mode="fftmap", algorithm="tiled",
-                       store_dtype="bfloat16")
+                       store_dtype="bfloat16", device="cpu")
     jgot = jfc.fft_conv(data, kernels=bank, mode="fftmap", algorithm="tiled",
                         store_dtype="bfloat16")
     assert got.shape == want.shape == jgot.shape
@@ -277,22 +282,23 @@ def test_out_dtype_bf16_maps(tier_case, algorithm, store_dtype):
     JAX call (the output rounding alone, or the tier's)."""
     data, bank = tier_case
     kw = dict(mode="same", algorithm=algorithm, store_dtype=store_dtype)
-    f32 = tfc.fft_conv(data, kernels=bank, **kw)
-    got = tfc.fft_conv(data, kernels=bank, out_dtype="bfloat16", **kw)
+    f32 = tfc.fft_conv(data, kernels=bank, **kw, device="cpu")
+    got = tfc.fft_conv(data, kernels=bank, out_dtype="bfloat16", **kw, device="cpu")
     want = jfc.fft_conv(data, kernels=bank, out_dtype="bfloat16", **kw)
     assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
     assert rel_err(_f32(got), f32.numpy()) < BF16_OUT_TOL
     bar = BF16_OUT_TOL if store_dtype == "float32" else BF16_TOL
     assert rel_err(_f32(got), _f32(want)) < 2 * bar
-    assert tfc.fft_conv(data, kernels=bank, out_dtype="float32", **kw).dtype == torch.float32
+    maps = tfc.fft_conv(data, kernels=bank, out_dtype="float32", device="cpu", **kw)
+    assert maps.dtype == torch.float32
 
 
 def test_ragged_bank_out_dtype(rng):
     """A ragged bank returns a list whose every map carries out_dtype."""
     data = rng.standard_normal((40, 40, 1)).astype(np.float32)
     cells = [rng.standard_normal((k, k, 1)).astype(np.float32) for k in (5, 7)]
-    got = tfc.fft_conv(data, kernels=cells, mode="same", out_dtype="bfloat16")
-    want = tfc.fft_conv(data, kernels=cells, mode="same")
+    got = tfc.fft_conv(data, kernels=cells, mode="same", out_dtype="bfloat16", device="cpu")
+    want = tfc.fft_conv(data, kernels=cells, mode="same", device="cpu")
     assert isinstance(got, list) and len(got) == 2
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
@@ -316,16 +322,16 @@ def test_detect_heads_bf16_tier_match_jax(rng, algorithm):
     float32 values and int32 positions."""
     data, bank, centres = _planted(rng)
     kw = dict(algorithm=algorithm, store_dtype="bfloat16")
-    vals, pos = detect_peaks(data, bank, **kw)
+    vals, pos = detect_peaks(data, bank, **kw, device="cpu")
     jv, jp = j_peaks(data, bank, **kw)
     assert vals.dtype == torch.float32 and pos.dtype == torch.int32
     assert np.array_equal(pos.numpy(), centres) and np.array_equal(np.asarray(jp), centres)
     assert rel_err(vals.numpy(), _f32(jv)) < BF16_TOL
-    v1, p1 = detect_top_k(data, bank, 1, **kw)
+    v1, p1 = detect_top_k(data, bank, 1, **kw, device="cpu")
     jv1, jp1 = j_top_k(data, bank, 1, **kw)
     assert np.array_equal(p1[:, 0].numpy(), centres)
     assert np.array_equal(np.asarray(jp1)[:, 0], centres)
-    lv, lp = detect_local_peaks(data, bank, 4, **kw)
+    lv, lp = detect_local_peaks(data, bank, 4, **kw, device="cpu")
     jlv, jlp = j_local_peaks(data, bank, 4, **kw)
     assert np.array_equal(lp[:, 0].numpy(), centres)
     assert np.array_equal(np.asarray(jlp)[:, 0], centres)
@@ -337,23 +343,23 @@ def test_detect_heads_bf16_on_spectra(rng):
     their tier) or a bank of the same tier; a bank of the other tier is
     the mismatch error."""
     data, bank, centres = _planted(rng)
-    sd = tfc.fft_data_tiled(data, 9, 13, trim_mode="same", store_dtype="bfloat16")
-    _, pos = detect_peaks(sd, bank)
+    sd = tfc.fft_data_tiled(data, 9, 13, trim_mode="same", store_dtype="bfloat16", device="cpu")
+    _, pos = detect_peaks(sd, bank, device="cpu")
     assert np.array_equal(pos.numpy(), centres)
     sk = tfc.fft_kernels(bank, spectral=sd, correlation=True, store_dtype="bfloat16")
-    _, pos_k = detect_top_k(sd, sk, 1)
+    _, pos_k = detect_top_k(sd, sk, 1, device="cpu")
     assert np.array_equal(pos_k[:, 0].numpy(), centres)
     sk32 = tfc.fft_kernels(bank, spectral=sd, correlation=True)
     with pytest.raises(tfc.InvalidInputError, match="store-dtype mismatch"):
-        detect_peaks(sd, sk32)
+        detect_peaks(sd, sk32, device="cpu")
 
 
 def test_detect_local_peaks_out_dtype(rng):
     """bf16 maps through detect_local_peaks: the same hits as the float32
     maps' (planted templates), values within BF16_OUT_TOL, as JAX's."""
     data, bank, centres = _planted(rng)
-    v32, p32 = detect_local_peaks(data, bank, 4)
-    vb, pb = detect_local_peaks(data, bank, 4, out_dtype="bfloat16")
+    v32, p32 = detect_local_peaks(data, bank, 4, device="cpu")
+    vb, pb = detect_local_peaks(data, bank, 4, out_dtype="bfloat16", device="cpu")
     jvb, jpb = j_local_peaks(data, bank, 4, out_dtype="bfloat16")
     assert vb.dtype == torch.float32
     assert np.array_equal(pb[:, 0].numpy(), centres)
@@ -377,8 +383,8 @@ def test_tier_validation_matches_jax(rng):
     for tiled in (False, True):
         for data_t, bank_t in (("float32", "bfloat16"), ("bfloat16", "float32")):
             def pair(p):
-                sd = (p.fft_data_tiled(data, 5, 5, store_dtype=data_t) if tiled
-                      else p.fft_data(data, 5, 5, store_dtype=data_t))
+                sd = (p.fft_data_tiled(data, 5, 5, store_dtype=data_t, **_cpu(p)) if tiled
+                      else p.fft_data(data, 5, 5, store_dtype=data_t, **_cpu(p)))
                 extra = {} if tiled else dict(storage="planar")
                 sk = p.fft_kernels(bank, spectral=sd, store_dtype=bank_t,
                                    **(extra if p is jfc else {}))
@@ -400,13 +406,13 @@ def test_tier_validation_matches_jax(rng):
         with pytest.raises(tfc.InvalidInputError):
             call(tfc)
         assert _message(lambda: call(tfc)) == _message(lambda: call(jfc))
-    sd = tfc.fft_data(data, 5, 5)
+    sd = tfc.fft_data(data, 5, 5, device="cpu")
     with pytest.raises(tfc.InvalidInputError, match="out_dtype"):
         tfc.conv_spectral(sd, bank, out_dtype="float64")
     with pytest.raises(tfc.InvalidInputError, match="store_dtype"):
-        detect_peaks(data, bank, store_dtype="float16")
+        detect_peaks(data, bank, store_dtype="float16", device="cpu")
     with pytest.raises(tfc.InvalidInputError, match="out_dtype"):
-        detect_local_peaks(data, bank, out_dtype="float16")
+        detect_local_peaks(data, bank, out_dtype="float16", device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -451,7 +457,7 @@ def test_grad_through_fft_conv_bf16_out_matches_jax(rng, algorithm):
 
     want = jax.grad(jloss)(jnp.asarray(data))
     x = torch.tensor(data, requires_grad=True)
-    maps = tfc.fft_conv(x, **kw)
+    maps = tfc.fft_conv(x, **kw, device="cpu")
     assert maps.dtype == torch.bfloat16
     maps.float().square().sum().backward()
     assert x.grad.dtype == torch.float32
@@ -464,8 +470,8 @@ def test_grad_through_fft_conv_bf16_out_matches_jax(rng, algorithm):
 
 
 def _containers(p, data, bank):
-    tiled = p.fft_data_tiled(data, 9, 13, trim_mode="same", store_dtype="bfloat16")
-    direct = p.fft_data(data, 9, 13, store_dtype="bfloat16")
+    tiled = p.fft_data_tiled(data, 9, 13, trim_mode="same", store_dtype="bfloat16", **_cpu(p))
+    direct = p.fft_data(data, 9, 13, store_dtype="bfloat16", **_cpu(p))
     extra = dict(storage="planar") if p is jfc else {}
     return {
         "TiledSpectralData": tiled,
@@ -485,14 +491,14 @@ def test_checkpoint_bf16_crosses_packages(tmp_path, tier_case, kind):
     tfc.save_spectral(str(tmp_path / "t.npz"), tobj)
     with np.load(tmp_path / "t.npz") as z:
         assert str(z["store_dtype"]) == "bfloat16" and z["fft_re"].dtype == np.float32
-    from_jax = tfc.load_spectral(str(tmp_path / "j.npz"))
+    from_jax = tfc.load_spectral(str(tmp_path / "j.npz"), device="cpu")
     from_torch = jfc.load_spectral(str(tmp_path / "t.npz"))
     assert type(from_jax).__name__ == type(from_torch).__name__ == kind
     assert from_jax.re.dtype == torch.bfloat16 and from_torch.re.dtype == jnp.bfloat16
     for a, b in ((from_jax.re, jobj.re), (from_jax.im, jobj.im),
                  (from_torch.re, tobj.re), (from_torch.im, tobj.im)):
         assert np.array_equal(_f32(a), _f32(b))
-    back = tfc.load_spectral(str(tmp_path / "t.npz"))
+    back = tfc.load_spectral(str(tmp_path / "t.npz"), device="cpu")
     assert torch.equal(back.re, tobj.re) and back.re.dtype == torch.bfloat16
 
 
@@ -503,8 +509,8 @@ def test_checkpoint_bf16_maps_from_a_jax_file(tmp_path, tier_case):
     objs = _containers(jfc, data, bank)
     for name in ("TiledSpectralData", "SpectralKernels"):
         jfc.save_spectral(str(tmp_path / f"{name}.npz"), objs[name])
-    sd = tfc.load_spectral(str(tmp_path / "TiledSpectralData.npz"))
-    sk = tfc.load_spectral(str(tmp_path / "SpectralKernels.npz"))
+    sd = tfc.load_spectral(str(tmp_path / "TiledSpectralData.npz"), device="cpu")
+    sk = tfc.load_spectral(str(tmp_path / "SpectralKernels.npz"), device="cpu")
     got = tfc.conv_spectral(sd, sk, mode="same")
     want = jfc.conv_spectral(objs["TiledSpectralData"], objs["SpectralKernels"], mode="same")
     assert rel_err(got.numpy(), _f32(want)) < BF16_TOL
@@ -522,7 +528,7 @@ def test_hog_features_matches_jax(rng, shape, bins):
     [0, 1]), grayscale, a size that is no multiple of the cell, and a colour
     image; numpy and tensor inputs give the same features."""
     image = rng.standard_normal(shape).astype(np.float32)
-    got = hog_features(image, cell=8, bins=bins)
+    got = hog_features(image, cell=8, bins=bins, device="cpu")
     want = np.asarray(j_hog(jnp.asarray(image), cell=8, bins=bins))
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     assert np.abs(got.numpy() - want).max() <= 1e-5

@@ -117,11 +117,83 @@ def test_block_conv_validates_geometry(rng):
 
 def test_smem_model_matches_kernel_constants():
     # 64-row tiles: 2 planes × 64 rows × bins padded to 128 + 6144 staging
-    # floats — 155,648 B at the headline width (Wc = 224), the figure the
-    # compiled kernel reports. Past Wc = 384 the 32-row tiles take over
-    # (5120 staging floats); JAX's largest block (1024) still fits.
-    assert tbc.smem_bytes(224) == 155648
-    assert tbc.smem_bytes(384) == (2 * 384 * 64 + 6144) * 4
-    assert tbc.smem_bytes(449) == (2 * 512 * 32 + 5120) * 4
-    assert tbc.smem_bytes(1024 // 2 + 1) <= tbc.SMEM_LIMIT_BYTES
-    assert tbc.smem_bytes(2048 // 2 + 1) > tbc.SMEM_LIMIT_BYTES
+    # floats — 155,648 B at the headline width (Wc = 224, Vh = 64), the
+    # figure the compiled kernel reports. Past Wc = 384 the 32-row tiles
+    # take over (5120 staging floats); JAX's largest block (1024) still fits.
+    assert tbc.smem_bytes(224, 64) == 155648
+    assert tbc.smem_bytes(384, 64) == (2 * 384 * 64 + 6144) * 4
+    assert tbc.smem_bytes(449, 64) == (2 * 512 * 32 + 5120) * 4
+    assert tbc.smem_bytes(1024 // 2 + 1, 64) <= tbc.SMEM_LIMIT_BYTES
+    assert tbc.smem_bytes(2048 // 2 + 1, 64) > tbc.SMEM_LIMIT_BYTES
+
+
+def _stacked_smem(wc, g, channels, steps):
+    """X^T for 64 rows over the bins padded to 32, S and G^T (5120
+    floats), and a ring of ``steps`` steps of ``channels`` channels ×
+    2·(g + 1)·(16 // g) row segments, each the 16-byte chunks that can hold
+    min(wc, 128) fp32 values."""
+    bins = -(-wc // 32) * 32
+    segment = 4 * ((4 * min(wc, 128) + 11) // 16 + 1)
+    ring = steps * channels * 2 * (g + 1) * (16 // g) * segment
+    return (2 * bins * 64 + 5120 + ring) * 4
+
+
+@pytest.mark.parametrize(
+    "wc,vh,blocks,rows,smem,chunks",
+    [
+        # the DPM plan (27, 139, 12, 12): Vh 16, Wc 70 → 4 blocks a CTA,
+        # 3 ring steps of 4 channels
+        (70, 16, 4, 64, _stacked_smem(70, 4, 4, 3), 1),
+        # Vh = 1: 64 // 1 capped at 16 blocks
+        (70, 1, 16, 64, _stacked_smem(70, 16, 4, 3), 1),
+        # Vh = 21: 3 blocks, a thread's 8 rows straddle two blocks
+        (70, 21, 3, 64, _stacked_smem(70, 3, 4, 3), 1),
+        # Vh = 32: 2 blocks; wider blocks leave room for fewer channels
+        (70, 32, 2, 64, _stacked_smem(70, 2, 4, 2), 1),
+        (129, 32, 2, 64, _stacked_smem(129, 2, 2, 2), 1),
+        (256, 32, 2, 64, _stacked_smem(256, 2, 1, 3), 1),
+        # two column passes of 4 blocks (Wc 224, Vh 16)
+        (224, 16, 4, 64, _stacked_smem(224, 4, 2, 2), 1),
+        # Wc 384: no room for the ring; one block of 64 rows
+        (384, 16, 1, 64, (2 * 384 * 64 + 6144) * 4, 1),
+        # Vh = 33 keeps the one-block 64-row configuration
+        (70, 33, 1, 64, (2 * 128 * 64 + 6144) * 4, 1),
+        # the headline (Wc 224, Vh 64): today's 155,648 B, one block
+        (224, 64, 1, 64, 155648, 1),
+        # Wc 257: three column passes, one channel a ring step
+        (257, 16, 4, 64, _stacked_smem(257, 4, 1, 3), 1),
+        # Wc 449: 32-row tiles, one block, two row chunks at Vh 64
+        (449, 16, 1, 32, (2 * 512 * 32 + 5120) * 4, 1),
+        (449, 64, 1, 32, (2 * 512 * 32 + 5120) * 4, 2),
+    ],
+)
+def test_configuration_mirror(wc, vh, blocks, rows, smem, chunks):
+    """The Python mirror of the kernel's configuration rule: blocks per CTA,
+    rows, shared memory and row chunks at (Wc, Vh). chip_smoke.py holds the
+    same pairs against the compiled kernel's C entries."""
+    assert tbc.blocks_per_cta(wc, vh) == blocks
+    assert tbc.tile_rows(wc, vh) == rows
+    assert tbc.smem_bytes(wc, vh) == smem <= tbc.SMEM_LIMIT_BYTES
+    assert tbc.row_chunks(wc, vh) == chunks
+
+
+@pytest.mark.parametrize(
+    "wc,vh,n,f,dtype,tile",
+    [
+        # the DPM plan: 1024 bf16 kernels of 234 KB → tiles of 35 kernels
+        (70, 16, 1024, 31, torch.bfloat16, (8 << 20) // (2 * 31 * 27 * 70 * 2)),
+        # float32 spectra: half as many
+        (70, 16, 1024, 31, torch.float32, (8 << 20) // (2 * 31 * 27 * 70 * 4)),
+        # a bank that fits the tile: one tile, the kernel index fastest
+        (70, 16, 100, 1, torch.float32, 100),
+        # the headline (not stacked): the kernel index fastest
+        (224, 64, 100, 1, torch.float32, 100),
+        (449, 16, 1024, 31, torch.float32, 1024),
+    ],
+)
+def test_kernel_tile_follows_what_fits_l2(wc, vh, n, f, dtype, tile):
+    """The stacked configuration launches tiles of as many kernels as 8 MB
+    of their spectra hold; the other configurations run the kernel index
+    fastest."""
+    bank = torch.empty((n, f, 27, wc), dtype=dtype, device="meta")
+    assert tbc.kernel_tile(wc, vh, bank) == tile

@@ -21,6 +21,7 @@ from cuda_fft_convolution_torch.models import (
     detect_local_peaks,
     detect_peaks,
     detect_top_k,
+    hog_features,
 )
 from cuda_fft_convolution_torch.ops import block_conv as tbc
 from cuda_fft_convolution_torch.ops import tiled as tt
@@ -249,15 +250,15 @@ def test_detect_heads_match_jax(detect_case, mode, algorithm):
     where both are exact; detect_local_peaks."""
     data, bank = detect_case
     kw = dict(mode=mode, algorithm=algorithm)
-    _same(detect_peaks(data, bank, **kw), j_peaks(data, bank, **kw))
+    _same(detect_peaks(data, bank, **kw, device="cpu"), j_peaks(data, bank, **kw))
     tfc.set_config(use_fused_block_conv=False)
     jfc.set_config(use_fused_block_conv=False)
     try:
-        _same(detect_top_k(data, bank, 4, **kw), j_top_k(data, bank, 4, **kw))
+        _same(detect_top_k(data, bank, 4, **kw, device="cpu"), j_top_k(data, bank, 4, **kw))
     finally:
         tfc.set_config(use_fused_block_conv=None)
         jfc.set_config(use_fused_block_conv=None)
-    _same(detect_local_peaks(data, bank, 6, window=4, **kw),
+    _same(detect_local_peaks(data, bank, 6, window=4, **kw, device="cpu"),
           j_local_peaks(data, bank, 6, window=4, **kw))
 
 
@@ -268,29 +269,29 @@ def test_detect_heads_on_spectral_inputs(rng):
     data = rng.standard_normal((2, 48, 56, 2)).astype(np.float32)
     bank = rng.standard_normal((3, 7, 5, 2)).astype(np.float32)
     # direct spectra, raw bank, batched
-    _same(detect_peaks(tfc.fft_data(data, 7, 5), bank, mode="full"),
+    _same(detect_peaks(tfc.fft_data(data, 7, 5, device="cpu"), bank, mode="full", device="cpu"),
           j_peaks(jfc.fft_data(data, 7, 5), bank, mode="full"))
     # direct spectra with a precomputed bank: correlation is baked in
-    sd, jsd = tfc.fft_data(data[0], 7, 5), jfc.fft_data(data[0], 7, 5)
+    sd, jsd = tfc.fft_data(data[0], 7, 5, device="cpu"), jfc.fft_data(data[0], 7, 5)
     sk = tfc.fft_kernels(bank, spectral=sd, correlation=True)
     jsk = jfc.fft_kernels(bank, spectral=jsd, correlation=True, storage="planar")
-    _same(detect_peaks(sd, sk, correlation=False),
+    _same(detect_peaks(sd, sk, correlation=False, device="cpu"),
           j_peaks(jsd, jsk, correlation=False))
-    _same(detect_top_k(sd, sk, 3, correlation=False, mode="valid"),
+    _same(detect_top_k(sd, sk, 3, correlation=False, mode="valid", device="cpu"),
           j_top_k(jsd, jsk, 3, correlation=False, mode="valid"))
     # tiled spectra with a baked 'same' window, raw bank and SpectralKernels
-    td = tfc.fft_data_tiled(data, 7, 5, trim_mode="same")
+    td = tfc.fft_data_tiled(data, 7, 5, trim_mode="same", device="cpu")
     jtd = jfc.fft_data_tiled(data, 7, 5, trim_mode="same")
-    _same(detect_peaks(td, bank), j_peaks(jtd, bank))
+    _same(detect_peaks(td, bank, device="cpu"), j_peaks(jtd, bank))
     tk = tfc.fft_kernels(bank, spectral=td, correlation=True)
     jtk = jfc.fft_kernels(bank, spectral=jtd, correlation=True, storage="planar")
-    _same(detect_peaks(td, tk), j_peaks(jtd, jtk))
-    _same(detect_local_peaks(td, tk, 5), j_local_peaks(jtd, jtk, 5))
+    _same(detect_peaks(td, tk, device="cpu"), j_peaks(jtd, jtk))
+    _same(detect_local_peaks(td, tk, 5, device="cpu"), j_local_peaks(jtd, jtk, 5))
     # tiled spectra with no baked window serve mode='full' only
-    tf, jtf = tfc.fft_data_tiled(data, 9, 9), jfc.fft_data_tiled(data, 9, 9)
-    _same(detect_peaks(tf, bank, mode="full"), j_peaks(jtf, bank, mode="full"))
+    tf, jtf = tfc.fft_data_tiled(data, 9, 9, device="cpu"), jfc.fft_data_tiled(data, 9, 9)
+    _same(detect_peaks(tf, bank, mode="full", device="cpu"), j_peaks(jtf, bank, mode="full"))
     with pytest.raises(tfc.InvalidInputError, match="baked window"):
-        detect_peaks(tf, bank, mode="same")
+        detect_peaks(tf, bank, mode="same", device="cpu")
 
 
 def test_detect_top_k_fused_planted_cells(rng):
@@ -305,9 +306,9 @@ def test_detect_top_k_fused_planted_cells(rng):
     for y0, x0 in plants:
         data[y0 : y0 + 5, x0 : x0 + 9] += 3.0 * templ
     sd = tfc.fft_data_tiled(data, 5, 129, block_h=36, block_w=256,
-                            trim_mode="same", trim_kernel_h=5, trim_kernel_w=9)
-    vals, pos = detect_top_k(sd, templ[None], k=3)
-    pv, pp = detect_peaks(sd, templ[None])
+                            trim_mode="same", trim_kernel_h=5, trim_kernel_w=9, device="cpu")
+    vals, pos = detect_top_k(sd, templ[None], k=3, device="cpu")
+    pv, pp = detect_peaks(sd, templ[None], device="cpu")
     assert vals.shape == (1, 3) and pos.shape == (1, 3, 2)
     assert {tuple(p) for p in pos[0].tolist()} == {(y0 + 2, x0 + 4) for y0, x0 in plants}
     assert bool((vals[0, :-1] >= vals[0, 1:]).all())
@@ -318,7 +319,7 @@ def test_detect_top_k_fused_planted_cells(rng):
         templ[None], mode="same", correlation=True,
     )
     jv, jy, jx = jt.top_k_from_maps(jnp.asarray(maps)[None], 40)  # > 15 cells
-    bv, bp = detect_top_k(sd, templ[None], k=40)
+    bv, bp = detect_top_k(sd, templ[None], k=40, device="cpu")
     assert np.array_equal(bp[0, :, 0].numpy(), jy[0, 0])
     assert np.array_equal(bp[0, :, 1].numpy(), jx[0, 0])
 
@@ -328,27 +329,30 @@ def test_detect_heads_ragged_and_not_ported(rng):
     # one pow-2 envelope: the ragged 'same' route runs without bucketing
     ragged = [rng.standard_normal((9, 13, 1)).astype(np.float32),
               rng.standard_normal((12, 10, 1)).astype(np.float32)]
-    _same(detect_peaks(data, ragged), j_peaks(data, ragged))
-    _same(detect_local_peaks(data, ragged, 4), j_local_peaks(data, ragged, 4))
+    _same(detect_peaks(data, ragged, device="cpu"), j_peaks(data, ragged))
+    _same(detect_local_peaks(data, ragged, 4, device="cpu"), j_local_peaks(data, ragged, 4))
     with pytest.raises(tfc.InvalidInputError, match="mode='same'"):
-        detect_top_k(data, ragged, mode="valid")
+        detect_top_k(data, ragged, mode="valid", device="cpu")
     # envelopes that would need bucketing: ROADMAP queue 1 item 5
     with pytest.raises(tfc.InvalidInputError, match="queue 1 item 5"):
-        detect_peaks(data, [np.ones((3, 3, 1), np.float32), np.ones((20, 20, 1), np.float32)])
+        detect_peaks(data, [np.ones((3, 3, 1), np.float32), np.ones((20, 20, 1), np.float32)],
+                     device="cpu")
     bank = rng.standard_normal((2, 5, 5, 1)).astype(np.float32)
     # the bf16 tier and bf16 maps (queue 1 item 6) are ported: the heads run
     # them, at the positions of the JAX heads (tests/test_torch_bf16.py
     # holds the values)
-    assert np.array_equal(detect_peaks(data, bank, store_dtype="bfloat16")[1].numpy(),
-                          j_peaks(data, bank, store_dtype="bfloat16")[1])
-    assert np.array_equal(detect_local_peaks(data, bank, out_dtype="bfloat16")[1].numpy(),
-                          j_local_peaks(data, bank, out_dtype="bfloat16")[1])
+    assert np.array_equal(
+        detect_peaks(data, bank, store_dtype="bfloat16", device="cpu")[1].numpy(),
+        j_peaks(data, bank, store_dtype="bfloat16")[1])
+    assert np.array_equal(
+        detect_local_peaks(data, bank, out_dtype="bfloat16", device="cpu")[1].numpy(),
+        j_local_peaks(data, bank, out_dtype="bfloat16")[1])
     with pytest.raises(tfc.InvalidInputError):
-        detect_peaks(data, bank, mode="fftmap")
+        detect_peaks(data, bank, mode="fftmap", device="cpu")
     with pytest.raises(tfc.InvalidInputError):
-        detect_top_k(data, bank, k=0)
+        detect_top_k(data, bank, k=0, device="cpu")
     with pytest.raises(tfc.InvalidInputError):
-        detect_local_peaks(data, bank, window=1)
+        detect_local_peaks(data, bank, window=1, device="cpu")
 
 
 def test_detect_peaks_on_jax_checkpoint(tmp_path, rng):
@@ -360,9 +364,35 @@ def test_detect_peaks_on_jax_checkpoint(tmp_path, rng):
     jsk = jfc.fft_kernels(bank, spectral=jsd, correlation=True, storage="planar")
     jfc.save_spectral(str(tmp_path / "d.npz"), jsd)
     jfc.save_spectral(str(tmp_path / "k.npz"), jsk)
-    sd = tfc.load_spectral(str(tmp_path / "d.npz"))
-    sk = tfc.load_spectral(str(tmp_path / "k.npz"))
+    sd = tfc.load_spectral(str(tmp_path / "d.npz"), device="cpu")
+    sk = tfc.load_spectral(str(tmp_path / "k.npz"), device="cpu")
     assert isinstance(sk, tfc.SpectralKernels) and sk.kernel_hs == (9, 9, 9)
-    _same(detect_peaks(sd, sk), j_peaks(jsd, jsk))
-    v1, p1 = detect_top_k(sd, sk, 1)
+    _same(detect_peaks(sd, sk, device="cpu"), j_peaks(jsd, jsk))
+    v1, p1 = detect_top_k(sd, sk, 1, device="cpu")
     _same((v1[:, 0], p1[:, 0]), j_peaks(jsd, jsk))
+
+
+_HEADS = {
+    "detect_peaks": lambda data, bank, **kw: detect_peaks(data, bank, **kw)[0],
+    "detect_top_k": lambda data, bank, **kw: detect_top_k(data, bank, 3, **kw)[0],
+    "detect_local_peaks": lambda data, bank, **kw: detect_local_peaks(data, bank, 4, **kw)[0],
+    "hog_features": lambda data, bank, **kw: hog_features(data[..., 0], cell=8, bins=9, **kw),
+}
+
+
+@pytest.mark.parametrize("head", sorted(_HEADS))
+def test_heads_run_on_the_card_by_default(rng, head):
+    """The heads and hog_features take api.py's device rule: a numpy input
+    with no device goes to the card, and raises naming device='cpu' where
+    there is none; device='cpu' and CPU tensors run on the CPU, alike."""
+    data = rng.standard_normal((64, 72, 1)).astype(np.float32)
+    bank = rng.standard_normal((2, 5, 7, 1)).astype(np.float32)
+    if torch.cuda.is_available():
+        assert _HEADS[head](data, bank).device.type == "cuda"
+    else:
+        with pytest.raises(tfc.InvalidInputError, match="device='cpu'"):
+            _HEADS[head](data, bank)
+    on_cpu = _HEADS[head](data, bank, device="cpu")
+    kept = _HEADS[head](torch.as_tensor(data), torch.as_tensor(bank))
+    assert on_cpu.device.type == kept.device.type == "cpu"
+    assert torch.equal(on_cpu, kept)

@@ -54,10 +54,10 @@ def test_size_helpers_match_jax():
 
 def test_invalid_input_error_is_value_error():
     with pytest.raises(ValueError):
-        tfc.fft_conv(np.zeros((8, 8, 1), np.float32), kernels=None)
+        tfc.fft_conv(np.zeros((8, 8, 1), np.float32), kernels=None, device="cpu")
     with pytest.raises(tfc.InvalidInputError, match="mode must be"):
         tfc.fft_conv(np.zeros((8, 8, 1), np.float32),
-                     kernels=np.zeros((1, 3, 3, 1), np.float32), mode="bogus")
+                     kernels=np.zeros((1, 3, 3, 1), np.float32), mode="bogus", device="cpu")
 
 
 def test_pad_to_fft_matches_jax(rng):
@@ -155,10 +155,11 @@ def test_port_imports_with_jax_blocked():
         "import cuda_fft_convolution_torch._build\n"
         "from cuda_fft_convolution_torch.models import detect_peaks\n"
         "out = fc.fft_conv(np.ones((40, 40, 1), np.float32),\n"
-        "                  kernels=np.ones((2, 5, 5, 1), np.float32), mode='same')\n"
+        "                  kernels=np.ones((2, 5, 5, 1), np.float32), mode='same',\n"
+        "                  device='cpu')\n"
         "assert tuple(out.shape) == (2, 40, 40)\n"
         "vals, pos = detect_peaks(np.ones((40, 40, 1), np.float32),\n"
-        "                         np.ones((2, 5, 5, 1), np.float32))\n"
+        "                         np.ones((2, 5, 5, 1), np.float32), device='cpu')\n"
         "assert tuple(pos.shape) == (2, 2)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
         "    'cuda_fft_convolution_tpu')) for m in sys.modules\n"
@@ -192,11 +193,12 @@ def test_build_library_named_by_source_hash(tmp_path):
     edited.write_bytes(sources[1].read_bytes() + b"\n")
     assert _build._library_path([sources[0], edited, *sources[2:]]) != path
     # every C entry point the wrappers call has a signature: one per kernel
-    # dtype mode, and the shared-memory model's two queries
+    # dtype mode, and the configuration model's three queries
     assert set(_build._SIGNATURES) == {
         "fftconv_block_conv_f32", "fftconv_block_conv_f32_bf16maps",
         "fftconv_block_conv_bf16", "fftconv_block_conv_bf16_bf16maps",
         "fftconv_block_conv_f32_smem_bytes", "fftconv_block_conv_f32_rows",
+        "fftconv_block_conv_f32_blocks",
         "fftconv_block_conv_peaks_f32", "fftconv_block_conv_peaks_bf16",
         "fftconv_spectral_mac_f32", "fftconv_spectral_mac_bf16",
     }

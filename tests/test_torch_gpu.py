@@ -20,10 +20,21 @@ from cuda_fft_convolution_torch.utils.errors import InvalidInputError
 TOL = 1e-5
 BF16_OUT_TOL = 5e-3  # bf16 rounding of the maps alone
 BF16_TOL = 2e-2  # the bf16 tier against float32 maps
+# Windows of at most 32 rows stack blocks in a CTA (ops/block_conv.py
+# blocks_per_cta): the DPM plan's blocks (Vh 16, Wc 70) at F = 31 with 15
+# blocks an image (a last group of 3 of 4) and clipped edges; Vh = 1 (16
+# blocks a CTA); Vh = 21 (3 blocks, thread tiles straddling two); Vh = 32.
+SHORT_WINDOWS = [
+    (1, 31, 3, 27, 139, 12, 12, 70, 300),
+    (2, 3, 5, 17, 151, 17, 24, 10, 300),
+    (2, 3, 5, 45, 151, 25, 24, 100, 300),
+    (1, 2, 3, 40, 151, 9, 24, 100, 300),
+]
 GEOMETRIES = [
     (2, 3, 5, 45, 151, 10, 24, 100, 300),
     (1, 1, 3, 127, 447, 64, 64, 2048, 2048),  # the headline plan
     (1, 2, 2, 40, 901, 9, 101, 150, 1700),  # Wc = 451: 32-row tiles, 2 row chunks
+    *SHORT_WINDOWS,
 ]
 
 
@@ -40,14 +51,7 @@ def _rel(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize(
-    "b,f,n,bh,bw,kh,kw,out_h,out_w",
-    [
-        (2, 3, 5, 45, 151, 10, 24, 100, 300),
-        (1, 1, 3, 127, 447, 64, 64, 2048, 2048),  # the headline plan
-        (1, 2, 2, 40, 901, 9, 101, 150, 1700),  # Wc = 451: 32-row tiles
-    ],
-)
+@pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", GEOMETRIES)
 def test_block_conv_kernel_matches_plain_on_gpu(cuda, b, f, n, bh, bw, kh, kw,
                                                 out_h, out_w):
     rng = np.random.default_rng(7)
@@ -160,20 +164,13 @@ def test_fft_conv_on_gpu_matches_cpu(cuda, mode):
     got = tfc.fft_conv(data, kernels=bank, mode=mode, device=cuda)
     torch.cuda.synchronize()
     assert tbc.block_conv.launches == before + 1  # the main path ran the kernel
-    want = tfc.fft_conv(data, kernels=bank, mode=mode)
+    want = tfc.fft_conv(data, kernels=bank, mode=mode, device="cpu")
     assert got.is_cuda and got.shape == want.shape
     assert _rel(got.cpu(), want) <= TOL
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize(
-    "b,f,n,bh,bw,kh,kw,out_h,out_w",
-    [
-        (2, 3, 5, 45, 151, 10, 24, 100, 300),
-        (1, 1, 3, 127, 447, 64, 64, 2048, 2048),  # the headline plan
-        (1, 2, 2, 40, 901, 9, 101, 150, 1700),  # Wc = 451: 32-row tiles, 2 row chunks
-    ],
-)
+@pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", GEOMETRIES)
 def test_block_conv_peaks_kernel_matches_plain_on_gpu(cuda, b, f, n, bh, bw, kh, kw,
                                                       out_h, out_w):
     """Values within TOL of the plain version relative to the largest value;
@@ -198,6 +195,31 @@ def test_block_conv_peaks_kernel_matches_plain_on_gpu(cuda, b, f, n, bh, bw, kh,
     assert torch.equal(got_i, want_i)
     with pytest.raises(InvalidInputError, match="float32"):
         tbc.block_conv_peaks(*(x.double() for x in ops), bh, bw, kh, kw, out_h, out_w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", SHORT_WINDOWS[:1] + SHORT_WINDOWS[2:3])
+def test_block_conv_peaks_planted_ties_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
+    """Spectra with only the DC bin make every block's window constant, so
+    every position of a cell ties exactly; each block's pair must be its
+    first position inside the output (the first-index rule), in stacked
+    CTAs too, and the values must match the plain version's."""
+    rng = np.random.default_rng(29)
+    geom = (bh, bw, kh, kw, out_h, out_w)
+    ops = [torch.zeros_like(x) for x in _planes(rng, cuda, b, f, n, *geom)]
+    ops[0][..., 0, 0] = torch.as_tensor(
+        rng.standard_normal(ops[0].shape[:4]).astype(np.float32), device=cuda)
+    ops[2][..., 0, 0] = 1.0
+    for planes in (ops, [x.to(torch.bfloat16) for x in ops]):
+        got_v, got_i = tbc.block_conv_peaks(*planes, *geom)
+        want_v, want_i = tbc.block_conv_peaks_reference(*planes, *geom)
+        torch.cuda.synchronize()
+        assert _rel(got_v, want_v) <= TOL
+        assert torch.equal(got_i, want_i)
+        vh, vw = bh - kh + 1, bw - kw + 1
+        first = (torch.arange(got_i.shape[2], device=cuda)[:, None] * vh * out_w
+                 + torch.arange(got_i.shape[3], device=cuda) * vw)
+        assert torch.equal(got_i, first.to(torch.int32).expand_as(got_i))
 
 
 @pytest.mark.gpu
@@ -237,7 +259,8 @@ def test_spectral_mac_kernel_matches_einsum_on_gpu(cuda, f):
                         device=cuda)
     torch.cuda.synchronize()
     assert tmac.spectral_mac.launches == before + 1
-    want_maps = tfc.fft_conv(data, kernels=bank, mode="same", algorithm="direct")
+    want_maps = tfc.fft_conv(data, kernels=bank, mode="same", algorithm="direct",
+                             device="cpu")
     assert _rel(maps.cpu(), want_maps) <= TOL
 
 
@@ -253,7 +276,7 @@ def test_detect_peaks_on_gpu_matches_cpu(cuda):
                              torch.as_tensor(bank, device=cuda))
     torch.cuda.synchronize()
     assert tbc.block_conv_peaks.launches == before + 1
-    want_v, want_p = detect_peaks(data, bank)
+    want_v, want_p = detect_peaks(data, bank, device="cpu")
     assert torch.equal(pos.cpu(), want_p)
     assert _rel(vals.cpu(), want_v) <= TOL
 
@@ -269,7 +292,7 @@ def test_bf16_tier_on_gpu_matches_cpu(cuda, algorithm):
     rng = np.random.default_rng(21)
     data = rng.standard_normal((300, 500, 2)).astype(np.float32)
     bank = rng.standard_normal((4, 17, 33, 2)).astype(np.float32)
-    want = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm)
+    want = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm, device="cpu")
     counts = (tbc.block_conv.launches_by_mode if algorithm == "tiled"
               else tmac.spectral_mac.launches_by_mode)
     for out_dtype, entry in ((None, "bf16"), ("bfloat16", "bf16_bf16maps")):
@@ -280,7 +303,7 @@ def test_bf16_tier_on_gpu_matches_cpu(cuda, algorithm):
         torch.cuda.synchronize()
         assert counts[key] == before + 1
         cpu = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm,
-                           store_dtype="bfloat16", out_dtype=out_dtype)
+                           store_dtype="bfloat16", out_dtype=out_dtype, device="cpu")
         assert got.dtype == cpu.dtype and got.shape == want.shape
         assert _rel(got.float().cpu(), want) <= BF16_TOL
 

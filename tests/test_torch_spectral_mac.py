@@ -53,7 +53,7 @@ def test_fft_conv_direct_use_pallas_matches_jax(rng, f):
     data = rng.standard_normal((50, 61, f)).astype(np.float32)
     bank = rng.standard_normal((3, 7, 9, f)).astype(np.float32)
     got = tfc.fft_conv(data, kernels=bank, mode="full", algorithm="direct",
-                       use_pallas=True)
+                       use_pallas=True, device="cpu")
     want = jfc.fft_conv(data, kernels=bank, mode="full", algorithm="direct",
                         use_pallas=True)
     assert tuple(got.shape) == np.shape(want) == (3, 56, 69)
@@ -69,7 +69,7 @@ def test_tiled_unfused_use_pallas_matches_jax(rng):
     tfc.set_config(use_fused_block_conv=False)
     jfc.set_config(use_fused_block_conv=False)
     try:
-        spec = tfc.fft_data_tiled(data, 9, 13, trim_mode="same")
+        spec = tfc.fft_data_tiled(data, 9, 13, trim_mode="same", device="cpu")
         got = tfc.conv_spectral(spec, bank, mode="same", use_pallas=True)
         jspec = jfc.fft_data_tiled(data, 9, 13, trim_mode="same")
         want = jfc.conv_spectral(jspec, bank, mode="same", use_pallas=True)
@@ -147,7 +147,7 @@ def test_use_pallas_config_and_env(rng, monkeypatch):
     monkeypatch.setattr(tmac._SpectralMac, "apply", spy)
     monkeypatch.setenv("FFTCONV_USE_PALLAS", "0")
     assert not hasattr(tconfig.Config.from_env(), "use_pallas")
-    maps = [tfc.fft_conv(data, kernels=bank, mode="same", algorithm="direct", **kw)
+    maps = [tfc.fft_conv(data, kernels=bank, mode="same", algorithm="direct", **kw, device="cpu")
             for kw in ({}, dict(use_pallas=False), dict(use_pallas=True))]
     assert calls == [1, 1, 1]
     assert torch.equal(maps[0], maps[1]) and torch.equal(maps[0], maps[2])
