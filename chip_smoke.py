@@ -13,9 +13,11 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      on a spill, and holds the Python configuration model (shared memory,
      rows, blocks per CTA) against the kernel's over (vh, wc) pairs;
   3. holds the fused block-conv kernel against its plain PyTorch version on
-     the card at a small ragged shape, a wide block, two short-window
+     the card at a small ragged shape, the widest 64-row block, a wide
+     block (32-row tiles), two short-window
      shapes whose blocks stack in a CTA (a partial last group; rows
-     straddling blocks) and the headline plan's geometry;
+     straddling blocks), the planner's largest block (1024², the longest
+     contractions of the 3xTF32 syntheses) and the headline plan's geometry;
   4. runs the headline call — ``fft_conv`` of a 2048² fp32 image with 100
      kernels of 64², mode 'same', on the GPU — checks that it went through
      the kernel and agrees with a float64 numpy reference on 8 kernels, and
@@ -60,14 +62,16 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      'same')`` with float32 and with bf16 maps, each against float64 numpy
      on 8 maps (2e-2); 8 filters planted in the features and found by
      ``detect_peaks`` at the tier; the blocks a CTA stacks there, its CTAs
-     and the MFLOP per cell it issues beside the useful ones; the kernels
-     against their plain versions at that plan, and times.
+     and the MFLOP per cell it issues (tensor-core and FMA) beside the useful
+     ones; the kernels against their plain versions at that plan, and times.
 
 It prints one JSON line describing every kernel mode (the float32 and bf16
 entries of the three kernels: launches on the main path, error, time,
-plain time, the bound worked out from the shapes — the larger of the fp32
-operations at 67 TFLOP/s and the bytes at 3.35 TB/s — and the time of the
-one PyTorch call that computes the same function, where there is one),
+plain time, the bound worked out from the shapes — the larger of the
+operations at the peak rate of the units that run them and the bytes at
+3.35 TB/s; ``block_conv_bound`` and ``mac_bound`` say which — and the time
+of the one PyTorch call that computes the same function, where there is
+one),
 then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits 2 and prints no result.
@@ -160,43 +164,65 @@ def build_kernels() -> None:
           f"DPM (Wc 70, Vh 16): {smem_bytes(70, 16)} B, {blocks_per_cta(70, 16)} blocks")
 
 
-# The H100 SXM's published peaks: fp32 on the CUDA cores, and HBM bandwidth.
+# The H100 SXM's published peaks: fp32 on the CUDA cores, dense TF32 and
+# bf16 on the tensor cores, and HBM bandwidth.
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 
-def bound(flop: float, nbytes: float) -> tuple[float, str]:
+def bound(op_seconds: float, nbytes: float) -> tuple[float, str]:
     """The least time the card could take (ms): the larger of the
-    operations at the fp32 peak and the bytes at the HBM rate → (ms,
-    'operations' or 'bytes')."""
-    t_op, t_b = flop / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    operations' time at their units' peak (``op_seconds``) and the bytes at
+    the HBM rate → (ms, 'operations' or 'bytes')."""
+    t_op, t_b = op_seconds * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
 
 
+def mac_flop(f, lh, wc) -> int:
+    """Useful operations of one cell's MAC over F (a complex multiply-add,
+    8)."""
+    return 8 * f * lh * wc
+
+
+def synthesis_flop(lh, wc, vh, vw) -> int:
+    """Useful operations of one cell's syntheses: the H stage (a complex
+    (Vh x Lh)(Lh x Wc) product) and the W stage (a real (Vh x 2Wc)
+    (2Wc x Vw) product)."""
+    return 8 * vh * lh * wc + 4 * vh * wc * vw
+
+
 def cell_flop(f, lh, wc, vh, vw) -> int:
-    """Useful fp32 operations of one fused block-conv cell: the MAC over F
-    (a complex multiply-add, 8), the H stage (a complex (Vh x Lh)(Lh x Wc)
-    product) and the W stage (a real (Vh x 2Wc)(2Wc x Vw) product)."""
-    return 8 * f * lh * wc + 8 * vh * lh * wc + 4 * vh * wc * vw
+    """Useful fp32 operations of one fused block-conv cell."""
+    return mac_flop(f, lh, wc) + synthesis_flop(lh, wc, vh, vw)
 
 
 def block_conv_bound(ops, geom, out_bytes) -> tuple[float, str]:
-    """bound() of a fused block-conv call: every cell's useful operations;
-    the four spectra planes read once and ``out_bytes`` written."""
+    """bound() of a fused block-conv call. Operations: every cell's useful
+    syntheses as 3xTF32 (3 tensor-core passes) and its MAC on the same
+    units — 3 passes for fp32 spectra, or one bf16 pass for bf16 spectra,
+    whose products are exact in bf16 (half a TF32 pass's time) — at the
+    dense TF32 peak. Bytes: the four spectra planes read once and
+    ``out_bytes`` written."""
     b, nbh, nbw, f, lh, wc = ops[0].shape
     n = ops[2].shape[0]
     bh, bw, kh, kw = geom[:4]
-    flop = b * nbh * nbw * n * cell_flop(f, lh, wc, bh - kh + 1, bw - kw + 1)
+    cells = b * nbh * nbw * n
+    mac_passes = PEAK_TF32 / PEAK_BF16 if str(ops[0].dtype) == "torch.bfloat16" else 3
+    op_seconds = cells * (3 * synthesis_flop(lh, wc, bh - kh + 1, bw - kw + 1)
+                          + mac_passes * mac_flop(f, lh, wc)) / PEAK_TF32
     nbytes = sum(t.numel() * t.element_size() for t in ops) + out_bytes
-    return bound(flop, nbytes)
+    return bound(op_seconds, nbytes)
 
 
 def stacked_model(ops, geom) -> dict:
     """The stacked configuration at a geometry, from the kernel's loop
-    counts (block_conv.cuh): blocks per CTA, CTAs, and the fp32 operations
-    issued per cell (the H stage on 64 rows x 128-column passes, the W
-    stage on 64 rows over bins padded to 32 and 128-column passes, the MAC
-    on 16 rows of columns padded to 32), beside the useful ones."""
+    counts (block_conv.cuh): blocks per CTA, CTAs, and the operations
+    issued per cell — on the CUDA cores, the H stage (64 rows x 128-column
+    passes) and the MAC (16 rows of columns padded to 32); on the tensor
+    cores, the W stage (64 rows over bins padded to 32, twice, x the 64-
+    column warpgroup tiles below vw, 3 passes) — beside the useful ones."""
     from cuda_fft_convolution_torch.ops.block_conv import blocks_per_cta
 
     b, nbh, nbw, f, lh, wc = ops[0].shape
@@ -208,10 +234,10 @@ def stacked_model(ops, geom) -> dict:
     nuc = -(-lh // kug)
     passes_h, bins = -(-wc // 128), -(-wc // 32) * 32
     h = passes_h * nuc * kug * 64 * 128 * 8
-    w = 64 * 2 * bins * -(-vw // 128) * 128 * 2
+    w = 3 * 64 * 2 * bins * -(-vw // 64) * 64 * 2
     mac = passes_h * nuc * g * kug * min(bins, 128) * f * 8
     return dict(g=g, ctas=b * -(-nbh * nbw // g) * n,
-                issued_mflop=(h + w + mac) / g / 1e6,
+                fma_mflop=(h + mac) / g / 1e6, tc_mflop=w / g / 1e6,
                 useful_mflop=cell_flop(f, lh, wc, vh, vw) / 1e6)
 
 
@@ -269,16 +295,21 @@ def check_kernel_shapes(fc, rng) -> None:
         return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device="cuda")
 
     # Small ragged shape: B=2, F=3, N=5, odd blocks, out_h/out_w not
-    # multiples of the valid window (clipped edge tiles); a block wide
-    # enough (Wc = 451) for the kernel's 32-row configuration, 2 row chunks;
+    # multiples of the valid window (clipped edge tiles); the widest block
+    # of the 64-row configuration (Wc = 301, bins padded to 320); a block
+    # wide enough (Wc = 451) for its 32-row configuration, 2 row chunks;
     # then short windows, whose blocks stack in a CTA: the DPM plan's blocks
     # (Vh 16, Wc 70, F 31) with 15 blocks an image (a last group of 3 of 4)
-    # and clipped edges, and Vh 21 (3 blocks, thread tiles straddling two).
+    # and clipped edges, and Vh 21 (3 blocks, thread tiles straddling two);
+    # and the planner's largest block (Wc 513, Vh 961: 32-row tiles, 31 row
+    # chunks, the longest contractions the 3xTF32 syntheses see).
     for b, f, n, bh, bw, kh, kw, out_h, out_w, label in (
         (2, 3, 5, 45, 151, 10, 24, 100, 300, "small ragged"),
+        (1, 2, 3, 80, 601, 17, 50, 200, 1100, "Wc 301, the widest 64-row tiles"),
         (1, 2, 2, 40, 901, 9, 101, 150, 1700, "wide block, 32-row tiles"),
         (2, 31, 3, 27, 139, 12, 12, 70, 300, "short window, stacked, partial group"),
         (1, 3, 4, 45, 151, 25, 24, 100, 300, "Vh 21, stacked, straddling rows"),
+        (1, 1, 2, 1024, 1024, 64, 64, 1500, 1200, "1024 block, 31 row chunks"),
     ):
         vh, vw = bh - kh + 1, bw - kw + 1
         nbh, nbw, wc = -(-out_h // vh), -(-out_w // vw), bw // 2 + 1
@@ -519,7 +550,7 @@ def mac_bound(ops) -> tuple[float, str]:
     b, f, h, w = ops[0].shape
     n = ops[2].shape[0]
     nbytes = sum(t.numel() * t.element_size() for t in ops) + 2 * b * n * h * w * 4
-    return bound(8 * b * n * f * h * w, nbytes)
+    return bound(8 * b * n * f * h * w / PEAK_FP32, nbytes)
 
 
 def complex_einsum_ms(ops) -> float:
@@ -666,7 +697,8 @@ def dpm_path(fc, seed, path_launches) -> tuple[dict, dict]:
     m = stacked_model(ops, geom)
     print(f"DPM: plan {plan}, {sd.re.shape[0]}x{sd.re.shape[1]} blocks, Vh={vh}, Wc={wc}: "
           f"{m['g']} blocks stacked a CTA, {m['ctas']} CTAs; per cell "
-          f"{m['issued_mflop']:.3f} MFLOP issued for {m['useful_mflop']:.3f} useful; "
+          f"{m['fma_mflop']:.3f} MFLOP issued on the CUDA cores and {m['tc_mflop']:.3f} on "
+          f"the tensor cores (3xTF32) for {m['useful_mflop']:.3f} useful; "
           f"bank spectra {2 * sk.re.numel() * sk.re.element_size() / 1e6:.1f} MB bf16")
 
     idx = list(range(0, n, n // 8))[:8]
@@ -888,10 +920,12 @@ def main(argv=None) -> int:
     print(f"kernel alone at the headline plan: {kernel_ms:.3f} ms "
           f"({cells} cells); plain version: {plain_ms:.3f} ms; bound "
           f"{rows['block_conv_f32'][3]:.3f} ms ({rows['block_conv_f32'][4]})")
-    flop = cells * cell_flop(1, spec.block_h, spec.block_w // 2 + 1,
-                             spec.block_h - spec.max_kh + 1, spec.block_w - spec.max_kw + 1)
-    print(f"kernel fp32 rate: {flop / kernel_ms / 1e9:.2f} TFLOP/s "
-          f"({flop / 1e12:.3f} TFLOP useful, 4-mult complex H stage)")
+    flop = cells * synthesis_flop(spec.block_h, spec.block_w // 2 + 1,
+                                  spec.block_h - spec.max_kh + 1, spec.block_w - spec.max_kw + 1)
+    print(f"kernel synthesis rate: {flop / kernel_ms / 1e9:.2f} TFLOP/s useful "
+          f"({flop / 1e12:.3f} TFLOP, 4-mult complex H stage), "
+          f"{3 * flop / kernel_ms / 1e9:.2f} TFLOP/s on the tensor cores as 3xTF32; "
+          f"{100 * rows['block_conv_f32'][3] / kernel_ms:.1f}% of the bound")
     # the other dtype modes at the headline plan, N=100
     ops16 = tuple(x.to(bf16) for x in ops)
     label = f"headline plan, N={n}"

@@ -19,6 +19,13 @@ namespace {
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+// Two adjacent values, to an address aligned to the pair.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
 // Epilogue: write the tile into the (B, N, out_h, out_w) maps of type TO,
 // clipped. STACKED: row R of the tile is window row R % vh of the group's
@@ -26,48 +33,59 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2
 template <class TO, bool STACKED>
 struct StoreMaps {
   using Out = TO*;
-  TO* out_c;
-  int gy0, gx0, vh, vw, out_h, out_w;
-  int nbw, blk0, count;  // the stacked group: first block (row-major), blocks
+  TO* out_c;  // one block: the block's first map position; stacked: the map
+  int rows, cols, out_w;  // one block: its window rows and columns in the maps
+  int vh, vw, out_h, nbw, blk0, count;  // stacked: the group (first block, blocks)
 
   __device__ StoreMaps(TO* out, const Cell& c, const OutGeom& g)
       : out_c(out + (c.bb * g.n + c.ni) * static_cast<long long>(g.out_h) * g.out_w),
-        gy0(c.bi * g.vh), gx0(c.bj * g.vw), vh(g.vh), vw(g.vw),
-        out_h(g.out_h), out_w(g.out_w), nbw(g.nbw), blk0(c.bi * g.nbw + c.bj),
-        count(c.count) {}
+        rows(min(g.vh, g.out_h - c.bi * g.vh)), cols(min(g.vw, g.out_w - c.bj * g.vw)),
+        out_w(g.out_w), vh(g.vh), vw(g.vw), out_h(g.out_h), nbw(g.nbw),
+        blk0(c.bi * g.nbw + c.bj), count(c.count) {
+    if constexpr (!STACKED) out_c += static_cast<long long>(c.bi * g.vh) * g.out_w + c.bj * g.vw;
+  }
 
-  template <int TR>
-  __device__ void tile(const float (&acc)[TR][4], int row0, int col0) {
-    if constexpr (STACKED) {
+  template <int MT, int NT>
+  __device__ void tile(const float (&acc)[MT][NT][4], int row0, int col0) {
 #pragma unroll
-      for (int a = 0; a < TR; ++a) {
-        const int t = (row0 + a) / vh;
-        if (t >= count) continue;
-        const int bi = (blk0 + t) / nbw;
-        const int gy = bi * vh + row0 + a - t * vh;
-        const int gxb = (blk0 + t - bi * nbw) * vw;
-        if (gy >= out_h) continue;
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll 1
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 16 * mt + 8 * h;
+        TO* out_row;  // the row's first window position in the maps
+        int lim;      // its window columns inside the maps
+        if constexpr (STACKED) {
+          const int t = row / vh;
+          if (t >= count) continue;
+          const int bi = (blk0 + t) / nbw;
+          const int gy = bi * vh + row - t * vh;
+          if (gy >= out_h) continue;
+          const int gxb = (blk0 + t - bi * nbw) * vw;
+          out_row = out_c + static_cast<long long>(gy) * out_w + gxb;
+          lim = min(vw, out_w - gxb);
+        } else {
+          if (row >= rows) continue;
+          out_row = out_c + static_cast<long long>(row) * out_w;
+          lim = cols;
+        }
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = col0 + c;
-          const int gx = gxb + col;
-          if (col < vw && gx < out_w) store(out_c + static_cast<long long>(gy) * out_w + gx, acc[a][c]);
+        for (int nt = 0; nt < NT; ++nt) {
+          // A thread's two columns are adjacent: one store where both are
+          // in the window and the maps and the address is pair-aligned, so
+          // a warp's store fills whole 32-byte sectors.
+          const int col = col0 + 8 * nt;
+          TO* p = out_row + col;
+          // (h is a loop variable, not unrolled: select, do not index)
+          const float a = h ? acc[mt][nt][2] : acc[mt][nt][0];
+          const float b = h ? acc[mt][nt][3] : acc[mt][nt][1];
+          if (col + 1 < lim && reinterpret_cast<uintptr_t>(p) % (2 * sizeof(TO)) == 0) {
+            store2(p, a, b);
+          } else {
+            if (col < lim) store(p, a);
+            if (col + 1 < lim) store(p + 1, b);
+          }
         }
       }
-    } else {
-#pragma unroll
-      for (int a = 0; a < TR; ++a) {
-        const int row = row0 + a;
-        const int gy = gy0 + row;
-        if (row >= vh || gy >= out_h) continue;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = col0 + c;
-          const int gx = gx0 + col;
-          if (col < vw && gx < out_w) store(out_c + static_cast<long long>(gy) * out_w + gx, acc[a][c]);
-        }
-      }
-    }
   }
 
   __device__ void finish(float*) {}
@@ -96,11 +114,11 @@ extern "C" int fftconv_block_conv_f32_blocks(int wc, int vh) { return blocks_per
 #define FFTCONV_BLOCK_CONV_ENTRY(NAME, TS, TO, EPI)                              \
   extern "C" int NAME(const TS* d_re, const TS* d_im, const TS* k_re,           \
                       const TS* k_im, const float* gt_re, const float* gt_im,   \
-                      const float* m_re, const float* m_im, TO* out, int b,     \
+                      const float* g_pad, const float* m_tc, TO* out, int b,    \
                       int nbh, int nbw, int f, int n, int lh, int wc, int vh,   \
                       int vw, int out_h, int out_w, int ktile, void* stream) {  \
     return launch_block_conv<TS, EPI>(                                         \
-        d_re, d_im, k_re, k_im, gt_re, gt_im, m_re, m_im, out, b, nbh, nbw, f, \
+        d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc, out, b, nbh, nbw, f,\
         n, lh, wc, vh, vw, out_h, out_w, ktile, stream);                       \
   }
 

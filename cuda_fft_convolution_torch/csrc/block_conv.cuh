@@ -1,10 +1,12 @@
 // Fused overlap-save block convolution for Hopper (sm_90a): the transform
 // stages shared by the maps kernel (block_conv.cu) and the peaks kernel
-// (block_conv_peaks.cu). The two differ only in their epilogue, a template
-// argument of the one kernel below, so they cannot drift apart. The spectra
-// D and K are fp32 or bf16 (the serving tier, store_dtype='bfloat16'), a
-// second template argument: a bf16 load is converted to fp32 in registers,
-// and everything after it is fp32 whatever the spectra type.
+// (block_conv_peaks.cu), which replace the JAX package's block_conv_pallas
+// and block_conv_peaks_pallas (their v3 function). The two differ only in
+// their epilogue, a template argument of the one kernel below, so they
+// cannot drift apart. The spectra D and K are fp32 or bf16 (the serving
+// tier, store_dtype='bfloat16'), a second template argument: a bf16 load is
+// converted to fp32 in registers, and everything after it is fp32 whatever
+// the spectra type.
 //
 // For each cell (image b, block (i, j), kernel n) the kernel computes
 //
@@ -16,100 +18,149 @@
 //
 // and hands each thread's share of the tile to the epilogue. G and M are the
 // JAX package's _inv_full_mats and _inv_packed_mats windows (ops/dft.py),
-// handed in as f32 planes; G arrives transposed, (Lh, Vh), so that its
-// staging loads coalesce.
+// prepared once per geometry by ops/block_conv.py _kernel_mats, exact fp32
+// and zero-padded to the tiles the kernel reads: G as (Vh, Lh), G again as
+// G^T (Lh, Vh) for the stacked configuration's fp32 H stage, and M as the
+// TF32 hi and lo planes of M^T, (Vw, 2 Wc) = [Mr ; Mi]^T, in core matrices
+// (the K-major layout wgmma reads from shared memory).
+//
+// Precision. Every synthesis product of the one-block configurations, and
+// the stacked configuration's W stage, is a 3xTF32 tensor-core product:
+// each fp32 operand x is split as hi = TF32(x) and lo = TF32(x - hi), with
+// TF32() rounding as cvt.rna.tf32.f32 does (to nearest, ties away from
+// zero), and a . b runs as the three tensor-core products a_lo b_hi +
+// a_hi b_lo + a_hi b_hi (the lo.lo term, ~2^-22 relative, is dropped):
+// wgmma.m64n64k8 in both stages of the 64-row configuration (the headline)
+// and in the stacked configuration's W stage, mma.sync.m16n8k8 in both
+// stages of the 32-row configuration (wgmma takes 64 rows).
+// Nothing runs at single-pass TF32, which misses the repo's 1e-5 bar by
+// 30-50x. The tensor cores' fp32 accumulation truncates, which over a long
+// contraction adds up (past the 1e-5 bar at the 1024 block), so the
+// products are summed on the tensor cores only over a short stretch of the
+// contraction (a chunk of kUK spectrum rows in the H stage, 8 in the 32-row
+// one; a chunk of kKC rows of [Mr ; Mi] in the W stage) and those partial
+// sums are added in IEEE fp32 (add4): ~1e-6 against the plain version at
+// every block size the planner makes (chip_smoke.py). The channel MAC (S)
+// stays IEEE fp32 FMAs, and so does the stacked configuration's H stage
+// (below).
 //
 // bf16 spectra. The JAX kernel's BF16IO mode feeds bf16 operands to
 // single-pass MXU dots with f32 accumulation and also rounds S, X, G and M
-// to bf16 on the way. Here only the loads of D and K are bf16: S, X, G, M
-// and every product stay IEEE fp32, so the result is the fp32 kernel's on
-// the bf16-rounded spectra, at least as accurate as BF16IO. What bf16
-// changes is the bytes of D and K streamed per cell (half), not the
-// arithmetic.
+// to bf16 on the way. Here only the loads of D and K are bf16: S, X, G and
+// M stay fp32 (split as above), so the result is the fp32 kernel's on the
+// bf16-rounded spectra, at least as accurate as BF16IO. What bf16 changes is
+// the bytes of D and K streamed per cell (half), not the arithmetic.
 //
 // What bounds it. At the 2048^2 x 100 x 64^2 headline plan (blocks 127 x 447,
 // valid window 64 x 384, Wc = 224, 192 blocks) one cell is ~37 MFLOP as
 // computed here (4-multiply complex products): the H stage (a complex
 // (Vh x Lh)(Lh x Wc) product, 40%) and the W stage (a real (Vh x 2Wc)
 // (2Wc x Vw) product, 60%); the MAC is <1%. Over 192 x 100 cells that is
-// ~0.71 TFLOP against 1.68 GB of output maps and ~67 MB of spectra, so the
-// kernel is bound by fp32 arithmetic, not by device-memory bytes.
-// Single-pass reduced precision misses the 1e-5 bar, so every product is a
-// plain IEEE fp32 FMA on the CUDA cores (a 3xTF32 split on wgmma is a later
-// lever).
+// ~0.71 TFLOP against 1.68 GB of output maps and ~67 MB of spectra: bound by
+// arithmetic, not by device-memory bytes. As 3xTF32 the syntheses are 3 x
+// 0.71 TFLOP of tensor-core work, 4.3 ms at the H100's 495 TFLOP/s dense
+// TF32 peak, against 10.5 ms for the same work as fp32 FMAs at 67 TFLOP/s.
+// Each CTA alternates between its MAC, staging and barriers and its
+// products (one CTA per SM leaves nothing to overlap them), so the kernel
+// is far from that bound (PERF.md).
 //
-// Design. One CTA owns ROWS window rows of one cell; the rows of the tile
-// are independent, so a cell taller than ROWS splits across CTAs by rows
-// (row chunks), each recomputing its S columns from D and K (F complex MACs
-// per element).
+// Design. One CTA (256 threads, 8 warps) owns ROWS window rows of one cell;
+// the rows of the tile are independent, so a cell taller than ROWS splits
+// across CTAs by rows (row chunks), each recomputing its S columns from D
+// and K (F complex MACs per element). For mma.sync the warps tile ROWS x
+// 128 as 2 x 4 warps of ROWS/2 rows x 32 columns: ROWS/32 x 4 mma.m16n8k8
+// tiles each, their fragments read from shared memory with ldmatrix; for
+// wgmma the CTA's two warpgroups take 64 rows x 64 columns each.
 //   1. H stage, in column passes of kCols packed bins: S is computed on the
-//      fly in (kUK x kCols) chunks from D and K and staged in shared memory
-//      beside the matching (kUK x ROWS) chunk of G^T; each thread keeps a
-//      TR x 4 complex register tile of X. Finished passes land in shared
-//      memory as X^T (bins x rows) over the full packed width: a cell's
-//      whole S (127 x 224 x 8 B = 227 KB) cannot stay resident, X^T for 64
-//      rows (128 KB over 256 padded bins) can.
-//   2. W stage, in column passes of kCols output columns: M streams from
-//      global memory (it is shared by every CTA and stays in L2) through
-//      (kKC x kCols) shared-memory chunks; each thread keeps a TR x 4 tile
-//      of the output and hands it to the epilogue after each pass.
-// Both stages load the next chunk's operands into registers before the
-// products of the current chunk, so the loads are in flight during the FMAs
-// (one CTA per SM at 64 rows leaves no other CTA to hide them). Two tile
-// configurations are built: 64 rows x 8-row thread tiles (measured the
-// fastest at the headline on an H100) and, where that X^T would not fit in
-// shared memory (Wc > 384), 32 rows x 4-row thread tiles.
-// Blocks run in parallel and in no order, unlike the TPU grid that kept the
-// kernel index innermost so a data block stayed in VMEM across the bank;
-// here the kernel index is the fastest-varying launch index, so the CTAs
-// resident at one time share a data block (and the whole bank) in L2.
+//      fly in (kUK x kCols) chunks from D and K (fp32 FMAs, 8 elements a
+//      thread, a warp's 32 lanes on 8 bins x 4 spectrum rows) and staged in
+//      shared memory as S^T, its TF32 hi and lo planes of Sr and Si, beside
+//      the matching (ROWS x kUK) chunk of G, split as it is staged. The
+//      complex product runs as real products over the chunk's spectrum
+//      rows: Xr += Gr Sr - Gi Si, Xi += Gi Sr + Gr Si. 64 rows: S^T and G
+//      (and -Gi, so that Xr too is a sum) are staged as core matrices and
+//      wgmma reads both from shared memory (A = G, B = S^T); each
+//      warpgroup keeps its 64 x 64 tile of X in registers across the
+//      chunks. 32 rows: the fragments are read with ldmatrix for mma.sync,
+//      X as two ROWS/2 x 32 tiles a warp (Gi Si summed apart and
+//      subtracted). The next chunk's D, K (channel 0) and G are loaded into
+//      registers before the products, so those loads are in flight during
+//      them. Finished
+//      passes land in shared memory as X, rows x [Xr | Xi] over the bins
+//      padded to kKB: a cell's whole S (127 x 224 x 8 B = 227 KB) cannot
+//      stay resident, X for 64 rows (113 KB at Wc 224) can.
+//   2. W stage, in column passes of kCols output columns: M^T's hi and lo
+//      planes stream from global memory (shared by every CTA, they stay in
+//      L2) through a ring of kM shared-memory chunks of kKC rows of
+//      [Mr ; Mi], filled with cp.async kM - 1 chunks ahead of the products.
+//      64 rows: each warpgroup reads its X fragments (wgmma's A operand, in
+//      registers) and splits them, one k-step at a time (hi and lo of X for
+//      64 rows would not fit beside X), and runs the k-step's three
+//      products against the chunk's planes in place (B, by descriptor); 32
+//      rows: each warp does the same with mma.sync, B fragments by
+//      ldmatrix. Each keeps its accumulator tile across the chunks of a
+//      pass and hands it to the epilogue after the pass.
+// The 32-row configuration's S^T and G rows are padded to 20 floats, X's
+// rows to 2 x bins + 4, and the 64-row S^T and G and every M^T are held in
+// core matrices (8 columns x 4 rows, 128 contiguous bytes), so that the
+// fragment reads and the S^T stores are free of bank conflicts. Two
+// one-block configurations are built: 64 rows (the headline) and, where
+// that X does not fit in shared memory (Wc > 320), 32 rows. Blocks run in
+// parallel and in no order, unlike the TPU grid that kept the kernel index
+// innermost so a data block stayed in VMEM across the bank; here the kernel
+// index is the fastest-varying launch index, so the CTAs resident at one
+// time share a data block (and the whole bank) in L2.
 //
 // Short windows (Vh <= 32): block-stacked CTAs. A 64-row CTA holding one
 // block of Vh = 16 rows (the DPM plan) leaves 48 rows idle, and its MAC
 // waits on 31 dependent channel loads with no other CTA to hide them. So a
 // third configuration takes g = min(64 / Vh, 16) blocks of one (image,
-// kernel) and stacks their window rows at offsets t * Vh of the 64-row X^T,
+// kernel) and stacks their window rows at offsets t * Vh of the 64-row X,
 // as the JAX kernel's _make_kernel_v3 stacks MBH blocks' H-stage outputs:
-//   - H stage: G is shared; row t * Vh + r takes block t's S. S is computed
-//     in u-chunks of 16 / g spectrum rows for all g blocks at once (16 rows
-//     of (block, u), 16 threads a row). Its channel MAC streams D (g
-//     blocks) and K (once for the group) through a ring of steps of up to
-//     4 channels (8 at bf16, in the same bytes) in shared memory, filled
-//     with 16-byte cp.async: the steps ahead are in flight while one is
-//     summed (one CTA per SM has no other CTA to hide a copy's latency
-//     behind), and a step's barrier serves all its channels. A row segment is copied as the 16-byte chunks around it
-//     (the planes' rows are not 16-byte aligned); the reader adds the row's
+//   - H stage (fp32 FMAs, 8 x 4 thread tiles): G is shared; row t * Vh + r
+//     takes block t's S. S is computed in u-chunks of 16 / g spectrum rows
+//     for all g blocks at once (16 rows of (block, u), 16 threads a row).
+//     Its channel MAC streams D (g blocks) and K (once for the group)
+//     through a ring of steps of up to 4 channels (8 at bf16, in the same
+//     bytes) in shared memory, filled with 16-byte cp.async: the steps ahead
+//     are in flight while one is summed, and a step's barrier serves all its
+//     channels. A row segment is copied as the 16-byte chunks around it (the
+//     planes' rows are not 16-byte aligned); the reader adds the row's
 //     offset in them, which it tracks from the row's address. Where every
 //     row starts on an element pair (even Wc: the DPM plan), a thread reads
 //     two columns per load. A thread's 8 tile rows may straddle two (or,
 //     for Vh < 8, more) blocks; such a thread sums each block's S with the
-//     rows of the others masked.
-//   - W stage: unchanged, over the 64 stacked rows, so M streams once for g
-//     blocks instead of once per block.
+//     rows of the others masked. Each u-chunk is a (64 x 16/g) x (16/g x
+//     128) product per block row, a contraction of 4 spectrum rows at the
+//     DPM plan, too short to fill an mma k-step; the MAC and its ring, not
+//     this stage, hold the time there (PERF.md), so it stays on the CUDA
+//     cores.
+//   - W stage: the wgmma stage above, over the 64 stacked rows, so M
+//     streams once for g blocks instead of once per block.
 //   - The epilogue maps stacked row R to block R / Vh, window row R % Vh;
 //     a last group with fewer than g blocks leaves its rows unwritten.
-// Its X^T covers the bins padded to kKC; where that and a ring of 2 steps
-// do not fit (Wc > 320 at Vh 16), and for Vh > 32, the two configurations
+// Its X and a ring of 2 steps must fit beside the W stage's buffers; where
+// they do not (Wc > 320 at Vh 16), and for Vh > 32, the configurations
 // above run as before. At the DPM plan (Wc 70, F = 31) it issues ~1.9
-// MFLOP per cell for 1.28 useful (the one-block CTA issued 6.3). Launch
-// order: tiles of `ktile` kernels, the kernel index fastest inside a tile,
-// then the block group (ops/block_conv.py kernel_tile sizes a tile's
-// spectra to stay in L2); on the H100 the order did not change the DPM
-// time, so the bank stream is not what bounds it.
+// MFLOP per cell for 1.28 useful. Launch order: tiles of `ktile` kernels,
+// the kernel index fastest inside a tile, then the block group
+// (ops/block_conv.py kernel_tile sizes a tile's spectra to stay in L2).
 //
 // An epilogue is a class template on STACKED (the block-stacked
 // configuration or not) with
 //   using Out = ...;                            the kernel's output argument
 //   __device__ Epi(Out, const Cell&, const OutGeom&);
-//   template <int TR> __device__ void tile(const float (&acc)[TR][4],
-//                                          int row0, int col0);
+//   template <int MT, int NT>
+//   __device__ void tile(const float (&acc)[MT][NT][4], int row0, int col0);
 //   __device__ void finish(float* scratch);
-// tile() receives a thread's TR x 4 accumulators for rows row0.. and window
-// columns col0..: window rows of the cell, or, stacked, rows of the stack
-// (row R is window row R % vh of the group's block R / vh); rows may pass
-// what exists and columns vw: the epilogue masks them. finish() runs
-// once, by every thread, after the last pass, with the staging area free
-// for its use (>= 32 x 128 floats, and >= 64 x 32 x 2 floats stacked).
+// tile() receives a thread's W-stage accumulators in the mma.m16n8k8
+// layout (wgmma's: MT = 1, NT = 8; mma.sync's: MT = ROWS / 32, NT = 4):
+// acc[mt][nt][i] is row row0 + 16 mt + 8 (i / 2), column
+// col0 + 8 nt + i % 2 (window rows of the cell, or, stacked, rows of the
+// stack: row R is window row R % vh of the group's block R / vh; window
+// columns); rows may pass what exists and columns vw: the epilogue masks
+// them. finish() runs once, by every thread, after the last pass, with the
+// staging area free for its use (>= 64 x 16 x 2 floats).
 
 #pragma once
 
@@ -124,37 +175,51 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kCols = 128;  // columns per pass (packed bins, output columns)
 constexpr int kUK = 16;     // spectrum rows per H-stage chunk
-constexpr int kKC = 32;     // packed bins per W-stage chunk
+constexpr int kKB = 32;     // X's packed bins pad to it
+constexpr int kKC = 32;     // rows of [Mr ; Mi] per W-stage chunk (it divides 2 kKB)
 constexpr int kMaxSmem = 232448;  // Hopper's per-block shared-memory limit
+constexpr int kGS = kUK + 4;      // row stride (floats) of the 32-row S^T and G staging
+// M^T is held in core matrices: 8 output columns x 4 rows of [Mr ; Mi]
+// (128 contiguous bytes), [column / 8][row / 4][8][4], as wgmma reads a
+// K-major operand from shared memory and ldmatrix reads B fragments.
+constexpr int kCore = 32;                         // floats of a core matrix
+constexpr int kMChunk = 2 * (kCols / 8) * (kKC / 4) * kCore;  // hi, lo of a chunk
 
-// The block-stacked configuration (64 rows, 8-row thread tiles).
+// The block-stacked configuration (64 rows, 8-row FMA thread tiles).
 constexpr int kMaxGroup = 16;   // blocks per CTA at most
 constexpr int kStackRows = 16;  // (block, spectrum row) rows of S per u-chunk
 constexpr int kMinStages = 2;   // steps of the MAC ring: at least,
 constexpr int kMaxStages = 8;   // and at most
 constexpr int kMaxSegments = 48;  // row segments of a channel, at most (g = 2)
+constexpr int kStackTR = 8;     // rows of a stacked H-stage thread tile
 // Staging before the ring: S (kStackRows x kCols, re and im) and G^T (at
 // most 8 spectrum rows x 64 stacked rows, re and im).
 constexpr int kStackStage = 2 * kStackRows * kCols + 2 * 8 * 64;
-
-// Thread layout of both stages: 8 row groups x 32 column groups, each
-// thread a TR x 4 tile. A warp spans 4 row groups x 8 column groups, so its
-// float4 shared loads touch few distinct 16-byte words.
-template <int ROWS, int TR>
-struct Tile {
-  static_assert(ROWS / TR == 8 && TR % 4 == 0, "8 row groups of float4 rows");
-  static constexpr int kStageH = 2 * kUK * kCols + 2 * kUK * ROWS;
-  static constexpr int kStageW = kKC * kCols;
-  static constexpr int kStage = kStageH > kStageW ? kStageH : kStageW;
-  static constexpr int kPerS = kUK * kCols / kThreads;  // S elements / thread
-  static constexpr int kPerG = (kUK * ROWS + kThreads - 1) / kThreads;
-  static constexpr int kPerM = kKC * kCols / kThreads;  // M elements / thread
+// The staging area (floats) of a configuration of ROWS rows: the H stage's
+// S^T (hi, lo of re, im: kCols x kUK each, or kCols x kGS at 32 rows) and G
+// chunk (hi, lo of re, im, and of -im at 64 rows: ROWS x kUK each, or ROWS
+// x kGS), or the W stage's ring of kM chunks of M^T's hi and lo planes
+// (kCols output columns x kKC rows of [Mr ; Mi]), copied kM - 1 chunks
+// ahead, whichever is larger.
+template <int ROWS>
+struct Stage {
+  static constexpr int kM = 2;
+  static constexpr int kW = kM * kMChunk;
+  static constexpr int kH = ROWS == 64 ? 4 * kCols * kUK + 6 * ROWS * kUK
+                                       : 4 * kCols * kGS + 4 * ROWS * kGS;
+  static constexpr int kAll = kH > kW ? kH : kW;
+  static constexpr int kPerS = kUK * kCols / kThreads;     // S elements a thread sums
+  static_assert(kPerS == 8 && kUK == 16, "8 warps x 8 elements tile 16 rows x 128 bins");
+  static constexpr int kPerG = 2 * ROWS * kUK / 4 / kThreads;  // float4s of G a thread stages
 };
-static_assert(kCols == 32 * 4 && kCols % kKC == 0, "column layout");
+static_assert(kCols == 4 * 32, "4 warps of 32 columns span a pass");
 static_assert(kStackRows * 16 == kThreads, "stacked MAC: 16 threads per S row");
-static_assert(kStackStage >= kKC * kCols && kStackStage >= 64 * 32 * 2,
-              "the W stage and the stacked finish() reuse the staging area");
+static_assert(kStackStage >= 64 * 16 * 2, "the stacked finish() reuses the staging area");
 static_assert(kStackStage % 4 == 0, "a 16-byte-aligned ring");
+// Rows of 16-byte multiples whose 8-row groups cover all 32 banks once:
+// ldmatrix reads them without bank conflicts.
+static_assert(kGS % 32 == 20, "conflict-free fragment loads");
+static_assert((2 * kKB) % kKC == 0, "W-stage chunks tile [Xr | Xi]");
 
 // A spectra element as fp32: the identity for fp32, a widening for bf16.
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -165,11 +230,153 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-inline int padded_bins(int wc) { return (wc + kCols - 1) / kCols * kCols; }
+// ---- 3xTF32 on the tensor cores ----
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero; the same bits for every finite x), with two integer
+// operations: the conversion instruction runs at a fraction of their rate,
+// and the W stage splits 16 values a warp per k-step.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+// x = hi + lo (to ~2^-22 relative), both TF32.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+// d += a b: a 16 x 8 A fragment, an 8 x 8 B fragment, fp32 accumulators.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// t += a b as 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi, summed on the
+// tensor cores.
+__device__ __forceinline__ void mma3(float (&t)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
+  mma(t, al, bh);
+  mma(t, ah, bl);
+  mma(t, ah, bh);
+}
+// d += t with IEEE fp32 adds: a stretch of the contraction is summed on the
+// tensor cores into a fresh tile t and added to the running sum here (see
+// Precision).
+__device__ __forceinline__ void add4(float (&d)[4], const float (&t)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += t[i];
+}
+// Four 8 x 8 b16 matrices from shared memory, here each 8 rows x 4 fp32
+// words: lane l gives the address of row l % 8 of matrix l / 8, and
+// register j of the thread (g = lane / 4, t = lane % 4) receives word t of
+// row g of matrix j. With the lane offsets below, that is an mma.m16n8k8
+// A fragment of a row-major tile (a_lane), or the B fragments of two
+// n-tiles of a tile stored n-major, [n][k] (b_lane): registers 0, 1 for
+// the first n-tile, 2, 3 for the second.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const float* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ int a_lane(int lane, int ld) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 4;
+}
+__device__ __forceinline__ int b_lane(int lane, int ld) {
+  return ((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 4;
+}
+// The B fragments of two n-tiles from M^T's core matrices: lane l reads
+// row l % 8 of core (n-group (l / 16), k-core (l / 8) % 2), relative to the
+// first n-group and k-core of the pair.
+__device__ __forceinline__ int core_lane(int lane) {
+  return ((lane >> 4) * (kKC / 4) + ((lane >> 3) & 1)) * kCore + (lane & 7) * 4;
+}
 
-template <int ROWS, int TR>
+// ---- wgmma (the 64-row configurations' W stage) ----
+// A shared-memory matrix descriptor without swizzling: core matrices of 8
+// rows x 16 bytes; lbo = bytes between core matrices along K, sbo = bytes
+// between 8-row groups along N.
+__device__ __forceinline__ uint64_t smem_desc(const float* p, int lbo, int sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32;
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// d += A B for the warpgroup with A (64 x 8, K-major) and B (8 x 64,
+// K-major) both TF32 in shared memory, at descriptors da and db.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[8][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+// Wait until at most N of this warpgroup's wgmma groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma reads or writes (its accumulators d, its A fragment a)
+// across the wgmma, or giving them to other values before it is waited for.
+__device__ __forceinline__ void fence_regs(float (&d)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+// d += A B for the warpgroup: A, 64 x 8 TF32 in registers (each warp's 16
+// rows as an mma.m16n8k8 A fragment); B, 8 x 64 TF32 (K-major) at desc; d,
+// 64 x 64 fp32, each warp's 16 rows as 8 n-tiles of mma.m16n8k8 C
+// fragments.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+      : "memory");
+}
+
+// Packed bins X holds (padded to the W stage's chunks), and its row stride.
+__host__ __device__ inline int padded_bins(int wc) { return (wc + kKB - 1) / kKB * kKB; }
+__host__ __device__ inline int x_stride(int wc) { return 2 * padded_bins(wc) + 4; }
+// The padded shapes of the operand planes _kernel_mats makes: G (Vh, Lh)
+// to whole 64-row chunks and kUK-row chunks; M^T's rows to whole passes.
+__host__ __device__ inline int g_rows(int vh) { return (vh + 63) / 64 * 64; }
+__host__ __device__ inline int g_cols(int lh) { return (lh + kUK - 1) / kUK * kUK; }
+__host__ __device__ inline int m_cols(int vw) { return (vw + kCols - 1) / kCols * kCols; }
+
+template <int ROWS>
 long long tile_smem_bytes(int wc) {
-  return (2LL * padded_bins(wc) * ROWS + Tile<ROWS, TR>::kStage) * sizeof(float);
+  return 4LL * (static_cast<long long>(ROWS) * x_stride(wc) + Stage<ROWS>::kAll);
 }
 
 // Blocks a stacked CTA would take at window height vh (1: not stacked).
@@ -182,9 +389,6 @@ inline int group_of(int vh) {
 // per channel step (re and im of g data blocks and of the kernel).
 __host__ __device__ inline int chunk_rows(int g) { return kStackRows / g; }
 __host__ __device__ inline int ring_segments(int g) { return 2 * (g + 1) * chunk_rows(g); }
-
-// The packed bins a stacked CTA's X^T holds: those the W stage reads.
-inline int stacked_bins(int wc) { return (wc + kKC - 1) / kKC * kKC; }
 
 // Bytes a ring slot gives one row segment of TS elements at packed width
 // wc: the 16-byte chunks that can hold min(wc, 128) elements starting
@@ -223,11 +427,14 @@ Ring ring_in(long long left, int wc, int g, int max_channels) {
   return Ring{0, 0, 0};
 }
 
-// The shared memory a g-block stack takes at packed width wc is sized for
-// fp32 spectra with at most 4 channels a step; bf16 spectra fill the same
-// ring bytes with up to twice the channels a step.
+// The stack's X (64 rows), then its staging: S, G^T and the ring in the
+// room X leaves, or the W stage's buffers, whichever is larger. The shared
+// memory is sized for fp32 spectra with at most 4 channels a step; bf16
+// spectra fill the same ring bytes with up to twice the channels a step.
+inline long long stacked_x_bytes(int wc) { return 4LL * 64 * x_stride(wc); }
+
 inline Ring stacked_ring_f32(int wc, int g) {
-  return ring_in<float>(kMaxSmem - 4LL * (2 * stacked_bins(wc) * 64 + kStackStage), wc, g,
+  return ring_in<float>(kMaxSmem - stacked_x_bytes(wc) - 4LL * kStackStage, wc, g,
                         max_step_channels<float>());
 }
 
@@ -237,17 +444,22 @@ Ring stacked_ring(int wc, int g) {
 }
 
 inline long long stacked_smem_bytes(int wc, int g) {
-  return 4LL * (2 * stacked_bins(wc) * 64 + kStackStage) + stacked_ring_f32(wc, g).bytes;
+  const long long h = 4LL * kStackStage + stacked_ring_f32(wc, g).bytes;
+  const long long w = 4LL * Stage<64>::kW;
+  return stacked_x_bytes(wc) + (h > w ? h : w);
 }
 
 // The configuration a geometry runs: g > 1 blocks stacked in 64 rows where
-// the window is at most 32 rows and that fits; else 64 rows where its X^T
+// the window is at most 32 rows and that fits; else 64 rows where its X
 // fits, else 32.
-inline bool wide(int wc) { return tile_smem_bytes<64, 8>(wc) > kMaxSmem; }
+inline bool wide(int wc) { return tile_smem_bytes<64>(wc) > kMaxSmem; }
 
 inline int blocks_per_cta(int wc, int vh) {
   const int g = group_of(vh);
-  return g > 1 && stacked_ring_f32(wc, g).stages >= kMinStages ? g : 1;
+  return g > 1 && stacked_ring_f32(wc, g).stages >= kMinStages &&
+                 stacked_smem_bytes(wc, g) <= kMaxSmem
+             ? g
+             : 1;
 }
 
 inline int tile_rows(int wc, int vh) {
@@ -257,7 +469,7 @@ inline int tile_rows(int wc, int vh) {
 inline long long smem_bytes(int wc, int vh) {
   const int g = blocks_per_cta(wc, vh);
   if (g > 1) return stacked_smem_bytes(wc, g);
-  return wide(wc) ? tile_smem_bytes<32, 4>(wc) : tile_smem_bytes<64, 8>(wc);
+  return wide(wc) ? tile_smem_bytes<32>(wc) : tile_smem_bytes<64>(wc);
 }
 
 // The CTA's place: image bb, block (bi, bj), row chunk rc, kernel ni; a
@@ -323,35 +535,43 @@ __device__ __forceinline__ void h_fma(float (&ar)[TR][4], float (&ai)[TR][4],
   }
 }
 
-template <class TS, int ROWS, int TR, int MIN_BLOCKS, bool STACKED, class Epi>
-__global__ void __launch_bounds__(kThreads, MIN_BLOCKS) block_conv_kernel(
+template <class TS, int ROWS, bool STACKED, class Epi>
+__global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     const TS* __restrict__ d_re, const TS* __restrict__ d_im,
     const TS* __restrict__ k_re, const TS* __restrict__ k_im,
     const float* __restrict__ gt_re, const float* __restrict__ gt_im,
-    const float* __restrict__ m_re, const float* __restrict__ m_im,
+    const float* __restrict__ g_pad, const float* __restrict__ m_tc,
     typename Epi::Out out, int nbh, int nbw, int f, int n, int lh, int wc,
-    int vh, int vw, int out_h, int out_w, int row_chunks, int wc_pad,
+    int vh, int vw, int out_h, int out_w, int row_chunks,
     int group, int cps, int stages, int ktile) {
-  using T = Tile<ROWS, TR>;
+  constexpr int MT = ROWS / 32;  // 16-row mma tiles of a warp
+  constexpr int RW = ROWS / 2;   // rows of a warp
   extern __shared__ __align__(16) float smem[];
-  float* xr_t = smem;                   // [wc_pad][ROWS]  X^T, real
-  float* xi_t = xr_t + wc_pad * ROWS;   // [wc_pad][ROWS]  X^T, imaginary
-  float* stage = xi_t + wc_pad * ROWS;  // staging, reused by both stages
-  float* m_s = stage;                   // [kKC][kCols]  M chunk (W stage)
+  const int wc_pad = padded_bins(wc);
+  const int xs = x_stride(wc);
+  float* x_s = smem;                   // [ROWS][xs]  X: Xr at bins 0.., Xi at wc_pad..
+  float* stage = x_s + ROWS * xs;      // staging, reused by both stages
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int rg = (warp >> 2) * 4 + (lane >> 3);  // rows rg*TR .. rg*TR+TR-1
-  const int cg = (warp & 3) * 8 + (lane & 7);    // cols cg*4 .. cg*4+3
+  const int g8 = lane >> 2;  // fragment row (A, C) / column (B)
+  const int t4 = lane & 3;   // fragment column (A) / row (B)
+  const int wm = warp >> 2;  // the warp's rows wm * RW ..
+  const int wn = warp & 3;   // and columns wn * 32 .. of a pass
 
   Cell cell_at;
   int r0 = 0;
   if constexpr (!STACKED) {
-  float* s_r = stage;                   // [kUK][kCols]
-  float* s_i = s_r + kUK * kCols;       // [kUK][kCols]
-  float* g_r = s_i + kUK * kCols;       // [kUK][ROWS]  G^T chunk
-  float* g_i = g_r + kUK * ROWS;        // [kUK][ROWS]
+  using St = Stage<ROWS>;
+  // S^T: re hi, re lo, im hi, im lo; G chunk: the same planes, then -Gi
+  // hi, -Gi lo. 64 rows: [plane][bins or rows / 8][kUK / 4][8][4] (core
+  // matrices, read by wgmma); 32 rows: [plane][bins or rows][kGS].
+  constexpr bool kWG = ROWS == 64;
+  constexpr int kSP = kWG ? kCols * kUK : kCols * kGS;  // floats of an S^T plane
+  constexpr int kGP = kWG ? ROWS * kUK : ROWS * kGS;    // floats of a G plane
+  float* s_st = stage;
+  float* g_st = s_st + 4 * kSP;
 
   // Kernel index fastest, then the row chunk, then the cell (b, i, j).
   long long bid = blockIdx.x;
@@ -370,23 +590,37 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) block_conv_kernel(
   const TS* di_c = d_im + cell * f * plane;
   const TS* kr_c = k_re + static_cast<long long>(ni) * f * plane;
   const TS* ki_c = k_im + static_cast<long long>(ni) * f * plane;
+  const int gr_n = g_rows(vh), gc_n = g_cols(lh);
 
   // ---- H stage: X[r, v] = sum_u G[r0 + r, u] S[u, v] ----
   for (int c0 = 0; c0 < wc_pad; c0 += kCols) {
-    float ar[TR][4], ai[TR][4];
+    // X's accumulators: 64 rows, a warpgroup's 64 x 64 tile (wgmma); 32
+    // rows, a warp's 16 x 32 tile (mma.sync).
+    constexpr int XM = kWG ? 1 : MT, XN = kWG ? 8 : 4;
+    float xr[XM][XN][4], xi[XM][XN][4];
 #pragma unroll
-    for (int a = 0; a < TR; ++a)
+    for (int a = 0; a < XM; ++a)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) ar[a][c] = ai[a][c] = 0.f;
+      for (int b = 0; b < XN; ++b)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) xr[a][b][c] = xi[a][b][c] = 0.f;
+    // The warp's 32 bins are either all below wc_pad or all past it
+    // (mma.sync); the warpgroup's 64 bins start below it or are all past
+    // it (wgmma).
+    const bool live = kWG ? c0 + (warp >> 2) * 64 < wc_pad : c0 + wn * 32 < wc_pad;
 
+    // This thread's S elements of a chunk: element q is spectrum row
+    // s_u(q) and bin s_v(q) of the chunk; a warp's 32 lanes hold 8 bins x 4
+    // rows, so their S^T stores hit 32 distinct banks.
+    auto s_u = [&](int q) { return 4 * ((q * 8 + warp) >> 4) + (lane >> 3); };
+    auto s_v = [&](int q) { return 8 * ((q * 8 + warp) & 15) + (lane & 7); };
     // Channel ff of this thread's S elements of the chunk at u0: D and K.
-    float dk[T::kPerS][4];
+    float dk[St::kPerS][4];
     auto load_dk = [&](int u0, int ff) {
 #pragma unroll
-      for (int q = 0; q < T::kPerS; ++q) {
-        const int e = tid + q * kThreads;
-        const int u = u0 + e / kCols;
-        const int v = c0 + e % kCols;
+      for (int q = 0; q < St::kPerS; ++q) {
+        const int u = u0 + s_u(q);
+        const int v = c0 + s_v(q);
         const bool ok = u < lh && v < wc;
         const long long off = ok ? static_cast<long long>(u) * wc + v + ff * plane : 0;
         dk[q][0] = ok ? to_f32(dr_c[off]) : 0.f;
@@ -395,91 +629,201 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) block_conv_kernel(
         dk[q][3] = ok ? to_f32(ki_c[off]) : 0.f;
       }
     };
-    load_dk(0, 0);
-    for (int u0 = 0; u0 < lh; u0 += kUK) {
-      float gv[T::kPerG][2];
+    // G (re, im) for rows r0.., spectrum rows u0.. (zero-padded past vh
+    // and lh), loaded a chunk ahead and split as it is staged.
+    float4 gv[St::kPerG];
+    auto load_g = [&](int u0) {
 #pragma unroll
-      for (int q = 0; q < T::kPerG; ++q) {
+      for (int q = 0; q < St::kPerG; ++q) {
         const int e = tid + q * kThreads;
-        const int u = u0 + e / ROWS;
-        const int row = r0 + e % ROWS;
-        const bool ok = e < kUK * ROWS && u < lh && row < vh;
-        const long long off = ok ? static_cast<long long>(u) * vh + row : 0;
-        gv[q][0] = ok ? gt_re[off] : 0.f;
-        gv[q][1] = ok ? gt_im[off] : 0.f;
+        const int pl = e / (ROWS * 4);
+        const int row = (e / 4) % ROWS;
+        gv[q] = *reinterpret_cast<const float4*>(
+            g_pad + (static_cast<long long>(pl) * gr_n + r0 + row) * gc_n + u0 + 4 * (e % 4));
       }
+    };
+    load_dk(0, 0);
+    load_g(0);
+    for (int u0 = 0; u0 < lh; u0 += kUK) {
       // S = sum_f K D: channel 0 was prefetched, the rest load here.
-      float sv[T::kPerS][2];
+      float sv[St::kPerS][2];
 #pragma unroll
-      for (int q = 0; q < T::kPerS; ++q) {
+      for (int q = 0; q < St::kPerS; ++q) {
         sv[q][0] = fmaf(dk[q][2], dk[q][0], -dk[q][3] * dk[q][1]);
         sv[q][1] = fmaf(dk[q][2], dk[q][1], dk[q][3] * dk[q][0]);
       }
       for (int ff = 1; ff < f; ++ff) {
         load_dk(u0, ff);
 #pragma unroll
-        for (int q = 0; q < T::kPerS; ++q) {
+        for (int q = 0; q < St::kPerS; ++q) {
           sv[q][0] = fmaf(dk[q][2], dk[q][0], fmaf(-dk[q][3], dk[q][1], sv[q][0]));
           sv[q][1] = fmaf(dk[q][2], dk[q][1], fmaf(dk[q][3], dk[q][0], sv[q][1]));
         }
       }
       __syncthreads();  // the previous chunk's products are done with staging
 #pragma unroll
-      for (int q = 0; q < T::kPerS; ++q) {
-        s_r[tid + q * kThreads] = sv[q][0];
-        s_i[tid + q * kThreads] = sv[q][1];
+      for (int q = 0; q < St::kPerS; ++q) {
+        const int v = s_v(q), u = s_u(q);
+        float* p = s_st + (kWG ? ((v >> 3) * (kUK / 4) + (u >> 2)) * kCore + (v & 7) * 4 + (u & 3)
+                               : v * kGS + u);  // S^T[v][u]
+        uint32_t hi, lo;
+        split(sv[q][0], hi, lo);
+        p[0] = __uint_as_float(hi);
+        p[kSP] = __uint_as_float(lo);
+        split(sv[q][1], hi, lo);
+        p[2 * kSP] = __uint_as_float(hi);
+        p[3 * kSP] = __uint_as_float(lo);
       }
 #pragma unroll
-      for (int q = 0; q < T::kPerG; ++q) {
+      for (int q = 0; q < St::kPerG; ++q) {
         const int e = tid + q * kThreads;
-        if (e < kUK * ROWS) {
-          g_r[e] = gv[q][0];
-          g_i[e] = gv[q][1];
+        const int pl = e / (ROWS * 4);
+        const int row = (e / 4) % ROWS;
+        const float x[4] = {gv[q].x, gv[q].y, gv[q].z, gv[q].w};
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split(x[i], hi[i], lo[i]);
+        float* pg = g_st + 2 * pl * kGP +
+                    (kWG ? ((row >> 3) * (kUK / 4) + (e % 4)) * kCore + (row & 7) * 4 : row * kGS + 4 * (e % 4));
+        *reinterpret_cast<uint4*>(pg) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(pg + kGP) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        if (kWG && pl == 1) {  // -Gi, for Xr = Gr Sr + (-Gi) Si
+          *reinterpret_cast<uint4*>(pg + 2 * kGP) =
+              make_uint4(hi[0] ^ 0x80000000u, hi[1] ^ 0x80000000u, hi[2] ^ 0x80000000u, hi[3] ^ 0x80000000u);
+          *reinterpret_cast<uint4*>(pg + 3 * kGP) =
+              make_uint4(lo[0] ^ 0x80000000u, lo[1] ^ 0x80000000u, lo[2] ^ 0x80000000u, lo[3] ^ 0x80000000u);
         }
       }
+      // this thread's stores are visible to the tensor cores' reads
+      if (kWG) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
-      if (u0 + kUK < lh) load_dk(u0 + kUK, 0);  // in flight during the FMAs
-#pragma unroll 4
-      for (int uu = 0; uu < kUK; ++uu) {
-        float gr[TR], gi[TR];
+      if (u0 + kUK < lh) {  // in flight during the products
+        load_dk(u0 + kUK, 0);
+        load_g(u0 + kUK);
+      }
+      if constexpr (kWG) {
+        if (live) {
+          // The warpgroup's 64 rows x 64 bins: A = G's planes, B = S^T's,
+          // both read by wgmma from shared memory. The chunk's products are
+          // summed on the tensor cores, then added to X in IEEE fp32.
+          const float* sw = s_st + (warp >> 2) * 8 * (kUK / 4) * kCore;
+          float tr[8][4], ti[8][4];
 #pragma unroll
-        for (int q = 0; q < TR / 4; ++q) {
-          const float4 a = *reinterpret_cast<const float4*>(g_r + uu * ROWS + rg * TR + 4 * q);
-          const float4 b = *reinterpret_cast<const float4*>(g_i + uu * ROWS + rg * TR + 4 * q);
-          gr[4 * q] = a.x; gr[4 * q + 1] = a.y; gr[4 * q + 2] = a.z; gr[4 * q + 3] = a.w;
-          gi[4 * q] = b.x; gi[4 * q + 1] = b.y; gi[4 * q + 2] = b.z; gi[4 * q + 3] = b.w;
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) tr[j][i] = ti[j][i] = 0.f;
+          fence_regs(tr);
+          fence_regs(ti);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < kUK / 8; ++ks) {
+            auto ga = [&](int pl) {
+              return smem_desc(g_st + pl * kGP + 2 * ks * kCore, 4 * kCore, 4 * (kUK / 4) * kCore);
+            };
+            auto sb = [&](int pl) {
+              return smem_desc(sw + pl * kSP + 2 * ks * kCore, 4 * kCore, 4 * (kUK / 4) * kCore);
+            };
+            // planes: G 0 re hi, 1 re lo, 2 im hi, 3 im lo, 4 -im hi, 5 -im lo;
+            // S^T 0 re hi, 1 re lo, 2 im hi, 3 im lo
+            wgmma_tf32_ss(tr, ga(1), sb(0));  // Gr Sr
+            wgmma_tf32_ss(tr, ga(0), sb(1));
+            wgmma_tf32_ss(tr, ga(0), sb(0));
+            wgmma_tf32_ss(tr, ga(5), sb(2));  // -Gi Si
+            wgmma_tf32_ss(tr, ga(4), sb(3));
+            wgmma_tf32_ss(tr, ga(4), sb(2));
+            wgmma_tf32_ss(ti, ga(3), sb(0));  // Gi Sr
+            wgmma_tf32_ss(ti, ga(2), sb(1));
+            wgmma_tf32_ss(ti, ga(2), sb(0));
+            wgmma_tf32_ss(ti, ga(1), sb(2));  // Gr Si
+            wgmma_tf32_ss(ti, ga(0), sb(3));
+            wgmma_tf32_ss(ti, ga(0), sb(2));
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(tr);
+          fence_regs(ti);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            add4(xr[0][j], tr[j]);
+            add4(xi[0][j], ti[j]);
+          }
         }
-        const float4 sr4 = *reinterpret_cast<const float4*>(s_r + uu * kCols + cg * 4);
-        const float4 si4 = *reinterpret_cast<const float4*>(s_i + uu * kCols + cg * 4);
-        const float sr[4] = {sr4.x, sr4.y, sr4.z, sr4.w};
-        const float si[4] = {si4.x, si4.y, si4.z, si4.w};
+      } else if (live) {
+#pragma unroll 1
+        for (int ks = 0; ks < kUK / 8; ++ks)
 #pragma unroll
-        for (int a = 0; a < TR; ++a)
+          for (int np = 0; np < 2; ++np) {
+            // B: S rows ks*8.. for the warp's n-tiles 2 np, 2 np + 1;
+            // planes re hi, re lo, im hi, im lo.
+            uint32_t sb[4][2][2];
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            ar[a][c] = fmaf(gr[a], sr[c], ar[a][c]);
-            ar[a][c] = fmaf(-gi[a], si[c], ar[a][c]);
-            ai[a][c] = fmaf(gr[a], si[c], ai[a][c]);
-            ai[a][c] = fmaf(gi[a], sr[c], ai[a][c]);
+            for (int pl = 0; pl < 4; ++pl) {
+              uint32_t r[4];
+              ldsm4(r, s_st + pl * kSP + (wn * 32 + np * 16) * kGS + ks * 8 + b_lane(lane, kGS));
+              sb[pl][0][0] = r[0];
+              sb[pl][0][1] = r[1];
+              sb[pl][1][0] = r[2];
+              sb[pl][1][1] = r[3];
+            }
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              // A: G rows of this m-tile, the same planes.
+              uint32_t ga[4][4];
+#pragma unroll
+              for (int pl = 0; pl < 4; ++pl)
+                ldsm4(ga[pl], g_st + pl * kGP + (wm * RW + mt * 16) * kGS + ks * 8 + a_lane(lane, kGS));
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                // This k-step's products are summed on the tensor cores,
+                // then added to X in IEEE fp32 (Gi Si subtracted there).
+                float tr[4] = {0.f, 0.f, 0.f, 0.f}, ts[4] = {0.f, 0.f, 0.f, 0.f};
+                float ti[4] = {0.f, 0.f, 0.f, 0.f};
+                mma3(tr, ga[0], ga[1], sb[0][j], sb[1][j]);  // Gr Sr
+                mma3(ts, ga[2], ga[3], sb[2][j], sb[3][j]);  // Gi Si
+                mma3(ti, ga[2], ga[3], sb[0][j], sb[1][j]);  // Gi Sr
+                mma3(ti, ga[0], ga[1], sb[2][j], sb[3][j]);  // Gr Si
+#pragma unroll
+                for (int i = 0; i < 4; ++i) xr[mt][2 * np + j][i] += tr[i] - ts[i];
+                add4(xi[mt][2 * np + j], ti);
+              }
+            }
           }
       }
     }
-    // Bins past wc hold zeros (S was zero there), which pads X^T for the
-    // W stage's chunking.
+    // Bins past wc hold zeros (S was zero there), which pads X for the W
+    // stage's chunks.
+    if constexpr (kWG) {
+      const int rank = warp & 3;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int v = c0 + cg * 4 + c;
+      for (int j = 0; j < XN; ++j) {
+        const int v = c0 + (warp >> 2) * 64 + j * 8;  // the n-tile's bins: all below wc_pad, or none
+        if (live && v < wc_pad) {
 #pragma unroll
-      for (int q = 0; q < TR / 4; ++q) {
-        *reinterpret_cast<float4*>(xr_t + v * ROWS + rg * TR + 4 * q) = make_float4(
-            ar[4 * q][c], ar[4 * q + 1][c], ar[4 * q + 2][c], ar[4 * q + 3][c]);
-        *reinterpret_cast<float4*>(xi_t + v * ROWS + rg * TR + 4 * q) = make_float4(
-            ai[4 * q][c], ai[4 * q + 1][c], ai[4 * q + 2][c], ai[4 * q + 3][c]);
+          for (int h = 0; h < 2; ++h) {
+            float* p = x_s + (rank * 16 + 8 * h + g8) * xs + v + 2 * t4;
+            *reinterpret_cast<float2*>(p) = make_float2(xr[0][j][2 * h], xr[0][j][2 * h + 1]);
+            *reinterpret_cast<float2*>(p + wc_pad) = make_float2(xi[0][j][2 * h], xi[0][j][2 * h + 1]);
+          }
+        }
       }
+    } else if (live) {
+#pragma unroll
+      for (int mt = 0; mt < XM; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float* p = x_s + (wm * RW + mt * 16 + 8 * h + g8) * xs + c0 + wn * 32 + nt * 8 + 2 * t4;
+            *reinterpret_cast<float2*>(p) = make_float2(xr[mt][nt][2 * h], xr[mt][nt][2 * h + 1]);
+            *reinterpret_cast<float2*>(p + wc_pad) = make_float2(xi[mt][nt][2 * h], xi[mt][nt][2 * h + 1]);
+          }
     }
   }
   } else {
-  static_assert(ROWS == 64 && TR == 8, "the stacked configuration is 64 x 8");
+  static_assert(ROWS == 64, "the stacked configuration is 64 rows");
+  constexpr int TR = kStackTR;
+  const int rg = (warp >> 2) * 4 + (lane >> 3);  // rows rg*TR .. rg*TR+TR-1
+  const int cg = (warp & 3) * 8 + (lane & 7);    // cols cg*4 .. cg*4+3
   // ---- stacked H stage: `group` blocks of one (image, kernel) ----
   float* s_r = stage;                      // [kStackRows][kCols]  S, (block, u) rows
   float* s_i = s_r + kStackRows * kCols;
@@ -737,87 +1081,201 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS) block_conv_kernel(
         }
       }
     }
-    // X^T over the bins the W stage reads (wc_pad, wc padded to kKC here);
-    // bins past wc hold zeros (S was zero there).
+    // X over the bins the W stage reads; bins past wc hold zeros (S was
+    // zero there).
+    const int v = c0 + cg * 4;
+    if (v < wc_pad) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int v = c0 + cg * 4 + c;
-      if (v < wc_pad) {
-#pragma unroll
-        for (int q = 0; q < TR / 4; ++q) {
-          *reinterpret_cast<float4*>(xr_t + v * ROWS + hr0 + 4 * q) = make_float4(
-              ar[4 * q][c], ar[4 * q + 1][c], ar[4 * q + 2][c], ar[4 * q + 3][c]);
-          *reinterpret_cast<float4*>(xi_t + v * ROWS + hr0 + 4 * q) = make_float4(
-              ai[4 * q][c], ai[4 * q + 1][c], ai[4 * q + 2][c], ai[4 * q + 3][c]);
-        }
+      for (int a = 0; a < TR; ++a) {
+        float* p = x_s + (hr0 + a) * xs + v;
+        *reinterpret_cast<float4*>(p) = make_float4(ar[a][0], ar[a][1], ar[a][2], ar[a][3]);
+        *reinterpret_cast<float4*>(p + wc_pad) = make_float4(ai[a][0], ai[a][1], ai[a][2], ai[a][3]);
       }
     }
   }
   cp_async_wait<0>();  // nothing in flight into the staging the W stage reuses
   }
 
-  // ---- W stage: tile[r, c] = sum_v Xr[r, v] Mr[v, c] + Xi[r, v] Mi[v, c] ----
-  // Chunk t covers bins [v0, v0 + kKC) of plane t / nchunk (0 = re, 1 = im).
-  const int nchunk = (wc + kKC - 1) / kKC;
-  Epi epi(out, cell_at, OutGeom{n, nbh, nbw, row_chunks, vh, vw, out_h, out_w});
-  for (int c0 = 0; c0 < vw; c0 += kCols) {
-    float acc[TR][4];
+  // ---- W stage: tile[r, c] = sum_k X[r, k] [Mr ; Mi][k, c] ----
+  // The (pass, chunk) steps run as one sequence: chunk kc of pass p holds
+  // rows kc * kKC.. of [Mr ; Mi] for output columns p * kCols.., M^T's hi
+  // and lo core matrices, in ring slot (step % kM), copied kM - 1 steps
+  // ahead.
+  const int kw2 = 2 * wc_pad;
+  const int nkc = kw2 / kKC;
+  const int mcols = m_cols(vw);
+  const int steps = mcols / kCols * nkc;
+  constexpr int kM = Stage<ROWS>::kM;
+  float* m_st = stage;  // [kM][2][kCols / 8][kKC / 4][8][4]
+  auto issue_m = [&](int it) {
+    if (it < steps) {
+      const int p = it / nkc;
+      const int kc = it % nkc;
+      float* dst = m_st + (it % kM) * kMChunk;
 #pragma unroll
-    for (int a = 0; a < TR; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-
-    float mv[T::kPerM];
-    auto load_m = [&](int t) {
-      const float* mp = t < nchunk ? m_re : m_im;
-      const int v0 = (t % nchunk) * kKC;
-#pragma unroll
-      for (int q = 0; q < T::kPerM; ++q) {
-        const int e = tid + q * kThreads;
-        const int v = v0 + e / kCols;
-        const int col = c0 + e % kCols;
-        mv[q] = (v < wc && col < vw) ? mp[static_cast<long long>(v) * vw + col] : 0.f;
-      }
-    };
-    load_m(0);
-    for (int t = 0; t < 2 * nchunk; ++t) {
-      const float* xp = t < nchunk ? xr_t : xi_t;
-      const int v0 = (t % nchunk) * kKC;
-      // The first sync also orders the X^T writes above before the reads.
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < T::kPerM; ++q) m_s[tid + q * kThreads] = mv[q];
-      __syncthreads();
-      if (t + 1 < 2 * nchunk) load_m(t + 1);  // in flight during the FMAs
-#pragma unroll 8
-      for (int kk = 0; kk < kKC; ++kk) {
-        float x[TR];
-#pragma unroll
-        for (int q = 0; q < TR / 4; ++q) {
-          const float4 a = *reinterpret_cast<const float4*>(xp + (v0 + kk) * ROWS + rg * TR + 4 * q);
-          x[4 * q] = a.x; x[4 * q + 1] = a.y; x[4 * q + 2] = a.z; x[4 * q + 3] = a.w;
-        }
-        const float4 m4 = *reinterpret_cast<const float4*>(m_s + kk * kCols + cg * 4);
-        const float m[4] = {m4.x, m4.y, m4.z, m4.w};
-#pragma unroll
-        for (int a = 0; a < TR; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(x[a], m[c], acc[a][c]);
+      for (int q = 0; q < kMChunk / 4 / kThreads; ++q) {
+        const int e = tid + q * kThreads;  // (plane, n-group, k-core, row)
+        const int r = e & 7;
+        const int kcr = (e >> 3) % (kKC / 4);
+        const int ng = (e / (2 * kKC)) % (kCols / 8);
+        const int pl = e / (kMChunk / 8);
+        cp_async16(dst + ((pl * (kCols / 8) + ng) * (kKC / 4) + kcr) * kCore + 4 * r,
+                   m_tc + ((static_cast<long long>(pl) * (mcols / 8) + p * (kCols / 8) + ng) * (kw2 / 4) +
+                           kc * (kKC / 4) + kcr) * kCore + 4 * r);
       }
     }
-    epi.tile(acc, r0 + rg * TR, c0 + cg * 4);
+    cp_async_commit();  // an empty group past the last step keeps the count
+  };
+  Epi epi(out, cell_at, OutGeom{n, nbh, nbw, row_chunks, vh, vw, out_h, out_w});
+  __syncthreads();  // X is written and the H stage is done with the staging area
+  for (int it = 0; it < kM - 1; ++it) issue_m(it);
+  if constexpr (ROWS == 64) {
+    // wgmma: each warpgroup (warps 4 wg..) takes all 64 rows and 64 of a
+    // pass's columns; warp `rank` of it holds rows 16 rank.. .
+    const int wg = warp >> 2;
+    const int rank = warp & 3;
+    float acc[1][8][4];
+    for (int it = 0; it < steps; ++it) {
+      const int p = it / nkc;
+      const int kc = it % nkc;
+      if (kc == 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[0][j][i] = 0.f;
+      }
+      cp_async_wait<kM - 2>();
+      // this thread's copies are visible to the tensor cores' reads
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();  // this step's chunk landed; the last step's slot is free
+      issue_m(it + kM - 1);
+      if (p * kCols + wg * 64 < vw) {
+        const float* mb = m_st + (it % kM) * kMChunk + wg * 8 * (kKC / 4) * kCore;
+        // The chunk's products are summed on the tensor cores into t, then
+        // added to the pass's sums in IEEE fp32.
+        float t[8][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) t[j][i] = 0.f;
+        fence_regs(t);
+        // A: X at this warp's 16 rows, split here, double-buffered: the
+        // next k-step's fragments are split while this k-step's products
+        // run, into the buffer whose products are done (wait<1>); the
+        // fences keep the compiler from giving a buffer's registers to
+        // other values while the tensor cores may still read them.
+        uint32_t xh[2][4], xl[2][4];
+        auto frag = [&](int ks, int bf) {
+          uint32_t xa[4];
+          ldsm4(xa, x_s + rank * 16 * xs + kc * kKC + ks * 8 + a_lane(lane, xs));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split(__uint_as_float(xa[i]), xh[bf][i], xl[bf][i]);
+        };
+        frag(0, 0);
+#pragma unroll
+        for (int ks = 0; ks < kKC / 8; ++ks) {
+          const int bf = ks & 1;
+          const uint64_t dh = smem_desc(mb + 2 * ks * kCore, 4 * kCore, 4 * (kKC / 4) * kCore);
+          const uint64_t dl = dh + (kMChunk / 2 * 4 >> 4);  // the lo plane
+          wgmma_fence();
+          wgmma_tf32(t, xl[bf], dh);
+          wgmma_tf32(t, xh[bf], dl);
+          wgmma_tf32(t, xh[bf], dh);
+          wgmma_commit();
+          if (ks + 1 < kKC / 8) {
+            wgmma_wait<1>();
+            fence_regs(xh[bf ^ 1]);
+            fence_regs(xl[bf ^ 1]);
+            frag(ks + 1, bf ^ 1);
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(t);
+        fence_regs(xh[0]);
+        fence_regs(xl[0]);
+        fence_regs(xh[1]);
+        fence_regs(xl[1]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) add4(acc[0][j], t[j]);
+      }
+      if (kc == nkc - 1) epi.tile(acc, r0 + rank * 16 + g8, p * kCols + wg * 64 + 2 * t4);
+    }
+  } else {
+    // mma.sync (32 rows): 2 x 4 warps of 16 rows x 32 columns.
+    float acc[MT][4][4];
+    for (int it = 0; it < steps; ++it) {
+      const int p = it / nkc;
+      const int kc = it % nkc;
+      if (kc == 0) {
+#pragma unroll
+        for (int a = 0; a < MT; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
+      }
+      cp_async_wait<kM - 2>();
+      __syncthreads();  // this step's chunk landed; the last step's slot is free
+      issue_m(it + kM - 1);
+      if (p * kCols + wn * 32 < vw) {
+        const float* mb = m_st + (it % kM) * kMChunk + wn * 4 * (kKC / 4) * kCore + core_lane(lane);
+        const float* xb = x_s + wm * RW * xs + kc * kKC + a_lane(lane, xs);
+        float t[MT][4][4];
+#pragma unroll
+        for (int a = 0; a < MT; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) t[a][b][c] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < kKC / 8; ++ks) {
+          // B: M's hi and lo core matrices at the warp's 4 n-tiles.
+          uint32_t mh[4][2], mlo[4][2];
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            uint32_t r[4];
+            const float* pm = mb + (2 * np * (kKC / 4) + 2 * ks) * kCore;
+            ldsm4(r, pm);
+            mh[2 * np][0] = r[0];
+            mh[2 * np][1] = r[1];
+            mh[2 * np + 1][0] = r[2];
+            mh[2 * np + 1][1] = r[3];
+            ldsm4(r, pm + kMChunk / 2);
+            mlo[2 * np][0] = r[0];
+            mlo[2 * np][1] = r[1];
+            mlo[2 * np + 1][0] = r[2];
+            mlo[2 * np + 1][1] = r[3];
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            // A: X at this m-tile's rows, split here (X is fp32 in shared memory).
+            uint32_t xa[4], xh[4], xl[4];
+            ldsm4(xa, xb + mt * 16 * xs + ks * 8);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) split(__uint_as_float(xa[i]), xh[i], xl[i]);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) mma3(t[mt][nt], xh, xl, mh[nt], mlo[nt]);
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < MT; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) add4(acc[a][b], t[a][b]);
+      }
+      if (kc == nkc - 1) epi.tile(acc, r0 + wm * RW + g8, p * kCols + wn * 32 + 2 * t4);
+    }
   }
   epi.finish(stage);
 }
 
-template <class TS, int ROWS, int TR, int MIN_BLOCKS, bool STACKED, class Epi>
-int launch(const TS* d_re, const TS* d_im, const TS* k_re,
-           const TS* k_im, const float* gt_re, const float* gt_im,
-           const float* m_re, const float* m_im, typename Epi::Out out, int b,
-           int nbh, int nbw, int f, int n, int lh, int wc, int vh, int vw,
-           int out_h, int out_w, int ktile, cudaStream_t stream) {
+template <class TS, int ROWS, bool STACKED, class Epi>
+int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
+           const float* gt_re, const float* gt_im, const float* g_pad,
+           const float* m_tc, typename Epi::Out out, int b, int nbh, int nbw,
+           int f, int n, int lh, int wc, int vh, int vw, int out_h, int out_w,
+           int ktile, cudaStream_t stream) {
   const int group = STACKED ? blocks_per_cta(wc, vh) : 1;
-  const long long smem = STACKED ? stacked_smem_bytes(wc, group) : tile_smem_bytes<ROWS, TR>(wc);
+  const long long smem = STACKED ? stacked_smem_bytes(wc, group) : tile_smem_bytes<ROWS>(wc);
   const int row_chunks = STACKED ? 1 : (vh + ROWS - 1) / ROWS;
   const Ring ring = STACKED ? stacked_ring<TS>(wc, group) : Ring{0, 0, 0};
   // stacked: b images x tiles of ktile kernels x block groups
@@ -826,27 +1284,30 @@ int launch(const TS* d_re, const TS* d_im, const TS* k_re,
                     ((static_cast<long long>(nbh) * nbw + group - 1) / group)
               : static_cast<long long>(b) * nbh * nbw * row_chunks * n;
   if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  auto kernel = block_conv_kernel<TS, ROWS, TR, MIN_BLOCKS, STACKED, Epi>;
+  auto kernel = block_conv_kernel<TS, ROWS, STACKED, Epi>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(smem), stream>>>(
-      d_re, d_im, k_re, k_im, gt_re, gt_im, m_re, m_im, out, nbh, nbw, f, n,
-      lh, wc, vh, vw, out_h, out_w, row_chunks, STACKED ? stacked_bins(wc) : padded_bins(wc),
-      group, ring.channels, ring.stages, ktile);
+      d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc, out, nbh, nbw, f, n,
+      lh, wc, vh, vw, out_h, out_w, row_chunks, group, ring.channels, ring.stages, ktile);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Checks the geometry and launches the configuration for (wc, vh) on
-// `stream`; does not synchronise. `ktile` (1..n), the kernels a launch
-// tile of the stacked configuration holds, is its launch order (n: the
-// kernel index fastest); the others run the kernel index fastest. Epi is the epilogue class template.
-// Returns cudaGetLastError() after the launch (0 = launched), or the error
-// that stopped it.
+// `stream`; does not synchronise. gt_re, gt_im: G^T (Lh, Vh), exact; g_pad:
+// G (2, g_rows(vh), g_cols(lh)) = re, im; m_tc: M^T (m_cols(vw),
+// 2 padded_bins(wc)), row c holding column c of [Mr ; Mi] (Mi from
+// k = padded_bins(wc) on); all exact fp32, zeros wherever the padding
+// reaches. `ktile` (1..n), the kernels a
+// launch tile of the stacked configuration holds, is its launch order (n:
+// the kernel index fastest); the others run the kernel index fastest. Epi
+// is the epilogue class template. Returns cudaGetLastError() after the
+// launch (0 = launched), or the error that stopped it.
 template <class TS, template <bool> class Epi>
 int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
                       const TS* k_im, const float* gt_re, const float* gt_im,
-                      const float* m_re, const float* m_im,
+                      const float* g_pad, const float* m_tc,
                       typename Epi<false>::Out out, int b, int nbh, int nbw,
                       int f, int n, int lh, int wc, int vh, int vw, int out_h,
                       int out_w, int ktile, void* stream) {
@@ -856,16 +1317,16 @@ int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (blocks_per_cta(wc, vh) > 1)
-    return launch<TS, 64, 8, 1, true, Epi<true>>(d_re, d_im, k_re, k_im, gt_re, gt_im,
-                                                 m_re, m_im, out, b, nbh, nbw, f, n, lh,
-                                                 wc, vh, vw, out_h, out_w, ktile, s);
+    return launch<TS, 64, true, Epi<true>>(d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc,
+                                           out, b, nbh, nbw, f, n, lh, wc, vh, vw, out_h,
+                                           out_w, ktile, s);
   if (wide(wc))
-    return launch<TS, 32, 4, 2, false, Epi<false>>(d_re, d_im, k_re, k_im, gt_re, gt_im,
-                                                   m_re, m_im, out, b, nbh, nbw, f, n, lh,
-                                                   wc, vh, vw, out_h, out_w, ktile, s);
-  return launch<TS, 64, 8, 1, false, Epi<false>>(d_re, d_im, k_re, k_im, gt_re, gt_im,
-                                                 m_re, m_im, out, b, nbh, nbw, f, n, lh,
-                                                 wc, vh, vw, out_h, out_w, ktile, s);
+    return launch<TS, 32, false, Epi<false>>(d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc,
+                                             out, b, nbh, nbw, f, n, lh, wc, vh, vw, out_h,
+                                             out_w, ktile, s);
+  return launch<TS, 64, false, Epi<false>>(d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc,
+                                           out, b, nbh, nbw, f, n, lh, wc, vh, vw, out_h,
+                                           out_w, ktile, s);
 }
 
 }  // namespace

@@ -12,17 +12,18 @@
 // reports -inf at its first (out-of-range) position, as _peaks_reducer does.
 //
 // What bounds it: the maps kernel's arithmetic (~0.71 TFLOP at the headline
-// plan), without its 1.68 GB write of the maps; it writes 8 bytes per CTA.
-// Design: each thread keeps a running (max, index) over its TR x 4
-// accumulators across the column passes; at the end the CTA reduces them
-// with warp shuffles and one shared-memory round. A cell taller than the
-// CTA's ROWS is split across CTAs by row chunk, and each writes one pair:
-// the output is the partial pyramid (B, N, nbh, row_chunks, nbw), which the
-// wrapper (ops/block_conv.py block_conv_peaks) reduces over row chunks with
-// the same rule. A stacked CTA (short windows, block_conv.cuh) holds up to
-// 16 blocks, whose rows a thread's tile may straddle: each thread keeps a
-// (max, index) per tile row, and finish() reduces them per stacked row
-// over the column groups, then per block over its vh rows, in shared
+// plan, 3xTF32 on the tensor cores), without its 1.68 GB write of the maps;
+// it writes 8 bytes per CTA. Design: each thread keeps a running (max,
+// index) over its W-stage accumulators (block_conv.cuh's mma fragments)
+// across the column passes; at the end the CTA reduces them with warp
+// shuffles and one shared-memory round. A cell taller than the CTA's ROWS
+// is split across CTAs by row chunk, and each writes one pair: the output
+// is the partial pyramid (B, N, nbh, row_chunks, nbw), which the wrapper
+// (ops/block_conv.py block_conv_peaks) reduces over row chunks with the
+// same rule. A stacked CTA (short windows, block_conv.cuh) holds up to 16
+// blocks, whose rows a thread's fragments may straddle: each thread keeps a
+// (max, index) per fragment row, and finish() reduces them per stacked row
+// over its 8 column groups, then per block over its vh rows, in shared
 // memory, and writes one pair per block (row_chunks = 1).
 
 #include <cmath>
@@ -43,6 +44,10 @@ struct PeaksOut {
   int* idxs;
 };
 
+// A stacked thread's W-stage rows (two of its warp's 16), and the column
+// groups of a stacked row (2 warpgroups x 4 lanes).
+constexpr int kRows = 2, kGroups = 8;
+
 template <bool STACKED>
 struct ReducePeaks {
   using Out = PeaksOut;
@@ -52,11 +57,13 @@ struct ReducePeaks {
   float best;
   int best_i;
   // Stacked: the group (first block's pyramid base, blocks), and a running
-  // (max, index) per tile row of this thread, rows rrow.., column group rcg.
+  // (max, index) for each of this thread's kRows rows (rrow + 8 a, of its
+  // warp's 16 in the wgmma layout) over its column group rcg (kGroups a
+  // row).
   long long base;
   int nbw, blk0, count, rrow, rcg;
-  float rb[8];
-  int ri[8];
+  float rb[kRows];
+  int ri[kRows];
 
   __device__ ReducePeaks(Out o, const Cell& c, const OutGeom& g)
       : out(o),
@@ -67,7 +74,7 @@ struct ReducePeaks {
         nbw(g.nbw), blk0(c.bi * g.nbw + c.bj), count(c.count), rrow(0), rcg(0) {
     if constexpr (STACKED) {
 #pragma unroll
-      for (int a = 0; a < 8; ++a) {
+      for (int a = 0; a < kRows; ++a) {
         rb[a] = -INFINITY;
         ri[a] = INT_MAX;
       }
@@ -75,87 +82,94 @@ struct ReducePeaks {
   }
 
   __device__ void take(float v, int i) {
-    if (v > best || (v == best && i < best_i)) {
+    if (beats(v, i, best, best_i)) {
       best = v;
       best_i = i;
     }
   }
 
-  template <int TR>
-  __device__ void tile(const float (&acc)[TR][4], int row0, int col0) {
+  template <int MT, int NT>
+  __device__ void tile(const float (&acc)[MT][NT][4], int row0, int col0) {
     if constexpr (STACKED) {
-      static_assert(TR <= 8, "a stacked thread tile has at most 8 rows");
+      static_assert(MT == 1 && NT == 8, "a stacked thread holds 2 rows x 8 n-tiles (wgmma)");
       rrow = row0;
-      rcg = (col0 % 128) / 4;
+      rcg = ((col0 % 128) >> 6) * 4 + ((col0 >> 1) & 3);  // warpgroup, then lane
 #pragma unroll
-      for (int a = 0; a < TR; ++a) {
-        const int t = (row0 + a) / vh;
+      for (int a = 0; a < kRows; ++a) {
+        const int row = row0 + 8 * a;
+        const int t = row / vh;
         if (t >= count) continue;
         const int bi = (blk0 + t) / nbw;
-        const int gy = bi * vh + row0 + a - t * vh;
+        const int gy = bi * vh + row - t * vh;
         const int gxb = (blk0 + t - bi * nbw) * vw;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = col0 + c;
-          if (col >= vw) continue;
-          const int gx = gxb + col;
-          const float v = gy < out_h && gx < out_w ? acc[a][c] : -INFINITY;
-          const int i = gy * out_w + gx;
-          if (beats(v, i, rb[a], ri[a])) {
-            rb[a] = v;
-            ri[a] = i;
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int col = col0 + 8 * nt + j;
+            if (col >= vw) continue;
+            const int gx = gxb + col;
+            const float v = gy < out_h && gx < out_w ? acc[0][nt][2 * a + j] : -INFINITY;
+            const int i = gy * out_w + gx;
+            if (beats(v, i, rb[a], ri[a])) {
+              rb[a] = v;
+              ri[a] = i;
+            }
           }
-        }
       }
     } else {
 #pragma unroll
-      for (int a = 0; a < TR; ++a) {
-        const int row = row0 + a;
-        if (row >= vh) continue;
-        const int gy = gy0 + row;
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = col0 + c;
-          if (col >= vw) continue;
-          const int gx = gx0 + col;
-          take(gy < out_h && gx < out_w ? acc[a][c] : -INFINITY, gy * out_w + gx);
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 16 * mt + 8 * h;
+          if (row >= vh) continue;
+          const int gy = gy0 + row;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int col = col0 + 8 * nt + j;
+              if (col >= vw) continue;
+              const int gx = gx0 + col;
+              take(gy < out_h && gx < out_w ? acc[mt][nt][2 * h + j] : -INFINITY, gy * out_w + gx);
+            }
         }
-      }
     }
   }
 
   __device__ void finish(float* scratch) {
     if constexpr (STACKED) {
-      // Per stacked row: its 32 column groups; per block: its vh rows.
-      float* sv = scratch;                                // [64][32]
-      int* si = reinterpret_cast<int*>(scratch + 64 * 32);  // [64][32]
+      // Per stacked row: its kGroups column groups; per block: its vh rows.
+      float* sv = scratch;                                        // [64][kGroups]
+      int* si = reinterpret_cast<int*>(scratch + 64 * kGroups);  // [64][kGroups]
       __syncthreads();  // every thread is past its last read of the staging area
 #pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        sv[(rrow + a) * 32 + rcg] = rb[a];
-        si[(rrow + a) * 32 + rcg] = ri[a];
+      for (int a = 0; a < kRows; ++a) {
+        sv[(rrow + 8 * a) * kGroups + rcg] = rb[a];
+        si[(rrow + 8 * a) * kGroups + rcg] = ri[a];
       }
       __syncthreads();
       const int tid = threadIdx.x;
       if (tid < 64) {
-        float v = sv[tid * 32];
-        int i = si[tid * 32];
-        for (int k = 1; k < 32; ++k)
-          if (beats(sv[tid * 32 + k], si[tid * 32 + k], v, i)) {
-            v = sv[tid * 32 + k];
-            i = si[tid * 32 + k];
+        float v = sv[tid * kGroups];
+        int i = si[tid * kGroups];
+        for (int k = 1; k < kGroups; ++k)
+          if (beats(sv[tid * kGroups + k], si[tid * kGroups + k], v, i)) {
+            v = sv[tid * kGroups + k];
+            i = si[tid * kGroups + k];
           }
-        sv[tid * 32] = v;
-        si[tid * 32] = i;
+        sv[tid * kGroups] = v;
+        si[tid * kGroups] = i;
       }
       __syncthreads();
       if (tid < count) {
         float v = -INFINITY;
         int i = INT_MAX;
         for (int r = tid * vh; r < (tid + 1) * vh; ++r)
-          if (beats(sv[r * 32], si[r * 32], v, i)) {
-            v = sv[r * 32];
-            i = si[r * 32];
+          if (beats(sv[r * kGroups], si[r * kGroups], v, i)) {
+            v = sv[r * kGroups];
+            i = si[r * kGroups];
           }
         const int bi = (blk0 + tid) / nbw;
         const long long at = base + static_cast<long long>(bi) * nbw + (blk0 + tid - bi * nbw);
@@ -195,12 +209,12 @@ struct ReducePeaks {
 #define FFTCONV_PEAKS_ENTRY(NAME, TS)                                           \
   extern "C" int NAME(const TS* d_re, const TS* d_im, const TS* k_re,           \
                       const TS* k_im, const float* gt_re, const float* gt_im,   \
-                      const float* m_re, const float* m_im, float* vals,        \
+                      const float* g_pad, const float* m_tc, float* vals,       \
                       int* idxs, int b, int nbh, int nbw, int f, int n, int lh, \
                       int wc, int vh, int vw, int out_h, int out_w, int ktile,  \
                       void* stream) {                                           \
     return launch_block_conv<TS, ReducePeaks>(                                 \
-        d_re, d_im, k_re, k_im, gt_re, gt_im, m_re, m_im,                      \
+        d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc,                     \
         PeaksOut{vals, idxs}, b, nbh, nbw, f, n, lh, wc, vh,    \
         vw, out_h, out_w, ktile, stream);                                      \
   }

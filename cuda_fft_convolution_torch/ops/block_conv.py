@@ -47,23 +47,39 @@ import torch.nn.functional as F
 from cuda_fft_convolution_torch.ops.dft import _inv_full_mats, _inv_packed_mats
 from cuda_fft_convolution_torch.utils.errors import InvalidInputError, validate
 
-# Mirrors csrc/block_conv.cuh's configuration rule. A CTA holds X^T for 64
-# rows (32 where that does not fit) over the packed bins padded to 128, plus
-# a staging area, within Hopper's 227 KB (232,448 B) per-block
-# shared-memory limit. For windows of at most 32 rows it stacks
+# Mirrors csrc/block_conv.cuh's configuration rule. A CTA holds X, 64 rows
+# (32 where that does not fit) × [Xr | Xi] over the packed bins padded to 32
+# (a row stride of 2·bins + 4 floats), plus a staging area, within Hopper's
+# 227 KB (232,448 B) per-block shared-memory limit. The staging area is the
+# larger of the H stage's (S^T, 128 bins, and a G chunk, as TF32 hi and lo
+# planes of 16 spectrum rows, with −Gi's at 64 rows: 14,336 floats for 64
+# rows, 12,800 for 32 rows padded to 20 floats) and the W stage's (a ring of
+# two 32-row chunks of [Mr ; Mi] as M^T's TF32 hi and lo planes, 128 columns
+# each: 16,384 floats). For windows of at most 32 rows it stacks
 # g = min(64 // vh, 16) blocks of one (image, kernel) in 64 rows, where
-# that fits: its X^T covers the bins padded to 32, its staging is S and
-# G^T (5120 floats), and its ring holds 2 to 8 steps (as many as the limit
+# that fits: after X, the larger of the W stage's buffers and S and G^T
+# (5120 floats) followed by a ring of 2 to 8 steps (as many as the limit
 # leaves room for) of 4, 2 or 1 channels (the most that leave room for 2
 # steps) × 2·(g + 1)·(16 // g) row segments, each the 16-byte chunks that
 # can hold min(wc, 128) fp32 values. bf16 spectra fill the same bytes with
 # up to 8 channels a step.
 SMEM_LIMIT_BYTES = 232448
 _COLS = 128
+_KB = 32
+_UK = 16
+_GS = _UK + 4
+_KC = 32  # rows of [Mr ; Mi] per W-stage chunk
+_STAGE_W = 2 * 2 * _COLS * _KC
 _MAX_GROUP = 16
 _STACK_ROWS = 16
 _STACK_STAGE = 2 * _STACK_ROWS * _COLS + 2 * 8 * 64
 _MIN_STEPS, _MAX_STEPS = 2, 8
+
+
+def _x_bytes(wc: int, rows: int) -> int:
+    """Shared memory of X: ``rows`` rows of [Xr | Xi] over the bins padded
+    to 32, and 4 floats of padding."""
+    return 4 * rows * (2 * (-(-wc // _KB) * _KB) + 4)
 
 
 # Spectra dtype → the kernel-entry tag; maps dtype → the entry suffix.
@@ -75,15 +91,15 @@ def _stack(wc: int, blocks: int) -> tuple[int, int]:
     """(ring steps, shared-memory bytes) of a ``blocks``-block stack at
     packed width ``wc``, with the most channels a step (4, 2, 1) that leave
     room for 2 steps; (0, 0) where even 1 does not."""
-    bins = -(-wc // 32) * 32
-    segment = 4 * ((4 * min(wc, _COLS) + 11) // 16 + 1)
+    segment = 16 * ((4 * min(wc, _COLS) + 11) // 16 + 1)
     per_channel = 2 * (blocks + 1) * (_STACK_ROWS // blocks) * segment
-    left = SMEM_LIMIT_BYTES // 4 - 2 * bins * 64 - _STACK_STAGE
+    x = _x_bytes(wc, 64)
+    left = SMEM_LIMIT_BYTES - x - 4 * _STACK_STAGE
     for channels in (4, 2, 1):
         steps = min(max(left, 0) // (channels * per_channel), _MAX_STEPS)
         if steps >= _MIN_STEPS:
             ring = steps * channels * per_channel
-            return steps, (2 * bins * 64 + _STACK_STAGE + ring) * 4
+            return steps, x + max(4 * _STACK_STAGE + ring, 4 * _STAGE_W)
     return 0, 0
 
 
@@ -92,17 +108,23 @@ def _tile_smem_bytes(wc: int, rows: int, blocks: int = 1) -> int:
     ``blocks`` blocks at packed width ``wc``."""
     if blocks > 1:
         return _stack(wc, blocks)[1]
-    wc_pad = -(-wc // _COLS) * _COLS
-    stage = max(2 * 16 * _COLS + 2 * 16 * rows, 32 * _COLS)
-    return (2 * wc_pad * rows + stage) * 4
+    if rows == 64:  # S^T and G (with -Gi) unpadded, for wgmma
+        stage_h = 4 * _COLS * _UK + 6 * rows * _UK
+    else:
+        stage_h = 4 * _COLS * _GS + 4 * rows * _GS
+    return _x_bytes(wc, rows) + 4 * max(stage_h, _STAGE_W)
 
 
 def blocks_per_cta(wc: int, vh: int) -> int:
     """Blocks one CTA stacks at packed width ``wc`` and window height
     ``vh``: min(64 // vh, 16) for windows of at most 32 rows where that
-    configuration fits with a ring of 2 steps or more, else 1."""
+    configuration fits with a ring of 2 steps or more beside the W stage's
+    buffers, else 1."""
     g = min(64 // vh, _MAX_GROUP) if vh <= 32 else 1
-    return g if g > 1 and _stack(wc, g)[0] >= _MIN_STEPS else 1
+    if g == 1:
+        return 1
+    steps, smem = _stack(wc, g)
+    return g if steps >= _MIN_STEPS and smem <= SMEM_LIMIT_BYTES else 1
 
 
 def tile_rows(wc: int, vh: int) -> int:
@@ -298,7 +320,7 @@ def block_conv(
     from cuda_fft_convolution_torch._build import library
 
     lib = library()
-    gt_re, gt_im, mr, mi = _kernel_mats(block_h, block_w, kh, kw, str(dev))
+    gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev))
     mode = f"block_conv_{tag}{_MAPS_SUFFIX[out_dtype]}"
     ktile = kernel_tile(wc, vh, kr)
     out = torch.empty((b, n, out_h, out_w), dtype=out_dtype, device=dev)
@@ -306,7 +328,7 @@ def block_conv(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"fftconv_{mode}")(
             dr.data_ptr(), di.data_ptr(), kr.data_ptr(), ki.data_ptr(),
-            gt_re.data_ptr(), gt_im.data_ptr(), mr.data_ptr(), mi.data_ptr(),
+            gt_re.data_ptr(), gt_im.data_ptr(), g_pad.data_ptr(), m_tc.data_ptr(),
             out.data_ptr(),
             b, nbh, nbw, f, n, lh, wc, vh, vw, out_h, out_w, ktile, stream,
         )
@@ -320,12 +342,39 @@ block_conv.launches = 0
 block_conv.launches_by_mode = collections.Counter()
 
 
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it (to
+    nearest, ties away from zero), with the kernels' two integer operations
+    (csrc/block_conv.cuh tf32)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
 @functools.lru_cache(maxsize=16)
 def _kernel_mats(block_h: int, block_w: int, kh: int, kw: int, device: str):
-    """The kernel's matrix operands: G^T (Lh, Vh) contiguous — it stages G
-    by spectrum rows — and M as in ``_window_mats``."""
+    """The kernels' matrix operands (csrc/block_conv.cuh launch_block_conv)
+    → (gt_re, gt_im, g_pad, m_tc): G^T (Lh, Vh), re and im, exact — the
+    block-stacked configuration's fp32 H stage stages G by spectrum rows;
+    G (2, Vh padded to 64, Lh padded to 16) = re, im, exact — the
+    tensor-core H stage's A operand, split in the kernel as it is staged;
+    and M^T's TF32 hi and lo planes in core matrices, the W stage's B
+    operand, which wgmma reads from shared memory as it is: M^T is (Vw
+    padded to 128, 2·Wc'), Wc' = Wc padded to 32, row c holding column c of
+    [Mr ; Mi] (Mr at k < Wc, Mi from k = Wc'); hi = tf32(M^T), lo =
+    tf32(M^T − hi); m_tc[p, c // 8, k // 4, c % 8, k % 4] is plane p (hi,
+    lo) at (c, k), 8 columns × 4 k of 128 contiguous bytes a core matrix.
+    Zeros fill every padding."""
     gr, gi, mr, mi = _window_mats(block_h, block_w, kh, kw, device)
-    return gr.t().contiguous(), gi.t().contiguous(), mr, mi
+    (vh, lh), (wc, vw) = gr.shape, mr.shape
+    g_pad = torch.zeros((2, -(-vh // 64) * 64, -(-lh // _UK) * _UK), device=device)
+    g_pad[0, :vh, :lh], g_pad[1, :vh, :lh] = gr, gi
+    bins = -(-wc // _KB) * _KB
+    cols = -(-vw // _COLS) * _COLS
+    m_t = torch.zeros((cols, 2 * bins), device=device)
+    m_t[:vw, :wc], m_t[:vw, bins : bins + wc] = mr.t(), mi.t()
+    hi = tf32(m_t)
+    planes = torch.stack([hi, tf32(m_t - hi)])
+    m_tc = planes.reshape(2, cols // 8, 8, bins // 2, 4).permute(0, 1, 3, 2, 4).contiguous()
+    return gr.t().contiguous(), gi.t().contiguous(), g_pad, m_tc
 
 
 def _check_index_range(nbh: int, nbw: int, vh: int, vw: int, out_w: int) -> None:
@@ -429,7 +478,7 @@ def block_conv_peaks(
     from cuda_fft_convolution_torch._build import library
 
     lib = library()
-    gt_re, gt_im, mr, mi = _kernel_mats(block_h, block_w, kh, kw, str(dev))
+    gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev))
     chunks = row_chunks(wc, vh)
     ktile = kernel_tile(wc, vh, kr)
     shape = (b, n, nbh, chunks, nbw)
@@ -440,7 +489,7 @@ def block_conv_peaks(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"fftconv_{mode}")(
             dr.data_ptr(), di.data_ptr(), kr.data_ptr(), ki.data_ptr(),
-            gt_re.data_ptr(), gt_im.data_ptr(), mr.data_ptr(), mi.data_ptr(),
+            gt_re.data_ptr(), gt_im.data_ptr(), g_pad.data_ptr(), m_tc.data_ptr(),
             vals.data_ptr(), idxs.data_ptr(),
             b, nbh, nbw, f, n, lh, wc, vh, vw, out_h, out_w, ktile, stream,
         )

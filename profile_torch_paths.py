@@ -19,12 +19,12 @@ kernels with the most self device time.
     python3 profile_torch_paths.py --ab-parent PARENT/cuda_fft_convolution_torch/csrc
 
 instead builds the fused maps and peaks kernels of a parent checkout's
-``csrc`` (one whose C entries take no launch-order argument) beside this
-tree's and times both in turns — parent, this tree, this tree, parent,
-CUDA events, median of 7, each side a bare call of its C entry — at the
-headline plan (float32; the outputs must be bitwise equal) and at the DPM
+``csrc`` (one whose C entries take the launch-order argument and the
+fp32-FMA operands G^T, Mr, Mi) beside this tree's and times both in turns —
+parent, this tree, this tree, parent, CUDA events, median of 7, each side a
+bare call of its C entry — at the headline plan (float32) and at the DPM
 plan (bf16 spectra, and the same planes upcast to float32), printing how
-far the outputs differ.
+far the outputs differ and each side's error against the plain version.
 """
 
 from __future__ import annotations
@@ -103,15 +103,23 @@ def build_parent(csrc: pathlib.Path):
     for tag in ("f32", "bf16"):
         for name, pointers in ((f"fftconv_block_conv_{tag}", 9),
                                (f"fftconv_block_conv_peaks_{tag}", 10)):
-            getattr(lib, name).argtypes = [p] * pointers + [i] * 11 + [p]
+            getattr(lib, name).argtypes = [p] * pointers + [i] * 12 + [p]
             getattr(lib, name).restype = i
     return lib
 
 
-def bare_call(lib, ops, geom, peaks: bool, *order):
-    """The C entry of ``lib`` (the parent's, or this tree's with its launch
-    order in ``order``) on ``ops`` at ``geom``, with no wrapper around it
-    → maps (B, N, out_h, out_w), or the per-block (vals, idxs) of a
+def parent_mats(bh, bw, kh, kw, device):
+    """The parent's matrix operands: G^T (Lh, Vh), Mr and Mi (Wc, Vw), f32."""
+    from cuda_fft_convolution_torch.ops.block_conv import _window_mats
+
+    gr, gi, mr, mi = _window_mats(bh, bw, kh, kw, device)
+    return gr.t().contiguous(), gi.t().contiguous(), mr, mi
+
+
+def bare_call(lib, ops, geom, peaks: bool, order: int, parent: bool):
+    """The C entry of ``lib`` (the parent's, or this tree's) with launch
+    order ``order`` on ``ops`` at ``geom``, with no wrapper around it →
+    maps (B, N, out_h, out_w), or the per-block (vals, idxs) of a
     one-row-chunk geometry."""
     import torch
 
@@ -121,7 +129,7 @@ def bare_call(lib, ops, geom, peaks: bool, *order):
     n = ops[2].shape[0]
     bh, bw, kh, kw, out_h, out_w = geom
     vh, vw = bh - kh + 1, bw - kw + 1
-    mats = _kernel_mats(bh, bw, kh, kw, str(ops[0].device))
+    mats = (parent_mats if parent else _kernel_mats)(bh, bw, kh, kw, str(ops[0].device))
     tag = "bf16" if ops[0].dtype == torch.bfloat16 else "f32"
     if peaks:
         vals = torch.empty((b, n, nbh, 1, nbw), device=ops[0].device)
@@ -132,9 +140,10 @@ def bare_call(lib, ops, geom, peaks: bool, *order):
         name = f"fftconv_block_conv_{tag}"
     err = getattr(lib, name)(
         *(t.data_ptr() for t in (*ops, *mats, *outs)), b, nbh, nbw, f, n, lh, wc, vh, vw,
-        out_h, out_w, *order, torch.cuda.current_stream().cuda_stream)
+        out_h, out_w, order, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"the parent's {name} failed: cudaError {err}")
+        raise RuntimeError(f"{'the parent' if parent else 'this tree'}: {name} failed: "
+                           f"cudaError {err}")
     return (outs[0][:, :, :, 0], outs[1][:, :, :, 0]) if peaks else outs[0]
 
 
@@ -146,7 +155,11 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
 
     import cuda_fft_convolution_torch as fc
     from cuda_fft_convolution_torch import _build
-    from cuda_fft_convolution_torch.ops.block_conv import block_conv_reference, kernel_tile
+    from cuda_fft_convolution_torch.ops.block_conv import (
+        block_conv_peaks_reference,
+        block_conv_reference,
+        kernel_tile,
+    )
 
     lib = build_parent(csrc)
     this = _build.library()
@@ -156,8 +169,8 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
         the timing holds no wrapper's host time."""
         wc, vh = ops[0].shape[-1], geom[0] - geom[2] + 1
         order = kernel_tile(wc, vh, ops[2])
-        return (lambda: bare_call(lib, ops, geom, peaks),
-                lambda: bare_call(this, ops, geom, peaks, order))
+        return (lambda: bare_call(lib, ops, geom, peaks, order, True),
+                lambda: bare_call(this, ops, geom, peaks, order, False))
 
     def turns(label, parent, new, runs=chip_smoke.RUNS):
         t = [chip_smoke.cuda_ms(f, runs) for f in (parent, new, new, parent)]
@@ -165,16 +178,20 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
               f"{t[2]:.3f}, parent {t[3]:.3f} ms")
         torch.cuda.empty_cache()
 
-    def compare(label, parent, new, peaks):
+    def compare(label, parent, new, peaks, ops, geom):
         a, b = parent(), new()
+        want = (block_conv_peaks_reference if peaks else block_conv_reference)(*ops, *geom)
         torch.cuda.synchronize()
+        flips = ""
         if peaks:
-            rel = float((a[0] - b[0]).abs().max() / a[0].abs().max())
-            print(f"{label}: values rel {rel:.3e}, index flips {int((a[1] != b[1]).sum())} "
-                  f"of {a[1].numel()}, bitwise equal {torch.equal(a[0], b[0])}")
-        else:
-            rel = float((a - b).abs().max() / a.abs().max())
-            print(f"{label}: rel {rel:.3e}, bitwise equal {torch.equal(a, b)}")
+            flips = f", index flips {int((a[1] != b[1]).sum())} of {a[1].numel()}"
+            a, b, want = a[0], b[0], want[0]
+        rel = float((a - b).abs().max() / a.abs().max())
+        print(f"{label}: parent vs this tree rel {rel:.3e}{flips}, bitwise equal "
+              f"{torch.equal(a, b)}; vs the plain version: parent "
+              f"{chip_smoke.rel_err(a, want):.3e}, this tree {chip_smoke.rel_err(b, want):.3e}")
+        del a, b, want
+        torch.cuda.empty_cache()
 
     rng = np.random.default_rng(seed)
     s, n, k = chip_smoke.HEADLINE["size"], chip_smoke.HEADLINE["n"], chip_smoke.HEADLINE["k"]
@@ -186,7 +203,7 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
     ops = (spec.re[None], spec.im[None], sk.re, sk.im)
     for peaks in (False, True):
         label = f"headline plan, f32 {'peaks' if peaks else 'maps'}"
-        compare(label, *calls(ops, geom, peaks), peaks)
+        compare(label, *calls(ops, geom, peaks), peaks, ops, geom)
         turns(label, *calls(ops, geom, peaks))
     del spec, sk, ops
     torch.cuda.empty_cache()
@@ -200,7 +217,7 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
     for peaks in (False, True):
         ops = (sd.re[None], sd.im[None], sks[peaks].re, sks[peaks].im)
         label = f"DPM plan, bf16 spectra, {'peaks' if peaks else 'f32 maps'}"
-        compare(label, *calls(ops, geom, peaks), peaks)
+        compare(label, *calls(ops, geom, peaks), peaks, ops, geom)
         turns(label, *calls(ops, geom, peaks))
     ops = (sd.re[None], sd.im[None], sks[0].re, sks[0].im)
     print(f"DPM plan, plain version of the maps kernel: "

@@ -86,6 +86,54 @@ def test_block_conv_reference_matches_jax_v5(rng):
     assert _rel(got.numpy(), want) <= TOL
 
 
+# A geometry that both of the JAX package's radix legality rules admit, at
+# a small size: blocks 32 × 512, Vh 24, Vw 384 (radix_h_legal: Lh/2 = 16 and
+# Lh − Vh = 8 are 8-aligned; radix_w_legal: W a multiple of 512, the
+# halves-split store boundary W/2 − (kw − 1) = 128 on a lane-tile edge).
+RADIX_GEOM = (32, 512, 9, 129, 40, 500)
+BF16_TOL = 2e-2  # the bf16 tier: JAX's BF16IO dots against the port's fp32 arithmetic
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_conv_reference_matches_jax_v5x(rng, dtype):
+    """The v5x body (``xsliver=True``: the v5 body with the Nyquist sliver
+    synthesized outside the kernel, the JAX tier's F=1 registration), at
+    f32 and at BF16IO (bf16 planes): the port's plain version on the same
+    planes, within TOL at f32 and the tier bar at bf16."""
+    bh, bw, kh, kw, out_h, out_w = RADIX_GEOM
+    assert radix_h_legal(bh, bh - kh + 1) and radix_w_legal(bw, kw, bw - kw + 1)
+    ops = _operands(rng, 1, 1, 2, *RADIX_GEOM)
+    jops = [jnp.asarray(x).astype(dtype) for x in ops]
+    want = block_conv_pallas(*jops, *RADIX_GEOM, interpret=True, radix_h=True,
+                             radix_w=True, xsliver=True)
+    tops = [t.to(getattr(torch, dtype)) for t in _torch(*ops)]
+    got = tbc.block_conv_reference(*tops, *RADIX_GEOM)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    assert _rel(got.numpy(), np.asarray(want, np.float32)) <= (
+        TOL if dtype == "float32" else BF16_TOL)
+
+
+@pytest.mark.parametrize(
+    "b,f,n,bh,bw,kh,kw,out_h,out_w",
+    [
+        (1, 2, 3, 45, 151, 10, 24, 100, 300),
+        (2, 1, 2, 32, 288, 17, 33, 40, 300),
+    ],
+)
+def test_block_conv_reference_matches_jax_v2(rng, b, f, n, bh, bw, kh, kw, out_h, out_w):
+    """The v2 body (``wstack=False``: a column-stacked H stage and per-block
+    W dots), which only an explicit flag reaches: the port's plain version
+    reproduces it."""
+    ops = _operands(rng, b, f, n, bh, bw, kh, kw, out_h, out_w)
+    want = block_conv_pallas(
+        *map(jnp.asarray, ops), bh, bw, kh, kw, out_h, out_w,
+        interpret=True, wstack=False, radix_h=False,
+    )
+    got = tbc.block_conv_reference(*_torch(*ops), bh, bw, kh, kw, out_h, out_w)
+    assert tuple(got.shape) == want.shape
+    assert _rel(got.numpy(), want) <= TOL
+
+
 def test_block_conv_cpu_runs_plain_version(rng):
     ops = _torch(*_operands(rng, 1, 2, 3, 45, 151, 10, 24, 100, 300))
     before = tbc.block_conv.launches
@@ -116,26 +164,35 @@ def test_block_conv_validates_geometry(rng):
 
 
 def test_smem_model_matches_kernel_constants():
-    # 64-row tiles: 2 planes × 64 rows × bins padded to 128 + 6144 staging
-    # floats — 155,648 B at the headline width (Wc = 224, Vh = 64), the
-    # figure the compiled kernel reports. Past Wc = 384 the 32-row tiles
-    # take over (5120 staging floats); JAX's largest block (1024) still fits.
-    assert tbc.smem_bytes(224, 64) == 155648
-    assert tbc.smem_bytes(384, 64) == (2 * 384 * 64 + 6144) * 4
-    assert tbc.smem_bytes(449, 64) == (2 * 512 * 32 + 5120) * 4
+    # 64-row tiles: X (64 rows of [Xr | Xi] over the bins padded to 32, plus
+    # 4 floats) and the W stage's ring (two 32-row chunks of M^T's TF32 hi
+    # and lo planes, 128 columns each: 16,384 floats) — 181,248 B at the
+    # headline width (Wc = 224, Vh = 64). Past Wc = 320 the 32-row tiles
+    # take over; JAX's largest block (1024) still fits.
+    assert tbc.smem_bytes(224, 64) == (64 * (2 * 224 + 4) + 16384) * 4 == 181248
+    assert tbc.smem_bytes(320, 64) == (64 * (2 * 320 + 4) + 16384) * 4
+    assert tbc.smem_bytes(321, 64) == (32 * (2 * 352 + 4) + 16384) * 4
+    assert tbc.smem_bytes(449, 64) == (32 * (2 * 480 + 4) + 16384) * 4
     assert tbc.smem_bytes(1024 // 2 + 1, 64) <= tbc.SMEM_LIMIT_BYTES
     assert tbc.smem_bytes(2048 // 2 + 1, 64) > tbc.SMEM_LIMIT_BYTES
 
 
 def _stacked_smem(wc, g, channels, steps):
-    """X^T for 64 rows over the bins padded to 32, S and G^T (5120
-    floats), and a ring of ``steps`` steps of ``channels`` channels ×
-    2·(g + 1)·(16 // g) row segments, each the 16-byte chunks that can hold
-    min(wc, 128) fp32 values."""
+    """X for 64 rows (the bins padded to 32, twice, plus 4 floats a row),
+    then the larger of the W stage's 16,384 staging floats and S and G^T
+    (5120 floats) followed by a ring of ``steps`` steps of ``channels``
+    channels × 2·(g + 1)·(16 // g) row segments, each the 16-byte chunks
+    that can hold min(wc, 128) fp32 values."""
     bins = -(-wc // 32) * 32
     segment = 4 * ((4 * min(wc, 128) + 11) // 16 + 1)
     ring = steps * channels * 2 * (g + 1) * (16 // g) * segment
-    return (2 * bins * 64 + 5120 + ring) * 4
+    return (64 * (2 * bins + 4) + max(5120 + ring, 16384)) * 4
+
+
+def _one_block_smem(wc, rows):
+    """X, then the W stage's ring of two chunks (16,384 floats), larger than
+    the H stage's staging (S^T and G, 14,336 floats at 64 rows)."""
+    return (rows * (2 * (-(-wc // 32) * 32) + 4) + 16384) * 4
 
 
 @pytest.mark.parametrize(
@@ -152,19 +209,29 @@ def _stacked_smem(wc, g, channels, steps):
         (70, 32, 2, 64, _stacked_smem(70, 2, 4, 2), 1),
         (129, 32, 2, 64, _stacked_smem(129, 2, 2, 2), 1),
         (256, 32, 2, 64, _stacked_smem(256, 2, 1, 3), 1),
-        # two column passes of 4 blocks (Wc 224, Vh 16)
+        # two column passes of 4 blocks (Wc 160, 224; Vh 16)
+        (160, 16, 4, 64, _stacked_smem(160, 4, 2, 3), 1),
         (224, 16, 4, 64, _stacked_smem(224, 4, 2, 2), 1),
-        # Wc 384: no room for the ring; one block of 64 rows
-        (384, 16, 1, 64, (2 * 384 * 64 + 6144) * 4, 1),
-        # Vh = 33 keeps the one-block 64-row configuration
-        (70, 33, 1, 64, (2 * 128 * 64 + 6144) * 4, 1),
-        # the headline (Wc 224, Vh 64): today's 155,648 B, one block
-        (224, 64, 1, 64, 155648, 1),
         # Wc 257: three column passes, one channel a ring step
         (257, 16, 4, 64, _stacked_smem(257, 4, 1, 3), 1),
+        # Wc 320: a ring of two 1-channel steps beside X; Wc 384: no ring
+        # fits, nor X for 64 rows beside the W stage: one block of 32 rows
+        (320, 16, 4, 64, _stacked_smem(320, 4, 1, 2), 1),
+        (384, 16, 1, 32, _one_block_smem(384, 32), 1),
+        # Vh = 33 keeps the one-block 64-row configuration
+        (70, 33, 1, 64, _one_block_smem(70, 64), 1),
+        # the headline (Wc 224, Vh 64): 181,248 B, one block
+        (224, 64, 1, 64, 181248, 1),
+        # Wc 320, the widest 64-row block; Wc 321 takes 32 rows, 2 row chunks
+        (288, 64, 1, 64, _one_block_smem(288, 64), 1),
+        (289, 64, 1, 64, _one_block_smem(289, 64), 1),
+        (320, 64, 1, 64, _one_block_smem(320, 64), 1),
+        (321, 64, 1, 32, _one_block_smem(321, 32), 2),
         # Wc 449: 32-row tiles, one block, two row chunks at Vh 64
-        (449, 16, 1, 32, (2 * 512 * 32 + 5120) * 4, 1),
-        (449, 64, 1, 32, (2 * 512 * 32 + 5120) * 4, 2),
+        (449, 16, 1, 32, _one_block_smem(449, 32), 1),
+        (449, 64, 1, 32, _one_block_smem(449, 32), 2),
+        # the 1024 block (Wc 513, Vh 961): 31 row chunks of 32
+        (513, 961, 1, 32, _one_block_smem(513, 32), 31),
     ],
 )
 def test_configuration_mirror(wc, vh, blocks, rows, smem, chunks):

@@ -32,6 +32,7 @@ from cuda_fft_convolution_tpu.ops import tiled as jt
 from cuda_fft_convolution_tpu.ops.block_conv import (
     block_conv_peaks_pallas,
     radix_h_legal,
+    radix_w_legal,
 )
 
 TOL = 1e-5
@@ -64,10 +65,10 @@ def _torch(*xs):
     return [torch.as_tensor(np.asarray(x)) for x in xs]
 
 
-def _jax_pyramid(ops, geom, radix_h=False):
+def _jax_pyramid(ops, geom, radix_h=False, **variant):
     vals, idxs = block_conv_peaks_pallas(
         *map(jnp.asarray, ops), *geom, interpret=True, mbh=1, mbw=1,
-        radix_h=radix_h,
+        radix_h=radix_h, **variant,
     )
     return np.asarray(vals), np.asarray(idxs)
 
@@ -114,6 +115,23 @@ def test_block_conv_peaks_reference_matches_jax_v4(rng):
     geom = (bh, bw, kh, kw, out_h, out_w)
     want_v, want_i = _jax_pyramid(ops, geom, radix_h=True)
     got_v, got_i = tbc.block_conv_peaks_reference(*_torch(*ops), *geom)
+    assert _rel(got_v.numpy(), want_v) <= TOL
+    assert np.array_equal(got_i.numpy(), want_i)
+
+
+@pytest.mark.parametrize("xsliver", [False, True], ids=["v5", "v5x"])
+def test_block_conv_peaks_reference_matches_jax_v5(rng, xsliver):
+    """The v5 peaks body (``radix_w=True``: radix-2 H stage, radix-2 DIF W
+    stage, per-segment reduction) and the v5x one (``xsliver=True``: the
+    Nyquist sliver synthesized outside) at a geometry both radix rules
+    admit (blocks 32 × 512, Vh 24, Vw 384): the port's plain version gives
+    the same pyramid."""
+    bh, bw, kh, kw, out_h, out_w = geom = (32, 512, 9, 129, 40, 500)
+    assert radix_h_legal(bh, bh - kh + 1) and radix_w_legal(bw, kw, bw - kw + 1)
+    ops = _operands(rng, 1, 1, 2, bh, bw, kh, kw, out_h, out_w)
+    want_v, want_i = _jax_pyramid(ops, geom, radix_h=True, radix_w=True, xsliver=xsliver)
+    got_v, got_i = tbc.block_conv_peaks_reference(*_torch(*ops), *geom)
+    assert tuple(got_v.shape) == want_v.shape
     assert _rel(got_v.numpy(), want_v) <= TOL
     assert np.array_equal(got_i.numpy(), want_i)
 

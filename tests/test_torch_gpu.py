@@ -23,17 +23,23 @@ BF16_TOL = 2e-2  # the bf16 tier against float32 maps
 # Windows of at most 32 rows stack blocks in a CTA (ops/block_conv.py
 # blocks_per_cta): the DPM plan's blocks (Vh 16, Wc 70) at F = 31 with 15
 # blocks an image (a last group of 3 of 4) and clipped edges; Vh = 1 (16
-# blocks a CTA); Vh = 21 (3 blocks, thread tiles straddling two); Vh = 32.
+# blocks a CTA); Vh = 21 (3 blocks, thread tiles straddling two); Vh = 32;
+# Wc = 320, the widest stack (a ring of 1-channel steps).
 SHORT_WINDOWS = [
     (1, 31, 3, 27, 139, 12, 12, 70, 300),
     (2, 3, 5, 17, 151, 17, 24, 10, 300),
     (2, 3, 5, 45, 151, 25, 24, 100, 300),
     (1, 2, 3, 40, 151, 9, 24, 100, 300),
+    (1, 2, 3, 27, 639, 12, 40, 60, 1500),
 ]
 GEOMETRIES = [
     (2, 3, 5, 45, 151, 10, 24, 100, 300),
     (1, 1, 3, 127, 447, 64, 64, 2048, 2048),  # the headline plan
+    (1, 2, 3, 80, 601, 17, 50, 200, 1100),  # Wc = 301: the widest 64-row tiles
     (1, 2, 2, 40, 901, 9, 101, 150, 1700),  # Wc = 451: 32-row tiles, 2 row chunks
+    # the planner's largest block (Wc = 513, Vh = 961): 32-row tiles, 31 row
+    # chunks, the longest contractions the 3xTF32 syntheses see
+    (1, 1, 2, 1024, 1024, 64, 64, 1500, 1200),
     *SHORT_WINDOWS,
 ]
 
