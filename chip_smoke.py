@@ -63,7 +63,33 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      on 8 maps (2e-2); 8 filters planted in the features and found by
      ``detect_peaks`` at the tier; the blocks a CTA stacks there, its CTAs
      and the MFLOP per cell it issues (tensor-core and FMA) beside the useful
-     ones; the kernels against their plain versions at that plan, and times.
+     ones; the kernels against their plain versions at that plan, and times;
+ 13. the clamp headline: ``fft_conv(..., padding='clamp')`` on the headline
+     shape (the direct engine, the MAC kernel) at the scipy and the matlab
+     anchor, against an edge-padded float64 FFT reference on 8 maps (1e-5);
+ 14. the centered headline: ``kernel_layout='centered'`` on the same inputs,
+     against float64 (1e-5) and the corner call at the matlab offset (1e-6);
+ 15. the ragged cell array (BASELINE.json configs[1]): a 512² image with 4
+     kernels each of 9², 17², 33² and 64², mode 'same', bucketed by pow-2
+     envelope (the fused kernel once a bucket), every map against float64
+     (1e-5); ``detect_peaks`` on the cell array finds each planted kernel;
+ 16. the DPM giant bank on the direct engine (BASELINE.json configs[4]): the
+     first 576 DPM filters at the bf16 tier and a 540² FFT (a 10.45 GB bank,
+     transformed in planned chunks), ``conv_spectral(mode='fftmap')`` at the
+     planner's plan against float64 on 8 maps (2e-2), forced into 9 chunks
+     by ``hbm_budget_bytes`` (1e-6 against the unchunked maps), and
+     streamed as spatial kernels under a budget below twice the resident
+     bytes (2e-2 against float64 and the resident call);
+ 17. the pipelined batch (BASELINE.json configs[3]): 8 headline images with
+     the headline bank through ``conv_spectral_pipelined(mode='same')`` on
+     tiled spectra (the fused kernel, the planner's chunks) and on direct
+     spectra (the MAC kernel, chunks of 16), each against ``conv_spectral``
+     on the same spectra (1e-6) and 2 maps against float64 (1e-5).
+
+Steps 13–17 print each check, each time (CUDA events, median of 7) beside
+the card's name and power limit, the kernel launches of each call, the
+planner's plans and each phase's peak allocation; the smoke fails if its
+peak allocation reaches 60 GiB.
 
 It prints one JSON line describing every kernel mode (the float32 and bf16
 entries of the three kernels: launches on the main path, error, time,
@@ -81,6 +107,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import json
 import pathlib
 import statistics
@@ -566,10 +593,14 @@ def complex_einsum_ms(ops) -> float:
     return ms
 
 
-def same_reference_f64(image, bank, idx) -> np.ndarray:
-    """float64 numpy 'same' maps (scipy offset) for bank[idx]."""
+def same_reference_f64(image, bank, idx, anchor=None) -> np.ndarray:
+    """float64 numpy 'same' maps of a one-channel (H, W, 1) image for
+    bank[idx], zero padding, the window at ``anchor`` (default the scipy
+    offset ((Kh−1)//2, (Kw−1)//2); (Kh//2, Kw//2) is the matlab offset and
+    a centered kernel's window)."""
     h, w = image.shape[:2]
     kh, kw = bank.shape[1:3]
+    oh, ow = anchor or ((kh - 1) // 2, (kw - 1) // 2)
     ph, pw = h + kh - 1, w + kw - 1
     spec = np.fft.rfft2(image[..., 0].astype(np.float64), s=(ph, pw))
     out = []
@@ -578,8 +609,32 @@ def same_reference_f64(image, bank, idx) -> np.ndarray:
             spec * np.fft.rfft2(bank[i, ..., 0].astype(np.float64), s=(ph, pw)),
             s=(ph, pw),
         )
-        oh, ow = (kh - 1) // 2, (kw - 1) // 2
         out.append(full[oh : oh + h, ow : ow + w])
+    return np.stack(out)
+
+
+def clamp_same_reference_f64(image, bank, idx, anchor) -> np.ndarray:
+    """float64 numpy 'same' maps with replicated borders (padding='clamp')
+    of a one-channel (H, W, 1) image for bank[idx], window anchored at
+    ``anchor`` = (dh, dw): the image edge-padded by (K−1−d, d) on each axis
+    (``np.pad(mode='edge')``), then its 'valid' linear convolution by a
+    float64 FFT. Equal to the tap loop ``tests/oracles.py
+    conv_same_nearest_f64`` (tests/test_torch_padding.py), and fast at the
+    headline's width."""
+    h, w = image.shape[:2]
+    kh, kw = bank.shape[1:3]
+    dh, dw = anchor
+    padded = np.pad(image[..., 0].astype(np.float64),
+                    ((kh - 1 - dh, dh), (kw - 1 - dw, dw)), mode="edge")
+    ph, pw = h + 2 * (kh - 1), w + 2 * (kw - 1)
+    spec = np.fft.rfft2(padded, s=(ph, pw))
+    out = []
+    for i in idx:
+        full = np.fft.irfft2(
+            spec * np.fft.rfft2(bank[i, ..., 0].astype(np.float64), s=(ph, pw)),
+            s=(ph, pw),
+        )
+        out.append(full[kh - 1 : kh - 1 + h, kw - 1 : kw - 1 + w])
     return np.stack(out)
 
 
@@ -799,6 +854,401 @@ def dpm_path(fc, seed, path_launches) -> tuple[dict, dict]:
         torch.cuda.empty_cache()
         print(f"DPM {label}: {times[label]:.3f} ms")
     return times, kernels
+
+
+# ---- the rest of the API at full width: clamp, centered, ragged bucketing,
+# ---- memory-planned direct banks, the pipelined batch
+
+# The ragged cell array (BASELINE.json configs[1]; demoCudaConvolutionFFT.m:
+# 41-43): a 512² image, `per_size` kernels of each size, planted once each
+# at `amplitude` on a grid for the detection check.
+RAGGED = dict(size=512, sizes=(9, 17, 33, 64), per_size=4, stride=120, offset=20,
+              amplitude=3.0)
+# The DPM giant bank on the direct engine (BASELINE.json configs[4],
+# bench.py:376-420): the first `n` of the DPM filters against the DPM
+# features, at the bf16 tier, a 540² FFT; forced runs at about `chunks`
+# chunks and a streaming budget of `stream_share` of the resident bytes.
+DPM_DIRECT = dict(n=576, fft=(540, 540), chunks=9, stream_share=1.5)
+# The pipelined batch (BASELINE.json configs[3]): `batch` images of the
+# headline's size with the headline bank; `chunk` kernels a direct chunk.
+PIPELINED = dict(batch=8, chunk=16)
+# The smoke's peak allocation must stay below this (the phases free their
+# tensors in turn); PHASE_PEAKS collects the peaks phase by phase.
+PEAK_LIMIT = 60 << 30
+PHASE_PEAKS: list[int] = []
+
+
+@functools.cache
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return smi.stdout.strip().splitlines()[0].strip()
+
+
+def timed(label, fn, times) -> float:
+    """``cuda_ms(fn)`` recorded under ``label`` and printed beside the card."""
+    import torch
+
+    times[label] = cuda_ms(fn)
+    torch.cuda.empty_cache()
+    print(f"{label}: {times[label]:.3f} ms (median of {RUNS}; {card()})")
+    return times[label]
+
+
+def phase_peak(label) -> None:
+    """Print the peak allocation since the last reset, keep it in
+    PHASE_PEAKS, and reset the count."""
+    import torch
+
+    torch.cuda.synchronize()
+    PHASE_PEAKS.append(torch.cuda.max_memory_allocated())
+    print(f"{label}: peak memory allocated {PHASE_PEAKS[-1] / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def planner_table() -> None:
+    """The planner's decisions on this card's budget at the real shapes:
+    the bank transform (``plan_transform``), the convolution against
+    resident spectra (``plan_bank``) and, for raw banks whose spectra
+    would take over half the budget, the streaming plan."""
+    import torch
+
+    from cuda_fft_convolution_torch import api
+    from cuda_fft_convolution_torch.runtime import planner
+
+    budget = api._device_memory_budget(torch.device("cuda"))
+    print(f"planner on this card: budget {budget / 1e9:.2f} GB "
+          f"(hbm_fraction x {torch.cuda.mem_get_info()[1] / 1e9:.2f} GB)")
+    for label, n, f, fft, batch, sb, k in (
+        ("headline direct, 100 x 64², f32", 100, 1, (2160, 2160), 1, 4, 64),
+        ("pipelined direct, 8 images", 100, 1, (2160, 2160), 8, 4, 64),
+        ("pipelined tiled, 8 images (192 blocks each)", 100, 1, (127, 447), 8 * 192, 4, 64),
+        ("DPM direct, 576 filters, bf16", 576, 31, (540, 540), 1, 2, 12),
+        ("DPM direct, 1024 filters, bf16", 1024, 31, (540, 540), 1, 2, 12),
+        ("DPM direct, 1024 filters, f32", 1024, 31, (540, 540), 1, 4, 12),
+        ("DPM direct, 4096 filters, f32", 4096, 31, (540, 540), 1, 4, 12),
+    ):
+        stack = n * f * k * k * 4
+        t = planner.plan_transform(n, f, *fft, budget, sb, stack)
+        p = planner.plan_bank(n, f, *fft, batch, budget, sb)
+        line = (f"  {label}: bank {planner.spectra_bytes(n, f, *fft, sb) / 1e9:.2f} GB; "
+                f"transform chunk {t.chunk_size} of {n}; plan_bank chunk {p.chunk_size} "
+                f"(peak {p.peak_bytes / 1e9:.2f} GB)")
+        if batch == 1 and planner.spectra_bytes(n, f, *fft, sb) > budget // 2:
+            st = planner.plan_streaming(n, f, *fft, 1, budget, sb, stack)
+            line += f"; raw banks stream, chunk {st.chunk_size} (peak {st.peak_bytes / 1e9:.2f} GB)"
+        print(line)
+
+
+def clamp_centered_phases(fc, image, bank, image_d, bank_d, path_launches, times) -> None:
+    """The headline shape through the direct engine: padding='clamp' at both
+    anchors against the edge-padded float64 reference, then centered
+    kernels against float64 and against the corner call at the matlab
+    offset (the same maps for zero padding)."""
+    import torch
+
+    s, n, k = HEADLINE["size"], HEADLINE["n"], HEADLINE["k"]
+    idx = list(range(0, n, n // 8))[:8]
+    calls = {
+        "clamp": (dict(padding="clamp"), ((k - 1) // 2, (k - 1) // 2)),
+        "clamp, matlab offset": (dict(padding="clamp", same_offset="matlab"), (k // 2, k // 2)),
+    }
+    for label, (kw, anchor) in calls.items():
+        maps = main_path(f"clamp headline fft_conv, {label}",
+                         lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same", **kw),
+                         "spectral_mac_f32", path_launches)
+        if not (tuple(maps.shape) == (n, s, s) and torch.isfinite(maps).all()):
+            raise AssertionError(f"clamp headline maps ({label}): {tuple(maps.shape)}")
+        err = max_rel_err_f64(maps, idx, clamp_same_reference_f64(image, bank, idx, anchor))
+        print(f"clamp headline fft_conv, {label}: vs edge-padded float64 numpy on kernels "
+              f"{idx}: max rel err {err:.3e} (bar {TOL:g})")
+        if err > TOL:
+            raise AssertionError(f"clamp headline error ({label}) {err} above {TOL}")
+        del maps
+        torch.cuda.empty_cache()
+        timed(f"clamp headline fft_conv, {label}",
+              lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same", **kw), times)
+    phase_peak("clamp headline")
+
+    cent = main_path("centered headline fft_conv",
+                     lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same",
+                                         kernel_layout="centered"),
+                     "spectral_mac_f32", path_launches)
+    if not (tuple(cent.shape) == (n, s, s) and torch.isfinite(cent).all()):
+        raise AssertionError(f"centered headline maps: {tuple(cent.shape)}")
+    err = max_rel_err_f64(cent, idx, same_reference_f64(image, bank, idx, (k // 2, k // 2)))
+    corner = fc.fft_conv(image_d, kernels=bank_d, mode="same", same_offset="matlab",
+                         algorithm="direct")
+    diff = rel_err(cent, corner)
+    print(f"centered headline fft_conv: vs float64 numpy on kernels {idx}: max rel err "
+          f"{err:.3e} (bar {TOL:g}); vs the corner call at the matlab offset: rel {diff:.3e} "
+          f"(bar 1e-6)")
+    if err > TOL or diff > 1e-6:
+        raise AssertionError(f"centered headline: {err} vs float64, {diff} vs corner")
+    del cent, corner
+    torch.cuda.empty_cache()
+    timed("centered headline fft_conv",
+          lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same", kernel_layout="centered"),
+          times)
+    phase_peak("centered headline")
+
+
+def ragged_phase(fc, seed, path_launches, times) -> None:
+    """BASELINE configs[1]: a 512² image with a cell array of four sizes;
+    fft_conv buckets it by pow-2 envelope, each bucket through the fused
+    kernel at its own plan; every map against float64; then detect_peaks
+    on the same cell array with each kernel planted once."""
+    import torch
+
+    from cuda_fft_convolution_torch import api
+    from cuda_fft_convolution_torch.models import detect_peaks
+    from cuda_fft_convolution_torch.ops.block_conv import block_conv
+    from cuda_fft_convolution_torch.ops.tiled import choose_block_plan
+
+    rng = np.random.default_rng(seed + 1)
+    side = RAGGED["size"]
+    sizes = [k for k in RAGGED["sizes"] for _ in range(RAGGED["per_size"])]
+    cells = [rng.standard_normal((k, k, 1)).astype(np.float32) for k in sizes]
+    image = rng.standard_normal((side, side, 1)).astype(np.float32)
+    at = [RAGGED["offset"] + RAGGED["stride"] * i for i in range(4)]
+    corners = [(y0, x0) for y0 in at for x0 in at]
+    for c, (y0, x0) in zip(cells, corners):
+        k = c.shape[0]
+        image[y0 : y0 + k, x0 : x0 + k, 0] += RAGGED["amplitude"] * c[:, :, 0]
+    image_d = torch.as_tensor(image, device="cuda")
+    cells_d = [torch.as_tensor(c, device="cuda") for c in cells]
+    buckets = api._bucket_ragged(cells)
+    plans = [choose_block_plan(side, side, max(sizes[i] for i in b), max(sizes[i] for i in b))
+             for b in buckets]
+    print(f"ragged cell array: kernels {sorted(set(sizes))} x{RAGGED['per_size']} on a "
+          f"{side}² image: buckets {[[sizes[i] for i in b] for b in buckets]}, plans {plans}")
+    before = block_conv.launches
+    maps = main_path("ragged fft_conv", lambda: fc.fft_conv(image_d, kernels=cells_d, mode="same"),
+                     "block_conv_f32", path_launches)
+    if block_conv.launches - before != len(buckets) or None in plans:
+        raise AssertionError(f"ragged fft_conv launched the fused kernel "
+                             f"{block_conv.launches - before} times for {len(buckets)} buckets")
+    err = 0.0
+    for i, m in enumerate(maps):
+        if not (tuple(m.shape) == (side, side) and torch.isfinite(m).all()):
+            raise AssertionError(f"ragged map {i}: {tuple(m.shape)}")
+        want = same_reference_f64(image, cells[i][None], [0])
+        err = max(err, max_rel_err_f64(m[None], [0], want))
+    print(f"ragged fft_conv: {len(maps)} maps in input order, each vs float64 numpy: max rel "
+          f"err {err:.3e} (bar {TOL:g}); the fused kernel launched once a bucket")
+    if err > TOL:
+        raise AssertionError(f"ragged error {err} above {TOL}")
+    del maps
+    vals, pos = main_path("ragged detect_peaks",
+                          lambda: detect_peaks(image_d, cells_d, mode="same", correlation=True),
+                          "block_conv_f32", path_launches)
+    centres = torch.tensor([(y0 + c.shape[0] // 2, x0 + c.shape[0] // 2)
+                            for c, (y0, x0) in zip(cells, corners)], dtype=torch.int32)
+    if not torch.equal(pos.cpu(), centres):
+        bad = int((pos.cpu() != centres).any(-1).sum())
+        raise AssertionError(f"ragged detect_peaks missed {bad} of {len(cells)} planted centres")
+    print(f"ragged detect_peaks: all {len(cells)} planted centres found")
+    timed("ragged fft_conv", lambda: fc.fft_conv(image_d, kernels=cells_d, mode="same"), times)
+    timed("ragged detect_peaks", lambda: detect_peaks(image_d, cells_d, mode="same"), times)
+    phase_peak("ragged cell array")
+
+
+def budget_for_chunk(chunk, *args, **kwargs) -> int:
+    """The least budget (bytes) at which ``plan_bank(*args, **kwargs)``
+    plans ``chunk`` kernels a chunk."""
+    from cuda_fft_convolution_torch.runtime.planner import plan_bank
+
+    lo, hi = 0, 1 << 44
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if plan_bank(*args, hbm_budget_bytes=mid, **kwargs).chunk_size >= chunk:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def dpm_fftmap_reference_f64(feats, bank, idx, fft) -> np.ndarray:
+    """float64 numpy circular (fftmap) maps of (H, W, F) ``feats`` with
+    ``bank[idx]`` at FFT size ``fft``, channels summed."""
+    spec = np.fft.rfft2(feats.transpose(2, 0, 1), s=fft)
+    return np.stack([
+        np.fft.irfft2((spec * np.fft.rfft2(bank[i].transpose(2, 0, 1).astype(np.float64),
+                                           s=fft)).sum(0), s=fft)
+        for i in idx
+    ])
+
+
+def dpm_direct_phase(fc, seed, path_launches, times) -> None:
+    """BASELINE configs[4]'s direct half: the DPM giant bank (the first 576
+    of the DPM filters, 12²×31, bf16 tier, 540² FFT) on the direct engine:
+    at the planner's own plan, forced into about 9 chunks, and streamed as
+    spatial kernels under a budget below twice the resident bytes."""
+    import torch
+
+    from cuda_fft_convolution_torch import api
+    from cuda_fft_convolution_torch.runtime import planner
+
+    feats, bank, _ = dpm_inputs(seed)
+    n, k = DPM_DIRECT["n"], DPM["k"]
+    bank = bank[:n].contiguous()
+    sd = fc.fft_data(feats, k, k, store_dtype="bfloat16")
+    f, fft = sd.feature_dim, (sd.fft_h, sd.fft_w)
+    if fft != DPM_DIRECT["fft"] or sd.re.dtype != torch.bfloat16:
+        raise AssertionError(f"DPM direct spectra: {fft} {sd.re.dtype}")
+    budget = api._device_memory_budget(sd.re.device)
+    tplan = planner.plan_transform(n, f, *fft, budget, 2, bank.numel() * 4)
+    sk = fc.fft_kernels(bank, spectral=sd, store_dtype="bfloat16")
+    resident = 2 * sk.re.numel() * sk.re.element_size()
+    print(f"DPM direct: {n} filters {k}²×{f} at a {fft[0]}² FFT, bf16 bank spectra "
+          f"{resident / 1e9:.2f} GB; device budget {budget / 1e9:.2f} GB; bank transform in "
+          f"chunks of {tplan.chunk_size} (modelled peak {tplan.peak_bytes / 1e9:.2f} GB)")
+    phase_peak("DPM direct, bank transform")
+    plan = planner.plan_bank(n, f, *fft, 1, budget, 2)
+    print(f"DPM direct plan_bank: chunk_size {plan.chunk_size}, peak_bytes {plan.peak_bytes} "
+          f"({plan.peak_bytes / 1e9:.2f} GB)")
+    idx = list(range(0, n, n // 8))[:8]
+    want = dpm_fftmap_reference_f64(feats.double().cpu().numpy(), bank.cpu().numpy(), idx, fft)
+    whole = main_path("DPM direct conv_spectral", lambda: fc.conv_spectral(sd, sk, mode="fftmap"),
+                      "spectral_mac_bf16", path_launches)
+    if not (tuple(whole.shape) == (n, *fft) and torch.isfinite(whole).all()):
+        raise AssertionError(f"DPM direct maps: {tuple(whole.shape)}")
+    err = max_rel_err_f64(whole, idx, want)
+    print(f"DPM direct conv_spectral: vs float64 numpy on filters {idx}: max rel err "
+          f"{err:.3e} (bar {BF16_TOL:g})")
+    if err > BF16_TOL:
+        raise AssertionError(f"DPM direct error {err} above {BF16_TOL}")
+    phase_peak("DPM direct, planner's plan")
+
+    chunk = -(-n // DPM_DIRECT["chunks"])
+    forced = budget_for_chunk(chunk, n, f, *fft, 1, store_bytes=2)
+    fc.set_config(hbm_budget_bytes=forced)
+    try:
+        fplan = planner.plan_bank(n, f, *fft, 1, forced, 2)
+        chunked = main_path(f"DPM direct conv_spectral, budget {forced / 1e9:.2f} GB",
+                            lambda: fc.conv_spectral(sd, sk, mode="fftmap"),
+                            "spectral_mac_bf16", path_launches)
+        diff = rel_err(chunked, whole)
+        print(f"DPM direct chunked: chunk_size {fplan.chunk_size}, "
+              f"{-(-n // fplan.chunk_size)} chunks, peak_bytes {fplan.peak_bytes / 1e9:.2f} GB; "
+              f"vs the unchunked maps: rel {diff:.3e} (bar 1e-6)")
+        if diff > 1e-6:
+            raise AssertionError(f"DPM chunked maps differ from the unchunked maps: {diff}")
+        del chunked
+        phase_peak("DPM direct, chunked")
+        timed("DPM direct conv_spectral, chunked",
+              lambda: fc.conv_spectral(sd, sk, mode="fftmap"), times)
+    finally:
+        fc.set_config(hbm_budget_bytes=None)
+    timed("DPM direct conv_spectral, planner's plan",
+          lambda: fc.conv_spectral(sd, sk, mode="fftmap"), times)
+    timed("DPM direct fft_kernels (bank transform)",
+          lambda: fc.fft_kernels(bank, spectral=sd, store_dtype="bfloat16"), times)
+    del sk
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    stream_budget = int(DPM_DIRECT["stream_share"] * resident)
+    fc.set_config(hbm_budget_bytes=stream_budget)
+    try:
+        splan = planner.plan_streaming(n, f, *fft, 1, stream_budget, 2, bank.numel() * 4)
+        streamed = main_path(f"DPM direct streaming, budget {stream_budget / 1e9:.2f} GB",
+                             lambda: fc.conv_spectral(sd, bank, mode="fftmap"),
+                             "spectral_mac_f32", path_launches)
+        err = max_rel_err_f64(streamed, idx, want)
+        diff = rel_err(streamed, whole)
+        print(f"DPM direct streaming: chunk_size {splan.chunk_size}, "
+              f"{-(-n // splan.chunk_size)} chunks, peak_bytes {splan.peak_bytes / 1e9:.2f} GB; "
+              f"vs float64: max rel err {err:.3e}; vs the resident call: rel {diff:.3e} "
+              f"(bar {BF16_TOL:g})")
+        if err > BF16_TOL or diff > BF16_TOL:
+            raise AssertionError(f"DPM streaming: {err} vs float64, {diff} vs resident")
+        del streamed
+        phase_peak("DPM direct, streaming")
+        timed("DPM direct conv_spectral, streaming",
+              lambda: fc.conv_spectral(sd, bank, mode="fftmap"), times)
+    finally:
+        fc.set_config(hbm_budget_bytes=None)
+    del whole, sd, feats, bank
+    torch.cuda.empty_cache()
+
+
+def max_rel_diff(got, want) -> float:
+    """max |got − want| / max |want| over (B, N, H, W) maps, one image at a
+    time (no full-size temporaries)."""
+    num = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    return num / max(float(w.abs().max()) for w in want)
+
+
+def pipelined_phase(fc, seed, bank, bank_d, path_launches, times) -> None:
+    """BASELINE configs[3]: a batch of 8 headline-size images with the
+    headline bank through conv_spectral_pipelined, on tiled spectra (the
+    fused kernel, chunks from the planner) and on direct spectra (the MAC
+    kernel, chunks of 16), each against conv_spectral on the same spectra
+    and 2 maps of 2 images against float64."""
+    import torch
+
+    from cuda_fft_convolution_torch import api
+    from cuda_fft_convolution_torch.runtime import planner
+
+    s, n, k = HEADLINE["size"], HEADLINE["n"], HEADLINE["k"]
+    b = PIPELINED["batch"]
+    rng = np.random.default_rng(seed + 2)
+    images = rng.standard_normal((b, s, s, 1)).astype(np.float32)
+    images_d = torch.as_tensor(images, device="cuda")
+    checks = [(0, 0), (b - 1, n - 1)]
+    wants = [same_reference_f64(images[i], bank, [j])[0] for i, j in checks]
+
+    def f64_err(maps):
+        return max(float(np.abs(maps[i, j].double().cpu().numpy() - w).max() / np.abs(w).max())
+                   for (i, j), w in zip(checks, wants))
+
+    for engine in ("tiled", "direct"):
+        if engine == "tiled":
+            spec = fc.fft_data_tiled(images_d, k, k, trim_mode="same")
+            fft = (spec.block_h, spec.block_w)
+            batch = b * api.np_prod_blocks(spec)
+            chunk, mode = None, "block_conv_f32"
+        else:
+            spec = fc.fft_data(images_d, k, k)
+            fft, batch = (spec.fft_h, spec.fft_w), b
+            chunk, mode = PIPELINED["chunk"], "spectral_mac_f32"
+        sk = fc.fft_kernels(bank_d, spectral=spec)
+        plan = planner.plan_bank(n, 1, *fft, batch, api._device_memory_budget(images_d.device))
+        print(f"pipelined batch, {engine}: {b} images {s}², {n} kernels {k}², FFT {fft}; "
+              f"plan_bank chunk_size {plan.chunk_size}, peak_bytes {plan.peak_bytes / 1e9:.2f} "
+              f"GB; chunk_size {chunk or plan.chunk_size}")
+        whole = fc.conv_spectral(spec, sk, mode="same")
+        if engine == "direct":
+            whole = whole.contiguous()  # a 'same' view of the fftmap canvas
+        torch.cuda.empty_cache()
+        got = main_path(f"pipelined batch, {engine}",
+                        lambda: fc.conv_spectral_pipelined(spec, sk, chunk_size=chunk,
+                                                           mode="same"),
+                        mode, path_launches)
+        if not (tuple(got.shape) == (b, n, s, s) and all(torch.isfinite(g).all() for g in got)):
+            raise AssertionError(f"pipelined maps ({engine}): {tuple(got.shape)}")
+        diff = max_rel_diff(got, whole)
+        err = f64_err(got)
+        print(f"pipelined batch, {engine} ({got.numel() * 4 / 1e9:.1f} GB of maps): vs "
+              f"conv_spectral on the same spectra: rel {diff:.3e} (bar 1e-6); maps {checks} "
+              f"vs float64 numpy: max rel err {err:.3e} (bar {TOL:g})")
+        if diff > 1e-6 or err > TOL:
+            raise AssertionError(f"pipelined {engine}: {diff} vs conv_spectral, {err} vs f64")
+        del got, whole
+        torch.cuda.empty_cache()
+        phase_peak(f"pipelined batch, {engine}")
+        timed(f"pipelined batch, {engine}, conv_spectral_pipelined",
+              lambda: fc.conv_spectral_pipelined(spec, sk, chunk_size=chunk, mode="same"), times)
+        timed(f"pipelined batch, {engine}, conv_spectral",
+              lambda: fc.conv_spectral(spec, sk, mode="same"), times)
+        del spec, sk
+        torch.cuda.empty_cache()
+    del images_d
+    torch.cuda.empty_cache()
 
 
 def cuda_ms(fn, runs=RUNS) -> float:
@@ -1044,7 +1494,20 @@ def main(argv=None) -> int:
     # ---- the DPM/HOG detector path at full width ----
     dpm_ms, dpm_kernels = dpm_path(fc, args.seed, path_launches)
     rows.update(dpm_kernels)
-    print(f"peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase_peak("headline, detection and DPM/HOG phases")
+
+    # ---- the rest of the API at full width ----
+    api_ms = {}
+    planner_table()
+    clamp_centered_phases(fc, image, bank, image_d, bank_d, path_launches, api_ms)
+    ragged_phase(fc, args.seed, path_launches, api_ms)
+    dpm_direct_phase(fc, args.seed, path_launches, api_ms)
+    pipelined_phase(fc, args.seed, bank, bank_d, path_launches, api_ms)
+    phase_peak("pipelined batch, timing")
+    print(f"peak memory allocated over the smoke: {max(PHASE_PEAKS) / 2**30:.2f} GiB "
+          f"(limit {PEAK_LIMIT / 2**30:.0f} GiB)")
+    if max(PHASE_PEAKS) >= PEAK_LIMIT:
+        raise AssertionError(f"peak allocation {max(PHASE_PEAKS)} B over {PEAK_LIMIT} B")
 
     kernels = []
     for mode, (err, ms, plain, bound_ms, bound_by, library_ms) in rows.items():

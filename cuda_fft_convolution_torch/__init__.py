@@ -12,6 +12,8 @@ float32 and at the bf16 serving tier (``store_dtype='bfloat16'``,
   - ``fft_conv``        ≈ cudaConvolutionFFT
   - ``fft_data``        ≈ cudaFFTData
   - ``conv_spectral``   ≈ cudaConvFFTData
+  - ``conv_spectral_pipelined`` ≈ cudaConvFFTDataStreams (a chunk of the
+    bank at a time; ``runtime.plan_bank`` sizes the chunks)
   - ``fft_data_tiled``, ``fft_kernels``: reusable block and bank spectra
   - ``models.detect_peaks``, ``detect_top_k``, ``detect_local_peaks``: the
     detection heads; ``models.hog_features``: the DPM path's HOG front end
@@ -19,6 +21,7 @@ float32 and at the bf16 serving tier (``store_dtype='bfloat16'``,
 
 from cuda_fft_convolution_torch.api import (
     conv_spectral,
+    conv_spectral_pipelined,
     fft_conv,
     fft_data,
     fft_data_tiled,
@@ -30,6 +33,7 @@ from cuda_fft_convolution_torch.ops.block_conv import (
     block_conv_peaks_reference,
     block_conv_reference,
 )
+from cuda_fft_convolution_torch.runtime import BankPlan, plan_bank
 from cuda_fft_convolution_torch.types import (
     SpectralData,
     SpectralKernels,
@@ -55,6 +59,7 @@ __all__ = [
     "SpectralKernels",
     "TiledSpectralData",
     "conv_spectral",
+    "conv_spectral_pipelined",
     "fft_conv",
     "fft_data",
     "fft_data_tiled",
@@ -63,6 +68,8 @@ __all__ = [
     "block_conv_reference",
     "block_conv_peaks",
     "block_conv_peaks_reference",
+    "BankPlan",
+    "plan_bank",
     "from_numpy",
     "load_spectral",
     "save_spectral",

@@ -1,11 +1,13 @@
 """Public API: the JAX package's entry points on PyTorch.
 
-  - ``fft_conv``       one-shot bank convolution (≈ cudaConvolutionFFT)
-  - ``fft_data``       reusable data spectrum (≈ cudaFFTData)
-  - ``fft_data_tiled`` reusable overlap-save block spectra
-  - ``fft_kernels``    reusable bank spectra
-  - ``conv_spectral``  bank convolution against stored spectra
-                       (≈ cudaConvFFTData)
+  - ``fft_conv``                one-shot bank convolution (≈ cudaConvolutionFFT)
+  - ``fft_data``                reusable data spectrum (≈ cudaFFTData)
+  - ``fft_data_tiled``          reusable overlap-save block spectra
+  - ``fft_kernels``             reusable bank spectra
+  - ``conv_spectral``           bank convolution against stored spectra
+                                (≈ cudaConvFFTData)
+  - ``conv_spectral_pipelined`` the same, a chunk of the bank at a time
+                                (≈ cudaConvFFTDataStreams)
 
 Layouts are the JAX package's: data ``(H, W, F)`` or ``(B, H, W, F)``,
 kernels ``(N, Kh, Kw, F)``, one ``(Kh, Kw, F)`` array or a list of them
@@ -24,8 +26,12 @@ inverse accumulates float32, and a bank meets data spectra of its own tier
 only. ``out_dtype='bfloat16'`` stores the output maps bfloat16. Both run
 through the CUDA kernels on the card.
 
-Options of the JAX package that are not ported yet raise
-``InvalidInputError`` naming their ROADMAP item.
+``padding='clamp'`` (border replication) and ``kernel_layout='centered'``
+(un-shifted maps) run on the direct engine. Memory is planned against the
+device budget (``utils/config.py``: ``hbm_budget_bytes``, else
+``hbm_fraction`` of the card): a bank transform, a bank convolution or a
+bank too large to hold as spectra runs in chunks of kernels
+(``runtime/planner.py``), with maps equal to the whole-bank call's.
 """
 
 from __future__ import annotations
@@ -33,9 +39,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cuda_fft_convolution_torch.ops.conv import (
-    irfft2_norm_planes,
-    rfft2_padded_planes,
+from cuda_fft_convolution_torch.ops.conv import rfft2_padded_planes
+from cuda_fft_convolution_torch.ops.padding import (
+    pad_clamp_to_border,
+    pad_kernel_centered,
 )
 from cuda_fft_convolution_torch.ops.spectral_mac import spectral_mac_auto_planes
 from cuda_fft_convolution_torch.ops.tiled import (
@@ -44,11 +51,19 @@ from cuda_fft_convolution_torch.ops.tiled import (
     fallback_block_fft,
     fft_data_blocks,
 )
+from cuda_fft_convolution_torch.runtime.planner import (
+    BankPlan,
+    plan_bank,
+    plan_streaming,
+    plan_transform,
+    spectra_bytes,
+)
 from cuda_fft_convolution_torch.types import (
     SpectralData,
     SpectralKernels,
     TiledSpectralData,
 )
+from cuda_fft_convolution_torch.utils.config import get_config
 from cuda_fft_convolution_torch.utils.device import as_tensor
 from cuda_fft_convolution_torch.utils.errors import InvalidInputError, validate
 from cuda_fft_convolution_torch.utils.fft_size import (
@@ -58,24 +73,13 @@ from cuda_fft_convolution_torch.utils.fft_size import (
 
 _MODES = ("fftmap", "full", "same", "valid")
 
-# Share of a CUDA device's memory the tiled engine's bank-chunk model may
-# plan with (the JAX package's default hbm_fraction); the CPU plans with
-# the JAX package's 8 GiB fallback.
-_DEVICE_MEMORY_FRACTION = 0.92
+# The memory budget on the CPU: the JAX package's 8 GiB fallback.
 _CPU_MEMORY_BUDGET = 8 << 30
 
 
 # ---------------------------------------------------------------------------
-# options not ported yet
+# option checks
 # ---------------------------------------------------------------------------
-
-
-def _not_ported(cond: bool, what: str, item: str) -> None:
-    if cond:
-        raise InvalidInputError(
-            f"{what} is not ported to cuda_fft_convolution_torch yet "
-            f"(ROADMAP {item})"
-        )
 
 
 def _check_padding_layout(padding: str, kernel_layout: str) -> None:
@@ -84,11 +88,31 @@ def _check_padding_layout(padding: str, kernel_layout: str) -> None:
         kernel_layout in ("corner", "centered"),
         "kernel_layout must be 'corner' or 'centered'",
     )
-    _not_ported(padding == "clamp", "padding='clamp'", "queue 1 item 1")
-    _not_ported(
-        kernel_layout == "centered", "kernel_layout='centered'",
-        "queue 1 item 1",
+
+
+def _check_centered_correlation(centered: bool, correlation: bool) -> None:
+    validate(
+        not (centered and correlation),
+        "kernel_layout='centered' requires pre-flipped kernels "
+        "(correlation=True is ambiguous for centered anchors — flip by "
+        "hand like the reference demo, demoCudaConvolutionFFT.m:67-69)",
     )
+
+
+def _check_clamp_mode(spectral, mode: str) -> None:
+    validate(
+        not (getattr(spectral, "clamp", False) and mode == "full"),
+        "padding='clamp' spectra pair with mode 'same', 'fftmap', or "
+        "'valid' — a 'full' window mixes the far-edge band with the "
+        "wrap-to-origin replicas",
+    )
+
+
+_CENTERED_TILED_MSG = (
+    "kernel_layout='centered' requires the direct engine "
+    "(SpectralData) — tiled block decomposition assumes "
+    "corner-anchored kernels"
+)
 
 
 # ---------------------------------------------------------------------------
@@ -225,10 +249,15 @@ def _apply_correlation_flip(kstack, khs, kws, correlation):
 
 
 def _device_memory_budget(device: torch.device) -> int:
-    """Bytes the tiled engine's bank-chunk model may plan with."""
+    """Bytes the bank planners may plan with on ``device``:
+    ``Config.hbm_budget_bytes`` when set (on every device), else
+    ``Config.hbm_fraction`` of a CUDA device's total memory, else the CPU's
+    8 GiB."""
+    cfg = get_config()
+    if cfg.hbm_budget_bytes is not None:
+        return int(cfg.hbm_budget_bytes)
     if device.type == "cuda":
-        total = torch.cuda.mem_get_info(device)[1]
-        return int(_DEVICE_MEMORY_FRACTION * total)
+        return int(cfg.hbm_fraction * torch.cuda.mem_get_info(device)[1])
     return _CPU_MEMORY_BUDGET
 
 
@@ -268,27 +297,54 @@ def fft_data(
     policy: FftSizePolicy | str | None = None,
     device=None,
     padding: str = "zero",
+    same_offset: str = "scipy",
     kernel_layout: str = "corner",
     store_dtype: str = "float32",
 ) -> SpectralData:
     """Precompute the reusable data spectrum — ≈ ``cudaFFTData(data, Kh,
-    Kw)``: zero padding, corner layout, FFT dims ``policy(data + maxK − 1)``
-    (default 'fast'). ``store_dtype='bfloat16'``: the transform runs in
-    float32 and the planes are stored bf16 (the serving tier; pair with
+    Kw)``: FFT dims ``policy(data + maxK − 1)`` (default 'fast').
+
+    ``padding``: 'zero' (padData) or 'clamp', the reference's three-region
+    border-replicate rule (padDataClampToBorder, ``ops/padding.py``), so
+    that 'same' edge outputs see replicated pixels on every edge. Its
+    far-edge band is the kernels' 'same'-window anchor: (K−1)//2 for
+    ``same_offset='scipy'``, K//2 for 'matlab' or for
+    ``kernel_layout='centered'`` (a centered kernel's anchor is its roll
+    shift). The band is recorded on the result (``clamp``, ``band_h``,
+    ``band_w``), and the 'same' trim checks it against the kernels. Pair
+    clamp spectra with mode 'same', 'fftmap' or 'valid'.
+
+    ``store_dtype='bfloat16'``: the transform runs in float32 and the
+    planes are stored bf16 (the serving tier; pair with
     ``fft_kernels(..., store_dtype='bfloat16')``)."""
     validate(max_kernel_h >= 1 and max_kernel_w >= 1, "kernel dims must be >= 1")
     _check_padding_layout(padding, kernel_layout)
+    validate(
+        same_offset in ("scipy", "matlab"),
+        "same_offset must be 'scipy' or 'matlab'",
+    )
     store_t = _resolve_store_dtype(store_dtype)
     policy = _resolve_policy(policy)
     data_cf, batched = _data_to_cfirst(data, device)
     b, f, h, w = data_cf.shape
     fft_h, fft_w = compute_fft_size(h, w, max_kernel_h, max_kernel_w, policy)
+    clamp = padding == "clamp"
+    band_h = band_w = -1
+    if clamp:
+        if kernel_layout == "centered" or same_offset == "matlab":
+            band_h, band_w = max_kernel_h // 2, max_kernel_w // 2
+        else:
+            band_h, band_w = (max_kernel_h - 1) // 2, (max_kernel_w - 1) // 2
+        data_cf = pad_clamp_to_border(
+            data_cf.to(torch.float32), fft_h, fft_w, band_h, band_w
+        )
     re, im = rfft2_padded_planes(data_cf, fft_h, fft_w)
     re, im = re.to(store_t), im.to(store_t)
     if not batched:
         re, im = re[0], im[0]
     return SpectralData(
-        re=re, im=im, fft_h=fft_h, fft_w=fft_w, data_h=h, data_w=w
+        re=re, im=im, fft_h=fft_h, fft_w=fft_w, data_h=h, data_w=w,
+        clamp=clamp, band_h=band_h, band_w=band_w,
     )
 
 
@@ -403,6 +459,7 @@ def fft_kernels(
     correlation: bool = False,
     device=None,
     kernel_layout: str = "corner",
+    storage: str = "auto",
     store_dtype: str = "float32",
 ) -> SpectralKernels:
     """Precompute a kernel bank's spectra at a fixed FFT size — planar
@@ -411,9 +468,36 @@ def fft_kernels(
     spectra). Pass explicit (fft_h, fft_w) or the spectra the bank will be
     used against (their block size for ``TiledSpectralData``); the bank
     then lands on the spectra's device unless ``device`` is given.
-    ``correlation=True`` flips each kernel spatially first."""
-    _check_padding_layout("zero", kernel_layout)
+    ``correlation=True`` flips each kernel spatially first.
+
+    ``kernel_layout='centered'`` wraps each kernel's own centre to the
+    origin (padKernel, ``ops/padding.py pad_kernel_centered``; ragged banks
+    centre each kernel at its own size), so maps come out un-shifted:
+    centered banks serve mode 'fftmap' and 'same' on the direct engine, and
+    take pre-flipped kernels (``correlation=True`` is an error).
+
+    ``storage``: 'auto', 'planar' or 'flat', with the JAX package's checks
+    (flat banks are corner-anchored and serve the direct engine). The JAX
+    package packs a flat bank to escape the TPU's (8, 128) tile padding; a
+    CUDA tensor has none, so the port stores every bank planar and
+    ``SpectralKernels.flat`` is False.
+
+    A bank whose transform would not fit the device budget beside its
+    stored spectra is padded and transformed a chunk of kernels at a time,
+    into preallocated planes, so the padded float32 bank never exists
+    whole."""
     store_t = _resolve_store_dtype(store_dtype)
+    _check_padding_layout("zero", kernel_layout)
+    validate(
+        storage in ("auto", "planar", "flat"),
+        "storage must be 'auto', 'planar', or 'flat'",
+    )
+    centered = kernel_layout == "centered"
+    validate(
+        not (centered and storage == "flat"),
+        "storage='flat' serves corner-anchored banks only",
+    )
+    _check_centered_correlation(centered, correlation)
     if isinstance(spectral, TiledSpectralData):
         fft_h, fft_w = spectral.block_h, spectral.block_w
         feature_dim = spectral.feature_dim
@@ -432,11 +516,66 @@ def fft_kernels(
         f"kernel ({max(khs)},{max(kws)}) exceeds FFT dims ({fft_h},{fft_w}) "
         "(reference check src/cudaConvolutionFFT.cu:242-243)",
     )
+    validate(
+        not (isinstance(spectral, TiledSpectralData) and storage == "flat"),
+        "storage='flat' serves the direct engine; tiled block spectra "
+        "take planar banks",
+    )
     kstack = _apply_correlation_flip(kstack, khs, kws, correlation)
-    re, im = rfft2_padded_planes(kstack, fft_h, fft_w)
-    re, im = re.to(store_t), im.to(store_t)
+    return _bank_from_stack(kstack, khs, kws, fft_h, fft_w, centered, store_t)
+
+
+def _transform_bank_chunk(kstack, khs, kws, fft_h, fft_w, centered):
+    """(n, F, Kh, Kw) → float32 (re, im) planes (n, F, fft_h, Wc); centered
+    banks roll each kernel's own centre to the origin."""
+    if not centered:
+        return rfft2_padded_planes(kstack, fft_h, fft_w)
+    kstack = kstack.to(torch.float32)
+    if len(set(khs)) == 1 and len(set(kws)) == 1:
+        # one size in this chunk (the stack may be padded to a larger bank's)
+        padded = pad_kernel_centered(kstack[..., : khs[0], : kws[0]], fft_h, fft_w)
+    else:
+        padded = torch.stack([
+            pad_kernel_centered(k[:, :kh, :kw], fft_h, fft_w)
+            for k, kh, kw in zip(kstack, khs, kws)
+        ])
+    return rfft2_padded_planes(padded, fft_h, fft_w)
+
+
+def _bank_from_stack(
+    kstack, khs, kws, fft_h, fft_w, centered: bool, store_t: torch.dtype,
+) -> SpectralKernels:
+    """A stacked (N, F, Kh, Kw) bank, correlation flip applied, → its
+    ``SpectralKernels``. The transform runs a chunk of kernels at a time
+    when the whole bank's transform temporaries exceed a quarter of the
+    budget left beside the stored spectra and the spatial bank
+    (``runtime/planner.py plan_transform``); each chunk is written into
+    the preallocated planes."""
+    n, f = int(kstack.shape[0]), int(kstack.shape[1])
+    step = plan_transform(
+        n, f, fft_h, fft_w,
+        hbm_budget_bytes=_device_memory_budget(kstack.device),
+        store_bytes=store_t.itemsize,
+        stack_bytes=kstack.numel() * kstack.element_size(),
+    ).chunk_size
+    if step >= n:
+        re, im = _transform_bank_chunk(kstack, khs, kws, fft_h, fft_w, centered)
+        re, im = re.to(store_t), im.to(store_t)
+    else:
+        shape = (n, f, fft_h, fft_w // 2 + 1)
+        re = torch.empty(shape, dtype=store_t, device=kstack.device)
+        im = torch.empty_like(re)
+        for s in range(0, n, step):
+            e = min(s + step, n)
+            c_re, c_im = _transform_bank_chunk(
+                kstack[s:e], khs[s:e], kws[s:e], fft_h, fft_w, centered
+            )
+            re[s:e].copy_(c_re)
+            im[s:e].copy_(c_im)
+            del c_re, c_im
     return SpectralKernels(
-        re=re, im=im, fft_h=fft_h, fft_w=fft_w, kernel_hs=khs, kernel_ws=kws
+        re=re, im=im, fft_h=fft_h, fft_w=fft_w, kernel_hs=khs, kernel_ws=kws,
+        centered=centered,
     )
 
 
@@ -448,6 +587,7 @@ def _trim(
     mode: str,
     batched: bool,
     same_offset: str = "scipy",
+    centered: bool = False,
 ):
     """Slice the maps down to the requested window.
 
@@ -455,8 +595,11 @@ def _trim(
     H×W at offset ``same_offset`` ('scipy' (Kh−1)//2, 'matlab' Kh//2);
     'valid' → (H−Kh+1)×(W−Kw+1) at (Kh−1, Kw−1). Window coordinates are
     'full'-window indices, shifted by the origin baked into tiled spectra.
-    Ragged banks return a list for modes whose window depends on the
-    kernel size."""
+    ``centered`` (a kernel_layout='centered' bank) → un-shifted maps:
+    'same' is the top-left H×W, and 'full'/'valid' are errors. Clamp
+    spectra's band is checked against each kernel's 'same' anchor before
+    any window is taken. Ragged banks return a list for modes whose window
+    depends on the kernel size."""
     h, w = spectral.data_h, spectral.data_w
     if mode == "fftmap":
         return maps if batched else maps[0]
@@ -464,13 +607,48 @@ def _trim(
         same_offset in ("scipy", "matlab"),
         "same_offset must be 'scipy' or 'matlab'",
     )
+    validate(
+        not centered or mode == "same",
+        "kernel_layout='centered' spectra support mode 'fftmap' or 'same' "
+        "only (the 'full'/'valid' windows wrap circularly for centered "
+        "anchors — use the default corner layout)",
+    )
+    if mode == "same" and getattr(spectral, "clamp", False) and spectral.band_h >= 0:
+        # A bottom/right output taps rows up to D−1+anchor, which must be
+        # far-edge replicas (pad rows [D, D+band)); a top/left output's
+        # negative taps wrap to the last K−1−anchor rows, which must be
+        # row-0 replicas (pad rows >= D+band). A kernel whose anchor the
+        # band cannot serve would read the wrong replicas: refuse it
+        # (src/convolutionFFTkernel.cu:65-74).
+        for kh, kw in zip(khs, kws):
+            for kk, band, fft_l, d_l, ax in (
+                (kh, spectral.band_h, spectral.fft_h, h, "H"),
+                (kw, spectral.band_w, spectral.fft_w, w, "W"),
+            ):
+                anchor = (
+                    kk // 2
+                    if (centered or same_offset == "matlab")
+                    else (kk - 1) // 2
+                )
+                validate(
+                    anchor <= band <= fft_l - d_l - (kk - 1 - anchor),
+                    f"padding='clamp' band mismatch on the {ax} axis: the "
+                    f"spectra's far-edge band ({band}) does not serve a "
+                    f"'same' window anchored at {anchor} (kernel {kk}, "
+                    f"{'centered' if centered else same_offset} anchor). "
+                    "Recompute fft_data(padding='clamp') with the same "
+                    "same_offset/kernel_layout and max_kernel dims as "
+                    "this call",
+                )
     ragged = len(set(khs)) > 1 or len(set(kws)) > 1
     org_h = getattr(spectral, "origin_h", 0)
     org_w = getattr(spectral, "origin_w", 0)
     avail_h, avail_w = maps.shape[-2], maps.shape[-1]
 
     def window(kh, kw):
-        if mode == "full":
+        if centered:  # un-shifted maps: 'same' = top-left H×W
+            r = (0, 0, h, w)
+        elif mode == "full":
             r = (0, 0, h + kh - 1, w + kw - 1)
         elif mode == "same":
             if same_offset == "matlab":
@@ -509,9 +687,43 @@ def _trim(
 def _check_bank(sk: SpectralKernels, spectral, correlation: bool) -> None:
     validate(not correlation, "correlation must be baked into fft_kernels "
              "when passing SpectralKernels")
-    _not_ported(sk.centered, "a kernel_layout='centered' bank", "queue 1 item 1")
-    _not_ported(sk.flat, "a storage='flat' bank", "queue 1 item 5")
     _check_tier(sk, spectral)
+
+
+def _check_direct_bank(sk: SpectralKernels, spectral: SpectralData) -> None:
+    validate(
+        sk.fft_h == spectral.fft_h and sk.fft_w == spectral.fft_w,
+        f"SpectralKernels FFT dims ({sk.fft_h},{sk.fft_w}) != "
+        f"SpectralData dims ({spectral.fft_h},{spectral.fft_w})",
+    )
+    validate(
+        sk.feature_dim == spectral.feature_dim,
+        f"feature dim mismatch: kernels {sk.feature_dim}, "
+        f"data {spectral.feature_dim}",
+    )
+
+
+def _check_not_aliased(spectral: SpectralData, khs, kws, mode: str) -> None:
+    """Linear windows need FFT dims covering data + kernel − 1; a larger
+    kernel would return circularly aliased maps."""
+    if mode == "fftmap":
+        return
+    validate(
+        spectral.data_h + max(khs) - 1 <= spectral.fft_h
+        and spectral.data_w + max(kws) - 1 <= spectral.fft_w,
+        f"kernel ({max(khs)},{max(kws)}) too large for "
+        f"linear convolution at FFT dims ({spectral.fft_h},"
+        f"{spectral.fft_w}) with data ({spectral.data_h},"
+        f"{spectral.data_w}): output would be circularly aliased. "
+        "Recompute fft_data with larger max_kernel dims, or use "
+        "mode='fftmap' for raw circular maps",
+    )
+
+
+def _batched_planes(spectral):
+    if spectral.batched:
+        return spectral.re, spectral.im
+    return spectral.re[None], spectral.im[None]
 
 
 def conv_spectral(
@@ -537,6 +749,15 @@ def conv_spectral(
     always runs through the MAC kernel (``ops/spectral_mac.py
     spectral_mac``); ``use_pallas``, the JAX package's selection between
     its einsum and its Pallas kernel, is accepted with no effect.
+    ``kernel_layout='centered'`` transforms raw kernels centered (see
+    ``fft_kernels``; direct engine, modes 'fftmap' and 'same').
+
+    The direct engine plans its memory (``runtime/planner.py plan_bank``):
+    a bank whose products and maps do not fit the device budget runs in
+    chunks of kernels, and a raw corner bank whose spectra would take over
+    half the budget is never held as spectra — each chunk of spatial
+    kernels is transformed, multiplied and inverted in turn. A device
+    out-of-memory error is re-raised as ``MemoryError`` naming the plan.
 
     bf16 spectra (the serving tier) take a bank of the same tier: raw
     kernels are transformed at it, and a ``SpectralKernels`` of the other
@@ -547,58 +768,188 @@ def conv_spectral(
     validate(mode in _MODES, f"mode must be one of {_MODES}")
     out_t = _resolve_out_dtype(out_dtype)
     _check_padding_layout("zero", kernel_layout)
-    _not_ported(
-        getattr(spectral, "clamp", False), "padding='clamp' spectra",
-        "queue 1 item 1",
-    )
+    _check_clamp_mode(spectral, mode)
     if isinstance(spectral, TiledSpectralData):
+        validate(
+            kernel_layout == "corner"
+            and not (isinstance(kernels, SpectralKernels) and kernels.centered),
+            _CENTERED_TILED_MSG,
+        )
         return _conv_spectral_tiled(
             spectral, kernels, mode=mode, correlation=correlation,
             same_offset=same_offset, out_dtype=out_t,
         )
     if isinstance(kernels, SpectralKernels):
         sk = kernels
+        _check_direct_bank(sk, spectral)
         _check_bank(sk, spectral, correlation)
-        validate(
-            sk.fft_h == spectral.fft_h and sk.fft_w == spectral.fft_w,
-            f"SpectralKernels FFT dims ({sk.fft_h},{sk.fft_w}) != "
-            f"SpectralData dims ({spectral.fft_h},{spectral.fft_w})",
-        )
-        validate(
-            sk.feature_dim == spectral.feature_dim,
-            f"feature dim mismatch: kernels {sk.feature_dim}, "
-            f"data {spectral.feature_dim}",
-        )
     else:
-        sk = fft_kernels(
-            kernels, spectral=spectral, correlation=correlation,
-            store_dtype=_store_dtype_of(spectral),
+        kstack, khs, kws = _kernels_to_stack(
+            kernels, spectral.feature_dim, spectral.re.device
         )
-    if mode != "fftmap":
-        # Linear windows need FFT dims covering data + kernel − 1; a larger
-        # kernel would return circularly aliased maps.
         validate(
-            spectral.data_h + max(sk.kernel_hs) - 1 <= spectral.fft_h
-            and spectral.data_w + max(sk.kernel_ws) - 1 <= spectral.fft_w,
-            f"kernel ({max(sk.kernel_hs)},{max(sk.kernel_ws)}) too large for "
-            f"linear convolution at FFT dims ({spectral.fft_h},"
-            f"{spectral.fft_w}) with data ({spectral.data_h},"
-            f"{spectral.data_w}): output would be circularly aliased. "
-            "Recompute fft_data with larger max_kernel dims, or use "
-            "mode='fftmap' for raw circular maps",
+            max(khs) <= spectral.fft_h and max(kws) <= spectral.fft_w,
+            f"kernel ({max(khs)},{max(kws)}) exceeds FFT dims "
+            f"({spectral.fft_h},{spectral.fft_w}) "
+            "(reference check src/cudaConvolutionFFT.cu:242-243)",
         )
-    batched = spectral.batched
-    d_re = spectral.re if batched else spectral.re[None]
-    d_im = spectral.im if batched else spectral.im[None]
-    p_re, p_im = spectral_mac_auto_planes(d_re, d_im, sk.re, sk.im)
-    if d_re.dtype == torch.bfloat16:
-        # The tier stores its products bf16 too, as the JAX package does.
-        p_re, p_im = p_re.to(torch.bfloat16), p_im.to(torch.bfloat16)
-    maps = irfft2_norm_planes(p_re, p_im, spectral.fft_h, spectral.fft_w)
-    maps = maps.to(out_t)
+        kstack = _apply_correlation_flip(kstack, khs, kws, correlation)
+        n, f = int(kstack.shape[0]), int(kstack.shape[1])
+        resident = spectra_bytes(
+            n, f, spectral.fft_h, spectral.fft_w, spectral.re.element_size()
+        )
+        if (
+            n > 1
+            and kernel_layout == "corner"
+            and resident > _device_memory_budget(spectral.re.device) // 2
+        ):
+            return _conv_spectral_streaming_spatial(
+                spectral, kstack, khs, kws, mode=mode,
+                same_offset=same_offset, out_dtype=out_t,
+            )
+        centered = kernel_layout == "centered"
+        _check_centered_correlation(centered, correlation)
+        sk = _bank_from_stack(
+            kstack, khs, kws, spectral.fft_h, spectral.fft_w, centered,
+            spectral.re.dtype,
+        )
+    _check_not_aliased(spectral, sk.kernel_hs, sk.kernel_ws, mode)
+    d_re, d_im = _batched_planes(spectral)
+    plan = plan_bank(
+        sk.num_kernels, spectral.feature_dim, spectral.fft_h, spectral.fft_w,
+        batch=d_re.shape[0],
+        hbm_budget_bytes=_device_memory_budget(d_re.device),
+        store_bytes=sk.re.element_size(),
+    )
+    try:
+        if plan.chunk_size < sk.num_kernels:
+            maps = _conv_from_spectra_chunked(
+                d_re, d_im, sk.re, sk.im, spectral.fft_h, spectral.fft_w,
+                plan.chunk_size, out_t,
+            )
+        else:
+            maps = _conv_from_spectra(
+                d_re, d_im, sk.re, sk.im, spectral.fft_h, spectral.fft_w,
+            ).to(out_t)
+    except torch.OutOfMemoryError as exc:
+        raise MemoryError(_out_of_memory_message(exc, plan)) from exc
     return _trim(
-        maps, spectral, sk.kernel_hs, sk.kernel_ws, mode, batched,
-        same_offset=same_offset,
+        maps, spectral, sk.kernel_hs, sk.kernel_ws, mode, spectral.batched,
+        same_offset=same_offset, centered=sk.centered,
+    )
+
+
+def _out_of_memory_message(exc: Exception, plan: BankPlan) -> str:
+    return (
+        f"{exc}\n[cuda_fft_convolution_torch] the bank plan "
+        f"(chunk_size={plan.chunk_size}, est. peak "
+        f"{plan.peak_bytes >> 20} MiB) exceeded device memory — lower "
+        "Config.hbm_budget_bytes or hbm_fraction (FFTCONV_HBM_BUDGET_BYTES, "
+        "FFTCONV_HBM_FRACTION) to plan smaller chunks, or pass "
+        "conv_spectral_pipelined(chunk_size=...)"
+    )
+
+
+def _products_like(d_re, p_re, p_im):
+    """The bf16 serving tier stores its products bf16, as the JAX package
+    does (the MAC accumulated float32); float32 spectra keep float32
+    products."""
+    if d_re.dtype == torch.bfloat16:
+        return p_re.to(torch.bfloat16), p_im.to(torch.bfloat16)
+    return p_re, p_im
+
+
+def _conv_from_spectra(d_re, d_im, k_re, k_im, fft_h, fft_w) -> torch.Tensor:
+    """The MAC kernel over the bank, then one C2R inverse per (image,
+    kernel) → float32 maps (B, N, fft_h, fft_w), normalized by
+    1/(fft_h·fft_w). The products are released before the inverse runs,
+    so the pass peaks at the complex input, the C2R transform's copy and
+    the maps."""
+    p_re, p_im = _products_like(
+        d_re, *spectral_mac_auto_planes(d_re, d_im, k_re, k_im)
+    )
+    spec = torch.complex(p_re.to(torch.float32), p_im.to(torch.float32))
+    del p_re, p_im
+    return torch.fft.irfft2(spec, s=(fft_h, fft_w))
+
+
+def _conv_from_spectra_chunked(
+    d_re, d_im, k_re, k_im, fft_h, fft_w, chunk_size: int,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """``_conv_from_spectra`` a chunk of ``chunk_size`` kernels at a time
+    (≈ the streams variant's round-robin, src/cudaConvFFTDataStreams.cu:
+    338-469), each chunk written into the preallocated (B, N, fft_h,
+    fft_w) maps in ``out_dtype``: the peak is the maps plus one chunk's
+    temporaries. Bank slices along N are views; the last chunk is the
+    shorter remainder."""
+    n = k_re.shape[0]
+    out = torch.empty(
+        (d_re.shape[0], n, fft_h, fft_w), dtype=out_dtype, device=d_re.device
+    )
+    for s in range(0, n, chunk_size):
+        e = min(s + chunk_size, n)
+        out[:, s:e] = _conv_from_spectra(
+            d_re, d_im, k_re[s:e], k_im[s:e], fft_h, fft_w
+        )
+    return out
+
+
+def _conv_from_spatial_chunked(
+    d_re, d_im, kstack, fft_h, fft_w, chunk_size: int,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The streaming-spatial pipeline: kernel spectra are never resident.
+    Each chunk of spatial kernels (N, F, Kh, Kw) is transformed in float32,
+    multiplied against the data by the MAC kernel and inverted into the
+    preallocated maps — the reference's own regime (src/cudaConvFFTData.cu:
+    191-282). The kernel chunks are not rounded to the tier: bf16 data
+    planes are upcast to float32 once, giving the float32 product the JAX
+    package's mixed-dtype MAC gives; the products stay float32."""
+    d_re, d_im = d_re.to(torch.float32), d_im.to(torch.float32)
+    n = kstack.shape[0]
+    out = torch.empty(
+        (d_re.shape[0], n, fft_h, fft_w), dtype=out_dtype, device=d_re.device
+    )
+    for s in range(0, n, chunk_size):
+        e = min(s + chunk_size, n)
+        k_re, k_im = rfft2_padded_planes(kstack[s:e], fft_h, fft_w)
+        out[:, s:e] = _conv_from_spectra(d_re, d_im, k_re, k_im, fft_h, fft_w)
+        del k_re, k_im
+    return out
+
+
+def _conv_spectral_streaming_spatial(
+    spectral: SpectralData,
+    kstack: torch.Tensor,  # (N, F, Kh, Kw) spatial, correlation flip applied
+    khs: tuple,
+    kws: tuple,
+    *,
+    mode: str,
+    same_offset: str = "scipy",
+    out_dtype: torch.dtype = torch.float32,
+):
+    """conv_spectral for a bank too large to hold as resident spectra: the
+    chunked on-the-fly transform, MAC and inverse, chunks sized by
+    ``runtime/planner.py plan_streaming``."""
+    _check_not_aliased(spectral, khs, kws, mode)
+    d_re, d_im = _batched_planes(spectral)
+    plan = plan_streaming(
+        kstack.shape[0], spectral.feature_dim, spectral.fft_h, spectral.fft_w,
+        batch=d_re.shape[0],
+        hbm_budget_bytes=_device_memory_budget(d_re.device),
+        store_bytes=d_re.element_size(),
+        stack_bytes=kstack.numel() * kstack.element_size(),
+    )
+    try:
+        maps = _conv_from_spatial_chunked(
+            d_re, d_im, kstack, spectral.fft_h, spectral.fft_w,
+            plan.chunk_size, out_dtype,
+        )
+    except torch.OutOfMemoryError as exc:
+        raise MemoryError(_out_of_memory_message(exc, plan)) from exc
+    return _trim(
+        maps, spectral, khs, kws, mode, spectral.batched, same_offset=same_offset
     )
 
 
@@ -610,9 +961,11 @@ def _conv_spectral_tiled(
     correlation: bool,
     same_offset: str = "scipy",
     out_dtype: torch.dtype = torch.float32,
+    chunk_size: int | None = None,
 ):
     """Overlap-save bank convolution against precomputed block spectra,
-    maps in ``out_dtype``."""
+    maps in ``out_dtype``, ``chunk_size`` kernels at a time (None: the
+    tiled memory model, ``_tiled_chunk_size``)."""
     validate(
         mode != "fftmap" or spectral.fftmap_canvas,
         "mode='fftmap' (raw circular maps) needs spectra with the FFT "
@@ -648,13 +1001,12 @@ def _conv_spectral_tiled(
             "would wrap. Recompute fft_data_tiled(trim_mode='fftmap') with "
             "larger trim_kernel dims",
         )
-    batched = spectral.batched
-    d_re = spectral.re if batched else spectral.re[None]
-    d_im = spectral.im if batched else spectral.im[None]
-    chunk = _tiled_chunk_size(spectral, d_re, sk.num_kernels)
-    maps = _tiled_chunked_maps(spectral, d_re, d_im, sk, chunk, out_dtype)
+    d_re, d_im = _batched_planes(spectral)
+    if chunk_size is None:
+        chunk_size = _tiled_chunk_size(spectral, d_re, sk.num_kernels)
+    maps = _tiled_chunked_maps(spectral, d_re, d_im, sk, chunk_size, out_dtype)
     return _trim(
-        maps, spectral, sk.kernel_hs, sk.kernel_ws, mode, batched,
+        maps, spectral, sk.kernel_hs, sk.kernel_ws, mode, spectral.batched,
         same_offset=same_offset,
     )
 
@@ -690,7 +1042,8 @@ def _tiled_chunked_maps(
     out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Run the bank through conv_blocks in ``chunk_size`` slices (one call
-    when the whole bank fits), maps in ``out_dtype``."""
+    when the whole bank fits), maps in ``out_dtype``; chunks are written
+    into the preallocated maps, so the peak is the maps plus one chunk."""
     n = sk.num_kernels
     geom = (
         spectral.block_h, spectral.block_w, spectral.max_kh, spectral.max_kw,
@@ -698,12 +1051,89 @@ def _tiled_chunked_maps(
     )
     if chunk_size >= n:
         return conv_blocks(d_re, d_im, sk.re, sk.im, *geom, out_dtype)
-    outs = [
-        conv_blocks(d_re, d_im, sk.re[s : s + chunk_size],
-                    sk.im[s : s + chunk_size], *geom, out_dtype)
-        for s in range(0, n, chunk_size)
-    ]
-    return torch.cat(outs, dim=1)
+    out = torch.empty(
+        (d_re.shape[0], n, spectral.out_h, spectral.out_w), dtype=out_dtype,
+        device=d_re.device,
+    )
+    for s in range(0, n, chunk_size):
+        e = min(s + chunk_size, n)
+        out[:, s:e] = conv_blocks(d_re, d_im, sk.re[s:e], sk.im[s:e], *geom, out_dtype)
+    return out
+
+
+def conv_spectral_pipelined(
+    spectral: SpectralData | TiledSpectralData,
+    kernels,
+    *,
+    chunk_size: int | None = None,
+    mode: str = "fftmap",
+    correlation: bool = False,
+    use_pallas: bool | None = None,
+    same_offset: str = "scipy",
+    out_dtype: str | None = None,
+):
+    """Memory-bounded bank convolution — ≈ ``cudaConvFFTDataStreams``
+    (src/cudaConvFFTDataStreams.cu): the bank runs ``chunk_size`` kernels at
+    a time, on direct spectra (``SpectralData``: the MAC kernel and one
+    inverse per kernel, chunks written into the preallocated maps) or on
+    overlap-save block spectra (``TiledSpectralData``: the fused block-conv
+    a chunk at a time). The maps equal ``conv_spectral``'s.
+
+    ``chunk_size=None`` takes ``Config.chunk_size`` (``FFTCONV_CHUNK``), and
+    when that is None too the planner sizes the chunks from the device
+    budget (``runtime/planner.py plan_bank`` — the decision the reference
+    hard-codes as 2 slots). ``use_pallas`` is accepted with no effect, as
+    in ``conv_spectral``."""
+    validate(mode in _MODES, f"mode must be one of {_MODES}")
+    out_t = _resolve_out_dtype(out_dtype)
+    _check_clamp_mode(spectral, mode)
+    tiled = isinstance(spectral, TiledSpectralData)
+    if isinstance(kernels, SpectralKernels):
+        sk = kernels
+        _check_bank(sk, spectral, correlation)
+    else:
+        sk = fft_kernels(
+            kernels, spectral=spectral, correlation=correlation,
+            store_dtype=_store_dtype_of(spectral),
+        )
+    if chunk_size is None:
+        chunk_size = get_config().chunk_size
+    if chunk_size is None:
+        fft_h = spectral.block_h if tiled else spectral.fft_h
+        fft_w = spectral.block_w if tiled else spectral.fft_w
+        batch = spectral.re.shape[0] if spectral.batched else 1
+        if tiled:
+            batch *= np_prod_blocks(spectral)
+        chunk_size = plan_bank(
+            sk.num_kernels, spectral.feature_dim, fft_h, fft_w, batch=batch,
+            hbm_budget_bytes=_device_memory_budget(spectral.re.device),
+            store_bytes=sk.re.element_size(),
+        ).chunk_size
+    validate(chunk_size >= 1, "chunk_size must be >= 1")
+    chunk_size = min(chunk_size, sk.num_kernels)
+    if tiled:
+        validate(not sk.centered, _CENTERED_TILED_MSG)
+        return _conv_spectral_tiled(
+            spectral, sk, mode=mode, correlation=False,
+            same_offset=same_offset, out_dtype=out_t, chunk_size=chunk_size,
+        )
+    _check_direct_bank(sk, spectral)
+    _check_not_aliased(spectral, sk.kernel_hs, sk.kernel_ws, mode)
+    d_re, d_im = _batched_planes(spectral)
+    maps = _conv_from_spectra_chunked(
+        d_re, d_im, sk.re, sk.im, spectral.fft_h, spectral.fft_w, chunk_size,
+        out_t,
+    )
+    return _trim(
+        maps, spectral, sk.kernel_hs, sk.kernel_ws, mode, spectral.batched,
+        same_offset=same_offset, centered=sk.centered,
+    )
+
+
+def np_prod_blocks(spectral: TiledSpectralData) -> int:
+    """The number of overlap-save blocks of one image (nbh · nbw)."""
+    shape = spectral.re.shape
+    return int(shape[-5] * shape[-4])
 
 
 def fft_conv(
@@ -734,10 +1164,22 @@ def fft_conv(
     direct. ``max_kernel_h/w`` may be omitted (inferred from the bank).
     Uniform banks with mode 'same'/'valid' bake the window into the block
     tiling, and mode 'fftmap' bakes the direct engine's canvas.
-    ``use_pallas`` as in ``conv_spectral``. ``store_dtype='bfloat16'`` runs
-    every spectrum at the bf16 serving tier (see ``fft_data``);
-    ``out_dtype='bfloat16'`` stores the maps bf16 (see ``conv_spectral``);
-    the two compose."""
+
+    ``padding='clamp'`` replicates edge pixels through the pad (see
+    ``fft_data``) and pairs with mode 'same', 'fftmap' or 'valid';
+    ``kernel_layout='centered'`` wraps kernel centres to the origin for
+    un-shifted maps (see ``fft_kernels``); both run on the direct engine
+    (``algorithm='tiled'`` with them is an error). ``same_offset='matlab'``
+    takes MATLAB conv2's Kh//2 'same' offset (scipy's is (Kh−1)//2).
+
+    A ragged cell list whose kernels span pow-2 size envelopes (the
+    reference demo's scenario, demoCudaConvolutionFFT.m:41-43) is bucketed
+    by envelope for linear modes (``bucket_ragged=True``): each bucket runs
+    its own ``fft_conv`` at its own FFT or block size, and the maps come
+    back in input order. ``use_pallas`` as in ``conv_spectral``.
+    ``store_dtype='bfloat16'`` runs every spectrum at the bf16 serving tier
+    (see ``fft_data``); ``out_dtype='bfloat16'`` stores the maps bf16 (see
+    ``conv_spectral``); the two compose."""
     validate(kernels is not None, "kernels is required")
     validate(mode in _MODES, f"mode must be one of {_MODES}")
     _resolve_out_dtype(out_dtype)
@@ -747,18 +1189,45 @@ def fft_conv(
         "algorithm must be 'auto', 'direct', or 'tiled'",
     )
     _check_padding_layout(padding, kernel_layout)
+    if padding == "clamp" or kernel_layout == "centered":
+        validate(
+            algorithm != "tiled",
+            "padding='clamp' / kernel_layout='centered' require the direct "
+            "engine (algorithm='direct' or 'auto')",
+        )
+        algorithm = "direct"
+    validate(
+        padding != "clamp" or mode in ("same", "fftmap", "valid"),
+        "padding='clamp' pairs with mode 'same', 'fftmap', or 'valid' — a "
+        "'full' window mixes the far-edge band with the wrap-to-origin "
+        "replicas (the pad regions exist to serve 'same' edge outputs, "
+        "src/convolutionFFTkernel.cu:65-74)",
+    )
     if (
         bucket_ragged
-        and mode != "fftmap"
+        and mode != "fftmap"  # fftmap's raw-map shape is FFT-size-defined
         and isinstance(kernels, (list, tuple))
         and len(kernels) > 1
     ):
-        _not_ported(
-            _bucket_ragged(kernels) is not None,
-            "ragged bucketing (pass bucket_ragged=False to run the bank at "
-            "its largest kernel size)",
-            "queue 1 item 5",
-        )
+        buckets = _bucket_ragged(kernels)
+        if buckets is not None:
+            data = as_tensor(data, device)
+            results: list = [None] * len(kernels)
+            for idx in buckets:
+                sub = [kernels[i] for i in idx]
+                out = fft_conv(
+                    data, None, None, sub, mode=mode,
+                    correlation=correlation, policy=policy,
+                    algorithm=algorithm, bucket_ragged=False,
+                    padding=padding, kernel_layout=kernel_layout,
+                    same_offset=same_offset, store_dtype=store_dtype,
+                    out_dtype=out_dtype,
+                )
+                if not isinstance(out, list):  # a uniform bucket: stacked maps
+                    out = [out[..., i, :, :] for i in range(len(sub))]
+                for i, o in zip(idx, out):
+                    results[i] = o
+            return results
     if isinstance(kernels, (list, tuple)):
         kshapes = {(int(k.shape[0]), int(k.shape[1])) for k in kernels}
     else:
@@ -809,9 +1278,11 @@ def fft_conv(
     # algorithm == 'direct', or 'auto' with the planner declining to tile
     spectral = fft_data(
         data, max_kernel_h, max_kernel_w, policy=policy, device=device,
+        padding=padding, same_offset=same_offset, kernel_layout=kernel_layout,
         store_dtype=store_dtype,
     )
     return conv_spectral(
         spectral, kernels, mode=mode, correlation=correlation,
-        same_offset=same_offset, out_dtype=out_dtype,
+        same_offset=same_offset, kernel_layout=kernel_layout,
+        out_dtype=out_dtype,
     )

@@ -116,8 +116,8 @@ def _ragged_same_maps(
     """Stacked 'same' score maps for a mixed-size cell array: every 'same'
     map is data-sized, so the per-cell maps stack into one (…, N, H, W)
     tensor and the reduction runs once across the cell array. Raw arrays
-    go through ``fft_conv``, which raises where its ragged bucketing (not
-    ported, ROADMAP queue 1 item 5) would be needed."""
+    go through ``fft_conv``, which buckets a cell array that spans pow-2
+    size envelopes (each bucket at its own FFT or block size)."""
     if isinstance(data, (SpectralData, TiledSpectralData)):
         # precomputed banks carry their flip already (fft_kernels
         # correlation=...), matching the uniform heads' contract

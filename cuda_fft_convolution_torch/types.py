@@ -29,9 +29,8 @@ class SpectralData:
     fft_w: int
     data_h: int
     data_w: int
-    # Border-clamp padding state of the JAX package (padding='clamp'); the
-    # port computes zero-padded spectra only (clamp=False, bands −1);
-    # conv_spectral rejects clamp spectra a JAX checkpoint may carry.
+    # Border-clamp padding (fft_data(padding='clamp')): the far-edge band
+    # the data was padded with, −1 for zero padding.
     clamp: bool = False
     band_h: int = -1
     band_w: int = -1
@@ -107,9 +106,10 @@ class SpectralKernels:
     # Per-kernel true spatial sizes (pre-padding), for trimming modes.
     kernel_hs: tuple
     kernel_ws: tuple
-    # JAX-package layouts not ported yet (centered anchors: ROADMAP queue 1
-    # item 1; flat lane-packed storage is a TPU tiling layout): always False
-    # here, and rejected when a checkpoint carries them.
+    # centered: each kernel's centre wrapped to the origin
+    # (kernel_layout='centered'). flat: the JAX package's lane-packed
+    # (N, F, fft_h·Wc) layout, a TPU tiling layout; the port stores planar
+    # planes, so it is False here (a flat checkpoint is unpacked on load).
     centered: bool = False
     flat: bool = False
 

@@ -6,7 +6,10 @@ The keys are those of ``cuda_fft_convolution_tpu/utils/checkpoint.py``:
 as −1. A bank's spectra or an image's block spectra saved by either package
 load into the other's containers. Spectra of the bf16 serving tier are
 saved as f32 planes (``.npz`` has no bfloat16; the widening is exact) with
-``store_dtype='bfloat16'``, and a load restores the tier.
+``store_dtype='bfloat16'``, and a load restores the tier. A JAX flat bank
+(planes (N, F, fft_h·Wc), ``flat=True``) is unpacked on load to the port's
+planar (N, F, fft_h, Wc) planes with ``flat=False``; saving is always
+planar, which the JAX package loads as such.
 """
 
 from __future__ import annotations
@@ -92,6 +95,15 @@ def from_numpy(fields, device=None):
             kwargs[f.name] = None
         else:
             kwargs[f.name] = int(v)
+    if kwargs.get("flat"):
+        shape = (*kwargs["re"].shape[:2], kwargs["fft_h"], kwargs["fft_w"] // 2 + 1)
+        validate(
+            kwargs["re"].shape[-1] == shape[2] * shape[3],
+            f"flat bank planes {tuple(kwargs['re'].shape)} do not pack "
+            f"(fft_h, fft_w//2+1) = {shape[2:]}",
+        )
+        kwargs.update(re=kwargs["re"].reshape(shape), im=kwargs["im"].reshape(shape),
+                      flat=False)
     return cls(**kwargs)
 
 

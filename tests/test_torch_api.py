@@ -1,7 +1,8 @@
 """The port's public API against the JAX package's and the float64 oracles:
 ``fft_conv`` over modes, engines, correlation, batches and ragged banks;
-the amortized entry points; options not ported yet; and the spectral
-checkpoint carried across the two packages in both directions."""
+the amortized entry points; options of the JAX package, each now ported;
+and the spectral checkpoint carried across the two packages in both
+directions."""
 
 import dataclasses
 
@@ -11,8 +12,14 @@ import torch
 
 import cuda_fft_convolution_torch as tfc
 import cuda_fft_convolution_tpu as jfc
+from cuda_fft_convolution_torch import api as tapi
 from cuda_fft_convolution_torch.ops import tiled as tt
-from tests.oracles import fft_conv_full_f64, fft_map_f64, rel_err
+from tests.oracles import (
+    conv_same_nearest_f64,
+    fft_conv_full_f64,
+    fft_map_f64,
+    rel_err,
+)
 
 TOL = 1e-5
 
@@ -123,13 +130,23 @@ def test_ragged_bank_matches_jax(rng, correlation):
 
 
 def test_ragged_bucketing_not_ported(rng):
+    """Ragged bucketing (ROADMAP queue 1 item 5) is ported: a cell array
+    spanning pow-2 envelopes runs each bucket at its own plan and returns
+    the maps per kernel in input order, equal to the JAX package's; a cell
+    array of one envelope runs unbucketed, as there."""
     data = rng.standard_normal((60, 60, 1)).astype(np.float32)
-    bank = [np.ones((3, 3, 1), np.float32), np.ones((20, 20, 1), np.float32)]
-    with pytest.raises(tfc.InvalidInputError, match="queue 1 item 5"):
-        tfc.fft_conv(data, kernels=bank, mode="same", device="cpu")
-    # one pow-2 envelope: nothing to bucket, so the default runs
-    same_env = [np.ones((9, 13, 1), np.float32), np.ones((12, 10, 1), np.float32)]
-    assert len(tfc.fft_conv(data, kernels=same_env, mode="same", device="cpu")) == 2
+    bank = [rng.standard_normal((3, 3, 1)).astype(np.float32),
+            rng.standard_normal((20, 20, 1)).astype(np.float32)]
+    same_env = [rng.standard_normal((9, 13, 1)).astype(np.float32),
+                rng.standard_normal((12, 10, 1)).astype(np.float32)]
+    assert tapi._bucket_ragged(bank) == [[0], [1]] and tapi._bucket_ragged(same_env) is None
+    for cells in (bank, same_env):
+        got = tfc.fft_conv(data, kernels=cells, mode="same", device="cpu")
+        want = jfc.fft_conv(data, kernels=cells, mode="same")
+        assert isinstance(got, list) and len(got) == 2
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == w.shape == (60, 60)
+            assert rel_err(g.numpy(), np.asarray(w)) < TOL
 
 
 @pytest.mark.parametrize(
@@ -143,15 +160,28 @@ def test_ragged_bucketing_not_ported(rng):
     ],
 )
 def test_options_not_ported_raise(rng, kwargs, item):
-    """Options whose ROADMAP item is open raise naming it. Queue 2 item 1
-    (``use_pallas=True``, the spectral-MAC kernel) is ported, and the port
-    runs the kernel path whatever the option says: its case checks the
-    option against the default call and the JAX package. Queue 1 item 6
-    (the bf16 tier and bf16 maps) is ported: its cases check the maps'
-    dtype and values against the JAX call (2e-2, the tier's bar) and the
-    float32 call (the same bar)."""
+    """Every option here is ported now, so each case checks the ported
+    behaviour. Queue 1 item 1 (``padding='clamp'``, ``kernel_layout=
+    'centered'``): the maps against the JAX call and the float64 oracle,
+    replicated borders or the matlab-anchored window. Queue 2 item 1
+    (``use_pallas=True``, the spectral-MAC kernel): the port runs the
+    kernel path whatever the option says, checked against the default call
+    and the JAX package. Queue 1 item 6 (the bf16 tier and bf16 maps): the
+    maps' dtype and values against the JAX call (2e-2, the tier's bar) and
+    the float32 call (the same bar)."""
     data = rng.standard_normal((40, 40, 1)).astype(np.float32)
     bank = rng.standard_normal((2, 5, 5, 1)).astype(np.float32)
+    if item == "queue 1 item 1":
+        got = tfc.fft_conv(data, kernels=bank, mode="same", device="cpu", **kwargs)
+        want = jfc.fft_conv(data, kernels=bank, mode="same", **kwargs)
+        assert rel_err(got.numpy(), np.asarray(want)) < TOL
+        for g, k in zip(got.numpy(), bank):
+            if "padding" in kwargs:
+                ref = conv_same_nearest_f64(data[:, :, 0], k[:, :, 0], 2, 2)
+            else:
+                ref = fft_conv_full_f64(data, k)[2:42, 2:42]
+            assert rel_err(g, ref) < TOL
+        return
     if item == "queue 1 item 6":
         for algorithm in ("direct", "tiled"):
             kw = dict(mode="same", algorithm=algorithm, **kwargs)
@@ -172,9 +202,6 @@ def test_options_not_ported_raise(rng, kwargs, item):
                                     **kwargs)
             assert rel_err(got.numpy(), want.numpy()) < TOL
             assert rel_err(got.numpy(), np.asarray(jax_maps)) < TOL
-        return
-    with pytest.raises(tfc.InvalidInputError, match=item):
-        tfc.fft_conv(data, kernels=bank, mode="same", **kwargs, device="cpu")
 
 
 def test_amortized_paths_match_one_shot(bank_case):
@@ -323,10 +350,13 @@ def test_checkpoint_port_to_jax_round_trip(tmp_path, bank_case):
         assert _meta(back) == _meta(spec)
 
 
-def test_checkpoint_rejects_layouts_not_ported():
-    """bf16-tier spectra (ported) load at their tier and an unknown store
-    dtype is refused; clamp spectra load but do not convolve (queue 1
-    item 1)."""
+def test_checkpoint_rejects_layouts_not_ported(tmp_path, rng):
+    """bf16-tier spectra load at their tier and an unknown store dtype is
+    refused. Clamp spectra (ROADMAP queue 1 item 1) load and convolve: a
+    JAX clamp checkpoint gives the JAX maps, and a band the kernels' anchor
+    cannot serve is the JAX package's error. A JAX flat bank (queue 1 item
+    5) loads unpacked to planar planes (flat=False) and gives the JAX
+    maps."""
     fields = dict(kind=np.asarray("SpectralData"), store_dtype=np.asarray("bfloat16"),
                   fft_re=np.full((1, 4, 3), 1.5, np.float32),
                   fft_im=np.zeros((1, 4, 3), np.float32),
@@ -340,5 +370,18 @@ def test_checkpoint_rejects_layouts_not_ported():
     spec = tfc.from_numpy({**fields, "clamp": np.asarray(True), "band_h": np.asarray(1)},
                           device="cpu")
     assert spec.clamp is True and spec.band_h == 1 and spec.band_w == -1
-    with pytest.raises(tfc.InvalidInputError, match="queue 1 item 1"):
+    with pytest.raises(tfc.InvalidInputError, match="band mismatch on the W axis"):
         tfc.conv_spectral(spec, np.ones((1, 2, 2, 1), np.float32), mode="same")
+    data = rng.standard_normal((30, 26, 2)).astype(np.float32)
+    bank = rng.standard_normal((3, 5, 4, 2)).astype(np.float32)
+    jspec = jfc.fft_data(data, 5, 4, padding="clamp")
+    jbank = jfc.fft_kernels(bank, spectral=jfc.fft_data(data, 5, 4), storage="flat")
+    assert jbank.flat
+    jfc.save_spectral(str(tmp_path / "d.npz"), jspec)
+    jfc.save_spectral(str(tmp_path / "k.npz"), jbank)
+    spec = tfc.load_spectral(str(tmp_path / "d.npz"), device="cpu")
+    bank_spec = tfc.load_spectral(str(tmp_path / "k.npz"), device="cpu")
+    assert spec.clamp and (spec.band_h, spec.band_w) == (2, 1)
+    assert bank_spec.flat is False and bank_spec.re.ndim == 4
+    got = tfc.conv_spectral(spec, bank_spec, mode="same")
+    assert rel_err(got.numpy(), _jax_maps(jspec, jbank, "same")) < TOL

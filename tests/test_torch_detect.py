@@ -342,6 +342,58 @@ def test_detect_top_k_fused_planted_cells(rng):
     assert np.array_equal(bp[0, :, 1].numpy(), jx[0, 0])
 
 
+def test_fused_top_k_cells_against_jax_grouped_cells(rng, monkeypatch):
+    """The documented difference of the fused top-k (ROADMAP queue 2 item
+    7): JAX's ``conv_blocks_top_k``, forced onto its fused branch and run
+    through ``block_conv_peaks_pallas`` in interpret mode at mbh = mbw = 2,
+    takes its candidates from cells of 2×2 blocks; the port's from cells of
+    one block. Top-1 is equal; the port's k values dominate JAX's slot by
+    slot; every JAX hit above the port's k-th value is among the port's
+    hits; and two plants in one JAX cell but in two blocks are both port
+    hits, where JAX returns one of them and a cell's noise maximum."""
+    from cuda_fft_convolution_tpu.ops import block_conv as jbc
+
+    templ = rng.standard_normal((5, 9, 1)).astype(np.float32)
+    data = 0.05 * rng.standard_normal((96, 600, 1)).astype(np.float32)
+    # blocks (36, 256), valid windows (32, 128): the centres (12, 44) and
+    # (52, 184) lie in blocks (0, 0) and (1, 1), one JAX cell (0, 0); the
+    # centre (72, 404) in block (2, 3), JAX cell (1, 1)
+    plants = [(10, 40), (50, 180), (70, 400)]
+    for y0, x0 in plants:
+        data[y0 : y0 + 5, x0 : x0 + 9] += 3.0 * templ
+    kw = dict(block_h=36, block_w=256, trim_mode="same", trim_kernel_h=5, trim_kernel_w=9)
+    sd = tfc.fft_data_tiled(data, 5, 129, **kw, device="cpu")
+    jsd = jfc.fft_data_tiled(data, 5, 129, **kw)
+    sk = tfc.fft_kernels(templ[None], spectral=sd, correlation=True)
+    jsk = jfc.fft_kernels(templ[None], spectral=jsd, correlation=True)
+    geom = (36, 256, 5, 129, 96, 600)
+    grouped = []
+
+    def pallas_2x2(*args, **kwargs):
+        grouped.append(kwargs["interpret"])
+        return block_conv_peaks_pallas(*args, **{**kwargs, "mbh": 2, "mbw": 2})
+
+    monkeypatch.setattr(jbc, "block_conv_peaks_pallas", pallas_2x2)
+    jfc.set_config(use_fused_block_conv=True)
+    try:
+        jv, jy, jx = jt.conv_blocks_top_k(jsd.re[None], jsd.im[None], jsk.re, jsk.im, *geom, 3)
+    finally:
+        jfc.set_config(use_fused_block_conv=None)
+    assert grouped == [True]  # the kernel function ran, in interpret mode
+    v, y, x = tt.conv_blocks_top_k(sd.re[None], sd.im[None], sk.re, sk.im, *geom, 3)
+    jv, jy, jx = (np.asarray(a)[0, 0] for a in (jv, jy, jx))
+    v, y, x = (a[0, 0].numpy() for a in (v, y, x))
+    atol = TOL * np.abs(jv).max()
+    assert (y[0], x[0]) == (jy[0], jx[0]) and abs(v[0] - jv[0]) <= atol
+    assert (v >= jv - atol).all()
+    ours = set(zip(y.tolist(), x.tolist()))
+    theirs = list(zip(jy.tolist(), jx.tolist()))
+    assert all(p in ours for p, val in zip(theirs, jv) if val > v[-1] + atol)
+    centres = {(y0 + 2, x0 + 4) for y0, x0 in plants}
+    assert ours == centres
+    assert len(centres & set(theirs)) == 2 and len({(12, 44), (52, 184)} & set(theirs)) == 1
+
+
 def test_detect_heads_ragged_and_not_ported(rng):
     data = rng.standard_normal((60, 60, 1)).astype(np.float32)
     # one pow-2 envelope: the ragged 'same' route runs without bucketing
@@ -351,10 +403,14 @@ def test_detect_heads_ragged_and_not_ported(rng):
     _same(detect_local_peaks(data, ragged, 4, device="cpu"), j_local_peaks(data, ragged, 4))
     with pytest.raises(tfc.InvalidInputError, match="mode='same'"):
         detect_top_k(data, ragged, mode="valid", device="cpu")
-    # envelopes that would need bucketing: ROADMAP queue 1 item 5
-    with pytest.raises(tfc.InvalidInputError, match="queue 1 item 5"):
-        detect_peaks(data, [np.ones((3, 3, 1), np.float32), np.ones((20, 20, 1), np.float32)],
-                     device="cpu")
+    # envelopes that need bucketing (ROADMAP queue 1 item 5, ported): the
+    # cell array is bucketed, each bucket at its own plan, as in JAX
+    spans = [rng.standard_normal((3, 3, 1)).astype(np.float32),
+             rng.standard_normal((20, 20, 1)).astype(np.float32),
+             rng.standard_normal((5, 4, 1)).astype(np.float32)]
+    _same(detect_peaks(data, spans, device="cpu"), j_peaks(data, spans))
+    _same(detect_top_k(data, spans, 3, device="cpu"), j_top_k(data, spans, 3))
+    _same(detect_local_peaks(data, spans, 4, device="cpu"), j_local_peaks(data, spans, 4))
     bank = rng.standard_normal((2, 5, 5, 1)).astype(np.float32)
     # the bf16 tier and bf16 maps (queue 1 item 6) are ported: the heads run
     # them, at the positions of the JAX heads (tests/test_torch_bf16.py

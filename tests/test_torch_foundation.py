@@ -154,6 +154,17 @@ def test_port_imports_with_jax_blocked():
         "import cuda_fft_convolution_torch as fc\n"
         "import cuda_fft_convolution_torch._build\n"
         "from cuda_fft_convolution_torch.models import detect_peaks\n"
+        "from cuda_fft_convolution_torch.ops.padding import (\n"
+        "    pad_clamp_to_border, pad_kernel_centered)\n"
+        "from cuda_fft_convolution_torch.runtime.planner import plan_bank\n"
+        "assert plan_bank(100, 1, 2160, 2160, 8).chunk_size >= 1\n"
+        "clamp = fc.fft_conv(np.ones((40, 40, 1), np.float32),\n"
+        "                    kernels=np.ones((2, 5, 5, 1), np.float32), mode='same',\n"
+        "                    padding='clamp', kernel_layout='centered', device='cpu')\n"
+        "assert abs(float(clamp.min()) - 25.0) < 1e-3\n"
+        "sd = fc.fft_data(np.ones((40, 40, 1), np.float32), 5, 5, device='cpu')\n"
+        "assert tuple(fc.conv_spectral_pipelined(sd, np.ones((3, 5, 5, 1), np.float32),\n"
+        "    chunk_size=2, mode='same').shape) == (3, 40, 40)\n"
         "out = fc.fft_conv(np.ones((40, 40, 1), np.float32),\n"
         "                  kernels=np.ones((2, 5, 5, 1), np.float32), mode='same',\n"
         "                  device='cpu')\n"

@@ -334,3 +334,76 @@ def test_detect_peaks_bf16_tier_on_gpu(cuda):
     assert vals.dtype == torch.float32
     want = torch.tensor([(y0 + 8, x0 + 16) for y0, x0 in corners], dtype=torch.int32)
     assert torch.equal(pos.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [dict(padding="clamp"), dict(kernel_layout="centered"),
+                                  dict(padding="clamp", same_offset="matlab")],
+                         ids=["clamp", "centered", "clamp-matlab"])
+def test_clamp_and_centered_on_gpu_match_cpu(cuda, opts):
+    """Clamp padding and centered kernels run the direct engine on the card,
+    through the MAC kernel, and equal the CPU call."""
+    from cuda_fft_convolution_torch.ops import spectral_mac as tmac
+
+    rng = np.random.default_rng(31)
+    data = rng.standard_normal((300, 500, 2)).astype(np.float32)
+    bank = rng.standard_normal((4, 17, 32, 2)).astype(np.float32)
+    before = tmac.spectral_mac.launches
+    got = tfc.fft_conv(data, kernels=bank, mode="same", device=cuda, **opts)
+    torch.cuda.synchronize()
+    assert tmac.spectral_mac.launches == before + 1
+    want = tfc.fft_conv(data, kernels=bank, mode="same", device="cpu", **opts)
+    assert got.is_cuda and got.shape == want.shape
+    assert _rel(got.cpu(), want) <= TOL
+
+
+@pytest.mark.gpu
+def test_ragged_bucketing_on_gpu(cuda):
+    """A cell array spanning three pow-2 envelopes: each bucket launches the
+    fused kernel at its own plan; the maps equal the CPU call's."""
+    rng = np.random.default_rng(33)
+    data = rng.standard_normal((512, 512, 1)).astype(np.float32)
+    bank = [rng.standard_normal((s, s, 1)).astype(np.float32) for s in (9, 33, 17, 64, 9)]
+    before = tbc.block_conv.launches
+    got = tfc.fft_conv(data, kernels=bank, mode="same", device=cuda)
+    torch.cuda.synchronize()
+    assert tbc.block_conv.launches == before + 3
+    want = tfc.fft_conv(data, kernels=bank, mode="same", device="cpu")
+    for g, w in zip(got, want):
+        assert g.is_cuda and _rel(g.cpu(), w) <= TOL
+
+
+@pytest.mark.gpu
+def test_chunked_streaming_and_pipelined_on_gpu(cuda):
+    """The direct engine's chunked, streaming-spatial and pipelined paths on
+    the card, forced through Config.hbm_budget_bytes and chunk_size: one MAC
+    launch a chunk, maps equal to the whole-bank call."""
+    from cuda_fft_convolution_torch.ops import spectral_mac as tmac
+    from cuda_fft_convolution_torch.runtime import planner
+
+    rng = np.random.default_rng(35)
+    data = rng.standard_normal((2, 200, 300, 3)).astype(np.float32)
+    bank = rng.standard_normal((9, 12, 12, 3)).astype(np.float32)
+    sd = tfc.fft_data(data, 12, 12, device=cuda)
+    sk = tfc.fft_kernels(bank, spectral=sd)
+    whole = tfc.conv_spectral(sd, sk, mode="same")
+    piped = tfc.conv_spectral_pipelined(sd, sk, chunk_size=4, mode="same")
+    resident = planner.spectra_bytes(9, 3, sd.fft_h, sd.fft_w)
+    try:
+        for nbytes, raw in ((resident + 2 * 9 * 4 * sd.fft_h * sd.fft_w, False),
+                            (resident, True)):
+            tfc.set_config(hbm_budget_bytes=nbytes)
+            before = tmac.spectral_mac.launches
+            got = tfc.conv_spectral(sd, bank if raw else sk, mode="same")
+            torch.cuda.synchronize()
+            assert tmac.spectral_mac.launches - before > 1  # chunked
+            assert _rel(got, whole) <= 1e-6
+    finally:
+        tfc.set_config(hbm_budget_bytes=None)
+    assert _rel(piped, whole) <= 1e-6
+    tiled = tfc.fft_data_tiled(data, 12, 12, trim_mode="same", device=cuda)
+    before = tbc.block_conv.launches
+    got = tfc.conv_spectral_pipelined(tiled, bank, chunk_size=4, mode="same")
+    torch.cuda.synchronize()
+    assert tbc.block_conv.launches == before + 3
+    assert _rel(got, tfc.conv_spectral(tiled, bank, mode="same")) <= 1e-6
