@@ -86,10 +86,43 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      spectra (the MAC kernel, chunks of 16), each against ``conv_spectral``
      on the same spectra (1e-6) and 2 maps against float64 (1e-5).
 
-Steps 13–17 print each check, each time (CUDA events, median of 7) beside
-the card's name and power limit, the kernel launches of each call, the
-planner's plans and each phase's peak allocation; the smoke fails if its
-peak allocation reaches 60 GiB.
+ 18. plans at the headline (``runtime/plan.py``): a tiled 'same' plan whose
+     ``execute`` maps equal ``fft_conv``'s bitwise and are within 1e-5 of
+     float64 on 8 maps, ``execute_spectral`` and ``execute`` timed beside
+     ``fft_conv``; a direct 'fftmap' plan (the MAC kernel) against float64
+     circular maps; a ``head='peaks'`` plan on the detection headline that
+     finds all 100 planted centres, equal to ``detect_peaks``' positions;
+ 19. ``ConvStream`` headline serving: 16 seeded host (numpy) frames at depth
+     3 (the pinned ring), each frame's maps bitwise equal to the synchronous
+     plan's for that frame, with an ``update_kernels`` swap before frame 8;
+     the steady-state ms a frame at depths 1 and 3 beside 16 synchronous
+     ``plan.execute`` calls (wall time between synchronizes over the
+     count); the host time of a submit into a queue with room (one frame
+     ahead in flight), under ``torch.cuda.set_sync_debug_mode('error')``,
+     which must stay below 25% of one frame's device time (min of 7 CUDA
+     event runs): more would show a hidden synchronisation;
+ 20. detection serving: ``ConvStream(head='peaks')`` on 8 detection-headline
+     frames (new noise, the same plants): all 100 plants in every frame,
+     equal to each frame's ``detect_peaks``; ms a frame beside it;
+ 21. the DPM detector loop at the tier: 8 frames of HOG features of 4096²
+     images with the 8 filters planted, ``ConvStream(head='peaks',
+     store_dtype='bfloat16')`` at depth 3 (the stacked kernel): the planted
+     filters found in every frame; ms a frame beside the synchronous plan;
+ 22. ``RaggedConvStream`` on configs[1]'s cell array: four exact-shape groups
+     on the tiled and the direct engine, every map within 1e-5 of float64
+     and of ``fft_conv``'s buckets; with ``head='peaks'`` all 16 planted
+     cells found; ms a frame beside ``fft_conv``'s ragged call;
+ 23. the tuner at the headline shape: ``autotune_block_geometry((2048, 2048,
+     1), 64, 64, n_kernels=32)`` over ``default_candidates(64, 64)`` and the
+     analytic (64, 384); a table of candidate → ms and fused flag; the
+     winner registered under the card's name and returned by
+     ``choose_block_plan``; ``fft_conv`` at the winner within 1e-5 of
+     float64 on 8 maps, timed beside the analytic plan; the table cleared.
+
+Steps 13–23 print each check, each time (CUDA events, median of 7, unless
+said otherwise) beside the card's name and power limit, the kernel launches
+of each call, the planner's plans and each phase's peak allocation; the
+smoke fails if its peak allocation reaches 60 GiB.
 
 It prints one JSON line describing every kernel mode (the float32 and bf16
 entries of the three kernels: launches on the main path, error, time,
@@ -432,15 +465,10 @@ def detection_headline(fc, seed):
         top_k_ordered,
     )
 
-    s, n, k, g = DETECT["size"], DETECT["n"], DETECT["k"], DETECT["grid"]
+    s, n, k = DETECT["size"], DETECT["n"], DETECT["k"]
     rng = np.random.default_rng(seed)
-    image = rng.standard_normal((s, s, 1)).astype(np.float32)
     bank = rng.standard_normal((n, k, k, 1)).astype(np.float32)
-    at = [DETECT["offset"] + DETECT["stride"] * i for i in range(g)]
-    plants = [(y0, x0) for y0 in at for x0 in at]
-    assert len(plants) == n
-    for t, (y0, x0) in enumerate(plants):
-        image[y0 : y0 + k, x0 : x0 + k, 0] += DETECT["amplitude"] * bank[t, :, :, 0]
+    image = detection_frame(rng, bank)
     image_d = torch.as_tensor(image, device="cuda")
     bank_d = torch.as_tensor(bank, device="cuda")
 
@@ -500,6 +528,20 @@ def detection_headline(fc, seed):
     del maps
     torch.cuda.empty_cache()
     return image_d, bank_d, launches
+
+
+def detection_frame(rng, bank) -> np.ndarray:
+    """A (2048, 2048, 1) noise frame from ``rng`` holding each kernel of
+    the detection headline's ``bank`` once at 3× amplitude, top-left
+    corners on the 10×10 grid of stride 200."""
+    s, k, g = DETECT["size"], DETECT["k"], DETECT["grid"]
+    image = rng.standard_normal((s, s, 1)).astype(np.float32)
+    at = [DETECT["offset"] + DETECT["stride"] * i for i in range(g)]
+    plants = [(y0, x0) for y0 in at for x0 in at]
+    assert len(plants) == len(bank)
+    for t, (y0, x0) in enumerate(plants):
+        image[y0 : y0 + k, x0 : x0 + k, 0] += DETECT["amplitude"] * bank[t, :, :, 0]
+    return image
 
 
 def detection_centres():
@@ -723,6 +765,23 @@ def dpm_reference_f64(feats, bank, idx) -> np.ndarray:
     return np.stack(out)
 
 
+def dpm_planted(feats, bank):
+    """``feats`` (bf16, on the card) with `plants` of the DPM filters added
+    at `amplitude` → (bf16 features, the filters' indices, (plants, 2)
+    int32 centres in the 'same' frame, on the card)."""
+    import torch
+
+    k, n = DPM["k"], DPM["n"]
+    planted = [t * (n // DPM["plants"]) + 7 for t in range(DPM["plants"])]
+    corners = [(y0, x0) for y0 in (100, 350) for x0 in (60, 180, 300, 420)]
+    out = feats.float()
+    for t, (y0, x0) in zip(planted, corners):
+        out[y0 : y0 + k, x0 : x0 + k] += DPM["amplitude"] * bank[t]
+    centres = torch.tensor([(y0 + k // 2, x0 + k // 2) for y0, x0 in corners],
+                           dtype=torch.int32, device=feats.device)
+    return out.to(torch.bfloat16), planted, centres
+
+
 def dpm_path(fc, seed, path_launches) -> tuple[dict, dict]:
     """The DPM/HOG detector config at full width on the card (module
     docstring, step 12) → ({label: ms}, {kernel mode: (max abs err, ms,
@@ -785,19 +844,12 @@ def dpm_path(fc, seed, path_launches) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
 
     # 8 filters planted in the features, found by detect_peaks at the tier
-    planted = [t * (n // DPM["plants"]) + 7 for t in range(DPM["plants"])]
-    corners = [(y0, x0) for y0 in (100, 350) for x0 in (60, 180, 300, 420)]
-    feats_p = feats.float()
-    for t, (y0, x0) in zip(planted, corners):
-        feats_p[y0 : y0 + k, x0 : x0 + k] += DPM["amplitude"] * bank[t]
-    feats_p = feats_p.to(bf16)
+    feats_p, planted, centres = dpm_planted(feats, bank)
     vals, pos = main_path(
         "DPM detect_peaks at the tier",
         lambda: detect_peaks(feats_p, bank, mode="same", correlation=True,
                              store_dtype="bfloat16"),
         "block_conv_peaks_bf16", path_launches)
-    centres = torch.tensor([(y0 + k // 2, x0 + k // 2) for y0, x0 in corners],
-                           dtype=torch.int32, device=pos.device)
     found = (pos[planted] == centres).all(-1)
     print(f"DPM detect_peaks: {tuple(vals.shape)} peaks; planted filters {planted} found at "
           f"their centres: {int(found.sum())} of {len(planted)}")
@@ -996,6 +1048,28 @@ def clamp_centered_phases(fc, image, bank, image_d, bank_d, path_launches, times
     phase_peak("centered headline")
 
 
+def ragged_inputs(seed):
+    """BASELINE configs[1]'s cell array from ``seed + 1``: a 512² noise
+    image with each of the 16 cells (four each of 9², 17², 33², 64²)
+    planted once → (image, cells, sizes, (16, 2) int32 centres in the
+    'same' frame)."""
+    import torch
+
+    rng = np.random.default_rng(seed + 1)
+    side = RAGGED["size"]
+    sizes = [k for k in RAGGED["sizes"] for _ in range(RAGGED["per_size"])]
+    cells = [rng.standard_normal((k, k, 1)).astype(np.float32) for k in sizes]
+    image = rng.standard_normal((side, side, 1)).astype(np.float32)
+    at = [RAGGED["offset"] + RAGGED["stride"] * i for i in range(4)]
+    corners = [(y0, x0) for y0 in at for x0 in at]
+    for c, (y0, x0) in zip(cells, corners):
+        k = c.shape[0]
+        image[y0 : y0 + k, x0 : x0 + k, 0] += RAGGED["amplitude"] * c[:, :, 0]
+    centres = torch.tensor([(y0 + c.shape[0] // 2, x0 + c.shape[0] // 2)
+                            for c, (y0, x0) in zip(cells, corners)], dtype=torch.int32)
+    return image, cells, sizes, centres
+
+
 def ragged_phase(fc, seed, path_launches, times) -> None:
     """BASELINE configs[1]: a 512² image with a cell array of four sizes;
     fft_conv buckets it by pow-2 envelope, each bucket through the fused
@@ -1008,16 +1082,8 @@ def ragged_phase(fc, seed, path_launches, times) -> None:
     from cuda_fft_convolution_torch.ops.block_conv import block_conv
     from cuda_fft_convolution_torch.ops.tiled import choose_block_plan
 
-    rng = np.random.default_rng(seed + 1)
     side = RAGGED["size"]
-    sizes = [k for k in RAGGED["sizes"] for _ in range(RAGGED["per_size"])]
-    cells = [rng.standard_normal((k, k, 1)).astype(np.float32) for k in sizes]
-    image = rng.standard_normal((side, side, 1)).astype(np.float32)
-    at = [RAGGED["offset"] + RAGGED["stride"] * i for i in range(4)]
-    corners = [(y0, x0) for y0 in at for x0 in at]
-    for c, (y0, x0) in zip(cells, corners):
-        k = c.shape[0]
-        image[y0 : y0 + k, x0 : x0 + k, 0] += RAGGED["amplitude"] * c[:, :, 0]
+    image, cells, sizes, centres = ragged_inputs(seed)
     image_d = torch.as_tensor(image, device="cuda")
     cells_d = [torch.as_tensor(c, device="cuda") for c in cells]
     buckets = api._bucket_ragged(cells)
@@ -1045,8 +1111,6 @@ def ragged_phase(fc, seed, path_launches, times) -> None:
     vals, pos = main_path("ragged detect_peaks",
                           lambda: detect_peaks(image_d, cells_d, mode="same", correlation=True),
                           "block_conv_f32", path_launches)
-    centres = torch.tensor([(y0 + c.shape[0] // 2, x0 + c.shape[0] // 2)
-                            for c, (y0, x0) in zip(cells, corners)], dtype=torch.int32)
     if not torch.equal(pos.cpu(), centres):
         bad = int((pos.cpu() != centres).any(-1).sum())
         raise AssertionError(f"ragged detect_peaks missed {bad} of {len(cells)} planted centres")
@@ -1249,6 +1313,414 @@ def pipelined_phase(fc, seed, bank, bank_d, path_launches, times) -> None:
         torch.cuda.empty_cache()
     del images_d
     torch.cuda.empty_cache()
+
+
+# ---- the serving runtime at full width: plans, streams, the tuner
+
+# ConvStream serving: `frames` host frames of the headline's size, the bank
+# swapped by update_kernels before frame `swap`; steady state at each of
+# `depths`; a submit into a queue with room must take under `submit_share`
+# of one frame's device time (median of `trials`). Detection and DPM
+# serving run `short` frames.
+STREAM = dict(frames=16, swap=8, depths=(1, 3), submit_share=0.25, trials=8, short=8)
+# The tuner at the headline shape: a bank of `n_kernels`, the default
+# candidates plus the analytic plan's valid window.
+TUNE = dict(n_kernels=32, analytic=(64, 384))
+
+
+def wall_ms(fn, count, runs=3) -> float:
+    """Median over ``runs`` of the host wall time of ``fn()`` between two
+    ``synchronize``s, divided by ``count`` (ms)."""
+    import torch
+
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0) / count)
+    return statistics.median(times)
+
+
+def stream_ms(stream, frames) -> float:
+    """Steady-state ms a frame of ``stream`` over ``frames`` (warmed by one
+    frame first): every frame submitted, then a flush."""
+    stream.submit(frames[0]).result()
+
+    def serve():
+        for f in frames:
+            stream.submit(f)
+        stream.flush()
+
+    return wall_ms(serve, len(frames))
+
+
+def plan_phase(fc, image, bank, image_d, bank_d, idx, want, seed, path_launches, times):
+    """Plans at the headline: a tiled 'same' plan (maps = fft_conv's, and
+    against float64), ``execute_spectral`` timed beside ``fft_conv``; a
+    direct 'fftmap' plan through the MAC kernel against float64; a
+    head='peaks' plan on the detection headline (every planted centre,
+    = ``detect_peaks``) → the detection bank on the card."""
+    import torch
+
+    from cuda_fft_convolution_torch.models import detect_peaks
+
+    s, n, k = HEADLINE["size"], HEADLINE["n"], HEADLINE["k"]
+    plan = fc.make_plan((s, s, 1), (n, k, k, 1), algorithm="tiled", mode="same")
+    print(f"headline tiled plan: blocks ({plan.fft_h}, {plan.fft_w}), bank spectra "
+          f"{plan.kfft_aval.shape} {plan.kfft_aval.dtype}, on {plan.device}")
+    maps = main_path("headline tiled plan, execute", lambda: plan.execute(image_d, bank_d),
+                     "block_conv_f32", path_launches)
+    equal = torch.equal(maps, fc.fft_conv(image_d, kernels=bank_d, mode="same"))
+    err = max_rel_err_f64(maps, idx, want)
+    print(f"headline tiled plan: maps bitwise equal to fft_conv's: {equal}; vs float64 numpy "
+          f"on kernels {idx}: max rel err {err:.3e} (bar {TOL:g})")
+    if not equal or err > TOL:
+        raise AssertionError(f"tiled plan: equal to fft_conv {equal}, {err} vs float64")
+    del maps
+    dfft, kfft = plan.data_fft(image_d), plan.kernel_fft(bank_d)
+    timed("headline tiled plan, execute_spectral", lambda: plan.execute_spectral(dfft, kfft),
+          times)
+    timed("headline tiled plan, execute", lambda: plan.execute(image_d, bank_d), times)
+    timed("headline fft_conv, beside the plan",
+          lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same"), times)
+    del plan, dfft, kfft
+
+    dplan = fc.make_plan((s, s, 1), (n, k, k, 1), algorithm="direct", mode="fftmap")
+    fft = (dplan.fft_h, dplan.fft_w)
+    maps = main_path("headline direct fftmap plan, execute",
+                     lambda: dplan.execute(image_d, bank_d), "spectral_mac_f32", path_launches)
+    if not (tuple(maps.shape) == (n, *fft) and torch.isfinite(maps).all()):
+        raise AssertionError(f"direct fftmap plan maps: {tuple(maps.shape)}")
+    err = max_rel_err_f64(maps, idx, dpm_fftmap_reference_f64(image.astype(np.float64), bank,
+                                                               idx, fft))
+    print(f"headline direct fftmap plan: maps {tuple(maps.shape)} vs float64 numpy circular "
+          f"maps at {fft}: max rel err {err:.3e} (bar {TOL:g})")
+    if err > TOL:
+        raise AssertionError(f"direct fftmap plan error {err} above {TOL}")
+    del maps
+    dfft, kfft = dplan.data_fft(image_d), dplan.kernel_fft(bank_d)
+    timed("headline direct fftmap plan, execute_spectral",
+          lambda: dplan.execute_spectral(dfft, kfft), times)
+    del dplan, dfft, kfft
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(seed)  # the detection headline's inputs
+    det_bank = rng.standard_normal((n, k, k, 1)).astype(np.float32)
+    det_image_d = torch.as_tensor(detection_frame(rng, det_bank), device="cuda")
+    det_bank_d = torch.as_tensor(det_bank, device="cuda")
+    pplan = fc.make_plan((s, s, 1), (n, k, k, 1), algorithm="tiled", mode="same",
+                         correlation=True, head="peaks")
+    vals, pos = main_path("detection headline, head='peaks' plan",
+                          lambda: pplan.execute(det_image_d, det_bank_d), "block_conv_f32",
+                          path_launches)
+    _, want_pos = detect_peaks(det_image_d, det_bank_d, mode="same", correlation=True)
+    centres = detection_centres()
+    print(f"head='peaks' plan: values {tuple(vals.shape)}, positions {tuple(pos.shape)}; "
+          f"planted centres found {int((pos.cpu() == centres).all(-1).sum())} of {n}; = "
+          f"detect_peaks' positions: {torch.equal(pos, want_pos)}")
+    if not (torch.equal(pos.cpu(), centres) and torch.equal(pos, want_pos)):
+        raise AssertionError("the head='peaks' plan missed planted centres or differs from "
+                             "detect_peaks")
+    del pplan
+    torch.cuda.empty_cache()
+    phase_peak("plans at the headline")
+    return det_bank, det_bank_d
+
+
+def headline_stream_phase(fc, seed, bank_d, path_launches, times) -> None:
+    """ConvStream at the headline: host numpy frames through the pinned
+    ring at depth 3, each frame's maps bitwise equal to the synchronous
+    plan's, the bank swapped mid-stream; the steady state at depths 1 and
+    3 beside synchronous ``plan.execute`` calls; a submit's host time into
+    a queue with room, under torch's sync debug mode, against one frame's
+    device time."""
+    import torch
+
+    s, n, k = HEADLINE["size"], HEADLINE["n"], HEADLINE["k"]
+    count, swap = STREAM["frames"], STREAM["swap"]
+    rng = np.random.default_rng(seed + 4)
+    frames = [rng.standard_normal((s, s, 1)).astype(np.float32) for _ in range(count)]
+    bank2_d = torch.as_tensor(rng.standard_normal((n, k, k, 1)).astype(np.float32),
+                              device="cuda")
+    banks = [bank_d if i < swap else bank2_d for i in range(count)]
+    kw = dict(algorithm="tiled", mode="same")
+    stream = fc.ConvStream.create((s, s, 1), bank_d, depth=3, **kw)
+    plan = stream.plan
+
+    def serve_and_check():
+        pending, equal = collections.deque(), []
+        for i, f in enumerate(frames):
+            if i == swap:
+                stream.update_kernels(bank2_d)
+            pending.append((i, stream.submit(f)))
+            if len(pending) == stream.depth:
+                j, fut = pending.popleft()
+                equal.append(torch.equal(fut.result(), plan.execute(frames[j], banks[j])))
+        while pending:
+            j, fut = pending.popleft()
+            equal.append(torch.equal(fut.result(), plan.execute(frames[j], banks[j])))
+        return equal
+
+    equal = main_path(f"ConvStream headline, depth 3, {count} host frames, bank swapped at "
+                      f"frame {swap}", serve_and_check, "block_conv_f32", path_launches)
+    print(f"ConvStream headline: frames bitwise equal to the synchronous plan: "
+          f"{sum(equal)} of {count}")
+    if not all(equal):
+        raise AssertionError(f"stream maps differ from the plan's on frames "
+                             f"{[i for i, e in enumerate(equal) if not e]}")
+    stream.update_kernels(bank_d)
+    phase_peak("ConvStream headline, depth 3")
+
+    def synchronous():
+        for f in frames:
+            plan.execute(f, bank_d)
+            torch.cuda.synchronize()
+
+    sync_ms = wall_ms(synchronous, count)
+    times["headline, synchronous plan.execute per frame"] = sync_ms
+    line = f"headline serving, ms a frame over {count} host frames: synchronous plan.execute " \
+           f"{sync_ms:.3f}"
+    for depth in STREAM["depths"]:
+        st = stream if depth == stream.depth else fc.ConvStream.create(
+            (s, s, 1), bank_d, depth=depth, **kw)
+        times[f"headline ConvStream depth {depth} per frame"] = stream_ms(st, frames)
+        line += f"; ConvStream depth {depth} {times[f'headline ConvStream depth {depth} per frame']:.3f}"
+        del st
+    print(f"{line} ({card()})")
+
+    frame_d = torch.as_tensor(frames[0], device="cuda")
+    kfft = plan.kernel_fft(bank_d)
+    # the least of RUNS event-timed runs: a late launch from a busy host only adds
+    frame_ms = min(cuda_ms(lambda: plan.execute_spectral(plan.data_fft(frame_d), kfft), 1)
+                   for _ in range(RUNS))
+    times["headline frame on the device"] = frame_ms
+    print(f"headline frame on the device (data_fft + execute_spectral): {frame_ms:.3f} ms "
+          f"(least of {RUNS}; {card()})")
+    host, busy = [], 0
+    for t in range(STREAM["trials"]):
+        stream.flush()
+        first = stream.submit(frames[t % count])
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            stream.submit(frames[(t + 1) % count])
+            host.append(1e3 * (time.perf_counter() - t0))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        busy += not first._event.query()
+    stream.flush()
+    host_ms = statistics.median(host)
+    times["headline ConvStream submit, host"] = host_ms
+    print(f"ConvStream submit into a queue with room: host {host_ms:.3f} ms (median of "
+          f"{len(host)}; no synchronising call under sync debug mode 'error'; the frame ahead "
+          f"still running at {busy} of {len(host)} returns) = "
+          f"{100 * host_ms / frame_ms:.1f}% of one frame's device time {frame_ms:.3f} ms "
+          f"(bar {100 * STREAM['submit_share']:.0f}%; {card()})")
+    if host_ms >= STREAM["submit_share"] * frame_ms:
+        raise AssertionError(f"a submit takes {host_ms:.3f} ms of host time against a "
+                             f"{frame_ms:.3f} ms frame: a hidden synchronisation")
+    del stream, plan, frame_d, kfft, bank2_d
+    torch.cuda.empty_cache()
+    phase_peak("ConvStream headline, timing")
+
+
+def detection_stream_phase(fc, seed, det_bank, det_bank_d, path_launches, times) -> None:
+    """ConvStream(head='peaks') on `short` detection-headline frames (new
+    noise, the same plants): every planted centre in every frame, = the
+    frame's ``detect_peaks`` positions; ms a frame beside ``detect_peaks``."""
+    import torch
+
+    from cuda_fft_convolution_torch.models import detect_peaks
+
+    s, n, k = HEADLINE["size"], HEADLINE["n"], HEADLINE["k"]
+    rng = np.random.default_rng(seed + 5)
+    frames = [detection_frame(rng, det_bank) for _ in range(STREAM["short"])]
+    stream = fc.ConvStream.create((s, s, 1), det_bank_d, depth=3, algorithm="tiled",
+                                  mode="same", correlation=True, head="peaks")
+    res = main_path(f"ConvStream detection serving, head='peaks', {len(frames)} frames",
+                    lambda: [fut.result() for fut in [stream.submit(f) for f in frames]],
+                    "block_conv_f32", path_launches)
+    centres = detection_centres()
+    found = [int((pos.cpu() == centres).all(-1).sum()) for _, pos in res]
+    same = [torch.equal(pos, detect_peaks(torch.as_tensor(f, device="cuda"), det_bank_d,
+                                          mode="same", correlation=True)[1])
+            for f, (_, pos) in zip(frames, res)]
+    print(f"ConvStream detection serving: planted centres found a frame {found} of {n}; = "
+          f"detect_peaks' positions: {sum(same)} of {len(frames)} frames")
+    if min(found) < n or not all(same):
+        raise AssertionError("detection serving missed planted centres")
+    times["detection ConvStream depth 3 per frame"] = stream_ms(stream, frames)
+    frames_d = [torch.as_tensor(f, device="cuda") for f in frames[:2]]
+    timed("detect_peaks per frame, beside the stream",
+          lambda: detect_peaks(frames_d[0], det_bank_d, mode="same", correlation=True), times)
+    print(f"detection ConvStream depth 3: {times['detection ConvStream depth 3 per frame']:.3f} "
+          f"ms a frame over {len(frames)} host frames ({card()})")
+    del stream, frames_d
+    torch.cuda.empty_cache()
+    phase_peak("ConvStream detection serving")
+
+
+def dpm_stream_phase(fc, seed, path_launches, times) -> None:
+    """The DPM detector loop at the tier: `short` frames of HOG features of
+    4096² images from the seed with the 8 DPM filters planted, through
+    ConvStream(head='peaks', store_dtype='bfloat16') at depth 3 (the
+    stacked kernel's path): the planted filters found in every frame; ms a
+    frame beside the synchronous plan."""
+    import torch
+
+    from cuda_fft_convolution_torch.models import hog_features
+
+    feats, bank, _ = dpm_inputs(seed)
+    del feats
+    side, cell, bins, k = DPM["image"], DPM["cell"], DPM["bins"], DPM["k"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    frames = []
+    for _ in range(STREAM["short"]):
+        image = torch.randn((side, side), generator=gen, device="cuda")
+        frame, planted, centres = dpm_planted(
+            hog_features(image, cell=cell, bins=bins).to(torch.bfloat16), bank)
+        frames.append(frame)
+    shape = tuple(frames[0].shape)
+    stream = fc.ConvStream.create(shape, bank, depth=3, algorithm="tiled", mode="same",
+                                  correlation=True, head="peaks", store_dtype="bfloat16")
+    print(f"DPM ConvStream: frames {shape} bf16, bank {tuple(bank.shape)}, blocks "
+          f"({stream.plan.fft_h}, {stream.plan.fft_w}), bank spectra "
+          f"{stream.plan.kfft_aval.dtype}")
+    res = main_path(f"DPM ConvStream, head='peaks', bf16 tier, {len(frames)} frames",
+                    lambda: [fut.result() for fut in [stream.submit(f) for f in frames]],
+                    "block_conv_bf16", path_launches)
+    found = [int((pos[planted] == centres).all(-1).sum()) for _, pos in res]
+    print(f"DPM ConvStream: planted filters found a frame {found} of {len(planted)}")
+    if min(found) < len(planted):
+        raise AssertionError("DPM serving missed planted filters")
+    times["DPM ConvStream depth 3 per frame"] = stream_ms(stream, frames)
+    plan = stream.plan
+    kfft = plan.kernel_fft(bank)
+
+    def synchronous():
+        for f in frames:
+            plan.execute_spectral(plan.data_fft(f), kfft)
+            torch.cuda.synchronize()
+
+    times["DPM synchronous plan per frame"] = wall_ms(synchronous, len(frames))
+    print(f"DPM serving, ms a frame: ConvStream depth 3 "
+          f"{times['DPM ConvStream depth 3 per frame']:.3f}; synchronous plan "
+          f"(data_fft + execute_spectral) {times['DPM synchronous plan per frame']:.3f} "
+          f"({card()})")
+    del stream, plan, kfft, frames, bank
+    torch.cuda.empty_cache()
+    phase_peak("DPM ConvStream")
+
+
+def ragged_stream_phase(fc, seed, path_launches, times) -> None:
+    """RaggedConvStream on BASELINE configs[1]'s cell array: four exact-
+    shape groups, each with its own plan, on the tiled and the direct
+    engine; every map against float64 (1e-5) and fft_conv's ragged call;
+    under head='peaks' every planted cell found; ms a frame beside
+    fft_conv's ragged call."""
+    import torch
+
+    side = RAGGED["size"]
+    image, cells, sizes, centres = ragged_inputs(seed)
+    rng = np.random.default_rng(seed + 7)
+    frames = [image] + [rng.standard_normal(image.shape).astype(np.float32)
+                        for _ in range(STREAM["short"] - 1)]
+    image_d = torch.as_tensor(image, device="cuda")
+    cells_d = [torch.as_tensor(c, device="cuda") for c in cells]
+    wants = [same_reference_f64(image, c[None], [0]) for c in cells]
+    one_shot = fc.fft_conv(image_d, kernels=cells_d, mode="same")
+    for algorithm, mode in (("tiled", "block_conv_f32"), ("direct", "spectral_mac_f32")):
+        stream = fc.RaggedConvStream((side, side, 1), cells_d, depth=3, mode="same",
+                                     algorithm=algorithm)
+        maps = main_path(f"RaggedConvStream, {algorithm}", lambda: stream.submit(image).result(),
+                         mode, path_launches)
+        err = max(max_rel_err_f64(m[None], [0], w) for m, w in zip(maps, wants))
+        diff = max(rel_err(m, o) for m, o in zip(maps, one_shot))
+        print(f"RaggedConvStream, {algorithm}: {stream.num_groups} groups "
+              f"{[(p.fft_h, p.fft_w) for p in stream.plans]}, {len(maps)} maps in cell order: "
+              f"vs float64 max rel err {err:.3e}, vs fft_conv's buckets {diff:.3e} "
+              f"(bar {TOL:g})")
+        if stream.num_groups != len(RAGGED["sizes"]) or err > TOL or diff > TOL:
+            raise AssertionError(f"ragged stream ({algorithm}): {stream.num_groups} groups, "
+                                 f"{err} vs float64, {diff} vs fft_conv")
+        del maps
+        times[f"RaggedConvStream {algorithm} per frame"] = stream_ms(stream, frames)
+        del stream
+    peaks = fc.RaggedConvStream((side, side, 1), cells_d, depth=3, mode="same",
+                                algorithm="tiled", correlation=True, head="peaks")
+    res = main_path("RaggedConvStream, tiled, head='peaks'", lambda: peaks.submit(image).result(),
+                    "block_conv_f32", path_launches)
+    pos = torch.stack([p for _, p in res]).cpu()
+    print(f"RaggedConvStream head='peaks': planted cells found "
+          f"{int((pos == centres).all(-1).sum())} of {len(cells)}")
+    if not torch.equal(pos, centres):
+        raise AssertionError("the ragged head='peaks' stream missed planted cells")
+    timed("ragged fft_conv, beside the streams",
+          lambda: fc.fft_conv(image_d, kernels=cells_d, mode="same"), times)
+    print(f"ragged serving, ms a frame over {len(frames)} host frames: RaggedConvStream tiled "
+          f"{times['RaggedConvStream tiled per frame']:.3f}, direct "
+          f"{times['RaggedConvStream direct per frame']:.3f}; fft_conv's ragged call "
+          f"{times['ragged fft_conv, beside the streams']:.3f} ({card()})")
+    del peaks, one_shot
+    torch.cuda.empty_cache()
+    phase_peak("RaggedConvStream")
+
+
+def tuner_phase(fc, image_d, bank_d, idx, want, path_launches, times) -> None:
+    """The tuner at the headline shape over default_candidates(64, 64) and
+    the analytic window: a table of candidate → ms and fused flag; the
+    winner registered under the card's name and returned by
+    choose_block_plan; fft_conv at the winner against float64 and timed
+    beside the analytic plan; the table cleared."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.tiled import choose_block_plan, fused_dispatch_auto
+    from cuda_fft_convolution_torch.runtime import autotune
+
+    s, n, k = HEADLINE["size"], HEADLINE["n"], HEADLINE["k"]
+    analytic = choose_block_plan(s, s, k, k)
+    cands = autotune.default_candidates(k, k) + [TUNE["analytic"]]
+    try:
+        t0 = time.perf_counter()
+        best, timings = autotune.autotune_block_geometry(
+            (s, s, 1), k, k, n_kernels=TUNE["n_kernels"], candidates=cands)
+        print(f"autotune_block_geometry({(s, s, 1)}, {k}, {k}, n_kernels="
+              f"{TUNE['n_kernels']}): {len(timings)} of {len(cands)} candidates in "
+              f"{time.perf_counter() - t0:.1f} s ({card()})")
+        for c in cands:
+            vh, vw, bh, bw = autotune._blocks(c, k, k)
+            ms = f"{1e3 * timings[c]:.3f} ms" if c in timings else "declined"
+            print(f"  {str(c):22s} blocks ({bh}, {bw}): {ms}, fused "
+                  f"{fused_dispatch_auto(bw, torch.float32, vh)}{'  <- best' if c == best else ''}")
+        keys = list(autotune._MEASURED)
+        vh, vw, bh, bw = autotune._blocks(best, k, k)
+        tuned = choose_block_plan(s, s, k, k)
+        print(f"registered under {[key[0] for key in keys]}; choose_block_plan now {tuned} "
+              f"(analytic {analytic})")
+        if [key[0] for key in keys] != [torch.cuda.get_device_name(0)] or \
+                tuned != (bh, bw, bh - vh + 1, bw - vw + 1):
+            raise AssertionError(f"tuner registration: keys {keys}, plan {tuned}")
+        fused = fused_dispatch_auto(bw, torch.float32, vh)
+        maps = main_path("headline fft_conv at the tuned plan",
+                         lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same"),
+                         "block_conv_f32" if fused else "spectral_mac_f32", path_launches)
+        err = max_rel_err_f64(maps, idx, want)
+        print(f"headline fft_conv at the tuned plan: vs float64 numpy on kernels {idx}: max "
+              f"rel err {err:.3e} (bar {TOL:g})")
+        if err > TOL:
+            raise AssertionError(f"tuned plan error {err} above {TOL}")
+        del maps
+        timed("headline fft_conv, tuned plan",
+              lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same"), times)
+    finally:
+        autotune._MEASURED.clear()
+    if choose_block_plan(s, s, k, k) != analytic:
+        raise AssertionError("the cleared table still changes the headline plan")
+    timed("headline fft_conv, analytic plan",
+          lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same"), times)
+    phase_peak("tuner")
 
 
 def cuda_ms(fn, runs=RUNS) -> float:
@@ -1504,6 +1976,16 @@ def main(argv=None) -> int:
     dpm_direct_phase(fc, args.seed, path_launches, api_ms)
     pipelined_phase(fc, args.seed, bank, bank_d, path_launches, api_ms)
     phase_peak("pipelined batch, timing")
+
+    # ---- the serving runtime at full width ----
+    det_bank, det_bank_d = plan_phase(fc, image, bank, image_d, bank_d, idx, want, args.seed,
+                                      path_launches, api_ms)
+    headline_stream_phase(fc, args.seed, bank_d, path_launches, api_ms)
+    detection_stream_phase(fc, args.seed, det_bank, det_bank_d, path_launches, api_ms)
+    del det_bank_d
+    dpm_stream_phase(fc, args.seed, path_launches, api_ms)
+    ragged_stream_phase(fc, args.seed, path_launches, api_ms)
+    tuner_phase(fc, image_d, bank_d, idx, want, path_launches, api_ms)
     print(f"peak memory allocated over the smoke: {max(PHASE_PEAKS) / 2**30:.2f} GiB "
           f"(limit {PEAK_LIMIT / 2**30:.0f} GiB)")
     if max(PHASE_PEAKS) >= PEAK_LIMIT:

@@ -17,6 +17,11 @@ float32 and at the bf16 serving tier (``store_dtype='bfloat16'``,
   - ``fft_data_tiled``, ``fft_kernels``: reusable block and bank spectra
   - ``models.detect_peaks``, ``detect_top_k``, ``detect_local_peaks``: the
     detection heads; ``models.hog_features``: the DPM path's HOG front end
+  - ``make_plan`` / ``FftConvPlan``: a geometry fixed up front, stages
+    warmed (≈ cufftPlanMany); ``ConvStream`` / ``RaggedConvStream``:
+    bounded-depth serving over a resident bank on CUDA events;
+    ``autotune_block_geometry`` and the block-geometry table keyed by
+    device name (``runtime/``)
 """
 
 from cuda_fft_convolution_torch.api import (
@@ -33,7 +38,20 @@ from cuda_fft_convolution_torch.ops.block_conv import (
     block_conv_peaks_reference,
     block_conv_reference,
 )
-from cuda_fft_convolution_torch.runtime import BankPlan, plan_bank
+from cuda_fft_convolution_torch.runtime import (
+    BankPlan,
+    ConvFuture,
+    ConvStream,
+    FftConvPlan,
+    RaggedConvFuture,
+    RaggedConvStream,
+    autotune_block_geometry,
+    lookup_tuned_geometry,
+    make_plan,
+    plan_bank,
+    register_tuned_geometry,
+    save_user_cache,
+)
 from cuda_fft_convolution_torch.types import (
     SpectralData,
     SpectralKernels,
@@ -70,6 +88,16 @@ __all__ = [
     "block_conv_peaks_reference",
     "BankPlan",
     "plan_bank",
+    "FftConvPlan",
+    "make_plan",
+    "ConvFuture",
+    "ConvStream",
+    "RaggedConvFuture",
+    "RaggedConvStream",
+    "autotune_block_geometry",
+    "lookup_tuned_geometry",
+    "register_tuned_geometry",
+    "save_user_cache",
     "from_numpy",
     "load_spectral",
     "save_spectral",

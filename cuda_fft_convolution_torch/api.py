@@ -64,7 +64,7 @@ from cuda_fft_convolution_torch.types import (
     TiledSpectralData,
 )
 from cuda_fft_convolution_torch.utils.config import get_config
-from cuda_fft_convolution_torch.utils.device import as_tensor
+from cuda_fft_convolution_torch.utils.device import as_tensor, resolve_device
 from cuda_fft_convolution_torch.utils.errors import InvalidInputError, validate
 from cuda_fft_convolution_torch.utils.fft_size import (
     FftSizePolicy,
@@ -348,6 +348,43 @@ def fft_data(
     )
 
 
+def _baked_window(
+    h: int, w: int, tkh: int, tkw: int, trim_mode: str, policy,
+    same_offset: str = "scipy",
+) -> tuple[int, int, int | None, int | None]:
+    """The output window ``fft_data_tiled`` bakes into block spectra of an
+    (h, w) image for kernels of (tkh, tkw) → (origin_h, origin_w, win_h,
+    win_w); win None is the 'full' extent."""
+    if trim_mode == "same":
+        if same_offset == "matlab":
+            origin_h, origin_w = tkh // 2, tkw // 2
+        else:
+            origin_h, origin_w = (tkh - 1) // 2, (tkw - 1) // 2
+        win_h, win_w = h, w
+    elif trim_mode == "valid":
+        validate(
+            h >= tkh and w >= tkw,
+            f"trim_mode='valid' needs data >= kernel; got data ({h},{w}), "
+            f"kernel ({tkh},{tkw})",
+        )
+        origin_h, origin_w = tkh - 1, tkw - 1
+        win_h, win_w = h - tkh + 1, w - tkw + 1
+    elif trim_mode == "fftmap":
+        origin_h = origin_w = 0
+        win_h, win_w = compute_fft_size(h, w, tkh, tkw, _resolve_policy(policy))
+        validate(
+            win_h >= h + tkh - 1 and win_w >= w + tkw - 1,
+            f"fftmap canvas ({win_h},{win_w}) does not cover the linear "
+            f"extent ({h + tkh - 1},{w + tkw - 1}) — the circular maps "
+            "would alias; use an FFT-size policy that pads to at least "
+            "data + kernel − 1",
+        )
+    else:
+        origin_h = origin_w = 0
+        win_h = win_w = None
+    return origin_h, origin_w, win_h, win_w
+
+
 def fft_data_tiled(
     data,
     max_kernel_h: int,
@@ -392,7 +429,10 @@ def fft_data_tiled(
     data_cf, batched = _data_to_cfirst(data, device)
     b, f, h, w = data_cf.shape
     if block_h is None or block_w is None:
-        plan = choose_block_plan(h, w, max_kernel_h, max_kernel_w)
+        plan = choose_block_plan(
+            h, w, max_kernel_h, max_kernel_w, feature_dim=f,
+            store_dtype=store_dtype, device=data_cf.device,
+        )
         if plan is None:
             # Caller forced tiling where the planner declines — still honor
             # it with the smallest sane block.
@@ -408,33 +448,9 @@ def fft_data_tiled(
         same_offset in ("scipy", "matlab"),
         "same_offset must be 'scipy' or 'matlab'",
     )
-    if trim_mode == "same":
-        if same_offset == "matlab":
-            origin_h, origin_w = tkh // 2, tkw // 2
-        else:
-            origin_h, origin_w = (tkh - 1) // 2, (tkw - 1) // 2
-        win_h, win_w = h, w
-    elif trim_mode == "valid":
-        validate(
-            h >= tkh and w >= tkw,
-            f"trim_mode='valid' needs data >= kernel; got data ({h},{w}), "
-            f"kernel ({tkh},{tkw})",
-        )
-        origin_h, origin_w = tkh - 1, tkw - 1
-        win_h, win_w = h - tkh + 1, w - tkw + 1
-    elif trim_mode == "fftmap":
-        origin_h = origin_w = 0
-        win_h, win_w = compute_fft_size(h, w, tkh, tkw, _resolve_policy(policy))
-        validate(
-            win_h >= h + tkh - 1 and win_w >= w + tkw - 1,
-            f"fftmap canvas ({win_h},{win_w}) does not cover the linear "
-            f"extent ({h + tkh - 1},{w + tkw - 1}) — the circular maps "
-            "would alias; use an FFT-size policy that pads to at least "
-            "data + kernel − 1",
-        )
-    else:
-        origin_h = origin_w = 0
-        win_h = win_w = None
+    origin_h, origin_w, win_h, win_w = _baked_window(
+        h, w, tkh, tkw, trim_mode, policy, same_offset
+    )
     re, im = fft_data_blocks(
         data_cf, block_h, block_w, max_kernel_h, max_kernel_w,
         origin_h, origin_w, win_h, win_w, dtype=store_t,
@@ -1244,7 +1260,14 @@ def fft_conv(
     if algorithm != "direct":
         dshape = np.shape(data)
         h, w = (dshape[0], dshape[1]) if len(dshape) == 3 else (dshape[1], dshape[2])
-        plan = choose_block_plan(h, w, max_kernel_h, max_kernel_w)
+        run_on = (
+            data.device if isinstance(data, torch.Tensor) and device is None
+            else resolve_device(device)
+        )
+        plan = choose_block_plan(
+            h, w, max_kernel_h, max_kernel_w, feature_dim=int(dshape[-1]),
+            store_dtype=store_dtype, device=run_on,
+        )
         if algorithm == "tiled" or plan is not None:
             trim_kwargs = {}
             if mode == "fftmap":

@@ -235,7 +235,10 @@ def _route(data, kernels, *, mode, correlation, algorithm, same_offset,
     h, w = (arr.shape[1], arr.shape[2]) if batched else (arr.shape[0], arr.shape[1])
     kh, kw = _kernel_hw(kernels)
     if algorithm != "direct":
-        plan = choose_block_plan(h, w, kh, kw)
+        plan = choose_block_plan(
+            h, w, kh, kw, feature_dim=int(arr.shape[-1]),
+            store_dtype=store_dtype, head="peaks", device=arr.device,
+        )
         if algorithm == "tiled" or plan is not None:
             window = dict(
                 trim_mode=mode, trim_kernel_h=kh, trim_kernel_w=kw,

@@ -49,27 +49,69 @@ from cuda_fft_convolution_torch.utils.fft_size import next_fast_len
 def choose_block_plan(
     data_h: int, data_w: int, max_kh: int, max_kw: int,
     *, min_ratio: int | None = None, max_block: int = 1024,
-    matmul_engine: bool | None = None,
+    matmul_engine: bool | None = None, feature_dim: int = 1,
+    store_dtype: str = "float32", head: str = "conv", device=None,
 ) -> tuple[int, int, int, int] | None:
     """The overlap-save plan (block_h, block_w, plan_kh, plan_kw), or None
-    when tiling will not pay. The port's analytic branches never enlarge
-    the kernel envelope, so (plan_kh, plan_kw) = (max_kh, max_kw)."""
+    when tiling will not pay. (plan_kh, plan_kw) is the effective kernel
+    envelope: (max_kh, max_kw) on the analytic branches, larger where a
+    measured geometry pins explicit blocks (``runtime/autotune.py``); a
+    larger envelope only adds prehistory zeros, the maps are the same."""
     return choose_block_fft(
         data_h, data_w, max_kh, max_kw, min_ratio=min_ratio,
-        max_block=max_block, matmul_engine=matmul_engine, _with_plan=True,
+        max_block=max_block, matmul_engine=matmul_engine,
+        feature_dim=feature_dim, store_dtype=store_dtype, head=head,
+        device=device, _with_plan=True,
     )
+
+
+def _tuned_block(
+    data_h, data_w, max_kh, max_kw, max_block, feature_dim, store_dtype,
+    head, device,
+) -> tuple[int, int, int, int] | None:
+    """The measured geometry for this shape on ``device``
+    (``runtime/autotune.py``) as (lh, lw, plan_kh, plan_kw), or None when
+    there is none or it does not fit this image and kernel. A measured
+    entry skips the analytic redundancy guard (it is the measurement); it
+    must keep the enlarged envelope valid and the image spanning more than
+    two blocks on an axis."""
+    from cuda_fft_convolution_torch.runtime.autotune import lookup_tuned_geometry
+
+    tuned = lookup_tuned_geometry(
+        max_kh, max_kw, feature_dim, store_dtype, head=head, device=device
+    )
+    if tuned is None:
+        return None
+    vh, vw = tuned[0], tuned[1]
+    if len(tuned) >= 5:  # explicit blocks: an enlarged effective envelope
+        lh, lw = tuned[3], tuned[4]
+    else:
+        lh = min(vh + max_kh - 1, max_block)
+        lw = min(vw + max_kw - 1, max_block)
+    pkh, pkw = lh - vh + 1, lw - vw + 1
+    if pkh >= max_kh and pkw >= max_kw and not (
+        data_h + pkh - 1 <= 2 * lh and data_w + pkw - 1 <= 2 * lw
+    ):
+        return lh, lw, pkh, pkw
+    return None
 
 
 def choose_block_fft(
     data_h: int, data_w: int, max_kh: int, max_kw: int,
     *, min_ratio: int | None = None, max_block: int = 1024,
-    matmul_engine: bool | None = None, _with_plan: bool = False,
+    matmul_engine: bool | None = None, feature_dim: int = 1,
+    store_dtype: str = "float32", head: str = "conv", device=None,
+    _with_plan: bool = False,
 ) -> tuple | None:
     """Pick the overlap-save block FFT size, or None when tiling won't pay.
 
-    The analytic rules of the JAX package's ``choose_block_fft``, without
-    its table of geometries measured on a TPU v5e (not ported: a Hopper
-    table has to be measured on Hopper).
+    The dense-DFT branch first consults the measured geometry table
+    (``runtime/autotune.py``), keyed by ``device``'s name (None: the card
+    where one is present, else the CPU), the feature count, the storage
+    tier and the ``head`` ('conv', or 'peaks' for the detection heads).
+    Its builtin table is empty; a geometry measured on a TPU v5e, as in the
+    JAX package's table, is not applied. Without an entry the JAX
+    package's analytic rules decide.
 
     ``matmul_engine`` selects the branch. True (the default, None) is the
     dense-DFT branch: the fused kernel's windowed inverse DFTs cost per
@@ -80,6 +122,12 @@ def choose_block_fft(
     if matmul_engine is None:
         matmul_engine = True
     if matmul_engine:
+        tuned = _tuned_block(
+            data_h, data_w, max_kh, max_kw, max_block, feature_dim,
+            store_dtype, head, device,
+        )
+        if tuned is not None:
+            return tuned if _with_plan else tuned[:2]
         ratio_h = 1 if min_ratio is None else min_ratio
         ratio_w = 6 if min_ratio is None else 2 * min_ratio
         vh = max(-(-(ratio_h * (max_kh - 1)) // 8) * 8, 8)
@@ -313,8 +361,11 @@ def top_k_ordered(
     tied = x == kth
     need = k - above.sum(-1, keepdim=True, dtype=torch.int32)
     keep = above | (tied & (tied.cumsum(-1, dtype=torch.int32) <= need))
-    # exactly k kept per row; nonzero lists them by ascending index
-    idx = keep.nonzero()[:, -1].reshape(*x.shape[:-1], k)
+    # exactly k kept per row: the k smallest of (index if kept, else L) are
+    # the kept indices in ascending order (no host sync, unlike nonzero)
+    n = x.shape[-1]
+    pos = torch.arange(n, device=x.device).expand_as(x)
+    idx = torch.where(keep, pos, n).topk(k, dim=-1, largest=False).values
     vals = x.gather(-1, idx)
     order = torch.sort(vals, dim=-1, descending=True, stable=True).indices
     return vals.gather(-1, order), idx.gather(-1, order)

@@ -14,7 +14,11 @@ the bf16 tier, and the DPM/HOG config's calls at the tier on
 maps, and the one-shot ``detect_peaks``). For each path it prints
 the device's busy time per call (the union of the GPU kernel and copy spans)
 against the profiled span, their difference as the idle share, and the
-kernels with the most self device time.
+kernels with the most self device time. Then the same for the DPM giant
+bank's direct ``conv_spectral`` (576 filters resident at the tier), the
+ragged cell array's ``fft_conv`` and its ``RaggedConvStream`` (BASELINE
+configs[1]), and the headline ``ConvStream`` at depth 1 and 3 over 16 host
+frames, per frame: the serving loop's idle share.
 
     python3 profile_torch_paths.py --ab-parent PARENT/cuda_fft_convolution_torch/csrc
 
@@ -54,7 +58,11 @@ def busy_and_span(events) -> tuple[float, float]:
     return busy, spans[-1][1] - spans[0][0]
 
 
-def report(label, fn, calls) -> None:
+def report(label, fn, calls, frames=1) -> None:
+    """Profile ``calls`` calls of ``fn`` (after one warm-up) and print the
+    device's busy time and span per unit — a call, or a frame when each
+    call serves ``frames`` frames — the idle share, and the kernels with
+    the most self device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -69,14 +77,23 @@ def report(label, fn, calls) -> None:
         [e for e in prof.events() if e.device_type == DeviceType.CUDA])
     if span == 0:
         raise AssertionError(f"{label}: the profiler saw no device work")
-    print(f"== {label}: device busy {busy / calls / 1e3:.3f} of "
-          f"{span / calls / 1e3:.3f} ms per call, idle share "
+    units, unit = calls * frames, "frame" if frames > 1 else "call"
+    print(f"== {label}: device busy {busy / units / 1e3:.3f} of "
+          f"{span / units / 1e3:.3f} ms per {unit}, idle share "
           f"{100 * (1 - busy / span):.1f}%")
     rows = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)
     for a in rows[:8]:
         if a.self_device_time_total > 0:
-            print(f"   {a.self_device_time_total / calls / 1e3:8.3f} ms  "
-                  f"x{a.count // calls:<3d} {a.key[:90]}")
+            print(f"   {a.self_device_time_total / units / 1e3:8.3f} ms  "
+                  f"x{a.count / units:<5.3g} {a.key[:90]}")
+
+
+def serve(stream, frames):
+    """One pass of ``frames`` through ``stream``: every frame submitted,
+    then a flush."""
+    for f in frames:
+        stream.submit(f)
+    stream.flush()
 
 
 def build_parent(csrc: pathlib.Path):
@@ -234,6 +251,7 @@ def main(argv=None) -> int:
                         help="a parent checkout's cuda_fft_convolution_torch/csrc")
     args = parser.parse_args(argv)
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -270,6 +288,35 @@ def main(argv=None) -> int:
            lambda: fc.conv_spectral(sd, sk, mode="same", out_dtype="bfloat16"), args.calls)
     report("DPM detect_peaks from the features, bf16 tier",
            lambda: detect_peaks(feats, dbank, store_dtype="bfloat16"), args.calls)
+    n = chip_smoke.DPM_DIRECT["n"]
+    dsd = fc.fft_data(feats, k, k, store_dtype="bfloat16")
+    dsk = fc.fft_kernels(dbank[:n].contiguous(), spectral=dsd, store_dtype="bfloat16")
+    report(f"DPM direct conv_spectral fftmap, {n} filters resident, bf16 tier",
+           lambda: fc.conv_spectral(dsd, dsk, mode="fftmap"), args.calls)
+    del sd, sk, dsd, dsk, feats, dbank
+    torch.cuda.empty_cache()
+
+    image, cells, _, _ = chip_smoke.ragged_inputs(args.seed)
+    image_d = torch.as_tensor(image, device="cuda")
+    cells_d = [torch.as_tensor(c, device="cuda") for c in cells]
+    report("ragged fft_conv (configs[1])",
+           lambda: fc.fft_conv(image_d, kernels=cells_d, mode="same"), args.calls)
+    ragged = fc.RaggedConvStream(image.shape, cells_d, depth=3, mode="same", algorithm="tiled")
+    report("RaggedConvStream, tiled, depth 3, 8 host frames",
+           lambda: serve(ragged, [image] * 8), args.calls, frames=8)
+    del ragged, image_d, cells_d
+
+    s, k = chip_smoke.HEADLINE["size"], chip_smoke.HEADLINE["k"]
+    rng = np.random.default_rng(args.seed + 4)
+    frames = [rng.standard_normal((s, s, 1)).astype(np.float32) for _ in range(16)]
+    hbank = torch.as_tensor(rng.standard_normal((chip_smoke.HEADLINE["n"], k, k, 1))
+                            .astype(np.float32), device="cuda")
+    for depth in (1, 3):
+        stream = fc.ConvStream.create((s, s, 1), hbank, depth=depth, algorithm="tiled",
+                                      mode="same")
+        report(f"headline ConvStream, depth {depth}, 16 host frames",
+               lambda: serve(stream, frames), args.calls, frames=len(frames))
+        del stream
     return 0
 
 

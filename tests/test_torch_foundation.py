@@ -157,6 +157,12 @@ def test_port_imports_with_jax_blocked():
         "from cuda_fft_convolution_torch.ops.padding import (\n"
         "    pad_clamp_to_border, pad_kernel_centered)\n"
         "from cuda_fft_convolution_torch.runtime.planner import plan_bank\n"
+        "from cuda_fft_convolution_torch.runtime import autotune, plan, stream\n"
+        "assert autotune.lookup_tuned_geometry(64, 64, 1, device='cpu') is None\n"
+        "with fc.ConvStream.create((40, 40, 1), np.ones((2, 5, 5, 1), np.float32),\n"
+        "                          mode='same', algorithm='tiled', device='cpu') as s:\n"
+        "    assert tuple(s.submit(np.ones((40, 40, 1), np.float32)).result().shape)\\\n"
+        "        == (2, 40, 40)\n"
         "assert plan_bank(100, 1, 2160, 2160, 8).chunk_size >= 1\n"
         "clamp = fc.fft_conv(np.ones((40, 40, 1), np.float32),\n"
         "                    kernels=np.ones((2, 5, 5, 1), np.float32), mode='same',\n"

@@ -407,3 +407,102 @@ def test_chunked_streaming_and_pipelined_on_gpu(cuda):
     torch.cuda.synchronize()
     assert tbc.block_conv.launches == before + 3
     assert _rel(got, tfc.conv_spectral(tiled, bank, mode="same")) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ["tiled", "direct"])
+def test_stream_bitwise_equals_plan_on_gpu(cuda, algorithm):
+    """ConvStream at depth 3 on host numpy frames (the pinned ring): every
+    frame's maps bitwise equal to the synchronous plan's for that frame,
+    through the frame's kernel, with a bank swap mid-stream."""
+    from cuda_fft_convolution_torch.ops import spectral_mac as tmac
+
+    rng = np.random.default_rng(41)
+    bank = rng.standard_normal((6, 17, 33, 2)).astype(np.float32)
+    bank2 = rng.standard_normal((6, 17, 33, 2)).astype(np.float32)
+    frames = [rng.standard_normal((300, 500, 2)).astype(np.float32) for _ in range(7)]
+    wrapper = tbc.block_conv if algorithm == "tiled" else tmac.spectral_mac
+    stream = tfc.ConvStream.create((300, 500, 2), bank, depth=3, mode="same",
+                                   algorithm=algorithm, device=cuda)
+    before = wrapper.launches
+    futs = [stream.submit(f) for f in frames[:4]]
+    assert stream.inflight <= 3
+    stream.update_kernels(bank2)
+    futs += [stream.submit(f) for f in frames[4:]]
+    stream.flush()
+    assert wrapper.launches - before == len(frames)
+    for i, (f, fut) in enumerate(zip(frames, futs)):
+        want = stream.plan.execute(f, bank if i < 4 else bank2)
+        assert fut.result().is_cuda and torch.equal(fut.result(), want)
+
+
+@pytest.mark.gpu
+def test_stream_submit_does_not_sync_on_gpu(cuda):
+    """A submit of a host frame into a queue with room neither synchronises
+    (torch's sync debug mode raises on any synchronising call) nor waits
+    for the work already queued."""
+    rng = np.random.default_rng(42)
+    bank = rng.standard_normal((16, 33, 33, 1)).astype(np.float32)
+    frame = rng.standard_normal((1024, 1024, 1)).astype(np.float32)
+    stream = tfc.ConvStream.create((1024, 1024, 1), bank, depth=3, mode="same",
+                                   algorithm="tiled", head="peaks", device=cuda)
+    stream.submit(frame).result()  # warm: DFT matrices, cuFFT plans
+    stream.flush()
+    first = stream.submit(frame)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = stream.submit(frame)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not first.done() and not second.done()
+    vals, pos = second.result()
+    assert torch.equal(pos, first.result()[1])
+
+
+@pytest.mark.gpu
+def test_stream_fifo_events_on_gpu(cuda):
+    """With real CUDA events: resolving the last future marks every earlier
+    one done without synchronising its own event, and a later submission
+    is not implied done by the old watermark."""
+    rng = np.random.default_rng(43)
+    bank = rng.standard_normal((2, 4, 4, 1)).astype(np.float32)
+    frame = torch.as_tensor(rng.standard_normal((256, 256, 1)).astype(np.float32),
+                            device=cuda)
+    stream = tfc.ConvStream.create((256, 256, 1), bank, depth=8, mode="same",
+                                   algorithm="direct", device=cuda)
+    futs = [stream.submit(frame) for _ in range(5)]
+    assert all(f._event is not None for f in futs)
+    assert not any(f.done() for f in futs[:4])
+    futs[-1].result()
+    assert all(f.done() for f in futs)
+    assert all(f._event is not None for f in futs[:-1])  # never synchronised
+    for f in futs[:-1]:
+        assert torch.equal(f.result(), futs[-1].result())
+    f6 = stream.submit(frame)
+    assert not f6.done()
+    stream.flush()
+    assert f6.done()
+
+
+@pytest.mark.gpu
+def test_autotune_registers_under_device_name_on_gpu(cuda):
+    """The tuner measures on the card and registers under
+    torch.cuda.get_device_name; choose_block_plan then returns the winner
+    on the card and nowhere else."""
+    from cuda_fft_convolution_torch.ops import tiled as tt
+    from cuda_fft_convolution_torch.runtime import autotune as ta
+
+    ta._MEASURED.clear()
+    try:
+        best, timings = ta.autotune_block_geometry(
+            (512, 512, 1), 9, 9, n_kernels=4, candidates=[(24, 120, 40, 160), (16, 248)],
+            iters=2, device=cuda)
+        assert set(timings) == {(24, 120, 40, 160), (16, 248)}
+        (key,) = ta._MEASURED
+        assert key[0] == torch.cuda.get_device_name(cuda)
+        vh, vw, bh, bw = ta._blocks(best, 9, 9)
+        plan = (bh, bw, bh - vh + 1, bw - vw + 1)
+        assert tt.choose_block_plan(1024, 1024, 9, 9, device=cuda) == plan
+        assert tt.choose_block_plan(1024, 1024, 9, 9, device="cpu") == (16, 136, 9, 9)
+    finally:
+        ta._MEASURED.clear()
