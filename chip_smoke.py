@@ -117,15 +117,47 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      analytic (64, 384); a table of candidate → ms and fused flag; the
      winner registered under the card's name and returned by
      ``choose_block_plan``; ``fft_conv`` at the winner within 1e-5 of
-     float64 on 8 maps, timed beside the analytic plan; the table cleared.
+     float64 on 8 maps, timed beside the analytic plan; the table cleared;
+ 24. the pyramid at DPM width (``models/pyramid.py``): the DPM features at
+     float32 with 8 DPM filters planted, each enlarged 2x by
+     ``resize_bilinear`` at 3x amplitude, ``build_pyramid(num_levels=5,
+     scale=2^-0.5)`` (levels 512, 362, 256, 181, 128) and
+     ``detect_pyramid_peaks`` with the 1024 filters: every plant found at
+     level 2 within 3 cells of its centre; per level the bank's route
+     (resident, chunked or streamed: ``api.direct_bank_plan``, which
+     ``conv_spectral`` calls, on this card's budget) and its MAC
+     launches; every level's values and positions equal to the argmax of
+     ``detect_pyramid``'s maps; levels 0 and 2 within 1e-5 of
+     float64 on 8 maps; the three calls timed; the MAC kernel at level 0's
+     shape (the 37.2 GB bank) against the einsum over chunks of 64 filters;
+ 25. the MOSSE tracker (``models/mosse.py``) at Bolme et al.'s settings (a
+     64² window, 8 training perturbations, sigma 2, lr 0.125), on pixels
+     (F=1) and on HOG cells (F=31): a target moved along a known path over
+     64 frames, each frame ``respond`` then ``update_mosse``; the peak on
+     the path (within 1) on every frame, ``respond``'s MAC (the kernel on
+     a bank of one) within 1e-5 of the einsum, a frame timed;
+ 26. the filter-bank detector (``models/filter_bank.py``): 8 frames of the
+     DPM features (centred, shifted, noised) and 64 filters of 12²x31
+     carried from numpy by ``detector_from_numpy``; ``detect`` within 1e-5
+     of float64 on 8 maps; 8 ``train_step``s with Adam (lr 3e-2) against a
+     second detector's maps: the loss falls, each step launches the MAC
+     once at the forward's shape and once at dK's (the counts by launch
+     shape), the first step's gradients within 1e-4 of the einsum's
+     autograd on the card; a backward with the images' gradient too
+     launches once at dD's shape as well; a step, its forward and its
+     backward timed; the MAC kernel at the forward, dK and dD shapes
+     against the einsum.
 
-Steps 13–23 print each check, each time (CUDA events, median of 7, unless
+Steps 13–26 print each check, each time (CUDA events, median of 7, unless
 said otherwise) beside the card's name and power limit, the kernel launches
 of each call, the planner's plans and each phase's peak allocation; the
 smoke fails if its peak allocation reaches 60 GiB.
 
 It prints one JSON line describing every kernel mode (the float32 and bf16
-entries of the three kernels: launches on the main path, error, time,
+entries of the three kernels, and the MAC's shapes of steps 24–26 as
+``spectral_mac_f32:<shape>``, whose launches are the main path's at that
+launch shape, ``spectral_mac.launches_by_shape``: launches on the main
+path, error, time,
 plain time, the bound worked out from the shapes — the larger of the
 operations at the peak rate of the units that run them and the bytes at
 3.35 TB/s; ``block_conv_bound`` and ``mac_bound`` say which — and the time
@@ -562,10 +594,12 @@ def _wrappers():
     return block_conv, block_conv_peaks, spectral_mac
 
 
-def main_path(label, fn, mode, path_launches):
+def main_path(label, fn, mode, path_launches, shapes=None):
     """Run one main-path call: every kernel launch count set to 0 just
     before it and read just after. Fails unless kernel mode ``mode`` was
-    launched; adds the counts by mode to ``path_launches``."""
+    launched; adds the counts by mode to ``path_launches`` and, given a
+    Counter ``shapes``, the MAC kernel's counts by (mode, B, F, N, H, Wc)
+    to it."""
     import torch
 
     from cuda_fft_convolution_torch.ops.block_conv import reset_launches
@@ -581,7 +615,16 @@ def main_path(label, fn, mode, path_launches):
     if counts[mode] < 1:
         raise AssertionError(f"{label} did not launch the {mode} kernel")
     path_launches.update(counts)
+    if shapes is not None:
+        shapes.update(_wrappers()[2].launches_by_shape)
     return out
+
+
+def mac_shape(ops) -> tuple:
+    """The ``spectral_mac.launches_by_shape`` key of a MAC kernel call on
+    float32 planes ``ops``."""
+    b, f, h, wc = ops[0].shape
+    return ("spectral_mac_f32", b, f, ops[2].shape[0], h, wc)
 
 
 def max_rel_err_f64(maps, idx, want) -> float:
@@ -726,10 +769,11 @@ def tier_headline(fc, image_d, bank_d, idx, want, path_launches) -> dict:
     return times
 
 
-def dpm_inputs(seed):
+def dpm_inputs(seed, store="bfloat16"):
     """The DPM/HOG config's inputs on the card: HOG features of a 4096²
-    image from ``seed`` cast to bf16, (512, 512, 31), and the float32 bank
-    (1024, 12, 12, 31) → (features, bank, hog ms)."""
+    image from ``seed`` cast to ``store`` (bf16 unless asked), (512, 512,
+    31), and the float32 bank (1024, 12, 12, 31) → (features, bank, hog
+    ms)."""
     import torch
 
     from cuda_fft_convolution_torch.models import hog_features
@@ -746,7 +790,7 @@ def dpm_inputs(seed):
     hog_ms = cuda_ms(lambda: hog_features(image, cell=cell, bins=bins))
     print(f"DPM: hog_features of a {side}² image: {tuple(feats.shape)}, {hog_ms:.3f} ms")
     bank = rng.standard_normal((DPM["n"], DPM["k"], DPM["k"], bins)).astype(np.float32)
-    return feats.to(torch.bfloat16), torch.as_tensor(bank, device="cuda"), hog_ms
+    return feats.to(getattr(torch, store)), torch.as_tensor(bank, device="cuda"), hog_ms
 
 
 def dpm_reference_f64(feats, bank, idx) -> np.ndarray:
@@ -765,15 +809,23 @@ def dpm_reference_f64(feats, bank, idx) -> np.ndarray:
     return np.stack(out)
 
 
+def dpm_plant_sites() -> tuple[list, list]:
+    """The indices of the `plants` DPM filters that are planted and the
+    top-left (row, col) of each plant in the 512² feature frame."""
+    n = DPM["n"]
+    planted = [t * (n // DPM["plants"]) + 7 for t in range(DPM["plants"])]
+    corners = [(y0, x0) for y0 in (100, 350) for x0 in (60, 180, 300, 420)]
+    return planted, corners
+
+
 def dpm_planted(feats, bank):
     """``feats`` (bf16, on the card) with `plants` of the DPM filters added
     at `amplitude` → (bf16 features, the filters' indices, (plants, 2)
     int32 centres in the 'same' frame, on the card)."""
     import torch
 
-    k, n = DPM["k"], DPM["n"]
-    planted = [t * (n // DPM["plants"]) + 7 for t in range(DPM["plants"])]
-    corners = [(y0, x0) for y0 in (100, 350) for x0 in (60, 180, 300, 420)]
+    k = DPM["k"]
+    planted, corners = dpm_plant_sites()
     out = feats.float()
     for t, (y0, x0) in zip(planted, corners):
         out[y0 : y0 + k, x0 : x0 + k] += DPM["amplitude"] * bank[t]
@@ -1723,6 +1775,489 @@ def tuner_phase(fc, image_d, bank_d, idx, want, path_launches, times) -> None:
     phase_peak("tuner")
 
 
+# The model layer at full width (steps 24–26).
+# Pyramid: the DPM inputs at float32, 5 levels at scale 2^-0.5 (512, 362,
+# 256, 181, 128), 8 DPM filters planted 2x enlarged at 3x amplitude, so
+# each is found at level 2 (scale 0.5), within `near` cells of its centre.
+PYRAMID = dict(levels=5, scale=2 ** -0.5, plant_level=2, amplitude=3.0, near=3,
+               checked_levels=(0, 2))
+# MOSSE at Bolme et al. (CVPR 2010)'s settings: a 64² window, 8 training
+# perturbations (shifts up to `shift`), sigma 2, learning rate 0.125; a
+# pixel variant (F = 1, `frame`² frames, a `target`² target) and a HOG
+# variant (F = 31 cells of a `hog_image`² image, a `hog_target`² target).
+MOSSE = dict(window=64, frames=64, perturbations=8, shift=4, sigma=2.0, lr=0.125,
+             frame=256, target=24, hog_image=1024, hog_target=192)
+# The trainer: 8 frames of the DPM features (centred, shifted and noised),
+# 64 filters of 12²x31 (one DPM class model: six components of a root and
+# eight parts, rounded up), 8 Adam steps at 3e-2.
+TRAINER = dict(frames=8, n=64, steps=8, lr=3e-2, noise=0.05, grad_tol=1e-4)
+# Filters a plain or library MAC call takes where one call over the whole
+# bank would not fit beside it (the pyramid's 37 GB level-0 bank).
+MAC_CHUNK = 64
+
+
+def mac_row(ops, label, chunk=None) -> tuple:
+    """The MAC kernel on ``ops`` against the einsum, each plane within 1e-5
+    of max |einsum|, then its time, the einsum's and one complex einsum's
+    → (max abs err, ms, plain ms, bound ms, bound by, library ms). With
+    ``chunk``, the einsum and the complex einsum run over chunks of that
+    many filters and their times are summed (one call over the bank would
+    not fit beside it)."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.spectral_mac import (
+        spectral_mac,
+        spectral_mac_planes,
+    )
+
+    n = ops[2].shape[0]
+    parts = [(s, min(s + (chunk or n), n)) for s in range(0, n, chunk or n)]
+
+    def sub(s, e):
+        return ops[0], ops[1], ops[2][s:e], ops[3][s:e]
+
+    got = spectral_mac(*ops)
+    diff, peak = [0.0, 0.0], [0.0, 0.0]
+    for s, e in parts:
+        for p, (g, w) in enumerate(zip(got, spectral_mac_planes(*sub(s, e)))):
+            diff[p] = max(diff[p], float((g[:, s:e] - w).abs().max()))
+            peak[p] = max(peak[p], float(w.abs().max()))
+    del got
+    err = max(d / m for d, m in zip(diff, peak))
+    print(f"MAC kernel vs einsum, {label}: {tuple(ops[0].shape)} x {tuple(ops[2].shape)}: "
+          f"max abs {max(diff):.3e}, rel {err:.3e}"
+          + (f" (einsum over {len(parts)} chunks of {chunk})" if chunk else ""))
+    if err > TOL:
+        raise AssertionError(f"MAC kernel disagrees with the einsum ({label}): {err}")
+    ms = cuda_ms(lambda: spectral_mac(*ops))
+    plain = sum(cuda_ms(lambda: spectral_mac_planes(*sub(s, e)), runs=3) for s, e in parts)
+    library = sum(complex_einsum_ms(sub(s, e)) for s, e in parts)
+    bound_ms, bound_by = mac_bound(ops)
+    torch.cuda.empty_cache()
+    print(f"MAC kernel, {label}: {ms:.3f} ms; einsum {plain:.3f} ms; one complex einsum "
+          f"{library:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}; {card()})")
+    return max(diff), ms, plain, bound_ms, bound_by, library
+
+
+def direct_route(sd, bank) -> tuple[str, int]:
+    """The route ``conv_spectral`` takes for the raw corner ``bank`` against
+    direct spectra ``sd`` on this card's budget (``api.direct_bank_plan``,
+    the function it calls) → ('resident', 'chunked' or 'streamed', kernels
+    a MAC)."""
+    from cuda_fft_convolution_torch import api
+
+    n = bank.shape[0]
+    route, plan = api.direct_bank_plan(sd, n, raw_corner=True,
+                                       stack_bytes=bank.numel() * bank.element_size())
+    return route, min(plan.chunk_size, n)
+
+
+def pyramid_phase(fc, seed, path_launches, times, rows, row_launches) -> None:
+    """The pyramid at DPM width (module docstring, step 24)."""
+    import torch
+
+    from cuda_fft_convolution_torch.models import (
+        build_pyramid,
+        detect_peaks,
+        detect_pyramid,
+        detect_pyramid_peaks,
+    )
+    from cuda_fft_convolution_torch.models.pyramid import resize_bilinear
+
+    feats, bank, _ = dpm_inputs(seed, store="float32")
+    n, k = DPM["n"], DPM["k"]
+    planted, corners = dpm_plant_sites()
+    up = 2 * k
+    for t, (y0, x0) in zip(planted, corners):
+        feats[y0 : y0 + up, x0 : x0 + up] += PYRAMID["amplitude"] * resize_bilinear(
+            bank[t], up, up)
+
+    def build():
+        return build_pyramid(feats, k, k, num_levels=PYRAMID["levels"], scale=PYRAMID["scale"])
+
+    pyr = build()
+    sizes = [tuple(lv.shape) for lv in pyr.levels]
+    ffts = [(sd.fft_h, sd.fft_w) for sd in pyr.spectra]
+    print(f"pyramid: levels {sizes}, FFT sizes {ffts}, bank {tuple(bank.shape)}")
+    if [s[0] for s in sizes] != [512, 362, 256, 181, 128] or any(
+            lv.dtype != torch.float32 or not lv.is_cuda for lv in pyr.levels):
+        raise AssertionError(f"pyramid levels {sizes}")
+    det = main_path("pyramid detect_pyramid_peaks", lambda: detect_pyramid_peaks(pyr, bank),
+                    "spectral_mac_f32", path_launches)
+    level_launches, level0_shapes = [], collections.Counter()
+    for i, sd in enumerate(pyr.spectra):
+        route, chunk = direct_route(sd, bank)
+        counts = collections.Counter()
+        main_path(f"pyramid level {i}, detect_peaks on its spectra",
+                  lambda: detect_peaks(sd, bank), "spectral_mac_f32", counts,
+                  level0_shapes if i == 0 else None)
+        level_launches.append(counts["spectral_mac_f32"])
+        print(f"  level {i} ({sd.data_h}², FFT {sd.fft_h}x{sd.fft_w}): bank {route}, "
+              f"{chunk} filters a MAC, {level_launches[-1]} MAC launches")
+        if level_launches[-1] != -(-n // chunk):
+            raise AssertionError(f"level {i}: {level_launches[-1]} MAC launches, "
+                                 f"the {route} plan makes {-(-n // chunk)}")
+    best_level, best_pos = det.best_level.cpu(), det.best_position.cpu()
+    for t, (y0, x0) in zip(planted, corners):
+        lvl, (y, x) = int(best_level[t]), (int(c) for c in best_pos[t])
+        dist = max(abs(y - (y0 + (up - 1) / 2)), abs(x - (x0 + (up - 1) / 2)))
+        if lvl != PYRAMID["plant_level"] or dist > PYRAMID["near"]:
+            raise AssertionError(f"planted filter {t}: level {lvl} at ({y}, {x}), plant at "
+                                 f"({y0}, {x0}) size {up}")
+    print(f"pyramid: all {len(planted)} plants found at level {PYRAMID['plant_level']} "
+          f"within {PYRAMID['near']} cells of their centres; best values "
+          f"{[round(float(det.best_value[t]), 1) for t in planted]}")
+
+    level_maps = main_path("pyramid detect_pyramid", lambda: detect_pyramid(pyr, bank),
+                           "spectral_mac_f32", path_launches)
+    idx = list(range(0, n, n // 8))
+    flipped = bank.flip(1, 2).cpu().numpy()
+    for i, maps in enumerate(level_maps):
+        flat = maps.reshape(n, -1)
+        best = flat.argmax(-1)
+        pos = torch.stack([best // maps.shape[-1], best % maps.shape[-1]], -1).int()
+        if not (torch.equal(det.values[i], flat.gather(-1, best[:, None])[:, 0])
+                and torch.equal(det.positions[i], pos)):
+            raise AssertionError(f"level {i}: peaks differ from the argmax of the maps")
+        if i in PYRAMID["checked_levels"]:
+            want = dpm_reference_f64(pyr.levels[i].double().cpu().numpy(), flipped, idx)
+            err = max_rel_err_f64(maps, idx, want)
+            print(f"pyramid level {i} maps vs float64 numpy on filters {idx}: max rel err "
+                  f"{err:.3e}")
+            if err > TOL:
+                raise AssertionError(f"pyramid level {i} error {err} above {TOL}")
+    print("pyramid: every level's values and positions = the argmax of its maps")
+    del level_maps, maps, flat
+    torch.cuda.empty_cache()
+    phase_peak("pyramid")
+    timed("pyramid build_pyramid", build, times)
+    timed("pyramid detect_pyramid_peaks", lambda: detect_pyramid_peaks(pyr, bank), times)
+    timed("pyramid detect_pyramid", lambda: detect_pyramid(pyr, bank), times)
+
+    sd0 = pyr.spectra[0]
+    route, chunk = direct_route(sd0, bank)
+    sk = fc.fft_kernels(bank[:chunk], spectral=sd0, correlation=True)
+    ops = (sd0.re[None], sd0.im[None], sk.re, sk.im)
+    name = "spectral_mac_f32:pyramid_level0"
+    rows[name] = mac_row(ops, f"pyramid level 0 ({route} bank)",
+                         chunk=MAC_CHUNK if chunk > MAC_CHUNK else None)
+    # the level-0 run's launches at this shape (every chunk but a short last)
+    row_launches[name] = level0_shapes[mac_shape(ops)]
+    if row_launches[name] != n // chunk:
+        raise AssertionError(f"level 0: {dict(level0_shapes)} MAC launches by shape, "
+                             f"{n // chunk} expected at {mac_shape(ops)}")
+    del sk, ops, pyr, feats, bank
+    torch.cuda.empty_cache()
+    phase_peak("pyramid, level-0 MAC")
+
+
+def hann(size, device):
+    import torch
+
+    w = torch.hann_window(size, periodic=False, device=device)
+    return w[:, None] * w[None, :]
+
+
+def mosse_scene(gen, hog: bool) -> tuple[list, list]:
+    """`frames` frames of a target moving along a known path over a
+    static background, from ``gen`` → (frames, the target's centre each
+    frame). Pixels (F = 1): a `target`² white-noise patch on a smooth
+    `frame`² background, with per-frame noise, frames (H, W, 1). HOG
+    (F = 31): a smooth `hog_target`² texture on a noise `hog_image`²
+    image, moved in whole cells, frames its ``hog_features`` (cells)."""
+    import math
+
+    import torch
+
+    from cuda_fft_convolution_torch.models import hog_features
+
+    dev = gen.device
+    frames, centres = [], []
+    if hog:
+        cell = DPM["cell"]
+        side, size = MOSSE["hog_image"], MOSSE["hog_target"]
+        back = torch.randn((side, side), generator=gen, device=dev)
+        target = 3.0 * torch.nn.functional.interpolate(
+            torch.randn((1, 1, size // cell, size // cell), generator=gen, device=dev),
+            size=(size, size), mode="bilinear", align_corners=False)[0, 0]
+        half = size // cell // 2
+    else:
+        side, size = MOSSE["frame"], MOSSE["target"]
+        back = torch.nn.functional.avg_pool2d(
+            torch.randn((1, 1, side, side), generator=gen, device=dev), 5, 1, 2)[0, 0]
+        target = torch.randn((size, size), generator=gen, device=dev)
+        half = size // 2
+    for t in range(MOSSE["frames"]):
+        phase = 2 * math.pi * t / MOSSE["frames"]
+        if hog:
+            y, x = 40 + round(10 * math.sin(phase)), 30 + round(0.6 * t)
+            img = back.clone()
+            img[y * cell : y * cell + size, x * cell : x * cell + size] = target
+            frames.append(hog_features(img, cell=cell, bins=DPM["bins"]))
+        else:
+            y, x = 100 + round(30 * math.sin(phase)), 60 + 2 * t
+            img = back.clone()
+            img[y : y + size, x : x + size] = target
+            img += 0.05 * torch.randn((side, side), generator=gen, device=dev)
+            frames.append(img[..., None])
+        centres.append((y + half, x + half))
+    return frames, centres
+
+
+def mosse_window(frame, centre, window):
+    """The (window, window, F) patch of ``frame`` centred at ``centre``,
+    normalised (zero mean, unit std) and Hann-weighted (Bolme et al.'s
+    preprocessing); raises if it leaves the frame."""
+    cy, cx = centre
+    r0, c0 = cy - window // 2, cx - window // 2
+    if r0 < 0 or c0 < 0 or r0 + window > frame.shape[0] or c0 + window > frame.shape[1]:
+        raise AssertionError(f"MOSSE window at {centre} leaves the {tuple(frame.shape)} frame")
+    w = frame[r0 : r0 + window, c0 : c0 + window]
+    w = (w - w.mean((0, 1))) / (w.std() + 1e-5)
+    return w * hann(window, frame.device)[..., None]
+
+
+def mosse_track(fc, frames, centres, gen):
+    """Train on the first frame (`perturbations` shifted windows, Gaussian
+    targets at the shifted centres), then ``mosse_frame`` on every other
+    frame from the last estimate → (estimates, the filter)."""
+    import torch
+
+    from cuda_fft_convolution_torch.models import gaussian_target, train_mosse
+
+    win, sigma, dev = MOSSE["window"], MOSSE["sigma"], frames[0].device
+    half = win // 2
+    shifts = torch.randint(-MOSSE["shift"], MOSSE["shift"] + 1,
+                           (MOSSE["perturbations"], 2), generator=gen, device=dev).tolist()
+    cy, cx = centres[0]
+    patches = torch.stack([mosse_window(frames[0], (cy + dy, cx + dx), win).permute(2, 0, 1)
+                           for dy, dx in shifts])
+    targets = torch.stack([gaussian_target(win, win, (half - dy, half - dx), sigma, device=dev)
+                           for dy, dx in shifts])
+    filt = train_mosse(patches, targets, win, win)
+    centred = gaussian_target(win, win, (half, half), sigma, device=dev)
+    estimates = [tuple(centres[0])]
+    for frame in frames[1:]:
+        est, filt = mosse_frame(fc, filt, frame, estimates[-1], centred)
+        estimates.append(est)
+    return estimates, filt
+
+
+def mosse_frame(fc, filt, frame, est, target):
+    """One tracker frame: ``respond`` on the window at the last estimate
+    ``est``, the new estimate at its peak (read on the host), and
+    ``update_mosse`` on the window there toward ``target`` → (the new
+    estimate, the updated filter)."""
+    from cuda_fft_convolution_torch.models import respond, update_mosse
+
+    win = MOSSE["window"]
+    peak = int(respond(filt, fc.fft_data(mosse_window(frame, est, win), 1, 1)).argmax())
+    est = (est[0] - win // 2 + peak // win, est[1] - win // 2 + peak % win)
+    return est, update_mosse(filt, mosse_window(frame, est, win).permute(2, 0, 1), target,
+                             lr=MOSSE["lr"])
+
+
+def mosse_phase(fc, seed, path_launches, times, rows, row_launches) -> None:
+    """The MOSSE tracker (module docstring, step 25)."""
+    import torch
+
+    from cuda_fft_convolution_torch.models import gaussian_target
+
+    for hog in (False, True):
+        label = "MOSSE, HOG (F=31)" if hog else "MOSSE, pixels (F=1)"
+        gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+        frames, centres = mosse_scene(gen, hog)
+        counts, shapes = collections.Counter(), collections.Counter()
+        estimates, filt = main_path(f"{label}, {len(frames)} frames",
+                                    lambda: mosse_track(fc, frames, centres, gen),
+                                    "spectral_mac_f32", counts, shapes)
+        path_launches.update(counts)
+        off = [max(abs(e[0] - c[0]), abs(e[1] - c[1])) for e, c in zip(estimates, centres)]
+        print(f"{label}: window {MOSSE['window']}², frames {tuple(frames[0].shape)}; the peak's "
+              f"distance from the path: max {max(off)}, per frame {off}")
+        if max(off) > 1 or counts["spectral_mac_f32"] != len(frames) - 1:
+            raise AssertionError(f"{label}: off the path by {max(off)}, "
+                                 f"{counts['spectral_mac_f32']} MAC launches")
+        win = MOSSE["window"]
+        sd = fc.fft_data(mosse_window(frames[-1], estimates[-1], win), 1, 1)
+        # respond's MAC, the kernel over a bank of one, against the einsum
+        ops = (sd.re[None], sd.im[None], filt.h_re[None], filt.h_im[None])
+        if hog:
+            name = "spectral_mac_f32:mosse_respond_hog"
+            rows[name] = mac_row(ops, f"{label} respond")
+            row_launches[name] = shapes[mac_shape(ops)]
+            if row_launches[name] != len(frames) - 1:
+                raise AssertionError(f"{label}: {dict(shapes)} MAC launches by shape")
+        else:
+            check_mac(ops)
+        centred = gaussian_target(win, win, (win // 2, win // 2), MOSSE["sigma"],
+                                  device="cuda")
+        timed(f"{label}, a frame (window, fft_data, respond, argmax, update_mosse)",
+              lambda: mosse_frame(fc, filt, frames[-1], estimates[-1], centred), times)
+    phase_peak("MOSSE")
+
+
+def trainer_reference_f64(images, kernels, bias, pairs) -> np.ndarray:
+    """float64 numpy 'same' correlation maps plus bias of the (B, F, H, W)
+    ``images`` with the (N, F, Kh, Kw) ``kernels`` for (b, n) ``pairs``."""
+    out = []
+    for b, n in pairs:
+        feats = images[b].double().cpu().numpy().transpose(1, 2, 0)
+        kern = kernels[n].flip(1, 2).double().cpu().numpy().transpose(1, 2, 0)
+        out.append(dpm_reference_f64(feats, kern[None], [0])[0] + float(bias[n]))
+    return np.stack(out)
+
+
+def trainer_inputs(fc, seed):
+    """The trainer's inputs on the card: `frames` frames (B, 31, 512, 512)
+    of the DPM features, the starting parameters as numpy fields, the model
+    carried from them, and a second detector's maps as realisable targets
+    → (images, fields, model, targets)."""
+    import torch
+
+    from cuda_fft_convolution_torch.models import detect
+
+    feats, _, _ = dpm_inputs(seed, store="float32")
+    # Centred per channel (the mean subtraction of whitened-HOG detectors):
+    # on raw HOG, whose channels share a positive mean, Adam's first step
+    # moves every response by lr·Σ|x| and the loss rose 10⁴x at lr 3e-2.
+    feats -= feats.mean((0, 1))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    b, n, k, f = TRAINER["frames"], TRAINER["n"], DPM["k"], DPM["bins"]
+    images = torch.stack([
+        torch.roll(feats, (7 * i, 11 * i), (0, 1))
+        + TRAINER["noise"] * torch.randn(feats.shape, generator=gen, device="cuda")
+        for i in range(b)
+    ]).permute(0, 3, 1, 2).contiguous()
+    del feats
+    rng = np.random.default_rng(seed + 9)
+    scale = 1 / np.sqrt(f * k * k)
+    init = {"kernels": (scale * rng.standard_normal((n, f, k, k))).astype(np.float32),
+            "bias": np.zeros(n, np.float32)}
+    target_model = fc.detector_from_numpy({
+        "kernels": (scale * rng.standard_normal((n, f, k, k))).astype(np.float32),
+        "bias": (0.1 * rng.standard_normal(n)).astype(np.float32)}, device="cuda")
+    with torch.no_grad():
+        targets = detect(target_model, images)
+    return images, init, fc.detector_from_numpy(init, device="cuda"), targets
+
+
+def trainer_phase(fc, seed, path_launches, times, rows, row_launches) -> None:
+    """The filter-bank detector, forward and training (module docstring,
+    step 26)."""
+    import unittest.mock
+
+    import torch
+
+    from cuda_fft_convolution_torch.models import detect, filter_bank, loss_fn, train_step
+    from cuda_fft_convolution_torch.ops.conv import rfft2_padded_planes
+    from cuda_fft_convolution_torch.ops.spectral_mac import spectral_mac_planes
+
+    images, init, model, targets = trainer_inputs(fc, seed)
+    b, n, k, f = TRAINER["frames"], TRAINER["n"], DPM["k"], DPM["bins"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    fft = fc.compute_fft_size(512, 512, k, k)
+    # The MAC kernel's launch shapes (B, F, N) of the forward and of the
+    # backward's two cotangents (ops/spectral_mac.py _SpectralMac):
+    # dK = MAC(gᵀ, conj(D)ᵀ), dD = MAC(g, conj(K)ᵀ).
+    fwd, dk, dd = (("spectral_mac_f32", *m, fft[0], fft[1] // 2 + 1)
+                   for m in ((b, f, n), (n, b, f), (b, n, f)))
+    shapes = collections.Counter()  # over this phase's main-path runs
+
+    def run(label, fn, want):
+        """``main_path`` of ``fn``; fails unless its MAC launches by shape
+        are ``want``."""
+        got = collections.Counter()
+        out = main_path(label, fn, "spectral_mac_f32", path_launches, got)
+        if got != collections.Counter(want):
+            raise AssertionError(f"{label}: MAC launches by shape {dict(got)}, not {want}")
+        shapes.update(got)
+        return out
+
+    with torch.no_grad():
+        maps = run("trainer detect (forward)", lambda: detect(model, images), [fwd])
+    if not (tuple(maps.shape) == (b, n, 512, 512) and torch.isfinite(maps).all()):
+        raise AssertionError(f"detector maps {tuple(maps.shape)}")
+    pairs = [(i, (8 * i + 3) % n) for i in range(b)]
+    want = trainer_reference_f64(images, model.kernels.detach(), model.bias.detach(), pairs)
+    err = max_rel_err_f64(maps[tuple(zip(*pairs))], list(range(len(pairs))), want)
+    print(f"trainer: images {tuple(images.shape)}, bank {tuple(model.kernels.shape)}; detect "
+          f"vs float64 numpy on (image, filter) {pairs}: max rel err {err:.3e}")
+    if err > TOL:
+        raise AssertionError(f"detect error {err} above {TOL}")
+    del maps
+
+    opt = torch.optim.Adam(model.parameters(), lr=TRAINER["lr"])
+    losses = []
+    for step in range(TRAINER["steps"]):
+        # forward and dK: the images need no gradient
+        _, _, loss = run(f"train_step {step}",
+                         lambda: train_step(model, opt, images, targets), [fwd, dk])
+        losses.append(float(loss))
+        if step == 0:
+            grads = model.kernels.grad.clone(), model.bias.grad.clone()
+    print(f"trainer: Adam lr {TRAINER['lr']}, losses {[f'{x:.5f}' for x in losses]}; each step "
+          f"launched the MAC once at the forward's shape {fwd[1:4]} and once at dK's "
+          f"{dk[1:4]} (B, F, N; the images need no gradient)")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    plain = fc.detector_from_numpy(init, device="cuda")
+    before = dict(_wrappers()[2].launches_by_mode)
+    with unittest.mock.patch.object(filter_bank, "spectral_mac_auto_planes",
+                                    spectral_mac_planes):
+        loss_fn(plain, images, targets).backward()
+    torch.cuda.synchronize()
+    if dict(_wrappers()[2].launches_by_mode) != before:
+        raise AssertionError("the einsum-backward run launched the MAC kernel")
+    gerr = max(rel_err(grads[0], plain.kernels.grad), rel_err(grads[1], plain.bias.grad))
+    print(f"trainer: first step's gradients vs the einsum's autograd on the card: rel "
+          f"{gerr:.3e} (bar {TRAINER['grad_tol']:g})")
+    if gerr > TRAINER["grad_tol"]:
+        raise AssertionError(f"gradients {gerr} above {TRAINER['grad_tol']}")
+    del plain, grads
+    x = images.clone().requires_grad_(True)
+    run("trainer loss backward with the images' gradient too",
+        lambda: loss_fn(model, x, targets).backward(), [fwd, dd, dk])
+    if not torch.isfinite(x.grad).all():
+        raise AssertionError("the images' gradient is not finite")
+    del x
+    torch.cuda.empty_cache()
+    phase_peak("trainer")
+
+    timed("trainer train_step", lambda: train_step(model, opt, images, targets), times)
+    timed("trainer forward (loss_fn)", lambda: loss_fn(model, images, targets), times)
+    loss = loss_fn(model, images, targets)
+    timed("trainer backward", lambda: loss.backward(retain_graph=True), times)
+    del loss
+    opt.zero_grad()
+    phase_peak("trainer, timing")
+
+    with torch.no_grad():
+        d = rfft2_padded_planes(images, *fft)
+        kp = rfft2_padded_planes(model.kernels.flip(-2, -1), *fft)
+    g = tuple(torch.randn((b, n, fft[0], fft[1] // 2 + 1), generator=gen, device="cuda")
+              for _ in range(2))
+
+    def t(x):
+        return x.transpose(0, 1).contiguous()
+
+    # The forward's and the backward's operands, g random planes from the
+    # seed; each row's launches are this phase's main-path launches at its
+    # shape.
+    for name, ops in (
+        ("train_forward", (*d, *kp)),
+        ("train_dK", (t(g[0]), t(g[1]), t(d[0]), t(d[1]).neg())),
+        ("input_grad_dD", (*g, t(kp[0]), t(kp[1]).neg())),
+    ):
+        rows[f"spectral_mac_f32:{name}"] = mac_row(ops, f"trainer {name}")
+        row_launches[f"spectral_mac_f32:{name}"] = shapes[mac_shape(ops)]
+        del ops
+    print(f"trainer: MAC launches by shape over the phase's main-path runs {dict(shapes)}")
+    del d, kp, g, images, targets, model, opt
+    torch.cuda.empty_cache()
+    phase_peak("trainer, MAC rows")
+
+
 def cuda_ms(fn, runs=RUNS) -> float:
     """Median milliseconds of ``fn()`` between CUDA events, after a warm-up."""
     import torch
@@ -1755,6 +2290,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
+    started = time.perf_counter()
 
     import torch
 
@@ -1986,23 +2522,35 @@ def main(argv=None) -> int:
     dpm_stream_phase(fc, args.seed, path_launches, api_ms)
     ragged_stream_phase(fc, args.seed, path_launches, api_ms)
     tuner_phase(fc, image_d, bank_d, idx, want, path_launches, api_ms)
+
+    # ---- the model layer at full width ----
+    # rows of MAC shapes the model layer adds, and their launches
+    row_launches = {}
+    pyramid_phase(fc, args.seed, path_launches, api_ms, rows, row_launches)
+    mosse_phase(fc, args.seed, path_launches, api_ms, rows, row_launches)
+    trainer_phase(fc, args.seed, path_launches, api_ms, rows, row_launches)
+    print(f"smoke wall time: {time.perf_counter() - started:.1f} s")
     print(f"peak memory allocated over the smoke: {max(PHASE_PEAKS) / 2**30:.2f} GiB "
           f"(limit {PEAK_LIMIT / 2**30:.0f} GiB)")
     if max(PHASE_PEAKS) >= PEAK_LIMIT:
         raise AssertionError(f"peak allocation {max(PHASE_PEAKS)} B over {PEAK_LIMIT} B")
 
     kernels = []
-    for mode, (err, ms, plain, bound_ms, bound_by, library_ms) in rows.items():
+    # A row is a kernel's C entry (its dtype mode), or "entry:shape" for a
+    # MAC shape of the model layer, with its own launches.
+    launches = {name: row_launches.get(name, path_launches[name]) for name in rows}
+    for name, (err, ms, plain, bound_ms, bound_by, library_ms) in rows.items():
+        mode = name.split(":")[0]
         wrapper = mode.removesuffix("_bf16maps").rsplit("_", 1)[0]
         source, replaces = SOURCES[wrapper]
         kernels.append({
-            "name": mode, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": path_launches[mode], "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_kind": "compute" if bound_by == "operations" else "bytes",
             "library_ms": library_ms,
         })
-    missing = [m for m in rows if path_launches[m] < 1]
+    missing = [m for m in rows if launches[m] < 1]
     if missing:
         raise AssertionError(f"kernel modes the main path never launched: {missing}")
     print(json.dumps({"kernels": kernels}))

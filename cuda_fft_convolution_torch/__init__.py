@@ -16,7 +16,12 @@ float32 and at the bf16 serving tier (``store_dtype='bfloat16'``,
     bank at a time; ``runtime.plan_bank`` sizes the chunks)
   - ``fft_data_tiled``, ``fft_kernels``: reusable block and bank spectra
   - ``models.detect_peaks``, ``detect_top_k``, ``detect_local_peaks``: the
-    detection heads; ``models.hog_features``: the DPM path's HOG front end
+    detection heads; ``models.hog_features``: the DPM path's HOG front end;
+    ``build_pyramid``, ``detect_pyramid``, ``detect_pyramid_peaks``,
+    ``top_detections``: multi-scale detection; ``train_mosse``,
+    ``update_mosse``, ``respond``: MOSSE correlation filters;
+    ``FilterBankDetector``, ``init_detector``, ``detect``, ``loss_fn``,
+    ``train_step``: the trainable detector (every name of ``models``)
   - ``make_plan`` / ``FftConvPlan``: a geometry fixed up front, stages
     warmed (≈ cufftPlanMany); ``ConvStream`` / ``RaggedConvStream``:
     bounded-depth serving over a resident bank on CUDA events;
@@ -31,6 +36,30 @@ from cuda_fft_convolution_torch.api import (
     fft_data,
     fft_data_tiled,
     fft_kernels,
+)
+from cuda_fft_convolution_torch.models import (
+    FilterBankDetector,
+    MosseFilter,
+    Pyramid,
+    PyramidPeaks,
+    build_pyramid,
+    detect,
+    detect_local_peaks,
+    detect_peaks,
+    detect_pyramid,
+    detect_pyramid_peaks,
+    detect_top_k,
+    detector_from_numpy,
+    gaussian_target,
+    hog_features,
+    init_detector,
+    loss_fn,
+    mosse_from_numpy,
+    respond,
+    top_detections,
+    train_mosse,
+    train_step,
+    update_mosse,
 )
 from cuda_fft_convolution_torch.ops.block_conv import (
     block_conv,
@@ -82,6 +111,26 @@ __all__ = [
     "fft_data",
     "fft_data_tiled",
     "fft_kernels",
+    "detect_peaks",
+    "detect_top_k",
+    "detect_local_peaks",
+    "hog_features",
+    "FilterBankDetector",
+    "detect",
+    "init_detector",
+    "loss_fn",
+    "train_step",
+    "MosseFilter",
+    "gaussian_target",
+    "respond",
+    "train_mosse",
+    "update_mosse",
+    "Pyramid",
+    "PyramidPeaks",
+    "build_pyramid",
+    "detect_pyramid",
+    "detect_pyramid_peaks",
+    "top_detections",
     "block_conv",
     "block_conv_reference",
     "block_conv_peaks",
@@ -99,6 +148,8 @@ __all__ = [
     "register_tuned_geometry",
     "save_user_cache",
     "from_numpy",
+    "detector_from_numpy",
+    "mosse_from_numpy",
     "load_spectral",
     "save_spectral",
     "get_config",

@@ -742,6 +742,34 @@ def _batched_planes(spectral):
     return spectral.re[None], spectral.im[None]
 
 
+def direct_bank_plan(
+    spectral: SpectralData,
+    n_kernels: int,
+    *,
+    raw_corner: bool = False,
+    store_bytes: int | None = None,
+    stack_bytes: int = 0,
+) -> tuple[str, BankPlan]:
+    """How ``conv_spectral`` runs a bank of ``n_kernels`` against direct
+    ``spectral`` on its device's budget → (route, plan). A raw corner bank
+    (``raw_corner``, its spatial kernels taking ``stack_bytes``) whose
+    spectra would take over half the budget is 'streamed'
+    (``plan_streaming``); any other bank is 'resident' when ``plan_bank``
+    holds it whole, else 'chunked'. ``store_bytes`` is the bank spectra's
+    element size (default the data's)."""
+    budget = _device_memory_budget(spectral.re.device)
+    store = spectral.re.element_size() if store_bytes is None else store_bytes
+    dims = (n_kernels, spectral.feature_dim, spectral.fft_h, spectral.fft_w)
+    batch = _batched_planes(spectral)[0].shape[0]
+    if raw_corner and n_kernels > 1 and spectra_bytes(*dims, store) > budget // 2:
+        return "streamed", plan_streaming(
+            *dims, batch=batch, hbm_budget_bytes=budget, store_bytes=store,
+            stack_bytes=stack_bytes,
+        )
+    plan = plan_bank(*dims, batch=batch, hbm_budget_bytes=budget, store_bytes=store)
+    return ("resident" if plan.chunk_size >= n_kernels else "chunked"), plan
+
+
 def conv_spectral(
     spectral: SpectralData | TiledSpectralData,
     kernels,
@@ -799,6 +827,9 @@ def conv_spectral(
         sk = kernels
         _check_direct_bank(sk, spectral)
         _check_bank(sk, spectral, correlation)
+        route, plan = direct_bank_plan(
+            spectral, sk.num_kernels, store_bytes=sk.re.element_size()
+        )
     else:
         kstack, khs, kws = _kernels_to_stack(
             kernels, spectral.feature_dim, spectral.re.device
@@ -810,17 +841,13 @@ def conv_spectral(
             "(reference check src/cudaConvolutionFFT.cu:242-243)",
         )
         kstack = _apply_correlation_flip(kstack, khs, kws, correlation)
-        n, f = int(kstack.shape[0]), int(kstack.shape[1])
-        resident = spectra_bytes(
-            n, f, spectral.fft_h, spectral.fft_w, spectral.re.element_size()
+        route, plan = direct_bank_plan(
+            spectral, int(kstack.shape[0]), raw_corner=kernel_layout == "corner",
+            stack_bytes=kstack.numel() * kstack.element_size(),
         )
-        if (
-            n > 1
-            and kernel_layout == "corner"
-            and resident > _device_memory_budget(spectral.re.device) // 2
-        ):
+        if route == "streamed":
             return _conv_spectral_streaming_spatial(
-                spectral, kstack, khs, kws, mode=mode,
+                spectral, kstack, khs, kws, plan, mode=mode,
                 same_offset=same_offset, out_dtype=out_t,
             )
         centered = kernel_layout == "centered"
@@ -831,14 +858,8 @@ def conv_spectral(
         )
     _check_not_aliased(spectral, sk.kernel_hs, sk.kernel_ws, mode)
     d_re, d_im = _batched_planes(spectral)
-    plan = plan_bank(
-        sk.num_kernels, spectral.feature_dim, spectral.fft_h, spectral.fft_w,
-        batch=d_re.shape[0],
-        hbm_budget_bytes=_device_memory_budget(d_re.device),
-        store_bytes=sk.re.element_size(),
-    )
     try:
-        if plan.chunk_size < sk.num_kernels:
+        if route == "chunked":
             maps = _conv_from_spectra_chunked(
                 d_re, d_im, sk.re, sk.im, spectral.fft_h, spectral.fft_w,
                 plan.chunk_size, out_t,
@@ -940,23 +961,17 @@ def _conv_spectral_streaming_spatial(
     kstack: torch.Tensor,  # (N, F, Kh, Kw) spatial, correlation flip applied
     khs: tuple,
     kws: tuple,
+    plan: BankPlan,
     *,
     mode: str,
     same_offset: str = "scipy",
     out_dtype: torch.dtype = torch.float32,
 ):
     """conv_spectral for a bank too large to hold as resident spectra: the
-    chunked on-the-fly transform, MAC and inverse, chunks sized by
-    ``runtime/planner.py plan_streaming``."""
+    chunked on-the-fly transform, MAC and inverse, in chunks of
+    ``plan.chunk_size`` (``direct_bank_plan``'s 'streamed' plan)."""
     _check_not_aliased(spectral, khs, kws, mode)
     d_re, d_im = _batched_planes(spectral)
-    plan = plan_streaming(
-        kstack.shape[0], spectral.feature_dim, spectral.fft_h, spectral.fft_w,
-        batch=d_re.shape[0],
-        hbm_budget_bytes=_device_memory_budget(d_re.device),
-        store_bytes=d_re.element_size(),
-        stack_bytes=kstack.numel() * kstack.element_size(),
-    )
     try:
         maps = _conv_from_spatial_chunked(
             d_re, d_im, kstack, spectral.fft_h, spectral.fft_w,

@@ -281,10 +281,13 @@ def count_launch(wrapper, mode: str) -> None:
 
 
 def reset_launches(*wrappers) -> None:
-    """Set the launch counts of ``wrappers`` to zero."""
+    """Set the launch counts of ``wrappers`` to zero (by mode, and by shape
+    where a wrapper keeps them)."""
     for w in wrappers:
         w.launches = 0
         w.launches_by_mode.clear()
+        if hasattr(w, "launches_by_shape"):
+            w.launches_by_shape.clear()
 
 
 def _check_smem(block_w: int, wc: int, vh: int) -> None:

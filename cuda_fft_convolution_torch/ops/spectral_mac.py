@@ -13,7 +13,8 @@ Two implementations, as in the JAX package
 ``spectral_mac_auto_planes``, which every engine calls, always runs the
 MAC kernel: it is faster than the einsum on the card, so the JAX package's
 ``use_pallas`` selection has nothing to choose and is accepted with no
-effect. Its gradient is the einsum's, as ``_mac_pallas_ad`` defines it.
+effect. Its gradient is the einsum's VJP, as ``_mac_pallas_ad`` defines
+it, and both of its cotangents run through the MAC kernel too.
 
 The bf16 serving tier (bf16 planes) takes the same route: bf16 operands,
 float32 accumulation, float32 outputs — the function of the JAX package's
@@ -57,8 +58,9 @@ def spectral_mac(
     """The MAC kernel → (B, N, H, Wc) f32 planes. CPU tensors run
     ``spectral_mac_planes``; CUDA tensors launch the CUDA kernel entry of
     their dtype on the current stream (no synchronisation) and count the
-    launch in ``spectral_mac.launches`` and, per mode, in
-    ``spectral_mac.launches_by_mode``."""
+    launch in ``spectral_mac.launches``, per mode in
+    ``spectral_mac.launches_by_mode`` and per (mode, B, F, N, H, Wc) in
+    ``spectral_mac.launches_by_shape``."""
     ops = (dr, di, kr, ki)
     if all(t.device.type == "cpu" for t in ops):
         return spectral_mac_planes(dr, di, kr, ki)
@@ -85,19 +87,35 @@ def spectral_mac(
     if err != 0:
         raise RuntimeError(f"spectral_mac CUDA kernel launch failed: cudaError {err}")
     count_launch(spectral_mac, mode)
+    spectral_mac.launches_by_shape[(mode, b, f, n, h, wc)] += 1
     return o_re, o_im
 
 
 spectral_mac.launches = 0
 spectral_mac.launches_by_mode = collections.Counter()
+spectral_mac.launches_by_shape = collections.Counter()
+
+
+def _conj_t(re: torch.Tensor, im: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The conjugate of (re, im) with its two leading axes swapped, as
+    contiguous float32 planes (bf16 planes upcast)."""
+    re, im = upcast(re), upcast(im)
+    return re.transpose(0, 1).contiguous(), im.transpose(0, 1).neg().contiguous()
 
 
 class _SpectralMac(torch.autograd.Function):
-    """Forward: the MAC kernel. Backward: the einsum's autograd — the MAC
-    is linear in each plane, and both forms compute the same map
-    (``_mac_pallas_ad`` in the JAX package). The einsum is taken on the
-    saved planes themselves, and under ``create_graph`` its gradients keep
-    their graph, so higher derivatives are the einsum's too."""
+    """Forward: the MAC kernel. Backward: the einsum's VJP
+    (``_mac_pallas_ad`` in the JAX package), whose two cotangents are MACs
+    themselves, so they run through this Function again (the kernel on
+    CUDA tensors):
+
+        dD[b, f] = Σ_n g[b, n] ⊙ conj(K[n, f])  = MAC(g, conj(K)ᵀ)
+        dK[n, f] = Σ_b g[b, n] ⊙ conj(D[b, f])  = MAC(gᵀ, conj(D)ᵀ)
+
+    No forward is recomputed, a cotangent no input asks for is not
+    computed, and under ``create_graph`` both stay differentiable, so
+    higher derivatives work. Gradients of bf16 planes are computed in
+    float32 and returned in bf16."""
 
     @staticmethod
     def forward(ctx, dr, di, kr, ki):
@@ -106,14 +124,20 @@ class _SpectralMac(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_re, g_im):
-        planes = ctx.saved_tensors
-        create_graph = torch.is_grad_enabled()
-        with torch.enable_grad():
-            out = spectral_mac_planes(*planes)
-            wanted = [x for x, need in zip(planes, ctx.needs_input_grad) if need]
-            grads = iter(torch.autograd.grad(
-                out, wanted, (g_re, g_im), create_graph=create_graph))
-        return tuple(next(grads) if need else None for need in ctx.needs_input_grad)
+        dr, di, kr, ki = ctx.saved_tensors
+        need_d = any(ctx.needs_input_grad[:2])
+        need_k = any(ctx.needs_input_grad[2:])
+        grads = [None] * 4
+        if need_d:
+            grads[:2] = _SpectralMac.apply(g_re, g_im, *_conj_t(kr, ki))
+        if need_k:
+            grads[2:] = _SpectralMac.apply(
+                g_re.transpose(0, 1), g_im.transpose(0, 1), *_conj_t(dr, di))
+        planes = (dr, di, kr, ki)
+        return tuple(
+            g.to(p.dtype) if need else None
+            for g, p, need in zip(grads, planes, ctx.needs_input_grad)
+        )
 
 
 def spectral_mac_auto_planes(
@@ -123,7 +147,8 @@ def spectral_mac_auto_planes(
     use_pallas: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The MAC through the MAC kernel (its plain version on CPU tensors),
-    differentiable, backward = the einsum's. ``use_pallas`` is the JAX
+    differentiable: its backward is the einsum's VJP, computed by the same
+    kernel (``_SpectralMac``). ``use_pallas`` is the JAX
     package's selection between its einsum and its Pallas kernel, kept for
     the signature; it has no effect here."""
     del use_pallas

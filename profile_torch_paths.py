@@ -18,7 +18,10 @@ kernels with the most self device time. Then the same for the DPM giant
 bank's direct ``conv_spectral`` (576 filters resident at the tier), the
 ragged cell array's ``fft_conv`` and its ``RaggedConvStream`` (BASELINE
 configs[1]), and the headline ``ConvStream`` at depth 1 and 3 over 16 host
-frames, per frame: the serving loop's idle share.
+frames, per frame: the serving loop's idle share. Then the model layer on
+``chip_smoke``'s inputs: ``detect_pyramid_peaks`` of the DPM pyramid (1024
+filters, 5 levels), a ``train_step`` of the filter-bank detector (8 frames,
+64 filters) and a frame of the MOSSE tracker on HOG cells.
 
     python3 profile_torch_paths.py --ab-parent PARENT/cuda_fft_convolution_torch/csrc
 
@@ -317,6 +320,31 @@ def main(argv=None) -> int:
         report(f"headline ConvStream, depth {depth}, 16 host frames",
                lambda: serve(stream, frames), args.calls, frames=len(frames))
         del stream
+    del frames, hbank
+    torch.cuda.empty_cache()
+
+    from cuda_fft_convolution_torch import models
+
+    feats, dbank, _ = chip_smoke.dpm_inputs(args.seed, store="float32")
+    k = chip_smoke.DPM["k"]
+    pyr = models.build_pyramid(feats, k, k, num_levels=chip_smoke.PYRAMID["levels"])
+    report("pyramid detect_pyramid_peaks, 1024 filters, 5 levels",
+           lambda: models.detect_pyramid_peaks(pyr, dbank), args.calls)
+    del pyr, feats, dbank
+    torch.cuda.empty_cache()
+    images, _, model, targets = chip_smoke.trainer_inputs(fc, args.seed)
+    opt = torch.optim.Adam(model.parameters(), lr=chip_smoke.TRAINER["lr"])
+    report(f"trainer train_step, {tuple(images.shape)}, {model.num_filters} filters",
+           lambda: models.train_step(model, opt, images, targets), args.calls)
+    del images, model, targets, opt
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 7)
+    frames, centres = chip_smoke.mosse_scene(gen, hog=True)
+    estimates, filt = chip_smoke.mosse_track(fc, frames, centres, gen)
+    win = chip_smoke.MOSSE["window"]
+    centred = models.gaussian_target(win, win, (win // 2, win // 2), chip_smoke.MOSSE["sigma"])
+    report("MOSSE frame, HOG cells (F=31)", lambda: chip_smoke.mosse_frame(
+        fc, filt, frames[-1], estimates[-1], centred), args.calls)
     return 0
 
 

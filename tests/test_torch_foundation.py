@@ -178,6 +178,16 @@ def test_port_imports_with_jax_blocked():
         "vals, pos = detect_peaks(np.ones((40, 40, 1), np.float32),\n"
         "                         np.ones((2, 5, 5, 1), np.float32), device='cpu')\n"
         "assert tuple(pos.shape) == (2, 2)\n"
+        "from cuda_fft_convolution_torch import models\n"
+        "pyr = models.build_pyramid(np.ones((40, 40, 1), np.float32), 5, 5,\n"
+        "                           num_levels=2, device='cpu')\n"
+        "assert models.detect_pyramid_peaks(pyr, np.ones((2, 5, 5, 1), np.float32))\\\n"
+        "    .values.shape == (2, 2)\n"
+        "import torch\n"
+        "det = models.init_detector(torch.Generator(), 2, 1, 3, 3, device='cpu')\n"
+        "opt = torch.optim.SGD(det.parameters(), lr=0.1)\n"
+        "models.train_step(det, opt, np.ones((1, 1, 9, 9), np.float32),\n"
+        "                  np.zeros((1, 2, 9, 9), np.float32))\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
         "    'cuda_fft_convolution_tpu')) for m in sys.modules\n"
         "    if sys.modules[m] is not None)\n"

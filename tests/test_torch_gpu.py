@@ -9,6 +9,8 @@ JAX package, so on a GPU host without jax they run as
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -506,3 +508,105 @@ def test_autotune_registers_under_device_name_on_gpu(cuda):
         assert tt.choose_block_plan(1024, 1024, 9, 9, device="cpu") == (16, 136, 9, 9)
     finally:
         ta._MEASURED.clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [3, 31])
+def test_mac_backward_kernel_matches_einsum_backward_on_gpu(cuda, f):
+    """The MAC's backward on the card launches the kernel once per
+    cotangent asked for (dD, dK) and agrees with the einsum's autograd on
+    the same CUDA planes; a second derivative runs through it too."""
+    from cuda_fft_convolution_torch.ops import spectral_mac as tmac
+
+    rng = np.random.default_rng(11)
+    shapes = [(2, f, 67, 35)] * 2 + [(5, f, 67, 35)] * 2
+    planes = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    cot = [torch.as_tensor(rng.standard_normal((2, 5, 67, 35)).astype(np.float32),
+                           device=cuda) for _ in range(2)]
+
+    def grads(mac, need=(True,) * 4):
+        xs = [torch.tensor(p, device=cuda, requires_grad=r) for p, r in zip(planes, need)]
+        out = mac(*xs)
+        torch.cuda.synchronize()
+        before = tmac.spectral_mac.launches
+        by_shape = collections.Counter(tmac.spectral_mac.launches_by_shape)
+        g = torch.autograd.grad(out, [x for x in xs if x.requires_grad], cot)
+        torch.cuda.synchronize()
+        by_shape = collections.Counter(tmac.spectral_mac.launches_by_shape) - by_shape
+        return g, tmac.spectral_mac.launches - before, by_shape
+
+    kernel, launches, by_shape = grads(tmac.spectral_mac_auto_planes)
+    einsum, none, _ = grads(tmac.spectral_mac_planes)
+    assert (launches, none) == (2, 0)
+    # dD = MAC(g, conj(K)ᵀ) at (B, F, N) = (2, 5, f); dK = MAC(gᵀ, conj(D)ᵀ) at (5, 2, f)
+    assert by_shape == collections.Counter({("spectral_mac_f32", 2, 5, f, 67, 35): 1,
+                                          ("spectral_mac_f32", 5, 2, f, 67, 35): 1})
+    for g, w in zip(kernel, einsum):
+        assert _rel(g, w) <= TOL
+    only_k, launches, by_shape = grads(tmac.spectral_mac_auto_planes, (False, False, True, True))
+    assert launches == 1 and list(by_shape) == [("spectral_mac_f32", 5, 2, f, 67, 35)]
+    for g, w in zip(only_k, einsum[2:]):
+        assert _rel(g, w) <= TOL
+    # grad of grad: d/dk_re <d loss/d d_re, tan>
+    tan = torch.as_tensor(rng.standard_normal(shapes[0]).astype(np.float32), device=cuda)
+
+    def second(mac):
+        xs = [torch.tensor(p, device=cuda, requires_grad=True) for p in planes]
+        loss = sum((o * c).sum() for o, c in zip(mac(*xs), cot))
+        (g_dr,) = torch.autograd.grad(loss, [xs[0]], create_graph=True)
+        return torch.autograd.grad((g_dr * tan).sum(), [xs[2]])[0]
+
+    assert _rel(second(tmac.spectral_mac_auto_planes), second(tmac.spectral_mac_planes)) <= TOL
+
+
+@pytest.mark.gpu
+def test_models_on_gpu_match_cpu(cuda):
+    """The pyramid, MOSSE and the filter-bank detector on the card against
+    the same calls on the CPU, each through the MAC kernel."""
+    from cuda_fft_convolution_torch import models as tm
+    from cuda_fft_convolution_torch.ops import spectral_mac as tmac
+
+    rng = np.random.default_rng(13)
+    img = rng.standard_normal((96, 80, 3)).astype(np.float32)
+    bank = rng.standard_normal((4, 9, 9, 3)).astype(np.float32)
+    pyr = tm.build_pyramid(img, 9, 9, num_levels=3)
+    before = tmac.spectral_mac.launches
+    det = tm.detect_pyramid_peaks(pyr, bank)
+    torch.cuda.synchronize()
+    assert tmac.spectral_mac.launches == before + 3 and det.values.is_cuda
+    want = tm.detect_pyramid_peaks(tm.build_pyramid(img, 9, 9, num_levels=3, device="cpu"),
+                                   bank)
+    assert torch.equal(det.positions.cpu(), want.positions)
+    assert torch.equal(det.best_position.cpu(), want.best_position)
+    assert _rel(det.values.cpu(), want.values) <= TOL
+
+    patches = rng.standard_normal((4, 3, 32, 32)).astype(np.float32)
+    targets = np.stack([tm.gaussian_target(32, 32, (16, 16 + i), device="cpu").numpy()
+                        for i in range(4)])
+    filt = tm.train_mosse(patches, targets, 32, 32)
+    sd = tfc.fft_data(rng.standard_normal((32, 32, 3)).astype(np.float32), 1, 1)
+    before = tmac.spectral_mac.launches
+    resp = tm.respond(filt, sd)
+    torch.cuda.synchronize()
+    assert tmac.spectral_mac.launches == before + 1
+    cpu_filt = tm.MosseFilter(filt.h_re.cpu(), filt.h_im.cpu(), 32, 32)
+    want_resp = tm.respond(cpu_filt, tfc.SpectralData(
+        re=sd.re.cpu(), im=sd.im.cpu(), fft_h=32, fft_w=32, data_h=32, data_w=32))
+    assert _rel(resp.cpu(), want_resp) <= TOL
+
+    kernels = rng.standard_normal((3, 3, 5, 5)).astype(np.float32) / 8
+    fields = {"kernels": kernels, "bias": np.zeros(3, np.float32)}
+    images = rng.standard_normal((2, 3, 40, 36)).astype(np.float32)
+    targets = rng.standard_normal((2, 3, 40, 36)).astype(np.float32)
+    losses = []
+    for device in (cuda, "cpu"):
+        model = tfc.detector_from_numpy(fields, device=device)
+        opt = torch.optim.Adam(model.parameters(), lr=3e-2)
+        before = tmac.spectral_mac.launches
+        model, opt, loss = tm.train_step(model, opt, images, targets)
+        launches = tmac.spectral_mac.launches - before
+        losses.append((float(loss), model.kernels.detach().cpu(), launches))
+    (l_gpu, k_gpu, n_gpu), (l_cpu, k_cpu, n_cpu) = losses
+    assert (n_gpu, n_cpu) == (2, 0)  # forward + dK; the images need no gradient
+    assert abs(l_gpu - l_cpu) <= TOL * l_cpu
+    assert _rel(k_gpu, k_cpu) <= 1e-4

@@ -267,6 +267,38 @@ def test_streaming_spatial_equals_whole(rng, monkeypatch, budget, correlation, r
         assert rel_err(g.numpy(), np.asarray(j)) < TOL
 
 
+@pytest.mark.parametrize("route,raw", [("resident", True), ("resident", False),
+                                       ("chunked", False), ("streamed", True)])
+def test_direct_bank_plan_is_the_route_conv_spectral_takes(rng, monkeypatch, budget, route,
+                                                           raw):
+    """``direct_bank_plan`` names the route and chunk that ``conv_spectral``
+    runs a direct bank with: resident (one MAC over the bank), chunked
+    (a resident bank over the budget) or streamed (raw kernels whose
+    spectra would take over half the budget)."""
+    data, bank = _direct_case(rng)
+    sd = tfc.fft_data(data, 5, 5, **CPU)
+    sk = tfc.fft_kernels(bank, spectral=sd)
+    if route == "chunked":
+        budget(_budget_for_chunk(3, 7, 2, sd.fft_h, sd.fft_w, 1))
+    elif route == "streamed":
+        budget(planner.spectra_bytes(7, 2, sd.fft_h, sd.fft_w))
+    got, plan = tapi.direct_bank_plan(
+        sd, 7, raw_corner=raw, stack_bytes=bank.nbytes if raw else 0)
+    names = {"resident": "_conv_from_spectra", "chunked": "_conv_from_spectra_chunked",
+             "streamed": "_conv_from_spatial_chunked"}
+    calls = {r: _count_calls(monkeypatch, tapi, name) for r, name in names.items()}
+    maps = tfc.conv_spectral(sd, bank if raw else sk, mode="same")
+    assert got == route and tuple(maps.shape) == (7, 24, 22)
+    assert bool(calls["chunked"]) == (route == "chunked")
+    assert bool(calls["streamed"]) == (route == "streamed")
+    if route == "resident":
+        assert plan.chunk_size == 7 and [c[2].shape[0] for c in calls[route]] == [7]
+    elif route == "chunked":
+        assert plan.chunk_size == 3 and [c[6] for c in calls[route]] == [3]
+    else:
+        assert [c[5] for c in calls[route]] == [plan.chunk_size] and plan.chunk_size < 7
+
+
 def test_streaming_spatial_at_the_tier(rng, monkeypatch, budget):
     """At the bf16 tier the streamed kernel chunks are float32 and the data
     planes are upcast once: exactly the float32 call on the bf16-rounded

@@ -131,6 +131,61 @@ def test_mac_kernel_gradient_is_the_einsums(rng):
     assert g2.shape == xs[2].shape
 
 
+@pytest.mark.parametrize("f", [1, 3, 31])
+@pytest.mark.parametrize("wanted", ["all", "kernel planes", "data planes", "k_im"])
+def test_mac_backward_matches_jax_vjp(rng, monkeypatch, f, wanted):
+    """The backward computes the einsum's two cotangents as MACs of their
+    own, dD = MAC(g, conj(K)ᵀ) and dK = MAC(gᵀ, conj(D)ᵀ), with no forward
+    recomputed and only the cotangents asked for: against ``jax.vjp`` of
+    the JAX package's ``spectral_mac_planes`` (1e-5), with B, N > 1, and
+    the MACs the backward ran counted by their output shapes."""
+    b, n, h, wc = 2, 3, 6, 5
+    planes = _planes(rng, b, n, f, h, wc)
+    cot = [rng.standard_normal((b, n, h, wc)).astype(np.float32) for _ in range(2)]
+    need = {"all": (1, 1, 1, 1), "kernel planes": (0, 0, 1, 1),
+            "data planes": (1, 1, 0, 0), "k_im": (0, 0, 0, 1)}[wanted]
+    xs = [torch.tensor(p, requires_grad=bool(r)) for p, r in zip(planes, need)]
+    out = tmac.spectral_mac_auto_planes(*xs)
+    shapes = []
+    real = tmac.spectral_mac
+
+    def spy(*a):
+        shapes.append(tuple(a[0].shape[:1]) + tuple(a[2].shape[:1]))
+        return real(*a)
+
+    monkeypatch.setattr(tmac, "spectral_mac", spy)
+    got = torch.autograd.grad(out, [x for x in xs if x.requires_grad],
+                              [torch.as_tensor(c) for c in cot])
+    want_shapes = ([(b, f)] if any(need[:2]) else []) + ([(n, f)] if any(need[2:]) else [])
+    assert shapes == want_shapes  # one MAC per cotangent, no forward
+    _, vjp = jax.vjp(jmac.spectral_mac_planes, *map(jnp.asarray, planes))
+    want = [w for w, r in zip(vjp(tuple(map(jnp.asarray, cot))), need) if r]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert rel_err(g.numpy(), np.asarray(w)) < TOL
+
+
+def test_reset_launches_clears_the_counts_by_shape():
+    """``reset_launches`` sets the MAC kernel's counts to zero: in total,
+    by mode and by (mode, B, F, N, H, Wc)."""
+    from cuda_fft_convolution_torch.ops.block_conv import reset_launches
+
+    mac = tmac.spectral_mac
+    saved = mac.launches, dict(mac.launches_by_mode), dict(mac.launches_by_shape)
+    try:
+        mac.launches += 1
+        mac.launches_by_mode["spectral_mac_f32"] += 1
+        mac.launches_by_shape[("spectral_mac_f32", 1, 3, 5, 7, 4)] += 1
+        reset_launches(mac)
+        assert (mac.launches, dict(mac.launches_by_mode), dict(mac.launches_by_shape)) == (
+            0, {}, {})
+    finally:
+        mac.launches = saved[0]
+        mac.launches_by_mode.update(saved[1])
+        mac.launches_by_shape.update(saved[2])
+
+
 def test_use_pallas_config_and_env(rng, monkeypatch):
     """The MAC runs through the kernel path whatever ``use_pallas`` says:
     the option is accepted for the JAX package's signature, and the port's
