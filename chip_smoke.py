@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (cuda_fft_convolution_torch) on one CUDA GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--ab-parent PARENT/cuda_fft_convolution_torch/csrc]
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
 ``nvcc`` and PyTorch built for CUDA. It
@@ -25,7 +25,9 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      gives the same maps;
   5. times the fused call, the same call through the unfused torch.fft
      pipeline, and the kernel alone against its plain version, with CUDA
-     events (median of 7 runs after a warm-up);
+     events (median of 7 runs after a warm-up); the MAC kernel at the
+     unfused pipeline's launch shape (every block against the bank, read
+     from ``spectral_mac.launches_by_shape``) against the einsum;
   6. holds the peaks kernel against its plain version at the geometries of
      step 3 (values within 1e-5 relative; indices equal except in near-tie
      cells, where the kernel's position must hold a plain value within
@@ -39,7 +41,10 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
   8. runs the direct engine at the headline shape, checks that it went
      through the MAC kernel and agrees with float64 numpy on 8 maps, and
      holds the MAC kernel against the einsum at the direct shape with F=1
-     and F=3 channels;
+     and F=3 channels, and every register tile the MAC kernel instantiates
+     at ragged shapes (partial image and filter tiles and pixel chunks, the
+     trainer's launch pattern, one image) on f32 and bf16 planes against
+     the einsum, bitwise equal across tiles;
   9. times the detection call against the maps path, the peaks kernel
      against its plain version, the direct call, and the MAC kernel
      against the einsum at F=1 and F=3;
@@ -147,6 +152,15 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      launches once at dD's shape as well; a step, its forward and its
      backward timed; the MAC kernel at the forward, dK and dD shapes
      against the einsum.
+
+At every MAC row (the direct shape's F=1 and F=3, f32 and bf16, the
+unfused headline's and the model layer's shapes) it prints the tile the
+rule (``mac_tile``) picked and the time of every instantiated tile. With
+``--ab-parent`` it builds that checkout's ``spectral_mac.cu`` (the parent
+commit's, unpacked with ``git archive``) and times it against this tree's
+at each MAC row in turns, parent, this tree, this tree, parent (bare C
+entries, CUDA events, median of 7 windows of 10 calls), the outputs
+compared.
 
 Steps 13–26 print each check, each time (CUDA events, median of 7, unless
 said otherwise) beside the card's name and power limit, the kernel launches
@@ -655,6 +669,148 @@ def check_mac(ops, tol=TOL) -> float:
     return abs_err
 
 
+# (B, N, F, H, Wc) for the MAC kernel's tiles, as tests/test_torch_gpu.py:
+# ragged in every direction (partial image and filter tiles, S = 1000 a
+# partial chunk), the trainer's launch pattern at 20 x 11, and one image.
+MAC_SHAPES = [(3, 13, 5, 40, 25), (8, 5, 3, 20, 11), (5, 3, 2, 20, 11), (2, 3, 5, 20, 11),
+              (1, 7, 3, 67, 35)]
+
+
+def check_mac_tiles(gen) -> None:
+    """Every tile the MAC kernel instantiates (bare C entry) at each of
+    ``MAC_SHAPES``, on float32 and bf16 planes, against the einsum (1e-5;
+    1e-6 at bf16), bitwise equal across tiles (each output's arithmetic is
+    the same) and to the wrapper (the rule's tile)."""
+    import torch
+
+    from cuda_fft_convolution_torch._build import library
+    from cuda_fft_convolution_torch.ops.spectral_mac import (
+        MAC_TILES,
+        mac_tile,
+        spectral_mac,
+        spectral_mac_planes,
+    )
+
+    lib = library()
+    for b, n, f, h, wc in MAC_SHAPES:
+        ops = tuple(torch.randn((m, f, h, wc), generator=gen, device="cuda")
+                    for m in (b, b, n, n))
+        for planes, tol in ((ops, TOL), (tuple(x.to(torch.bfloat16) for x in ops),
+                                         MAC_BF16_TOL)):
+            want = spectral_mac_planes(*planes)
+            first, worst = None, 0.0
+            for tile in MAC_TILES:
+                got = mac_entry(lib, planes, tile)
+                err = max(rel_err(g, w) for g, w in zip(got, want))
+                worst = max(worst, err)
+                if err > tol:
+                    raise AssertionError(f"MAC tile {tile} at {(b, n, f, h, wc)}: {err}")
+                if first is None:
+                    first = got
+                if not all(torch.equal(g, w) for g, w in zip(got, first)):
+                    raise AssertionError(f"MAC tile {tile} at {(b, n, f, h, wc)} differs "
+                                         "from the first tile's outputs")
+            if not all(torch.equal(g, w) for g, w in zip(spectral_mac(*planes), first)):
+                raise AssertionError(f"spectral_mac at {(b, n, f, h, wc)} differs from "
+                                     "the C entry's outputs")
+            print(f"MAC kernel, every tile {list(MAC_TILES)} at (B, N, F, H, Wc) "
+                  f"{(b, n, f, h, wc)}, {str(planes[0].dtype)[6:]}: max rel {worst:.3e} vs "
+                  f"the einsum, tiles and the wrapper bitwise equal; the rule's tile "
+                  f"{mac_tile(b)}")
+
+
+# The parent commit's MAC library for the A/B turns (``--ab-parent``), and
+# the A/B readings by row: label -> (parent, this tree, this tree, parent) ms.
+PARENT = {}
+AB_ROWS = {}
+AB_REPS = 10  # MAC calls a CUDA-event window in the tile times and the A/B
+
+
+def build_parent_mac(csrc: pathlib.Path) -> None:
+    """Build the parent commit's ``spectral_mac.cu`` from ``csrc`` with this
+    tree's nvcc flags into ``build/parent_mac`` and load it into
+    ``PARENT['lib']`` (entries without the tile arguments)."""
+    import ctypes
+
+    from cuda_fft_convolution_torch import _build
+
+    out = _build.BUILD_DIR / "parent_mac"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    obj, lib_path = out / "spectral_mac.o", out / "libparent_mac.so"
+    for cmd in ([nvcc, *_build.NVCC_FLAGS, "-c", str(csrc / "spectral_mac.cu"), "-o", str(obj)],
+                [nvcc, *_build.LINK_FLAGS, "-o", str(lib_path), str(obj)]):
+        run = subprocess.run(cmd, capture_output=True, text=True)
+        if run.returncode != 0:
+            raise RuntimeError(f"building the parent's MAC failed:\n{run.stdout}{run.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    for tag in ("f32", "bf16"):
+        fn = getattr(lib, f"fftconv_spectral_mac_{tag}")
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_longlong,
+                                                                    ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    PARENT["lib"] = lib
+    print(f"A/B: the parent's MAC kernel built from {csrc}")
+
+
+def mac_entry(lib, ops, tile=None):
+    """A bare call of ``lib``'s MAC C entry for the planes' dtype, with no
+    wrapper around it (its host checks would show in a short CUDA-event
+    window) → (re, im). ``tile`` None is the parent's signature, without
+    the tile arguments."""
+    import torch
+
+    b, f, h, wc = ops[0].shape
+    n = ops[2].shape[0]
+    o_re = torch.empty((b, n, h, wc), device=ops[0].device)
+    o_im = torch.empty_like(o_re)
+    tag = "bf16" if ops[0].dtype == torch.bfloat16 else "f32"
+    err = getattr(lib, f"fftconv_spectral_mac_{tag}")(
+        *(t.data_ptr() for t in (*ops, o_re, o_im)), b, f, n, h * wc,
+        *(() if tile is None else tile), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"MAC C entry failed (tile {tile}): cudaError {err}")
+    return o_re, o_im
+
+
+def mac_tiles_and_ab(label, ops) -> None:
+    """At one MAC row's shape: the time of every instantiated tile (bare C
+    entry; median of 7 windows of ``AB_REPS`` calls), the rule's tile
+    marked; then, with ``--ab-parent``, the parent's kernel against this
+    tree's in turns (parent, this tree, this tree, parent; bare C entries,
+    the rule's tile, timed the same way), their outputs compared (the same
+    arithmetic an output: bitwise equal)."""
+    import torch
+
+    from cuda_fft_convolution_torch._build import library
+    from cuda_fft_convolution_torch.ops.spectral_mac import MAC_TILES, mac_tile
+
+    lib = library()
+    b, f = ops[0].shape[:2]
+    rule = mac_tile(b)
+    sweep = {t: cuda_ms(lambda t=t: mac_entry(lib, ops, t), reps=AB_REPS) for t in MAC_TILES}
+    print(f"MAC tiles, {label}: " + ", ".join(
+        f"{t}{'*' if t == rule else ''} {ms:.3f}" for t, ms in sweep.items())
+        + f" ms (* the rule's; {card()})")
+    if "lib" not in PARENT:
+        return
+    parent = functools.partial(mac_entry, PARENT["lib"], ops)
+    new = functools.partial(mac_entry, lib, ops, rule)
+    a, c = parent(), new()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(x, y) for x, y in zip(a, c))
+    err = max(rel_err(y, x) for x, y in zip(a, c))
+    del a, c
+    t = [cuda_ms(fn, reps=AB_REPS) for fn in (parent, new, new, parent)]
+    AB_ROWS[label] = t
+    print(f"A/B {label}: parent {t[0]:.3f}, this tree {t[1]:.3f}, this tree {t[2]:.3f}, "
+          f"parent {t[3]:.3f} ms (this tree / parent {(t[1] + t[2]) / (t[0] + t[3]):.3f}); "
+          f"outputs bitwise equal {equal}, rel {err:.3e} ({card()})")
+    if err > TOL:
+        raise AssertionError(f"A/B {label}: this tree's MAC differs from the parent's: {err}")
+    torch.cuda.empty_cache()
+
+
 def mac_bound(ops) -> tuple[float, str]:
     """bound() of a MAC call: 8 operations per (b, n, f, h, w) complex
     multiply-add; the planes read once and the two float32 output planes
@@ -1025,7 +1181,7 @@ def planner_table() -> None:
 
     budget = api._device_memory_budget(torch.device("cuda"))
     print(f"planner on this card: budget {budget / 1e9:.2f} GB "
-          f"(hbm_fraction x {torch.cuda.mem_get_info()[1] / 1e9:.2f} GB)")
+          f"(hbm_fraction x {torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB)")
     for label, n, f, fft, batch, sb, k in (
         ("headline direct, 100 x 64², f32", 100, 1, (2160, 2160), 1, 4, 64),
         ("pipelined direct, 8 images", 100, 1, (2160, 2160), 8, 4, 64),
@@ -1806,6 +1962,7 @@ def mac_row(ops, label, chunk=None) -> tuple:
     import torch
 
     from cuda_fft_convolution_torch.ops.spectral_mac import (
+        mac_tile,
         spectral_mac,
         spectral_mac_planes,
     )
@@ -1830,12 +1987,15 @@ def mac_row(ops, label, chunk=None) -> tuple:
     if err > TOL:
         raise AssertionError(f"MAC kernel disagrees with the einsum ({label}): {err}")
     ms = cuda_ms(lambda: spectral_mac(*ops))
+    mac_tiles_and_ab(label, ops)
     plain = sum(cuda_ms(lambda: spectral_mac_planes(*sub(s, e)), runs=3) for s, e in parts)
     library = sum(complex_einsum_ms(sub(s, e)) for s, e in parts)
     bound_ms, bound_by = mac_bound(ops)
     torch.cuda.empty_cache()
-    print(f"MAC kernel, {label}: {ms:.3f} ms; einsum {plain:.3f} ms; one complex einsum "
-          f"{library:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}; {card()})")
+    tile = mac_tile(ops[0].shape[0])
+    print(f"MAC kernel, {label}, tile {tile}: {ms:.3f} ms; einsum {plain:.3f} ms; one complex "
+          f"einsum {library:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}; "
+          f"{100 * bound_ms / ms:.1f}% of it; {card()})")
     return max(diff), ms, plain, bound_ms, bound_by, library
 
 
@@ -2258,8 +2418,10 @@ def trainer_phase(fc, seed, path_launches, times, rows, row_launches) -> None:
     phase_peak("trainer, MAC rows")
 
 
-def cuda_ms(fn, runs=RUNS) -> float:
-    """Median milliseconds of ``fn()`` between CUDA events, after a warm-up."""
+def cuda_ms(fn, runs=RUNS, reps=1) -> float:
+    """Median milliseconds of ``fn()`` between CUDA events, after a warm-up;
+    each of the ``runs`` windows holds ``reps`` calls back to back (their
+    mean), so that the host's time between launches does not show."""
     import torch
 
     fn()
@@ -2269,10 +2431,11 @@ def cuda_ms(fn, runs=RUNS) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -2289,6 +2452,9 @@ SOURCES = {
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--ab-parent", type=pathlib.Path, default=None,
+                        help="a parent checkout's cuda_fft_convolution_torch/csrc: time its "
+                             "MAC kernel against this tree's at every MAC row")
     args = parser.parse_args(argv)
     started = time.perf_counter()
 
@@ -2315,6 +2481,8 @@ def main(argv=None) -> int:
 
     env_report()
     build_kernels()
+    if args.ab_parent is not None:
+        build_parent_mac(args.ab_parent.resolve())
     rng = np.random.default_rng(args.seed)
     check_kernel_shapes(fc, rng)
     # kernel mode → launches in the main-path runs, and its JSON fields
@@ -2358,8 +2526,12 @@ def main(argv=None) -> int:
     image_d = torch.as_tensor(image, device="cuda")
     bank_d = torch.as_tensor(bank, device="cuda")
     fused_ms = cuda_ms(lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same"))
+    unfused_shapes = collections.Counter()
     fc.set_config(use_fused_block_conv=False)
     try:
+        main_path("headline fft_conv, unfused",
+                  lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same"),
+                  "spectral_mac_f32", path_launches, unfused_shapes)
         unfused_ms = cuda_ms(lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same"))
     finally:
         fc.set_config(use_fused_block_conv=None)
@@ -2405,7 +2577,14 @@ def main(argv=None) -> int:
     }
     for mode, (t, t_plain) in headline_modes.items():
         print(f"{mode} alone at the headline plan: {t:.3f} ms; plain version: {t_plain:.3f} ms")
-    del spec, sk, ops, ops16
+    # the unfused pipeline's MAC: every block of the image (B) against the bank
+    uops = tuple(x.reshape(-1, *x.shape[-3:]) for x in (spec.re, spec.im)) + (sk.re, sk.im)
+    rows["spectral_mac_f32:unfused_headline"] = mac_row(uops, "unfused headline")
+    row_launches = {"spectral_mac_f32:unfused_headline": unfused_shapes[mac_shape(uops)]}
+    if list(unfused_shapes) != [mac_shape(uops)]:
+        raise AssertionError(f"unfused headline: MAC launches by shape {dict(unfused_shapes)}, "
+                             f"not at {mac_shape(uops)}")
+    del spec, sk, ops, ops16, uops
     torch.cuda.empty_cache()
 
     # ---- the headline at the bf16 tier ----
@@ -2451,6 +2630,7 @@ def main(argv=None) -> int:
                      for m in (1, 1, n, n))
     check_mac(mac3_ops)
     check_mac(tuple(x.to(bf16) for x in mac3_ops), MAC_BF16_TOL)
+    check_mac_tiles(gen)
     del dspec, dsk
     torch.cuda.empty_cache()
 
@@ -2496,7 +2676,11 @@ def main(argv=None) -> int:
     einsum3_ms = cuda_ms(lambda: spectral_mac_planes(*mac3_ops))
     print(f"MAC kernel alone at the direct shape, F=3: {mac3_ms:.3f} ms; "
           f"einsum: {einsum3_ms:.3f} ms")
-    del mac_ops, mac16_ops, mac3_ops, det_image, det_bank
+    for label, ops in (("direct shape F=1", mac_ops), ("direct shape F=1 bf16", mac16_ops),
+                       ("direct shape F=3", mac3_ops), ("direct shape F=3 bf16",
+                                                         tuple(x.to(bf16) for x in mac3_ops))):
+        mac_tiles_and_ab(label, ops)
+    del mac_ops, mac16_ops, mac3_ops, ops, det_image, det_bank
     torch.cuda.empty_cache()
 
     # ---- the DPM/HOG detector path at full width ----
@@ -2524,8 +2708,8 @@ def main(argv=None) -> int:
     tuner_phase(fc, image_d, bank_d, idx, want, path_launches, api_ms)
 
     # ---- the model layer at full width ----
-    # rows of MAC shapes the model layer adds, and their launches
-    row_launches = {}
+    # (row_launches: the MAC shapes' rows, the unfused headline's and the
+    # model layer's, and their launches)
     pyramid_phase(fc, args.seed, path_launches, api_ms, rows, row_launches)
     mosse_phase(fc, args.seed, path_launches, api_ms, rows, row_launches)
     trainer_phase(fc, args.seed, path_launches, api_ms, rows, row_launches)
@@ -2535,6 +2719,11 @@ def main(argv=None) -> int:
     if max(PHASE_PEAKS) >= PEAK_LIMIT:
         raise AssertionError(f"peak allocation {max(PHASE_PEAKS)} B over {PEAK_LIMIT} B")
 
+    if AB_ROWS:
+        print(f"A/B of the MAC kernel, parent / this tree, ms ({card()}):")
+        for label, t in AB_ROWS.items():
+            print(f"  {label}: parent {t[0]:.3f} / {t[3]:.3f}, this tree {t[1]:.3f} / "
+                  f"{t[2]:.3f}: {(t[1] + t[2]) / (t[0] + t[3]):.3f}")
     kernels = []
     # A row is a kernel's C entry (its dtype mode), or "entry:shape" for a
     # MAC shape of the model layer, with its own launches.

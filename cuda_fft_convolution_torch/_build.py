@@ -34,7 +34,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _MAPS = ([_P] * 9 + [_I] * 12 + [_P], ctypes.c_int)
 _PEAKS = ([_P] * 10 + [_I] * 12 + [_P], ctypes.c_int)
-_MAC = ([_P] * 6 + [_I] * 3 + [ctypes.c_longlong, _P], ctypes.c_int)
+_MAC = ([_P] * 6 + [_I] * 3 + [ctypes.c_longlong, _I, _I, _P], ctypes.c_int)
 # C entry points: name → (argtypes, restype). Every pointer and the stream
 # are c_void_p; without argtypes ctypes would pass them as 32-bit ints. The
 # kernels have one entry per dtype mode: spectra f32 or bf16, and for the

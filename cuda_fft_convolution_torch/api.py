@@ -252,17 +252,19 @@ def _device_memory_budget(device: torch.device) -> int:
     """Bytes the bank planners may plan with on ``device``:
     ``Config.hbm_budget_bytes`` when set (on every device), else
     ``Config.hbm_fraction`` of a CUDA device's total memory, else the CPU's
-    8 GiB."""
+    8 GiB. The total is the device's properties, which torch caches: every
+    call plans with it, a stream's every frame too, and ``cudaMemGetInfo``
+    can block behind the work in flight."""
     cfg = get_config()
     if cfg.hbm_budget_bytes is not None:
         return int(cfg.hbm_budget_bytes)
     if device.type == "cuda":
-        return int(cfg.hbm_fraction * torch.cuda.mem_get_info(device)[1])
+        return int(cfg.hbm_fraction * torch.cuda.get_device_properties(device).total_memory)
     return _CPU_MEMORY_BUDGET
 
 
 def _resolve_policy(policy):
-    return FftSizePolicy.FAST if policy is None else FftSizePolicy(policy)
+    return get_config().policy if policy is None else FftSizePolicy(policy)
 
 
 def _bucket_ragged(kernels) -> list[list[int]] | None:

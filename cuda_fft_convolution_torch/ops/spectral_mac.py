@@ -16,6 +16,10 @@ MAC kernel: it is faster than the einsum on the card, so the JAX package's
 effect. Its gradient is the einsum's VJP, as ``_mac_pallas_ad`` defines
 it, and both of its cotangents run through the MAC kernel too.
 
+The kernel works on register tiles of TB images × TN filters a thread
+(``csrc/spectral_mac.cu``): ``mac_tile`` is the rule that picks the tile
+for a call, and ``MAC_TILES`` the set the kernel instantiates.
+
 The bf16 serving tier (bf16 planes) takes the same route: bf16 operands,
 float32 accumulation, float32 outputs — the function of the JAX package's
 einsum at the tier (its Pallas MAC is f32 only and leaves the tier to the
@@ -51,14 +55,29 @@ def spectral_mac_planes(
     return e(dr, kr) - e(di, ki), e(di, kr) + e(dr, ki)
 
 
+# The (TB, TN) register tiles the kernel instantiates
+# (``csrc/spectral_mac.cu`` FFTCONV_MAC_TILES).
+MAC_TILES = ((1, 1), (8, 4))
+
+
+def mac_tile(b: int) -> tuple[int, int]:
+    """The kernel's register tile (TB images, TN filters) for a MAC of B
+    images: one image keeps the one-row tile (the kernel of before tiles),
+    a batch takes tiles of 8 images × 4 filters, so the kernel operand
+    leaves device memory about once."""
+    return (1, 1) if b == 1 else (8, 4)
+
+
 def spectral_mac(
     dr: torch.Tensor, di: torch.Tensor,  # (B, F, H, Wc) f32/bf16
     kr: torch.Tensor, ki: torch.Tensor,  # (N, F, H, Wc) f32/bf16
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The MAC kernel → (B, N, H, Wc) f32 planes. CPU tensors run
     ``spectral_mac_planes``; CUDA tensors launch the CUDA kernel entry of
-    their dtype on the current stream (no synchronisation) and count the
-    launch in ``spectral_mac.launches``, per mode in
+    their dtype on the current stream (no synchronisation) with the
+    register tile ``mac_tile`` picks (the C entry refuses a tile outside
+    ``MAC_TILES``; the wrapper raises on any error) and count the launch
+    in ``spectral_mac.launches``, per mode in
     ``spectral_mac.launches_by_mode`` and per (mode, B, F, N, H, Wc) in
     ``spectral_mac.launches_by_shape``."""
     ops = (dr, di, kr, ki)
@@ -72,6 +91,7 @@ def spectral_mac(
     )
     b, f, h, wc = dr.shape
     n = kr.shape[0]
+    tb, tn = mac_tile(b)
     from cuda_fft_convolution_torch._build import library
 
     lib = library()
@@ -82,10 +102,11 @@ def spectral_mac(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"fftconv_{mode}")(
             dr.data_ptr(), di.data_ptr(), kr.data_ptr(), ki.data_ptr(),
-            o_re.data_ptr(), o_im.data_ptr(), b, f, n, h * wc, stream,
+            o_re.data_ptr(), o_im.data_ptr(), b, f, n, h * wc, tb, tn, stream,
         )
     if err != 0:
-        raise RuntimeError(f"spectral_mac CUDA kernel launch failed: cudaError {err}")
+        raise RuntimeError(
+            f"spectral_mac CUDA kernel launch failed (tile {(tb, tn)}): cudaError {err}")
     count_launch(spectral_mac, mode)
     spectral_mac.launches_by_shape[(mode, b, f, n, h, wc)] += 1
     return o_re, o_im

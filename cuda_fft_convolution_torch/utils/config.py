@@ -2,6 +2,9 @@
 port reads (``cuda_fft_convolution_tpu.utils.config``), with their names,
 semantics and environment variables:
 
+  - ``policy``: the FFT-size policy an entry point takes when its
+    ``policy`` is None (``FFTCONV_POLICY``: multiple16, pow2, fast or tpu;
+    default fast); ``set_config`` takes a policy or its name;
   - ``use_fused_block_conv``: None = auto (the fused kernel runs wherever
     its legality rule admits the geometry, ``ops.tiled.fused_dispatch_auto``),
     True/False force either branch of ``ops.tiled.conv_blocks``
@@ -20,6 +23,8 @@ from __future__ import annotations
 import dataclasses
 import os
 
+from cuda_fft_convolution_torch.utils.fft_size import FftSizePolicy
+
 
 def _env_bool(name: str) -> bool | None:
     v = os.environ.get(name, "")
@@ -35,6 +40,7 @@ def _env_int(name: str) -> int | None:
 
 @dataclasses.dataclass(frozen=True)
 class Config:
+    policy: FftSizePolicy = FftSizePolicy.FAST
     use_fused_block_conv: bool | None = None
     hbm_fraction: float = 0.92
     hbm_budget_bytes: int | None = None
@@ -43,6 +49,7 @@ class Config:
     @classmethod
     def from_env(cls) -> "Config":
         return cls(
+            policy=FftSizePolicy(os.environ.get("FFTCONV_POLICY", "fast")),
             use_fused_block_conv=_env_bool("FFTCONV_FUSED_BLOCK_CONV"),
             hbm_fraction=float(os.environ.get("FFTCONV_HBM_FRACTION", "0.92")),
             hbm_budget_bytes=_env_int("FFTCONV_HBM_BUDGET_BYTES"),
@@ -58,9 +65,11 @@ def get_config() -> Config:
 
 
 def set_config(**kwargs) -> Config:
-    """Update the global defaults, e.g. ``set_config(hbm_budget_bytes=1 << 30)``;
-    ``set_config(hbm_budget_bytes=None)`` restores the device's own budget.
-    Returns the new config."""
+    """Update the global defaults, e.g. ``set_config(hbm_budget_bytes=1 << 30)``
+    or ``set_config(policy='pow2')``; ``set_config(hbm_budget_bytes=None)``
+    restores the device's own budget. Returns the new config."""
     global _CONFIG
+    if "policy" in kwargs:
+        kwargs["policy"] = FftSizePolicy(kwargs["policy"])
     _CONFIG = dataclasses.replace(_CONFIG, **kwargs)
     return _CONFIG

@@ -32,12 +32,29 @@ parent, this tree, this tree, parent, CUDA events, median of 7, each side a
 bare call of its C entry — at the headline plan (float32) and at the DPM
 plan (bf16 spectra, and the same planes upcast to float32), printing how
 far the outputs differ and each side's error against the plain version.
+
+    python3 profile_torch_paths.py --submit-probe
+
+instead times, on the host's clock, a headline ``ConvStream`` submit (a
+2048² host frame into a queue with room, depth 3, as ``chip_smoke.py``
+times it) and the copy that stages such a frame into a pinned buffer, by
+``torch``'s ``copy_`` (every intra-op thread) and by numpy's one-thread
+``copyto``, with 0, 2, 4 and 8 busy-looping processes beside it on the
+host's cores (median and worst of 32 each; the busy processes are stopped
+before it returns). ``--soak SECONDS`` then repeats the smoke's submit
+trial for that long, each followed by three host canaries (a fixed Python
+loop, ``torch.cuda.mem_get_info``, the staging copy), and prints the
+spread, the worst median of 8 consecutive trials (the smoke's statistic),
+the caching allocator's retries, and for the submits over 3.5 ms the
+garbage collector's time in them and where the main thread was after 4 ms
+(sampled from a second thread), then the slowest trials.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import os
 import pathlib
 import subprocess
 import sys
@@ -246,12 +263,160 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
     turns("DPM plan, the same planes upcast to f32, f32 maps", *calls(ops, geom, False), runs=3)
 
 
+def submit_soak(stream, frames, pinned, host, seconds: float) -> None:
+    """The ``--soak`` part of ``--submit-probe`` (module docstring)."""
+    import collections
+    import gc
+    import statistics
+    import threading
+    import time
+    import traceback
+
+    import torch
+
+    def ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        return 1e3 * (time.perf_counter() - t0)
+
+    # While a submit runs: the garbage collector's time in it, and where the
+    # main thread is once the submit has taken 4 ms (sampled from a thread).
+    live = {"t0": None, "gc": 0.0, "gc_t": 0.0, "stack": None}
+    main, done = threading.get_ident(), threading.Event()
+
+    def on_gc(phase, info):
+        if live["t0"] is None:
+            return
+        if phase == "start":
+            live["gc_t"] = time.perf_counter()
+        else:
+            live["gc"] += 1e3 * (time.perf_counter() - live["gc_t"])
+
+    def sampler():
+        while not done.is_set():
+            t0 = live["t0"]
+            if t0 is not None and live["stack"] is None and time.perf_counter() - t0 > 4e-3:
+                frames_ = traceback.extract_stack(sys._current_frames()[main])[-4:]
+                live["stack"] = " < ".join(f"{pathlib.Path(f.filename).name}:{f.lineno}"
+                                           for f in reversed(frames_))
+            time.sleep(5e-4)
+
+    gc.callbacks.append(on_gc)
+    thread = threading.Thread(target=sampler, daemon=True)
+    thread.start()
+    trials = []
+    end = time.perf_counter() + seconds
+    try:
+        while time.perf_counter() < end:
+            stream.flush()
+            first = stream.submit(frames[2])
+            retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+            live.update(t0=time.perf_counter(), gc=0.0, stack=None)
+            stream.submit(frames[3])
+            submit = 1e3 * (time.perf_counter() - live["t0"])
+            live["t0"] = None
+            trials.append((submit, not first._event.query(), live["gc"], live["stack"],
+                           ms(lambda: sum(range(100_000))), ms(torch.cuda.mem_get_info),
+                           ms(lambda: pinned.copy_(host)),
+                           torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries))
+    finally:
+        done.set()
+        thread.join()
+        gc.callbacks.remove(on_gc)
+    stream.flush()
+    col = list(zip(*trials))
+    windows = [statistics.median(col[0][i:i + 8]) for i in range(len(trials) - 7)]
+    slow = [t for t in trials if t[0] > 3.5]
+    print(f"soak, {len(trials)} submit trials over {seconds:.0f} s: submit ms median "
+          f"{statistics.median(col[0]):.3f}, 99th {sorted(col[0])[int(0.99 * len(trials))]:.3f},"
+          f" worst {max(col[0]):.3f}; worst median of 8 consecutive {max(windows):.3f}; "
+          f"frame ahead done at return in {col[1].count(False)}; allocator retries "
+          f"{sum(col[7])}; canary medians: loop {statistics.median(col[4]):.3f}, "
+          f"mem_get_info {statistics.median(col[5]):.3f}, staging copy "
+          f"{statistics.median(col[6]):.3f} ms")
+    print(f"  {len(slow)} submits over 3.5 ms: {sum(t[2] > 0 for t in slow)} with a garbage "
+          f"collection in them ({sum(t[2] for t in slow):.1f} ms of their "
+          f"{sum(t[0] for t in slow):.1f}); the main thread after 4 ms:")
+    for stack, count in collections.Counter(t[3] for t in slow).most_common(8):
+        print(f"    {count:5d}  {stack}")
+    for i in sorted(range(len(trials)), key=lambda i: -trials[i][0])[:8]:
+        t = trials[i]
+        print(f"  trial {i}: submit {t[0]:.3f} ms, frame ahead running {t[1]}, gc {t[2]:.3f} "
+              f"ms, loop {t[4]:.3f}, mem_get_info {t[5]:.3f}, staging copy {t[6]:.3f}")
+
+
+def submit_probe(seed: int, soak: float) -> None:
+    """See the module docstring (``--submit-probe``)."""
+    import statistics
+    import time
+
+    import numpy as np
+    import torch
+
+    import cuda_fft_convolution_torch as fc
+
+    s, k, n = (chip_smoke.HEADLINE[key] for key in ("size", "k", "n"))
+    rng = np.random.default_rng(seed + 4)
+    frames = [rng.standard_normal((s, s, 1)).astype(np.float32) for _ in range(4)]
+    bank = torch.as_tensor(rng.standard_normal((n, k, k, 1)).astype(np.float32),
+                           device="cuda")
+    stream = fc.ConvStream.create((s, s, 1), bank, depth=3, algorithm="tiled", mode="same")
+    stream.submit(frames[0]).result()
+    pinned = torch.empty((s, s, 1), pin_memory=True)
+    host = torch.as_tensor(frames[1])
+
+    def submit():
+        stream.flush()
+        stream.submit(frames[2])
+        t0 = time.perf_counter()
+        stream.submit(frames[3])
+        return time.perf_counter() - t0
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    probes = {
+        "torch copy_": lambda: timed(lambda: pinned.copy_(host)),
+        "numpy copyto": lambda: timed(lambda: np.copyto(pinned.numpy(), frames[1])),
+        "ConvStream submit": submit,
+    }
+    print(f"device total memory: properties {torch.cuda.get_device_properties(0).total_memory}"
+          f" B, cudaMemGetInfo {torch.cuda.mem_get_info()[1]} B")
+    print(f"submit probe: {torch.get_num_threads()} intra-op threads, "
+          f"{len(os.sched_getaffinity(0))} cores; host ms, median / worst of 32 "
+          f"({chip_smoke.card()})")
+    for hogs in (0, 2, 4, 8):
+        procs = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+                 for _ in range(hogs)]
+        try:
+            time.sleep(0.5)
+            line = []
+            for label, fn in probes.items():
+                ms = [1e3 * fn() for _ in range(32)]
+                line.append(f"{label} {statistics.median(ms):.3f} / {max(ms):.3f}")
+            print(f"  {hogs} busy processes: " + "; ".join(line))
+        finally:
+            for proc in procs:
+                proc.kill()
+                proc.wait()
+    stream.flush()
+    if soak > 0:
+        submit_soak(stream, frames, pinned, host, soak)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--calls", type=int, default=3)
     parser.add_argument("--ab-parent", type=pathlib.Path, default=None,
                         help="a parent checkout's cuda_fft_convolution_torch/csrc")
+    parser.add_argument("--submit-probe", action="store_true",
+                        help="time a ConvStream submit and its staging copy beside "
+                             "busy processes")
+    parser.add_argument("--soak", type=float, default=0.0,
+                        help="with --submit-probe: repeat the submit trial this many seconds")
     args = parser.parse_args(argv)
 
     import numpy as np
@@ -268,6 +433,9 @@ def main(argv=None) -> int:
     chip_smoke.env_report()
     if args.ab_parent is not None:
         ab_parent(args.ab_parent.resolve(), args.seed)
+        return 0
+    if args.submit_probe:
+        submit_probe(args.seed, args.soak)
         return 0
     image, bank, _ = chip_smoke.detection_headline(fc, args.seed)
     report("detect_peaks", lambda: detect_peaks(image, bank), args.calls)

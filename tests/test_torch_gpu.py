@@ -272,6 +272,111 @@ def test_spectral_mac_kernel_matches_einsum_on_gpu(cuda, f):
     assert _rel(maps.cpu(), want_maps) <= TOL
 
 
+# (B, N, F, H, Wc) for the MAC kernel's tiles: ragged in every direction
+# (partial image and filter tiles, S = 1000 a partial chunk), the trainer's
+# launch pattern at 20 x 11 (forward, and B, N and F traded as in dK and
+# dD), and one image (the B = 1 tile).
+MAC_SHAPES = [(3, 13, 5, 40, 25), (8, 5, 3, 20, 11), (5, 3, 2, 20, 11), (2, 3, 5, 20, 11),
+              (1, 7, 3, 67, 35)]
+
+
+CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
+
+
+def _mac_entry(planes, tile):
+    """The MAC kernel's C entry for the planes' dtype with register tile
+    ``tile``, called bare (the wrapper always takes ``mac_tile``'s) → (the
+    entry's return code, (re, im) output planes)."""
+    from cuda_fft_convolution_torch._build import library
+
+    b, f, h, wc = planes[0].shape
+    n = planes[2].shape[0]
+    o_re = torch.empty((b, n, h, wc), device=planes[0].device)
+    o_im = torch.empty_like(o_re)
+    tag = "bf16" if planes[0].dtype == torch.bfloat16 else "f32"
+    err = getattr(library(), f"fftconv_spectral_mac_{tag}")(
+        *(t.data_ptr() for t in (*planes, o_re, o_im)), b, f, n, h * wc, *tile,
+        torch.cuda.current_stream().cuda_stream)
+    return err, (o_re, o_im)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", MAC_SHAPES, ids=lambda s: "B{}N{}F{}_{}x{}".format(*s))
+def test_spectral_mac_every_tile_matches_einsum_on_gpu(cuda, shape):
+    """Every register tile the kernel instantiates (through the C entry),
+    on float32 and bf16 planes, against the einsum (1e-5; 1e-6 on bf16
+    planes, whose products are exact); each output's arithmetic is the
+    same in every tile (f ascending, the same two fmaf chains), so all
+    tiles agree bitwise, and the wrapper, one launch a call, equals the
+    rule's tile."""
+    from cuda_fft_convolution_torch.ops import spectral_mac as tmac
+
+    b, n, f, h, wc = shape
+    rng = np.random.default_rng(sum(shape))
+    ops = tuple(torch.as_tensor(rng.standard_normal((m, f, h, wc)).astype(np.float32),
+                                device=cuda) for m in (b, b, n, n))
+    assert tmac.mac_tile(b) in tmac.MAC_TILES
+    for planes, tol in ((ops, TOL), (tuple(x.to(torch.bfloat16) for x in ops), 1e-6)):
+        want = tmac.spectral_mac_planes(*planes)
+        first = None
+        for tile in tmac.MAC_TILES:
+            err, got = _mac_entry(planes, tile)
+            torch.cuda.synchronize()
+            assert err == 0, tile
+            for g, w in zip(got, want):
+                assert g.dtype == torch.float32 and g.shape == (b, n, h, wc)
+                assert _rel(g, w) <= tol, tile
+            if first is None:
+                first = got
+            assert all(torch.equal(g, w) for g, w in zip(got, first)), tile
+        before = tmac.spectral_mac.launches
+        got = tmac.spectral_mac(*planes)
+        torch.cuda.synchronize()
+        assert tmac.spectral_mac.launches == before + 1
+        assert all(torch.equal(g, w) for g, w in zip(got, first))
+
+
+@pytest.mark.gpu
+def test_spectral_mac_tile_outside_the_set_is_refused_on_gpu(cuda):
+    """A tile the kernel does not instantiate is refused by the C entry
+    with cudaErrorInvalidValue, at both dtypes, and launches nothing."""
+    from cuda_fft_convolution_torch.ops import spectral_mac as tmac
+
+    ops = tuple(torch.ones((m, 2, 8, 5), device=cuda) for m in (2, 2, 3, 3))
+    for planes in (ops, tuple(x.to(torch.bfloat16) for x in ops)):
+        for tile in ((3, 3), (1, 4), (4, 4), (8, 8), (0, 0)):
+            assert tile not in tmac.MAC_TILES
+            err, _ = _mac_entry(planes, tile)
+            assert err == CUDA_ERROR_INVALID_VALUE, tile
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,n", [(8, 3, 5), (5, 2, 3), (2, 5, 3)])
+def test_mac_gradient_at_the_trainer_pattern_on_gpu(cuda, b, f, n):
+    """The kernel's backward at the trainer's launch pattern (20 x 11
+    pixels) against the einsum's autograd (1e-5): the forward at (B, F, N),
+    dD at (B, N, F) and dK at (N, B, F), each launched once."""
+    from cuda_fft_convolution_torch.ops import spectral_mac as tmac
+
+    rng = np.random.default_rng(b * 100 + f * 10 + n)
+    planes = [rng.standard_normal((m, f, 20, 11)).astype(np.float32) for m in (b, b, n, n)]
+    cot = [torch.as_tensor(rng.standard_normal((b, n, 20, 11)).astype(np.float32), device=cuda)
+           for _ in range(2)]
+
+    def grads(mac):
+        xs = [torch.tensor(p, device=cuda, requires_grad=True) for p in planes]
+        return torch.autograd.grad(mac(*xs), xs, cot)
+
+    by_shape = collections.Counter(tmac.spectral_mac.launches_by_shape)
+    kernel = grads(tmac.spectral_mac_auto_planes)
+    torch.cuda.synchronize()
+    by_shape = collections.Counter(tmac.spectral_mac.launches_by_shape) - by_shape
+    assert by_shape == collections.Counter(
+        {("spectral_mac_f32", *m, 20, 11): 1 for m in ((b, f, n), (b, n, f), (n, b, f))})
+    for g, w in zip(kernel, grads(tmac.spectral_mac_planes)):
+        assert _rel(g, w) <= TOL
+
+
 @pytest.mark.gpu
 def test_detect_peaks_on_gpu_matches_cpu(cuda):
     from cuda_fft_convolution_torch.models import detect_peaks

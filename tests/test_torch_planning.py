@@ -10,6 +10,7 @@ flat-bank checkpoints, and the out-of-memory annotation."""
 import os
 import subprocess
 import sys
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -106,7 +107,8 @@ def test_device_memory_budget(monkeypatch, budget):
     """hbm_budget_bytes wins on every device; a CUDA device plans with
     hbm_fraction of its total memory; the CPU keeps 8 GiB."""
     cpu, card = torch.device("cpu"), torch.device("cuda")
-    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (1 << 30, 80 << 30))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device=None: types.SimpleNamespace(total_memory=80 << 30))
     assert tapi._device_memory_budget(cpu) == 8 << 30
     assert tapi._device_memory_budget(card) == int(0.92 * (80 << 30))
     try:
