@@ -153,6 +153,34 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      backward timed; the MAC kernel at the forward, dK and dD shapes
      against the einsum.
 
+ 27. the cores of ``ops/conv.py`` at the headline: ``fft_conv_stack`` of the
+     channel-leading 2048² image with the 100 kernels of 64² at the FAST
+     FFT size (2160²): (100, 2160, 2160) maps, one MAC-kernel launch a call
+     at (B, F, N, H, Wc) = (1, 1, 100, 2160, 1081), 8 maps within 1e-5 of
+     float64 circular maps and within 1e-6 of ``fft_conv(mode='fftmap',
+     algorithm='direct')``; ``fft_conv_single`` with kernel 0 within 1e-6
+     of map 0; ``direct_conv_single``, called with cuDNN's TF32 on, within
+     1e-5 of float64 on its 2111² output and on 64 random channels of 128²
+     with a 3×3 kernel, where cuDNN rounds to TF32 when allowed (it runs
+     with TF32 off; the same ``conv2d`` with TF32 left on is printed
+     beside it), the setting restored; each timed;
+ 28. the complex MAC wrappers ``spectral_mac_pallas`` and
+     ``spectral_mac_auto`` on the complex headline spectra (direct shape,
+     F=1): one kernel launch each, within 1e-6 of ``spectral_mac_einsum``;
+     ``SpectralData.from_reference_packed`` on the headline image's
+     spectrum in the reference's H-packed layout (float64 numpy):
+     ``conv_spectral(mode='same')`` within 1e-5 of the ``fft_data`` path;
+     ``from_packed`` (complex and planes) and ``from_complex`` give
+     ``fft_data``'s planes bitwise;
+ 29. ``selftest()`` on the card: every C entry (the four maps entries and
+     the two peaks entries in the 64-row, 32-row and stacked
+     configurations, the two MAC entries at every tile) within its bar of
+     its plain version, the peaks' indices equal;
+ 30. ``utils.profiling.benchmark`` of the headline ``fft_conv`` beside this
+     run's CUDA-event time (only 0 < min ≤ median is checked);
+ 31. the six demos (``cuda_fft_convolution_torch.demos``) at their default
+     sizes on the card, each passing its own checks.
+
 At every MAC row (the direct shape's F=1 and F=3, f32 and bf16, the
 unfused headline's and the model layer's shapes) it prints the tile the
 rule (``mac_tile``) picked and the time of every instantiated tile. With
@@ -162,7 +190,7 @@ at each MAC row in turns, parent, this tree, this tree, parent (bare C
 entries, CUDA events, median of 7 windows of 10 calls), the outputs
 compared.
 
-Steps 13–26 print each check, each time (CUDA events, median of 7, unless
+Steps 13–31 print each check, each time (CUDA events, median of 7, unless
 said otherwise) beside the card's name and power limit, the kernel launches
 of each call, the planner's plans and each phase's peak allocation; the
 smoke fails if its peak allocation reaches 60 GiB.
@@ -2418,6 +2446,233 @@ def trainer_phase(fc, seed, path_launches, times, rows, row_launches) -> None:
     phase_peak("trainer, MAC rows")
 
 
+# The ops/conv cores at the headline: the FFT size of the FAST policy for
+# 2048 + 64 − 1, the maps checked against float64, and the MAC kernel's
+# launch shape (mode, B, F, N, H, Wc) of one fft_conv_stack call.
+CORES = dict(fft=2160, maps=8, direct_out=2111, tf32_shape=(64, 128, 3))
+
+
+def circular_f64(image, kernel, fft) -> np.ndarray:
+    """float64 numpy circular convolution of one-channel (H, W, 1) arrays at
+    (fft, fft) — the 'full' linear maps zero-extended when fft ≥ H + K − 1."""
+    return np.fft.irfft2(np.fft.rfft2(image[..., 0].astype(np.float64), s=(fft, fft))
+                         * np.fft.rfft2(kernel[..., 0].astype(np.float64), s=(fft, fft)),
+                         s=(fft, fft))
+
+
+def direct_conv_check(fc, data, kernel, want, label) -> None:
+    """``direct_conv_single(data, kernel)`` called with cuDNN's TF32 on, as
+    PyTorch ships it (the smoke turns it off): within 1e-5 of the float64
+    maps ``want`` (the call runs with TF32 off) and the setting restored;
+    the same ``conv2d`` with TF32 left on is printed beside it."""
+    import torch
+
+    def f64_err(maps) -> float:
+        return float(np.abs(maps.double().cpu().numpy() - want).max() / np.abs(want).max())
+
+    k = kernel.shape[-1]
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        direct = fc.direct_conv_single(data, kernel)
+        torch.cuda.synchronize()
+        restored = torch.backends.cudnn.allow_tf32
+        tf32_err = f64_err(torch.nn.functional.conv2d(
+            data[None], kernel[None].flip(-2, -1), padding=k - 1)[0, 0])
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    err = f64_err(direct)
+    print(f"direct_conv_single [{label}] {tuple(direct.shape)}, called with cuDNN TF32 on "
+          f"(restored to {restored}), vs float64: max rel err {err:.3e}; the same conv2d "
+          f"with TF32 left on: {tf32_err:.3e}")
+    if tuple(direct.shape) != want.shape or err > TOL or restored is not True:
+        raise AssertionError(f"direct_conv_single [{label}] {tuple(direct.shape)}: error "
+                             f"{err}, allow_tf32 after the call {restored}")
+
+
+def cores_phase(fc, seed, image, bank, image_d, bank_d, path_launches, times) -> None:
+    """The cores of ``ops/conv.py`` at the headline (module docstring, step
+    27): ``fft_conv_stack`` of the channel-leading image with the bank
+    against float64 and ``fft_conv(mode='fftmap', algorithm='direct')``,
+    one MAC launch a call at its shape; ``fft_conv_single`` against map 0;
+    ``direct_conv_single`` (cuDNN, TF32 off) against float64; each timed."""
+    import torch
+
+    fft, n = CORES["fft"], HEADLINE["n"]
+    data = image_d.permute(2, 0, 1)  # (1, H, W)
+    kernels = bank_d.permute(0, 3, 1, 2)  # (N, 1, Kh, Kw)
+    shape = ("spectral_mac_f32", 1, 1, n, fft, fft // 2 + 1)
+    shapes = collections.Counter()
+    maps = main_path("cores fft_conv_stack", lambda: fc.fft_conv_stack(data, kernels),
+                     "spectral_mac_f32", path_launches, shapes)
+    if dict(shapes) != {shape: 1}:
+        raise AssertionError(f"fft_conv_stack: MAC launches by shape {dict(shapes)}, "
+                             f"not one at {shape}")
+    if not (tuple(maps.shape) == (n, fft, fft) and torch.isfinite(maps).all()):
+        raise AssertionError(f"fft_conv_stack maps {tuple(maps.shape)}")
+    idx = list(range(0, n, n // CORES["maps"]))[:CORES["maps"]]
+    want = [circular_f64(image, bank[i], fft) for i in idx]
+    err = max_rel_err_f64(maps, idx, want)
+    print(f"fft_conv_stack {tuple(data.shape)} x {tuple(kernels.shape)} -> "
+          f"{tuple(maps.shape)}: one MAC launch at {shape[1:]}; vs float64 numpy on "
+          f"kernels {idx}: max rel err {err:.3e}")
+    if err > TOL:
+        raise AssertionError(f"fft_conv_stack error {err} above {TOL}")
+    ref = fc.fft_conv(image_d, kernels=bank_d, mode="fftmap", algorithm="direct")
+    diff = rel_err(maps, ref)
+    print(f"fft_conv_stack vs fft_conv(mode='fftmap', algorithm='direct'): rel {diff:.3e}")
+    if diff > 1e-6:
+        raise AssertionError(f"fft_conv_stack differs from fft_conv's direct maps: {diff}")
+    del ref
+    single = main_path("cores fft_conv_single",
+                       lambda: fc.fft_conv_single(data, kernels[0]),
+                       "spectral_mac_f32", path_launches)
+    diff = rel_err(single, maps[0])
+    print(f"fft_conv_single(kernel 0) {tuple(single.shape)} vs map 0: rel {diff:.3e}")
+    if diff > 1e-6:
+        raise AssertionError(f"fft_conv_single differs from fft_conv_stack: {diff}")
+    del maps, single
+    torch.cuda.empty_cache()
+    out = CORES["direct_out"]
+    direct_conv_check(fc, data, kernels[0], want[0][:out, :out], "headline, kernel 0")
+    # many channels and a small kernel, where cuDNN's fp32 algorithms do
+    # round to TF32 when allowed (at 64² kernels it picks others)
+    f, size, k = CORES["tf32_shape"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    x = torch.randn((f, size, size), generator=gen, device="cuda")
+    w = torch.randn((f, k, k), generator=gen, device="cuda")
+    full = size + k - 1
+    ref = np.fft.irfft2((np.fft.rfft2(x.double().cpu().numpy(), s=(full, full))
+                         * np.fft.rfft2(w.double().cpu().numpy(), s=(full, full))).sum(0),
+                        s=(full, full))
+    direct_conv_check(fc, x, w, ref, f"F={f}, {size}², {k}x{k} kernel")
+    del x, w, want
+    phase_peak("cores at the headline")
+    timed("cores fft_conv_stack", lambda: fc.fft_conv_stack(data, kernels), times)
+    timed("cores fft_conv_single", lambda: fc.fft_conv_single(data, kernels[0]), times)
+    timed("cores direct_conv_single", lambda: fc.direct_conv_single(data, kernels[0]), times)
+    phase_peak("cores, timing")
+
+
+def interop_phase(fc, image, bank_d, path_launches, times) -> None:
+    """The complex MAC wrappers and ``SpectralData`` interop at the headline
+    (module docstring, step 28)."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.spectral_mac import (
+        spectral_mac_auto,
+        spectral_mac_einsum,
+        spectral_mac_pallas,
+    )
+
+    s, k = HEADLINE["size"], HEADLINE["k"]
+    sd = fc.fft_data(image, k, k, device="cuda")
+    fft = sd.fft_h
+    sk = fc.fft_kernels(bank_d, spectral=sd)
+    d, kc = sd.fft[None], sk.fft
+    want = spectral_mac_einsum(d, kc)
+    shape = ("spectral_mac_f32", 1, 1, HEADLINE["n"], fft, fft // 2 + 1)
+    for name, fn in (("spectral_mac_pallas", spectral_mac_pallas),
+                     ("spectral_mac_auto", spectral_mac_auto)):
+        shapes = collections.Counter()
+        got = main_path(f"complex {name}", lambda fn=fn: fn(d, kc), "spectral_mac_f32",
+                        path_launches, shapes)
+        diff = max(rel_err(got.real, want.real), rel_err(got.imag, want.imag))
+        print(f"{name} on complex spectra {tuple(d.shape)} x {tuple(kc.shape)}: "
+              f"launches by shape {dict(shapes)}; vs spectral_mac_einsum: rel {diff:.3e}")
+        if dict(shapes) != {shape: 1} or got.dtype != torch.complex64 or diff > 1e-6:
+            raise AssertionError(f"{name}: launches {dict(shapes)}, {got.dtype}, diff {diff}")
+        del got
+    timed("complex spectral_mac_auto (MAC kernel)", lambda: spectral_mac_auto(d, kc), times)
+    timed("complex spectral_mac_einsum", lambda: spectral_mac_einsum(d, kc), times)
+    del d, kc, want
+
+    # the reference's H-packed layout, built with float64 numpy
+    padded = np.zeros((fft, fft, 1))
+    padded[:s, :s] = image
+    packed = np.fft.fft2(padded, axes=(0, 1))[: fft // 2 + 1].astype(np.complex64)
+    t0 = time.perf_counter()
+    sd_ref = fc.SpectralData.from_reference_packed(packed, s, s, device="cuda")
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    got = fc.conv_spectral(sd_ref, sk, mode="same")
+    ref = fc.conv_spectral(sd, sk, mode="same")
+    diff = rel_err(got, ref)
+    print(f"from_reference_packed {packed.shape} (host complex64 from float64 fft2) in "
+          f"{load_ms:.1f} ms host clock: conv_spectral(mode='same') vs the fft_data path: "
+          f"rel {diff:.3e}")
+    if (sd_ref.fft_h, sd_ref.fft_w) != (sd.fft_h, sd.fft_w) or diff > TOL:
+        raise AssertionError(f"from_reference_packed: {(sd_ref.fft_h, sd_ref.fft_w)}, {diff}")
+    del got, ref, sd_ref, packed
+    for name, built in (
+        ("from_packed (complex)", fc.SpectralData.from_packed(sd.fft, s, s)),
+        ("from_packed (planes)", fc.SpectralData.from_packed((sd.re, sd.im), s, s)),
+        ("from_complex", fc.SpectralData.from_complex(sd.fft, fft, fft, s, s)),
+    ):
+        same = (torch.equal(built.re, sd.re) and torch.equal(built.im, sd.im)
+                and (built.fft_h, built.fft_w) == (sd.fft_h, sd.fft_w))
+        print(f"{name}: planes bitwise equal to fft_data's {same}")
+        if not same:
+            raise AssertionError(f"{name} planes differ from fft_data's")
+    del sd, sk
+    torch.cuda.empty_cache()
+    phase_peak("complex wrappers and interop")
+
+
+def selftest_phase(fc) -> None:
+    """``selftest()`` on the card (module docstring, step 29): every C entry
+    of the three kernels within its bar of its plain version."""
+    import importlib
+
+    from cuda_fft_convolution_torch.ops.spectral_mac import MAC_TILES
+
+    # the module (``utils.selftest`` is also the function's name there)
+    st = importlib.import_module("cuda_fft_convolution_torch.utils.selftest")
+    rep = fc.selftest()
+    print(f"selftest: backend {rep['backend']}, {rep['device_kind']}, {rep['device_count']} "
+          f"device(s), {rep['hbm_bytes_limit']} B, fft_ok {rep['fft_ok']}, kernels_ok "
+          f"{rep['kernels_ok']}")
+    for name, err in rep["kernels"].items():
+        print(f"  selftest {name}: max rel err {err:.3e}")
+    entries = len(st.CONFIGS) * 6 + 2 * len(MAC_TILES)
+    if not (rep["fft_ok"] and rep["kernels_ok"] is True and len(rep["kernels"]) == entries):
+        raise AssertionError(f"selftest failed: {rep}")
+
+
+def profiling_phase(fc, image_d, bank_d, fused_ms) -> None:
+    """``utils.profiling.benchmark`` on the headline call beside the smoke's
+    own CUDA-event time (module docstring, step 30)."""
+    from cuda_fft_convolution_torch.utils.profiling import benchmark
+
+    stats = benchmark(lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same"), iters=RUNS)
+    print(f"profiling.benchmark(headline fft_conv): median {stats['median_s'] * 1e3:.3f} ms, "
+          f"min {stats['min_s'] * 1e3:.3f}, mean {stats['mean_s'] * 1e3:.3f} over "
+          f"{stats['iters']} calls; the smoke's cuda_ms {fused_ms:.3f} ms ({card()})")
+    if not 0 < stats["min_s"] <= stats["median_s"]:
+        raise AssertionError(f"benchmark stats not sane: {stats}")
+
+
+DEMOS = ("demo", "demo_bank", "demo_detect", "demo_dpm", "demo_serving", "demo_train")
+
+
+def demos_phase(times) -> None:
+    """The six demos on the card at their default sizes (module docstring,
+    step 31); each raises on a failed check."""
+    import importlib
+
+    import torch
+
+    for name in DEMOS:
+        module = importlib.import_module(f"cuda_fft_convolution_torch.demos.{name}")
+        t0 = time.perf_counter()
+        module.main([])
+        torch.cuda.synchronize()
+        times[f"demo {name} (host clock)"] = (time.perf_counter() - t0) * 1e3
+        print(f"demos.{name}: passed in {times[f'demo {name} (host clock)']:.0f} ms "
+              f"({card()})")
+    torch.cuda.empty_cache()
+    phase_peak("demos")
+
+
 def cuda_ms(fn, runs=RUNS, reps=1) -> float:
     """Median milliseconds of ``fn()`` between CUDA events, after a warm-up;
     each of the ``runs`` windows holds ``reps`` calls back to back (their
@@ -2674,8 +2929,10 @@ def main(argv=None) -> int:
           f"{rows['spectral_mac_bf16'][1]:.3f} ms; einsum: {rows['spectral_mac_bf16'][2]:.3f} ms")
     mac3_ms = cuda_ms(lambda: spectral_mac(*mac3_ops))
     einsum3_ms = cuda_ms(lambda: spectral_mac_planes(*mac3_ops))
+    bound3_ms, bound3_by = mac_bound(mac3_ops)
     print(f"MAC kernel alone at the direct shape, F=3: {mac3_ms:.3f} ms; "
-          f"einsum: {einsum3_ms:.3f} ms")
+          f"einsum: {einsum3_ms:.3f} ms; one complex einsum: "
+          f"{complex_einsum_ms(mac3_ops):.3f} ms; bound {bound3_ms:.3f} ms ({bound3_by})")
     for label, ops in (("direct shape F=1", mac_ops), ("direct shape F=1 bf16", mac16_ops),
                        ("direct shape F=3", mac3_ops), ("direct shape F=3 bf16",
                                                          tuple(x.to(bf16) for x in mac3_ops))):
@@ -2713,6 +2970,13 @@ def main(argv=None) -> int:
     pyramid_phase(fc, args.seed, path_launches, api_ms, rows, row_launches)
     mosse_phase(fc, args.seed, path_launches, api_ms, rows, row_launches)
     trainer_phase(fc, args.seed, path_launches, api_ms, rows, row_launches)
+
+    # ---- the public surface: the cores, interop, selftest, profiling, demos ----
+    cores_phase(fc, args.seed, image, bank, image_d, bank_d, path_launches, api_ms)
+    interop_phase(fc, image, bank_d, path_launches, api_ms)
+    selftest_phase(fc)
+    profiling_phase(fc, image_d, bank_d, fused_ms)
+    demos_phase(api_ms)
     print(f"smoke wall time: {time.perf_counter() - started:.1f} s")
     print(f"peak memory allocated over the smoke: {max(PHASE_PEAKS) / 2**30:.2f} GiB "
           f"(limit {PEAK_LIMIT / 2**30:.0f} GiB)")

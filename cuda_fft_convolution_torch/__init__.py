@@ -15,6 +15,8 @@ float32 and at the bf16 serving tier (``store_dtype='bfloat16'``,
   - ``conv_spectral_pipelined`` ≈ cudaConvFFTDataStreams (a chunk of the
     bank at a time; ``runtime.plan_bank`` sizes the chunks)
   - ``fft_data_tiled``, ``fft_kernels``: reusable block and bank spectra
+  - ``fft_conv_single``, ``fft_conv_stack``, ``direct_conv_single``: the
+    convolution cores on channel-leading arrays (``ops/conv.py``)
   - ``models.detect_peaks``, ``detect_top_k``, ``detect_local_peaks``: the
     detection heads; ``models.hog_features``: the DPM path's HOG front end;
     ``build_pyramid``, ``detect_pyramid``, ``detect_pyramid_peaks``,
@@ -27,6 +29,10 @@ float32 and at the bf16 serving tier (``store_dtype='bfloat16'``,
     bounded-depth serving over a resident bank on CUDA events;
     ``autotune_block_geometry`` and the block-geometry table keyed by
     device name (``runtime/``)
+  - ``selftest``: the device report, with every C entry of the kernels
+    against its plain version; ``utils`` holds image I/O, profiling
+    (``benchmark`` on CUDA events, ``trace``) and logging; ``demos`` the
+    six demos
 """
 
 from cuda_fft_convolution_torch.api import (
@@ -60,6 +66,11 @@ from cuda_fft_convolution_torch.models import (
     train_mosse,
     train_step,
     update_mosse,
+)
+from cuda_fft_convolution_torch.ops.conv import (
+    direct_conv_single,
+    fft_conv_single,
+    fft_conv_stack,
 )
 from cuda_fft_convolution_torch.ops.block_conv import (
     block_conv,
@@ -97,7 +108,10 @@ from cuda_fft_convolution_torch.utils.fft_size import (
     FftSizePolicy,
     compute_fft_size,
     next_fast_len,
+    next_multiple_of_16,
+    next_pow2,
 )
+from cuda_fft_convolution_torch.utils.selftest import selftest
 
 __version__ = "0.1.0"
 
@@ -111,6 +125,9 @@ __all__ = [
     "fft_data",
     "fft_data_tiled",
     "fft_kernels",
+    "fft_conv_single",
+    "fft_conv_stack",
+    "direct_conv_single",
     "detect_peaks",
     "detect_top_k",
     "detect_local_peaks",
@@ -155,8 +172,11 @@ __all__ = [
     "get_config",
     "set_config",
     "InvalidInputError",
+    "selftest",
     "FftSizePolicy",
     "compute_fft_size",
     "next_fast_len",
+    "next_multiple_of_16",
+    "next_pow2",
     "__version__",
 ]

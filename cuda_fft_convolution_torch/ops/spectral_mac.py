@@ -16,6 +16,12 @@ MAC kernel: it is faster than the einsum on the card, so the JAX package's
 effect. Its gradient is the einsum's VJP, as ``_mac_pallas_ad`` defines
 it, and both of its cotangents run through the MAC kernel too.
 
+The complex-facing wrappers of the JAX package keep their names:
+``spectral_mac_einsum`` is the plain version on complex spectra;
+``spectral_mac_pallas`` and ``spectral_mac_auto`` both run
+``spectral_mac_auto_planes`` (the MAC kernel on CUDA tensors) on the
+spectra's contiguous float32 planes.
+
 The kernel works on register tiles of TB images × TN filters a thread
 (``csrc/spectral_mac.cu``): ``mac_tile`` is the rule that picks the tile
 for a call, and ``MAC_TILES`` the set the kernel instantiates.
@@ -38,6 +44,7 @@ from cuda_fft_convolution_torch.ops.block_conv import (
     cuda_operands,
     upcast,
 )
+from cuda_fft_convolution_torch.types import split_planes
 from cuda_fft_convolution_torch.utils.errors import validate
 
 
@@ -174,3 +181,32 @@ def spectral_mac_auto_planes(
     the signature; it has no effect here."""
     del use_pallas
     return _SpectralMac.apply(dr, di, kr, ki)
+
+
+def spectral_mac_einsum(data_fft: torch.Tensor, kernel_fft: torch.Tensor) -> torch.Tensor:
+    """Complex-facing form of ``spectral_mac_planes``: (B, F, H, Wc) ×
+    (N, F, H, Wc) complex spectra → (B, N, H, Wc) complex64."""
+    return torch.complex(*spectral_mac_planes(*split_planes(data_fft),
+                                              *split_planes(kernel_fft)))
+
+
+def spectral_mac_pallas(
+    data_fft: torch.Tensor, kernel_fft: torch.Tensor, *, interpret: bool = False
+) -> torch.Tensor:
+    """The JAX package's Pallas MAC on complex spectra, whose Hopper port
+    is the MAC kernel: ``spectral_mac_auto_planes`` on the contiguous
+    float32 planes (the kernel on CUDA tensors, the plain version on CPU
+    tensors) → (B, N, H, Wc) complex64. ``interpret`` (the Pallas
+    interpreter) is kept for the signature and has no effect."""
+    del interpret
+    return torch.complex(*spectral_mac_auto_planes(*split_planes(data_fft),
+                                                   *split_planes(kernel_fft)))
+
+
+def spectral_mac_auto(
+    data_fft: torch.Tensor, kernel_fft: torch.Tensor, *, use_pallas: bool | None = None
+) -> torch.Tensor:
+    """Complex-facing form of ``spectral_mac_auto_planes`` → (B, N, H, Wc)
+    complex64; ``use_pallas`` has no effect, as there."""
+    del use_pallas
+    return spectral_mac_pallas(data_fft, kernel_fft)

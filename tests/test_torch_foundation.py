@@ -188,6 +188,14 @@ def test_port_imports_with_jax_blocked():
         "opt = torch.optim.SGD(det.parameters(), lr=0.1)\n"
         "models.train_step(det, opt, np.ones((1, 1, 9, 9), np.float32),\n"
         "                  np.zeros((1, 2, 9, 9), np.float32))\n"
+        "import cuda_fft_convolution_torch.utils.selftest\n"
+        "import cuda_fft_convolution_torch.utils.profiling\n"
+        "import cuda_fft_convolution_torch.utils.image_io\n"
+        "import cuda_fft_convolution_torch.demos.demo\n"
+        "maps = fc.fft_conv_stack(np.ones((1, 12, 12), np.float32),\n"
+        "                         np.ones((2, 1, 3, 3), np.float32), device='cpu')\n"
+        "assert tuple(maps.shape) == (2, 15, 15)\n"
+        "assert fc.selftest(device='cpu')['fft_ok']\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
         "    'cuda_fft_convolution_tpu')) for m in sys.modules\n"
         "    if sys.modules[m] is not None)\n"

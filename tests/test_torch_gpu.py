@@ -715,3 +715,80 @@ def test_models_on_gpu_match_cpu(cuda):
     assert (n_gpu, n_cpu) == (2, 0)  # forward + dK; the images need no gradient
     assert abs(l_gpu - l_cpu) <= TOL * l_cpu
     assert _rel(k_gpu, k_cpu) <= 1e-4
+
+
+def _conv_full_f64(data, kern):
+    """float64 'full' convolution summed over channels, (F, H, W) data with
+    an (F, Kh, Kw) kernel."""
+    f, h, w = data.shape
+    oh, ow = h + kern.shape[1] - 1, w + kern.shape[2] - 1
+    return np.fft.irfft2((np.fft.rfft2(data.astype(np.float64), s=(oh, ow))
+                          * np.fft.rfft2(kern.astype(np.float64), s=(oh, ow))).sum(0),
+                         s=(oh, ow))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,h,w,k", [(3, 300, 280, 64), (64, 128, 120, 3), (16, 256, 250, 7)])
+def test_direct_conv_single_without_tf32_on_gpu(cuda, f, h, w, k):
+    """cuDNN's TF32 (PyTorch's default) is off inside the call, and the
+    setting is restored: within 1e-5 of float64. At 64² kernels cuDNN's
+    fp32 algorithms do not round to TF32 even when allowed; with many
+    channels and small kernels they do (``chip_smoke.py`` prints a plain
+    ``conv2d``'s error with TF32 on beside the call's)."""
+    rng = np.random.default_rng(7)
+    data = rng.standard_normal((f, h, w)).astype(np.float32)
+    kern = rng.standard_normal((f, k, k)).astype(np.float32)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = tfc.direct_conv_single(data, kern)
+        torch.cuda.synchronize()
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert got.is_cuda and tuple(got.shape) == (h + k - 1, w + k - 1)
+    assert _rel(got.double().cpu(), torch.as_tensor(_conv_full_f64(data, kern))) <= TOL
+
+
+@pytest.mark.gpu
+def test_cores_and_complex_wrappers_reach_the_mac_kernel_on_gpu(cuda):
+    from cuda_fft_convolution_torch.ops import conv as tconv
+    from cuda_fft_convolution_torch.ops import spectral_mac as tmac
+
+    rng = np.random.default_rng(11)
+    data = rng.standard_normal((3, 70, 50)).astype(np.float32)
+    bank = rng.standard_normal((5, 3, 9, 7)).astype(np.float32)
+    before = tmac.spectral_mac.launches
+    got = tfc.fft_conv_stack(data, bank)
+    torch.cuda.synchronize()
+    assert tmac.spectral_mac.launches == before + 1 and got.is_cuda
+    assert _rel(got.cpu(), tfc.fft_conv_stack(data, bank, device="cpu")) <= 1e-6
+
+    def spectra(*shape):
+        z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.as_tensor(z.astype(np.complex64))
+
+    d, k = spectra(2, 3, 20, 11), spectra(4, 3, 20, 11)
+    for fn in (tmac.spectral_mac_pallas, tmac.spectral_mac_auto):
+        before = tmac.spectral_mac.launches
+        out = fn(d.to(cuda), k.to(cuda))
+        torch.cuda.synchronize()
+        assert tmac.spectral_mac.launches == before + 1
+        want = fn(d, k)
+        assert out.dtype == torch.complex64
+        assert _rel(out.real.cpu(), want.real) <= 1e-6
+        assert _rel(out.imag.cpu(), want.imag) <= 1e-6
+    before = tmac.spectral_mac.launches
+    out = tconv.spectral_mac(d[0].to(cuda), k.reshape(2, 2, 3, 20, 11).to(cuda))
+    torch.cuda.synchronize()
+    assert tmac.spectral_mac.launches == before + 1 and tuple(out.shape) == (2, 2, 20, 11)
+    want = tconv.spectral_mac(d[0], k.reshape(2, 2, 3, 20, 11))
+    assert _rel(out.real.cpu(), want.real) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_selftest_kernels_ok_on_gpu(cuda):
+    rep = tfc.selftest()
+    assert rep["backend"] == "cuda" and rep["fft_ok"] is True
+    assert rep["device_kind"] == torch.cuda.get_device_name()
+    assert rep["kernels_ok"] is True, rep.get("kernels_failed", rep.get("kernels_error"))
+    assert len(rep["kernels"]) == 22

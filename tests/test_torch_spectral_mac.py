@@ -189,7 +189,8 @@ def test_reset_launches_clears_the_counts_by_shape():
 def test_use_pallas_config_and_env(rng, monkeypatch):
     """The MAC runs through the kernel path whatever ``use_pallas`` says:
     the option is accepted for the JAX package's signature, and the port's
-    configuration has no such field and reads no ``FFTCONV_USE_PALLAS``."""
+    configuration reads ``Config.use_pallas`` from ``FFTCONV_USE_PALLAS``
+    as JAX's does, with no effect."""
     data = rng.standard_normal((40, 40, 1)).astype(np.float32)
     bank = rng.standard_normal((2, 5, 5, 1)).astype(np.float32)
     calls = []
@@ -201,8 +202,14 @@ def test_use_pallas_config_and_env(rng, monkeypatch):
 
     monkeypatch.setattr(tmac._SpectralMac, "apply", spy)
     monkeypatch.setenv("FFTCONV_USE_PALLAS", "0")
-    assert not hasattr(tconfig.Config.from_env(), "use_pallas")
+    assert tconfig.Config.from_env().use_pallas is False
     maps = [tfc.fft_conv(data, kernels=bank, mode="same", algorithm="direct", **kw, device="cpu")
             for kw in ({}, dict(use_pallas=False), dict(use_pallas=True))]
-    assert calls == [1, 1, 1]
-    assert torch.equal(maps[0], maps[1]) and torch.equal(maps[0], maps[2])
+    try:
+        tfc.set_config(use_pallas=False)
+        maps.append(tfc.fft_conv(data, kernels=bank, mode="same", algorithm="direct",
+                                 device="cpu"))
+    finally:
+        tfc.set_config(use_pallas=None)
+    assert calls == [1, 1, 1, 1]
+    assert all(torch.equal(maps[0], m) for m in maps[1:])
