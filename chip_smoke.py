@@ -179,7 +179,27 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
  30. ``utils.profiling.benchmark`` of the headline ``fft_conv`` beside this
      run's CUDA-event time (only 0 < min ≤ median is checked);
  31. the six demos (``cuda_fft_convolution_torch.demos``) at their default
-     sizes on the card, each passing its own checks.
+     sizes on the card, each passing its own checks;
+ 32. the parallel layer (``parallel/``) in a world of one NCCL rank,
+     ``make_mesh(data=1, kernels=1)``: ``conv_spectral_sharded`` on the
+     headline tiled spectra with a bank from ``shard_kernel_bank`` (placed
+     a second time: the same bank back, its local shard where it lay),
+     ``full_tensor()`` equal to ``conv_spectral``'s maps bitwise; the
+     per-rank program run for each of 3 kernel shards of the headline bank
+     in turn (34 + 34 + 32, zero-padded), concatenated within 1e-6 of the
+     unsharded maps (whether bitwise printed); the direct engine bitwise,
+     the MAC kernel launched once at (1, 1, 100, 2160, 1081); the DPM giant
+     bank streamed under step 16's forced budget, bitwise equal to the
+     single-device streamed maps; ``detect_peaks_sharded`` on the detection
+     headline (all 100 plants, = ``detect_peaks``; k=5 = ``detect_top_k``);
+     ``ShardedConvStream`` over step 19's 16 host frames at depth 3, each
+     frame bitwise equal to ``ConvStream``'s, ms a frame beside it, and a
+     submit into a queue with room under sync debug mode 'error' below 25%
+     of a frame's device time; ``train_step_sharded`` at the trainer's width
+     (8x31x512², 64 filters, Adam) against ``train_step`` on the same
+     parameters: the loss within 1e-6, the kernels within 1e-5, its MAC
+     launches by shape, and the MAC kernel on the step's forward and dK
+     operands against the einsum (its own two JSON rows).
 
 At every MAC row (the direct shape's F=1 and F=3, f32 and bf16, the
 unfused headline's and the model layer's shapes) it prints the tile the
@@ -190,7 +210,7 @@ at each MAC row in turns, parent, this tree, this tree, parent (bare C
 entries, CUDA events, median of 7 windows of 10 calls), the outputs
 compared.
 
-Steps 13–31 print each check, each time (CUDA events, median of 7, unless
+Steps 13–32 print each check, each time (CUDA events, median of 7, unless
 said otherwise) beside the card's name and power limit, the kernel launches
 of each call, the planner's plans and each phase's peak allocation; the
 smoke fails if its peak allocation reaches 60 GiB.
@@ -198,8 +218,9 @@ smoke fails if its peak allocation reaches 60 GiB.
 It prints one JSON line describing every kernel mode (the float32 and bf16
 entries of the three kernels, and the MAC's shapes of steps 24–26 as
 ``spectral_mac_f32:<shape>``, whose launches are the main path's at that
-launch shape, ``spectral_mac.launches_by_shape``: launches on the main
-path, error, time,
+launch shape, ``spectral_mac.launches_by_shape``, and step 32's sharded
+training step's own forward and dK rows, ``spectral_mac_f32:<shape>_sharded``
+on that step's operands: launches on the main path, error, time,
 plain time, the bound worked out from the shapes — the larger of the
 operations at the peak rate of the units that run them and the bytes at
 3.35 TB/s; ``block_conv_bound`` and ``mac_bound`` say which — and the time
@@ -2673,6 +2694,307 @@ def demos_phase(times) -> None:
     phase_peak("demos")
 
 
+# The parallel layer on the card (step 32): a world of one NCCL rank; the
+# per-rank program run for each of `shards` kernel shards of the headline
+# bank in turn (34 + 34 + 32, zero-padded); the train step at TRAINER's
+# width with Adam at its lr.
+PARALLEL = dict(shards=3, per_rank_tol=1e-6)
+
+
+def nccl_world_of_one():
+    """Start a world of one NCCL rank on card 0 (a ``file://`` store in a
+    temporary directory under build/) → the directory, to clean up after
+    ``destroy_process_group``."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    root = pathlib.Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    store = tempfile.TemporaryDirectory(dir=root)
+    dist.init_process_group("nccl", init_method=pathlib.Path(store.name, "store").as_uri(),
+                            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    return store
+
+
+def parallel_phase(fc, seed, image_d, bank_d, path_launches, times, rows,
+                   row_launches) -> None:
+    """The parallel layer on the card (module docstring, step 32); the
+    sharded step's MAC shapes get rows of their own, ``<shape>_sharded``,
+    with that step's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from cuda_fft_convolution_torch import api
+    from cuda_fft_convolution_torch.models import (
+        detect_peaks,
+        detect_top_k,
+        detector_from_numpy,
+        train_step,
+    )
+    from cuda_fft_convolution_torch.ops.block_conv import reset_launches
+    from cuda_fft_convolution_torch.ops.conv import rfft2_padded_planes
+    from cuda_fft_convolution_torch.parallel import mesh as pmesh
+    from cuda_fft_convolution_torch.runtime import planner
+
+    s, n, k = HEADLINE["size"], HEADLINE["n"], HEADLINE["k"]
+    t0 = time.perf_counter()
+    store = nccl_world_of_one()
+    try:
+        mesh = fc.make_mesh(data=1, kernels=1)
+        print(f"parallel: a world of one NCCL rank ({dist.get_backend()}), mesh {mesh}; "
+              f"started in {time.perf_counter() - t0:.1f} s (host clock)")
+
+        # the headline tiled call on a placed bank, placed a second time
+        spec = fc.fft_data_tiled(image_d, k, k, trim_mode="same")
+        sk = fc.fft_kernels(bank_d, spectral=spec)
+        placed = fc.shard_kernel_bank(sk, mesh)
+        again = fc.shard_kernel_bank(placed, mesh)
+        if not (again is placed and pmesh._local_bank(placed, mesh)[0].data_ptr()
+                == placed.re.to_local().data_ptr()):
+            raise AssertionError("shard_kernel_bank placed a placed bank again")
+        want = fc.conv_spectral(spec, sk, mode="same")
+        got = main_path("sharded headline tiled conv_spectral_sharded",
+                        lambda: fc.conv_spectral_sharded(spec, placed, mesh, mode="same"),
+                        "block_conv_f32", path_launches)
+        equal = torch.equal(got.full_tensor(), want)
+        print(f"sharded headline tiled: {tuple(got.shape)} {type(got).__name__} over "
+              f"{got.placements}; = conv_spectral's maps bitwise: {equal}")
+        if not equal:
+            raise AssertionError("sharded tiled maps differ from conv_spectral's")
+        timed("sharded headline tiled conv_spectral_sharded",
+              lambda: fc.conv_spectral_sharded(spec, placed, mesh, mode="same"), times)
+        timed("headline tiled conv_spectral, beside it",
+              lambda: fc.conv_spectral(spec, sk, mode="same"), times)
+
+        # the per-rank program over 3 uneven shards of the headline bank
+        d_re, d_im = api._batched_planes(spec)
+        budget = api._device_memory_budget(d_re.device)
+        per_shard = -(-n // PARALLEL["shards"])
+        parts = []
+        for r in range(PARALLEL["shards"]):
+            start, stop = min(n, r * per_shard), min(n, (r + 1) * per_shard)
+            k_re, k_im = (pmesh._pad_rows(x[start:stop], per_shard) for x in (sk.re, sk.im))
+            parts.append(pmesh._rank_maps(spec, d_re, d_im, k_re, k_im, torch.float32,
+                                          budget)[:, : stop - start])
+        joined = torch.cat(parts, 1)[0]
+        diff = rel_err(joined, want)
+        print(f"per-rank program over {PARALLEL['shards']} kernel shards "
+              f"{[p.shape[1] for p in parts]} (zero-padded to {per_shard}): vs the unsharded maps "
+              f"rel {diff:.3e} (bar {PARALLEL['per_rank_tol']:g}); bitwise: "
+              f"{torch.equal(joined, want)}")
+        if diff > PARALLEL["per_rank_tol"]:
+            raise AssertionError(f"per-rank shards differ from the unsharded maps: {diff}")
+        del spec, sk, placed, again, want, got, parts, joined, d_re, d_im
+        torch.cuda.empty_cache()
+
+        # the direct engine through the MAC kernel
+        dspec = fc.fft_data(image_d, k, k)
+        shapes = collections.Counter()
+        got = main_path("sharded headline direct conv_spectral_sharded",
+                        lambda: fc.conv_spectral_sharded(dspec, bank_d, mesh, mode="same"),
+                        "spectral_mac_f32", path_launches, shapes)
+        mac_at = ("spectral_mac_f32", 1, 1, n, dspec.fft_h, dspec.fft_w // 2 + 1)
+        equal = torch.equal(got.full_tensor(), fc.conv_spectral(dspec, bank_d, mode="same"))
+        print(f"sharded headline direct: = conv_spectral's maps bitwise: {equal}; MAC "
+              f"launches by shape {dict(shapes)}")
+        if not equal or shapes[mac_at] != 1:
+            raise AssertionError(f"sharded direct: equal {equal}, MAC at {dict(shapes)}")
+        del dspec, got
+        torch.cuda.empty_cache()
+
+        # the DPM giant bank streamed under a forced budget (step 16's)
+        feats, dpm_bank, _ = dpm_inputs(seed)
+        dpm_bank = dpm_bank[: DPM_DIRECT["n"]].contiguous()
+        sd = fc.fft_data(feats, DPM["k"], DPM["k"], store_dtype="bfloat16")
+        resident = planner.spectra_bytes(DPM_DIRECT["n"], sd.feature_dim, sd.fft_h, sd.fft_w, 2)
+        budget = int(DPM_DIRECT["stream_share"] * resident)
+        fc.set_config(hbm_budget_bytes=budget)
+        try:
+            want = fc.conv_spectral(sd, dpm_bank, mode="fftmap")
+            got = main_path(f"sharded DPM giant bank streamed, budget {budget / 1e9:.2f} GB",
+                            lambda: fc.conv_spectral_sharded(sd, dpm_bank, mesh, mode="fftmap"),
+                            "spectral_mac_f32", path_launches)
+            equal = torch.equal(got.full_tensor(), want)
+            print(f"sharded DPM giant bank streamed: = the single-device streamed maps "
+                  f"bitwise: {equal}")
+            if not equal:
+                raise AssertionError("sharded streamed DPM maps differ")
+            del want, got
+            timed("sharded DPM giant bank streamed",
+                  lambda: fc.conv_spectral_sharded(sd, dpm_bank, mesh, mode="fftmap"), times)
+        finally:
+            fc.set_config(hbm_budget_bytes=None)
+        del feats, dpm_bank, sd
+        torch.cuda.empty_cache()
+
+        # detection: the detection headline's inputs (plan_phase draws them so)
+        rng = np.random.default_rng(seed)
+        det_bank = rng.standard_normal((n, k, k, 1)).astype(np.float32)
+        det_image_d = torch.as_tensor(detection_frame(rng, det_bank), device="cuda")
+        det_bank_d = torch.as_tensor(det_bank, device="cuda")
+        sdt = fc.fft_data_tiled(det_image_d, k, k, trim_mode="same")
+        vals, pos = main_path("sharded detection headline detect_peaks_sharded",
+                              lambda: fc.detect_peaks_sharded(sdt, det_bank_d, mesh),
+                              "block_conv_peaks_f32", path_launches)
+        wv, wp = detect_peaks(sdt, det_bank_d, mode="same")
+        found = int((pos.full_tensor().cpu() == detection_centres()).all(-1).sum())
+        equal = torch.equal(pos.full_tensor(), wp) and torch.equal(vals.full_tensor(), wv)
+        v5, p5 = main_path("sharded detection headline detect_peaks_sharded k=5",
+                           lambda: fc.detect_peaks_sharded(sdt, det_bank_d, mesh, k=5),
+                           "block_conv_peaks_f32", path_launches)
+        tv, tp = detect_top_k(sdt, det_bank_d, k=5, mode="same")
+        equal5 = torch.equal(p5.full_tensor(), tp) and torch.equal(v5.full_tensor(), tv)
+        print(f"detect_peaks_sharded: planted centres found {found} of {n}; = detect_peaks "
+              f"bitwise: {equal}; k=5 = detect_top_k bitwise: {equal5}")
+        if found != n or not equal or not equal5:
+            raise AssertionError("sharded detection differs or missed plants")
+        timed("sharded detection headline detect_peaks_sharded",
+              lambda: fc.detect_peaks_sharded(sdt, det_bank_d, mesh), times)
+        del det_image_d, det_bank_d, sdt
+        torch.cuda.empty_cache()
+        phase_peak("parallel layer, calls")
+
+        # ShardedConvStream over step 19's host frames at depth 3
+        count = STREAM["frames"]
+        rng = np.random.default_rng(seed + 4)
+        frames = [rng.standard_normal((s, s, 1)).astype(np.float32) for _ in range(count)]
+        kw = dict(depth=3, mode="same", algorithm="tiled")
+        sstream = fc.ShardedConvStream(mesh, bank_d, (s, s, 1), **kw)
+        cstream = fc.ConvStream.create((s, s, 1), bank_d, **kw)
+
+        def serve_and_check():
+            pending, equal = collections.deque(), []
+            for i, f in enumerate(frames):
+                pending.append((i, sstream.submit(f)))
+                if len(pending) == sstream.depth or i == count - 1:
+                    while pending:
+                        j, fut = pending.popleft()
+                        equal.append(torch.equal(fut.result().to_local(),
+                                                 cstream.submit(frames[j]).result()))
+            return equal
+
+        equal = main_path(f"ShardedConvStream headline, depth 3, {count} host frames",
+                          serve_and_check, "block_conv_f32", path_launches)
+        print(f"ShardedConvStream: frames bitwise equal to ConvStream's: {sum(equal)} of {count}")
+        if not all(equal):
+            raise AssertionError("ShardedConvStream frames differ from ConvStream's")
+        times["headline ShardedConvStream depth 3 per frame"] = stream_ms(sstream, frames)
+        times["headline ConvStream depth 3 per frame, beside it"] = stream_ms(cstream, frames)
+        print(f"headline serving, ms a frame over {count} host frames: ShardedConvStream "
+              f"depth 3 {times['headline ShardedConvStream depth 3 per frame']:.3f}; ConvStream "
+              f"depth 3 {times['headline ConvStream depth 3 per frame, beside it']:.3f} "
+              f"({card()})")
+        # one submit's launches and allocations: the bank is not placed or
+        # transformed again, so the sharded submit allocates as ConvStream's
+        per_submit = {}
+        for name, st in (("ShardedConvStream", sstream), ("ConvStream", cstream)):
+            st.submit(frames[0]).result()
+            torch.cuda.synchronize()
+            reset_launches(*_wrappers())
+            before = torch.cuda.memory_stats()
+            st.submit(frames[1]).result()
+            after = torch.cuda.memory_stats()
+            counts = collections.Counter()
+            for w in _wrappers():
+                counts.update(w.launches_by_mode)
+            per_submit[name] = (dict(counts), *(
+                after[key] - before[key]
+                for key in ("allocation.all.allocated", "allocated_bytes.all.allocated")))
+        print(f"one submit (launches, allocations, bytes allocated): {per_submit}")
+        (s_launch, s_count, s_bytes), (c_launch, c_count, c_bytes) = per_submit.values()
+        if s_launch != {"block_conv_f32": 1} or s_bytes > c_bytes + (1 << 20):
+            raise AssertionError(f"a sharded submit does more than ConvStream's: {per_submit}")
+        frame_d = torch.as_tensor(frames[0], device="cuda")
+        placed = fc.shard_kernel_bank(fc.fft_kernels(bank_d, fft_h=sstream.plan.fft_h,
+                                                     fft_w=sstream.plan.fft_w), mesh)
+        frame_ms = min(cuda_ms(lambda: fc.conv_spectral_sharded(
+            sstream.plan.data_spectra(frame_d), placed, mesh, mode="same"), 1)
+            for _ in range(RUNS))
+        host = {name: [] for name in per_submit}
+        for t in range(STREAM["trials"]):
+            for name, st in (("ShardedConvStream", sstream), ("ConvStream", cstream)):
+                st.flush()
+                st.submit(frames[t % count])
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    t1 = time.perf_counter()
+                    st.submit(frames[(t + 1) % count])
+                    host[name].append(1e3 * (time.perf_counter() - t1))
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                st.flush()
+        host_ms = statistics.median(host["ShardedConvStream"])
+        plain_ms = statistics.median(host["ConvStream"])
+        times["headline ShardedConvStream submit, host"] = host_ms
+        times["headline ConvStream submit, host, beside it"] = plain_ms
+        print(f"ShardedConvStream submit into a queue with room: host {host_ms:.3f} ms (median "
+              f"of {len(host['ConvStream'])}, turns with ConvStream's {plain_ms:.3f} ms; no "
+              f"synchronising call under sync debug mode 'error') = "
+              f"{100 * host_ms / frame_ms:.1f}% of one frame's device time {frame_ms:.3f} ms "
+              f"(bar {100 * STREAM['submit_share']:.0f}%; {card()})")
+        if host_ms >= STREAM["submit_share"] * frame_ms:
+            raise AssertionError(f"a sharded submit takes {host_ms:.3f} ms against a "
+                                 f"{frame_ms:.3f} ms frame")
+        del sstream, cstream, frame_d, placed, frames
+        torch.cuda.empty_cache()
+        phase_peak("parallel layer, ShardedConvStream")
+
+        # the DP×TP step at the trainer's width against train_step
+        images, init, single, targets = trainer_inputs(fc, seed)
+        sharded = detector_from_numpy(init, device="cuda")
+        _, _, want = train_step(single, torch.optim.Adam(single.parameters(), lr=TRAINER["lr"]),
+                                images, targets)
+        opt = torch.optim.Adam(sharded.parameters(), lr=TRAINER["lr"])
+        shapes = collections.Counter()
+        _, _, got = main_path("train_step_sharded at the trainer's width",
+                              lambda: pmesh.train_step_sharded(sharded, opt, images, targets,
+                                                               mesh),
+                              "spectral_mac_f32", path_launches, shapes)
+        loss_err = abs(float(got) - float(want)) / abs(float(want))
+        k_err = rel_err(sharded.kernels.detach(), single.kernels.detach())
+        print(f"train_step_sharded vs train_step (Adam lr {TRAINER['lr']}): loss rel "
+              f"{loss_err:.3e} (bar 1e-6), kernels rel {k_err:.3e} (bar 1e-5); MAC launches a "
+              f"step by shape {dict(shapes)}")
+        if loss_err > 1e-6 or k_err > TOL:
+            raise AssertionError(f"sharded step: loss {loss_err}, kernels {k_err}")
+        # the forward's and dK's launch shapes (B, F, N), as trainer_phase names them
+        b, f, nf = images.shape[0], images.shape[1], sharded.num_filters
+        fft = fc.compute_fft_size(*images.shape[2:], DPM["k"], DPM["k"])
+        rows_at = {name: ("spectral_mac_f32", *m, fft[0], fft[1] // 2 + 1)
+                   for name, m in (("train_forward", (b, f, nf)), ("train_dK", (nf, b, f)))}
+        if shapes != collections.Counter(rows_at.values()):
+            raise AssertionError(f"sharded step: MAC launches {dict(shapes)}, not {rows_at}")
+        timed("train_step_sharded at the trainer's width",
+              lambda: pmesh.train_step_sharded(sharded, opt, images, targets, mesh), times)
+        # The step's forward and dK operands, as trainer_phase builds its
+        # rows (g random planes from the seed); each row's launches are this
+        # step's main-path launches at its shape.
+        with torch.no_grad():
+            d = rfft2_padded_planes(images, *fft)
+            kp = rfft2_padded_planes(sharded.kernels.flip(-2, -1), *fft)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+        g = tuple(torch.randn((b, nf, fft[0], fft[1] // 2 + 1), generator=gen, device="cuda")
+                  for _ in range(2))
+
+        def t(x):
+            return x.transpose(0, 1).contiguous()
+
+        for name, ops in (("train_forward", (*d, *kp)),
+                          ("train_dK", (t(g[0]), t(g[1]), t(d[0]), t(d[1]).neg()))):
+            rows[f"spectral_mac_f32:{name}_sharded"] = mac_row(ops, f"sharded step {name}")
+            row_launches[f"spectral_mac_f32:{name}_sharded"] = shapes[rows_at[name]]
+            del ops
+        del images, single, sharded, targets, opt, d, kp, g
+        torch.cuda.empty_cache()
+        phase_peak("parallel layer, train step")
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
+    print(f"parallel layer phase: {time.perf_counter() - t0:.1f} s (host clock; {card()})")
+
+
 def cuda_ms(fn, runs=RUNS, reps=1) -> float:
     """Median milliseconds of ``fn()`` between CUDA events, after a warm-up;
     each of the ``runs`` windows holds ``reps`` calls back to back (their
@@ -2977,6 +3299,9 @@ def main(argv=None) -> int:
     selftest_phase(fc)
     profiling_phase(fc, image_d, bank_d, fused_ms)
     demos_phase(api_ms)
+
+    # ---- the parallel layer in a world of one NCCL rank ----
+    parallel_phase(fc, args.seed, image_d, bank_d, path_launches, api_ms, rows, row_launches)
     print(f"smoke wall time: {time.perf_counter() - started:.1f} s")
     print(f"peak memory allocated over the smoke: {max(PHASE_PEAKS) / 2**30:.2f} GiB "
           f"(limit {PEAK_LIMIT / 2**30:.0f} GiB)")

@@ -29,6 +29,11 @@ float32 and at the bf16 serving tier (``store_dtype='bfloat16'``,
     bounded-depth serving over a resident bank on CUDA events;
     ``autotune_block_geometry`` and the block-geometry table keyed by
     device name (``runtime/``)
+  - ``make_mesh``, ``shard_kernel_bank``, ``conv_spectral_sharded``,
+    ``detect_peaks_sharded``, ``ShardedConvStream``: the bank sharded over
+    a (data, kernels) ``DeviceMesh`` on ``torch.distributed``, one rank a
+    device, outputs as ``DTensor``s; ``parallel.train_step_sharded`` the
+    detector's DP×TP training step (``parallel/``)
   - ``selftest``: the device report, with every C entry of the kernels
     against its plain version; ``utils`` holds image I/O, profiling
     (``benchmark`` on CUDA events, ``trace``) and logging; ``demos`` the
@@ -78,6 +83,12 @@ from cuda_fft_convolution_torch.ops.block_conv import (
     block_conv_peaks_reference,
     block_conv_reference,
 )
+from cuda_fft_convolution_torch.parallel import (
+    conv_spectral_sharded,
+    detect_peaks_sharded,
+    make_mesh,
+    shard_kernel_bank,
+)
 from cuda_fft_convolution_torch.runtime import (
     BankPlan,
     ConvFuture,
@@ -85,6 +96,7 @@ from cuda_fft_convolution_torch.runtime import (
     FftConvPlan,
     RaggedConvFuture,
     RaggedConvStream,
+    ShardedConvStream,
     autotune_block_geometry,
     lookup_tuned_geometry,
     make_plan,
@@ -128,6 +140,10 @@ __all__ = [
     "fft_conv_single",
     "fft_conv_stack",
     "direct_conv_single",
+    "conv_spectral_sharded",
+    "detect_peaks_sharded",
+    "make_mesh",
+    "shard_kernel_bank",
     "detect_peaks",
     "detect_top_k",
     "detect_local_peaks",
@@ -160,6 +176,7 @@ __all__ = [
     "ConvStream",
     "RaggedConvFuture",
     "RaggedConvStream",
+    "ShardedConvStream",
     "autotune_block_geometry",
     "lookup_tuned_geometry",
     "register_tuned_geometry",

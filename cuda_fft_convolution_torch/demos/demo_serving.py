@@ -15,11 +15,14 @@ is ``cudaFFTData`` then repeated ``cudaConvFFTData`` calls
   8. ``ConvStream``: bounded-depth serving over resident bank spectra, the
      bank swapped without a new plan;
   9. the bf16 serving tier, and the direct engine's raw circular maps
-     (``mode='fftmap'``) served by overlap-save (``trim_mode='fftmap'``).
+     (``mode='fftmap'``) served by overlap-save (``trim_mode='fftmap'``);
+ 10. ``ShardedConvStream``: the stream pool over a device mesh, the bank
+     sharded over its kernel axis. The demo starts a world of one rank when
+     no process group is running (NCCL on the card, gloo on the CPU): a
+     mesh of one runs the code path of a mesh of many. (The JAX demo skips
+     this step on one device.)
 
-The JAX demo's step 10, ``ShardedConvStream`` over a device mesh, waits for
-the port's ``parallel`` layer. Times are this run's, printed beside the
-device.
+Times are this run's, printed beside the device.
 
     python -m cuda_fft_convolution_torch.demos.demo_serving [--device cpu]
 """
@@ -27,11 +30,14 @@ device.
 from __future__ import annotations
 
 import argparse
+import pathlib
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import cuda_fft_convolution_torch as fc
 from cuda_fft_convolution_torch.demos import check, demo_device, device_label, rel, sync
@@ -130,8 +136,38 @@ def main(argv=None, device=None) -> dict:
     check(raw.shape == raw_direct.shape, "fftmap shapes differ")
     out["fftmap_tiled_vs_direct"] = rel(raw, raw_direct)
     check(out["fftmap_tiled_vs_direct"] < 1e-5, "fftmap maps differ")
+
+    # 10. multi-device serving: the stream pool x the kernel-sharded mesh
+    # (src/cudaConvFFTDataStreams.cu:273-349: per-GPU stream pairs x kernel
+    # round-robin), here in the world the caller runs or in one of one rank
+    out["sharded_vs_stream"] = rel(sharded_frame0(dev, bank, frames), results[0])
+    check(out["sharded_vs_stream"] < 1e-5, "ShardedConvStream frame 0 differs")
     print("serving demo OK")
     return out
+
+
+def sharded_frame0(dev: torch.device, bank, frames) -> torch.Tensor:
+    """Frame 0's maps from a ``ShardedConvStream`` over all the frames at
+    depth 3, gathered; a world of one rank is started (and ended) here when
+    no process group runs."""
+    started = not dist.is_initialized()
+    store = tempfile.TemporaryDirectory() if started else None
+    if started:
+        kw = {"device_id": torch.device("cuda", torch.cuda.current_device())} \
+            if dev.type == "cuda" else {}
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=pathlib.Path(store.name, "store").as_uri(),
+                                rank=0, world_size=1, **kw)
+    try:
+        mesh = fc.make_mesh(device=dev)
+        with fc.ShardedConvStream(mesh, bank, frames[0].shape, depth=3, mode="same",
+                                  algorithm="tiled") as stream:
+            futures = [stream.submit(f) for f in frames]
+            return futures[0].result().full_tensor()
+    finally:
+        if started:
+            dist.destroy_process_group()
+            store.cleanup()
 
 
 if __name__ == "__main__":

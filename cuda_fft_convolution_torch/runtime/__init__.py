@@ -4,15 +4,14 @@
   - ``plan``: ``FftConvPlan`` / ``make_plan``, a geometry fixed up front
     with its stages warmed (the cufftPlanMany analogue,
     src/cudaConvolutionFFT.cu:128-142);
-  - ``stream``: ``ConvStream`` and ``RaggedConvStream``, bounded-depth
-    serving on CUDA events (the stream pool of
+  - ``stream``: ``ConvStream``, ``RaggedConvStream`` and
+    ``ShardedConvStream`` (over a device mesh, ``parallel/``),
+    bounded-depth serving on CUDA events (the stream pool of
     src/cudaConvFFTDataStreams.cu:279-349);
   - ``autotune``: the block-geometry table keyed by device name, and its
     tuner (the reference's thread-dim knob, src/cudaConvolutionFFT.cu:72-82).
 
-The JAX package's ``ShardedConvStream`` waits for the port of
-``parallel/mesh.py`` (ROADMAP queue 1 item 8), and its native ctypes
-planner is not ported (queue 1 item 5).
+The JAX package's native ctypes planner is not ported (queue 1 item 5).
 """
 
 from cuda_fft_convolution_torch.runtime.autotune import (
@@ -28,6 +27,7 @@ from cuda_fft_convolution_torch.runtime.stream import (
     ConvStream,
     RaggedConvFuture,
     RaggedConvStream,
+    ShardedConvStream,
 )
 
 __all__ = [
@@ -43,4 +43,5 @@ __all__ = [
     "ConvStream",
     "RaggedConvFuture",
     "RaggedConvStream",
+    "ShardedConvStream",
 ]

@@ -28,6 +28,7 @@ from cuda_fft_convolution_torch.ops.conv import (
     rfft2_padded_planes,
 )
 from cuda_fft_convolution_torch.ops.spectral_mac import spectral_mac_auto_planes
+from cuda_fft_convolution_torch.types import SpectralData
 from cuda_fft_convolution_torch.utils.device import as_tensor, resolve_device
 from cuda_fft_convolution_torch.utils.errors import validate
 from cuda_fft_convolution_torch.utils.fft_size import FftSizePolicy, compute_fft_size
@@ -70,6 +71,9 @@ class FftConvPlan:
     # k_re, k_im) → maps (batched internal layout) or the head's tuple.
     _data_fft_fn: object = None
     _conv_fn: object = None
+    # data → the spectra container (SpectralData / TiledSpectralData) at
+    # the planned geometry, for ``data_spectra``.
+    _spectra_fn: object = None
 
     def _exec(self, field: str):
         e = getattr(self, field)
@@ -98,6 +102,13 @@ class FftConvPlan:
         what ``execute_spectral`` returns. The serving streams call this."""
         dfft = self._data_fft_fn(frame)
         return self._unbatch(self._conv_fn(*dfft, *kfft))
+
+    def data_spectra(self, frame: torch.Tensor):
+        """The data spectra of a frame on the plan's device as the container
+        ``conv_spectral`` and the sharded functions take (``TiledSpectralData``
+        on the tiled engine, with the window baked; ``SpectralData`` on the
+        direct one), staged as ``data_fft`` stages them."""
+        return self._spectra_fn(frame)
 
     def data_fft(self, data):
         """≈ cudaFFTData: the (re, im) plane pair of the data spectra."""
@@ -281,11 +292,14 @@ def make_plan(
         )
 
         @torch.no_grad()
-        def _data_fft(data):
-            sd = api.fft_data_tiled(
+        def _spectra(data):
+            return api.fft_data_tiled(
                 data, pkh, pkw, block_h=block_h, block_w=block_w,
                 store_dtype=store_dtype, **trim,
             )
+
+        def _data_fft(data):
+            sd = _spectra(data)
             return sd.re, sd.im
 
         @torch.no_grad()
@@ -347,6 +361,12 @@ def make_plan(
             )
             return sk.re, sk.im
 
+        def _spectra(data):
+            re, im = _data_fft(data)
+            if data.ndim == 3:
+                re, im = re[0], im[0]
+            return SpectralData(re=re, im=im, fft_h=fft_h, fft_w=fft_w, data_h=h, data_w=w)
+
         @torch.no_grad()
         def _conv(d_re, d_im, k_re, k_im):
             # one whole-bank MAC; the tier stores its products bf16
@@ -385,5 +405,6 @@ def make_plan(
         head=head,
         _data_fft_fn=_data_fft,
         _conv_fn=conv_fn,
+        _spectra_fn=_spectra,
     )
     return p if lazy else p.compile_now()

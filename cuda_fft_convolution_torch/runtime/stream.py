@@ -394,3 +394,92 @@ class RaggedConvStream(_BoundedStream):
         self._check_frame(frame)
         fut = self._dispatch(self._frame, frame)
         return RaggedConvFuture(fut, self._groups, self._n, len(self._data_shape) == 4)
+
+
+class ShardedConvStream(_BoundedStream):
+    """Bounded-depth serving over a device MESH — the reference's full
+    streams design, a stream pool for latency hiding × a multi-GPU kernel
+    round-robin for scale (src/cudaConvFFTDataStreams.cu:273-349), as two
+    composed primitives: ``conv_spectral_sharded`` (the bank sharded over
+    the mesh's kernel axis) under :class:`ConvStream`'s bounded-depth
+    futures. Every rank builds the stream and submits the same frames.
+
+    Construction computes this rank's shard of the bank spectra only and
+    pins them on the mesh (``shard_kernel_bank``'s placement); the staging
+    geometry comes from a lazy plan, so construction runs no throw-away
+    transform, and a submit stages the frame (through the pinned ring for
+    host frames) and runs the sharded call on the pinned bank::
+
+        mesh = fc.make_mesh(data=1)
+        stream = fc.ShardedConvStream(mesh, bank, frame_shape, depth=3)
+        futures = [stream.submit(f) for f in frames]
+        maps = [f.result() for f in futures]   # DTensors over (data, kernels)
+
+    ``algorithm='tiled'`` runs the overlap-save engine on each rank with
+    the 'same'/'valid' window — or the mode='fftmap' FFT canvas — baked
+    into the block tiling; 'direct' runs the big-FFT engine. Stacked uniform
+    banks only (ragged cells need per-size plans — bucket first). Each
+    submit records one CUDA event on each rank.
+    """
+
+    def __init__(
+        self,
+        mesh,
+        kernels,
+        data_shape: tuple,
+        *,
+        depth: int = 3,
+        mode: str = "same",
+        algorithm: str = "tiled",
+        correlation: bool = False,
+        same_offset: str = "scipy",
+        store_dtype: str = "float32",
+        out_dtype: str | None = None,
+    ):
+        from cuda_fft_convolution_torch.parallel import mesh as _mesh
+
+        validate(
+            algorithm in ("tiled", "direct"),
+            "algorithm must be 'tiled' or 'direct'",
+        )
+        dev = _mesh.mesh_device(mesh)
+        validate(
+            np.ndim(kernels) == 4,
+            "ShardedConvStream takes a stacked uniform bank (N, Kh, Kw, F)",
+        )
+        self._init_queue(depth, data_shape, dev)
+        self._mesh = mesh
+        self._mode = mode
+        self._same_offset = same_offset
+        self._out_dtype = out_dtype
+        # The lazy plan fixes the FFT or block geometry and the baked
+        # window without running anything; its stages are never warmed.
+        self._plan = make_plan(
+            self._data_shape, tuple(np.shape(kernels)), algorithm=algorithm,
+            mode=mode, correlation=correlation, same_offset=same_offset,
+            store_dtype=store_dtype, out_dtype=out_dtype, lazy=True, device=dev,
+        )
+        self._sk = _mesh._shard_raw_bank(
+            kernels, self._plan.fft_h, self._plan.fft_w, mesh,
+            correlation=correlation, store_dtype=store_dtype,
+        )
+
+    @property
+    def plan(self) -> FftConvPlan:
+        return self._plan
+
+    def _frame(self, x: torch.Tensor):
+        from cuda_fft_convolution_torch.parallel.mesh import conv_spectral_sharded
+
+        return conv_spectral_sharded(
+            self._plan.data_spectra(x), self._sk, self._mesh, mode=self._mode,
+            same_offset=self._same_offset, out_dtype=self._out_dtype,
+        )
+
+    def submit(self, frame) -> ConvFuture:
+        """Launch one frame across the mesh; returns at once unless
+        ``depth`` submissions are already in flight (then waits on the
+        oldest first). The future resolves to the maps as a ``DTensor``
+        sharded over (data, kernels)."""
+        self._check_frame(frame)
+        return self._dispatch(self._frame, frame)

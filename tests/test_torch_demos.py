@@ -45,3 +45,16 @@ def test_demo_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(ValueError, match="device='cpu'"):
         demo.main()
     assert demo.main(["--device", "cpu"])["peak"] == (39, 5)
+
+
+def test_demo_serving_runs_the_sharded_stream():
+    """The serving demo's step 10 on the CPU: a gloo world of one rank that
+    the demo starts and ends, frame 0 of ShardedConvStream within 1e-5 of
+    the ConvStream's maps."""
+    import torch.distributed as dist
+
+    from cuda_fft_convolution_torch.demos import demo_serving
+
+    out = demo_serving.main(device="cpu")
+    assert out["sharded_vs_stream"] < TOL
+    assert not dist.is_initialized()

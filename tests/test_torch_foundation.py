@@ -196,6 +196,17 @@ def test_port_imports_with_jax_blocked():
         "                         np.ones((2, 1, 3, 3), np.float32), device='cpu')\n"
         "assert tuple(maps.shape) == (2, 15, 15)\n"
         "assert fc.selftest(device='cpu')['fft_ok']\n"
+        "import pathlib, tempfile\n"
+        "import torch.distributed as dist\n"
+        "import cuda_fft_convolution_torch.parallel\n"
+        "from cuda_fft_convolution_torch.parallel import dryrun\n"
+        "dist.init_process_group('gloo', rank=0, world_size=1,\n"
+        "    init_method=pathlib.Path(tempfile.mkdtemp(), 'store').as_uri())\n"
+        "mesh = fc.make_mesh(device='cpu')\n"
+        "got = fc.conv_spectral_sharded(sd, np.ones((3, 5, 5, 1), np.float32), mesh,\n"
+        "                                mode='same').full_tensor()\n"
+        "assert tuple(got.shape) == (3, 40, 40)\n"
+        "dist.destroy_process_group()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
         "    'cuda_fft_convolution_tpu')) for m in sys.modules\n"
         "    if sys.modules[m] is not None)\n"

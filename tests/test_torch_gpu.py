@@ -792,3 +792,122 @@ def test_selftest_kernels_ok_on_gpu(cuda):
     assert rep["device_kind"] == torch.cuda.get_device_name()
     assert rep["kernels_ok"] is True, rep.get("kernels_failed", rep.get("kernels_error"))
     assert len(rep["kernels"]) == 22
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A world of one NCCL rank on the card → its (1, 1) mesh."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=(tmp_path / "store").as_uri(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield tfc.make_mesh(data=1, kernels=1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _counted(fn):
+    """``fn()`` with every kernel launch count set to 0 just before →
+    (its output, the launches by C entry)."""
+    from cuda_fft_convolution_torch.ops import spectral_mac as tmac
+
+    wrappers = (tbc.block_conv, tbc.block_conv_peaks, tmac.spectral_mac)
+    tbc.reset_launches(*wrappers)
+    out = fn()
+    torch.cuda.synchronize()
+    counts = collections.Counter()
+    for w in wrappers:
+        counts.update(w.launches_by_mode)
+    return out, counts
+
+
+@pytest.mark.gpu
+def test_make_mesh_needs_a_process_group_on_gpu(cuda):
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    with pytest.raises(InvalidInputError, match="init_process_group"):
+        tfc.make_mesh()
+
+
+@pytest.mark.gpu
+def test_sharded_calls_equal_single_device_on_gpu(nccl_mesh):
+    """In a world of one NCCL rank the sharded tiled, direct and peaks
+    calls give the single-device outputs bitwise, through the same C
+    entries the same number of times (no DTensor reaches a kernel)."""
+    rng = np.random.default_rng(44)
+    data = torch.as_tensor(rng.standard_normal((300, 500, 2)).astype(np.float32), device="cuda")
+    bank = torch.as_tensor(rng.standard_normal((7, 17, 33, 2)).astype(np.float32), device="cuda")
+    st = tfc.fft_data_tiled(data, 17, 33, trim_mode="same")
+    sd = tfc.fft_data(data, 17, 33)
+    placed = tfc.shard_kernel_bank(tfc.fft_kernels(bank, spectral=st), nccl_mesh)
+    assert tfc.shard_kernel_bank(placed, nccl_mesh) is placed
+    pairs = [
+        (lambda: tfc.conv_spectral_sharded(st, placed, nccl_mesh, mode="same"),
+         lambda: tfc.conv_spectral(st, bank, mode="same")),
+        (lambda: tfc.conv_spectral_sharded(sd, bank, nccl_mesh, mode="same"),
+         lambda: tfc.conv_spectral(sd, bank, mode="same")),
+        (lambda: tfc.detect_peaks_sharded(st, bank, nccl_mesh),
+         lambda: tfc.detect_peaks(st, bank, mode="same")),
+        (lambda: tfc.detect_peaks_sharded(st, bank, nccl_mesh, k=3),
+         lambda: tfc.detect_top_k(st, bank, k=3, mode="same")),
+    ]
+    for sharded, single in pairs:
+        got, got_counts = _counted(sharded)
+        want, want_counts = _counted(single)
+        assert got_counts == want_counts and sum(got_counts.values()) >= 1
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert g.to_local().is_cuda and torch.equal(g.full_tensor(), w)
+
+
+@pytest.mark.gpu
+def test_sharded_stream_on_gpu(nccl_mesh):
+    """ShardedConvStream on host frames: each frame bitwise equal to
+    ConvStream's, one maps-kernel launch a frame, and a submit into a queue
+    with room does not synchronise."""
+    rng = np.random.default_rng(45)
+    bank = rng.standard_normal((6, 17, 33, 2)).astype(np.float32)
+    frames = [rng.standard_normal((300, 500, 2)).astype(np.float32) for _ in range(5)]
+    kw = dict(depth=3, mode="same", algorithm="tiled")
+    stream = tfc.ShardedConvStream(nccl_mesh, bank, (300, 500, 2), **kw)
+    plain = tfc.ConvStream.create((300, 500, 2), bank, device="cuda", **kw)
+    futs, counts = _counted(lambda: [stream.submit(f) for f in frames])
+    assert counts == {"block_conv_f32": len(frames)}
+    for f, fut in zip(frames, futs):
+        assert torch.equal(fut.result().full_tensor(), plain.submit(f).result())
+    stream.flush()
+    first = stream.submit(frames[0])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = stream.submit(frames[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(second.result().to_local(), futs[1].result().to_local())
+    assert first.done()
+
+
+@pytest.mark.gpu
+def test_train_step_sharded_on_gpu(nccl_mesh):
+    """The DP×TP step in a world of one equals train_step: the loss within
+    1e-6, the updated kernels within 1e-5, the MAC kernel launched for the
+    forward and dK."""
+    from cuda_fft_convolution_torch.models import detector_from_numpy, train_step
+    from cuda_fft_convolution_torch.parallel import train_step_sharded
+
+    rng = np.random.default_rng(46)
+    init = {"kernels": (0.1 * rng.standard_normal((8, 3, 5, 5))).astype(np.float32),
+            "bias": rng.standard_normal(8).astype(np.float32)}
+    images = torch.as_tensor(rng.standard_normal((4, 3, 64, 64)).astype(np.float32),
+                             device="cuda")
+    targets = torch.as_tensor(rng.standard_normal((4, 8, 64, 64)).astype(np.float32),
+                              device="cuda")
+    a, b = (detector_from_numpy(init) for _ in range(2))
+    _, _, want = train_step(a, torch.optim.Adam(a.parameters(), lr=1e-2), images, targets)
+    (_, _, got), counts = _counted(lambda: train_step_sharded(
+        b, torch.optim.Adam(b.parameters(), lr=1e-2), images, targets, nccl_mesh))
+    assert counts == {"spectral_mac_f32": 2}
+    assert abs(float(got) - float(want)) <= 1e-6 * abs(float(want))
+    assert _rel(b.kernels.detach(), a.kernels.detach()) <= TOL

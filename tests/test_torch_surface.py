@@ -27,10 +27,8 @@ from tests.oracles import fft_conv_full_f64, fft_map_f64, rel_err
 
 TOL = 1e-5
 MAC_TOL = 1e-6
-# Names left behind (ROADMAP leave-behind list): the TPU transfer helper,
-# and the parallel layer's, which waits for its own slice.
-LEFT_BEHIND = {"fetch", "make_mesh", "shard_kernel_bank", "conv_spectral_sharded",
-               "detect_peaks_sharded", "ShardedConvStream"}
+# Names left behind (ROADMAP leave-behind list): the TPU transfer helper.
+LEFT_BEHIND = {"fetch"}
 
 
 def _cf(x):
