@@ -105,7 +105,10 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      count); the host time of a submit into a queue with room (one frame
      ahead in flight), under ``torch.cuda.set_sync_debug_mode('error')``,
      which must stay below 25% of one frame's device time (min of 7 CUDA
-     event runs): more would show a hidden synchronisation;
+     event runs): more would show a hidden synchronisation; beside it, each
+     trial's host copy of a frame into pinned memory alone and the
+     synchronous loop's ms a frame, which tell host load (the copy slows
+     too) from a stall in the stream (it does not);
  20. detection serving: ``ConvStream(head='peaks')`` on 8 detection-headline
      frames (new noise, the same plants): all 100 plants in every frame,
      equal to each frame's ``detect_peaks``; ms a frame beside it;
@@ -201,6 +204,22 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      launches by shape, and the MAC kernel on the step's forward and dK
      operands against the einsum (its own two JSON rows).
 
+ 33. the two BASELINE paths no earlier step runs at full size: the maps and
+     peaks kernels in every dtype mode against their plain versions at the
+     large-kernel plan (1023, 1024, 512, 512) (an odd Lh, the 1023-long H
+     contraction, Wc 513 in the 32-row configuration) with N=3 and a
+     clipped window, and at the F=8 tier's plan (63, 287, 32, 32) (stacked)
+     with F=8, N=5; ``fft_conv`` of the headline image with 16 kernels of
+     512², 'same' (BASELINE.json configs[2]): every maps launch at that
+     plan, 8 maps within 1e-5 of float64, the direct route within 1e-5
+     too, the call, its amortized form and the direct call timed; 1024²×8
+     with 64 kernels of 32²×8 at the bf16 tier: every launch at its plan,
+     8 maps within 2e-2 of float64, the call and its amortized form timed,
+     its blocks a CTA; then the port's bench (``python -m
+     cuda_fft_convolution_torch.bench``) at full size in this process: its
+     JSON line, every row present and positive, its accuracy row within
+     1e-5, its wall time.
+
 At every MAC row (the direct shape's F=1 and F=3, f32 and bf16, the
 unfused headline's and the model layer's shapes) it prints the tile the
 rule (``mac_tile``) picked and the time of every instantiated tile. With
@@ -210,7 +229,7 @@ at each MAC row in turns, parent, this tree, this tree, parent (bare C
 entries, CUDA events, median of 7 windows of 10 calls), the outputs
 compared.
 
-Steps 13–32 print each check, each time (CUDA events, median of 7, unless
+Steps 13–33 print each check, each time (CUDA events, median of 7, unless
 said otherwise) beside the card's name and power limit, the kernel launches
 of each call, the planner's plans and each phase's peak allocation; the
 smoke fails if its peak allocation reaches 60 GiB.
@@ -220,7 +239,10 @@ entries of the three kernels, and the MAC's shapes of steps 24–26 as
 ``spectral_mac_f32:<shape>``, whose launches are the main path's at that
 launch shape, ``spectral_mac.launches_by_shape``, and step 32's sharded
 training step's own forward and dK rows, ``spectral_mac_f32:<shape>_sharded``
-on that step's operands: launches on the main path, error, time,
+on that step's operands, and step 33's maps-kernel rows at the large-kernel
+and F=8 plans, ``block_conv_f32:large_kernel`` and ``block_conv_bf16:f8_tier``,
+whose launches are the main-path call's at that plan,
+``block_conv.launches_by_shape``: launches on the main path, error, time,
 plain time, the bound worked out from the shapes — the larger of the
 operations at the peak rate of the units that run them and the bytes at
 3.35 TB/s; ``block_conv_bound`` and ``mac_bound`` say which — and the time
@@ -264,12 +286,7 @@ RUNS = 7
 def env_report() -> None:
     import torch
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    for line in smi.stdout.strip().splitlines():
-        print(line.strip())
+    print(card())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -320,18 +337,21 @@ def build_kernels() -> None:
 
 
 # The H100 SXM's published peaks: fp32 on the CUDA cores, dense TF32 and
-# bf16 on the tensor cores, and HBM bandwidth.
+# bf16 on the tensor cores; its HBM rate is the port's entry for CARD
+# (utils/profiling.py HBM_BYTES_PER_S).
 PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
-PEAK_BYTES = 3.35e12
+CARD = "H100 80GB HBM3"
 
 
 def bound(op_seconds: float, nbytes: float) -> tuple[float, str]:
     """The least time the card could take (ms): the larger of the
     operations' time at their units' peak (``op_seconds``) and the bytes at
     the HBM rate → (ms, 'operations' or 'bytes')."""
-    t_op, t_b = op_seconds * 1e3, nbytes / PEAK_BYTES * 1e3
+    from cuda_fft_convolution_torch.utils.profiling import HBM_BYTES_PER_S
+
+    t_op, t_b = op_seconds * 1e3, nbytes / HBM_BYTES_PER_S[CARD] * 1e3
     return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
 
 
@@ -355,18 +375,20 @@ def cell_flop(f, lh, wc, vh, vw) -> int:
 
 def block_conv_bound(ops, geom, out_bytes) -> tuple[float, str]:
     """bound() of a fused block-conv call. Operations: every cell's useful
-    syntheses as 3xTF32 (3 tensor-core passes) and its MAC on the same
-    units — 3 passes for fp32 spectra, or one bf16 pass for bf16 spectra,
-    whose products are exact in bf16 (half a TF32 pass's time) — at the
-    dense TF32 peak. Bytes: the four spectra planes read once and
-    ``out_bytes`` written."""
+    MAC and syntheses on the tensor cores — for fp32 spectra as 3xTF32 (3
+    passes at the dense TF32 peak); for bf16 spectra as one bf16 pass with
+    fp32 accumulation at the bf16 peak, as the TPU kernel runs its bf16
+    tier (cuda_fft_convolution_tpu/ops/block_conv.py:645-647, 686-690).
+    Bytes: the four spectra planes read once and ``out_bytes`` written."""
     b, nbh, nbw, f, lh, wc = ops[0].shape
     n = ops[2].shape[0]
     bh, bw, kh, kw = geom[:4]
     cells = b * nbh * nbw * n
-    mac_passes = PEAK_TF32 / PEAK_BF16 if str(ops[0].dtype) == "torch.bfloat16" else 3
-    op_seconds = cells * (3 * synthesis_flop(lh, wc, bh - kh + 1, bw - kw + 1)
-                          + mac_passes * mac_flop(f, lh, wc)) / PEAK_TF32
+    flop = cell_flop(f, lh, wc, bh - kh + 1, bw - kw + 1)
+    if str(ops[0].dtype) == "torch.bfloat16":
+        op_seconds = cells * flop / PEAK_BF16
+    else:
+        op_seconds = cells * 3 * flop / PEAK_TF32
     nbytes = sum(t.numel() * t.element_size() for t in ops) + out_bytes
     return bound(op_seconds, nbytes)
 
@@ -443,11 +465,26 @@ def check_kernel_modes(d_re, d_im, k_re, k_im, geom, label) -> dict:
     }
 
 
-def check_kernel_shapes(fc, rng) -> None:
+def check_random_geometries(rng, geometries) -> None:
+    """``check_kernel_modes`` on random planes from ``rng`` at each
+    (B, F, N, bh, bw, kh, kw, out_h, out_w, label) of ``geometries``."""
     import torch
 
     def t(*shape):
         return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device="cuda")
+
+    for b, f, n, bh, bw, kh, kw, out_h, out_w, label in geometries:
+        vh, vw = bh - kh + 1, bw - kw + 1
+        nbh, nbw, wc = -(-out_h // vh), -(-out_w // vw), bw // 2 + 1
+        d = (t(b, nbh, nbw, f, bh, wc), t(b, nbh, nbw, f, bh, wc))
+        k = (t(n, f, bh, wc), t(n, f, bh, wc))
+        check_kernel_modes(*d, *k, (bh, bw, kh, kw, out_h, out_w), label)
+        del d, k
+        torch.cuda.empty_cache()
+
+
+def check_kernel_shapes(fc, rng) -> None:
+    import torch
 
     # Small ragged shape: B=2, F=3, N=5, odd blocks, out_h/out_w not
     # multiples of the valid window (clipped edge tiles); the widest block
@@ -458,19 +495,14 @@ def check_kernel_shapes(fc, rng) -> None:
     # and clipped edges, and Vh 21 (3 blocks, thread tiles straddling two);
     # and the planner's largest block (Wc 513, Vh 961: 32-row tiles, 31 row
     # chunks, the longest contractions the 3xTF32 syntheses see).
-    for b, f, n, bh, bw, kh, kw, out_h, out_w, label in (
+    check_random_geometries(rng, (
         (2, 3, 5, 45, 151, 10, 24, 100, 300, "small ragged"),
         (1, 2, 3, 80, 601, 17, 50, 200, 1100, "Wc 301, the widest 64-row tiles"),
         (1, 2, 2, 40, 901, 9, 101, 150, 1700, "wide block, 32-row tiles"),
         (2, 31, 3, 27, 139, 12, 12, 70, 300, "short window, stacked, partial group"),
         (1, 3, 4, 45, 151, 25, 24, 100, 300, "Vh 21, stacked, straddling rows"),
         (1, 1, 2, 1024, 1024, 64, 64, 1500, 1200, "1024 block, 31 row chunks"),
-    ):
-        vh, vw = bh - kh + 1, bw - kw + 1
-        nbh, nbw, wc = -(-out_h // vh), -(-out_w // vw), bw // 2 + 1
-        d = (t(b, nbh, nbw, f, bh, wc), t(b, nbh, nbw, f, bh, wc))
-        k = (t(n, f, bh, wc), t(n, f, bh, wc))
-        check_kernel_modes(*d, *k, (bh, bw, kh, kw, out_h, out_w), label)
+    ))
 
     # The headline plan's geometry, real spectra, a few kernels.
     s, kk = HEADLINE["size"], HEADLINE["k"]
@@ -1190,11 +1222,9 @@ PHASE_PEAKS: list[int] = []
 @functools.cache
 def card() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return smi.stdout.strip().splitlines()[0].strip()
+    from cuda_fft_convolution_torch.utils.profiling import card_label
+
+    return card_label()
 
 
 def timed(label, fn, times) -> float:
@@ -1755,9 +1785,16 @@ def headline_stream_phase(fc, seed, bank_d, path_launches, times) -> None:
     times["headline frame on the device"] = frame_ms
     print(f"headline frame on the device (data_fft + execute_spectral): {frame_ms:.3f} ms "
           f"(least of {RUNS}; {card()})")
-    host, busy = [], 0
+    # the control: the submit's host copy alone (a frame into pinned memory,
+    # as the ring stages it), timed before each trial; a submit that slows
+    # with it is host load, one that slows alone stalls in the stream
+    pinned = torch.empty((s, s, 1), dtype=torch.float32, pin_memory=True)
+    host, control, busy = [], [], 0
     for t in range(STREAM["trials"]):
         stream.flush()
+        t0 = time.perf_counter()
+        pinned.copy_(torch.as_tensor(frames[(t + 1) % count]))
+        control.append(1e3 * (time.perf_counter() - t0))
         first = stream.submit(frames[t % count])
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -1768,17 +1805,23 @@ def headline_stream_phase(fc, seed, bank_d, path_launches, times) -> None:
             torch.cuda.set_sync_debug_mode(0)
         busy += not first._event.query()
     stream.flush()
-    host_ms = statistics.median(host)
+    host_ms, control_ms = statistics.median(host), statistics.median(control)
     times["headline ConvStream submit, host"] = host_ms
+    times["headline ConvStream submit, host copy alone"] = control_ms
     print(f"ConvStream submit into a queue with room: host {host_ms:.3f} ms (median of "
           f"{len(host)}; no synchronising call under sync debug mode 'error'; the frame ahead "
           f"still running at {busy} of {len(host)} returns) = "
           f"{100 * host_ms / frame_ms:.1f}% of one frame's device time {frame_ms:.3f} ms "
-          f"(bar {100 * STREAM['submit_share']:.0f}%; {card()})")
+          f"(bar {100 * STREAM['submit_share']:.0f}%; {card()}); its host copy alone "
+          f"{control_ms:.3f} ms (median; per trial, submit/copy ms: "
+          f"{', '.join(f'{h:.3f}/{c:.3f}' for h, c in zip(host, control))}); the synchronous "
+          f"loop {sync_ms:.3f} ms a frame")
     if host_ms >= STREAM["submit_share"] * frame_ms:
         raise AssertionError(f"a submit takes {host_ms:.3f} ms of host time against a "
-                             f"{frame_ms:.3f} ms frame: a hidden synchronisation")
-    del stream, plan, frame_d, kfft, bank2_d
+                             f"{frame_ms:.3f} ms frame (its host copy alone {control_ms:.3f} "
+                             f"ms, the synchronous loop {sync_ms:.3f} ms a frame): a hidden "
+                             f"synchronisation if the copy alone stays fast, host load if not")
+    del stream, plan, frame_d, kfft, bank2_d, pinned
     torch.cuda.empty_cache()
     phase_peak("ConvStream headline, timing")
 
@@ -2995,6 +3038,161 @@ def parallel_phase(fc, seed, image_d, bank_d, path_launches, times, rows,
     print(f"parallel layer phase: {time.perf_counter() - t0:.1f} s (host clock; {card()})")
 
 
+# Step 33. The large-kernel regime (BASELINE.json configs[2], bench.py:
+# 613-655): the headline image with `n` kernels of `k`², 'same', which the
+# planner tiles at `plan` (an odd Lh of 1023, Wc 513: the 32-row
+# configuration). The F=8 tier (bench.py:591-611): a `size`² image of `f`
+# channels, `n` kernels of `k`²×`f`, bf16 spectra, planned at `plan` (the
+# stacked configuration). Each maps against float64 on 8 maps.
+BIGKERNEL = dict(n=16, k=512, plan=(1023, 1024, 512, 512))
+F8_TIER = dict(size=1024, f=8, n=64, k=32, plan=(63, 287, 32, 32))
+
+
+def plan_launches(mode, plan) -> int:
+    """Maps-kernel launches in mode ``mode`` at block plan ``plan`` since
+    the last ``main_path`` reset them (``block_conv.launches_by_shape``);
+    fails unless every maps launch of that run was at the plan."""
+    from cuda_fft_convolution_torch.ops.block_conv import block_conv
+
+    at_plan = block_conv.launches_by_shape[(mode, *plan)]
+    if at_plan < 1 or at_plan != block_conv.launches:
+        raise AssertionError(f"maps kernel launches by plan {dict(block_conv.launches_by_shape)}: "
+                             f"not all in {mode} at {plan}")
+    return at_plan
+
+
+def kernel_row(ops, geom, label) -> tuple:
+    """The maps kernel on ``ops`` at ``geom`` against its plain version,
+    timed → its JSON row (max abs error, ms, plain ms, bound, bound by,
+    library ms)."""
+    from cuda_fft_convolution_torch.ops.block_conv import block_conv, block_conv_reference
+
+    abs_err = check_kernel(*ops, geom, label)
+    row = (abs_err, cuda_ms(lambda: block_conv(*ops, *geom)),
+           cuda_ms(lambda: block_conv_reference(*ops, *geom)),
+           *block_conv_bound(ops, geom, 4 * ops[2].shape[0] * geom[4] * geom[5]), None)
+    print(f"maps kernel alone [{label}]: {row[1]:.3f} ms; plain version {row[2]:.3f} ms; "
+          f"bound {row[3]:.3f} ms ({row[4]}), {100 * row[3] / row[1]:.1f}% of it ({card()})")
+    return row
+
+
+def bigkernel_phase(fc, seed, image, image_d, path_launches, times, rows, row_launches):
+    """The large-kernel regime (module docstring, step 33): the plan, the
+    maps against float64 through the tiled and the direct route, times,
+    and the maps kernel's row at the plan."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.tiled import choose_block_plan
+
+    s, n, k, plan = HEADLINE["size"], BIGKERNEL["n"], BIGKERNEL["k"], BIGKERNEL["plan"]
+    bank = np.random.default_rng(seed).standard_normal((n, k, k, 1)).astype(np.float32)
+    bank_d = torch.as_tensor(bank, device="cuda")
+    got_plan = choose_block_plan(s, s, k, k, device=image_d.device)
+    print(f"large-kernel regime: {n} kernels of {k}² on the {s}² image; plan {got_plan}")
+    if got_plan != plan:
+        raise AssertionError(f"large-kernel plan {got_plan}, not {plan}")
+    idx = list(range(0, n, n // 8))[:8]
+    want = same_reference_f64(image, bank, idx)
+    for label, kw, mode in (("auto (tiled)", {}, "block_conv_f32"),
+                            ("direct", dict(algorithm="direct"), "spectral_mac_f32")):
+        maps = main_path(f"large-kernel fft_conv, {label}", lambda: fc.fft_conv(
+            image_d, kernels=bank_d, mode="same", **kw), mode, path_launches)
+        if mode == "block_conv_f32":
+            row_launches["block_conv_f32:large_kernel"] = plan_launches(mode, plan)
+        if not (tuple(maps.shape) == (n, s, s) and torch.isfinite(maps).all()):
+            raise AssertionError(f"large-kernel maps ({label}) malformed: {tuple(maps.shape)}")
+        err = max_rel_err_f64(maps, idx, want)
+        print(f"large-kernel fft_conv, {label}, vs float64 numpy on kernels {idx}: "
+              f"max rel err {err:.3e} (bar {TOL:g})")
+        if err > TOL:
+            raise AssertionError(f"large-kernel error ({label}) {err} above {TOL}")
+        del maps
+    torch.cuda.empty_cache()
+    spec = fc.fft_data_tiled(image_d, k, k, trim_mode="same")
+    sk = fc.fft_kernels(bank_d, spectral=spec)
+    auto = timed("large-kernel fft_conv, auto (tiled)",
+                 lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same"), times)
+    timed("large-kernel conv_spectral, amortized tiled",
+          lambda: fc.conv_spectral(spec, sk, mode="same"), times)
+    direct = timed("large-kernel fft_conv, direct",
+                   lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same",
+                                       algorithm="direct"), times)
+    print(f"large-kernel route: direct / auto (tiled) = {direct / auto:.3f}")
+    geom = (spec.block_h, spec.block_w, spec.max_kh, spec.max_kw, spec.out_h, spec.out_w)
+    rows["block_conv_f32:large_kernel"] = kernel_row(
+        (spec.re[None], spec.im[None], sk.re, sk.im), geom, f"large-kernel plan, N={n}")
+    del spec, sk, bank_d
+    torch.cuda.empty_cache()
+
+
+def f8_tier_phase(fc, seed, path_launches, times, rows, row_launches):
+    """The F=8 tier (module docstring, step 33): the plan, 8 maps against
+    float64 at the tier's bar, times, and the maps kernel's row at the
+    plan with its stacking."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.tiled import choose_block_plan
+
+    size, f, n, k, plan = (F8_TIER[x] for x in ("size", "f", "n", "k", "plan"))
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((size, size, f)).astype(np.float32)
+    bank = rng.standard_normal((n, k, k, f)).astype(np.float32)
+    data_d, bank_d = torch.as_tensor(data, device="cuda"), torch.as_tensor(bank, device="cuda")
+    got_plan = choose_block_plan(size, size, k, k, feature_dim=f, store_dtype="bfloat16",
+                                 device=data_d.device)
+    print(f"F=8 tier: {size}²x{f} image, {n} kernels of {k}²x{f}, bf16; plan {got_plan}")
+    if got_plan != plan:
+        raise AssertionError(f"F=8 tier plan {got_plan}, not {plan}")
+    maps = main_path("F=8 tier fft_conv", lambda: fc.fft_conv(
+        data_d, kernels=bank_d, mode="same", store_dtype="bfloat16"), "block_conv_bf16",
+        path_launches)
+    row_launches["block_conv_bf16:f8_tier"] = plan_launches("block_conv_bf16", plan)
+    if not (tuple(maps.shape) == (n, size, size) and torch.isfinite(maps).all()):
+        raise AssertionError(f"F=8 tier maps malformed: {tuple(maps.shape)}")
+    idx = list(range(0, n, n // 8))[:8]
+    err = max_rel_err_f64(maps, idx, dpm_reference_f64(data.astype(np.float64), bank, idx))
+    print(f"F=8 tier fft_conv vs float64 numpy on kernels {idx}: max rel err {err:.3e} "
+          f"(bar {BF16_TOL:g})")
+    if err > BF16_TOL:
+        raise AssertionError(f"F=8 tier error {err} above {BF16_TOL}")
+    del maps
+    torch.cuda.empty_cache()
+    spec = fc.fft_data_tiled(data_d, k, k, trim_mode="same", store_dtype="bfloat16")
+    sk = fc.fft_kernels(bank_d, spectral=spec, store_dtype="bfloat16")
+    timed("F=8 tier fft_conv", lambda: fc.fft_conv(
+        data_d, kernels=bank_d, mode="same", store_dtype="bfloat16"), times)
+    timed("F=8 tier conv_spectral, amortized",
+          lambda: fc.conv_spectral(spec, sk, mode="same"), times)
+    geom = (spec.block_h, spec.block_w, spec.max_kh, spec.max_kw, spec.out_h, spec.out_w)
+    ops = (spec.re[None], spec.im[None], sk.re, sk.im)
+    model = stacked_model(ops, geom)
+    print(f"F=8 tier plan: {model['g']} blocks a CTA, {model['ctas']} CTAs; MFLOP a cell "
+          f"issued {model['fma_mflop']:.2f} FMA + {model['tc_mflop']:.2f} tensor-core, "
+          f"useful {model['useful_mflop']:.2f}")
+    rows["block_conv_bf16:f8_tier"] = kernel_row(ops, geom, f"F=8 tier plan, N={n}")
+    del spec, sk, ops, data_d, bank_d
+    torch.cuda.empty_cache()
+
+
+def bench_phase() -> None:
+    """The port's bench at full size (module docstring, step 33): its JSON
+    line printed, every row present and positive, its accuracy row within
+    TOL."""
+    from cuda_fft_convolution_torch import bench
+
+    t0 = time.perf_counter()
+    result = bench.main([])
+    detail = result["detail"]
+    bad = [r for r in bench.ROWS if not (detail[r] is not None and detail[r] > 0)]
+    if bad:
+        raise AssertionError(f"bench rows null or not positive: {bad}")
+    if not detail["max_rel_err_vs_f64_fft"] <= TOL:
+        raise AssertionError(f"bench accuracy {detail['max_rel_err_vs_f64_fft']} above {TOL}")
+    print(f"bench: {len(bench.ROWS)} rows, max rel err vs float64 "
+          f"{detail['max_rel_err_vs_f64_fft']:.3e}; {time.perf_counter() - t0:.1f} s "
+          f"(host clock; {card()})")
+
+
 def cuda_ms(fn, runs=RUNS, reps=1) -> float:
     """Median milliseconds of ``fn()`` between CUDA events, after a warm-up;
     each of the ``runs`` windows holds ``reps`` calls back to back (their
@@ -3302,6 +3500,19 @@ def main(argv=None) -> int:
 
     # ---- the parallel layer in a world of one NCCL rank ----
     parallel_phase(fc, args.seed, image_d, bank_d, path_launches, api_ms, rows, row_launches)
+
+    # ---- step 33: the large-kernel regime, the F=8 tier, the bench ----
+    t0 = time.perf_counter()
+    check_random_geometries(rng, (
+        (1, 1, 3, *BIGKERNEL["plan"], 1500, 1200, "large-kernel plan, Lh 1023, Wc 513"),
+        (1, F8_TIER["f"], 5, *F8_TIER["plan"], 200, 700, "F=8 tier plan"),
+    ))
+    bigkernel_phase(fc, args.seed, image, image_d, path_launches, api_ms, rows, row_launches)
+    f8_tier_phase(fc, args.seed, path_launches, api_ms, rows, row_launches)
+    phase_peak("large-kernel regime and F=8 tier")
+    print(f"large-kernel and F=8 phases: {time.perf_counter() - t0:.1f} s (host clock)")
+    bench_phase()
+    phase_peak("bench")
     print(f"smoke wall time: {time.perf_counter() - started:.1f} s")
     print(f"peak memory allocated over the smoke: {max(PHASE_PEAKS) / 2**30:.2f} GiB "
           f"(limit {PEAK_LIMIT / 2**30:.0f} GiB)")

@@ -307,8 +307,9 @@ def block_conv(
     """→ (B, N, out_h, out_w) maps in ``out_dtype``. CPU tensors run
     ``block_conv_reference``; CUDA tensors launch the CUDA kernel entry of
     their (spectra, maps) dtypes on the current stream (no synchronisation)
-    and count the launch in ``block_conv.launches`` and, per mode, in
-    ``block_conv.launches_by_mode``."""
+    and count the launch in ``block_conv.launches``, per mode in
+    ``block_conv.launches_by_mode`` and per (mode, block_h, block_w, kh,
+    kw) in ``block_conv.launches_by_shape``."""
     _check_out_dtype(out_dtype)
     ops = (dr, di, kr, ki)
     if all(t.device.type == "cpu" for t in ops):
@@ -338,11 +339,13 @@ def block_conv(
     if err != 0:
         raise RuntimeError(f"block_conv CUDA kernel launch failed: cudaError {err}")
     count_launch(block_conv, mode)
+    block_conv.launches_by_shape[(mode, block_h, block_w, kh, kw)] += 1
     return out
 
 
 block_conv.launches = 0
 block_conv.launches_by_mode = collections.Counter()
+block_conv.launches_by_shape = collections.Counter()
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:

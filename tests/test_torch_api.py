@@ -385,3 +385,39 @@ def test_checkpoint_rejects_layouts_not_ported(tmp_path, rng):
     assert bank_spec.flat is False and bank_spec.re.ndim == 4
     got = tfc.conv_spectral(spec, bank_spec, mode="same")
     assert rel_err(got.numpy(), _jax_maps(jspec, jbank, "same")) < TOL
+
+
+@pytest.mark.parametrize("h,n,k", [(256, 2, 48), (300, 2, 129)])
+def test_large_kernel_same_matches_jax_and_oracle(h, n, k):
+    """BASELINE configs[2]'s regime (kernels a quarter of the image, bench.py
+    :613-655) at sizes the CPU affords: 'same' maps of 48² kernels on a 256²
+    image (tiled, blocks (95, 431)) and of odd 129² kernels on a 300² image
+    (direct), against JAX's fft_conv and the float64 oracle."""
+    rng = np.random.default_rng(0)
+    data = rng.standard_normal((h, h, 1)).astype(np.float32)
+    bank = rng.standard_normal((n, k, k, 1)).astype(np.float32)
+    got = tfc.fft_conv(data, kernels=bank, mode="same", device="cpu").numpy()
+    want = np.asarray(jfc.fft_conv(data, kernels=bank, mode="same"))
+    assert got.shape == want.shape == (n, h, h)
+    assert rel_err(got, want) <= TOL
+    assert rel_err(got, _oracle(data, bank, "same")) <= TOL
+
+
+@pytest.mark.parametrize("store,tol", [("float32", TOL), ("bfloat16", 2e-2)])
+def test_f8_tier_matches_jax_and_oracle(store, tol):
+    """The F=8 fused tier's shapes (bench.py:591-611: kernels of 32²x8) on
+    a 200²x8 image, planned at the full-size row's blocks (63, 287): float32
+    within TOL of JAX and of float64; the bf16 tier within its bar (2e-2)
+    of JAX's tier and of float64."""
+    rng = np.random.default_rng(0)
+    data = rng.standard_normal((200, 200, 8)).astype(np.float32)
+    bank = rng.standard_normal((3, 32, 32, 8)).astype(np.float32)
+    plan = tt.choose_block_plan(200, 200, 32, 32, feature_dim=8, store_dtype=store,
+                                device="cpu")
+    assert plan == (63, 287, 32, 32)
+    got = tfc.fft_conv(data, kernels=bank, mode="same", store_dtype=store, device="cpu")
+    want = np.asarray(jfc.fft_conv(data, kernels=bank, mode="same", store_dtype=store),
+                      np.float32)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape == (3, 200, 200)
+    assert rel_err(got.numpy(), want) <= tol
+    assert rel_err(got.numpy(), _oracle(data, bank, "same")) <= tol

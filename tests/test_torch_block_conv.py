@@ -94,6 +94,21 @@ RADIX_GEOM = (32, 512, 9, 129, 40, 500)
 BF16_TOL = 2e-2  # the bf16 tier: JAX's BF16IO dots against the port's fp32 arithmetic
 
 
+def test_block_conv_reference_matches_jax_v4(rng):
+    """The v4 body (``radix_h=True``, ``radix_w=False``: v3 with the H
+    inverse split radix-2 over pre-permuted even and odd rows, then a
+    twiddle combine) at a geometry ``radix_h_legal`` admits: the port's
+    plain version reproduces it."""
+    bh, bw, kh, kw, out_h, out_w = RADIX_GEOM
+    assert radix_h_legal(bh, bh - kh + 1)
+    ops = _operands(rng, 1, 2, 3, *RADIX_GEOM)
+    want = block_conv_pallas(*map(jnp.asarray, ops), *RADIX_GEOM, interpret=True,
+                             radix_h=True, radix_w=False)
+    got = tbc.block_conv_reference(*_torch(*ops), *RADIX_GEOM)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    assert _rel(got.numpy(), want) <= TOL
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_block_conv_reference_matches_jax_v5x(rng, dtype):
     """The v5x body (``xsliver=True``: the v5 body with the Nyquist sliver

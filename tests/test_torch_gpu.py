@@ -42,6 +42,11 @@ GEOMETRIES = [
     # the planner's largest block (Wc = 513, Vh = 961): 32-row tiles, 31 row
     # chunks, the longest contractions the 3xTF32 syntheses see
     (1, 1, 2, 1024, 1024, 64, 64, 1500, 1200),
+    # the large-kernel plan (bench.py's 512² kernels on a 2048² image): an
+    # odd Lh of 1023, Wc = 513, the longest H contraction
+    (1, 1, 3, 1023, 1024, 512, 512, 1500, 1200),
+    # the F=8 tier's plan (bench.py's 64 kernels of 32²x8): stacked, F = 8
+    (1, 8, 5, 63, 287, 32, 32, 200, 700),
     *SHORT_WINDOWS,
 ]
 
@@ -163,18 +168,37 @@ def test_kernel_build_failure_raises(cuda, monkeypatch, tmp_path):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["same", "full", "fftmap"])
-def test_fft_conv_on_gpu_matches_cpu(cuda, mode):
+@pytest.mark.parametrize("mode,data_shape,bank_shape,store", [
+    pytest.param(m, (2, 300, 500, 2), (4, 17, 33, 2), "float32", id=m)
+    for m in ("same", "full", "fftmap")
+] + [
+    # a large odd kernel: blocks (256, 896)
+    pytest.param("same", (400, 400, 1), (2, 129, 129, 1), "float32", id="large_kernel"),
+    # the F=8 tier's plan (63, 287)
+    pytest.param("same", (200, 200, 8), (3, 32, 32, 8), "bfloat16", id="f8_tier"),
+])
+def test_fft_conv_on_gpu_matches_cpu(cuda, mode, data_shape, bank_shape, store):
+    """fft_conv on the card: one maps launch, at the planner's plan; the
+    maps within TOL (BF16_TOL at the tier) of the CPU's float32 maps."""
+    from cuda_fft_convolution_torch.ops.tiled import choose_block_plan
+
     rng = np.random.default_rng(3)
-    data = rng.standard_normal((2, 300, 500, 2)).astype(np.float32)
-    bank = rng.standard_normal((4, 17, 33, 2)).astype(np.float32)
-    before = tbc.block_conv.launches
-    got = tfc.fft_conv(data, kernels=bank, mode=mode, device=cuda)
+    data = rng.standard_normal(data_shape).astype(np.float32)
+    bank = rng.standard_normal(bank_shape).astype(np.float32)
+    h, w, f = data_shape[-3:]
+    plan = choose_block_plan(h, w, *bank_shape[1:3], feature_dim=f, store_dtype=store,
+                             device=cuda)
+    assert plan is not None
+    before = collections.Counter(tbc.block_conv.launches_by_shape)
+    got = tfc.fft_conv(data, kernels=bank, mode=mode, store_dtype=store, device=cuda)
     torch.cuda.synchronize()
-    assert tbc.block_conv.launches == before + 1  # the main path ran the kernel
+    kernel_mode = "block_conv_f32" if store == "float32" else "block_conv_bf16"
+    # the main path ran the kernel, once, at the plan
+    assert collections.Counter(tbc.block_conv.launches_by_shape) - before == {
+        (kernel_mode, *plan): 1}
     want = tfc.fft_conv(data, kernels=bank, mode=mode, device="cpu")
     assert got.is_cuda and got.shape == want.shape
-    assert _rel(got.cpu(), want) <= TOL
+    assert _rel(got.cpu(), want) <= (TOL if store == "float32" else BF16_TOL)
 
 
 @pytest.mark.gpu

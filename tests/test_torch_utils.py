@@ -3,6 +3,7 @@
 port refuses), image I/O, profiling and the device self-test on the CPU."""
 
 import os
+import types
 
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ import torch
 import cuda_fft_convolution_torch as tfc
 from cuda_fft_convolution_torch.utils import config as tconfig
 from cuda_fft_convolution_torch.utils import image_io as tio
+from cuda_fft_convolution_torch.utils import profiling
 from cuda_fft_convolution_torch.utils.profiling import Timer, benchmark, trace
 from cuda_fft_convolution_tpu.utils import config as jconfig
 from cuda_fft_convolution_tpu.utils import image_io as jio
@@ -124,9 +126,25 @@ def test_benchmark_stats_on_the_host_clock(rng):
     x = torch.as_tensor(rng.standard_normal((64, 64)).astype(np.float32))
     calls = []
     stats = benchmark(lambda a: calls.append(1) or a @ a, x, warmup=1, iters=3)
-    assert set(stats) == {"mean_s", "median_s", "min_s", "iters"}
-    assert stats["iters"] == 3 and len(calls) == 4
+    assert set(stats) == {"mean_s", "median_s", "min_s", "iters", "times_s"}
+    assert stats["iters"] == 3 and len(calls) == 4 and len(stats["times_s"]) == 3
     assert 0 < stats["min_s"] <= stats["median_s"] and stats["mean_s"] >= stats["min_s"]
+    assert stats["min_s"] == min(stats["times_s"])
+
+
+def test_benchmark_windows_of_back_to_back_calls(monkeypatch):
+    """``reps`` calls a window, ``iters`` windows, after ``warmup`` calls;
+    a window's time is over its calls (on a host clock where a call takes
+    one second)."""
+    clock = [0.0]
+    monkeypatch.setattr(profiling, "time", types.SimpleNamespace(perf_counter=lambda: clock[0]))
+
+    def fn():
+        clock[0] += 1.0
+
+    stats = benchmark(fn, warmup=2, iters=3, reps=4)
+    assert clock[0] == 2 + 3 * 4
+    assert stats["times_s"] == [1.0, 1.0, 1.0] and stats["iters"] == 3
 
 
 def test_timer_accumulates():
