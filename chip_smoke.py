@@ -215,10 +215,29 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      too, the call, its amortized form and the direct call timed; 1024²×8
      with 64 kernels of 32²×8 at the bf16 tier: every launch at its plan,
      8 maps within 2e-2 of float64, the call and its amortized form timed,
-     its blocks a CTA; then the port's bench (``python -m
+     its blocks a CTA; ``detect_peaks`` on each (the peaks kernel at each
+     plan, launched on the main path and timed beside its plain version);
+     then the port's bench (``python -m
      cuda_fft_convolution_torch.bench``) at full size in this process: its
      JSON line, every row present and positive, its accuracy row within
      1e-5, its wall time.
+ 34. the fused kernels' precision tiers (``ops/block_conv.py
+     fused_splits``): every 6xTF32 and one-pass entry (f32 maps, bf16
+     maps, peaks) against its plain version at the geometries of step 3
+     and the two plans of step 33 — 6xTF32 within 5e-7 of the plain version
+     run in float64 and within 1e-5 of its float32 run (printed beside the
+     float32 plain version's own error), one pass within 2e-3 — and
+     ``fused_precision='highest'`` with ``matmul_precision='high'`` bitwise
+     equal to the default tier; then under 'highest' (6xTF32) and under
+     'highest' with ``matmul_precision='default'`` (one pass), each a main
+     path: the headline ``fft_conv`` (f32 and bf16 maps) against float64
+     on 8 maps (6xTF32: at most 1.25x the error of the plain version's maps
+     on the same spectra, printed beside it), ``detect_peaks`` on the
+     detection headline (all 100 plants, = the argmax of the tier's maps),
+     and the 16 x 512² large-kernel call (every launch at its plan) against
+     float64, each call timed; each tier's kernels timed beside the default
+     tier's, with their bounds (the tier's TF32 passes at 495 TFLOP/s). The
+     config is restored in a ``finally``.
 
 At every MAC row (the direct shape's F=1 and F=3, f32 and bf16, the
 unfused headline's and the model layer's shapes) it prints the tile the
@@ -229,7 +248,7 @@ at each MAC row in turns, parent, this tree, this tree, parent (bare C
 entries, CUDA events, median of 7 windows of 10 calls), the outputs
 compared.
 
-Steps 13–33 print each check, each time (CUDA events, median of 7, unless
+Steps 13–34 print each check, each time (CUDA events, median of 7, unless
 said otherwise) beside the card's name and power limit, the kernel launches
 of each call, the planner's plans and each phase's peak allocation; the
 smoke fails if its peak allocation reaches 60 GiB.
@@ -242,7 +261,11 @@ training step's own forward and dK rows, ``spectral_mac_f32:<shape>_sharded``
 on that step's operands, and step 33's maps-kernel rows at the large-kernel
 and F=8 plans, ``block_conv_f32:large_kernel`` and ``block_conv_bf16:f8_tier``,
 whose launches are the main-path call's at that plan,
-``block_conv.launches_by_shape``: launches on the main path, error, time,
+``block_conv.launches_by_shape``, and the peaks kernel's there,
+``block_conv_peaks_f32:large_kernel`` and ``block_conv_peaks_bf16:f8_tier``,
+and step 34's tier entries, ``block_conv_f32_x6``, ``block_conv_f32_x1``,
+their ``_bf16maps`` and ``block_conv_peaks_f32_x6`` / ``_x1`` modes and
+the maps entries at the large-kernel plan: launches on the main path, error, time,
 plain time, the bound worked out from the shapes — the larger of the
 operations at the peak rate of the units that run them and the bytes at
 3.35 TB/s; ``block_conv_bound`` and ``mac_bound`` say which — and the time
@@ -257,9 +280,11 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import functools
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -281,6 +306,14 @@ DETECT = dict(HEADLINE, grid=10, stride=200, offset=100, amplitude=3.0)
 # features at `amplitude` for the detection check.
 DPM = dict(image=4096, cell=8, bins=31, n=1024, k=12, plants=8, amplitude=0.1)
 RUNS = 7
+# The fused kernels' synthesis tiers (splits: TF32 products per product;
+# ops/block_conv.py fused_splits) and their bars against the plain version
+# (step 34): 6xTF32 within 5e-7 of the plain maps, one pass within 2e-3;
+# the 'highest' headline's float64 error at most 1.25x the plain version's.
+TIERS = (3, 6, 1)
+X6_TOL = 5e-7
+X1_TOL = 2e-3
+X6_F64_RATIO = 1.25
 
 
 def env_report() -> None:
@@ -320,20 +353,29 @@ def build_kernels() -> None:
     if not _build.build_log():
         print("  (the library was built before this process: no ptxas report)")
     pairs = 0
-    for wc in (17, 70, 76, 128, 129, 224, 256, 257, 320, 321, 384, 385, 451, 513, 769):
-        for vh in (1, 2, 3, 7, 8, 13, 16, 17, 21, 31, 32, 33, 64, 100):
-            got = (lib.fftconv_block_conv_f32_smem_bytes(wc, vh),
-                   lib.fftconv_block_conv_f32_rows(wc, vh),
-                   lib.fftconv_block_conv_f32_blocks(wc, vh))
-            want = (smem_bytes(wc, vh), tile_rows(wc, vh), blocks_per_cta(wc, vh))
-            if got != want:
-                raise AssertionError(
-                    f"configuration model differs from the kernel at Wc={wc}, Vh={vh}: "
-                    f"kernel (smem, rows, blocks) {got}, Python {want}")
-            pairs += 1
-    print(f"  configuration model = kernel at {pairs} (vh, wc) pairs; headline "
-          f"(Wc 224, Vh 64): {smem_bytes(224, 64)} B, {blocks_per_cta(224, 64)} block; "
-          f"DPM (Wc 70, Vh 16): {smem_bytes(70, 16)} B, {blocks_per_cta(70, 16)} blocks")
+    for splits in TIERS:
+        for wc in (17, 70, 76, 128, 129, 224, 256, 257, 320, 321, 384, 385, 451, 513, 577,
+                   609, 641, 769):
+            for vh in (1, 2, 3, 7, 8, 13, 16, 17, 21, 31, 32, 33, 64, 100):
+                got = (lib.fftconv_block_conv_f32_smem_bytes(wc, vh, splits),
+                       lib.fftconv_block_conv_f32_rows(wc, vh, splits),
+                       lib.fftconv_block_conv_f32_blocks(wc, vh, splits))
+                want = (smem_bytes(wc, vh, splits), tile_rows(wc, vh, splits),
+                        blocks_per_cta(wc, vh, splits))
+                if got != want:
+                    raise AssertionError(
+                        f"configuration model differs from the kernel at Wc={wc}, Vh={vh}, "
+                        f"{splits}xTF32: kernel (smem, rows, blocks) {got}, Python {want}")
+                pairs += 1
+    if lib.fftconv_block_conv_f32_smem_bytes(224, 64, 2) != -1:
+        raise AssertionError("the configuration queries take a tier outside (1, 3, 6)")
+    for splits in TIERS:
+        print(f"  {splits}xTF32: headline (Wc 224, Vh 64) {smem_bytes(224, 64, splits)} B, "
+              f"{tile_rows(224, 64, splits)} rows; 1024 block (Wc 513) "
+              f"{smem_bytes(513, 961, splits)} B, {tile_rows(513, 961, splits)} rows; DPM "
+              f"(Wc 70, Vh 16) {smem_bytes(70, 16, splits)} B, "
+              f"{blocks_per_cta(70, 16, splits)} blocks")
+    print(f"  configuration model = kernel at {pairs} (vh, wc, tier) triples")
 
 
 # The H100 SXM's published peaks: fp32 on the CUDA cores, dense TF32 and
@@ -373,13 +415,14 @@ def cell_flop(f, lh, wc, vh, vw) -> int:
     return mac_flop(f, lh, wc) + synthesis_flop(lh, wc, vh, vw)
 
 
-def block_conv_bound(ops, geom, out_bytes) -> tuple[float, str]:
+def block_conv_bound(ops, geom, out_bytes, splits=3) -> tuple[float, str]:
     """bound() of a fused block-conv call. Operations: every cell's useful
-    MAC and syntheses on the tensor cores — for fp32 spectra as 3xTF32 (3
-    passes at the dense TF32 peak); for bf16 spectra as one bf16 pass with
-    fp32 accumulation at the bf16 peak, as the TPU kernel runs its bf16
-    tier (cuda_fft_convolution_tpu/ops/block_conv.py:645-647, 686-690).
-    Bytes: the four spectra planes read once and ``out_bytes`` written."""
+    MAC and syntheses on the tensor cores — for fp32 spectra as ``splits``
+    TF32 passes at the dense TF32 peak (3, 6 or 1: the tier's products);
+    for bf16 spectra as one bf16 pass with fp32 accumulation at the bf16
+    peak, as the TPU kernel runs its bf16 tier
+    (cuda_fft_convolution_tpu/ops/block_conv.py:645-647, 686-690). Bytes:
+    the four spectra planes read once and ``out_bytes`` written."""
     b, nbh, nbw, f, lh, wc = ops[0].shape
     n = ops[2].shape[0]
     bh, bw, kh, kw = geom[:4]
@@ -388,7 +431,7 @@ def block_conv_bound(ops, geom, out_bytes) -> tuple[float, str]:
     if str(ops[0].dtype) == "torch.bfloat16":
         op_seconds = cells * flop / PEAK_BF16
     else:
-        op_seconds = cells * 3 * flop / PEAK_TF32
+        op_seconds = cells * splits * flop / PEAK_TF32
     nbytes = sum(t.numel() * t.element_size() for t in ops) + out_bytes
     return bound(op_seconds, nbytes)
 
@@ -422,16 +465,18 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def check_kernel(d_re, d_im, k_re, k_im, geom, label, out_dtype=None, tol=TOL) -> float:
+def check_kernel(d_re, d_im, k_re, k_im, geom, label, out_dtype=None, tol=TOL,
+                 splits=None) -> float:
     """Kernel against its plain version's float32 maps on the same CUDA
     inputs → max abs error. Raises above ``tol`` (relative to max |plain|).
-    ``out_dtype=torch.bfloat16`` runs the bf16-maps entry."""
+    ``out_dtype=torch.bfloat16`` runs the bf16-maps entry; ``splits`` the
+    synthesis tier (None: the config's)."""
     import torch
 
     from cuda_fft_convolution_torch.ops.block_conv import block_conv, block_conv_reference
 
     out_dtype = out_dtype or torch.float32
-    got = block_conv(d_re, d_im, k_re, k_im, *geom, out_dtype)
+    got = block_conv(d_re, d_im, k_re, k_im, *geom, out_dtype, splits)
     want = block_conv_reference(d_re, d_im, k_re, k_im, *geom)
     torch.cuda.synchronize()
     if got.dtype != out_dtype:
@@ -439,8 +484,9 @@ def check_kernel(d_re, d_im, k_re, k_im, geom, label, out_dtype=None, tol=TOL) -
     got = got.float()
     err = rel_err(got, want)
     abs_err = float((got - want).abs().max())
+    tier = "" if splits in (None, 3) else f" {splits}xTF32"
     print(f"kernel vs plain [{label}] {str(d_re.dtype)[6:]} spectra, {str(out_dtype)[6:]} "
-          f"maps {tuple(got.shape)}: max abs {abs_err:.3e}, rel {err:.3e} (bar {tol:g})")
+          f"maps{tier} {tuple(got.shape)}: max abs {abs_err:.3e}, rel {err:.3e} (bar {tol:g})")
     if not (err <= tol and torch.isfinite(got).all()):
         raise AssertionError(f"kernel disagrees with its plain version ({label}): {err}")
     return abs_err
@@ -465,8 +511,9 @@ def check_kernel_modes(d_re, d_im, k_re, k_im, geom, label) -> dict:
     }
 
 
-def check_random_geometries(rng, geometries) -> None:
-    """``check_kernel_modes`` on random planes from ``rng`` at each
+def check_random_geometries(rng, geometries, check=None) -> None:
+    """``check`` (default ``check_kernel_modes``; called as ``check(d_re,
+    d_im, k_re, k_im, geom, label)``) on random planes from ``rng`` at each
     (B, F, N, bh, bw, kh, kw, out_h, out_w, label) of ``geometries``."""
     import torch
 
@@ -478,31 +525,35 @@ def check_random_geometries(rng, geometries) -> None:
         nbh, nbw, wc = -(-out_h // vh), -(-out_w // vw), bw // 2 + 1
         d = (t(b, nbh, nbw, f, bh, wc), t(b, nbh, nbw, f, bh, wc))
         k = (t(n, f, bh, wc), t(n, f, bh, wc))
-        check_kernel_modes(*d, *k, (bh, bw, kh, kw, out_h, out_w), label)
+        (check or check_kernel_modes)(*d, *k, (bh, bw, kh, kw, out_h, out_w), label)
         del d, k
         torch.cuda.empty_cache()
+
+
+# Step 3's random-plane geometries: a small ragged shape (B=2, F=3, N=5, odd
+# blocks, out_h/out_w not multiples of the valid window: clipped edge
+# tiles); the widest block of the 64-row configuration (Wc = 301, bins
+# padded to 320); a block wide enough (Wc = 451) for its 32-row
+# configuration, 2 row chunks; then short windows, whose blocks stack in a
+# CTA: the DPM plan's blocks (Vh 16, Wc 70, F 31) with 15 blocks an image (a
+# last group of 3 of 4) and clipped edges, and Vh 21 (3 blocks, thread
+# tiles straddling two); and the planner's largest block (Wc 513, Vh 961:
+# 32-row tiles, 31 row chunks, the longest contractions the split-TF32
+# syntheses see).
+CHECK_GEOMETRIES = (
+    (2, 3, 5, 45, 151, 10, 24, 100, 300, "small ragged"),
+    (1, 2, 3, 80, 601, 17, 50, 200, 1100, "Wc 301, the widest 64-row tiles"),
+    (1, 2, 2, 40, 901, 9, 101, 150, 1700, "wide block, 32-row tiles"),
+    (2, 31, 3, 27, 139, 12, 12, 70, 300, "short window, stacked, partial group"),
+    (1, 3, 4, 45, 151, 25, 24, 100, 300, "Vh 21, stacked, straddling rows"),
+    (1, 1, 2, 1024, 1024, 64, 64, 1500, 1200, "1024 block, 31 row chunks"),
+)
 
 
 def check_kernel_shapes(fc, rng) -> None:
     import torch
 
-    # Small ragged shape: B=2, F=3, N=5, odd blocks, out_h/out_w not
-    # multiples of the valid window (clipped edge tiles); the widest block
-    # of the 64-row configuration (Wc = 301, bins padded to 320); a block
-    # wide enough (Wc = 451) for its 32-row configuration, 2 row chunks;
-    # then short windows, whose blocks stack in a CTA: the DPM plan's blocks
-    # (Vh 16, Wc 70, F 31) with 15 blocks an image (a last group of 3 of 4)
-    # and clipped edges, and Vh 21 (3 blocks, thread tiles straddling two);
-    # and the planner's largest block (Wc 513, Vh 961: 32-row tiles, 31 row
-    # chunks, the longest contractions the 3xTF32 syntheses see).
-    check_random_geometries(rng, (
-        (2, 3, 5, 45, 151, 10, 24, 100, 300, "small ragged"),
-        (1, 2, 3, 80, 601, 17, 50, 200, 1100, "Wc 301, the widest 64-row tiles"),
-        (1, 2, 2, 40, 901, 9, 101, 150, 1700, "wide block, 32-row tiles"),
-        (2, 31, 3, 27, 139, 12, 12, 70, 300, "short window, stacked, partial group"),
-        (1, 3, 4, 45, 151, 25, 24, 100, 300, "Vh 21, stacked, straddling rows"),
-        (1, 1, 2, 1024, 1024, 64, 64, 1500, 1200, "1024 block, 31 row chunks"),
-    ))
+    check_random_geometries(rng, CHECK_GEOMETRIES)
 
     # The headline plan's geometry, real spectra, a few kernels.
     s, kk = HEADLINE["size"], HEADLINE["k"]
@@ -518,12 +569,13 @@ def check_kernel_shapes(fc, rng) -> None:
     torch.cuda.synchronize()
 
 
-def check_peaks(d_re, d_im, k_re, k_im, geom, label) -> float:
-    """Peaks kernel against its plain version on the same CUDA inputs → max
-    abs error of the values. Values must agree within TOL relative to the
-    largest |value|; indices must be equal, except in a near-tie cell (its
-    plain maps hold a second value within that tolerance of the cell max),
-    where the kernel's position must lie in the cell and hold a plain value
+def check_peaks(d_re, d_im, k_re, k_im, geom, label, tol=TOL, splits=None) -> float:
+    """Peaks kernel at synthesis tier ``splits`` (None: the config's)
+    against its plain version on the same CUDA inputs → max abs error of
+    the values. Values must agree within ``tol`` relative to the largest
+    |value|; indices must be equal, except in a near-tie cell (its plain
+    maps hold a second value within that tolerance of the cell max), where
+    the kernel's position must lie in the cell and hold a plain value
     within the tolerance of the max."""
     import torch
 
@@ -537,7 +589,7 @@ def check_peaks(d_re, d_im, k_re, k_im, geom, label) -> float:
     bh, bw, kh, kw, out_h, out_w = geom
     vh, vw = bh - kh + 1, bw - kw + 1
     nbh, nbw = d_re.shape[1], d_re.shape[2]
-    got_v, got_i = block_conv_peaks(d_re, d_im, k_re, k_im, *geom)
+    got_v, got_i = block_conv_peaks(d_re, d_im, k_re, k_im, *geom, splits)
     want_v, want_i = block_conv_peaks_reference(d_re, d_im, k_re, k_im, *geom)
     maps = block_conv_reference(d_re, d_im, k_re, k_im, *geom)
     torch.cuda.synchronize()
@@ -545,7 +597,7 @@ def check_peaks(d_re, d_im, k_re, k_im, geom, label) -> float:
             and torch.isfinite(got_v).all() and torch.isfinite(want_v).all()):
         raise AssertionError(f"peaks kernel output malformed ({label})")
     scale = float(want_v.abs().max())
-    atol = TOL * scale
+    atol = tol * scale
     abs_err = float((got_v - want_v).abs().max())
     if abs_err > atol:
         raise AssertionError(f"peaks kernel values disagree ({label}): {abs_err / scale}")
@@ -563,7 +615,8 @@ def check_peaks(d_re, d_im, k_re, k_im, geom, label) -> float:
             raise AssertionError(
                 f"peaks kernel indices disagree outside near-tie cells ({label}): "
                 f"{int((~ok).sum())} cells")
-    print(f"peaks kernel vs plain [{label}] {str(d_re.dtype)[6:]} spectra "
+    tier = "" if splits in (None, 3) else f" {splits}xTF32"
+    print(f"peaks kernel vs plain [{label}] {str(d_re.dtype)[6:]} spectra{tier} "
           f"{tuple(got_v.shape)} cells: values max abs "
           f"{abs_err:.3e}, rel {abs_err / scale:.3e}; near-tie cells {int(near.sum())}, "
           f"index flips {int(flips.sum())}")
@@ -2697,7 +2750,9 @@ def selftest_phase(fc) -> None:
           f"{rep['kernels_ok']}")
     for name, err in rep["kernels"].items():
         print(f"  selftest {name}: max rel err {err:.3e}")
-    entries = len(st.CONFIGS) * 6 + 2 * len(MAC_TILES)
+    # per configuration: 4 maps and 2 peaks entries at the default tier, 2
+    # maps and 1 peaks entry at each of the 6xTF32 and one-pass tiers
+    entries = len(st.CONFIGS) * 12 + 2 * len(MAC_TILES)
     if not (rep["fft_ok"] and rep["kernels_ok"] is True and len(rep["kernels"]) == entries):
         raise AssertionError(f"selftest failed: {rep}")
 
@@ -3046,6 +3101,12 @@ def parallel_phase(fc, seed, image_d, bank_d, path_launches, times, rows,
 # stacked configuration). Each maps against float64 on 8 maps.
 BIGKERNEL = dict(n=16, k=512, plan=(1023, 1024, 512, 512))
 F8_TIER = dict(size=1024, f=8, n=64, k=32, plan=(63, 287, 32, 32))
+# Step 33's random-plane geometries: the two plans, N=3 and N=5 with
+# clipped windows.
+PLAN_GEOMETRIES = (
+    (1, 1, 3, *BIGKERNEL["plan"], 1500, 1200, "large-kernel plan, Lh 1023, Wc 513"),
+    (1, F8_TIER["f"], 5, *F8_TIER["plan"], 200, 700, "F=8 tier plan"),
+)
 
 
 def plan_launches(mode, plan) -> int:
@@ -3061,27 +3122,82 @@ def plan_launches(mode, plan) -> int:
     return at_plan
 
 
-def kernel_row(ops, geom, label) -> tuple:
-    """The maps kernel on ``ops`` at ``geom`` against its plain version,
+def kernel_row(ops, geom, label, splits=None, out_dtype=None) -> tuple:
+    """The maps kernel on ``ops`` at ``geom``, synthesis tier ``splits``
+    (None: the config's) and maps ``out_dtype``, against its plain version,
     timed → its JSON row (max abs error, ms, plain ms, bound, bound by,
     library ms)."""
+    import torch
+
     from cuda_fft_convolution_torch.ops.block_conv import block_conv, block_conv_reference
 
-    abs_err = check_kernel(*ops, geom, label)
-    row = (abs_err, cuda_ms(lambda: block_conv(*ops, *geom)),
-           cuda_ms(lambda: block_conv_reference(*ops, *geom)),
-           *block_conv_bound(ops, geom, 4 * ops[2].shape[0] * geom[4] * geom[5]), None)
-    print(f"maps kernel alone [{label}]: {row[1]:.3f} ms; plain version {row[2]:.3f} ms; "
+    out_dtype = out_dtype or torch.float32
+    bf16 = out_dtype == torch.bfloat16
+    tol = X1_TOL if splits == 1 else TOL
+    abs_err = check_kernel(*ops, geom, label, out_dtype, max(tol, BF16_OUT_TOL) if bf16 else tol,
+                           splits)
+    out_bytes = (2 if bf16 else 4) * ops[0].shape[0] * ops[2].shape[0] * geom[4] * geom[5]
+    row = (abs_err, cuda_ms(lambda: block_conv(*ops, *geom, out_dtype, splits)),
+           cuda_ms(lambda: block_conv_reference(*ops, *geom, out_dtype)),
+           *block_conv_bound(ops, geom, out_bytes, splits or 3), None)
+    tier = "" if splits in (None, 3) else f", {splits}xTF32"
+    print(f"maps kernel alone [{label}{tier}{', bf16 maps' if bf16 else ''}]: {row[1]:.3f} ms; "
+          f"plain version {row[2]:.3f} ms; bound {row[3]:.3f} ms ({row[4]}), "
+          f"{100 * row[3] / row[1]:.1f}% of it ({card()})")
+    return row
+
+
+def peaks_row(ops, geom, label, splits=None) -> tuple:
+    """The peaks kernel on ``ops`` at ``geom`` and tier ``splits`` against
+    its plain version, timed → its JSON row (as ``kernel_row``'s; the
+    bytes written are 8 a cell)."""
+    from cuda_fft_convolution_torch.ops.block_conv import (
+        block_conv_peaks,
+        block_conv_peaks_reference,
+    )
+
+    abs_err = check_peaks(*ops, geom, label, X1_TOL if splits == 1 else TOL, splits)
+    b, nbh, nbw = ops[0].shape[:3]
+    row = (abs_err, cuda_ms(lambda: block_conv_peaks(*ops, *geom, splits)),
+           cuda_ms(lambda: block_conv_peaks_reference(*ops, *geom)),
+           *block_conv_bound(ops, geom, 8 * b * nbh * nbw * ops[2].shape[0], splits or 3), None)
+    tier = "" if splits in (None, 3) else f", {splits}xTF32"
+    print(f"peaks kernel alone [{label}{tier}]: {row[1]:.3f} ms; plain version {row[2]:.3f} ms; "
           f"bound {row[3]:.3f} ms ({row[4]}), {100 * row[3] / row[1]:.1f}% of it ({card()})")
     return row
+
+
+def detect_row(label, name, fn, mode, plan_ops, geom, path_launches, rows, row_launches,
+               maps_fn):
+    """``detect_peaks`` at a step-33 plan on the main path (``fn``): its
+    positions = the argmax of ``maps_fn()``'s maps; the peaks kernel's row
+    ``name`` (launches: this run's in ``mode``) on ``plan_ops``."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.tiled import peaks_from_maps
+
+    before = path_launches[mode]
+    vals, pos = main_path(f"{label} detect_peaks", fn, mode, path_launches)
+    maps = maps_fn()
+    _, my, mx = peaks_from_maps(maps[None])
+    if not torch.equal(pos, torch.stack([my[0], mx[0]], -1)):
+        raise AssertionError(f"{label} detect_peaks differs from the argmax of its maps")
+    print(f"{label} detect_peaks: {tuple(pos.shape)} positions = argmax of the maps")
+    del maps
+    torch.cuda.empty_cache()
+    row_launches[name] = path_launches[mode] - before
+    rows[name] = peaks_row(plan_ops, geom, f"{label} plan")
 
 
 def bigkernel_phase(fc, seed, image, image_d, path_launches, times, rows, row_launches):
     """The large-kernel regime (module docstring, step 33): the plan, the
     maps against float64 through the tiled and the direct route, times,
-    and the maps kernel's row at the plan."""
+    the maps kernel's row at the plan, ``detect_peaks`` and the peaks
+    kernel's row → (the bank on the card, the kernels checked, their
+    float64 maps) for step 34."""
     import torch
 
+    from cuda_fft_convolution_torch.models import detect_peaks
     from cuda_fft_convolution_torch.ops.tiled import choose_block_plan
 
     s, n, k, plan = HEADLINE["size"], BIGKERNEL["n"], BIGKERNEL["k"], BIGKERNEL["plan"]
@@ -3119,10 +3235,15 @@ def bigkernel_phase(fc, seed, image, image_d, path_launches, times, rows, row_la
                                        algorithm="direct"), times)
     print(f"large-kernel route: direct / auto (tiled) = {direct / auto:.3f}")
     geom = (spec.block_h, spec.block_w, spec.max_kh, spec.max_kw, spec.out_h, spec.out_w)
-    rows["block_conv_f32:large_kernel"] = kernel_row(
-        (spec.re[None], spec.im[None], sk.re, sk.im), geom, f"large-kernel plan, N={n}")
-    del spec, sk, bank_d
+    ops = (spec.re[None], spec.im[None], sk.re, sk.im)
+    rows["block_conv_f32:large_kernel"] = kernel_row(ops, geom, f"large-kernel plan, N={n}")
+    detect_row("large-kernel", "block_conv_peaks_f32:large_kernel",
+               lambda: detect_peaks(image_d, bank_d, mode="same"), "block_conv_peaks_f32",
+               ops, geom, path_launches, rows, row_launches,
+               lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same", correlation=True))
+    del spec, sk, ops
     torch.cuda.empty_cache()
+    return bank_d, idx, want
 
 
 def f8_tier_phase(fc, seed, path_launches, times, rows, row_launches):
@@ -3132,6 +3253,8 @@ def f8_tier_phase(fc, seed, path_launches, times, rows, row_launches):
     import torch
 
     from cuda_fft_convolution_torch.ops.tiled import choose_block_plan
+
+    from cuda_fft_convolution_torch.models import detect_peaks
 
     size, f, n, k, plan = (F8_TIER[x] for x in ("size", "f", "n", "k", "plan"))
     rng = np.random.default_rng(seed)
@@ -3170,8 +3293,177 @@ def f8_tier_phase(fc, seed, path_launches, times, rows, row_launches):
           f"issued {model['fma_mflop']:.2f} FMA + {model['tc_mflop']:.2f} tensor-core, "
           f"useful {model['useful_mflop']:.2f}")
     rows["block_conv_bf16:f8_tier"] = kernel_row(ops, geom, f"F=8 tier plan, N={n}")
+    detect_row("F=8 tier", "block_conv_peaks_bf16:f8_tier",
+               lambda: detect_peaks(data_d, bank_d, mode="same", store_dtype="bfloat16"),
+               "block_conv_peaks_bf16", ops, geom, path_launches, rows, row_launches,
+               lambda: fc.fft_conv(data_d, kernels=bank_d, mode="same", correlation=True,
+                                   store_dtype="bfloat16"))
     del spec, sk, ops, data_d, bank_d
     torch.cuda.empty_cache()
+
+
+# Step 34. The fused kernels' precision tiers: the config of each tier
+# besides the default 3xTF32 (ops/block_conv.py fused_splits).
+TIER_CONFIG = {6: dict(fused_precision="highest", matmul_precision="highest"),
+               1: dict(fused_precision="highest", matmul_precision="default")}
+TIER_NAME = {6: "6xTF32 ('highest')", 1: "one pass ('highest', matmul 'default')"}
+
+
+@contextlib.contextmanager
+def tier_config(fc, **fields):
+    """The config with ``fields`` set, restored afterwards whatever
+    happens."""
+    before = fc.get_config()
+    fc.set_config(**fields)
+    try:
+        yield
+    finally:
+        fc.set_config(**{f: getattr(before, f) for f in fields})
+
+
+def check_tier_modes(d_re, d_im, k_re, k_im, geom, label) -> None:
+    """Every entry of the 6xTF32 and one-pass tiers against the plain
+    version on the same planes (module docstring, step 34); 6xTF32 against
+    the plain version in float64 too; 'highest' with matmul 'high' = the
+    default tier, bitwise."""
+    import torch
+
+    import cuda_fft_convolution_torch as fc
+    from cuda_fft_convolution_torch.ops.block_conv import block_conv, block_conv_reference
+
+    ops = (d_re, d_im, k_re, k_im)
+    for splits, tol in ((6, TOL), (1, X1_TOL)):
+        check_kernel(*ops, geom, label, tol=tol, splits=splits)
+        check_kernel(*ops, geom, label, torch.bfloat16, max(tol, BF16_OUT_TOL), splits)
+        check_peaks(*ops, geom, label, tol, splits)
+    want64 = block_conv_reference(*(x.double() for x in ops), *geom, torch.float64)
+    plain = rel_err(block_conv_reference(*ops, *geom).double(), want64)
+    x6 = rel_err(block_conv(*ops, *geom, torch.float32, 6).double(), want64)
+    default = block_conv(*ops, *geom, torch.float32, 3)
+    x3 = rel_err(default.double(), want64)
+    print(f"against the plain version in float64 [{label}]: 6xTF32 {x6:.3e} (bar "
+          f"{X6_TOL:g}), 3xTF32 {x3:.3e}, the float32 plain version {plain:.3e}")
+    if x6 > X6_TOL:
+        raise AssertionError(f"6xTF32 {x6} from the float64 plain version ({label})")
+    with tier_config(fc, fused_precision="highest", matmul_precision="high"):
+        high = block_conv(*ops, *geom)
+    torch.cuda.synchronize()
+    if not torch.equal(high, default):
+        raise AssertionError(f"'highest' with matmul 'high' is not the 3xTF32 entry ({label})")
+    print(f"fused_precision='highest' with matmul_precision='high' = the default tier, "
+          f"bitwise [{label}]")
+
+
+def tiers_phase(fc, seed, rng, image_d, bank_d, idx, want, big, path_launches, times, rows,
+                row_launches) -> None:
+    """The precision tiers (module docstring, step 34). ``big``: step 33's
+    large-kernel (bank on the card, kernels checked, their float64 maps)."""
+    import torch
+
+    from cuda_fft_convolution_torch.models import detect_peaks
+    from cuda_fft_convolution_torch.ops.block_conv import TIER_SUFFIX, block_conv_reference
+    from cuda_fft_convolution_torch.ops.tiled import peaks_from_maps
+
+    t0 = time.perf_counter()
+    check_random_geometries(rng, (
+        *CHECK_GEOMETRIES, (1, 1, 4, 127, 447, 64, 64, 2048, 2048, "headline plan, N=4"),
+        *PLAN_GEOMETRIES), check_tier_modes)
+    k = HEADLINE["k"]
+    spec = fc.fft_data_tiled(image_d, k, k, trim_mode="same")
+    sk = fc.fft_kernels(bank_d, spectral=spec)
+    geom = (spec.block_h, spec.block_w, spec.max_kh, spec.max_kw, spec.out_h, spec.out_w)
+    ops = (spec.re[None], spec.im[None], sk.re, sk.im)
+    plain_err = max_rel_err_f64(block_conv_reference(*ops, *geom)[0], idx, want)
+    print(f"headline, the plain version's maps on the same spectra vs float64 on kernels {idx}: "
+          f"max rel err {plain_err:.3e}")
+    det_rng = np.random.default_rng(seed)
+    det_bank = det_rng.standard_normal((DETECT["n"], k, k, 1)).astype(np.float32)
+    det_image_d = torch.as_tensor(detection_frame(det_rng, det_bank), device="cuda")
+    det_bank_d = torch.as_tensor(det_bank, device="cuda")
+    big_bank_d, big_idx, big_want = big
+    for splits in (6, 1):
+        sfx, name = TIER_SUFFIX[splits], TIER_NAME[splits]
+        bar = TOL if splits == 6 else X1_TOL
+        with tier_config(fc, **TIER_CONFIG[splits]):
+            maps = main_path(f"headline fft_conv, {name}", lambda: fc.fft_conv(
+                image_d, kernels=bank_d, mode="same"), f"block_conv_f32{sfx}", path_launches)
+            size = HEADLINE["size"]
+            if not (tuple(maps.shape) == (HEADLINE["n"], size, size) and torch.isfinite(maps).all()):
+                raise AssertionError(f"headline maps at {name} malformed: {tuple(maps.shape)}")
+            err = max_rel_err_f64(maps, idx, want)
+            print(f"headline fft_conv at {name} vs float64 on kernels {idx}: max rel err "
+                  f"{err:.3e}; the plain version's {plain_err:.3e} (ratio {err / plain_err:.3f})")
+            if err > bar or (splits == 6 and err > X6_F64_RATIO * plain_err):
+                raise AssertionError(f"headline at {name}: {err} against float64")
+            del maps
+            timed(f"headline fft_conv, {name}",
+                  lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same"), times)
+            maps16 = main_path(f"headline fft_conv, bf16 maps, {name}", lambda: fc.fft_conv(
+                image_d, kernels=bank_d, mode="same", out_dtype="bfloat16"),
+                f"block_conv_f32_bf16maps{sfx}", path_launches)
+            err16 = max_rel_err_f64(maps16.float(), idx, want)
+            print(f"headline fft_conv, bf16 maps, at {name} vs float64: max rel err {err16:.3e} "
+                  f"(bar {BF16_OUT_TOL:g})")
+            if err16 > BF16_OUT_TOL:
+                raise AssertionError(f"headline bf16 maps at {name}: {err16}")
+            del maps16
+            torch.cuda.empty_cache()
+            vals, pos = main_path(f"detection headline detect_peaks, {name}", lambda: detect_peaks(
+                det_image_d, det_bank_d, mode="same", correlation=True),
+                f"block_conv_peaks_f32{sfx}", path_launches)
+            if not torch.equal(pos.cpu(), detection_centres()):
+                bad = int((pos.cpu() != detection_centres()).any(-1).sum())
+                raise AssertionError(f"detect_peaks at {name} missed {bad} planted centres")
+            dmaps = fc.fft_conv(det_image_d, kernels=det_bank_d, mode="same", correlation=True)
+            _, my, mx = peaks_from_maps(dmaps[None])
+            if not torch.equal(pos, torch.stack([my[0], mx[0]], -1)):
+                raise AssertionError(f"detect_peaks at {name} differs from the argmax of its maps")
+            print(f"detect_peaks at {name}: all {DETECT['n']} planted centres found, = argmax "
+                  f"of the tier's fft_conv maps")
+            del dmaps
+            timed(f"detection headline detect_peaks, {name}",
+                  lambda: detect_peaks(det_image_d, det_bank_d, mode="same"), times)
+            mode = f"block_conv_f32{sfx}"
+            bmaps = main_path(f"large-kernel fft_conv, {name}", lambda: fc.fft_conv(
+                image_d, kernels=big_bank_d, mode="same"), mode, path_launches)
+            row_launches[f"{mode}:large_kernel"] = plan_launches(mode, BIGKERNEL["plan"])
+            berr = max_rel_err_f64(bmaps, big_idx, big_want)
+            print(f"large-kernel fft_conv at {name} vs float64 on kernels {big_idx}: max rel err "
+                  f"{berr:.3e} (bar {bar:g})")
+            if berr > bar:
+                raise AssertionError(f"large-kernel call at {name}: {berr} against float64")
+            del bmaps
+            timed(f"large-kernel fft_conv, {name}",
+                  lambda: fc.fft_conv(image_d, kernels=big_bank_d, mode="same"), times)
+        label = f"headline plan, N={HEADLINE['n']}"
+        rows[f"block_conv_f32{sfx}"] = kernel_row(ops, geom, label, splits)
+        rows[f"block_conv_f32_bf16maps{sfx}"] = kernel_row(ops, geom, label, splits, torch.bfloat16)
+        big_spec = fc.fft_data_tiled(image_d, BIGKERNEL["k"], BIGKERNEL["k"], trim_mode="same")
+        big_sk = fc.fft_kernels(big_bank_d, spectral=big_spec)
+        big_geom = (big_spec.block_h, big_spec.block_w, big_spec.max_kh, big_spec.max_kw,
+                    big_spec.out_h, big_spec.out_w)
+        big_ops = (big_spec.re[None], big_spec.im[None], big_sk.re, big_sk.im)
+        rows[f"block_conv_f32{sfx}:large_kernel"] = kernel_row(
+            big_ops, big_geom, f"large-kernel plan, N={BIGKERNEL['n']}", splits)
+        del big_spec, big_sk, big_ops
+        torch.cuda.empty_cache()
+    dspec = fc.fft_data_tiled(det_image_d, k, k, trim_mode="same")
+    dsk = fc.fft_kernels(det_bank_d, spectral=dspec, correlation=True)
+    pops = (dspec.re[None], dspec.im[None], dsk.re, dsk.im)
+    for splits in (6, 1):
+        rows[f"block_conv_peaks_f32{TIER_SUFFIX[splits]}"] = peaks_row(
+            pops, geom, f"headline plan, N={DETECT['n']}", splits)
+    print(f"tiers at the headline plan, maps kernel ms (bound): 3xTF32 "
+          f"{rows['block_conv_f32'][1]:.3f} ({rows['block_conv_f32'][3]:.3f}), 6xTF32 "
+          f"{rows['block_conv_f32_x6'][1]:.3f} ({rows['block_conv_f32_x6'][3]:.3f}), one pass "
+          f"{rows['block_conv_f32_x1'][1]:.3f} ({rows['block_conv_f32_x1'][3]:.3f}); large-kernel "
+          f"plan: {rows['block_conv_f32:large_kernel'][1]:.3f}, "
+          f"{rows['block_conv_f32_x6:large_kernel'][1]:.3f}, "
+          f"{rows['block_conv_f32_x1:large_kernel'][1]:.3f} ({card()})")
+    del spec, sk, ops, dspec, dsk, pops, det_image_d, det_bank_d
+    torch.cuda.empty_cache()
+    times["step 34 (host s)"] = time.perf_counter() - t0
+    print(f"precision tiers phase: {times['step 34 (host s)']:.1f} s (host clock)")
 
 
 def bench_phase() -> None:
@@ -3503,16 +3795,20 @@ def main(argv=None) -> int:
 
     # ---- step 33: the large-kernel regime, the F=8 tier, the bench ----
     t0 = time.perf_counter()
-    check_random_geometries(rng, (
-        (1, 1, 3, *BIGKERNEL["plan"], 1500, 1200, "large-kernel plan, Lh 1023, Wc 513"),
-        (1, F8_TIER["f"], 5, *F8_TIER["plan"], 200, 700, "F=8 tier plan"),
-    ))
-    bigkernel_phase(fc, args.seed, image, image_d, path_launches, api_ms, rows, row_launches)
+    check_random_geometries(rng, PLAN_GEOMETRIES)
+    big = bigkernel_phase(fc, args.seed, image, image_d, path_launches, api_ms, rows,
+                          row_launches)
     f8_tier_phase(fc, args.seed, path_launches, api_ms, rows, row_launches)
     phase_peak("large-kernel regime and F=8 tier")
     print(f"large-kernel and F=8 phases: {time.perf_counter() - t0:.1f} s (host clock)")
     bench_phase()
     phase_peak("bench")
+
+    # ---- step 34: the precision tiers ----
+    tiers_phase(fc, args.seed, rng, image_d, bank_d, idx, want, big, path_launches, api_ms,
+                rows, row_launches)
+    del big
+    phase_peak("precision tiers")
     print(f"smoke wall time: {time.perf_counter() - started:.1f} s")
     print(f"peak memory allocated over the smoke: {max(PHASE_PEAKS) / 2**30:.2f} GiB "
           f"(limit {PEAK_LIMIT / 2**30:.0f} GiB)")
@@ -3529,7 +3825,7 @@ def main(argv=None) -> int:
     # MAC shape of the model layer, with its own launches.
     launches = {name: row_launches.get(name, path_launches[name]) for name in rows}
     for name, (err, ms, plain, bound_ms, bound_by, library_ms) in rows.items():
-        mode = name.split(":")[0]
+        mode = re.sub(r"_x[16]$", "", name.split(":")[0])
         wrapper = mode.removesuffix("_bf16maps").rsplit("_", 1)[0]
         source, replaces = SOURCES[wrapper]
         kernels.append({

@@ -3,7 +3,9 @@
 //
 // Replaces cuda_fft_convolution_tpu/ops/block_conv.py::block_conv_pallas
 // (the v3 body, _make_kernel_v3), in its four dtype modes: fp32 or bf16
-// spectra (BF16IO, see block_conv.cuh), fp32 or bf16 maps (out_dtype). It
+// spectra (BF16IO, see block_conv.cuh), fp32 or bf16 maps (out_dtype); and
+// at fp32 spectra in its three precisions (BF16X3, HIGHEST, DEFAULT) as
+// the 3xTF32, 6xTF32 and one-pass synthesis tiers (block_conv.cuh). It
 // computes the same function, not the same factorization: the transforms of
 // block_conv.cuh (which also says what bounds the kernel, how it is laid
 // out and how short windows stack blocks in a CTA), then a clipped store of
@@ -98,31 +100,45 @@ using StoreBF16 = StoreMaps<__nv_bfloat16, S>;
 
 }  // namespace
 
-// Shared-memory bytes the kernels need at packed width wc and window height
-// vh, the rows a CTA holds there, and the blocks it stacks (1: one block
-// per CTA); the Python legality rule (ops/block_conv.py smem_bytes,
-// tile_rows, blocks_per_cta) mirrors all three.
-extern "C" long long fftconv_block_conv_f32_smem_bytes(int wc, int vh) { return smem_bytes(wc, vh); }
-extern "C" int fftconv_block_conv_f32_rows(int wc, int vh) { return tile_rows(wc, vh); }
-extern "C" int fftconv_block_conv_f32_blocks(int wc, int vh) { return blocks_per_cta(wc, vh); }
+// Shared-memory bytes the kernels need at packed width wc, window height
+// vh and tier `splits` (1, 3 or 6 tensor-core products; -1 for another),
+// the rows a CTA holds there, and the blocks it stacks (1: one block per
+// CTA); the Python legality rule (ops/block_conv.py smem_bytes, tile_rows,
+// blocks_per_cta) mirrors all three.
+extern "C" long long fftconv_block_conv_f32_smem_bytes(int wc, int vh, int splits) {
+  return valid_splits(splits) ? smem_bytes(wc, vh, splits) : -1;
+}
+extern "C" int fftconv_block_conv_f32_rows(int wc, int vh, int splits) {
+  return valid_splits(splits) ? tile_rows(wc, vh, splits) : -1;
+}
+extern "C" int fftconv_block_conv_f32_blocks(int wc, int vh, int splits) {
+  return valid_splits(splits) ? blocks_per_cta(wc, vh, splits) : -1;
+}
 
-// One entry per (spectra, maps) dtype pair: fftconv_block_conv_<spectra>
-// with a _bf16maps suffix for bf16 maps. `ktile` is the stacked
-// configuration's launch order (block_conv.cuh launch_block_conv). Each
-// launches on `stream` and does not synchronise. Returns cudaGetLastError()
-// after the launch (0 = launched), or the error that stopped it.
-#define FFTCONV_BLOCK_CONV_ENTRY(NAME, TS, TO, EPI)                              \
+// One entry per (spectra, maps) dtype pair and tier:
+// fftconv_block_conv_<spectra>, with a _bf16maps suffix for bf16 maps and,
+// for fp32 spectra, _x6 (6xTF32, fused_precision='highest') or _x1 (one
+// TF32 pass, 'highest' with matmul_precision='default') for the tiers
+// other than 3xTF32 (block_conv.cuh). `ktile` is the stacked
+// configuration's launch order (launch_block_conv). Each launches on
+// `stream` and does not synchronise. Returns cudaGetLastError() after the
+// launch (0 = launched), or the error that stopped it.
+#define FFTCONV_BLOCK_CONV_ENTRY(NAME, TS, TO, EPI, SPLITS)                      \
   extern "C" int NAME(const TS* d_re, const TS* d_im, const TS* k_re,           \
                       const TS* k_im, const float* gt_re, const float* gt_im,   \
                       const float* g_pad, const float* m_tc, TO* out, int b,    \
                       int nbh, int nbw, int f, int n, int lh, int wc, int vh,   \
                       int vw, int out_h, int out_w, int ktile, void* stream) {  \
-    return launch_block_conv<TS, EPI>(                                         \
+    return launch_block_conv<TS, EPI, SPLITS>(                                 \
         d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc, out, b, nbh, nbw, f,\
         n, lh, wc, vh, vw, out_h, out_w, ktile, stream);                       \
   }
 
-FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32, float, float, StoreF32)
-FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_bf16maps, float, __nv_bfloat16, StoreBF16)
-FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16, __nv_bfloat16, float, StoreF32)
-FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16_bf16maps, __nv_bfloat16, __nv_bfloat16, StoreBF16)
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32, float, float, StoreF32, 3)
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_bf16maps, float, __nv_bfloat16, StoreBF16, 3)
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16, __nv_bfloat16, float, StoreF32, 3)
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16_bf16maps, __nv_bfloat16, __nv_bfloat16, StoreBF16, 3)
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_x6, float, float, StoreF32, 6)
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_bf16maps_x6, float, __nv_bfloat16, StoreBF16, 6)
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_x1, float, float, StoreF32, 1)
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_bf16maps_x1, float, __nv_bfloat16, StoreBF16, 1)

@@ -21,29 +21,55 @@
 // prepared once per geometry by ops/block_conv.py _kernel_mats, exact fp32
 // and zero-padded to the tiles the kernel reads: G as (Vh, Lh), G again as
 // G^T (Lh, Vh) for the stacked configuration's fp32 H stage, and M as the
-// TF32 hi and lo planes of M^T, (Vw, 2 Wc) = [Mr ; Mi]^T, in core matrices
-// (the K-major layout wgmma reads from shared memory).
+// TF32 planes of M^T (its pieces at the tier, below), (Vw, 2 Wc) =
+// [Mr ; Mi]^T, in core matrices (the K-major layout wgmma reads from
+// shared memory).
 //
 // Precision. Every synthesis product of the one-block configurations, and
-// the stacked configuration's W stage, is a 3xTF32 tensor-core product:
-// each fp32 operand x is split as hi = TF32(x) and lo = TF32(x - hi), with
-// TF32() rounding as cvt.rna.tf32.f32 does (to nearest, ties away from
-// zero), and a . b runs as the three tensor-core products a_lo b_hi +
-// a_hi b_lo + a_hi b_hi (the lo.lo term, ~2^-22 relative, is dropped):
-// wgmma.m64n64k8 in both stages of the 64-row configuration (the headline)
-// and in the stacked configuration's W stage, mma.sync.m16n8k8 in both
-// stages of the 32-row configuration (wgmma takes 64 rows).
-// Nothing runs at single-pass TF32, which misses the repo's 1e-5 bar by
-// 30-50x. The tensor cores' fp32 accumulation truncates, which over a long
-// contraction adds up (past the 1e-5 bar at the 1024 block), so the
-// products are summed on the tensor cores only over a short stretch of the
-// contraction (a chunk of kUK spectrum rows in the H stage, 8 in the 32-row
-// one; a chunk of kKC rows of [Mr ; Mi] in the W stage) and those partial
-// sums are added in IEEE fp32 (add4): ~1e-6 against the plain version at
-// every block size the planner makes (chip_smoke.py). The channel MAC (S)
-// stays IEEE fp32 FMAs, and so does the stacked configuration's H stage
-// (below).
+// the stacked configuration's W stage, is a split-TF32 tensor-core product
+// at one of three tiers, the template argument SPLITS, which replace the
+// JAX kernel's precisions (ops/block_conv.py fused_splits): each fp32
+// operand x is split into TF32 pieces, hi = TF32(x), then TF32 of what is
+// left (split_n), with TF32() rounding as cvt.rna.tf32.f32 does (to
+// nearest, ties away from zero), and a . b runs as the products of the
+// pieces whose terms are not negligible:
+//   - 3xTF32 (SPLITS = 3, the default, 'bf16x3'): hi and lo, the products
+//     a_lo b_hi + a_hi b_lo + a_hi b_hi (lo.lo, ~2^-22 relative, dropped);
+//   - 6xTF32 (SPLITS = 6, 'highest', the TPU's fp32-exact 6-pass HIGHEST):
+//     hi, mid and lo, the six products whose terms reach 2^-22 (the three
+//     dropped are <= 2^-33);
+//   - one pass (SPLITS = 1, 'highest' with matmul_precision 'default', the
+//     TPU's single pass): hi . hi, ~5e-4 against float64.
+// wgmma.m64n64k8 runs both stages of the 64-row configuration (the
+// headline) and the stacked configuration's W stage, mma.sync.m16n8k8 both
+// stages of the 32-row configuration (wgmma takes 64 rows). The tensor
+// cores' fp32 accumulation truncates, which over a long contraction adds up
+// (past the 1e-5 bar at the 1024 block), so the products are summed on the
+// tensor cores only over a short stretch of the contraction (a chunk of kUK
+// spectrum rows in the H stage, 8 in the 32-row one; a chunk of kKC rows
+// of [Mr ; Mi] in the W stage) and those partial sums are added in IEEE
+// fp32 (add4). At 6xTF32 each sum that takes part in the truncation is
+// also kept small: its small terms are summed before, or apart from, the
+// main term hi . hi (the 64-row H stage runs every small term of a chunk
+// first; the W stages sum them in a tile of their own, tc), so a stretch
+// truncates about once per k-step at the main term's scale, as one fp32
+// product would round: on the H100, 6xTF32 lands 2.4-4.3e-7 from float64
+// over chip_smoke.py step 34's nine geometries (the block sizes the
+// planner makes), closer than the float32 plain version (2.8-9.5e-7, the
+// most at the 1023-long contractions), and 3xTF32 ~1e-6 from the plain
+// version (step 3). The channel
+// MAC (S) stays IEEE fp32 FMAs, and so does the stacked configuration's H
+// stage (below).
 //
+// The tiers' planes. The operands wgmma reads from shared memory are held
+// as planes of their pieces: S^T, G (and -Gi) and the M^T ring, 2 planes
+// each at 3xTF32, 3 at 6xTF32, 1 at one pass; the 32-row configuration's
+// fragments, read by ldmatrix, have the same planes but for M^T at 6xTF32,
+// which streams as it is (one plane) and is split in registers, so that
+// the 1024 block's X fits beside it. X's fragments are split in registers
+// (wgmma's A operand, and mma.sync's). Shared memory at the headline:
+// 181,248 B at 3xTF32, 214,016 at 6xTF32, 148,480 at one pass.
+
 // bf16 spectra. The JAX kernel's BF16IO mode feeds bf16 operands to
 // single-pass MXU dots with f32 accumulation and also rounds S, X, G and M
 // to bf16 on the way. Here only the loads of D and K are bf16: S, X, G and
@@ -59,7 +85,8 @@
 // ~0.71 TFLOP against 1.68 GB of output maps and ~67 MB of spectra: bound by
 // arithmetic, not by device-memory bytes. As 3xTF32 the syntheses are 3 x
 // 0.71 TFLOP of tensor-core work, 4.3 ms at the H100's 495 TFLOP/s dense
-// TF32 peak, against 10.5 ms for the same work as fp32 FMAs at 67 TFLOP/s.
+// TF32 peak (8.6 ms as 6xTF32, 1.4 ms as one pass), against 10.5 ms for the
+// same work as fp32 FMAs at 67 TFLOP/s.
 // Each CTA alternates between its MAC, staging and barriers and its
 // products (one CTA per SM leaves nothing to overlap them), so the kernel
 // is far from that bound (PERF.md).
@@ -74,7 +101,7 @@
 //   1. H stage, in column passes of kCols packed bins: S is computed on the
 //      fly in (kUK x kCols) chunks from D and K (fp32 FMAs, 8 elements a
 //      thread, a warp's 32 lanes on 8 bins x 4 spectrum rows) and staged in
-//      shared memory as S^T, its TF32 hi and lo planes of Sr and Si, beside
+//      shared memory as S^T, the TF32 planes of Sr and Si, beside
 //      the matching (ROWS x kUK) chunk of G, split as it is staged. The
 //      complex product runs as real products over the chunk's spectrum
 //      rows: Xr += Gr Sr - Gi Si, Xi += Gi Sr + Gr Si. 64 rows: S^T and G
@@ -89,14 +116,14 @@
 //      passes land in shared memory as X, rows x [Xr | Xi] over the bins
 //      padded to kKB: a cell's whole S (127 x 224 x 8 B = 227 KB) cannot
 //      stay resident, X for 64 rows (113 KB at Wc 224) can.
-//   2. W stage, in column passes of kCols output columns: M^T's hi and lo
-//      planes stream from global memory (shared by every CTA, they stay in
+//   2. W stage, in column passes of kCols output columns: M^T's planes
+//      stream from global memory (shared by every CTA, they stay in
 //      L2) through a ring of kM shared-memory chunks of kKC rows of
 //      [Mr ; Mi], filled with cp.async kM - 1 chunks ahead of the products.
 //      64 rows: each warpgroup reads its X fragments (wgmma's A operand, in
-//      registers) and splits them, one k-step at a time (hi and lo of X for
-//      64 rows would not fit beside X), and runs the k-step's three
-//      products against the chunk's planes in place (B, by descriptor); 32
+//      registers) and splits them, one k-step at a time (the pieces of X
+//      for 64 rows would not fit beside X), and runs the k-step's products
+//      against the chunk's planes in place (B, by descriptor); 32
 //      rows: each warp does the same with mma.sync, B fragments by
 //      ldmatrix. Each keeps its accumulator tile across the chunks of a
 //      pass and hands it to the epilogue after the pass.
@@ -182,8 +209,38 @@ constexpr int kGS = kUK + 4;      // row stride (floats) of the 32-row S^T and G
 // M^T is held in core matrices: 8 output columns x 4 rows of [Mr ; Mi]
 // (128 contiguous bytes), [column / 8][row / 4][8][4], as wgmma reads a
 // K-major operand from shared memory and ldmatrix reads B fragments.
-constexpr int kCore = 32;                         // floats of a core matrix
-constexpr int kMChunk = 2 * (kCols / 8) * (kKC / 4) * kCore;  // hi, lo of a chunk
+constexpr int kCore = 32;                            // floats of a core matrix
+constexpr int kMPlane = (kCols / 8) * (kKC / 4) * kCore;  // one plane of a chunk
+
+// The synthesis tiers (SPLITS, the tensor-core products a product of two
+// fp32 operands runs as): 3 (3xTF32, the default), 6 (6xTF32) or 1 (one
+// TF32 pass); each operand is split into the TF32 pieces of pieces_of().
+__host__ __device__ constexpr int pieces_of(int splits) { return splits == 6 ? 3 : splits == 3 ? 2 : 1; }
+__host__ __device__ constexpr bool valid_splits(int splits) {
+  return splits == 1 || splits == 3 || splits == 6;
+}
+// Planes of M^T a W-stage chunk holds: its TF32 pieces, except in the
+// 32-row configuration at 6xTF32, which stages M^T as it is (one plane)
+// and splits its fragments in registers (three planes beside the 1024
+// block's X would not fit).
+__host__ __device__ constexpr int m_planes(int rows, int splits) {
+  return rows == 32 && splits == 6 ? 1 : pieces_of(splits);
+}
+// The staging area (floats) of a configuration of ROWS rows: the H stage's
+// S^T (the pieces of re and im: kCols x kUK each, or kCols x kGS at 32 rows)
+// and G chunk (the pieces of re and im, and of -im at 64 rows: ROWS x kUK
+// each, or ROWS x kGS), or the W stage's ring of kM chunks of M^T's planes
+// (kCols output columns x kKC rows of [Mr ; Mi]), copied kM - 1 chunks
+// ahead, whichever is larger.
+constexpr int kM = 2;
+__host__ __device__ constexpr int stage_h(int rows, int splits) {
+  return rows == 64 ? 2 * pieces_of(splits) * kCols * kUK + 3 * pieces_of(splits) * rows * kUK
+                    : 2 * pieces_of(splits) * kCols * kGS + 2 * pieces_of(splits) * rows * kGS;
+}
+__host__ __device__ constexpr int stage_w(int rows, int splits) { return kM * m_planes(rows, splits) * kMPlane; }
+__host__ __device__ constexpr int stage_all(int rows, int splits) {
+  return stage_h(rows, splits) > stage_w(rows, splits) ? stage_h(rows, splits) : stage_w(rows, splits);
+}
 
 // The block-stacked configuration (64 rows, 8-row FMA thread tiles).
 constexpr int kMaxGroup = 16;   // blocks per CTA at most
@@ -195,19 +252,13 @@ constexpr int kStackTR = 8;     // rows of a stacked H-stage thread tile
 // Staging before the ring: S (kStackRows x kCols, re and im) and G^T (at
 // most 8 spectrum rows x 64 stacked rows, re and im).
 constexpr int kStackStage = 2 * kStackRows * kCols + 2 * 8 * 64;
-// The staging area (floats) of a configuration of ROWS rows: the H stage's
-// S^T (hi, lo of re, im: kCols x kUK each, or kCols x kGS at 32 rows) and G
-// chunk (hi, lo of re, im, and of -im at 64 rows: ROWS x kUK each, or ROWS
-// x kGS), or the W stage's ring of kM chunks of M^T's hi and lo planes
-// (kCols output columns x kKC rows of [Mr ; Mi]), copied kM - 1 chunks
-// ahead, whichever is larger.
-template <int ROWS>
+template <int ROWS, int SPLITS>
 struct Stage {
-  static constexpr int kM = 2;
-  static constexpr int kW = kM * kMChunk;
-  static constexpr int kH = ROWS == 64 ? 4 * kCols * kUK + 6 * ROWS * kUK
-                                       : 4 * kCols * kGS + 4 * ROWS * kGS;
-  static constexpr int kAll = kH > kW ? kH : kW;
+  static_assert(valid_splits(SPLITS), "1, 3 or 6 tensor-core products");
+  static constexpr int kP = pieces_of(SPLITS);       // TF32 pieces of an operand
+  static constexpr int kMP = m_planes(ROWS, SPLITS);  // M^T planes in the ring
+  static constexpr int kW = stage_w(ROWS, SPLITS);
+  static constexpr int kAll = stage_all(ROWS, SPLITS);
   static constexpr int kPerS = kUK * kCols / kThreads;     // S elements a thread sums
   static_assert(kPerS == 8 && kUK == 16, "8 warps x 8 elements tile 16 rows x 128 bins");
   static constexpr int kPerG = 2 * ROWS * kUK / 4 / kThreads;  // float4s of G a thread stages
@@ -230,7 +281,7 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// ---- 3xTF32 on the tensor cores ----
+// ---- split TF32 products on the tensor cores ----
 // x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
 // from zero; the same bits for every finite x), with two integer
 // operations: the conversion instruction runs at a fraction of their rate,
@@ -238,11 +289,28 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
 __device__ __forceinline__ uint32_t tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
-// x = hi + lo (to ~2^-22 relative), both TF32.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
+// x = p[0] + ... + p[P - 1], each TF32: p[0] = TF32(x), p[1] = TF32(x -
+// p[0]), p[2] = TF32(x - p[0] - p[1]); two pieces hold x to ~2^-22
+// relative, three to ~2^-33 (fp32 exactly, but for the last rounding).
+template <int P>
+__device__ __forceinline__ void split_n(float x, uint32_t (&p)[P]) {
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    p[k] = tf32(x);
+    if (k + 1 < P) x -= __uint_as_float(p[k]);
+  }
 }
+// The products of a SPLITS-product tier, as (piece of a, piece of b): the
+// pairs whose pieces sum below pieces_of(SPLITS), the smallest terms first
+// (by i + j, then i, descending); the last is the main term hi . hi. A
+// tier runs the last SPLITS of the list: 6xTF32 all of them (the pairs
+// whose terms are below 2^-33 relative are dropped), 3xTF32 a_lo b_hi,
+// a_hi b_lo, a_hi b_hi, one pass the main term.
+__host__ __device__ constexpr int prod_a(int q) { return q == 0 ? 2 : q == 1 || q == 3 ? 1 : 0; }
+__host__ __device__ constexpr int prod_b(int q) { return q == 2 ? 2 : q == 1 || q == 4 ? 1 : 0; }
+// The first product of a tier, and of its main term.
+__host__ __device__ constexpr int first_product(int splits) { return 6 - splits; }
+constexpr int kMainProduct = 5;
 // d += a b: a 16 x 8 A fragment, an 8 x 8 B fragment, fp32 accumulators.
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
@@ -250,13 +318,32 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-// t += a b as 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi, summed on the
-// tensor cores.
-__device__ __forceinline__ void mma3(float (&t)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
-                                     const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
-  mma(t, al, bh);
-  mma(t, ah, bl);
-  mma(t, ah, bh);
+// t += a b over the products q in [Q0, Q1) of the list, summed on the
+// tensor cores, a and b given as their TF32 pieces.
+template <int Q0, int Q1, int P>
+__device__ __forceinline__ void mma_terms(float (&t)[4], const uint32_t (&a)[P][4], const uint32_t (&b)[P][2]) {
+#pragma unroll
+  for (int q = Q0; q < Q1; ++q) mma(t, a[prod_a(q)], b[prod_b(q)]);
+}
+// t += a b as the SPLITS products of the tier.
+template <int SPLITS, int P>
+__device__ __forceinline__ void mma_n(float (&t)[4], const uint32_t (&a)[P][4], const uint32_t (&b)[P][2]) {
+  mma_terms<first_product(SPLITS), 6>(t, a, b);
+}
+// t += a0 b0 + a1 b1 as the tier's products; 6xTF32 sums both terms'
+// small products before their main terms.
+template <int SPLITS, int P>
+__device__ __forceinline__ void mma_n2(float (&t)[4], const uint32_t (&a0)[P][4], const uint32_t (&b0)[P][2],
+                                       const uint32_t (&a1)[P][4], const uint32_t (&b1)[P][2]) {
+  if constexpr (SPLITS == 6) {
+    mma_terms<0, kMainProduct>(t, a0, b0);
+    mma_terms<0, kMainProduct>(t, a1, b1);
+    mma_terms<kMainProduct, 6>(t, a0, b0);
+    mma_terms<kMainProduct, 6>(t, a1, b1);
+  } else {
+    mma_n<SPLITS>(t, a0, b0);
+    mma_n<SPLITS>(t, a1, b1);
+  }
 }
 // d += t with IEEE fp32 adds: a stretch of the contraction is summed on the
 // tensor cores into a fresh tile t and added to the running sum here (see
@@ -374,9 +461,9 @@ __host__ __device__ inline int g_rows(int vh) { return (vh + 63) / 64 * 64; }
 __host__ __device__ inline int g_cols(int lh) { return (lh + kUK - 1) / kUK * kUK; }
 __host__ __device__ inline int m_cols(int vw) { return (vw + kCols - 1) / kCols * kCols; }
 
-template <int ROWS>
-long long tile_smem_bytes(int wc) {
-  return 4LL * (static_cast<long long>(ROWS) * x_stride(wc) + Stage<ROWS>::kAll);
+// Shared memory of the one-block configuration of `rows` rows at the tier.
+inline long long tile_smem_bytes(int rows, int wc, int splits) {
+  return 4LL * (static_cast<long long>(rows) * x_stride(wc) + stage_all(rows, splits));
 }
 
 // Blocks a stacked CTA would take at window height vh (1: not stacked).
@@ -443,33 +530,34 @@ Ring stacked_ring(int wc, int g) {
   return ring_in<TS>(stacked_ring_f32(wc, g).bytes, wc, g, max_step_channels<TS>());
 }
 
-inline long long stacked_smem_bytes(int wc, int g) {
+inline long long stacked_smem_bytes(int wc, int g, int splits) {
   const long long h = 4LL * kStackStage + stacked_ring_f32(wc, g).bytes;
-  const long long w = 4LL * Stage<64>::kW;
+  const long long w = 4LL * stage_w(64, splits);
   return stacked_x_bytes(wc) + (h > w ? h : w);
 }
 
-// The configuration a geometry runs: g > 1 blocks stacked in 64 rows where
-// the window is at most 32 rows and that fits; else 64 rows where its X
-// fits, else 32.
-inline bool wide(int wc) { return tile_smem_bytes<64>(wc) > kMaxSmem; }
+// The configuration a geometry runs at a tier: g > 1 blocks stacked in 64
+// rows where the window is at most 32 rows and that fits; else 64 rows
+// where its X fits, else 32. The tier's planes change what fits: at
+// 6xTF32 the 64-row configuration takes bins up to 256 (320 at 3xTF32).
+inline bool wide(int wc, int splits) { return tile_smem_bytes(64, wc, splits) > kMaxSmem; }
 
-inline int blocks_per_cta(int wc, int vh) {
+inline int blocks_per_cta(int wc, int vh, int splits) {
   const int g = group_of(vh);
   return g > 1 && stacked_ring_f32(wc, g).stages >= kMinStages &&
-                 stacked_smem_bytes(wc, g) <= kMaxSmem
+                 stacked_smem_bytes(wc, g, splits) <= kMaxSmem
              ? g
              : 1;
 }
 
-inline int tile_rows(int wc, int vh) {
-  return blocks_per_cta(wc, vh) > 1 || !wide(wc) ? 64 : 32;
+inline int tile_rows(int wc, int vh, int splits) {
+  return blocks_per_cta(wc, vh, splits) > 1 || !wide(wc, splits) ? 64 : 32;
 }
 
-inline long long smem_bytes(int wc, int vh) {
-  const int g = blocks_per_cta(wc, vh);
-  if (g > 1) return stacked_smem_bytes(wc, g);
-  return wide(wc) ? tile_smem_bytes<32>(wc) : tile_smem_bytes<64>(wc);
+inline long long smem_bytes(int wc, int vh, int splits) {
+  const int g = blocks_per_cta(wc, vh, splits);
+  if (g > 1) return stacked_smem_bytes(wc, g, splits);
+  return tile_smem_bytes(wide(wc, splits) ? 32 : 64, wc, splits);
 }
 
 // The CTA's place: image bb, block (bi, bj), row chunk rc, kernel ni; a
@@ -535,7 +623,7 @@ __device__ __forceinline__ void h_fma(float (&ar)[TR][4], float (&ai)[TR][4],
   }
 }
 
-template <class TS, int ROWS, bool STACKED, class Epi>
+template <class TS, int ROWS, bool STACKED, int SPLITS, class Epi>
 __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     const TS* __restrict__ d_re, const TS* __restrict__ d_im,
     const TS* __restrict__ k_re, const TS* __restrict__ k_im,
@@ -546,6 +634,10 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     int group, int cps, int stages, int ktile) {
   constexpr int MT = ROWS / 32;  // 16-row mma tiles of a warp
   constexpr int RW = ROWS / 2;   // rows of a warp
+  using St = Stage<ROWS, SPLITS>;
+  constexpr int P = St::kP;      // TF32 pieces of an operand
+  // 6xTF32 sums its small terms apart from the main term (see Precision).
+  constexpr bool kApart = SPLITS == 6;
   extern __shared__ __align__(16) float smem[];
   const int wc_pad = padded_bins(wc);
   const int xs = x_stride(wc);
@@ -563,15 +655,15 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   Cell cell_at;
   int r0 = 0;
   if constexpr (!STACKED) {
-  using St = Stage<ROWS>;
-  // S^T: re hi, re lo, im hi, im lo; G chunk: the same planes, then -Gi
-  // hi, -Gi lo. 64 rows: [plane][bins or rows / 8][kUK / 4][8][4] (core
-  // matrices, read by wgmma); 32 rows: [plane][bins or rows][kGS].
+  // S^T: the pieces of re, then of im; G chunk: the same planes, then the
+  // pieces of -Gi at 64 rows (plane c * P + k: component c, piece k). 64
+  // rows: [plane][bins or rows / 8][kUK / 4][8][4] (core matrices, read
+  // by wgmma); 32 rows: [plane][bins or rows][kGS].
   constexpr bool kWG = ROWS == 64;
   constexpr int kSP = kWG ? kCols * kUK : kCols * kGS;  // floats of an S^T plane
   constexpr int kGP = kWG ? ROWS * kUK : ROWS * kGS;    // floats of a G plane
   float* s_st = stage;
-  float* g_st = s_st + 4 * kSP;
+  float* g_st = s_st + 2 * P * kSP;
 
   // Kernel index fastest, then the row chunk, then the cell (b, i, j).
   long long bid = blockIdx.x;
@@ -666,13 +758,13 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         const int v = s_v(q), u = s_u(q);
         float* p = s_st + (kWG ? ((v >> 3) * (kUK / 4) + (u >> 2)) * kCore + (v & 7) * 4 + (u & 3)
                                : v * kGS + u);  // S^T[v][u]
-        uint32_t hi, lo;
-        split(sv[q][0], hi, lo);
-        p[0] = __uint_as_float(hi);
-        p[kSP] = __uint_as_float(lo);
-        split(sv[q][1], hi, lo);
-        p[2 * kSP] = __uint_as_float(hi);
-        p[3 * kSP] = __uint_as_float(lo);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          uint32_t pc[P];
+          split_n(sv[q][c], pc);
+#pragma unroll
+          for (int k = 0; k < P; ++k) p[(c * P + k) * kSP] = __uint_as_float(pc[k]);
+        }
       }
 #pragma unroll
       for (int q = 0; q < St::kPerG; ++q) {
@@ -680,18 +772,18 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         const int pl = e / (ROWS * 4);
         const int row = (e / 4) % ROWS;
         const float x[4] = {gv[q].x, gv[q].y, gv[q].z, gv[q].w};
-        uint32_t hi[4], lo[4];
+        uint32_t pc[4][P];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) split(x[i], hi[i], lo[i]);
-        float* pg = g_st + 2 * pl * kGP +
+        for (int i = 0; i < 4; ++i) split_n(x[i], pc[i]);
+        float* pg = g_st + pl * P * kGP +
                     (kWG ? ((row >> 3) * (kUK / 4) + (e % 4)) * kCore + (row & 7) * 4 : row * kGS + 4 * (e % 4));
-        *reinterpret_cast<uint4*>(pg) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        *reinterpret_cast<uint4*>(pg + kGP) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-        if (kWG && pl == 1) {  // -Gi, for Xr = Gr Sr + (-Gi) Si
-          *reinterpret_cast<uint4*>(pg + 2 * kGP) =
-              make_uint4(hi[0] ^ 0x80000000u, hi[1] ^ 0x80000000u, hi[2] ^ 0x80000000u, hi[3] ^ 0x80000000u);
-          *reinterpret_cast<uint4*>(pg + 3 * kGP) =
-              make_uint4(lo[0] ^ 0x80000000u, lo[1] ^ 0x80000000u, lo[2] ^ 0x80000000u, lo[3] ^ 0x80000000u);
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          *reinterpret_cast<uint4*>(pg + k * kGP) = make_uint4(pc[0][k], pc[1][k], pc[2][k], pc[3][k]);
+          if (kWG && pl == 1)  // -Gi, for Xr = Gr Sr + (-Gi) Si
+            *reinterpret_cast<uint4*>(pg + (P + k) * kGP) =
+                make_uint4(pc[0][k] ^ 0x80000000u, pc[1][k] ^ 0x80000000u, pc[2][k] ^ 0x80000000u,
+                           pc[3][k] ^ 0x80000000u);
         }
       }
       // this thread's stores are visible to the tensor cores' reads
@@ -715,28 +807,34 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
           fence_regs(tr);
           fence_regs(ti);
           wgmma_fence();
+          // Phases of the chunk's products: 6xTF32 runs every small term
+          // of the chunk first, then the main terms, so that the small
+          // terms are summed while t is small; the other tiers run one
+          // phase, each k-step's products in turn.
+          constexpr int kQ0 = first_product(SPLITS);
+          constexpr int kPhases = kApart ? 2 : 1;
 #pragma unroll
-          for (int ks = 0; ks < kUK / 8; ++ks) {
-            auto ga = [&](int pl) {
-              return smem_desc(g_st + pl * kGP + 2 * ks * kCore, 4 * kCore, 4 * (kUK / 4) * kCore);
-            };
-            auto sb = [&](int pl) {
-              return smem_desc(sw + pl * kSP + 2 * ks * kCore, 4 * kCore, 4 * (kUK / 4) * kCore);
-            };
-            // planes: G 0 re hi, 1 re lo, 2 im hi, 3 im lo, 4 -im hi, 5 -im lo;
-            // S^T 0 re hi, 1 re lo, 2 im hi, 3 im lo
-            wgmma_tf32_ss(tr, ga(1), sb(0));  // Gr Sr
-            wgmma_tf32_ss(tr, ga(0), sb(1));
-            wgmma_tf32_ss(tr, ga(0), sb(0));
-            wgmma_tf32_ss(tr, ga(5), sb(2));  // -Gi Si
-            wgmma_tf32_ss(tr, ga(4), sb(3));
-            wgmma_tf32_ss(tr, ga(4), sb(2));
-            wgmma_tf32_ss(ti, ga(3), sb(0));  // Gi Sr
-            wgmma_tf32_ss(ti, ga(2), sb(1));
-            wgmma_tf32_ss(ti, ga(2), sb(0));
-            wgmma_tf32_ss(ti, ga(1), sb(2));  // Gr Si
-            wgmma_tf32_ss(ti, ga(0), sb(3));
-            wgmma_tf32_ss(ti, ga(0), sb(2));
+          for (int ph = 0; ph < kPhases; ++ph) {
+            const int q0 = ph == 0 ? kQ0 : kMainProduct;
+            const int q1 = kApart && ph == 0 ? kMainProduct : 6;
+#pragma unroll
+            for (int ks = 0; ks < kUK / 8; ++ks) {
+              auto ga = [&](int pl) {
+                return smem_desc(g_st + pl * kGP + 2 * ks * kCore, 4 * kCore, 4 * (kUK / 4) * kCore);
+              };
+              auto sb = [&](int pl) {
+                return smem_desc(sw + pl * kSP + 2 * ks * kCore, 4 * kCore, 4 * (kUK / 4) * kCore);
+              };
+              // planes: G re 0.., im P.., -im 2P..; S^T re 0.., im P..
+#pragma unroll
+              for (int q = q0; q < q1; ++q) wgmma_tf32_ss(tr, ga(prod_a(q)), sb(prod_b(q)));  // Gr Sr
+#pragma unroll
+              for (int q = q0; q < q1; ++q) wgmma_tf32_ss(tr, ga(2 * P + prod_a(q)), sb(P + prod_b(q)));  // -Gi Si
+#pragma unroll
+              for (int q = q0; q < q1; ++q) wgmma_tf32_ss(ti, ga(P + prod_a(q)), sb(prod_b(q)));  // Gi Sr
+#pragma unroll
+              for (int q = q0; q < q1; ++q) wgmma_tf32_ss(ti, ga(prod_a(q)), sb(P + prod_b(q)));  // Gr Si
+            }
           }
           wgmma_commit();
           wgmma_wait<0>();
@@ -753,35 +851,34 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         for (int ks = 0; ks < kUK / 8; ++ks)
 #pragma unroll
           for (int np = 0; np < 2; ++np) {
-            // B: S rows ks*8.. for the warp's n-tiles 2 np, 2 np + 1;
-            // planes re hi, re lo, im hi, im lo.
-            uint32_t sb[4][2][2];
+            // B: S rows ks*8.. for the warp's n-tiles 2 np, 2 np + 1,
+            // [n-tile][component][piece]; planes: the pieces of re, then im.
+            uint32_t sb[2][2][P][2];
 #pragma unroll
-            for (int pl = 0; pl < 4; ++pl) {
+            for (int pl = 0; pl < 2 * P; ++pl) {
               uint32_t r[4];
               ldsm4(r, s_st + pl * kSP + (wn * 32 + np * 16) * kGS + ks * 8 + b_lane(lane, kGS));
-              sb[pl][0][0] = r[0];
-              sb[pl][0][1] = r[1];
-              sb[pl][1][0] = r[2];
-              sb[pl][1][1] = r[3];
+              sb[0][pl / P][pl % P][0] = r[0];
+              sb[0][pl / P][pl % P][1] = r[1];
+              sb[1][pl / P][pl % P][0] = r[2];
+              sb[1][pl / P][pl % P][1] = r[3];
             }
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt) {
               // A: G rows of this m-tile, the same planes.
-              uint32_t ga[4][4];
+              uint32_t ga[2][P][4];
 #pragma unroll
-              for (int pl = 0; pl < 4; ++pl)
-                ldsm4(ga[pl], g_st + pl * kGP + (wm * RW + mt * 16) * kGS + ks * 8 + a_lane(lane, kGS));
+              for (int pl = 0; pl < 2 * P; ++pl)
+                ldsm4(ga[pl / P][pl % P], g_st + pl * kGP + (wm * RW + mt * 16) * kGS + ks * 8 + a_lane(lane, kGS));
 #pragma unroll
               for (int j = 0; j < 2; ++j) {
                 // This k-step's products are summed on the tensor cores,
                 // then added to X in IEEE fp32 (Gi Si subtracted there).
                 float tr[4] = {0.f, 0.f, 0.f, 0.f}, ts[4] = {0.f, 0.f, 0.f, 0.f};
                 float ti[4] = {0.f, 0.f, 0.f, 0.f};
-                mma3(tr, ga[0], ga[1], sb[0][j], sb[1][j]);  // Gr Sr
-                mma3(ts, ga[2], ga[3], sb[2][j], sb[3][j]);  // Gi Si
-                mma3(ti, ga[2], ga[3], sb[0][j], sb[1][j]);  // Gi Sr
-                mma3(ti, ga[0], ga[1], sb[2][j], sb[3][j]);  // Gr Si
+                mma_n<SPLITS>(tr, ga[0], sb[j][0]);  // Gr Sr
+                mma_n<SPLITS>(ts, ga[1], sb[j][1]);  // Gi Si
+                mma_n2<SPLITS>(ti, ga[1], sb[j][0], ga[0], sb[j][1]);  // Gi Sr + Gr Si
 #pragma unroll
                 for (int i = 0; i < 4; ++i) xr[mt][2 * np + j][i] += tr[i] - ts[i];
                 add4(xi[mt][2 * np + j], ti);
@@ -1098,15 +1195,15 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
 
   // ---- W stage: tile[r, c] = sum_k X[r, k] [Mr ; Mi][k, c] ----
   // The (pass, chunk) steps run as one sequence: chunk kc of pass p holds
-  // rows kc * kKC.. of [Mr ; Mi] for output columns p * kCols.., M^T's hi
-  // and lo core matrices, in ring slot (step % kM), copied kM - 1 steps
-  // ahead.
+  // rows kc * kKC.. of [Mr ; Mi] for output columns p * kCols.., M^T's
+  // planes (St::kMP of them) in core matrices, in ring slot (step % kM),
+  // copied kM - 1 steps ahead.
   const int kw2 = 2 * wc_pad;
   const int nkc = kw2 / kKC;
   const int mcols = m_cols(vw);
   const int steps = mcols / kCols * nkc;
-  constexpr int kM = Stage<ROWS>::kM;
-  float* m_st = stage;  // [kM][2][kCols / 8][kKC / 4][8][4]
+  constexpr int kMChunk = St::kMP * kMPlane;
+  float* m_st = stage;  // [kM][St::kMP][kCols / 8][kKC / 4][8][4]
   auto issue_m = [&](int it) {
     if (it < steps) {
       const int p = it / nkc;
@@ -1118,7 +1215,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         const int r = e & 7;
         const int kcr = (e >> 3) % (kKC / 4);
         const int ng = (e / (2 * kKC)) % (kCols / 8);
-        const int pl = e / (kMChunk / 8);
+        const int pl = e / (kMPlane / 4);
         cp_async16(dst + ((pl * (kCols / 8) + ng) * (kKC / 4) + kcr) * kCore + 4 * r,
                    m_tc + ((static_cast<long long>(pl) * (mcols / 8) + p * (kCols / 8) + ng) * (kw2 / 4) +
                            kc * (kKC / 4) + kcr) * kCore + 4 * r);
@@ -1151,52 +1248,69 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       issue_m(it + kM - 1);
       if (p * kCols + wg * 64 < vw) {
         const float* mb = m_st + (it % kM) * kMChunk + wg * 8 * (kKC / 4) * kCore;
-        // The chunk's products are summed on the tensor cores into t, then
-        // added to the pass's sums in IEEE fp32.
-        float t[8][4];
+        // The chunk's products are summed on the tensor cores into t (at
+        // 6xTF32 its small terms into tc, apart), then added to the pass's
+        // sums in IEEE fp32.
+        float t[8][4], tc[8][4];
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) t[j][i] = 0.f;
+          for (int i = 0; i < 4; ++i) t[j][i] = tc[j][i] = 0.f;
         fence_regs(t);
-        // A: X at this warp's 16 rows, split here, double-buffered: the
-        // next k-step's fragments are split while this k-step's products
-        // run, into the buffer whose products are done (wait<1>); the
-        // fences keep the compiler from giving a buffer's registers to
-        // other values while the tensor cores may still read them.
-        uint32_t xh[2][4], xl[2][4];
+        if constexpr (kApart) fence_regs(tc);
+        // A: X at this warp's 16 rows, split here into its pieces,
+        // double-buffered: the next k-step's fragments are split while
+        // this k-step's products run, into the buffer whose products are
+        // done (wait<1>); the fences keep the compiler from giving a
+        // buffer's registers to other values while the tensor cores may
+        // still read them.
+        uint32_t xp[2][P][4];
         auto frag = [&](int ks, int bf) {
           uint32_t xa[4];
           ldsm4(xa, x_s + rank * 16 * xs + kc * kKC + ks * 8 + a_lane(lane, xs));
 #pragma unroll
-          for (int i = 0; i < 4; ++i) split(__uint_as_float(xa[i]), xh[bf][i], xl[bf][i]);
+          for (int i = 0; i < 4; ++i) {
+            uint32_t pc[P];
+            split_n(__uint_as_float(xa[i]), pc);
+#pragma unroll
+            for (int k = 0; k < P; ++k) xp[bf][k][i] = pc[k];
+          }
         };
         frag(0, 0);
 #pragma unroll
         for (int ks = 0; ks < kKC / 8; ++ks) {
           const int bf = ks & 1;
-          const uint64_t dh = smem_desc(mb + 2 * ks * kCore, 4 * kCore, 4 * (kKC / 4) * kCore);
-          const uint64_t dl = dh + (kMChunk / 2 * 4 >> 4);  // the lo plane
+          // plane k of M^T's pieces: k planes past the first
+          const uint64_t d0 = smem_desc(mb + 2 * ks * kCore, 4 * kCore, 4 * (kKC / 4) * kCore);
+          constexpr uint64_t kPlaneDesc = kMPlane * 4 >> 4;
           wgmma_fence();
-          wgmma_tf32(t, xl[bf], dh);
-          wgmma_tf32(t, xh[bf], dl);
-          wgmma_tf32(t, xh[bf], dh);
+#pragma unroll
+          for (int q = first_product(SPLITS); q < 6; ++q) {
+            if (kApart && q < kMainProduct)
+              wgmma_tf32(tc, xp[bf][prod_a(q)], d0 + prod_b(q) * kPlaneDesc);
+            else
+              wgmma_tf32(t, xp[bf][prod_a(q)], d0 + prod_b(q) * kPlaneDesc);
+          }
           wgmma_commit();
           if (ks + 1 < kKC / 8) {
             wgmma_wait<1>();
-            fence_regs(xh[bf ^ 1]);
-            fence_regs(xl[bf ^ 1]);
+#pragma unroll
+            for (int k = 0; k < P; ++k) fence_regs(xp[bf ^ 1][k]);
             frag(ks + 1, bf ^ 1);
           }
         }
         wgmma_wait<0>();
         fence_regs(t);
-        fence_regs(xh[0]);
-        fence_regs(xl[0]);
-        fence_regs(xh[1]);
-        fence_regs(xl[1]);
+        if constexpr (kApart) fence_regs(tc);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) add4(acc[0][j], t[j]);
+        for (int b = 0; b < 2; ++b)
+#pragma unroll
+          for (int k = 0; k < P; ++k) fence_regs(xp[b][k]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if constexpr (kApart) add4(t[j], tc[j]);
+          add4(acc[0][j], t[j]);
+        }
       }
       if (kc == nkc - 1) epi.tile(acc, r0 + rank * 16 + g8, p * kCols + wg * 64 + 2 * t4);
     }
@@ -1220,47 +1334,74 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       if (p * kCols + wn * 32 < vw) {
         const float* mb = m_st + (it % kM) * kMChunk + wn * 4 * (kKC / 4) * kCore + core_lane(lane);
         const float* xb = x_s + wm * RW * xs + kc * kKC + a_lane(lane, xs);
-        float t[MT][4][4];
+        // t: the chunk's sums on the tensor cores (at 6xTF32 the small
+        // terms in tc, apart)
+        float t[MT][4][4], tc[MT][4][4];
 #pragma unroll
         for (int a = 0; a < MT; ++a)
 #pragma unroll
           for (int b = 0; b < 4; ++b)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) t[a][b][c] = 0.f;
+            for (int c = 0; c < 4; ++c) t[a][b][c] = tc[a][b][c] = 0.f;
 #pragma unroll
         for (int ks = 0; ks < kKC / 8; ++ks) {
-          // B: M's hi and lo core matrices at the warp's 4 n-tiles.
-          uint32_t mh[4][2], mlo[4][2];
+          // B: M's planes at the warp's 4 n-tiles, [n-tile][piece]: its
+          // pieces, or M^T itself (one plane), split here.
+          uint32_t mp[4][P][2];
 #pragma unroll
           for (int np = 0; np < 2; ++np) {
-            uint32_t r[4];
             const float* pm = mb + (2 * np * (kKC / 4) + 2 * ks) * kCore;
-            ldsm4(r, pm);
-            mh[2 * np][0] = r[0];
-            mh[2 * np][1] = r[1];
-            mh[2 * np + 1][0] = r[2];
-            mh[2 * np + 1][1] = r[3];
-            ldsm4(r, pm + kMChunk / 2);
-            mlo[2 * np][0] = r[0];
-            mlo[2 * np][1] = r[1];
-            mlo[2 * np + 1][0] = r[2];
-            mlo[2 * np + 1][1] = r[3];
+#pragma unroll
+            for (int k = 0; k < St::kMP; ++k) {
+              uint32_t r[4];
+              ldsm4(r, pm + k * kMPlane);
+              mp[2 * np][k][0] = r[0];
+              mp[2 * np][k][1] = r[1];
+              mp[2 * np + 1][k][0] = r[2];
+              mp[2 * np + 1][k][1] = r[3];
+            }
+          }
+          if constexpr (St::kMP < P) {
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                uint32_t pc[P];
+                split_n(__uint_as_float(mp[nt][0][h]), pc);
+#pragma unroll
+                for (int k = 0; k < P; ++k) mp[nt][k][h] = pc[k];
+              }
           }
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
             // A: X at this m-tile's rows, split here (X is fp32 in shared memory).
-            uint32_t xa[4], xh[4], xl[4];
+            uint32_t xa[4], xp[P][4];
             ldsm4(xa, xb + mt * 16 * xs + ks * 8);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) split(__uint_as_float(xa[i]), xh[i], xl[i]);
+            for (int i = 0; i < 4; ++i) {
+              uint32_t pc[P];
+              split_n(__uint_as_float(xa[i]), pc);
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt) mma3(t[mt][nt], xh, xl, mh[nt], mlo[nt]);
+              for (int k = 0; k < P; ++k) xp[k][i] = pc[k];
+            }
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              if constexpr (kApart) {
+                mma_terms<0, kMainProduct>(tc[mt][nt], xp, mp[nt]);
+                mma_terms<kMainProduct, 6>(t[mt][nt], xp, mp[nt]);
+              } else {
+                mma_n<SPLITS>(t[mt][nt], xp, mp[nt]);
+              }
+            }
           }
         }
 #pragma unroll
         for (int a = 0; a < MT; ++a)
 #pragma unroll
-          for (int b = 0; b < 4; ++b) add4(acc[a][b], t[a][b]);
+          for (int b = 0; b < 4; ++b) {
+            if constexpr (kApart) add4(t[a][b], tc[a][b]);
+            add4(acc[a][b], t[a][b]);
+          }
       }
       if (kc == nkc - 1) epi.tile(acc, r0 + wm * RW + g8, p * kCols + wn * 32 + 2 * t4);
     }
@@ -1268,14 +1409,15 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   epi.finish(stage);
 }
 
-template <class TS, int ROWS, bool STACKED, class Epi>
+template <class TS, int ROWS, bool STACKED, int SPLITS, class Epi>
 int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
            const float* gt_re, const float* gt_im, const float* g_pad,
            const float* m_tc, typename Epi::Out out, int b, int nbh, int nbw,
            int f, int n, int lh, int wc, int vh, int vw, int out_h, int out_w,
            int ktile, cudaStream_t stream) {
-  const int group = STACKED ? blocks_per_cta(wc, vh) : 1;
-  const long long smem = STACKED ? stacked_smem_bytes(wc, group) : tile_smem_bytes<ROWS>(wc);
+  const int group = STACKED ? blocks_per_cta(wc, vh, SPLITS) : 1;
+  const long long smem =
+      STACKED ? stacked_smem_bytes(wc, group, SPLITS) : tile_smem_bytes(ROWS, wc, SPLITS);
   const int row_chunks = STACKED ? 1 : (vh + ROWS - 1) / ROWS;
   const Ring ring = STACKED ? stacked_ring<TS>(wc, group) : Ring{0, 0, 0};
   // stacked: b images x tiles of ktile kernels x block groups
@@ -1284,7 +1426,7 @@ int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
                     ((static_cast<long long>(nbh) * nbw + group - 1) / group)
               : static_cast<long long>(b) * nbh * nbw * row_chunks * n;
   if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  auto kernel = block_conv_kernel<TS, ROWS, STACKED, Epi>;
+  auto kernel = block_conv_kernel<TS, ROWS, STACKED, SPLITS, Epi>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1294,17 +1436,19 @@ int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Checks the geometry and launches the configuration for (wc, vh) on
-// `stream`; does not synchronise. gt_re, gt_im: G^T (Lh, Vh), exact; g_pad:
-// G (2, g_rows(vh), g_cols(lh)) = re, im; m_tc: M^T (m_cols(vw),
-// 2 padded_bins(wc)), row c holding column c of [Mr ; Mi] (Mi from
-// k = padded_bins(wc) on); all exact fp32, zeros wherever the padding
-// reaches. `ktile` (1..n), the kernels a
-// launch tile of the stacked configuration holds, is its launch order (n:
-// the kernel index fastest); the others run the kernel index fastest. Epi
-// is the epilogue class template. Returns cudaGetLastError() after the
-// launch (0 = launched), or the error that stopped it.
-template <class TS, template <bool> class Epi>
+// Checks the geometry and launches the configuration for (wc, vh) at the
+// tier SPLITS on `stream`; does not synchronise. gt_re, gt_im: G^T (Lh,
+// Vh), exact; g_pad: G (2, g_rows(vh), g_cols(lh)) = re, im, exact; m_tc:
+// the m_planes(tile_rows(wc, vh, SPLITS), SPLITS) planes of M^T
+// (m_cols(vw), 2 padded_bins(wc)) in core matrices, row c holding column c
+// of [Mr ; Mi] (Mi from k = padded_bins(wc) on): its TF32 pieces, or M^T
+// exact where the configuration stages one plane; zeros wherever the
+// padding reaches. `ktile` (1..n), the kernels a launch tile of the
+// stacked configuration holds, is its launch order (n: the kernel index
+// fastest); the others run the kernel index fastest. Epi is the epilogue
+// class template. Returns cudaGetLastError() after the launch (0 =
+// launched), or the error that stopped it.
+template <class TS, template <bool> class Epi, int SPLITS = 3>
 int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
                       const TS* k_im, const float* gt_re, const float* gt_im,
                       const float* g_pad, const float* m_tc,
@@ -1313,20 +1457,20 @@ int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
                       int out_w, int ktile, void* stream) {
   if (b <= 0 || nbh <= 0 || nbw <= 0 || f <= 0 || n <= 0 || lh <= 0 ||
       wc <= 0 || vh <= 0 || vw <= 0 || out_h <= 0 || out_w <= 0 ||
-      ktile < 1 || ktile > n || smem_bytes(wc, vh) > kMaxSmem)
+      ktile < 1 || ktile > n || smem_bytes(wc, vh, SPLITS) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (blocks_per_cta(wc, vh) > 1)
-    return launch<TS, 64, true, Epi<true>>(d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc,
-                                           out, b, nbh, nbw, f, n, lh, wc, vh, vw, out_h,
-                                           out_w, ktile, s);
-  if (wide(wc))
-    return launch<TS, 32, false, Epi<false>>(d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc,
-                                             out, b, nbh, nbw, f, n, lh, wc, vh, vw, out_h,
-                                             out_w, ktile, s);
-  return launch<TS, 64, false, Epi<false>>(d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc,
-                                           out, b, nbh, nbw, f, n, lh, wc, vh, vw, out_h,
-                                           out_w, ktile, s);
+  if (blocks_per_cta(wc, vh, SPLITS) > 1)
+    return launch<TS, 64, true, SPLITS, Epi<true>>(d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad,
+                                                   m_tc, out, b, nbh, nbw, f, n, lh, wc, vh, vw,
+                                                   out_h, out_w, ktile, s);
+  if (wide(wc, SPLITS))
+    return launch<TS, 32, false, SPLITS, Epi<false>>(d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad,
+                                                     m_tc, out, b, nbh, nbw, f, n, lh, wc, vh,
+                                                     vw, out_h, out_w, ktile, s);
+  return launch<TS, 64, false, SPLITS, Epi<false>>(d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad,
+                                                   m_tc, out, b, nbh, nbw, f, n, lh, wc, vh, vw,
+                                                   out_h, out_w, ktile, s);
 }
 
 }  // namespace

@@ -3,8 +3,9 @@
 //
 // Replaces cuda_fft_convolution_tpu/ops/block_conv.py::block_conv_peaks_pallas
 // at one block per cell (mbh = mbw = 1; its v3 body _make_kernel_v3_peaks
-// and epilogue _peaks_reducer), at fp32 spectra and at the bf16 tier; the
-// values are fp32 and the indices int32 either way. It runs the transforms of block_conv.cuh
+// and epilogue _peaks_reducer), at fp32 spectra (at the maps kernel's three
+// synthesis tiers) and at the bf16 tier; the values are fp32 and the
+// indices int32 either way. It runs the transforms of block_conv.cuh
 // and, in place of the maps kernel's store, reduces each cell's valid
 // window to (max, global flat index y * out_w + x): the larger value wins,
 // between equal values the smaller index wins, and positions past
@@ -12,7 +13,8 @@
 // reports -inf at its first (out-of-range) position, as _peaks_reducer does.
 //
 // What bounds it: the maps kernel's arithmetic (~0.71 TFLOP at the headline
-// plan, 3xTF32 on the tensor cores), without its 1.68 GB write of the maps;
+// plan, as 3, 6 or 1 TF32 passes on the tensor cores), without its 1.68 GB
+// write of the maps;
 // it writes 8 bytes per CTA. Design: each thread keeps a running (max,
 // index) over its W-stage accumulators (block_conv.cuh's mma fragments)
 // across the column passes; at the end the CTA reduces them with warp
@@ -201,23 +203,27 @@ struct ReducePeaks {
 }  // namespace
 
 // Write the partial pyramid vals/idxs (B, N, nbh, row_chunks, nbw), with
-// row_chunks = 1 where fftconv_block_conv_f32_blocks(wc, vh) > 1 (stacked
-// blocks) and ceil(vh / fftconv_block_conv_f32_rows(wc, vh)) otherwise,
-// from fp32 (_f32) or bf16 (_bf16) spectra; `ktile` as for the maps
-// kernel. Launch on `stream`; do not synchronise. Return cudaGetLastError()
-// after the launch (0 = launched), or the error that stopped it.
-#define FFTCONV_PEAKS_ENTRY(NAME, TS)                                           \
+// row_chunks = 1 where fftconv_block_conv_f32_blocks(wc, vh, splits) > 1
+// (stacked blocks) and ceil(vh / fftconv_block_conv_f32_rows(wc, vh,
+// splits)) otherwise, from fp32 (_f32) or bf16 (_bf16) spectra; fp32
+// spectra also at 6xTF32 (_f32_x6) and one TF32 pass (_f32_x1) (the maps
+// kernel's tiers, block_conv.cu); `ktile` as for the maps kernel. Launch
+// on `stream`; do not synchronise. Return cudaGetLastError() after the
+// launch (0 = launched), or the error that stopped it.
+#define FFTCONV_PEAKS_ENTRY(NAME, TS, SPLITS)                                   \
   extern "C" int NAME(const TS* d_re, const TS* d_im, const TS* k_re,           \
                       const TS* k_im, const float* gt_re, const float* gt_im,   \
                       const float* g_pad, const float* m_tc, float* vals,       \
                       int* idxs, int b, int nbh, int nbw, int f, int n, int lh, \
                       int wc, int vh, int vw, int out_h, int out_w, int ktile,  \
                       void* stream) {                                           \
-    return launch_block_conv<TS, ReducePeaks>(                                 \
+    return launch_block_conv<TS, ReducePeaks, SPLITS>(                         \
         d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc,                     \
         PeaksOut{vals, idxs}, b, nbh, nbw, f, n, lh, wc, vh,    \
         vw, out_h, out_w, ktile, stream);                                      \
   }
 
-FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_f32, float)
-FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_bf16, __nv_bfloat16)
+FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_f32, float, 3)
+FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_bf16, __nv_bfloat16, 3)
+FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_f32_x6, float, 6)
+FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_f32_x1, float, 1)

@@ -23,6 +23,17 @@ bf16 maps round each fp32 value once, at its store. The plain versions do
 the same: they upcast bf16 planes to float32, run the fp32 computation, and
 cast the maps to ``out_dtype``.
 
+Precision tiers. At fp32 spectra the kernels' syntheses run at the tier
+``fused_splits`` reads from the config, JAX's rule for its precisions:
+3×TF32 (``fused_precision='bf16x3'``, the default; entries
+``fftconv_block_conv_f32``…), 6×TF32 ('highest' with ``matmul_precision``
+'highest': ``…_x6``, the TPU's fp32-exact HIGHEST) or one TF32 pass
+('highest' with 'default': ``…_x1``); 'highest' with 'high' is 3×TF32. The
+tier changes the kernels' shared memory (``smem_bytes(wc, vh, splits)``)
+and M^T's planes (``_kernel_mats``); the plain versions (IEEE fp32) are
+the plain version of every tier. ``tf32_split`` and ``tf32_product``
+emulate the tiers' arithmetic on the CPU for the tests.
+
 ``block_conv`` is the wrapper: a tensor on the CPU takes
 ``block_conv_reference`` (plain torch); a CUDA tensor launches the CUDA
 kernel (``csrc/block_conv.cu``) or raises. There is no fallback between the
@@ -45,35 +56,67 @@ import torch
 import torch.nn.functional as F
 
 from cuda_fft_convolution_torch.ops.dft import _inv_full_mats, _inv_packed_mats
+from cuda_fft_convolution_torch.utils.config import get_config
 from cuda_fft_convolution_torch.utils.errors import InvalidInputError, validate
 
-# Mirrors csrc/block_conv.cuh's configuration rule. A CTA holds X, 64 rows
-# (32 where that does not fit) × [Xr | Xi] over the packed bins padded to 32
-# (a row stride of 2·bins + 4 floats), plus a staging area, within Hopper's
-# 227 KB (232,448 B) per-block shared-memory limit. The staging area is the
-# larger of the H stage's (S^T, 128 bins, and a G chunk, as TF32 hi and lo
-# planes of 16 spectrum rows, with −Gi's at 64 rows: 14,336 floats for 64
-# rows, 12,800 for 32 rows padded to 20 floats) and the W stage's (a ring of
-# two 32-row chunks of [Mr ; Mi] as M^T's TF32 hi and lo planes, 128 columns
-# each: 16,384 floats). For windows of at most 32 rows it stacks
-# g = min(64 // vh, 16) blocks of one (image, kernel) in 64 rows, where
-# that fits: after X, the larger of the W stage's buffers and S and G^T
-# (5120 floats) followed by a ring of 2 to 8 steps (as many as the limit
-# leaves room for) of 4, 2 or 1 channels (the most that leave room for 2
-# steps) × 2·(g + 1)·(16 // g) row segments, each the 16-byte chunks that
-# can hold min(wc, 128) fp32 values. bf16 spectra fill the same bytes with
-# up to 8 channels a step.
+# Mirrors csrc/block_conv.cuh's configuration rule, per synthesis tier
+# (``splits``: the tensor-core products a product of two fp32 operands runs
+# as, 3, 6 or 1; ``fused_splits``). A CTA holds X, 64 rows (32 where that
+# does not fit) × [Xr | Xi] over the packed bins padded to 32 (a row stride
+# of 2·bins + 4 floats), plus a staging area, within Hopper's 227 KB
+# (232,448 B) per-block shared-memory limit. The staging area is the larger
+# of the H stage's (S^T, 128 bins, and a G chunk, as the TF32 pieces of 16
+# spectrum rows — 2 at 3×TF32, 3 at 6×TF32, 1 at one pass — with −Gi's at
+# 64 rows: 14,336 floats for 64 rows, 12,800 for 32 rows padded to 20
+# floats, at 3×TF32) and the W stage's (a ring of two 32-row chunks of
+# [Mr ; Mi] as M^T's TF32 pieces, 128 columns each: 16,384 floats at
+# 3×TF32; one plane, M^T itself, in the 32-row configuration at 6×TF32).
+# For windows of at most 32 rows it stacks g = min(64 // vh, 16) blocks of
+# one (image, kernel) in 64 rows, where that fits: after X, the larger of
+# the W stage's buffers and S and G^T (5120 floats) followed by a ring of 2
+# to 8 steps (as many as the limit leaves room for) of 4, 2 or 1 channels
+# (the most that leave room for 2 steps) × 2·(g + 1)·(16 // g) row
+# segments, each the 16-byte chunks that can hold min(wc, 128) fp32 values.
+# bf16 spectra fill the same bytes with up to 8 channels a step.
 SMEM_LIMIT_BYTES = 232448
 _COLS = 128
 _KB = 32
 _UK = 16
 _GS = _UK + 4
 _KC = 32  # rows of [Mr ; Mi] per W-stage chunk
-_STAGE_W = 2 * 2 * _COLS * _KC
+_M_PLANE = _COLS * _KC  # floats of one plane of a W-stage chunk
 _MAX_GROUP = 16
 _STACK_ROWS = 16
 _STACK_STAGE = 2 * _STACK_ROWS * _COLS + 2 * 8 * 64
 _MIN_STEPS, _MAX_STEPS = 2, 8
+# tier (splits) → TF32 pieces of an operand, and the suffix of its C
+# entries (the default tier's entries have none)
+TIERS = {3: 2, 6: 3, 1: 1}
+TIER_SUFFIX = {3: "", 6: "_x6", 1: "_x1"}
+
+
+def _check_splits(splits: int) -> None:
+    validate(splits in TIERS, f"splits must be one of {sorted(TIERS)}; got {splits!r}")
+
+
+def m_planes(rows: int, splits: int) -> int:
+    """Planes of M^T the W stage streams: its TF32 pieces, or, in the
+    32-row configuration at 6×TF32, M^T itself (split in registers)."""
+    return 1 if rows == 32 and splits == 6 else TIERS[splits]
+
+
+def _stage_w(rows: int, splits: int) -> int:
+    """Floats of the W stage's ring: 2 chunks of M^T's planes."""
+    return 2 * m_planes(rows, splits) * _M_PLANE
+
+
+def _stage_h(rows: int, splits: int) -> int:
+    """Floats of the H stage's staging: the pieces of S^T (re, im) and of
+    the G chunk (re, im, and −im at 64 rows)."""
+    p = TIERS[splits]
+    if rows == 64:  # unpadded, for wgmma
+        return 2 * p * _COLS * _UK + 3 * p * rows * _UK
+    return 2 * p * _COLS * _GS + 2 * p * rows * _GS
 
 
 def _x_bytes(wc: int, rows: int) -> int:
@@ -87,7 +130,7 @@ _SPECTRA_TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _MAPS_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16maps"}
 
 
-def _stack(wc: int, blocks: int) -> tuple[int, int]:
+def _stack(wc: int, blocks: int, splits: int = 3) -> tuple[int, int]:
     """(ring steps, shared-memory bytes) of a ``blocks``-block stack at
     packed width ``wc``, with the most channels a step (4, 2, 1) that leave
     room for 2 steps; (0, 0) where even 1 does not."""
@@ -99,52 +142,70 @@ def _stack(wc: int, blocks: int) -> tuple[int, int]:
         steps = min(max(left, 0) // (channels * per_channel), _MAX_STEPS)
         if steps >= _MIN_STEPS:
             ring = steps * channels * per_channel
-            return steps, x + max(4 * _STACK_STAGE + ring, 4 * _STAGE_W)
+            return steps, x + max(4 * _STACK_STAGE + ring, 4 * _stage_w(64, splits))
     return 0, 0
 
 
-def _tile_smem_bytes(wc: int, rows: int, blocks: int = 1) -> int:
+def _tile_smem_bytes(wc: int, rows: int, blocks: int = 1, splits: int = 3) -> int:
     """Shared memory of the configuration of ``rows`` rows stacking
-    ``blocks`` blocks at packed width ``wc``."""
+    ``blocks`` blocks at packed width ``wc`` and tier ``splits``."""
     if blocks > 1:
-        return _stack(wc, blocks)[1]
-    if rows == 64:  # S^T and G (with -Gi) unpadded, for wgmma
-        stage_h = 4 * _COLS * _UK + 6 * rows * _UK
-    else:
-        stage_h = 4 * _COLS * _GS + 4 * rows * _GS
-    return _x_bytes(wc, rows) + 4 * max(stage_h, _STAGE_W)
+        return _stack(wc, blocks, splits)[1]
+    return _x_bytes(wc, rows) + 4 * max(_stage_h(rows, splits), _stage_w(rows, splits))
 
 
-def blocks_per_cta(wc: int, vh: int) -> int:
-    """Blocks one CTA stacks at packed width ``wc`` and window height
-    ``vh``: min(64 // vh, 16) for windows of at most 32 rows where that
-    configuration fits with a ring of 2 steps or more beside the W stage's
-    buffers, else 1."""
+def blocks_per_cta(wc: int, vh: int, splits: int = 3) -> int:
+    """Blocks one CTA stacks at packed width ``wc``, window height ``vh``
+    and tier ``splits``: min(64 // vh, 16) for windows of at most 32 rows
+    where that configuration fits with a ring of 2 steps or more beside the
+    W stage's buffers, else 1."""
+    _check_splits(splits)
     g = min(64 // vh, _MAX_GROUP) if vh <= 32 else 1
     if g == 1:
         return 1
-    steps, smem = _stack(wc, g)
+    steps, smem = _stack(wc, g, splits)
     return g if steps >= _MIN_STEPS and smem <= SMEM_LIMIT_BYTES else 1
 
 
-def tile_rows(wc: int, vh: int) -> int:
+def tile_rows(wc: int, vh: int, splits: int = 3) -> int:
     """Rows one CTA holds: 64 (stacked, or one block's window rows where
     that configuration's shared memory fits), else 32."""
-    if blocks_per_cta(wc, vh) > 1:
+    if blocks_per_cta(wc, vh, splits) > 1:
         return 64
-    return 64 if _tile_smem_bytes(wc, 64) <= SMEM_LIMIT_BYTES else 32
+    return 64 if _tile_smem_bytes(wc, 64, splits=splits) <= SMEM_LIMIT_BYTES else 32
 
 
-def smem_bytes(wc: int, vh: int) -> int:
-    """Shared memory the CUDA kernels need at packed width ``wc`` and window
-    height ``vh``."""
-    return _tile_smem_bytes(wc, tile_rows(wc, vh), blocks_per_cta(wc, vh))
+def smem_bytes(wc: int, vh: int, splits: int = 3) -> int:
+    """Shared memory the CUDA kernels need at packed width ``wc``, window
+    height ``vh`` and tier ``splits``."""
+    return _tile_smem_bytes(
+        wc, tile_rows(wc, vh, splits), blocks_per_cta(wc, vh, splits), splits
+    )
 
 
-def row_chunks(wc: int, vh: int) -> int:
+def row_chunks(wc: int, vh: int, splits: int = 3) -> int:
     """CTAs that split one block's window rows: 1 where blocks stack, else
     ceil(vh / tile_rows)."""
-    return 1 if blocks_per_cta(wc, vh) > 1 else -(-vh // tile_rows(wc, vh))
+    if blocks_per_cta(wc, vh, splits) > 1:
+        return 1
+    return -(-vh // tile_rows(wc, vh, splits))
+
+
+def fused_splits(spec_dtype: torch.dtype = torch.float32) -> int:
+    """The fused kernels' synthesis tier for spectra of ``spec_dtype``,
+    read from the config at every call — the JAX package's rule
+    (``cuda_fft_convolution_tpu/ops/block_conv.py:683-693``): bf16 spectra
+    run the bf16 entries (3 here: they widen each load and run the 3×TF32
+    syntheses, the TPU's single bf16 pass being BF16IO); fp32 spectra run
+    3×TF32 under ``fused_precision='bf16x3'``, and under 'highest' the tier
+    of ``matmul_precision``: 'highest' 6×TF32 (fp32-exact products, the
+    TPU's 6-pass HIGHEST), 'high' 3×TF32, 'default' one TF32 pass."""
+    if spec_dtype == torch.bfloat16:
+        return 3
+    cfg = get_config()
+    if cfg.fused_precision == "bf16x3":
+        return 3
+    return {"highest": 6, "high": 3, "default": 1}[cfg.matmul_precision]
 
 
 # Kernel spectra (re and im) a launch tile of the stacked configuration
@@ -152,7 +213,7 @@ def row_chunks(wc: int, vh: int) -> int:
 L2_TILE_BYTES = 8 << 20
 
 
-def kernel_tile(wc: int, vh: int, bank: torch.Tensor) -> int:
+def kernel_tile(wc: int, vh: int, bank: torch.Tensor, splits: int = 3) -> int:
     """The stacked configuration's launch order: the kernels of one launch
     tile, inside which the kernel index runs fastest and then the block
     group. As many kernels as ``L2_TILE_BYTES`` of their spectra hold (the
@@ -160,7 +221,7 @@ def kernel_tile(wc: int, vh: int, bank: torch.Tensor) -> int:
     configurations' order), so a tile's spectra stay in L2 while the data
     spectra pass once per tile."""
     n = bank.shape[0]
-    if blocks_per_cta(wc, vh) == 1:
+    if blocks_per_cta(wc, vh, splits) == 1:
         return n
     per_kernel = 2 * bank[0].numel() * bank.element_size()
     return max(1, min(n, L2_TILE_BYTES // per_kernel))
@@ -226,14 +287,19 @@ def block_conv_reference(
     out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Plain torch version of the fused kernel → (B, N, out_h, out_w) maps
-    in ``out_dtype``: bf16 planes are upcast to float32 first. Differentiable;
-    used on the CPU and by the tests."""
-    _check_out_dtype(out_dtype)
+    in ``out_dtype``: bf16 planes are upcast to float32 first. The plain
+    version of every synthesis tier (IEEE fp32). float64 planes run in
+    float64, with ``out_dtype=torch.float64`` for float64 maps (the checks'
+    exact reference). Differentiable; used on the CPU and by the tests."""
+    if out_dtype != torch.float64:
+        _check_out_dtype(out_dtype)
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
     dr, di, kr, ki = (upcast(t) for t in (dr, di, kr, ki))
-    gr, gi, mr, mi = _window_mats(block_h, block_w, kh, kw, str(dr.device))
+    gr, gi, mr, mi = (
+        m.to(dr.dtype) for m in _window_mats(block_h, block_w, kh, kw, str(dr.device))
+    )
 
     def mac(d, k):
         return torch.einsum("bijfuv,nfuv->bijnuv", d, k)
@@ -290,12 +356,25 @@ def reset_launches(*wrappers) -> None:
             w.launches_by_shape.clear()
 
 
-def _check_smem(block_w: int, wc: int, vh: int) -> None:
+def _check_smem(block_w: int, wc: int, vh: int, splits: int) -> None:
     validate(
-        smem_bytes(wc, vh) <= SMEM_LIMIT_BYTES,
-        f"block width {block_w} needs {smem_bytes(wc, vh)} B of shared memory "
-        f"(limit {SMEM_LIMIT_BYTES})",
+        smem_bytes(wc, vh, splits) <= SMEM_LIMIT_BYTES,
+        f"block width {block_w} needs {smem_bytes(wc, vh, splits)} B of shared "
+        f"memory at {splits}xTF32 (limit {SMEM_LIMIT_BYTES})",
     )
+
+
+def _resolve_splits(splits: int | None, spec_dtype: torch.dtype) -> int:
+    """The tier of a kernel call: ``splits``, or ``fused_splits`` of the
+    spectra's dtype where it is None. bf16 spectra have their one tier."""
+    if splits is None:
+        return fused_splits(spec_dtype)
+    _check_splits(splits)
+    validate(
+        splits == 3 or spec_dtype != torch.bfloat16,
+        f"bf16 spectra run one tier (splits=3); got splits={splits}",
+    )
+    return splits
 
 
 def block_conv(
@@ -303,15 +382,20 @@ def block_conv(
     kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32/bf16
     block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
     out_dtype: torch.dtype = torch.float32,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """→ (B, N, out_h, out_w) maps in ``out_dtype``. CPU tensors run
-    ``block_conv_reference``; CUDA tensors launch the CUDA kernel entry of
-    their (spectra, maps) dtypes on the current stream (no synchronisation)
-    and count the launch in ``block_conv.launches``, per mode in
+    ``block_conv_reference`` (IEEE fp32, the plain version of every tier);
+    CUDA tensors launch the CUDA kernel entry of their (spectra, maps)
+    dtypes and synthesis tier ``splits`` (None: ``fused_splits``, read from
+    the config) on the current stream (no synchronisation) and count the
+    launch in ``block_conv.launches``, per mode (the entry's name without
+    ``fftconv_``: ``block_conv_f32``, ``block_conv_f32_x6``, …) in
     ``block_conv.launches_by_mode`` and per (mode, block_h, block_w, kh,
     kw) in ``block_conv.launches_by_shape``."""
     _check_out_dtype(out_dtype)
     ops = (dr, di, kr, ki)
+    splits = _resolve_splits(splits, dr.dtype)
     if all(t.device.type == "cpu" for t in ops):
         return block_conv_reference(
             dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, out_dtype
@@ -320,13 +404,13 @@ def block_conv(
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
-    _check_smem(block_w, wc, vh)
+    _check_smem(block_w, wc, vh, splits)
     from cuda_fft_convolution_torch._build import library
 
     lib = library()
-    gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev))
-    mode = f"block_conv_{tag}{_MAPS_SUFFIX[out_dtype]}"
-    ktile = kernel_tile(wc, vh, kr)
+    gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev), splits)
+    mode = f"block_conv_{tag}{_MAPS_SUFFIX[out_dtype]}{TIER_SUFFIX[splits]}"
+    ktile = kernel_tile(wc, vh, kr, splits)
     out = torch.empty((b, n, out_h, out_w), dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -355,20 +439,56 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
     return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
+def tf32_split(x: torch.Tensor, pieces: int) -> list[torch.Tensor]:
+    """float32 ``x`` as ``pieces`` TF32 planes that sum to it, as the
+    kernels split an operand (csrc/block_conv.cuh split_n): p0 = tf32(x),
+    p1 = tf32(x − p0), p2 = tf32(x − p0 − p1); 2 pieces hold x to ~2^-22
+    relative, 3 to ~2^-33."""
+    out = []
+    for k in range(pieces):
+        p = tf32(x)
+        out.append(p)
+        if k + 1 < pieces:
+            x = x - p
+    return out
+
+
+def tf32_product(a: torch.Tensor, b: torch.Tensor, splits: int) -> torch.Tensor:
+    """a @ b as the kernels' tier ``splits`` runs it on the tensor cores,
+    emulated on the CPU (for the tests): the products of TF32 pieces whose
+    indices sum below the pieces an operand has (6×TF32: all but the three
+    below 2^-33; 3×TF32: a_lo·b_hi + a_hi·b_lo + a_hi·b_hi; one pass: hi·hi),
+    smallest first, each an fp32 matmul of TF32 values (exact products,
+    fp32 sums)."""
+    p = TIERS[splits]
+    pa, pb = tf32_split(a, p), tf32_split(b, p)
+    terms = [(i, s - i) for s in range(p - 1, -1, -1) for i in range(s, -1, -1)]
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32, device=a.device)
+    for i, j in terms:
+        out = out + pa[i] @ pb[j]
+    return out
+
+
 @functools.lru_cache(maxsize=16)
-def _kernel_mats(block_h: int, block_w: int, kh: int, kw: int, device: str):
-    """The kernels' matrix operands (csrc/block_conv.cuh launch_block_conv)
-    → (gt_re, gt_im, g_pad, m_tc): G^T (Lh, Vh), re and im, exact — the
-    block-stacked configuration's fp32 H stage stages G by spectrum rows;
-    G (2, Vh padded to 64, Lh padded to 16) = re, im, exact — the
-    tensor-core H stage's A operand, split in the kernel as it is staged;
-    and M^T's TF32 hi and lo planes in core matrices, the W stage's B
-    operand, which wgmma reads from shared memory as it is: M^T is (Vw
-    padded to 128, 2·Wc'), Wc' = Wc padded to 32, row c holding column c of
-    [Mr ; Mi] (Mr at k < Wc, Mi from k = Wc'); hi = tf32(M^T), lo =
-    tf32(M^T − hi); m_tc[p, c // 8, k // 4, c % 8, k % 4] is plane p (hi,
-    lo) at (c, k), 8 columns × 4 k of 128 contiguous bytes a core matrix.
-    Zeros fill every padding."""
+def _kernel_mats(
+    block_h: int, block_w: int, kh: int, kw: int, device: str, splits: int = 3
+):
+    """The kernels' matrix operands at tier ``splits`` (csrc/block_conv.cuh
+    launch_block_conv) → (gt_re, gt_im, g_pad, m_tc): G^T (Lh, Vh), re and
+    im, exact — the block-stacked configuration's fp32 H stage stages G by
+    spectrum rows; G (2, Vh padded to 64, Lh padded to 16) = re, im, exact
+    — the tensor-core H stage's A operand, split in the kernel as it is
+    staged; and M^T's planes in core matrices, the W stage's B operand,
+    which wgmma reads from shared memory as it is: M^T is (Vw padded to
+    128, 2·Wc'), Wc' = Wc padded to 32, row c holding column c of [Mr ; Mi]
+    (Mr at k < Wc, Mi from k = Wc'); its planes are its ``tf32_split``
+    pieces (3×TF32: hi = tf32(M^T), lo = tf32(M^T − hi); 6×TF32 adds a
+    third; one pass, hi alone), or M^T itself where the configuration
+    streams one plane and splits it in registers (``m_planes``: the 32-row
+    configuration at 6×TF32); m_tc[p, c // 8, k // 4, c % 8, k % 4] is
+    plane p at (c, k), 8 columns × 4 k of 128 contiguous bytes a core
+    matrix. Zeros fill every padding. The planes depend on the tier, so
+    the tier is part of the cache key."""
     gr, gi, mr, mi = _window_mats(block_h, block_w, kh, kw, device)
     (vh, lh), (wc, vw) = gr.shape, mr.shape
     g_pad = torch.zeros((2, -(-vh // 64) * 64, -(-lh // _UK) * _UK), device=device)
@@ -377,9 +497,10 @@ def _kernel_mats(block_h: int, block_w: int, kh: int, kw: int, device: str):
     cols = -(-vw // _COLS) * _COLS
     m_t = torch.zeros((cols, 2 * bins), device=device)
     m_t[:vw, :wc], m_t[:vw, bins : bins + wc] = mr.t(), mi.t()
-    hi = tf32(m_t)
-    planes = torch.stack([hi, tf32(m_t - hi)])
-    m_tc = planes.reshape(2, cols // 8, 8, bins // 2, 4).permute(0, 1, 3, 2, 4).contiguous()
+    rows = tile_rows(wc, block_h - kh + 1, splits)
+    pieces = m_planes(rows, splits)
+    planes = torch.stack([m_t] if pieces < TIERS[splits] else tf32_split(m_t, pieces))
+    m_tc = planes.reshape(pieces, cols // 8, 8, bins // 2, 4).permute(0, 1, 3, 2, 4).contiguous()
     return gr.t().contiguous(), gi.t().contiguous(), g_pad, m_tc
 
 
@@ -448,6 +569,7 @@ def block_conv_peaks(
     dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32/bf16
     kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32/bf16
     block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
+    splits: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The per-cell block-max pyramid of the fused block conv, with no maps
     written → ``(vals, idxs)``, each (B, N, nbh, nbw): the max response of
@@ -464,13 +586,15 @@ def block_conv_peaks(
     the pyramid over cells gives the exact per-kernel top-1 either way.
 
     CPU tensors run ``block_conv_peaks_reference``; CUDA tensors launch the
-    CUDA kernel entry of their spectra dtype on the current stream and
-    count the launch in ``block_conv_peaks.launches`` and, per mode, in
+    CUDA kernel entry of their spectra dtype and synthesis tier ``splits``
+    (None: ``fused_splits``) on the current stream and count the launch in
+    ``block_conv_peaks.launches`` and, per mode, in
     ``block_conv_peaks.launches_by_mode``. The kernel writes one pair per (cell,
     row chunk of ``tile_rows`` window rows; ``row_chunks``); a cell split into
     several row chunks is combined here (first maximum over chunks: chunk
     r's rows all precede chunk r+1's, so that keeps the tie rule)."""
     ops = (dr, di, kr, ki)
+    splits = _resolve_splits(splits, dr.dtype)
     if all(t.device.type == "cpu" for t in ops):
         return block_conv_peaks_reference(
             dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w
@@ -479,18 +603,18 @@ def block_conv_peaks(
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
-    _check_smem(block_w, wc, vh)
+    _check_smem(block_w, wc, vh, splits)
     _check_index_range(nbh, nbw, vh, vw, out_w)
     from cuda_fft_convolution_torch._build import library
 
     lib = library()
-    gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev))
-    chunks = row_chunks(wc, vh)
-    ktile = kernel_tile(wc, vh, kr)
+    gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev), splits)
+    chunks = row_chunks(wc, vh, splits)
+    ktile = kernel_tile(wc, vh, kr, splits)
     shape = (b, n, nbh, chunks, nbw)
     vals = torch.empty(shape, dtype=torch.float32, device=dev)
     idxs = torch.empty(shape, dtype=torch.int32, device=dev)
-    mode = f"block_conv_peaks_{tag}"
+    mode = f"block_conv_peaks_{tag}{TIER_SUFFIX[splits]}"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"fftconv_{mode}")(

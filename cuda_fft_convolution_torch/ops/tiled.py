@@ -35,6 +35,7 @@ from cuda_fft_convolution_torch.ops.block_conv import (
     SMEM_LIMIT_BYTES,
     block_conv,
     block_conv_peaks,
+    fused_splits,
     smem_bytes,
 )
 from cuda_fft_convolution_torch.ops.conv import (
@@ -202,28 +203,33 @@ def fft_data_blocks(
 
 
 def fused_dispatch_auto(
-    block_w: int, spec_dtype: torch.dtype = torch.float32, vh: int = 64
+    block_w: int, spec_dtype: torch.dtype = torch.float32, vh: int = 64,
+    splits: int | None = None,
 ) -> bool:
     """When ``conv_blocks`` runs the fused block-conv: the Hopper kernel's
     own legality rule — fp32 or bf16 spectra (the JAX rule admits both) and
-    a shared-memory need at window height ``vh`` within the per-block limit
-    (``smem_bytes``; blocks stack only where that fits, so the need is
-    within it wherever the one-block configurations are). The kernel takes
-    any channel count, block height and window; the JAX rule's geometry,
-    backend and channel-count tests were TPU v5e measurements. The rule is
-    the same on the CPU, where the fused branch runs the kernel's plain
-    version."""
-    return (
-        spec_dtype in (torch.float32, torch.bfloat16)
-        and smem_bytes(block_w // 2 + 1, vh) <= SMEM_LIMIT_BYTES
-    )
+    a shared-memory need at window height ``vh`` and synthesis tier
+    ``splits`` (None: ``fused_splits``, from the config) within the
+    per-block limit (``smem_bytes``; blocks stack only where that fits, so
+    the need is within it wherever the one-block configurations are). A
+    tier's planes change the need: a block wide enough for 3×TF32 may not
+    fit at 6×TF32, and then runs the unfused branch (IEEE fp32 through
+    ``torch.fft``), decided before any launch. The kernel takes any channel
+    count, block height and window; the JAX rule's geometry, backend and
+    channel-count tests were TPU v5e measurements. The rule is the same on
+    the CPU, where the fused branch runs the kernel's plain version."""
+    if spec_dtype not in (torch.float32, torch.bfloat16):
+        return False
+    if splits is None:
+        splits = fused_splits(spec_dtype)
+    return smem_bytes(block_w // 2 + 1, vh, splits) <= SMEM_LIMIT_BYTES
 
 
-def _fused(block_w: int, spec_dtype: torch.dtype, vh: int) -> bool:
+def _fused(block_w: int, spec_dtype: torch.dtype, vh: int, splits: int) -> bool:
     """``Config.use_fused_block_conv``, with None resolved by
-    ``fused_dispatch_auto``."""
+    ``fused_dispatch_auto`` at tier ``splits``."""
     fused = get_config().use_fused_block_conv
-    return fused_dispatch_auto(block_w, spec_dtype, vh) if fused is None else fused
+    return fused_dispatch_auto(block_w, spec_dtype, vh, splits) if fused is None else fused
 
 
 def _conv_blocks_unfused(
@@ -275,11 +281,11 @@ class _FusedBlockConv(torch.autograd.Function):
     forward rounded, as JAX's cast transpose does."""
 
     @staticmethod
-    def forward(ctx, d_re, d_im, k_re, k_im, geom, out_dtype):
+    def forward(ctx, d_re, d_im, k_re, k_im, geom, out_dtype, splits):
         ctx.save_for_backward(d_re, d_im, k_re, k_im)
         ctx.geom = geom
         ctx.out_dtype = out_dtype
-        return block_conv(d_re, d_im, k_re, k_im, *geom, out_dtype)
+        return block_conv(d_re, d_im, k_re, k_im, *geom, out_dtype, splits)
 
     @staticmethod
     def backward(ctx, g):
@@ -291,6 +297,7 @@ class _FusedBlockConv(torch.autograd.Function):
             grads = iter(torch.autograd.grad(out, wanted, g, create_graph=create_graph))
         return (
             *(next(grads) if need else None for need in ctx.needs_input_grad[:4]),
+            None,
             None,
             None,
         )
@@ -308,12 +315,14 @@ def fused_block_conv(
     out_h: int,
     out_w: int,
     out_dtype: torch.dtype = torch.float32,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """The fused block-conv made differentiable: forward through
-    ``block_conv``, backward through ``_conv_blocks_unfused``."""
+    ``block_conv`` at synthesis tier ``splits`` (None: ``fused_splits``),
+    backward through ``_conv_blocks_unfused``."""
     return _FusedBlockConv.apply(
         d_re, d_im, k_re, k_im, (block_h, block_w, kh, kw, out_h, out_w),
-        out_dtype,
+        out_dtype, splits,
     )
 
 
@@ -333,11 +342,14 @@ def conv_blocks(
     """Spectral MAC per block + inverse + overlap-save reassembly →
     (B, N, out_h, out_w) linear-convolution maps in ``out_dtype``. ``Config.
     use_fused_block_conv`` None = ``fused_dispatch_auto``; True/False force
-    the fused or unfused branch. Differentiable on both branches."""
-    if _fused(block_w, d_re.dtype, block_h - kh + 1):
+    the fused or unfused branch. The fused kernels' synthesis tier is
+    ``fused_splits``, read from the config at this call. Differentiable on
+    both branches."""
+    splits = fused_splits(d_re.dtype)
+    if _fused(block_w, d_re.dtype, block_h - kh + 1, splits):
         return fused_block_conv(
             d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w,
-            out_dtype,
+            out_dtype, splits,
         )
     return _conv_blocks_unfused(
         d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w,
@@ -427,12 +439,13 @@ def local_peaks_from_maps(
 
 
 def _cell_pyramid(
-    d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
+    d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w, splits
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The peaks kernel's pyramid flattened over cells → (vals, idxs), each
-    (B, N, nbh·nbw) in row-major cell order."""
+    """The peaks kernel's pyramid at synthesis tier ``splits`` flattened
+    over cells → (vals, idxs), each (B, N, nbh·nbw) in row-major cell
+    order."""
     vals, idxs = block_conv_peaks(
-        d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
+        d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w, splits
     )
     b, n = vals.shape[:2]
     return vals.reshape(b, n, -1), idxs.reshape(b, n, -1)
@@ -456,10 +469,12 @@ def conv_blocks_peaks(
     On the fused branch (``conv_blocks``' dispatch) the peaks kernel
     reduces each block to a (max, argmax) pair and the maps are never
     written; the first-maximum cell of the pyramid then gives the exact
-    top-1. On the unfused branch the assembled maps are reduced."""
-    if _fused(block_w, d_re.dtype, block_h - kh + 1):
+    top-1. On the unfused branch the assembled maps are reduced. The tier
+    is ``fused_splits``, read at this call."""
+    splits = fused_splits(d_re.dtype)
+    if _fused(block_w, d_re.dtype, block_h - kh + 1, splits):
         cells, idxs = _cell_pyramid(
-            d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
+            d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w, splits
         )
         ci = cells.argmax(dim=-1, keepdim=True)
         flat = idxs.gather(-1, ci)[..., 0]
@@ -493,10 +508,12 @@ def conv_blocks_top_k(
     exceeds the number of blocks, and on the unfused branch, the assembled
     maps are reduced EXACTLY. The JAX package's cells are groups of blocks
     sized for TPU VMEM, so its fused top-k can differ from this one for
-    k > 1."""
-    if _fused(block_w, d_re.dtype, block_h - kh + 1) and d_re.shape[1] * d_re.shape[2] >= k:
+    k > 1. The tier is ``fused_splits``, read at this call."""
+    splits = fused_splits(d_re.dtype)
+    fused = _fused(block_w, d_re.dtype, block_h - kh + 1, splits)
+    if fused and d_re.shape[1] * d_re.shape[2] >= k:
         cells, idxs = _cell_pyramid(
-            d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
+            d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w, splits
         )
         kv, ki = top_k_ordered(cells, k)
         flat = idxs.gather(-1, ki)

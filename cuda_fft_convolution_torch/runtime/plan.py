@@ -9,9 +9,12 @@ block size, the output window, the tier and an optional detection head.
 PyTorch compiles nothing ahead of time, so the counterpart of the JAX
 package's ``lower().compile()`` of each stage (data FFT, bank FFT, MAC and
 inverse) is a warm-up of the stage: the CUDA library is built and loaded,
-the DFT-matrix caches the fused kernel reads are filled, and the stage runs
+the DFT-matrix caches the fused kernel reads are filled (for the synthesis
+tier in force: ``ops/block_conv.py fused_splits``), and the stage runs
 once on zeros at the planned shapes, so that cuFFT's plan cache holds its
-plans. ``make_plan`` warms all three stages (``compile_now``); with
+plans. The tier is read at every call, as JAX re-traces on a config
+change: a plan built under one tier runs another's entries once the config
+names it (filling that tier's matrices at its first call). ``make_plan`` warms all three stages (``compile_now``); with
 ``lazy=True`` each stage warms at its first use. After that ``execute``
 only launches work.
 """

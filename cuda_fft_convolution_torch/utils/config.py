@@ -18,27 +18,35 @@ JAX package's takes. Fields that steer the port:
   - ``chunk_size``: the kernels a ``conv_spectral_pipelined`` chunk holds
     when the call gives none (``FFTCONV_CHUNK``; None = the planner decides).
 
-Fields that select a TPU engine or precision tier. The port accepts a value
-that describes what it already does, with no effect, and raises
-``InvalidInputError`` naming the field for one that asks for what it does
-not have:
+Fields that select an engine or a precision tier, as in the JAX package.
+The port raises ``InvalidInputError`` naming the field for a value that is
+not one of these:
 
-  field (environment variable)                  accepted            refused
-  ``use_pallas`` (FFTCONV_USE_PALLAS)           None, True, False   —
-  ``use_matmul_fft`` (FFTCONV_USE_MATMUL_FFT)   None, False         True
-  ``matmul_precision`` (FFTCONV_MATMUL_...)     'highest'           'high', 'default'
-  ``inverse_precision`` (FFTCONV_INVERSE_...)   'highest'           'high', 'default'
-  ``fused_precision`` (FFTCONV_FUSED_...)       'bf16x3'            'highest'
+  field (environment variable)                  values
+  ``use_pallas`` (FFTCONV_USE_PALLAS)           None, True, False
+  ``use_matmul_fft`` (FFTCONV_USE_MATMUL_FFT)   None, False (True refused)
+  ``matmul_precision`` (FFTCONV_MATMUL_...)     'highest', 'high', 'default'
+  ``inverse_precision`` (FFTCONV_INVERSE_...)   'highest', 'high', 'default'
+  ``fused_precision`` (FFTCONV_FUSED_...)       'bf16x3', 'highest'
 
-Every MAC runs the MAC kernel, whatever ``use_pallas`` says; transforms run
-on ``torch.fft`` (IEEE fp32: 'highest'), never on a matmul DFT engine;
-'bf16x3' is the JAX package's name for the split product that the fused
-kernels' 3×TF32 syntheses implement, and its fp32-exact 'highest' tier has
-no twin (3×TF32 sums are not fp32-exact).
+Every MAC runs the MAC kernel, whatever ``use_pallas`` says. The fused
+kernels' syntheses (``ops/block_conv.py fused_splits``, the JAX rule of
+``cuda_fft_convolution_tpu/ops/block_conv.py:683-693``): at fp32 spectra
+'bf16x3' runs 3×TF32 (the default), and 'highest' runs the tier of
+``matmul_precision``: 'highest' 6×TF32 (the TPU's fp32-exact 6-pass
+HIGHEST), 'high' 3×TF32, 'default' one TF32 pass (~2e-3, the TPU's single
+pass); bf16 spectra run their own entries whatever the fields say.
+``matmul_precision`` and ``inverse_precision`` also select the tier of the
+JAX package's MXU-DFT transforms, which JAX takes only on a TPU
+(``cuda_fft_convolution_tpu/ops/dft.py:256-267``); the port's transforms
+run on ``torch.fft`` (IEEE fp32) and, as JAX off the TPU, are unchanged by
+them. ``use_matmul_fft=True`` asks for that MXU-DFT engine, which the port
+leaves behind (``torch.fft`` replaces it): it is refused.
 
 The JAX package's ``register_jit_consumer`` and ``invalidate_jit_consumers``
 have no twin: the port keeps no jit cache for a configuration change to
-invalidate.
+invalidate; every call reads the config, so a plan or stream built under
+one tier runs the tier in force at each call.
 """
 
 from __future__ import annotations
@@ -49,12 +57,12 @@ import os
 from cuda_fft_convolution_torch.utils.errors import validate
 from cuda_fft_convolution_torch.utils.fft_size import FftSizePolicy
 
-# field → the values the port accepts (it runs them all the same way).
+# field → the values the port accepts.
 _ACCEPTED = {
     "use_matmul_fft": (None, False),
-    "matmul_precision": ("highest",),
-    "inverse_precision": ("highest",),
-    "fused_precision": ("bf16x3",),
+    "matmul_precision": ("highest", "high", "default"),
+    "inverse_precision": ("highest", "high", "default"),
+    "fused_precision": ("bf16x3", "highest"),
 }
 
 

@@ -16,10 +16,12 @@ from cuda_fft_convolution_torch.utils.device import resolve_device
 
 # Bars against the plain version (chip_smoke.py's): fp32 maps and MAC
 # outputs 1e-5 of the largest plain value, bf16 maps 5e-3 (their rounding),
-# the MAC on bf16 planes 1e-6 (exact products, fp32 sums).
+# the MAC on bf16 planes 1e-6 (exact products, fp32 sums); the fused
+# kernels' one-pass TF32 tier 2e-3 (fp32 spectra, fp32 maps).
 TOL = 1e-5
 BF16_MAPS_TOL = 5e-3
 MAC_BF16_TOL = 1e-6
+ONE_PASS_TOL = 2e-3
 # (B, F, N, block_h, block_w, kh, kw, out_h, out_w) of each configuration
 # of the block-conv and peaks kernels (ops/block_conv.py tile_rows,
 # blocks_per_cta): one block's 36 window rows in a 64-row CTA, Wc 451 in
@@ -51,11 +53,29 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want).abs().max() / want.abs().max())
 
 
+def _peaks_check(vals, idxs, want_v, want_i, maps, bar) -> tuple:
+    """A peaks entry's report: its values' error against the plain
+    version's; its indices equal to the plain version's, or, at the
+    one-pass tier (``bar`` above TOL), each at a position whose plain value
+    is within ``bar`` of the cell's max (a near tie may resolve either
+    way)."""
+    err = _rel(vals, want_v)
+    if torch.equal(idxs, want_i):
+        return err, bar, None
+    if bar > TOL:
+        flat = maps.reshape(*maps.shape[:2], -1)
+        at = flat.gather(-1, idxs.reshape(*idxs.shape[:2], -1).long().clamp(max=flat.shape[-1] - 1))
+        if (at.reshape(idxs.shape) >= want_v - bar * want_v.abs().max()).all():
+            return err, bar, None
+    return err, bar, "peak indices differ"
+
+
 def _block_conv_checks(dev: torch.device, gen: torch.Generator, report: dict) -> None:
     """The four maps entries and the two peaks entries in each
-    configuration, against ``block_conv_reference`` and
-    ``block_conv_peaks_reference`` on the same planes (peaks: indices
-    equal)."""
+    configuration, and the fp32 entries of the other synthesis tiers
+    (6×TF32 ``_x6`` at TOL, one pass ``_x1`` at ONE_PASS_TOL), against
+    ``block_conv_reference`` and ``block_conv_peaks_reference`` on the same
+    planes (peaks: indices equal but for the one-pass tier's near ties)."""
     from cuda_fft_convolution_torch.ops.block_conv import (
         block_conv,
         block_conv_peaks,
@@ -70,17 +90,18 @@ def _block_conv_checks(dev: torch.device, gen: torch.Generator, report: dict) ->
         f32 = tuple(torch.randn(shape, generator=gen, device=dev)
                     for shape in ((b, nbh, nbw, f, bh, wc),) * 2 + ((n, f, bh, wc),) * 2)
         geom = (bh, bw, kh, kw, out_h, out_w)
-        for tag, ops in (("f32", f32), ("bf16", tuple(x.to(bf16) for x in f32))):
+        tiers = (("f32", f32, 3, "", TOL), ("bf16", tuple(x.to(bf16) for x in f32), 3, "", TOL),
+                 ("f32", f32, 6, "_x6", TOL), ("f32", f32, 1, "_x1", ONE_PASS_TOL))
+        for tag, ops, splits, tier, tol in tiers:
             want = block_conv_reference(*ops, *geom)
-            for suffix, out_dtype, bar in (("", torch.float32, TOL),
-                                           ("_bf16maps", bf16, BF16_MAPS_TOL)):
-                err = _rel(block_conv(*ops, *geom, out_dtype), want)
-                report[f"fftconv_block_conv_{tag}{suffix} ({config})"] = (err, bar, None)
-            vals, idxs = block_conv_peaks(*ops, *geom)
+            for suffix, out_dtype, bar in (("", torch.float32, tol),
+                                           ("_bf16maps", bf16, max(tol, BF16_MAPS_TOL))):
+                err = _rel(block_conv(*ops, *geom, out_dtype, splits), want)
+                report[f"fftconv_block_conv_{tag}{suffix}{tier} ({config})"] = (err, bar, None)
+            vals, idxs = block_conv_peaks(*ops, *geom, splits)
             want_v, want_i = block_conv_peaks_reference(*ops, *geom)
-            report[f"fftconv_block_conv_peaks_{tag} ({config})"] = (
-                _rel(vals, want_v), TOL,
-                None if torch.equal(idxs, want_i) else "peak indices differ")
+            report[f"fftconv_block_conv_peaks_{tag}{tier} ({config})"] = _peaks_check(
+                vals, idxs, want_v, want_i, want, tol)
 
 
 def _mac_checks(dev: torch.device, gen: torch.Generator, report: dict) -> None:

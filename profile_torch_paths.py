@@ -26,8 +26,10 @@ filters, 5 levels), a ``train_step`` of the filter-bank detector (8 frames,
     python3 profile_torch_paths.py --ab-parent PARENT/cuda_fft_convolution_torch/csrc
 
 instead builds the fused maps and peaks kernels of a parent checkout's
-``csrc`` (one whose C entries take the launch-order argument and the
-fp32-FMA operands G^T, Mr, Mi) beside this tree's and times both in turns —
+``csrc`` (one whose C entries take the launch-order argument and this
+tree's default-tier operands, ``_kernel_mats(..., splits=3)``: G^T, G and
+M^T's TF32 hi and lo planes) beside this tree's default-tier (3×TF32)
+entries and times both in turns —
 parent, this tree, this tree, parent, CUDA events, median of 7, each side a
 bare call of its C entry — at the headline plan (float32) and at the DPM
 plan (bf16 spectra, and the same planes upcast to float32), printing how
@@ -145,14 +147,6 @@ def build_parent(csrc: pathlib.Path):
     return lib
 
 
-def parent_mats(bh, bw, kh, kw, device):
-    """The parent's matrix operands: G^T (Lh, Vh), Mr and Mi (Wc, Vw), f32."""
-    from cuda_fft_convolution_torch.ops.block_conv import _window_mats
-
-    gr, gi, mr, mi = _window_mats(bh, bw, kh, kw, device)
-    return gr.t().contiguous(), gi.t().contiguous(), mr, mi
-
-
 def bare_call(lib, ops, geom, peaks: bool, order: int, parent: bool):
     """The C entry of ``lib`` (the parent's, or this tree's) with launch
     order ``order`` on ``ops`` at ``geom``, with no wrapper around it →
@@ -166,7 +160,8 @@ def bare_call(lib, ops, geom, peaks: bool, order: int, parent: bool):
     n = ops[2].shape[0]
     bh, bw, kh, kw, out_h, out_w = geom
     vh, vw = bh - kh + 1, bw - kw + 1
-    mats = (parent_mats if parent else _kernel_mats)(bh, bw, kh, kw, str(ops[0].device))
+    # both sides take the default tier's operands
+    mats = _kernel_mats(bh, bw, kh, kw, str(ops[0].device), 3)
     tag = "bf16" if ops[0].dtype == torch.bfloat16 else "f32"
     if peaks:
         vals = torch.empty((b, n, nbh, 1, nbw), device=ops[0].device)

@@ -239,12 +239,18 @@ def test_build_library_named_by_source_hash(tmp_path):
     edited.write_bytes(sources[1].read_bytes() + b"\n")
     assert _build._library_path([sources[0], edited, *sources[2:]]) != path
     # every C entry point the wrappers call has a signature: one per kernel
-    # dtype mode, and the configuration model's three queries
+    # dtype mode and synthesis tier, and the configuration model's three
+    # queries (packed width, window height, tier)
     assert set(_build._SIGNATURES) == {
         "fftconv_block_conv_f32", "fftconv_block_conv_f32_bf16maps",
         "fftconv_block_conv_bf16", "fftconv_block_conv_bf16_bf16maps",
+        "fftconv_block_conv_f32_x6", "fftconv_block_conv_f32_bf16maps_x6",
+        "fftconv_block_conv_f32_x1", "fftconv_block_conv_f32_bf16maps_x1",
         "fftconv_block_conv_f32_smem_bytes", "fftconv_block_conv_f32_rows",
         "fftconv_block_conv_f32_blocks",
         "fftconv_block_conv_peaks_f32", "fftconv_block_conv_peaks_bf16",
+        "fftconv_block_conv_peaks_f32_x6", "fftconv_block_conv_peaks_f32_x1",
         "fftconv_spectral_mac_f32", "fftconv_spectral_mac_bf16",
     }
+    for query in ("smem_bytes", "rows", "blocks"):
+        assert len(_build._SIGNATURES[f"fftconv_block_conv_f32_{query}"][0]) == 3

@@ -128,6 +128,95 @@ def test_block_conv_kernel_bf16_modes_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_
         tbc.block_conv(ops16[0], *ops[1:], *geom)
 
 
+X6_TOL = 5e-7  # 6×TF32 against the plain version in float64
+ONE_PASS_TOL = 2e-3  # the one-pass TF32 tier
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", GEOMETRIES)
+def test_block_conv_tiers_match_plain_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
+    """The 6×TF32 (``_x6``) and one-pass (``_x1``) entries — f32 maps, bf16
+    maps, peaks — against the plain version on the same planes: 6×TF32
+    within X6_TOL of the plain version run in float64 (the fp32 plain
+    version is itself up to ~9e-7 from it at the 1023-long contractions)
+    and within TOL of the fp32 one, equal peak indices; one pass within
+    ONE_PASS_TOL, a peak index that differs only in a near tie of that
+    size. ``fused_precision='highest'`` with ``matmul_precision='high'``
+    runs the 3×TF32 entry, bitwise. Each call counts one launch on its
+    mode."""
+    rng = np.random.default_rng(19)
+    geom = (bh, bw, kh, kw, out_h, out_w)
+    ops = _planes(rng, cuda, b, f, n, *geom)
+    want = tbc.block_conv_reference(*ops, *geom)
+    want64 = tbc.block_conv_reference(*(x.double() for x in ops), *geom, torch.float64)
+    want_v, want_i = tbc.block_conv_peaks_reference(*ops, *geom)
+    for splits, tier, tol in ((6, "_x6", TOL), (1, "_x1", ONE_PASS_TOL)):
+        for out_dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16maps")):
+            mode = f"block_conv_f32{suffix}{tier}"
+            before = tbc.block_conv.launches_by_mode[mode]
+            got = tbc.block_conv(*ops, *geom, out_dtype, splits)
+            torch.cuda.synchronize()
+            assert tbc.block_conv.launches_by_mode[mode] == before + 1
+            assert got.dtype == out_dtype and got.shape == want.shape
+            bar = tol if out_dtype == torch.float32 else max(tol, BF16_OUT_TOL)
+            assert _rel(got.float(), want) <= bar, mode
+            if mode == "block_conv_f32_x6":
+                assert _rel(got.double(), want64) <= X6_TOL
+        mode = f"block_conv_peaks_f32{tier}"
+        before = tbc.block_conv_peaks.launches_by_mode[mode]
+        got_v, got_i = tbc.block_conv_peaks(*ops, *geom, splits)
+        torch.cuda.synchronize()
+        assert tbc.block_conv_peaks.launches_by_mode[mode] == before + 1
+        assert _rel(got_v, want_v) <= tol
+        flips = got_i != want_i
+        if splits == 6:
+            assert not flips.any()
+        elif flips.any():  # a near tie: the kernel's position holds a value that close
+            flat = want.reshape(b, n, -1)
+            at = flat.gather(-1, got_i.reshape(b, n, -1).long()).reshape(got_i.shape)
+            assert (at[flips] >= want_v[flips] - tol * want_v.abs().max()).all()
+    before = tfc.get_config()
+    try:
+        tfc.set_config(fused_precision="highest", matmul_precision="high")
+        high = tbc.block_conv(*ops, *geom)
+    finally:
+        tfc.set_config(fused_precision=before.fused_precision,
+                       matmul_precision=before.matmul_precision)
+    assert torch.equal(high, tbc.block_conv(*ops, *geom, torch.float32, 3))
+
+
+@pytest.mark.gpu
+def test_highest_tier_calls_on_gpu(cuda):
+    """Under ``fused_precision='highest'`` the tiled ``fft_conv`` and
+    ``detect_peaks`` on the card run the 6×TF32 entries and agree with the
+    same calls on the CPU (the plain versions); under
+    ``matmul_precision='default'`` too, the one-pass entries, at that
+    tier's bar."""
+    rng = np.random.default_rng(23)
+    data = rng.standard_normal((300, 280, 1)).astype(np.float32)
+    bank = rng.standard_normal((5, 24, 24, 1)).astype(np.float32)
+    kw = dict(mode="same", algorithm="tiled")
+    before = tfc.get_config()
+    try:
+        for matmul, tier, tol in (("highest", "_x6", TOL), ("default", "_x1", ONE_PASS_TOL)):
+            tfc.set_config(fused_precision="highest", matmul_precision=matmul)
+            tbc.reset_launches(tbc.block_conv, tbc.block_conv_peaks)
+            got = tfc.fft_conv(data, kernels=bank, **kw, device="cuda")
+            vals, pos = tfc.detect_peaks(data, bank, **kw, device="cuda")
+            torch.cuda.synchronize()
+            assert tbc.block_conv.launches_by_mode[f"block_conv_f32{tier}"] == 1
+            assert tbc.block_conv_peaks.launches_by_mode[f"block_conv_peaks_f32{tier}"] == 1
+            want = tfc.fft_conv(data, kernels=bank, **kw, device="cpu")
+            assert _rel(got.cpu(), want) <= tol
+            cpu_vals, cpu_pos = tfc.detect_peaks(data, bank, **kw, device="cpu")
+            assert _rel(vals.cpu(), cpu_vals) <= tol
+            if matmul == "highest":
+                assert torch.equal(pos.cpu(), cpu_pos)
+    finally:
+        tfc.set_config(fused_precision=before.fused_precision,
+                       matmul_precision=before.matmul_precision)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", GEOMETRIES)
 def test_block_conv_peaks_kernel_bf16_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
@@ -815,7 +904,9 @@ def test_selftest_kernels_ok_on_gpu(cuda):
     assert rep["backend"] == "cuda" and rep["fft_ok"] is True
     assert rep["device_kind"] == torch.cuda.get_device_name()
     assert rep["kernels_ok"] is True, rep.get("kernels_failed", rep.get("kernels_error"))
-    assert len(rep["kernels"]) == 22
+    # 3 configurations x (6 entries + 3 of each of the 6xTF32 and one-pass
+    # tiers) + 4 MAC tiles
+    assert len(rep["kernels"]) == 40
 
 
 @pytest.fixture

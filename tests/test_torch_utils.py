@@ -1,6 +1,7 @@
 """The port's utilities against the JAX package's: every ``Config`` field
-(from ``set_config`` and from its environment variable, and the values the
-port refuses), image I/O, profiling and the device self-test on the CPU."""
+(from ``set_config`` and from its environment variable, the precision
+tiers it accepts and the one value it refuses), image I/O, profiling and
+the device self-test on the CPU."""
 
 import os
 import types
@@ -31,13 +32,19 @@ FIELDS = {
     "use_fused_block_conv": (False, "FFTCONV_FUSED_BLOCK_CONV", "1", True),
     "fused_precision": ("bf16x3", "FFTCONV_FUSED_PRECISION", "bf16x3", "bf16x3"),
 }
-REFUSED = [
-    ("use_matmul_fft", True, "FFTCONV_USE_MATMUL_FFT", "1"),
+# the JAX package's precision tiers beside the defaults: the fused kernels'
+# 6×TF32 and one-pass syntheses (tests/test_torch_precision.py), and the
+# transform tiers JAX reads only on a TPU
+ACCEPTED = [
     ("matmul_precision", "high", "FFTCONV_MATMUL_PRECISION", "high"),
     ("matmul_precision", "default", "FFTCONV_MATMUL_PRECISION", "default"),
     ("inverse_precision", "high", "FFTCONV_INVERSE_PRECISION", "high"),
     ("inverse_precision", "default", "FFTCONV_INVERSE_PRECISION", "default"),
     ("fused_precision", "highest", "FFTCONV_FUSED_PRECISION", "highest"),
+]
+# the MXU-DFT transform engine, which the port leaves behind (torch.fft)
+REFUSED = [
+    ("use_matmul_fft", True, "FFTCONV_USE_MATMUL_FFT", "1"),
 ]
 
 
@@ -65,6 +72,23 @@ def test_config_field_from_set_config_and_env(name, monkeypatch):
     monkeypatch.setenv(env, spelled)
     assert getattr(tconfig.Config.from_env(), name) == parsed
     assert getattr(jconfig.Config.from_env(), name) == parsed
+
+
+@pytest.mark.parametrize("name,value,env,spelled", ACCEPTED)
+def test_config_accepts_the_precision_tiers(name, value, env, spelled, monkeypatch):
+    before = tfc.get_config()
+    try:
+        assert getattr(tfc.set_config(**{name: value}), name) == value
+        assert getattr(tfc.get_config(), name) == value
+    finally:
+        tfc.set_config(**{name: getattr(before, name)})
+    assert tfc.get_config() == before
+    monkeypatch.setenv(env, spelled)
+    assert getattr(tconfig.Config.from_env(), name) == value
+    assert getattr(jconfig.Config.from_env(), name) == value
+    with pytest.raises(tfc.InvalidInputError, match=name):
+        tfc.set_config(**{name: value.upper()})  # a value neither package knows
+    assert tfc.get_config() == before
 
 
 @pytest.mark.parametrize("name,value,env,spelled", REFUSED)
