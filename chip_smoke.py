@@ -29,9 +29,10 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      unfused pipeline's launch shape (every block against the bank, read
      from ``spectral_mac.launches_by_shape``) against the einsum;
   6. holds the peaks kernel against its plain version at the geometries of
-     step 3 (values within 1e-5 relative; indices equal except in near-tie
-     cells, where the kernel's position must hold a plain value within
-     tolerance of the cell max), and at the headline plan with N=100;
+     step 3 (values within 1e-5 relative, 5e-3 at BF16IO; indices equal
+     except in near-tie cells, where the kernel's position must hold a
+     plain value within tolerance of the cell max), and at the headline
+     plan with N=100;
   7. runs the detection headline — ``detect_peaks`` of a 2048² noise image
      with the 100 kernels planted once each at 3× amplitude on a 10×10 grid
      — checks that it went through the peaks kernel, found every planted
@@ -49,16 +50,19 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      against its plain version, the direct call, and the MAC kernel
      against the einsum at F=1 and F=3;
  10. the bf16 serving tier's kernel modes (steps 3 and 6 run them too: bf16
-     spectra within 1e-5 of the plain version on the same bf16 planes, bf16
-     maps within 5e-3 of its float32 maps): the MAC kernel on bf16 planes
-     against the einsum at F=1 and F=3 (1e-6);
+     spectra at their default tier, BF16IO, within 5e-3 of the plain
+     version at that tier on the same bf16 planes and 1e-4 in root mean
+     square — the two round S and X to bf16 after sums in other orders —
+     and at the explicit 3xTF32 within 1e-5; bf16 maps within 5e-3 of its
+     float32 maps): the MAC kernel on bf16 planes against the einsum at F=1
+     and F=3 (1e-6);
  11. the headline at the tier — ``fft_conv(..., store_dtype='bfloat16')``,
      the same with ``out_dtype='bfloat16'``, and float32 spectra with bf16
      maps — against float64 numpy on 8 maps (2e-2, or 5e-3 for bf16 maps
      alone), the direct engine at the tier, and ``detect_peaks`` at the
      tier on the detection headline (every planted centre found); times
-     each call beside the float32 call, and each kernel mode at the
-     headline plan beside its plain version;
+     each call beside the float32 call, and the f32-spectra bf16-maps
+     kernel at the headline plan beside its plain version;
  12. the DPM/HOG detector path at full width: a 4096² image from the seed
      through ``hog_features(cell=8, bins=31)`` to (512, 512, 31) features
      cast to bf16, a bank of 1024 filters of 12×12×31, then
@@ -238,6 +242,25 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      float64, each call timed; each tier's kernels timed beside the default
      tier's, with their bounds (the tier's TF32 passes at 495 TFLOP/s). The
      config is restored in a ``finally``.
+ 35. the bf16 tier's single pass, BF16IO (``ops/block_conv.py BF16IO``, the
+     default of bf16 spectra): the headline ``fft_conv`` at the tier against
+     float64 (2e-2) and its bf16 maps against its f32 maps (5e-3), the
+     ``_io`` maps kernels (f32 and bf16 maps) on the headline's bf16
+     spectra against their plain version, the control (``io_control``);
+     ``detect_peaks`` on the detection headline at the tier (all
+     100 plants, = the argmax of the tier's maps, the peaks kernel's row),
+     the bf16-maps and peaks entries bitwise against the f32-maps entry
+     (``check_io_bitwise``, also at the DPM and F=8 plans and in steps 3
+     and 33); at the DPM plan the 3xTF32 twins (``block_conv_bf16``,
+     ``_bf16maps``, ``block_conv_peaks_bf16``, launched by explicit
+     ops-level calls with ``splits=3``, JAX's explicit
+     ``precision=BF16X3`` on bf16 planes; no route of the package takes
+     them) and ``detect_peaks`` at the tier
+     (the 8 plants, = the argmax of the tier's maps); the twins at the F=8
+     plan; the 16 x 512² large-kernel call at the tier (32-row
+     configuration) against float64 (2e-2) and its kernel; then each _io
+     entry's ms beside its twin's and its bound (one bf16 pass at 989
+     TFLOP/s, or the bytes).
 
 At every MAC row (the direct shape's F=1 and F=3, f32 and bf16, the
 unfused headline's and the model layer's shapes) it prints the tile the
@@ -248,7 +271,7 @@ at each MAC row in turns, parent, this tree, this tree, parent (bare C
 entries, CUDA events, median of 7 windows of 10 calls), the outputs
 compared.
 
-Steps 13–34 print each check, each time (CUDA events, median of 7, unless
+Steps 13–35 print each check, each time (CUDA events, median of 7, unless
 said otherwise) beside the card's name and power limit, the kernel launches
 of each call, the planner's plans and each phase's peak allocation; the
 smoke fails if its peak allocation reaches 60 GiB.
@@ -259,13 +282,20 @@ entries of the three kernels, and the MAC's shapes of steps 24–26 as
 launch shape, ``spectral_mac.launches_by_shape``, and step 32's sharded
 training step's own forward and dK rows, ``spectral_mac_f32:<shape>_sharded``
 on that step's operands, and step 33's maps-kernel rows at the large-kernel
-and F=8 plans, ``block_conv_f32:large_kernel`` and ``block_conv_bf16:f8_tier``,
+and F=8 plans, ``block_conv_f32:large_kernel`` and ``block_conv_bf16_io:f8_tier``,
 whose launches are the main-path call's at that plan,
 ``block_conv.launches_by_shape``, and the peaks kernel's there,
-``block_conv_peaks_f32:large_kernel`` and ``block_conv_peaks_bf16:f8_tier``,
+``block_conv_peaks_f32:large_kernel`` and ``block_conv_peaks_bf16_io:f8_tier``,
 and step 34's tier entries, ``block_conv_f32_x6``, ``block_conv_f32_x1``,
 their ``_bf16maps`` and ``block_conv_peaks_f32_x6`` / ``_x1`` modes and
-the maps entries at the large-kernel plan: launches on the main path, error, time,
+the maps entries at the large-kernel plan, and the BF16IO entries
+``block_conv_bf16_io``, ``block_conv_bf16_bf16maps_io`` and
+``block_conv_peaks_bf16_io`` (at the DPM plan, from step 12; at the F=8
+plan from step 33, ``:f8_tier``; at the headline and large-kernel plans
+from step 35, ``:headline``, ``:large_kernel``), whose 3xTF32 twins are
+the ``block_conv_bf16`` rows (step 35; their launches are explicit
+ops-level calls, and their ``called_by`` key says so — every other row's
+says "main path"): launches on the main path, error, time,
 plain time, the bound worked out from the shapes — the larger of the
 operations at the peak rate of the units that run them and the bytes at
 3.35 TB/s; ``block_conv_bound`` and ``mac_bound`` say which — and the time
@@ -306,14 +336,36 @@ DETECT = dict(HEADLINE, grid=10, stride=200, offset=100, amplitude=3.0)
 # features at `amplitude` for the detection check.
 DPM = dict(image=4096, cell=8, bins=31, n=1024, k=12, plants=8, amplitude=0.1)
 RUNS = 7
-# The fused kernels' synthesis tiers (splits: TF32 products per product;
-# ops/block_conv.py fused_splits) and their bars against the plain version
-# (step 34): 6xTF32 within 5e-7 of the plain maps, one pass within 2e-3;
-# the 'highest' headline's float64 error at most 1.25x the plain version's.
-TIERS = (3, 6, 1)
+# The fused kernels' synthesis tiers' bars (ops/block_conv.py
+# fused_splits) against the plain version (step 34): 6xTF32 within 5e-7 of
+# the plain maps, one pass within 2e-3; the 'highest' headline's float64
+# error at most 1.25x the plain version's.
 X6_TOL = 5e-7
 X1_TOL = 2e-3
 X6_F64_RATIO = 1.25
+# The BF16IO tier (bf16 spectra's default) against its plain version: the
+# two round S and X to bf16 after fp32 sums taken in other orders, so a
+# value at a rounding boundary (bf16 products are exact, so exact ties are
+# common) lands one bf16 step (2^-8) the other way. On the H100 the largest
+# error read 5.6e-5 to 3.7e-4 on random planes and at the headline, 2.0e-3
+# at the DPM plan: one X value there, at an exact tie in the plain
+# version's X, row 6 and W bin 0 of its block, rounded the other way by the
+# kernel; flipped in the plain version it leaves 1.3e-7
+# (``profile_torch_paths.py --bf16io-witness``), and the plain version
+# summed in float64 reads the same 2.0e-3 from the float32 one. The
+# largest error is held to IO_TOL, the envelope of one bf16 rounding (the
+# bf16 maps' bar); the root mean square, which such rare steps hardly move
+# (1e-5 to 4e-5 there) but a product that missed its rounding would
+# (1.6e-3 to 3.9e-3 in the witness), to IO_RMS_TOL. Each run shows the RMS
+# bar's power (``io_control``: the 3xTF32 entry, which rounds neither S nor
+# X, fails it), and the bf16-maps and peaks entries are held bitwise to
+# the f32-maps entry (``check_io_bitwise``), which carries both bars.
+IO_TOL = 5e-3
+IO_RMS_TOL = 1e-4
+# The bf16 spectra's 3xTF32 entries (JAX's explicit precision=BF16X3): no
+# route of the package takes them, so their rows' launches are explicit
+# ops-level calls with splits=3 (step 35).
+OPS_LEVEL_MODES = ("block_conv_bf16", "block_conv_bf16_bf16maps", "block_conv_peaks_bf16")
 
 
 def env_report() -> None:
@@ -334,8 +386,10 @@ def build_kernels() -> None:
     per CTA) against the kernel's C entries over (vh, wc) pairs."""
     from cuda_fft_convolution_torch import _build
     from cuda_fft_convolution_torch.ops.block_conv import (
+        TIERS,
         blocks_per_cta,
         smem_bytes,
+        tier_name,
         tile_rows,
     )
 
@@ -365,12 +419,12 @@ def build_kernels() -> None:
                 if got != want:
                     raise AssertionError(
                         f"configuration model differs from the kernel at Wc={wc}, Vh={vh}, "
-                        f"{splits}xTF32: kernel (smem, rows, blocks) {got}, Python {want}")
+                        f"{tier_name(splits)}: kernel (smem, rows, blocks) {got}, Python {want}")
                 pairs += 1
     if lib.fftconv_block_conv_f32_smem_bytes(224, 64, 2) != -1:
-        raise AssertionError("the configuration queries take a tier outside (1, 3, 6)")
+        raise AssertionError("the configuration queries take a tier outside (0, 1, 3, 6)")
     for splits in TIERS:
-        print(f"  {splits}xTF32: headline (Wc 224, Vh 64) {smem_bytes(224, 64, splits)} B, "
+        print(f"  {tier_name(splits)}: headline (Wc 224, Vh 64) {smem_bytes(224, 64, splits)} B, "
               f"{tile_rows(224, 64, splits)} rows; 1024 block (Wc 513) "
               f"{smem_bytes(513, 961, splits)} B, {tile_rows(513, 961, splits)} rows; DPM "
               f"(Wc 70, Vh 16) {smem_bytes(70, 16, splits)} B, "
@@ -461,8 +515,36 @@ def stacked_model(ops, geom) -> dict:
                 useful_mflop=cell_flop(f, lh, wc, vh, vw) / 1e6)
 
 
+def resolved(d_re, splits) -> int:
+    """The synthesis tier a kernel call on spectra ``d_re`` runs at
+    ``splits`` (None: the config's)."""
+    from cuda_fft_convolution_torch.ops.block_conv import _resolve_splits
+
+    return _resolve_splits(splits, d_re.dtype)
+
+
+def tier_label(d_re, splits) -> str:
+    """``resolved``'s tier by name."""
+    from cuda_fft_convolution_torch.ops.block_conv import tier_name
+
+    return tier_name(resolved(d_re, splits))
+
+
+def tier_tol(d_re, splits) -> float:
+    """A kernel's bar against its plain version at the tier ``splits``
+    (None: the config's) runs on spectra ``d_re``."""
+    from cuda_fft_convolution_torch.ops.block_conv import BF16IO
+
+    return {1: X1_TOL, BF16IO: IO_TOL}.get(resolved(d_re, splits), TOL)
+
+
 def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
+
+
+def rms_rel_err(got, want) -> float:
+    """Root mean square error relative to the root mean square of ``want``."""
+    return float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
 
 
 def check_kernel(d_re, d_im, k_re, k_im, geom, label, out_dtype=None, tol=TOL,
@@ -477,16 +559,23 @@ def check_kernel(d_re, d_im, k_re, k_im, geom, label, out_dtype=None, tol=TOL,
 
     out_dtype = out_dtype or torch.float32
     got = block_conv(d_re, d_im, k_re, k_im, *geom, out_dtype, splits)
-    want = block_conv_reference(d_re, d_im, k_re, k_im, *geom)
+    want = block_conv_reference(d_re, d_im, k_re, k_im, *geom, splits=splits)
     torch.cuda.synchronize()
     if got.dtype != out_dtype:
         raise AssertionError(f"kernel maps are {got.dtype}, not {out_dtype} ({label})")
     got = got.float()
     err = rel_err(got, want)
     abs_err = float((got - want).abs().max())
-    tier = "" if splits in (None, 3) else f" {splits}xTF32"
+    tier = tier_label(d_re, splits)
+    rms = ""
+    if tier == "bf16io" and out_dtype == torch.float32:
+        rms_err = rms_rel_err(got, want)
+        rms = f", rms rel {rms_err:.3e} (bar {IO_RMS_TOL:g})"
+        if rms_err > IO_RMS_TOL:
+            raise AssertionError(f"kernel's rms error {rms_err} over {IO_RMS_TOL} ({label})")
     print(f"kernel vs plain [{label}] {str(d_re.dtype)[6:]} spectra, {str(out_dtype)[6:]} "
-          f"maps{tier} {tuple(got.shape)}: max abs {abs_err:.3e}, rel {err:.3e} (bar {tol:g})")
+          f"maps {tier} {tuple(got.shape)}: max abs {abs_err:.3e}, rel {err:.3e} (bar {tol:g})"
+          f"{rms}")
     if not (err <= tol and torch.isfinite(got).all()):
         raise AssertionError(f"kernel disagrees with its plain version ({label}): {err}")
     return abs_err
@@ -494,21 +583,73 @@ def check_kernel(d_re, d_im, k_re, k_im, geom, label, out_dtype=None, tol=TOL,
 
 def check_kernel_modes(d_re, d_im, k_re, k_im, geom, label) -> dict:
     """The maps kernel in its four dtype modes and the peaks kernel in its
-    two on the same planes (bf16 modes: the planes rounded to bf16) →
+    two on the same planes (bf16 modes: the planes rounded to bf16), bf16
+    spectra at their default tier BF16IO and at the explicit 3xTF32 →
     {mode: max abs error}."""
     import torch
 
     bf16 = torch.bfloat16
     ops = (d_re, d_im, k_re, k_im)
     ops16 = tuple(x.to(bf16) for x in ops)
-    return {
+    errs = {
         "block_conv_f32": check_kernel(*ops, geom, label),
         "block_conv_f32_bf16maps": check_kernel(*ops, geom, label, bf16, BF16_OUT_TOL),
-        "block_conv_bf16": check_kernel(*ops16, geom, label),
-        "block_conv_bf16_bf16maps": check_kernel(*ops16, geom, label, bf16, BF16_OUT_TOL),
+        "block_conv_bf16_io": check_kernel(*ops16, geom, label, tol=IO_TOL),
+        "block_conv_bf16_bf16maps_io": check_kernel(*ops16, geom, label, bf16, BF16_OUT_TOL),
+        "block_conv_bf16": check_kernel(*ops16, geom, label, splits=3),
+        "block_conv_bf16_bf16maps": check_kernel(*ops16, geom, label, bf16, BF16_OUT_TOL, 3),
         "block_conv_peaks_f32": check_peaks(*ops, geom, label),
-        "block_conv_peaks_bf16": check_peaks(*ops16, geom, label),
+        "block_conv_peaks_bf16_io": check_peaks(*ops16, geom, label, IO_TOL),
+        "block_conv_peaks_bf16": check_peaks(*ops16, geom, label, splits=3),
     }
+    check_io_bitwise(ops16, geom, label, ops16)
+    return errs
+
+
+def check_io_bitwise(ops, geom, label, peaks_ops) -> None:
+    """The BF16IO entries against the f32-maps entry on the same bf16
+    spectra, bitwise: the bf16 maps are its maps rounded once, and the peaks
+    kernel's pairs on ``peaks_ops`` are ``cell_peaks`` of its maps of
+    ``peaks_ops``. So the two rest on its check against the plain version
+    (IO_TOL, and IO_RMS_TOL, which bf16 maps' own rounding would swamp)."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.block_conv import (
+        block_conv,
+        block_conv_peaks,
+        cell_peaks,
+    )
+
+    maps = block_conv(*ops, *geom)
+    same_maps = torch.equal(block_conv(*ops, *geom, torch.bfloat16), maps.to(torch.bfloat16))
+    del maps
+    bh, bw, kh, kw = geom[:4]
+    vals, idxs = block_conv_peaks(*peaks_ops, *geom)
+    cell_v, cell_i = cell_peaks(block_conv(*peaks_ops, *geom), *peaks_ops[0].shape[1:3],
+                                bh - kh + 1, bw - kw + 1)
+    same_peaks = torch.equal(vals, cell_v) and torch.equal(idxs, cell_i)
+    print(f"bf16io entries against the f32-maps entry [{label}]: bf16 maps = its maps rounded "
+          f"{same_maps}; peaks = its maps' cell peaks {same_peaks} (bitwise)")
+    if not (same_maps and same_peaks):
+        raise AssertionError(f"bf16io entries differ from the f32-maps entry's maps ({label})")
+
+
+def io_control(ops, geom, label) -> None:
+    """The BF16IO check's control: the 3xTF32 entry on the same bf16
+    spectra, which rounds neither S nor X, held against the BF16IO plain
+    version. Fails unless it lies beyond IO_RMS_TOL, i.e. unless the bar
+    tells a kernel that misses the tier's roundings from one that rounds."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.block_conv import block_conv, block_conv_reference
+
+    want = block_conv_reference(*ops, *geom)
+    got = block_conv(*ops, *geom, torch.float32, 3)
+    rms, err = rms_rel_err(got, want), rel_err(got, want)
+    print(f"control [{label}]: the 3xTF32 entry against the bf16io plain version: rms rel "
+          f"{rms:.3e} ({rms / IO_RMS_TOL:.1f}x IO_RMS_TOL), rel {err:.3e}")
+    if rms <= IO_RMS_TOL:
+        raise AssertionError(f"IO_RMS_TOL does not tell 3xTF32 from bf16io ({label}): {rms}")
 
 
 def check_random_geometries(rng, geometries, check=None) -> None:
@@ -590,8 +731,8 @@ def check_peaks(d_re, d_im, k_re, k_im, geom, label, tol=TOL, splits=None) -> fl
     vh, vw = bh - kh + 1, bw - kw + 1
     nbh, nbw = d_re.shape[1], d_re.shape[2]
     got_v, got_i = block_conv_peaks(d_re, d_im, k_re, k_im, *geom, splits)
-    want_v, want_i = block_conv_peaks_reference(d_re, d_im, k_re, k_im, *geom)
-    maps = block_conv_reference(d_re, d_im, k_re, k_im, *geom)
+    want_v, want_i = block_conv_peaks_reference(d_re, d_im, k_re, k_im, *geom, splits)
+    maps = block_conv_reference(d_re, d_im, k_re, k_im, *geom, splits=splits)
     torch.cuda.synchronize()
     if not (got_v.shape == want_v.shape and got_i.dtype == torch.int32
             and torch.isfinite(got_v).all() and torch.isfinite(want_v).all()):
@@ -615,7 +756,7 @@ def check_peaks(d_re, d_im, k_re, k_im, geom, label, tol=TOL, splits=None) -> fl
             raise AssertionError(
                 f"peaks kernel indices disagree outside near-tie cells ({label}): "
                 f"{int((~ok).sum())} cells")
-    tier = "" if splits in (None, 3) else f" {splits}xTF32"
+    tier = f" {tier_label(d_re, splits)}"
     print(f"peaks kernel vs plain [{label}] {str(d_re.dtype)[6:]} spectra{tier} "
           f"{tuple(got_v.shape)} cells: values max abs "
           f"{abs_err:.3e}, rel {abs_err / scale:.3e}; near-tie cells {int(near.sum())}, "
@@ -1024,9 +1165,9 @@ def tier_headline(fc, image_d, bank_d, idx, want, path_launches) -> dict:
     s, n = HEADLINE["size"], HEADLINE["n"]
     calls = {
         "f32": (dict(), None, None),
-        "bf16 spectra": (dict(store_dtype="bfloat16"), "block_conv_bf16", BF16_TOL),
+        "bf16 spectra": (dict(store_dtype="bfloat16"), "block_conv_bf16_io", BF16_TOL),
         "bf16 spectra, bf16 maps": (dict(store_dtype="bfloat16", out_dtype="bfloat16"),
-                                    "block_conv_bf16_bf16maps", BF16_TOL),
+                                    "block_conv_bf16_bf16maps_io", BF16_TOL),
         "f32 spectra, bf16 maps": (dict(out_dtype="bfloat16"),
                                    "block_conv_f32_bf16maps", BF16_OUT_TOL),
         "direct, f32": (dict(algorithm="direct"), None, None),
@@ -1160,8 +1301,8 @@ def dpm_path(fc, seed, path_launches) -> tuple[dict, dict]:
     idx = list(range(0, n, n // 8))[:8]
     want = dpm_reference_f64(feats.double().cpu().numpy(), bank.cpu().numpy(), idx)
     maps32 = None
-    for label, out_dtype, mode in (("f32 maps", None, "block_conv_bf16"),
-                                   ("bf16 maps", "bfloat16", "block_conv_bf16_bf16maps")):
+    for label, out_dtype, mode in (("f32 maps", None, "block_conv_bf16_io"),
+                                   ("bf16 maps", "bfloat16", "block_conv_bf16_bf16maps_io")):
         maps = main_path(f"DPM conv_spectral, {label}",
                          lambda: fc.conv_spectral(sd, sk, mode="same", out_dtype=out_dtype),
                          mode, path_launches)
@@ -1191,7 +1332,7 @@ def dpm_path(fc, seed, path_launches) -> tuple[dict, dict]:
         "DPM detect_peaks at the tier",
         lambda: detect_peaks(feats_p, bank, mode="same", correlation=True,
                              store_dtype="bfloat16"),
-        "block_conv_peaks_bf16", path_launches)
+        "block_conv_peaks_bf16_io", path_launches)
     found = (pos[planted] == centres).all(-1)
     print(f"DPM detect_peaks: {tuple(vals.shape)} peaks; planted filters {planted} found at "
           f"their centres: {int(found.sum())} of {len(planted)}")
@@ -1201,28 +1342,30 @@ def dpm_path(fc, seed, path_launches) -> tuple[dict, dict]:
     # the kernels at the DPM plan against their plain versions
     label = f"DPM plan, N={n}"
     kernels = {
-        "block_conv_bf16": check_kernel(*ops, geom, label),
-        "block_conv_bf16_bf16maps": check_kernel(*ops, geom, label, bf16, BF16_OUT_TOL),
+        "block_conv_bf16_io": check_kernel(*ops, geom, label, tol=IO_TOL),
+        "block_conv_bf16_bf16maps_io": check_kernel(*ops, geom, label, bf16, BF16_OUT_TOL),
     }
     sdp = fc.fft_data_tiled(feats_p, k, k, trim_mode="same", store_dtype="bfloat16")
     skc = fc.fft_kernels(bank, spectral=sdp, correlation=True, store_dtype="bfloat16")
     pops = (sdp.re[None], sdp.im[None], skc.re, skc.im)
-    kernels["block_conv_peaks_bf16"] = check_peaks(*pops, geom, label)
+    kernels["block_conv_peaks_bf16_io"] = check_peaks(*pops, geom, label, IO_TOL)
+    check_io_bitwise(ops, geom, label, pops)
+    io_control(ops, geom, label)
     torch.cuda.empty_cache()
     ms = {
-        "block_conv_bf16": (lambda: block_conv(*ops, *geom),
-                            lambda: block_conv_reference(*ops, *geom)),
-        "block_conv_bf16_bf16maps": (lambda: block_conv(*ops, *geom, bf16),
-                                     lambda: block_conv_reference(*ops, *geom, bf16)),
-        "block_conv_peaks_bf16": (lambda: block_conv_peaks(*pops, *geom),
-                                  lambda: block_conv_peaks_reference(*pops, *geom)),
+        "block_conv_bf16_io": (lambda: block_conv(*ops, *geom),
+                               lambda: block_conv_reference(*ops, *geom)),
+        "block_conv_bf16_bf16maps_io": (lambda: block_conv(*ops, *geom, bf16),
+                                        lambda: block_conv_reference(*ops, *geom, bf16)),
+        "block_conv_peaks_bf16_io": (lambda: block_conv_peaks(*pops, *geom),
+                                     lambda: block_conv_peaks_reference(*pops, *geom)),
     }
     maps_bytes = n * sd.out_h * sd.out_w
     bounds = {
-        "block_conv_bf16": block_conv_bound(ops, geom, 4 * maps_bytes),
-        "block_conv_bf16_bf16maps": block_conv_bound(ops, geom, 2 * maps_bytes),
-        "block_conv_peaks_bf16": block_conv_bound(pops, geom, 8 * pops[0].shape[1]
-                                                  * pops[0].shape[2] * n),
+        "block_conv_bf16_io": block_conv_bound(ops, geom, 4 * maps_bytes),
+        "block_conv_bf16_bf16maps_io": block_conv_bound(ops, geom, 2 * maps_bytes),
+        "block_conv_peaks_bf16_io": block_conv_bound(pops, geom, 8 * pops[0].shape[1]
+                                                     * pops[0].shape[2] * n),
     }
     for mode, (kern, plain) in ms.items():
         kernels[mode] = (kernels[mode], cuda_ms(kern), cuda_ms(plain), *bounds[mode], None)
@@ -1943,7 +2086,7 @@ def dpm_stream_phase(fc, seed, path_launches, times) -> None:
           f"{stream.plan.kfft_aval.dtype}")
     res = main_path(f"DPM ConvStream, head='peaks', bf16 tier, {len(frames)} frames",
                     lambda: [fut.result() for fut in [stream.submit(f) for f in frames]],
-                    "block_conv_bf16", path_launches)
+                    "block_conv_bf16_io", path_launches)
     found = [int((pos[planted] == centres).all(-1).sum()) for _, pos in res]
     print(f"DPM ConvStream: planted filters found a frame {found} of {len(planted)}")
     if min(found) < len(planted):
@@ -2750,9 +2893,9 @@ def selftest_phase(fc) -> None:
           f"{rep['kernels_ok']}")
     for name, err in rep["kernels"].items():
         print(f"  selftest {name}: max rel err {err:.3e}")
-    # per configuration: 4 maps and 2 peaks entries at the default tier, 2
-    # maps and 1 peaks entry at each of the 6xTF32 and one-pass tiers
-    entries = len(st.CONFIGS) * 12 + 2 * len(MAC_TILES)
+    # per configuration: 4 maps and 2 peaks entries at 3xTF32, 2 maps and 1
+    # peaks entry at each of the 6xTF32, one-pass and BF16IO tiers
+    entries = len(st.CONFIGS) * 15 + 2 * len(MAC_TILES)
     if not (rep["fft_ok"] and rep["kernels_ok"] is True and len(rep["kernels"]) == entries):
         raise AssertionError(f"selftest failed: {rep}")
 
@@ -3133,14 +3276,14 @@ def kernel_row(ops, geom, label, splits=None, out_dtype=None) -> tuple:
 
     out_dtype = out_dtype or torch.float32
     bf16 = out_dtype == torch.bfloat16
-    tol = X1_TOL if splits == 1 else TOL
+    tol = tier_tol(ops[0], splits)
     abs_err = check_kernel(*ops, geom, label, out_dtype, max(tol, BF16_OUT_TOL) if bf16 else tol,
                            splits)
     out_bytes = (2 if bf16 else 4) * ops[0].shape[0] * ops[2].shape[0] * geom[4] * geom[5]
     row = (abs_err, cuda_ms(lambda: block_conv(*ops, *geom, out_dtype, splits)),
-           cuda_ms(lambda: block_conv_reference(*ops, *geom, out_dtype)),
-           *block_conv_bound(ops, geom, out_bytes, splits or 3), None)
-    tier = "" if splits in (None, 3) else f", {splits}xTF32"
+           cuda_ms(lambda: block_conv_reference(*ops, *geom, out_dtype, splits)),
+           *block_conv_bound(ops, geom, out_bytes, resolved(ops[0], splits)), None)
+    tier = f", {tier_label(ops[0], splits)}"
     print(f"maps kernel alone [{label}{tier}{', bf16 maps' if bf16 else ''}]: {row[1]:.3f} ms; "
           f"plain version {row[2]:.3f} ms; bound {row[3]:.3f} ms ({row[4]}), "
           f"{100 * row[3] / row[1]:.1f}% of it ({card()})")
@@ -3156,12 +3299,13 @@ def peaks_row(ops, geom, label, splits=None) -> tuple:
         block_conv_peaks_reference,
     )
 
-    abs_err = check_peaks(*ops, geom, label, X1_TOL if splits == 1 else TOL, splits)
+    abs_err = check_peaks(*ops, geom, label, tier_tol(ops[0], splits), splits)
     b, nbh, nbw = ops[0].shape[:3]
     row = (abs_err, cuda_ms(lambda: block_conv_peaks(*ops, *geom, splits)),
-           cuda_ms(lambda: block_conv_peaks_reference(*ops, *geom)),
-           *block_conv_bound(ops, geom, 8 * b * nbh * nbw * ops[2].shape[0], splits or 3), None)
-    tier = "" if splits in (None, 3) else f", {splits}xTF32"
+           cuda_ms(lambda: block_conv_peaks_reference(*ops, *geom, splits)),
+           *block_conv_bound(ops, geom, 8 * b * nbh * nbw * ops[2].shape[0],
+                             resolved(ops[0], splits)), None)
+    tier = f", {tier_label(ops[0], splits)}"
     print(f"peaks kernel alone [{label}{tier}]: {row[1]:.3f} ms; plain version {row[2]:.3f} ms; "
           f"bound {row[3]:.3f} ms ({row[4]}), {100 * row[3] / row[1]:.1f}% of it ({card()})")
     return row
@@ -3169,9 +3313,9 @@ def peaks_row(ops, geom, label, splits=None) -> tuple:
 
 def detect_row(label, name, fn, mode, plan_ops, geom, path_launches, rows, row_launches,
                maps_fn):
-    """``detect_peaks`` at a step-33 plan on the main path (``fn``): its
-    positions = the argmax of ``maps_fn()``'s maps; the peaks kernel's row
-    ``name`` (launches: this run's in ``mode``) on ``plan_ops``."""
+    """``detect_peaks`` at a plan on the main path (``fn``): its positions
+    = the argmax of ``maps_fn()``'s maps; the peaks kernel's row ``name``
+    (launches: this run's in ``mode``) on ``plan_ops`` → the positions."""
     import torch
 
     from cuda_fft_convolution_torch.ops.tiled import peaks_from_maps
@@ -3187,6 +3331,7 @@ def detect_row(label, name, fn, mode, plan_ops, geom, path_launches, rows, row_l
     torch.cuda.empty_cache()
     row_launches[name] = path_launches[mode] - before
     rows[name] = peaks_row(plan_ops, geom, f"{label} plan")
+    return pos
 
 
 def bigkernel_phase(fc, seed, image, image_d, path_launches, times, rows, row_launches):
@@ -3267,9 +3412,9 @@ def f8_tier_phase(fc, seed, path_launches, times, rows, row_launches):
     if got_plan != plan:
         raise AssertionError(f"F=8 tier plan {got_plan}, not {plan}")
     maps = main_path("F=8 tier fft_conv", lambda: fc.fft_conv(
-        data_d, kernels=bank_d, mode="same", store_dtype="bfloat16"), "block_conv_bf16",
+        data_d, kernels=bank_d, mode="same", store_dtype="bfloat16"), "block_conv_bf16_io",
         path_launches)
-    row_launches["block_conv_bf16:f8_tier"] = plan_launches("block_conv_bf16", plan)
+    row_launches["block_conv_bf16_io:f8_tier"] = plan_launches("block_conv_bf16_io", plan)
     if not (tuple(maps.shape) == (n, size, size) and torch.isfinite(maps).all()):
         raise AssertionError(f"F=8 tier maps malformed: {tuple(maps.shape)}")
     idx = list(range(0, n, n // 8))[:8]
@@ -3292,12 +3437,13 @@ def f8_tier_phase(fc, seed, path_launches, times, rows, row_launches):
     print(f"F=8 tier plan: {model['g']} blocks a CTA, {model['ctas']} CTAs; MFLOP a cell "
           f"issued {model['fma_mflop']:.2f} FMA + {model['tc_mflop']:.2f} tensor-core, "
           f"useful {model['useful_mflop']:.2f}")
-    rows["block_conv_bf16:f8_tier"] = kernel_row(ops, geom, f"F=8 tier plan, N={n}")
-    detect_row("F=8 tier", "block_conv_peaks_bf16:f8_tier",
+    rows["block_conv_bf16_io:f8_tier"] = kernel_row(ops, geom, f"F=8 tier plan, N={n}")
+    detect_row("F=8 tier", "block_conv_peaks_bf16_io:f8_tier",
                lambda: detect_peaks(data_d, bank_d, mode="same", store_dtype="bfloat16"),
-               "block_conv_peaks_bf16", ops, geom, path_launches, rows, row_launches,
+               "block_conv_peaks_bf16_io", ops, geom, path_launches, rows, row_launches,
                lambda: fc.fft_conv(data_d, kernels=bank_d, mode="same", correlation=True,
                                    store_dtype="bfloat16"))
+    check_io_bitwise(ops, geom, f"F=8 tier plan, N={n}", ops)
     del spec, sk, ops, data_d, bank_d
     torch.cuda.empty_cache()
 
@@ -3466,6 +3612,197 @@ def tiers_phase(fc, seed, rng, image_d, bank_d, idx, want, big, path_launches, t
     print(f"precision tiers phase: {times['step 34 (host s)']:.1f} s (host clock)")
 
 
+# Step 35. The bf16 tier's single pass (BF16IO): each _io entry at the
+# headline, DPM, F=8 and large-kernel plans against its plain version, timed
+# beside its 3xTF32 twin (the explicit splits=3, JAX's precision=BF16X3 on
+# bf16 planes) and its bound.
+
+
+def tier_plan(image_d, k) -> tuple:
+    """The planner's block plan for ``image_d`` and k² kernels at the bf16
+    tier."""
+    from cuda_fft_convolution_torch.ops.tiled import choose_block_plan
+
+    h, w, f = image_d.shape
+    return choose_block_plan(h, w, k, k, feature_dim=f, store_dtype="bfloat16",
+                             device=image_d.device)
+
+
+def tier_spectra(fc, data, bank, k, correlation=False):
+    """Tiled 'same' spectra of ``data`` and ``bank`` (k² kernels) at the
+    bf16 tier → (kernel operands, geometry)."""
+    spec = fc.fft_data_tiled(data, k, k, trim_mode="same", store_dtype="bfloat16")
+    sk = fc.fft_kernels(bank, spectral=spec, correlation=correlation, store_dtype="bfloat16")
+    geom = (spec.block_h, spec.block_w, spec.max_kh, spec.max_kw, spec.out_h, spec.out_w)
+    return (spec.re[None], spec.im[None], sk.re, sk.im), geom
+
+
+def twin_rows(ops, geom, label, name, twins, path_launches, rows, row_launches,
+              peaks_ops=None) -> None:
+    """The 3xTF32 twins of the _io entries on bf16 ``ops`` (``peaks_ops``
+    for the peaks kernel): each launched by an explicit ops-level call with
+    splits=3 (no route of the package takes it for bf16 spectra), counted
+    as ``main_path`` counts, and its row ``<mode><name>`` (launches: that
+    call's), as ``kernel_row``/``peaks_row``; ``twins`` the maps dtypes (and
+    'peaks') to run."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.block_conv import block_conv, block_conv_peaks
+
+    for twin in twins:
+        if twin == "peaks":
+            mode = "block_conv_peaks_bf16"
+            fn = lambda: block_conv_peaks(*peaks_ops, *geom, 3)  # noqa: E731
+        else:
+            mode = f"block_conv_bf16{'_bf16maps' if twin == torch.bfloat16 else ''}"
+            fn = lambda: block_conv(*ops, *geom, twin, 3)  # noqa: E731
+        before = path_launches[mode]
+        main_path(f"{label}, ops-level call, bf16 spectra at explicit splits=3 ({mode})", fn,
+                  mode, path_launches)
+        row_launches[mode + name] = path_launches[mode] - before
+        rows[mode + name] = (peaks_row(peaks_ops, geom, label, 3) if twin == "peaks"
+                             else kernel_row(ops, geom, label, 3, twin))
+
+
+def bf16io_phase(fc, seed, image_d, bank_d, idx, want, big, path_launches, times, rows,
+                 row_launches) -> None:
+    """The bf16 tier's single pass (module docstring, step 35). ``big``:
+    step 33's large-kernel (bank on the card, kernels checked, their
+    float64 maps)."""
+    import torch
+
+    from cuda_fft_convolution_torch.models import detect_peaks
+    from cuda_fft_convolution_torch.ops.block_conv import BF16IO, tile_rows
+    from cuda_fft_convolution_torch.ops.tiled import peaks_from_maps
+
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    k, n, size = HEADLINE["k"], HEADLINE["n"], HEADLINE["size"]
+    # the headline at the tier: fft_conv (f32 and bf16 maps) and the kernel
+    maps = main_path("headline fft_conv at bf16io", lambda: fc.fft_conv(
+        image_d, kernels=bank_d, mode="same", store_dtype="bfloat16"), "block_conv_bf16_io",
+        path_launches)
+    plan = tier_plan(image_d, k)
+    row_launches["block_conv_bf16_io:headline"] = plan_launches("block_conv_bf16_io", plan)
+    print(f"headline at bf16io: plan {plan}")
+    maps16 = main_path("headline fft_conv at bf16io, bf16 maps", lambda: fc.fft_conv(
+        image_d, kernels=bank_d, mode="same", store_dtype="bfloat16", out_dtype="bfloat16"),
+        "block_conv_bf16_bf16maps_io", path_launches)
+    row_launches["block_conv_bf16_bf16maps_io:headline"] = plan_launches(
+        "block_conv_bf16_bf16maps_io", plan)
+    err, err16 = max_rel_err_f64(maps, idx, want), rel_err(maps16.float(), maps)
+    print(f"headline fft_conv at bf16io vs float64 on kernels {idx}: max rel err {err:.3e} "
+          f"(bar {BF16_TOL:g}); bf16 maps vs f32 maps {err16:.3e} (bar {BF16_OUT_TOL:g})")
+    if not (tuple(maps.shape) == (n, size, size) and torch.isfinite(maps).all()
+            and err <= BF16_TOL and err16 <= BF16_OUT_TOL):
+        raise AssertionError(f"headline at bf16io: {err}, bf16 maps {err16}")
+    del maps, maps16
+    torch.cuda.empty_cache()
+    ops, geom = tier_spectra(fc, image_d, bank_d, k)
+    label = f"headline plan, N={n}"
+    rows["block_conv_bf16_io:headline"] = kernel_row(ops, geom, label)
+    rows["block_conv_bf16_bf16maps_io:headline"] = kernel_row(ops, geom, label, None, bf16)
+    twin = {"headline": kernel_row(ops, geom, label, 3)}
+    io_control(ops, geom, label)
+    # detection at the tier: every plant, = the argmax of the tier's maps
+    det_rng = np.random.default_rng(seed)
+    det_bank = det_rng.standard_normal((DETECT["n"], k, k, 1)).astype(np.float32)
+    det_image_d = torch.as_tensor(detection_frame(det_rng, det_bank), device="cuda")
+    det_bank_d = torch.as_tensor(det_bank, device="cuda")
+    pops, _ = tier_spectra(fc, det_image_d, det_bank_d, k, correlation=True)
+    pos = detect_row(
+        "detection headline at bf16io", "block_conv_peaks_bf16_io:headline",
+        lambda: detect_peaks(det_image_d, det_bank_d, mode="same", correlation=True,
+                             store_dtype="bfloat16"),
+        "block_conv_peaks_bf16_io", pops, geom, path_launches, rows, row_launches,
+        lambda: fc.fft_conv(det_image_d, kernels=det_bank_d, mode="same", correlation=True,
+                            store_dtype="bfloat16"))
+    if not torch.equal(pos.cpu(), detection_centres()):
+        raise AssertionError("detect_peaks at bf16io missed planted centres")
+    print(f"detect_peaks at bf16io: all {DETECT['n']} planted centres found")
+    twin["headline peaks"] = peaks_row(pops, geom, label, 3)
+    check_io_bitwise(ops, geom, label, pops)
+    del ops, pops, det_image_d, det_bank_d
+    torch.cuda.empty_cache()
+
+    # the DPM plan: the 3xTF32 twins' rows; the plants = the tier's argmax
+    feats, bank, _ = dpm_inputs(seed)
+    feats_p, planted, centres = dpm_planted(feats, bank)
+    ops, geom = tier_spectra(fc, feats, bank, DPM["k"])
+    pops, _ = tier_spectra(fc, feats_p, bank, DPM["k"], correlation=True)
+    label = f"DPM plan, N={DPM['n']}"
+    twin_rows(ops, geom, label, "", (torch.float32, bf16, "peaks"), path_launches, rows,
+              row_launches, pops)
+    _, pos = main_path("DPM detect_peaks at bf16io", lambda: detect_peaks(
+        feats_p, bank, mode="same", correlation=True, store_dtype="bfloat16"),
+        "block_conv_peaks_bf16_io", path_launches)
+    dmaps = fc.fft_conv(feats_p, kernels=bank, mode="same", correlation=True,
+                        store_dtype="bfloat16")
+    _, my, mx = peaks_from_maps(dmaps[None])
+    del dmaps
+    if not (torch.equal(pos, torch.stack([my[0], mx[0]], -1))
+            and (pos[planted] == centres).all()):
+        raise AssertionError("DPM detect_peaks at bf16io: not the argmax of the tier's maps, "
+                             "or a plant missed")
+    print(f"DPM detect_peaks at bf16io: = the argmax of the tier's maps; all "
+          f"{len(planted)} planted filters found")
+    del ops, pops, feats, feats_p, bank
+    torch.cuda.empty_cache()
+
+    # the F=8 plan: the twins' rows at its plan
+    size8, f8, n8, k8 = (F8_TIER[x] for x in ("size", "f", "n", "k"))
+    rng = np.random.default_rng(seed)
+    data8 = torch.as_tensor(rng.standard_normal((size8, size8, f8)).astype(np.float32),
+                            device="cuda")
+    bank8 = torch.as_tensor(rng.standard_normal((n8, k8, k8, f8)).astype(np.float32),
+                            device="cuda")
+    ops, geom = tier_spectra(fc, data8, bank8, k8)
+    twin_rows(ops, geom, f"F=8 tier plan, N={n8}", ":f8_tier", (torch.float32, "peaks"),
+              path_launches, rows, row_launches, ops)
+    del ops, data8, bank8
+
+    # the large-kernel plan (32 rows) at the tier
+    big_bank_d, big_idx, big_want = big
+    bk = BIGKERNEL["k"]
+    bmaps = main_path("large-kernel fft_conv at bf16io", lambda: fc.fft_conv(
+        image_d, kernels=big_bank_d, mode="same", store_dtype="bfloat16"),
+        "block_conv_bf16_io", path_launches)
+    plan = tier_plan(image_d, bk)
+    row_launches["block_conv_bf16_io:large_kernel"] = plan_launches("block_conv_bf16_io", plan)
+    print(f"large-kernel at bf16io: plan {plan}, "
+          f"{tile_rows(plan[1] // 2 + 1, plan[0] - plan[2] + 1, BF16IO)}-row tiles")
+    berr = max_rel_err_f64(bmaps, big_idx, big_want)
+    print(f"large-kernel fft_conv at bf16io vs float64 on kernels {big_idx}: max rel err "
+          f"{berr:.3e} (bar {BF16_TOL:g})")
+    if berr > BF16_TOL:
+        raise AssertionError(f"large-kernel call at bf16io: {berr} against float64")
+    del bmaps
+    torch.cuda.empty_cache()
+    ops, geom = tier_spectra(fc, image_d, big_bank_d, bk)
+    label = f"large-kernel plan, N={BIGKERNEL['n']}"
+    rows["block_conv_bf16_io:large_kernel"] = kernel_row(ops, geom, label)
+    twin["large_kernel"] = kernel_row(ops, geom, label, 3)
+    del ops
+    torch.cuda.empty_cache()
+
+    print(f"bf16io against its 3xTF32 twin, kernel ms (bound ms) ({card()}):")
+    for name, io, x3 in (
+        ("headline maps", rows["block_conv_bf16_io:headline"], twin["headline"]),
+        ("headline peaks", rows["block_conv_peaks_bf16_io:headline"], twin["headline peaks"]),
+        ("DPM maps", rows["block_conv_bf16_io"], rows["block_conv_bf16"]),
+        ("DPM bf16 maps", rows["block_conv_bf16_bf16maps_io"], rows["block_conv_bf16_bf16maps"]),
+        ("DPM peaks", rows["block_conv_peaks_bf16_io"], rows["block_conv_peaks_bf16"]),
+        ("F=8 maps", rows["block_conv_bf16_io:f8_tier"], rows["block_conv_bf16:f8_tier"]),
+        ("F=8 peaks", rows["block_conv_peaks_bf16_io:f8_tier"],
+         rows["block_conv_peaks_bf16:f8_tier"]),
+        ("large-kernel maps", rows["block_conv_bf16_io:large_kernel"], twin["large_kernel"]),
+    ):
+        print(f"  {name}: bf16io {io[1]:.3f}, 3xTF32 {x3[1]:.3f} ({io[1] / x3[1]:.3f}x); "
+              f"bound {io[3]:.3f} ({io[4]})")
+    times["step 35 (host s)"] = time.perf_counter() - t0
+    print(f"bf16io phase: {times['step 35 (host s)']:.1f} s (host clock)")
+
+
 def bench_phase() -> None:
     """The port's bench at full size (module docstring, step 33): its JSON
     line printed, every row present and positive, its accuracy row within
@@ -3623,8 +3960,7 @@ def main(argv=None) -> int:
           f"({flop / 1e12:.3f} TFLOP, 4-mult complex H stage), "
           f"{3 * flop / kernel_ms / 1e9:.2f} TFLOP/s on the tensor cores as 3xTF32; "
           f"{100 * rows['block_conv_f32'][3] / kernel_ms:.1f}% of the bound")
-    # the other dtype modes at the headline plan, N=100
-    ops16 = tuple(x.to(bf16) for x in ops)
+    # bf16 maps at the headline plan, N=100 (bf16 spectra: step 35)
     label = f"headline plan, N={n}"
     rows["block_conv_f32_bf16maps"] = (
         check_kernel(*ops, geom, label, bf16, BF16_OUT_TOL),
@@ -3632,18 +3968,9 @@ def main(argv=None) -> int:
         cuda_ms(lambda: block_conv_reference(*ops, *geom, bf16)),
         *block_conv_bound(ops, geom, 2 * maps_elems), None,
     )
-    check_kernel(*ops16, geom, label)
-    check_kernel(*ops16, geom, label, bf16, BF16_OUT_TOL)
-    headline_modes = {
-        "block_conv_f32_bf16maps": rows["block_conv_f32_bf16maps"][1:3],
-        "block_conv_bf16": (cuda_ms(lambda: block_conv(*ops16, *geom)),
-                            cuda_ms(lambda: block_conv_reference(*ops16, *geom))),
-        "block_conv_bf16_bf16maps": (
-            cuda_ms(lambda: block_conv(*ops16, *geom, bf16)),
-            cuda_ms(lambda: block_conv_reference(*ops16, *geom, bf16))),
-    }
-    for mode, (t, t_plain) in headline_modes.items():
-        print(f"{mode} alone at the headline plan: {t:.3f} ms; plain version: {t_plain:.3f} ms")
+    print(f"block_conv_f32_bf16maps alone at the headline plan: "
+          f"{rows['block_conv_f32_bf16maps'][1]:.3f} ms; plain version: "
+          f"{rows['block_conv_f32_bf16maps'][2]:.3f} ms")
     # the unfused pipeline's MAC: every block of the image (B) against the bank
     uops = tuple(x.reshape(-1, *x.shape[-3:]) for x in (spec.re, spec.im)) + (sk.re, sk.im)
     rows["spectral_mac_f32:unfused_headline"] = mac_row(uops, "unfused headline")
@@ -3651,7 +3978,7 @@ def main(argv=None) -> int:
     if list(unfused_shapes) != [mac_shape(uops)]:
         raise AssertionError(f"unfused headline: MAC launches by shape {dict(unfused_shapes)}, "
                              f"not at {mac_shape(uops)}")
-    del spec, sk, ops, ops16, uops
+    del spec, sk, ops, uops
     torch.cuda.empty_cache()
 
     # ---- the headline at the bf16 tier ----
@@ -3664,7 +3991,7 @@ def main(argv=None) -> int:
         "detection headline at the tier",
         lambda: detect_peaks(det_image, det_bank, mode="same", correlation=True,
                              store_dtype="bfloat16"),
-        "block_conv_peaks_bf16", path_launches,
+        "block_conv_peaks_bf16_io", path_launches,
     )
     if not (vals16.dtype == torch.float32 and torch.equal(pos16.cpu(), detection_centres())):
         bad = int((pos16.cpu() != detection_centres()).any(-1).sum())
@@ -3719,12 +4046,9 @@ def main(argv=None) -> int:
     rows["block_conv_peaks_f32"] = (peaks_err, peaks_ms, peaks_plain_ms,
                                     *block_conv_bound(pops, geom, 8 * pops[0].shape[1]
                                                       * pops[0].shape[2] * n), None)
-    pops16 = tuple(x.to(bf16) for x in pops)
-    check_peaks(*pops16, geom, f"headline plan, N={n}")
-    peaks16_ms = cuda_ms(lambda: block_conv_peaks(*pops16, *geom))
-    print(f"peaks kernel alone at the headline plan: {peaks_ms:.3f} ms, bf16 spectra "
-          f"{peaks16_ms:.3f} ms; plain version: {peaks_plain_ms:.3f} ms")
-    del dspec_t, dsk_t, pops, pops16
+    print(f"peaks kernel alone at the headline plan: {peaks_ms:.3f} ms; plain version: "
+          f"{peaks_plain_ms:.3f} ms (bf16 spectra: step 35)")
+    del dspec_t, dsk_t, pops
     torch.cuda.empty_cache()
     direct_ms = tier_ms["direct, f32"]
     print(f"direct fft_conv (MAC kernel): {direct_ms:.3f} ms")
@@ -3807,8 +4131,13 @@ def main(argv=None) -> int:
     # ---- step 34: the precision tiers ----
     tiers_phase(fc, args.seed, rng, image_d, bank_d, idx, want, big, path_launches, api_ms,
                 rows, row_launches)
-    del big
     phase_peak("precision tiers")
+
+    # ---- step 35: the bf16 tier's single pass ----
+    bf16io_phase(fc, args.seed, image_d, bank_d, idx, want, big, path_launches, api_ms, rows,
+                 row_launches)
+    del big
+    phase_peak("bf16io tier")
     print(f"smoke wall time: {time.perf_counter() - started:.1f} s")
     print(f"peak memory allocated over the smoke: {max(PHASE_PEAKS) / 2**30:.2f} GiB "
           f"(limit {PEAK_LIMIT / 2**30:.0f} GiB)")
@@ -3825,7 +4154,7 @@ def main(argv=None) -> int:
     # MAC shape of the model layer, with its own launches.
     launches = {name: row_launches.get(name, path_launches[name]) for name in rows}
     for name, (err, ms, plain, bound_ms, bound_by, library_ms) in rows.items():
-        mode = re.sub(r"_x[16]$", "", name.split(":")[0])
+        mode = re.sub(r"_(x[16]|io)$", "", name.split(":")[0])
         wrapper = mode.removesuffix("_bf16maps").rsplit("_", 1)[0]
         source, replaces = SOURCES[wrapper]
         kernels.append({
@@ -3834,6 +4163,8 @@ def main(argv=None) -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_kind": "compute" if bound_by == "operations" else "bytes",
             "library_ms": library_ms,
+            "called_by": ("ops-level call, splits=3" if name.split(":")[0] in OPS_LEVEL_MODES
+                          else "main path"),
         })
     missing = [m for m in rows if launches[m] < 1]
     if missing:

@@ -39,7 +39,8 @@ _MAC = ([_P] * 6 + [_I] * 3 + [ctypes.c_longlong, _I, _I, _P], ctypes.c_int)
 # are c_void_p; without argtypes ctypes would pass them as 32-bit ints. The
 # kernels have one entry per dtype mode: spectra f32 or bf16, and for the
 # maps kernel f32 or bf16 maps (_bf16maps); fp32 spectra also at the
-# 6xTF32 (_x6) and one-pass (_x1) synthesis tiers.
+# 6xTF32 (_x6) and one-pass (_x1) synthesis tiers, bf16 spectra at BF16IO
+# (_io).
 _SIGNATURES = {
     "fftconv_block_conv_f32": _MAPS,
     "fftconv_block_conv_f32_bf16maps": _MAPS,
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "fftconv_block_conv_f32_bf16maps_x6": _MAPS,
     "fftconv_block_conv_f32_x1": _MAPS,
     "fftconv_block_conv_f32_bf16maps_x1": _MAPS,
+    "fftconv_block_conv_bf16_io": _MAPS,
+    "fftconv_block_conv_bf16_bf16maps_io": _MAPS,
     "fftconv_block_conv_f32_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
     "fftconv_block_conv_f32_rows": ([_I, _I, _I], ctypes.c_int),
     "fftconv_block_conv_f32_blocks": ([_I, _I, _I], ctypes.c_int),
@@ -56,6 +59,7 @@ _SIGNATURES = {
     "fftconv_block_conv_peaks_bf16": _PEAKS,
     "fftconv_block_conv_peaks_f32_x6": _PEAKS,
     "fftconv_block_conv_peaks_f32_x1": _PEAKS,
+    "fftconv_block_conv_peaks_bf16_io": _PEAKS,
     "fftconv_spectral_mac_f32": _MAC,
     "fftconv_spectral_mac_bf16": _MAC,
 }

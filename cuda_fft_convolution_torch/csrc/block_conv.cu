@@ -3,9 +3,10 @@
 //
 // Replaces cuda_fft_convolution_tpu/ops/block_conv.py::block_conv_pallas
 // (the v3 body, _make_kernel_v3), in its four dtype modes: fp32 or bf16
-// spectra (BF16IO, see block_conv.cuh), fp32 or bf16 maps (out_dtype); and
-// at fp32 spectra in its three precisions (BF16X3, HIGHEST, DEFAULT) as
-// the 3xTF32, 6xTF32 and one-pass synthesis tiers (block_conv.cuh). It
+// spectra, fp32 or bf16 maps (out_dtype); at fp32 spectra in its three
+// precisions (BF16X3, HIGHEST, DEFAULT) as the 3xTF32, 6xTF32 and one-pass
+// synthesis tiers, and at bf16 spectra in BF16IO (kBF16IO, the default)
+// and BF16X3 (3xTF32) (block_conv.cuh). It
 // computes the same function, not the same factorization: the transforms of
 // block_conv.cuh (which also says what bounds the kernel, how it is laid
 // out and how short windows stack blocks in a CTA), then a clipped store of
@@ -101,7 +102,8 @@ using StoreBF16 = StoreMaps<__nv_bfloat16, S>;
 }  // namespace
 
 // Shared-memory bytes the kernels need at packed width wc, window height
-// vh and tier `splits` (1, 3 or 6 tensor-core products; -1 for another),
+// vh and tier `splits` (1, 3 or 6 tensor-core products, or 0 for kBF16IO;
+// -1 for another),
 // the rows a CTA holds there, and the blocks it stacks (1: one block per
 // CTA); the Python legality rule (ops/block_conv.py smem_bytes, tile_rows,
 // blocks_per_cta) mirrors all three.
@@ -118,8 +120,9 @@ extern "C" int fftconv_block_conv_f32_blocks(int wc, int vh, int splits) {
 // One entry per (spectra, maps) dtype pair and tier:
 // fftconv_block_conv_<spectra>, with a _bf16maps suffix for bf16 maps and,
 // for fp32 spectra, _x6 (6xTF32, fused_precision='highest') or _x1 (one
-// TF32 pass, 'highest' with matmul_precision='default') for the tiers
-// other than 3xTF32 (block_conv.cuh). `ktile` is the stacked
+// TF32 pass, 'highest' with matmul_precision='default'), for bf16 spectra
+// _io (kBF16IO, their default tier), for the tiers other than 3xTF32
+// (block_conv.cuh). `ktile` is the stacked
 // configuration's launch order (launch_block_conv). Each launches on
 // `stream` and does not synchronise. Returns cudaGetLastError() after the
 // launch (0 = launched), or the error that stopped it.
@@ -142,3 +145,5 @@ FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_x6, float, float, StoreF32, 6)
 FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_bf16maps_x6, float, __nv_bfloat16, StoreBF16, 6)
 FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_x1, float, float, StoreF32, 1)
 FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_bf16maps_x1, float, __nv_bfloat16, StoreBF16, 1)
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16_io, __nv_bfloat16, float, StoreF32, kBF16IO)
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16_bf16maps_io, __nv_bfloat16, __nv_bfloat16, StoreBF16, kBF16IO)

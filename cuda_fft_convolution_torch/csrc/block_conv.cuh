@@ -26,9 +26,10 @@
 // shared memory).
 //
 // Precision. Every synthesis product of the one-block configurations, and
-// the stacked configuration's W stage, is a split-TF32 tensor-core product
-// at one of three tiers, the template argument SPLITS, which replace the
-// JAX kernel's precisions (ops/block_conv.py fused_splits): each fp32
+// the stacked configuration's W stage, is a tensor-core product at one of
+// four tiers, the template argument SPLITS, which replace the JAX kernel's
+// precisions (ops/block_conv.py fused_splits). Three are split-TF32: each
+// fp32
 // operand x is split into TF32 pieces, hi = TF32(x), then TF32 of what is
 // left (split_n), with TF32() rounding as cvt.rna.tf32.f32 does (to
 // nearest, ties away from zero), and a . b runs as the products of the
@@ -40,6 +41,9 @@
 //     dropped are <= 2^-33);
 //   - one pass (SPLITS = 1, 'highest' with matmul_precision 'default', the
 //     TPU's single pass): hi . hi, ~5e-4 against float64.
+// The fourth, kBF16IO (bf16 spectra: the JAX kernel's BF16IO), is laid out
+// as one pass but rounds each operand to bf16 (to nearest, even; bf16r)
+// where the others take TF32 pieces; see "bf16 spectra" below.
 // wgmma.m64n64k8 runs both stages of the 64-row configuration (the
 // headline) and the stacked configuration's W stage, mma.sync.m16n8k8 both
 // stages of the 32-row configuration (wgmma takes 64 rows). The tensor
@@ -68,14 +72,22 @@
 // which streams as it is (one plane) and is split in registers, so that
 // the 1024 block's X fits beside it. X's fragments are split in registers
 // (wgmma's A operand, and mma.sync's). Shared memory at the headline:
-// 181,248 B at 3xTF32, 214,016 at 6xTF32, 148,480 at one pass.
+// 181,248 B at 3xTF32, 214,016 at 6xTF32, 148,480 at one pass and at
+// kBF16IO.
 
 // bf16 spectra. The JAX kernel's BF16IO mode feeds bf16 operands to
-// single-pass MXU dots with f32 accumulation and also rounds S, X, G and M
-// to bf16 on the way. Here only the loads of D and K are bf16: S, X, G and
-// M stay fp32 (split as above), so the result is the fp32 kernel's on the
-// bf16-rounded spectra, at least as accurate as BF16IO. What bf16 changes is
-// the bytes of D and K streamed per cell (half), not the arithmetic.
+// single-pass MXU dots with f32 accumulation: it rounds S (the MAC's
+// output), G, X (the H stage's output) and M to bf16 right before each
+// product. SPLITS = kBF16IO does the same: D and K load as bf16 and widen
+// to fp32, the MAC stays fp32 FMAs (as JAX's), S is rounded as it is staged
+// for the H stage, X as its fragments are formed for the W stage, and G and
+// M arrive rounded (ops/block_conv.py _kernel_mats). A bf16 value is exact
+// in TF32, so a TF32 mma/wgmma on bf16-valued operands forms the exact
+// products and sums them in fp32, as the single-pass bf16 dot does; the
+// stacked configuration's fp32-FMA H stage forms them exactly too. bf16
+// spectra at SPLITS = 3 (the explicit 3xTF32 entries) keep S, X, G and M in
+// fp32, split as above: the fp32 kernel's result on the bf16-rounded
+// spectra. Either way bf16 halves the bytes of D and K streamed per cell.
 //
 // What bounds it. At the 2048^2 x 100 x 64^2 headline plan (blocks 127 x 447,
 // valid window 64 x 384, Wc = 224, 192 blocks) one cell is ~37 MFLOP as
@@ -101,7 +113,7 @@
 //   1. H stage, in column passes of kCols packed bins: S is computed on the
 //      fly in (kUK x kCols) chunks from D and K (fp32 FMAs, 8 elements a
 //      thread, a warp's 32 lanes on 8 bins x 4 spectrum rows) and staged in
-//      shared memory as S^T, the TF32 planes of Sr and Si, beside
+//      shared memory as S^T, the tier's planes of Sr and Si (pieces), beside
 //      the matching (ROWS x kUK) chunk of G, split as it is staged. The
 //      complex product runs as real products over the chunk's spectrum
 //      rows: Xr += Gr Sr - Gi Si, Xi += Gi Sr + Gr Si. 64 rows: S^T and G
@@ -144,7 +156,8 @@
 // third configuration takes g = min(64 / Vh, 16) blocks of one (image,
 // kernel) and stacks their window rows at offsets t * Vh of the 64-row X,
 // as the JAX kernel's _make_kernel_v3 stacks MBH blocks' H-stage outputs:
-//   - H stage (fp32 FMAs, 8 x 4 thread tiles): G is shared; row t * Vh + r
+//   - H stage (fp32 FMAs, 8 x 4 thread tiles; at kBF16IO on bf16-rounded
+//     S and G, exact products): G is shared; row t * Vh + r
 //     takes block t's S. S is computed in u-chunks of 16 / g spectrum rows
 //     for all g blocks at once (16 rows of (block, u), 16 threads a row).
 //     Its channel MAC streams D (g blocks) and K (once for the group)
@@ -215,9 +228,12 @@ constexpr int kMPlane = (kCols / 8) * (kKC / 4) * kCore;  // one plane of a chun
 // The synthesis tiers (SPLITS, the tensor-core products a product of two
 // fp32 operands runs as): 3 (3xTF32, the default), 6 (6xTF32) or 1 (one
 // TF32 pass); each operand is split into the TF32 pieces of pieces_of().
+// kBF16IO is one product of operands rounded to bf16 (one piece).
+constexpr int kBF16IO = 0;
 __host__ __device__ constexpr int pieces_of(int splits) { return splits == 6 ? 3 : splits == 3 ? 2 : 1; }
+__host__ __device__ constexpr int products_of(int splits) { return splits == kBF16IO ? 1 : splits; }
 __host__ __device__ constexpr bool valid_splits(int splits) {
-  return splits == 1 || splits == 3 || splits == 6;
+  return splits == kBF16IO || splits == 1 || splits == 3 || splits == 6;
 }
 // Planes of M^T a W-stage chunk holds: its TF32 pieces, except in the
 // 32-row configuration at 6xTF32, which stages M^T as it is (one plane)
@@ -254,7 +270,7 @@ constexpr int kStackTR = 8;     // rows of a stacked H-stage thread tile
 constexpr int kStackStage = 2 * kStackRows * kCols + 2 * 8 * 64;
 template <int ROWS, int SPLITS>
 struct Stage {
-  static_assert(valid_splits(SPLITS), "1, 3 or 6 tensor-core products");
+  static_assert(valid_splits(SPLITS), "1, 3 or 6 tensor-core products, or kBF16IO");
   static constexpr int kP = pieces_of(SPLITS);       // TF32 pieces of an operand
   static constexpr int kMP = m_planes(ROWS, SPLITS);  // M^T planes in the ring
   static constexpr int kW = stage_w(ROWS, SPLITS);
@@ -300,16 +316,34 @@ __device__ __forceinline__ void split_n(float x, uint32_t (&p)[P]) {
     if (k + 1 < P) x -= __uint_as_float(p[k]);
   }
 }
+// x rounded to bf16 (to nearest, ties to even: the rule of
+// __float2bfloat16_rn and of torch's cast, for every finite x), as the bits
+// of an fp32 (and TF32) value.
+__device__ __forceinline__ uint32_t bf16r(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
+}
+// The operand pieces of tier SPLITS: split_n's TF32 pieces, or at kBF16IO
+// the bf16 rounding.
+template <int SPLITS, int P>
+__device__ __forceinline__ void pieces(float x, uint32_t (&p)[P]) {
+  if constexpr (SPLITS == kBF16IO) {
+    static_assert(P == 1, "kBF16IO: one piece");
+    p[0] = bf16r(x);
+  } else {
+    split_n(x, p);
+  }
+}
 // The products of a SPLITS-product tier, as (piece of a, piece of b): the
 // pairs whose pieces sum below pieces_of(SPLITS), the smallest terms first
 // (by i + j, then i, descending); the last is the main term hi . hi. A
-// tier runs the last SPLITS of the list: 6xTF32 all of them (the pairs
-// whose terms are below 2^-33 relative are dropped), 3xTF32 a_lo b_hi,
-// a_hi b_lo, a_hi b_hi, one pass the main term.
+// tier runs the last products_of(SPLITS) of the list: 6xTF32 all of them
+// (the pairs whose terms are below 2^-33 relative are dropped), 3xTF32
+// a_lo b_hi, a_hi b_lo, a_hi b_hi, one pass (and kBF16IO) the main term.
 __host__ __device__ constexpr int prod_a(int q) { return q == 0 ? 2 : q == 1 || q == 3 ? 1 : 0; }
 __host__ __device__ constexpr int prod_b(int q) { return q == 2 ? 2 : q == 1 || q == 4 ? 1 : 0; }
 // The first product of a tier, and of its main term.
-__host__ __device__ constexpr int first_product(int splits) { return 6 - splits; }
+__host__ __device__ constexpr int first_product(int splits) { return 6 - products_of(splits); }
 constexpr int kMainProduct = 5;
 // d += a b: a 16 x 8 A fragment, an 8 x 8 B fragment, fp32 accumulators.
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
@@ -761,7 +795,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           uint32_t pc[P];
-          split_n(sv[q][c], pc);
+          pieces<SPLITS>(sv[q][c], pc);
 #pragma unroll
           for (int k = 0; k < P; ++k) p[(c * P + k) * kSP] = __uint_as_float(pc[k]);
         }
@@ -774,7 +808,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         const float x[4] = {gv[q].x, gv[q].y, gv[q].z, gv[q].w};
         uint32_t pc[4][P];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) split_n(x[i], pc[i]);
+        for (int i = 0; i < 4; ++i) pieces<SPLITS>(x[i], pc[i]);
         float* pg = g_st + pl * P * kGP +
                     (kWG ? ((row >> 3) * (kUK / 4) + (e % 4)) * kCore + (row & 7) * 4 : row * kGS + 4 * (e % 4));
 #pragma unroll
@@ -1143,12 +1177,13 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         if (++slot_at == stages) slot_at = 0;
       }
       // The last step's sync ordered the previous chunk's products before
-      // these stores.
+      // these stores. kBF16IO: S rounded to bf16 (G^T arrives rounded), so
+      // the FMAs below form exact products.
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int v = pairs ? 2 * ml + 32 * (i >> 1) + (i & 1) : ml + 16 * i;
-        s_r[mrow * kCols + v] = sv[i][0];
-        s_i[mrow * kCols + v] = sv[i][1];
+        s_r[mrow * kCols + v] = SPLITS == kBF16IO ? __uint_as_float(bf16r(sv[i][0])) : sv[i][0];
+        s_i[mrow * kCols + v] = SPLITS == kBF16IO ? __uint_as_float(bf16r(sv[i][1])) : sv[i][1];
       }
 #pragma unroll
       for (int q = 0; q < kPerGs; ++q) {
@@ -1271,7 +1306,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             uint32_t pc[P];
-            split_n(__uint_as_float(xa[i]), pc);
+            pieces<SPLITS>(__uint_as_float(xa[i]), pc);
 #pragma unroll
             for (int k = 0; k < P; ++k) xp[bf][k][i] = pc[k];
           }
@@ -1380,7 +1415,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               uint32_t pc[P];
-              split_n(__uint_as_float(xa[i]), pc);
+              pieces<SPLITS>(__uint_as_float(xa[i]), pc);
 #pragma unroll
               for (int k = 0; k < P; ++k) xp[k][i] = pc[k];
             }
@@ -1443,7 +1478,8 @@ int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
 // (m_cols(vw), 2 padded_bins(wc)) in core matrices, row c holding column c
 // of [Mr ; Mi] (Mi from k = padded_bins(wc) on): its TF32 pieces, or M^T
 // exact where the configuration stages one plane; zeros wherever the
-// padding reaches. `ktile` (1..n), the kernels a launch tile of the
+// padding reaches. At kBF16IO G^T, G and M^T (one plane) are rounded to
+// bf16 instead of exact. `ktile` (1..n), the kernels a launch tile of the
 // stacked configuration holds, is its launch order (n: the kernel index
 // fastest); the others run the kernel index fastest. Epi is the epilogue
 // class template. Returns cudaGetLastError() after the launch (0 =

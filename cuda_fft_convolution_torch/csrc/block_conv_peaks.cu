@@ -2,10 +2,12 @@
 // kernel, on fp32 or bf16 spectra (block_conv.cuh).
 //
 // Replaces cuda_fft_convolution_tpu/ops/block_conv.py::block_conv_peaks_pallas
-// at one block per cell (mbh = mbw = 1; its v3 body _make_kernel_v3_peaks
-// and epilogue _peaks_reducer), at fp32 spectra (at the maps kernel's three
-// synthesis tiers) and at the bf16 tier; the values are fp32 and the
-// indices int32 either way. It runs the transforms of block_conv.cuh
+// (its v3 body _make_kernel_v3_peaks and epilogue _peaks_reducer), at fp32
+// spectra (at the maps kernel's three synthesis tiers) and at bf16 spectra
+// (BF16IO, and the explicit 3xTF32); the values are fp32 and the indices
+// int32 either way. It writes one pair per block (mbh = mbw = 1); cells of
+// several blocks are reduced from those pairs by the wrapper
+// (ops/block_conv.py group_cells), in _peaks_reducer's order. It runs the transforms of block_conv.cuh
 // and, in place of the maps kernel's store, reduces each cell's valid
 // window to (max, global flat index y * out_w + x): the larger value wins,
 // between equal values the smaller index wins, and positions past
@@ -205,9 +207,9 @@ struct ReducePeaks {
 // Write the partial pyramid vals/idxs (B, N, nbh, row_chunks, nbw), with
 // row_chunks = 1 where fftconv_block_conv_f32_blocks(wc, vh, splits) > 1
 // (stacked blocks) and ceil(vh / fftconv_block_conv_f32_rows(wc, vh,
-// splits)) otherwise, from fp32 (_f32) or bf16 (_bf16) spectra; fp32
-// spectra also at 6xTF32 (_f32_x6) and one TF32 pass (_f32_x1) (the maps
-// kernel's tiers, block_conv.cu); `ktile` as for the maps kernel. Launch
+// splits)) otherwise, from fp32 (_f32) or bf16 (_bf16) spectra at 3xTF32;
+// fp32 spectra also at 6xTF32 (_f32_x6) and one TF32 pass (_f32_x1), bf16
+// spectra at kBF16IO (_bf16_io) (the maps kernel's tiers, block_conv.cu); `ktile` as for the maps kernel. Launch
 // on `stream`; do not synchronise. Return cudaGetLastError() after the
 // launch (0 = launched), or the error that stopped it.
 #define FFTCONV_PEAKS_ENTRY(NAME, TS, SPLITS)                                   \
@@ -227,3 +229,4 @@ FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_f32, float, 3)
 FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_bf16, __nv_bfloat16, 3)
 FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_f32_x6, float, 6)
 FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_f32_x1, float, 1)
+FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_bf16_io, __nv_bfloat16, kBF16IO)

@@ -15,32 +15,37 @@ at (out_h, out_w) — the 'full'-window linear-convolution maps, assembled in
 place with no reassembly pass.
 
 Dtypes. The spectra are float32, or bfloat16 for the serving tier
-(``store_dtype='bfloat16'``, the JAX kernel's BF16IO mode); the maps are
-float32, or bfloat16 with ``out_dtype=torch.bfloat16``. Both kernels read
-bf16 spectra and widen them to fp32 in registers, so all arithmetic is fp32
-and bf16 spectra give exactly the fp32 result on the bf16-rounded planes;
-bf16 maps round each fp32 value once, at its store. The plain versions do
-the same: they upcast bf16 planes to float32, run the fp32 computation, and
+(``store_dtype='bfloat16'``); the maps are float32, or bfloat16 with
+``out_dtype=torch.bfloat16``. Both kernels read bf16 spectra and widen them
+to fp32 in registers, and the channel MAC is fp32 either way; bf16 maps
+round each fp32 value once, at its store. The plain versions do the same:
+they upcast bf16 planes to float32, run the computation of the tier, and
 cast the maps to ``out_dtype``.
 
-Precision tiers. At fp32 spectra the kernels' syntheses run at the tier
-``fused_splits`` reads from the config, JAX's rule for its precisions:
+Precision tiers. The kernels' syntheses run at the tier ``fused_splits``
+reads from the config, JAX's rule for its precisions. At fp32 spectra:
 3×TF32 (``fused_precision='bf16x3'``, the default; entries
 ``fftconv_block_conv_f32``…), 6×TF32 ('highest' with ``matmul_precision``
 'highest': ``…_x6``, the TPU's fp32-exact HIGHEST) or one TF32 pass
-('highest' with 'default': ``…_x1``); 'highest' with 'high' is 3×TF32. The
-tier changes the kernels' shared memory (``smem_bytes(wc, vh, splits)``)
-and M^T's planes (``_kernel_mats``); the plain versions (IEEE fp32) are
-the plain version of every tier. ``tf32_split`` and ``tf32_product``
-emulate the tiers' arithmetic on the CPU for the tests.
+('highest' with 'default': ``…_x1``); 'highest' with 'high' is 3×TF32.
+bf16 spectra run ``BF16IO`` (``…_bf16_io``), JAX's single-pass bf16 tier:
+S (the MAC's output), G, X (the H stage's output) and M are rounded to
+bf16 right before each product, the products are exact and their sums
+fp32; an explicit ``splits=3`` runs them at 3×TF32 (``…_bf16``, JAX's
+explicit ``precision=BF16X3`` on bf16 planes). The tier changes the
+kernels' shared memory (``smem_bytes(wc, vh, splits)``) and the matrix
+operands (``_kernel_mats``). The plain versions are IEEE fp32 at every
+fp32 tier and round as the kernels do at BF16IO; ``tf32_split`` and
+``tf32_product`` emulate the tiers' arithmetic on the CPU for the tests.
 
 ``block_conv`` is the wrapper: a tensor on the CPU takes
 ``block_conv_reference`` (plain torch); a CUDA tensor launches the CUDA
 kernel (``csrc/block_conv.cu``) or raises. There is no fallback between the
 two.
 
-``block_conv_peaks`` computes the same tiles and keeps, per cell, only the
-max and its global flat index (the detection head's pyramid); its kernel
+``block_conv_peaks`` computes the same tiles and keeps, per cell of
+``mbh × mbw`` blocks (one block by default), only the max and its global
+flat index (the detection head's pyramid); its kernel
 (``csrc/block_conv_peaks.cu``) shares the transform stages of
 ``csrc/block_conv.cuh`` with the maps kernel, and its plain version is
 ``block_conv_peaks_reference``.
@@ -61,7 +66,8 @@ from cuda_fft_convolution_torch.utils.errors import InvalidInputError, validate
 
 # Mirrors csrc/block_conv.cuh's configuration rule, per synthesis tier
 # (``splits``: the tensor-core products a product of two fp32 operands runs
-# as, 3, 6 or 1; ``fused_splits``). A CTA holds X, 64 rows (32 where that
+# as, 3, 6 or 1, or ``BF16IO``, one product of bf16-rounded operands, laid
+# out as one pass; ``fused_splits``). A CTA holds X, 64 rows (32 where that
 # does not fit) × [Xr | Xi] over the packed bins padded to 32 (a row stride
 # of 2·bins + 4 floats), plus a staging area, within Hopper's 227 KB
 # (232,448 B) per-block shared-memory limit. The staging area is the larger
@@ -89,14 +95,23 @@ _MAX_GROUP = 16
 _STACK_ROWS = 16
 _STACK_STAGE = 2 * _STACK_ROWS * _COLS + 2 * 8 * 64
 _MIN_STEPS, _MAX_STEPS = 2, 8
-# tier (splits) → TF32 pieces of an operand, and the suffix of its C
-# entries (the default tier's entries have none)
-TIERS = {3: 2, 6: 3, 1: 1}
-TIER_SUFFIX = {3: "", 6: "_x6", 1: "_x1"}
+# JAX's single-pass bf16 tier (its ``BF16IO`` sentinel): the tier of bf16
+# spectra, the value the C side names kBF16IO.
+BF16IO = 0
+# tier (splits, the C configuration queries' tier argument too) → pieces of
+# an operand (TF32 pieces; at BF16IO its one bf16 rounding), and the suffix
+# of its C entries (the 3×TF32 entries have none)
+TIERS = {3: 2, 6: 3, 1: 1, BF16IO: 1}
+TIER_SUFFIX = {3: "", 6: "_x6", 1: "_x1", BF16IO: "_io"}
+
+
+def tier_name(splits: int) -> str:
+    """'3xTF32', '6xTF32', '1xTF32' or 'bf16io', for messages."""
+    return "bf16io" if splits == BF16IO else f"{splits}xTF32"
 
 
 def _check_splits(splits: int) -> None:
-    validate(splits in TIERS, f"splits must be one of {sorted(TIERS)}; got {splits!r}")
+    validate(splits in TIERS, f"splits must be one of {list(TIERS)}; got {splits!r}")
 
 
 def m_planes(rows: int, splits: int) -> int:
@@ -195,13 +210,13 @@ def fused_splits(spec_dtype: torch.dtype = torch.float32) -> int:
     """The fused kernels' synthesis tier for spectra of ``spec_dtype``,
     read from the config at every call — the JAX package's rule
     (``cuda_fft_convolution_tpu/ops/block_conv.py:683-693``): bf16 spectra
-    run the bf16 entries (3 here: they widen each load and run the 3×TF32
-    syntheses, the TPU's single bf16 pass being BF16IO); fp32 spectra run
-    3×TF32 under ``fused_precision='bf16x3'``, and under 'highest' the tier
-    of ``matmul_precision``: 'highest' 6×TF32 (fp32-exact products, the
-    TPU's 6-pass HIGHEST), 'high' 3×TF32, 'default' one TF32 pass."""
+    run ``BF16IO`` (one pass on bf16-rounded operands, whatever the
+    config); fp32 spectra run 3×TF32 under ``fused_precision='bf16x3'``,
+    and under 'highest' the tier of ``matmul_precision``: 'highest' 6×TF32
+    (fp32-exact products, the TPU's 6-pass HIGHEST), 'high' 3×TF32,
+    'default' one TF32 pass."""
     if spec_dtype == torch.bfloat16:
-        return 3
+        return BF16IO
     cfg = get_config()
     if cfg.fused_precision == "bf16x3":
         return 3
@@ -280,34 +295,47 @@ def _check_out_dtype(out_dtype: torch.dtype) -> None:
     )
 
 
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest, ties to even), in ``x``'s dtype:
+    what the kernels' BF16IO tier does to an operand (csrc/block_conv.cuh
+    bf16r)."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
 def block_conv_reference(
     dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32/bf16
     kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32/bf16
     block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
     out_dtype: torch.dtype = torch.float32,
+    splits: int | None = None,
 ) -> torch.Tensor:
-    """Plain torch version of the fused kernel → (B, N, out_h, out_w) maps
-    in ``out_dtype``: bf16 planes are upcast to float32 first. The plain
-    version of every synthesis tier (IEEE fp32). float64 planes run in
-    float64, with ``out_dtype=torch.float64`` for float64 maps (the checks'
-    exact reference). Differentiable; used on the CPU and by the tests."""
+    """Plain torch version of the fused kernel at synthesis tier ``splits``
+    (None: ``fused_splits`` of the spectra's dtype) → (B, N, out_h, out_w)
+    maps in ``out_dtype``: bf16 planes are upcast to float32 first. IEEE
+    fp32 at every tier but ``BF16IO``, which rounds S, G, X and M to bf16
+    right before each product (exact products, fp32 sums, the kernels'
+    4-product complex form). float64 planes run in float64, with
+    ``out_dtype=torch.float64`` for float64 maps (the checks' exact
+    reference). Differentiable; used on the CPU and by the tests."""
     if out_dtype != torch.float64:
         _check_out_dtype(out_dtype)
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
+    rnd = bf16_round if _resolve_splits(splits, dr.dtype) == BF16IO else (lambda x: x)
     dr, di, kr, ki = (upcast(t) for t in (dr, di, kr, ki))
     gr, gi, mr, mi = (
-        m.to(dr.dtype) for m in _window_mats(block_h, block_w, kh, kw, str(dr.device))
+        rnd(m.to(dr.dtype))
+        for m in _window_mats(block_h, block_w, kh, kw, str(dr.device))
     )
 
     def mac(d, k):
         return torch.einsum("bijfuv,nfuv->bijnuv", d, k)
 
-    s_re = mac(dr, kr) - mac(di, ki)  # (B, nbh, nbw, N, Lh, Wc)
-    s_im = mac(di, kr) + mac(dr, ki)
-    x_re = gr @ s_re - gi @ s_im  # (B, nbh, nbw, N, Vh, Wc)
-    x_im = gr @ s_im + gi @ s_re
+    s_re = rnd(mac(dr, kr) - mac(di, ki))  # (B, nbh, nbw, N, Lh, Wc)
+    s_im = rnd(mac(di, kr) + mac(dr, ki))
+    x_re = rnd(gr @ s_re - gi @ s_im)  # (B, nbh, nbw, N, Vh, Wc)
+    x_im = rnd(gr @ s_im + gi @ s_re)
     tile = x_re @ mr + x_im @ mi  # (B, nbh, nbw, N, Vh, Vw)
     maps = tile.permute(0, 3, 1, 4, 2, 5).reshape(b, n, nbh * vh, nbw * vw)
     return maps[:, :, :out_h, :out_w].contiguous().to(out_dtype)
@@ -360,20 +388,22 @@ def _check_smem(block_w: int, wc: int, vh: int, splits: int) -> None:
     validate(
         smem_bytes(wc, vh, splits) <= SMEM_LIMIT_BYTES,
         f"block width {block_w} needs {smem_bytes(wc, vh, splits)} B of shared "
-        f"memory at {splits}xTF32 (limit {SMEM_LIMIT_BYTES})",
+        f"memory at {tier_name(splits)} (limit {SMEM_LIMIT_BYTES})",
     )
 
 
 def _resolve_splits(splits: int | None, spec_dtype: torch.dtype) -> int:
     """The tier of a kernel call: ``splits``, or ``fused_splits`` of the
-    spectra's dtype where it is None. bf16 spectra have their one tier."""
+    spectra's dtype where it is None. bf16 spectra run ``BF16IO`` or, asked
+    for, 3×TF32; ``BF16IO`` takes bf16 spectra only."""
     if splits is None:
         return fused_splits(spec_dtype)
     _check_splits(splits)
-    validate(
-        splits == 3 or spec_dtype != torch.bfloat16,
-        f"bf16 spectra run one tier (splits=3); got splits={splits}",
-    )
+    if spec_dtype == torch.bfloat16:
+        validate(splits in (BF16IO, 3),
+                 f"bf16 spectra run BF16IO ({BF16IO}) or splits=3; got splits={splits!r}")
+    else:
+        validate(splits != BF16IO, f"the BF16IO tier (splits={BF16IO}) takes bf16 spectra")
     return splits
 
 
@@ -385,20 +415,20 @@ def block_conv(
     splits: int | None = None,
 ) -> torch.Tensor:
     """→ (B, N, out_h, out_w) maps in ``out_dtype``. CPU tensors run
-    ``block_conv_reference`` (IEEE fp32, the plain version of every tier);
-    CUDA tensors launch the CUDA kernel entry of their (spectra, maps)
-    dtypes and synthesis tier ``splits`` (None: ``fused_splits``, read from
-    the config) on the current stream (no synchronisation) and count the
-    launch in ``block_conv.launches``, per mode (the entry's name without
-    ``fftconv_``: ``block_conv_f32``, ``block_conv_f32_x6``, …) in
-    ``block_conv.launches_by_mode`` and per (mode, block_h, block_w, kh,
-    kw) in ``block_conv.launches_by_shape``."""
+    ``block_conv_reference`` at the tier; CUDA tensors launch the CUDA
+    kernel entry of their (spectra, maps) dtypes and synthesis tier
+    ``splits`` (None: ``fused_splits``, read from the config) on the
+    current stream (no synchronisation) and count the launch in
+    ``block_conv.launches``, per mode (the entry's name without
+    ``fftconv_``: ``block_conv_f32``, ``block_conv_f32_x6``,
+    ``block_conv_bf16_io``, …) in ``block_conv.launches_by_mode`` and per
+    (mode, block_h, block_w, kh, kw) in ``block_conv.launches_by_shape``."""
     _check_out_dtype(out_dtype)
     ops = (dr, di, kr, ki)
     splits = _resolve_splits(splits, dr.dtype)
     if all(t.device.type == "cpu" for t in ops):
         return block_conv_reference(
-            dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, out_dtype
+            dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, out_dtype, splits
         )
     dev, tag = cuda_operands("block_conv", ops)
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
@@ -459,7 +489,10 @@ def tf32_product(a: torch.Tensor, b: torch.Tensor, splits: int) -> torch.Tensor:
     indices sum below the pieces an operand has (6×TF32: all but the three
     below 2^-33; 3×TF32: a_lo·b_hi + a_hi·b_lo + a_hi·b_hi; one pass: hi·hi),
     smallest first, each an fp32 matmul of TF32 values (exact products,
-    fp32 sums)."""
+    fp32 sums); at ``BF16IO`` one fp32 matmul of the operands rounded to
+    bf16."""
+    if splits == BF16IO:
+        return bf16_round(a) @ bf16_round(b)
     p = TIERS[splits]
     pa, pb = tf32_split(a, p), tf32_split(b, p)
     terms = [(i, s - i) for s in range(p - 1, -1, -1) for i in range(s, -1, -1)]
@@ -487,9 +520,13 @@ def _kernel_mats(
     streams one plane and splits it in registers (``m_planes``: the 32-row
     configuration at 6×TF32); m_tc[p, c // 8, k // 4, c % 8, k % 4] is
     plane p at (c, k), 8 columns × 4 k of 128 contiguous bytes a core
-    matrix. Zeros fill every padding. The planes depend on the tier, so
-    the tier is part of the cache key."""
+    matrix. Zeros fill every padding. At ``BF16IO`` G, G^T and M^T (one
+    plane) are the windows rounded to bf16, the operands of that tier's
+    products. The operands depend on the tier, so the tier is part of the
+    cache key."""
     gr, gi, mr, mi = _window_mats(block_h, block_w, kh, kw, device)
+    if splits == BF16IO:
+        gr, gi, mr, mi = (bf16_round(m) for m in (gr, gi, mr, mi))
     (vh, lh), (wc, vw) = gr.shape, mr.shape
     g_pad = torch.zeros((2, -(-vh // 64) * 64, -(-lh // _UK) * _UK), device=device)
     g_pad[0, :vh, :lh], g_pad[1, :vh, :lh] = gr, gi
@@ -549,55 +586,99 @@ def cell_peaks(
     return vals, (gy * out_w + gx).to(torch.int32)
 
 
+def _check_group(mbh, mbw) -> None:
+    validate(
+        all(m is None or (isinstance(m, int) and m >= 1) for m in (mbh, mbw)),
+        f"mbh and mbw must be None or positive ints; got {mbh!r}, {mbw!r}",
+    )
+
+
+def group_cells(
+    vals: torch.Tensor, idxs: torch.Tensor, mbh=None, mbw=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """A per-block pyramid (vals, idxs), each (B, N, nbh, nbw), reduced to
+    cells of ``mbh × mbw`` blocks → (B, N, ceil(nbh / mbh), ceil(nbw /
+    mbw)) pairs, in the order of the JAX package's ``_peaks_reducer``
+    (``cuda_fft_convolution_tpu/ops/block_conv.py:1436-1443``): inside a
+    column of blocks the larger value wins, then the smallest flat index;
+    across the columns j of a cell a later j wins only when it is strictly
+    greater. Blocks past the grid (the last cells' padding) never win.
+    None and 1 keep one block per cell; a group larger than the grid is
+    cut to it, as in JAX."""
+    b, n, nbh, nbw = vals.shape
+    _check_group(mbh, mbw)
+    mbh, mbw = min(mbh or 1, nbh), min(mbw or 1, nbw)
+    if mbh == mbw == 1:
+        return vals, idxs
+    gbh, gbw = -(-nbh // mbh), -(-nbw // mbw)
+    pad = (0, gbw * mbw - nbw, 0, gbh * mbh - nbh)
+    last = torch.iinfo(torch.int32).max
+    v = F.pad(vals, pad, value=-math.inf).reshape(b, n, gbh, mbh, gbw, mbw)
+    i = F.pad(idxs, pad, value=last).reshape(b, n, gbh, mbh, gbw, mbw)
+    col_v = v.amax(dim=3, keepdim=True)
+    col_i = torch.where(v == col_v, i, last).amin(dim=3)  # (B, N, gbh, gbw, mbw)
+    col_v = col_v[:, :, :, 0]
+    j = col_v.argmax(dim=-1, keepdim=True)  # the first column at the max
+    return col_v.gather(-1, j)[..., 0], col_i.gather(-1, j)[..., 0]
+
+
 def block_conv_peaks_reference(
     dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32/bf16
     kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32/bf16
     block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
+    splits: int | None = None, mbh: int | None = None, mbw: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version of the peaks kernel: ``block_conv_reference``
-    (f32 maps, bf16 planes upcast), then ``cell_peaks`` over one-block
-    cells → (vals f32, idxs int32), each (B, N, nbh, nbw)."""
+    """Plain torch version of the peaks kernel: ``block_conv_reference`` at
+    tier ``splits`` (f32 maps, bf16 planes upcast), then ``cell_peaks``
+    over one-block cells and ``group_cells`` over cells of ``mbh × mbw``
+    blocks → (vals f32, idxs int32), each (B, N, ceil(nbh / mbh),
+    ceil(nbw / mbw))."""
     maps = block_conv_reference(
-        dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w
+        dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, splits=splits
     )
-    return cell_peaks(
+    vals, idxs = cell_peaks(
         maps, dr.shape[1], dr.shape[2], block_h - kh + 1, block_w - kw + 1
     )
+    return group_cells(vals, idxs, mbh, mbw)
 
 
 def block_conv_peaks(
     dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32/bf16
     kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32/bf16
     block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
-    splits: int | None = None,
+    splits: int | None = None, mbh: int | None = None, mbw: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The per-cell block-max pyramid of the fused block conv, with no maps
-    written → ``(vals, idxs)``, each (B, N, nbh, nbw): the max response of
-    each block's valid window (clipped at (out_h, out_w)) and its global
-    flat index y·out_w + x (int32). Larger value wins; between equal values
-    the smaller index; positions past (out_h, out_w) never win. The values
+    """The per-cell max pyramid of the fused block conv, with no maps
+    written → ``(vals, idxs)``, each (B, N, ceil(nbh / mbh), ceil(nbw /
+    mbw)): the max response of each cell of ``mbh × mbw`` blocks' valid
+    windows (clipped at (out_h, out_w)) and its global flat index
+    y·out_w + x (int32). Larger value wins; between equal values the
+    smaller index, in the JAX package's order across a cell's blocks
+    (``group_cells``); positions past (out_h, out_w) never win. The values
     are float32 and the indices int32 at either spectra dtype.
 
-    This is the JAX package's ``block_conv_peaks_pallas(..., mbh=1,
-    mbw=1)``: one cell per block. The JAX package groups blocks into larger
-    cells by a model of TPU VMEM (``_choose_group``,
-    ``lookup_fused_group``); on Hopper a CTA may stack several short blocks
-    (``blocks_per_cta``), but it still writes one pair per block. Reducing
-    the pyramid over cells gives the exact per-kernel top-1 either way.
+    This is the JAX package's ``block_conv_peaks_pallas(..., mbh, mbw)``.
+    ``mbh = mbw = None`` (or 1) is one cell per block: the JAX package
+    picks its groups by a model of TPU VMEM (``_choose_group``,
+    ``lookup_fused_group``), which Hopper does not have; reducing the
+    pyramid over cells gives the exact per-kernel top-1 at any grouping.
 
     CPU tensors run ``block_conv_peaks_reference``; CUDA tensors launch the
     CUDA kernel entry of their spectra dtype and synthesis tier ``splits``
     (None: ``fused_splits``) on the current stream and count the launch in
     ``block_conv_peaks.launches`` and, per mode, in
-    ``block_conv_peaks.launches_by_mode``. The kernel writes one pair per (cell,
-    row chunk of ``tile_rows`` window rows; ``row_chunks``); a cell split into
+    ``block_conv_peaks.launches_by_mode``. A CTA holds one block (or a
+    stack of blocks), so the kernel writes one pair per (block, row chunk
+    of ``tile_rows`` window rows; ``row_chunks``); a block split into
     several row chunks is combined here (first maximum over chunks: chunk
-    r's rows all precede chunk r+1's, so that keeps the tie rule)."""
+    r's rows all precede chunk r+1's, so that keeps the tie rule), and the
+    blocks into cells by ``group_cells``."""
     ops = (dr, di, kr, ki)
     splits = _resolve_splits(splits, dr.dtype)
+    _check_group(mbh, mbw)
     if all(t.device.type == "cpu" for t in ops):
         return block_conv_peaks_reference(
-            dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w
+            dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, splits, mbh, mbw
         )
     dev, tag = cuda_operands("block_conv_peaks", ops)
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
@@ -629,12 +710,11 @@ def block_conv_peaks(
         )
     count_launch(block_conv_peaks, mode)
     if chunks == 1:
-        return vals[:, :, :, 0], idxs[:, :, :, 0]
-    best = vals.argmax(dim=3, keepdim=True)
-    return (
-        vals.gather(3, best)[:, :, :, 0],
-        idxs.gather(3, best)[:, :, :, 0],
-    )
+        vals, idxs = vals[:, :, :, 0], idxs[:, :, :, 0]
+    else:
+        best = vals.argmax(dim=3, keepdim=True)
+        vals, idxs = vals.gather(3, best)[:, :, :, 0], idxs.gather(3, best)[:, :, :, 0]
+    return group_cells(vals, idxs, mbh, mbw)
 
 
 block_conv_peaks.launches = 0

@@ -32,8 +32,11 @@ M^T's TF32 hi and lo planes) beside this tree's default-tier (3×TF32)
 entries and times both in turns —
 parent, this tree, this tree, parent, CUDA events, median of 7, each side a
 bare call of its C entry — at the headline plan (float32) and at the DPM
-plan (bf16 spectra, and the same planes upcast to float32), printing how
-far the outputs differ and each side's error against the plain version.
+plan (bf16 spectra at the 3×TF32 entries, and the same planes upcast to
+float32), printing how far the outputs differ and each side's error
+against the plain version; at the headline plan it also compares the
+6×TF32 and one-pass entries (``_x6``, ``_x1``, each side on this tree's
+operands of the tier), untimed.
 
     python3 profile_torch_paths.py --submit-probe
 
@@ -50,12 +53,30 @@ spread, the worst median of 8 consecutive trials (the smoke's statistic),
 the caching allocator's retries, and for the submits over 3.5 ms the
 garbage collector's time in them and where the main thread was after 4 ms
 (sampled from a second thread), then the slowest trials.
+
+    python3 profile_torch_paths.py --bf16io-witness
+
+instead reads where the BF16IO maps entry (bf16 spectra's default tier)
+parts from its plain version, at the DPM plan (``chip_smoke.dpm_inputs``,
+1024 filters) and at the headline plan (8 of 64² kernels on a 2048² image
+from ``--seed``): (a) the block of the largest error, how evenly the error
+covers its tile, the bins of S there nearest a bf16 rounding boundary and
+the bins of X in its row whose other rounding best explains the error,
+each rounded the other way in turn in the plain version, with the error
+against the kernel after the flip; (b) the plain version with every
+product and sum in float64 (rounded to bf16 where the tier rounds) against
+the float32 one and against the kernel; (c) the plain version with a
+rounding left out (of S, of X, of G and M, of all three) and the 3xTF32
+entry against the BF16IO plain version, in root mean square beside
+``chip_smoke.IO_RMS_TOL``. It writes the numbers to
+``chiprun_out/bf16io_witness.json``.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import os
 import pathlib
 import subprocess
@@ -138,31 +159,30 @@ def build_parent(csrc: pathlib.Path):
     subprocess.run([nvcc, *_build.LINK_FLAGS, "-o", str(lib_path), *map(str, objs)],
                    check=True)
     lib = ctypes.CDLL(str(lib_path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for tag in ("f32", "bf16"):
-        for name, pointers in ((f"fftconv_block_conv_{tag}", 9),
-                               (f"fftconv_block_conv_peaks_{tag}", 10)):
-            getattr(lib, name).argtypes = [p] * pointers + [i] * 12 + [p]
-            getattr(lib, name).restype = i
+    # this tree's signatures, for every entry the parent has
+    for name, (argtypes, restype) in _build._SIGNATURES.items():
+        if name.startswith("fftconv_block_conv") and hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = restype
     return lib
 
 
-def bare_call(lib, ops, geom, peaks: bool, order: int, parent: bool):
-    """The C entry of ``lib`` (the parent's, or this tree's) with launch
-    order ``order`` on ``ops`` at ``geom``, with no wrapper around it →
-    maps (B, N, out_h, out_w), or the per-block (vals, idxs) of a
-    one-row-chunk geometry."""
+def bare_call(lib, ops, geom, peaks: bool, order: int, parent: bool, splits=3):
+    """The C entry of ``lib`` (the parent's, or this tree's) at tier
+    ``splits`` (3xTF32 unless asked) with launch order ``order`` on ``ops``
+    at ``geom``, with no wrapper around it → maps (B, N, out_h, out_w), or
+    the per-block (vals, idxs) of a one-row-chunk geometry."""
     import torch
 
-    from cuda_fft_convolution_torch.ops.block_conv import _kernel_mats
+    from cuda_fft_convolution_torch.ops.block_conv import TIER_SUFFIX, _kernel_mats
 
     b, nbh, nbw, f, lh, wc = ops[0].shape
     n = ops[2].shape[0]
     bh, bw, kh, kw, out_h, out_w = geom
     vh, vw = bh - kh + 1, bw - kw + 1
-    # both sides take the default tier's operands
-    mats = _kernel_mats(bh, bw, kh, kw, str(ops[0].device), 3)
-    tag = "bf16" if ops[0].dtype == torch.bfloat16 else "f32"
+    # both sides take this tree's operands of the tier
+    mats = _kernel_mats(bh, bw, kh, kw, str(ops[0].device), splits)
+    tag = ("bf16" if ops[0].dtype == torch.bfloat16 else "f32") + TIER_SUFFIX[splits]
     if peaks:
         vals = torch.empty((b, n, nbh, 1, nbw), device=ops[0].device)
         idxs = torch.empty((b, n, nbh, 1, nbw), dtype=torch.int32, device=ops[0].device)
@@ -191,18 +211,19 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
         block_conv_peaks_reference,
         block_conv_reference,
         kernel_tile,
+        tier_name,
     )
 
     lib = build_parent(csrc)
     this = _build.library()
 
-    def calls(ops, geom, peaks):
+    def calls(ops, geom, peaks, splits=3):
         """(the parent's call, this tree's call): both bare C entries, so
         the timing holds no wrapper's host time."""
         wc, vh = ops[0].shape[-1], geom[0] - geom[2] + 1
-        order = kernel_tile(wc, vh, ops[2])
-        return (lambda: bare_call(lib, ops, geom, peaks, order, True),
-                lambda: bare_call(this, ops, geom, peaks, order, False))
+        order = kernel_tile(wc, vh, ops[2], splits)
+        return (lambda: bare_call(lib, ops, geom, peaks, order, True, splits),
+                lambda: bare_call(this, ops, geom, peaks, order, False, splits))
 
     def turns(label, parent, new, runs=chip_smoke.RUNS):
         t = [chip_smoke.cuda_ms(f, runs) for f in (parent, new, new, parent)]
@@ -212,7 +233,10 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
 
     def compare(label, parent, new, peaks, ops, geom):
         a, b = parent(), new()
-        want = (block_conv_peaks_reference if peaks else block_conv_reference)(*ops, *geom)
+        # the plain version of the 3xTF32 entries (bf16 spectra: the
+        # explicit tier; IEEE fp32 at every fp32 tier)
+        want = (block_conv_peaks_reference(*ops, *geom, 3) if peaks
+                else block_conv_reference(*ops, *geom, splits=3))
         torch.cuda.synchronize()
         flips = ""
         if peaks:
@@ -237,6 +261,9 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
         label = f"headline plan, f32 {'peaks' if peaks else 'maps'}"
         compare(label, *calls(ops, geom, peaks), peaks, ops, geom)
         turns(label, *calls(ops, geom, peaks))
+        for splits in (6, 1):  # the other fp32 tiers: compared, not timed
+            compare(f"{label}, {tier_name(splits)}", *calls(ops, geom, peaks, splits), peaks,
+                    ops, geom)
     del spec, sk, ops
     torch.cuda.empty_cache()
 
@@ -401,6 +428,177 @@ def submit_probe(seed: int, soak: float) -> None:
         submit_soak(stream, frames, pinned, host, soak)
 
 
+def io_plain(ops, geom, skip=(), wide=False):
+    """The BF16IO plain version (``block_conv_reference`` at BF16IO, the
+    same expressions) without the roundings named in ``skip`` ('s', 'x',
+    'gm') and, with ``wide``, in float64 → (float32 maps (B, N, out_h,
+    out_w), S's (re, im) before its rounding)."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.block_conv import _window_mats, bf16_round
+
+    def rnd(x, what):
+        return x if what in skip else bf16_round(x)
+
+    def mac(d, k):
+        return torch.einsum("bijfuv,nfuv->bijnuv", d, k)
+
+    bh, bw, kh, kw, out_h, out_w = geom
+    dtype = torch.float64 if wide else torch.float32
+    dr, di, kr, ki = (t.to(dtype) for t in ops)
+    gr, gi, mr, mi = (rnd(m.to(dtype), "gm")
+                      for m in _window_mats(bh, bw, kh, kw, str(dr.device)))
+    s_re, s_im = mac(dr, kr) - mac(di, ki), mac(di, kr) + mac(dr, ki)
+    sr, si = rnd(s_re, "s"), rnd(s_im, "s")
+    x_re, x_im = rnd(gr @ sr - gi @ si, "x"), rnd(gr @ si + gi @ sr, "x")
+    tile = x_re @ mr + x_im @ mi
+    b, nbh, nbw, n, vh, vw = tile.shape
+    maps = tile.permute(0, 3, 1, 4, 2, 5).reshape(b, n, nbh * vh, nbw * vw)
+    return maps[:, :, :out_h, :out_w].float(), (s_re, s_im)
+
+
+def bf16_other(v):
+    """(the bf16 neighbour of ``v`` that round-to-nearest did not pick,
+    |v − the midpoint of the two| in float32 ulps of v)."""
+    import torch
+
+    r = v.to(torch.bfloat16)
+    bits = r.view(torch.int16).to(torch.int32)
+    bits = bits + torch.where(v.abs() > r.float().abs(), 1, -1)
+    other = bits.to(torch.int16).view(torch.bfloat16).float()
+    _, exp = torch.frexp(v)
+    ulp = torch.ldexp(torch.ones_like(v), exp - 24)
+    return other, ((v - (r.float() + other) / 2).abs() / ulp)
+
+
+def flip_witness(ops, geom, got, want, s, candidates=4) -> dict:
+    """(a) of ``--bf16io-witness``: the block, filter and position of the
+    largest |got − want|, the error's spread over its tile, and the bins
+    whose bf16 rounding, turned the other way in a one-block plain version,
+    would move the plain value there: of S, the ``candidates`` nearest a
+    bf16 boundary; of X, in the position's row, the ``candidates`` whose
+    flip (its bf16 step × the W-stage matrix at the position's column) best
+    matches got − want there → each with its distance from the boundary
+    and the errors after the flip."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.block_conv import _window_mats, bf16_round
+
+    bh, bw, kh, kw, out_h, out_w = geom
+    vh, vw = bh - kh + 1, bw - kw + 1
+    scale = float(want.abs().max())
+    diff = (got - want).abs()
+    b, n, y, x = (int(t) for t in torch.unravel_index(diff.argmax(), diff.shape))
+    i, j, r, c = y // vh, x // vw, y % vh, x % vw
+    rows, cols = slice(i * vh, min((i + 1) * vh, out_h)), slice(j * vw, min((j + 1) * vw, out_w))
+    t_got, t_want = got[b, n, rows, cols], want[b, n, rows, cols]
+    t_diff = t_got - t_want
+    gr, gi, mr, mi = (bf16_round(m.float())
+                      for m in _window_mats(bh, bw, kh, kw, str(got.device)))
+
+    def x_stage(sr, si):  # X before its rounding, (Vh, Wc) re and im
+        return gr @ sr - gi @ si, gr @ si + gi @ sr
+
+    def tile(xr, xi):
+        return (bf16_round(xr) @ mr + bf16_round(xi) @ mi)[: t_got.shape[0], : t_got.shape[1]]
+
+    def errs(t):  # (at the position, the tile's largest), relative to the maps' max
+        return (float((t[r, c] - t_got[r, c]).abs()) / scale,
+                float((t - t_got).abs().max()) / scale)
+
+    s_rounded = [bf16_round(part[b, i, j, n]) for part in s]
+    x_un = x_stage(*s_rounded)
+    base = tile(*x_un)
+    out = {
+        "block": [b, n, i, j], "at": [y, x], "err": float(diff.max()) / scale,
+        "tile_err_mean": float(t_diff.mean()) / scale,
+        "tile_err_std": float(t_diff.std()) / scale,
+        "one_block_plain_vs_plain": float((base - t_want).abs().max()) / scale,
+        "one_block_plain_vs_kernel": errs(base),
+        "s_flips": [], "x_flips": [],
+    }
+    others, dists = zip(*(bf16_other(part[b, i, j, n]) for part in s))
+    size, width = dists[0].numel(), dists[0].shape[1]
+    for k in torch.cat([d.flatten() for d in dists]).argsort()[:candidates].tolist():
+        part, (u, v) = k // size, divmod(k % size, width)
+        flipped = [t.clone() for t in s_rounded]
+        flipped[part][u, v] = others[part][u, v]
+        out["s_flips"].append({"bin": ["re", "im"][part] + f"[{u},{v}]",
+                               "ulps_from_boundary": float(dists[part][u, v]),
+                               "errs_after_flip": errs(tile(*x_stage(*flipped)))})
+    # X in the position's row: a flip moves the value there by its step × M
+    x_row = [p[r] for p in x_un]
+    x_others, x_dists = zip(*(bf16_other(p) for p in x_row))
+    moves = torch.cat([(o - bf16_round(p)) * m[:, c]
+                       for o, p, m in zip(x_others, x_row, (mr, mi))])
+    target = t_got[r, c] - base[r, c]
+    for k in (moves - target).abs().argsort()[:candidates].tolist():
+        part, v = divmod(k, x_row[0].numel())
+        flipped = [p.clone() for p in x_un]
+        flipped[part][r, v] = x_others[part][v]  # rounds to the other neighbour
+        out["x_flips"].append({"bin": ["re", "im"][part] + f"[{r},{v}]",
+                               "ulps_from_boundary": float(x_dists[part][v]),
+                               "errs_after_flip": errs(tile(*flipped))})
+    return out
+
+
+def bf16io_witness(seed: int) -> dict:
+    """See the module docstring (``--bf16io-witness``)."""
+    import numpy as np
+    import torch
+
+    import cuda_fft_convolution_torch as fc
+    from cuda_fft_convolution_torch.ops.block_conv import block_conv, block_conv_reference
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed)
+    s, k = chip_smoke.HEADLINE["size"], chip_smoke.HEADLINE["k"]
+    image = torch.as_tensor(rng.standard_normal((s, s, 1)).astype(np.float32), device="cuda")
+    bank = torch.as_tensor(rng.standard_normal((8, k, k, 1)).astype(np.float32), device="cuda")
+    feats, dbank, _ = chip_smoke.dpm_inputs(seed)
+    cases = {
+        f"DPM plan, N={dbank.shape[0]}": (feats, dbank, chip_smoke.DPM["k"]),
+        f"headline plan, N={bank.shape[0]}": (image, bank, k),
+    }
+    report_ = {"card": chip_smoke.card()}
+    for label, (data, filters, kk) in cases.items():
+        spec = fc.fft_data_tiled(data, kk, kk, trim_mode="same", store_dtype="bfloat16")
+        sk = fc.fft_kernels(filters, spectral=spec, store_dtype="bfloat16")
+        ops = (spec.re[None], spec.im[None], sk.re, sk.im)
+        geom = (spec.block_h, spec.block_w, spec.max_kh, spec.max_kw, spec.out_h, spec.out_w)
+        del spec, sk
+        got = block_conv(*ops, *geom)
+        want, s_parts = io_plain(ops, geom)
+        row = {"geometry": list(geom),
+               "io_plain_equals_block_conv_reference":
+                   torch.equal(want, block_conv_reference(*ops, *geom)),
+               "kernel_vs_plain": {"rel": chip_smoke.rel_err(got, want),
+                                   "rms": chip_smoke.rms_rel_err(got, want)},
+               "flip": flip_witness(ops, geom, got, want, s_parts)}
+        del s_parts
+        wide, _ = io_plain(ops, geom, wide=True)
+        row["float64_plain"] = {
+            "vs_float32_plain": {"rel": chip_smoke.rel_err(want, wide),
+                                 "rms": chip_smoke.rms_rel_err(want, wide)},
+            "vs_kernel": {"rel": chip_smoke.rel_err(got, wide),
+                          "rms": chip_smoke.rms_rel_err(got, wide)}}
+        del wide
+        row["missed_rounding_rms"] = {}
+        for skip in (("s",), ("x",), ("gm",), ("s", "x", "gm")):
+            planted, _ = io_plain(ops, geom, skip)
+            row["missed_rounding_rms"]["+".join(skip)] = chip_smoke.rms_rel_err(planted, want)
+            del planted
+        row["missed_rounding_rms"]["3xTF32 entry"] = chip_smoke.rms_rel_err(
+            block_conv(*ops, *geom, torch.float32, 3), want)
+        row["IO_RMS_TOL"] = chip_smoke.IO_RMS_TOL
+        print(f"bf16io witness [{label}] ({report_['card']}):")
+        print(json.dumps(row, indent=1))
+        report_[label] = row
+        del ops, got, want
+        torch.cuda.empty_cache()
+    return report_
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -410,6 +608,8 @@ def main(argv=None) -> int:
     parser.add_argument("--submit-probe", action="store_true",
                         help="time a ConvStream submit and its staging copy beside "
                              "busy processes")
+    parser.add_argument("--bf16io-witness", action="store_true",
+                        help="where the BF16IO maps entry parts from its plain version")
     parser.add_argument("--soak", type=float, default=0.0,
                         help="with --submit-probe: repeat the submit trial this many seconds")
     args = parser.parse_args(argv)
@@ -431,6 +631,11 @@ def main(argv=None) -> int:
         return 0
     if args.submit_probe:
         submit_probe(args.seed, args.soak)
+        return 0
+    if args.bf16io_witness:
+        out = pathlib.Path("chiprun_out")
+        out.mkdir(exist_ok=True)
+        (out / "bf16io_witness.json").write_text(json.dumps(bf16io_witness(args.seed), indent=1))
         return 0
     image, bank, _ = chip_smoke.detection_headline(fc, args.seed)
     report("detect_peaks", lambda: detect_peaks(image, bank), args.calls)

@@ -2,11 +2,15 @@
 maps (``out_dtype='bfloat16'``) against the JAX package.
 
 Bars: ``BF16_TOL`` = 2e-2 for the tier (``tests/test_bf16_tier.py``: the
-JAX tier's BF16IO rounds S, X, G and M to bf16 where the port keeps them
-float32, so the two agree to the tier's envelope, not to fp32) and
+tier's envelope against float32 and float64 maps; JAX's default Karatsuba
+form and the port's 4-product form round S and X at other values) and
 ``BF16_OUT_TOL`` = 5e-3 for bf16 maps against float32 maps
-(``tests/test_out_dtype.py``). The port at bf16 is held to itself at float32
-exactly: bf16 planes give the float32 result of the bf16-rounded planes.
+(``tests/test_out_dtype.py``). The fused kernels run bf16 spectra at JAX's
+BF16IO (S, X, G and M rounded to bf16 before each product;
+``tests/test_torch_bf16io.py`` holds them to JAX's karatsuba=False form at
+5e-5); at the explicit 3×TF32 (``splits=3``), and in the MAC, the port at
+bf16 is held to itself at float32 exactly: bf16 planes give the float32
+result of the bf16-rounded planes.
 Also here: the mismatch and dtype validation with the JAX messages,
 gradients through bf16 maps, bf16 checkpoints across the two packages, and
 the HOG front end of the DPM path."""
@@ -100,9 +104,10 @@ BLOCK_CASES = [
 
 @pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,h,w", BLOCK_CASES)
 def test_block_conv_bf16_matches_jax_bf16io(rng, b, f, n, bh, bw, kh, kw, h, w):
-    """Port plain block_conv on bf16 planes against block_conv_pallas on the
-    same bf16 planes (interpret mode = BF16IO), with float32 maps and with
-    bf16 maps: the maps' dtype is JAX's, the values within the tier bar."""
+    """Port plain block_conv on bf16 planes (BF16IO) against
+    block_conv_pallas on the same bf16 planes (interpret mode, BF16IO in its
+    default Karatsuba form), with float32 maps and with bf16 maps: the maps'
+    dtype is JAX's, the values within the tier bar."""
     ops = _block_operands(rng, b, f, n, bh, bw, kh, kw, h, w)
     geom = (bh, bw, kh, kw, h, w)
     for out_dtype, t_out in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -149,18 +154,28 @@ def _mac_planes(rng):
             for s in ((2, 3, 9, 7), (2, 3, 9, 7), (4, 3, 9, 7), (4, 3, 9, 7))]
 
 
-@pytest.mark.parametrize("kernel", ["block_conv", "block_conv_peaks", "spectral_mac"])
+@pytest.mark.parametrize("kernel", ["block_conv", "block_conv_peaks", "spectral_mac",
+                                    "block_conv_bf16io"])
 def test_bf16_is_f32_on_the_rounded_planes(rng, kernel):
     """Each kernel's CPU path at bf16 equals its float32 path on the
-    bf16-rounded planes upcast: max abs difference 0."""
+    bf16-rounded planes upcast, max abs difference 0: the MAC, and the
+    fused kernels at the explicit 3×TF32 tier (``splits=3``). Their default
+    tier at bf16, BF16IO, rounds S, G, X and M as well, so its maps are not
+    the float32 path's, though within the tier bar of them."""
+    # the tier's arguments: the explicit 3×TF32, or the default (BF16IO)
+    tier = {"block_conv": (torch.float32, 3), "block_conv_peaks": (3,), "spectral_mac": (),
+            "block_conv_bf16io": (torch.float32, None)}[kernel]
     if kernel == "spectral_mac":
         ops, geom, fn = _mac_planes(rng), (), tmac.spectral_mac
     else:
-        ops = _block_operands(rng, *BLOCK_CASES[1])
-        geom = BLOCK_CASES[1][3:]
-        fn = getattr(tbc, kernel)
-    at16 = fn(*map(_bf16, ops), *geom)
-    at32 = fn(*(x.float() for x in map(_bf16, ops)), *geom)
+        ops, geom = _block_operands(rng, *BLOCK_CASES[1]), BLOCK_CASES[1][3:]
+        fn = getattr(tbc, kernel.removesuffix("_bf16io"))
+    planes = [x.float() for x in map(_bf16, ops)]
+    at16 = fn(*map(_bf16, ops), *geom, *tier)
+    at32 = fn(*planes, *geom)
+    if kernel == "block_conv_bf16io":  # held to JAX's BF16IO in test_torch_bf16io.py
+        assert 1e-5 < rel_err(at16.numpy(), at32.numpy()) < BF16_TOL
+        return
     for g, w in zip(at16, at32):
         assert g.dtype == w.dtype and torch.equal(g, w)
 

@@ -1,7 +1,8 @@
 """The port's detection path against the JAX package: the peaks kernel's
 plain version against ``block_conv_peaks_pallas`` (interpret mode, one block
-per cell), the tiled reductions against their JAX twins, and the detection
-heads against ``cuda_fft_convolution_tpu.models.detect``.
+per cell, and cells of mbh × mbw blocks), the tiled reductions against
+their JAX twins, and the detection heads against
+``cuda_fft_convolution_tpu.models.detect``.
 
 Tolerances: values within 1e-5 relative to the largest |value| (the repo's
 fp32 bar); positions and indices exactly equal (random continuous data has
@@ -343,21 +344,21 @@ def test_detect_top_k_fused_planted_cells(rng):
 
 
 def test_fused_top_k_cells_against_jax_grouped_cells(rng, monkeypatch):
-    """The documented difference of the fused top-k (ROADMAP queue 2 item
-    7): JAX's ``conv_blocks_top_k``, forced onto its fused branch and run
-    through ``block_conv_peaks_pallas`` in interpret mode at mbh = mbw = 2,
-    takes its candidates from cells of 2×2 blocks; the port's from cells of
-    one block. Top-1 is equal; the port's k values dominate JAX's slot by
-    slot; every JAX hit above the port's k-th value is among the port's
-    hits; and two plants in one JAX cell but in two blocks are both port
-    hits, where JAX returns one of them and a cell's noise maximum."""
+    """Cells of several blocks (ROADMAP queue 2 item 7): JAX's
+    ``conv_blocks_top_k``, forced onto its fused branch and run through
+    ``block_conv_peaks_pallas`` in interpret mode at mbh = mbw = 2, and the
+    port's, through ``block_conv_peaks`` at the same group, give the same
+    top-k: equal positions, values within TOL. The cells of 2×2 blocks are
+    ragged here (3×5 blocks). Two plants in one cell but in two blocks:
+    both sides return one of them and a cell's noise maximum; the port's
+    default, one block per cell, returns all three plants."""
     from cuda_fft_convolution_tpu.ops import block_conv as jbc
 
     templ = rng.standard_normal((5, 9, 1)).astype(np.float32)
     data = 0.05 * rng.standard_normal((96, 600, 1)).astype(np.float32)
     # blocks (36, 256), valid windows (32, 128): the centres (12, 44) and
-    # (52, 184) lie in blocks (0, 0) and (1, 1), one JAX cell (0, 0); the
-    # centre (72, 404) in block (2, 3), JAX cell (1, 1)
+    # (52, 184) lie in blocks (0, 0) and (1, 1), one cell (0, 0) of 2×2
+    # blocks; the centre (72, 404) in block (2, 3), cell (1, 1)
     plants = [(10, 40), (50, 180), (70, 400)]
     for y0, x0 in plants:
         data[y0 : y0 + 5, x0 : x0 + 9] += 3.0 * templ
@@ -367,6 +368,7 @@ def test_fused_top_k_cells_against_jax_grouped_cells(rng, monkeypatch):
     sk = tfc.fft_kernels(templ[None], spectral=sd, correlation=True)
     jsk = jfc.fft_kernels(templ[None], spectral=jsd, correlation=True)
     geom = (36, 256, 5, 129, 96, 600)
+    assert sd.re.shape[:2] == (3, 5)
     grouped = []
 
     def pallas_2x2(*args, **kwargs):
@@ -380,18 +382,59 @@ def test_fused_top_k_cells_against_jax_grouped_cells(rng, monkeypatch):
     finally:
         jfc.set_config(use_fused_block_conv=None)
     assert grouped == [True]  # the kernel function ran, in interpret mode
+    one_block = tt.conv_blocks_top_k(sd.re[None], sd.im[None], sk.re, sk.im, *geom, 3)
+    real = tt.block_conv_peaks
+    monkeypatch.setattr(tt, "block_conv_peaks",
+                        lambda *a, **k: real(*a, **{**k, "mbh": 2, "mbw": 2}))
     v, y, x = tt.conv_blocks_top_k(sd.re[None], sd.im[None], sk.re, sk.im, *geom, 3)
     jv, jy, jx = (np.asarray(a)[0, 0] for a in (jv, jy, jx))
     v, y, x = (a[0, 0].numpy() for a in (v, y, x))
-    atol = TOL * np.abs(jv).max()
-    assert (y[0], x[0]) == (jy[0], jx[0]) and abs(v[0] - jv[0]) <= atol
-    assert (v >= jv - atol).all()
-    ours = set(zip(y.tolist(), x.tolist()))
-    theirs = list(zip(jy.tolist(), jx.tolist()))
-    assert all(p in ours for p, val in zip(theirs, jv) if val > v[-1] + atol)
+    assert np.array_equal(y, jy) and np.array_equal(x, jx)
+    assert np.abs(v - jv).max() <= TOL * np.abs(jv).max()
     centres = {(y0 + 2, x0 + 4) for y0, x0 in plants}
+    theirs = set(zip(jy.tolist(), jx.tolist()))
+    assert len(centres & theirs) == 2 and len({(12, 44), (52, 184)} & theirs) == 1
+    ours = set(zip(one_block[1][0, 0].tolist(), one_block[2][0, 0].tolist()))
     assert ours == centres
-    assert len(centres & set(theirs)) == 2 and len({(12, 44), (52, 184)} & set(theirs)) == 1
+
+
+@pytest.mark.parametrize("mbh,mbw", [(2, 2), (3, 2), (1, 3), (2, 1), (4, 5)])
+def test_block_conv_peaks_cells_match_jax(rng, mbh, mbw):
+    """``block_conv_peaks(..., mbh, mbw)`` = JAX's ``block_conv_peaks_pallas``
+    at the same group, indices included: 5×4 blocks (ragged groups: the
+    last cells padded), one block row and column past the output (cells
+    with no position inside it, whose pairs are −inf at their first
+    position), and a group larger than the grid (cut to it)."""
+    b, f, n, bh, bw, kh, kw, out_h, out_w = 2, 2, 3, 40, 160, 9, 33, 100, 350
+    ops = _operands(rng, b, f, n, bh, bw, kh, kw, out_h, out_w, extra=1)
+    assert ops[0].shape[1:3] == (5, 4)
+    geom = (bh, bw, kh, kw, out_h, out_w)
+    jv, ji = block_conv_peaks_pallas(*map(jnp.asarray, ops), *geom, interpret=True,
+                                     mbh=mbh, mbw=mbw, radix_h=False)
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    gv, gi = tbc.block_conv_peaks(*_torch(*ops), *geom, mbh=mbh, mbw=mbw)
+    rv, ri = tbc.block_conv_peaks_reference(*_torch(*ops), *geom, mbh=mbh, mbw=mbw)
+    assert torch.equal(gv, rv) and torch.equal(gi, ri)
+    assert tuple(gv.shape) == jv.shape == (b, n, -(-5 // min(mbh, 5)), -(-4 // min(mbw, 4)))
+    fin = np.isfinite(jv)
+    assert np.array_equal(np.isfinite(gv.numpy()), fin)
+    assert _rel(gv.numpy()[fin], jv[fin]) <= TOL
+    assert np.array_equal(gi.numpy(), ji)
+
+
+def test_group_cells_tie_rule():
+    """Inside a column of blocks the smallest flat index wins a tie; across
+    a cell's columns a later column wins only when strictly greater; blocks
+    past the grid never win."""
+    vals = torch.tensor([[[[1.0, 3.0, 2.0], [3.0, 0.0, 5.0], [4.0, 4.0, 1.0]]]])
+    idxs = torch.tensor([[[[0, 1, 2], [3, 4, 5], [6, 7, 8]]]], dtype=torch.int32)
+    v, i = tbc.group_cells(vals, idxs, 2, 2)
+    assert v.tolist() == [[[[3.0, 5.0], [4.0, 1.0]]]]
+    assert i.tolist() == [[[[3, 5], [6, 8]]]]
+    v1, i1 = tbc.group_cells(vals, idxs, None, 1)
+    assert torch.equal(v1, vals) and torch.equal(i1, idxs)
+    vals[0, 0, 1, 0] = 1.0  # column 0 ties at 1: index 0 beats 3
+    assert tbc.group_cells(vals, idxs, 2, 2)[1][0, 0, 0, 0] == 1  # column 1's 3 > 1
 
 
 def test_detect_heads_ragged_and_not_ported(rng):

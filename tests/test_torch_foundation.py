@@ -246,10 +246,12 @@ def test_build_library_named_by_source_hash(tmp_path):
         "fftconv_block_conv_bf16", "fftconv_block_conv_bf16_bf16maps",
         "fftconv_block_conv_f32_x6", "fftconv_block_conv_f32_bf16maps_x6",
         "fftconv_block_conv_f32_x1", "fftconv_block_conv_f32_bf16maps_x1",
+        "fftconv_block_conv_bf16_io", "fftconv_block_conv_bf16_bf16maps_io",
         "fftconv_block_conv_f32_smem_bytes", "fftconv_block_conv_f32_rows",
         "fftconv_block_conv_f32_blocks",
         "fftconv_block_conv_peaks_f32", "fftconv_block_conv_peaks_bf16",
         "fftconv_block_conv_peaks_f32_x6", "fftconv_block_conv_peaks_f32_x1",
+        "fftconv_block_conv_peaks_bf16_io",
         "fftconv_spectral_mac_f32", "fftconv_spectral_mac_bf16",
     }
     for query in ("smem_bytes", "rows", "blocks"):

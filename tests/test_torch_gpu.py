@@ -22,6 +22,12 @@ from cuda_fft_convolution_torch.utils.errors import InvalidInputError
 TOL = 1e-5
 BF16_OUT_TOL = 5e-3  # bf16 rounding of the maps alone
 BF16_TOL = 2e-2  # the bf16 tier against float32 maps
+# BF16IO (bf16 spectra's default tier) against its plain version: S and X
+# are rounded to bf16 after sums taken in other orders, so a value at a
+# rounding boundary may land one bf16 step away (chip_smoke.py IO_TOL):
+# the largest error and the root mean square one
+IO_TOL = 5e-3
+IO_RMS_TOL = 1e-4
 # Windows of at most 32 rows stack blocks in a CTA (ops/block_conv.py
 # blocks_per_cta): the DPM plan's blocks (Vh 16, Wc 70) at F = 31 with 15
 # blocks an image (a last group of 3 of 4) and clipped edges; Vh = 1 (16
@@ -61,6 +67,10 @@ def cuda():
 
 def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
+
+
+def _rms(got, want):
+    return float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
 
 
 @pytest.mark.gpu
@@ -103,27 +113,38 @@ def _planes(rng, cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", GEOMETRIES)
 def test_block_conv_kernel_bf16_modes_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
-    """bf16 spectra: the fp32 result on the bf16-rounded planes (the plain
-    version on the same planes, within TOL); bf16 maps: within
-    BF16_OUT_TOL of the plain version's float32 maps. Each call counts one
-    launch on its own entry."""
+    """bf16 spectra at their default tier, BF16IO (``_io``): the plain
+    version at that tier on the same planes, within IO_TOL and IO_RMS_TOL;
+    at the explicit 3×TF32: the fp32 result on the bf16-rounded planes
+    (within TOL); bf16 maps: within BF16_OUT_TOL of the plain version's
+    float32 maps, and at BF16IO the kernel's float32 maps rounded once.
+    Each call counts one launch on its own entry."""
     rng = np.random.default_rng(13)
     geom = (bh, bw, kh, kw, out_h, out_w)
     ops = _planes(rng, cuda, b, f, n, *geom)
     ops16 = tuple(x.to(torch.bfloat16) for x in ops)
     want32 = tbc.block_conv_reference(*ops, *geom)
-    want16 = tbc.block_conv_reference(*ops16, *geom)
-    for planes, out_dtype, want, tol, mode in (
-        (ops16, torch.float32, want16, TOL, "block_conv_bf16"),
-        (ops16, torch.bfloat16, want16, BF16_OUT_TOL, "block_conv_bf16_bf16maps"),
-        (ops, torch.bfloat16, want32, BF16_OUT_TOL, "block_conv_f32_bf16maps"),
+    want_io = tbc.block_conv_reference(*ops16, *geom)
+    want16 = tbc.block_conv_reference(*ops16, *geom, splits=3)
+    io = None
+    for planes, out_dtype, splits, want, tol, mode in (
+        (ops16, torch.float32, None, want_io, IO_TOL, "block_conv_bf16_io"),
+        (ops16, torch.bfloat16, None, want_io, BF16_OUT_TOL, "block_conv_bf16_bf16maps_io"),
+        (ops16, torch.float32, 3, want16, TOL, "block_conv_bf16"),
+        (ops16, torch.bfloat16, 3, want16, BF16_OUT_TOL, "block_conv_bf16_bf16maps"),
+        (ops, torch.bfloat16, None, want32, BF16_OUT_TOL, "block_conv_f32_bf16maps"),
     ):
         before = tbc.block_conv.launches_by_mode[mode]
-        got = tbc.block_conv(*planes, *geom, out_dtype)
+        got = tbc.block_conv(*planes, *geom, out_dtype, splits)
         torch.cuda.synchronize()
         assert tbc.block_conv.launches_by_mode[mode] == before + 1
         assert got.dtype == out_dtype and got.shape == want.shape
         assert _rel(got.float(), want) <= tol, mode
+        if mode == "block_conv_bf16_io":
+            assert _rms(got, want) <= IO_RMS_TOL
+            io = got
+        if mode == "block_conv_bf16_bf16maps_io":
+            assert torch.equal(got, io.to(torch.bfloat16))
     with pytest.raises(InvalidInputError, match="one dtype"):
         tbc.block_conv(ops16[0], *ops[1:], *geom)
 
@@ -220,20 +241,37 @@ def test_highest_tier_calls_on_gpu(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", GEOMETRIES)
 def test_block_conv_peaks_kernel_bf16_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
-    """bf16 spectra through the peaks kernel: values within TOL of the plain
-    version on the same planes, f32 values, int32 indices, equal indices
-    (random spectra: no near-ties at these sizes)."""
+    """bf16 spectra through the peaks kernel, at BF16IO (the default) and
+    at the explicit 3×TF32: values within the tier's bar (IO_TOL, TOL) of
+    the plain version at the tier on the same planes, f32 values, int32
+    indices, equal indices (random spectra: no near-ties at these sizes;
+    at BF16IO, but in a near tie of IO_TOL, where the kernel's position
+    holds a plain value that close to the max); at BF16IO the pairs are the
+    cell maxima of the maps kernel's maps, bitwise (one arithmetic, two
+    epilogues)."""
     rng = np.random.default_rng(17)
     geom = (bh, bw, kh, kw, out_h, out_w)
     ops16 = tuple(x.to(torch.bfloat16) for x in _planes(rng, cuda, b, f, n, *geom))
-    before = tbc.block_conv_peaks.launches_by_mode["block_conv_peaks_bf16"]
+    for splits, tol, mode in ((None, IO_TOL, "block_conv_peaks_bf16_io"),
+                              (3, TOL, "block_conv_peaks_bf16")):
+        before = tbc.block_conv_peaks.launches_by_mode[mode]
+        got_v, got_i = tbc.block_conv_peaks(*ops16, *geom, splits)
+        want_v, want_i = tbc.block_conv_peaks_reference(*ops16, *geom, splits)
+        torch.cuda.synchronize()
+        assert tbc.block_conv_peaks.launches_by_mode[mode] == before + 1
+        assert got_v.dtype == torch.float32 and got_i.dtype == torch.int32
+        assert _rel(got_v, want_v) <= tol
+        flips = got_i != want_i
+        if splits == 3:
+            assert not flips.any()
+        elif flips.any():
+            flat = tbc.block_conv_reference(*ops16, *geom).reshape(b, n, -1)
+            at = flat.gather(-1, got_i.reshape(b, n, -1).long()).reshape(got_i.shape)
+            assert (at[flips] >= want_v[flips] - tol * want_v.abs().max()).all()
     got_v, got_i = tbc.block_conv_peaks(*ops16, *geom)
-    want_v, want_i = tbc.block_conv_peaks_reference(*ops16, *geom)
-    torch.cuda.synchronize()
-    assert tbc.block_conv_peaks.launches_by_mode["block_conv_peaks_bf16"] == before + 1
-    assert got_v.dtype == torch.float32 and got_i.dtype == torch.int32
-    assert _rel(got_v, want_v) <= TOL
-    assert torch.equal(got_i, want_i)
+    cell_v, cell_i = tbc.cell_peaks(tbc.block_conv(*ops16, *geom), *got_v.shape[2:],
+                                    bh - kh + 1, bw - kw + 1)
+    assert torch.equal(got_v, cell_v) and torch.equal(got_i, cell_i)
 
 
 @pytest.mark.gpu
@@ -281,7 +319,7 @@ def test_fft_conv_on_gpu_matches_cpu(cuda, mode, data_shape, bank_shape, store):
     before = collections.Counter(tbc.block_conv.launches_by_shape)
     got = tfc.fft_conv(data, kernels=bank, mode=mode, store_dtype=store, device=cuda)
     torch.cuda.synchronize()
-    kernel_mode = "block_conv_f32" if store == "float32" else "block_conv_bf16"
+    kernel_mode = "block_conv_f32" if store == "float32" else "block_conv_bf16_io"
     # the main path ran the kernel, once, at the plan
     assert collections.Counter(tbc.block_conv.launches_by_shape) - before == {
         (kernel_mode, *plan): 1}
@@ -319,6 +357,31 @@ def test_block_conv_peaks_kernel_matches_plain_on_gpu(cuda, b, f, n, bh, bw, kh,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mbh,mbw", [(2, 2), (3, 1), (4, 5)])
+@pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", GEOMETRIES[:1] + SHORT_WINDOWS[:1])
+def test_block_conv_peaks_cells_on_gpu(cuda, mbh, mbw, b, f, n, bh, bw, kh, kw, out_h, out_w):
+    """Cells of mbh × mbw blocks on the card: the kernel's per-block pairs
+    (one launch) reduced by ``group_cells`` = the plain version's cells,
+    values within TOL, indices equal, at f32 and at the explicit 3×TF32
+    on bf16 spectra (a stacked geometry among them)."""
+    rng = np.random.default_rng(31)
+    geom = (bh, bw, kh, kw, out_h, out_w)
+    ops = _planes(rng, cuda, b, f, n, *geom)
+    for planes, splits in ((ops, None), (tuple(x.to(torch.bfloat16) for x in ops), 3)):
+        before = tbc.block_conv_peaks.launches
+        got_v, got_i = tbc.block_conv_peaks(*planes, *geom, splits, mbh, mbw)
+        want_v, want_i = tbc.block_conv_peaks_reference(*planes, *geom, splits, mbh, mbw)
+        one_v, one_i = tbc.block_conv_peaks(*planes, *geom, splits)
+        torch.cuda.synchronize()
+        assert tbc.block_conv_peaks.launches == before + 2
+        nbh, nbw = planes[0].shape[1:3]
+        assert got_v.shape == (b, n, -(-nbh // min(mbh, nbh)), -(-nbw // min(mbw, nbw)))
+        assert _rel(got_v, want_v) <= TOL and torch.equal(got_i, want_i)
+        cells = tbc.group_cells(one_v, one_i, mbh, mbw)
+        assert torch.equal(got_v, cells[0]) and torch.equal(got_i, cells[1])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", SHORT_WINDOWS[:1] + SHORT_WINDOWS[2:3])
 def test_block_conv_peaks_planted_ties_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
     """Spectra with only the DC bin make every block's window constant, so
@@ -331,11 +394,12 @@ def test_block_conv_peaks_planted_ties_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out
     ops[0][..., 0, 0] = torch.as_tensor(
         rng.standard_normal(ops[0].shape[:4]).astype(np.float32), device=cuda)
     ops[2][..., 0, 0] = 1.0
-    for planes in (ops, [x.to(torch.bfloat16) for x in ops]):
-        got_v, got_i = tbc.block_conv_peaks(*planes, *geom)
-        want_v, want_i = tbc.block_conv_peaks_reference(*planes, *geom)
+    ops16 = [x.to(torch.bfloat16) for x in ops]
+    for planes, splits, tol in ((ops, None, TOL), (ops16, 3, TOL), (ops16, None, IO_TOL)):
+        got_v, got_i = tbc.block_conv_peaks(*planes, *geom, splits)
+        want_v, want_i = tbc.block_conv_peaks_reference(*planes, *geom, splits)
         torch.cuda.synchronize()
-        assert _rel(got_v, want_v) <= TOL
+        assert _rel(got_v, want_v) <= tol
         assert torch.equal(got_i, want_i)
         vh, vw = bh - kh + 1, bw - kw + 1
         first = (torch.arange(got_i.shape[2], device=cuda)[:, None] * vh * out_w
@@ -521,7 +585,7 @@ def test_bf16_tier_on_gpu_matches_cpu(cuda, algorithm):
     want = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm, device="cpu")
     counts = (tbc.block_conv.launches_by_mode if algorithm == "tiled"
               else tmac.spectral_mac.launches_by_mode)
-    for out_dtype, entry in ((None, "bf16"), ("bfloat16", "bf16_bf16maps")):
+    for out_dtype, entry in ((None, "bf16_io"), ("bfloat16", "bf16_bf16maps_io")):
         key = f"block_conv_{entry}" if algorithm == "tiled" else "spectral_mac_bf16"
         before = counts[key]
         got = tfc.fft_conv(data, kernels=bank, mode="same", algorithm=algorithm,
@@ -536,8 +600,8 @@ def test_bf16_tier_on_gpu_matches_cpu(cuda, algorithm):
 
 @pytest.mark.gpu
 def test_detect_peaks_bf16_tier_on_gpu(cuda):
-    """detect_peaks at the bf16 tier runs the peaks kernel's bf16 entry and
-    finds planted templates."""
+    """detect_peaks at the bf16 tier runs the peaks kernel's BF16IO entry
+    and finds planted templates."""
     from cuda_fft_convolution_torch.models import detect_peaks
 
     rng = np.random.default_rng(23)
@@ -546,11 +610,11 @@ def test_detect_peaks_bf16_tier_on_gpu(cuda):
     corners = [(20, 30), (150, 400), (240, 60), (100, 200)]
     for t, (y0, x0) in enumerate(corners):
         data[y0 : y0 + 17, x0 : x0 + 33] += 3.0 * bank[t]
-    before = tbc.block_conv_peaks.launches_by_mode["block_conv_peaks_bf16"]
+    before = tbc.block_conv_peaks.launches_by_mode["block_conv_peaks_bf16_io"]
     vals, pos = detect_peaks(torch.as_tensor(data, device=cuda),
                              torch.as_tensor(bank, device=cuda), store_dtype="bfloat16")
     torch.cuda.synchronize()
-    assert tbc.block_conv_peaks.launches_by_mode["block_conv_peaks_bf16"] == before + 1
+    assert tbc.block_conv_peaks.launches_by_mode["block_conv_peaks_bf16_io"] == before + 1
     assert vals.dtype == torch.float32
     want = torch.tensor([(y0 + 8, x0 + 16) for y0, x0 in corners], dtype=torch.int32)
     assert torch.equal(pos.cpu(), want)
@@ -904,9 +968,9 @@ def test_selftest_kernels_ok_on_gpu(cuda):
     assert rep["backend"] == "cuda" and rep["fft_ok"] is True
     assert rep["device_kind"] == torch.cuda.get_device_name()
     assert rep["kernels_ok"] is True, rep.get("kernels_failed", rep.get("kernels_error"))
-    # 3 configurations x (6 entries + 3 of each of the 6xTF32 and one-pass
-    # tiers) + 4 MAC tiles
-    assert len(rep["kernels"]) == 40
+    # 3 configurations x (6 entries + 3 of each of the 6xTF32, one-pass and
+    # BF16IO tiers) + 4 MAC tiles
+    assert len(rep["kernels"]) == 49
 
 
 @pytest.fixture

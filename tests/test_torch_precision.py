@@ -5,7 +5,7 @@ arithmetic of the fused maps and peaks kernels as in JAX
 (``cuda_fft_convolution_tpu/ops/block_conv.py:683-693``): at fp32 spectra
 'bf16x3' runs 3×TF32, 'highest' the tier of ``matmul_precision`` —
 'highest' 6×TF32, 'high' 3×TF32, 'default' one TF32 pass; bf16 spectra run
-their own entries. Here, on the CPU:
+BF16IO (``tests/test_torch_bf16io.py``). Here, on the CPU:
 
   - the resolution rule against JAX's, over every setting and both spectra
     dtypes;
@@ -104,11 +104,11 @@ def test_fused_splits_is_the_jax_rule(tier, fused, matmul, dtype):
     got = tbc.fused_splits(getattr(torch, dtype))
     want = _jax_precision(getattr(jnp, dtype))
     if dtype == "bfloat16":
-        assert want == jbc.BF16IO and got == 3  # the bf16 entries, unchanged
+        assert want == jbc.BF16IO and got == tbc.BF16IO  # JAX's single bf16 pass
     else:
         assert got == _JAX_TIERS[want]
     table = {"bf16x3": 3, "highest": {"highest": 6, "high": 3, "default": 1}[matmul]}
-    assert got == (3 if dtype == "bfloat16" else table[fused])
+    assert got == (tbc.BF16IO if dtype == "bfloat16" else table[fused])
 
 
 def test_fused_precision_highest_from_the_environment():
