@@ -261,6 +261,31 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      configuration) against float64 (2e-2) and its kernel; then each _io
      entry's ms beside its twin's and its bound (one bf16 pass at 989
      TFLOP/s, or the bytes).
+ 36. the radix-2 bodies (JAX's v4, v5, v5x; ``ops/block_conv.py
+     radix_h``, ``radix_w``, ``xsliver``) at three of JAX's one-block
+     plans, reached through the tuner's table (``RADIX_PLANS``): (256,
+     512, 65, 129), JAX's fp32 and bf16 F=1 plan, 64 rows; (128, 512, 33,
+     129), its 32² plan; (256, 1024, 65, 129), Wc 513, 32 rows — each on
+     the headline image with 100 kernels (64², or 32² at the 32² plan): v3
+     and every radix entry (f32 and bf16 maps, peaks) at every tier against
+     its plain version with the same flags (the bars of steps 3, 6, 34 and
+     35; 6xTF32 also against the plain version in float64, the BF16IO
+     control), its maps against float64 on 8 maps (1e-5 at fp32, 2e-3 at
+     one pass, 2e-2 at bf16 spectra), and every entry's time, beside the
+     bound of the body's own products (``synthesis_flop`` with the body,
+     the JSON rows' ``bound_ms``) and the bound of v3's work, the same
+     work whatever body runs it (``same_work_bound_ms``); then the main
+     path at JAX's F=1 plan: ``fft_conv`` (f32 and bf16 maps) and
+     ``detect_peaks`` at
+     every tier with the plan tuned (v4, which ``radix_h_legal`` selects)
+     and registered (``register_radix_w_plan``: v5, and v5x with
+     ``sliver='xla'``), against float64 and the 100 plants, each radix
+     entry's row there (the bf16 spectra's 3xTF32 entries and v4's BF16IO
+     peaks entry, which JAX's float32-only auto rule keeps off the route,
+     launched by explicit ops-level calls); and the headline ``fft_conv``
+     at the v5 plan against the analytic plan, in turns, the v5 maps
+     against float64. The tuner's table and the plan registry are restored
+     afterwards.
 
 At every MAC row (the direct shape's F=1 and F=3, f32 and bf16, the
 unfused headline's and the model layer's shapes) it prints the tile the
@@ -271,7 +296,7 @@ at each MAC row in turns, parent, this tree, this tree, parent (bare C
 entries, CUDA events, median of 7 windows of 10 calls), the outputs
 compared.
 
-Steps 13–35 print each check, each time (CUDA events, median of 7, unless
+Steps 13–36 print each check, each time (CUDA events, median of 7, unless
 said otherwise) beside the card's name and power limit, the kernel launches
 of each call, the planner's plans and each phase's peak allocation; the
 smoke fails if its peak allocation reaches 60 GiB.
@@ -298,9 +323,10 @@ ops-level calls, and their ``called_by`` key says so — every other row's
 says "main path"): launches on the main path, error, time,
 plain time, the bound worked out from the shapes — the larger of the
 operations at the peak rate of the units that run them and the bytes at
-3.35 TB/s; ``block_conv_bound`` and ``mac_bound`` say which — and the time
-of the one PyTorch call that computes the same function, where there is
-one),
+3.35 TB/s; ``block_conv_bound`` and ``mac_bound`` say which; a radix
+body's rows count its own products, and their ``same_work_bound_ms`` v3's
+— and the time of the one PyTorch call that computes the same function,
+where there is one),
 then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits 2 and prints no result.
@@ -310,8 +336,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import functools
+import itertools
 import json
 import pathlib
 import re
@@ -366,6 +394,10 @@ IO_RMS_TOL = 1e-4
 # route of the package takes them, so their rows' launches are explicit
 # ops-level calls with splits=3 (step 35).
 OPS_LEVEL_MODES = ("block_conv_bf16", "block_conv_bf16_bf16maps", "block_conv_peaks_bf16")
+# Step 36's rows whose launches are explicit ops-level calls (the bf16
+# spectra's 3xTF32 radix entries, and v4's BF16IO peaks entry, which JAX's
+# float32-only auto rule keeps off the route) → their ``called_by``.
+OPS_LEVEL_ROWS: dict = {}
 
 
 def env_report() -> None:
@@ -394,8 +426,18 @@ def build_kernels() -> None:
     )
 
     t0 = time.perf_counter()
-    lib = _build.library()
-    print(f"build: {time.perf_counter() - t0:.1f} s")
+
+    def build(radix):
+        lib = _build.library(radix)
+        return lib, time.perf_counter() - t0
+
+    # both libraries' sources, every nvcc started together
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        radix_build = pool.submit(build, True)
+        lib, core_s = build(False)
+        radix_s = radix_build.result()[1]
+    print(f"build: {max(core_s, radix_s):.1f} s (side by side: the library {core_s:.1f} s, the "
+          f"radix bodies' library {radix_s:.1f} s)")
     spills = []
     for line in _build.build_log().splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill", "error")):
@@ -405,7 +447,7 @@ def build_kernels() -> None:
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
     if not _build.build_log():
-        print("  (the library was built before this process: no ptxas report)")
+        print("  (the libraries were built before this process: no ptxas report)")
     pairs = 0
     for splits in TIERS:
         for wc in (17, 70, 76, 128, 129, 224, 256, 257, 320, 321, 384, 385, 451, 513, 577,
@@ -457,31 +499,42 @@ def mac_flop(f, lh, wc) -> int:
     return 8 * f * lh * wc
 
 
-def synthesis_flop(lh, wc, vh, vw) -> int:
-    """Useful operations of one cell's syntheses: the H stage (a complex
-    (Vh x Lh)(Lh x Wc) product) and the W stage (a real (Vh x 2Wc)
-    (2Wc x Vw) product)."""
-    return 8 * vh * lh * wc + 4 * vh * wc * vw
+def synthesis_flop(lh, wc, vh, vw, body="v3") -> int:
+    """Operations of one cell's syntheses in ``body`` (a real multiply-add,
+    2): the H stage — v3 a complex (Vh x Lh)(Lh x Wc) product, the radix
+    bodies two (M x M)(M x Wc) sub-transforms (M = Lh/2; the kernels' pair
+    and single chunks sum to the same) — and the W stage — v3/v4 a real
+    (Vh x 2Wc)(2Wc x Vw) product, v5/v5x the DIF halves, 4 real (Vh x W/4)
+    (W/4 x Tn) products, Tn = min(Vw, W/2); the radix combines and the
+    Nyquist term (a rank-1 update) left out."""
+    h = 8 * (vh if body == "v3" else lh // 2) * lh * wc
+    if body in ("v3", "v4"):
+        return h + 4 * vh * wc * vw
+    l2 = wc - 1
+    return h + 8 * vh * (l2 // 2) * min(vw, l2)
 
 
-def cell_flop(f, lh, wc, vh, vw) -> int:
-    """Useful fp32 operations of one fused block-conv cell."""
-    return mac_flop(f, lh, wc) + synthesis_flop(lh, wc, vh, vw)
+def cell_flop(f, lh, wc, vh, vw, body="v3") -> int:
+    """Useful fp32 operations of one fused block-conv cell in ``body``."""
+    return mac_flop(f, lh, wc) + synthesis_flop(lh, wc, vh, vw, body)
 
 
-def block_conv_bound(ops, geom, out_bytes, splits=3) -> tuple[float, str]:
-    """bound() of a fused block-conv call. Operations: every cell's useful
-    MAC and syntheses on the tensor cores — for fp32 spectra as ``splits``
-    TF32 passes at the dense TF32 peak (3, 6 or 1: the tier's products);
-    for bf16 spectra as one bf16 pass with fp32 accumulation at the bf16
-    peak, as the TPU kernel runs its bf16 tier
-    (cuda_fft_convolution_tpu/ops/block_conv.py:645-647, 686-690). Bytes:
-    the four spectra planes read once and ``out_bytes`` written."""
+def block_conv_bound(ops, geom, out_bytes, splits=3, body="v3") -> tuple[float, str]:
+    """bound() of a fused block-conv call in ``body``. Operations: every
+    cell's MAC and the body's syntheses (``cell_flop``) on the tensor cores
+    — for fp32 spectra as ``splits`` TF32 passes at the dense TF32 peak (3,
+    6 or 1: the tier's products); for bf16 spectra as one bf16 pass with
+    fp32 accumulation at the bf16 peak, as the TPU kernel runs its bf16
+    tier (cuda_fft_convolution_tpu/ops/block_conv.py:645-647, 686-690).
+    Bytes: the four spectra planes read once and ``out_bytes`` written. A
+    radix body's bound counts its own products, fewer than v3's; with
+    ``body='v3'`` it is the bound of v3's work, the same whatever body runs
+    it (``same_work_bound_ms``)."""
     b, nbh, nbw, f, lh, wc = ops[0].shape
     n = ops[2].shape[0]
     bh, bw, kh, kw = geom[:4]
     cells = b * nbh * nbw * n
-    flop = cell_flop(f, lh, wc, bh - kh + 1, bw - kw + 1)
+    flop = cell_flop(f, lh, wc, bh - kh + 1, bw - kw + 1, body)
     if str(ops[0].dtype) == "torch.bfloat16":
         op_seconds = cells * flop / PEAK_BF16
     else:
@@ -538,6 +591,20 @@ def tier_tol(d_re, splits) -> float:
     return {1: X1_TOL, BF16IO: IO_TOL}.get(resolved(d_re, splits), TOL)
 
 
+def radix_body(radix) -> str:
+    """The body ('v3', 'v4', 'v5', 'v5x') a wrapper's radix flags select."""
+    from cuda_fft_convolution_torch.ops.block_conv import _body
+
+    r = radix or {}
+    return _body(bool(r.get("radix_h")), r.get("radix_w", False), r.get("xsliver", False))
+
+
+def body_label(radix) -> str:
+    """', v4' (v5, v5x) for a radix body's flags; '' for v3."""
+    body = radix_body(radix)
+    return "" if body == "v3" else f", {body}"
+
+
 def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
@@ -548,18 +615,20 @@ def rms_rel_err(got, want) -> float:
 
 
 def check_kernel(d_re, d_im, k_re, k_im, geom, label, out_dtype=None, tol=TOL,
-                 splits=None) -> float:
+                 splits=None, radix=None) -> float:
     """Kernel against its plain version's float32 maps on the same CUDA
     inputs → max abs error. Raises above ``tol`` (relative to max |plain|).
     ``out_dtype=torch.bfloat16`` runs the bf16-maps entry; ``splits`` the
-    synthesis tier (None: the config's)."""
+    synthesis tier (None: the config's); ``radix`` the body's flags (step
+    36; None: v3)."""
     import torch
 
     from cuda_fft_convolution_torch.ops.block_conv import block_conv, block_conv_reference
 
     out_dtype = out_dtype or torch.float32
-    got = block_conv(d_re, d_im, k_re, k_im, *geom, out_dtype, splits)
-    want = block_conv_reference(d_re, d_im, k_re, k_im, *geom, splits=splits)
+    radix = radix or {}
+    got = block_conv(d_re, d_im, k_re, k_im, *geom, out_dtype, splits, **radix)
+    want = block_conv_reference(d_re, d_im, k_re, k_im, *geom, splits=splits, **radix)
     torch.cuda.synchronize()
     if got.dtype != out_dtype:
         raise AssertionError(f"kernel maps are {got.dtype}, not {out_dtype} ({label})")
@@ -574,8 +643,8 @@ def check_kernel(d_re, d_im, k_re, k_im, geom, label, out_dtype=None, tol=TOL,
         if rms_err > IO_RMS_TOL:
             raise AssertionError(f"kernel's rms error {rms_err} over {IO_RMS_TOL} ({label})")
     print(f"kernel vs plain [{label}] {str(d_re.dtype)[6:]} spectra, {str(out_dtype)[6:]} "
-          f"maps {tier} {tuple(got.shape)}: max abs {abs_err:.3e}, rel {err:.3e} (bar {tol:g})"
-          f"{rms}")
+          f"maps {tier}{body_label(radix)} {tuple(got.shape)}: max abs {abs_err:.3e}, rel "
+          f"{err:.3e} (bar {tol:g}){rms}")
     if not (err <= tol and torch.isfinite(got).all()):
         raise AssertionError(f"kernel disagrees with its plain version ({label}): {err}")
     return abs_err
@@ -634,19 +703,22 @@ def check_io_bitwise(ops, geom, label, peaks_ops) -> None:
         raise AssertionError(f"bf16io entries differ from the f32-maps entry's maps ({label})")
 
 
-def io_control(ops, geom, label) -> None:
-    """The BF16IO check's control: the 3xTF32 entry on the same bf16
-    spectra, which rounds neither S nor X, held against the BF16IO plain
-    version. Fails unless it lies beyond IO_RMS_TOL, i.e. unless the bar
-    tells a kernel that misses the tier's roundings from one that rounds."""
+def io_control(ops, geom, label, radix=None) -> None:
+    """The BF16IO check's control: the 3xTF32 entry (of the body ``radix``,
+    None: v3) on the same bf16 spectra, which rounds neither S nor X, held
+    against the BF16IO plain version. Fails unless it lies beyond
+    IO_RMS_TOL, i.e. unless the bar tells a kernel that misses the tier's
+    roundings from one that rounds."""
     import torch
 
     from cuda_fft_convolution_torch.ops.block_conv import block_conv, block_conv_reference
 
-    want = block_conv_reference(*ops, *geom)
-    got = block_conv(*ops, *geom, torch.float32, 3)
+    radix = radix or {}
+    want = block_conv_reference(*ops, *geom, **radix)
+    got = block_conv(*ops, *geom, torch.float32, 3, **radix)
     rms, err = rms_rel_err(got, want), rel_err(got, want)
-    print(f"control [{label}]: the 3xTF32 entry against the bf16io plain version: rms rel "
+    print(f"control [{label}{body_label(radix)}]: the 3xTF32 entry against the bf16io plain "
+          f"version: rms rel "
           f"{rms:.3e} ({rms / IO_RMS_TOL:.1f}x IO_RMS_TOL), rel {err:.3e}")
     if rms <= IO_RMS_TOL:
         raise AssertionError(f"IO_RMS_TOL does not tell 3xTF32 from bf16io ({label}): {rms}")
@@ -710,10 +782,12 @@ def check_kernel_shapes(fc, rng) -> None:
     torch.cuda.synchronize()
 
 
-def check_peaks(d_re, d_im, k_re, k_im, geom, label, tol=TOL, splits=None) -> float:
-    """Peaks kernel at synthesis tier ``splits`` (None: the config's)
-    against its plain version on the same CUDA inputs → max abs error of
-    the values. Values must agree within ``tol`` relative to the largest
+def check_peaks(d_re, d_im, k_re, k_im, geom, label, tol=TOL, splits=None,
+                radix=None) -> float:
+    """Peaks kernel at synthesis tier ``splits`` (None: the config's) and
+    the body of the flags ``radix`` (None: v3, where the wrapper's default
+    would take v4 at a plan ``radix_h_legal`` admits) against its plain
+    version on the same CUDA inputs → max abs error of the values. Values must agree within ``tol`` relative to the largest
     |value|; indices must be equal, except in a near-tie cell (its plain
     maps hold a second value within that tolerance of the cell max), where
     the kernel's position must lie in the cell and hold a plain value
@@ -730,9 +804,10 @@ def check_peaks(d_re, d_im, k_re, k_im, geom, label, tol=TOL, splits=None) -> fl
     bh, bw, kh, kw, out_h, out_w = geom
     vh, vw = bh - kh + 1, bw - kw + 1
     nbh, nbw = d_re.shape[1], d_re.shape[2]
-    got_v, got_i = block_conv_peaks(d_re, d_im, k_re, k_im, *geom, splits)
-    want_v, want_i = block_conv_peaks_reference(d_re, d_im, k_re, k_im, *geom, splits)
-    maps = block_conv_reference(d_re, d_im, k_re, k_im, *geom, splits=splits)
+    radix = radix or {"radix_h": False}
+    got_v, got_i = block_conv_peaks(d_re, d_im, k_re, k_im, *geom, splits, **radix)
+    want_v, want_i = block_conv_peaks_reference(d_re, d_im, k_re, k_im, *geom, splits, **radix)
+    maps = block_conv_reference(d_re, d_im, k_re, k_im, *geom, splits=splits, **radix)
     torch.cuda.synchronize()
     if not (got_v.shape == want_v.shape and got_i.dtype == torch.int32
             and torch.isfinite(got_v).all() and torch.isfinite(want_v).all()):
@@ -756,7 +831,7 @@ def check_peaks(d_re, d_im, k_re, k_im, geom, label, tol=TOL, splits=None) -> fl
             raise AssertionError(
                 f"peaks kernel indices disagree outside near-tie cells ({label}): "
                 f"{int((~ok).sum())} cells")
-    tier = f" {tier_label(d_re, splits)}"
+    tier = f" {tier_label(d_re, splits)}{body_label(radix)}"
     print(f"peaks kernel vs plain [{label}] {str(d_re.dtype)[6:]} spectra{tier} "
           f"{tuple(got_v.shape)} cells: values max abs "
           f"{abs_err:.3e}, rel {abs_err / scale:.3e}; near-tie cells {int(near.sum())}, "
@@ -1004,7 +1079,8 @@ AB_REPS = 10  # MAC calls a CUDA-event window in the tile times and the A/B
 def build_parent_mac(csrc: pathlib.Path) -> None:
     """Build the parent commit's ``spectral_mac.cu`` from ``csrc`` with this
     tree's nvcc flags into ``build/parent_mac`` and load it into
-    ``PARENT['lib']`` (entries without the tile arguments)."""
+    ``PARENT['lib']``, with this tree's signature (the tile arguments,
+    which the parent's MAC entries take)."""
     import ctypes
 
     from cuda_fft_convolution_torch import _build
@@ -1021,18 +1097,16 @@ def build_parent_mac(csrc: pathlib.Path) -> None:
     lib = ctypes.CDLL(str(lib_path))
     for tag in ("f32", "bf16"):
         fn = getattr(lib, f"fftconv_spectral_mac_{tag}")
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_longlong,
-                                                                    ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn.argtypes, fn.restype = _build._SIGNATURES[f"fftconv_spectral_mac_{tag}"]
     PARENT["lib"] = lib
     print(f"A/B: the parent's MAC kernel built from {csrc}")
 
 
 def mac_entry(lib, ops, tile=None):
-    """A bare call of ``lib``'s MAC C entry for the planes' dtype, with no
-    wrapper around it (its host checks would show in a short CUDA-event
-    window) → (re, im). ``tile`` None is the parent's signature, without
-    the tile arguments."""
+    """A bare call of ``lib``'s MAC C entry for the planes' dtype at
+    register tile ``tile`` (None: ``mac_tile``'s), with no wrapper around
+    it (its host checks would show in a short CUDA-event window) → (re,
+    im)."""
     import torch
 
     b, f, h, wc = ops[0].shape
@@ -1040,9 +1114,11 @@ def mac_entry(lib, ops, tile=None):
     o_re = torch.empty((b, n, h, wc), device=ops[0].device)
     o_im = torch.empty_like(o_re)
     tag = "bf16" if ops[0].dtype == torch.bfloat16 else "f32"
+    from cuda_fft_convolution_torch.ops.spectral_mac import mac_tile
+
     err = getattr(lib, f"fftconv_spectral_mac_{tag}")(
         *(t.data_ptr() for t in (*ops, o_re, o_im)), b, f, n, h * wc,
-        *(() if tile is None else tile), torch.cuda.current_stream().cuda_stream)
+        *(tile or mac_tile(b)), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"MAC C entry failed (tile {tile}): cudaError {err}")
     return o_re, o_im
@@ -1069,7 +1145,7 @@ def mac_tiles_and_ab(label, ops) -> None:
         + f" ms (* the rule's; {card()})")
     if "lib" not in PARENT:
         return
-    parent = functools.partial(mac_entry, PARENT["lib"], ops)
+    parent = functools.partial(mac_entry, PARENT["lib"], ops, rule)
     new = functools.partial(mac_entry, lib, ops, rule)
     a, c = parent(), new()
     torch.cuda.synchronize()
@@ -3265,11 +3341,13 @@ def plan_launches(mode, plan) -> int:
     return at_plan
 
 
-def kernel_row(ops, geom, label, splits=None, out_dtype=None) -> tuple:
+def kernel_row(ops, geom, label, splits=None, out_dtype=None, radix=None) -> tuple:
     """The maps kernel on ``ops`` at ``geom``, synthesis tier ``splits``
-    (None: the config's) and maps ``out_dtype``, against its plain version,
-    timed → its JSON row (max abs error, ms, plain ms, bound, bound by,
-    library ms)."""
+    (None: the config's), maps ``out_dtype`` and body ``radix`` (None: v3),
+    against its plain version, timed → its JSON row (max abs error, ms,
+    plain ms, bound, bound by, library ms; for a radix body also the bound
+    of v3's work). The bound counts the body's own products
+    (``block_conv_bound``)."""
     import torch
 
     from cuda_fft_convolution_torch.ops.block_conv import block_conv, block_conv_reference
@@ -3277,37 +3355,55 @@ def kernel_row(ops, geom, label, splits=None, out_dtype=None) -> tuple:
     out_dtype = out_dtype or torch.float32
     bf16 = out_dtype == torch.bfloat16
     tol = tier_tol(ops[0], splits)
+    radix = radix or {}
     abs_err = check_kernel(*ops, geom, label, out_dtype, max(tol, BF16_OUT_TOL) if bf16 else tol,
-                           splits)
+                           splits, radix)
     out_bytes = (2 if bf16 else 4) * ops[0].shape[0] * ops[2].shape[0] * geom[4] * geom[5]
-    row = (abs_err, cuda_ms(lambda: block_conv(*ops, *geom, out_dtype, splits)),
-           cuda_ms(lambda: block_conv_reference(*ops, *geom, out_dtype, splits)),
-           *block_conv_bound(ops, geom, out_bytes, resolved(ops[0], splits)), None)
-    tier = f", {tier_label(ops[0], splits)}"
+    row = (abs_err, cuda_ms(lambda: block_conv(*ops, *geom, out_dtype, splits, **radix)),
+           cuda_ms(lambda: block_conv_reference(*ops, *geom, out_dtype, splits, **radix)),
+           *bounds(ops, geom, out_bytes, splits, radix))
+    tier = f", {tier_label(ops[0], splits)}{body_label(radix)}"
     print(f"maps kernel alone [{label}{tier}{', bf16 maps' if bf16 else ''}]: {row[1]:.3f} ms; "
-          f"plain version {row[2]:.3f} ms; bound {row[3]:.3f} ms ({row[4]}), "
-          f"{100 * row[3] / row[1]:.1f}% of it ({card()})")
+          f"plain version {row[2]:.3f} ms; {bound_text(row)} ({card()})")
     return row
 
 
-def peaks_row(ops, geom, label, splits=None) -> tuple:
-    """The peaks kernel on ``ops`` at ``geom`` and tier ``splits`` against
-    its plain version, timed → its JSON row (as ``kernel_row``'s; the
-    bytes written are 8 a cell)."""
+def bounds(ops, geom, out_bytes, splits, radix) -> tuple:
+    """A fused kernel row's bound, bound by and library ms (None), and for
+    a radix body the bound of v3's work after them."""
+    body = radix_body(radix)
+    tier = resolved(ops[0], splits)
+    row = (*block_conv_bound(ops, geom, out_bytes, tier, body), None)
+    return row if body == "v3" else (*row, block_conv_bound(ops, geom, out_bytes, tier)[0])
+
+
+def bound_text(row) -> str:
+    """The bound and its share of the row's time (and, for a radix body,
+    the same-work bound's)."""
+    text = f"bound {row[3]:.3f} ms ({row[4]}), {100 * row[3] / row[1]:.1f}% of it"
+    if len(row) > 6:
+        text += f"; bound of v3's work {row[6]:.3f} ms, {100 * row[6] / row[1]:.1f}%"
+    return text
+
+
+def peaks_row(ops, geom, label, splits=None, radix=None) -> tuple:
+    """The peaks kernel on ``ops`` at ``geom``, tier ``splits`` and body
+    ``radix`` (None: v3) against its plain version, timed → its JSON row
+    (as ``kernel_row``'s; the bytes written are 8 a cell)."""
     from cuda_fft_convolution_torch.ops.block_conv import (
         block_conv_peaks,
         block_conv_peaks_reference,
     )
 
-    abs_err = check_peaks(*ops, geom, label, tier_tol(ops[0], splits), splits)
+    radix = radix or {"radix_h": False}
+    abs_err = check_peaks(*ops, geom, label, tier_tol(ops[0], splits), splits, radix)
     b, nbh, nbw = ops[0].shape[:3]
-    row = (abs_err, cuda_ms(lambda: block_conv_peaks(*ops, *geom, splits)),
-           cuda_ms(lambda: block_conv_peaks_reference(*ops, *geom, splits)),
-           *block_conv_bound(ops, geom, 8 * b * nbh * nbw * ops[2].shape[0],
-                             resolved(ops[0], splits)), None)
-    tier = f", {tier_label(ops[0], splits)}"
+    row = (abs_err, cuda_ms(lambda: block_conv_peaks(*ops, *geom, splits, **radix)),
+           cuda_ms(lambda: block_conv_peaks_reference(*ops, *geom, splits, **radix)),
+           *bounds(ops, geom, 8 * b * nbh * nbw * ops[2].shape[0], splits, radix))
+    tier = f", {tier_label(ops[0], splits)}{body_label(radix)}"
     print(f"peaks kernel alone [{label}{tier}]: {row[1]:.3f} ms; plain version {row[2]:.3f} ms; "
-          f"bound {row[3]:.3f} ms ({row[4]}), {100 * row[3] / row[1]:.1f}% of it ({card()})")
+          f"{bound_text(row)} ({card()})")
     return row
 
 
@@ -3803,6 +3899,307 @@ def bf16io_phase(fc, seed, image_d, bank_d, idx, want, big, path_launches, times
     print(f"bf16io phase: {times['step 35 (host s)']:.1f} s (host clock)")
 
 
+# ---- step 36: the radix-2 bodies (JAX's v4, v5, v5x) ----
+# JAX's one-block radix plans, reached through the tuner's table (valid
+# window and blocks under the kernel envelope k²): its fp32 and bf16 F=1
+# plan (256, 512, 65, 129) in the 64-row configuration (32 rows at 6xTF32),
+# its 32² plan (128, 512, 33, 129), and W = 1024 (Wc 513: 32 rows).
+RADIX_PLANS = (
+    dict(label="JAX F=1 plan", k=64, valid=(192, 384), block=(256, 512)),
+    dict(label="JAX 32² plan", k=32, valid=(96, 384), block=(128, 512)),
+    dict(label="W 1024, 32 rows", k=64, valid=(192, 896), block=(256, 1024)),
+)
+RADIX_FLAGS = {"v3": {}, "v4": dict(radix_h=True), "v5": dict(radix_w=True),
+               "v5x": dict(radix_w=True, xsliver=True)}
+# (spectra, tier, bar against the plain version, bar against float64)
+RADIX_TIERS = (("f32", 3, TOL, TOL), ("f32", 6, TOL, TOL), ("f32", 1, X1_TOL, X1_TOL),
+               ("bf16", 0, IO_TOL, BF16_TOL), ("bf16", 3, TOL, BF16_TOL))
+# The JAX bodies the radix rows replace (cuda_fft_convolution_tpu/ops/block_conv.py).
+RADIX_REPLACES = {("block_conv", "_r4"): 173, ("block_conv", "_r5"): 1251,
+                  ("block_conv", "_r5x"): 1163, ("block_conv_peaks", "_r4"): 1764,
+                  ("block_conv_peaks", "_r5"): 1456, ("block_conv_peaks", "_r5x"): 1606}
+
+
+@contextlib.contextmanager
+def radix_registries():
+    """The tuner's geometry table and the radix-w plan registry, restored
+    afterwards whatever happens."""
+    from cuda_fft_convolution_torch.ops import block_conv as bc
+    from cuda_fft_convolution_torch.runtime import autotune
+
+    tables = [autotune._MEASURED, bc._RADIX_W_TABLE, bc._RADIX_W_TABLE_PEAKS,
+              bc._RADIX_W_XSLIVER, bc._RADIX_W_XSLIVER_PEAKS]
+    saved = [t.copy() for t in tables]
+    try:
+        yield
+    finally:
+        for t, v in zip(tables, saved):
+            t.clear()
+            t.update(v)
+
+
+def register_radix_plan(fc, plan, body=None) -> None:
+    """The tuner's entry for ``plan`` (RADIX_PLANS) at both tiers, and, for
+    v5/v5x, its radix-w registration for both heads and both tiers."""
+    from cuda_fft_convolution_torch.ops.block_conv import register_radix_w_plan
+
+    bh, bw = plan["block"]
+    for store in ("float32", "bfloat16"):
+        fc.register_tuned_geometry(plan["k"], plan["k"], *plan["valid"], fused=True,
+                                   block_h=bh, block_w=bw, store_dtype=store)
+    if body in ("v5", "v5x"):
+        kw = bw - plan["valid"][1] + 1
+        for spec, head in itertools.product((4, 2), ("conv", "peaks")):
+            register_radix_w_plan(bh, bw, kw, spec, head=head,
+                                  sliver="xla" if body == "v5x" else "kernel")
+
+
+def radix_geometry(fc, plan, image_d, bank):
+    """Spectra of the headline image and ``bank`` (k² kernels, 'same' maps)
+    at ``plan`` → (f32 ops, bf16 ops, geometry)."""
+    import torch
+
+    k = plan["k"]
+    with radix_registries():
+        register_radix_plan(fc, plan)
+        spec = fc.fft_data_tiled(image_d, k, k, trim_mode="same")
+    sk = fc.fft_kernels(torch.as_tensor(bank, device="cuda"), spectral=spec)
+    geom = (spec.block_h, spec.block_w, spec.max_kh, spec.max_kw, spec.out_h, spec.out_w)
+    bh, bw = plan["block"]
+    if geom[:4] != (bh, bw, bh - plan["valid"][0] + 1, bw - plan["valid"][1] + 1):
+        raise AssertionError(f"{plan['label']}: the tuned plan gave {geom[:4]}")
+    ops = (spec.re[None], spec.im[None], sk.re, sk.im)
+    return ops, tuple(x.to(torch.bfloat16) for x in ops), geom
+
+
+def radix_checks(ops, ops16, geom, label, want, idx, table) -> None:
+    """Every body at ``geom`` (step 36): each entry — f32 and bf16 maps,
+    peaks — at every tier against its plain version with the same flags
+    (``check_kernel``, ``check_peaks``, the smoke's bars), its f32 maps
+    against float64 on ``idx`` (``want``), 6xTF32 against the plain version
+    in float64, the BF16IO control; then each entry timed, a line of
+    ``table`` each: (label, tier, head, body, ms, bound ms, bound by — the
+    bound of the body's own products, ``block_conv_bound`` — the bound of
+    v3's work, the body's synthesis products and v3's,
+    ``synthesis_flop``)."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.block_conv import (
+        block_conv,
+        block_conv_peaks,
+        block_conv_reference,
+        radix_w_legal,
+    )
+
+    bh, bw, kh, kw, out_h, out_w = geom
+    b, nbh, nbw = ops[0].shape[:3]
+    n = ops[2].shape[0]
+    cells = b * nbh * nbw * n
+    vflop = {body: cells * synthesis_flop(bh, bw // 2 + 1, bh - kh + 1, bw - kw + 1, body)
+             for body in RADIX_FLAGS}
+    out_bytes = {"maps": 4 * b * n * out_h * out_w, "bf16 maps": 2 * b * n * out_h * out_w,
+                 "peaks": 8 * cells}
+    bodies = [x for x in RADIX_FLAGS if x in ("v3", "v4") or radix_w_legal(bw, kw, bw - kw + 1)]
+    for body in bodies:
+        flags = RADIX_FLAGS[body]
+        pflags = flags or {"radix_h": False}
+        for tag, splits, tol, f64_tol in RADIX_TIERS:
+            planes = ops if tag == "f32" else ops16
+            check_kernel(*planes, geom, label, torch.float32, tol, splits, flags)
+            check_kernel(*planes, geom, label, torch.bfloat16, max(tol, BF16_OUT_TOL), splits,
+                         flags)
+            check_peaks(*planes, geom, label, tol, splits, pflags)
+            maps = block_conv(*planes, *geom, torch.float32, splits, **flags)[0]
+            err = max_rel_err_f64(maps, idx, want)
+            del maps
+            tier = tier_label(planes[0], splits)
+            print(f"radix [{label}] {body} {tag} {tier} maps vs float64 on maps {idx}: "
+                  f"{err:.3e} (bar {f64_tol:g})")
+            if err > f64_tol:
+                raise AssertionError(f"{label} {body} {tier}: {err} from float64")
+            for head, fn in (
+                ("maps", lambda: block_conv(*planes, *geom, torch.float32, splits, **flags)),
+                ("bf16 maps", lambda: block_conv(*planes, *geom, torch.bfloat16, splits, **flags)),
+                ("peaks", lambda: block_conv_peaks(*planes, *geom, splits, **pflags)),
+            ):
+                tier_s = resolved(planes[0], splits)
+                bound_ms, by = block_conv_bound(planes, geom, out_bytes[head], tier_s, body)
+                same_ms = block_conv_bound(planes, geom, out_bytes[head], tier_s)[0]
+                table.append((label, f"{tag} {tier}", head, body, cuda_ms(fn), bound_ms, by,
+                              same_ms, vflop[body], vflop["v3"]))
+            torch.cuda.empty_cache()
+        x6 = rel_err(block_conv(*ops, *geom, torch.float32, 6, **flags).double(),
+                     block_conv_reference(*(x.double() for x in ops), *geom, torch.float64,
+                                          **flags))
+        print(f"radix [{label}] {body} 6xTF32 vs its plain version in float64: {x6:.3e} "
+              f"(bar {X6_TOL:g})")
+        if x6 > X6_TOL:
+            raise AssertionError(f"{label} {body}: 6xTF32 {x6} from the float64 plain version")
+        io_control(ops16, geom, label, flags)
+        torch.cuda.empty_cache()
+
+
+def radix_phase(fc, seed, image, image_d, bank, bank_d, idx, want, path_launches, times,
+                rows, row_launches) -> None:
+    """The radix-2 bodies (module docstring, step 36). ``bank``, ``want``:
+    the headline's 100 kernels of 64² and their float64 maps on ``idx``."""
+    import torch
+
+    from cuda_fft_convolution_torch.models import detect_peaks
+    from cuda_fft_convolution_torch.ops import block_conv as bc
+    from cuda_fft_convolution_torch.ops.tiled import choose_block_plan
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 36)
+    table = []
+    first = None
+    for plan in RADIX_PLANS:
+        if plan["k"] == HEADLINE["k"]:
+            pbank, pwant = bank, want
+        else:
+            pbank = rng.standard_normal((HEADLINE["n"], plan["k"], plan["k"], 1)).astype(
+                np.float32)
+            pwant = same_reference_f64(image, pbank, idx)
+        ops, ops16, geom = radix_geometry(fc, plan, image_d, pbank)
+        first = first or (ops, ops16, geom)
+        radix_checks(ops, ops16, geom, f"{plan['label']} {geom[:4]}", pwant, idx, table)
+        del ops, ops16
+        torch.cuda.empty_cache()
+    # each body's kernel times at each plan, beside the bound of its own
+    # products, the same-work bound (v3's synthesis_flop at the tier) and
+    # the body's synthesis products
+    print(f"radix bodies at JAX's plans, ms ({card()}):")
+    for label, tier, head, body, ms, bound_ms, by, same_ms, flop, v3_flop in table:
+        print(f"  {label} {tier} {head} {body}: {ms:.3f} ms; bound {bound_ms:.3f} ms ({by}), "
+              f"{100 * bound_ms / ms:.1f}%; bound of v3's work {same_ms:.3f} ms, "
+              f"{100 * same_ms / ms:.1f}%; synthesis products {flop / 1e12:.3f} TFLOP, "
+              f"{flop / v3_flop:.3f} of v3's")
+    print(f"radix kernel checks and times: {time.perf_counter() - t0:.1f} s (host clock)")
+
+    # the main path at JAX's F=1 plan: fft_conv and detect_peaks through
+    # the route (the tuner's table; v4 from radix_h_legal, v5/v5x from the
+    # registry), every tier, both heads; the headline at the v5 plan
+    # against the analytic plan; each main path held to float64 / the plants
+    plan = RADIX_PLANS[0]
+    ops, ops16, geom = first
+    s, n, k = HEADLINE["size"], HEADLINE["n"], HEADLINE["k"]
+    det_rng = np.random.default_rng(seed)  # the detection headline's
+    det_bank = det_rng.standard_normal((n, k, k, 1)).astype(np.float32)
+    det_image = torch.as_tensor(detection_frame(det_rng, det_bank), device="cuda")
+    det_bank = torch.as_tensor(det_bank, device="cuda")
+    want_main = want
+    centres = detection_centres()
+    tiers = (("3xTF32", {}, "", TOL), ("6xTF32", dict(fused_precision="highest",
+                                                        matmul_precision="highest"), "_x6", TOL),
+             ("1xTF32", dict(fused_precision="highest", matmul_precision="default"), "_x1",
+              X1_TOL))
+    for body in ("v4", "v5", "v5x"):
+        suffix = bc.RADIX_SUFFIX[body]
+        with radix_registries():
+            register_radix_plan(fc, plan, body)
+            for tier, cfg, tsuf, tol in tiers:
+                with tier_config(fc, **cfg) if cfg else contextlib.nullcontext():
+                    maps = main_path(
+                        f"fft_conv at JAX's plan, {body}, {tier}",
+                        lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same"),
+                        f"block_conv_f32{tsuf}{suffix}", path_launches)
+                    err = max_rel_err_f64(maps, idx, want_main)
+                    del maps
+                    main_path(f"fft_conv at JAX's plan, {body}, {tier}, bf16 maps",
+                              lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same",
+                                                  out_dtype="bfloat16"),
+                              f"block_conv_f32_bf16maps{tsuf}{suffix}", path_launches)
+                    _, pos = main_path(
+                        f"detect_peaks at JAX's plan, {body}, {tier}",
+                        lambda: detect_peaks(det_image, det_bank, mode="same",
+                                             correlation=True),
+                        f"block_conv_peaks_f32{tsuf}{suffix}", path_launches)
+                print(f"fft_conv at JAX's plan, {body}, {tier}: vs float64 on maps {idx} "
+                      f"{err:.3e} (bar {tol:g}); detect_peaks finds the {n} plants "
+                      f"{torch.equal(pos.cpu(), centres)}")
+                if err > tol or not torch.equal(pos.cpu(), centres):
+                    raise AssertionError(f"the {body} main path at {tier} fails its checks")
+            maps = main_path(f"fft_conv at JAX's plan, {body}, bf16 tier",
+                             lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same",
+                                                 store_dtype="bfloat16"),
+                             f"block_conv_bf16_io{suffix}", path_launches)
+            err = max_rel_err_f64(maps, idx, want_main)
+            del maps
+            main_path(f"fft_conv at JAX's plan, {body}, bf16 tier, bf16 maps",
+                      lambda: fc.fft_conv(image_d, kernels=bank_d, mode="same",
+                                          store_dtype="bfloat16", out_dtype="bfloat16"),
+                      f"block_conv_bf16_bf16maps_io{suffix}", path_launches)
+            peaks_mode = f"block_conv_peaks_bf16_io{suffix}"
+            if body == "v4":  # JAX's auto-v4 is float32-only for the peaks head
+                fn = lambda: bc.block_conv_peaks(*ops16, *geom, radix_h=True)  # noqa: E731
+            else:
+                fn = lambda: detect_peaks(det_image, det_bank, mode="same",  # noqa: E731
+                                          correlation=True, store_dtype="bfloat16")
+            out = main_path(f"peaks at JAX's plan, {body}, bf16 tier", fn, peaks_mode,
+                            path_launches)
+            found = body == "v4" or torch.equal(out[1].cpu(), centres)
+            print(f"bf16 tier at JAX's plan, {body}: vs float64 {err:.3e} (bar {BF16_TOL:g}); "
+                  f"plants found {found}")
+            if err > BF16_TOL or not found:
+                raise AssertionError(f"the {body} main path at the bf16 tier fails its checks")
+        # the rows at JAX's plan: launches from the runs above
+        for tag, splits, _, _ in RADIX_TIERS:
+            planes = ops if tag == "f32" else ops16
+            tsuf = bc.TIER_SUFFIX[splits]
+            flags = RADIX_FLAGS[body]
+            label = "JAX F=1 plan"
+            ops_level = tag == "bf16" and (splits == 3 or body == "v4")
+            for out_dtype, msuf in ((torch.float32, ""), (torch.bfloat16, "_bf16maps")):
+                mode = f"block_conv_{tag}{msuf}{tsuf}{suffix}"
+                if tag == "bf16" and splits == 3:
+                    before = path_launches[mode]
+                    main_path(f"{label}, ops-level call, splits=3 ({mode})",
+                              lambda: bc.block_conv(*planes, *geom, out_dtype, 3, **flags),
+                              mode, path_launches)
+                    row_launches[mode] = path_launches[mode] - before
+                rows[mode] = kernel_row(planes, geom, label, splits, out_dtype, flags)
+            mode = f"block_conv_peaks_{tag}{tsuf}{suffix}"
+            if tag == "bf16" and splits == 3:
+                before = path_launches[mode]
+                main_path(f"{label}, ops-level call, splits=3 ({mode})",
+                          lambda: bc.block_conv_peaks(*planes, *geom, 3, **flags),
+                          mode, path_launches)
+                row_launches[mode] = path_launches[mode] - before
+            rows[mode] = peaks_row(planes, geom, label, splits, flags)
+            if ops_level:
+                why = "splits=3" if splits == 3 else "radix_h=True"
+                OPS_LEVEL_ROWS[mode] = f"ops-level call, {why}"
+                if splits == 3:
+                    for m in (f"block_conv_bf16{suffix}", f"block_conv_bf16_bf16maps{suffix}"):
+                        OPS_LEVEL_ROWS[m] = "ops-level call, splits=3"
+            torch.cuda.empty_cache()
+
+    # the headline at the v5 plan against the analytic plan, in turns
+    def headline():
+        return fc.fft_conv(image_d, kernels=bank_d, mode="same")
+
+    analytic = cuda_ms(headline)
+    with radix_registries():
+        register_radix_plan(fc, plan, "v5")
+        maps = main_path("headline fft_conv at JAX's v5 plan", headline,
+                         "block_conv_f32_r5", path_launches)
+        err = max_rel_err_f64(maps, idx, want_main)
+        del maps
+        v5_ms = [cuda_ms(headline), cuda_ms(headline)]
+    analytic2 = cuda_ms(headline)
+    times["headline fft_conv, analytic plan (ms)"] = (analytic + analytic2) / 2
+    times["headline fft_conv, JAX's v5 plan (ms)"] = sum(v5_ms) / 2
+    print(f"headline fft_conv, analytic plan (127, 447) / JAX's v5 plan {geom[:4]}, in turns: "
+          f"{analytic:.3f} / {v5_ms[0]:.3f} / {v5_ms[1]:.3f} / {analytic2:.3f} ms; the v5 "
+          f"maps vs float64 on maps {idx} {err:.3e} ({card()})")
+    if err > TOL:
+        raise AssertionError(f"the headline at the v5 plan: {err} from float64")
+    if choose_block_plan(s, s, k, k)[:2] != (127, 447):
+        raise AssertionError("the tuner's table was not restored")
+    times["step 36 (host s)"] = time.perf_counter() - t0
+    print(f"radix phase: {times['step 36 (host s)']:.1f} s (host clock)")
+
+
 def bench_phase() -> None:
     """The port's bench at full size (module docstring, step 33): its JSON
     line printed, every row present and positive, its accuracy row within
@@ -4138,6 +4535,11 @@ def main(argv=None) -> int:
                  row_launches)
     del big
     phase_peak("bf16io tier")
+
+    # ---- step 36: the radix-2 bodies ----
+    radix_phase(fc, args.seed, image, image_d, bank, bank_d, idx, want, path_launches, api_ms,
+                rows, row_launches)
+    phase_peak("radix bodies")
     print(f"smoke wall time: {time.perf_counter() - started:.1f} s")
     print(f"peak memory allocated over the smoke: {max(PHASE_PEAKS) / 2**30:.2f} GiB "
           f"(limit {PEAK_LIMIT / 2**30:.0f} GiB)")
@@ -4153,10 +4555,15 @@ def main(argv=None) -> int:
     # A row is a kernel's C entry (its dtype mode), or "entry:shape" for a
     # MAC shape of the model layer, with its own launches.
     launches = {name: row_launches.get(name, path_launches[name]) for name in rows}
-    for name, (err, ms, plain, bound_ms, bound_by, library_ms) in rows.items():
-        mode = re.sub(r"_(x[16]|io)$", "", name.split(":")[0])
+    for name, (err, ms, plain, bound_ms, bound_by, library_ms, *same_work) in rows.items():
+        body = re.search(r"_r(4|5x|5)$", name.split(":")[0])
+        mode = re.sub(r"_(x[16]|io)$", "", re.sub(r"_r(4|5x|5)$", "", name.split(":")[0]))
         wrapper = mode.removesuffix("_bf16maps").rsplit("_", 1)[0]
         source, replaces = SOURCES[wrapper]
+        if body:  # a radix body's entries and the JAX body they replace
+            source = f"cuda_fft_convolution_torch/csrc/block_conv{body.group(0)}.cu"
+            replaces = (f"cuda_fft_convolution_tpu/ops/block_conv.py:"
+                        f"{RADIX_REPLACES[(wrapper, body.group(0))]}")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -4164,8 +4571,10 @@ def main(argv=None) -> int:
             "bound_kind": "compute" if bound_by == "operations" else "bytes",
             "library_ms": library_ms,
             "called_by": ("ops-level call, splits=3" if name.split(":")[0] in OPS_LEVEL_MODES
-                          else "main path"),
+                          else OPS_LEVEL_ROWS.get(name, "main path")),
         })
+        if same_work:  # a radix body's row: the bound of v3's work beside its own
+            kernels[-1]["same_work_bound_ms"] = same_work[0]
     missing = [m for m in rows if launches[m] < 1]
     if missing:
         raise AssertionError(f"kernel modes the main path never launched: {missing}")

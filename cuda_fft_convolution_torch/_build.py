@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-At first use ``library()`` compiles every ``csrc/*.cu`` of the package with
+At first use ``library()`` compiles the package's ``csrc/*.cu`` with
 ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
-together, links the objects into one shared library with a plain C
-interface in ``build/`` at the repository root, and loads it with
-``ctypes``. The library's file name carries a hash of the sources, the
+together, links the objects into a shared library with a plain C interface
+in ``build/`` at the repository root, and loads it with ``ctypes``. The
+radix-2 bodies' sources (``block_conv_r4.cu``, ``_r5.cu``, ``_r5x.cu``)
+make a second library, ``library(radix=True)``, built at the first radix
+call: no default route launches them, so the other paths do not wait for
+their build. A library's file name carries a hash of its sources, the
 headers (``csrc/*.cuh``) and the flags, so an edited file never loads a
 stale build. Nothing here runs at import: the package imports on machines
 with no ``nvcc`` and no CUDA.
@@ -34,13 +37,17 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _MAPS = ([_P] * 9 + [_I] * 12 + [_P], ctypes.c_int)
 _PEAKS = ([_P] * 10 + [_I] * 12 + [_P], ctypes.c_int)
+_MAPS_RADIX = ([_P] * 12 + [_I] * 12 + [_P], ctypes.c_int)
+_PEAKS_RADIX = ([_P] * 13 + [_I] * 12 + [_P], ctypes.c_int)
 _MAC = ([_P] * 6 + [_I] * 3 + [ctypes.c_longlong, _I, _I, _P], ctypes.c_int)
 # C entry points: name → (argtypes, restype). Every pointer and the stream
 # are c_void_p; without argtypes ctypes would pass them as 32-bit ints. The
 # kernels have one entry per dtype mode: spectra f32 or bf16, and for the
 # maps kernel f32 or bf16 maps (_bf16maps); fp32 spectra also at the
 # 6xTF32 (_x6) and one-pass (_x1) synthesis tiers, bf16 spectra at BF16IO
-# (_io).
+# (_io). The radix library has each of those for the radix-2 bodies (_r4,
+# _r5, _r5x: three more pointers, csrc/block_conv.cuh RadixOps).
+_RADIX_UNITS = ("block_conv_r4.cu", "block_conv_r5.cu", "block_conv_r5x.cu")
 _SIGNATURES = {
     "fftconv_block_conv_f32": _MAPS,
     "fftconv_block_conv_f32_bf16maps": _MAPS,
@@ -63,10 +70,16 @@ _SIGNATURES = {
     "fftconv_spectral_mac_f32": _MAC,
     "fftconv_spectral_mac_bf16": _MAC,
 }
+_RADIX_SIGNATURES = {
+    f"{name}{body}": _PEAKS_RADIX if sig is _PEAKS else _MAPS_RADIX
+    for name, sig in _SIGNATURES.items() if sig in (_MAPS, _PEAKS)
+    for body in ("_r4", "_r5", "_r5x")
+}
 
-_lock = threading.Lock()
+_locks = {False: threading.Lock(), True: threading.Lock()}
 _lib: ctypes.CDLL | None = None
-_build_log = ""
+_radix_lib: ctypes.CDLL | None = None
+_build_logs = {False: "", True: ""}
 
 
 def _nvcc() -> str:
@@ -85,10 +98,12 @@ def _nvcc() -> str:
     )
 
 
-def _sources() -> list[pathlib.Path]:
-    """Every file the library is built from: the ``.cu`` translation units
-    and the ``.cuh`` headers they include."""
-    return sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")])
+def _sources(radix: bool = False) -> list[pathlib.Path]:
+    """Every file a library is built from: its ``.cu`` translation units
+    (the radix bodies' for ``radix``, the others else) and the ``.cuh``
+    headers they include."""
+    units = [s for s in _CSRC.glob("*.cu") if (s.name in _RADIX_UNITS) == radix]
+    return sorted([*units, *_CSRC.glob("*.cuh")])
 
 
 def _library_path(sources: list[pathlib.Path]) -> pathlib.Path:
@@ -96,7 +111,8 @@ def _library_path(sources: list[pathlib.Path]) -> pathlib.Path:
     for s in sources:
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    return BUILD_DIR / f"libfftconv_torch_{h.hexdigest()[:16]}.so"
+    kind = "radix_" if any(s.name in _RADIX_UNITS for s in sources) else ""
+    return BUILD_DIR / f"libfftconv_torch_{kind}{h.hexdigest()[:16]}.so"
 
 
 def _compile(sources: list[pathlib.Path], target: pathlib.Path) -> str:
@@ -128,25 +144,33 @@ def _compile(sources: list[pathlib.Path], target: pathlib.Path) -> str:
     return log + link.stdout
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    global _lib, _build_log
-    with _lock:
-        if _lib is None:
-            sources = _sources()
+def library(radix: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library (``radix``: the radix bodies'), built on
+    first call."""
+    global _lib, _radix_lib
+    with _locks[radix]:
+        lib = _radix_lib if radix else _lib
+        if lib is None:
+            sources = _sources(radix)
             path = _library_path(sources)
             if not path.exists():
-                _build_log = _compile(sources, path)
+                _build_logs[radix] = _compile(sources, path)
             lib = ctypes.CDLL(str(path))
-            for name, (argtypes, restype) in _SIGNATURES.items():
+            for name, (argtypes, restype) in (
+                _RADIX_SIGNATURES if radix else _SIGNATURES
+            ).items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = restype
-            _lib = lib
-        return _lib
+            if radix:
+                _radix_lib = lib
+            else:
+                _lib = lib
+        return lib
 
 
 def build_log() -> str:
     """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) from
-    this process's build, or '' when the library was already built."""
-    return _build_log
+    this process's builds of both libraries, or '' where they were already
+    built."""
+    return _build_logs[False] + _build_logs[True]

@@ -186,20 +186,62 @@
 // the kernel index fastest inside a tile, then the block group
 // (ops/block_conv.py kernel_tile sizes a tile's spectra to stay in L2).
 //
+// Radix-2 bodies (the template argument BODY: the JAX kernel's v4, v5 and
+// v5x beside v3; ops/block_conv.py radix_h_legal, radix_w_legal). They run
+// in the one-block 64- and 32-row configurations (not stacked) and change
+// two stages:
+//   - v4's H stage. Lh = 2M; x[v] = E[v mod M] +- t[v mod M] O[v mod M]
+//     with E = U S_even, O = U S_odd (U[v', j] = exp(2 pi i v' j / M) / Lh,
+//     t[v'] = exp(i pi v' / M)), the window's rows v = w0 + r, w0 = Lh - Vh.
+//     A row v' in [w0, M) gives two window rows (v' and v' + M) from one
+//     row each of E and O: a pair chunk takes ROWS / 2 such v' and fills
+//     its ROWS rows of X with half the products of the direct rows. The
+//     rows whose partner falls outside the window (v = v' + M, v' < w0)
+//     gain nothing from the split and run as G's rows (the stage above),
+//     ROWS a single chunk; so a block's row chunks are the pair chunks, then
+//     the single chunks, and the products sum to the JAX kernel's 2 M^2 per
+//     bin. The S rows are staged even-then-odd (S^T's k = (u % 2) 8 +
+//     u / 2 in a 16-row chunk: its 8 even rows are E's k-step, its 8 odd
+//     rows O's), so no gather runs over the spectra; the products run
+//     transposed, E^T = S_even^T U^T, so that the pair's NV = ROWS / 2 rows
+//     of U are the N of the product (64 rows: wgmma.m64n32k8 with A = S^T
+//     (the warpgroup's 64 bins) and B = U from shared memory; 32 rows:
+//     mma.sync with 16 bins a warp), and the combine, in fp32 with t from
+//     the operand table (RadixOps::tw), writes X's local rows k (x[v']) and
+//     NV + k (x[v' + M]).
+//   - v5's W stage (DIF). With W = 2 (Wc - 1), the W/2 even bins give P =
+//     half the W/2-point packed synthesis, the odd bins the twiddle-folded Q
+//     (ops/block_conv.py _dif_w_mats: one (Tn x W) operand [epr; epi; oqr;
+//     oqi]^T, Tn = min(Vw, W/2)), and x[t'] = P + Q, x[t' + W/2] = P - Q: a
+//     pass of 128 t'-columns sums P over X's even bins and Q over its odd
+//     ones (a contraction of W/4 bins a half, re and im), then hands the
+//     epilogue column t' - t0 (P +- Q) and t' - t0 + W/2 (P - Q). X's bins
+//     are stored permuted by the H stage, [even | odd | Nyquist], so each
+//     half is a contiguous stretch. The Nyquist bin enters P as a rank-1
+//     term nyq[r] (-1)^t / W: v5 reads nyq from X's Nyquist bin (fp32, as
+//     the JAX kernel's VPU term); v5x from RadixOps::slv, synthesised outside
+//     the kernel (ops/block_conv.py _xsliver), rounded to bf16 at kBF16IO
+//     as the JAX kernel's BF16IO dot rounds it, and its H stage skips the
+//     Nyquist bin (W/2 bins: one pass fewer at W = 512).
+// Precision: the same short stretches (8 spectrum rows of E or O a chunk;
+// kKC rows of a half a W-stage chunk) summed on the tensor cores and added
+// in IEEE fp32, and the same tiers, as above.
+//
 // An epilogue is a class template on STACKED (the block-stacked
 // configuration or not) with
 //   using Out = ...;                            the kernel's output argument
 //   __device__ Epi(Out, const Cell&, const OutGeom&);
 //   template <int MT, int NT>
-//   __device__ void tile(const float (&acc)[MT][NT][4], int row0, int col0);
+//   __device__ void tile(const float (&acc)[MT][NT][4], int row0, int col0, int row_end);
 //   __device__ void finish(float* scratch);
 // tile() receives a thread's W-stage accumulators in the mma.m16n8k8
 // layout (wgmma's: MT = 1, NT = 8; mma.sync's: MT = ROWS / 32, NT = 4):
 // acc[mt][nt][i] is row row0 + 16 mt + 8 (i / 2), column
 // col0 + 8 nt + i % 2 (window rows of the cell, or, stacked, rows of the
 // stack: row R is window row R % vh of the group's block R / vh; window
-// columns); rows may pass what exists and columns vw: the epilogue masks
-// them. finish() runs once, by every thread, after the last pass, with the
+// columns); rows may pass what exists, or row_end (a radix chunk's rows
+// that another chunk owns), and columns vw: the epilogue masks them.
+// finish() runs once, by every thread, after the last pass, with the
 // staging area free for its use (>= 64 x 16 x 2 floats).
 
 #pragma once
@@ -287,6 +329,34 @@ static_assert(kStackStage % 4 == 0, "a 16-byte-aligned ring");
 // ldmatrix reads them without bank conflicts.
 static_assert(kGS % 32 == 20, "conflict-free fragment loads");
 static_assert((2 * kKB) % kKC == 0, "W-stage chunks tile [Xr | Xi]");
+
+// The bodies (BODY): v3, and the radix-2 v4 (H stage), v5 (H and DIF W
+// stages, in-kernel Nyquist term) and v5x (the Nyquist term an operand).
+constexpr int kV3 = 0, kV4 = 1, kV5 = 2, kV5X = 3;
+__host__ __device__ constexpr bool dif_body(int body) { return body == kV5 || body == kV5X; }
+// The radix bodies' operands (ops/block_conv.py _radix_kernel_mats): U (2,
+// u_rows(M), g_cols(M)) = re, im; the twiddle (2, M) = cos, sin; v5x's
+// sliver (B, N, nbh, nbw, Vh), the Nyquist bin's windowed H synthesis.
+struct RadixOps {
+  const float* u_pad;
+  const float* tw;
+  const float* slv;
+};
+__host__ __device__ inline int u_rows(int m) { return (m + 63) / 64 * 64; }
+// A block's radix row chunks in the configuration of `rows` rows: pair
+// chunks (rows / 2 v' in [w0, M) each), then single chunks (rows window
+// rows of [M - w0, M) each).
+__host__ __device__ inline int pair_chunks(int lh, int vh, int rows) {
+  return (lh / 2 - (lh - vh) + rows / 2 - 1) / (rows / 2);
+}
+__host__ __device__ inline int single_chunks(int lh, int vh, int rows) {
+  return (lh - vh + rows - 1) / rows;
+}
+// The plans the radix bodies take: an even Lh whose window starts in the
+// first half period (0 < w0 < M), and for the DIF W stage W/4 a whole
+// number of W-stage chunks.
+inline bool radix_h_ok(int lh, int vh) { return lh % 2 == 0 && lh - vh > 0 && lh - vh < lh / 2; }
+inline bool radix_w_ok(int wc) { return wc > 1 && (wc - 1) % (2 * kKC) == 0; }
 
 // A spectra element as fp32: the identity for fp32, a widening for bf16.
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -445,6 +515,20 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[8][4], uint64_t da, uin
       : "l"(da), "l"(db), "r"(1)
       : "memory");
 }
+// The same at N = 32 (the radix H stage: B = 32 rows of U).
+__device__ __forceinline__ void wgmma_tf32_ss32(float (&d)[4][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
 // Wait until at most N of this warpgroup's wgmma groups are pending.
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
@@ -453,9 +537,10 @@ __device__ __forceinline__ void wgmma_wait() {
 // Keep the compiler from moving reads or writes of registers that an
 // asynchronous wgmma reads or writes (its accumulators d, its A fragment a)
 // across the wgmma, or giving them to other values before it is waited for.
-__device__ __forceinline__ void fence_regs(float (&d)[8][4]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
 }
@@ -657,12 +742,12 @@ __device__ __forceinline__ void h_fma(float (&ar)[TR][4], float (&ai)[TR][4],
   }
 }
 
-template <class TS, int ROWS, bool STACKED, int SPLITS, class Epi>
+template <class TS, int ROWS, bool STACKED, int SPLITS, int BODY, class Epi>
 __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     const TS* __restrict__ d_re, const TS* __restrict__ d_im,
     const TS* __restrict__ k_re, const TS* __restrict__ k_im,
     const float* __restrict__ gt_re, const float* __restrict__ gt_im,
-    const float* __restrict__ g_pad, const float* __restrict__ m_tc,
+    const float* __restrict__ g_pad, const float* __restrict__ m_tc, RadixOps rx,
     typename Epi::Out out, int nbh, int nbw, int f, int n, int lh, int wc,
     int vh, int vw, int out_h, int out_w, int row_chunks,
     int group, int cps, int stages, int ktile) {
@@ -672,11 +757,17 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   constexpr int P = St::kP;      // TF32 pieces of an operand
   // 6xTF32 sums its small terms apart from the main term (see Precision).
   constexpr bool kApart = SPLITS == 6;
+  constexpr bool kDif = dif_body(BODY);
   extern __shared__ __align__(16) float smem[];
   const int wc_pad = padded_bins(wc);
   const int xs = x_stride(wc);
   float* x_s = smem;                   // [ROWS][xs]  X: Xr at bins 0.., Xi at wc_pad..
   float* stage = x_s + ROWS * xs;      // staging, reused by both stages
+  // The DIF stage's half period W/2 and quarter; its H stage stores X's
+  // bins permuted, [even | odd | Nyquist] (xcol), and v5x's stops at W/2.
+  const int l2 = wc - 1, l4 = l2 / 2;
+  const int hb_pad = BODY == kV5X ? l2 : wc_pad;
+  auto xcol = [&](int v) { return kDif && v < l2 ? (v & 1) * l4 + (v >> 1) : v; };
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -688,6 +779,10 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
 
   Cell cell_at;
   int r0 = 0;
+  // The window rows of X's local rows: [0, RW) from seg_a, [RW, ROWS) from
+  // seg_b, up to end_a and end_b (a radix chunk's rows; v3 and the stacked
+  // configuration: r0.. in order, masked by the epilogue alone).
+  int seg_a = 0, seg_b = RW, end_a = INT_MAX, end_b = INT_MAX;
   if constexpr (!STACKED) {
   // S^T: the pieces of re, then of im; G chunk: the same planes, then the
   // pieces of -Gi at 64 rows (plane c * P + k: component c, piece k). 64
@@ -710,6 +805,26 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   const long long bb = cell / (static_cast<long long>(nbw) * nbh);
   r0 = rc * ROWS;
   cell_at = Cell{bb, bi, bj, rc, ni, 1};
+  // A radix body's chunk: a pair chunk (rc < its count) holds x[v'] at
+  // local rows k and x[v' + M] at RW + k for v' = p0 + k; a single chunk
+  // window rows r0.. of [M - w0, M).
+  const int m_h = lh / 2, w0 = lh - vh;
+  const int npc = BODY == kV3 ? 0 : pair_chunks(lh, vh, ROWS);
+  const bool pair = BODY != kV3 && rc < npc;
+  const int p0 = w0 + rc * RW;
+  if constexpr (BODY != kV3) {
+    if (pair) {
+      seg_a = p0 - w0;
+      seg_b = p0 + m_h - w0;
+      end_a = m_h - w0;
+      end_b = vh;
+    } else {
+      r0 = m_h - w0 + (rc - npc) * ROWS;
+      seg_a = r0;
+      seg_b = r0 + RW;
+      end_a = end_b = m_h;
+    }
+  }
 
   const long long plane = static_cast<long long>(lh) * wc;
   const TS* dr_c = d_re + cell * f * plane;
@@ -718,8 +833,240 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   const TS* ki_c = k_im + static_cast<long long>(ni) * f * plane;
   const int gr_n = g_rows(vh), gc_n = g_cols(lh);
 
+  // This thread's S elements of a chunk: element q is spectrum row
+  // s_u(q) and bin s_v(q) of the chunk; a warp's 32 lanes hold 8 bins x 4
+  // rows, so their S^T stores hit 32 distinct banks.
+  auto s_u = [&](int q) { return 4 * ((q * 8 + warp) >> 4) + (lane >> 3); };
+  auto s_v = [&](int q) { return 8 * ((q * 8 + warp) & 15) + (lane & 7); };
+  // Channel ff of this thread's S elements of the chunk at (u0, c0): D and K.
+  float dk[St::kPerS][4];
+  auto load_dk = [&](int c0, int u0, int ff) {
+#pragma unroll
+    for (int q = 0; q < St::kPerS; ++q) {
+      const int u = u0 + s_u(q);
+      const int v = c0 + s_v(q);
+      const bool ok = u < lh && v < wc;
+      const long long off = ok ? static_cast<long long>(u) * wc + v + ff * plane : 0;
+      dk[q][0] = ok ? to_f32(dr_c[off]) : 0.f;
+      dk[q][1] = ok ? to_f32(di_c[off]) : 0.f;
+      dk[q][2] = ok ? to_f32(kr_c[off]) : 0.f;
+      dk[q][3] = ok ? to_f32(ki_c[off]) : 0.f;
+    }
+  };
+  // S = sum_f K D at (u0, c0) into sv: channel 0 was prefetched into dk,
+  // the rest load here.
+  auto mac = [&](int c0, int u0, float (&sv)[St::kPerS][2]) {
+#pragma unroll
+    for (int q = 0; q < St::kPerS; ++q) {
+      sv[q][0] = fmaf(dk[q][2], dk[q][0], -dk[q][3] * dk[q][1]);
+      sv[q][1] = fmaf(dk[q][2], dk[q][1], dk[q][3] * dk[q][0]);
+    }
+    for (int ff = 1; ff < f; ++ff) {
+      load_dk(c0, u0, ff);
+#pragma unroll
+      for (int q = 0; q < St::kPerS; ++q) {
+        sv[q][0] = fmaf(dk[q][2], dk[q][0], fmaf(-dk[q][3], dk[q][1], sv[q][0]));
+        sv[q][1] = fmaf(dk[q][2], dk[q][1], fmaf(dk[q][3], dk[q][0], sv[q][1]));
+      }
+    }
+  };
+
+  // Stage sv as S^T's planes (the tier's pieces of re, then of im) at k = u,
+  // or, for the radix H stage, with the chunk's even rows at k 0..7 and its
+  // odd rows at 8..15.
+  auto stage_s = [&](const float (&sv)[St::kPerS][2], bool even_odd) {
+#pragma unroll
+    for (int q = 0; q < St::kPerS; ++q) {
+      const int v = s_v(q), u = s_u(q);
+      const int k = even_odd ? (u & 1) * 8 + (u >> 1) : u;
+      float* p = s_st + (kWG ? ((v >> 3) * (kUK / 4) + (k >> 2)) * kCore + (v & 7) * 4 + (k & 3)
+                             : v * kGS + k);  // S^T[v][k]
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        uint32_t pc[P];
+        pieces<SPLITS>(sv[q][c], pc);
+#pragma unroll
+        for (int k2 = 0; k2 < P; ++k2) p[(c * P + k2) * kSP] = __uint_as_float(pc[k2]);
+      }
+    }
+  };
+  if (pair) {
+  // ---- radix-2 H stage (v4), a pair chunk: E, O at v' = p0.. (NV of
+  // them), X[k] = E + t O, X[NV + k] = E - t O ----
+  constexpr int NV = RW;
+  constexpr int kUP = kWG ? NV * kUK : NV * kGS;  // floats of a U plane
+  float* u_st = g_st;  // U: re, im (and -im at 64 rows), NV rows x 8 columns
+  const int ur_n = u_rows(m_h), uc_n = g_cols(m_h);
+  // This thread's U values of a chunk (j0 = u0 / 2..): (component, row,
+  // half) = tid, 4 floats, for the first 4 NV threads.
+  float4 uv = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int u_pl = tid / (2 * NV), u_row = (tid / 2) % NV, u_h = tid & 1;
+  const bool u_on = tid < 4 * NV && p0 + u_row < m_h;
+  auto load_u = [&](int j0) {
+    if (u_on)
+      uv = *reinterpret_cast<const float4*>(rx.u_pad + (static_cast<long long>(u_pl) * ur_n + p0 + u_row) * uc_n +
+                                            j0 + 4 * u_h);
+  };
+  for (int c0 = 0; c0 < hb_pad; c0 += kCols) {
+    // E and O (re, im) at this warp's bins x the chunk's v' (E^T, O^T):
+    // 64 rows, the warpgroup's 64 bins x 32 v' (wgmma m64n32); 32 rows,
+    // the warp's 16 bins x 16 v' (two mma.sync n-tiles).
+    constexpr int XN = kWG ? 4 : 2;
+    float er[XN][4], ei[XN][4], or_[XN][4], oi[XN][4];
+#pragma unroll
+    for (int b = 0; b < XN; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) er[b][c] = ei[b][c] = or_[b][c] = oi[b][c] = 0.f;
+    const int bin0 = c0 + (kWG ? (warp >> 2) * 64 : warp * 16);  // the first bin of the tile
+    const bool live = bin0 < hb_pad;
+    load_dk(c0, 0, 0);
+    load_u(0);
+    for (int u0 = 0; u0 < lh; u0 += kUK) {
+      float sv[St::kPerS][2];
+      mac(c0, u0, sv);
+      __syncthreads();  // the previous chunk's products are done with staging
+      stage_s(sv, true);
+      if (tid < 4 * NV) {
+        const float x[4] = {uv.x, uv.y, uv.z, uv.w};
+        uint32_t pc[4][P];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pieces<SPLITS>(x[i], pc[i]);
+        float* pu = u_st + u_pl * P * kUP +
+                    (kWG ? ((u_row >> 3) * (kUK / 4) + u_h) * kCore + (u_row & 7) * 4 : u_row * kGS + 4 * u_h);
+#pragma unroll
+        for (int k2 = 0; k2 < P; ++k2) {
+          *reinterpret_cast<uint4*>(pu + k2 * kUP) = make_uint4(pc[0][k2], pc[1][k2], pc[2][k2], pc[3][k2]);
+          if (kWG && u_pl == 1)  // -Ui, for Er = Sr Ur + Si (-Ui)
+            *reinterpret_cast<uint4*>(pu + (P + k2) * kUP) =
+                make_uint4(pc[0][k2] ^ 0x80000000u, pc[1][k2] ^ 0x80000000u, pc[2][k2] ^ 0x80000000u,
+                           pc[3][k2] ^ 0x80000000u);
+        }
+      }
+      if (kWG) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      if (u0 + kUK < lh) {  // in flight during the products
+        load_dk(c0, u0 + kUK, 0);
+        load_u((u0 + kUK) / 2);
+      }
+      if (!live) continue;
+      if constexpr (kWG) {
+        // A = S^T's planes at the warpgroup's 64 bins (k-step 0: the even
+        // rows, 1: the odd), B = U's planes; summed on the tensor cores per
+        // chunk, then added in IEEE fp32.
+        const float* sw = s_st + (warp >> 2) * 8 * (kUK / 4) * kCore;
+        float te[2][4][4], to[2][4][4];  // [re, im] of E, O
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) te[c][j][i] = to[c][j][i] = 0.f;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          fence_regs(te[c]);
+          fence_regs(to[c]);
+        }
+        wgmma_fence();
+        auto sa = [&](int pl, int ks) {
+          return smem_desc(sw + pl * kSP + 2 * ks * kCore, 4 * kCore, 4 * (kUK / 4) * kCore);
+        };
+        auto ub = [&](int pl) { return smem_desc(u_st + pl * kUP, 4 * kCore, 4 * (kUK / 4) * kCore); };
+        constexpr int kQ0 = first_product(SPLITS);
+        constexpr int kPhases = kApart ? 2 : 1;
+#pragma unroll
+        for (int ph = 0; ph < kPhases; ++ph) {
+          const int q0 = ph == 0 ? kQ0 : kMainProduct;
+          const int q1 = kApart && ph == 0 ? kMainProduct : 6;
+#pragma unroll
+          for (int q = q0; q < q1; ++q) {
+            // planes: S^T re 0.., im P..; U re 0.., im P.., -im 2P..
+            wgmma_tf32_ss32(te[0], sa(prod_a(q), 0), ub(prod_b(q)));          // Sr Ur
+            wgmma_tf32_ss32(te[0], sa(P + prod_a(q), 0), ub(2 * P + prod_b(q)));  // Si (-Ui)
+            wgmma_tf32_ss32(te[1], sa(prod_a(q), 0), ub(P + prod_b(q)));      // Sr Ui
+            wgmma_tf32_ss32(te[1], sa(P + prod_a(q), 0), ub(prod_b(q)));      // Si Ur
+            wgmma_tf32_ss32(to[0], sa(prod_a(q), 1), ub(prod_b(q)));
+            wgmma_tf32_ss32(to[0], sa(P + prod_a(q), 1), ub(2 * P + prod_b(q)));
+            wgmma_tf32_ss32(to[1], sa(prod_a(q), 1), ub(P + prod_b(q)));
+            wgmma_tf32_ss32(to[1], sa(P + prod_a(q), 1), ub(prod_b(q)));
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          fence_regs(te[c]);
+          fence_regs(to[c]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          add4(er[j], te[0][j]);
+          add4(ei[j], te[1][j]);
+          add4(or_[j], to[0][j]);
+          add4(oi[j], to[1][j]);
+        }
+      } else {
+        // A = S^T's fragments at the warp's 16 bins, B = U's at the 16 v'
+        // (two n-tiles); each k-step's products summed on the tensor cores.
+        uint32_t ub2[2][2][P][2];  // [n-tile][component][piece]
+#pragma unroll
+        for (int pl = 0; pl < 2 * P; ++pl) {
+          uint32_t r[4];
+          ldsm4(r, u_st + pl * kUP + b_lane(lane, kGS));
+          ub2[0][pl / P][pl % P][0] = r[0];
+          ub2[0][pl / P][pl % P][1] = r[1];
+          ub2[1][pl / P][pl % P][0] = r[2];
+          ub2[1][pl / P][pl % P][1] = r[3];
+        }
+        auto kstep = [&](int ks, float (&xr)[XN][4], float (&xi)[XN][4]) {
+          uint32_t sa2[2][P][4];
+#pragma unroll
+          for (int pl = 0; pl < 2 * P; ++pl)
+            ldsm4(sa2[pl / P][pl % P], s_st + pl * kSP + warp * 16 * kGS + ks * 8 + a_lane(lane, kGS));
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float tr[4] = {0.f, 0.f, 0.f, 0.f}, ts[4] = {0.f, 0.f, 0.f, 0.f};
+            float ti[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_n<SPLITS>(tr, sa2[0], ub2[j][0]);                       // Sr Ur
+            mma_n<SPLITS>(ts, sa2[1], ub2[j][1]);                       // Si Ui
+            mma_n2<SPLITS>(ti, sa2[0], ub2[j][1], sa2[1], ub2[j][0]);  // Sr Ui + Si Ur
+#pragma unroll
+            for (int i = 0; i < 4; ++i) xr[j][i] += tr[i] - ts[i];
+            add4(xi[j], ti);
+          }
+        };
+        kstep(0, er, ei);
+        kstep(1, or_, oi);
+      }
+    }
+    // The combine: x[v'] = E + t O at local row k, x[v' + M] = E - t O at
+    // NV + k; bins at or past hb_pad are not stored (bins past wc hold
+    // zeros, S was zero there).
+    if (live) {
+      const int row_b = bin0 + (kWG ? (warp & 3) * 16 : 0) + g8;  // this thread's bins: row_b, row_b + 8
+#pragma unroll
+      for (int j = 0; j < XN; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int bin = row_b + 8 * (i >> 1);
+          const int k = 8 * j + 2 * t4 + (i & 1);
+          const int vp = p0 + k;
+          if (bin >= hb_pad) continue;
+          const float twr = vp < m_h ? rx.tw[vp] : 0.f;
+          const float twi = vp < m_h ? rx.tw[m_h + vp] : 0.f;
+          const float tr = twr * or_[j][i] - twi * oi[j][i];
+          const float ti = twr * oi[j][i] + twi * or_[j][i];
+          float* pa = x_s + k * xs + xcol(bin);
+          float* pb = x_s + (NV + k) * xs + xcol(bin);
+          pa[0] = er[j][i] + tr;
+          pa[wc_pad] = ei[j][i] + ti;
+          pb[0] = er[j][i] - tr;
+          pb[wc_pad] = ei[j][i] - ti;
+        }
+    }
+  }
+  } else {
   // ---- H stage: X[r, v] = sum_u G[r0 + r, u] S[u, v] ----
-  for (int c0 = 0; c0 < wc_pad; c0 += kCols) {
+  for (int c0 = 0; c0 < hb_pad; c0 += kCols) {
     // X's accumulators: 64 rows, a warpgroup's 64 x 64 tile (wgmma); 32
     // rows, a warp's 16 x 32 tile (mma.sync).
     constexpr int XM = kWG ? 1 : MT, XN = kWG ? 8 : 4;
@@ -733,30 +1080,11 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     // The warp's 32 bins are either all below wc_pad or all past it
     // (mma.sync); the warpgroup's 64 bins start below it or are all past
     // it (wgmma).
-    const bool live = kWG ? c0 + (warp >> 2) * 64 < wc_pad : c0 + wn * 32 < wc_pad;
+    const bool live = kWG ? c0 + (warp >> 2) * 64 < hb_pad : c0 + wn * 32 < hb_pad;
 
-    // This thread's S elements of a chunk: element q is spectrum row
-    // s_u(q) and bin s_v(q) of the chunk; a warp's 32 lanes hold 8 bins x 4
-    // rows, so their S^T stores hit 32 distinct banks.
-    auto s_u = [&](int q) { return 4 * ((q * 8 + warp) >> 4) + (lane >> 3); };
-    auto s_v = [&](int q) { return 8 * ((q * 8 + warp) & 15) + (lane & 7); };
-    // Channel ff of this thread's S elements of the chunk at u0: D and K.
-    float dk[St::kPerS][4];
-    auto load_dk = [&](int u0, int ff) {
-#pragma unroll
-      for (int q = 0; q < St::kPerS; ++q) {
-        const int u = u0 + s_u(q);
-        const int v = c0 + s_v(q);
-        const bool ok = u < lh && v < wc;
-        const long long off = ok ? static_cast<long long>(u) * wc + v + ff * plane : 0;
-        dk[q][0] = ok ? to_f32(dr_c[off]) : 0.f;
-        dk[q][1] = ok ? to_f32(di_c[off]) : 0.f;
-        dk[q][2] = ok ? to_f32(kr_c[off]) : 0.f;
-        dk[q][3] = ok ? to_f32(ki_c[off]) : 0.f;
-      }
-    };
     // G (re, im) for rows r0.., spectrum rows u0.. (zero-padded past vh
-    // and lh), loaded a chunk ahead and split as it is staged.
+    // and lh; a radix single chunk's rows past G's padding read as zeros),
+    // loaded a chunk ahead and split as it is staged.
     float4 gv[St::kPerG];
     auto load_g = [&](int u0) {
 #pragma unroll
@@ -764,42 +1092,21 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         const int e = tid + q * kThreads;
         const int pl = e / (ROWS * 4);
         const int row = (e / 4) % ROWS;
+        if (BODY != kV3 && r0 + row >= gr_n) {
+          gv[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+          continue;
+        }
         gv[q] = *reinterpret_cast<const float4*>(
             g_pad + (static_cast<long long>(pl) * gr_n + r0 + row) * gc_n + u0 + 4 * (e % 4));
       }
     };
-    load_dk(0, 0);
+    load_dk(c0, 0, 0);
     load_g(0);
     for (int u0 = 0; u0 < lh; u0 += kUK) {
-      // S = sum_f K D: channel 0 was prefetched, the rest load here.
       float sv[St::kPerS][2];
-#pragma unroll
-      for (int q = 0; q < St::kPerS; ++q) {
-        sv[q][0] = fmaf(dk[q][2], dk[q][0], -dk[q][3] * dk[q][1]);
-        sv[q][1] = fmaf(dk[q][2], dk[q][1], dk[q][3] * dk[q][0]);
-      }
-      for (int ff = 1; ff < f; ++ff) {
-        load_dk(u0, ff);
-#pragma unroll
-        for (int q = 0; q < St::kPerS; ++q) {
-          sv[q][0] = fmaf(dk[q][2], dk[q][0], fmaf(-dk[q][3], dk[q][1], sv[q][0]));
-          sv[q][1] = fmaf(dk[q][2], dk[q][1], fmaf(dk[q][3], dk[q][0], sv[q][1]));
-        }
-      }
+      mac(c0, u0, sv);
       __syncthreads();  // the previous chunk's products are done with staging
-#pragma unroll
-      for (int q = 0; q < St::kPerS; ++q) {
-        const int v = s_v(q), u = s_u(q);
-        float* p = s_st + (kWG ? ((v >> 3) * (kUK / 4) + (u >> 2)) * kCore + (v & 7) * 4 + (u & 3)
-                               : v * kGS + u);  // S^T[v][u]
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          uint32_t pc[P];
-          pieces<SPLITS>(sv[q][c], pc);
-#pragma unroll
-          for (int k = 0; k < P; ++k) p[(c * P + k) * kSP] = __uint_as_float(pc[k]);
-        }
-      }
+      stage_s(sv, false);
 #pragma unroll
       for (int q = 0; q < St::kPerG; ++q) {
         const int e = tid + q * kThreads;
@@ -824,7 +1131,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       if (kWG) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
       if (u0 + kUK < lh) {  // in flight during the products
-        load_dk(u0 + kUK, 0);
+        load_dk(c0, u0 + kUK, 0);
         load_g(u0 + kUK);
       }
       if constexpr (kWG) {
@@ -922,18 +1229,27 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       }
     }
     // Bins past wc hold zeros (S was zero there), which pads X for the W
-    // stage's chunks.
+    // stage's chunks. The DIF bodies store the bins permuted (xcol): a
+    // pair of adjacent bins lands in the even and the odd half.
     if constexpr (kWG) {
       const int rank = warp & 3;
 #pragma unroll
       for (int j = 0; j < XN; ++j) {
         const int v = c0 + (warp >> 2) * 64 + j * 8;  // the n-tile's bins: all below wc_pad, or none
-        if (live && v < wc_pad) {
+        if (live && v < hb_pad) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            float* p = x_s + (rank * 16 + 8 * h + g8) * xs + v + 2 * t4;
-            *reinterpret_cast<float2*>(p) = make_float2(xr[0][j][2 * h], xr[0][j][2 * h + 1]);
-            *reinterpret_cast<float2*>(p + wc_pad) = make_float2(xi[0][j][2 * h], xi[0][j][2 * h + 1]);
+            float* p = x_s + (rank * 16 + 8 * h + g8) * xs;
+            const int b2 = v + 2 * t4;
+            if constexpr (kDif) {
+              p[xcol(b2)] = xr[0][j][2 * h];
+              p[xcol(b2) + wc_pad] = xi[0][j][2 * h];
+              p[xcol(b2 + 1)] = xr[0][j][2 * h + 1];
+              p[xcol(b2 + 1) + wc_pad] = xi[0][j][2 * h + 1];
+            } else {
+              *reinterpret_cast<float2*>(p + b2) = make_float2(xr[0][j][2 * h], xr[0][j][2 * h + 1]);
+              *reinterpret_cast<float2*>(p + b2 + wc_pad) = make_float2(xi[0][j][2 * h], xi[0][j][2 * h + 1]);
+            }
           }
         }
       }
@@ -944,11 +1260,20 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            float* p = x_s + (wm * RW + mt * 16 + 8 * h + g8) * xs + c0 + wn * 32 + nt * 8 + 2 * t4;
-            *reinterpret_cast<float2*>(p) = make_float2(xr[mt][nt][2 * h], xr[mt][nt][2 * h + 1]);
-            *reinterpret_cast<float2*>(p + wc_pad) = make_float2(xi[mt][nt][2 * h], xi[mt][nt][2 * h + 1]);
+            float* p = x_s + (wm * RW + mt * 16 + 8 * h + g8) * xs;
+            const int b2 = c0 + wn * 32 + nt * 8 + 2 * t4;
+            if constexpr (kDif) {
+              p[xcol(b2)] = xr[mt][nt][2 * h];
+              p[xcol(b2) + wc_pad] = xi[mt][nt][2 * h];
+              p[xcol(b2 + 1)] = xr[mt][nt][2 * h + 1];
+              p[xcol(b2 + 1) + wc_pad] = xi[mt][nt][2 * h + 1];
+            } else {
+              *reinterpret_cast<float2*>(p + b2) = make_float2(xr[mt][nt][2 * h], xr[mt][nt][2 * h + 1]);
+              *reinterpret_cast<float2*>(p + b2 + wc_pad) = make_float2(xi[mt][nt][2 * h], xi[mt][nt][2 * h + 1]);
+            }
           }
     }
+  }
   }
   } else {
   static_assert(ROWS == 64, "the stacked configuration is 64 rows");
@@ -1232,11 +1557,67 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   // The (pass, chunk) steps run as one sequence: chunk kc of pass p holds
   // rows kc * kKC.. of [Mr ; Mi] for output columns p * kCols.., M^T's
   // planes (St::kMP of them) in core matrices, in ring slot (step % kM),
-  // copied kM - 1 steps ahead.
-  const int kw2 = 2 * wc_pad;
+  // copied kM - 1 steps ahead. The DIF bodies: rows of [epr; epi; oqr;
+  // oqi] for t'-columns, the first half of a pass's chunks summing P over
+  // X's even bins (re, then im), the second Q over its odd bins.
+  const int kw2 = kDif ? 2 * l2 : 2 * wc_pad;
   const int nkc = kw2 / kKC;
-  const int mcols = m_cols(vw);
+  const int wcols = kDif ? min(vw, l2) : vw;  // the columns the products run over
+  const int mcols = m_cols(wcols);
   const int steps = mcols / kCols * nkc;
+  // X's column of chunk kc's first row of [Mr ; Mi] (or of [epr; ..]).
+  auto x_col = [&](int kc) {
+    if constexpr (kDif) {
+      const int per = l4 / kKC;
+      const int seg = kc / per;
+      return (seg & 1) * wc_pad + (seg >> 1) * l4 + (kc - seg * per) * kKC;
+    } else {
+      return kc * kKC;
+    }
+  };
+  // The window row of X's local row l and the rows the chunk owns.
+  auto win_row = [&](int l) { return l < RW ? seg_a + l : seg_b + l - RW; };
+  auto win_end = [&](int l) { return l < RW ? end_a : end_b; };
+  // DIF: P += nyq[r] (-1)^(t0 + k) / W, then the epilogue's two tiles,
+  // column k: P + Q (t0 + k < W/2) or P - Q, and column k + W/2: P - Q.
+  // The Nyquist values of local rows l and l + 8: X's Nyquist bin (v5), or
+  // v5x's sliver at their window rows.
+  const int t0 = kDif ? 2 * l2 - vw : 0;  // kw - 1
+  const float inv_w = kDif ? static_cast<float>(1.0 / (2.0 * l2)) : 0.f;
+  const float* slv_c = nullptr;
+  if constexpr (BODY == kV5X && !STACKED)
+    slv_c = rx.slv + (((cell_at.bb * n + cell_at.ni) * nbh + cell_at.bi) * static_cast<long long>(nbw) +
+                      cell_at.bj) * vh;
+  auto nyq_of = [&](int l) -> float {
+    if constexpr (BODY == kV5) {
+      return x_s[l * xs + l2];
+    } else {
+      const int r = win_row(l);
+      const float v = r < vh && r < win_end(l) ? slv_c[r] : 0.f;
+      return SPLITS == kBF16IO ? __uint_as_float(bf16r(v)) : v;
+    }
+  };
+  auto dif_combine = [&](auto& accp, auto& accq, int l0, int col) {
+    // accp/accq: [MT][NT][4] at local rows l0 + 16 mt + 8 (i / 2), columns
+    // col + 8 nt + i % 2 (k's parity is i's)
+    constexpr int kMT = sizeof(accp) / sizeof(accp[0]);
+    constexpr int kNT = sizeof(accp[0]) / sizeof(accp[0][0]);
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const float ny[2] = {nyq_of(l0 + 16 * mt), nyq_of(l0 + 16 * mt + 8)};
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int k = col + 8 * nt + (i & 1);
+          const float par = ((t0 + i) & 1) ? -inv_w : inv_w;
+          const float p = accp[mt][nt][i] + ny[i >> 1] * par;
+          const float q = accq[mt][nt][i];
+          accp[mt][nt][i] = t0 + k < l2 ? p + q : p - q;
+          accq[mt][nt][i] = p - q;
+        }
+    }
+  };
   constexpr int kMChunk = St::kMP * kMPlane;
   float* m_st = stage;  // [kM][St::kMP][kCols / 8][kKC / 4][8][4]
   auto issue_m = [&](int it) {
@@ -1266,7 +1647,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     // pass's columns; warp `rank` of it holds rows 16 rank.. .
     const int wg = warp >> 2;
     const int rank = warp & 3;
-    float acc[1][8][4];
+    float acc[1][8][4], accq[1][8][4];  // (DIF: P, Q)
     for (int it = 0; it < steps; ++it) {
       const int p = it / nkc;
       const int kc = it % nkc;
@@ -1274,14 +1655,14 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[0][j][i] = 0.f;
+          for (int i = 0; i < 4; ++i) acc[0][j][i] = accq[0][j][i] = 0.f;
       }
       cp_async_wait<kM - 2>();
       // this thread's copies are visible to the tensor cores' reads
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();  // this step's chunk landed; the last step's slot is free
       issue_m(it + kM - 1);
-      if (p * kCols + wg * 64 < vw) {
+      if (p * kCols + wg * 64 < wcols) {
         const float* mb = m_st + (it % kM) * kMChunk + wg * 8 * (kKC / 4) * kCore;
         // The chunk's products are summed on the tensor cores into t (at
         // 6xTF32 its small terms into tc, apart), then added to the pass's
@@ -1300,9 +1681,10 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         // buffer's registers to other values while the tensor cores may
         // still read them.
         uint32_t xp[2][P][4];
+        const int xc = x_col(kc);
         auto frag = [&](int ks, int bf) {
           uint32_t xa[4];
-          ldsm4(xa, x_s + rank * 16 * xs + kc * kKC + ks * 8 + a_lane(lane, xs));
+          ldsm4(xa, x_s + rank * 16 * xs + xc + ks * 8 + a_lane(lane, xs));
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             uint32_t pc[P];
@@ -1344,14 +1726,29 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           if constexpr (kApart) add4(t[j], tc[j]);
-          add4(acc[0][j], t[j]);
+          if (kDif && kc >= nkc / 2)
+            add4(accq[0][j], t[j]);
+          else
+            add4(acc[0][j], t[j]);
         }
       }
-      if (kc == nkc - 1) epi.tile(acc, r0 + rank * 16 + g8, p * kCols + wg * 64 + 2 * t4);
+      if (kc == nkc - 1) {
+        const int col = p * kCols + wg * 64 + 2 * t4;
+        if constexpr (BODY == kV3) {
+          epi.tile(acc, r0 + rank * 16 + g8, col, INT_MAX);
+        } else {
+          const int l0 = rank * 16 + g8;
+          if constexpr (kDif) {
+            dif_combine(acc, accq, l0, col);
+            if (p * kCols + wg * 64 + l2 < vw) epi.tile(accq, win_row(l0), col + l2, win_end(l0));
+          }
+          epi.tile(acc, win_row(l0), col, win_end(l0));
+        }
+      }
     }
   } else {
     // mma.sync (32 rows): 2 x 4 warps of 16 rows x 32 columns.
-    float acc[MT][4][4];
+    float acc[MT][4][4], accq[MT][4][4];  // (DIF: P, Q)
     for (int it = 0; it < steps; ++it) {
       const int p = it / nkc;
       const int kc = it % nkc;
@@ -1361,14 +1758,14 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
 #pragma unroll
           for (int b = 0; b < 4; ++b)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
+            for (int c = 0; c < 4; ++c) acc[a][b][c] = accq[a][b][c] = 0.f;
       }
       cp_async_wait<kM - 2>();
       __syncthreads();  // this step's chunk landed; the last step's slot is free
       issue_m(it + kM - 1);
-      if (p * kCols + wn * 32 < vw) {
+      if (p * kCols + wn * 32 < wcols) {
         const float* mb = m_st + (it % kM) * kMChunk + wn * 4 * (kKC / 4) * kCore + core_lane(lane);
-        const float* xb = x_s + wm * RW * xs + kc * kKC + a_lane(lane, xs);
+        const float* xb = x_s + wm * RW * xs + x_col(kc) + a_lane(lane, xs);
         // t: the chunk's sums on the tensor cores (at 6xTF32 the small
         // terms in tc, apart)
         float t[MT][4][4], tc[MT][4][4];
@@ -1435,25 +1832,42 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
 #pragma unroll
           for (int b = 0; b < 4; ++b) {
             if constexpr (kApart) add4(t[a][b], tc[a][b]);
-            add4(acc[a][b], t[a][b]);
+            if (kDif && kc >= nkc / 2)
+              add4(accq[a][b], t[a][b]);
+            else
+              add4(acc[a][b], t[a][b]);
           }
       }
-      if (kc == nkc - 1) epi.tile(acc, r0 + wm * RW + g8, p * kCols + wn * 32 + 2 * t4);
+      if (kc == nkc - 1) {
+        const int col = p * kCols + wn * 32 + 2 * t4;
+        if constexpr (BODY == kV3) {
+          epi.tile(acc, r0 + wm * RW + g8, col, INT_MAX);
+        } else {
+          const int l0 = wm * RW + g8;
+          if constexpr (kDif) {
+            dif_combine(acc, accq, l0, col);
+            if (p * kCols + wn * 32 + l2 < vw) epi.tile(accq, win_row(l0), col + l2, win_end(l0));
+          }
+          epi.tile(acc, win_row(l0), col, win_end(l0));
+        }
+      }
     }
   }
   epi.finish(stage);
 }
 
-template <class TS, int ROWS, bool STACKED, int SPLITS, class Epi>
+template <class TS, int ROWS, bool STACKED, int SPLITS, int BODY, class Epi>
 int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
            const float* gt_re, const float* gt_im, const float* g_pad,
-           const float* m_tc, typename Epi::Out out, int b, int nbh, int nbw,
+           const float* m_tc, RadixOps rx, typename Epi::Out out, int b, int nbh, int nbw,
            int f, int n, int lh, int wc, int vh, int vw, int out_h, int out_w,
            int ktile, cudaStream_t stream) {
   const int group = STACKED ? blocks_per_cta(wc, vh, SPLITS) : 1;
   const long long smem =
       STACKED ? stacked_smem_bytes(wc, group, SPLITS) : tile_smem_bytes(ROWS, wc, SPLITS);
-  const int row_chunks = STACKED ? 1 : (vh + ROWS - 1) / ROWS;
+  const int row_chunks = STACKED           ? 1
+                         : BODY == kV3 ? (vh + ROWS - 1) / ROWS
+                                       : pair_chunks(lh, vh, ROWS) + single_chunks(lh, vh, ROWS);
   const Ring ring = STACKED ? stacked_ring<TS>(wc, group) : Ring{0, 0, 0};
   // stacked: b images x tiles of ktile kernels x block groups
   const long long grid =
@@ -1461,33 +1875,39 @@ int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
                     ((static_cast<long long>(nbh) * nbw + group - 1) / group)
               : static_cast<long long>(b) * nbh * nbw * row_chunks * n;
   if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  auto kernel = block_conv_kernel<TS, ROWS, STACKED, SPLITS, Epi>;
+  auto kernel = block_conv_kernel<TS, ROWS, STACKED, SPLITS, BODY, Epi>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(smem), stream>>>(
-      d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc, out, nbh, nbw, f, n,
+      d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc, rx, out, nbh, nbw, f, n,
       lh, wc, vh, vw, out_h, out_w, row_chunks, group, ring.channels, ring.stages, ktile);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Checks the geometry and launches the configuration for (wc, vh) at the
-// tier SPLITS on `stream`; does not synchronise. gt_re, gt_im: G^T (Lh,
-// Vh), exact; g_pad: G (2, g_rows(vh), g_cols(lh)) = re, im, exact; m_tc:
-// the m_planes(tile_rows(wc, vh, SPLITS), SPLITS) planes of M^T
-// (m_cols(vw), 2 padded_bins(wc)) in core matrices, row c holding column c
-// of [Mr ; Mi] (Mi from k = padded_bins(wc) on): its TF32 pieces, or M^T
-// exact where the configuration stages one plane; zeros wherever the
-// padding reaches. At kBF16IO G^T, G and M^T (one plane) are rounded to
-// bf16 instead of exact. `ktile` (1..n), the kernels a launch tile of the
-// stacked configuration holds, is its launch order (n: the kernel index
-// fastest); the others run the kernel index fastest. Epi is the epilogue
-// class template. Returns cudaGetLastError() after the launch (0 =
-// launched), or the error that stopped it.
-template <class TS, template <bool> class Epi, int SPLITS = 3>
+// tier SPLITS and body BODY on `stream`; does not synchronise. gt_re,
+// gt_im: G^T (Lh, Vh), exact; g_pad: G (2, g_rows(vh), g_cols(lh)) = re,
+// im, exact; m_tc: the m_planes(tile_rows(wc, vh, SPLITS), SPLITS) planes
+// of M^T (m_cols(vw), 2 padded_bins(wc)) in core matrices, row c holding
+// column c of [Mr ; Mi] (Mi from k = padded_bins(wc) on): its TF32 pieces,
+// or M^T exact where the configuration stages one plane; zeros wherever
+// the padding reaches. At kBF16IO G^T, G and M^T (one plane) are rounded
+// to bf16 instead of exact. The DIF bodies take in m_tc the planes of
+// [epr; epi; oqr; oqi]^T (m_cols(min(vw, W/2)), W) instead, and the radix
+// bodies the operands of RadixOps (v5x: slv; the others may pass null
+// there); they run only where the one-block configurations do
+// (blocks_per_cta = 1) on the plans radix_h_ok (and, DIF, radix_w_ok)
+// admit. `ktile` (1..n), the kernels a launch tile of the stacked
+// configuration holds, is its launch order (n: the kernel index fastest);
+// the others run the kernel index fastest. Epi is the epilogue class
+// template. Returns cudaGetLastError() after the launch (0 = launched), or
+// the error that stopped it (cudaErrorInvalidValue for a geometry or
+// operand it does not take).
+template <class TS, template <bool> class Epi, int SPLITS = 3, int BODY = kV3>
 int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
                       const TS* k_im, const float* gt_re, const float* gt_im,
-                      const float* g_pad, const float* m_tc,
+                      const float* g_pad, const float* m_tc, RadixOps rx,
                       typename Epi<false>::Out out, int b, int nbh, int nbw,
                       int f, int n, int lh, int wc, int vh, int vw, int out_h,
                       int out_w, int ktile, void* stream) {
@@ -1496,17 +1916,31 @@ int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
       ktile < 1 || ktile > n || smem_bytes(wc, vh, SPLITS) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (blocks_per_cta(wc, vh, SPLITS) > 1)
-    return launch<TS, 64, true, SPLITS, Epi<true>>(d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad,
-                                                   m_tc, out, b, nbh, nbw, f, n, lh, wc, vh, vw,
-                                                   out_h, out_w, ktile, s);
+  if constexpr (BODY == kV3) {
+    if (blocks_per_cta(wc, vh, SPLITS) > 1)
+      return launch<TS, 64, true, SPLITS, BODY, Epi<true>>(d_re, d_im, k_re, k_im, gt_re, gt_im,
+                                                           g_pad, m_tc, rx, out, b, nbh, nbw, f, n,
+                                                           lh, wc, vh, vw, out_h, out_w, ktile, s);
+  } else {
+    if (blocks_per_cta(wc, vh, SPLITS) > 1 || !radix_h_ok(lh, vh) || !rx.u_pad || !rx.tw ||
+        (dif_body(BODY) && !radix_w_ok(wc)) || (BODY == kV5X && !rx.slv))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (wide(wc, SPLITS))
-    return launch<TS, 32, false, SPLITS, Epi<false>>(d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad,
-                                                     m_tc, out, b, nbh, nbw, f, n, lh, wc, vh,
-                                                     vw, out_h, out_w, ktile, s);
-  return launch<TS, 64, false, SPLITS, Epi<false>>(d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad,
-                                                   m_tc, out, b, nbh, nbw, f, n, lh, wc, vh, vw,
-                                                   out_h, out_w, ktile, s);
+    return launch<TS, 32, false, SPLITS, BODY, Epi<false>>(d_re, d_im, k_re, k_im, gt_re, gt_im,
+                                                           g_pad, m_tc, rx, out, b, nbh, nbw, f, n,
+                                                           lh, wc, vh, vw, out_h, out_w, ktile, s);
+  if constexpr (dif_body(BODY) && SPLITS == 6) {
+    // The 64-row configuration takes bins up to 256 at 6xTF32, the DIF
+    // stage W = 2 (Wc - 1) a multiple of 512 (radix_w_legal): no plan
+    // reaches it, and it is not built (its P and Q tiles beside 6xTF32's
+    // apart sums would spill).
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    return launch<TS, 64, false, SPLITS, BODY, Epi<false>>(d_re, d_im, k_re, k_im, gt_re, gt_im,
+                                                           g_pad, m_tc, rx, out, b, nbh, nbw, f,
+                                                           n, lh, wc, vh, vw, out_h, out_w, ktile, s);
+  }
 }
 
 }  // namespace

@@ -49,6 +49,22 @@ flat index (the detection head's pyramid); its kernel
 (``csrc/block_conv_peaks.cu``) shares the transform stages of
 ``csrc/block_conv.cuh`` with the maps kernel, and its plain version is
 ``block_conv_peaks_reference``.
+
+Radix-2 bodies. ``radix_h``, ``radix_w`` and ``xsliver`` select the JAX
+package's other bodies of the same function, with its legality rules
+(``radix_h_legal``, ``radix_w_legal``) and its plan registry
+(``register_radix_w_plan``): v4 (``radix_h``: the H inverse of an even
+block, Lh = 2M, split into two M-point sub-transforms over the even and
+the odd spectrum rows and a twiddle combine), v5 (``radix_w``, which
+implies ``radix_h``: also the W inverse split radix-2, decimation in
+frequency — the half-length synthesis P of the even bins and the
+twiddle-folded synthesis Q of the odd bins give x[t'] = P + Q and
+x[t' + W/2] = P − Q — with the Nyquist bin added as a (−1)^t rank-1 term)
+and v5x (``xsliver``: v5 with that Nyquist term synthesised outside the
+kernel, ``_xsliver``). Their kernel entries carry the suffixes ``_r4``,
+``_r5``, ``_r5x`` (``RADIX_SUFFIX``); they run in the one-block 64- and
+32-row configurations only (``radix_fits``). ``block_conv_reference``
+follows each body's factorisation (``_radix_x``, ``_dif_tile``).
 """
 
 from __future__ import annotations
@@ -57,6 +73,7 @@ import collections
 import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -283,6 +300,310 @@ def _window_mats(block_h: int, block_w: int, kh: int, kw: int, device: str):
     )
 
 
+# ---------------------------------------------------------------------------
+# radix-2 bodies (the JAX package's v4, v5 and v5x)
+# ---------------------------------------------------------------------------
+
+# body → the suffix of its kernel entries (v3 has none)
+RADIX_SUFFIX = {"v3": "", "v4": "_r4", "v5": "_r5", "v5x": "_r5x"}
+
+
+def _pad128(x: int) -> int:
+    return -(-x // 128) * 128
+
+
+def radix_h_legal(lh: int, vh: int) -> bool:
+    """The JAX package's rule for its v4 radix-2 H stage
+    (``cuda_fft_convolution_tpu/ops/block_conv.py:239``): an even block
+    height whose half period M and window start w0 = Lh − Vh are 8-aligned,
+    the window spanning the period boundary (0 < w0 < M), and M ≤ 128."""
+    m, w0 = lh // 2, lh - vh
+    return lh % 2 == 0 and m % 8 == 0 and w0 % 8 == 0 and 0 < w0 < m and m <= 128
+
+
+def radix_w_legal(block_w: int, kw: int, vw: int) -> bool:
+    """The JAX package's rule for its v5 radix-2 DIF W stage
+    (``cuda_fft_convolution_tpu/ops/block_conv.py:1021``): W a multiple of
+    512, the halves-split boundary s1 = W/2 − (kw − 1) past the start and on
+    a 128-lane edge or past the window, and fewer DIF products than the
+    dense windowed stage's."""
+    l2 = block_w // 2
+    s1 = l2 - (kw - 1)
+    return (
+        block_w % 512 == 0
+        and vw >= 1
+        and 0 < s1
+        and (s1 % 128 == 0 or s1 >= vw)
+        and block_w * min(vw, l2) < 2 * _pad128(l2 + 1) * vw
+    )
+
+
+@functools.lru_cache(maxsize=32)
+def _radix_mats(lh: int) -> tuple[np.ndarray, np.ndarray]:
+    """The M-point sub-transform matrices U[u, j] = exp(+2πi uj/M)/Lh
+    (M = Lh/2, the inverse's 1/Lh folded), split float32 planes: a copy of
+    the JAX package's ``_radix_mats``."""
+    m = lh // 2
+    u = np.arange(m)[:, None].astype(np.float64)
+    j = np.arange(m)[None, :].astype(np.float64)
+    ph = 2.0 * np.pi * u * j / m
+    return (np.cos(ph) / lh).astype(np.float32), (np.sin(ph) / lh).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def radix_twiddle(lh: int) -> tuple[np.ndarray, np.ndarray]:
+    """The radix-2 H stage's twiddle t[v'] = exp(+iπ v'/M), v' < M = Lh/2,
+    as float32 (cos, sin), built in float64 (the JAX kernel builds the same
+    values in float32 in the kernel)."""
+    v = np.arange(lh // 2, dtype=np.float64) * np.pi / (lh // 2)
+    return np.cos(v).astype(np.float32), np.sin(v).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _dif_w_mats(block_w: int, kw: int, vw: int) -> tuple[np.ndarray, ...]:
+    """The v5 DIF W stage's half-length syntheses (epr, epi, oqr, oqi), each
+    (W/4, Tn), Tn = min(vw, W/2), over the t'-columns (kw − 1 + k) mod W/2:
+    0.5 × the W/2-point packed synthesis of the even bins (the Nyquist row
+    left out), and the twiddle-folded synthesis of the odd bins: a copy of
+    the JAX package's ``_dif_w_mats``."""
+    l2, l4 = block_w // 2, block_w // 4
+    t0 = kw - 1
+    tn = min(vw, l2)
+    tcols = (t0 + np.arange(tn)) % l2
+    mr, mi = _inv_packed_mats(l2)
+    epr = 0.5 * mr[:l4, tcols].astype(np.float64)
+    epi = 0.5 * mi[:l4, tcols].astype(np.float64)
+    v = np.arange(l4)[:, None].astype(np.float64)
+    th = 2.0 * np.pi * (2.0 * v + 1.0) * tcols[None, :] / block_w
+    oqr = (2.0 / block_w) * np.cos(th)
+    oqi = (-2.0 / block_w) * np.sin(th)
+    return tuple(x.astype(np.float32) for x in (epr, epi, oqr, oqi))
+
+
+@functools.lru_cache(maxsize=32)
+def _sliver_h_mats(lh: int, vh: int) -> tuple[np.ndarray, np.ndarray]:
+    """The windowed H synthesis of the Nyquist sliver (v5x): rows the
+    window's output rows t = w0.. Lh − 1, columns the even-then-odd
+    permuted H bins, 1/Lh folded — a copy of the JAX package's
+    ``_sliver_h_mats``."""
+    w0 = lh - vh
+    u = np.concatenate([np.arange(0, lh, 2), np.arange(1, lh, 2)]).astype(np.float64)
+    t = (w0 + np.arange(vh)).astype(np.float64)[:, None]
+    ph = 2.0 * np.pi * t * u[None, :] / lh
+    return (np.cos(ph) / lh).astype(np.float32), (np.sin(ph) / lh).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _sliver_parity_row(block_w: int, kw: int, vw: int) -> np.ndarray:
+    """(1, Tn) the Nyquist term's parity row (−1)^(kw − 1 + k) / W: a copy of
+    the JAX package's ``_sliver_parity_row``."""
+    tn = min(vw, block_w // 2)
+    k = np.arange(tn)
+    return (np.where((k + kw - 1) % 2 == 0, 1.0, -1.0) / block_w).astype(np.float32)[None, :]
+
+
+def radix_fits(wc: int, vh: int, splits: int = 3) -> bool:
+    """Whether the Hopper kernels take the radix-2 stages at packed width
+    ``wc``, window height ``vh`` and tier ``splits``: the one-block 64- or
+    32-row configuration (the radix stages stage no more than the plain
+    ones), within ``SMEM_LIMIT_BYTES``. The block-stacked configuration
+    (Vh ≤ 32 where it fits) does not: its H stage is fp32 FMAs over
+    stacked blocks, not tensor-core products."""
+    _check_splits(splits)
+    return blocks_per_cta(wc, vh, splits) == 1 and smem_bytes(wc, vh, splits) <= SMEM_LIMIT_BYTES
+
+
+def radix_chunks(lh: int, vh: int, rows: int) -> tuple[int, int]:
+    """The radix kernels' row chunks of one block in the ``rows``-row
+    configuration → (pair chunks, single chunks). The window's rows v =
+    w0 + r of x[v] = Ê[v mod M] ± t⊙Ô[v mod M] pair up where both v' and
+    v' + M lie in it (v' ∈ [w0, M)): a pair chunk takes rows/2 such v', runs
+    the two sub-transforms on them and gives 2 · rows/2 rows. The rows
+    whose partner falls outside it (v = v' + M, v' < w0, window rows
+    [M − w0, M)) run as G's rows (the same products as the sub-transforms
+    on one v'), ``rows`` a single chunk."""
+    m, w0 = lh // 2, lh - vh
+    return -(-(m - w0) // (rows // 2)), -(-w0 // rows)
+
+
+def radix_row_chunks(wc: int, lh: int, vh: int, splits: int = 3) -> int:
+    """CTAs a block takes in the radix kernels (``radix_chunks``)."""
+    return sum(radix_chunks(lh, vh, tile_rows(wc, vh, splits)))
+
+
+def _body(radix_h: bool, radix_w: bool, xsliver: bool) -> str:
+    """The body the flags select, with the JAX package's rules: ``radix_w``
+    implies ``radix_h``, ``xsliver`` is read under ``radix_w`` only."""
+    if radix_w:
+        return "v5x" if xsliver else "v5"
+    return "v4" if radix_h else "v3"
+
+
+def _check_body(body: str, block_h: int, block_w: int, kh: int, kw: int) -> None:
+    """Raise ``ValueError`` where the JAX package's block_conv_pallas
+    asserts (``cuda_fft_convolution_tpu/ops/block_conv.py:737-741,
+    773-776``): a radix body on a plan its legality rules reject."""
+    vh, vw = block_h - kh + 1, block_w - kw + 1
+    if body != "v3" and not radix_h_legal(block_h, vh):
+        raise InvalidInputError(
+            f"radix_h requires the v4 window/period alignment (block_h={block_h}, vh={vh})")
+    if body in ("v5", "v5x") and not radix_w_legal(block_w, kw, vw):
+        raise InvalidInputError(
+            f"radix_w requires the v5 W alignment (block_w={block_w}, kw={kw}, vw={vw})")
+
+
+def _check_radix_fits(body: str, wc: int, vh: int, splits: int) -> None:
+    """On CUDA tensors a radix body needs ``radix_fits``: no other
+    configuration runs it, and none is run in its place."""
+    if body != "v3" and not radix_fits(wc, vh, splits):
+        raise InvalidInputError(
+            f"the {body} body runs in the one-block configurations only; Wc={wc}, Vh={vh} at "
+            f"{tier_name(splits)} stacks {blocks_per_cta(wc, vh, splits)} blocks a CTA "
+            f"(radix_fits is False)")
+
+
+# The registered v5 plans, per head: {(block_h, block_w, kw, spec_bytes,
+# f)}; the variant per plan, True = v5x, False = v5. The port has no
+# builtin plans: the JAX package's (_BUILTIN_RADIX_W*) were measured on a
+# TPU v5e and say nothing of the H100, so a plan runs v5 here only once it
+# is registered (a plan measured on the card goes straight into these).
+_RADIX_W_TABLE: set = set()
+_RADIX_W_TABLE_PEAKS: set = set()
+_RADIX_W_XSLIVER: dict = {}
+_RADIX_W_XSLIVER_PEAKS: dict = {}
+
+
+def register_radix_w_plan(
+    block_h: int, block_w: int, kw: int, spec_bytes: int = 4, f: int = 1,
+    head: str = "conv", sliver: str = "kernel",
+) -> None:
+    """Register a plan to run the v5 body for banks of ``f`` channels at
+    spectra of ``spec_bytes`` (4 float32, 2 bfloat16), for the maps
+    (``head='conv'``) or the peaks kernel (``head='peaks'``);
+    ``sliver='xla'`` selects v5x, the default ``'kernel'`` v5 — the JAX
+    package's ``register_radix_w_plan``."""
+    key = (block_h, block_w, kw, int(spec_bytes), int(f))
+    (_RADIX_W_TABLE_PEAKS if head == "peaks" else _RADIX_W_TABLE).add(key)
+    (_RADIX_W_XSLIVER_PEAKS if head == "peaks" else _RADIX_W_XSLIVER)[key] = sliver == "xla"
+
+
+def radix_w_enabled(
+    block_h: int, block_w: int, kh: int, kw: int, spec_bytes: int = 4,
+    f: int = 1, head: str = "conv",
+) -> bool:
+    """Whether dispatch runs the v5 body for this plan: registered for the
+    head, legal under both of the JAX package's rules, and taken by the
+    Hopper kernels at the spectra's tier (``radix_fits``)."""
+    key = (block_h, block_w, kw, int(spec_bytes), int(f))
+    listed = key in (_RADIX_W_TABLE_PEAKS if head == "peaks" else _RADIX_W_TABLE)
+    vh, vw = block_h - kh + 1, block_w - kw + 1
+    splits = fused_splits(torch.bfloat16 if spec_bytes == 2 else torch.float32)
+    return (
+        listed and radix_h_legal(block_h, vh) and radix_w_legal(block_w, kw, vw)
+        and radix_fits(block_w // 2 + 1, vh, splits)
+    )
+
+
+def radix_w_xsliver(
+    block_h: int, block_w: int, kw: int, spec_bytes: int = 4, f: int = 1,
+    head: str = "conv",
+) -> bool:
+    """Whether a radix-w plan runs v5x rather than v5: the registration's
+    choice (False for a plan not registered)."""
+    key = (block_h, block_w, kw, int(spec_bytes), int(f))
+    return (_RADIX_W_XSLIVER_PEAKS if head == "peaks" else _RADIX_W_XSLIVER).get(key, False)
+
+
+def radix_dispatch(
+    block_h: int, block_w: int, kh: int, kw: int, dtype: torch.dtype, f: int,
+    splits: int, head: str = "conv",
+) -> tuple[bool, bool, bool]:
+    """The production route's flags (radix_h, radix_w, xsliver) for a plan,
+    as the JAX package's ``ops/tiled.py:366-383, 534-548`` picks them: v5
+    (or v5x) for registered plans, else v4 wherever ``radix_h_legal`` holds
+    (for the peaks head at float32 spectra only) — and here also only where
+    the Hopper kernels take it (``radix_fits``), on either device, so that
+    the CPU and the card take the same route."""
+    spec_bytes = 2 if dtype == torch.bfloat16 else 4
+    vh = block_h - kh + 1
+    use_w = radix_w_enabled(block_h, block_w, kh, kw, spec_bytes, f, head)
+    use_h = use_w or (
+        radix_h_legal(block_h, vh) and radix_fits(block_w // 2 + 1, vh, splits)
+        and not (head == "peaks" and dtype == torch.bfloat16)
+    )
+    return use_h, use_w, use_w and radix_w_xsliver(block_h, block_w, kw, spec_bytes, f, head)
+
+
+def _split_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(…, Lh, Wc) → its even and its odd spectrum rows."""
+    return x[..., 0::2, :], x[..., 1::2, :]
+
+
+def _radix_x(s_re, s_im, block_h, kh, rnd, gr, gi):
+    """The v4 H stage as the radix kernels factor it → X (…, Vh, Wc) = re,
+    im: window rows v = w0 + r whose partner v ± M also lies in the window
+    from Ê = U S_even, Ô = U S_odd and x = Ê ± t⊙Ô (fp32 combine); the rows
+    whose partner does not (window rows [M − w0, M)) from G's rows, as the
+    kernels' single chunks run them. ``rnd`` rounds the matrices as the
+    tier does (S arrives rounded); ``gr``, ``gi``: the windowed G."""
+    m, w0 = block_h // 2, block_h - (block_h - kh + 1)
+    dev, dt = s_re.device, s_re.dtype
+    ur, ui = (rnd(torch.from_numpy(x).to(dev, dt)) for x in _radix_mats(block_h))
+    twr, twi = (torch.from_numpy(x).to(dev, dt)[w0:, None] for x in radix_twiddle(block_h))
+    (er_, or_), (ei_, oi_) = _split_rows(s_re), _split_rows(s_im)
+    ur, ui = ur[w0:], ui[w0:]  # the pairs' v' ∈ [w0, M)
+    e_r, e_i = ur @ er_ - ui @ ei_, ur @ ei_ + ui @ er_
+    o_r, o_i = ur @ or_ - ui @ oi_, ur @ oi_ + ui @ or_
+    t_r, t_i = twr * o_r - twi * o_i, twr * o_i + twi * o_r
+    s_r = gr[m - w0 : m] @ s_re - gi[m - w0 : m] @ s_im
+    s_i = gr[m - w0 : m] @ s_im + gi[m - w0 : m] @ s_re
+    x_re = torch.cat([e_r + t_r, s_r, e_r - t_r], dim=-2)
+    x_im = torch.cat([e_i + t_i, s_i, e_i - t_i], dim=-2)
+    return x_re, x_im
+
+
+def _xsliver(dr, di, kr, ki, block_h, block_w, kh) -> torch.Tensor:
+    """v5x's Nyquist sliver, synthesised outside the kernel as the JAX
+    package's ``_xsliver_operands`` does it in XLA: the MAC at the Nyquist
+    bin, then the windowed H synthesis (``_sliver_h_mats``, whose columns
+    are the even-then-odd H bins) → its real part, (B, N, nbh, nbw, Vh)
+    float32. Summed in float64, so the result does not hang on the
+    device's matmul settings: 4·B·N·nbh·nbw·Lh·Vh flop for the synthesis
+    (about 1.3 GFLOP for the 2048² image and 100 kernels at (256, 512, 65,
+    129)) and 8·B·N·nbh·nbw·F·Lh for the MAC, on the device, inside every
+    v5x call and so inside its times."""
+    l2, vh = block_w // 2, block_h - kh + 1
+    perm = torch.cat([torch.arange(0, block_h, 2), torch.arange(1, block_h, 2)]).to(dr.device)
+    dn_r, dn_i = (x[..., l2].double()[..., perm] for x in (dr, di))  # (B, nbh, nbw, F, Lh)
+    kn_r, kn_i = (x[..., l2].double()[..., perm] for x in (kr, ki))  # (N, F, Lh)
+
+    def mac(d, k):
+        return torch.einsum("bhwfu,nfu->bnhwu", d, k)
+
+    pr = mac(dn_r, kn_r) - mac(dn_i, kn_i)
+    pi = mac(dn_r, kn_i) + mac(dn_i, kn_r)
+    cn, sn = (torch.from_numpy(x).to(dr.device, torch.float64) for x in _sliver_h_mats(block_h, vh))
+    return (pr @ cn.t() - pi @ sn.t()).float()
+
+
+def _dif_tile(x_re, x_im, nyq, block_w, kw, rnd):
+    """The v5 DIF W stage → tile (…, Vh, Vw): P = the even bins' half
+    synthesis plus the Nyquist term nyq ⊗ (−1)^t / W, Q = the odd bins'
+    twiddled synthesis (``_dif_w_mats``, rounded by ``rnd`` as the tier
+    does; ``x_re``, ``x_im`` arrive rounded), then output column c takes
+    P ± Q at t'-column c mod W/2: + where kw − 1 + c < W/2."""
+    l2 = block_w // 2
+    vw, t0 = block_w - kw + 1, kw - 1
+    dev, dt = x_re.device, x_re.dtype
+    epr, epi, oqr, oqi = (rnd(torch.from_numpy(x).to(dev, dt)) for x in _dif_w_mats(block_w, kw, vw))
+    par = torch.from_numpy(_sliver_parity_row(block_w, kw, vw)).to(dev, dt)
+    p = x_re[..., 0:l2:2] @ epr + x_im[..., 0:l2:2] @ epi + nyq[..., None] * par
+    q = x_re[..., 1:l2:2] @ oqr + x_im[..., 1:l2:2] @ oqi
+    tn = p.shape[-1]
+    sign = torch.where(t0 + torch.arange(tn, device=dev) < l2, 1.0, -1.0).to(dt)
+    return torch.cat([p + sign * q, (p - q)[..., : vw - tn]], dim=-1)
+
+
 def upcast(t: torch.Tensor) -> torch.Tensor:
     """bf16 planes as float32 (exact); any other tensor as it is."""
     return t.float() if t.dtype == torch.bfloat16 else t
@@ -308,6 +629,7 @@ def block_conv_reference(
     block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
     out_dtype: torch.dtype = torch.float32,
     splits: int | None = None,
+    radix_h: bool = False, radix_w: bool = False, xsliver: bool = False,
 ) -> torch.Tensor:
     """Plain torch version of the fused kernel at synthesis tier ``splits``
     (None: ``fused_splits`` of the spectra's dtype) → (B, N, out_h, out_w)
@@ -316,13 +638,25 @@ def block_conv_reference(
     right before each product (exact products, fp32 sums, the kernels'
     4-product complex form). float64 planes run in float64, with
     ``out_dtype=torch.float64`` for float64 maps (the checks' exact
-    reference). Differentiable; used on the CPU and by the tests."""
+    reference). Differentiable; used on the CPU and by the tests.
+
+    ``radix_h``, ``radix_w``, ``xsliver`` select the body (``_body``; an
+    illegal plan raises ``ValueError``), computed in its factorisation as
+    the radix kernels run it: ``_radix_x`` (U, the twiddle and the radix
+    G rows rounded at ``BF16IO`` as S and X are), ``_dif_tile`` (its
+    matrices rounded there too; v5's Nyquist term from X's Nyquist bin in
+    fp32, v5x's from ``_xsliver``, rounded to bf16 at ``BF16IO`` as the
+    kernel rounds that operand)."""
     if out_dtype != torch.float64:
         _check_out_dtype(out_dtype)
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
-    rnd = bf16_round if _resolve_splits(splits, dr.dtype) == BF16IO else (lambda x: x)
+    body = _body(radix_h, radix_w, xsliver)
+    _check_body(body, block_h, block_w, kh, kw)
+    io = _resolve_splits(splits, dr.dtype) == BF16IO
+    rnd = bf16_round if io else (lambda x: x)
+    slv = _xsliver(dr, di, kr, ki, block_h, block_w, kh) if body == "v5x" else None
     dr, di, kr, ki = (upcast(t) for t in (dr, di, kr, ki))
     gr, gi, mr, mi = (
         rnd(m.to(dr.dtype))
@@ -334,9 +668,16 @@ def block_conv_reference(
 
     s_re = rnd(mac(dr, kr) - mac(di, ki))  # (B, nbh, nbw, N, Lh, Wc)
     s_im = rnd(mac(di, kr) + mac(dr, ki))
-    x_re = rnd(gr @ s_re - gi @ s_im)  # (B, nbh, nbw, N, Vh, Wc)
-    x_im = rnd(gr @ s_im + gi @ s_re)
-    tile = x_re @ mr + x_im @ mi  # (B, nbh, nbw, N, Vh, Vw)
+    if body == "v3":
+        x_re = gr @ s_re - gi @ s_im  # (B, nbh, nbw, N, Vh, Wc)
+        x_im = gr @ s_im + gi @ s_re
+    else:
+        x_re, x_im = _radix_x(s_re, s_im, block_h, kh, rnd, gr, gi)
+    if body in ("v3", "v4"):
+        tile = rnd(x_re) @ mr + rnd(x_im) @ mi  # (B, nbh, nbw, N, Vh, Vw)
+    else:
+        nyq = x_re[..., block_w // 2] if slv is None else rnd(slv.to(x_re.dtype)).permute(0, 2, 3, 1, 4)
+        tile = _dif_tile(rnd(x_re), rnd(x_im), nyq, block_w, kw, rnd)
     maps = tile.permute(0, 3, 1, 4, 2, 5).reshape(b, n, nbh * vh, nbw * vw)
     return maps[:, :, :out_h, :out_w].contiguous().to(out_dtype)
 
@@ -413,41 +754,51 @@ def block_conv(
     block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
     out_dtype: torch.dtype = torch.float32,
     splits: int | None = None,
+    radix_h: bool = False, radix_w: bool = False, xsliver: bool = False,
 ) -> torch.Tensor:
     """→ (B, N, out_h, out_w) maps in ``out_dtype``. CPU tensors run
     ``block_conv_reference`` at the tier; CUDA tensors launch the CUDA
-    kernel entry of their (spectra, maps) dtypes and synthesis tier
-    ``splits`` (None: ``fused_splits``, read from the config) on the
-    current stream (no synchronisation) and count the launch in
+    kernel entry of their (spectra, maps) dtypes, synthesis tier ``splits``
+    (None: ``fused_splits``, read from the config) and body (``radix_h``,
+    ``radix_w``, ``xsliver``: the JAX package's flags and rules, ``_body``)
+    on the current stream (no synchronisation) and count the launch in
     ``block_conv.launches``, per mode (the entry's name without
     ``fftconv_``: ``block_conv_f32``, ``block_conv_f32_x6``,
-    ``block_conv_bf16_io``, …) in ``block_conv.launches_by_mode`` and per
-    (mode, block_h, block_w, kh, kw) in ``block_conv.launches_by_shape``."""
+    ``block_conv_bf16_io``, ``block_conv_f32_r5``, …) in
+    ``block_conv.launches_by_mode`` and per (mode, block_h, block_w, kh,
+    kw) in ``block_conv.launches_by_shape``. A radix body on a plan the
+    JAX package's rules reject raises ``ValueError`` on either device; on
+    CUDA tensors also where ``radix_fits`` is False."""
     _check_out_dtype(out_dtype)
     ops = (dr, di, kr, ki)
     splits = _resolve_splits(splits, dr.dtype)
     if all(t.device.type == "cpu" for t in ops):
         return block_conv_reference(
-            dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, out_dtype, splits
+            dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, out_dtype, splits,
+            radix_h, radix_w, xsliver,
         )
+    body = _body(radix_h, radix_w, xsliver)
+    _check_body(body, block_h, block_w, kh, kw)
     dev, tag = cuda_operands("block_conv", ops)
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
     _check_smem(block_w, wc, vh, splits)
+    _check_radix_fits(body, wc, vh, splits)
     from cuda_fft_convolution_torch._build import library
 
-    lib = library()
+    lib = library(radix=body != "v3")
     gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev), splits)
-    mode = f"block_conv_{tag}{_MAPS_SUFFIX[out_dtype]}{TIER_SUFFIX[splits]}"
+    mode = f"block_conv_{tag}{_MAPS_SUFFIX[out_dtype]}{TIER_SUFFIX[splits]}{RADIX_SUFFIX[body]}"
     ktile = kernel_tile(wc, vh, kr, splits)
     out = torch.empty((b, n, out_h, out_w), dtype=out_dtype, device=dev)
+    m_tc, radix = _radix_args(ops, block_h, block_w, kh, kw, str(dev), splits, body, m_tc)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"fftconv_{mode}")(
             dr.data_ptr(), di.data_ptr(), kr.data_ptr(), ki.data_ptr(),
             gt_re.data_ptr(), gt_im.data_ptr(), g_pad.data_ptr(), m_tc.data_ptr(),
-            out.data_ptr(),
+            *_ptrs(radix), out.data_ptr(),
             b, nbh, nbw, f, n, lh, wc, vh, vw, out_h, out_w, ktile, stream,
         )
     if err != 0:
@@ -534,11 +885,62 @@ def _kernel_mats(
     cols = -(-vw // _COLS) * _COLS
     m_t = torch.zeros((cols, 2 * bins), device=device)
     m_t[:vw, :wc], m_t[:vw, bins : bins + wc] = mr.t(), mi.t()
-    rows = tile_rows(wc, block_h - kh + 1, splits)
+    m_tc = _core_matrices(m_t, tile_rows(wc, block_h - kh + 1, splits), splits)
+    return gr.t().contiguous(), gi.t().contiguous(), g_pad, m_tc
+
+
+def _core_matrices(m_t: torch.Tensor, rows: int, splits: int) -> torch.Tensor:
+    """The W stage's B operand (cols, K) as the planes the ``rows``-row
+    configuration streams at the tier (``m_planes``), in core matrices:
+    [plane][c // 8][k // 4][c % 8][k % 4]."""
+    cols, k = m_t.shape
     pieces = m_planes(rows, splits)
     planes = torch.stack([m_t] if pieces < TIERS[splits] else tf32_split(m_t, pieces))
-    m_tc = planes.reshape(pieces, cols // 8, 8, bins // 2, 4).permute(0, 1, 3, 2, 4).contiguous()
-    return gr.t().contiguous(), gi.t().contiguous(), g_pad, m_tc
+    return planes.reshape(pieces, cols // 8, 8, k // 4, 4).permute(0, 1, 3, 2, 4).contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def _radix_kernel_mats(
+    block_h: int, block_w: int, kh: int, kw: int, device: str, splits: int, body: str
+):
+    """The radix kernels' matrix operands at tier ``splits``
+    (csrc/block_conv.cuh RadixOps) → (u_pad, tw, m_dif): U (2, M padded to
+    64, M padded to 16) = re, im, the sub-transforms (the radix G rows'
+    twins: exact, or rounded to bf16 at ``BF16IO``); the twiddle (2, M) =
+    cos, sin, float32 at every tier; and for v5/v5x the DIF W stage's B
+    operand — row c of (Tn padded to 128, W) holding [epr; epi; oqr; oqi]
+    at t'-column c, as ``_core_matrices`` (v4's W stage takes
+    ``_kernel_mats``' M^T: None)."""
+    rnd = bf16_round if splits == BF16IO else (lambda x: x)
+    m, vh, vw = block_h // 2, block_h - kh + 1, block_w - kw + 1
+    ur, ui = (rnd(torch.from_numpy(x).to(device)) for x in _radix_mats(block_h))
+    u_pad = torch.zeros((2, -(-m // 64) * 64, -(-m // _UK) * _UK), device=device)
+    u_pad[0, :m, :m], u_pad[1, :m, :m] = ur, ui
+    tw = torch.from_numpy(np.stack(radix_twiddle(block_h))).to(device)
+    if body == "v4":
+        return u_pad, tw, None
+    mats = [rnd(torch.from_numpy(x).to(device)) for x in _dif_w_mats(block_w, kw, vw)]
+    tn = mats[0].shape[1]
+    m_t = torch.zeros((-(-tn // _COLS) * _COLS, block_w), device=device)
+    m_t[:tn] = torch.cat(mats).t()
+    return u_pad, tw, _core_matrices(m_t, tile_rows(block_w // 2 + 1, vh, splits), splits)
+
+
+def _radix_args(ops, block_h, block_w, kh, kw, device, splits, body, m_tc):
+    """A launch's W-stage operand and the radix entries' extra pointers →
+    (m_tc, (u_pad, tw, slv)): v5/v5x take the DIF operand in place of
+    ``m_tc``; slv is v5x's sliver (B, N, nbh, nbw, Vh) from ``_xsliver``, a
+    null pointer for v4 and v5; v3 entries take no extra pointers."""
+    if body == "v3":
+        return m_tc, ()
+    u_pad, tw, m_dif = _radix_kernel_mats(block_h, block_w, kh, kw, device, splits, body)
+    slv = _xsliver(*ops, block_h, block_w, kh).contiguous() if body == "v5x" else None
+    return (m_tc if m_dif is None else m_dif), (u_pad, tw, slv)
+
+
+def _ptrs(tensors) -> tuple:
+    """Device pointers of ``tensors`` (None: a null pointer)."""
+    return tuple(0 if t is None else t.data_ptr() for t in tensors)
 
 
 def _check_index_range(nbh: int, nbw: int, vh: int, vw: int, out_w: int) -> None:
@@ -627,14 +1029,18 @@ def block_conv_peaks_reference(
     kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32/bf16
     block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
     splits: int | None = None, mbh: int | None = None, mbw: int | None = None,
+    radix_h: bool | None = None, radix_w: bool = False, xsliver: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of the peaks kernel: ``block_conv_reference`` at
-    tier ``splits`` (f32 maps, bf16 planes upcast), then ``cell_peaks``
-    over one-block cells and ``group_cells`` over cells of ``mbh × mbw``
-    blocks → (vals f32, idxs int32), each (B, N, ceil(nbh / mbh),
-    ceil(nbw / mbw))."""
+    tier ``splits`` and the body the flags select (``radix_h=None``: as
+    ``block_conv_peaks`` resolves it) (f32 maps, bf16 planes upcast), then
+    ``cell_peaks`` over one-block cells and ``group_cells`` over cells of
+    ``mbh × mbw`` blocks → (vals f32, idxs int32), each (B, N, ceil(nbh /
+    mbh), ceil(nbw / mbw))."""
+    radix_h = _peaks_radix_h(radix_h, radix_w, dr, block_h, block_w, kh, splits)
     maps = block_conv_reference(
-        dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, splits=splits
+        dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, splits=splits,
+        radix_h=radix_h, radix_w=radix_w, xsliver=xsliver,
     )
     vals, idxs = cell_peaks(
         maps, dr.shape[1], dr.shape[2], block_h - kh + 1, block_w - kw + 1
@@ -642,11 +1048,36 @@ def block_conv_peaks_reference(
     return group_cells(vals, idxs, mbh, mbw)
 
 
+def _peaks_radix_h(radix_h, radix_w, dr, block_h, block_w, kh, splits) -> bool:
+    """The peaks kernel's ``radix_h``: as given, True under ``radix_w``,
+    and for None the JAX package's auto rule — v4 at float32 spectra where
+    ``radix_h_legal`` holds — where the Hopper kernels take it
+    (``radix_fits`` at the call's tier), on either device."""
+    if radix_w:
+        return True
+    if radix_h is not None:
+        return radix_h
+    vh = block_h - kh + 1
+    return (
+        dr.dtype != torch.bfloat16 and radix_h_legal(block_h, vh)
+        and radix_fits(block_w // 2 + 1, vh, _resolve_splits(splits, dr.dtype))
+    )
+
+
+def _best_chunk(vals: torch.Tensor, idxs: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Reduce (value, flat index) pairs over ``dim`` by the peaks rule: the
+    larger value wins, then the smaller index."""
+    best = vals.amax(dim=dim, keepdim=True)
+    at = torch.where(vals == best, idxs, torch.iinfo(torch.int32).max).amin(dim=dim)
+    return best.squeeze(dim), at
+
+
 def block_conv_peaks(
     dr: torch.Tensor, di: torch.Tensor,  # (B, nbh, nbw, F, Lh, Wc) f32/bf16
     kr: torch.Tensor, ki: torch.Tensor,  # (N, F, Lh, Wc) f32/bf16
     block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
     splits: int | None = None, mbh: int | None = None, mbw: int | None = None,
+    radix_h: bool | None = None, radix_w: bool = False, xsliver: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The per-cell max pyramid of the fused block conv, with no maps
     written → ``(vals, idxs)``, each (B, N, ceil(nbh / mbh), ceil(nbw /
@@ -657,51 +1088,62 @@ def block_conv_peaks(
     (``group_cells``); positions past (out_h, out_w) never win. The values
     are float32 and the indices int32 at either spectra dtype.
 
-    This is the JAX package's ``block_conv_peaks_pallas(..., mbh, mbw)``.
-    ``mbh = mbw = None`` (or 1) is one cell per block: the JAX package
-    picks its groups by a model of TPU VMEM (``_choose_group``,
-    ``lookup_fused_group``), which Hopper does not have; reducing the
-    pyramid over cells gives the exact per-kernel top-1 at any grouping.
+    This is the JAX package's ``block_conv_peaks_pallas(..., mbh, mbw,
+    radix_h, radix_w, xsliver)``. ``mbh = mbw = None`` (or 1) is one cell
+    per block: the JAX package picks its groups by a model of TPU VMEM
+    (``_choose_group``, ``lookup_fused_group``), which Hopper does not
+    have; reducing the pyramid over cells gives the exact per-kernel top-1
+    at any grouping. ``radix_h=None`` runs v4 where the JAX package's auto
+    rule does and the Hopper kernels take it (``_peaks_radix_h``); an
+    explicit radix flag on a plan JAX rejects raises ``ValueError``, and on
+    CUDA tensors also where ``radix_fits`` is False.
 
     CPU tensors run ``block_conv_peaks_reference``; CUDA tensors launch the
-    CUDA kernel entry of their spectra dtype and synthesis tier ``splits``
-    (None: ``fused_splits``) on the current stream and count the launch in
-    ``block_conv_peaks.launches`` and, per mode, in
+    CUDA kernel entry of their spectra dtype, synthesis tier ``splits``
+    (None: ``fused_splits``) and body on the current stream and count the
+    launch in ``block_conv_peaks.launches`` and, per mode, in
     ``block_conv_peaks.launches_by_mode``. A CTA holds one block (or a
-    stack of blocks), so the kernel writes one pair per (block, row chunk
-    of ``tile_rows`` window rows; ``row_chunks``); a block split into
-    several row chunks is combined here (first maximum over chunks: chunk
-    r's rows all precede chunk r+1's, so that keeps the tie rule), and the
-    blocks into cells by ``group_cells``."""
+    stack of blocks), so the kernel writes one pair per (block, row chunk:
+    ``row_chunks``, or ``radix_row_chunks`` for a radix body); a block split
+    into several row chunks is combined here (``_best_chunk``: a radix
+    body's chunks hold rows from both halves of the window, so the rule is
+    applied by index, not by chunk order), and the blocks into cells by
+    ``group_cells``."""
     ops = (dr, di, kr, ki)
     splits = _resolve_splits(splits, dr.dtype)
     _check_group(mbh, mbw)
+    radix_h = _peaks_radix_h(radix_h, radix_w, dr, block_h, block_w, kh, splits)
     if all(t.device.type == "cpu" for t in ops):
         return block_conv_peaks_reference(
-            dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, splits, mbh, mbw
+            dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, splits, mbh, mbw,
+            radix_h, radix_w, xsliver,
         )
+    body = _body(radix_h, radix_w, xsliver)
+    _check_body(body, block_h, block_w, kh, kw)
     dev, tag = cuda_operands("block_conv_peaks", ops)
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
     _check_smem(block_w, wc, vh, splits)
+    _check_radix_fits(body, wc, vh, splits)
     _check_index_range(nbh, nbw, vh, vw, out_w)
     from cuda_fft_convolution_torch._build import library
 
-    lib = library()
+    lib = library(radix=body != "v3")
     gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev), splits)
-    chunks = row_chunks(wc, vh, splits)
+    m_tc, radix = _radix_args(ops, block_h, block_w, kh, kw, str(dev), splits, body, m_tc)
+    chunks = row_chunks(wc, vh, splits) if body == "v3" else radix_row_chunks(wc, lh, vh, splits)
     ktile = kernel_tile(wc, vh, kr, splits)
     shape = (b, n, nbh, chunks, nbw)
     vals = torch.empty(shape, dtype=torch.float32, device=dev)
     idxs = torch.empty(shape, dtype=torch.int32, device=dev)
-    mode = f"block_conv_peaks_{tag}{TIER_SUFFIX[splits]}"
+    mode = f"block_conv_peaks_{tag}{TIER_SUFFIX[splits]}{RADIX_SUFFIX[body]}"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"fftconv_{mode}")(
             dr.data_ptr(), di.data_ptr(), kr.data_ptr(), ki.data_ptr(),
             gt_re.data_ptr(), gt_im.data_ptr(), g_pad.data_ptr(), m_tc.data_ptr(),
-            vals.data_ptr(), idxs.data_ptr(),
+            *_ptrs(radix), vals.data_ptr(), idxs.data_ptr(),
             b, nbh, nbw, f, n, lh, wc, vh, vw, out_h, out_w, ktile, stream,
         )
     if err != 0:
@@ -709,13 +1151,14 @@ def block_conv_peaks(
             f"block_conv_peaks CUDA kernel launch failed: cudaError {err}"
         )
     count_launch(block_conv_peaks, mode)
+    block_conv_peaks.launches_by_shape[(mode, block_h, block_w, kh, kw)] += 1
     if chunks == 1:
         vals, idxs = vals[:, :, :, 0], idxs[:, :, :, 0]
     else:
-        best = vals.argmax(dim=3, keepdim=True)
-        vals, idxs = vals.gather(3, best)[:, :, :, 0], idxs.gather(3, best)[:, :, :, 0]
+        vals, idxs = _best_chunk(vals, idxs, 3)
     return group_cells(vals, idxs, mbh, mbw)
 
 
 block_conv_peaks.launches = 0
 block_conv_peaks.launches_by_mode = collections.Counter()
+block_conv_peaks.launches_by_shape = collections.Counter()

@@ -36,6 +36,7 @@ from cuda_fft_convolution_torch.ops.block_conv import (
     block_conv,
     block_conv_peaks,
     fused_splits,
+    radix_dispatch,
     smem_bytes,
 )
 from cuda_fft_convolution_torch.ops.conv import (
@@ -271,6 +272,12 @@ def _conv_blocks_unfused(
     return out[:, :, :out_h, :out_w]
 
 
+def _flags(radix: tuple[bool, bool, bool]) -> dict:
+    """``radix_dispatch``'s (radix_h, radix_w, xsliver) as the wrappers'
+    keywords; none for v3, whose call stays the wrappers' default."""
+    return dict(zip(("radix_h", "radix_w", "xsliver"), radix)) if any(radix) else {}
+
+
 class _FusedBlockConv(torch.autograd.Function):
     """Forward: the fused kernel. Backward: the unfused pipeline's autograd
     (the forward is bilinear in the spectra planes, and both engines compute
@@ -281,11 +288,11 @@ class _FusedBlockConv(torch.autograd.Function):
     forward rounded, as JAX's cast transpose does."""
 
     @staticmethod
-    def forward(ctx, d_re, d_im, k_re, k_im, geom, out_dtype, splits):
+    def forward(ctx, d_re, d_im, k_re, k_im, geom, out_dtype, splits, radix):
         ctx.save_for_backward(d_re, d_im, k_re, k_im)
         ctx.geom = geom
         ctx.out_dtype = out_dtype
-        return block_conv(d_re, d_im, k_re, k_im, *geom, out_dtype, splits)
+        return block_conv(d_re, d_im, k_re, k_im, *geom, out_dtype, splits, **_flags(radix))
 
     @staticmethod
     def backward(ctx, g):
@@ -297,6 +304,7 @@ class _FusedBlockConv(torch.autograd.Function):
             grads = iter(torch.autograd.grad(out, wanted, g, create_graph=create_graph))
         return (
             *(next(grads) if need else None for need in ctx.needs_input_grad[:4]),
+            None,
             None,
             None,
             None,
@@ -318,11 +326,16 @@ def fused_block_conv(
     splits: int | None = None,
 ) -> torch.Tensor:
     """The fused block-conv made differentiable: forward through
-    ``block_conv`` at synthesis tier ``splits`` (None: ``fused_splits``),
+    ``block_conv`` at synthesis tier ``splits`` (None: ``fused_splits``) and
+    the body ``radix_dispatch`` picks for the plan (the JAX package's
+    ``fused_block_conv``: v5 or v5x for a registered plan, else v4 where
+    ``radix_h_legal`` holds and the Hopper kernels take it, else v3),
     backward through ``_conv_blocks_unfused``."""
+    splits = fused_splits(d_re.dtype) if splits is None else splits
+    radix = radix_dispatch(block_h, block_w, kh, kw, d_re.dtype, d_re.shape[3], splits)
     return _FusedBlockConv.apply(
         d_re, d_im, k_re, k_im, (block_h, block_w, kh, kw, out_h, out_w),
-        out_dtype, splits,
+        out_dtype, splits, radix,
     )
 
 
@@ -443,9 +456,14 @@ def _cell_pyramid(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The peaks kernel's pyramid at synthesis tier ``splits`` flattened
     over cells → (vals, idxs), each (B, N, nbh·nbw) in row-major cell
-    order."""
+    order; the body is ``radix_dispatch``'s for the peaks head (the JAX
+    package's ``ops/tiled.py:534-548, 664-678``)."""
+    radix = radix_dispatch(
+        block_h, block_w, kh, kw, d_re.dtype, d_re.shape[3], splits, head="peaks"
+    )
     vals, idxs = block_conv_peaks(
-        d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w, splits
+        d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w, splits,
+        **_flags(radix),
     )
     b, n = vals.shape[:2]
     return vals.reshape(b, n, -1), idxs.reshape(b, n, -1)

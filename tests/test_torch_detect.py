@@ -137,6 +137,30 @@ def test_block_conv_peaks_reference_matches_jax_v5(rng, xsliver):
     assert np.array_equal(got_i.numpy(), want_i)
 
 
+RADIX_BODIES = {"v4": dict(radix_h=True), "v5": dict(radix_w=True),
+                "v5x": dict(radix_w=True, xsliver=True)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("body", list(RADIX_BODIES))
+@pytest.mark.parametrize("geom", [(32, 512, 9, 129, 40, 500), (256, 512, 65, 129, 300, 500)],
+                         ids=["radix_geom", "jax_plan"])
+def test_radix_peaks_plain_matches_jax(rng, geom, body, dtype):
+    """Each radix body's peaks plain version (the wrapper on CPU tensors,
+    explicit flags) against ``block_conv_peaks_pallas`` with the same
+    flags, N=2: values within 1e-5 at float32 and the bf16 tier's 2e-2 at
+    bf16 spectra (BF16IO on both sides); indices equal."""
+    ops = _operands(rng, 1, 1, 2, *geom)
+    jops = [np.asarray(jnp.asarray(x).astype(dtype)) for x in ops]
+    want_v, want_i = _jax_pyramid(jops, geom, **RADIX_BODIES[body])
+    tops = [torch.as_tensor(x).to(getattr(torch, dtype)) for x in ops]
+    got_v, got_i = tbc.block_conv_peaks(*tops, *geom, **RADIX_BODIES[body])
+    assert got_v.dtype == torch.float32 and got_i.dtype == torch.int32
+    assert tuple(got_v.shape) == want_v.shape
+    assert _rel(got_v.numpy(), want_v) <= (TOL if dtype == "float32" else 2e-2)
+    assert np.array_equal(got_i.numpy(), want_i)
+
+
 def test_cell_peaks_tie_rule():
     """Equal values: the smallest flat index wins inside a cell; positions
     past the maps never win."""

@@ -3,6 +3,7 @@ errors, zero padding, the windowed inverse-DFT matrices, the torch.fft
 transforms and the spectral MAC; plus the package's import contract (no
 jax, no nvcc, no CUDA needed)."""
 
+import ctypes
 import os
 import subprocess
 import sys
@@ -223,25 +224,35 @@ def test_port_imports_with_jax_blocked():
 
 def test_build_library_named_by_source_hash(tmp_path):
     """The library lands in build/ under a name hashed from the sources, so
-    an edited source never loads a stale build."""
+    an edited source never loads a stale build. The radix bodies' sources
+    make a library of their own, under its own name."""
     from cuda_fft_convolution_torch import _build
 
     sources = _build._sources()
+    headers = ["block_conv.cuh", "block_conv_maps.cuh", "block_conv_peaks.cuh"]
     assert [s.name for s in sources] == [
-        "block_conv.cu", "block_conv.cuh", "block_conv_peaks.cu", "spectral_mac.cu",
+        "block_conv.cu", *headers[:2], "block_conv_peaks.cu", headers[2], "spectral_mac.cu",
+    ]
+    radix_sources = _build._sources(radix=True)
+    assert [s.name for s in radix_sources] == [
+        *headers, "block_conv_r4.cu", "block_conv_r5.cu", "block_conv_r5x.cu",
     ]
     path = _build._library_path(sources)
-    assert path.parent == _build.BUILD_DIR
+    radix_path = _build._library_path(radix_sources)
+    assert path.parent == radix_path.parent == _build.BUILD_DIR
     assert path.name.startswith("libfftconv_torch_") and path.suffix == ".so"
+    assert radix_path.name.startswith("libfftconv_torch_radix_") and radix_path.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    # an edited header renames the library as an edited source does
+    # an edited header renames both libraries as an edited source does
     edited = tmp_path / "block_conv.cuh"
     edited.write_bytes(sources[1].read_bytes() + b"\n")
     assert _build._library_path([sources[0], edited, *sources[2:]]) != path
+    assert _build._library_path([edited, *radix_sources[1:]]) != radix_path
     # every C entry point the wrappers call has a signature: one per kernel
-    # dtype mode and synthesis tier, and the configuration model's three
-    # queries (packed width, window height, tier)
-    assert set(_build._SIGNATURES) == {
+    # dtype mode, synthesis tier and body (the radix bodies' entries, in
+    # the radix library, take three more pointers), and the configuration
+    # model's three queries (packed width, window height, tier)
+    v3 = {
         "fftconv_block_conv_f32", "fftconv_block_conv_f32_bf16maps",
         "fftconv_block_conv_bf16", "fftconv_block_conv_bf16_bf16maps",
         "fftconv_block_conv_f32_x6", "fftconv_block_conv_f32_bf16maps_x6",
@@ -254,5 +265,15 @@ def test_build_library_named_by_source_hash(tmp_path):
         "fftconv_block_conv_peaks_bf16_io",
         "fftconv_spectral_mac_f32", "fftconv_spectral_mac_bf16",
     }
+    kernels = {n for n in v3 if n.startswith("fftconv_block_conv") and n.count("_") > 2
+               and not n.endswith(("smem_bytes", "rows", "blocks"))}
+    assert len(kernels) == 15
+    radix = {f"{n}{body}" for n in kernels for body in ("_r4", "_r5", "_r5x")}
+    assert set(_build._SIGNATURES) == v3
+    assert set(_build._RADIX_SIGNATURES) == radix
+    for name in radix:
+        v3_args = _build._SIGNATURES[name.rsplit("_", 1)[0]][0]
+        assert _build._RADIX_SIGNATURES[name][0] == (
+            v3_args[:8] + [ctypes.c_void_p] * 3 + v3_args[8:])
     for query in ("smem_bytes", "rows", "blocks"):
         assert len(_build._SIGNATURES[f"fftconv_block_conv_f32_{query}"][0]) == 3

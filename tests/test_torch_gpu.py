@@ -170,7 +170,7 @@ def test_block_conv_tiers_match_plain_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_
     ops = _planes(rng, cuda, b, f, n, *geom)
     want = tbc.block_conv_reference(*ops, *geom)
     want64 = tbc.block_conv_reference(*(x.double() for x in ops), *geom, torch.float64)
-    want_v, want_i = tbc.block_conv_peaks_reference(*ops, *geom)
+    want_v, want_i = tbc.block_conv_peaks_reference(*ops, *geom, radix_h=False)
     for splits, tier, tol in ((6, "_x6", TOL), (1, "_x1", ONE_PASS_TOL)):
         for out_dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16maps")):
             mode = f"block_conv_f32{suffix}{tier}"
@@ -185,7 +185,7 @@ def test_block_conv_tiers_match_plain_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_
                 assert _rel(got.double(), want64) <= X6_TOL
         mode = f"block_conv_peaks_f32{tier}"
         before = tbc.block_conv_peaks.launches_by_mode[mode]
-        got_v, got_i = tbc.block_conv_peaks(*ops, *geom, splits)
+        got_v, got_i = tbc.block_conv_peaks(*ops, *geom, splits, radix_h=False)
         torch.cuda.synchronize()
         assert tbc.block_conv_peaks.launches_by_mode[mode] == before + 1
         assert _rel(got_v, want_v) <= tol
@@ -1090,3 +1090,130 @@ def test_train_step_sharded_on_gpu(nccl_mesh):
     assert counts == {"spectral_mac_f32": 2}
     assert abs(float(got) - float(want)) <= 1e-6 * abs(float(want))
     assert _rel(b.kernels.detach(), a.kernels.detach()) <= TOL
+
+
+# The radix-2 bodies (JAX's v4, v5, v5x; ops/block_conv.py radix_h_legal,
+# radix_w_legal): JAX's fp32 and bf16 F=1 plan (256, 512, 65, 129) in the
+# 64-row configuration, its 32² plan (128, 512, 33, 129), Wc = 513 (32 rows),
+# a window start that leaves a partial pair chunk and a partial single
+# chunk (Vh 200: M − w0 = 72 pairs, 56 single rows), and a v4-only plan
+# (Wc = 301, M = 40; W odd, so no DIF).
+RADIX_GEOMETRIES = [
+    (1, 1, 3, 256, 512, 65, 129, 400, 800),
+    (1, 2, 3, 128, 512, 33, 129, 200, 800),
+    (1, 1, 2, 256, 1024, 65, 129, 400, 1800),
+    (2, 1, 2, 256, 512, 57, 129, 450, 700),
+    (1, 2, 3, 80, 601, 17, 50, 200, 1100),
+]
+RADIX_BODIES = {"v4": dict(radix_h=True), "v5": dict(radix_w=True),
+                "v5x": dict(radix_w=True, xsliver=True)}
+
+
+def _radix_bodies(geom):
+    bh, bw, kh, kw = geom[:4]
+    legal_w = tbc.radix_w_legal(bw, kw, bw - kw + 1)
+    return [b for b in RADIX_BODIES if b == "v4" or legal_w]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", RADIX_GEOMETRIES)
+def test_radix_entries_match_plain_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
+    """Every radix entry (maps at f32 and bf16 maps, peaks) at every tier
+    (3×, 6× and 1×TF32 on f32 spectra; BF16IO and the explicit 3×TF32 on
+    bf16 spectra) against its plain version with the same flags: TOL (6×TF32
+    also within X6_TOL of the plain version run in float64), ONE_PASS_TOL,
+    IO_TOL and IO_RMS_TOL, BF16_OUT_TOL for bf16 maps; peak values within
+    the bar and indices equal but in near ties of the bar, where the
+    kernel's position holds a plain value that close. Each call counts one
+    launch on its own mode."""
+    rng = np.random.default_rng(37)
+    geom = (bh, bw, kh, kw, out_h, out_w)
+    ops = _planes(rng, cuda, b, f, n, *geom)
+    ops16 = tuple(x.to(torch.bfloat16) for x in ops)
+    for body in _radix_bodies(geom):
+        flags = RADIX_BODIES[body]
+        suffix = tbc.RADIX_SUFFIX[body]
+        want64 = tbc.block_conv_reference(*(x.double() for x in ops), *geom, torch.float64,
+                                          None, **flags)
+        for planes, tag, splits, tol in ((ops, "f32", 3, TOL), (ops, "f32", 6, TOL),
+                                         (ops, "f32", 1, ONE_PASS_TOL),
+                                         (ops16, "bf16", tbc.BF16IO, IO_TOL),
+                                         (ops16, "bf16", 3, TOL)):
+            tier = tbc.TIER_SUFFIX[splits]
+            want = tbc.block_conv_reference(*planes, *geom, torch.float32, splits, **flags)
+            for out_dtype, maps in ((torch.float32, ""), (torch.bfloat16, "_bf16maps")):
+                mode = f"block_conv_{tag}{maps}{tier}{suffix}"
+                before = tbc.block_conv.launches_by_mode[mode]
+                got = tbc.block_conv(*planes, *geom, out_dtype, splits, **flags)
+                torch.cuda.synchronize()
+                assert tbc.block_conv.launches_by_mode[mode] == before + 1, mode
+                assert got.dtype == out_dtype and got.shape == want.shape
+                bar = tol if out_dtype == torch.float32 else max(tol, BF16_OUT_TOL)
+                assert _rel(got.float(), want) <= bar, mode
+                if out_dtype == torch.float32 and splits == tbc.BF16IO:
+                    assert _rms(got, want) <= IO_RMS_TOL, mode
+                if out_dtype == torch.float32 and splits == 6:
+                    assert _rel(got.double(), want64) <= X6_TOL, mode
+            mode = f"block_conv_peaks_{tag}{tier}{suffix}"
+            before = tbc.block_conv_peaks.launches_by_mode[mode]
+            got_v, got_i = tbc.block_conv_peaks(*planes, *geom, splits, **flags)
+            want_v, want_i = tbc.block_conv_peaks_reference(*planes, *geom, splits, **flags)
+            torch.cuda.synchronize()
+            assert tbc.block_conv_peaks.launches_by_mode[mode] == before + 1, mode
+            assert _rel(got_v, want_v) <= tol, mode
+            flips = got_i != want_i
+            if flips.any():
+                flat = want.reshape(b, n, -1)
+                at = flat.gather(-1, got_i.reshape(b, n, -1).long()).reshape(got_i.shape)
+                assert (at[flips] >= want_v[flips] - tol * want_v.abs().max()).all(), mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", RADIX_GEOMETRIES[:1] + RADIX_GEOMETRIES[3:4])
+def test_radix_peaks_planted_ties_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
+    """DC-only spectra make every block's window constant through every
+    body (the twiddles and the DIF halves see zeros but for bin 0), so each
+    block's pair must be its first position inside the output: the
+    first-index rule survives pair chunks that hold rows from both halves
+    of the window and DIF columns t' and t' + W/2 that are not adjacent."""
+    rng = np.random.default_rng(41)
+    geom = (bh, bw, kh, kw, out_h, out_w)
+    ops = [torch.zeros_like(x) for x in _planes(rng, cuda, b, f, n, *geom)]
+    ops[0][..., 0, 0] = torch.as_tensor(
+        rng.standard_normal(ops[0].shape[:4]).astype(np.float32), device=cuda)
+    ops[2][..., 0, 0] = 1.0
+    vh, vw = bh - kh + 1, bw - kw + 1
+    for body in _radix_bodies(geom):
+        got_v, got_i = tbc.block_conv_peaks(*ops, *geom, **RADIX_BODIES[body])
+        want_v, _ = tbc.block_conv_peaks_reference(*ops, *geom, **RADIX_BODIES[body])
+        torch.cuda.synchronize()
+        assert _rel(got_v, want_v) <= TOL, body
+        first = (torch.arange(got_i.shape[2], device=cuda)[:, None] * vh * out_w
+                 + torch.arange(got_i.shape[3], device=cuda) * vw)
+        assert torch.equal(got_i, first.to(torch.int32).expand_as(got_i)), body
+
+
+@pytest.mark.gpu
+def test_radix_flags_refused_on_gpu(cuda):
+    """On the card an explicit radix flag raises where the JAX package's
+    rules reject the plan, and where they admit it but the Hopper kernels
+    stack blocks (RADIX_GEOM's Vh = 24: radix_fits is False); nothing runs
+    v3 in its place."""
+    rng = np.random.default_rng(43)
+    stacked = (32, 512, 9, 129, 40, 500)
+    ops = _planes(rng, cuda, 1, 1, 2, *stacked)
+    assert tbc.radix_h_legal(32, 24) and not tbc.radix_fits(257, 24)
+    before = (tbc.block_conv.launches, tbc.block_conv_peaks.launches)
+    for flags in RADIX_BODIES.values():
+        with pytest.raises(ValueError, match="radix_fits"):
+            tbc.block_conv(*ops, *stacked, **flags)
+        with pytest.raises(ValueError, match="radix_fits"):
+            tbc.block_conv_peaks(*ops, *stacked, **flags)
+    illegal = (45, 151, 10, 24, 100, 300)
+    ops = _planes(rng, cuda, 1, 1, 2, *illegal)
+    with pytest.raises(ValueError, match="radix_h"):
+        tbc.block_conv(*ops, *illegal, radix_h=True)
+    with pytest.raises(ValueError, match="radix_w"):
+        tbc.block_conv_peaks(*_planes(rng, cuda, 1, 1, 2, *RADIX_GEOMETRIES[4][3:]),
+                             *RADIX_GEOMETRIES[4][3:], radix_w=True)
+    assert (tbc.block_conv.launches, tbc.block_conv_peaks.launches) == before
