@@ -8,10 +8,13 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
 
   1. prints the card (nvidia-smi name and power limit), the PyTorch and CUDA
      versions, and turns TF32 off for matmuls and cuDNN;
-  2. builds the CUDA kernels from ``cuda_fft_convolution_torch/csrc``,
-     prints what ptxas reports (registers, shared memory, spills) and fails
-     on a spill, and holds the Python configuration model (shared memory,
-     rows, blocks per CTA) against the kernel's over (vh, wc) pairs;
+  2. builds the CUDA kernels from ``cuda_fft_convolution_torch/csrc``
+     (three libraries side by side: the v3 entries and the MAC, the radix
+     bodies', the Karatsuba and v2 entries'), prints what ptxas reports
+     (registers, shared memory, spills) and fails on a spill, and holds
+     the Python configuration model (shared memory, rows, blocks per CTA;
+     the Karatsuba and v2 configurations too) against the kernel's over
+     (vh, wc) pairs;
   3. holds the fused block-conv kernel against its plain PyTorch version on
      the card at a small ragged shape, the widest 64-row block, a wide
      block (32-row tiles), two short-window
@@ -285,7 +288,27 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      launched by explicit ops-level calls); and the headline ``fft_conv``
      at the v5 plan against the analytic plan, in turns, the v5 maps
      against float64. The tuner's table and the plan registry are restored
-     afterwards.
+     afterwards;
+ 37. the other H-stage forms (``ops/block_conv.py karatsuba``,
+     ``wstack``): the Karatsuba H stage in v3 (maps and peaks, entries
+     ``_k``) and the v2 body (maps, ``_v2`` and ``_v2_k``) at the headline
+     plan (N=100), the DPM plan (float32 HOG features, 1024 filters; bf16
+     spectra the same planes rounded), the 512² plan and the F=8 plan:
+     every entry at every tier against its plain version with the same
+     flags (the bars of steps 3, 6, 34 and 35), the f32 maps at the fp32
+     tiers against float64 on 8 maps, 6xTF32 against the plain version
+     in float64 beside v3's (held to 5e-7 at the headline plan and, as
+     step 34 holds v3's, on step 3's and step 33's random planes; a
+     reading at the real-data DPM, 512² and F=8 plans), the refusal where
+     the kernels do not take a form (``form_taken``: the Karatsuba stage
+     at 6xTF32 on the 1024 blocks, whose shared memory does not fit); v2's rows and blocks a CTA (MBH) at each plan (one plan must
+     run MBH >= 2); every entry's row at the headline plan (launched by an
+     explicit ops-level call: no route passes either flag), its bound
+     counting the Karatsuba form's 3 of 4 H products (``synthesis_flop``)
+     beside v3's 4-product work (``same_work_bound_ms``); the headline
+     maps entry in turns, 4-product / Karatsuba / Karatsuba / 4-product;
+     and each form's maps kernel ms beside v3's at every plan (3xTF32 and
+     BF16IO).
 
 At every MAC row (the direct shape's F=1 and F=3, f32 and bf16, the
 unfused headline's and the model layer's shapes) it prints the tile the
@@ -296,7 +319,7 @@ at each MAC row in turns, parent, this tree, this tree, parent (bare C
 entries, CUDA events, median of 7 windows of 10 calls), the outputs
 compared.
 
-Steps 13–36 print each check, each time (CUDA events, median of 7, unless
+Steps 13–37 print each check, each time (CUDA events, median of 7, unless
 said otherwise) beside the card's name and power limit, the kernel launches
 of each call, the planner's plans and each phase's peak allocation; the
 smoke fails if its peak allocation reaches 60 GiB.
@@ -324,9 +347,10 @@ says "main path"): launches on the main path, error, time,
 plain time, the bound worked out from the shapes — the larger of the
 operations at the peak rate of the units that run them and the bytes at
 3.35 TB/s; ``block_conv_bound`` and ``mac_bound`` say which; a radix
-body's rows count its own products, and their ``same_work_bound_ms`` v3's
-— and the time of the one PyTorch call that computes the same function,
-where there is one),
+body's rows count its own products, and their ``same_work_bound_ms`` v3's,
+as do step 37's Karatsuba and v2 rows, launched by explicit ops-level
+calls — and the time of the one PyTorch call that computes the same
+function, where there is one: none for the fused kernels),
 then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits 2 and prints no result.
@@ -423,21 +447,27 @@ def build_kernels() -> None:
         smem_bytes,
         tier_name,
         tile_rows,
+        v2_blocks,
+        v2_rows,
+        v2_smem_bytes,
     )
 
     t0 = time.perf_counter()
 
-    def build(radix):
-        lib = _build.library(radix)
+    def build(**kind):
+        lib = _build.library(**kind)
         return lib, time.perf_counter() - t0
 
-    # both libraries' sources, every nvcc started together
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        radix_build = pool.submit(build, True)
-        lib, core_s = build(False)
+    # the three libraries' sources, every nvcc started together
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        radix_build = pool.submit(build, radix=True)
+        forms_build = pool.submit(build, forms=True)
+        lib, core_s = build()
         radix_s = radix_build.result()[1]
-    print(f"build: {max(core_s, radix_s):.1f} s (side by side: the library {core_s:.1f} s, the "
-          f"radix bodies' library {radix_s:.1f} s)")
+        forms_lib, forms_s = forms_build.result()
+    print(f"build: {max(core_s, radix_s, forms_s):.1f} s (side by side: the library "
+          f"{core_s:.1f} s, the radix bodies' library {radix_s:.1f} s, the Karatsuba and v2 "
+          f"entries' library {forms_s:.1f} s)")
     spills = []
     for line in _build.build_log().splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill", "error")):
@@ -462,10 +492,30 @@ def build_kernels() -> None:
                     raise AssertionError(
                         f"configuration model differs from the kernel at Wc={wc}, Vh={vh}, "
                         f"{tier_name(splits)}: kernel (smem, rows, blocks) {got}, Python {want}")
+                # the Karatsuba configurations, and v2's with either form
+                got = (forms_lib.fftconv_block_conv_k_smem_bytes(wc, vh, splits),
+                       forms_lib.fftconv_block_conv_k_rows(wc, vh, splits),
+                       *((forms_lib.fftconv_block_conv_v2_smem_bytes(wc, vh, splits, kara),
+                          forms_lib.fftconv_block_conv_v2_rows(wc, vh, splits, kara),
+                          forms_lib.fftconv_block_conv_v2_blocks(wc, vh, splits, kara))
+                         for kara in (0, 1)))
+                want = (smem_bytes(wc, vh, splits, True), tile_rows(wc, vh, splits, True),
+                        *((v2_smem_bytes(wc, vh, splits, kara), v2_rows(wc, vh, splits, kara),
+                           v2_blocks(wc, vh, splits, kara)) for kara in (False, True)))
+                if got != want:
+                    raise AssertionError(
+                        f"the Karatsuba or v2 configuration model differs from the kernel at "
+                        f"Wc={wc}, Vh={vh}, {tier_name(splits)}: kernel {got}, Python {want}")
                 pairs += 1
     if lib.fftconv_block_conv_f32_smem_bytes(224, 64, 2) != -1:
         raise AssertionError("the configuration queries take a tier outside (0, 1, 3, 6)")
     for splits in TIERS:
+        print(f"  {tier_name(splits)}, Karatsuba: headline {smem_bytes(224, 64, splits, True)} B, "
+              f"{tile_rows(224, 64, splits, True)} rows; 1024 block "
+              f"{smem_bytes(513, 961, splits, True)} B; v2 (rows, MBH): headline "
+              f"{(v2_rows(224, 64, splits), v2_blocks(224, 64, splits))}, DPM "
+              f"{(v2_rows(70, 16, splits), v2_blocks(70, 16, splits))}, F=8 "
+              f"{(v2_rows(144, 32, splits), v2_blocks(144, 32, splits))}")
         print(f"  {tier_name(splits)}: headline (Wc 224, Vh 64) {smem_bytes(224, 64, splits)} B, "
               f"{tile_rows(224, 64, splits)} rows; 1024 block (Wc 513) "
               f"{smem_bytes(513, 961, splits)} B, {tile_rows(513, 961, splits)} rows; DPM "
@@ -499,27 +549,31 @@ def mac_flop(f, lh, wc) -> int:
     return 8 * f * lh * wc
 
 
-def synthesis_flop(lh, wc, vh, vw, body="v3") -> int:
+def synthesis_flop(lh, wc, vh, vw, body="v3", karatsuba=False) -> int:
     """Operations of one cell's syntheses in ``body`` (a real multiply-add,
-    2): the H stage — v3 a complex (Vh x Lh)(Lh x Wc) product, the radix
-    bodies two (M x M)(M x Wc) sub-transforms (M = Lh/2; the kernels' pair
-    and single chunks sum to the same) — and the W stage — v3/v4 a real
-    (Vh x 2Wc)(2Wc x Vw) product, v5/v5x the DIF halves, 4 real (Vh x W/4)
-    (W/4 x Tn) products, Tn = min(Vw, W/2); the radix combines and the
-    Nyquist term (a rank-1 update) left out."""
-    h = 8 * (vh if body == "v3" else lh // 2) * lh * wc
-    if body in ("v3", "v4"):
+    2): the H stage — v3 and v2 a complex (Vh x Lh)(Lh x Wc) product (the
+    Karatsuba form: 3 of its 4 real products), the radix bodies two (M x M)
+    (M x Wc) sub-transforms (M = Lh/2; the kernels' pair and single chunks
+    sum to the same) — and the W stage — v3/v2/v4 a real (Vh x 2Wc)(2Wc x
+    Vw) product, v5/v5x the DIF halves, 4 real (Vh x W/4)(W/4 x Tn)
+    products, Tn = min(Vw, W/2); the radix combines, the Karatsuba adds
+    and the Nyquist term (a rank-1 update) left out."""
+    h = 8 * (vh if body in ("v3", "v2") else lh // 2) * lh * wc
+    if karatsuba:
+        h = h * 3 // 4
+    if body in ("v3", "v2", "v4"):
         return h + 4 * vh * wc * vw
     l2 = wc - 1
     return h + 8 * vh * (l2 // 2) * min(vw, l2)
 
 
-def cell_flop(f, lh, wc, vh, vw, body="v3") -> int:
+def cell_flop(f, lh, wc, vh, vw, body="v3", karatsuba=False) -> int:
     """Useful fp32 operations of one fused block-conv cell in ``body``."""
-    return mac_flop(f, lh, wc) + synthesis_flop(lh, wc, vh, vw, body)
+    return mac_flop(f, lh, wc) + synthesis_flop(lh, wc, vh, vw, body, karatsuba)
 
 
-def block_conv_bound(ops, geom, out_bytes, splits=3, body="v3") -> tuple[float, str]:
+def block_conv_bound(ops, geom, out_bytes, splits=3, body="v3",
+                     karatsuba=False) -> tuple[float, str]:
     """bound() of a fused block-conv call in ``body``. Operations: every
     cell's MAC and the body's syntheses (``cell_flop``) on the tensor cores
     — for fp32 spectra as ``splits`` TF32 passes at the dense TF32 peak (3,
@@ -527,14 +581,15 @@ def block_conv_bound(ops, geom, out_bytes, splits=3, body="v3") -> tuple[float, 
     fp32 accumulation at the bf16 peak, as the TPU kernel runs its bf16
     tier (cuda_fft_convolution_tpu/ops/block_conv.py:645-647, 686-690).
     Bytes: the four spectra planes read once and ``out_bytes`` written. A
-    radix body's bound counts its own products, fewer than v3's; with
-    ``body='v3'`` it is the bound of v3's work, the same whatever body runs
-    it (``same_work_bound_ms``)."""
+    radix body's bound counts its own products, fewer than v3's, and so
+    does the Karatsuba form's; with ``body='v3'`` and the 4-product form
+    it is the bound of v3's work, the same whatever body runs it
+    (``same_work_bound_ms``)."""
     b, nbh, nbw, f, lh, wc = ops[0].shape
     n = ops[2].shape[0]
     bh, bw, kh, kw = geom[:4]
     cells = b * nbh * nbw * n
-    flop = cell_flop(f, lh, wc, bh - kh + 1, bw - kw + 1, body)
+    flop = cell_flop(f, lh, wc, bh - kh + 1, bw - kw + 1, body, karatsuba)
     if str(ops[0].dtype) == "torch.bfloat16":
         op_seconds = cells * flop / PEAK_BF16
     else:
@@ -592,17 +647,20 @@ def tier_tol(d_re, splits) -> float:
 
 
 def radix_body(radix) -> str:
-    """The body ('v3', 'v4', 'v5', 'v5x') a wrapper's radix flags select."""
+    """The body ('v3', 'v4', 'v5', 'v5x', 'v2') a wrapper's flags select."""
     from cuda_fft_convolution_torch.ops.block_conv import _body
 
     r = radix or {}
-    return _body(bool(r.get("radix_h")), r.get("radix_w", False), r.get("xsliver", False))
+    return _body(bool(r.get("radix_h")), r.get("radix_w", False), r.get("xsliver", False),
+                 r.get("wstack", True))
 
 
 def body_label(radix) -> str:
-    """', v4' (v5, v5x) for a radix body's flags; '' for v3."""
+    """', v4' (v5, v5x, v2) for a body's flags, ', karatsuba' for the
+    Karatsuba H stage; '' for v3's 4-product form."""
     body = radix_body(radix)
-    return "" if body == "v3" else f", {body}"
+    return ("" if body == "v3" else f", {body}") + (
+        ", karatsuba" if (radix or {}).get("karatsuba") else "")
 
 
 def rel_err(got, want) -> float:
@@ -3369,12 +3427,16 @@ def kernel_row(ops, geom, label, splits=None, out_dtype=None, radix=None) -> tup
 
 
 def bounds(ops, geom, out_bytes, splits, radix) -> tuple:
-    """A fused kernel row's bound, bound by and library ms (None), and for
-    a radix body the bound of v3's work after them."""
+    """A fused kernel row's bound, bound by and library ms (None: no one
+    PyTorch call computes the fused function), and for another body or
+    form than v3's 4-product one the bound of v3's work after them."""
     body = radix_body(radix)
+    kara = bool((radix or {}).get("karatsuba"))
     tier = resolved(ops[0], splits)
-    row = (*block_conv_bound(ops, geom, out_bytes, tier, body), None)
-    return row if body == "v3" else (*row, block_conv_bound(ops, geom, out_bytes, tier)[0])
+    row = (*block_conv_bound(ops, geom, out_bytes, tier, body, kara), None)
+    if body == "v3" and not kara:
+        return row
+    return (*row, block_conv_bound(ops, geom, out_bytes, tier)[0])
 
 
 def bound_text(row) -> str:
@@ -3382,7 +3444,7 @@ def bound_text(row) -> str:
     the same-work bound's)."""
     text = f"bound {row[3]:.3f} ms ({row[4]}), {100 * row[3] / row[1]:.1f}% of it"
     if len(row) > 6:
-        text += f"; bound of v3's work {row[6]:.3f} ms, {100 * row[6] / row[1]:.1f}%"
+        text += f"; bound of v3's 4-product work {row[6]:.3f} ms, {100 * row[6] / row[1]:.1f}%"
     return text
 
 
@@ -4200,6 +4262,257 @@ def radix_phase(fc, seed, image, image_d, bank, bank_d, idx, want, path_launches
     print(f"radix phase: {times['step 36 (host s)']:.1f} s (host clock)")
 
 
+# ---- step 37: the other H-stage forms: Karatsuba (v3, maps and peaks), v2 ----
+# The flags of each form's entries (ops/block_conv.py body_suffix), and the
+# JAX code each replaces (cuda_fft_convolution_tpu/ops/block_conv.py: v3's
+# Karatsuba form, the v2 body and its Karatsuba form, the peaks kernel's
+# Karatsuba form) in the C file that holds it.
+FORMS = {"_k": dict(karatsuba=True), "_v2": dict(wstack=False),
+         "_v2_k": dict(wstack=False, karatsuba=True)}
+FORM_REPLACES = {("block_conv", "_k"): 153, ("block_conv", "_v2"): 269,
+                 ("block_conv", "_v2_k"): 290, ("block_conv_peaks", "_k"): 1737}
+FORM_SOURCES = {("block_conv", "_k"): "block_conv_k.cu", ("block_conv", "_v2"): "block_conv_v2.cu",
+                ("block_conv", "_v2_k"): "block_conv_v2_k.cu",
+                ("block_conv_peaks", "_k"): "block_conv_peaks_k.cu"}
+# (spectra, tier, bar against the plain version)
+FORM_TIERS = (("f32", 3, TOL), ("f32", 6, TOL), ("f32", 1, X1_TOL), ("bf16", 0, IO_TOL),
+              ("bf16", 3, TOL))
+
+
+def form_fits(ops, geom, splits, flags) -> bool:
+    """Whether a form's kernels take ``geom`` at tier ``splits``
+    (``form_taken``: its shared memory fits)."""
+    from cuda_fft_convolution_torch.ops.block_conv import form_taken
+
+    return form_taken(ops[0].shape[-1], geom[0] - geom[2] + 1, splits, **flags)
+
+
+def form_x6(ops, geom, flags) -> float:
+    """A form's 6xTF32 maps against its plain version run in float64."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.block_conv import block_conv, block_conv_reference
+
+    return rel_err(block_conv(*ops, *geom, torch.float32, 6, **flags).double(),
+                   block_conv_reference(*(x.double() for x in ops), *geom, torch.float64,
+                                        **flags))
+
+
+def form_x6_check(d_re, d_im, k_re, k_im, geom, label) -> None:
+    """Each Karatsuba and v2 form's 6xTF32 entry against its plain version
+    in float64 (X6_TOL) on random planes (step 37), where step 34 holds
+    v3's; a form the kernels do not take is skipped."""
+    ops = (d_re, d_im, k_re, k_im)
+    for suffix, flags in FORMS.items():
+        if not form_fits(ops, geom, 6, flags):
+            continue
+        x6 = form_x6(ops, geom, flags)
+        print(f"forms [{label}] {suffix} 6xTF32 vs its plain version in float64: {x6:.3e} "
+              f"(bar {X6_TOL:g})")
+        if x6 > X6_TOL:
+            raise AssertionError(f"{label} {suffix}: 6xTF32 {x6} from the float64 plain version")
+
+
+def form_checks(ops, ops16, geom, label, idx, want, plain=True, x6_bar=False) -> None:
+    """Every Karatsuba and v2 entry at ``geom`` (step 37): maps (f32, bf16
+    maps) and the Karatsuba peaks at every tier against the plain version
+    with the same flags (``check_kernel``, ``check_peaks``: the smoke's
+    bars; not with ``plain=False``, where the entries' rows check them),
+    the f32 maps at the fp32 tiers against float64 on maps ``idx``
+    (``want``), 6xTF32 against the plain version run in float64 beside
+    v3's 4-product entry (held to X6_TOL with ``x6_bar``, else a reading);
+    where the kernels do not take a form, the call must raise and launch
+    nothing."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.block_conv import block_conv
+    from cuda_fft_convolution_torch.utils.errors import InvalidInputError
+
+    v3_x6 = form_x6(ops, geom, {})
+    print(f"forms [{label}] v3 (4-product) 6xTF32 vs its plain version in float64: "
+          f"{v3_x6:.3e}")
+
+    for suffix, flags in FORMS.items():
+        for tag, splits, tol in FORM_TIERS:
+            planes = ops if tag == "f32" else ops16
+            tier = tier_label(planes[0], splits)
+            if not form_fits(planes, geom, splits, flags):
+                before = block_conv.launches
+                try:
+                    block_conv(*planes, *geom, torch.float32, splits, **flags)
+                except InvalidInputError as e:
+                    print(f"forms [{label}] {suffix} {tier}: refused, {e}")
+                else:
+                    raise AssertionError(f"{label} {suffix} {tier}: ran where no kernel takes it")
+                if block_conv.launches != before:
+                    raise AssertionError(f"{label} {suffix} {tier}: a refused call launched")
+                continue
+            if plain:
+                check_kernel(*planes, geom, label, torch.float32, tol, splits, flags)
+                check_kernel(*planes, geom, label, torch.bfloat16, max(tol, BF16_OUT_TOL), splits,
+                             flags)
+                if suffix == "_k":
+                    check_peaks(*planes, geom, label, tol, splits, {"radix_h": False, **flags})
+            if tag == "f32":
+                maps = block_conv(*planes, *geom, torch.float32, splits, **flags)[0]
+                err = max_rel_err_f64(maps, idx, want)
+                del maps
+                bar = X1_TOL if splits == 1 else TOL
+                print(f"forms [{label}] {suffix} {tier} maps vs float64 on maps {idx}: {err:.3e} "
+                      f"(bar {bar:g})")
+                if err > bar:
+                    raise AssertionError(f"{label} {suffix} {tier}: {err} from float64")
+            if tag == "f32" and splits == 6:
+                x6 = form_x6(ops, geom, flags)
+                print(f"forms [{label}] {suffix} 6xTF32 vs its plain version in float64: "
+                      f"{x6:.3e} ({x6 / v3_x6:.2f}x v3's{f'; bar {X6_TOL:g}' if x6_bar else ''})")
+                if x6_bar and x6 > X6_TOL:
+                    raise AssertionError(f"{label} {suffix}: 6xTF32 {x6} from the float64 plain "
+                                         f"version")
+            torch.cuda.empty_cache()
+
+
+def forms_table(ops, ops16, geom, label, table) -> None:
+    """Kernel ms of each form beside v3's 4-product form at ``geom`` (f32
+    maps at 3xTF32, BF16IO on bf16 spectra) → ``table`` lines (label, tier,
+    form, ms, bound ms, bound by)."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops.block_conv import block_conv
+
+    out_bytes = 4 * ops[0].shape[0] * ops[2].shape[0] * geom[4] * geom[5]
+    for planes, tier in ((ops, 3), (ops16, 0)):
+        for suffix, flags in {"": {}, **FORMS}.items():
+            kara = flags.get("karatsuba", False)
+            bound_ms, by = block_conv_bound(planes, geom, out_bytes, tier, radix_body(flags), kara)
+            ms = cuda_ms(lambda: block_conv(*planes, *geom, torch.float32, tier, **flags))
+            table.append((label, tier_label(planes[0], tier), suffix or "v3", ms, bound_ms, by))
+        torch.cuda.empty_cache()
+
+
+def forms_phase(fc, seed, image, image_d, bank_d, idx, want, big, path_launches, times, rows,
+                row_launches) -> None:
+    """The Karatsuba H stage and the v2 body (module docstring, step 37).
+    ``big``: step 33's large-kernel (bank on the card, kernels checked,
+    their float64 maps)."""
+    import torch
+
+    from cuda_fft_convolution_torch.ops import block_conv as bc
+
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    table = []
+    check_random_geometries(np.random.default_rng(seed + 37), (*CHECK_GEOMETRIES,
+                                                                 *PLAN_GEOMETRIES), form_x6_check)
+
+    def plan_ops(data, bank, k, block):
+        spec = fc.fft_data_tiled(data, k, k, block_h=block[0], block_w=block[1],
+                                 trim_mode="same")
+        sk = fc.fft_kernels(bank, spectral=spec)
+        geom = (spec.block_h, spec.block_w, spec.max_kh, spec.max_kw, spec.out_h, spec.out_w)
+        ops = (spec.re[None], spec.im[None], sk.re, sk.im)
+        return ops, tuple(x.to(bf16) for x in ops), geom
+
+    def mbh_line(label, ops, geom):
+        wc, vh, nbh = ops[0].shape[-1], geom[0] - geom[2] + 1, ops[0].shape[1]
+        got = {(bc.tier_name(t), kara): (bc.v2_rows(wc, vh, t, kara),
+                                          min(bc.v2_blocks(wc, vh, t, kara), nbh))
+               for t in (3, 6, 1, bc.BF16IO) for kara in (False, True)}
+        print(f"v2 at the {label} {geom[:4]} (Vh {vh}, Wc {wc}, {nbh} block rows): (rows, MBH) "
+              f"by (tier, karatsuba) {got}")
+        return max(m for _, m in got.values())
+
+    # the headline plan, N=100: every entry checked and timed (its JSON row,
+    # launched once by an ops-level call); the 4-product and Karatsuba maps
+    # entries in turns
+    k = HEADLINE["k"]
+    ops, ops16, geom = plan_ops(image_d, bank_d, k, (127, 447))
+    label = f"headline plan, N={HEADLINE['n']}"
+    mbh = {"headline": mbh_line("headline plan", ops, geom)}
+    form_checks(ops, ops16, geom, label, idx, want, plain=False, x6_bar=True)
+    for suffix, flags in FORMS.items():
+        why = ", ".join(f"{key}={val}" for key, val in flags.items())
+        for tag, splits, _ in FORM_TIERS:
+            planes = ops if tag == "f32" else ops16
+            tsuf = bc.TIER_SUFFIX[splits]
+            heads = [(torch.float32, ""), (bf16, "_bf16maps")] + ([("peaks", "")]
+                                                                  if suffix == "_k" else [])
+            for out_dtype, msuf in heads:
+                peaks = out_dtype == "peaks"
+                mode = (f"block_conv_peaks_{tag}{tsuf}{suffix}" if peaks
+                        else f"block_conv_{tag}{msuf}{tsuf}{suffix}")
+                pflags = {"radix_h": False, **flags}
+                fn = ((lambda: bc.block_conv_peaks(*planes, *geom, splits, **pflags)) if peaks
+                      else (lambda: bc.block_conv(*planes, *geom, out_dtype, splits, **flags)))
+                before = path_launches[mode]
+                main_path(f"{label}, ops-level call, {why} ({mode})", fn, mode, path_launches)
+                row_launches[mode] = path_launches[mode] - before
+                OPS_LEVEL_ROWS[mode] = f"ops-level call, {why}"
+                rows[mode] = (peaks_row(planes, geom, label, splits, pflags) if peaks
+                              else kernel_row(planes, geom, label, splits, out_dtype, flags))
+            torch.cuda.empty_cache()
+    four, kara = (lambda: bc.block_conv(*ops, *geom)), (
+        lambda: bc.block_conv(*ops, *geom, karatsuba=True))
+    turns = [cuda_ms(four), cuda_ms(kara), cuda_ms(kara), cuda_ms(four)]
+    times["headline maps kernel, 4-product / karatsuba (ms)"] = (
+        (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2)
+    print(f"headline plan maps kernel in turns, 4-product / Karatsuba / Karatsuba / 4-product: "
+          f"{turns[0]:.3f} / {turns[1]:.3f} / {turns[2]:.3f} / {turns[3]:.3f} ms "
+          f"({(turns[1] + turns[2]) / (turns[0] + turns[3]):.3f}x; {card()})")
+    forms_table(ops, ops16, geom, "headline plan", table)
+    del ops, ops16
+    torch.cuda.empty_cache()
+
+    # the DPM plan (float32 HOG features; bf16 spectra the same planes
+    # rounded), the 512² plan and the F=8 plan: every entry checked, maps
+    # against float64, each form timed beside v3
+    feats, dbank, _ = dpm_inputs(seed, "float32")
+    didx = list(range(0, DPM["n"], DPM["n"] // 8))[:8]
+    dwant = dpm_reference_f64(feats.cpu().numpy().astype(np.float64), dbank.cpu().numpy(), didx)
+    ops, ops16, geom = plan_ops(feats, dbank, DPM["k"], (27, 139))
+    label = f"DPM plan, N={DPM['n']}"
+    mbh["DPM"] = mbh_line("DPM plan", ops, geom)
+    form_checks(ops, ops16, geom, label, didx, dwant)
+    forms_table(ops, ops16, geom, "DPM plan", table)
+    del ops, ops16, feats, dbank
+    torch.cuda.empty_cache()
+
+    big_bank_d, big_idx, big_want = big
+    ops, ops16, geom = plan_ops(image_d, big_bank_d, BIGKERNEL["k"], BIGKERNEL["plan"][:2])
+    label = f"large-kernel plan, N={BIGKERNEL['n']}"
+    mbh["512²"] = mbh_line("large-kernel plan", ops, geom)
+    form_checks(ops, ops16, geom, label, big_idx, big_want)
+    forms_table(ops, ops16, geom, "large-kernel plan", table)
+    del ops, ops16
+    torch.cuda.empty_cache()
+
+    size8, f8, n8, k8 = (F8_TIER[x] for x in ("size", "f", "n", "k"))
+    rng = np.random.default_rng(seed)
+    data8 = rng.standard_normal((size8, size8, f8)).astype(np.float32)
+    bank8 = rng.standard_normal((n8, k8, k8, f8)).astype(np.float32)
+    idx8 = list(range(0, n8, n8 // 8))[:8]
+    want8 = dpm_reference_f64(data8.astype(np.float64), bank8, idx8)
+    ops, ops16, geom = plan_ops(torch.as_tensor(data8, device="cuda"),
+                                torch.as_tensor(bank8, device="cuda"), k8, F8_TIER["plan"][:2])
+    label = f"F=8 tier plan, N={n8}"
+    mbh["F=8"] = mbh_line("F=8 tier plan", ops, geom)
+    form_checks(ops, ops16, geom, label, idx8, want8)
+    forms_table(ops, ops16, geom, "F=8 tier plan", table)
+    del ops, ops16
+    torch.cuda.empty_cache()
+
+    print(f"the H-stage forms, maps kernel ms beside v3's 4-product form ({card()}):")
+    v3_ms = {(lab, tier): ms for lab, tier, form, ms, _, _ in table if form == "v3"}
+    for lab, tier, form, ms, bound_ms, by in table:
+        print(f"  {lab} {tier} {form}: {ms:.3f} ms ({ms / v3_ms[(lab, tier)]:.3f}x v3); bound "
+              f"{bound_ms:.3f} ms ({by}), {100 * bound_ms / ms:.1f}%")
+    print(f"v2's most blocks a CTA by plan: {mbh}")
+    if max(mbh.values()) < 2:
+        raise AssertionError(f"no plan runs v2 with two blocks a CTA or more: {mbh}")
+    times["step 37 (host s)"] = time.perf_counter() - t0
+    print(f"forms phase: {times['step 37 (host s)']:.1f} s (host clock)")
+
+
 def bench_phase() -> None:
     """The port's bench at full size (module docstring, step 33): its JSON
     line printed, every row present and positive, its accuracy row within
@@ -4533,13 +4846,18 @@ def main(argv=None) -> int:
     # ---- step 35: the bf16 tier's single pass ----
     bf16io_phase(fc, args.seed, image_d, bank_d, idx, want, big, path_launches, api_ms, rows,
                  row_launches)
-    del big
     phase_peak("bf16io tier")
 
     # ---- step 36: the radix-2 bodies ----
     radix_phase(fc, args.seed, image, image_d, bank, bank_d, idx, want, path_launches, api_ms,
                 rows, row_launches)
     phase_peak("radix bodies")
+
+    # ---- step 37: the Karatsuba H stage and the v2 body ----
+    forms_phase(fc, args.seed, image, image_d, bank_d, idx, want, big, path_launches, api_ms,
+                rows, row_launches)
+    del big
+    phase_peak("H-stage forms")
     print(f"smoke wall time: {time.perf_counter() - started:.1f} s")
     print(f"peak memory allocated over the smoke: {max(PHASE_PEAKS) / 2**30:.2f} GiB "
           f"(limit {PEAK_LIMIT / 2**30:.0f} GiB)")
@@ -4556,14 +4874,20 @@ def main(argv=None) -> int:
     # MAC shape of the model layer, with its own launches.
     launches = {name: row_launches.get(name, path_launches[name]) for name in rows}
     for name, (err, ms, plain, bound_ms, bound_by, library_ms, *same_work) in rows.items():
-        body = re.search(r"_r(4|5x|5)$", name.split(":")[0])
-        mode = re.sub(r"_(x[16]|io)$", "", re.sub(r"_r(4|5x|5)$", "", name.split(":")[0]))
+        entry = name.split(":")[0]
+        body = re.search(r"_r(4|5x|5)$", entry)
+        form = None if body else re.search(r"_(v2_k|v2|k)$", entry)
+        mode = re.sub(r"_(x[16]|io)$", "", re.sub(r"_(r4|r5x|r5|v2_k|v2|k)$", "", entry))
         wrapper = mode.removesuffix("_bf16maps").rsplit("_", 1)[0]
         source, replaces = SOURCES[wrapper]
         if body:  # a radix body's entries and the JAX body they replace
             source = f"cuda_fft_convolution_torch/csrc/block_conv{body.group(0)}.cu"
             replaces = (f"cuda_fft_convolution_tpu/ops/block_conv.py:"
                         f"{RADIX_REPLACES[(wrapper, body.group(0))]}")
+        if form:  # the Karatsuba and v2 entries and the JAX form they replace
+            source = f"cuda_fft_convolution_torch/csrc/{FORM_SOURCES[(wrapper, form.group(0))]}"
+            replaces = (f"cuda_fft_convolution_tpu/ops/block_conv.py:"
+                        f"{FORM_REPLACES[(wrapper, form.group(0))]}")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -4573,7 +4897,7 @@ def main(argv=None) -> int:
             "called_by": ("ops-level call, splits=3" if name.split(":")[0] in OPS_LEVEL_MODES
                           else OPS_LEVEL_ROWS.get(name, "main path")),
         })
-        if same_work:  # a radix body's row: the bound of v3's work beside its own
+        if same_work:  # another body's or form's row: the bound of v3's work beside its own
             kernels[-1]["same_work_bound_ms"] = same_work[0]
     missing = [m for m in rows if launches[m] < 1]
     if missing:

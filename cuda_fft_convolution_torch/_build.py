@@ -6,8 +6,10 @@ together, links the objects into a shared library with a plain C interface
 in ``build/`` at the repository root, and loads it with ``ctypes``. The
 radix-2 bodies' sources (``block_conv_r4.cu``, ``_r5.cu``, ``_r5x.cu``)
 make a second library, ``library(radix=True)``, built at the first radix
-call: no default route launches them, so the other paths do not wait for
-their build. A library's file name carries a hash of its sources, the
+call, and the other H-stage forms' (the Karatsuba entries and the v2 body:
+``block_conv_k.cu``, ``block_conv_peaks_k.cu``, ``block_conv_v2.cu``,
+``block_conv_v2_k.cu``) a third, ``library(forms=True)``: no default route
+launches them, so the other paths do not wait for their builds. A library's file name carries a hash of its sources, the
 headers (``csrc/*.cuh``) and the flags, so an edited file never loads a
 stale build. Nothing here runs at import: the package imports on machines
 with no ``nvcc`` and no CUDA.
@@ -40,14 +42,21 @@ _PEAKS = ([_P] * 10 + [_I] * 12 + [_P], ctypes.c_int)
 _MAPS_RADIX = ([_P] * 12 + [_I] * 12 + [_P], ctypes.c_int)
 _PEAKS_RADIX = ([_P] * 13 + [_I] * 12 + [_P], ctypes.c_int)
 _MAC = ([_P] * 6 + [_I] * 3 + [ctypes.c_longlong, _I, _I, _P], ctypes.c_int)
+_QUERY = ([_I, _I, _I], ctypes.c_int)
+_SMEM_QUERY = ([_I, _I, _I], ctypes.c_longlong)
 # C entry points: name → (argtypes, restype). Every pointer and the stream
 # are c_void_p; without argtypes ctypes would pass them as 32-bit ints. The
 # kernels have one entry per dtype mode: spectra f32 or bf16, and for the
 # maps kernel f32 or bf16 maps (_bf16maps); fp32 spectra also at the
 # 6xTF32 (_x6) and one-pass (_x1) synthesis tiers, bf16 spectra at BF16IO
 # (_io). The radix library has each of those for the radix-2 bodies (_r4,
-# _r5, _r5x: three more pointers, csrc/block_conv.cuh RadixOps).
+# _r5, _r5x: three more pointers, csrc/block_conv.cuh RadixOps); the forms
+# library the Karatsuba H stage's (_k: maps and peaks) and the v2 body's
+# maps entries (_v2, _v2_k), with the v3 entries' arguments, and the
+# configuration queries of both forms.
 _RADIX_UNITS = ("block_conv_r4.cu", "block_conv_r5.cu", "block_conv_r5x.cu")
+_FORM_UNITS = ("block_conv_k.cu", "block_conv_peaks_k.cu", "block_conv_v2.cu",
+               "block_conv_v2_k.cu")
 _SIGNATURES = {
     "fftconv_block_conv_f32": _MAPS,
     "fftconv_block_conv_f32_bf16maps": _MAPS,
@@ -59,9 +68,9 @@ _SIGNATURES = {
     "fftconv_block_conv_f32_bf16maps_x1": _MAPS,
     "fftconv_block_conv_bf16_io": _MAPS,
     "fftconv_block_conv_bf16_bf16maps_io": _MAPS,
-    "fftconv_block_conv_f32_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
-    "fftconv_block_conv_f32_rows": ([_I, _I, _I], ctypes.c_int),
-    "fftconv_block_conv_f32_blocks": ([_I, _I, _I], ctypes.c_int),
+    "fftconv_block_conv_f32_smem_bytes": _SMEM_QUERY,
+    "fftconv_block_conv_f32_rows": _QUERY,
+    "fftconv_block_conv_f32_blocks": _QUERY,
     "fftconv_block_conv_peaks_f32": _PEAKS,
     "fftconv_block_conv_peaks_bf16": _PEAKS,
     "fftconv_block_conv_peaks_f32_x6": _PEAKS,
@@ -76,10 +85,31 @@ _RADIX_SIGNATURES = {
     for body in ("_r4", "_r5", "_r5x")
 }
 
-_locks = {False: threading.Lock(), True: threading.Lock()}
-_lib: ctypes.CDLL | None = None
-_radix_lib: ctypes.CDLL | None = None
-_build_logs = {False: "", True: ""}
+_FORM_SIGNATURES = {
+    **{f"{name}{form}": sig for name, sig in _SIGNATURES.items() if sig is _MAPS
+       for form in ("_k", "_v2", "_v2_k")},
+    **{f"{name}_k": sig for name, sig in _SIGNATURES.items() if sig is _PEAKS},
+    "fftconv_block_conv_k_smem_bytes": _SMEM_QUERY,
+    "fftconv_block_conv_k_rows": _QUERY,
+    "fftconv_block_conv_v2_smem_bytes": ([_I] * 4, ctypes.c_longlong),
+    "fftconv_block_conv_v2_rows": ([_I] * 4, ctypes.c_int),
+    "fftconv_block_conv_v2_blocks": ([_I] * 4, ctypes.c_int),
+}
+# library kind → (its translation units: None for every unit the others do
+# not take, its signatures, its file name's tag)
+_KINDS = {
+    "main": (None, _SIGNATURES, ""),
+    "radix": (_RADIX_UNITS, _RADIX_SIGNATURES, "radix_"),
+    "forms": (_FORM_UNITS, _FORM_SIGNATURES, "forms_"),
+}
+
+_locks = {kind: threading.Lock() for kind in _KINDS}
+_libs: dict[str, ctypes.CDLL] = {}
+_build_logs = {kind: "" for kind in _KINDS}
+
+
+def _kind(radix: bool, forms: bool) -> str:
+    return "radix" if radix else "forms" if forms else "main"
 
 
 def _nvcc() -> str:
@@ -98,12 +128,14 @@ def _nvcc() -> str:
     )
 
 
-def _sources(radix: bool = False) -> list[pathlib.Path]:
+def _sources(radix: bool = False, forms: bool = False) -> list[pathlib.Path]:
     """Every file a library is built from: its ``.cu`` translation units
-    (the radix bodies' for ``radix``, the others else) and the ``.cuh``
-    headers they include."""
-    units = [s for s in _CSRC.glob("*.cu") if (s.name in _RADIX_UNITS) == radix]
-    return sorted([*units, *_CSRC.glob("*.cuh")])
+    (the radix bodies' for ``radix``, the other forms' for ``forms``, the
+    rest else) and the ``.cuh`` headers they include."""
+    units = _KINDS[_kind(radix, forms)][0]
+    others = _RADIX_UNITS + _FORM_UNITS
+    cu = [s for s in _CSRC.glob("*.cu") if (s.name in units if units else s.name not in others)]
+    return sorted([*cu, *_CSRC.glob("*.cuh")])
 
 
 def _library_path(sources: list[pathlib.Path]) -> pathlib.Path:
@@ -111,8 +143,9 @@ def _library_path(sources: list[pathlib.Path]) -> pathlib.Path:
     for s in sources:
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    kind = "radix_" if any(s.name in _RADIX_UNITS for s in sources) else ""
-    return BUILD_DIR / f"libfftconv_torch_{kind}{h.hexdigest()[:16]}.so"
+    names = {s.name for s in sources}
+    tag = next((t for units, _, t in _KINDS.values() if units and names & set(units)), "")
+    return BUILD_DIR / f"libfftconv_torch_{tag}{h.hexdigest()[:16]}.so"
 
 
 def _compile(sources: list[pathlib.Path], target: pathlib.Path) -> str:
@@ -144,33 +177,28 @@ def _compile(sources: list[pathlib.Path], target: pathlib.Path) -> str:
     return log + link.stdout
 
 
-def library(radix: bool = False) -> ctypes.CDLL:
-    """The loaded kernel library (``radix``: the radix bodies'), built on
-    first call."""
-    global _lib, _radix_lib
-    with _locks[radix]:
-        lib = _radix_lib if radix else _lib
+def library(radix: bool = False, forms: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library (``radix``: the radix bodies'; ``forms``:
+    the Karatsuba and v2 entries'), built on first call."""
+    kind = _kind(radix, forms)
+    with _locks[kind]:
+        lib = _libs.get(kind)
         if lib is None:
-            sources = _sources(radix)
+            sources = _sources(radix, forms)
             path = _library_path(sources)
             if not path.exists():
-                _build_logs[radix] = _compile(sources, path)
+                _build_logs[kind] = _compile(sources, path)
             lib = ctypes.CDLL(str(path))
-            for name, (argtypes, restype) in (
-                _RADIX_SIGNATURES if radix else _SIGNATURES
-            ).items():
+            for name, (argtypes, restype) in _KINDS[kind][1].items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = restype
-            if radix:
-                _radix_lib = lib
-            else:
-                _lib = lib
+            _libs[kind] = lib
         return lib
 
 
 def build_log() -> str:
     """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) from
-    this process's builds of both libraries, or '' where they were already
+    this process's builds of the libraries, or '' where they were already
     built."""
-    return _build_logs[False] + _build_logs[True]
+    return "".join(_build_logs.values())

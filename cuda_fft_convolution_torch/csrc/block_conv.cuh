@@ -289,15 +289,19 @@ __host__ __device__ constexpr int m_planes(int rows, int splits) {
 // and G chunk (the pieces of re and im, and of -im at 64 rows: ROWS x kUK
 // each, or ROWS x kGS), or the W stage's ring of kM chunks of M^T's planes
 // (kCols output columns x kKC rows of [Mr ; Mi]), copied kM - 1 chunks
-// ahead, whichever is larger.
+// ahead, whichever is larger. The Karatsuba H stage (KARA) stages a third
+// S^T plane, Sr + Si, and in place of -Gi the plane Gr + Gi (a third G plane
+// at 32 rows).
 constexpr int kM = 2;
-__host__ __device__ constexpr int stage_h(int rows, int splits) {
-  return rows == 64 ? 2 * pieces_of(splits) * kCols * kUK + 3 * pieces_of(splits) * rows * kUK
-                    : 2 * pieces_of(splits) * kCols * kGS + 2 * pieces_of(splits) * rows * kGS;
+__host__ __device__ constexpr int s_planes(bool kara) { return kara ? 3 : 2; }
+__host__ __device__ constexpr int stage_h(int rows, int splits, bool kara = false) {
+  return rows == 64 ? s_planes(kara) * pieces_of(splits) * kCols * kUK + 3 * pieces_of(splits) * rows * kUK
+                    : s_planes(kara) * pieces_of(splits) * (kCols + rows) * kGS;
 }
 __host__ __device__ constexpr int stage_w(int rows, int splits) { return kM * m_planes(rows, splits) * kMPlane; }
-__host__ __device__ constexpr int stage_all(int rows, int splits) {
-  return stage_h(rows, splits) > stage_w(rows, splits) ? stage_h(rows, splits) : stage_w(rows, splits);
+__host__ __device__ constexpr int stage_all(int rows, int splits, bool kara = false) {
+  return stage_h(rows, splits, kara) > stage_w(rows, splits) ? stage_h(rows, splits, kara)
+                                                             : stage_w(rows, splits);
 }
 
 // The block-stacked configuration (64 rows, 8-row FMA thread tiles).
@@ -316,10 +320,13 @@ struct Stage {
   static constexpr int kP = pieces_of(SPLITS);       // TF32 pieces of an operand
   static constexpr int kMP = m_planes(ROWS, SPLITS);  // M^T planes in the ring
   static constexpr int kW = stage_w(ROWS, SPLITS);
-  static constexpr int kAll = stage_all(ROWS, SPLITS);
   static constexpr int kPerS = kUK * kCols / kThreads;     // S elements a thread sums
   static_assert(kPerS == 8 && kUK == 16, "8 warps x 8 elements tile 16 rows x 128 bins");
   static constexpr int kPerG = 2 * ROWS * kUK / 4 / kThreads;  // float4s of G a thread stages
+  // Karatsuba: a thread stages the re and im float4 of one (row, 4 spectrum
+  // rows) position of the G chunk, and their sum; kGPos positions.
+  static constexpr int kGPos = ROWS * kUK / 4;
+  static_assert(kGPos <= kThreads, "one G position a thread at most");
 };
 static_assert(kCols == 4 * 32, "4 warps of 32 columns span a pass");
 static_assert(kStackRows * 16 == kThreads, "stacked MAC: 16 threads per S row");
@@ -330,10 +337,12 @@ static_assert(kStackStage % 4 == 0, "a 16-byte-aligned ring");
 static_assert(kGS % 32 == 20, "conflict-free fragment loads");
 static_assert((2 * kKB) % kKC == 0, "W-stage chunks tile [Xr | Xi]");
 
-// The bodies (BODY): v3, and the radix-2 v4 (H stage), v5 (H and DIF W
-// stages, in-kernel Nyquist term) and v5x (the Nyquist term an operand).
-constexpr int kV3 = 0, kV4 = 1, kV5 = 2, kV5X = 3;
+// The bodies (BODY): v3, the radix-2 v4 (H stage), v5 (H and DIF W
+// stages, in-kernel Nyquist term) and v5x (the Nyquist term an operand), and
+// v2 (column-stacked H stage, per-block W stages).
+constexpr int kV3 = 0, kV4 = 1, kV5 = 2, kV5X = 3, kV2 = 4;
 __host__ __device__ constexpr bool dif_body(int body) { return body == kV5 || body == kV5X; }
+__host__ __device__ constexpr bool radix_body(int body) { return body == kV4 || dif_body(body); }
 // The radix bodies' operands (ops/block_conv.py _radix_kernel_mats): U (2,
 // u_rows(M), g_cols(M)) = re, im; the twiddle (2, M) = cos, sin; v5x's
 // sliver (B, N, nbh, nbw, Vh), the Nyquist bin's windowed H synthesis.
@@ -534,6 +543,13 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+// d as a value the compiler cannot know before this point, so that what
+// is computed from it is computed here and not held in registers from an
+// earlier computation of the same value.
+__device__ __forceinline__ uint64_t opaque(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
+}
 // Keep the compiler from moving reads or writes of registers that an
 // asynchronous wgmma reads or writes (its accumulators d, its A fragment a)
 // across the wgmma, or giving them to other values before it is waited for.
@@ -580,9 +596,10 @@ __host__ __device__ inline int g_rows(int vh) { return (vh + 63) / 64 * 64; }
 __host__ __device__ inline int g_cols(int lh) { return (lh + kUK - 1) / kUK * kUK; }
 __host__ __device__ inline int m_cols(int vw) { return (vw + kCols - 1) / kCols * kCols; }
 
-// Shared memory of the one-block configuration of `rows` rows at the tier.
-inline long long tile_smem_bytes(int rows, int wc, int splits) {
-  return 4LL * (static_cast<long long>(rows) * x_stride(wc) + stage_all(rows, splits));
+// Shared memory of the one-block configuration of `rows` rows at the tier
+// (kara: with the Karatsuba H stage's planes).
+inline long long tile_smem_bytes(int rows, int wc, int splits, bool kara = false) {
+  return 4LL * (static_cast<long long>(rows) * x_stride(wc) + stage_all(rows, splits, kara));
 }
 
 // Blocks a stacked CTA would take at window height vh (1: not stacked).
@@ -658,8 +675,12 @@ inline long long stacked_smem_bytes(int wc, int g, int splits) {
 // The configuration a geometry runs at a tier: g > 1 blocks stacked in 64
 // rows where the window is at most 32 rows and that fits; else 64 rows
 // where its X fits, else 32. The tier's planes change what fits: at
-// 6xTF32 the 64-row configuration takes bins up to 256 (320 at 3xTF32).
-inline bool wide(int wc, int splits) { return tile_smem_bytes(64, wc, splits) > kMaxSmem; }
+// 6xTF32 the 64-row configuration takes bins up to 256 (320 at 3xTF32);
+// so do the Karatsuba H stage's (kara), whose stacked configuration stages
+// nothing more (its FMAs form Sr + Si and Gr + Gi as they read S and G).
+inline bool wide(int wc, int splits, bool kara = false) {
+  return tile_smem_bytes(64, wc, splits, kara) > kMaxSmem;
+}
 
 inline int blocks_per_cta(int wc, int vh, int splits) {
   const int g = group_of(vh);
@@ -669,14 +690,35 @@ inline int blocks_per_cta(int wc, int vh, int splits) {
              : 1;
 }
 
-inline int tile_rows(int wc, int vh, int splits) {
-  return blocks_per_cta(wc, vh, splits) > 1 || !wide(wc, splits) ? 64 : 32;
+inline int tile_rows(int wc, int vh, int splits, bool kara = false) {
+  return blocks_per_cta(wc, vh, splits) > 1 || !wide(wc, splits, kara) ? 64 : 32;
 }
 
-inline long long smem_bytes(int wc, int vh, int splits) {
+inline long long smem_bytes(int wc, int vh, int splits, bool kara = false) {
   const int g = blocks_per_cta(wc, vh, splits);
   if (g > 1) return stacked_smem_bytes(wc, g, splits);
-  return tile_smem_bytes(wide(wc, splits) ? 32 : 64, wc, splits);
+  return tile_smem_bytes(wide(wc, splits, kara) ? 32 : 64, wc, splits, kara);
+}
+
+// The v2 body: a CTA holds `rows` window rows of MBH blocks of one block
+// column, their X side by side. 32 rows for windows of at most 32 rows or
+// where the 64-row X does not fit, else 64; MBH the most blocks (up to
+// kMaxGroup) whose X fits beside the staging area, at least 1 (where even
+// one does not fit, v2_smem_bytes is over the limit and the launch refuses).
+inline int v2_rows(int wc, int vh, int splits, bool kara = false) {
+  return vh <= 32 || wide(wc, splits, kara) ? 32 : 64;
+}
+inline int v2_blocks(int wc, int vh, int splits, bool kara = false) {
+  const int rows = v2_rows(wc, vh, splits, kara);
+  const long long x = 4LL * rows * x_stride(wc);
+  const long long left = kMaxSmem - 4LL * stage_all(rows, splits, kara);
+  const long long m = left / x;
+  return m < 1 ? 1 : m > kMaxGroup ? kMaxGroup : static_cast<int>(m);
+}
+inline long long v2_smem_bytes(int wc, int vh, int splits, bool kara = false) {
+  const int rows = v2_rows(wc, vh, splits, kara);
+  return 4LL * (static_cast<long long>(v2_blocks(wc, vh, splits, kara)) * rows * x_stride(wc) +
+                stage_all(rows, splits, kara));
 }
 
 // The CTA's place: image bb, block (bi, bj), row chunk rc, kernel ni; a
@@ -742,7 +784,43 @@ __device__ __forceinline__ void h_fma(float (&ar)[TR][4], float (&ai)[TR][4],
   }
 }
 
-template <class TS, int ROWS, bool STACKED, int SPLITS, int BODY, class Epi>
+// The Karatsuba form of h_fma: the three products t1 = Gr Sr, t2 = Gi Si
+// and t3 = (Gr + Gi)(Sr + Si) summed apart in a1, a2, a3 (X = (a1 - a2,
+// a3 - (a1 + a2)) at the end). IO (kBF16IO): S arrives unrounded and G
+// rounded; Sr, Si, Sr + Si and Gr + Gi are rounded to bf16 here, as the
+// other configurations round their planes.
+template <int TR, bool MASKED, bool IO>
+__device__ __forceinline__ void h_fma_k(float (&a1)[TR][4], float (&a2)[TR][4], float (&a3)[TR][4],
+                                        const float (&gr)[TR], const float (&gi)[TR],
+                                        const float* s_r, const float* s_i, int lo, int hi) {
+  auto rnd = [](float x) { return IO ? __uint_as_float(bf16r(x)) : x; };
+  const float4 sr4 = *reinterpret_cast<const float4*>(s_r);
+  const float4 si4 = *reinterpret_cast<const float4*>(s_i);
+  const float xr[4] = {sr4.x, sr4.y, sr4.z, sr4.w};
+  const float xi[4] = {si4.x, si4.y, si4.z, si4.w};
+  float sr[4], si[4], s3[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    sr[c] = rnd(xr[c]);
+    si[c] = rnd(xi[c]);
+    s3[c] = rnd(xr[c] + xi[c]);
+  }
+#pragma unroll
+  for (int a = 0; a < TR; ++a) {
+    const bool in = !MASKED || (a >= lo && a < hi);
+    const float g_r = in ? gr[a] : 0.f;
+    const float g_i = in ? gi[a] : 0.f;
+    const float g_3 = in ? rnd(gr[a] + gi[a]) : 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      a1[a][c] = fmaf(g_r, sr[c], a1[a][c]);
+      a2[a][c] = fmaf(g_i, si[c], a2[a][c]);
+      a3[a][c] = fmaf(g_3, s3[c], a3[a][c]);
+    }
+  }
+}
+
+template <class TS, int ROWS, bool STACKED, int SPLITS, int BODY, class Epi, bool KARA>
 __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     const TS* __restrict__ d_re, const TS* __restrict__ d_im,
     const TS* __restrict__ k_re, const TS* __restrict__ k_im,
@@ -758,11 +836,13 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   // 6xTF32 sums its small terms apart from the main term (see Precision).
   constexpr bool kApart = SPLITS == 6;
   constexpr bool kDif = dif_body(BODY);
+  static_assert(!KARA || !radix_body(BODY), "the Karatsuba H stage runs in the v3 and v2 bodies");
+  static_assert(BODY != kV2 || !STACKED, "v2 stacks blocks its own way");
   extern __shared__ __align__(16) float smem[];
   const int wc_pad = padded_bins(wc);
   const int xs = x_stride(wc);
-  float* x_s = smem;                   // [ROWS][xs]  X: Xr at bins 0.., Xi at wc_pad..
-  float* stage = x_s + ROWS * xs;      // staging, reused by both stages
+  float* x_s = smem;                   // [ROWS][xs]  X: Xr at bins 0.., Xi at wc_pad.. (v2: a group's)
+  float* stage = x_s + (BODY == kV2 ? group : 1) * ROWS * xs;  // staging, reused by both stages
   // The DIF stage's half period W/2 and quarter; its H stage stores X's
   // bins permuted, [even | odd | Nyquist] (xcol), and v5x's stops at W/2.
   const int l2 = wc - 1, l4 = l2 / 2;
@@ -784,35 +864,40 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   // configuration: r0.. in order, masked by the epilogue alone).
   int seg_a = 0, seg_b = RW, end_a = INT_MAX, end_b = INT_MAX;
   if constexpr (!STACKED) {
-  // S^T: the pieces of re, then of im; G chunk: the same planes, then the
-  // pieces of -Gi at 64 rows (plane c * P + k: component c, piece k). 64
-  // rows: [plane][bins or rows / 8][kUK / 4][8][4] (core matrices, read
+  // S^T: the pieces of re, then of im (then, Karatsuba, of re + im); G
+  // chunk: the same planes, then the pieces of -Gi at 64 rows (Karatsuba:
+  // of Gr + Gi at 64 and 32 rows) (plane c * P + k: component c, piece k).
+  // 64 rows: [plane][bins or rows / 8][kUK / 4][8][4] (core matrices, read
   // by wgmma); 32 rows: [plane][bins or rows][kGS].
   constexpr bool kWG = ROWS == 64;
   constexpr int kSP = kWG ? kCols * kUK : kCols * kGS;  // floats of an S^T plane
   constexpr int kGP = kWG ? ROWS * kUK : ROWS * kGS;    // floats of a G plane
   float* s_st = stage;
-  float* g_st = s_st + 2 * P * kSP;
+  float* g_st = s_st + s_planes(KARA) * P * kSP;
 
-  // Kernel index fastest, then the row chunk, then the cell (b, i, j).
+  // Kernel index fastest, then the row chunk, then the cell (b, i, j) — for
+  // v2 the group (b, i / group, j) of `group` blocks down block column j.
   long long bid = blockIdx.x;
   const int ni = static_cast<int>(bid % n);
   bid /= n;
   const int rc = static_cast<int>(bid % row_chunks);
   const long long cell = bid / row_chunks;
   const int bj = static_cast<int>(cell % nbw);
-  const int bi = static_cast<int>((cell / nbw) % nbh);
-  const long long bb = cell / (static_cast<long long>(nbw) * nbh);
+  const int gbh = BODY == kV2 ? (nbh + group - 1) / group : nbh;
+  const int bi = static_cast<int>((cell / nbw) % gbh) * (BODY == kV2 ? group : 1);
+  const long long bb = cell / (static_cast<long long>(nbw) * gbh);
+  // v2: the group's blocks (bi + t, bj), t < count
+  const int count = BODY == kV2 ? min(group, nbh - bi) : 1;
   r0 = rc * ROWS;
-  cell_at = Cell{bb, bi, bj, rc, ni, 1};
+  cell_at = Cell{bb, bi, bj, rc, ni, count};
   // A radix body's chunk: a pair chunk (rc < its count) holds x[v'] at
   // local rows k and x[v' + M] at RW + k for v' = p0 + k; a single chunk
   // window rows r0.. of [M - w0, M).
   const int m_h = lh / 2, w0 = lh - vh;
-  const int npc = BODY == kV3 ? 0 : pair_chunks(lh, vh, ROWS);
-  const bool pair = BODY != kV3 && rc < npc;
+  const int npc = radix_body(BODY) ? pair_chunks(lh, vh, ROWS) : 0;
+  const bool pair = radix_body(BODY) && rc < npc;
   const int p0 = w0 + rc * RW;
-  if constexpr (BODY != kV3) {
+  if constexpr (radix_body(BODY)) {
     if (pair) {
       seg_a = p0 - w0;
       seg_b = p0 + m_h - w0;
@@ -827,8 +912,9 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   }
 
   const long long plane = static_cast<long long>(lh) * wc;
-  const TS* dr_c = d_re + cell * f * plane;
-  const TS* di_c = d_im + cell * f * plane;
+  const long long dcell = (bb * nbh + bi) * nbw + bj;  // the (first) block's cell
+  const TS* dr_c = d_re + dcell * f * plane;
+  const TS* di_c = d_im + dcell * f * plane;
   const TS* kr_c = k_re + static_cast<long long>(ni) * f * plane;
   const TS* ki_c = k_im + static_cast<long long>(ni) * f * plane;
   const int gr_n = g_rows(vh), gc_n = g_cols(lh);
@@ -838,19 +924,44 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   // rows, so their S^T stores hit 32 distinct banks.
   auto s_u = [&](int q) { return 4 * ((q * 8 + warp) >> 4) + (lane >> 3); };
   auto s_v = [&](int q) { return 8 * ((q * 8 + warp) & 15) + (lane & 7); };
+  // v2: the H stage's columns are the group's blocks' bins side by side,
+  // column c = t * wc + v for block t, bin v (c < count * wc); a pass's
+  // columns of this thread's S elements, as (t, v), set by v2_columns.
+  // (t, v) packed as t << 16 | v, -1 past the columns; wc < 2^16
+  int col_tv[St::kPerS];
+  auto v2_columns = [&](int c0) {
+#pragma unroll
+    for (int q = 0; q < St::kPerS; ++q) {
+      const int c = c0 + s_v(q);
+      const int t = c / wc;
+      col_tv[q] = c < count * wc ? t << 16 | (c - t * wc) : -1;
+    }
+  };
   // Channel ff of this thread's S elements of the chunk at (u0, c0): D and K.
   float dk[St::kPerS][4];
   auto load_dk = [&](int c0, int u0, int ff) {
 #pragma unroll
     for (int q = 0; q < St::kPerS; ++q) {
       const int u = u0 + s_u(q);
-      const int v = c0 + s_v(q);
-      const bool ok = u < lh && v < wc;
-      const long long off = ok ? static_cast<long long>(u) * wc + v + ff * plane : 0;
-      dk[q][0] = ok ? to_f32(dr_c[off]) : 0.f;
-      dk[q][1] = ok ? to_f32(di_c[off]) : 0.f;
-      dk[q][2] = ok ? to_f32(kr_c[off]) : 0.f;
-      dk[q][3] = ok ? to_f32(ki_c[off]) : 0.f;
+      if constexpr (BODY == kV2) {
+        const int tv = col_tv[q];
+        const bool ok = u < lh && tv >= 0;
+        const long long off = ok ? static_cast<long long>(u) * wc + (tv & 0xFFFF) + ff * plane : 0;
+        // D from block t to t + 1: nbw cells
+        const long long doff = ok ? off + static_cast<long long>(tv >> 16) * nbw * f * plane : 0;
+        dk[q][0] = ok ? to_f32(dr_c[doff]) : 0.f;
+        dk[q][1] = ok ? to_f32(di_c[doff]) : 0.f;
+        dk[q][2] = ok ? to_f32(kr_c[off]) : 0.f;
+        dk[q][3] = ok ? to_f32(ki_c[off]) : 0.f;
+      } else {
+        const int v = c0 + s_v(q);
+        const bool ok = u < lh && v < wc;
+        const long long off = ok ? static_cast<long long>(u) * wc + v + ff * plane : 0;
+        dk[q][0] = ok ? to_f32(dr_c[off]) : 0.f;
+        dk[q][1] = ok ? to_f32(di_c[off]) : 0.f;
+        dk[q][2] = ok ? to_f32(kr_c[off]) : 0.f;
+        dk[q][3] = ok ? to_f32(ki_c[off]) : 0.f;
+      }
     }
   };
   // S = sum_f K D at (u0, c0) into sv: channel 0 was prefetched into dk,
@@ -871,9 +982,10 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     }
   };
 
-  // Stage sv as S^T's planes (the tier's pieces of re, then of im) at k = u,
-  // or, for the radix H stage, with the chunk's even rows at k 0..7 and its
-  // odd rows at 8..15.
+  // Stage sv as S^T's planes (the tier's pieces of re, then of im, then,
+  // Karatsuba, of re + im: summed in fp32 and rounded once, as the other
+  // planes) at k = u, or, for the radix H stage, with the chunk's even rows
+  // at k 0..7 and its odd rows at 8..15.
   auto stage_s = [&](const float (&sv)[St::kPerS][2], bool even_odd) {
 #pragma unroll
     for (int q = 0; q < St::kPerS; ++q) {
@@ -882,9 +994,9 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       float* p = s_st + (kWG ? ((v >> 3) * (kUK / 4) + (k >> 2)) * kCore + (v & 7) * 4 + (k & 3)
                              : v * kGS + k);  // S^T[v][k]
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
+      for (int c = 0; c < s_planes(KARA); ++c) {
         uint32_t pc[P];
-        pieces<SPLITS>(sv[q][c], pc);
+        pieces<SPLITS>(c < 2 ? sv[q][c] : sv[q][0] + sv[q][1], pc);
 #pragma unroll
         for (int k2 = 0; k2 < P; ++k2) p[(c * P + k2) * kSP] = __uint_as_float(pc[k2]);
       }
@@ -1066,7 +1178,18 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   }
   } else {
   // ---- H stage: X[r, v] = sum_u G[r0 + r, u] S[u, v] ----
-  for (int c0 = 0; c0 < hb_pad; c0 += kCols) {
+  // v2: over the group's columns (v2_columns), X of block t at
+  // x_s + t * ROWS * xs; its bins past wc, which no column reaches, are
+  // zeroed here (the W stage's chunks read them).
+  const int h_cols = BODY == kV2 ? count * wc : hb_pad;
+  if constexpr (BODY == kV2) {
+    const int pad = wc_pad - wc;
+    for (int e = tid; e < count * ROWS * 2 * pad; e += kThreads) {
+      const int row = e / (2 * pad), h = e % (2 * pad);
+      x_s[row * xs + (h < pad ? wc + h : wc_pad + wc + h - pad)] = 0.f;  // rows of all blocks
+    }
+  }
+  for (int c0 = 0; c0 < h_cols; c0 += kCols) {
     // X's accumulators: 64 rows, a warpgroup's 64 x 64 tile (wgmma); 32
     // rows, a warp's 16 x 32 tile (mma.sync).
     constexpr int XM = kWG ? 1 : MT, XN = kWG ? 8 : 4;
@@ -1079,25 +1202,37 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         for (int c = 0; c < 4; ++c) xr[a][b][c] = xi[a][b][c] = 0.f;
     // The warp's 32 bins are either all below wc_pad or all past it
     // (mma.sync); the warpgroup's 64 bins start below it or are all past
-    // it (wgmma).
-    const bool live = kWG ? c0 + (warp >> 2) * 64 < hb_pad : c0 + wn * 32 < hb_pad;
+    // it (wgmma). (v2: the columns past count * wc.)
+    const bool live = kWG ? c0 + (warp >> 2) * 64 < h_cols : c0 + wn * 32 < h_cols;
+    if constexpr (BODY == kV2) v2_columns(c0);
 
     // G (re, im) for rows r0.., spectrum rows u0.. (zero-padded past vh
     // and lh; a radix single chunk's rows past G's padding read as zeros),
-    // loaded a chunk ahead and split as it is staged.
-    float4 gv[St::kPerG];
+    // loaded a chunk ahead and split as it is staged. Karatsuba: a thread's
+    // re and im at one position (tid < kGPos), and their sum staged beside.
+    float4 gv[KARA ? 2 : St::kPerG];
     auto load_g = [&](int u0) {
+      if constexpr (KARA) {
+        const int row = tid / 4;
+        if (tid < St::kGPos) {
 #pragma unroll
-      for (int q = 0; q < St::kPerG; ++q) {
-        const int e = tid + q * kThreads;
-        const int pl = e / (ROWS * 4);
-        const int row = (e / 4) % ROWS;
-        if (BODY != kV3 && r0 + row >= gr_n) {
-          gv[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-          continue;
+          for (int pl = 0; pl < 2; ++pl)
+            gv[pl] = *reinterpret_cast<const float4*>(
+                g_pad + (static_cast<long long>(pl) * gr_n + r0 + row) * gc_n + u0 + 4 * (tid % 4));
         }
-        gv[q] = *reinterpret_cast<const float4*>(
-            g_pad + (static_cast<long long>(pl) * gr_n + r0 + row) * gc_n + u0 + 4 * (e % 4));
+      } else {
+#pragma unroll
+        for (int q = 0; q < St::kPerG; ++q) {
+          const int e = tid + q * kThreads;
+          const int pl = e / (ROWS * 4);
+          const int row = (e / 4) % ROWS;
+          if (radix_body(BODY) && r0 + row >= gr_n) {
+            gv[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+            continue;
+          }
+          gv[q] = *reinterpret_cast<const float4*>(
+              g_pad + (static_cast<long long>(pl) * gr_n + r0 + row) * gc_n + u0 + 4 * (e % 4));
+        }
       }
     };
     load_dk(c0, 0, 0);
@@ -1107,6 +1242,27 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       mac(c0, u0, sv);
       __syncthreads();  // the previous chunk's products are done with staging
       stage_s(sv, false);
+      if constexpr (KARA) {
+        if (tid < St::kGPos) {
+          const int row = tid / 4;
+          const float x[3][4] = {{gv[0].x, gv[0].y, gv[0].z, gv[0].w},
+                                 {gv[1].x, gv[1].y, gv[1].z, gv[1].w},
+                                 {gv[0].x + gv[1].x, gv[0].y + gv[1].y, gv[0].z + gv[1].z,
+                                  gv[0].w + gv[1].w}};
+#pragma unroll
+          for (int pl = 0; pl < 3; ++pl) {
+            uint32_t pc[4][P];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) pieces<SPLITS>(x[pl][i], pc[i]);
+            float* pg = g_st + pl * P * kGP +
+                        (kWG ? ((row >> 3) * (kUK / 4) + (tid % 4)) * kCore + (row & 7) * 4
+                             : row * kGS + 4 * (tid % 4));
+#pragma unroll
+            for (int k = 0; k < P; ++k)
+              *reinterpret_cast<uint4*>(pg + k * kGP) = make_uint4(pc[0][k], pc[1][k], pc[2][k], pc[3][k]);
+          }
+        }
+      } else {
 #pragma unroll
       for (int q = 0; q < St::kPerG; ++q) {
         const int e = tid + q * kThreads;
@@ -1127,6 +1283,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
                            pc[3][k] ^ 0x80000000u);
         }
       }
+      }
       // this thread's stores are visible to the tensor cores' reads
       if (kWG) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
@@ -1135,7 +1292,59 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         load_g(u0 + kUK);
       }
       if constexpr (kWG) {
-        if (live) {
+        if constexpr (KARA) {
+          if (!live) continue;
+          // Karatsuba: t1 = Gr Sr, t2 = Gi Si and t3 = (Gr + Gi)(Sr + Si),
+          // each summed on the tensor cores into the one tile t and folded
+          // into X in IEEE fp32 before the next (Xr += t1 - t2, Xi += t3 -
+          // t1 - t2): three products for the 4-product form's four. The
+          // products' loop is not unrolled: unrolled (with two tiles, or
+          // one), the 3- and 6xTF32 entries spilled.
+          const float* sw = s_st + (warp >> 2) * 8 * (kUK / 4) * kCore;
+          float t[8][4];
+          constexpr int kQ0 = first_product(SPLITS);
+          constexpr int kPhases = kApart ? 2 : 1;
+          // t = the products of A plane set c and B plane set c (component
+          // c: planes c P..), in the tier's phases
+#pragma unroll 1
+          for (int c = 0; c < 3; ++c) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) t[j][i] = 0.f;
+            fence_regs(t);
+            // the component's first planes; a piece and k-step lie a fixed
+            // number of 16-byte units past them
+            const uint64_t a0 = smem_desc(g_st + c * P * kGP, 4 * kCore, 4 * (kUK / 4) * kCore);
+            const uint64_t b0 = smem_desc(sw + c * P * kSP, 4 * kCore, 4 * (kUK / 4) * kCore);
+            wgmma_fence();
+#pragma unroll
+            for (int ph = 0; ph < kPhases; ++ph) {
+              const int q0 = ph == 0 ? kQ0 : kMainProduct;
+              const int q1 = kApart && ph == 0 ? kMainProduct : 6;
+#pragma unroll
+              for (int ks = 0; ks < kUK / 8; ++ks)
+#pragma unroll
+                for (int q = q0; q < q1; ++q)
+                  wgmma_tf32_ss(t, a0 + ((prod_a(q) * kGP + 2 * ks * kCore) >> 2),
+                                b0 + ((prod_b(q) * kSP + 2 * ks * kCore) >> 2));
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(t);
+            // t1: Xr += t, Xi -= t; t2: both -= t; t3: Xi += t (x + s t
+            // with s = +-1 or 0 is the IEEE sum or difference)
+            const float sr = c == 0 ? 1.f : c == 1 ? -1.f : 0.f;
+            const float si = c == 2 ? 1.f : -1.f;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                xr[0][j][i] = fmaf(sr, t[j][i], xr[0][j][i]);
+                xi[0][j][i] = fmaf(si, t[j][i], xi[0][j][i]);
+              }
+          }
+        } else if (live) {
           // The warpgroup's 64 rows x 64 bins: A = G's planes, B = S^T's,
           // both read by wgmma from shared memory. The chunk's products are
           // summed on the tensor cores, then added to X in IEEE fp32.
@@ -1187,6 +1396,45 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
             add4(xi[0][j], ti[j]);
           }
         }
+      } else if constexpr (KARA) {
+        if (!live) continue;
+        // Karatsuba on mma.sync: per k-step t1 = Gr Sr, t2 = Gi Si, t3 =
+        // (Gr + Gi)(Sr + Si); Xr += t1 - t2, Xi += t3 - (t1 + t2).
+#pragma unroll 1
+        for (int ks = 0; ks < kUK / 8; ++ks)
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            uint32_t sb[2][3][P][2];  // [n-tile][component][piece]
+#pragma unroll
+            for (int pl = 0; pl < 3 * P; ++pl) {
+              uint32_t r[4];
+              ldsm4(r, s_st + pl * kSP + (wn * 32 + np * 16) * kGS + ks * 8 + b_lane(lane, kGS));
+              sb[0][pl / P][pl % P][0] = r[0];
+              sb[0][pl / P][pl % P][1] = r[1];
+              sb[1][pl / P][pl % P][0] = r[2];
+              sb[1][pl / P][pl % P][1] = r[3];
+            }
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              uint32_t ga[3][P][4];
+#pragma unroll
+              for (int pl = 0; pl < 3 * P; ++pl)
+                ldsm4(ga[pl / P][pl % P], g_st + pl * kGP + (wm * RW + mt * 16) * kGS + ks * 8 + a_lane(lane, kGS));
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                float t1[4] = {0.f, 0.f, 0.f, 0.f}, t2[4] = {0.f, 0.f, 0.f, 0.f};
+                float t3[4] = {0.f, 0.f, 0.f, 0.f};
+                mma_n<SPLITS>(t1, ga[0], sb[j][0]);
+                mma_n<SPLITS>(t2, ga[1], sb[j][1]);
+                mma_n<SPLITS>(t3, ga[2], sb[j][2]);
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  xr[mt][2 * np + j][i] += t1[i] - t2[i];
+                  xi[mt][2 * np + j][i] += t3[i] - (t1[i] + t2[i]);
+                }
+              }
+            }
+          }
       } else if (live) {
 #pragma unroll 1
         for (int ks = 0; ks < kUK / 8; ++ks)
@@ -1230,18 +1478,31 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     }
     // Bins past wc hold zeros (S was zero there), which pads X for the W
     // stage's chunks. The DIF bodies store the bins permuted (xcol): a
-    // pair of adjacent bins lands in the even and the odd half.
+    // pair of adjacent bins lands in the even and the odd half. v2: column
+    // c to bin c % wc of block c / wc's X; the columns past count * wc are
+    // dropped.
+    auto store_v2 = [&](int row, int c, float re, float im) {
+      if (c < h_cols) {
+        const int t = c / wc;
+        float* p = x_s + (t * ROWS + row) * xs + c - t * wc;
+        p[0] = re;
+        p[wc_pad] = im;
+      }
+    };
     if constexpr (kWG) {
       const int rank = warp & 3;
 #pragma unroll
       for (int j = 0; j < XN; ++j) {
         const int v = c0 + (warp >> 2) * 64 + j * 8;  // the n-tile's bins: all below wc_pad, or none
-        if (live && v < hb_pad) {
+        if (live && v < (BODY == kV2 ? h_cols : hb_pad)) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             float* p = x_s + (rank * 16 + 8 * h + g8) * xs;
             const int b2 = v + 2 * t4;
-            if constexpr (kDif) {
+            if constexpr (BODY == kV2) {
+              store_v2(rank * 16 + 8 * h + g8, b2, xr[0][j][2 * h], xi[0][j][2 * h]);
+              store_v2(rank * 16 + 8 * h + g8, b2 + 1, xr[0][j][2 * h + 1], xi[0][j][2 * h + 1]);
+            } else if constexpr (kDif) {
               p[xcol(b2)] = xr[0][j][2 * h];
               p[xcol(b2) + wc_pad] = xi[0][j][2 * h];
               p[xcol(b2 + 1)] = xr[0][j][2 * h + 1];
@@ -1262,7 +1523,10 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
           for (int h = 0; h < 2; ++h) {
             float* p = x_s + (wm * RW + mt * 16 + 8 * h + g8) * xs;
             const int b2 = c0 + wn * 32 + nt * 8 + 2 * t4;
-            if constexpr (kDif) {
+            if constexpr (BODY == kV2) {
+              store_v2(wm * RW + mt * 16 + 8 * h + g8, b2, xr[mt][nt][2 * h], xi[mt][nt][2 * h]);
+              store_v2(wm * RW + mt * 16 + 8 * h + g8, b2 + 1, xr[mt][nt][2 * h + 1], xi[mt][nt][2 * h + 1]);
+            } else if constexpr (kDif) {
               p[xcol(b2)] = xr[mt][nt][2 * h];
               p[xcol(b2) + wc_pad] = xi[mt][nt][2 * h];
               p[xcol(b2 + 1)] = xr[mt][nt][2 * h + 1];
@@ -1413,11 +1677,12 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   for (int s = 0; s < stages - 1; ++s) issue();
   int slot_at = 0;  // the ring slot of the step being summed
   for (int c0 = 0; c0 < wc_pad; c0 += kCols) {
-    float ar[TR][4], ai[TR][4];
+    // (Karatsuba: ar, ai and a3 sum t1, t2 and t3)
+    float ar[TR][4], ai[TR][4], a3[KARA ? TR : 1][4];
 #pragma unroll
     for (int a = 0; a < TR; ++a)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) ar[a][c] = ai[a][c] = 0.f;
+      for (int c = 0; c < 4; ++c) ar[a][c] = ai[a][c] = a3[KARA ? a : 0][c] = 0.f;
     const int len = wc - c0 < kCols ? wc - c0 : kCols;
 
     for (int u0 = 0; u0 < lh; u0 += kug) {
@@ -1503,12 +1768,14 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       }
       // The last step's sync ordered the previous chunk's products before
       // these stores. kBF16IO: S rounded to bf16 (G^T arrives rounded), so
-      // the FMAs below form exact products.
+      // the FMAs below form exact products (Karatsuba: rounded as they are
+      // read, h_fma_k).
+      constexpr bool kRoundS = SPLITS == kBF16IO && !KARA;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int v = pairs ? 2 * ml + 32 * (i >> 1) + (i & 1) : ml + 16 * i;
-        s_r[mrow * kCols + v] = SPLITS == kBF16IO ? __uint_as_float(bf16r(sv[i][0])) : sv[i][0];
-        s_i[mrow * kCols + v] = SPLITS == kBF16IO ? __uint_as_float(bf16r(sv[i][1])) : sv[i][1];
+        s_r[mrow * kCols + v] = kRoundS ? __uint_as_float(bf16r(sv[i][0])) : sv[i][0];
+        s_i[mrow * kCols + v] = kRoundS ? __uint_as_float(bf16r(sv[i][1])) : sv[i][1];
       }
 #pragma unroll
       for (int q = 0; q < kPerGs; ++q) {
@@ -1527,13 +1794,20 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
           gr[4 * q] = a.x; gr[4 * q + 1] = a.y; gr[4 * q + 2] = a.z; gr[4 * q + 3] = a.w;
           gi[4 * q] = b.x; gi[4 * q + 1] = b.y; gi[4 * q + 2] = b.z; gi[4 * q + 3] = b.w;
         }
+        constexpr bool kIO = SPLITS == kBF16IO;
         if (t_lo == t_hi) {
           const int o = (t_lo * kug + uu) * kCols + cg * 4;
-          h_fma<TR, false>(ar, ai, gr, gi, s_r + o, s_i + o, 0, TR);
+          if constexpr (KARA)
+            h_fma_k<TR, false, kIO>(ar, ai, a3, gr, gi, s_r + o, s_i + o, 0, TR);
+          else
+            h_fma<TR, false>(ar, ai, gr, gi, s_r + o, s_i + o, 0, TR);
         } else {
           for (int tb = t_lo; tb <= t_hi; ++tb) {
             const int o = (tb * kug + uu) * kCols + cg * 4;
-            h_fma<TR, true>(ar, ai, gr, gi, s_r + o, s_i + o, tb * vh - hr0, (tb + 1) * vh - hr0);
+            if constexpr (KARA)
+              h_fma_k<TR, true, kIO>(ar, ai, a3, gr, gi, s_r + o, s_i + o, tb * vh - hr0, (tb + 1) * vh - hr0);
+            else
+              h_fma<TR, true>(ar, ai, gr, gi, s_r + o, s_i + o, tb * vh - hr0, (tb + 1) * vh - hr0);
           }
         }
       }
@@ -1541,6 +1815,16 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     // X over the bins the W stage reads; bins past wc hold zeros (S was
     // zero there).
     const int v = c0 + cg * 4;
+    if constexpr (KARA) {
+#pragma unroll
+      for (int a = 0; a < TR; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float t1 = ar[a][c], t2 = ai[a][c];
+          ar[a][c] = t1 - t2;
+          ai[a][c] = a3[a][c] - (t1 + t2);
+        }
+    }
     if (v < wc_pad) {
 #pragma unroll
       for (int a = 0; a < TR; ++a) {
@@ -1639,8 +1923,10 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     }
     cp_async_commit();  // an empty group past the last step keeps the count
   };
-  Epi epi(out, cell_at, OutGeom{n, nbh, nbw, row_chunks, vh, vw, out_h, out_w});
-  __syncthreads();  // X is written and the H stage is done with the staging area
+  // The W stage of the X at xw, its tiles to epi (v2: once a block of the
+  // group, each block's Vh rows a product of their own).
+  auto w_stage = [&](const float* xw, Epi& epi) {
+  __syncthreads();  // X is written; the H stage (v2: the last block's W stage) is done with the staging area
   for (int it = 0; it < kM - 1; ++it) issue_m(it);
   if constexpr (ROWS == 64) {
     // wgmma: each warpgroup (warps 4 wg..) takes all 64 rows and 64 of a
@@ -1684,7 +1970,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         const int xc = x_col(kc);
         auto frag = [&](int ks, int bf) {
           uint32_t xa[4];
-          ldsm4(xa, x_s + rank * 16 * xs + xc + ks * 8 + a_lane(lane, xs));
+          ldsm4(xa, xw + rank * 16 * xs + xc + ks * 8 + a_lane(lane, xs));
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             uint32_t pc[P];
@@ -1734,7 +2020,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       }
       if (kc == nkc - 1) {
         const int col = p * kCols + wg * 64 + 2 * t4;
-        if constexpr (BODY == kV3) {
+        if constexpr (!radix_body(BODY)) {
           epi.tile(acc, r0 + rank * 16 + g8, col, INT_MAX);
         } else {
           const int l0 = rank * 16 + g8;
@@ -1765,7 +2051,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       issue_m(it + kM - 1);
       if (p * kCols + wn * 32 < wcols) {
         const float* mb = m_st + (it % kM) * kMChunk + wn * 4 * (kKC / 4) * kCore + core_lane(lane);
-        const float* xb = x_s + wm * RW * xs + x_col(kc) + a_lane(lane, xs);
+        const float* xb = xw + wm * RW * xs + x_col(kc) + a_lane(lane, xs);
         // t: the chunk's sums on the tensor cores (at 6xTF32 the small
         // terms in tc, apart)
         float t[MT][4][4], tc[MT][4][4];
@@ -1840,7 +2126,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       }
       if (kc == nkc - 1) {
         const int col = p * kCols + wn * 32 + 2 * t4;
-        if constexpr (BODY == kV3) {
+        if constexpr (!radix_body(BODY)) {
           epi.tile(acc, r0 + wm * RW + g8, col, INT_MAX);
         } else {
           const int l0 = wm * RW + g8;
@@ -1853,29 +2139,57 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       }
     }
   }
-  epi.finish(stage);
+  };
+  const OutGeom geom{n, nbh, nbw, row_chunks, vh, vw, out_h, out_w};
+  if constexpr (BODY == kV2) {
+    for (int t = 0;; ++t) {
+      // block t's cell, decoded anew from the block index (the H stage's
+      // decode is not held in registers through the W stages)
+      long long bid = opaque(blockIdx.x);
+      const int ni = static_cast<int>(bid % n);
+      bid /= n;
+      const int rc = static_cast<int>(bid % row_chunks);
+      const long long cell = bid / row_chunks;
+      const int gbh = (nbh + group - 1) / group;
+      const int bi = static_cast<int>((cell / nbw) % gbh) * group;
+      if (t >= min(group, nbh - bi)) break;
+      Epi epi(out, Cell{cell / (static_cast<long long>(nbw) * gbh), bi + t, static_cast<int>(cell % nbw),
+                        rc, ni, 1}, geom);
+      w_stage(x_s + t * ROWS * xs, epi);
+      epi.finish(stage);
+    }
+  } else {
+    Epi epi(out, cell_at, geom);
+    w_stage(x_s, epi);
+    epi.finish(stage);
+  }
 }
 
-template <class TS, int ROWS, bool STACKED, int SPLITS, int BODY, class Epi>
+template <class TS, int ROWS, bool STACKED, int SPLITS, int BODY, class Epi, bool KARA>
 int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
            const float* gt_re, const float* gt_im, const float* g_pad,
            const float* m_tc, RadixOps rx, typename Epi::Out out, int b, int nbh, int nbw,
            int f, int n, int lh, int wc, int vh, int vw, int out_h, int out_w,
            int ktile, cudaStream_t stream) {
-  const int group = STACKED ? blocks_per_cta(wc, vh, SPLITS) : 1;
-  const long long smem =
-      STACKED ? stacked_smem_bytes(wc, group, SPLITS) : tile_smem_bytes(ROWS, wc, SPLITS);
-  const int row_chunks = STACKED           ? 1
-                         : BODY == kV3 ? (vh + ROWS - 1) / ROWS
-                                       : pair_chunks(lh, vh, ROWS) + single_chunks(lh, vh, ROWS);
+  // v2: `group` blocks of a block column a CTA (v2_blocks, at most nbh)
+  const int group = STACKED ? blocks_per_cta(wc, vh, SPLITS)
+                    : BODY == kV2 ? min(v2_blocks(wc, vh, SPLITS, KARA), nbh)
+                                  : 1;
+  const long long smem = STACKED        ? stacked_smem_bytes(wc, group, SPLITS)
+                         : BODY == kV2 ? v2_smem_bytes(wc, vh, SPLITS, KARA)
+                                       : tile_smem_bytes(ROWS, wc, SPLITS, KARA);
+  const int row_chunks = STACKED               ? 1
+                         : !radix_body(BODY) ? (vh + ROWS - 1) / ROWS
+                                             : pair_chunks(lh, vh, ROWS) + single_chunks(lh, vh, ROWS);
   const Ring ring = STACKED ? stacked_ring<TS>(wc, group) : Ring{0, 0, 0};
-  // stacked: b images x tiles of ktile kernels x block groups
+  // stacked: b images x tiles of ktile kernels x block groups; v2: b images
+  // x block groups (of `group` blocks down a column) x row chunks x kernels
   const long long grid =
       STACKED ? static_cast<long long>(b) * ((n + ktile - 1) / ktile) * ktile *
                     ((static_cast<long long>(nbh) * nbw + group - 1) / group)
-              : static_cast<long long>(b) * nbh * nbw * row_chunks * n;
+              : static_cast<long long>(b) * ((nbh + group - 1) / group) * nbw * row_chunks * n;
   if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  auto kernel = block_conv_kernel<TS, ROWS, STACKED, SPLITS, BODY, Epi>;
+  auto kernel = block_conv_kernel<TS, ROWS, STACKED, SPLITS, BODY, Epi, KARA>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1888,48 +2202,60 @@ int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
 // Checks the geometry and launches the configuration for (wc, vh) at the
 // tier SPLITS and body BODY on `stream`; does not synchronise. gt_re,
 // gt_im: G^T (Lh, Vh), exact; g_pad: G (2, g_rows(vh), g_cols(lh)) = re,
-// im, exact; m_tc: the m_planes(tile_rows(wc, vh, SPLITS), SPLITS) planes
-// of M^T (m_cols(vw), 2 padded_bins(wc)) in core matrices, row c holding
-// column c of [Mr ; Mi] (Mi from k = padded_bins(wc) on): its TF32 pieces,
-// or M^T exact where the configuration stages one plane; zeros wherever
-// the padding reaches. At kBF16IO G^T, G and M^T (one plane) are rounded
-// to bf16 instead of exact. The DIF bodies take in m_tc the planes of
-// [epr; epi; oqr; oqi]^T (m_cols(min(vw, W/2)), W) instead, and the radix
-// bodies the operands of RadixOps (v5x: slv; the others may pass null
-// there); they run only where the one-block configurations do
-// (blocks_per_cta = 1) on the plans radix_h_ok (and, DIF, radix_w_ok)
-// admit. `ktile` (1..n), the kernels a launch tile of the stacked
-// configuration holds, is its launch order (n: the kernel index fastest);
-// the others run the kernel index fastest. Epi is the epilogue class
-// template. Returns cudaGetLastError() after the launch (0 = launched), or
-// the error that stopped it (cudaErrorInvalidValue for a geometry or
-// operand it does not take).
-template <class TS, template <bool> class Epi, int SPLITS = 3, int BODY = kV3>
+// im, exact; m_tc: the m_planes(rows, SPLITS) planes of M^T (m_cols(vw),
+// 2 padded_bins(wc)) in core matrices, rows = tile_rows(wc, vh, SPLITS,
+// KARA) (v2: v2_rows), row c holding column c of [Mr ; Mi] (Mi from k =
+// padded_bins(wc) on): its TF32 pieces, or M^T exact where the
+// configuration stages one plane; zeros wherever the padding reaches. At
+// kBF16IO G^T, G and M^T (one plane) are rounded to bf16 instead of exact.
+// The DIF bodies take in m_tc the planes of [epr; epi; oqr; oqi]^T
+// (m_cols(min(vw, W/2)), W) instead, and the radix bodies the operands of
+// RadixOps (v5x: slv; the others may pass null there); they run only where
+// the one-block configurations do (blocks_per_cta = 1) on the plans
+// radix_h_ok (and, DIF, radix_w_ok) admit. KARA runs the Karatsuba H stage
+// (v3 and v2 only). `ktile` (1..n), the kernels a launch tile of the
+// stacked configuration holds, is its launch order (n: the kernel index
+// fastest); the others run the kernel index fastest. Epi is the epilogue
+// class template. Returns cudaGetLastError() after the launch (0 =
+// launched), or the error that stopped it (cudaErrorInvalidValue for a
+// geometry or operand it does not take).
+template <class TS, template <bool> class Epi, int SPLITS = 3, int BODY = kV3, bool KARA = false>
 int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
                       const TS* k_im, const float* gt_re, const float* gt_im,
                       const float* g_pad, const float* m_tc, RadixOps rx,
                       typename Epi<false>::Out out, int b, int nbh, int nbw,
                       int f, int n, int lh, int wc, int vh, int vw, int out_h,
                       int out_w, int ktile, void* stream) {
+  static_assert(!KARA || !radix_body(BODY), "the Karatsuba H stage runs in the v3 and v2 bodies");
+  const long long need = BODY == kV2 ? v2_smem_bytes(wc, vh, SPLITS, KARA) : smem_bytes(wc, vh, SPLITS, KARA);
   if (b <= 0 || nbh <= 0 || nbw <= 0 || f <= 0 || n <= 0 || lh <= 0 ||
       wc <= 0 || vh <= 0 || vw <= 0 || out_h <= 0 || out_w <= 0 ||
-      ktile < 1 || ktile > n || smem_bytes(wc, vh, SPLITS) > kMaxSmem)
+      ktile < 1 || ktile > n || need > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (BODY == kV2) {
+    if (v2_rows(wc, vh, SPLITS, KARA) == 32)
+      return launch<TS, 32, false, SPLITS, BODY, Epi<false>, KARA>(d_re, d_im, k_re, k_im, gt_re, gt_im,
+                                                                   g_pad, m_tc, rx, out, b, nbh, nbw, f, n,
+                                                                   lh, wc, vh, vw, out_h, out_w, ktile, s);
+    return launch<TS, 64, false, SPLITS, BODY, Epi<false>, KARA>(d_re, d_im, k_re, k_im, gt_re, gt_im,
+                                                                 g_pad, m_tc, rx, out, b, nbh, nbw, f, n,
+                                                                 lh, wc, vh, vw, out_h, out_w, ktile, s);
+  } else {
   if constexpr (BODY == kV3) {
     if (blocks_per_cta(wc, vh, SPLITS) > 1)
-      return launch<TS, 64, true, SPLITS, BODY, Epi<true>>(d_re, d_im, k_re, k_im, gt_re, gt_im,
-                                                           g_pad, m_tc, rx, out, b, nbh, nbw, f, n,
-                                                           lh, wc, vh, vw, out_h, out_w, ktile, s);
+      return launch<TS, 64, true, SPLITS, BODY, Epi<true>, KARA>(d_re, d_im, k_re, k_im, gt_re, gt_im,
+                                                                 g_pad, m_tc, rx, out, b, nbh, nbw, f, n,
+                                                                 lh, wc, vh, vw, out_h, out_w, ktile, s);
   } else {
     if (blocks_per_cta(wc, vh, SPLITS) > 1 || !radix_h_ok(lh, vh) || !rx.u_pad || !rx.tw ||
         (dif_body(BODY) && !radix_w_ok(wc)) || (BODY == kV5X && !rx.slv))
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (wide(wc, SPLITS))
-    return launch<TS, 32, false, SPLITS, BODY, Epi<false>>(d_re, d_im, k_re, k_im, gt_re, gt_im,
-                                                           g_pad, m_tc, rx, out, b, nbh, nbw, f, n,
-                                                           lh, wc, vh, vw, out_h, out_w, ktile, s);
+  if (wide(wc, SPLITS, KARA))
+    return launch<TS, 32, false, SPLITS, BODY, Epi<false>, KARA>(d_re, d_im, k_re, k_im, gt_re, gt_im,
+                                                                 g_pad, m_tc, rx, out, b, nbh, nbw, f, n,
+                                                                 lh, wc, vh, vw, out_h, out_w, ktile, s);
   if constexpr (dif_body(BODY) && SPLITS == 6) {
     // The 64-row configuration takes bins up to 256 at 6xTF32, the DIF
     // stage W = 2 (Wc - 1) a multiple of 512 (radix_w_legal): no plan
@@ -1937,9 +2263,10 @@ int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
     // apart sums would spill).
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    return launch<TS, 64, false, SPLITS, BODY, Epi<false>>(d_re, d_im, k_re, k_im, gt_re, gt_im,
-                                                           g_pad, m_tc, rx, out, b, nbh, nbw, f,
-                                                           n, lh, wc, vh, vw, out_h, out_w, ktile, s);
+    return launch<TS, 64, false, SPLITS, BODY, Epi<false>, KARA>(d_re, d_im, k_re, k_im, gt_re, gt_im,
+                                                                 g_pad, m_tc, rx, out, b, nbh, nbw, f,
+                                                                 n, lh, wc, vh, vw, out_h, out_w, ktile, s);
+  }
   }
 }
 

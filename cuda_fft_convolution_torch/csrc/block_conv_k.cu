@@ -1,0 +1,26 @@
+// Fused overlap-save block convolution for Hopper (sm_90a): the maps
+// kernel's v3 body with the Karatsuba H stage, the complex product X = G S
+// as three real products — t1 = Gr Sr, t2 = Gi Si, t3 = (Gr + Gi)(Sr + Si);
+// Xr = t1 - t2, Xi = t3 - t1 - t2 — in place of four: the karatsuba form
+// of _make_kernel_v3 (cuda_fft_convolution_tpu/ops/block_conv.py:153-157),
+// which block_conv_pallas runs by default. block_conv.cuh says how each
+// configuration runs it (KARA): the tensor-core configurations stage the
+// planes Gr + Gi and Sr + Si (pieces of the fp32 sums, or at kBF16IO their
+// bf16 roundings), the stacked one forms them as its FMAs read S and G. The
+// entries take the v3 entries' operands (block_conv.cu) in every dtype
+// mode and synthesis tier of those, with the suffix _k.
+
+#include "block_conv_maps.cuh"
+
+// Shared memory and rows of the Karatsuba configurations at packed width
+// wc, window height vh and tier `splits` (-1 for a tier outside 0, 1, 3,
+// 6); ops/block_conv.py smem_bytes and tile_rows (karatsuba=True) mirror
+// them. The blocks a CTA stacks are fftconv_block_conv_f32_blocks'.
+extern "C" long long fftconv_block_conv_k_smem_bytes(int wc, int vh, int splits) {
+  return valid_splits(splits) ? smem_bytes(wc, vh, splits, true) : -1;
+}
+extern "C" int fftconv_block_conv_k_rows(int wc, int vh, int splits) {
+  return valid_splits(splits) ? tile_rows(wc, vh, splits, true) : -1;
+}
+
+FFTCONV_BLOCK_CONV_FORM_ENTRIES(_k, kV3, true)

@@ -1,8 +1,8 @@
 // Fused overlap-save block convolution for Hopper (sm_90a): the peaks
 // kernel's epilogue and the macros of its C entries, shared by the v3
-// entries (block_conv_peaks.cu) and the radix bodies' (block_conv_r4.cu,
-// block_conv_r5.cu, block_conv_r5x.cu). block_conv_peaks.cu says what it
-// computes.
+// entries (block_conv_peaks.cu), the radix bodies' (block_conv_r4.cu,
+// block_conv_r5.cu, block_conv_r5x.cu) and the Karatsuba entries'
+// (block_conv_peaks_k.cu). block_conv_peaks.cu says what it computes.
 
 #pragma once
 
@@ -205,6 +205,19 @@ struct ReducePeaks {
         d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc,                      \
         RadixOps{u_pad, tw, slv}, PeaksOut{vals, idxs}, b, nbh, nbw, f, n, lh,  \
         wc, vh, vw, out_h, out_w, ktile, stream);                               \
+  }
+// A Karatsuba entry (block_conv_peaks_k.cu): the v3 entries' operands.
+#define FFTCONV_PEAKS_KARATSUBA_ENTRY(NAME, TS, SPLITS)                         \
+  extern "C" int NAME(const TS* d_re, const TS* d_im, const TS* k_re,           \
+                      const TS* k_im, const float* gt_re, const float* gt_im,   \
+                      const float* g_pad, const float* m_tc, float* vals,       \
+                      int* idxs, int b, int nbh, int nbw, int f, int n, int lh, \
+                      int wc, int vh, int vw, int out_h, int out_w, int ktile,  \
+                      void* stream) {                                           \
+    return launch_block_conv<TS, ReducePeaks, SPLITS, kV3, true>(              \
+        d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc, RadixOps{},         \
+        PeaksOut{vals, idxs}, b, nbh, nbw, f, n, lh, wc, vh,                   \
+        vw, out_h, out_w, ktile, stream);                                      \
   }
 // The peaks kernel's five dtype-and-tier entries of one radix body.
 #define FFTCONV_PEAKS_RADIX_ENTRIES(SUFFIX, BODY)                                        \

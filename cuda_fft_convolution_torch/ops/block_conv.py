@@ -65,6 +65,18 @@ kernel, ``_xsliver``). Their kernel entries carry the suffixes ``_r4``,
 ``_r5``, ``_r5x`` (``RADIX_SUFFIX``); they run in the one-block 64- and
 32-row configurations only (``radix_fits``). ``block_conv_reference``
 follows each body's factorisation (``_radix_x``, ``_dif_tile``).
+
+H-stage forms. ``karatsuba=True`` selects the JAX package's Karatsuba H
+stage, X = G·S as three real products (t1 = Gr·Sr, t2 = Gi·Si, t3 =
+(Gr + Gi)·(Sr + Si); Xr = t1 − t2, Xi = t3 − t1 − t2), in v3 (maps and
+peaks; entries ``…_k``) and v2; ``wstack=False`` (maps only) its v2 body:
+``v2_blocks`` blocks of one block column a CTA, one column-stacked H
+product, then the W stage block by block (entries ``…_v2``, ``…_v2_k``).
+``karatsuba=None`` keeps the 4-product form on every body; a radix body
+takes neither flag (``_karatsuba``, ``_body``). The configuration mirror
+takes the form (``smem_bytes(..., karatsuba)``, ``v2_rows``,
+``form_smem_bytes``), and ``_h_synthesis`` / ``_v2_x`` compute the forms
+in the plain version.
 """
 
 from __future__ import annotations
@@ -142,13 +154,16 @@ def _stage_w(rows: int, splits: int) -> int:
     return 2 * m_planes(rows, splits) * _M_PLANE
 
 
-def _stage_h(rows: int, splits: int) -> int:
+def _stage_h(rows: int, splits: int, karatsuba: bool = False) -> int:
     """Floats of the H stage's staging: the pieces of S^T (re, im) and of
-    the G chunk (re, im, and −im at 64 rows)."""
+    the G chunk (re, im, and −im at 64 rows). The Karatsuba H stage stages
+    a third S^T plane, Sr + Si, and Gr + Gi (in place of −Gi at 64 rows, a
+    third G plane at 32)."""
     p = TIERS[splits]
+    s = 3 if karatsuba else 2
     if rows == 64:  # unpadded, for wgmma
-        return 2 * p * _COLS * _UK + 3 * p * rows * _UK
-    return 2 * p * _COLS * _GS + 2 * p * rows * _GS
+        return s * p * _COLS * _UK + 3 * p * rows * _UK
+    return s * p * (_COLS + rows) * _GS
 
 
 def _x_bytes(wc: int, rows: int) -> int:
@@ -178,12 +193,21 @@ def _stack(wc: int, blocks: int, splits: int = 3) -> tuple[int, int]:
     return 0, 0
 
 
-def _tile_smem_bytes(wc: int, rows: int, blocks: int = 1, splits: int = 3) -> int:
+def _tile_smem_bytes(
+    wc: int, rows: int, blocks: int = 1, splits: int = 3, karatsuba: bool = False
+) -> int:
     """Shared memory of the configuration of ``rows`` rows stacking
-    ``blocks`` blocks at packed width ``wc`` and tier ``splits``."""
+    ``blocks`` blocks at packed width ``wc``, tier ``splits`` and H-stage
+    form (the stacked configuration's Karatsuba stage stages nothing
+    more: its FMAs form Sr + Si and Gr + Gi as they read S and G)."""
     if blocks > 1:
         return _stack(wc, blocks, splits)[1]
-    return _x_bytes(wc, rows) + 4 * max(_stage_h(rows, splits), _stage_w(rows, splits))
+    return _x_bytes(wc, rows) + 4 * _stage_all(rows, splits, karatsuba)
+
+
+def _stage_all(rows: int, splits: int, karatsuba: bool = False) -> int:
+    """Floats of the staging area: the larger of the two stages'."""
+    return max(_stage_h(rows, splits, karatsuba), _stage_w(rows, splits))
 
 
 def blocks_per_cta(wc: int, vh: int, splits: int = 3) -> int:
@@ -199,28 +223,76 @@ def blocks_per_cta(wc: int, vh: int, splits: int = 3) -> int:
     return g if steps >= _MIN_STEPS and smem <= SMEM_LIMIT_BYTES else 1
 
 
-def tile_rows(wc: int, vh: int, splits: int = 3) -> int:
+def tile_rows(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
     """Rows one CTA holds: 64 (stacked, or one block's window rows where
-    that configuration's shared memory fits), else 32."""
+    that configuration's shared memory fits, at the tier and H-stage
+    form), else 32."""
     if blocks_per_cta(wc, vh, splits) > 1:
         return 64
-    return 64 if _tile_smem_bytes(wc, 64, splits=splits) <= SMEM_LIMIT_BYTES else 32
+    fits = _tile_smem_bytes(wc, 64, splits=splits, karatsuba=karatsuba) <= SMEM_LIMIT_BYTES
+    return 64 if fits else 32
 
 
-def smem_bytes(wc: int, vh: int, splits: int = 3) -> int:
+def smem_bytes(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
     """Shared memory the CUDA kernels need at packed width ``wc``, window
-    height ``vh`` and tier ``splits``."""
+    height ``vh``, tier ``splits`` and H-stage form (``karatsuba``)."""
     return _tile_smem_bytes(
-        wc, tile_rows(wc, vh, splits), blocks_per_cta(wc, vh, splits), splits
+        wc, tile_rows(wc, vh, splits, karatsuba), blocks_per_cta(wc, vh, splits), splits,
+        karatsuba,
     )
 
 
-def row_chunks(wc: int, vh: int, splits: int = 3) -> int:
+def row_chunks(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
     """CTAs that split one block's window rows: 1 where blocks stack, else
     ceil(vh / tile_rows)."""
     if blocks_per_cta(wc, vh, splits) > 1:
         return 1
-    return -(-vh // tile_rows(wc, vh, splits))
+    return -(-vh // tile_rows(wc, vh, splits, karatsuba))
+
+
+def v2_rows(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
+    """Window rows a CTA of the v2 body holds of each of its blocks: 32 for
+    windows of at most 32 rows or where the 64-row X does not fit, else
+    64."""
+    _check_splits(splits)
+    fits = _tile_smem_bytes(wc, 64, splits=splits, karatsuba=karatsuba) <= SMEM_LIMIT_BYTES
+    return 32 if vh <= 32 or not fits else 64
+
+
+def v2_blocks(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
+    """MBH, the blocks of one block column a CTA of the v2 body takes: the
+    most (up to 16) whose X (``v2_rows`` rows each) fits beside the staging
+    area, at least 1 (``v2_smem_bytes`` then says whether one fits). The
+    kernel cuts it to the grid's block rows."""
+    rows = v2_rows(wc, vh, splits, karatsuba)
+    left = SMEM_LIMIT_BYTES - 4 * _stage_all(rows, splits, karatsuba)
+    return min(max(left // _x_bytes(wc, rows), 1), _MAX_GROUP)
+
+
+def v2_smem_bytes(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
+    """Shared memory of the v2 body: ``v2_blocks`` blocks' X and the
+    staging area."""
+    rows = v2_rows(wc, vh, splits, karatsuba)
+    return (v2_blocks(wc, vh, splits, karatsuba) * _x_bytes(wc, rows)
+            + 4 * _stage_all(rows, splits, karatsuba))
+
+
+def form_smem_bytes(
+    wc: int, vh: int, splits: int = 3, wstack: bool = True, karatsuba: bool = False
+) -> int:
+    """Shared memory of a call's configuration with the H-stage form's
+    flags: ``smem_bytes`` (v3 and the radix bodies), ``v2_smem_bytes``
+    under ``wstack=False``. Over ``SMEM_LIMIT_BYTES`` the CUDA wrappers
+    raise."""
+    return (smem_bytes if wstack else v2_smem_bytes)(wc, vh, splits, karatsuba)
+
+
+def form_taken(wc: int, vh: int, splits: int = 3, wstack: bool = True,
+               karatsuba: bool = False) -> bool:
+    """Whether the CUDA kernels take a call of the form at packed width
+    ``wc``, window height ``vh`` and tier ``splits``: whether its shared
+    memory (``form_smem_bytes``) fits."""
+    return form_smem_bytes(wc, vh, splits, wstack, karatsuba) <= SMEM_LIMIT_BYTES
 
 
 def fused_splits(spec_dtype: torch.dtype = torch.float32) -> int:
@@ -306,6 +378,7 @@ def _window_mats(block_h: int, block_w: int, kh: int, kw: int, device: str):
 
 # body → the suffix of its kernel entries (v3 has none)
 RADIX_SUFFIX = {"v3": "", "v4": "_r4", "v5": "_r5", "v5x": "_r5x"}
+_RADIX_BODIES = ("v4", "v5", "v5x")
 
 
 def _pad128(x: int) -> int:
@@ -431,12 +504,41 @@ def radix_row_chunks(wc: int, lh: int, vh: int, splits: int = 3) -> int:
     return sum(radix_chunks(lh, vh, tile_rows(wc, vh, splits)))
 
 
-def _body(radix_h: bool, radix_w: bool, xsliver: bool) -> str:
+def _body(radix_h: bool, radix_w: bool, xsliver: bool, wstack: bool = True) -> str:
     """The body the flags select, with the JAX package's rules: ``radix_w``
-    implies ``radix_h``, ``xsliver`` is read under ``radix_w`` only."""
+    implies ``radix_h``, ``xsliver`` is read under ``radix_w`` only, and
+    ``wstack=False`` selects v2, which takes neither radix flag (its assert
+    at ``cuda_fft_convolution_tpu/ops/block_conv.py:737-741``; here
+    ``InvalidInputError`` on either device)."""
+    if not wstack:
+        if radix_h or radix_w:
+            raise InvalidInputError(
+                "radix_h and radix_w run in the row-stacked bodies: they need wstack=True")
+        return "v2"
     if radix_w:
         return "v5x" if xsliver else "v5"
     return "v4" if radix_h else "v3"
+
+
+def _karatsuba(karatsuba: bool | None, body: str) -> bool:
+    """The H stage's form: ``karatsuba=None`` keeps the 4-product form on
+    every body (JAX's None means True, False for v2: a choice measured on
+    a TPU, ROADMAP queue 3); True runs the Karatsuba form, which the port
+    has for v3 and v2, and raises ``InvalidInputError`` with a radix body
+    on either device."""
+    if not karatsuba:
+        return False
+    if body not in ("v3", "v2"):
+        raise InvalidInputError(
+            f"karatsuba=True runs in the v3 and v2 bodies; the {body} body's Karatsuba form is "
+            f"not ported (ROADMAP.md queue 2, 'Karatsuba in the radix bodies')")
+    return True
+
+
+def body_suffix(body: str, karatsuba: bool = False) -> str:
+    """The suffix of a body's C entries: the radix bodies' (``RADIX_SUFFIX``),
+    '_v2' for v2, then '_k' for the Karatsuba H stage; v3 has none."""
+    return RADIX_SUFFIX.get(body, "_v2" if body == "v2" else "") + ("_k" if karatsuba else "")
 
 
 def _check_body(body: str, block_h: int, block_w: int, kh: int, kw: int) -> None:
@@ -444,7 +546,7 @@ def _check_body(body: str, block_h: int, block_w: int, kh: int, kw: int) -> None
     asserts (``cuda_fft_convolution_tpu/ops/block_conv.py:737-741,
     773-776``): a radix body on a plan its legality rules reject."""
     vh, vw = block_h - kh + 1, block_w - kw + 1
-    if body != "v3" and not radix_h_legal(block_h, vh):
+    if body in _RADIX_BODIES and not radix_h_legal(block_h, vh):
         raise InvalidInputError(
             f"radix_h requires the v4 window/period alignment (block_h={block_h}, vh={vh})")
     if body in ("v5", "v5x") and not radix_w_legal(block_w, kw, vw):
@@ -455,7 +557,7 @@ def _check_body(body: str, block_h: int, block_w: int, kh: int, kw: int) -> None
 def _check_radix_fits(body: str, wc: int, vh: int, splits: int) -> None:
     """On CUDA tensors a radix body needs ``radix_fits``: no other
     configuration runs it, and none is run in its place."""
-    if body != "v3" and not radix_fits(wc, vh, splits):
+    if body in _RADIX_BODIES and not radix_fits(wc, vh, splits):
         raise InvalidInputError(
             f"the {body} body runs in the one-block configurations only; Wc={wc}, Vh={vh} at "
             f"{tier_name(splits)} stacks {blocks_per_cta(wc, vh, splits)} blocks a CTA "
@@ -604,6 +706,43 @@ def _dif_tile(x_re, x_im, nyq, block_w, kw, rnd):
     return torch.cat([p + sign * q, (p - q)[..., : vw - tn]], dim=-1)
 
 
+def _h_synthesis(gr, gi, s_re, s_im, rnd, karatsuba: bool):
+    """X = G S, complex, from the MAC's fp32 S: the 4-product form on S
+    rounded by ``rnd`` (the tier's rounding), or the Karatsuba form —
+    t1 = Gr Sr, t2 = Gi Si, t3 = (Gr + Gi)(Sr + Si), X = (t1 − t2,
+    t3 − t1 − t2) — with Gr + Gi formed from the (rounded) G planes and
+    rounded again and Sr + Si summed before its one rounding, where the
+    JAX kernel's BF16IO dots round them."""
+    if karatsuba:
+        t1, t2 = gr @ rnd(s_re), gi @ rnd(s_im)
+        t3 = rnd(gr + gi) @ rnd(s_re + s_im)
+        return t1 - t2, t3 - t1 - t2
+    s_re, s_im = rnd(s_re), rnd(s_im)
+    return gr @ s_re - gi @ s_im, gr @ s_im + gi @ s_re
+
+
+def _v2_x(gr, gi, s_re, s_im, rnd, karatsuba: bool, mbh: int):
+    """The v2 body's H stage: the blocks' S (…, nbh, nbw, N, Lh, Wc) grouped
+    ``mbh`` at a time down each block column and stacked side by side,
+    (…, Lh, mbh·Wc), one product G [S_1 | … | S_mbh] per group, and the
+    columns split back into blocks → X (…, nbh, nbw, N, Vh, Wc)."""
+    b, nbh, nbw, n, lh, wc = s_re.shape
+    gbh = -(-nbh // mbh)
+
+    def stack(s):
+        s = F.pad(s, (0, 0) * 4 + (0, gbh * mbh - nbh))
+        return (s.reshape(b, gbh, mbh, nbw, n, lh, wc).permute(0, 1, 3, 4, 5, 2, 6)
+                .reshape(b, gbh, nbw, n, lh, mbh * wc))
+
+    def unstack(x):
+        vh = x.shape[-2]
+        return (x.reshape(b, gbh, nbw, n, vh, mbh, wc).permute(0, 1, 5, 2, 3, 4, 6)
+                .reshape(b, gbh * mbh, nbw, n, vh, wc)[:, :nbh])
+
+    x_re, x_im = _h_synthesis(gr, gi, stack(s_re), stack(s_im), rnd, karatsuba)
+    return unstack(x_re), unstack(x_im)
+
+
 def upcast(t: torch.Tensor) -> torch.Tensor:
     """bf16 planes as float32 (exact); any other tensor as it is."""
     return t.float() if t.dtype == torch.bfloat16 else t
@@ -630,15 +769,20 @@ def block_conv_reference(
     out_dtype: torch.dtype = torch.float32,
     splits: int | None = None,
     radix_h: bool = False, radix_w: bool = False, xsliver: bool = False,
+    wstack: bool = True, karatsuba: bool | None = None,
 ) -> torch.Tensor:
     """Plain torch version of the fused kernel at synthesis tier ``splits``
     (None: ``fused_splits`` of the spectra's dtype) → (B, N, out_h, out_w)
     maps in ``out_dtype``: bf16 planes are upcast to float32 first. IEEE
     fp32 at every tier but ``BF16IO``, which rounds S, G, X and M to bf16
-    right before each product (exact products, fp32 sums, the kernels'
-    4-product complex form). float64 planes run in float64, with
-    ``out_dtype=torch.float64`` for float64 maps (the checks' exact
+    right before each product (exact products, fp32 sums; ``_h_synthesis``
+    says where the Karatsuba form rounds). float64 planes run in float64,
+    with ``out_dtype=torch.float64`` for float64 maps (the checks' exact
     reference). Differentiable; used on the CPU and by the tests.
+
+    ``wstack=False`` runs the v2 body (``_v2_x``: ``v2_blocks`` blocks a
+    column-stacked product, then the W stage per block), ``karatsuba=True``
+    the Karatsuba H stage (v3 and v2; None and False: the 4-product form).
 
     ``radix_h``, ``radix_w``, ``xsliver`` select the body (``_body``; an
     illegal plan raises ``ValueError``), computed in its factorisation as
@@ -652,10 +796,11 @@ def block_conv_reference(
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
-    body = _body(radix_h, radix_w, xsliver)
+    body = _body(radix_h, radix_w, xsliver, wstack)
     _check_body(body, block_h, block_w, kh, kw)
-    io = _resolve_splits(splits, dr.dtype) == BF16IO
-    rnd = bf16_round if io else (lambda x: x)
+    kara = _karatsuba(karatsuba, body)
+    tier = _resolve_splits(splits, dr.dtype)
+    rnd = bf16_round if tier == BF16IO else (lambda x: x)
     slv = _xsliver(dr, di, kr, ki, block_h, block_w, kh) if body == "v5x" else None
     dr, di, kr, ki = (upcast(t) for t in (dr, di, kr, ki))
     gr, gi, mr, mi = (
@@ -666,14 +811,16 @@ def block_conv_reference(
     def mac(d, k):
         return torch.einsum("bijfuv,nfuv->bijnuv", d, k)
 
-    s_re = rnd(mac(dr, kr) - mac(di, ki))  # (B, nbh, nbw, N, Lh, Wc)
-    s_im = rnd(mac(di, kr) + mac(dr, ki))
+    s_re = mac(dr, kr) - mac(di, ki)  # (B, nbh, nbw, N, Lh, Wc), fp32
+    s_im = mac(di, kr) + mac(dr, ki)
     if body == "v3":
-        x_re = gr @ s_re - gi @ s_im  # (B, nbh, nbw, N, Vh, Wc)
-        x_im = gr @ s_im + gi @ s_re
+        x_re, x_im = _h_synthesis(gr, gi, s_re, s_im, rnd, kara)  # (B, nbh, nbw, N, Vh, Wc)
+    elif body == "v2":
+        mbh = min(v2_blocks(wc, vh, tier, kara), nbh)
+        x_re, x_im = _v2_x(gr, gi, s_re, s_im, rnd, kara, mbh)
     else:
-        x_re, x_im = _radix_x(s_re, s_im, block_h, kh, rnd, gr, gi)
-    if body in ("v3", "v4"):
+        x_re, x_im = _radix_x(rnd(s_re), rnd(s_im), block_h, kh, rnd, gr, gi)
+    if body in ("v3", "v4", "v2"):
         tile = rnd(x_re) @ mr + rnd(x_im) @ mi  # (B, nbh, nbw, N, Vh, Vw)
     else:
         nyq = x_re[..., block_w // 2] if slv is None else rnd(slv.to(x_re.dtype)).permute(0, 2, 3, 1, 4)
@@ -725,11 +872,15 @@ def reset_launches(*wrappers) -> None:
             w.launches_by_shape.clear()
 
 
-def _check_smem(block_w: int, wc: int, vh: int, splits: int) -> None:
+def _check_fit(block_w: int, wc: int, vh: int, splits: int, body: str, karatsuba: bool) -> None:
+    """Raise where the kernels do not take the call (``form_taken``): its
+    shared memory passes Hopper's limit."""
+    need = form_smem_bytes(wc, vh, splits, body != "v2", karatsuba)
+    form = f"the {body} body" + (" with the Karatsuba H stage" if karatsuba else "")
     validate(
-        smem_bytes(wc, vh, splits) <= SMEM_LIMIT_BYTES,
-        f"block width {block_w} needs {smem_bytes(wc, vh, splits)} B of shared "
-        f"memory at {tier_name(splits)} (limit {SMEM_LIMIT_BYTES})",
+        need <= SMEM_LIMIT_BYTES,
+        f"block width {block_w} needs {need} B of shared memory in {form} at "
+        f"{tier_name(splits)} (limit {SMEM_LIMIT_BYTES})",
     )
 
 
@@ -755,6 +906,7 @@ def block_conv(
     out_dtype: torch.dtype = torch.float32,
     splits: int | None = None,
     radix_h: bool = False, radix_w: bool = False, xsliver: bool = False,
+    wstack: bool = True, karatsuba: bool | None = None,
 ) -> torch.Tensor:
     """→ (B, N, out_h, out_w) maps in ``out_dtype``. CPU tensors run
     ``block_conv_reference`` at the tier; CUDA tensors launch the CUDA
@@ -768,28 +920,40 @@ def block_conv(
     ``block_conv.launches_by_mode`` and per (mode, block_h, block_w, kh,
     kw) in ``block_conv.launches_by_shape``. A radix body on a plan the
     JAX package's rules reject raises ``ValueError`` on either device; on
-    CUDA tensors also where ``radix_fits`` is False."""
+    CUDA tensors also where ``radix_fits`` is False.
+
+    ``wstack=False`` runs JAX's v2 body (entries ``…_v2``: ``v2_blocks``
+    blocks of a block column a CTA, one column-stacked H stage, the W stage
+    per block; no radix flag with it), ``karatsuba=True`` the Karatsuba H
+    stage in v3 and v2 (entries ``…_k``, ``…_v2_k``; with a radix body it
+    raises). ``karatsuba=None`` is the 4-product form on every body (JAX's
+    None is Karatsuba but for v2). On CUDA tensors a form the kernels do
+    not take (``form_taken``: its shared memory does not fit) raises; no
+    other entry runs in its place."""
     _check_out_dtype(out_dtype)
     ops = (dr, di, kr, ki)
     splits = _resolve_splits(splits, dr.dtype)
     if all(t.device.type == "cpu" for t in ops):
         return block_conv_reference(
             dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, out_dtype, splits,
-            radix_h, radix_w, xsliver,
+            radix_h, radix_w, xsliver, wstack, karatsuba,
         )
-    body = _body(radix_h, radix_w, xsliver)
+    body = _body(radix_h, radix_w, xsliver, wstack)
     _check_body(body, block_h, block_w, kh, kw)
+    kara = _karatsuba(karatsuba, body)
     dev, tag = cuda_operands("block_conv", ops)
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
-    _check_smem(block_w, wc, vh, splits)
+    rows = (v2_rows if body == "v2" else tile_rows)(wc, vh, splits, kara)
+    _check_fit(block_w, wc, vh, splits, body, kara)
     _check_radix_fits(body, wc, vh, splits)
     from cuda_fft_convolution_torch._build import library
 
-    lib = library(radix=body != "v3")
-    gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev), splits)
-    mode = f"block_conv_{tag}{_MAPS_SUFFIX[out_dtype]}{TIER_SUFFIX[splits]}{RADIX_SUFFIX[body]}"
+    lib = library(radix=body in _RADIX_BODIES, forms=body == "v2" or kara)
+    gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev), splits, rows)
+    mode = (f"block_conv_{tag}{_MAPS_SUFFIX[out_dtype]}{TIER_SUFFIX[splits]}"
+            f"{body_suffix(body, kara)}")
     ktile = kernel_tile(wc, vh, kr, splits)
     out = torch.empty((b, n, out_h, out_w), dtype=out_dtype, device=dev)
     m_tc, radix = _radix_args(ops, block_h, block_w, kh, kw, str(dev), splits, body, m_tc)
@@ -855,7 +1019,8 @@ def tf32_product(a: torch.Tensor, b: torch.Tensor, splits: int) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=16)
 def _kernel_mats(
-    block_h: int, block_w: int, kh: int, kw: int, device: str, splits: int = 3
+    block_h: int, block_w: int, kh: int, kw: int, device: str, splits: int = 3,
+    rows: int | None = None,
 ):
     """The kernels' matrix operands at tier ``splits`` (csrc/block_conv.cuh
     launch_block_conv) → (gt_re, gt_im, g_pad, m_tc): G^T (Lh, Vh), re and
@@ -874,7 +1039,8 @@ def _kernel_mats(
     matrix. Zeros fill every padding. At ``BF16IO`` G, G^T and M^T (one
     plane) are the windows rounded to bf16, the operands of that tier's
     products. The operands depend on the tier, so the tier is part of the
-    cache key."""
+    cache key; ``rows`` is the configuration's (None: ``tile_rows`` at the
+    tier — the v3 body's 4-product form), whose M^T planes these are."""
     gr, gi, mr, mi = _window_mats(block_h, block_w, kh, kw, device)
     if splits == BF16IO:
         gr, gi, mr, mi = (bf16_round(m) for m in (gr, gi, mr, mi))
@@ -885,8 +1051,8 @@ def _kernel_mats(
     cols = -(-vw // _COLS) * _COLS
     m_t = torch.zeros((cols, 2 * bins), device=device)
     m_t[:vw, :wc], m_t[:vw, bins : bins + wc] = mr.t(), mi.t()
-    m_tc = _core_matrices(m_t, tile_rows(wc, block_h - kh + 1, splits), splits)
-    return gr.t().contiguous(), gi.t().contiguous(), g_pad, m_tc
+    rows = rows or tile_rows(wc, block_h - kh + 1, splits)
+    return gr.t().contiguous(), gi.t().contiguous(), g_pad, _core_matrices(m_t, rows, splits)
 
 
 def _core_matrices(m_t: torch.Tensor, rows: int, splits: int) -> torch.Tensor:
@@ -930,8 +1096,8 @@ def _radix_args(ops, block_h, block_w, kh, kw, device, splits, body, m_tc):
     """A launch's W-stage operand and the radix entries' extra pointers →
     (m_tc, (u_pad, tw, slv)): v5/v5x take the DIF operand in place of
     ``m_tc``; slv is v5x's sliver (B, N, nbh, nbw, Vh) from ``_xsliver``, a
-    null pointer for v4 and v5; v3 entries take no extra pointers."""
-    if body == "v3":
+    null pointer for v4 and v5; v3 and v2 entries take no extra pointers."""
+    if body not in _RADIX_BODIES:
         return m_tc, ()
     u_pad, tw, m_dif = _radix_kernel_mats(block_h, block_w, kh, kw, device, splits, body)
     slv = _xsliver(*ops, block_h, block_w, kh).contiguous() if body == "v5x" else None
@@ -1030,17 +1196,19 @@ def block_conv_peaks_reference(
     block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
     splits: int | None = None, mbh: int | None = None, mbw: int | None = None,
     radix_h: bool | None = None, radix_w: bool = False, xsliver: bool = False,
+    karatsuba: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of the peaks kernel: ``block_conv_reference`` at
-    tier ``splits`` and the body the flags select (``radix_h=None``: as
-    ``block_conv_peaks`` resolves it) (f32 maps, bf16 planes upcast), then
-    ``cell_peaks`` over one-block cells and ``group_cells`` over cells of
-    ``mbh × mbw`` blocks → (vals f32, idxs int32), each (B, N, ceil(nbh /
-    mbh), ceil(nbw / mbw))."""
+    tier ``splits``, the body the flags select (``radix_h=None``: as
+    ``block_conv_peaks`` resolves it) and the H stage's form
+    (``karatsuba``) (f32 maps, bf16 planes upcast), then ``cell_peaks``
+    over one-block cells and ``group_cells`` over cells of ``mbh × mbw``
+    blocks → (vals f32, idxs int32), each (B, N, ceil(nbh / mbh), ceil(nbw
+    / mbw))."""
     radix_h = _peaks_radix_h(radix_h, radix_w, dr, block_h, block_w, kh, splits)
     maps = block_conv_reference(
         dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, splits=splits,
-        radix_h=radix_h, radix_w=radix_w, xsliver=xsliver,
+        radix_h=radix_h, radix_w=radix_w, xsliver=xsliver, karatsuba=karatsuba,
     )
     vals, idxs = cell_peaks(
         maps, dr.shape[1], dr.shape[2], block_h - kh + 1, block_w - kw + 1
@@ -1078,6 +1246,7 @@ def block_conv_peaks(
     block_h: int, block_w: int, kh: int, kw: int, out_h: int, out_w: int,
     splits: int | None = None, mbh: int | None = None, mbw: int | None = None,
     radix_h: bool | None = None, radix_w: bool = False, xsliver: bool = False,
+    karatsuba: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The per-cell max pyramid of the fused block conv, with no maps
     written → ``(vals, idxs)``, each (B, N, ceil(nbh / mbh), ceil(nbw /
@@ -1096,7 +1265,10 @@ def block_conv_peaks(
     at any grouping. ``radix_h=None`` runs v4 where the JAX package's auto
     rule does and the Hopper kernels take it (``_peaks_radix_h``); an
     explicit radix flag on a plan JAX rejects raises ``ValueError``, and on
-    CUDA tensors also where ``radix_fits`` is False.
+    CUDA tensors also where ``radix_fits`` is False. ``karatsuba=True``
+    runs the Karatsuba H stage (v3 only, entries ``…_k``: with a radix
+    body, the auto rule's included, it raises); None and False the
+    4-product form (JAX's peaks kernel defaults to Karatsuba).
 
     CPU tensors run ``block_conv_peaks_reference``; CUDA tensors launch the
     CUDA kernel entry of their spectra dtype, synthesis tier ``splits``
@@ -1116,28 +1288,31 @@ def block_conv_peaks(
     if all(t.device.type == "cpu" for t in ops):
         return block_conv_peaks_reference(
             dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, splits, mbh, mbw,
-            radix_h, radix_w, xsliver,
+            radix_h, radix_w, xsliver, karatsuba,
         )
     body = _body(radix_h, radix_w, xsliver)
     _check_body(body, block_h, block_w, kh, kw)
+    kara = _karatsuba(karatsuba, body)
     dev, tag = cuda_operands("block_conv_peaks", ops)
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
-    _check_smem(block_w, wc, vh, splits)
+    _check_fit(block_w, wc, vh, splits, body, kara)
     _check_radix_fits(body, wc, vh, splits)
     _check_index_range(nbh, nbw, vh, vw, out_w)
     from cuda_fft_convolution_torch._build import library
 
-    lib = library(radix=body != "v3")
-    gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev), splits)
+    lib = library(radix=body in _RADIX_BODIES, forms=kara)
+    gt_re, gt_im, g_pad, m_tc = _kernel_mats(
+        block_h, block_w, kh, kw, str(dev), splits, tile_rows(wc, vh, splits, kara))
     m_tc, radix = _radix_args(ops, block_h, block_w, kh, kw, str(dev), splits, body, m_tc)
-    chunks = row_chunks(wc, vh, splits) if body == "v3" else radix_row_chunks(wc, lh, vh, splits)
+    chunks = (row_chunks(wc, vh, splits, kara) if body == "v3"
+              else radix_row_chunks(wc, lh, vh, splits))
     ktile = kernel_tile(wc, vh, kr, splits)
     shape = (b, n, nbh, chunks, nbw)
     vals = torch.empty(shape, dtype=torch.float32, device=dev)
     idxs = torch.empty(shape, dtype=torch.int32, device=dev)
-    mode = f"block_conv_peaks_{tag}{TIER_SUFFIX[splits]}{RADIX_SUFFIX[body]}"
+    mode = f"block_conv_peaks_{tag}{TIER_SUFFIX[splits]}{body_suffix(body, kara)}"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"fftconv_{mode}")(

@@ -36,7 +36,11 @@ plan (bf16 spectra at the 3×TF32 entries, and the same planes upcast to
 float32), printing how far the outputs differ and each side's error
 against the plain version; at the headline plan it also compares the
 6×TF32 and one-pass entries (``_x6``, ``_x1``, each side on this tree's
-operands of the tier), untimed.
+operands of the tier), untimed. Before that it holds every C entry the
+parent has (its v3 and radix libraries, each built from its sources)
+bitwise to this tree's on random planes (``every_entry_bitwise``: the v3
+entries at ``chip_smoke``'s kernel-check geometries, the radix entries at
+step 36's plans), and fails on any difference.
 
     python3 profile_torch_paths.py --submit-probe
 
@@ -141,62 +145,155 @@ def serve(stream, frames):
 
 def build_parent(csrc: pathlib.Path):
     """The parent's maps and peaks kernels, built from ``csrc`` into
-    ``build/parent_ab`` with this tree's nvcc flags → the loaded library."""
+    ``build/parent_ab`` with this tree's nvcc flags, every nvcc started
+    together → (the loaded library of the v3 entries, that of the radix
+    bodies' entries, or None where the parent has none)."""
     from cuda_fft_convolution_torch import _build
 
     out = _build.BUILD_DIR / "parent_ab"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
-    objs = [out / f"{name}.o" for name in ("block_conv", "block_conv_peaks")]
+    units = {"libparent.so": ("block_conv", "block_conv_peaks"),
+             "libparent_radix.so": tuple(u.removesuffix(".cu") for u in _build._RADIX_UNITS
+                                         if (csrc / u).exists())}
+    objs = {lib: [out / f"{name}.o" for name in names] for lib, names in units.items()}
     procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", str(csrc / f"{o.stem}.cu"),
                                "-o", str(o)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for o in objs]
+                              stderr=subprocess.STDOUT, text=True)
+             for lib_objs in objs.values() for o in lib_objs]
     for proc in procs:
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on the parent's sources:\n{log}")
-    lib_path = out / "libparent.so"
-    subprocess.run([nvcc, *_build.LINK_FLAGS, "-o", str(lib_path), *map(str, objs)],
-                   check=True)
-    lib = ctypes.CDLL(str(lib_path))
-    # this tree's signatures, for every entry the parent has
-    for name, (argtypes, restype) in _build._SIGNATURES.items():
-        if name.startswith("fftconv_block_conv") and hasattr(lib, name):
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = restype
-    return lib
+    libs = []
+    for name, lib_objs in objs.items():
+        if not lib_objs:
+            libs.append(None)
+            continue
+        subprocess.run([nvcc, *_build.LINK_FLAGS, "-o", str(out / name), *map(str, lib_objs)],
+                       check=True)
+        lib = ctypes.CDLL(str(out / name))
+        # this tree's signatures, for every entry the parent has
+        for entry, (argtypes, restype) in {**_build._SIGNATURES,
+                                           **_build._RADIX_SIGNATURES}.items():
+            if entry.startswith("fftconv_block_conv") and hasattr(lib, entry):
+                getattr(lib, entry).argtypes = argtypes
+                getattr(lib, entry).restype = restype
+        libs.append(lib)
+    return tuple(libs)
 
 
-def bare_call(lib, ops, geom, peaks: bool, order: int, parent: bool, splits=3):
-    """The C entry of ``lib`` (the parent's, or this tree's) at tier
-    ``splits`` (3xTF32 unless asked) with launch order ``order`` on ``ops``
-    at ``geom``, with no wrapper around it → maps (B, N, out_h, out_w), or
-    the per-block (vals, idxs) of a one-row-chunk geometry."""
+def bare_entry(lib, name, ops, geom, body="v3"):
+    """The C entry ``name`` (a maps or peaks entry of the default H-stage
+    form, any tier and body) of ``lib`` on ``ops`` at ``geom``, with this
+    tree's operands of its tier and body, the wrappers' launch order and no
+    wrapper around it (a wrapper's host checks would show in a one-call
+    CUDA-event window) → its outputs: maps (B, N, out_h, out_w), or the
+    partial pyramid (vals, idxs) (B, N, nbh, row chunks, nbw). Raises
+    where the entry refuses the launch."""
     import torch
 
-    from cuda_fft_convolution_torch.ops.block_conv import TIER_SUFFIX, _kernel_mats
+    from cuda_fft_convolution_torch.ops import block_conv as bc
 
     b, nbh, nbw, f, lh, wc = ops[0].shape
     n = ops[2].shape[0]
     bh, bw, kh, kw, out_h, out_w = geom
     vh, vw = bh - kh + 1, bw - kw + 1
-    # both sides take this tree's operands of the tier
-    mats = _kernel_mats(bh, bw, kh, kw, str(ops[0].device), splits)
-    tag = ("bf16" if ops[0].dtype == torch.bfloat16 else "f32") + TIER_SUFFIX[splits]
-    if peaks:
-        vals = torch.empty((b, n, nbh, 1, nbw), device=ops[0].device)
-        idxs = torch.empty((b, n, nbh, 1, nbw), dtype=torch.int32, device=ops[0].device)
-        outs, name = (vals, idxs), f"fftconv_block_conv_peaks_{tag}"
+    dev = ops[0].device
+    stem = name.removesuffix(bc.RADIX_SUFFIX[body])
+    splits = next((t for t, sfx in bc.TIER_SUFFIX.items() if sfx and stem.endswith(sfx)), 3)
+    mats = bc._kernel_mats(bh, bw, kh, kw, str(dev), splits)
+    m_tc, radix = bc._radix_args(ops, bh, bw, kh, kw, str(dev), splits, body, mats[3])
+    if "_peaks_" in name:
+        chunks = (bc.row_chunks(wc, vh, splits) if body == "v3"
+                  else bc.radix_row_chunks(wc, lh, vh, splits))
+        outs = (torch.empty((b, n, nbh, chunks, nbw), device=dev),
+                torch.empty((b, n, nbh, chunks, nbw), dtype=torch.int32, device=dev))
     else:
-        outs = (torch.empty((b, n, out_h, out_w), device=ops[0].device),)
-        name = f"fftconv_block_conv_{tag}"
+        dt = torch.bfloat16 if "_bf16maps" in name else torch.float32
+        outs = (torch.empty((b, n, out_h, out_w), dtype=dt, device=dev),)
     err = getattr(lib, name)(
-        *(t.data_ptr() for t in (*ops, *mats, *outs)), b, nbh, nbw, f, n, lh, wc, vh, vw,
-        out_h, out_w, order, torch.cuda.current_stream().cuda_stream)
+        *(t.data_ptr() for t in (*ops, *mats[:3], m_tc)), *bc._ptrs(radix),
+        *(t.data_ptr() for t in outs), b, nbh, nbw, f, n, lh, wc, vh, vw, out_h, out_w,
+        bc.kernel_tile(wc, vh, ops[2], splits), torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{'the parent' if parent else 'this tree'}: {name} failed: "
-                           f"cudaError {err}")
-    return (outs[0][:, :, :, 0], outs[1][:, :, :, 0]) if peaks else outs[0]
+        raise RuntimeError(f"{name} refused the launch: cudaError {err}")
+    return outs
+
+
+def refused_or(call):
+    """``call()``, or None where its C entry refused the launch."""
+    try:
+        return call()
+    except RuntimeError:
+        return None
+
+
+def every_entry_bitwise(parent_libs, seed: int) -> None:
+    """Every C entry the parent has (the v3 library's maps and peaks
+    entries, and the radix library's) against this tree's, bitwise, on
+    random planes from ``seed``: the v3 entries at ``chip_smoke``'s
+    kernel-check geometries (every configuration: 64 and 32 rows, stacked,
+    31 row chunks), the radix entries at step 36's three plans (each body
+    where its rules take the plan). An entry both sides refuse counts as
+    equal; any other difference fails."""
+    import numpy as np
+    import torch
+
+    from cuda_fft_convolution_torch import _build
+    from cuda_fft_convolution_torch.ops import block_conv as bc
+
+    rng = np.random.default_rng(seed)
+    this = (_build.library(), _build.library(radix=True))
+    entries = [n for n, sig in _build._SIGNATURES.items()
+               if n.startswith("fftconv_block_conv") and len(sig[0]) > 3]
+    radix_plans = [(1, 1, 3, 256, 512, 65, 129, 400, 800, "JAX F=1 plan"),
+                   (1, 2, 3, 128, 512, 33, 129, 200, 800, "JAX 32² plan"),
+                   (1, 1, 2, 256, 1024, 65, 129, 400, 1800, "W 1024")]
+    equal = refused = total = 0
+    bad = []
+    for geoms, libs, names, radix in (
+        (chip_smoke.CHECK_GEOMETRIES, (parent_libs[0], this[0]), entries, False),
+        (radix_plans, (parent_libs[1], this[1]), list(_build._RADIX_SIGNATURES), True),
+    ):
+        if libs[0] is None:
+            print("every entry: the parent has no radix library")
+            continue
+        for b, f, n, bh, bw, kh, kw, out_h, out_w, label in geoms:
+            vh, vw = bh - kh + 1, bw - kw + 1
+            nbh, nbw, wc = -(-out_h // vh), -(-out_w // vw), bw // 2 + 1
+
+            def t(*shape):
+                return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                                       device="cuda")
+
+            ops = (t(b, nbh, nbw, f, bh, wc), t(b, nbh, nbw, f, bh, wc), t(n, f, bh, wc),
+                   t(n, f, bh, wc))
+            ops16 = tuple(x.to(torch.bfloat16) for x in ops)
+            geom = (bh, bw, kh, kw, out_h, out_w)
+            for name in names:
+                body = next((bd for bd, sfx in bc.RADIX_SUFFIX.items()
+                             if sfx and name.endswith(sfx)), "v3") if radix else "v3"
+                if body in ("v5", "v5x") and not bc.radix_w_legal(bw, kw, vw):
+                    continue
+                planes = ops16 if "_bf16" in name.replace("_bf16maps", "") else ops
+                a, c = (refused_or(lambda: bare_entry(lib, name, planes, geom, body))
+                        for lib in libs)
+                torch.cuda.synchronize()
+                total += 1
+                if a is None and c is None:
+                    refused += 1
+                elif a is not None and c is not None and all(
+                        torch.equal(x, y) for x, y in zip(a, c)):
+                    equal += 1
+                else:
+                    bad.append(f"{label}: {name}")
+            del ops, ops16
+            torch.cuda.empty_cache()
+    print(f"every entry, parent vs this tree: {equal} bitwise equal, {refused} refused by both, "
+          f"of {total} (entry, geometry) pairs")
+    if bad:
+        raise AssertionError(f"entries that differ from the parent's: {bad}")
 
 
 def ab_parent(csrc: pathlib.Path, seed: int) -> None:
@@ -208,22 +305,29 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
     import cuda_fft_convolution_torch as fc
     from cuda_fft_convolution_torch import _build
     from cuda_fft_convolution_torch.ops.block_conv import (
+        TIER_SUFFIX,
         block_conv_peaks_reference,
         block_conv_reference,
-        kernel_tile,
         tier_name,
     )
 
-    lib = build_parent(csrc)
+    parent_libs = build_parent(csrc)
+    lib = parent_libs[0]
     this = _build.library()
+    every_entry_bitwise(parent_libs, seed)
 
     def calls(ops, geom, peaks, splits=3):
-        """(the parent's call, this tree's call): both bare C entries, so
-        the timing holds no wrapper's host time."""
-        wc, vh = ops[0].shape[-1], geom[0] - geom[2] + 1
-        order = kernel_tile(wc, vh, ops[2], splits)
-        return (lambda: bare_call(lib, ops, geom, peaks, order, True, splits),
-                lambda: bare_call(this, ops, geom, peaks, order, False, splits))
+        """(the parent's call, this tree's call): both bare C entries of the
+        tier (``bare_entry``), the peaks' pyramid of one row chunk as (vals,
+        idxs) (B, N, nbh, nbw)."""
+        tag = ("bf16" if ops[0].dtype == torch.bfloat16 else "f32") + TIER_SUFFIX[splits]
+        name = f"fftconv_block_conv{'_peaks' if peaks else ''}_{tag}"
+
+        def call(side):
+            out = bare_entry(side, name, ops, geom)
+            return (out[0][:, :, :, 0], out[1][:, :, :, 0]) if peaks else out[0]
+
+        return (lambda: call(lib)), (lambda: call(this))
 
     def turns(label, parent, new, runs=chip_smoke.RUNS):
         t = [chip_smoke.cuda_ms(f, runs) for f in (parent, new, new, parent)]

@@ -138,13 +138,13 @@ def test_block_conv_reference_matches_jax_v5x(rng, dtype):
 def test_block_conv_reference_matches_jax_v2(rng, b, f, n, bh, bw, kh, kw, out_h, out_w):
     """The v2 body (``wstack=False``: a column-stacked H stage and per-block
     W dots), which only an explicit flag reaches: the port's plain version
-    reproduces it."""
+    of it (the same flag) reproduces it."""
     ops = _operands(rng, b, f, n, bh, bw, kh, kw, out_h, out_w)
     want = block_conv_pallas(
         *map(jnp.asarray, ops), bh, bw, kh, kw, out_h, out_w,
         interpret=True, wstack=False, radix_h=False,
     )
-    got = tbc.block_conv_reference(*_torch(*ops), bh, bw, kh, kw, out_h, out_w)
+    got = tbc.block_conv_reference(*_torch(*ops), bh, bw, kh, kw, out_h, out_w, wstack=False)
     assert tuple(got.shape) == want.shape
     assert _rel(got.numpy(), want) <= TOL
 

@@ -225,7 +225,8 @@ def test_port_imports_with_jax_blocked():
 def test_build_library_named_by_source_hash(tmp_path):
     """The library lands in build/ under a name hashed from the sources, so
     an edited source never loads a stale build. The radix bodies' sources
-    make a library of their own, under its own name."""
+    make a library of their own, under its own name, and so do the
+    Karatsuba and v2 entries' (the forms library)."""
     from cuda_fft_convolution_torch import _build
 
     sources = _build._sources()
@@ -277,3 +278,26 @@ def test_build_library_named_by_source_hash(tmp_path):
             v3_args[:8] + [ctypes.c_void_p] * 3 + v3_args[8:])
     for query in ("smem_bytes", "rows", "blocks"):
         assert len(_build._SIGNATURES[f"fftconv_block_conv_f32_{query}"][0]) == 3
+    # the forms library: the Karatsuba maps and peaks entries (_k) and the
+    # v2 maps entries (_v2, _v2_k), with the v3 entries' arguments, and the
+    # queries of both forms' configurations (v2's take the form as a fourth)
+    forms_sources = _build._sources(forms=True)
+    assert [s.name for s in forms_sources] == [
+        "block_conv.cuh", "block_conv_k.cu", *headers[1:], "block_conv_peaks_k.cu",
+        "block_conv_v2.cu", "block_conv_v2_k.cu",
+    ]
+    forms_path = _build._library_path(forms_sources)
+    assert forms_path.name.startswith("libfftconv_torch_forms_")
+    assert len({path, radix_path, forms_path}) == 3
+    maps = {n for n in kernels if "_peaks_" not in n}
+    forms = ({f"{n}{sfx}" for n in maps for sfx in ("_k", "_v2", "_v2_k")}
+             | {f"{n}_k" for n in kernels - maps})
+    queries = {"fftconv_block_conv_k_smem_bytes", "fftconv_block_conv_k_rows",
+               "fftconv_block_conv_v2_smem_bytes", "fftconv_block_conv_v2_rows",
+               "fftconv_block_conv_v2_blocks"}
+    assert set(_build._FORM_SIGNATURES) == forms | queries
+    for name in forms:
+        base = name.removesuffix("_k").removesuffix("_v2")
+        assert _build._FORM_SIGNATURES[name] == _build._SIGNATURES[base]
+    for query in queries:
+        assert len(_build._FORM_SIGNATURES[query][0]) == (4 if "_v2_" in query else 3)

@@ -283,7 +283,7 @@ def test_kernel_build_failure_raises(cuda, monkeypatch, tmp_path):
     def no_nvcc():
         raise RuntimeError("nvcc not found")
 
-    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_library_path", lambda sources: tmp_path / "missing.so")
     monkeypatch.setattr(_build, "_nvcc", no_nvcc)
@@ -1217,3 +1217,108 @@ def test_radix_flags_refused_on_gpu(cuda):
         tbc.block_conv_peaks(*_planes(rng, cuda, 1, 1, 2, *RADIX_GEOMETRIES[4][3:]),
                              *RADIX_GEOMETRIES[4][3:], radix_w=True)
     assert (tbc.block_conv.launches, tbc.block_conv_peaks.launches) == before
+
+
+# The other H-stage forms (ops/block_conv.py karatsuba, wstack): the
+# Karatsuba H stage in v3's three configurations (64 rows, 32 rows and
+# stacked) and v2 (v2_rows, v2_blocks: one block a CTA at 64 rows, several
+# of a column at 32), at the small ragged shape, the headline plan, Wc 301
+# (the Karatsuba stage's 64 rows stop at Wc 288: 32 rows), Wc 451 (2 row
+# chunks), the 1024 block (where 6xTF32's Karatsuba stage does not fit),
+# the F=8 and the DPM plans (stacked; v2 at 4 and 6 blocks a CTA).
+FORM_GEOMETRIES = [GEOMETRIES[0], GEOMETRIES[1], GEOMETRIES[2], GEOMETRIES[3], GEOMETRIES[4],
+                   GEOMETRIES[6], SHORT_WINDOWS[0]]
+FORMS = {"_k": dict(karatsuba=True), "_v2": dict(wstack=False),
+         "_v2_k": dict(wstack=False, karatsuba=True)}
+
+
+def _fits(geom, splits, flags):
+    bh, bw, kh = geom[:3]
+    return tbc.form_taken(bw // 2 + 1, bh - kh + 1, splits, **flags)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", FORM_GEOMETRIES)
+def test_form_entries_match_plain_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
+    """Every Karatsuba and v2 entry (maps at f32 and bf16 maps; the
+    Karatsuba peaks) at every tier against its plain version with the same
+    flags, at the bars of the v3 entries (6×TF32 also within X6_TOL of the
+    plain version in float64); each call counts one launch on its own mode.
+    Where the kernels do not take a form (``form_taken``: its shared
+    memory) it raises and launches nothing."""
+    rng = np.random.default_rng(53)
+    geom = (bh, bw, kh, kw, out_h, out_w)
+    ops = _planes(rng, cuda, b, f, n, *geom)
+    ops16 = tuple(x.to(torch.bfloat16) for x in ops)
+    for suffix, flags in FORMS.items():
+        for planes, tag, splits, tol in ((ops, "f32", 3, TOL), (ops, "f32", 6, TOL),
+                                         (ops, "f32", 1, ONE_PASS_TOL),
+                                         (ops16, "bf16", tbc.BF16IO, IO_TOL),
+                                         (ops16, "bf16", 3, TOL)):
+            tier = tbc.TIER_SUFFIX[splits]
+            if not _fits(geom, splits, flags):
+                before = tbc.block_conv.launches
+                with pytest.raises(InvalidInputError, match="shared memory"):
+                    tbc.block_conv(*planes, *geom, torch.float32, splits, **flags)
+                assert tbc.block_conv.launches == before
+                continue
+            want = tbc.block_conv_reference(*planes, *geom, torch.float32, splits, **flags)
+            for out_dtype, maps in ((torch.float32, ""), (torch.bfloat16, "_bf16maps")):
+                mode = f"block_conv_{tag}{maps}{tier}{suffix}"
+                before = tbc.block_conv.launches_by_mode[mode]
+                got = tbc.block_conv(*planes, *geom, out_dtype, splits, **flags)
+                torch.cuda.synchronize()
+                assert tbc.block_conv.launches_by_mode[mode] == before + 1, mode
+                assert got.dtype == out_dtype and got.shape == want.shape
+                bar = tol if out_dtype == torch.float32 else max(tol, BF16_OUT_TOL)
+                assert _rel(got.float(), want) <= bar, mode
+                if out_dtype == torch.float32 and splits == tbc.BF16IO:
+                    assert _rms(got, want) <= IO_RMS_TOL, mode
+                if out_dtype == torch.float32 and splits == 6:
+                    want64 = tbc.block_conv_reference(*(x.double() for x in ops), *geom,
+                                                      torch.float64, **flags)
+                    assert _rel(got.double(), want64) <= X6_TOL, mode
+            if suffix != "_k":
+                continue
+            mode = f"block_conv_peaks_{tag}{tier}_k"
+            before = tbc.block_conv_peaks.launches_by_mode[mode]
+            got_v, got_i = tbc.block_conv_peaks(*planes, *geom, splits, radix_h=False, **flags)
+            want_v, want_i = tbc.block_conv_peaks_reference(*planes, *geom, splits,
+                                                            radix_h=False, **flags)
+            torch.cuda.synchronize()
+            assert tbc.block_conv_peaks.launches_by_mode[mode] == before + 1, mode
+            assert _rel(got_v, want_v) <= tol, mode
+            flips = got_i != want_i
+            if flips.any():
+                flat = want.reshape(b, n, -1)
+                at = flat.gather(-1, got_i.reshape(b, n, -1).long()).reshape(got_i.shape)
+                assert (at[flips] >= want_v[flips] - tol * want_v.abs().max()).all(), mode
+
+
+@pytest.mark.gpu
+def test_form_flags_and_defaults_on_gpu(cuda):
+    """On the card the form flags keep JAX's rules (a radix body takes
+    neither wstack=False nor karatsuba=True: both raise, launching
+    nothing), and a call with neither flag set launches the entry it
+    launched before them (no suffix), bitwise equal to karatsuba=False."""
+    rng = np.random.default_rng(59)
+    radix = (256, 512, 65, 129, 400, 800)
+    ops = _planes(rng, cuda, 1, 1, 2, *radix)
+    before = (tbc.block_conv.launches, tbc.block_conv_peaks.launches)
+    with pytest.raises(InvalidInputError, match="wstack"):
+        tbc.block_conv(*ops, *radix, radix_h=True, wstack=False)
+    with pytest.raises(InvalidInputError, match="Karatsuba in the radix bodies"):
+        tbc.block_conv(*ops, *radix, radix_w=True, karatsuba=True)
+    with pytest.raises(InvalidInputError, match="Karatsuba in the radix bodies"):
+        tbc.block_conv_peaks(*ops, *radix, karatsuba=True)  # the auto rule's v4
+    assert (tbc.block_conv.launches, tbc.block_conv_peaks.launches) == before
+    for geom in (GEOMETRIES[0], GEOMETRIES[1], SHORT_WINDOWS[0]):
+        ops = _planes(rng, cuda, *geom)
+        tbc.reset_launches(tbc.block_conv, tbc.block_conv_peaks)
+        got = tbc.block_conv(*ops, *geom[3:])
+        same = tbc.block_conv(*ops, *geom[3:], karatsuba=False, wstack=True)
+        tbc.block_conv_peaks(*ops, *geom[3:], radix_h=False)
+        torch.cuda.synchronize()
+        assert torch.equal(got, same)
+        assert dict(tbc.block_conv.launches_by_mode) == {"block_conv_f32": 2}
+        assert dict(tbc.block_conv_peaks.launches_by_mode) == {"block_conv_peaks_f32": 1}
