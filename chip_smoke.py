@@ -9,8 +9,9 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
   1. prints the card (nvidia-smi name and power limit), the PyTorch and CUDA
      versions, and turns TF32 off for matmuls and cuDNN;
   2. builds the CUDA kernels from ``cuda_fft_convolution_torch/csrc``
-     (three libraries side by side: the v3 entries and the MAC, the radix
-     bodies', the Karatsuba and v2 entries'), prints what ptxas reports
+     (four libraries side by side: the v3 entries and the MAC, the radix
+     bodies', the Karatsuba and v2 entries', the radix bodies' Karatsuba
+     entries'), prints what ptxas reports
      (registers, shared memory, spills) and fails on a spill, and holds
      the Python configuration model (shared memory, rows, blocks per CTA;
      the Karatsuba and v2 configurations too) against the kernel's over
@@ -270,11 +271,15 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      512, 65, 129), JAX's fp32 and bf16 F=1 plan, 64 rows; (128, 512, 33,
      129), its 32² plan; (256, 1024, 65, 129), Wc 513, 32 rows — each on
      the headline image with 100 kernels (64², or 32² at the 32² plan): v3
-     and every radix entry (f32 and bf16 maps, peaks) at every tier against
-     its plain version with the same flags (the bars of steps 3, 6, 34 and
-     35; 6xTF32 also against the plain version in float64, the BF16IO
-     control), its maps against float64 on 8 maps (1e-5 at fp32, 2e-3 at
-     one pass, 2e-2 at bf16 spectra), and every entry's time, beside the
+     and every radix entry in both H-stage forms (the 4-product entries and
+     the Karatsuba ones, ``_r4_k``, ``_r5_k``, ``_r5x_k``: f32 and bf16
+     maps, peaks) at every tier against its plain version with the same
+     flags (the bars of steps 3, 6, 34 and 35; 6xTF32 also against the
+     plain version in float64, the BF16IO control), its maps against
+     float64 on 8 maps (1e-5 at fp32, 2e-3 at one pass, 2e-2 at bf16
+     spectra), the refusal where the kernels do not take a form (the
+     Karatsuba form at 6xTF32 on Wc 513), and every 4-product entry's
+     time, beside the
      bound of the body's own products (``synthesis_flop`` with the body,
      the JSON rows' ``bound_ms``) and the bound of v3's work, the same
      work whatever body runs it (``same_work_bound_ms``); then the main
@@ -285,10 +290,13 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      ``sliver='xla'``), against float64 and the 100 plants, each radix
      entry's row there (the bf16 spectra's 3xTF32 entries and v4's BF16IO
      peaks entry, which JAX's float32-only auto rule keeps off the route,
-     launched by explicit ops-level calls); and the headline ``fft_conv``
-     at the v5 plan against the analytic plan, in turns, the v5 maps
-     against float64. The tuner's table and the plan registry are restored
-     afterwards;
+     launched by explicit ops-level calls), each Karatsuba radix entry's
+     row there (an ops-level call: no route passes ``karatsuba``), each
+     body's maps entry 4-product / Karatsuba / Karatsuba / 4-product in
+     turns at 3xTF32 and BF16IO; and the headline ``fft_conv`` at the v5
+     plan against the analytic plan, in turns, the v5 maps against
+     float64. The tuner's table and the plan registry are restored
+     afterwards; the step's host seconds;
  37. the other H-stage forms (``ops/block_conv.py karatsuba``,
      ``wstack``): the Karatsuba H stage in v3 (maps and peaks, entries
      ``_k``) and the v2 body (maps, ``_v2`` and ``_v2_k``) at the headline
@@ -458,16 +466,19 @@ def build_kernels() -> None:
         lib = _build.library(**kind)
         return lib, time.perf_counter() - t0
 
-    # the three libraries' sources, every nvcc started together
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    # the four libraries' sources, every nvcc started together
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         radix_build = pool.submit(build, radix=True)
         forms_build = pool.submit(build, forms=True)
+        radix_forms_build = pool.submit(build, radix=True, forms=True)
         lib, core_s = build()
         radix_s = radix_build.result()[1]
         forms_lib, forms_s = forms_build.result()
-    print(f"build: {max(core_s, radix_s, forms_s):.1f} s (side by side: the library "
-          f"{core_s:.1f} s, the radix bodies' library {radix_s:.1f} s, the Karatsuba and v2 "
-          f"entries' library {forms_s:.1f} s)")
+        radix_forms_s = radix_forms_build.result()[1]
+    print(f"build: {max(core_s, radix_s, forms_s, radix_forms_s):.1f} s (side by side: the "
+          f"library {core_s:.1f} s, the radix bodies' library {radix_s:.1f} s, the Karatsuba "
+          f"and v2 entries' library {forms_s:.1f} s, the radix bodies' Karatsuba entries' "
+          f"library {radix_forms_s:.1f} s)")
     spills = []
     for line in _build.build_log().splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill", "error")):
@@ -3976,10 +3987,14 @@ RADIX_FLAGS = {"v3": {}, "v4": dict(radix_h=True), "v5": dict(radix_w=True),
 # (spectra, tier, bar against the plain version, bar against float64)
 RADIX_TIERS = (("f32", 3, TOL, TOL), ("f32", 6, TOL, TOL), ("f32", 1, X1_TOL, X1_TOL),
                ("bf16", 0, IO_TOL, BF16_TOL), ("bf16", 3, TOL, BF16_TOL))
-# The JAX bodies the radix rows replace (cuda_fft_convolution_tpu/ops/block_conv.py).
+# The JAX bodies the radix rows replace (cuda_fft_convolution_tpu/ops/block_conv.py),
+# and for the Karatsuba entries (_k) the Karatsuba form of each body's csub.
 RADIX_REPLACES = {("block_conv", "_r4"): 173, ("block_conv", "_r5"): 1251,
                   ("block_conv", "_r5x"): 1163, ("block_conv_peaks", "_r4"): 1764,
-                  ("block_conv_peaks", "_r5"): 1456, ("block_conv_peaks", "_r5x"): 1606}
+                  ("block_conv_peaks", "_r5"): 1456, ("block_conv_peaks", "_r5x"): 1606,
+                  ("block_conv", "_r4_k"): 207, ("block_conv", "_r5_k"): 1320,
+                  ("block_conv", "_r5x_k"): 1204, ("block_conv_peaks", "_r4_k"): 1794,
+                  ("block_conv_peaks", "_r5_k"): 1509, ("block_conv_peaks", "_r5x_k"): 1648}
 
 
 @contextlib.contextmanager
@@ -4034,16 +4049,22 @@ def radix_geometry(fc, plan, image_d, bank):
     return ops, tuple(x.to(torch.bfloat16) for x in ops), geom
 
 
-def radix_checks(ops, ops16, geom, label, want, idx, table) -> None:
-    """Every body at ``geom`` (step 36): each entry — f32 and bf16 maps,
-    peaks — at every tier against its plain version with the same flags
-    (``check_kernel``, ``check_peaks``, the smoke's bars), its f32 maps
-    against float64 on ``idx`` (``want``), 6xTF32 against the plain version
-    in float64, the BF16IO control; then each entry timed, a line of
-    ``table`` each: (label, tier, head, body, ms, bound ms, bound by — the
-    bound of the body's own products, ``block_conv_bound`` — the bound of
-    v3's work, the body's synthesis products and v3's,
-    ``synthesis_flop``)."""
+def radix_checks(ops, ops16, geom, label, want, idx, table, karatsuba_rows=False) -> None:
+    """Every body at ``geom`` (step 36), the radix bodies in both H-stage
+    forms (4-product and Karatsuba, the ``_k`` entries): each entry — f32
+    and bf16 maps, peaks — at every tier against its plain version with the
+    same flags (``check_kernel``, ``check_peaks``, the smoke's bars), its
+    f32 maps against float64 on ``idx`` (``want``), 6xTF32 against the
+    plain version in float64, the BF16IO control; where the kernels do not
+    take a form at a tier (``form_taken``) the call must raise and launch
+    nothing. The Karatsuba entries' maps and peaks are checked here against
+    their plain versions but for the bf16 maps (their f32 maps rounded
+    once), and not at all with ``karatsuba_rows``, where their JSON rows
+    check every entry (``kernel_row``, ``peaks_row``), and timed there.
+    The 4-product entries are timed here, a line of ``table`` each: (label,
+    tier, head, body, ms, bound ms, bound by — the bound of the body's own
+    products, ``block_conv_bound`` — the bound of v3's work, the body's
+    synthesis products and v3's, ``synthesis_flop``)."""
     import torch
 
     from cuda_fft_convolution_torch.ops.block_conv import (
@@ -4053,50 +4074,78 @@ def radix_checks(ops, ops16, geom, label, want, idx, table) -> None:
         radix_w_legal,
     )
 
+    from cuda_fft_convolution_torch.ops.block_conv import form_taken
+    from cuda_fft_convolution_torch.utils.errors import InvalidInputError
+
     bh, bw, kh, kw, out_h, out_w = geom
     b, nbh, nbw = ops[0].shape[:3]
     n = ops[2].shape[0]
     cells = b * nbh * nbw * n
-    vflop = {body: cells * synthesis_flop(bh, bw // 2 + 1, bh - kh + 1, bw - kw + 1, body)
-             for body in RADIX_FLAGS}
+    vflop = {(body, kara): cells * synthesis_flop(bh, bw // 2 + 1, bh - kh + 1, bw - kw + 1,
+                                                  body, kara)
+             for body in RADIX_FLAGS for kara in (False, True)}
     out_bytes = {"maps": 4 * b * n * out_h * out_w, "bf16 maps": 2 * b * n * out_h * out_w,
                  "peaks": 8 * cells}
     bodies = [x for x in RADIX_FLAGS if x in ("v3", "v4") or radix_w_legal(bw, kw, bw - kw + 1)]
-    for body in bodies:
-        flags = RADIX_FLAGS[body]
-        pflags = flags or {"radix_h": False}
+    forms = [(body, False) for body in bodies] + [(body, True) for body in bodies if body != "v3"]
+    for body, kara in forms:
+        flags = dict(RADIX_FLAGS[body], karatsuba=True) if kara else RADIX_FLAGS[body]
+        pflags = flags if body != "v3" else {"radix_h": False}
+        name = f"{body}{' karatsuba' if kara else ''}"
+
+        def taken(tier):
+            return form_taken(bw // 2 + 1, bh - kh + 1, tier, karatsuba=kara)
+
         for tag, splits, tol, f64_tol in RADIX_TIERS:
             planes = ops if tag == "f32" else ops16
-            check_kernel(*planes, geom, label, torch.float32, tol, splits, flags)
-            check_kernel(*planes, geom, label, torch.bfloat16, max(tol, BF16_OUT_TOL), splits,
-                         flags)
-            check_peaks(*planes, geom, label, tol, splits, pflags)
+            tier = tier_label(planes[0], splits)
+            if not taken(resolved(planes[0], splits)):
+                before = (block_conv.launches, block_conv_peaks.launches)
+                for call in (lambda: block_conv(*planes, *geom, torch.float32, splits, **flags),
+                             lambda: block_conv_peaks(*planes, *geom, splits, **pflags)):
+                    try:
+                        call()
+                    except InvalidInputError as e:
+                        print(f"radix [{label}] {name} {tag} {tier}: refused, {e}")
+                    else:
+                        raise AssertionError(f"{label} {name} {tier}: ran where no kernel takes it")
+                if (block_conv.launches, block_conv_peaks.launches) != before:
+                    raise AssertionError(f"{label} {name} {tier}: a refused call launched")
+                continue
+            if not (kara and karatsuba_rows):
+                check_kernel(*planes, geom, label, torch.float32, tol, splits, flags)
+                if not kara:
+                    check_kernel(*planes, geom, label, torch.bfloat16, max(tol, BF16_OUT_TOL),
+                                 splits, flags)
+                check_peaks(*planes, geom, label, tol, splits, pflags)
             maps = block_conv(*planes, *geom, torch.float32, splits, **flags)[0]
             err = max_rel_err_f64(maps, idx, want)
             del maps
-            tier = tier_label(planes[0], splits)
-            print(f"radix [{label}] {body} {tag} {tier} maps vs float64 on maps {idx}: "
+            print(f"radix [{label}] {name} {tag} {tier} maps vs float64 on maps {idx}: "
                   f"{err:.3e} (bar {f64_tol:g})")
             if err > f64_tol:
-                raise AssertionError(f"{label} {body} {tier}: {err} from float64")
+                raise AssertionError(f"{label} {name} {tier}: {err} from float64")
+            if kara:
+                continue
             for head, fn in (
                 ("maps", lambda: block_conv(*planes, *geom, torch.float32, splits, **flags)),
                 ("bf16 maps", lambda: block_conv(*planes, *geom, torch.bfloat16, splits, **flags)),
                 ("peaks", lambda: block_conv_peaks(*planes, *geom, splits, **pflags)),
             ):
                 tier_s = resolved(planes[0], splits)
-                bound_ms, by = block_conv_bound(planes, geom, out_bytes[head], tier_s, body)
+                bound_ms, by = block_conv_bound(planes, geom, out_bytes[head], tier_s, body, kara)
                 same_ms = block_conv_bound(planes, geom, out_bytes[head], tier_s)[0]
-                table.append((label, f"{tag} {tier}", head, body, cuda_ms(fn), bound_ms, by,
-                              same_ms, vflop[body], vflop["v3"]))
+                table.append((label, f"{tag} {tier}", head, name, cuda_ms(fn), bound_ms, by,
+                              same_ms, vflop[(body, kara)], vflop[("v3", False)]))
             torch.cuda.empty_cache()
-        x6 = rel_err(block_conv(*ops, *geom, torch.float32, 6, **flags).double(),
-                     block_conv_reference(*(x.double() for x in ops), *geom, torch.float64,
-                                          **flags))
-        print(f"radix [{label}] {body} 6xTF32 vs its plain version in float64: {x6:.3e} "
-              f"(bar {X6_TOL:g})")
-        if x6 > X6_TOL:
-            raise AssertionError(f"{label} {body}: 6xTF32 {x6} from the float64 plain version")
+        if taken(6):
+            x6 = rel_err(block_conv(*ops, *geom, torch.float32, 6, **flags).double(),
+                         block_conv_reference(*(x.double() for x in ops), *geom, torch.float64,
+                                              **flags))
+            print(f"radix [{label}] {name} 6xTF32 vs its plain version in float64: {x6:.3e} "
+                  f"(bar {X6_TOL:g})")
+            if x6 > X6_TOL:
+                raise AssertionError(f"{label} {name}: 6xTF32 {x6} from the float64 plain version")
         io_control(ops16, geom, label, flags)
         torch.cuda.empty_cache()
 
@@ -4124,7 +4173,8 @@ def radix_phase(fc, seed, image, image_d, bank, bank_d, idx, want, path_launches
             pwant = same_reference_f64(image, pbank, idx)
         ops, ops16, geom = radix_geometry(fc, plan, image_d, pbank)
         first = first or (ops, ops16, geom)
-        radix_checks(ops, ops16, geom, f"{plan['label']} {geom[:4]}", pwant, idx, table)
+        radix_checks(ops, ops16, geom, f"{plan['label']} {geom[:4]}", pwant, idx, table,
+                     karatsuba_rows=plan is RADIX_PLANS[0])
         del ops, ops16
         torch.cuda.empty_cache()
     # each body's kernel times at each plan, beside the bound of its own
@@ -4235,6 +4285,46 @@ def radix_phase(fc, seed, image, image_d, bank, bank_d, idx, want, path_launches
                     for m in (f"block_conv_bf16{suffix}", f"block_conv_bf16_bf16maps{suffix}"):
                         OPS_LEVEL_ROWS[m] = "ops-level call, splits=3"
             torch.cuda.empty_cache()
+        # the Karatsuba entries' rows at JAX's plan: no route passes
+        # karatsuba, so each is launched once by an ops-level call, then
+        # checked and timed (kernel_row, peaks_row)
+        kflags = dict(RADIX_FLAGS[body], karatsuba=True)
+        ksuffix = bc.body_suffix(body, True)
+        for tag, splits, _, _ in RADIX_TIERS:
+            planes = ops if tag == "f32" else ops16
+            tsuf = bc.TIER_SUFFIX[splits]
+            for out_dtype, msuf in ((torch.float32, ""), (torch.bfloat16, "_bf16maps"),
+                                    ("peaks", "")):
+                peaks = out_dtype == "peaks"
+                mode = (f"block_conv_peaks_{tag}{tsuf}{ksuffix}" if peaks
+                        else f"block_conv_{tag}{msuf}{tsuf}{ksuffix}")
+                fn = ((lambda: bc.block_conv_peaks(*planes, *geom, splits, **kflags)) if peaks
+                      else (lambda: bc.block_conv(*planes, *geom, out_dtype, splits, **kflags)))
+                before = path_launches[mode]
+                main_path(f"JAX F=1 plan, ops-level call, karatsuba=True ({mode})", fn, mode,
+                          path_launches)
+                row_launches[mode] = path_launches[mode] - before
+                OPS_LEVEL_ROWS[mode] = "ops-level call, karatsuba=True"
+                rows[mode] = (peaks_row(planes, geom, "JAX F=1 plan", splits, kflags) if peaks
+                              else kernel_row(planes, geom, "JAX F=1 plan", splits, out_dtype,
+                                              kflags))
+            torch.cuda.empty_cache()
+        # the maps entry in either form at JAX's plan in turns (4-product /
+        # Karatsuba / Karatsuba / 4-product), 3xTF32 and BF16IO
+        for planes, splits in ((ops, 3), (ops16, bc.BF16IO)):
+            def form(kara, planes=planes, splits=splits):
+                return lambda: bc.block_conv(*planes, *geom, torch.float32, splits,
+                                             karatsuba=kara, **RADIX_FLAGS[body])
+
+            four, kara = form(False), form(True)
+            turns = [cuda_ms(four), cuda_ms(kara), cuda_ms(kara), cuda_ms(four)]
+            tier = bc.tier_name(splits)
+            times[f"JAX F=1 plan maps kernel {body} {tier}, 4-product / karatsuba (ms)"] = (
+                (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2)
+            print(f"JAX F=1 plan maps kernel {body} {tier} in turns, 4-product / Karatsuba / "
+                  f"Karatsuba / 4-product: {turns[0]:.3f} / {turns[1]:.3f} / {turns[2]:.3f} / "
+                  f"{turns[3]:.3f} ms ({(turns[1] + turns[2]) / (turns[0] + turns[3]):.3f}x; "
+                  f"{card()})")
 
     # the headline at the v5 plan against the analytic plan, in turns
     def headline():
@@ -4875,12 +4965,12 @@ def main(argv=None) -> int:
     launches = {name: row_launches.get(name, path_launches[name]) for name in rows}
     for name, (err, ms, plain, bound_ms, bound_by, library_ms, *same_work) in rows.items():
         entry = name.split(":")[0]
-        body = re.search(r"_r(4|5x|5)$", entry)
+        body = re.search(r"_r(4|5x|5)(_k)?$", entry)
         form = None if body else re.search(r"_(v2_k|v2|k)$", entry)
-        mode = re.sub(r"_(x[16]|io)$", "", re.sub(r"_(r4|r5x|r5|v2_k|v2|k)$", "", entry))
+        mode = re.sub(r"_(x[16]|io)$", "", re.sub(r"(_r4|_r5x|_r5|_v2)?(_k)?$", "", entry))
         wrapper = mode.removesuffix("_bf16maps").rsplit("_", 1)[0]
         source, replaces = SOURCES[wrapper]
-        if body:  # a radix body's entries and the JAX body they replace
+        if body:  # a radix body's entries (either form) and the JAX code they replace
             source = f"cuda_fft_convolution_torch/csrc/block_conv{body.group(0)}.cu"
             replaces = (f"cuda_fft_convolution_tpu/ops/block_conv.py:"
                         f"{RADIX_REPLACES[(wrapper, body.group(0))]}")

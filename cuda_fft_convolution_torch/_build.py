@@ -8,8 +8,11 @@ radix-2 bodies' sources (``block_conv_r4.cu``, ``_r5.cu``, ``_r5x.cu``)
 make a second library, ``library(radix=True)``, built at the first radix
 call, and the other H-stage forms' (the Karatsuba entries and the v2 body:
 ``block_conv_k.cu``, ``block_conv_peaks_k.cu``, ``block_conv_v2.cu``,
-``block_conv_v2_k.cu``) a third, ``library(forms=True)``: no default route
-launches them, so the other paths do not wait for their builds. A library's file name carries a hash of its sources, the
+``block_conv_v2_k.cu``) a third, ``library(forms=True)``, and the radix
+bodies' Karatsuba entries (``block_conv_r4_k.cu``, ``_r5_k.cu``,
+``_r5x_k.cu``) a fourth, ``library(radix=True, forms=True)``: no default
+route launches them, so the other paths do not wait for their builds. A
+library's file name carries a hash of its sources, the
 headers (``csrc/*.cuh``) and the flags, so an edited file never loads a
 stale build. Nothing here runs at import: the package imports on machines
 with no ``nvcc`` and no CUDA.
@@ -53,10 +56,12 @@ _SMEM_QUERY = ([_I, _I, _I], ctypes.c_longlong)
 # _r5, _r5x: three more pointers, csrc/block_conv.cuh RadixOps); the forms
 # library the Karatsuba H stage's (_k: maps and peaks) and the v2 body's
 # maps entries (_v2, _v2_k), with the v3 entries' arguments, and the
-# configuration queries of both forms.
+# configuration queries of both forms; the radix forms library the radix
+# bodies' entries in the Karatsuba form (_r4_k, _r5_k, _r5x_k).
 _RADIX_UNITS = ("block_conv_r4.cu", "block_conv_r5.cu", "block_conv_r5x.cu")
 _FORM_UNITS = ("block_conv_k.cu", "block_conv_peaks_k.cu", "block_conv_v2.cu",
                "block_conv_v2_k.cu")
+_RADIX_FORM_UNITS = ("block_conv_r4_k.cu", "block_conv_r5_k.cu", "block_conv_r5x_k.cu")
 _SIGNATURES = {
     "fftconv_block_conv_f32": _MAPS,
     "fftconv_block_conv_f32_bf16maps": _MAPS,
@@ -95,12 +100,14 @@ _FORM_SIGNATURES = {
     "fftconv_block_conv_v2_rows": ([_I] * 4, ctypes.c_int),
     "fftconv_block_conv_v2_blocks": ([_I] * 4, ctypes.c_int),
 }
+_RADIX_FORM_SIGNATURES = {f"{name}_k": sig for name, sig in _RADIX_SIGNATURES.items()}
 # library kind → (its translation units: None for every unit the others do
 # not take, its signatures, its file name's tag)
 _KINDS = {
     "main": (None, _SIGNATURES, ""),
     "radix": (_RADIX_UNITS, _RADIX_SIGNATURES, "radix_"),
     "forms": (_FORM_UNITS, _FORM_SIGNATURES, "forms_"),
+    "radix_forms": (_RADIX_FORM_UNITS, _RADIX_FORM_SIGNATURES, "radix_forms_"),
 }
 
 _locks = {kind: threading.Lock() for kind in _KINDS}
@@ -109,7 +116,8 @@ _build_logs = {kind: "" for kind in _KINDS}
 
 
 def _kind(radix: bool, forms: bool) -> str:
-    return "radix" if radix else "forms" if forms else "main"
+    return {(False, False): "main", (True, False): "radix", (False, True): "forms",
+            (True, True): "radix_forms"}[(bool(radix), bool(forms))]
 
 
 def _nvcc() -> str:
@@ -131,9 +139,10 @@ def _nvcc() -> str:
 def _sources(radix: bool = False, forms: bool = False) -> list[pathlib.Path]:
     """Every file a library is built from: its ``.cu`` translation units
     (the radix bodies' for ``radix``, the other forms' for ``forms``, the
-    rest else) and the ``.cuh`` headers they include."""
+    radix bodies' Karatsuba entries for both, the rest else) and the
+    ``.cuh`` headers they include."""
     units = _KINDS[_kind(radix, forms)][0]
-    others = _RADIX_UNITS + _FORM_UNITS
+    others = _RADIX_UNITS + _FORM_UNITS + _RADIX_FORM_UNITS
     cu = [s for s in _CSRC.glob("*.cu") if (s.name in units if units else s.name not in others)]
     return sorted([*cu, *_CSRC.glob("*.cuh")])
 
@@ -179,7 +188,8 @@ def _compile(sources: list[pathlib.Path], target: pathlib.Path) -> str:
 
 def library(radix: bool = False, forms: bool = False) -> ctypes.CDLL:
     """The loaded kernel library (``radix``: the radix bodies'; ``forms``:
-    the Karatsuba and v2 entries'), built on first call."""
+    the Karatsuba and v2 entries'; both: the radix bodies' Karatsuba
+    entries), built on first call."""
     kind = _kind(radix, forms)
     with _locks[kind]:
         lib = _libs.get(kind)

@@ -197,18 +197,28 @@
 //     row each of E and O: a pair chunk takes ROWS / 2 such v' and fills
 //     its ROWS rows of X with half the products of the direct rows. The
 //     rows whose partner falls outside the window (v = v' + M, v' < w0)
-//     gain nothing from the split and run as G's rows (the stage above),
-//     ROWS a single chunk; so a block's row chunks are the pair chunks, then
-//     the single chunks, and the products sum to the JAX kernel's 2 M^2 per
-//     bin. The S rows are staged even-then-odd (S^T's k = (u % 2) 8 +
-//     u / 2 in a 16-row chunk: its 8 even rows are E's k-step, its 8 odd
-//     rows O's), so no gather runs over the spectra; the products run
-//     transposed, E^T = S_even^T U^T, so that the pair's NV = ROWS / 2 rows
-//     of U are the N of the product (64 rows: wgmma.m64n32k8 with A = S^T
-//     (the warpgroup's 64 bins) and B = U from shared memory; 32 rows:
-//     mma.sync with 16 bins a warp), and the combine, in fp32 with t from
-//     the operand table (RadixOps::tw), writes X's local rows k (x[v']) and
-//     NV + k (x[v' + M]).
+//     take E - t O alone, ROWS a single chunk, computed as the JAX kernel
+//     computes every row (E and O from U and the rounded S rows, the
+//     twiddle applied in fp32; G's rows, t folded into U and rounded with
+//     it, would part from it by a bf16 rounding at kBF16IO): its two halves
+//     of ROWS / 2 v' take half the warps each (64 rows: a warpgroup) over
+//     passes of kCols / 2 bins, so that a thread holds what it holds in a
+//     pair chunk (two halves on the same warps, in turn or in registers,
+//     spilled). A block's row chunks are the pair chunks, then the single
+//     chunks, and the products sum to the JAX kernel's 2 M^2 per bin. The S rows are staged even-then-odd (S^T's
+//     k = (u % 2) 8 + u / 2 in a 16-row chunk: its 8 even rows are E's
+//     k-step, its 8 odd rows O's), so no gather runs over the spectra; the
+//     products run transposed, E^T = S_even^T U^T, so that a half's NV =
+//     ROWS / 2 rows of U are the N of the product (64 rows: wgmma.m64n32k8
+//     with A = S^T (the warpgroup's 64 bins) and B = U from shared memory;
+//     32 rows: mma.sync with 16 bins a warp), and the combine, in fp32 with
+//     t from the operand table (RadixOps::tw), writes X's local rows k
+//     (x[v']) and NV + k (x[v' + M]) of a pair, or k and NV + k (x[v' + M]
+//     of either half) of a single chunk. KARA runs JAX's csub in its
+//     Karatsuba form: the planes Sr + Si and Ur + Ui (the operand table's
+//     third plane) are staged beside the others (Ur + Ui in place of -Ui at
+//     64 rows), three products for E and three for O, their loop not
+//     unrolled at 64 rows (as v3's).
 //   - v5's W stage (DIF). With W = 2 (Wc - 1), the W/2 even bins give P =
 //     half the W/2-point packed synthesis, the odd bins the twiddle-folded Q
 //     (ops/block_conv.py _dif_w_mats: one (Tn x W) operand [epr; epi; oqr;
@@ -218,8 +228,10 @@
 //     epilogue column t' - t0 (P +- Q) and t' - t0 + W/2 (P - Q). X's bins
 //     are stored permuted by the H stage, [even | odd | Nyquist], so each
 //     half is a contiguous stretch. The Nyquist bin enters P as a rank-1
-//     term nyq[r] (-1)^t / W: v5 reads nyq from X's Nyquist bin (fp32, as
-//     the JAX kernel's VPU term); v5x from RadixOps::slv, synthesised outside
+//     term nyq[r] (-1)^t / W: v5 reads nyq from X's Nyquist bin, which the
+//     H stage overwrites with the JAX kernel's VPU term (U times the Nyquist
+//     bin's unrounded S in fp32 FMAs, 4-product, beside the products; the
+//     tensor cores' value would round S at kBF16IO); v5x from RadixOps::slv, synthesised outside
 //     the kernel (ops/block_conv.py _xsliver), rounded to bf16 at kBF16IO
 //     as the JAX kernel's BF16IO dot rounds it, and its H stage skips the
 //     Nyquist bin (W/2 bins: one pass fewer at W = 512).
@@ -343,9 +355,10 @@ static_assert((2 * kKB) % kKC == 0, "W-stage chunks tile [Xr | Xi]");
 constexpr int kV3 = 0, kV4 = 1, kV5 = 2, kV5X = 3, kV2 = 4;
 __host__ __device__ constexpr bool dif_body(int body) { return body == kV5 || body == kV5X; }
 __host__ __device__ constexpr bool radix_body(int body) { return body == kV4 || dif_body(body); }
-// The radix bodies' operands (ops/block_conv.py _radix_kernel_mats): U (2,
-// u_rows(M), g_cols(M)) = re, im; the twiddle (2, M) = cos, sin; v5x's
-// sliver (B, N, nbh, nbw, Vh), the Nyquist bin's windowed H synthesis.
+// The radix bodies' operands (ops/block_conv.py _radix_kernel_mats): U (3,
+// u_rows(M), g_cols(M)) = re, im, re + im (the Karatsuba form's plane); the
+// twiddle (2, M) = cos, sin; v5x's sliver (B, N, nbh, nbw, Vh), the Nyquist
+// bin's windowed H synthesis.
 struct RadixOps {
   const float* u_pad;
   const float* tw;
@@ -836,7 +849,6 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   // 6xTF32 sums its small terms apart from the main term (see Precision).
   constexpr bool kApart = SPLITS == 6;
   constexpr bool kDif = dif_body(BODY);
-  static_assert(!KARA || !radix_body(BODY), "the Karatsuba H stage runs in the v3 and v2 bodies");
   static_assert(BODY != kV2 || !STACKED, "v2 stacks blocks its own way");
   extern __shared__ __align__(16) float smem[];
   const int wc_pad = padded_bins(wc);
@@ -892,7 +904,8 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   cell_at = Cell{bb, bi, bj, rc, ni, count};
   // A radix body's chunk: a pair chunk (rc < its count) holds x[v'] at
   // local rows k and x[v' + M] at RW + k for v' = p0 + k; a single chunk
-  // window rows r0.. of [M - w0, M).
+  // window rows r0.. of [M - w0, M), x[v' + M] for v' = r0 - (M - w0) + k
+  // at local row k.
   const int m_h = lh / 2, w0 = lh - vh;
   const int npc = radix_body(BODY) ? pair_chunks(lh, vh, ROWS) : 0;
   const bool pair = radix_body(BODY) && rc < npc;
@@ -937,9 +950,10 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       col_tv[q] = c < count * wc ? t << 16 | (c - t * wc) : -1;
     }
   };
-  // Channel ff of this thread's S elements of the chunk at (u0, c0): D and K.
+  // Channel ff of this thread's S elements of the chunk at (u0, c0): D and K
+  // (zeros at the columns past a pass of `w` bins, a radix single chunk's).
   float dk[St::kPerS][4];
-  auto load_dk = [&](int c0, int u0, int ff) {
+  auto load_dk = [&](int c0, int u0, int ff, int w) {
 #pragma unroll
     for (int q = 0; q < St::kPerS; ++q) {
       const int u = u0 + s_u(q);
@@ -955,7 +969,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         dk[q][3] = ok ? to_f32(ki_c[off]) : 0.f;
       } else {
         const int v = c0 + s_v(q);
-        const bool ok = u < lh && v < wc;
+        const bool ok = u < lh && v < wc && s_v(q) < w;
         const long long off = ok ? static_cast<long long>(u) * wc + v + ff * plane : 0;
         dk[q][0] = ok ? to_f32(dr_c[off]) : 0.f;
         dk[q][1] = ok ? to_f32(di_c[off]) : 0.f;
@@ -964,16 +978,16 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       }
     }
   };
-  // S = sum_f K D at (u0, c0) into sv: channel 0 was prefetched into dk,
-  // the rest load here.
-  auto mac = [&](int c0, int u0, float (&sv)[St::kPerS][2]) {
+  // S = sum_f K D at (u0, c0) into sv, over a pass of `w` bins: channel 0
+  // was prefetched into dk, the rest load here.
+  auto mac = [&](int c0, int u0, float (&sv)[St::kPerS][2], int w) {
 #pragma unroll
     for (int q = 0; q < St::kPerS; ++q) {
       sv[q][0] = fmaf(dk[q][2], dk[q][0], -dk[q][3] * dk[q][1]);
       sv[q][1] = fmaf(dk[q][2], dk[q][1], dk[q][3] * dk[q][0]);
     }
     for (int ff = 1; ff < f; ++ff) {
-      load_dk(c0, u0, ff);
+      load_dk(c0, u0, ff, w);
 #pragma unroll
       for (int q = 0; q < St::kPerS; ++q) {
         sv[q][0] = fmaf(dk[q][2], dk[q][0], fmaf(-dk[q][3], dk[q][1], sv[q][0]));
@@ -1002,178 +1016,340 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       }
     }
   };
-  if (pair) {
-  // ---- radix-2 H stage (v4), a pair chunk: E, O at v' = p0.. (NV of
-  // them), X[k] = E + t O, X[NV + k] = E - t O ----
+  if constexpr (radix_body(BODY)) {
+  // ---- radix-2 H stage (v4): E = U S_even and O = U S_odd at NV = ROWS / 2
+  // v' a half, summed over the spectrum rows, then combined in fp32 with
+  // the twiddle t, as the JAX kernel computes every window row. A pair
+  // chunk (one half, v' = p0..) gives x[v'] = E + t O at local row k and
+  // x[v' + M] = E - t O at NV + k; its warps split a pass's kCols bins. A
+  // single chunk (two halves, v' = v0.. and v0 + NV..) gives x[v' + M] = E
+  // - t O alone, at local row h NV + k of half h; each half takes half of
+  // the warps (64 rows: a warpgroup), over passes of kCols / 2 bins, so that
+  // a thread holds what it holds in a pair chunk. KARA: the three products
+  // of csub, t1 = Sr Ur, t2 = Si Ui, t3 = (Sr + Si)(Ur + Ui), for E and O. ----
   constexpr int NV = RW;
-  constexpr int kUP = kWG ? NV * kUK : NV * kGS;  // floats of a U plane
-  float* u_st = g_st;  // U: re, im (and -im at 64 rows), NV rows x 8 columns
+  constexpr int kUP = kGP;  // floats of a U plane: ROWS rows, as G's
+  // U's planes: re, im, then -im (64 rows: Er is a sum) or, Karatsuba,
+  // re + im; each as the tier's pieces. The operand table holds re, im and
+  // re + im (RadixOps::u_pad); kUL of them are read, kUQ float4s a thread
+  // (2 only for a single chunk of the Karatsuba form at 64 rows).
+  constexpr int kUC = kWG || KARA ? 3 : 2;
+  constexpr int kUL = KARA ? 3 : 2;
+  constexpr int kUQ = (2 * kUL * ROWS + kThreads - 1) / kThreads;
+  float* u_st = g_st;
   const int ur_n = u_rows(m_h), uc_n = g_cols(m_h);
-  // This thread's U values of a chunk (j0 = u0 / 2..): (component, row,
-  // half) = tid, 4 floats, for the first 4 NV threads.
-  float4 uv = make_float4(0.f, 0.f, 0.f, 0.f);
-  const int u_pl = tid / (2 * NV), u_row = (tid / 2) % NV, u_h = tid & 1;
-  const bool u_on = tid < 4 * NV && p0 + u_row < m_h;
-  auto load_u = [&](int j0) {
-    if (u_on)
-      uv = *reinterpret_cast<const float4*>(rx.u_pad + (static_cast<long long>(u_pl) * ur_n + p0 + u_row) * uc_n +
-                                            j0 + 4 * u_h);
+  const int nu = pair ? NV : 2 * NV;                // the chunk's v'
+  const int v0 = pair ? p0 : (rc - npc) * ROWS;     // and the first of them
+  const int half = pair ? 0 : warp >> 2;            // this warp's half
+  // This thread's U values of a chunk (columns j0 = u0 / 2..): item e =
+  // tid + q kThreads is (plane, row, half of 4 columns), 4 floats.
+  float4 uv[kUQ];
+#pragma unroll
+  for (int q = 0; q < kUQ; ++q) uv[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto u_item = [&](int q, int& pl, int& row, int& h) {
+    const int e = tid + q * kThreads;
+    pl = e / (2 * nu);
+    row = (e >> 1) % nu;
+    h = e & 1;
+    return e < 2 * kUL * nu;
   };
-  for (int c0 = 0; c0 < hb_pad; c0 += kCols) {
-    // E and O (re, im) at this warp's bins x the chunk's v' (E^T, O^T):
-    // 64 rows, the warpgroup's 64 bins x 32 v' (wgmma m64n32); 32 rows,
-    // the warp's 16 bins x 16 v' (two mma.sync n-tiles).
+  auto load_u = [&](int j0) {
+#pragma unroll
+    for (int q = 0; q < kUQ; ++q) {
+      int pl, row, h;
+      if (u_item(q, pl, row, h) && v0 + row < m_h)
+        uv[q] = *reinterpret_cast<const float4*>(rx.u_pad + (static_cast<long long>(pl) * ur_n + v0 + row) * uc_n +
+                                                 j0 + 4 * h);
+    }
+  };
+  // The twiddle at v' (zero past M: rows no chunk owns).
+  auto tw_at = [&](int vp, float& twr, float& twi) {
+    twr = vp < m_h ? rx.tw[vp] : 0.f;
+    twi = vp < m_h ? rx.tw[m_h + vp] : 0.f;
+  };
+  // v5's Nyquist term as the JAX kernel's VPU matvecs compute it: the
+  // Nyquist bin's S unrounded, U as staged (the sum of its pieces), fp32
+  // products and sums, the 4-product form whatever the H stage's. X's row
+  // padding (4 floats a row, which the W stage does not read) holds it:
+  // each chunk parks its Nyquist S there (row j: E's re, im, then O's, of
+  // spectrum rows 2 j, 2 j + 1), thread k < nu sums its v''s Re E, Re O and
+  // Im O in rows 8.. (ny: 3 floats a v', kept out of the registers the
+  // products need), and after the pass X's Nyquist bin gets E +- t O.
+  float* ny_s = x_s + 2 * wc_pad;
+  auto ny = [&](int m) -> float& {
+    const int e = 3 * tid + m;
+    return ny_s[(8 + (e >> 2)) * xs + (e & 3)];
+  };
+  const int pass_w = pair ? kCols : kCols / 2;  // a pass's bins
+  for (int c0 = 0; c0 < hb_pad; c0 += pass_w) {
+    // E and O (re, im) at this warp's bins x its half's v' (E^T, O^T): 64
+    // rows, the warpgroup's 64 bins x 32 v' (wgmma m64n32); 32 rows, the
+    // warp's 16 bins x 16 v' (two mma.sync n-tiles).
     constexpr int XN = kWG ? 4 : 2;
     float er[XN][4], ei[XN][4], or_[XN][4], oi[XN][4];
 #pragma unroll
     for (int b = 0; b < XN; ++b)
 #pragma unroll
       for (int c = 0; c < 4; ++c) er[b][c] = ei[b][c] = or_[b][c] = oi[b][c] = 0.f;
-    const int bin0 = c0 + (kWG ? (warp >> 2) * 64 : warp * 16);  // the first bin of the tile
+    // the tile's first bin (and its first column in the staged S^T)
+    const int col0 = kWG ? (pair ? (warp >> 2) * 64 : 0) : (pair ? warp : warp & 3) * 16;
+    const int bin0 = c0 + col0;
     const bool live = bin0 < hb_pad;
-    load_dk(c0, 0, 0);
+    const bool nyq_pass = BODY == kV5 && c0 <= l2 && l2 < c0 + pass_w;
+    load_dk(c0, 0, 0, pass_w);
     load_u(0);
     for (int u0 = 0; u0 < lh; u0 += kUK) {
       float sv[St::kPerS][2];
-      mac(c0, u0, sv);
+      mac(c0, u0, sv, pass_w);
       __syncthreads();  // the previous chunk's products are done with staging
       stage_s(sv, true);
-      if (tid < 4 * NV) {
-        const float x[4] = {uv.x, uv.y, uv.z, uv.w};
+#pragma unroll
+      for (int q = 0; q < kUQ; ++q) {
+        int pl, row, h;
+        if (!u_item(q, pl, row, h)) continue;
+        const float x[4] = {uv[q].x, uv[q].y, uv[q].z, uv[q].w};
         uint32_t pc[4][P];
 #pragma unroll
         for (int i = 0; i < 4; ++i) pieces<SPLITS>(x[i], pc[i]);
-        float* pu = u_st + u_pl * P * kUP +
-                    (kWG ? ((u_row >> 3) * (kUK / 4) + u_h) * kCore + (u_row & 7) * 4 : u_row * kGS + 4 * u_h);
+        float* pu = u_st + pl * P * kUP +
+                    (kWG ? ((row >> 3) * (kUK / 4) + h) * kCore + (row & 7) * 4 : row * kGS + 4 * h);
 #pragma unroll
         for (int k2 = 0; k2 < P; ++k2) {
           *reinterpret_cast<uint4*>(pu + k2 * kUP) = make_uint4(pc[0][k2], pc[1][k2], pc[2][k2], pc[3][k2]);
-          if (kWG && u_pl == 1)  // -Ui, for Er = Sr Ur + Si (-Ui)
+          if (kWG && !KARA && pl == 1)  // -Ui, for Er = Sr Ur + Si (-Ui)
             *reinterpret_cast<uint4*>(pu + (P + k2) * kUP) =
                 make_uint4(pc[0][k2] ^ 0x80000000u, pc[1][k2] ^ 0x80000000u, pc[2][k2] ^ 0x80000000u,
                            pc[3][k2] ^ 0x80000000u);
         }
       }
+      if (nyq_pass) {
+#pragma unroll
+        for (int q = 0; q < St::kPerS; ++q)
+          if (c0 + s_v(q) == l2) {
+            const int u = s_u(q);
+            *reinterpret_cast<float2*>(ny_s + (u >> 1) * xs + 2 * (u & 1)) = make_float2(sv[q][0], sv[q][1]);
+          }
+      }
       if (kWG) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
       if (u0 + kUK < lh) {  // in flight during the products
-        load_dk(c0, u0 + kUK, 0);
+        load_dk(c0, u0 + kUK, 0, pass_w);
         load_u((u0 + kUK) / 2);
+      }
+      if (nyq_pass && tid < nu) {
+        float a[3];
+#pragma unroll
+        for (int m = 0; m < 3; ++m) a[m] = u0 == 0 ? 0.f : ny(m);
+#pragma unroll 1  // unrolled, its loads ran ahead and spilled the products' registers
+        for (int j = 0; j < kUK / 2; ++j) {
+          // U at (v0 + tid, u0 / 2 + j): the sum of its staged pieces (its
+          // bf16 value at kBF16IO, fp32 within 2^-22 at 3xTF32)
+          const float* pu = u_st + (kWG ? ((tid >> 3) * (kUK / 4) + (j >> 2)) * kCore + (tid & 7) * 4 + (j & 3)
+                                        : tid * kGS + j);
+          float ur = 0.f, ui = 0.f;
+#pragma unroll
+          for (int k2 = 0; k2 < P; ++k2) {
+            ur += pu[k2 * kUP];
+            ui += pu[(P + k2) * kUP];
+          }
+          const float4 s = *reinterpret_cast<const float4*>(ny_s + j * xs);  // Se re, im; So re, im
+          a[0] = fmaf(-ui, s.y, fmaf(ur, s.x, a[0]));
+          a[1] = fmaf(-ui, s.w, fmaf(ur, s.z, a[1]));
+          a[2] = fmaf(ui, s.z, fmaf(ur, s.w, a[2]));
+        }
+#pragma unroll
+        for (int m = 0; m < 3; ++m) ny(m) = a[m];
       }
       if (!live) continue;
       if constexpr (kWG) {
         // A = S^T's planes at the warpgroup's 64 bins (k-step 0: the even
-        // rows, 1: the odd), B = U's planes; summed on the tensor cores per
-        // chunk, then added in IEEE fp32.
-        const float* sw = s_st + (warp >> 2) * 8 * (kUK / 4) * kCore;
-        float te[2][4][4], to[2][4][4];  // [re, im] of E, O
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) te[c][j][i] = to[c][j][i] = 0.f;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          fence_regs(te[c]);
-          fence_regs(to[c]);
-        }
-        wgmma_fence();
+        // rows, 1: the odd), B = U's planes at its half's NV rows; summed
+        // on the tensor cores per chunk, then added in IEEE fp32.
+        const float* sw = s_st + (col0 >> 3) * (kUK / 4) * kCore;
         auto sa = [&](int pl, int ks) {
           return smem_desc(sw + pl * kSP + 2 * ks * kCore, 4 * kCore, 4 * (kUK / 4) * kCore);
         };
-        auto ub = [&](int pl) { return smem_desc(u_st + pl * kUP, 4 * kCore, 4 * (kUK / 4) * kCore); };
+        auto ub = [&](int pl) {
+          return smem_desc(u_st + pl * kUP + half * NV * kUK, 4 * kCore, 4 * (kUK / 4) * kCore);
+        };
         constexpr int kQ0 = first_product(SPLITS);
         constexpr int kPhases = kApart ? 2 : 1;
+        if constexpr (KARA) {
+          // component c: t = S^T plane set c times U plane set c, for E and
+          // for O, folded into them with the signs of (t1, t2, t3): Re +=
+          // t1 - t2, Im += t3 - t1 - t2. Not unrolled (see v3's).
+#pragma unroll 1
+          for (int c = 0; c < 3; ++c) {
+            float te[4][4], to[4][4];
 #pragma unroll
-        for (int ph = 0; ph < kPhases; ++ph) {
-          const int q0 = ph == 0 ? kQ0 : kMainProduct;
-          const int q1 = kApart && ph == 0 ? kMainProduct : 6;
+            for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int q = q0; q < q1; ++q) {
-            // planes: S^T re 0.., im P..; U re 0.., im P.., -im 2P..
-            wgmma_tf32_ss32(te[0], sa(prod_a(q), 0), ub(prod_b(q)));          // Sr Ur
-            wgmma_tf32_ss32(te[0], sa(P + prod_a(q), 0), ub(2 * P + prod_b(q)));  // Si (-Ui)
-            wgmma_tf32_ss32(te[1], sa(prod_a(q), 0), ub(P + prod_b(q)));      // Sr Ui
-            wgmma_tf32_ss32(te[1], sa(P + prod_a(q), 0), ub(prod_b(q)));      // Si Ur
-            wgmma_tf32_ss32(to[0], sa(prod_a(q), 1), ub(prod_b(q)));
-            wgmma_tf32_ss32(to[0], sa(P + prod_a(q), 1), ub(2 * P + prod_b(q)));
-            wgmma_tf32_ss32(to[1], sa(prod_a(q), 1), ub(P + prod_b(q)));
-            wgmma_tf32_ss32(to[1], sa(P + prod_a(q), 1), ub(prod_b(q)));
+              for (int i = 0; i < 4; ++i) te[j][i] = to[j][i] = 0.f;
+            fence_regs(te);
+            fence_regs(to);
+            wgmma_fence();
+#pragma unroll
+            for (int ph = 0; ph < kPhases; ++ph) {
+              const int qa = ph == 0 ? kQ0 : kMainProduct;
+              const int qb = kApart && ph == 0 ? kMainProduct : 6;
+#pragma unroll
+              for (int q = qa; q < qb; ++q) {
+                wgmma_tf32_ss32(te, sa(c * P + prod_a(q), 0), ub(c * P + prod_b(q)));
+                wgmma_tf32_ss32(to, sa(c * P + prod_a(q), 1), ub(c * P + prod_b(q)));
+              }
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(te);
+            fence_regs(to);
+            const float sr = c == 0 ? 1.f : c == 1 ? -1.f : 0.f;
+            const float si = c == 2 ? 1.f : -1.f;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                er[j][i] = fmaf(sr, te[j][i], er[j][i]);
+                ei[j][i] = fmaf(si, te[j][i], ei[j][i]);
+                or_[j][i] = fmaf(sr, to[j][i], or_[j][i]);
+                oi[j][i] = fmaf(si, to[j][i], oi[j][i]);
+              }
+          }
+        } else {
+          float te[2][4][4], to[2][4][4];  // [re, im] of E, O
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) te[c][j][i] = to[c][j][i] = 0.f;
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            fence_regs(te[c]);
+            fence_regs(to[c]);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int ph = 0; ph < kPhases; ++ph) {
+            const int qa = ph == 0 ? kQ0 : kMainProduct;
+            const int qb = kApart && ph == 0 ? kMainProduct : 6;
+#pragma unroll
+            for (int q = qa; q < qb; ++q) {
+              // planes: S^T re 0.., im P..; U re 0.., im P.., -im 2P..
+              wgmma_tf32_ss32(te[0], sa(prod_a(q), 0), ub(prod_b(q)));              // Sr Ur
+              wgmma_tf32_ss32(te[0], sa(P + prod_a(q), 0), ub(2 * P + prod_b(q)));  // Si (-Ui)
+              wgmma_tf32_ss32(te[1], sa(prod_a(q), 0), ub(P + prod_b(q)));          // Sr Ui
+              wgmma_tf32_ss32(te[1], sa(P + prod_a(q), 0), ub(prod_b(q)));          // Si Ur
+              wgmma_tf32_ss32(to[0], sa(prod_a(q), 1), ub(prod_b(q)));
+              wgmma_tf32_ss32(to[0], sa(P + prod_a(q), 1), ub(2 * P + prod_b(q)));
+              wgmma_tf32_ss32(to[1], sa(prod_a(q), 1), ub(P + prod_b(q)));
+              wgmma_tf32_ss32(to[1], sa(P + prod_a(q), 1), ub(prod_b(q)));
+            }
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            fence_regs(te[c]);
+            fence_regs(to[c]);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            add4(er[j], te[0][j]);
+            add4(ei[j], te[1][j]);
+            add4(or_[j], to[0][j]);
+            add4(oi[j], to[1][j]);
           }
         }
-        wgmma_commit();
-        wgmma_wait<0>();
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          fence_regs(te[c]);
-          fence_regs(to[c]);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          add4(er[j], te[0][j]);
-          add4(ei[j], te[1][j]);
-          add4(or_[j], to[0][j]);
-          add4(oi[j], to[1][j]);
-        }
       } else {
-        // A = S^T's fragments at the warp's 16 bins, B = U's at the 16 v'
-        // (two n-tiles); each k-step's products summed on the tensor cores.
-        uint32_t ub2[2][2][P][2];  // [n-tile][component][piece]
+        // A = S^T's fragments at the warp's 16 bins, B = U's at its half's
+        // 16 v' (two n-tiles); each k-step's products summed on the tensor
+        // cores.
+        constexpr int kC = KARA ? 3 : 2;
+        uint32_t ub2[2][kC][P][2];  // [n-tile][component][piece]
 #pragma unroll
-        for (int pl = 0; pl < 2 * P; ++pl) {
+        for (int pl = 0; pl < kC * P; ++pl) {
           uint32_t r[4];
-          ldsm4(r, u_st + pl * kUP + b_lane(lane, kGS));
+          ldsm4(r, u_st + pl * kUP + half * NV * kGS + b_lane(lane, kGS));
           ub2[0][pl / P][pl % P][0] = r[0];
           ub2[0][pl / P][pl % P][1] = r[1];
           ub2[1][pl / P][pl % P][0] = r[2];
           ub2[1][pl / P][pl % P][1] = r[3];
         }
         auto kstep = [&](int ks, float (&xr)[XN][4], float (&xi)[XN][4]) {
-          uint32_t sa2[2][P][4];
+          uint32_t sa2[kC][P][4];
 #pragma unroll
-          for (int pl = 0; pl < 2 * P; ++pl)
-            ldsm4(sa2[pl / P][pl % P], s_st + pl * kSP + warp * 16 * kGS + ks * 8 + a_lane(lane, kGS));
+          for (int pl = 0; pl < kC * P; ++pl)
+            ldsm4(sa2[pl / P][pl % P], s_st + pl * kSP + col0 * kGS + ks * 8 + a_lane(lane, kGS));
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            float tr[4] = {0.f, 0.f, 0.f, 0.f}, ts[4] = {0.f, 0.f, 0.f, 0.f};
-            float ti[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_n<SPLITS>(tr, sa2[0], ub2[j][0]);                       // Sr Ur
-            mma_n<SPLITS>(ts, sa2[1], ub2[j][1]);                       // Si Ui
-            mma_n2<SPLITS>(ti, sa2[0], ub2[j][1], sa2[1], ub2[j][0]);  // Sr Ui + Si Ur
+            if constexpr (KARA) {
+              float t1[4] = {0.f, 0.f, 0.f, 0.f}, t2[4] = {0.f, 0.f, 0.f, 0.f};
+              float t3[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_n<SPLITS>(t1, sa2[0], ub2[j][0]);
+              mma_n<SPLITS>(t2, sa2[1], ub2[j][1]);
+              mma_n<SPLITS>(t3, sa2[2], ub2[j][2]);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) xr[j][i] += tr[i] - ts[i];
-            add4(xi[j], ti);
+              for (int i = 0; i < 4; ++i) {
+                xr[j][i] += t1[i] - t2[i];
+                xi[j][i] += t3[i] - (t1[i] + t2[i]);
+              }
+            } else {
+              float tr[4] = {0.f, 0.f, 0.f, 0.f}, ts[4] = {0.f, 0.f, 0.f, 0.f};
+              float ti[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_n<SPLITS>(tr, sa2[0], ub2[j][0]);                       // Sr Ur
+              mma_n<SPLITS>(ts, sa2[1], ub2[j][1]);                       // Si Ui
+              mma_n2<SPLITS>(ti, sa2[0], ub2[j][1], sa2[1], ub2[j][0]);  // Sr Ui + Si Ur
+#pragma unroll
+              for (int i = 0; i < 4; ++i) xr[j][i] += tr[i] - ts[i];
+              add4(xi[j], ti);
+            }
           }
         };
         kstep(0, er, ei);
         kstep(1, or_, oi);
       }
     }
-    // The combine: x[v'] = E + t O at local row k, x[v' + M] = E - t O at
-    // NV + k; bins at or past hb_pad are not stored (bins past wc hold
-    // zeros, S was zero there).
+    // The combine: a pair's x[v'] = E + t O at local row k and x[v' + M] =
+    // E - t O at NV + k; a single chunk's x[v' + M] at half NV + k. Bins at
+    // or past hb_pad are not stored (bins past wc hold zeros, S was zero
+    // there).
     if (live) {
       const int row_b = bin0 + (kWG ? (warp & 3) * 16 : 0) + g8;  // this thread's bins: row_b, row_b + 8
+      const int vh0 = v0 + half * NV;  // the half's first v'
 #pragma unroll
       for (int j = 0; j < XN; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int bin = row_b + 8 * (i >> 1);
           const int k = 8 * j + 2 * t4 + (i & 1);
-          const int vp = p0 + k;
           if (bin >= hb_pad) continue;
-          const float twr = vp < m_h ? rx.tw[vp] : 0.f;
-          const float twi = vp < m_h ? rx.tw[m_h + vp] : 0.f;
-          const float tr = twr * or_[j][i] - twi * oi[j][i];
-          const float ti = twr * oi[j][i] + twi * or_[j][i];
-          float* pa = x_s + k * xs + xcol(bin);
-          float* pb = x_s + (NV + k) * xs + xcol(bin);
-          pa[0] = er[j][i] + tr;
-          pa[wc_pad] = ei[j][i] + ti;
-          pb[0] = er[j][i] - tr;
-          pb[wc_pad] = ei[j][i] - ti;
+          float twr, twi;
+          tw_at(vh0 + k, twr, twi);
+          const float t_r = twr * or_[j][i] - twi * oi[j][i];
+          const float t_i = twr * oi[j][i] + twi * or_[j][i];
+          if (pair) {
+            float* pa = x_s + k * xs + xcol(bin);
+            pa[0] = er[j][i] + t_r;
+            pa[wc_pad] = ei[j][i] + t_i;
+          }
+          float* pb = x_s + ((pair ? 1 : half) * NV + k) * xs + xcol(bin);
+          pb[0] = er[j][i] - t_r;
+          pb[wc_pad] = ei[j][i] - t_i;
         }
+    }
+    if (nyq_pass) {
+      __syncthreads();  // the combine is done with X's Nyquist bin
+      if (tid < nu) {
+        float twr, twi;
+        tw_at(v0 + tid, twr, twi);
+        const float t_r = twr * ny(1) - twi * ny(2);
+        if (pair) {
+          x_s[tid * xs + l2] = ny(0) + t_r;
+          x_s[(NV + tid) * xs + l2] = ny(0) - t_r;
+        } else {
+          x_s[tid * xs + l2] = ny(0) - t_r;
+        }
+      }
     }
   }
   } else {
@@ -1207,8 +1383,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     if constexpr (BODY == kV2) v2_columns(c0);
 
     // G (re, im) for rows r0.., spectrum rows u0.. (zero-padded past vh
-    // and lh; a radix single chunk's rows past G's padding read as zeros),
-    // loaded a chunk ahead and split as it is staged. Karatsuba: a thread's
+    // and lh), loaded a chunk ahead and split as it is staged. Karatsuba: a thread's
     // re and im at one position (tid < kGPos), and their sum staged beside.
     float4 gv[KARA ? 2 : St::kPerG];
     auto load_g = [&](int u0) {
@@ -1226,20 +1401,16 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
           const int e = tid + q * kThreads;
           const int pl = e / (ROWS * 4);
           const int row = (e / 4) % ROWS;
-          if (radix_body(BODY) && r0 + row >= gr_n) {
-            gv[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-            continue;
-          }
           gv[q] = *reinterpret_cast<const float4*>(
               g_pad + (static_cast<long long>(pl) * gr_n + r0 + row) * gc_n + u0 + 4 * (e % 4));
         }
       }
     };
-    load_dk(c0, 0, 0);
+    load_dk(c0, 0, 0, kCols);
     load_g(0);
     for (int u0 = 0; u0 < lh; u0 += kUK) {
       float sv[St::kPerS][2];
-      mac(c0, u0, sv);
+      mac(c0, u0, sv, kCols);
       __syncthreads();  // the previous chunk's products are done with staging
       stage_s(sv, false);
       if constexpr (KARA) {
@@ -1288,7 +1459,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       if (kWG) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
       if (u0 + kUK < lh) {  // in flight during the products
-        load_dk(c0, u0 + kUK, 0);
+        load_dk(c0, u0 + kUK, 0, kCols);
         load_g(u0 + kUK);
       }
       if constexpr (kWG) {
@@ -1502,11 +1673,6 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
             if constexpr (BODY == kV2) {
               store_v2(rank * 16 + 8 * h + g8, b2, xr[0][j][2 * h], xi[0][j][2 * h]);
               store_v2(rank * 16 + 8 * h + g8, b2 + 1, xr[0][j][2 * h + 1], xi[0][j][2 * h + 1]);
-            } else if constexpr (kDif) {
-              p[xcol(b2)] = xr[0][j][2 * h];
-              p[xcol(b2) + wc_pad] = xi[0][j][2 * h];
-              p[xcol(b2 + 1)] = xr[0][j][2 * h + 1];
-              p[xcol(b2 + 1) + wc_pad] = xi[0][j][2 * h + 1];
             } else {
               *reinterpret_cast<float2*>(p + b2) = make_float2(xr[0][j][2 * h], xr[0][j][2 * h + 1]);
               *reinterpret_cast<float2*>(p + b2 + wc_pad) = make_float2(xi[0][j][2 * h], xi[0][j][2 * h + 1]);
@@ -1526,11 +1692,6 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
             if constexpr (BODY == kV2) {
               store_v2(wm * RW + mt * 16 + 8 * h + g8, b2, xr[mt][nt][2 * h], xi[mt][nt][2 * h]);
               store_v2(wm * RW + mt * 16 + 8 * h + g8, b2 + 1, xr[mt][nt][2 * h + 1], xi[mt][nt][2 * h + 1]);
-            } else if constexpr (kDif) {
-              p[xcol(b2)] = xr[mt][nt][2 * h];
-              p[xcol(b2) + wc_pad] = xi[mt][nt][2 * h];
-              p[xcol(b2 + 1)] = xr[mt][nt][2 * h + 1];
-              p[xcol(b2 + 1) + wc_pad] = xi[mt][nt][2 * h + 1];
             } else {
               *reinterpret_cast<float2*>(p + b2) = make_float2(xr[mt][nt][2 * h], xr[mt][nt][2 * h + 1]);
               *reinterpret_cast<float2*>(p + b2 + wc_pad) = make_float2(xi[mt][nt][2 * h], xi[mt][nt][2 * h + 1]);
@@ -2213,7 +2374,7 @@ int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
 // RadixOps (v5x: slv; the others may pass null there); they run only where
 // the one-block configurations do (blocks_per_cta = 1) on the plans
 // radix_h_ok (and, DIF, radix_w_ok) admit. KARA runs the Karatsuba H stage
-// (v3 and v2 only). `ktile` (1..n), the kernels a launch tile of the
+// (every body). `ktile` (1..n), the kernels a launch tile of the
 // stacked configuration holds, is its launch order (n: the kernel index
 // fastest); the others run the kernel index fastest. Epi is the epilogue
 // class template. Returns cudaGetLastError() after the launch (0 =
@@ -2226,7 +2387,6 @@ int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
                       typename Epi<false>::Out out, int b, int nbh, int nbw,
                       int f, int n, int lh, int wc, int vh, int vw, int out_h,
                       int out_w, int ktile, void* stream) {
-  static_assert(!KARA || !radix_body(BODY), "the Karatsuba H stage runs in the v3 and v2 bodies");
   const long long need = BODY == kV2 ? v2_smem_bytes(wc, vh, SPLITS, KARA) : smem_bytes(wc, vh, SPLITS, KARA);
   if (b <= 0 || nbh <= 0 || nbw <= 0 || f <= 0 || n <= 0 || lh <= 0 ||
       wc <= 0 || vh <= 0 || vw <= 0 || out_h <= 0 || out_w <= 0 ||

@@ -193,7 +193,7 @@ struct ReducePeaks {
         vw, out_h, out_w, ktile, stream);                                      \
   }
 // A radix body's entry: RadixOps' three pointers after m_tc (block_conv.cuh).
-#define FFTCONV_PEAKS_RADIX_ENTRY(NAME, TS, SPLITS, BODY)                         \
+#define FFTCONV_PEAKS_RADIX_ENTRY(NAME, TS, SPLITS, BODY, KARA)                  \
   extern "C" int NAME(const TS* d_re, const TS* d_im, const TS* k_re,            \
                       const TS* k_im, const float* gt_re, const float* gt_im,    \
                       const float* g_pad, const float* m_tc, const float* u_pad, \
@@ -201,10 +201,10 @@ struct ReducePeaks {
                       int b, int nbh, int nbw, int f, int n, int lh, int wc,     \
                       int vh, int vw, int out_h, int out_w, int ktile,           \
                       void* stream) {                                            \
-    return launch_block_conv<TS, ReducePeaks, SPLITS, BODY>(                    \
-        d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc,                      \
-        RadixOps{u_pad, tw, slv}, PeaksOut{vals, idxs}, b, nbh, nbw, f, n, lh,  \
-        wc, vh, vw, out_h, out_w, ktile, stream);                               \
+    return launch_block_conv<TS, ReducePeaks, SPLITS, BODY, KARA>(               \
+        d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc,                       \
+        RadixOps{u_pad, tw, slv}, PeaksOut{vals, idxs}, b, nbh, nbw, f, n, lh,   \
+        wc, vh, vw, out_h, out_w, ktile, stream);                                \
   }
 // A Karatsuba entry (block_conv_peaks_k.cu): the v3 entries' operands.
 #define FFTCONV_PEAKS_KARATSUBA_ENTRY(NAME, TS, SPLITS)                         \
@@ -219,10 +219,11 @@ struct ReducePeaks {
         PeaksOut{vals, idxs}, b, nbh, nbw, f, n, lh, wc, vh,                   \
         vw, out_h, out_w, ktile, stream);                                      \
   }
-// The peaks kernel's five dtype-and-tier entries of one radix body.
-#define FFTCONV_PEAKS_RADIX_ENTRIES(SUFFIX, BODY)                                        \
-  FFTCONV_PEAKS_RADIX_ENTRY(fftconv_block_conv_peaks_f32##SUFFIX, float, 3, BODY)           \
-  FFTCONV_PEAKS_RADIX_ENTRY(fftconv_block_conv_peaks_bf16##SUFFIX, __nv_bfloat16, 3, BODY)  \
-  FFTCONV_PEAKS_RADIX_ENTRY(fftconv_block_conv_peaks_f32_x6##SUFFIX, float, 6, BODY)        \
-  FFTCONV_PEAKS_RADIX_ENTRY(fftconv_block_conv_peaks_f32_x1##SUFFIX, float, 1, BODY)        \
-  FFTCONV_PEAKS_RADIX_ENTRY(fftconv_block_conv_peaks_bf16_io##SUFFIX, __nv_bfloat16, kBF16IO, BODY)
+// The peaks kernel's five dtype-and-tier entries of one radix body, in the
+// H stage's 4-product form or (KARA) its Karatsuba form.
+#define FFTCONV_PEAKS_RADIX_ENTRIES(SUFFIX, BODY, KARA)                                                   \
+  FFTCONV_PEAKS_RADIX_ENTRY(fftconv_block_conv_peaks_f32##SUFFIX, float, 3, BODY, KARA)                   \
+  FFTCONV_PEAKS_RADIX_ENTRY(fftconv_block_conv_peaks_bf16##SUFFIX, __nv_bfloat16, 3, BODY, KARA)          \
+  FFTCONV_PEAKS_RADIX_ENTRY(fftconv_block_conv_peaks_f32_x6##SUFFIX, float, 6, BODY, KARA)                \
+  FFTCONV_PEAKS_RADIX_ENTRY(fftconv_block_conv_peaks_f32_x1##SUFFIX, float, 1, BODY, KARA)                \
+  FFTCONV_PEAKS_RADIX_ENTRY(fftconv_block_conv_peaks_bf16_io##SUFFIX, __nv_bfloat16, kBF16IO, BODY, KARA)

@@ -10,5 +10,5 @@
 #include "block_conv_maps.cuh"
 #include "block_conv_peaks.cuh"
 
-FFTCONV_BLOCK_CONV_RADIX_ENTRIES(_r4, kV4)
-FFTCONV_PEAKS_RADIX_ENTRIES(_r4, kV4)
+FFTCONV_BLOCK_CONV_RADIX_ENTRIES(_r4, kV4, false)
+FFTCONV_PEAKS_RADIX_ENTRIES(_r4, kV4, false)

@@ -64,16 +64,21 @@ and v5x (``xsliver``: v5 with that Nyquist term synthesised outside the
 kernel, ``_xsliver``). Their kernel entries carry the suffixes ``_r4``,
 ``_r5``, ``_r5x`` (``RADIX_SUFFIX``); they run in the one-block 64- and
 32-row configurations only (``radix_fits``). ``block_conv_reference``
-follows each body's factorisation (``_radix_x``, ``_dif_tile``).
+follows each body's factorisation (``_radix_x``, ``_dif_tile``), which is
+the JAX kernels': every window row from the sub-transforms Ê and Ô and the
+twiddle, v5's Nyquist term from the unrounded S.
 
 H-stage forms. ``karatsuba=True`` selects the JAX package's Karatsuba H
 stage, X = G·S as three real products (t1 = Gr·Sr, t2 = Gi·Si, t3 =
 (Gr + Gi)·(Sr + Si); Xr = t1 − t2, Xi = t3 − t1 − t2), in v3 (maps and
-peaks; entries ``…_k``) and v2; ``wstack=False`` (maps only) its v2 body:
-``v2_blocks`` blocks of one block column a CTA, one column-stacked H
-product, then the W stage block by block (entries ``…_v2``, ``…_v2_k``).
-``karatsuba=None`` keeps the 4-product form on every body; a radix body
-takes neither flag (``_karatsuba``, ``_body``). The configuration mirror
+peaks; entries ``…_k``), v2 and the radix bodies (their sub-transforms Ê
+and Ô, JAX's ``csub``: entries ``…_r4_k``, ``…_r5_k``, ``…_r5x_k``);
+``wstack=False`` (maps only) its v2 body: ``v2_blocks`` blocks of one
+block column a CTA, one column-stacked H product, then the W stage block
+by block (entries ``…_v2``, ``…_v2_k``). ``karatsuba=None`` keeps the
+4-product form on every body (JAX's None means Karatsuba but for v2: a
+choice measured on a TPU, ROADMAP queue 3); a radix body does not take
+``wstack=False`` (``_body``). The configuration mirror
 takes the form (``smem_bytes(..., karatsuba)``, ``v2_rows``,
 ``form_smem_bytes``), and ``_h_synthesis`` / ``_v2_x`` compute the forms
 in the plain version.
@@ -475,15 +480,17 @@ def _sliver_parity_row(block_w: int, kw: int, vw: int) -> np.ndarray:
     return (np.where((k + kw - 1) % 2 == 0, 1.0, -1.0) / block_w).astype(np.float32)[None, :]
 
 
-def radix_fits(wc: int, vh: int, splits: int = 3) -> bool:
+def radix_fits(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> bool:
     """Whether the Hopper kernels take the radix-2 stages at packed width
-    ``wc``, window height ``vh`` and tier ``splits``: the one-block 64- or
-    32-row configuration (the radix stages stage no more than the plain
-    ones), within ``SMEM_LIMIT_BYTES``. The block-stacked configuration
-    (Vh ≤ 32 where it fits) does not: its H stage is fp32 FMAs over
-    stacked blocks, not tensor-core products."""
+    ``wc``, window height ``vh``, tier ``splits`` and H-stage form
+    (``karatsuba``): the one-block 64- or 32-row configuration (the radix
+    stages stage no more than the plain ones: U's planes in G's room), within
+    ``SMEM_LIMIT_BYTES``. The block-stacked configuration (Vh ≤ 32 where it
+    fits) does not: its H stage is fp32 FMAs over stacked blocks, not
+    tensor-core products."""
     _check_splits(splits)
-    return blocks_per_cta(wc, vh, splits) == 1 and smem_bytes(wc, vh, splits) <= SMEM_LIMIT_BYTES
+    return (blocks_per_cta(wc, vh, splits) == 1
+            and smem_bytes(wc, vh, splits, karatsuba) <= SMEM_LIMIT_BYTES)
 
 
 def radix_chunks(lh: int, vh: int, rows: int) -> tuple[int, int]:
@@ -493,15 +500,17 @@ def radix_chunks(lh: int, vh: int, rows: int) -> tuple[int, int]:
     v' + M lie in it (v' ∈ [w0, M)): a pair chunk takes rows/2 such v', runs
     the two sub-transforms on them and gives 2 · rows/2 rows. The rows
     whose partner falls outside it (v = v' + M, v' < w0, window rows
-    [M − w0, M)) run as G's rows (the same products as the sub-transforms
-    on one v'), ``rows`` a single chunk."""
+    [M − w0, M)) take x[v' + M] = Ê − t⊙Ô alone, ``rows`` a single chunk
+    (two halves of rows/2 v', half the CTA's warps each: the products of
+    the direct rows)."""
     m, w0 = lh // 2, lh - vh
     return -(-(m - w0) // (rows // 2)), -(-w0 // rows)
 
 
-def radix_row_chunks(wc: int, lh: int, vh: int, splits: int = 3) -> int:
-    """CTAs a block takes in the radix kernels (``radix_chunks``)."""
-    return sum(radix_chunks(lh, vh, tile_rows(wc, vh, splits)))
+def radix_row_chunks(wc: int, lh: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
+    """CTAs a block takes in the radix kernels (``radix_chunks``) at the
+    tier and H-stage form."""
+    return sum(radix_chunks(lh, vh, tile_rows(wc, vh, splits, karatsuba)))
 
 
 def _body(radix_h: bool, radix_w: bool, xsliver: bool, wstack: bool = True) -> str:
@@ -518,21 +527,6 @@ def _body(radix_h: bool, radix_w: bool, xsliver: bool, wstack: bool = True) -> s
     if radix_w:
         return "v5x" if xsliver else "v5"
     return "v4" if radix_h else "v3"
-
-
-def _karatsuba(karatsuba: bool | None, body: str) -> bool:
-    """The H stage's form: ``karatsuba=None`` keeps the 4-product form on
-    every body (JAX's None means True, False for v2: a choice measured on
-    a TPU, ROADMAP queue 3); True runs the Karatsuba form, which the port
-    has for v3 and v2, and raises ``InvalidInputError`` with a radix body
-    on either device."""
-    if not karatsuba:
-        return False
-    if body not in ("v3", "v2"):
-        raise InvalidInputError(
-            f"karatsuba=True runs in the v3 and v2 bodies; the {body} body's Karatsuba form is "
-            f"not ported (ROADMAP.md queue 2, 'Karatsuba in the radix bodies')")
-    return True
 
 
 def body_suffix(body: str, karatsuba: bool = False) -> str:
@@ -554,10 +548,11 @@ def _check_body(body: str, block_h: int, block_w: int, kh: int, kw: int) -> None
             f"radix_w requires the v5 W alignment (block_w={block_w}, kw={kw}, vw={vw})")
 
 
-def _check_radix_fits(body: str, wc: int, vh: int, splits: int) -> None:
-    """On CUDA tensors a radix body needs ``radix_fits``: no other
-    configuration runs it, and none is run in its place."""
-    if body in _RADIX_BODIES and not radix_fits(wc, vh, splits):
+def _check_radix_fits(body: str, wc: int, vh: int, splits: int, karatsuba: bool = False) -> None:
+    """On CUDA tensors a radix body needs ``radix_fits`` at the call's tier
+    and H-stage form: no other configuration runs it, and none is run in
+    its place."""
+    if body in _RADIX_BODIES and not radix_fits(wc, vh, splits, karatsuba):
         raise InvalidInputError(
             f"the {body} body runs in the one-block configurations only; Wc={wc}, Vh={vh} at "
             f"{tier_name(splits)} stacks {blocks_per_cta(wc, vh, splits)} blocks a CTA "
@@ -641,26 +636,26 @@ def _split_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return x[..., 0::2, :], x[..., 1::2, :]
 
 
-def _radix_x(s_re, s_im, block_h, kh, rnd, gr, gi):
-    """The v4 H stage as the radix kernels factor it → X (…, Vh, Wc) = re,
-    im: window rows v = w0 + r whose partner v ± M also lies in the window
-    from Ê = U S_even, Ô = U S_odd and x = Ê ± t⊙Ô (fp32 combine); the rows
-    whose partner does not (window rows [M − w0, M)) from G's rows, as the
-    kernels' single chunks run them. ``rnd`` rounds the matrices as the
-    tier does (S arrives rounded); ``gr``, ``gi``: the windowed G."""
+def _radix_x(s_re, s_im, block_h, kh, rnd, karatsuba: bool, u_rnd=None):
+    """The v4 H stage as the JAX kernel factors it (``csub``,
+    ``cuda_fft_convolution_tpu/ops/block_conv.py:207-231``) → X (…, Vh,
+    Wc) = re, im: Ê = U S_even and Ô = U S_odd over every v' < M
+    (``_h_synthesis``: the 4-product form or the Karatsuba one, U and S
+    rounded by ``rnd`` as the tier does), the twiddle t⊙Ô in fp32, and the
+    window rows v = w0 + r as x[v] = Ê[v'] + t⊙Ô[v'] for v' = v ∈ [w0, M)
+    and Ê[v'] − t⊙Ô[v'] for v' = v − M ∈ [0, M). The kernels' pair chunks
+    give both rows of a v' ∈ [w0, M), their single chunks the minus row
+    of a v' < w0."""
     m, w0 = block_h // 2, block_h - (block_h - kh + 1)
     dev, dt = s_re.device, s_re.dtype
-    ur, ui = (rnd(torch.from_numpy(x).to(dev, dt)) for x in _radix_mats(block_h))
-    twr, twi = (torch.from_numpy(x).to(dev, dt)[w0:, None] for x in radix_twiddle(block_h))
+    ur, ui = ((u_rnd or rnd)(torch.from_numpy(x).to(dev, dt)) for x in _radix_mats(block_h))
+    twr, twi = (torch.from_numpy(x).to(dev, dt)[:, None] for x in radix_twiddle(block_h))
     (er_, or_), (ei_, oi_) = _split_rows(s_re), _split_rows(s_im)
-    ur, ui = ur[w0:], ui[w0:]  # the pairs' v' ∈ [w0, M)
-    e_r, e_i = ur @ er_ - ui @ ei_, ur @ ei_ + ui @ er_
-    o_r, o_i = ur @ or_ - ui @ oi_, ur @ oi_ + ui @ or_
+    e_r, e_i = _h_synthesis(ur, ui, er_, ei_, rnd, karatsuba)
+    o_r, o_i = _h_synthesis(ur, ui, or_, oi_, rnd, karatsuba)
     t_r, t_i = twr * o_r - twi * o_i, twr * o_i + twi * o_r
-    s_r = gr[m - w0 : m] @ s_re - gi[m - w0 : m] @ s_im
-    s_i = gr[m - w0 : m] @ s_im + gi[m - w0 : m] @ s_re
-    x_re = torch.cat([e_r + t_r, s_r, e_r - t_r], dim=-2)
-    x_im = torch.cat([e_i + t_i, s_i, e_i - t_i], dim=-2)
+    x_re = torch.cat([(e_r + t_r)[..., w0:, :], e_r - t_r], dim=-2)
+    x_im = torch.cat([(e_i + t_i)[..., w0:, :], e_i - t_i], dim=-2)
     return x_re, x_im
 
 
@@ -782,15 +777,16 @@ def block_conv_reference(
 
     ``wstack=False`` runs the v2 body (``_v2_x``: ``v2_blocks`` blocks a
     column-stacked product, then the W stage per block), ``karatsuba=True``
-    the Karatsuba H stage (v3 and v2; None and False: the 4-product form).
+    the Karatsuba H stage (every body; None and False: the 4-product form).
 
     ``radix_h``, ``radix_w``, ``xsliver`` select the body (``_body``; an
-    illegal plan raises ``ValueError``), computed in its factorisation as
-    the radix kernels run it: ``_radix_x`` (U, the twiddle and the radix
-    G rows rounded at ``BF16IO`` as S and X are), ``_dif_tile`` (its
-    matrices rounded there too; v5's Nyquist term from X's Nyquist bin in
-    fp32, v5x's from ``_xsliver``, rounded to bf16 at ``BF16IO`` as the
-    kernel rounds that operand)."""
+    illegal plan raises ``ValueError``), computed in the JAX kernels'
+    factorisation, as the radix kernels run it: ``_radix_x`` (U rounded at
+    ``BF16IO`` as S and X are, the twiddle in fp32), ``_dif_tile`` (its
+    matrices rounded there too; v5's Nyquist term the VPU term of the JAX
+    kernel, U times the Nyquist bin's unrounded S in fp32, 4-product; v5x's
+    from ``_xsliver``, rounded to bf16 at ``BF16IO`` as the kernel rounds
+    that operand)."""
     if out_dtype != torch.float64:
         _check_out_dtype(out_dtype)
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
@@ -798,7 +794,7 @@ def block_conv_reference(
     )
     body = _body(radix_h, radix_w, xsliver, wstack)
     _check_body(body, block_h, block_w, kh, kw)
-    kara = _karatsuba(karatsuba, body)
+    kara = bool(karatsuba)
     tier = _resolve_splits(splits, dr.dtype)
     rnd = bf16_round if tier == BF16IO else (lambda x: x)
     slv = _xsliver(dr, di, kr, ki, block_h, block_w, kh) if body == "v5x" else None
@@ -819,11 +815,16 @@ def block_conv_reference(
         mbh = min(v2_blocks(wc, vh, tier, kara), nbh)
         x_re, x_im = _v2_x(gr, gi, s_re, s_im, rnd, kara, mbh)
     else:
-        x_re, x_im = _radix_x(rnd(s_re), rnd(s_im), block_h, kh, rnd, gr, gi)
+        x_re, x_im = _radix_x(s_re, s_im, block_h, kh, rnd, kara)
     if body in ("v3", "v4", "v2"):
         tile = rnd(x_re) @ mr + rnd(x_im) @ mi  # (B, nbh, nbw, N, Vh, Vw)
     else:
-        nyq = x_re[..., block_w // 2] if slv is None else rnd(slv.to(x_re.dtype)).permute(0, 2, 3, 1, 4)
+        if slv is None:
+            l2 = block_w // 2
+            nyq = _radix_x(s_re[..., l2 : l2 + 1], s_im[..., l2 : l2 + 1], block_h, kh,
+                           lambda x: x, False, rnd)[0][..., 0]
+        else:
+            nyq = rnd(slv.to(x_re.dtype)).permute(0, 2, 3, 1, 4)
         tile = _dif_tile(rnd(x_re), rnd(x_im), nyq, block_w, kw, rnd)
     maps = tile.permute(0, 3, 1, 4, 2, 5).reshape(b, n, nbh * vh, nbw * vw)
     return maps[:, :, :out_h, :out_w].contiguous().to(out_dtype)
@@ -925,11 +926,11 @@ def block_conv(
     ``wstack=False`` runs JAX's v2 body (entries ``…_v2``: ``v2_blocks``
     blocks of a block column a CTA, one column-stacked H stage, the W stage
     per block; no radix flag with it), ``karatsuba=True`` the Karatsuba H
-    stage in v3 and v2 (entries ``…_k``, ``…_v2_k``; with a radix body it
-    raises). ``karatsuba=None`` is the 4-product form on every body (JAX's
-    None is Karatsuba but for v2). On CUDA tensors a form the kernels do
-    not take (``form_taken``: its shared memory does not fit) raises; no
-    other entry runs in its place."""
+    stage in every body (entries ``…_k``, ``…_v2_k``, ``…_r4_k``,
+    ``…_r5_k``, ``…_r5x_k``). ``karatsuba=None`` is the 4-product form on
+    every body (JAX's None is Karatsuba but for v2). On CUDA tensors a form
+    the kernels do not take (``form_taken``: its shared memory does not
+    fit) raises; no other entry runs in its place."""
     _check_out_dtype(out_dtype)
     ops = (dr, di, kr, ki)
     splits = _resolve_splits(splits, dr.dtype)
@@ -940,14 +941,14 @@ def block_conv(
         )
     body = _body(radix_h, radix_w, xsliver, wstack)
     _check_body(body, block_h, block_w, kh, kw)
-    kara = _karatsuba(karatsuba, body)
+    kara = bool(karatsuba)
     dev, tag = cuda_operands("block_conv", ops)
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
     rows = (v2_rows if body == "v2" else tile_rows)(wc, vh, splits, kara)
     _check_fit(block_w, wc, vh, splits, body, kara)
-    _check_radix_fits(body, wc, vh, splits)
+    _check_radix_fits(body, wc, vh, splits, kara)
     from cuda_fft_convolution_torch._build import library
 
     lib = library(radix=body in _RADIX_BODIES, forms=body == "v2" or kara)
@@ -956,7 +957,7 @@ def block_conv(
             f"{body_suffix(body, kara)}")
     ktile = kernel_tile(wc, vh, kr, splits)
     out = torch.empty((b, n, out_h, out_w), dtype=out_dtype, device=dev)
-    m_tc, radix = _radix_args(ops, block_h, block_w, kh, kw, str(dev), splits, body, m_tc)
+    m_tc, radix = _radix_args(ops, block_h, block_w, kh, kw, str(dev), splits, body, m_tc, rows)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"fftconv_{mode}")(
@@ -1067,21 +1068,24 @@ def _core_matrices(m_t: torch.Tensor, rows: int, splits: int) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=16)
 def _radix_kernel_mats(
-    block_h: int, block_w: int, kh: int, kw: int, device: str, splits: int, body: str
+    block_h: int, block_w: int, kh: int, kw: int, device: str, splits: int, body: str,
+    rows: int,
 ):
     """The radix kernels' matrix operands at tier ``splits``
-    (csrc/block_conv.cuh RadixOps) → (u_pad, tw, m_dif): U (2, M padded to
-    64, M padded to 16) = re, im, the sub-transforms (the radix G rows'
-    twins: exact, or rounded to bf16 at ``BF16IO``); the twiddle (2, M) =
-    cos, sin, float32 at every tier; and for v5/v5x the DIF W stage's B
-    operand — row c of (Tn padded to 128, W) holding [epr; epi; oqr; oqi]
-    at t'-column c, as ``_core_matrices`` (v4's W stage takes
-    ``_kernel_mats``' M^T: None)."""
+    (csrc/block_conv.cuh RadixOps) → (u_pad, tw, m_dif): U (3, M padded to
+    64, M padded to 16) = re, im, re + im, the sub-transforms (exact, or
+    rounded to bf16 at ``BF16IO``, and the sum of the rounded planes rounded
+    again, as JAX's bf16 ``ur + ui``; the Karatsuba form's plane); the
+    twiddle (2, M) = cos, sin, float32 at every tier; and for v5/v5x the
+    DIF W stage's B operand — row c of (Tn padded to 128, W) holding [epr;
+    epi; oqr; oqi] at t'-column c, as ``_core_matrices`` for the
+    ``rows``-row configuration (v4's W stage takes ``_kernel_mats``' M^T:
+    None)."""
     rnd = bf16_round if splits == BF16IO else (lambda x: x)
     m, vh, vw = block_h // 2, block_h - kh + 1, block_w - kw + 1
     ur, ui = (rnd(torch.from_numpy(x).to(device)) for x in _radix_mats(block_h))
-    u_pad = torch.zeros((2, -(-m // 64) * 64, -(-m // _UK) * _UK), device=device)
-    u_pad[0, :m, :m], u_pad[1, :m, :m] = ur, ui
+    u_pad = torch.zeros((3, -(-m // 64) * 64, -(-m // _UK) * _UK), device=device)
+    u_pad[0, :m, :m], u_pad[1, :m, :m], u_pad[2, :m, :m] = ur, ui, rnd(ur + ui)
     tw = torch.from_numpy(np.stack(radix_twiddle(block_h))).to(device)
     if body == "v4":
         return u_pad, tw, None
@@ -1089,17 +1093,18 @@ def _radix_kernel_mats(
     tn = mats[0].shape[1]
     m_t = torch.zeros((-(-tn // _COLS) * _COLS, block_w), device=device)
     m_t[:tn] = torch.cat(mats).t()
-    return u_pad, tw, _core_matrices(m_t, tile_rows(block_w // 2 + 1, vh, splits), splits)
+    return u_pad, tw, _core_matrices(m_t, rows, splits)
 
 
-def _radix_args(ops, block_h, block_w, kh, kw, device, splits, body, m_tc):
+def _radix_args(ops, block_h, block_w, kh, kw, device, splits, body, m_tc, rows):
     """A launch's W-stage operand and the radix entries' extra pointers →
-    (m_tc, (u_pad, tw, slv)): v5/v5x take the DIF operand in place of
-    ``m_tc``; slv is v5x's sliver (B, N, nbh, nbw, Vh) from ``_xsliver``, a
-    null pointer for v4 and v5; v3 and v2 entries take no extra pointers."""
+    (m_tc, (u_pad, tw, slv)): v5/v5x take the DIF operand (for the
+    ``rows``-row configuration) in place of ``m_tc``; slv is v5x's sliver
+    (B, N, nbh, nbw, Vh) from ``_xsliver``, a null pointer for v4 and v5; v3
+    and v2 entries take no extra pointers."""
     if body not in _RADIX_BODIES:
         return m_tc, ()
-    u_pad, tw, m_dif = _radix_kernel_mats(block_h, block_w, kh, kw, device, splits, body)
+    u_pad, tw, m_dif = _radix_kernel_mats(block_h, block_w, kh, kw, device, splits, body, rows)
     slv = _xsliver(*ops, block_h, block_w, kh).contiguous() if body == "v5x" else None
     return (m_tc if m_dif is None else m_dif), (u_pad, tw, slv)
 
@@ -1205,7 +1210,7 @@ def block_conv_peaks_reference(
     over one-block cells and ``group_cells`` over cells of ``mbh × mbw``
     blocks → (vals f32, idxs int32), each (B, N, ceil(nbh / mbh), ceil(nbw
     / mbw))."""
-    radix_h = _peaks_radix_h(radix_h, radix_w, dr, block_h, block_w, kh, splits)
+    radix_h = _peaks_radix_h(radix_h, radix_w, dr, block_h, block_w, kh, splits, karatsuba)
     maps = block_conv_reference(
         dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, splits=splits,
         radix_h=radix_h, radix_w=radix_w, xsliver=xsliver, karatsuba=karatsuba,
@@ -1216,11 +1221,12 @@ def block_conv_peaks_reference(
     return group_cells(vals, idxs, mbh, mbw)
 
 
-def _peaks_radix_h(radix_h, radix_w, dr, block_h, block_w, kh, splits) -> bool:
+def _peaks_radix_h(radix_h, radix_w, dr, block_h, block_w, kh, splits, karatsuba=None) -> bool:
     """The peaks kernel's ``radix_h``: as given, True under ``radix_w``,
     and for None the JAX package's auto rule — v4 at float32 spectra where
     ``radix_h_legal`` holds — where the Hopper kernels take it
-    (``radix_fits`` at the call's tier), on either device."""
+    (``radix_fits`` at the call's tier and H-stage form), on either
+    device."""
     if radix_w:
         return True
     if radix_h is not None:
@@ -1228,7 +1234,7 @@ def _peaks_radix_h(radix_h, radix_w, dr, block_h, block_w, kh, splits) -> bool:
     vh = block_h - kh + 1
     return (
         dr.dtype != torch.bfloat16 and radix_h_legal(block_h, vh)
-        and radix_fits(block_w // 2 + 1, vh, _resolve_splits(splits, dr.dtype))
+        and radix_fits(block_w // 2 + 1, vh, _resolve_splits(splits, dr.dtype), bool(karatsuba))
     )
 
 
@@ -1266,9 +1272,10 @@ def block_conv_peaks(
     rule does and the Hopper kernels take it (``_peaks_radix_h``); an
     explicit radix flag on a plan JAX rejects raises ``ValueError``, and on
     CUDA tensors also where ``radix_fits`` is False. ``karatsuba=True``
-    runs the Karatsuba H stage (v3 only, entries ``…_k``: with a radix
-    body, the auto rule's included, it raises); None and False the
-    4-product form (JAX's peaks kernel defaults to Karatsuba).
+    runs the Karatsuba H stage (entries ``…_k``, ``…_r4_k``, ``…_r5_k``,
+    ``…_r5x_k``; the auto rule's v4 included, where ``radix_fits`` holds
+    for the form); None and False the 4-product form (JAX's peaks kernel
+    defaults to Karatsuba).
 
     CPU tensors run ``block_conv_peaks_reference``; CUDA tensors launch the
     CUDA kernel entry of their spectra dtype, synthesis tier ``splits``
@@ -1284,7 +1291,7 @@ def block_conv_peaks(
     ops = (dr, di, kr, ki)
     splits = _resolve_splits(splits, dr.dtype)
     _check_group(mbh, mbw)
-    radix_h = _peaks_radix_h(radix_h, radix_w, dr, block_h, block_w, kh, splits)
+    radix_h = _peaks_radix_h(radix_h, radix_w, dr, block_h, block_w, kh, splits, karatsuba)
     if all(t.device.type == "cpu" for t in ops):
         return block_conv_peaks_reference(
             dr, di, kr, ki, block_h, block_w, kh, kw, out_h, out_w, splits, mbh, mbw,
@@ -1292,22 +1299,22 @@ def block_conv_peaks(
         )
     body = _body(radix_h, radix_w, xsliver)
     _check_body(body, block_h, block_w, kh, kw)
-    kara = _karatsuba(karatsuba, body)
+    kara = bool(karatsuba)
     dev, tag = cuda_operands("block_conv_peaks", ops)
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
     _check_fit(block_w, wc, vh, splits, body, kara)
-    _check_radix_fits(body, wc, vh, splits)
+    _check_radix_fits(body, wc, vh, splits, kara)
     _check_index_range(nbh, nbw, vh, vw, out_w)
     from cuda_fft_convolution_torch._build import library
 
     lib = library(radix=body in _RADIX_BODIES, forms=kara)
-    gt_re, gt_im, g_pad, m_tc = _kernel_mats(
-        block_h, block_w, kh, kw, str(dev), splits, tile_rows(wc, vh, splits, kara))
-    m_tc, radix = _radix_args(ops, block_h, block_w, kh, kw, str(dev), splits, body, m_tc)
+    rows = tile_rows(wc, vh, splits, kara)
+    gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev), splits, rows)
+    m_tc, radix = _radix_args(ops, block_h, block_w, kh, kw, str(dev), splits, body, m_tc, rows)
     chunks = (row_chunks(wc, vh, splits, kara) if body == "v3"
-              else radix_row_chunks(wc, lh, vh, splits))
+              else radix_row_chunks(wc, lh, vh, splits, kara))
     ktile = kernel_tile(wc, vh, kr, splits)
     shape = (b, n, nbh, chunks, nbw)
     vals = torch.empty(shape, dtype=torch.float32, device=dev)

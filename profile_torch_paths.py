@@ -36,11 +36,17 @@ plan (bf16 spectra at the 3×TF32 entries, and the same planes upcast to
 float32), printing how far the outputs differ and each side's error
 against the plain version; at the headline plan it also compares the
 6×TF32 and one-pass entries (``_x6``, ``_x1``, each side on this tree's
-operands of the tier), untimed. Before that it holds every C entry the
-parent has (its v3 and radix libraries, each built from its sources)
-bitwise to this tree's on random planes (``every_entry_bitwise``: the v3
-entries at ``chip_smoke``'s kernel-check geometries, the radix entries at
-step 36's plans), and fails on any difference.
+operands of the tier), untimed; at JAX's F=1 radix plan (256, 512, 65, 129)
+on the headline image, N=100, it times each radix body's maps entry at
+3×TF32 and BF16IO in turns. Before that it holds every C entry the parent
+has (its v3, radix and forms libraries, each built from its sources)
+against this tree's on random planes (``every_entry_bitwise``): the v3
+entries and the Karatsuba and v2 ones (``_k``, ``_v2``, ``_v2_k``) at
+``chip_smoke``'s kernel-check geometries bitwise, failing on any
+difference; the radix entries at step 36's plans, whose single chunks and
+v5's Nyquist term this tree computes as the JAX kernels do, printed with
+their distance from the parent and whether the pair chunks' rows are
+bitwise the parent's.
 
     python3 profile_torch_paths.py --submit-probe
 
@@ -147,7 +153,8 @@ def build_parent(csrc: pathlib.Path):
     """The parent's maps and peaks kernels, built from ``csrc`` into
     ``build/parent_ab`` with this tree's nvcc flags, every nvcc started
     together → (the loaded library of the v3 entries, that of the radix
-    bodies' entries, or None where the parent has none)."""
+    bodies' entries, that of the Karatsuba and v2 entries, each None where
+    the parent has none)."""
     from cuda_fft_convolution_torch import _build
 
     out = _build.BUILD_DIR / "parent_ab"
@@ -155,6 +162,8 @@ def build_parent(csrc: pathlib.Path):
     nvcc = _build._nvcc()
     units = {"libparent.so": ("block_conv", "block_conv_peaks"),
              "libparent_radix.so": tuple(u.removesuffix(".cu") for u in _build._RADIX_UNITS
+                                         if (csrc / u).exists()),
+             "libparent_forms.so": tuple(u.removesuffix(".cu") for u in _build._FORM_UNITS
                                          if (csrc / u).exists())}
     objs = {lib: [out / f"{name}.o" for name in names] for lib, names in units.items()}
     procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", str(csrc / f"{o.stem}.cu"),
@@ -174,8 +183,8 @@ def build_parent(csrc: pathlib.Path):
                        check=True)
         lib = ctypes.CDLL(str(out / name))
         # this tree's signatures, for every entry the parent has
-        for entry, (argtypes, restype) in {**_build._SIGNATURES,
-                                           **_build._RADIX_SIGNATURES}.items():
+        for entry, (argtypes, restype) in {**_build._SIGNATURES, **_build._RADIX_SIGNATURES,
+                                           **_build._FORM_SIGNATURES}.items():
             if entry.startswith("fftconv_block_conv") and hasattr(lib, entry):
                 getattr(lib, entry).argtypes = argtypes
                 getattr(lib, entry).restype = restype
@@ -184,13 +193,14 @@ def build_parent(csrc: pathlib.Path):
 
 
 def bare_entry(lib, name, ops, geom, body="v3"):
-    """The C entry ``name`` (a maps or peaks entry of the default H-stage
-    form, any tier and body) of ``lib`` on ``ops`` at ``geom``, with this
-    tree's operands of its tier and body, the wrappers' launch order and no
-    wrapper around it (a wrapper's host checks would show in a one-call
-    CUDA-event window) → its outputs: maps (B, N, out_h, out_w), or the
-    partial pyramid (vals, idxs) (B, N, nbh, row chunks, nbw). Raises
-    where the entry refuses the launch."""
+    """The C entry ``name`` (a maps or peaks entry of any tier, body and
+    H-stage form: ``body`` names the body, the ``_k`` suffix the Karatsuba
+    form) of ``lib`` on ``ops`` at ``geom``, with this tree's operands of
+    its tier, body and form, the wrappers' launch order and no wrapper
+    around it (a wrapper's host checks would show in a one-call CUDA-event
+    window) → its outputs: maps (B, N, out_h, out_w), or the partial
+    pyramid (vals, idxs) (B, N, nbh, row chunks, nbw). Raises where the
+    entry refuses the launch."""
     import torch
 
     from cuda_fft_convolution_torch.ops import block_conv as bc
@@ -200,13 +210,15 @@ def bare_entry(lib, name, ops, geom, body="v3"):
     bh, bw, kh, kw, out_h, out_w = geom
     vh, vw = bh - kh + 1, bw - kw + 1
     dev = ops[0].device
-    stem = name.removesuffix(bc.RADIX_SUFFIX[body])
+    kara = name.endswith("_k")
+    stem = name.removesuffix(bc.body_suffix(body, kara))
     splits = next((t for t, sfx in bc.TIER_SUFFIX.items() if sfx and stem.endswith(sfx)), 3)
-    mats = bc._kernel_mats(bh, bw, kh, kw, str(dev), splits)
-    m_tc, radix = bc._radix_args(ops, bh, bw, kh, kw, str(dev), splits, body, mats[3])
+    rows = (bc.v2_rows if body == "v2" else bc.tile_rows)(wc, vh, splits, kara)
+    mats = bc._kernel_mats(bh, bw, kh, kw, str(dev), splits, rows)
+    m_tc, radix = bc._radix_args(ops, bh, bw, kh, kw, str(dev), splits, body, mats[3], rows)
     if "_peaks_" in name:
-        chunks = (bc.row_chunks(wc, vh, splits) if body == "v3"
-                  else bc.radix_row_chunks(wc, lh, vh, splits))
+        chunks = (bc.row_chunks(wc, vh, splits, kara) if body == "v3"
+                  else bc.radix_row_chunks(wc, lh, vh, splits, kara))
         outs = (torch.empty((b, n, nbh, chunks, nbw), device=dev),
                 torch.empty((b, n, nbh, chunks, nbw), dtype=torch.int32, device=dev))
     else:
@@ -229,14 +241,32 @@ def refused_or(call):
         return None
 
 
+RADIX_AB_PLANS = [(1, 1, 3, 256, 512, 65, 129, 400, 800, "JAX F=1 plan"),
+                  (1, 2, 3, 128, 512, 33, 129, 200, 800, "JAX 32² plan"),
+                  (1, 1, 2, 256, 1024, 65, 129, 400, 1800, "W 1024")]
+
+
+RADIX_BODY_SUFFIXES = (("v5x", "_r5x"), ("v5", "_r5"), ("v4", "_r4"))
+
+
+def _entry_body(name: str) -> str:
+    """The body a C entry's suffix names ('v3' for none)."""
+    stem = name.removesuffix("_k")
+    return next((bd for bd, sfx in (("v2", "_v2"), *RADIX_BODY_SUFFIXES) if stem.endswith(sfx)),
+                "v3")
+
+
 def every_entry_bitwise(parent_libs, seed: int) -> None:
-    """Every C entry the parent has (the v3 library's maps and peaks
-    entries, and the radix library's) against this tree's, bitwise, on
-    random planes from ``seed``: the v3 entries at ``chip_smoke``'s
-    kernel-check geometries (every configuration: 64 and 32 rows, stacked,
-    31 row chunks), the radix entries at step 36's three plans (each body
-    where its rules take the plan). An entry both sides refuse counts as
-    equal; any other difference fails."""
+    """Every C entry the parent has against this tree's on random planes
+    from ``seed``: the v3 library's maps and peaks entries and the forms
+    library's (``_k``, ``_v2``, ``_v2_k``) at ``chip_smoke``'s kernel-check
+    geometries (every configuration: 64 and 32 rows, stacked, 31 row
+    chunks) bitwise — an entry both sides refuse counts as equal, any other
+    difference fails; the radix library's at step 36's three plans (each
+    body where its rules take the plan), each printed with its distance
+    from the parent (largest difference relative to the parent's largest
+    value) and, for the maps entries, whether the rows of the pair chunks
+    (window rows outside [M − w0, M)) are bitwise the parent's."""
     import numpy as np
     import torch
 
@@ -244,24 +274,26 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
     from cuda_fft_convolution_torch.ops import block_conv as bc
 
     rng = np.random.default_rng(seed)
-    this = (_build.library(), _build.library(radix=True))
+    this = (_build.library(), _build.library(radix=True), _build.library(forms=True))
     entries = [n for n, sig in _build._SIGNATURES.items()
                if n.startswith("fftconv_block_conv") and len(sig[0]) > 3]
-    radix_plans = [(1, 1, 3, 256, 512, 65, 129, 400, 800, "JAX F=1 plan"),
-                   (1, 2, 3, 128, 512, 33, 129, 200, 800, "JAX 32² plan"),
-                   (1, 1, 2, 256, 1024, 65, 129, 400, 1800, "W 1024")]
+    forms = [n for n, sig in _build._FORM_SIGNATURES.items()
+             if n.startswith("fftconv_block_conv") and len(sig[0]) > 4]
     equal = refused = total = 0
-    bad = []
+    bad, moved = [], []
     for geoms, libs, names, radix in (
         (chip_smoke.CHECK_GEOMETRIES, (parent_libs[0], this[0]), entries, False),
-        (radix_plans, (parent_libs[1], this[1]), list(_build._RADIX_SIGNATURES), True),
+        (chip_smoke.CHECK_GEOMETRIES, (parent_libs[2], this[2]), forms, False),
+        (RADIX_AB_PLANS, (parent_libs[1], this[1]), list(_build._RADIX_SIGNATURES), True),
     ):
         if libs[0] is None:
-            print("every entry: the parent has no radix library")
+            print(f"every entry: the parent has no library of {names[0]}..")
             continue
         for b, f, n, bh, bw, kh, kw, out_h, out_w, label in geoms:
             vh, vw = bh - kh + 1, bw - kw + 1
             nbh, nbw, wc = -(-out_h // vh), -(-out_w // vw), bw // 2 + 1
+            m, w0 = bh // 2, bh - vh
+            pair_rows = (np.arange(out_h) % vh < m - w0) | (np.arange(out_h) % vh >= m)
 
             def t(*shape):
                 return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
@@ -272,8 +304,7 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
             ops16 = tuple(x.to(torch.bfloat16) for x in ops)
             geom = (bh, bw, kh, kw, out_h, out_w)
             for name in names:
-                body = next((bd for bd, sfx in bc.RADIX_SUFFIX.items()
-                             if sfx and name.endswith(sfx)), "v3") if radix else "v3"
+                body = _entry_body(name)
                 if body in ("v5", "v5x") and not bc.radix_w_legal(bw, kw, vw):
                     continue
                 planes = ops16 if "_bf16" in name.replace("_bf16maps", "") else ops
@@ -281,17 +312,29 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
                         for lib in libs)
                 torch.cuda.synchronize()
                 total += 1
-                if a is None and c is None:
-                    refused += 1
-                elif a is not None and c is not None and all(
-                        torch.equal(x, y) for x, y in zip(a, c)):
+                same = (a is None and c is None) or (
+                    a is not None and c is not None and all(torch.equal(x, y)
+                                                            for x, y in zip(a, c)))
+                if radix and a is not None and c is not None and not same:
+                    dist = float((c[0].float() - a[0].float()).abs().max()
+                                 / a[0].float().abs().max())
+                    rows = ""
+                    if "_peaks_" not in name:
+                        keep = torch.as_tensor(pair_rows, device=a[0].device)
+                        rows = (f"; pair rows bitwise "
+                                f"{torch.equal(a[0][:, :, keep], c[0][:, :, keep])}")
+                    moved.append(f"{label}: {name} {dist:.3e} from the parent{rows}")
+                elif same:
                     equal += 1
+                    refused += a is None
                 else:
                     bad.append(f"{label}: {name}")
             del ops, ops16
             torch.cuda.empty_cache()
     print(f"every entry, parent vs this tree: {equal} bitwise equal, {refused} refused by both, "
-          f"of {total} (entry, geometry) pairs")
+          f"{len(moved)} radix entries moved, of {total} (entry, geometry) pairs")
+    for line in moved:
+        print(f"  radix, moved: {line}")
     if bad:
         raise AssertionError(f"entries that differ from the parent's: {bad}")
 
@@ -369,6 +412,27 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
             compare(f"{label}, {tier_name(splits)}", *calls(ops, geom, peaks, splits), peaks,
                     ops, geom)
     del spec, sk, ops
+    torch.cuda.empty_cache()
+
+    # the radix bodies' maps entries at JAX's F=1 plan on the headline
+    # image, in turns (3xTF32 on f32 spectra, BF16IO on bf16)
+    from cuda_fft_convolution_torch.ops.block_conv import RADIX_SUFFIX
+
+    rops, rops16, rgeom = chip_smoke.radix_geometry(fc, chip_smoke.RADIX_PLANS[0], image, bank)
+    radix_lib = _build.library(radix=True)
+    for body in ("v4", "v5", "v5x"):
+        for planes, tag in ((rops, "f32"), (rops16, "bf16_io")):
+            name = f"fftconv_block_conv_{tag}{RADIX_SUFFIX[body]}"
+            parent_call, this_call = (
+                lambda side=side: bare_entry(side, name, planes, rgeom, body)[0]
+                for side in (parent_libs[1], radix_lib))
+            a, c = parent_call(), this_call()
+            torch.cuda.synchronize()
+            print(f"JAX F=1 plan {rgeom[:4]}, {body} {tag} maps: parent vs this tree rel "
+                  f"{float((c - a).abs().max() / a.abs().max()):.3e}")
+            del a, c
+            turns(f"JAX F=1 plan {rgeom[:4]}, {body} {tag} maps", parent_call, this_call)
+    del rops, rops16
     torch.cuda.empty_cache()
 
     feats, dbank, _ = chip_smoke.dpm_inputs(seed)

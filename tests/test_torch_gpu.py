@@ -10,6 +10,7 @@ JAX package, so on a GPU host without jax they run as
 """
 
 import collections
+import itertools
 
 import numpy as np
 import pytest
@@ -1115,24 +1116,18 @@ def _radix_bodies(geom):
     return [b for b in RADIX_BODIES if b == "v4" or legal_w]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", RADIX_GEOMETRIES)
-def test_radix_entries_match_plain_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
-    """Every radix entry (maps at f32 and bf16 maps, peaks) at every tier
-    (3×, 6× and 1×TF32 on f32 spectra; BF16IO and the explicit 3×TF32 on
-    bf16 spectra) against its plain version with the same flags: TOL (6×TF32
-    also within X6_TOL of the plain version run in float64), ONE_PASS_TOL,
-    IO_TOL and IO_RMS_TOL, BF16_OUT_TOL for bf16 maps; peak values within
-    the bar and indices equal but in near ties of the bar, where the
-    kernel's position holds a plain value that close. Each call counts one
-    launch on its own mode."""
+def _check_radix_entries(cuda, b, f, n, geom, karatsuba):
+    """Every radix entry of the H-stage form ``karatsuba`` at ``geom``
+    against its plain version with the same flags, at every tier (see
+    ``test_radix_entries_match_plain_on_gpu``); a tier whose form the
+    kernels do not take (``form_taken``) raises and launches nothing."""
     rng = np.random.default_rng(37)
-    geom = (bh, bw, kh, kw, out_h, out_w)
+    bh, bw, kh, kw, out_h, out_w = geom
     ops = _planes(rng, cuda, b, f, n, *geom)
     ops16 = tuple(x.to(torch.bfloat16) for x in ops)
     for body in _radix_bodies(geom):
-        flags = RADIX_BODIES[body]
-        suffix = tbc.RADIX_SUFFIX[body]
+        flags = dict(RADIX_BODIES[body], karatsuba=karatsuba)
+        suffix = tbc.body_suffix(body, karatsuba)
         want64 = tbc.block_conv_reference(*(x.double() for x in ops), *geom, torch.float64,
                                           None, **flags)
         for planes, tag, splits, tol in ((ops, "f32", 3, TOL), (ops, "f32", 6, TOL),
@@ -1140,6 +1135,14 @@ def test_radix_entries_match_plain_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, 
                                          (ops16, "bf16", tbc.BF16IO, IO_TOL),
                                          (ops16, "bf16", 3, TOL)):
             tier = tbc.TIER_SUFFIX[splits]
+            if not tbc.form_taken(bw // 2 + 1, bh - kh + 1, splits, karatsuba=karatsuba):
+                before = (tbc.block_conv.launches, tbc.block_conv_peaks.launches)
+                with pytest.raises(InvalidInputError, match="shared memory"):
+                    tbc.block_conv(*planes, *geom, torch.float32, splits, **flags)
+                with pytest.raises(InvalidInputError, match="shared memory"):
+                    tbc.block_conv_peaks(*planes, *geom, splits, **flags)
+                assert (tbc.block_conv.launches, tbc.block_conv_peaks.launches) == before
+                continue
             want = tbc.block_conv_reference(*planes, *geom, torch.float32, splits, **flags)
             for out_dtype, maps in ((torch.float32, ""), (torch.bfloat16, "_bf16maps")):
                 mode = f"block_conv_{tag}{maps}{tier}{suffix}"
@@ -1169,6 +1172,34 @@ def test_radix_entries_match_plain_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, 
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", RADIX_GEOMETRIES)
+def test_radix_entries_match_plain_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
+    """Every radix entry (maps at f32 and bf16 maps, peaks) at every tier
+    (3×, 6× and 1×TF32 on f32 spectra; BF16IO and the explicit 3×TF32 on
+    bf16 spectra) against its plain version with the same flags: TOL (6×TF32
+    also within X6_TOL of the plain version run in float64), ONE_PASS_TOL,
+    IO_TOL and IO_RMS_TOL, BF16_OUT_TOL for bf16 maps; peak values within
+    the bar and indices equal but in near ties of the bar, where the
+    kernel's position holds a plain value that close. Each call counts one
+    launch on its own mode."""
+    _check_radix_entries(cuda, b, f, n, (bh, bw, kh, kw, out_h, out_w), False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", RADIX_GEOMETRIES)
+def test_radix_karatsuba_entries_match_plain_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h,
+                                                    out_w):
+    """Every radix entry in the Karatsuba form (``…_r4_k``, ``…_r5_k``,
+    ``…_r5x_k``: maps at f32 and bf16 maps, peaks) at every tier against
+    its plain version with the same flags, at the 4-product entries' bars;
+    at 6×TF32 on Wc 513 the form does not fit (``form_taken``): both heads
+    raise and launch nothing."""
+    geom = (bh, bw, kh, kw, out_h, out_w)
+    assert tbc.form_taken(513, 192, 6, karatsuba=True) is False
+    _check_radix_entries(cuda, b, f, n, geom, True)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", RADIX_GEOMETRIES[:1] + RADIX_GEOMETRIES[3:4])
 def test_radix_peaks_planted_ties_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
     """DC-only spectra make every block's window constant through every
@@ -1183,9 +1214,10 @@ def test_radix_peaks_planted_ties_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, o
         rng.standard_normal(ops[0].shape[:4]).astype(np.float32), device=cuda)
     ops[2][..., 0, 0] = 1.0
     vh, vw = bh - kh + 1, bw - kw + 1
-    for body in _radix_bodies(geom):
-        got_v, got_i = tbc.block_conv_peaks(*ops, *geom, **RADIX_BODIES[body])
-        want_v, _ = tbc.block_conv_peaks_reference(*ops, *geom, **RADIX_BODIES[body])
+    for body, kara in itertools.product(_radix_bodies(geom), (False, True)):
+        flags = dict(RADIX_BODIES[body], karatsuba=kara)
+        got_v, got_i = tbc.block_conv_peaks(*ops, *geom, **flags)
+        want_v, _ = tbc.block_conv_peaks_reference(*ops, *geom, **flags)
         torch.cuda.synchronize()
         assert _rel(got_v, want_v) <= TOL, body
         first = (torch.arange(got_i.shape[2], device=cuda)[:, None] * vh * out_w
@@ -1297,9 +1329,10 @@ def test_form_entries_match_plain_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, o
 
 @pytest.mark.gpu
 def test_form_flags_and_defaults_on_gpu(cuda):
-    """On the card the form flags keep JAX's rules (a radix body takes
-    neither wstack=False nor karatsuba=True: both raise, launching
-    nothing), and a call with neither flag set launches the entry it
+    """On the card the form flags keep JAX's rules (a radix body does not
+    take wstack=False: it raises, launching nothing; it takes
+    karatsuba=True, and so does the peaks auto rule's v4: the ``_k``
+    entries), and a call with neither flag set launches the entry it
     launched before them (no suffix), bitwise equal to karatsuba=False."""
     rng = np.random.default_rng(59)
     radix = (256, 512, 65, 129, 400, 800)
@@ -1307,11 +1340,13 @@ def test_form_flags_and_defaults_on_gpu(cuda):
     before = (tbc.block_conv.launches, tbc.block_conv_peaks.launches)
     with pytest.raises(InvalidInputError, match="wstack"):
         tbc.block_conv(*ops, *radix, radix_h=True, wstack=False)
-    with pytest.raises(InvalidInputError, match="Karatsuba in the radix bodies"):
-        tbc.block_conv(*ops, *radix, radix_w=True, karatsuba=True)
-    with pytest.raises(InvalidInputError, match="Karatsuba in the radix bodies"):
-        tbc.block_conv_peaks(*ops, *radix, karatsuba=True)  # the auto rule's v4
     assert (tbc.block_conv.launches, tbc.block_conv_peaks.launches) == before
+    tbc.reset_launches(tbc.block_conv, tbc.block_conv_peaks)
+    tbc.block_conv(*ops, *radix, radix_w=True, karatsuba=True)
+    tbc.block_conv_peaks(*ops, *radix, karatsuba=True)  # the auto rule's v4
+    torch.cuda.synchronize()
+    assert dict(tbc.block_conv.launches_by_mode) == {"block_conv_f32_r5_k": 1}
+    assert dict(tbc.block_conv_peaks.launches_by_mode) == {"block_conv_peaks_f32_r4_k": 1}
     for geom in (GEOMETRIES[0], GEOMETRIES[1], SHORT_WINDOWS[0]):
         ops = _planes(rng, cuda, *geom)
         tbc.reset_launches(tbc.block_conv, tbc.block_conv_peaks)

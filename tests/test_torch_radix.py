@@ -3,12 +3,13 @@ v5x: ``ops/block_conv.py`` ``radix_h``, ``radix_w``, ``xsliver``) against
 the JAX package.
 
 On the CPU the port's wrapper runs the plain version of the body the flags
-select, which follows the Hopper kernels' factorisation (the radix H stage
-in pair and single chunks, the DIF halves, the Nyquist term); it is held
-here to ``block_conv_pallas`` in interpret mode with the same flags (bf16x3
-becomes HIGHEST there, so the reference is exact fp32) within 1e-5 at
-float32 and within the bf16 tier's 2e-2 at bf16 spectra (JAX's BF16IO dots
-round other operands than the kernels' radix chunks do). Also: the
+select, which follows the JAX kernels' factorisation, as the Hopper
+kernels do (the radix H stage's sub-transforms and twiddle, the DIF
+halves, the Nyquist term); it is held here to ``block_conv_pallas`` in
+interpret mode with the same flags (bf16x3 becomes HIGHEST there, so the
+reference is exact fp32) within 1e-5 at float32 and within the bf16 tier's
+2e-2 at bf16 spectra (JAX's default form there is Karatsuba; the forms at
+the BF16IO bars are in ``tests/test_torch_radix_karatsuba.py``). Also: the
 legality rules, the matrices, the plan registry and the dispatch against
 their JAX twins; the flags' refusals. The peaks head is in
 ``tests/test_torch_detect.py``; the CUDA kernels are held to the plain
