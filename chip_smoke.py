@@ -29,9 +29,10 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      gives the same maps;
   5. times the fused call, the same call through the unfused torch.fft
      pipeline, and the kernel alone against its plain version, with CUDA
-     events (median of 7 runs after a warm-up); the MAC kernel at the
-     unfused pipeline's launch shape (every block against the bank, read
-     from ``spectral_mac.launches_by_shape``) against the einsum;
+     events (median of 7 runs after a warm-up); the MAC
+     kernel at the unfused pipeline's launch shape (every block against
+     the bank, read from ``spectral_mac.launches_by_shape``) against the
+     einsum;
   6. holds the peaks kernel against its plain version at the geometries of
      step 3 (values within 1e-5 relative, 5e-3 at BF16IO; indices equal
      except in near-tie cells, where the kernel's position must hold a
@@ -46,10 +47,11 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
   8. runs the direct engine at the headline shape, checks that it went
      through the MAC kernel and agrees with float64 numpy on 8 maps, and
      holds the MAC kernel against the einsum at the direct shape with F=1
-     and F=3 channels, and every register tile the MAC kernel instantiates
-     at ragged shapes (partial image and filter tiles and pixel chunks, the
-     trainer's launch pattern, one image) on f32 and bf16 planes against
-     the einsum, bitwise equal across tiles;
+     and F=3 channels, and every form the MAC kernel instantiates (its
+     register tiles and the split form) at ragged shapes (partial image and
+     filter tiles and pixel chunks, the trainer's launch pattern, one image)
+     on f32 and bf16 planes against the einsum, the register tiles bitwise
+     equal to each other and the wrapper to the rule's form;
   9. times the detection call against the maps path, the peaks kernel
      against its plain version, the direct call, and the MAC kernel
      against the einsum at F=1 and F=3;
@@ -151,7 +153,9 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      (F=1) and on HOG cells (F=31): a target moved along a known path over
      64 frames, each frame ``respond`` then ``update_mosse``; the peak on
      the path (within 1) on every frame, ``respond``'s MAC (the kernel on
-     a bank of one) within 1e-5 of the einsum, a frame timed;
+     a bank of one; at HOG cells every launch in the split form, counted by
+     ``spectral_mac.launches_by_form``) within 1e-5 of the einsum, a frame
+     timed;
  26. the filter-bank detector (``models/filter_bank.py``): 8 frames of the
      DPM features (centred, shifted, noised) and 64 filters of 12²x31
      carried from numpy by ``detector_from_numpy``; ``detect`` within 1e-5
@@ -319,13 +323,21 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      BF16IO).
 
 At every MAC row (the direct shape's F=1 and F=3, f32 and bf16, the
-unfused headline's and the model layer's shapes) it prints the tile the
-rule (``mac_tile``) picked and the time of every instantiated tile. With
-``--ab-parent`` it builds that checkout's ``spectral_mac.cu`` (the parent
-commit's, unpacked with ``git archive``) and times it against this tree's
-at each MAC row in turns, parent, this tree, this tree, parent (bare C
-entries, CUDA events, median of 7 windows of 10 calls), the outputs
-compared.
+unfused headline's and the model layer's shapes) it prints the form the
+rule (``mac_tile``: a register tile, or the split form where the (1, 1)
+tile's grid leaves SMs idle, as at MOSSE's respond) picked and the time of
+every instantiated form; the row's kernel and one-complex-einsum times are
+windows of 10 calls back to back (the one-call window beside them), and
+each is also read as device time from a CUDA graph of 10 calls replayed.
+With ``--ab-parent`` it builds that checkout's ``spectral_mac.cu`` (the
+parent commit's, unpacked with ``git archive``) and times it against this
+tree's at each MAC row in turns, parent, this tree, this tree, parent (bare
+C entries, each at its own rule's form, CUDA events, median of 7 windows
+of 10 calls, and of one call), the outputs compared: bitwise where both
+rules pick the same form, within 1e-5 of the plain version where the
+parent ran the (1, 1) tile and this tree the split form (it sums in
+another order); at such a row the wrapper and the complex einsum are timed
+in the same turns.
 
 Steps 13–37 print each check, each time (CUDA events, median of 7, unless
 said otherwise) beside the card's name and power limit, the kernel launches
@@ -1096,16 +1108,17 @@ MAC_SHAPES = [(3, 13, 5, 40, 25), (8, 5, 3, 20, 11), (5, 3, 2, 20, 11), (2, 3, 5
 
 
 def check_mac_tiles(gen) -> None:
-    """Every tile the MAC kernel instantiates (bare C entry) at each of
+    """Every form the MAC kernel instantiates (bare C entry) at each of
     ``MAC_SHAPES``, on float32 and bf16 planes, against the einsum (1e-5;
-    1e-6 at bf16), bitwise equal across tiles (each output's arithmetic is
-    the same) and to the wrapper (the rule's tile)."""
+    1e-6 at bf16), the register tiles bitwise equal to each other (each
+    output's arithmetic is the same; the split form sums in another order),
+    and the wrapper bitwise equal to the rule's form."""
     import torch
 
     from cuda_fft_convolution_torch._build import library
     from cuda_fft_convolution_torch.ops.spectral_mac import (
+        MAC_SPLIT,
         MAC_TILES,
-        mac_tile,
         spectral_mac,
         spectral_mac_planes,
     )
@@ -1114,34 +1127,42 @@ def check_mac_tiles(gen) -> None:
     for b, n, f, h, wc in MAC_SHAPES:
         ops = tuple(torch.randn((m, f, h, wc), generator=gen, device="cuda")
                     for m in (b, b, n, n))
+        rule = mac_rule(ops)
         for planes, tol in ((ops, TOL), (tuple(x.to(torch.bfloat16) for x in ops),
                                          MAC_BF16_TOL)):
             want = spectral_mac_planes(*planes)
-            first, worst = None, 0.0
+            first, worst, outs = None, 0.0, {}
             for tile in MAC_TILES:
-                got = mac_entry(lib, planes, tile)
+                got = outs[tile] = mac_entry(lib, planes, tile)
                 err = max(rel_err(g, w) for g, w in zip(got, want))
                 worst = max(worst, err)
                 if err > tol:
-                    raise AssertionError(f"MAC tile {tile} at {(b, n, f, h, wc)}: {err}")
+                    raise AssertionError(f"MAC form {tile} at {(b, n, f, h, wc)}: {err}")
+                if tile == MAC_SPLIT:
+                    continue
                 if first is None:
                     first = got
                 if not all(torch.equal(g, w) for g, w in zip(got, first)):
                     raise AssertionError(f"MAC tile {tile} at {(b, n, f, h, wc)} differs "
                                          "from the first tile's outputs")
-            if not all(torch.equal(g, w) for g, w in zip(spectral_mac(*planes), first)):
+            if not all(torch.equal(g, w) for g, w in zip(spectral_mac(*planes), outs[rule])):
                 raise AssertionError(f"spectral_mac at {(b, n, f, h, wc)} differs from "
-                                     "the C entry's outputs")
-            print(f"MAC kernel, every tile {list(MAC_TILES)} at (B, N, F, H, Wc) "
+                                     f"the C entry's outputs at the rule's form {rule}")
+            print(f"MAC kernel, every form {list(MAC_TILES)} at (B, N, F, H, Wc) "
                   f"{(b, n, f, h, wc)}, {str(planes[0].dtype)[6:]}: max rel {worst:.3e} vs "
-                  f"the einsum, tiles and the wrapper bitwise equal; the rule's tile "
-                  f"{mac_tile(b)}")
+                  f"the einsum, the register tiles bitwise equal, the split form within "
+                  f"{tol:g}; the rule's form {rule}, the wrapper bitwise equal to it")
 
 
 # The parent commit's MAC library for the A/B turns (``--ab-parent``), and
 # the A/B readings by row: label -> (parent, this tree, this tree, parent) ms.
 PARENT = {}
 AB_ROWS = {}
+# The MAC shapes across the split form's range (B = N = 1): (H, Wc), from
+# MOSSE's respond (3 CTAs of the (1, 1) tile) to 98 CTAs, and the channel
+# counts timed at each.
+SPLIT_RANGE_HW = ((64, 33), (160, 210), (320, 313))
+SPLIT_RANGE_F = (2, 4, 8, 31)
 AB_REPS = 10  # MAC calls a CUDA-event window in the tile times and the A/B
 
 
@@ -1171,11 +1192,23 @@ def build_parent_mac(csrc: pathlib.Path) -> None:
     print(f"A/B: the parent's MAC kernel built from {csrc}")
 
 
+def mac_rule(ops) -> tuple:
+    """The form ``mac_tile`` picks for the MAC of ``ops`` on this card."""
+    from cuda_fft_convolution_torch.ops.spectral_mac import mac_tile, sm_count
+
+    b, f, h, wc = ops[0].shape
+    return mac_tile(b, ops[2].shape[0], f, h * wc, sm_count(ops[0].device))
+
+
+def parent_mac_rule(ops) -> tuple:
+    """The parent commit's rule: (1, 1) at B = 1, else (8, 4)."""
+    return (1, 1) if ops[0].shape[0] == 1 else (8, 4)
+
+
 def mac_entry(lib, ops, tile=None):
-    """A bare call of ``lib``'s MAC C entry for the planes' dtype at
-    register tile ``tile`` (None: ``mac_tile``'s), with no wrapper around
-    it (its host checks would show in a short CUDA-event window) → (re,
-    im)."""
+    """A bare call of ``lib``'s MAC C entry for the planes' dtype in form
+    ``tile`` (None: ``mac_tile``'s), with no wrapper around it (its host
+    checks would show in a short CUDA-event window) → (re, im)."""
     import torch
 
     b, f, h, wc = ops[0].shape
@@ -1183,51 +1216,90 @@ def mac_entry(lib, ops, tile=None):
     o_re = torch.empty((b, n, h, wc), device=ops[0].device)
     o_im = torch.empty_like(o_re)
     tag = "bf16" if ops[0].dtype == torch.bfloat16 else "f32"
-    from cuda_fft_convolution_torch.ops.spectral_mac import mac_tile
-
     err = getattr(lib, f"fftconv_spectral_mac_{tag}")(
         *(t.data_ptr() for t in (*ops, o_re, o_im)), b, f, n, h * wc,
-        *(tile or mac_tile(b)), torch.cuda.current_stream().cuda_stream)
+        *(tile or mac_rule(ops)), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"MAC C entry failed (tile {tile}): cudaError {err}")
     return o_re, o_im
 
 
 def mac_tiles_and_ab(label, ops) -> None:
-    """At one MAC row's shape: the time of every instantiated tile (bare C
-    entry; median of 7 windows of ``AB_REPS`` calls), the rule's tile
-    marked; then, with ``--ab-parent``, the parent's kernel against this
-    tree's in turns (parent, this tree, this tree, parent; bare C entries,
-    the rule's tile, timed the same way), their outputs compared (the same
-    arithmetic an output: bitwise equal)."""
+    """At one MAC row's shape: the time of every instantiated form (bare C
+    entry; median of 7 windows of ``AB_REPS`` calls, and device time from
+    CUDA graphs where the output is small), the rule's form marked; then, with ``--ab-parent``, the parent's kernel at the parent's
+    rule against this tree's at this tree's in turns (parent, this tree,
+    this tree, parent; bare C entries, timed the same way, in one-call
+    windows and, where the output is small, as device time from CUDA
+    graphs), their outputs compared: bitwise where the two rules pick one
+    form, else (the split form where the parent ran the (1, 1) tile) each
+    within 1e-5 of the plain version; there this tree's wrapper and one
+    complex einsum are timed in turns the same three ways too."""
     import torch
 
     from cuda_fft_convolution_torch._build import library
-    from cuda_fft_convolution_torch.ops.spectral_mac import MAC_TILES, mac_tile
+    from cuda_fft_convolution_torch.ops.spectral_mac import (
+        MAC_TILES,
+        spectral_mac,
+        spectral_mac_planes,
+    )
 
     lib = library()
-    b, f = ops[0].shape[:2]
-    rule = mac_tile(b)
-    sweep = {t: cuda_ms(lambda t=t: mac_entry(lib, ops, t), reps=AB_REPS) for t in MAC_TILES}
-    print(f"MAC tiles, {label}: " + ", ".join(
-        f"{t}{'*' if t == rule else ''} {ms:.3f}" for t, ms in sweep.items())
-        + f" ms (* the rule's; {card()})")
+    rule = mac_rule(ops)
+    b, f, h, w = ops[0].shape
+    small = b * ops[2].shape[0] * h * w * 8 <= GRAPH_OUT_LIMIT
+    sweep = {t: (cuda_ms(lambda t=t: mac_entry(lib, ops, t), reps=AB_REPS),
+                 graph_ms(lambda t=t: mac_entry(lib, ops, t)) if small else None)
+             for t in MAC_TILES}
+    print(f"MAC forms, {label}: " + ", ".join(
+        f"{t}{'*' if t == rule else ''} {ms:.4f}" + (f" (device {dev:.4f})" if dev else "")
+        for t, (ms, dev) in sweep.items())
+        + f" ms in windows of {AB_REPS} calls (* the rule's; device: CUDA graphs; {card()})")
     if "lib" not in PARENT:
         return
-    parent = functools.partial(mac_entry, PARENT["lib"], ops, rule)
+    old = parent_mac_rule(ops)
+    parent = functools.partial(mac_entry, PARENT["lib"], ops, old)
     new = functools.partial(mac_entry, lib, ops, rule)
     a, c = parent(), new()
     torch.cuda.synchronize()
     equal = all(torch.equal(x, y) for x, y in zip(a, c))
     err = max(rel_err(y, x) for x, y in zip(a, c))
+    if old == rule:
+        held = f"outputs bitwise equal {equal}, rel {err:.3e}"
+        if not equal:
+            raise AssertionError(f"A/B {label}: the rule is the parent's ({rule}) but the "
+                                 f"outputs differ: {err}")
+    else:
+        want = spectral_mac_planes(*ops)
+        errs = [max(rel_err(x, w) for x, w in zip(out, want)) for out in (a, c)]
+        held = (f"the parent's {old} and this tree's {rule}: not bitwise (another order), "
+                f"{errs[0]:.3e} and {errs[1]:.3e} from the plain version, rel {err:.3e}")
+        if max(errs) > TOL:
+            raise AssertionError(f"A/B {label}: {held}")
+        del want
     del a, c
-    t = [cuda_ms(fn, reps=AB_REPS) for fn in (parent, new, new, parent)]
-    AB_ROWS[label] = t
-    print(f"A/B {label}: parent {t[0]:.3f}, this tree {t[1]:.3f}, this tree {t[2]:.3f}, "
-          f"parent {t[3]:.3f} ms (this tree / parent {(t[1] + t[2]) / (t[0] + t[3]):.3f}); "
-          f"outputs bitwise equal {equal}, rel {err:.3e} ({card()})")
-    if err > TOL:
-        raise AssertionError(f"A/B {label}: this tree's MAC differs from the parent's: {err}")
+    # (a, b, their names): the parent's C entry against this tree's; where
+    # the form changed, also this tree's wrapper against one complex einsum
+    turns = [(parent, new, ("parent", "this tree"))]
+    if old != rule:
+        d = torch.complex(ops[0].float(), ops[1].float())
+        k = torch.complex(ops[2].float(), ops[3].float())
+        turns.append((functools.partial(spectral_mac, *ops),
+                      lambda: torch.einsum("bfhw,nfhw->bnhw", d, k),
+                      ("this tree's wrapper", "one complex einsum")))
+    for p, n, (pn, nn) in turns:
+        for how in (f"windows of {AB_REPS} calls", "one-call windows",
+                    f"device time, CUDA graphs of {AB_REPS} calls")[:3 if small else 2]:
+            if how.startswith("device"):
+                t = [graph_ms(fn) for fn in (p, n, n, p)]
+            else:
+                t = [cuda_ms(fn, reps=AB_REPS if how.startswith("windows") else 1)
+                     for fn in (p, n, n, p)]
+            if pn == "parent" and how.startswith("windows"):
+                AB_ROWS[label] = t
+            print(f"A/B {label}, {how}: {pn} {t[0]:.4f}, {nn} {t[1]:.4f}, {nn} {t[2]:.4f}, "
+                  f"{pn} {t[3]:.4f} ms ({nn} / {pn} {(t[1] + t[2]) / (t[0] + t[3]):.3f}; {card()})")
+    print(f"A/B {label}: {held}")
     torch.cuda.empty_cache()
 
 
@@ -1241,16 +1313,48 @@ def mac_bound(ops) -> tuple[float, str]:
     return bound(8 * b * n * f * h * w / PEAK_FP32, nbytes)
 
 
-def complex_einsum_ms(ops) -> float:
+def complex_einsum_ms(ops, reps=AB_REPS) -> tuple:
     """The one PyTorch call that computes the MAC: ``torch.einsum`` on the
     complex64 spectra (built from the planes, bf16 upcast, before the
-    timing); a yardstick the port never calls."""
+    timing); a yardstick the port never calls → its ms in windows of
+    ``reps`` calls back to back, in one-call windows, and as device time
+    (``graph_ms``)."""
     import torch
 
     d = torch.complex(ops[0].float(), ops[1].float())
     k = torch.complex(ops[2].float(), ops[3].float())
-    ms = cuda_ms(lambda: torch.einsum("bfhw,nfhw->bnhw", d, k))
+
+    def fn():
+        return torch.einsum("bfhw,nfhw->bnhw", d, k)
+
+    out_bytes = d.numel() // d.shape[1] * k.shape[0] * 8  # (B, N, H, Wc) complex64
+    times = cuda_ms(fn, reps=reps), cuda_ms(fn), graph_ms(fn, reps, out_bytes=out_bytes)
     del d, k
+    return times
+
+
+GRAPH_OUT_LIMIT = 64 << 20  # output bytes a call, at most, for graph_ms
+
+
+def graph_ms(fn, reps=AB_REPS, runs=RUNS, out_bytes=0) -> float | None:
+    """Device milliseconds of one ``fn()``: ``reps`` calls captured in a
+    CUDA graph, the graph replayed between CUDA events (median of ``runs``
+    replays, over ``reps``), so that no host work between launches shows.
+    None (not measured) where a call's output passes GRAPH_OUT_LIMIT: the
+    graph's pool would hold ``reps`` of them, and at such sizes the host's
+    work hides behind the device's anyway."""
+    import torch
+
+    if out_bytes > GRAPH_OUT_LIMIT:
+        return None
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(graph.replay, runs) / reps
+    del graph
     return ms
 
 
@@ -2394,11 +2498,7 @@ def mac_row(ops, label, chunk=None) -> tuple:
     not fit beside it)."""
     import torch
 
-    from cuda_fft_convolution_torch.ops.spectral_mac import (
-        mac_tile,
-        spectral_mac,
-        spectral_mac_planes,
-    )
+    from cuda_fft_convolution_torch.ops.spectral_mac import spectral_mac, spectral_mac_planes
 
     n = ops[2].shape[0]
     parts = [(s, min(s + (chunk or n), n)) for s in range(0, n, chunk or n)]
@@ -2419,15 +2519,27 @@ def mac_row(ops, label, chunk=None) -> tuple:
           + (f" (einsum over {len(parts)} chunks of {chunk})" if chunk else ""))
     if err > TOL:
         raise AssertionError(f"MAC kernel disagrees with the einsum ({label}): {err}")
-    ms = cuda_ms(lambda: spectral_mac(*ops))
+    # the wrapper in windows of AB_REPS calls back to back (one-call windows
+    # and a CUDA graph's device time beside it)
+    b, f, h, w = ops[0].shape
+    out_bytes = b * ops[2].shape[0] * h * w * 8
+    ms = cuda_ms(lambda: spectral_mac(*ops), reps=AB_REPS)
+    one_call = cuda_ms(lambda: spectral_mac(*ops))
+    device = graph_ms(lambda: spectral_mac(*ops), out_bytes=out_bytes)
     mac_tiles_and_ab(label, ops)
     plain = sum(cuda_ms(lambda: spectral_mac_planes(*sub(s, e)), runs=3) for s, e in parts)
-    library = sum(complex_einsum_ms(sub(s, e)) for s, e in parts)
+    lib_times = [complex_einsum_ms(sub(s, e), 1 if chunk else AB_REPS) for s, e in parts]
+    library, lib_one = (sum(t[i] for t in lib_times) for i in range(2))
+    lib_device = None if None in (t[2] for t in lib_times) else sum(t[2] for t in lib_times)
     bound_ms, bound_by = mac_bound(ops)
     torch.cuda.empty_cache()
-    tile = mac_tile(ops[0].shape[0])
-    print(f"MAC kernel, {label}, tile {tile}: {ms:.3f} ms; einsum {plain:.3f} ms; one complex "
-          f"einsum {library:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}; "
+    def dev(t):
+        return "not measured" if t is None else f"{t:.4f}"
+
+    print(f"MAC kernel, {label}, form {mac_rule(ops)}: {ms:.4f} ms (windows of {AB_REPS} calls; "
+          f"one-call windows {one_call:.4f}, device time (CUDA graph) {dev(device)}); einsum "
+          f"{plain:.3f} ms; one complex einsum {library:.4f} ms (one-call {lib_one:.4f}, device "
+          f"{dev(lib_device)}); bound {bound_ms:.4f} ms ({bound_by}; "
           f"{100 * bound_ms / ms:.1f}% of it; {card()})")
     return max(diff), ms, plain, bound_ms, bound_by, library
 
@@ -2671,6 +2783,14 @@ def mosse_phase(fc, seed, path_launches, times, rows, row_launches) -> None:
         if max(off) > 1 or counts["spectral_mac_f32"] != len(frames) - 1:
             raise AssertionError(f"{label}: off the path by {max(off)}, "
                                  f"{counts['spectral_mac_f32']} MAC launches")
+        # the main path's MAC launches by form: respond's at HOG cells take
+        # the split form (3 CTAs of the (1, 1) tile would leave 129 SMs idle)
+        from cuda_fft_convolution_torch.ops.spectral_mac import MAC_SPLIT, spectral_mac
+
+        forms = dict(spectral_mac.launches_by_form)
+        print(f"{label}: MAC launches by form {forms}")
+        if forms != {MAC_SPLIT if hog else (1, 1): len(frames) - 1}:
+            raise AssertionError(f"{label}: MAC launches by form {forms}")
         win = MOSSE["window"]
         sd = fc.fft_data(mosse_window(frames[-1], estimates[-1], win), 1, 1)
         # respond's MAC, the kernel over a bank of one, against the einsum
@@ -3299,10 +3419,20 @@ def parallel_phase(fc, seed, image_d, bank_d, path_launches, times, rows,
             sstream.plan.data_spectra(frame_d), placed, mesh, mode="same"), 1)
             for _ in range(RUNS))
         host = {name: [] for name in per_submit}
+        # the controls, as step 19's: the host copy of a frame into pinned
+        # memory alone, timed before each trial, and the caching
+        # allocator's device allocations and retries over the timed submits
+        pinned = torch.empty(frames[0].shape, dtype=torch.float32, pin_memory=True)
+        control, counts = [], collections.Counter()
+        keys = ("num_device_alloc", "num_device_free", "num_alloc_retries")
         for t in range(STREAM["trials"]):
+            t1 = time.perf_counter()
+            pinned.copy_(torch.as_tensor(frames[(t + 1) % count]))
+            control.append(1e3 * (time.perf_counter() - t1))
             for name, st in (("ShardedConvStream", sstream), ("ConvStream", cstream)):
                 st.flush()
                 st.submit(frames[t % count])
+                before = torch.cuda.memory_stats()
                 torch.cuda.set_sync_debug_mode("error")
                 try:
                     t1 = time.perf_counter()
@@ -3310,7 +3440,10 @@ def parallel_phase(fc, seed, image_d, bank_d, path_launches, times, rows,
                     host[name].append(1e3 * (time.perf_counter() - t1))
                 finally:
                     torch.cuda.set_sync_debug_mode(0)
+                after = torch.cuda.memory_stats()
+                counts.update({k: after.get(k, 0) - before.get(k, 0) for k in keys})
                 st.flush()
+        del pinned
         host_ms = statistics.median(host["ShardedConvStream"])
         plain_ms = statistics.median(host["ConvStream"])
         times["headline ShardedConvStream submit, host"] = host_ms
@@ -3319,7 +3452,11 @@ def parallel_phase(fc, seed, image_d, bank_d, path_launches, times, rows,
               f"of {len(host['ConvStream'])}, turns with ConvStream's {plain_ms:.3f} ms; no "
               f"synchronising call under sync debug mode 'error') = "
               f"{100 * host_ms / frame_ms:.1f}% of one frame's device time {frame_ms:.3f} ms "
-              f"(bar {100 * STREAM['submit_share']:.0f}%; {card()})")
+              f"(bar {100 * STREAM['submit_share']:.0f}%; {card()}); per trial, sharded / "
+              f"ConvStream / the host copy alone ms: " + ", ".join(
+                  f"{a:.3f}/{b:.3f}/{c:.3f}" for a, b, c in
+                  zip(host["ShardedConvStream"], host["ConvStream"], control))
+              + f"; over the {2 * len(control)} timed submits the allocator's {dict(counts)}")
         if host_ms >= STREAM["submit_share"] * frame_ms:
             raise AssertionError(f"a sharded submit takes {host_ms:.3f} ms against a "
                                  f"{frame_ms:.3f} ms frame")
@@ -4852,15 +4989,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     direct_ms = tier_ms["direct, f32"]
     print(f"direct fft_conv (MAC kernel): {direct_ms:.3f} ms")
-    mac_ms = cuda_ms(lambda: spectral_mac(*mac_ops))
+    mac_ms = cuda_ms(lambda: spectral_mac(*mac_ops), reps=AB_REPS)
     einsum_ms = cuda_ms(lambda: spectral_mac_planes(*mac_ops))
     rows["spectral_mac_f32"] = (mac_abs, mac_ms, einsum_ms, *mac_bound(mac_ops),
-                                complex_einsum_ms(mac_ops))
+                                complex_einsum_ms(mac_ops)[0])
     print(f"MAC kernel alone at the direct shape, F=1: {mac_ms:.3f} ms; "
           f"einsum: {einsum_ms:.3f} ms; one complex einsum: {rows['spectral_mac_f32'][5]:.3f} ms")
-    rows["spectral_mac_bf16"] = (mac16_abs, cuda_ms(lambda: spectral_mac(*mac16_ops)),
+    rows["spectral_mac_bf16"] = (mac16_abs,
+                                 cuda_ms(lambda: spectral_mac(*mac16_ops), reps=AB_REPS),
                                  cuda_ms(lambda: spectral_mac_planes(*mac16_ops)),
-                                 *mac_bound(mac16_ops), complex_einsum_ms(mac16_ops))
+                                 *mac_bound(mac16_ops), complex_einsum_ms(mac16_ops)[0])
     print(f"MAC kernel alone at the direct shape, F=1, bf16 planes: "
           f"{rows['spectral_mac_bf16'][1]:.3f} ms; einsum: {rows['spectral_mac_bf16'][2]:.3f} ms")
     mac3_ms = cuda_ms(lambda: spectral_mac(*mac3_ops))
@@ -4868,11 +5006,17 @@ def main(argv=None) -> int:
     bound3_ms, bound3_by = mac_bound(mac3_ops)
     print(f"MAC kernel alone at the direct shape, F=3: {mac3_ms:.3f} ms; "
           f"einsum: {einsum3_ms:.3f} ms; one complex einsum: "
-          f"{complex_einsum_ms(mac3_ops):.3f} ms; bound {bound3_ms:.3f} ms ({bound3_by})")
+          f"{complex_einsum_ms(mac3_ops)[0]:.3f} ms; bound {bound3_ms:.3f} ms ({bound3_by})")
     for label, ops in (("direct shape F=1", mac_ops), ("direct shape F=1 bf16", mac16_ops),
                        ("direct shape F=3", mac3_ops), ("direct shape F=3 bf16",
                                                          tuple(x.to(bf16) for x in mac3_ops))):
         mac_tiles_and_ab(label, ops)
+    # the split form's range: one image, one filter, 3 to 98 CTAs of the
+    # (1, 1) tile (under the card's 132 SMs), few to many channels: every
+    # form timed, the rule's marked
+    for hw, f in itertools.product(SPLIT_RANGE_HW, SPLIT_RANGE_F):
+        ops = tuple(torch.randn((1, f, *hw), generator=gen, device="cuda") for _ in range(4))
+        mac_tiles_and_ab(f"split range, F={f}, S={hw[0] * hw[1]}", ops)
     del mac_ops, mac16_ops, mac3_ops, ops, det_image, det_bank
     torch.cuda.empty_cache()
 

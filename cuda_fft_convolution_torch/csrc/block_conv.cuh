@@ -131,7 +131,21 @@
 //   2. W stage, in column passes of kCols output columns: M^T's planes
 //      stream from global memory (shared by every CTA, they stay in
 //      L2) through a ring of kM shared-memory chunks of kKC rows of
-//      [Mr ; Mi], filled with cp.async kM - 1 chunks ahead of the products.
+//      [Mr ; Mi]. 64 rows: each chunk one contiguous run of M^T
+//      (ops/block_conv.py _core_matrices lays it out chunk by chunk), one
+//      TMA bulk copy issued by thread 0, completing on a "full" mbarrier a
+//      slot; a slot is freed by an "empty" mbarrier at which every warp
+//      arrives once its products are done with it, and thread 0 refills it
+//      then, a step ahead of the products (no __syncthreads a step, no copy
+//      work in the other threads). The barriers live in X's row padding,
+//      which nothing reads during the W stage. 32 rows: the ring filled with
+//      cp.async kM - 1 chunks ahead of the products. (Measured on the H100
+//      at the headline, PERF.md: the cp.async ring's copies cost 1.8 of
+//      13.5 ms at 3xTF32 even two chunks ahead, the copy work in every
+//      thread rather than the bytes; the TMA ring reads 0.95x the cp.async
+//      ring's time at 3xTF32, 0.89x at 6xTF32; more slots (3, 4) were no
+//      faster, and thread-block clusters of 2 and 4 CTAs multicasting each
+//      chunk slower than none: L2 does not hold the stage.)
 //      64 rows: each warpgroup reads its X fragments (wgmma's A operand, in
 //      registers) and splits them, one k-step at a time (the pieces of X
 //      for 64 rows would not fit beside X), and runs the k-step's products
@@ -758,6 +772,41 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// ---- the 64-row W stage's ring: mbarriers and TMA bulk copies ----
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// The barriers and copies below take shared-memory addresses (smem_u32).
+__device__ __forceinline__ void mbar_init(uint32_t b, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(b), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_inval(uint32_t b) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(b) : "memory");
+}
+// This thread's arrival at b, which then expects `bytes` more of copies.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(b) : "memory");
+}
+// Wait until the phase of b with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t b, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(b),
+      "r"(parity)
+      : "memory");
+}
+// `bytes` from global src to shared dst by the TMA, completing on b.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t b) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+
 // Wait until at most n of this thread's copy groups are pending (n < 7).
 __device__ __forceinline__ void cp_async_wait_at_most(int n) {
   switch (n) {
@@ -2088,8 +2137,33 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   // group, each block's Vh rows a product of their own).
   auto w_stage = [&](const float* xw, Epi& epi) {
   __syncthreads();  // X is written; the H stage (v2: the last block's W stage) is done with the staging area
-  for (int it = 0; it < kM - 1; ++it) issue_m(it);
   if constexpr (ROWS == 64) {
+    // The ring: step j's chunk (chunk j of m_tc, kMChunk floats) in slot
+    // j % kM; full(s) completes when a fill's bytes have landed (its phase
+    // parity: (j / kM) % 2), empty(s) (8 bytes past it) when every warp is
+    // done with it. The barriers sit in X's row padding (row s: full, then
+    // empty), set up anew each W stage.
+    const uint32_t bar0 = smem_u32(x_s + 2 * wc_pad);  // full(0); full(s) + 8: empty(s)
+    auto full = [&](int sl) { return bar0 + 4 * sl * xs; };
+    if (tid == 0) {
+      for (int sl = 0; sl < kM; ++sl) {
+        mbar_init(full(sl), 1);
+        mbar_init(full(sl) + 8, kThreads / 32);
+      }
+      // the barriers set up before the copies' complete_tx reaches them
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    // the H stage's writes to the staging area come before the copies into it
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // the barriers are set up
+    // Thread 0 fills slot sl with step j's chunk.
+    auto fill = [&](int j, int sl) {
+      mbar_expect_tx(full(sl), kMChunk * 4);
+      bulk_copy(smem_u32(m_st) + 4 * sl * kMChunk, m_tc + static_cast<long long>(j) * kMChunk, kMChunk * 4,
+                full(sl));
+    };
+    if (tid == 0)
+      for (int j = 0; j < kM && j < steps; ++j) fill(j, j);
     // wgmma: each warpgroup (warps 4 wg..) takes all 64 rows and 64 of a
     // pass's columns; warp `rank` of it holds rows 16 rank.. .
     const int wg = warp >> 2;
@@ -2104,13 +2178,17 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[0][j][i] = accq[0][j][i] = 0.f;
       }
-      cp_async_wait<kM - 2>();
-      // this thread's copies are visible to the tensor cores' reads
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      __syncthreads();  // this step's chunk landed; the last step's slot is free
-      issue_m(it + kM - 1);
+      // refill the last step's slot, once every warp is done with it, with
+      // step it - 1 + kM's chunk (the empty barrier's phase: step it - 1's)
+      const int slot = it % kM;
+      if (tid == 0 && it > 0 && it - 1 + kM < steps) {
+        mbar_wait(full((it - 1) % kM) + 8, ((it - 1) / kM) & 1);
+        fill(it - 1 + kM, (it - 1) % kM);
+      }
+      mbar_wait(full(slot), (it / kM) & 1);  // this step's chunk landed
+      __syncwarp();  // the warp converged again for wgmma
       if (p * kCols + wg * 64 < wcols) {
-        const float* mb = m_st + (it % kM) * kMChunk + wg * 8 * (kKC / 4) * kCore;
+        const float* mb = m_st + slot * kMChunk + wg * 8 * (kKC / 4) * kCore;
         // The chunk's products are summed on the tensor cores into t (at
         // 6xTF32 its small terms into tc, apart), then added to the pass's
         // sums in IEEE fp32.
@@ -2179,6 +2257,9 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
             add4(acc[0][j], t[j]);
         }
       }
+      // this warp is done with the slot: an arrival at its empty barrier
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full(slot) + 8);
       if (kc == nkc - 1) {
         const int col = p * kCols + wg * 64 + 2 * t4;
         if constexpr (!radix_body(BODY)) {
@@ -2193,7 +2274,17 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         }
       }
     }
+    // every warp past its last wait before the barriers go
+    __syncthreads();
+    if (tid == 0)
+      for (int sl = 0; sl < kM; ++sl) {
+        mbar_inval(full(sl));
+        mbar_inval(full(sl) + 8);
+      }
+    // the copies' writes to the staging area come before its next generic use
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   } else {
+    for (int it = 0; it < kM - 1; ++it) issue_m(it);
     // mma.sync (32 rows): 2 x 4 warps of 16 rows x 32 columns.
     float acc[MT][4][4], accq[MT][4][4];  // (DIF: P, Q)
     for (int it = 0; it < steps; ++it) {

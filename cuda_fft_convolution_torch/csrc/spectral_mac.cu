@@ -19,10 +19,11 @@
 // contraction over F is a separate tiny product at every pixel, so the
 // tensor cores have nothing to do here and fp32 FMAs are enough.
 //
-// Design: registers, no shared memory; each output's arithmetic is the same
-// in every tile (f ascending, two fmaf chains), so every tile gives the same
-// bits. Two forms of one kernel, by the register tile of TB images x TN
-// filters a thread:
+// Design: registers, no shared memory in the register tiles; each output's
+// arithmetic is the same in every register tile (f ascending, two fmaf
+// chains), so every register tile gives the same bits. Three forms of one
+// kernel, by the tile (TB, TN): TB images x TN filters a thread, or (0, 8)
+// for the split form:
 //
 //  - (1, 1), the B = 1 tile, is the kernel of before tiles: 4 pixels a
 //    thread, spaced kThreads apart (coalesced), loads and products a pixel
@@ -46,6 +47,21 @@
 //    at the 128-register cap that keeps two CTAs on an SM. Rows past B or N
 //    in a ragged last tile load the last row again (a duplicate, from L1)
 //    and store nothing; pixels past S do neither.
+//  - (0, 8), the split form, for calls whose (1, 1) grid leaves SMs idle
+//    and is short beside the channel count, where the (1, 1) tile's
+//    dependent channel steps cost more than the split form's CTAs
+//    (MOSSE's respond: B 1, N 1, F 31, S 64 x 33 = 2112
+//    pixels is 3 CTAs of 1024 pixels on 132 SMs, each thread walking 31
+//    dependent channel steps). A CTA takes 32 consecutive pixels, one a
+//    lane (coalesced), and its 8 warps split the contraction: warp w sums
+//    the channels f = w, w + 8, ... (f ascending, the same two fmaf chains
+//    an output), the loads of 4 steps issued before their products; the 8
+//    partial sums meet in shared memory and warp 0 (re) and warp 1 (im)
+//    add them in warp order, so a launch gives the same bits every run.
+//    It sums in another order than the chain over f ascending, so it is
+//    not bitwise the register tiles: it is held to 1e-5 of the plain
+//    version. MOSSE's respond becomes 66 CTAs of at most 4 channel steps.
+//    Launch order: filter fastest, then the pixel chunk, then the image.
 //
 // Registers rather than a cp.async ring through shared memory: the loads a
 // thread keeps in flight bring the trainer's MACs over half their bound,
@@ -53,9 +69,9 @@
 // (2, 4)) at the batches the port runs (8 images or more), a (1, 4) tile at
 // B = 1 and more loads in flight at B = 1 were level or slower on the card: a
 // wider tile costs occupancy, a narrower one reads the kernel rows more
-// often. The tile for a call is chosen in Python (ops/spectral_mac.py
-// mac_tile) and passed in; a pair outside FFTCONV_MAC_TILES is refused with
-// cudaErrorInvalidValue.
+// often. The form for a call is chosen in Python (ops/spectral_mac.py
+// mac_tile, from B, N, F, S and the card's SM count) and passed in; a pair
+// outside FFTCONV_MAC_TILES is refused with cudaErrorInvalidValue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,17 +81,60 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
-// The instantiated (TB, TN) tiles.
-#define FFTCONV_MAC_TILES(X) X(1, 1) X(8, 4)
+// The instantiated (TB, TN) tiles, and the split form (0, kWarps).
+#define FFTCONV_MAC_TILES(X) X(1, 1) X(8, 4) X(0, 8)
 
-// Pixels a thread.
-__host__ __device__ constexpr int pixels_per_thread(int tb, int tn) {
-  return tb * tn == 1 ? 4 : 1;
+// Pixels a CTA: kThreads times a thread's pixels in the register tiles
+// (4 in the (1, 1) tile, else 1), one a lane in the split form.
+__host__ __device__ constexpr int pixels_per_cta(int tb, int tn) {
+  return tb == 0 ? 32 : tb * tn == 1 ? 4 * kThreads : kThreads;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// The split form (0, kWarps): 32 pixels a CTA, the channels split across
+// its warps, the partial sums added in warp order.
+template <class TS>
+__global__ void __launch_bounds__(kThreads) spectral_mac_split_kernel(
+    const TS* __restrict__ d_re, const TS* __restrict__ d_im,
+    const TS* __restrict__ k_re, const TS* __restrict__ k_im,
+    float* __restrict__ o_re, float* __restrict__ o_im, int f, int n, long long s,
+    long long chunks) {
+  __shared__ float part[2][kWarps][32];
+  long long bid = blockIdx.x;
+  const int ni = static_cast<int>(bid % n);
+  bid /= n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long p = (bid % chunks) * 32 + lane;
+  const long long bb = bid / chunks;
+  float ar = 0.f, ai = 0.f;
+  if (p < s) {
+    const TS* dr = d_re + bb * f * s + p;
+    const TS* di = d_im + bb * f * s + p;
+    const TS* kr = k_re + static_cast<long long>(ni) * f * s + p;
+    const TS* ki = k_im + static_cast<long long>(ni) * f * s + p;
+#pragma unroll 4
+    for (int ff = warp; ff < f; ff += kWarps) {
+      const long long o = static_cast<long long>(ff) * s;
+      const float xr = to_f32(dr[o]), xi = to_f32(di[o]);
+      const float yr = to_f32(kr[o]), yi = to_f32(ki[o]);
+      ar = fmaf(yr, xr, fmaf(-yi, xi, ar));
+      ai = fmaf(yr, xi, fmaf(yi, xr, ai));
+    }
+  }
+  part[0][warp][lane] = ar;
+  part[1][warp][lane] = ai;
+  __syncthreads();
+  if (warp < 2 && p < s) {
+    float v = part[warp][0][lane];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v += part[warp][w][lane];
+    (warp == 0 ? o_re : o_im)[(bb * n + ni) * s + p] = v;
+  }
+}
 
 template <class TS, int TB, int TN>
 __global__ void __launch_bounds__(kThreads, TB * TN == 1 ? 8 : 2) spectral_mac_kernel(
@@ -84,7 +143,7 @@ __global__ void __launch_bounds__(kThreads, TB * TN == 1 ? 8 : 2) spectral_mac_k
     float* __restrict__ o_re, float* __restrict__ o_im, int b, int f, int n,
     long long s, long long chunks, int tiles_n, int tiles) {
   if constexpr (TB * TN == 1) {
-    constexpr int kPer = pixels_per_thread(1, 1), kPix = kThreads * kPer;
+    constexpr int kPix = pixels_per_cta(1, 1), kPer = kPix / kThreads;
     long long bid = blockIdx.x;
     const int ni = static_cast<int>(bid % n);
     bid /= n;
@@ -192,17 +251,23 @@ template <class TS, int TB, int TN>
 int launch_tile(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
                 float* o_re, float* o_im, int b, int f, int n, long long s,
                 cudaStream_t stream) {
-  const long long pix = kThreads * pixels_per_thread(TB, TN);
+  const long long pix = pixels_per_cta(TB, TN);
   const long long chunks = (s + pix - 1) / pix;
-  const int tiles_n = (n + TN - 1) / TN;
-  const long long tiles = static_cast<long long>((b + TB - 1) / TB) * tiles_n;
+  const int tiles_n = TB == 0 ? n : (n + TN - 1) / TN;
+  const long long tiles = static_cast<long long>(TB == 0 ? b : (b + TB - 1) / TB) * tiles_n;
   const long long grid = chunks * tiles;
   if (grid > INT_MAX || static_cast<long long>(b) * f > INT_MAX ||
       static_cast<long long>(n) * f > INT_MAX)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  spectral_mac_kernel<TS, TB, TN><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
-      d_re, d_im, k_re, k_im, o_re, o_im, b, f, n, s, chunks, tiles_n,
-      static_cast<int>(tiles));
+  if constexpr (TB == 0) {
+    static_assert(TN == kWarps, "the split form takes the CTA's warps");
+    spectral_mac_split_kernel<TS><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
+        d_re, d_im, k_re, k_im, o_re, o_im, f, n, s, chunks);
+  } else {
+    spectral_mac_kernel<TS, TB, TN><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
+        d_re, d_im, k_re, k_im, o_re, o_im, b, f, n, s, chunks, tiles_n,
+        static_cast<int>(tiles));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -225,7 +290,8 @@ int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
 }  // namespace
 
 // fp32 outputs from fp32 (_f32) or bf16 (_bf16) planes, with a (tb, tn)
-// register tile of the instantiated set. Launch on `stream`; do not
+// form of the instantiated set (a register tile, or (0, 8): the split
+// form). Launch on `stream`; do not
 // synchronise. Return cudaGetLastError() after the launch (0 = launched),
 // or the error that stopped it (cudaErrorInvalidValue for a tile outside
 // the set).

@@ -173,7 +173,8 @@ def _stage_h(rows: int, splits: int, karatsuba: bool = False) -> int:
 
 def _x_bytes(wc: int, rows: int) -> int:
     """Shared memory of X: ``rows`` rows of [Xr | Xi] over the bins padded
-    to 32, and 4 floats of padding."""
+    to 32, and 4 floats of padding (where the 64-row W stage keeps its
+    ring's barriers)."""
     return 4 * rows * (2 * (-(-wc // _KB) * _KB) + 4)
 
 
@@ -837,23 +838,24 @@ def cuda_operands(name: str, ops) -> tuple[torch.device, str]:
     tag 'f32' or 'bf16')."""
     dr, di, kr, ki = ops
     dev = dr.device
-    validate(
-        dev.type == "cuda" and all(t.device == dev for t in ops),
-        f"{name} operands must share one CUDA device; got "
-        f"{[str(t.device) for t in ops]}",
-    )
-    if dr.dtype not in _SPECTRA_TAGS or any(t.dtype != dr.dtype for t in ops):
+    # (messages are formatted only on failure: the checks run every launch)
+    if not (dev.type == "cuda" and di.device == dev and kr.device == dev and ki.device == dev):
+        raise InvalidInputError(f"{name} operands must share one CUDA device; got "
+                                f"{[str(t.device) for t in ops]}")
+    tag = _SPECTRA_TAGS.get(dr.dtype)
+    if tag is None or not (di.dtype == kr.dtype == ki.dtype == dr.dtype):
         raise InvalidInputError(
             f"{name} kernel takes float32 or bfloat16 spectra, one dtype for "
             f"all four planes; got {[str(t.dtype) for t in ops]}"
         )
-    for t in ops:
-        validate(t.is_contiguous(), f"{name} kernel takes contiguous spectra")
+    if not (dr.is_contiguous() and di.is_contiguous() and kr.is_contiguous()
+            and ki.is_contiguous()):
+        raise InvalidInputError(f"{name} kernel takes contiguous spectra")
     validate(
         di.shape == dr.shape and ki.shape == kr.shape,
         "re/im planes differ in shape",
     )
-    return dev, _SPECTRA_TAGS[dr.dtype]
+    return dev, tag
 
 
 def count_launch(wrapper, mode: str) -> None:
@@ -864,13 +866,14 @@ def count_launch(wrapper, mode: str) -> None:
 
 
 def reset_launches(*wrappers) -> None:
-    """Set the launch counts of ``wrappers`` to zero (by mode, and by shape
-    where a wrapper keeps them)."""
+    """Set the launch counts of ``wrappers`` to zero (by mode, and by
+    shape or MAC form where a wrapper keeps them)."""
     for w in wrappers:
         w.launches = 0
         w.launches_by_mode.clear()
-        if hasattr(w, "launches_by_shape"):
-            w.launches_by_shape.clear()
+        for by in ("launches_by_shape", "launches_by_form"):
+            if hasattr(w, by):
+                getattr(w, by).clear()
 
 
 def _check_fit(block_w: int, wc: int, vh: int, splits: int, body: str, karatsuba: bool) -> None:
@@ -1059,11 +1062,29 @@ def _kernel_mats(
 def _core_matrices(m_t: torch.Tensor, rows: int, splits: int) -> torch.Tensor:
     """The W stage's B operand (cols, K) as the planes the ``rows``-row
     configuration streams at the tier (``m_planes``), in core matrices:
-    [plane][c // 8][k // 4][c % 8][k % 4]."""
+    32 rows, [plane][c // 8][k // 4][c % 8][k % 4]; 64 rows, chunk by
+    chunk, so that the chunk of a W-stage step (a pass of 128 columns, 32
+    k) is one contiguous run, as the TMA copies it: [c // 128][k // 32]
+    [plane][c % 128 // 8][k % 32 // 4][c % 8][k % 4] (``m_core`` reads it
+    back)."""
     cols, k = m_t.shape
     pieces = m_planes(rows, splits)
     planes = torch.stack([m_t] if pieces < TIERS[splits] else tf32_split(m_t, pieces))
+    if rows == 64:
+        return (planes.reshape(pieces, cols // _COLS, _COLS // 8, 8, k // _KC, _KC // 4, 4)
+                .permute(1, 4, 0, 2, 5, 3, 6).contiguous())
     return planes.reshape(pieces, cols // 8, 8, k // 4, 4).permute(0, 1, 3, 2, 4).contiguous()
+
+
+def m_core(m_tc: torch.Tensor) -> torch.Tensor:
+    """M^T's planes in core matrices, [plane][c // 8][k // 4][c % 8][k %
+    4], from either layout ``_core_matrices`` makes (the 64-row one's
+    chunks read back; the 32-row one as it is)."""
+    if m_tc.ndim == 5:
+        return m_tc
+    passes, chunks, pieces = m_tc.shape[:3]
+    return (m_tc.permute(2, 0, 3, 1, 4, 5, 6)
+            .reshape(pieces, passes * (_COLS // 8), chunks * (_KC // 4), 8, 4))
 
 
 @functools.lru_cache(maxsize=16)

@@ -22,9 +22,11 @@ The complex-facing wrappers of the JAX package keep their names:
 ``spectral_mac_auto_planes`` (the MAC kernel on CUDA tensors) on the
 spectra's contiguous float32 planes.
 
-The kernel works on register tiles of TB images × TN filters a thread
-(``csrc/spectral_mac.cu``): ``mac_tile`` is the rule that picks the tile
-for a call, and ``MAC_TILES`` the set the kernel instantiates.
+The kernel works on register tiles of TB images × TN filters a thread,
+or, where those grids would leave most of the card idle, in its split
+form, the channels split across a CTA's warps (``csrc/spectral_mac.cu``):
+``mac_tile`` is the rule that picks the form for a call, and
+``MAC_TILES`` the set the kernel instantiates.
 
 The bf16 serving tier (bf16 planes) takes the same route: bf16 operands,
 float32 accumulation, float32 outputs — the function of the JAX package's
@@ -45,7 +47,7 @@ from cuda_fft_convolution_torch.ops.block_conv import (
     upcast,
 )
 from cuda_fft_convolution_torch.types import split_planes
-from cuda_fft_convolution_torch.utils.errors import validate
+from cuda_fft_convolution_torch.utils.errors import InvalidInputError
 
 
 def spectral_mac_planes(
@@ -62,17 +64,43 @@ def spectral_mac_planes(
     return e(dr, kr) - e(di, ki), e(di, kr) + e(dr, ki)
 
 
-# The (TB, TN) register tiles the kernel instantiates
-# (``csrc/spectral_mac.cu`` FFTCONV_MAC_TILES).
-MAC_TILES = ((1, 1), (8, 4))
+# The split form: TB = 0, the channels split across the CTA's 8 warps,
+# 32 pixels a CTA.
+MAC_SPLIT = (0, 8)
+# The forms the kernel instantiates (``csrc/spectral_mac.cu``
+# FFTCONV_MAC_TILES): the (TB, TN) register tiles and the split form.
+MAC_TILES = ((1, 1), (8, 4), MAC_SPLIT)
+# Pixels a CTA of the (1, 1) tile (256 threads × 4 pixels).
+_ONE_ROW_PIXELS = 1024
 
 
-def mac_tile(b: int) -> tuple[int, int]:
-    """The kernel's register tile (TB images, TN filters) for a MAC of B
-    images: one image keeps the one-row tile (the kernel of before tiles),
-    a batch takes tiles of 8 images × 4 filters, so the kernel operand
+def mac_tile(b: int, n: int, f: int, s: int, sms: int) -> tuple[int, int]:
+    """The kernel's form for a MAC of B images, N filters, F channels and S
+    pixels on a card of ``sms`` SMs. The split form where F ≥ 2 and the
+    (1, 1) tile's grid, g = ceil(S / 1024)·B·N CTAs, leaves SMs idle
+    (g < ``sms``) and is short beside the channels (g < 10·F − 5): the
+    (1, 1) tile's time grows with its F dependent steps a thread, the split
+    form's with its CTAs (g × 32), and on the H100 (12 shapes, PERF.md §6)
+    the split form won exactly there — MOSSE's respond (3 CTAs of 31
+    steps become 66 of at most 4), but not S ≈ 100k at F ≤ 8. Else one
+    image keeps the one-row tile (the kernel of before tiles), and a
+    batch takes tiles of 8 images × 4 filters, so the kernel operand
     leaves device memory about once."""
+    g = -(-s // _ONE_ROW_PIXELS) * b * n
+    if f >= 2 and g < sms and g < 10 * f - 5:
+        return MAC_SPLIT
     return (1, 1) if b == 1 else (8, 4)
+
+
+_SMS: dict[int, int] = {}
+
+
+def sm_count(dev: torch.device) -> int:
+    """The SMs of CUDA device ``dev``, read once per device."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
 
 
 def spectral_mac(
@@ -81,47 +109,51 @@ def spectral_mac(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The MAC kernel → (B, N, H, Wc) f32 planes. CPU tensors run
     ``spectral_mac_planes``; CUDA tensors launch the CUDA kernel entry of
-    their dtype on the current stream (no synchronisation) with the
-    register tile ``mac_tile`` picks (the C entry refuses a tile outside
-    ``MAC_TILES``; the wrapper raises on any error) and count the launch
+    their dtype on the current stream (no synchronisation) in the form
+    ``mac_tile`` picks (the C entry refuses a form outside ``MAC_TILES``;
+    the wrapper raises on any error) and count the launch
     in ``spectral_mac.launches``, per mode in
-    ``spectral_mac.launches_by_mode`` and per (mode, B, F, N, H, Wc) in
-    ``spectral_mac.launches_by_shape``."""
+    ``spectral_mac.launches_by_mode``, per (mode, B, F, N, H, Wc) in
+    ``spectral_mac.launches_by_shape`` and per form in
+    ``spectral_mac.launches_by_form``."""
     ops = (dr, di, kr, ki)
-    if all(t.device.type == "cpu" for t in ops):
+    if dr.device.type == "cpu" and di.device.type == kr.device.type == ki.device.type == "cpu":
         return spectral_mac_planes(dr, di, kr, ki)
     dev, tag = cuda_operands("spectral_mac", ops)
-    validate(
-        dr.ndim == 4 and kr.ndim == 4 and dr.shape[1:] == kr.shape[1:],
-        f"spectral_mac takes (B, F, H, Wc) and (N, F, H, Wc) planes; got "
-        f"{tuple(dr.shape)} and {tuple(kr.shape)}",
-    )
+    if not (dr.ndim == 4 and kr.ndim == 4 and dr.shape[1:] == kr.shape[1:]):
+        raise InvalidInputError(f"spectral_mac takes (B, F, H, Wc) and (N, F, H, Wc) planes; "
+                                f"got {tuple(dr.shape)} and {tuple(kr.shape)}")
     b, f, h, wc = dr.shape
     n = kr.shape[0]
-    tb, tn = mac_tile(b)
+    tb, tn = mac_tile(b, n, f, h * wc, sm_count(dev))
+    mode, name = _MODES[tag]
     from cuda_fft_convolution_torch._build import library
 
-    lib = library()
+    entry = getattr(library(), name)
     o_re = torch.empty((b, n, h, wc), dtype=torch.float32, device=dev)
     o_im = torch.empty_like(o_re)
-    mode = f"spectral_mac_{tag}"
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, f"fftconv_{mode}")(
-            dr.data_ptr(), di.data_ptr(), kr.data_ptr(), ki.data_ptr(),
-            o_re.data_ptr(), o_im.data_ptr(), b, f, n, h * wc, tb, tn, stream,
-        )
+    args = (dr.data_ptr(), di.data_ptr(), kr.data_ptr(), ki.data_ptr(), o_re.data_ptr(),
+            o_im.data_ptr(), b, f, n, h * wc, tb, tn, torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        err = entry(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = entry(*args)
     if err != 0:
         raise RuntimeError(
             f"spectral_mac CUDA kernel launch failed (tile {(tb, tn)}): cudaError {err}")
     count_launch(spectral_mac, mode)
     spectral_mac.launches_by_shape[(mode, b, f, n, h, wc)] += 1
+    spectral_mac.launches_by_form[(tb, tn)] += 1
     return o_re, o_im
 
 
 spectral_mac.launches = 0
 spectral_mac.launches_by_mode = collections.Counter()
 spectral_mac.launches_by_shape = collections.Counter()
+spectral_mac.launches_by_form = collections.Counter()
+# dtype tag → (the launch mode, its C entry's name)
+_MODES = {tag: (f"spectral_mac_{tag}", f"fftconv_spectral_mac_{tag}") for tag in ("f32", "bf16")}
 
 
 def _conj_t(re: torch.Tensor, im: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

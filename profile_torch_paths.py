@@ -27,18 +27,17 @@ filters, 5 levels), a ``train_step`` of the filter-bank detector (8 frames,
 
 instead builds the fused maps and peaks kernels of a parent checkout's
 ``csrc`` (one whose C entries take the launch-order argument and this
-tree's default-tier operands, ``_kernel_mats(..., splits=3)``: G^T, G and
-M^T's TF32 hi and lo planes) beside this tree's default-tier (3×TF32)
-entries and times both in turns —
+tree's operands, ``_kernel_mats``: G^T, G and M^T's planes, the parent's
+64-row entries M^T in core matrices plane by plane, ``block_conv.m_core``)
+beside this tree's entries and times both in turns —
 parent, this tree, this tree, parent, CUDA events, median of 7, each side a
-bare call of its C entry — at the headline plan (float32) and at the DPM
+bare call of its C entry — at the headline plan (float32 at every tier:
+3×TF32, 6×TF32 and one pass; bf16 spectra at BF16IO; maps and peaks), at the DPM
 plan (bf16 spectra at the 3×TF32 entries, and the same planes upcast to
-float32), printing how far the outputs differ and each side's error
-against the plain version; at the headline plan it also compares the
-6×TF32 and one-pass entries (``_x6``, ``_x1``, each side on this tree's
-operands of the tier), untimed; at JAX's F=1 radix plan (256, 512, 65, 129)
-on the headline image, N=100, it times each radix body's maps entry at
-3×TF32 and BF16IO in turns. Before that it holds every C entry the parent
+float32) and at the F=8 tier's plan (BF16IO maps), printing how far the
+outputs differ and each side's error against the plain version; at JAX's
+F=1 radix plan (256, 512, 65, 129) on the headline image, N=100, it times
+each radix body's maps entry at 3×TF32 and BF16IO in turns. Before that it holds every C entry the parent
 has (its v3, radix and forms libraries, each built from its sources)
 against this tree's on random planes (``every_entry_bitwise``): the v3
 entries and the Karatsuba and v2 ones (``_k``, ``_v2``, ``_v2_k``) at
@@ -192,15 +191,17 @@ def build_parent(csrc: pathlib.Path):
     return tuple(libs)
 
 
-def bare_entry(lib, name, ops, geom, body="v3"):
+def bare_entry(lib, name, ops, geom, body="v3", parent=False):
     """The C entry ``name`` (a maps or peaks entry of any tier, body and
     H-stage form: ``body`` names the body, the ``_k`` suffix the Karatsuba
     form) of ``lib`` on ``ops`` at ``geom``, with this tree's operands of
     its tier, body and form, the wrappers' launch order and no wrapper
     around it (a wrapper's host checks would show in a one-call CUDA-event
     window) → its outputs: maps (B, N, out_h, out_w), or the partial
-    pyramid (vals, idxs) (B, N, nbh, row chunks, nbw). Raises where the
-    entry refuses the launch."""
+    pyramid (vals, idxs) (B, N, nbh, row chunks, nbw). ``parent``: the
+    entry is the parent's, whose 64-row W stage reads M^T in core matrices
+    plane by plane (``block_conv.m_core``), not chunk by chunk. Raises
+    where the entry refuses the launch."""
     import torch
 
     from cuda_fft_convolution_torch.ops import block_conv as bc
@@ -216,6 +217,8 @@ def bare_entry(lib, name, ops, geom, body="v3"):
     rows = (bc.v2_rows if body == "v2" else bc.tile_rows)(wc, vh, splits, kara)
     mats = bc._kernel_mats(bh, bw, kh, kw, str(dev), splits, rows)
     m_tc, radix = bc._radix_args(ops, bh, bw, kh, kw, str(dev), splits, body, mats[3], rows)
+    if parent:
+        m_tc = bc.m_core(m_tc).contiguous()
     if "_peaks_" in name:
         chunks = (bc.row_chunks(wc, vh, splits, kara) if body == "v3"
                   else bc.radix_row_chunks(wc, lh, vh, splits, kara))
@@ -308,7 +311,7 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
                 if body in ("v5", "v5x") and not bc.radix_w_legal(bw, kw, vw):
                     continue
                 planes = ops16 if "_bf16" in name.replace("_bf16maps", "") else ops
-                a, c = (refused_or(lambda: bare_entry(lib, name, planes, geom, body))
+                a, c = (refused_or(lambda: bare_entry(lib, name, planes, geom, body, lib is libs[0]))
                         for lib in libs)
                 torch.cuda.synchronize()
                 total += 1
@@ -348,6 +351,7 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
     import cuda_fft_convolution_torch as fc
     from cuda_fft_convolution_torch import _build
     from cuda_fft_convolution_torch.ops.block_conv import (
+        BF16IO,
         TIER_SUFFIX,
         block_conv_peaks_reference,
         block_conv_reference,
@@ -367,15 +371,18 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
         name = f"fftconv_block_conv{'_peaks' if peaks else ''}_{tag}"
 
         def call(side):
-            out = bare_entry(side, name, ops, geom)
+            out = bare_entry(side, name, ops, geom, parent=side is lib)
             return (out[0][:, :, :, 0], out[1][:, :, :, 0]) if peaks else out[0]
 
         return (lambda: call(lib)), (lambda: call(this))
 
     def turns(label, parent, new, runs=chip_smoke.RUNS):
+        """parent, this tree, this tree, parent."""
         t = [chip_smoke.cuda_ms(f, runs) for f in (parent, new, new, parent)]
-        print(f"A/B {label}: parent {t[0]:.3f}, this tree {t[1]:.3f}, this tree "
-              f"{t[2]:.3f}, parent {t[3]:.3f} ms")
+        names = ("parent", "this tree", "this tree", "parent")
+        print(f"A/B {label}: " + ", ".join(f"{n} {x:.3f}" for n, x in zip(names, t))
+              + f" ms (this tree / parent {(t[1] + t[2]) / (t[0] + t[3]):.3f}; "
+              f"{chip_smoke.card()})")
         torch.cuda.empty_cache()
 
     def compare(label, parent, new, peaks, ops, geom):
@@ -404,14 +411,22 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
     sk = fc.fft_kernels(bank, spectral=spec)
     geom = (spec.block_h, spec.block_w, spec.max_kh, spec.max_kw, spec.out_h, spec.out_w)
     ops = (spec.re[None], spec.im[None], sk.re, sk.im)
+    ops16 = tuple(x.to(torch.bfloat16) for x in ops)
     for peaks in (False, True):
         label = f"headline plan, f32 {'peaks' if peaks else 'maps'}"
         compare(label, *calls(ops, geom, peaks), peaks, ops, geom)
         turns(label, *calls(ops, geom, peaks))
-        for splits in (6, 1):  # the other fp32 tiers: compared, not timed
+        for splits in (6, 1):  # the other fp32 tiers
             compare(f"{label}, {tier_name(splits)}", *calls(ops, geom, peaks, splits), peaks,
                     ops, geom)
-    del spec, sk, ops
+            turns(f"{label}, {tier_name(splits)}", *calls(ops, geom, peaks, splits))
+        a, b = (f() for f in calls(ops16, geom, peaks, BF16IO))
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(a, b)) if peaks else torch.equal(a, b)
+        print(f"{label}, BF16IO: parent vs this tree bitwise equal {same}")
+        del a, b
+        turns(f"{label}, BF16IO", *calls(ops16, geom, peaks, BF16IO))
+    del spec, sk, ops, ops16
     torch.cuda.empty_cache()
 
     # the radix bodies' maps entries at JAX's F=1 plan on the headline
@@ -424,7 +439,8 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
         for planes, tag in ((rops, "f32"), (rops16, "bf16_io")):
             name = f"fftconv_block_conv_{tag}{RADIX_SUFFIX[body]}"
             parent_call, this_call = (
-                lambda side=side: bare_entry(side, name, planes, rgeom, body)[0]
+                lambda side=side: bare_entry(side, name, planes, rgeom, body,
+                                             side is parent_libs[1])[0]
                 for side in (parent_libs[1], radix_lib))
             a, c = parent_call(), this_call()
             torch.cuda.synchronize()
@@ -451,6 +467,22 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
           f"{chip_smoke.cuda_ms(lambda: block_conv_reference(*ops, *geom)):.3f} ms")
     ops = tuple(t.float() for t in ops)
     turns("DPM plan, the same planes upcast to f32, f32 maps", *calls(ops, geom, False), runs=3)
+    del sd, sks, ops
+    torch.cuda.empty_cache()
+
+    # the F=8 tier's plan (63, 287, 32, 32): stacked, bf16 spectra at BF16IO
+    size, f, n, k = (chip_smoke.F8_TIER[x] for x in ("size", "f", "n", "k"))
+    data = torch.as_tensor(rng.standard_normal((size, size, f)).astype(np.float32), device="cuda")
+    fbank = torch.as_tensor(rng.standard_normal((n, k, k, f)).astype(np.float32), device="cuda")
+    sd = fc.fft_data_tiled(data, k, k, trim_mode="same", store_dtype="bfloat16")
+    skf = fc.fft_kernels(fbank, spectral=sd, store_dtype="bfloat16")
+    geom = (sd.block_h, sd.block_w, sd.max_kh, sd.max_kw, sd.out_h, sd.out_w)
+    ops = (sd.re[None], sd.im[None], skf.re, skf.im)
+    a, b = (f_() for f_ in calls(ops, geom, False, BF16IO))
+    torch.cuda.synchronize()
+    print(f"F=8 plan {geom[:4]}, BF16IO maps: parent vs this tree bitwise equal {torch.equal(a, b)}")
+    del a, b
+    turns(f"F=8 plan {geom[:4]}, BF16IO maps", *calls(ops, geom, False, BF16IO))
 
 
 def submit_soak(stream, frames, pinned, host, seconds: float) -> None:

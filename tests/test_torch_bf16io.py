@@ -177,8 +177,9 @@ def test_kernel_mats_at_bf16io():
     r = tbc.bf16_round
     assert torch.equal(gt_re, r(gr).t()) and torch.equal(gt_im, r(gi).t())
     assert torch.equal(g_pad[0, :127, :127], r(gr)) and torch.equal(g_pad[1, :127, :127], r(gi))
-    assert m_tc.shape == x1[3].shape and m_tc.shape[0] == 1
-    raw = m_tc[0].permute(0, 2, 1, 3).reshape(m_tc.shape[1] * 8, -1)
+    assert m_tc.shape == x1[3].shape and tbc.m_core(m_tc).shape[0] == 1
+    core = tbc.m_core(m_tc)
+    raw = core[0].permute(0, 2, 1, 3).reshape(core.shape[1] * 8, -1)
     assert torch.equal(raw[: mr.shape[1], : mr.shape[0]], r(mr).t())
     for t in (gt_re, g_pad, m_tc):
         assert not (t.view(torch.int32) & 0xFFFF).any()  # bf16 values

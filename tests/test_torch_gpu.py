@@ -481,22 +481,24 @@ def _mac_entry(planes, tile):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", MAC_SHAPES, ids=lambda s: "B{}N{}F{}_{}x{}".format(*s))
 def test_spectral_mac_every_tile_matches_einsum_on_gpu(cuda, shape):
-    """Every register tile the kernel instantiates (through the C entry),
-    on float32 and bf16 planes, against the einsum (1e-5; 1e-6 on bf16
-    planes, whose products are exact); each output's arithmetic is the
-    same in every tile (f ascending, the same two fmaf chains), so all
-    tiles agree bitwise, and the wrapper, one launch a call, equals the
-    rule's tile."""
+    """Every form the kernel instantiates (through the C entry), on float32
+    and bf16 planes, against the einsum (1e-5; 1e-6 on bf16 planes, whose
+    products are exact); each output's arithmetic is the same in every
+    register tile (f ascending, the same two fmaf chains), so the register
+    tiles agree bitwise; the split form sums the channels in another order
+    (held to the same bars, not bitwise); the wrapper, one launch a call,
+    equals the form the rule picks, bitwise."""
     from cuda_fft_convolution_torch.ops import spectral_mac as tmac
 
     b, n, f, h, wc = shape
     rng = np.random.default_rng(sum(shape))
     ops = tuple(torch.as_tensor(rng.standard_normal((m, f, h, wc)).astype(np.float32),
                                 device=cuda) for m in (b, b, n, n))
-    assert tmac.mac_tile(b) in tmac.MAC_TILES
+    rule = tmac.mac_tile(b, n, f, h * wc, tmac.sm_count(ops[0].device))
+    assert rule in tmac.MAC_TILES
     for planes, tol in ((ops, TOL), (tuple(x.to(torch.bfloat16) for x in ops), 1e-6)):
         want = tmac.spectral_mac_planes(*planes)
-        first = None
+        first, outs = None, {}
         for tile in tmac.MAC_TILES:
             err, got = _mac_entry(planes, tile)
             torch.cuda.synchronize()
@@ -504,6 +506,9 @@ def test_spectral_mac_every_tile_matches_einsum_on_gpu(cuda, shape):
             for g, w in zip(got, want):
                 assert g.dtype == torch.float32 and g.shape == (b, n, h, wc)
                 assert _rel(g, w) <= tol, tile
+            outs[tile] = got
+            if tile == tmac.MAC_SPLIT:
+                continue
             if first is None:
                 first = got
             assert all(torch.equal(g, w) for g, w in zip(got, first)), tile
@@ -511,7 +516,7 @@ def test_spectral_mac_every_tile_matches_einsum_on_gpu(cuda, shape):
         got = tmac.spectral_mac(*planes)
         torch.cuda.synchronize()
         assert tmac.spectral_mac.launches == before + 1
-        assert all(torch.equal(g, w) for g, w in zip(got, first))
+        assert all(torch.equal(g, w) for g, w in zip(got, outs[rule]))
 
 
 @pytest.mark.gpu
@@ -526,6 +531,69 @@ def test_spectral_mac_tile_outside_the_set_is_refused_on_gpu(cuda):
             assert tile not in tmac.MAC_TILES
             err, _ = _mac_entry(planes, tile)
             assert err == CUDA_ERROR_INVALID_VALUE, tile
+
+
+@pytest.mark.gpu
+def test_spectral_mac_split_form_at_mosse_on_gpu(cuda):
+    """MOSSE's respond (B 1, F 31, N 1, 64 × 33 bins): the rule picks the
+    split form on the H100 (3 CTAs of the (1, 1) tile on 132 SMs), the
+    wrapper launches it once, within 1e-5 of the plain version, and a
+    launch gives the same bits every run."""
+    from cuda_fft_convolution_torch.ops import spectral_mac as tmac
+
+    rng = np.random.default_rng(31)
+    ops = tuple(torch.as_tensor(rng.standard_normal((1, 31, 64, 33)).astype(np.float32),
+                                device=cuda) for _ in range(4))
+    assert tmac.mac_tile(1, 1, 31, 64 * 33, tmac.sm_count(ops[0].device)) == tmac.MAC_SPLIT
+    before = tmac.spectral_mac.launches_by_form[tmac.MAC_SPLIT]
+    got = tmac.spectral_mac(*ops)
+    again = tmac.spectral_mac(*ops)
+    torch.cuda.synchronize()
+    assert tmac.spectral_mac.launches_by_form[tmac.MAC_SPLIT] == before + 2
+    for g, w, a in zip(got, tmac.spectral_mac_planes(*ops), again):
+        assert _rel(g, w) <= TOL
+        assert torch.equal(g, a)
+
+
+# The headline plan with N = 101 kernels: 192 blocks (19,392 CTAs), and a
+# 5 × 3 block crop of it (1,515 CTAs).
+HEADLINE_N101 = [(1, 1, 101, 127, 447, 64, 64, 2048, 2048),
+                 (1, 1, 101, 127, 447, 64, 64, 5 * 64, 3 * 384)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", HEADLINE_N101)
+def test_w_stage_ring_every_tier_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
+    """The one-block 64-row configuration's W stage on its TMA ring: one
+    maps and one peaks entry per tier (3×TF32, 6×TF32, one pass on f32
+    spectra; BF16IO on bf16) against the plain version, each launch
+    counted; peak indices equal (at one pass and BF16IO, whose rounding
+    flips allow it, a differing index holds a near tie)."""
+    rng = np.random.default_rng(41)
+    geom = (bh, bw, kh, kw, out_h, out_w)
+    ops = _planes(rng, cuda, b, f, n, *geom)
+    ops16 = tuple(x.to(torch.bfloat16) for x in ops)
+    assert tbc.tile_rows(bw // 2 + 1, bh - kh + 1) == 64
+    for planes, splits, tol in ((ops, 3, TOL), (ops, 6, TOL), (ops, 1, ONE_PASS_TOL),
+                                (ops16, tbc.BF16IO, IO_TOL)):
+        want = tbc.block_conv_reference(*planes, *geom, splits=splits)
+        before = tbc.block_conv.launches
+        got = tbc.block_conv(*planes, *geom, torch.float32, splits)
+        torch.cuda.synchronize()
+        assert tbc.block_conv.launches == before + 1
+        assert _rel(got, want) <= tol, splits
+        want_v, want_i = tbc.block_conv_peaks_reference(*planes, *geom, splits, radix_h=False)
+        got_v, got_i = tbc.block_conv_peaks(*planes, *geom, splits, radix_h=False)
+        torch.cuda.synchronize()
+        assert _rel(got_v, want_v) <= tol, splits
+        flips = got_i != want_i
+        if splits in (3, 6):
+            assert not flips.any()
+        elif flips.any():
+            flat = want.reshape(b, n, -1)
+            at = flat.gather(-1, got_i.reshape(b, n, -1).long()).reshape(got_i.shape)
+            assert (at[flips] >= want_v[flips] - tol * want_v.abs().max()).all()
+        del want, got, want_v, want_i, got_v, got_i
 
 
 @pytest.mark.gpu
@@ -970,8 +1038,9 @@ def test_selftest_kernels_ok_on_gpu(cuda):
     assert rep["device_kind"] == torch.cuda.get_device_name()
     assert rep["kernels_ok"] is True, rep.get("kernels_failed", rep.get("kernels_error"))
     # 3 configurations x (6 entries + 3 of each of the 6xTF32, one-pass and
-    # BF16IO tiers) + 4 MAC tiles
-    assert len(rep["kernels"]) == 49
+    # BF16IO tiers) + 2 MAC entries at each of the 3 MAC forms (the (1, 1)
+    # and (8, 4) register tiles and the split form)
+    assert len(rep["kernels"]) == 51
 
 
 @pytest.fixture

@@ -345,9 +345,9 @@ def test_kernel_mats_planes_per_tier(splits, planes):
     """M^T's planes are the tier's TF32 pieces (the default tier's hi and lo
     unchanged), or M^T itself in the 32-row configuration at 6×TF32; the
     tier is part of the operands' cache key."""
-    m3 = tbc._kernel_mats(127, 447, 64, 64, "cpu")[3]
-    m6 = tbc._kernel_mats(127, 447, 64, 64, "cpu", 6)[3]
-    m = tbc._kernel_mats(127, 447, 64, 64, "cpu", splits)[3]
+    m3 = tbc.m_core(tbc._kernel_mats(127, 447, 64, 64, "cpu")[3])
+    m6 = tbc.m_core(tbc._kernel_mats(127, 447, 64, 64, "cpu", 6)[3])
+    m = tbc.m_core(tbc._kernel_mats(127, 447, 64, 64, "cpu", splits)[3])
     assert m.shape[0] == planes and m.shape[1:] == m3.shape[1:]
     assert torch.equal(m[:2], m3[: min(planes, 2)] if splits != 1 else m3[:1])
     if splits == 3:

@@ -120,8 +120,11 @@ def test_kernel_mats_planes(bh, bw, kh, kw):
     assert torch.equal(gt_re, gr.t()) and torch.equal(gt_im, gi.t())
     assert gt_re.is_contiguous() and gt_im.is_contiguous()
     assert g_pad.shape == (2, -(-vh // 64) * 64, -(-lh // 16) * 16) and g_pad.is_contiguous()
-    assert m_tc.shape == (2, cols // 8, wcp // 2, 8, 4) and m_tc.is_contiguous()
+    # 64 rows: chunk by chunk (a pass of 128 columns x 32 k, both planes)
+    assert m_tc.shape == (cols // 128, 2 * wcp // 32, 2, 16, 8, 8, 4) and m_tc.is_contiguous()
     assert g_pad.dtype == m_tc.dtype == torch.float32
+    m_tc = tbc.m_core(m_tc)
+    assert m_tc.shape == (2, cols // 8, wcp // 2, 8, 4)
     assert torch.equal(g_pad[0, :vh, :lh], gr) and torch.equal(g_pad[1, :vh, :lh], gi)
     g_mask = torch.ones_like(g_pad, dtype=torch.bool)
     g_mask[:, :vh, :lh] = False
