@@ -13,9 +13,9 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      bodies', the Karatsuba and v2 entries', the radix bodies' Karatsuba
      entries'), prints what ptxas reports
      (registers, shared memory, spills) and fails on a spill, and holds
-     the Python configuration model (shared memory, rows, blocks per CTA;
-     the Karatsuba and v2 configurations too) against the kernel's over
-     (vh, wc) pairs;
+     the Python configuration model (shared memory, rows, blocks and
+     kernels per CTA; the Karatsuba and v2 configurations too) against the
+     kernel's over (vh, wc) pairs;
   3. holds the fused block-conv kernel against its plain PyTorch version on
      the card at a small ragged shape, the widest 64-row block, a wide
      block (32-row tiles), two short-window
@@ -76,9 +76,13 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      ``fft_kernels(store_dtype='bfloat16')`` and ``conv_spectral(mode=
      'same')`` with float32 and with bf16 maps, each against float64 numpy
      on 8 maps (2e-2); 8 filters planted in the features and found by
-     ``detect_peaks`` at the tier; the blocks a CTA stacks there, its CTAs
-     and the MFLOP per cell it issues (tensor-core and FMA) beside the useful
-     ones; the kernels against their plain versions at that plan, and times;
+     ``detect_peaks`` at the tier; the stacking there (``stacked_report``:
+     blocks and kernels a CTA, which must both be 2 or more, CTAs, shared
+     memory, ring steps, the stacked entry's registers and spills, the
+     modelled L2->shared bytes a call, the MFLOP per cell it issues on the
+     CUDA cores and the tensor cores beside the useful ones, the H stage on
+     the tensor cores); the kernels against their plain versions at that
+     plan, and times;
  13. the clamp headline: ``fft_conv(..., padding='clamp')`` on the headline
      shape (the direct engine, the MAC kernel) at the scipy and the matlab
      anchor, against an edge-padded float64 FFT reference on 8 maps (1e-5);
@@ -227,7 +231,7 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      too, the call, its amortized form and the direct call timed; 1024²×8
      with 64 kernels of 32²×8 at the bf16 tier: every launch at its plan,
      8 maps within 2e-2 of float64, the call and its amortized form timed,
-     its blocks a CTA; ``detect_peaks`` on each (the peaks kernel at each
+     its stacking (``stacked_report``); ``detect_peaks`` on each (the peaks kernel at each
      plan, launched on the main path and timed beside its plain version);
      then the port's bench (``python -m
      cuda_fft_convolution_torch.bench``) at full size in this process: its
@@ -464,6 +468,7 @@ def build_kernels() -> None:
     from cuda_fft_convolution_torch.ops.block_conv import (
         TIERS,
         blocks_per_cta,
+        kernels_per_cta,
         smem_bytes,
         tier_name,
         tile_rows,
@@ -503,18 +508,20 @@ def build_kernels() -> None:
         print("  (the libraries were built before this process: no ptxas report)")
     pairs = 0
     for splits in TIERS:
-        for wc in (17, 70, 76, 128, 129, 224, 256, 257, 320, 321, 384, 385, 451, 513, 577,
-                   609, 641, 769):
+        for wc in (17, 70, 76, 96, 97, 128, 129, 160, 161, 168, 169, 224, 256, 257, 320, 321,
+                   384, 385, 451, 513, 577, 609, 641, 769):
             for vh in (1, 2, 3, 7, 8, 13, 16, 17, 21, 31, 32, 33, 64, 100):
                 got = (lib.fftconv_block_conv_f32_smem_bytes(wc, vh, splits),
                        lib.fftconv_block_conv_f32_rows(wc, vh, splits),
-                       lib.fftconv_block_conv_f32_blocks(wc, vh, splits))
+                       lib.fftconv_block_conv_f32_blocks(wc, vh, splits),
+                       lib.fftconv_block_conv_f32_kernels(wc, vh, splits))
                 want = (smem_bytes(wc, vh, splits), tile_rows(wc, vh, splits),
-                        blocks_per_cta(wc, vh, splits))
+                        blocks_per_cta(wc, vh, splits), kernels_per_cta(wc, vh, splits))
                 if got != want:
                     raise AssertionError(
                         f"configuration model differs from the kernel at Wc={wc}, Vh={vh}, "
-                        f"{tier_name(splits)}: kernel (smem, rows, blocks) {got}, Python {want}")
+                        f"{tier_name(splits)}: kernel (smem, rows, blocks, kernels) {got}, "
+                        f"Python {want}")
                 # the Karatsuba configurations, and v2's with either form
                 got = (forms_lib.fftconv_block_conv_k_smem_bytes(wc, vh, splits),
                        forms_lib.fftconv_block_conv_k_rows(wc, vh, splits),
@@ -543,7 +550,9 @@ def build_kernels() -> None:
               f"{tile_rows(224, 64, splits)} rows; 1024 block (Wc 513) "
               f"{smem_bytes(513, 961, splits)} B, {tile_rows(513, 961, splits)} rows; DPM "
               f"(Wc 70, Vh 16) {smem_bytes(70, 16, splits)} B, "
-              f"{blocks_per_cta(70, 16, splits)} blocks")
+              f"{blocks_per_cta(70, 16, splits)} blocks x {kernels_per_cta(70, 16, splits)} "
+              f"kernels a CTA; F=8 (Wc 144, Vh 32) {smem_bytes(144, 32, splits)} B, "
+              f"{blocks_per_cta(144, 32, splits)} x {kernels_per_cta(144, 32, splits)}")
     print(f"  configuration model = kernel at {pairs} (vh, wc, tier) triples")
 
 
@@ -621,29 +630,108 @@ def block_conv_bound(ops, geom, out_bytes, splits=3, body="v3",
     return bound(op_seconds, nbytes)
 
 
-def stacked_model(ops, geom) -> dict:
-    """The stacked configuration at a geometry, from the kernel's loop
-    counts (block_conv.cuh): blocks per CTA, CTAs, and the operations
-    issued per cell — on the CUDA cores, the H stage (64 rows x 128-column
-    passes) and the MAC (16 rows of columns padded to 32); on the tensor
-    cores, the W stage (64 rows over bins padded to 32, twice, x the 64-
-    column warpgroup tiles below vw, 3 passes) — beside the useful ones."""
-    from cuda_fft_convolution_torch.ops.block_conv import blocks_per_cta
+def stacked_ptxas(spectra="13__nv_bfloat16", splits=0) -> tuple:
+    """(registers, spill bytes) ptxas reported for the stacked maps
+    kernel's instantiation on ``spectra`` (the mangled type: bf16 or 'f')
+    at tier ``splits`` with float32 maps and the 4-product H stage, from
+    this process's build log; (None, None) where the library was built
+    before it."""
+    import re
+
+    from cuda_fft_convolution_torch import _build
+
+    want = (f"block_conv_kernelI{spectra}Li64ELb1ELi{splits}ELi0ENS_9StoreMapsIfLb1EEELb0EEEv")
+    entry = regs = spill = None
+    for line in _build.build_log().splitlines():
+        if "Compiling entry" in line:
+            entry = line
+        elif entry and want in entry:
+            if "spill" in line:
+                spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs = int(m.group(1))
+                entry = None
+    return regs, spill
+
+
+def stacked_model(ops, geom, splits=None) -> dict:
+    """The stacked configuration at a geometry and tier (None: the
+    spectra's default), from the kernel's loop counts (block_conv.cuh): g
+    blocks and T kernels a CTA, CTAs, shared memory and ring steps; the
+    modelled L2→shared bytes of a call (each plane's u-chunk span, 16 rows
+    x Wc at BF16IO and 8 at the other tiers, copied whole from the 16-byte
+    chunk that holds its start, for every CTA that reads it); the
+    operations issued per cell on the CUDA cores (the MAC, exactly its
+    useful work) and on the tensor cores (the H stage's mma tiles: 16-row
+    m-tiles x 8-bin n-tiles x the u-chunks' rows, 4 real products; the W
+    stage: 64 rows / g over the bins
+    padded to 32, twice, x the 64-column warpgroup tiles; both x the tier's
+    products) beside the useful ones; where the H stage runs."""
+    from cuda_fft_convolution_torch.ops import block_conv as bc
 
     b, nbh, nbw, f, lh, wc = ops[0].shape
     n = ops[2].shape[0]
     bh, bw, kh, kw = geom[:4]
     vh, vw = bh - kh + 1, bw - kw + 1
-    g = blocks_per_cta(wc, vh)
-    kug = 16 // g
-    nuc = -(-lh // kug)
-    passes_h, bins = -(-wc // 128), -(-wc // 32) * 32
-    h = passes_h * nuc * kug * 64 * 128 * 8
-    w = 3 * 64 * 2 * bins * -(-vw // 64) * 64 * 2
-    mac = passes_h * nuc * g * kug * min(bins, 128) * f * 8
-    return dict(g=g, ctas=b * -(-nbh * nbw // g) * n,
-                fma_mflop=(h + mac) / g / 1e6, tc_mflop=w / g / 1e6,
-                useful_mflop=cell_flop(f, lh, wc, vh, vw) / 1e6)
+    tier = resolved(ops[0], splits)
+    g, t = bc.blocks_per_cta(wc, vh, tier), bc.kernels_per_cta(wc, vh, tier)
+    ktile = bc.kernel_tile(wc, vh, ops[2], tier)
+    nblk = nbh * nbw
+    groups = -(-nblk // g)
+    tiles = [min(ktile, n - s0) for s0 in range(0, n, ktile)]
+    kctas = sum(-(-x // t) for x in tiles)  # CTAs over the kernels, an image
+    s = ops[0].element_size()
+    plane = lh * wc
+    u = 16 if tier == bc.BF16IO else 8  # spectrum rows a u-chunk
+    u0 = np.arange(0, lh, u)
+    rows = np.minimum(u, lh - u0)
+
+    def span_bytes(base, count):
+        """Bytes copied for ``count`` (block or kernel) planes at ``base``:
+        every channel and u-chunk's span."""
+        idx = np.arange(count)[:, None, None] * f + np.arange(f)[None, :, None]
+        start = base + (idx * plane + u0[None, None, :] * wc) * s
+        end = start + rows[None, None, :] * wc * s
+        return int((((end + 15) // 16) * 16 - (start // 16) * 16).sum())
+
+    d_bytes = sum(span_bytes(t_.data_ptr() % 16, b * nblk) for t_ in ops[:2])
+    k_bytes = sum(span_bytes(t_.data_ptr() % 16, n) for t_ in ops[2:])
+    l2 = d_bytes * kctas + k_bytes * b * groups
+    def step(size):  # a ring step's bytes, spectra of ``size`` bytes
+        return 2 * (g + t) * 16 * ((u * wc * size + 15 - size) // 16 + 1)
+
+    # the ring's bytes are sized for the tier's spectra (bf16 at BF16IO,
+    # else fp32); bf16 spectra at the other tiers fill them with more steps
+    sized = 2 if tier == bc.BF16IO else 4
+    steps = min(8, bc._stack(wc, g, t, tier)[0] * step(sized) // step(s))
+    products = 1 if tier == bc.BF16IO else tier
+    nuc, mtiles, sb = -(-lh // u), -(-vh // 16), -(-wc // 8) * 8
+    h = nuc * mtiles * 16 * u * sb * 2 * 4
+    bins = -(-wc // 32) * 32
+    w = 64 * 2 * bins * -(-vw // 64) * 64 * 2 / g
+    return dict(g=g, t=t, ctas=b * groups * kctas, smem=bc.smem_bytes(wc, vh, tier),
+                steps=steps, l2_gb=l2 / 1e9, fma_mflop=mac_flop(f, lh, wc) / 1e6,
+                tc_mflop=products * (h + w) / 1e6,
+                useful_mflop=cell_flop(f, lh, wc, vh, vw) / 1e6,
+                h_stage="tensor cores (mma.sync: m16n8k16 bf16 at BF16IO, m16n8k8 on the tier's "
+                        "TF32 pieces otherwise)")
+
+
+def stacked_report(label, ops, geom, splits=None) -> dict:
+    """Print ``stacked_model`` at a geometry, with the stacked kernel's
+    registers and spills (``stacked_ptxas``), and return the model."""
+    m = stacked_model(ops, geom, splits)
+    tier = resolved(ops[0], splits)
+    regs, spill = stacked_ptxas("13__nv_bfloat16" if str(ops[0].dtype) == "torch.bfloat16"
+                                else "f", tier)
+    print(f"{label}: stacked {m['g']} blocks x {m['t']} kernels a CTA, {m['ctas']} CTAs, "
+          f"{m['smem']} B of shared memory, {m['steps']} ring steps, {regs} registers and "
+          f"{spill} bytes of spills (the {tier_label(ops[0], splits)} maps entry); modelled "
+          f"L2->shared copies {m['l2_gb']:.2f} GB a call; per cell {m['fma_mflop']:.3f} MFLOP "
+          f"on the CUDA cores (the MAC) and {m['tc_mflop']:.3f} on the tensor cores for "
+          f"{m['useful_mflop']:.3f} useful; the H stage on the {m['h_stage']}")
+    return m
 
 
 def resolved(d_re, splits) -> int:
@@ -1540,12 +1628,11 @@ def dpm_path(fc, seed, path_launches) -> tuple[dict, dict]:
     vh, wc = sd.block_h - k + 1, sd.block_w // 2 + 1
     geom = (*plan, sd.out_h, sd.out_w)
     ops = (sd.re[None], sd.im[None], sk.re, sk.im)
-    m = stacked_model(ops, geom)
-    print(f"DPM: plan {plan}, {sd.re.shape[0]}x{sd.re.shape[1]} blocks, Vh={vh}, Wc={wc}: "
-          f"{m['g']} blocks stacked a CTA, {m['ctas']} CTAs; per cell "
-          f"{m['fma_mflop']:.3f} MFLOP issued on the CUDA cores and {m['tc_mflop']:.3f} on "
-          f"the tensor cores (3xTF32) for {m['useful_mflop']:.3f} useful; "
+    print(f"DPM: plan {plan}, {sd.re.shape[0]}x{sd.re.shape[1]} blocks, Vh={vh}, Wc={wc}; "
           f"bank spectra {2 * sk.re.numel() * sk.re.element_size() / 1e6:.1f} MB bf16")
+    m = stacked_report("DPM plan", ops, geom)
+    if m["g"] < 2 or m["t"] < 2:
+        raise AssertionError(f"the DPM plan must stack blocks and kernels: {m['g']} x {m['t']}")
 
     idx = list(range(0, n, n // 8))[:8]
     want = dpm_reference_f64(feats.double().cpu().numpy(), bank.cpu().numpy(), idx)
@@ -3739,10 +3826,7 @@ def f8_tier_phase(fc, seed, path_launches, times, rows, row_launches):
           lambda: fc.conv_spectral(spec, sk, mode="same"), times)
     geom = (spec.block_h, spec.block_w, spec.max_kh, spec.max_kw, spec.out_h, spec.out_w)
     ops = (spec.re[None], spec.im[None], sk.re, sk.im)
-    model = stacked_model(ops, geom)
-    print(f"F=8 tier plan: {model['g']} blocks a CTA, {model['ctas']} CTAs; MFLOP a cell "
-          f"issued {model['fma_mflop']:.2f} FMA + {model['tc_mflop']:.2f} tensor-core, "
-          f"useful {model['useful_mflop']:.2f}")
+    stacked_report("F=8 tier plan", ops, geom)
     rows["block_conv_bf16_io:f8_tier"] = kernel_row(ops, geom, f"F=8 tier plan, N={n}")
     detect_row("F=8 tier", "block_conv_peaks_bf16_io:f8_tier",
                lambda: detect_peaks(data_d, bank_d, mode="same", store_dtype="bfloat16"),

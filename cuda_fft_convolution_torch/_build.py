@@ -7,8 +7,8 @@ in ``build/`` at the repository root, and loads it with ``ctypes``. The
 radix-2 bodies' sources (``block_conv_r4.cu``, ``_r5.cu``, ``_r5x.cu``)
 make a second library, ``library(radix=True)``, built at the first radix
 call, and the other H-stage forms' (the Karatsuba entries and the v2 body:
-``block_conv_k.cu``, ``block_conv_peaks_k.cu``, ``block_conv_v2.cu``,
-``block_conv_v2_k.cu``) a third, ``library(forms=True)``, and the radix
+``block_conv_k.cu``, ``block_conv_k_tiers.cu``, ``block_conv_peaks_k.cu``,
+``block_conv_v2.cu``, ``block_conv_v2_k.cu``) a third, ``library(forms=True)``, and the radix
 bodies' Karatsuba entries (``block_conv_r4_k.cu``, ``_r5_k.cu``,
 ``_r5x_k.cu``) a fourth, ``library(radix=True, forms=True)``: no default
 route launches them, so the other paths do not wait for their builds. A
@@ -59,8 +59,8 @@ _SMEM_QUERY = ([_I, _I, _I], ctypes.c_longlong)
 # configuration queries of both forms; the radix forms library the radix
 # bodies' entries in the Karatsuba form (_r4_k, _r5_k, _r5x_k).
 _RADIX_UNITS = ("block_conv_r4.cu", "block_conv_r5.cu", "block_conv_r5x.cu")
-_FORM_UNITS = ("block_conv_k.cu", "block_conv_peaks_k.cu", "block_conv_v2.cu",
-               "block_conv_v2_k.cu")
+_FORM_UNITS = ("block_conv_k.cu", "block_conv_k_tiers.cu", "block_conv_peaks_k.cu",
+               "block_conv_v2.cu", "block_conv_v2_k.cu")
 _RADIX_FORM_UNITS = ("block_conv_r4_k.cu", "block_conv_r5_k.cu", "block_conv_r5x_k.cu")
 _SIGNATURES = {
     "fftconv_block_conv_f32": _MAPS,
@@ -76,6 +76,7 @@ _SIGNATURES = {
     "fftconv_block_conv_f32_smem_bytes": _SMEM_QUERY,
     "fftconv_block_conv_f32_rows": _QUERY,
     "fftconv_block_conv_f32_blocks": _QUERY,
+    "fftconv_block_conv_f32_kernels": _QUERY,
     "fftconv_block_conv_peaks_f32": _PEAKS,
     "fftconv_block_conv_peaks_bf16": _PEAKS,
     "fftconv_block_conv_peaks_f32_x6": _PEAKS,

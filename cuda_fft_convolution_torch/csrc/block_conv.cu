@@ -20,10 +20,10 @@
 
 // Shared-memory bytes the kernels need at packed width wc, window height
 // vh and tier `splits` (1, 3 or 6 tensor-core products, or 0 for kBF16IO;
-// -1 for another),
-// the rows a CTA holds there, and the blocks it stacks (1: one block per
-// CTA); the Python legality rule (ops/block_conv.py smem_bytes, tile_rows,
-// blocks_per_cta) mirrors all three.
+// -1 for another), the rows a CTA holds there, the blocks it stacks (1: one
+// block per CTA) and the kernels a stacked CTA takes (1 where it does not
+// stack); the Python legality rule (ops/block_conv.py smem_bytes,
+// tile_rows, blocks_per_cta, kernels_per_cta) mirrors all four.
 extern "C" long long fftconv_block_conv_f32_smem_bytes(int wc, int vh, int splits) {
   return valid_splits(splits) ? smem_bytes(wc, vh, splits) : -1;
 }
@@ -33,6 +33,9 @@ extern "C" int fftconv_block_conv_f32_rows(int wc, int vh, int splits) {
 extern "C" int fftconv_block_conv_f32_blocks(int wc, int vh, int splits) {
   return valid_splits(splits) ? blocks_per_cta(wc, vh, splits) : -1;
 }
+extern "C" int fftconv_block_conv_f32_kernels(int wc, int vh, int splits) {
+  return valid_splits(splits) ? kernels_per_cta(wc, vh, splits) : -1;
+}
 
 // One entry per (spectra, maps) dtype pair and tier:
 // fftconv_block_conv_<spectra>, with a _bf16maps suffix for bf16 maps and,
@@ -40,15 +43,13 @@ extern "C" int fftconv_block_conv_f32_blocks(int wc, int vh, int splits) {
 // TF32 pass, 'highest' with matmul_precision='default'), for bf16 spectra
 // _io (kBF16IO, their default tier), for the tiers other than 3xTF32
 // (block_conv.cuh). `ktile` is the stacked configuration's launch order
-// (launch_block_conv). The radix bodies' entries are in block_conv_r4.cu,
-// block_conv_r5.cu and block_conv_r5x.cu.
+// (launch_block_conv). The 6xTF32 and one-pass entries are in
+// block_conv_tiers.cu (two units, so that the two compile side by side),
+// the radix bodies' in block_conv_r4.cu, block_conv_r5.cu and
+// block_conv_r5x.cu.
 FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32, float, float, StoreF32, 3)
 FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_bf16maps, float, __nv_bfloat16, StoreBF16, 3)
 FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16, __nv_bfloat16, float, StoreF32, 3)
 FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16_bf16maps, __nv_bfloat16, __nv_bfloat16, StoreBF16, 3)
-FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_x6, float, float, StoreF32, 6)
-FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_bf16maps_x6, float, __nv_bfloat16, StoreBF16, 6)
-FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_x1, float, float, StoreF32, 1)
-FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_bf16maps_x1, float, __nv_bfloat16, StoreBF16, 1)
 FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16_io, __nv_bfloat16, float, StoreF32, kBF16IO)
 FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16_bf16maps_io, __nv_bfloat16, __nv_bfloat16, StoreBF16, kBF16IO)

@@ -19,14 +19,15 @@
 // and hands each thread's share of the tile to the epilogue. G and M are the
 // JAX package's _inv_full_mats and _inv_packed_mats windows (ops/dft.py),
 // prepared once per geometry by ops/block_conv.py _kernel_mats, exact fp32
-// and zero-padded to the tiles the kernel reads: G as (Vh, Lh), G again as
-// G^T (Lh, Vh) for the stacked configuration's fp32 H stage, and M as the
+// and zero-padded to the tiles the kernel reads: G as (Vh, Lh) (also as
+// G^T (Lh, Vh), which no configuration reads since the stacked H stage
+// moved to the tensor cores; the entries keep the argument), and M as the
 // TF32 planes of M^T (its pieces at the tier, below), (Vw, 2 Wc) =
 // [Mr ; Mi]^T, in core matrices (the K-major layout wgmma reads from
 // shared memory).
 //
-// Precision. Every synthesis product of the one-block configurations, and
-// the stacked configuration's W stage, is a tensor-core product at one of
+// Precision. Every synthesis product of every configuration is a
+// tensor-core product at one of
 // four tiers, the template argument SPLITS, which replace the JAX kernel's
 // precisions (ops/block_conv.py fused_splits). Three are split-TF32: each
 // fp32
@@ -62,8 +63,10 @@
 // planner makes), closer than the float32 plain version (2.8-9.5e-7, the
 // most at the 1023-long contractions), and 3xTF32 ~1e-6 from the plain
 // version (step 3). The channel
-// MAC (S) stays IEEE fp32 FMAs, and so does the stacked configuration's H
-// stage (below).
+// MAC (S) stays IEEE fp32 FMAs. The stacked configuration's H stage sums a
+// u-chunk of spectrum rows on the tensor cores (8 rows on mma.sync.m16n8k8
+// on the tier's TF32 pieces; at kBF16IO 16 on one bf16 m16n8k16 product)
+// and adds it to X in IEEE fp32 (below).
 //
 // The tiers' planes. The operands wgmma reads from shared memory are held
 // as planes of their pieces: S^T, G (and -Gi) and the M^T ring, 2 planes
@@ -84,7 +87,8 @@
 // M arrive rounded (ops/block_conv.py _kernel_mats). A bf16 value is exact
 // in TF32, so a TF32 mma/wgmma on bf16-valued operands forms the exact
 // products and sums them in fp32, as the single-pass bf16 dot does; the
-// stacked configuration's fp32-FMA H stage forms them exactly too. bf16
+// stacked configuration's H stage runs bf16 mma.sync products on them
+// (exact products, fp32 sums). bf16
 // spectra at SPLITS = 3 (the explicit 3xTF32 entries) keep S, X, G and M in
 // fp32, split as above: the fp32 kernel's result on the bf16-rounded
 // spectra. Either way bf16 halves the bytes of D and K streamed per cell.
@@ -165,40 +169,59 @@
 // time share a data block (and the whole bank) in L2.
 //
 // Short windows (Vh <= 32): block-stacked CTAs. A 64-row CTA holding one
-// block of Vh = 16 rows (the DPM plan) leaves 48 rows idle, and its MAC
-// waits on 31 dependent channel loads with no other CTA to hide them. So a
-// third configuration takes g = min(64 / Vh, 16) blocks of one (image,
-// kernel) and stacks their window rows at offsets t * Vh of the 64-row X,
-// as the JAX kernel's _make_kernel_v3 stacks MBH blocks' H-stage outputs:
-//   - H stage (fp32 FMAs, 8 x 4 thread tiles; at kBF16IO on bf16-rounded
-//     S and G, exact products): G is shared; row t * Vh + r
-//     takes block t's S. S is computed in u-chunks of 16 / g spectrum rows
-//     for all g blocks at once (16 rows of (block, u), 16 threads a row).
-//     Its channel MAC streams D (g blocks) and K (once for the group)
-//     through a ring of steps of up to 4 channels (8 at bf16, in the same
-//     bytes) in shared memory, filled with 16-byte cp.async: the steps ahead
-//     are in flight while one is summed, and a step's barrier serves all its
-//     channels. A row segment is copied as the 16-byte chunks around it (the
-//     planes' rows are not 16-byte aligned); the reader adds the row's
-//     offset in them, which it tracks from the row's address. Where every
-//     row starts on an element pair (even Wc: the DPM plan), a thread reads
-//     two columns per load. A thread's 8 tile rows may straddle two (or,
-//     for Vh < 8, more) blocks; such a thread sums each block's S with the
-//     rows of the others masked. Each u-chunk is a (64 x 16/g) x (16/g x
-//     128) product per block row, a contraction of 4 spectrum rows at the
-//     DPM plan, too short to fill an mma k-step; the MAC and its ring, not
-//     this stage, hold the time there (PERF.md), so it stays on the CUDA
-//     cores.
-//   - W stage: the wgmma stage above, over the 64 stacked rows, so M
-//     streams once for g blocks instead of once per block.
+// block of Vh = 16 rows (the DPM plan) leaves 48 rows idle, and a cell's
+// MAC (F = 31 channels) is most of its work. So a third configuration takes
+// g = min(64 / Vh, 4) blocks of one image and T kernels (kernels_per_cta:
+// 2 where their X fit, else 1), stacks the blocks' window rows at offsets
+// t * Vh of each kernel's 64-row X, as the JAX kernel's _make_kernel_v3
+// stacks MBH blocks' H-stage outputs, and stages each block's D once for
+// its T kernels (the L2 -> shared bytes of D fall by T):
+//   - The copies (the last warp, the producer): a ring of steps, a step one
+//     channel of a u-chunk for every plane (re and im of g blocks' D and T
+//     kernels' K). A u-chunk is one mma k-step of spectrum rows (16 at
+//     kBF16IO, 8 at the TF32 tiers: stack_rows); of one channel it is one
+//     contiguous span of the planes (rows x Wc elements), so each is one
+//     cp.async.bulk from the 16-byte chunk that holds its start (the reader
+//     adds the start's offset); a lane a plane, completing on the slot's
+//     full mbarrier, each lane arriving with its bytes. The MAC's warps
+//     arrive at the slot's empty mbarrier when done with it, and the
+//     producer refills it then: no __syncthreads a step.
+//   - The MAC (the other 7 warps): a thread owns pixel pairs of the
+//     u-chunk's rows x Wc positions, flattened as the spans hold them (no
+//     idle lanes at Wc 70), and for each sums the g x T cells' S in
+//     registers over the channels, in channel order (the parent's FMAs): a
+//     step's g values of D and T of K a pixel are loaded together for g T
+//     complex MACs (a register tile over (block, kernel), as the spectral
+//     MAC's), the tile's shape a template instance (g 2..4, T 1..2) so that
+//     nothing in it branches. Where every span starts on an element pair
+//     (even Wc, pair-aligned planes: the DPM plan), a pair is one load.
+//   - H stage (tensor cores, all 8 warps), kernel by kernel: its cells' S
+//     goes to shared memory ([u][bin]), then X[r, c] += G[r, u] S[u, c]
+//     over the u-chunk, one mma.sync k-step a (block, 16-row m-tile, 8-bin
+//     n-tile) task: at kBF16IO m16n8k16 bf16 products of S rounded here and
+//     G (rounded by _kernel_mats), at the TF32 tiers m16n8k8 on the tier's
+//     pieces (the 4-product form: Xr = Gr Sr + (-Gi) Si and Xi = Gr Si + Gi
+//     Sr, each one tensor-core sum; Karatsuba: t1, t2, t3 and Xr += t1 -
+//     t2, Xi += t3 - (t1 + t2) a chunk). Each chunk's tile is added to X in
+//     IEEE fp32. A warp's G fragments of a chunk are loaded before its MAC.
+//   - W stage: the wgmma stage above, over each kernel's 64 stacked rows in
+//     turn (M streams once a kernel, for its g blocks).
 //   - The epilogue maps stacked row R to block R / Vh, window row R % Vh;
-//     a last group with fewer than g blocks leaves its rows unwritten.
-// Its X and a ring of 2 steps must fit beside the W stage's buffers; where
-// they do not (Wc > 320 at Vh 16), and for Vh > 32, the configurations
-// above run as before. At the DPM plan (Wc 70, F = 31) it issues ~1.9
-// MFLOP per cell for 1.28 useful. Launch order: tiles of `ktile` kernels,
-// the kernel index fastest inside a tile, then the block group
-// (ops/block_conv.py kernel_tile sizes a tile's spectra to stay in L2).
+//     a last group with fewer than g blocks leaves its rows unwritten, as a
+//     last CTA with fewer than T kernels leaves its cells.
+// T kernels' X, one kernel's S and a ring of 2 steps must fit beside the W
+// stage's buffers, and a u-chunk's pixels the MAC's registers (kMacAcc
+// sums a thread: stack_max_wc); elsewhere (Vh > 32, or wider) the
+// configurations above run. At the DPM plan (Wc 70, F = 31, kBF16IO) a CTA
+// takes 4 blocks x 2 kernels: 218,560 B, 3 ring steps of 27 KB, 255
+// registers. Launch order: tiles of `ktile` kernels (ops/block_conv.py
+// kernel_tile sizes a tile's spectra to stay in L2, a whole number of CTAs'
+// kernels), a CTA's kernels fastest inside a tile, then the block group.
+// (Measured on the H100, PERF.md: the parent's design — one kernel a CTA,
+// cp.async copies from every thread, an fp32-FMA H stage — put 21.6 of 24.0
+// ms at DPM in its H stage; this one takes 9.7 ms in all. Copies by 16-byte
+// cp.async from the producer warp in place of bulk copies, and 8-row
+// u-chunks at kBF16IO, measured slower: PERF.md.)
 //
 // Radix-2 bodies (the template argument BODY: the JAX kernel's v4, v5 and
 // v5x beside v3; ops/block_conv.py radix_h_legal, radix_w_legal). They run
@@ -277,6 +300,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -330,16 +354,23 @@ __host__ __device__ constexpr int stage_all(int rows, int splits, bool kara = fa
                                                              : stage_w(rows, splits);
 }
 
-// The block-stacked configuration (64 rows, 8-row FMA thread tiles).
-constexpr int kMaxGroup = 16;   // blocks per CTA at most
-constexpr int kStackRows = 16;  // (block, spectrum row) rows of S per u-chunk
-constexpr int kMinStages = 2;   // steps of the MAC ring: at least,
-constexpr int kMaxStages = 8;   // and at most
-constexpr int kMaxSegments = 48;  // row segments of a channel, at most (g = 2)
-constexpr int kStackTR = 8;     // rows of a stacked H-stage thread tile
-// Staging before the ring: S (kStackRows x kCols, re and im) and G^T (at
-// most 8 spectrum rows x 64 stacked rows, re and im).
-constexpr int kStackStage = 2 * kStackRows * kCols + 2 * 8 * 64;
+// The v2 body's blocks of a block column a CTA, at most.
+constexpr int kMaxGroup = 16;
+// The block-stacked configuration: g blocks x T kernels of one image a CTA.
+constexpr int kStackG = 4;       // blocks a stacked CTA takes, at most
+constexpr int kStackT = 2;       // kernels a stacked CTA takes, at most
+constexpr int kMacWarps = kThreads / 32 - 1;  // the MAC's warps; the last one copies
+constexpr int kMacThreads = 32 * kMacWarps;
+constexpr int kMacAcc = 96;      // S accumulators a MAC thread holds, at most
+constexpr int kMinStages = 2;    // steps of the MAC ring: at least,
+constexpr int kMaxStages = 8;    // and at most
+constexpr int kStackBars = 2 * kMaxStages;  // the ring's full and empty barriers
+// Spectrum rows of a u-chunk: one mma k-step, 16 bf16 values at kBF16IO
+// (m16n8k16), 8 TF32 ones at the other tiers (m16n8k8).
+__host__ __device__ constexpr int stack_rows(int splits) { return splits == kBF16IO ? 16 : 8; }
+// Pixel pairs a MAC thread sums for g blocks x t kernels (a pair, g t
+// complex sums, re and im, for two pixels: 4 g t floats).
+__host__ __device__ constexpr int mac_pairs(int g, int t) { return kMacAcc / (4 * g * t); }
 template <int ROWS, int SPLITS>
 struct Stage {
   static_assert(valid_splits(SPLITS), "1, 3 or 6 tensor-core products, or kBF16IO");
@@ -355,9 +386,7 @@ struct Stage {
   static_assert(kGPos <= kThreads, "one G position a thread at most");
 };
 static_assert(kCols == 4 * 32, "4 warps of 32 columns span a pass");
-static_assert(kStackRows * 16 == kThreads, "stacked MAC: 16 threads per S row");
-static_assert(kStackStage >= 64 * 16 * 2, "the stacked finish() reuses the staging area");
-static_assert(kStackStage % 4 == 0, "a 16-byte-aligned ring");
+static_assert(2 * (kStackG + kStackT) <= 32, "one copy a producer lane a step");
 // Rows of 16-byte multiples whose 8-row groups cover all 32 banks once:
 // ldmatrix reads them without bank conflicts.
 static_assert(kGS % 32 == 20, "conflict-free fragment loads");
@@ -632,89 +661,97 @@ inline long long tile_smem_bytes(int rows, int wc, int splits, bool kara = false
 // Blocks a stacked CTA would take at window height vh (1: not stacked).
 inline int group_of(int vh) {
   if (vh > 32) return 1;
-  return 64 / vh < kMaxGroup ? 64 / vh : kMaxGroup;
+  return 64 / vh < kStackG ? 64 / vh : kStackG;
 }
 
-// Spectrum rows per u-chunk of a g-block stack, and its ring's row segments
-// per channel step (re and im of g data blocks and of the kernel).
-__host__ __device__ inline int chunk_rows(int g) { return kStackRows / g; }
-__host__ __device__ inline int ring_segments(int g) { return 2 * (g + 1) * chunk_rows(g); }
-
-// Bytes a ring slot gives one row segment of TS elements at packed width
-// wc: the 16-byte chunks that can hold min(wc, 128) elements starting
-// anywhere in a chunk.
-template <class TS>
-__host__ __device__ inline int segment_bytes(int wc) {
-  constexpr int s = sizeof(TS);
-  const int len = wc < kCols ? wc : kCols;
-  return 16 * ((s * len + 15 - s) / 16 + 1);
+// The stacked H stage's S: for the g (block) cells of one kernel, re and
+// im, the u-chunk's rows x the bins padded to whole mma n-tiles (floats).
+__host__ __device__ inline int stack_bins(int wc) { return (wc + 7) / 8 * 8; }
+__host__ __device__ inline int s_floats(int wc, int g, int splits) {
+  return g * 2 * stack_rows(splits) * stack_bins(wc);
+}
+// The widest bins a u-chunk's pixels fit in the MAC's registers.
+__host__ __device__ inline int stack_max_wc(int g, int t, int splits) {
+  return mac_pairs(g, t) * 2 * kMacThreads / stack_rows(splits);
 }
 
-// Channels a ring step of TS spectra holds at most: 4 fp32, 8 bf16.
-template <class TS>
-__host__ __device__ constexpr int max_step_channels() { return 16 / sizeof(TS); }
+// Bytes a ring slot gives one plane's span (a u-chunk of one channel:
+// stack_rows x wc elements of `size` bytes, contiguous in the planes): the
+// 16-byte chunks that hold it wherever it starts in a chunk (a bulk copy
+// moves whole 16-byte chunks from a 16-byte-aligned address).
+__host__ __device__ inline int span_bytes(int wc, int rows, int size) {
+  return 16 * ((rows * wc * size + 15 - size) / 16 + 1);
+}
 
-// A ring of steps of `channels` channels, `bytes` in all.
+// A ring step is one channel of every plane: re and im of g blocks' D and
+// of t kernels' K.
+__host__ __device__ inline int step_planes(int g, int t) { return 2 * (g + t); }
+
 struct Ring {
-  int channels, stages;
+  int stages;
   long long bytes;
 };
 
-// The ring of TS spectra in `left` bytes: the most channels a step (a
-// power of two up to max_channels) that leave room for kMinStages steps,
-// and as many steps as fit, at most kMaxStages; {0, 0, 0} where even one
-// channel a step does not fit.
-template <class TS>
-Ring ring_in(long long left, int wc, int g, int max_channels) {
-  for (int cps = max_channels; cps >= 1; cps /= 2) {
-    const long long step = static_cast<long long>(cps) * ring_segments(g) * segment_bytes<TS>(wc);
-    const long long n = left < 0 ? 0 : left / step;
-    if (n >= kMinStages) {
-      const int stages = static_cast<int>(n < kMaxStages ? n : kMaxStages);
-      return Ring{cps, stages, stages * step};
-    }
-  }
-  return Ring{0, 0, 0};
+// The ring of spectra of `size` bytes in `left` bytes: as many steps as
+// fit, at most kMaxStages; {0, 0} below kMinStages.
+inline Ring ring_in(long long left, int wc, int g, int t, int splits, int size) {
+  const long long step =
+      static_cast<long long>(step_planes(g, t)) * span_bytes(wc, stack_rows(splits), size);
+  long long n = left < 0 ? 0 : left / step;
+  if (n > kMaxStages) n = kMaxStages;
+  return n >= kMinStages ? Ring{static_cast<int>(n), n * step} : Ring{0, 0};
 }
 
-// The stack's X (64 rows), then its staging: S, G^T and the ring in the
-// room X leaves, or the W stage's buffers, whichever is larger. The shared
-// memory is sized for fp32 spectra with at most 4 channels a step; bf16
-// spectra fill the same ring bytes with up to twice the channels a step.
-inline long long stacked_x_bytes(int wc) { return 4LL * 64 * x_stride(wc); }
+// The stack's shared memory: X of its t kernels (64 rows each), then the
+// staging area, S and the ring after it or the W stage's buffers,
+// whichever is larger, then the ring's barriers. The ring is sized for the
+// tier's spectra (bf16 at kBF16IO, else fp32); bf16 spectra at the other
+// tiers fill the same bytes with more steps.
+inline long long stacked_x_bytes(int wc, int t) { return 4LL * t * 64 * x_stride(wc); }
 
-inline Ring stacked_ring_f32(int wc, int g) {
-  return ring_in<float>(kMaxSmem - stacked_x_bytes(wc) - 4LL * kStackStage, wc, g,
-                        max_step_channels<float>());
+inline Ring stacked_ring_sized(int wc, int g, int t, int splits) {
+  return ring_in(kMaxSmem - stacked_x_bytes(wc, t) - 4LL * s_floats(wc, g, splits) - 8LL * kStackBars, wc,
+                 g, t, splits, splits == kBF16IO ? 2 : 4);
 }
 
 template <class TS>
-Ring stacked_ring(int wc, int g) {
-  return ring_in<TS>(stacked_ring_f32(wc, g).bytes, wc, g, max_step_channels<TS>());
+Ring stacked_ring(int wc, int g, int t, int splits) {
+  return ring_in(stacked_ring_sized(wc, g, t, splits).bytes, wc, g, t, splits, sizeof(TS));
 }
 
-inline long long stacked_smem_bytes(int wc, int g, int splits) {
-  const long long h = 4LL * kStackStage + stacked_ring_f32(wc, g).bytes;
+inline long long stacked_smem_bytes(int wc, int g, int t, int splits) {
+  const long long h = 4LL * s_floats(wc, g, splits) + stacked_ring_sized(wc, g, t, splits).bytes;
   const long long w = 4LL * stage_w(64, splits);
-  return stacked_x_bytes(wc) + (h > w ? h : w);
+  return stacked_x_bytes(wc, t) + (h > w ? h : w) + 8LL * kStackBars;
+}
+
+inline bool stack_fits(int wc, int g, int t, int splits) {
+  return wc <= stack_max_wc(g, t, splits) && stacked_ring_sized(wc, g, t, splits).stages >= kMinStages &&
+         stacked_smem_bytes(wc, g, t, splits) <= kMaxSmem;
 }
 
 // The configuration a geometry runs at a tier: g > 1 blocks stacked in 64
-// rows where the window is at most 32 rows and that fits; else 64 rows
-// where its X fits, else 32. The tier's planes change what fits: at
-// 6xTF32 the 64-row configuration takes bins up to 256 (320 at 3xTF32);
-// so do the Karatsuba H stage's (kara), whose stacked configuration stages
-// nothing more (its FMAs form Sr + Si and Gr + Gi as they read S and G).
+// rows where the window is at most 32 rows and that fits with one kernel
+// a CTA (then as many kernels, up to kStackT, as fit); else 64 rows where
+// its X fits, else 32. The tier's planes change what fits: at 6xTF32 the
+// 64-row configuration takes bins up to 256 (320 at 3xTF32); so do the
+// Karatsuba H stage's (kara), whose stacked configuration stages nothing
+// more (its products form Sr + Si and Gr + Gi as they read S and G).
 inline bool wide(int wc, int splits, bool kara = false) {
   return tile_smem_bytes(64, wc, splits, kara) > kMaxSmem;
 }
 
 inline int blocks_per_cta(int wc, int vh, int splits) {
   const int g = group_of(vh);
-  return g > 1 && stacked_ring_f32(wc, g).stages >= kMinStages &&
-                 stacked_smem_bytes(wc, g, splits) <= kMaxSmem
-             ? g
-             : 1;
+  return g > 1 && stack_fits(wc, g, 1, splits) ? g : 1;
+}
+
+inline int kernels_per_cta(int wc, int vh, int splits) {
+  const int g = blocks_per_cta(wc, vh, splits);
+  if (g == 1) return 1;
+  int t = kStackT;
+  while (t > 1 && !stack_fits(wc, g, t, splits)) --t;
+  return t;
 }
 
 inline int tile_rows(int wc, int vh, int splits, bool kara = false) {
@@ -723,7 +760,7 @@ inline int tile_rows(int wc, int vh, int splits, bool kara = false) {
 
 inline long long smem_bytes(int wc, int vh, int splits, bool kara = false) {
   const int g = blocks_per_cta(wc, vh, splits);
-  if (g > 1) return stacked_smem_bytes(wc, g, splits);
+  if (g > 1) return stacked_smem_bytes(wc, g, kernels_per_cta(wc, vh, splits), splits);
   return tile_smem_bytes(wide(wc, splits, kara) ? 32 : 64, wc, splits, kara);
 }
 
@@ -776,6 +813,12 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+// The CTA's dynamic shared memory, bytes.
+__device__ __forceinline__ uint32_t dyn_smem_bytes() {
+  uint32_t r;
+  asm("mov.u32 %0, %%dynamic_smem_size;\n" : "=r"(r));
+  return r;
+}
 // The barriers and copies below take shared-memory addresses (smem_u32).
 __device__ __forceinline__ void mbar_init(uint32_t b, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(b), "r"(count) : "memory");
@@ -807,79 +850,21 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
-// Wait until at most n of this thread's copy groups are pending (n < 7).
-__device__ __forceinline__ void cp_async_wait_at_most(int n) {
-  switch (n) {
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    default: cp_async_wait<0>(); break;
-  }
+// d += a b: a 16 x 16 A fragment and a 16 x 8 B fragment of bf16 values
+// (a register holds two: the lower half the first), fp32 accumulators; the
+// layouts are mma.m16n8k16's (g = lane / 4, t = lane % 4): a[0] row g,
+// columns 2 t, 2 t + 1; a[1] row g + 8; a[2], a[3] the same at columns
+// 2 t + 8, 2 t + 9; b[0] rows 2 t, 2 t + 1 of column g, b[1] rows 2 t + 8,
+// 2 t + 9.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-
-// One spectrum row u of the stacked H stage: X[a][c] += G[a] S[c] over the
-// thread's TR rows; MASKED keeps only the rows in [lo, hi) (the rows of the
-// block whose S this is).
-template <int TR, bool MASKED>
-__device__ __forceinline__ void h_fma(float (&ar)[TR][4], float (&ai)[TR][4],
-                                      const float (&gr)[TR], const float (&gi)[TR],
-                                      const float* s_r, const float* s_i, int lo, int hi) {
-  const float4 sr4 = *reinterpret_cast<const float4*>(s_r);
-  const float4 si4 = *reinterpret_cast<const float4*>(s_i);
-  const float sr[4] = {sr4.x, sr4.y, sr4.z, sr4.w};
-  const float si[4] = {si4.x, si4.y, si4.z, si4.w};
-#pragma unroll
-  for (int a = 0; a < TR; ++a) {
-    const bool in = !MASKED || (a >= lo && a < hi);
-    const float g_r = in ? gr[a] : 0.f;
-    const float g_i = in ? gi[a] : 0.f;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      ar[a][c] = fmaf(g_r, sr[c], ar[a][c]);
-      ar[a][c] = fmaf(-g_i, si[c], ar[a][c]);
-      ai[a][c] = fmaf(g_r, si[c], ai[a][c]);
-      ai[a][c] = fmaf(g_i, sr[c], ai[a][c]);
-    }
-  }
-}
-
-// The Karatsuba form of h_fma: the three products t1 = Gr Sr, t2 = Gi Si
-// and t3 = (Gr + Gi)(Sr + Si) summed apart in a1, a2, a3 (X = (a1 - a2,
-// a3 - (a1 + a2)) at the end). IO (kBF16IO): S arrives unrounded and G
-// rounded; Sr, Si, Sr + Si and Gr + Gi are rounded to bf16 here, as the
-// other configurations round their planes.
-template <int TR, bool MASKED, bool IO>
-__device__ __forceinline__ void h_fma_k(float (&a1)[TR][4], float (&a2)[TR][4], float (&a3)[TR][4],
-                                        const float (&gr)[TR], const float (&gi)[TR],
-                                        const float* s_r, const float* s_i, int lo, int hi) {
-  auto rnd = [](float x) { return IO ? __uint_as_float(bf16r(x)) : x; };
-  const float4 sr4 = *reinterpret_cast<const float4*>(s_r);
-  const float4 si4 = *reinterpret_cast<const float4*>(s_i);
-  const float xr[4] = {sr4.x, sr4.y, sr4.z, sr4.w};
-  const float xi[4] = {si4.x, si4.y, si4.z, si4.w};
-  float sr[4], si[4], s3[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    sr[c] = rnd(xr[c]);
-    si[c] = rnd(xi[c]);
-    s3[c] = rnd(xr[c] + xi[c]);
-  }
-#pragma unroll
-  for (int a = 0; a < TR; ++a) {
-    const bool in = !MASKED || (a >= lo && a < hi);
-    const float g_r = in ? gr[a] : 0.f;
-    const float g_i = in ? gi[a] : 0.f;
-    const float g_3 = in ? rnd(gr[a] + gi[a]) : 0.f;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      a1[a][c] = fmaf(g_r, sr[c], a1[a][c]);
-      a2[a][c] = fmaf(g_i, si[c], a2[a][c]);
-      a3[a][c] = fmaf(g_3, s3[c], a3[a][c]);
-    }
-  }
+// x and y rounded to bf16 (bf16r) and packed, x in the lower half.
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  return (bf16r(x) >> 16) | (bf16r(y) & 0xFFFF0000u);
 }
 
 template <class TS, int ROWS, bool STACKED, int SPLITS, int BODY, class Epi, bool KARA>
@@ -890,7 +875,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     const float* __restrict__ g_pad, const float* __restrict__ m_tc, RadixOps rx,
     typename Epi::Out out, int nbh, int nbw, int f, int n, int lh, int wc,
     int vh, int vw, int out_h, int out_w, int row_chunks,
-    int group, int cps, int stages, int ktile) {
+    int group, int kpc, int stages, int ktile) {
   constexpr int MT = ROWS / 32;  // 16-row mma tiles of a warp
   constexpr int RW = ROWS / 2;   // rows of a warp
   using St = Stage<ROWS, SPLITS>;
@@ -903,7 +888,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   const int wc_pad = padded_bins(wc);
   const int xs = x_stride(wc);
   float* x_s = smem;                   // [ROWS][xs]  X: Xr at bins 0.., Xi at wc_pad.. (v2: a group's)
-  float* stage = x_s + (BODY == kV2 ? group : 1) * ROWS * xs;  // staging, reused by both stages
+  float* stage = x_s + (BODY == kV2 ? group : STACKED ? kpc : 1) * ROWS * xs;  // staging, reused by both stages
   // The DIF stage's half period W/2 and quarter; its H stage stores X's
   // bins permuted, [even | odd | Nyquist] (xcol), and v5x's stops at W/2.
   const int l2 = wc - 1, l4 = l2 / 2;
@@ -919,6 +904,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   const int wn = warp & 3;   // and columns wn * 32 .. of a pass
 
   Cell cell_at;
+  int kernels_at = 1;  // the stacked CTA's kernels (cell_at.ni on)
   int r0 = 0;
   // The window rows of X's local rows: [0, RW) from seg_a, [RW, ROWS) from
   // seg_b, up to end_a and end_b (a radix chunk's rows; v3 and the stacked
@@ -1751,300 +1737,406 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   }
   } else {
   static_assert(ROWS == 64, "the stacked configuration is 64 rows");
-  constexpr int TR = kStackTR;
-  const int rg = (warp >> 2) * 4 + (lane >> 3);  // rows rg*TR .. rg*TR+TR-1
-  const int cg = (warp & 3) * 8 + (lane & 7);    // cols cg*4 .. cg*4+3
-  // ---- stacked H stage: `group` blocks of one (image, kernel) ----
-  float* s_r = stage;                      // [kStackRows][kCols]  S, (block, u) rows
-  float* s_i = s_r + kStackRows * kCols;
-  float* g_r = s_i + kStackRows * kCols;   // [kug][64]  G^T chunk, stacked rows
-  float* g_i = g_r + 8 * 64;
-  char* ring = reinterpret_cast<char*>(stage + kStackStage);  // [stages][cps][nseg][seg_bytes]
-
+  // ---- stacked H stage: `group` blocks x `kpc` kernels of one image ----
+  // X of kernel k at x_s + k * 64 * xs (stacked row t * vh + r: window row
+  // r of block t); S of one kernel's cell (block t) at s_st + t * 2 * U *
+  // sb, re then im, [u][bin]; the ring after S; its barriers past the
+  // staging area (full(s) at bars + 8 s, empty(s) 8 kMaxStages bytes on).
+  constexpr int U = stack_rows(SPLITS);  // spectrum rows of a u-chunk
   const int g = group;
-  const int kug = chunk_rows(g);
+  const int sb = stack_bins(wc);
+  float* s_st = stage;
+  char* ring = reinterpret_cast<char*>(stage + s_floats(wc, g, SPLITS));
+  const uint32_t bars = smem_u32(smem) + dyn_smem_bytes() - 8 * kStackBars;
+  auto full = [&](int sl) { return bars + 8 * sl; };
+  auto empty = [&](int sl) { return bars + 8 * (kMaxStages + sl); };
+
   const int nblk = nbh * nbw;
   const int groups = (nblk + g - 1) / g;
-  // Launch order: tiles of `ktile` kernels; in a tile the kernel index runs
-  // fastest, then the block group, so the CTAs resident at one time share a
-  // few groups' data and the tile's kernel spectra, which stay in L2 while
-  // every group passes them. Tiles, then images, run outermost; the last
-  // tile's CTAs past n return at once.
+  // Launch order: tiles of `ktile` kernels; in a tile the CTA's kernels (kpc
+  // consecutive ones) run fastest, then the block group, so the CTAs
+  // resident at one time share a few groups' data and the tile's kernel
+  // spectra, which stay in L2 while every group passes them. Tiles, then
+  // images, run outermost; CTAs past n return at once.
+  const int kp = (ktile + kpc - 1) / kpc;  // CTAs a tile's kernels take
   const int ntiles = (n + ktile - 1) / ktile;
-  const long long per_tile = static_cast<long long>(groups) * ktile;
+  const long long per_tile = static_cast<long long>(groups) * kp;
   const int inner = static_cast<int>(blockIdx.x % per_tile);
   const long long outer = blockIdx.x / per_tile;
-  const int ni = static_cast<int>(outer % ntiles) * ktile + inner % ktile;
-  const int grp = inner / ktile;
+  const int tile = static_cast<int>(outer % ntiles);
+  const int ni0 = tile * ktile + (inner % kp) * kpc;
+  const int tile_end = min((tile + 1) * ktile, n);
+  const int nk = min(kpc, tile_end - ni0);  // this CTA's kernels
+  const int grp = inner / kp;
   const long long bb = outer / ntiles;
-  if (ni >= n) return;
+  if (nk <= 0) return;
   const int blk0 = grp * g;
   const int count = nblk - blk0 < g ? nblk - blk0 : g;
-  cell_at = Cell{bb, blk0 / nbw, blk0 % nbw, 0, ni, count};
+  cell_at = Cell{bb, blk0 / nbw, blk0 % nbw, 0, ni0, count};
+  kernels_at = nk;
 
   const long long plane = static_cast<long long>(lh) * wc;
   const long long cell0 = bb * nblk + blk0;
-  const TS* dr_g = d_re + cell0 * f * plane;
-  const TS* di_g = d_im + cell0 * f * plane;
-  const TS* kr_c = k_re + static_cast<long long>(ni) * f * plane;
-  const TS* ki_c = k_im + static_cast<long long>(ni) * f * plane;
-
-  // The address of row u, columns c0.., of plane pl at channel ff: planes
-  // 2t, 2t + 1 are block t's D (re, im), 2g, 2g + 1 the kernel's K.
-  auto row_ptr = [&](int pl, int u, int ff, int c0) -> const TS* {
-    const long long off = static_cast<long long>(ff) * plane + static_cast<long long>(u) * wc + c0;
-    if (pl < 2 * g) {
-      const TS* base = (pl & 1) ? di_g : dr_g;
-      return base + static_cast<long long>(pl >> 1) * f * plane + off;
-    }
-    return (pl == 2 * g ? kr_c : ki_c) + off;
+  // The planes of a ring step, sp = 2 t + c (block t's D, c = 0 re, 1 im)
+  // or 2 g + 2 k + c (kernel k's K), and whether this CTA reads them.
+  auto plane_base = [&](int sp) -> const TS* {
+    if (sp < 2 * g) return ((sp & 1) ? d_im : d_re) + (cell0 + (sp >> 1)) * f * plane;
+    const int k = (sp - 2 * g) >> 1;
+    return ((sp & 1) ? k_im : k_re) + (static_cast<long long>(ni0) + k) * f * plane;
   };
-  // A ring step holds channels ff, ff + 1 of a u-chunk in a column pass:
-  // for each (channel j, segment = (plane, row uu)), the 16-byte chunks
-  // that hold the row. This thread's copy items are fixed, for every
-  // channel of a step: (segment, chunk, uu) packed, -1 for none, and the
-  // segment's row address at (ff, u0, c0) = 0.
-  const int nseg = ring_segments(g);
-  const int seg_bytes = segment_bytes<TS>(wc);
-  const int step_bytes = cps * nseg * seg_bytes;
-  const int len0 = wc < kCols ? wc : kCols;
-  const int nch_max = (len0 * static_cast<int>(sizeof(TS)) + 15) / 16 + 1;
-  constexpr int kMaxCh = kCols * static_cast<int>(sizeof(TS)) / 16 + 1;
-  constexpr int kMaxItems = (kMaxSegments * kMaxCh + kThreads - 1) / kThreads;
-  int items[kMaxItems];
-  unsigned long long item_rows[kMaxItems];
-#pragma unroll
-  for (int q = 0; q < kMaxItems; ++q) {
-    const int it = tid + q * kThreads;
-    const int seg = it / nch_max;
-    const int pl = seg / kug;
-    const bool on = it < nseg * nch_max && (pl >= 2 * g || (pl >> 1) < count);
-    items[q] = on ? seg << 9 | (it % nch_max) << 3 | seg % kug : -1;
-    item_rows[q] = on ? reinterpret_cast<unsigned long long>(row_ptr(pl, seg % kug, 0, 0)) : 0;
+  auto plane_on = [&](int sp) { return sp < 2 * g ? (sp >> 1) < count : ((sp - 2 * g) >> 1) < nk; };
+  const int nsp = step_planes(g, kpc);
+  const int span = span_bytes(wc, U, sizeof(TS));
+  const int step_bytes = nsp * span;
+  const int nuc = (lh + U - 1) / U;
+  const int total = nuc * f;  // ring steps: (u-chunk, channel), channels fastest
+  const long long plane_bytes = plane * static_cast<long long>(sizeof(TS));
+
+  // X and S start at zero (S's bins past wc stay so; the W stage reads X's
+  // padded bins), and the ring's barriers are set up.
+  for (int e = tid; e < kpc * 64 * xs; e += kThreads) x_s[e] = 0.f;
+  for (int e = tid; e < s_floats(wc, g, SPLITS); e += kThreads) s_st[e] = 0.f;
+  if (tid == 0) {
+    for (int sl = 0; sl < stages; ++sl) {
+      mbar_init(full(sl), 32);
+      mbar_init(empty(sl), kMacWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  // The issue cursor: the next step to copy, and its ring slot.
-  int is_c0 = 0, is_u0 = 0, is_ff = 0, is_slot = 0;
-  bool is_more = true;
-  auto issue = [&]() {
-    if (is_more) {
-      const int len_bytes = (wc - is_c0 < kCols ? wc - is_c0 : kCols) * static_cast<int>(sizeof(TS));
-      const unsigned long long off0 = static_cast<unsigned long long>(
-          (static_cast<long long>(is_ff) * plane + static_cast<long long>(is_u0) * wc + is_c0) *
-          static_cast<long long>(sizeof(TS)));
-      const unsigned long long plane_b = static_cast<unsigned long long>(plane) * sizeof(TS);
-      char* slot = ring + is_slot * step_bytes;
-      const int nch_step = f - is_ff < cps ? f - is_ff : cps;
-#pragma unroll
-      for (int q = 0; q < kMaxItems; ++q) {
-        const int at = items[q];
-        if (at < 0 || is_u0 + (at & 7) >= lh) continue;
-        const int k = (at >> 3) & 63;
-        char* dst = slot + (at >> 9) * seg_bytes + 16 * k;
-        unsigned long long a = item_rows[q] + off0;
-        for (int j = 0; j < nch_step; ++j, a += plane_b, dst += nseg * seg_bytes) {
-          const unsigned long long a0 = a & ~15ull;
-          if (k < static_cast<int>(((a + len_bytes - 1) >> 4) - (a0 >> 4)) + 1)
-            cp_async16(dst, reinterpret_cast<const char*>(a0) + 16 * k);
-        }
+  // The producer (the last warp): lane sp copies plane sp's span of each
+  // step into its slot, one bulk copy from the 16-byte chunk that holds
+  // the span's start; every lane arrives at the slot's full barrier with
+  // the bytes it copies. A slot is refilled once the MAC's warps have all
+  // arrived at its empty barrier.
+  int issued = 0;
+  auto produce_until = [&](int jend) {
+    for (; issued < min(jend, total); ++issued) {
+      const int sl = issued % stages;
+      if (issued >= stages) mbar_wait(empty(sl), (issued / stages - 1) & 1);
+      const int uc = issued / f, ff = issued % f;
+      const int rows = min(U, lh - uc * U);
+      uint32_t bytes = 0;
+      unsigned long long a0 = 0;
+      if (lane < nsp && plane_on(lane)) {
+        const unsigned long long src = reinterpret_cast<unsigned long long>(
+            plane_base(lane) + ff * plane + static_cast<long long>(uc) * U * wc);
+        a0 = src & ~15ull;
+        bytes = static_cast<uint32_t>(((src + rows * wc * sizeof(TS) + 15) & ~15ull) - a0);
       }
-      // advance: channels, then u-chunks, then column passes
-      if ((is_ff += cps) >= f) {
-        is_ff = 0;
-        if ((is_u0 += kug) >= lh) {
-          is_u0 = 0;
-          is_c0 += kCols;
-          is_more = is_c0 < wc_pad;
-        }
-      }
-      if (++is_slot == stages) is_slot = 0;
+      mbar_expect_tx(full(sl), bytes);
+      if (bytes)
+        bulk_copy(smem_u32(ring) + sl * step_bytes + lane * span, reinterpret_cast<const void*>(a0), bytes,
+                  full(sl));
     }
-    cp_async_commit();  // an empty group past the last step keeps the count
   };
 
-  // This thread's S row: (block mt, spectrum row u0 + mu), columns
-  // c0 + ml + 16 i; or, where every row of the planes starts on a pair of
-  // elements (even wc, pair-aligned planes: the DPM plan), the pairs at
-  // c0 + 2 ml + 32 i, loaded as one.
+  // A MAC thread's pixels: pairs 2 q, 2 q + 1 of the u-chunk's U x wc
+  // positions (flattened, as the planes hold them), q = tid + 224 j. Where
+  // every span starts on an element pair (even wc, pair-aligned planes: the
+  // DPM plan), a pair is one load.
   const bool pairs =
       wc % 2 == 0 &&
-      ((reinterpret_cast<uintptr_t>(dr_g) | reinterpret_cast<uintptr_t>(di_g) |
-        reinterpret_cast<uintptr_t>(kr_c) | reinterpret_cast<uintptr_t>(ki_c)) %
+      ((reinterpret_cast<uintptr_t>(d_re) | reinterpret_cast<uintptr_t>(d_im) |
+        reinterpret_cast<uintptr_t>(k_re) | reinterpret_cast<uintptr_t>(k_im)) %
        (2 * sizeof(TS))) == 0;
-  const int mrow = tid >> 4;
-  const int ml = tid & 15;
-  const int mt = mrow / kug;
-  const int mu = mrow % kug;
-  const bool mrow_on = mrow < g * kug && mt < count;
-  const int seg_dr = 2 * mt * kug + mu;
-  const int seg_kr = 2 * g * kug + mu;
+  const bool mac_warp = warp < kMacWarps;
+  const int mtiles = (vh + 15) / 16;
+  const int ntiles_s = sb / 8;
+  constexpr int NQ = U / 4;  // G values a fragment row holds per m-tile half
 
-  // Rows of this thread's H-stage tile, and the blocks they belong to.
-  const int hr0 = rg * TR;
-  const int t_lo = hr0 / vh < g - 1 ? hr0 / vh : g - 1;
-  const int t_hi = (hr0 + TR - 1) / vh < g - 1 ? (hr0 + TR - 1) / vh : g - 1;
-
-  for (int s = 0; s < stages - 1; ++s) issue();
-  int slot_at = 0;  // the ring slot of the step being summed
-  for (int c0 = 0; c0 < wc_pad; c0 += kCols) {
-    // (Karatsuba: ar, ai and a3 sum t1, t2 and t3)
-    float ar[TR][4], ai[TR][4], a3[KARA ? TR : 1][4];
+  // The H stage for G blocks x T kernels (the CTA's g x kpc, compile-time,
+  // so that a step's loads all issue before its FMAs and S's sums stay in
+  // registers), u-chunk by u-chunk: the MAC's warps sum S = sum_f K D for
+  // their pixels and the cells (t, k), in channel order, while the
+  // producer fills the ring; then kernel by kernel, S goes to s_st (zeros
+  // where the spans held nothing) and every warp adds G S to X.
+  auto h_stage = [&](auto gt, auto tt) {
+    constexpr int G = decltype(gt)::value, T = decltype(tt)::value;
+    constexpr int PAIRS = mac_pairs(G, T);
+    for (int uc = 0; uc < nuc; ++uc) {
+      const int u0 = uc * U;
+      const int npx = min(U, lh - u0) * wc;  // positions the spans hold
+      // This warp's G fragments of the u-chunk: m-tile mt's rows g and g + 8
+      // (h), columns t, t + 4 at the TF32 tiers (m16n8k8), 2 t, 2 t + 1,
+      // 2 t + 8, 2 t + 9 at kBF16IO (m16n8k16); loaded before the MAC so
+      // that their latency hides behind it.
+      float gv[2][2][2][NQ];
 #pragma unroll
-    for (int a = 0; a < TR; ++a)
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) ar[a][c] = ai[a][c] = a3[KARA ? a : 0][c] = 0.f;
-    const int len = wc - c0 < kCols ? wc - c0 : kCols;
-
-    for (int u0 = 0; u0 < lh; u0 += kug) {
-      // G^T for the stacked rows of this chunk, loaded ahead of the MAC.
-      constexpr int kPerGs = 8 * 64 / kThreads;
-      float gv[kPerGs][2];
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int q = 0; q < kPerGs; ++q) {
-        const int e = tid + q * kThreads;
-        const int u = u0 + e / 64;
-        const int row = e % 64;
-        const int t = row / vh;
-        const bool ok = e < kug * 64 && u < lh && t < g;
-        const long long off = ok ? static_cast<long long>(u) * vh + (row - t * vh) : 0;
-        gv[q][0] = ok ? gt_re[off] : 0.f;
-        gv[q][1] = ok ? gt_im[off] : 0.f;
-      }
-      // S = sum_f K D for this thread's row, two channels a step from the
-      // ring. The low bits of the row addresses give each row's offset in
-      // its staged span; they advance by a plane per channel.
-      const bool on = mrow_on && u0 + mu < lh;
-      unsigned lo_dr = 0, lo_di = 0, lo_kr = 0, lo_ki = 0;
-      if (on) {
-        lo_dr = static_cast<unsigned>(reinterpret_cast<uintptr_t>(row_ptr(2 * mt, u0 + mu, 0, c0)));
-        lo_di = static_cast<unsigned>(reinterpret_cast<uintptr_t>(row_ptr(2 * mt + 1, u0 + mu, 0, c0)));
-        lo_kr = static_cast<unsigned>(reinterpret_cast<uintptr_t>(row_ptr(2 * g, u0 + mu, 0, c0)));
-        lo_ki = static_cast<unsigned>(reinterpret_cast<uintptr_t>(row_ptr(2 * g + 1, u0 + mu, 0, c0)));
-      }
-      const unsigned plane_bytes = static_cast<unsigned>(plane * static_cast<long long>(sizeof(TS)));
-      float sv[8][2];
+          for (int q = 0; q < NQ; ++q) {
+            const int col = U == 16 ? 2 * t4 + (q & 1) + 8 * (q >> 1) : t4 + 4 * q;
+            const bool in = mt < mtiles;
+            const long long o = static_cast<long long>(in ? mt * 16 + g8 + 8 * h : 0) * g_cols(lh) + u0 + col;
+            gv[mt][0][h][q] = in ? g_pad[o] : 0.f;
+            gv[mt][1][h][q] = in ? g_pad[static_cast<long long>(g_rows(vh)) * g_cols(lh) + o] : 0.f;
+          }
+      float acc[PAIRS][2][G][T][2];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) sv[i][0] = sv[i][1] = 0.f;
-      for (int ff = 0; ff < f; ff += cps) {
-        cp_async_wait_at_most(stages - 2);
-        __syncthreads();  // this step landed; the previous step's slot is free
-        issue();
-        if (on) {
-          const char* slot = ring + slot_at * step_bytes;
+      for (int j = 0; j < PAIRS; ++j)
 #pragma unroll
-          for (int j = 0; j < max_step_channels<TS>(); ++j) {
-            if (j < cps && ff + j < f) {
-              const char* cs = slot + j * nseg * seg_bytes;
-              const unsigned dj = j * plane_bytes;
-              const TS* pdr = reinterpret_cast<const TS*>(cs + seg_dr * seg_bytes + ((lo_dr + dj) & 15));
-              const TS* pdi = reinterpret_cast<const TS*>(cs + (seg_dr + kug) * seg_bytes + ((lo_di + dj) & 15));
-              const TS* pkr = reinterpret_cast<const TS*>(cs + seg_kr * seg_bytes + ((lo_kr + dj) & 15));
-              const TS* pki = reinterpret_cast<const TS*>(cs + (seg_kr + kug) * seg_bytes + ((lo_ki + dj) & 15));
-              if (pairs) {  // columns 2 ml + 32 i and the next: one load each
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                  if (32 * i >= len) break;  // the same for every thread
-                  const int v = 2 * ml + 32 * i;
-                  if (v < len) {
-                    const float2 dre = load2(pdr + v), dim = load2(pdi + v);
-                    const float2 kre = load2(pkr + v), kim = load2(pki + v);
-                    sv[2 * i][0] = fmaf(kre.x, dre.x, fmaf(-kim.x, dim.x, sv[2 * i][0]));
-                    sv[2 * i][1] = fmaf(kre.x, dim.x, fmaf(kim.x, dre.x, sv[2 * i][1]));
-                    sv[2 * i + 1][0] = fmaf(kre.y, dre.y, fmaf(-kim.y, dim.y, sv[2 * i + 1][0]));
-                    sv[2 * i + 1][1] = fmaf(kre.y, dim.y, fmaf(kim.y, dre.y, sv[2 * i + 1][1]));
-                  }
-                }
-              } else {  // column ml + 16 i
+          for (int t = 0; t < G; ++t)
 #pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                  if (16 * i >= len) break;  // the same for every thread
-                  const int v = ml + 16 * i;
-                  if (v < len) {
-                    const float dre = to_f32(pdr[v]), dim = to_f32(pdi[v]);
-                    const float kre = to_f32(pkr[v]), kim = to_f32(pki[v]);
-                    sv[i][0] = fmaf(kre, dre, fmaf(-kim, dim, sv[i][0]));
-                    sv[i][1] = fmaf(kre, dim, fmaf(kim, dre, sv[i][1]));
-                  }
-                }
+            for (int k = 0; k < T; ++k) acc[j][h][t][k][0] = acc[j][h][t][k][1] = 0.f;
+      if (mac_warp) {
+        // each plane's offset in its chunks at channel 0: D's (block t, c)
+        // at dlo[2 t + c], K's (kernel k, c) at klo[2 k + c]
+        auto lo_of = [&](int sp) {
+          return static_cast<unsigned>(reinterpret_cast<uintptr_t>(
+                     plane_base(sp) + static_cast<long long>(u0) * wc)) & 15u;
+        };
+        unsigned dlo[2 * G], klo[2 * T];
+#pragma unroll
+        for (int i = 0; i < 2 * G; ++i) dlo[i] = lo_of(i);
+#pragma unroll
+        for (int i = 0; i < 2 * T; ++i) klo[i] = lo_of(2 * G + i);
+        for (int ff = 0; ff < f; ++ff) {
+          const int j_step = uc * f + ff;
+          const int sl = j_step % stages;
+          mbar_wait(full(sl), (j_step / stages) & 1);  // this step's spans landed
+          const char* slot = ring + sl * step_bytes;
+          const unsigned dj = static_cast<unsigned>(ff * plane_bytes);
+          // plane sp's values at pixels p, p + 1 (positions past the spans'
+          // rows read what the slot holds there; S drops them)
+          auto pair = [&](int sp, unsigned l, int p) -> float2 {
+            const TS* q = reinterpret_cast<const TS*>(slot + sp * span + ((l + dj) & 15u)) + p;
+            return pairs ? load2(q) : make_float2(to_f32(q[0]), to_f32(q[1]));
+          };
+#pragma unroll
+          for (int j = 0; j < PAIRS; ++j) {
+            if (2 * (32 * warp + kMacThreads * j) >= npx) break;  // the same for the warp
+            const int p = min(2 * (tid + kMacThreads * j), U * wc - 2);
+            float2 kr[T], ki[T], dr[G], di[G];
+#pragma unroll
+            for (int k = 0; k < T; ++k) {
+              kr[k] = pair(2 * G + 2 * k, klo[2 * k], p);
+              ki[k] = pair(2 * G + 2 * k + 1, klo[2 * k + 1], p);
+            }
+#pragma unroll
+            for (int t = 0; t < G; ++t) {
+              dr[t] = pair(2 * t, dlo[2 * t], p);
+              di[t] = pair(2 * t + 1, dlo[2 * t + 1], p);
+            }
+#pragma unroll
+            for (int t = 0; t < G; ++t)
+#pragma unroll
+              for (int k = 0; k < T; ++k) {
+                float(&a)[2] = acc[j][0][t][k];
+                float(&c)[2] = acc[j][1][t][k];
+                a[0] = fmaf(kr[k].x, dr[t].x, fmaf(-ki[k].x, di[t].x, a[0]));
+                a[1] = fmaf(kr[k].x, di[t].x, fmaf(ki[k].x, dr[t].x, a[1]));
+                c[0] = fmaf(kr[k].y, dr[t].y, fmaf(-ki[k].y, di[t].y, c[0]));
+                c[1] = fmaf(kr[k].y, di[t].y, fmaf(ki[k].y, dr[t].y, c[1]));
               }
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty(sl));  // this warp is done with the slot
+        }
+      } else {
+        // the steps of this u-chunk and the next chunk's first ring's worth
+        produce_until((uc + 1) * f + stages);
+      }
+#pragma unroll
+      for (int k = 0; k < T; ++k) {
+        if (k >= nk) break;  // the same for the CTA
+        if (mac_warp) {
+          // S of kernel k (blocks past count: spans not copied, not stored)
+#pragma unroll
+          for (int j = 0; j < PAIRS; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int px = 2 * (tid + kMacThreads * j) + h;
+              if (px >= U * wc) continue;
+              const int at = (px / wc) * sb + px % wc;
+              const bool in = px < npx;
+#pragma unroll
+              for (int t = 0; t < G; ++t)
+                if (t < count) {
+                  float* sc = s_st + t * 2 * U * sb;
+                  sc[at] = in ? acc[j][h][t][k][0] : 0.f;
+                  sc[U * sb + at] = in ? acc[j][h][t][k][1] : 0.f;
+                }
+            }
+        }
+        __syncthreads();  // S of kernel k is staged
+        // X[t, k] += G S[t] over this u-chunk on the tensor cores, one mma
+        // k-step, summed in a fresh tile and added to X in IEEE fp32: tasks
+        // (block, 16-row m-tile, 8-bin n-tile), the warps in turn. kBF16IO:
+        // bf16 products of S rounded here and G (rounded by _kernel_mats);
+        // the TF32 tiers: the tier's pieces of both.
+        const int ntask = count * mtiles * ntiles_s;
+        for (int task = warp; task < ntask; task += kThreads / 32) {
+          const int nt = task % ntiles_s;
+          const int mt = (task / ntiles_s) % mtiles;
+          const int t = task / (ntiles_s * mtiles);
+          const float* sr_c = s_st + t * 2 * U * sb + nt * 8 + g8;
+          const float* si_c = sr_c + U * sb;
+          float ga[2][2][NQ];  // this m-tile's G: [re, im][row half][column]
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int q = 0; q < NQ; ++q) ga[c][h][q] = mt ? gv[1][c][h][q] : gv[0][c][h][q];
+          float tr[4] = {0.f, 0.f, 0.f, 0.f}, ti[4] = {0.f, 0.f, 0.f, 0.f};
+          if constexpr (SPLITS == kBF16IO) {
+            // A (m16n8k16): a[0] row g, columns 2 t, 2 t + 1; a[1] row g + 8;
+            // a[2], a[3] the same at columns 2 t + 8, 2 t + 9. B: rows 2 t,
+            // 2 t + 1 (b[0]) and 2 t + 8, 2 t + 9 (b[1]) of column g.
+            uint32_t ar[4], ai[4], br[2], bi[2];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int h = i & 1, q = 2 * (i >> 1);
+              ar[i] = pack_bf16(ga[0][h][q], ga[0][h][q + 1]);
+              ai[i] = pack_bf16(ga[1][h][q], ga[1][h][q + 1]);
+            }
+            float s_r[4], s_i[4];  // S at rows 2 t, 2 t + 1, 2 t + 8, 2 t + 9
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int u = 2 * t4 + (i & 1) + 8 * (i >> 1);
+              s_r[i] = sr_c[u * sb];
+              s_i[i] = si_c[u * sb];
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              br[i] = pack_bf16(s_r[2 * i], s_r[2 * i + 1]);
+              bi[i] = pack_bf16(s_i[2 * i], s_i[2 * i + 1]);
+            }
+            if constexpr (KARA) {
+              float t1[4] = {0.f, 0.f, 0.f, 0.f}, t2[4] = {0.f, 0.f, 0.f, 0.f};
+              uint32_t a3[4], b3[2];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int h = i & 1, q = 2 * (i >> 1);
+                a3[i] = pack_bf16(ga[0][h][q] + ga[1][h][q], ga[0][h][q + 1] + ga[1][h][q + 1]);
+              }
+#pragma unroll
+              for (int i = 0; i < 2; ++i)
+                b3[i] = pack_bf16(s_r[2 * i] + s_i[2 * i], s_r[2 * i + 1] + s_i[2 * i + 1]);
+              mma_bf16(t1, ar, br);
+              mma_bf16(t2, ai, bi);
+              mma_bf16(ti, a3, b3);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                tr[i] = t1[i] - t2[i];
+                ti[i] = ti[i] - (t1[i] + t2[i]);
+              }
+            } else {
+              uint32_t an[4];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) an[i] = ai[i] ^ 0x80008000u;  // -Gi
+              mma_bf16(tr, ar, br);
+              mma_bf16(tr, an, bi);
+              mma_bf16(ti, ar, bi);
+              mma_bf16(ti, ai, br);
+            }
+          } else {
+            // A (m16n8k8): a[0] (row g, col t), a[1] (row g + 8, col t), a[2]
+            // (g, t + 4), a[3] (g + 8, t + 4); B: rows t, t + 4 of column g.
+            float gr[4], gi[4], sr[2], si[2];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              gr[i] = ga[0][i & 1][i >> 1];
+              gi[i] = ga[1][i & 1][i >> 1];
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              sr[i] = sr_c[(t4 + 4 * i) * sb];
+              si[i] = si_c[(t4 + 4 * i) * sb];
+            }
+            uint32_t pgr[P][4], pgi[P][4], psr[P][2], psi[P][2];
+            auto split4 = [&](const float (&x)[4], uint32_t (&px)[P][4]) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                uint32_t pc[P];
+                split_n(x[i], pc);
+#pragma unroll
+                for (int q = 0; q < P; ++q) px[q][i] = pc[q];
+              }
+            };
+            auto split2 = [&](const float (&x)[2], uint32_t (&px)[P][2]) {
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                uint32_t pc[P];
+                split_n(x[i], pc);
+#pragma unroll
+                for (int q = 0; q < P; ++q) px[q][i] = pc[q];
+              }
+            };
+            split4(gr, pgr);
+            split4(gi, pgi);
+            split2(sr, psr);
+            split2(si, psi);
+            if constexpr (KARA) {
+              float t1[4] = {0.f, 0.f, 0.f, 0.f}, t2[4] = {0.f, 0.f, 0.f, 0.f};
+              float g3[4], s3[2];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) g3[i] = gr[i] + gi[i];
+#pragma unroll
+              for (int i = 0; i < 2; ++i) s3[i] = sr[i] + si[i];
+              uint32_t pg3[P][4], ps3[P][2];
+              split4(g3, pg3);
+              split2(s3, ps3);
+              mma_n<SPLITS>(t1, pgr, psr);
+              mma_n<SPLITS>(t2, pgi, psi);
+              mma_n<SPLITS>(ti, pg3, ps3);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                tr[i] = t1[i] - t2[i];
+                ti[i] = ti[i] - (t1[i] + t2[i]);
+              }
+            } else {
+              uint32_t pgn[P][4];
+#pragma unroll
+              for (int q = 0; q < P; ++q)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) pgn[q][i] = pgi[q][i] ^ 0x80000000u;  // -Gi
+              mma_n2<SPLITS>(tr, pgr, psr, pgn, psi);
+              mma_n2<SPLITS>(ti, pgr, psi, pgi, psr);
             }
           }
-          lo_dr += cps * plane_bytes;
-          lo_di += cps * plane_bytes;
-          lo_kr += cps * plane_bytes;
-          lo_ki += cps * plane_bytes;
-        }
-        if (++slot_at == stages) slot_at = 0;
-      }
-      // The last step's sync ordered the previous chunk's products before
-      // these stores. kBF16IO: S rounded to bf16 (G^T arrives rounded), so
-      // the FMAs below form exact products (Karatsuba: rounded as they are
-      // read, h_fma_k).
-      constexpr bool kRoundS = SPLITS == kBF16IO && !KARA;
+          // X += the tile: rows g, g + 8 of the m-tile (window rows below
+          // vh), bins 2 t, 2 t + 1 of the n-tile
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int v = pairs ? 2 * ml + 32 * (i >> 1) + (i & 1) : ml + 16 * i;
-        s_r[mrow * kCols + v] = kRoundS ? __uint_as_float(bf16r(sv[i][0])) : sv[i][0];
-        s_i[mrow * kCols + v] = kRoundS ? __uint_as_float(bf16r(sv[i][1])) : sv[i][1];
-      }
-#pragma unroll
-      for (int q = 0; q < kPerGs; ++q) {
-        const int e = tid + q * kThreads;
-        g_r[e] = gv[q][0];
-        g_i[e] = gv[q][1];
-      }
-      __syncthreads();
-#pragma unroll 2
-      for (int uu = 0; uu < kug; ++uu) {
-        float gr[TR], gi[TR];
-#pragma unroll
-        for (int q = 0; q < TR / 4; ++q) {
-          const float4 a = *reinterpret_cast<const float4*>(g_r + uu * 64 + hr0 + 4 * q);
-          const float4 b = *reinterpret_cast<const float4*>(g_i + uu * 64 + hr0 + 4 * q);
-          gr[4 * q] = a.x; gr[4 * q + 1] = a.y; gr[4 * q + 2] = a.z; gr[4 * q + 3] = a.w;
-          gi[4 * q] = b.x; gi[4 * q + 1] = b.y; gi[4 * q + 2] = b.z; gi[4 * q + 3] = b.w;
-        }
-        constexpr bool kIO = SPLITS == kBF16IO;
-        if (t_lo == t_hi) {
-          const int o = (t_lo * kug + uu) * kCols + cg * 4;
-          if constexpr (KARA)
-            h_fma_k<TR, false, kIO>(ar, ai, a3, gr, gi, s_r + o, s_i + o, 0, TR);
-          else
-            h_fma<TR, false>(ar, ai, gr, gi, s_r + o, s_i + o, 0, TR);
-        } else {
-          for (int tb = t_lo; tb <= t_hi; ++tb) {
-            const int o = (tb * kug + uu) * kCols + cg * 4;
-            if constexpr (KARA)
-              h_fma_k<TR, true, kIO>(ar, ai, a3, gr, gi, s_r + o, s_i + o, tb * vh - hr0, (tb + 1) * vh - hr0);
-            else
-              h_fma<TR, true>(ar, ai, gr, gi, s_r + o, s_i + o, tb * vh - hr0, (tb + 1) * vh - hr0);
+          for (int h = 0; h < 2; ++h) {
+            const int r = mt * 16 + g8 + 8 * h;
+            if (r >= vh) continue;
+            float* xp = x_s + (static_cast<long long>(k) * 64 + t * vh + r) * xs + nt * 8 + 2 * t4;
+            float2 vr = *reinterpret_cast<float2*>(xp), vi = *reinterpret_cast<float2*>(xp + wc_pad);
+            vr.x += tr[2 * h];
+            vr.y += tr[2 * h + 1];
+            vi.x += ti[2 * h];
+            vi.y += ti[2 * h + 1];
+            *reinterpret_cast<float2*>(xp) = vr;
+            *reinterpret_cast<float2*>(xp + wc_pad) = vi;
           }
         }
+        __syncthreads();  // S is free again; X holds kernel k's chunk
       }
     }
-    // X over the bins the W stage reads; bins past wc hold zeros (S was
-    // zero there).
-    const int v = c0 + cg * 4;
-    if constexpr (KARA) {
-#pragma unroll
-      for (int a = 0; a < TR; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float t1 = ar[a][c], t2 = ai[a][c];
-          ar[a][c] = t1 - t2;
-          ai[a][c] = a3[a][c] - (t1 + t2);
-        }
-    }
-    if (v < wc_pad) {
-#pragma unroll
-      for (int a = 0; a < TR; ++a) {
-        float* p = x_s + (hr0 + a) * xs + v;
-        *reinterpret_cast<float4*>(p) = make_float4(ar[a][0], ar[a][1], ar[a][2], ar[a][3]);
-        *reinterpret_cast<float4*>(p + wc_pad) = make_float4(ai[a][0], ai[a][1], ai[a][2], ai[a][3]);
-      }
-    }
+  };
+  using std::integral_constant;
+  if (g == 4) {
+    if (kpc == 2) h_stage(integral_constant<int, 4>{}, integral_constant<int, 2>{});
+    else h_stage(integral_constant<int, 4>{}, integral_constant<int, 1>{});
+  } else if (g == 3) {
+    if (kpc == 2) h_stage(integral_constant<int, 3>{}, integral_constant<int, 2>{});
+    else h_stage(integral_constant<int, 3>{}, integral_constant<int, 1>{});
+  } else {
+    if (kpc == 2) h_stage(integral_constant<int, 2>{}, integral_constant<int, 2>{});
+    else h_stage(integral_constant<int, 2>{}, integral_constant<int, 1>{});
   }
-  cp_async_wait<0>();  // nothing in flight into the staging the W stage reuses
+  if (tid == 0)
+    for (int sl = 0; sl < stages; ++sl) {
+      mbar_inval(full(sl));
+      mbar_inval(empty(sl));
+    }
   }
 
   // ---- W stage: tile[r, c] = sum_k X[r, k] [Mr ; Mi][k, c] ----
@@ -2410,6 +2502,13 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       w_stage(x_s + t * ROWS * xs, epi);
       epi.finish(stage);
     }
+  } else if constexpr (STACKED) {
+    // kernel by kernel: its X's 64 stacked rows, its tiles to its epilogue
+    for (int k = 0; k < kernels_at; ++k) {
+      Epi epi(out, Cell{cell_at.bb, cell_at.bi, cell_at.bj, 0, cell_at.ni + k, cell_at.count}, geom);
+      w_stage(x_s + k * 64 * xs, epi);
+      epi.finish(stage);
+    }
   } else {
     Epi epi(out, cell_at, geom);
     w_stage(x_s, epi);
@@ -2427,17 +2526,20 @@ int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
   const int group = STACKED ? blocks_per_cta(wc, vh, SPLITS)
                     : BODY == kV2 ? min(v2_blocks(wc, vh, SPLITS, KARA), nbh)
                                   : 1;
-  const long long smem = STACKED        ? stacked_smem_bytes(wc, group, SPLITS)
+  // stacked: `kpc` kernels a CTA (kernels_per_cta)
+  const int kpc = STACKED ? kernels_per_cta(wc, vh, SPLITS) : 1;
+  const long long smem = STACKED        ? stacked_smem_bytes(wc, group, kpc, SPLITS)
                          : BODY == kV2 ? v2_smem_bytes(wc, vh, SPLITS, KARA)
                                        : tile_smem_bytes(ROWS, wc, SPLITS, KARA);
   const int row_chunks = STACKED               ? 1
                          : !radix_body(BODY) ? (vh + ROWS - 1) / ROWS
                                              : pair_chunks(lh, vh, ROWS) + single_chunks(lh, vh, ROWS);
-  const Ring ring = STACKED ? stacked_ring<TS>(wc, group) : Ring{0, 0, 0};
-  // stacked: b images x tiles of ktile kernels x block groups; v2: b images
-  // x block groups (of `group` blocks down a column) x row chunks x kernels
+  const Ring ring = STACKED ? stacked_ring<TS>(wc, group, kpc, SPLITS) : Ring{0, 0};
+  // stacked: b images x tiles of ktile kernels x block groups x the tile's
+  // CTAs of kpc kernels; v2: b images x block groups (of `group` blocks
+  // down a column) x row chunks x kernels
   const long long grid =
-      STACKED ? static_cast<long long>(b) * ((n + ktile - 1) / ktile) * ktile *
+      STACKED ? static_cast<long long>(b) * ((n + ktile - 1) / ktile) * ((ktile + kpc - 1) / kpc) *
                     ((static_cast<long long>(nbh) * nbw + group - 1) / group)
               : static_cast<long long>(b) * ((nbh + group - 1) / group) * nbw * row_chunks * n;
   if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -2447,13 +2549,13 @@ int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(smem), stream>>>(
       d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc, rx, out, nbh, nbw, f, n,
-      lh, wc, vh, vw, out_h, out_w, row_chunks, group, ring.channels, ring.stages, ktile);
+      lh, wc, vh, vw, out_h, out_w, row_chunks, group, kpc, ring.stages, ktile);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Checks the geometry and launches the configuration for (wc, vh) at the
 // tier SPLITS and body BODY on `stream`; does not synchronise. gt_re,
-// gt_im: G^T (Lh, Vh), exact; g_pad: G (2, g_rows(vh), g_cols(lh)) = re,
+// gt_im: G^T (Lh, Vh), exact (no configuration reads it); g_pad: G (2, g_rows(vh), g_cols(lh)) = re,
 // im, exact; m_tc: the m_planes(rows, SPLITS) planes of M^T (m_cols(vw),
 // 2 padded_bins(wc)) in core matrices, rows = tile_rows(wc, vh, SPLITS,
 // KARA) (v2: v2_rows), row c holding column c of [Mr ; Mi] (Mi from k =

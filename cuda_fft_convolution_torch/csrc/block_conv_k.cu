@@ -6,7 +6,8 @@
 // which block_conv_pallas runs by default. block_conv.cuh says how each
 // configuration runs it (KARA): the tensor-core configurations stage the
 // planes Gr + Gi and Sr + Si (pieces of the fp32 sums, or at kBF16IO their
-// bf16 roundings), the stacked one forms them as its FMAs read S and G. The
+// bf16 roundings), the stacked one forms them as it loads its mma
+// fragments of S and G. The
 // entries take the v3 entries' operands (block_conv.cu) in every dtype
 // mode and synthesis tier of those, with the suffix _k.
 
@@ -23,4 +24,12 @@ extern "C" int fftconv_block_conv_k_rows(int wc, int vh, int splits) {
   return valid_splits(splits) ? tile_rows(wc, vh, splits, true) : -1;
 }
 
-FFTCONV_BLOCK_CONV_FORM_ENTRIES(_k, kV3, true)
+// (the 6xTF32 and one-pass entries: block_conv_k_tiers.cu)
+FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_f32_k, float, float, StoreF32, 3, kV3, true)
+FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_f32_bf16maps_k, float, __nv_bfloat16, StoreBF16, 3, kV3, true)
+FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_bf16_k, __nv_bfloat16, float, StoreF32, 3, kV3, true)
+FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_bf16_bf16maps_k, __nv_bfloat16, __nv_bfloat16, StoreBF16, 3, kV3,
+                              true)
+FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_bf16_io_k, __nv_bfloat16, float, StoreF32, kBF16IO, kV3, true)
+FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_bf16_bf16maps_io_k, __nv_bfloat16, __nv_bfloat16, StoreBF16,
+                              kBF16IO, kV3, true)

@@ -24,11 +24,12 @@
 // is split across CTAs by row chunk, and each writes one pair: the output
 // is the partial pyramid (B, N, nbh, row_chunks, nbw), which the wrapper
 // (ops/block_conv.py block_conv_peaks) reduces over row chunks with the
-// same rule. A stacked CTA (short windows, block_conv.cuh) holds up to 16
-// blocks, whose rows a thread's fragments may straddle: each thread keeps a
-// (max, index) per fragment row, and finish() reduces them per stacked row
-// over its 8 column groups, then per block over its vh rows, in shared
-// memory, and writes one pair per block (row_chunks = 1).
+// same rule. A stacked CTA (short windows, block_conv.cuh) holds up to 4
+// blocks and 2 kernels, and runs the W stage and this epilogue once a
+// kernel; a thread's fragments may straddle the blocks' rows: each thread
+// keeps a (max, index) per fragment row, and finish() reduces them per
+// stacked row over its 8 column groups, then per block over its vh rows, in
+// shared memory, and writes one pair per block (row_chunks = 1).
 
 #include "block_conv_peaks.cuh"
 

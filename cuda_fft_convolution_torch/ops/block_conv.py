@@ -111,13 +111,18 @@ from cuda_fft_convolution_torch.utils.errors import InvalidInputError, validate
 # floats, at 3×TF32) and the W stage's (a ring of two 32-row chunks of
 # [Mr ; Mi] as M^T's TF32 pieces, 128 columns each: 16,384 floats at
 # 3×TF32; one plane, M^T itself, in the 32-row configuration at 6×TF32).
-# For windows of at most 32 rows it stacks g = min(64 // vh, 16) blocks of
-# one (image, kernel) in 64 rows, where that fits: after X, the larger of
-# the W stage's buffers and S and G^T (5120 floats) followed by a ring of 2
-# to 8 steps (as many as the limit leaves room for) of 4, 2 or 1 channels
-# (the most that leave room for 2 steps) × 2·(g + 1)·(16 // g) row
-# segments, each the 16-byte chunks that can hold min(wc, 128) fp32 values.
-# bf16 spectra fill the same bytes with up to 8 channels a step.
+# For windows of at most 32 rows it stacks g = min(64 // vh, 4) blocks of
+# one image in 64 rows and takes T kernels, where that fits (``_stack``):
+# T kernels' X, then the larger of the W stage's buffers and S (one
+# kernel's g cells: a u-chunk's U spectrum rows × the bins padded to 8, re
+# and im; U = 16 at BF16IO, 8 at the TF32 tiers) followed by a ring of 2 to
+# 8 steps (as many as the limit leaves room for), each one channel of
+# 2·(g + T) planes, a plane's span the 16-byte chunks that hold U rows × wc
+# values of the tier's spectra (bf16 at BF16IO, else fp32) wherever they
+# start, then the ring's 16 barriers (8 B each); and the u-chunk's pixels
+# must fit the MAC's registers (96 sums a thread of its 224: 96 // (4·g·T)
+# pixel pairs). T is 2 where that fits, else 1. bf16 spectra at the other
+# tiers fill the same ring bytes with more steps.
 SMEM_LIMIT_BYTES = 232448
 _COLS = 128
 _KB = 32
@@ -125,10 +130,11 @@ _UK = 16
 _GS = _UK + 4
 _KC = 32  # rows of [Mr ; Mi] per W-stage chunk
 _M_PLANE = _COLS * _KC  # floats of one plane of a W-stage chunk
-_MAX_GROUP = 16
-_STACK_ROWS = 16
-_STACK_STAGE = 2 * _STACK_ROWS * _COLS + 2 * 8 * 64
+_MAX_GROUP = 16  # the v2 body's blocks a CTA, at most
+_STACK_G, _STACK_T = 4, 2  # blocks, kernels a stacked CTA
+_MAC_THREADS, _MAC_ACC = 224, 96
 _MIN_STEPS, _MAX_STEPS = 2, 8
+_STACK_BARS = 2 * _MAX_STEPS
 # JAX's single-pass bf16 tier (its ``BF16IO`` sentinel): the tier of bf16
 # spectra, the value the C side names kBF16IO.
 BF16IO = 0
@@ -183,31 +189,46 @@ _SPECTRA_TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _MAPS_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16maps"}
 
 
-def _stack(wc: int, blocks: int, splits: int = 3) -> tuple[int, int]:
-    """(ring steps, shared-memory bytes) of a ``blocks``-block stack at
-    packed width ``wc``, with the most channels a step (4, 2, 1) that leave
-    room for 2 steps; (0, 0) where even 1 does not."""
-    segment = 16 * ((4 * min(wc, _COLS) + 11) // 16 + 1)
-    per_channel = 2 * (blocks + 1) * (_STACK_ROWS // blocks) * segment
-    x = _x_bytes(wc, 64)
-    left = SMEM_LIMIT_BYTES - x - 4 * _STACK_STAGE
-    for channels in (4, 2, 1):
-        steps = min(max(left, 0) // (channels * per_channel), _MAX_STEPS)
-        if steps >= _MIN_STEPS:
-            ring = steps * channels * per_channel
-            return steps, x + max(4 * _STACK_STAGE + ring, 4 * _stage_w(64, splits))
-    return 0, 0
+def _stack_rows(splits: int) -> int:
+    """Spectrum rows of a stacked u-chunk: one mma k-step (16 bf16 values
+    at BF16IO, 8 TF32 ones at the other tiers)."""
+    return 16 if splits == BF16IO else 8
+
+
+def _stack(wc: int, blocks: int, kernels: int, splits: int = 3) -> tuple[int, int]:
+    """(ring steps, shared-memory bytes) of a stack of ``blocks`` blocks ×
+    ``kernels`` kernels at packed width ``wc`` and tier ``splits``; (0, 0)
+    where 2 steps do not fit."""
+    u, size = _stack_rows(splits), 2 if splits == BF16IO else 4
+    span = 16 * ((u * wc * size + 15 - size) // 16 + 1)
+    step = 2 * (blocks + kernels) * span
+    x = kernels * _x_bytes(wc, 64)
+    s = 4 * blocks * 2 * u * (-(-wc // 8) * 8)
+    bars = 8 * _STACK_BARS
+    steps = min(max(SMEM_LIMIT_BYTES - x - s - bars, 0) // step, _MAX_STEPS)
+    if steps < _MIN_STEPS:
+        return 0, 0
+    return steps, x + max(s + steps * step, 4 * _stage_w(64, splits)) + bars
+
+
+def _stack_fits(wc: int, blocks: int, kernels: int, splits: int) -> bool:
+    pairs = _MAC_ACC // (4 * blocks * kernels)
+    steps, smem = _stack(wc, blocks, kernels, splits)
+    return (wc <= pairs * 2 * _MAC_THREADS // _stack_rows(splits) and steps >= _MIN_STEPS
+            and smem <= SMEM_LIMIT_BYTES)
 
 
 def _tile_smem_bytes(
-    wc: int, rows: int, blocks: int = 1, splits: int = 3, karatsuba: bool = False
+    wc: int, rows: int, blocks: int = 1, splits: int = 3, karatsuba: bool = False,
+    kernels: int = 1,
 ) -> int:
     """Shared memory of the configuration of ``rows`` rows stacking
-    ``blocks`` blocks at packed width ``wc``, tier ``splits`` and H-stage
-    form (the stacked configuration's Karatsuba stage stages nothing
-    more: its FMAs form Sr + Si and Gr + Gi as they read S and G)."""
+    ``blocks`` blocks (and ``kernels`` kernels) at packed width ``wc``, tier
+    ``splits`` and H-stage form (the stacked configuration's Karatsuba
+    stage stages nothing more: its products form Sr + Si and Gr + Gi as
+    they read S and G)."""
     if blocks > 1:
-        return _stack(wc, blocks, splits)[1]
+        return _stack(wc, blocks, kernels, splits)[1]
     return _x_bytes(wc, rows) + 4 * _stage_all(rows, splits, karatsuba)
 
 
@@ -218,15 +239,23 @@ def _stage_all(rows: int, splits: int, karatsuba: bool = False) -> int:
 
 def blocks_per_cta(wc: int, vh: int, splits: int = 3) -> int:
     """Blocks one CTA stacks at packed width ``wc``, window height ``vh``
-    and tier ``splits``: min(64 // vh, 16) for windows of at most 32 rows
-    where that configuration fits with a ring of 2 steps or more beside the
-    W stage's buffers, else 1."""
+    and tier ``splits``: min(64 // vh, 4) for windows of at most 32 rows
+    where that configuration fits with one kernel (its u-chunk's pixels in
+    the MAC's registers, a ring of 2 steps or more beside the W stage's
+    buffers), else 1."""
     _check_splits(splits)
-    g = min(64 // vh, _MAX_GROUP) if vh <= 32 else 1
+    g = min(64 // vh, _STACK_G) if vh <= 32 else 1
+    return g if g > 1 and _stack_fits(wc, g, 1, splits) else 1
+
+
+def kernels_per_cta(wc: int, vh: int, splits: int = 3) -> int:
+    """Kernels one stacked CTA takes (T): the most, up to 2, whose X, S
+    and ring fit beside its blocks' (``blocks_per_cta``); 1 where the
+    configuration does not stack."""
+    g = blocks_per_cta(wc, vh, splits)
     if g == 1:
         return 1
-    steps, smem = _stack(wc, g, splits)
-    return g if steps >= _MIN_STEPS and smem <= SMEM_LIMIT_BYTES else 1
+    return next(t for t in range(_STACK_T, 0, -1) if t == 1 or _stack_fits(wc, g, t, splits))
 
 
 def tile_rows(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
@@ -244,7 +273,7 @@ def smem_bytes(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> in
     height ``vh``, tier ``splits`` and H-stage form (``karatsuba``)."""
     return _tile_smem_bytes(
         wc, tile_rows(wc, vh, splits, karatsuba), blocks_per_cta(wc, vh, splits), splits,
-        karatsuba,
+        karatsuba, kernels_per_cta(wc, vh, splits),
     )
 
 
@@ -325,16 +354,19 @@ L2_TILE_BYTES = 8 << 20
 
 def kernel_tile(wc: int, vh: int, bank: torch.Tensor, splits: int = 3) -> int:
     """The stacked configuration's launch order: the kernels of one launch
-    tile, inside which the kernel index runs fastest and then the block
-    group. As many kernels as ``L2_TILE_BYTES`` of their spectra hold (the
-    whole bank where it fits: the kernel index fastest, the other
-    configurations' order), so a tile's spectra stay in L2 while the data
-    spectra pass once per tile."""
+    tile, inside which the kernel index runs fastest (a CTA's
+    ``kernels_per_cta`` at a time) and then the block group. As many
+    kernels as ``L2_TILE_BYTES`` of their spectra hold, a whole number of
+    CTAs' kernels (the whole bank where it fits: the kernel index fastest,
+    the other configurations' order), so a tile's spectra stay in L2 while
+    the data spectra pass once per tile."""
     n = bank.shape[0]
     if blocks_per_cta(wc, vh, splits) == 1:
         return n
     per_kernel = 2 * bank[0].numel() * bank.element_size()
-    return max(1, min(n, L2_TILE_BYTES // per_kernel))
+    t = kernels_per_cta(wc, vh, splits)
+    tile = L2_TILE_BYTES // per_kernel
+    return n if tile >= n else min(n, max(t, tile // t * t))
 
 
 def _geometry(dr, kr, block_h, block_w, kh, kw, out_h, out_w):
@@ -487,8 +519,8 @@ def radix_fits(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> bo
     (``karatsuba``): the one-block 64- or 32-row configuration (the radix
     stages stage no more than the plain ones: U's planes in G's room), within
     ``SMEM_LIMIT_BYTES``. The block-stacked configuration (Vh ≤ 32 where it
-    fits) does not: its H stage is fp32 FMAs over stacked blocks, not
-    tensor-core products."""
+    fits) does not: its H stage runs v3's products over u-chunks of stacked
+    blocks and kernels, with no radix split."""
     _check_splits(splits)
     return (blocks_per_cta(wc, vh, splits) == 1
             and smem_bytes(wc, vh, splits, karatsuba) <= SMEM_LIMIT_BYTES)
@@ -1028,10 +1060,11 @@ def _kernel_mats(
 ):
     """The kernels' matrix operands at tier ``splits`` (csrc/block_conv.cuh
     launch_block_conv) → (gt_re, gt_im, g_pad, m_tc): G^T (Lh, Vh), re and
-    im, exact — the block-stacked configuration's fp32 H stage stages G by
-    spectrum rows; G (2, Vh padded to 64, Lh padded to 16) = re, im, exact
-    — the tensor-core H stage's A operand, split in the kernel as it is
-    staged; and M^T's planes in core matrices, the W stage's B operand,
+    im, exact — an argument of the C entries that no configuration reads
+    since the block-stacked H stage moved to the tensor cores; G (2, Vh
+    padded to 64, Lh padded to 16) = re, im, exact — every H stage's A
+    operand (the stacked one's mma fragments read it from global memory),
+    split in the kernel as it is staged; and M^T's planes in core matrices, the W stage's B operand,
     which wgmma reads from shared memory as it is: M^T is (Vw padded to
     128, 2·Wc'), Wc' = Wc padded to 32, row c holding column c of [Mr ; Mi]
     (Mr at k < Wc, Mi from k = Wc'); its planes are its ``tf32_split``

@@ -22,7 +22,8 @@ at the JAX dry run's sizes, from the same seeded host inputs:
 Rank 0 writes the inputs and the gathered results to ``DIR/dryrun.npz``
 (``--out``) and prints ``parallel dryrun OK: ...``. A rank that fails fails
 the run: the others are stopped, and the parent exits 1; so does a world
-still running at ``--timeout`` seconds.
+still running ``--timeout`` seconds after its last rank joined the group
+(the ranks' start-up has a limit of its own: ``launch``'s ``startup``).
 
 ``launch`` is the world launcher itself, for any per-rank function.
 """
@@ -46,10 +47,11 @@ from cuda_fft_convolution_torch.utils.errors import validate
 SEED = 0
 
 
-def _rank_main(rank, world, init, device, timeout, fn, args) -> None:
+def _rank_main(rank, world, init, device, timeout, joined, fn, args) -> None:
     """One spawned rank: its thread count, its card, the default process
-    group ('nccl' on the card, 'gloo' on the CPU); ``fn(*args)``; the group
-    destroyed."""
+    group ('nccl' on the card, 'gloo' on the CPU, with the group timeout
+    ``timeout``); a report to the launcher (``joined``) once it is in the
+    group; ``fn(*args)``; the group destroyed."""
     torch.set_num_threads(1)
     kw = {}
     if device.type == "cuda":
@@ -59,20 +61,27 @@ def _rank_main(rank, world, init, device, timeout, fn, args) -> None:
         "nccl" if device.type == "cuda" else "gloo", init_method=init, rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout), **kw,
     )
+    joined.release()
     try:
         fn(*args)
     finally:
         dist.destroy_process_group()
 
 
-def launch(world: int, fn, *args, device=None, timeout: float = 300.0) -> None:
+def launch(world: int, fn, *args, device=None, timeout: float = 300.0,
+           startup: float = 120.0) -> None:
     """Run ``fn(*args)`` on ``world`` spawned ranks, each with the default
     process group started (a ``file://`` store in a temporary directory):
     one NCCL rank a card on the card (``device=None``, the default, which
     needs ``world`` cards), gloo ranks with ``device='cpu'``. ``fn`` must be
     importable by name (spawn pickles it). Raises when a rank fails (the
-    others are stopped) or when the world still runs after ``timeout``
-    seconds."""
+    others are stopped), when the ranks have not all joined the group
+    ``startup`` seconds after the spawn (a rank's start-up — its
+    interpreter, its imports, unpickling ``fn`` and ``args`` — is not the
+    world's work), or when the world still runs ``timeout`` seconds after
+    the last rank joined. The group's own timeout is ``startup + timeout``,
+    so that a rank waiting in a collective for a hung rank outlasts the
+    launch's deadline: the launch reports the hang as a ``TimeoutError``."""
     import torch.multiprocessing as mp
 
     device = resolve_device(device)
@@ -83,14 +92,23 @@ def launch(world: int, fn, *args, device=None, timeout: float = 300.0) -> None:
             f"machine has {torch.cuda.device_count()} (pass device='cpu' for "
             "gloo ranks on the CPU)",
         )
+    joined = mp.get_context("spawn").Semaphore(0)
     with tempfile.TemporaryDirectory() as tmp:
         init = pathlib.Path(tmp, "store").as_uri()
         ctx = mp.start_processes(
-            _rank_main, args=(world, init, device, timeout, fn, args),
+            _rank_main, args=(world, init, device, startup + timeout, joined, fn, args),
             nprocs=world, join=False, start_method="spawn",
         )
-        deadline = time.monotonic() + timeout
         try:
+            ready = time.monotonic() + startup
+            for _ in range(world):
+                while not joined.acquire(timeout=0.05):
+                    ctx.join(timeout=0)  # raises where a rank failed while starting
+                    if time.monotonic() >= ready:
+                        raise TimeoutError(
+                            f"the world of {world} ranks had not joined its group after "
+                            f"{startup} s")
+            deadline = time.monotonic() + timeout
             while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
                 if time.monotonic() >= deadline:
                     raise TimeoutError(f"the world of {world} ranks still runs after {timeout} s")

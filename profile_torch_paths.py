@@ -27,22 +27,24 @@ filters, 5 levels), a ``train_step`` of the filter-bank detector (8 frames,
 
 instead builds the fused maps and peaks kernels of a parent checkout's
 ``csrc`` (one whose C entries take the launch-order argument and this
-tree's operands, ``_kernel_mats``: G^T, G and M^T's planes, the parent's
-64-row entries M^T in core matrices plane by plane, ``block_conv.m_core``)
+tree's operands, ``_kernel_mats``: G^T, G and M^T's planes chunk by chunk)
 beside this tree's entries and times both in turns —
 parent, this tree, this tree, parent, CUDA events, median of 7, each side a
 bare call of its C entry — at the headline plan (float32 at every tier:
 3×TF32, 6×TF32 and one pass; bf16 spectra at BF16IO; maps and peaks), at the DPM
-plan (bf16 spectra at the 3×TF32 entries, and the same planes upcast to
-float32) and at the F=8 tier's plan (BF16IO maps), printing how far the
-outputs differ and each side's error against the plain version; at JAX's
+plan (bf16 spectra at BF16IO and at the 3×TF32 entries, maps and peaks,
+and the same planes upcast to float32 at the three fp32 tiers) and at the
+F=8 tier's plan (BF16IO maps and peaks), printing how far the outputs differ and each side's error
+against the plain version; at JAX's
 F=1 radix plan (256, 512, 65, 129) on the headline image, N=100, it times
 each radix body's maps entry at 3×TF32 and BF16IO in turns. Before that it holds every C entry the parent
 has (its v3, radix and forms libraries, each built from its sources)
 against this tree's on random planes (``every_entry_bitwise``): the v3
 entries and the Karatsuba and v2 ones (``_k``, ``_v2``, ``_v2_k``) at
-``chip_smoke``'s kernel-check geometries bitwise, failing on any
-difference; the radix entries at step 36's plans, whose single chunks and
+``chip_smoke``'s kernel-check geometries bitwise where they run a one-block
+configuration, failing on any difference (where this tree's rule stacks
+blocks, its redesigned configuration's distance from the parent is
+printed); the radix entries at step 36's plans, whose single chunks and
 v5's Nyquist term this tree computes as the JAX kernels do, printed with
 their distance from the parent and whether the pair chunks' rows are
 bitwise the parent's.
@@ -79,6 +81,19 @@ rounding left out (of S, of X, of G and M, of all three) and the 3xTF32
 entry against the BF16IO plain version, in root mean square beside
 ``chip_smoke.IO_RMS_TOL``. It writes the numbers to
 ``chiprun_out/bf16io_witness.json``.
+
+    python3 profile_torch_paths.py --stacked-split CSRC
+
+instead splits the stacked configuration's time into its stages: it
+copies the ``csrc`` at CSRC (this tree's, or a parent's unpacked with
+``git archive``) into ``build/stacked_split/<variant>``, patches each copy
+so that one stage does no work (``SPLIT_PATCHES``: the W stage, the H
+stage, the H stage's copies, everything of the H stage but its copies, its
+products, the epilogue's stores), builds the BF16IO maps and peaks entries
+of each copy (one nvcc a copy, all started together), and times the bare
+entries at the DPM plan (``chip_smoke.dpm_inputs``, N = 1024) and the F=8
+plan (random planes, N = 64), CUDA events, median of 7. A patched copy
+computes wrong maps; only its time is read.
 """
 
 from __future__ import annotations
@@ -191,17 +206,15 @@ def build_parent(csrc: pathlib.Path):
     return tuple(libs)
 
 
-def bare_entry(lib, name, ops, geom, body="v3", parent=False):
+def bare_entry(lib, name, ops, geom, body="v3"):
     """The C entry ``name`` (a maps or peaks entry of any tier, body and
     H-stage form: ``body`` names the body, the ``_k`` suffix the Karatsuba
     form) of ``lib`` on ``ops`` at ``geom``, with this tree's operands of
     its tier, body and form, the wrappers' launch order and no wrapper
     around it (a wrapper's host checks would show in a one-call CUDA-event
     window) → its outputs: maps (B, N, out_h, out_w), or the partial
-    pyramid (vals, idxs) (B, N, nbh, row chunks, nbw). ``parent``: the
-    entry is the parent's, whose 64-row W stage reads M^T in core matrices
-    plane by plane (``block_conv.m_core``), not chunk by chunk. Raises
-    where the entry refuses the launch."""
+    pyramid (vals, idxs) (B, N, nbh, row chunks, nbw). Raises where the
+    entry refuses the launch."""
     import torch
 
     from cuda_fft_convolution_torch.ops import block_conv as bc
@@ -217,8 +230,6 @@ def bare_entry(lib, name, ops, geom, body="v3", parent=False):
     rows = (bc.v2_rows if body == "v2" else bc.tile_rows)(wc, vh, splits, kara)
     mats = bc._kernel_mats(bh, bw, kh, kw, str(dev), splits, rows)
     m_tc, radix = bc._radix_args(ops, bh, bw, kh, kw, str(dev), splits, body, mats[3], rows)
-    if parent:
-        m_tc = bc.m_core(m_tc).contiguous()
     if "_peaks_" in name:
         chunks = (bc.row_chunks(wc, vh, splits, kara) if body == "v3"
                   else bc.radix_row_chunks(wc, lh, vh, splits, kara))
@@ -311,14 +322,22 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
                 if body in ("v5", "v5x") and not bc.radix_w_legal(bw, kw, vw):
                     continue
                 planes = ops16 if "_bf16" in name.replace("_bf16maps", "") else ops
-                a, c = (refused_or(lambda: bare_entry(lib, name, planes, geom, body, lib is libs[0]))
+                a, c = (refused_or(lambda: bare_entry(lib, name, planes, geom, body))
                         for lib in libs)
                 torch.cuda.synchronize()
                 total += 1
                 same = (a is None and c is None) or (
                     a is not None and c is not None and all(torch.equal(x, y)
                                                             for x, y in zip(a, c)))
-                if radix and a is not None and c is not None and not same:
+                stem = name.removesuffix(bc.body_suffix(body, name.endswith("_k")))
+                tier = next((t_ for t_, sfx in bc.TIER_SUFFIX.items() if sfx and stem.endswith(sfx)),
+                            3)
+                if (not radix and not same and a is not None and c is not None
+                        and body == "v3" and bc.blocks_per_cta(wc, vh, tier) > 1):
+                    dist = float((c[0].float() - a[0].float()).abs().max()
+                                 / a[0].float().abs().max())
+                    moved.append(f"{label}: {name} {dist:.3e} from the parent (stacked)")
+                elif radix and a is not None and c is not None and not same:
                     dist = float((c[0].float() - a[0].float()).abs().max()
                                  / a[0].float().abs().max())
                     rows = ""
@@ -335,9 +354,9 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
             del ops, ops16
             torch.cuda.empty_cache()
     print(f"every entry, parent vs this tree: {equal} bitwise equal, {refused} refused by both, "
-          f"{len(moved)} radix entries moved, of {total} (entry, geometry) pairs")
+          f"{len(moved)} radix or stacked entries moved, of {total} (entry, geometry) pairs")
     for line in moved:
-        print(f"  radix, moved: {line}")
+        print(f"  moved: {line}")
     if bad:
         raise AssertionError(f"entries that differ from the parent's: {bad}")
 
@@ -371,7 +390,7 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
         name = f"fftconv_block_conv{'_peaks' if peaks else ''}_{tag}"
 
         def call(side):
-            out = bare_entry(side, name, ops, geom, parent=side is lib)
+            out = bare_entry(side, name, ops, geom)
             return (out[0][:, :, :, 0], out[1][:, :, :, 0]) if peaks else out[0]
 
         return (lambda: call(lib)), (lambda: call(this))
@@ -400,6 +419,26 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
         print(f"{label}: parent vs this tree rel {rel:.3e}{flips}, bitwise equal "
               f"{torch.equal(a, b)}; vs the plain version: parent "
               f"{chip_smoke.rel_err(a, want):.3e}, this tree {chip_smoke.rel_err(b, want):.3e}")
+        del a, b, want
+        torch.cuda.empty_cache()
+
+    def io_compare(label, parent, new, peaks, ops, geom):
+        """Both sides at BF16IO against the plain version at that tier:
+        largest and root-mean-square error (maps), or values and equal
+        indices (peaks)."""
+        a, b = parent(), new()
+        want = (block_conv_peaks_reference(*ops, *geom, BF16IO) if peaks
+                else block_conv_reference(*ops, *geom, splits=BF16IO))
+        torch.cuda.synchronize()
+        if peaks:
+            print(f"{label}: vs the plain version, parent {chip_smoke.rel_err(a[0], want[0]):.3e} "
+                  f"(indices equal {torch.equal(a[1], want[1])}), this tree "
+                  f"{chip_smoke.rel_err(b[0], want[0]):.3e} (indices equal "
+                  f"{torch.equal(b[1], want[1])})")
+        else:
+            print(f"{label}: vs the plain version, parent {chip_smoke.rel_err(a, want):.3e} "
+                  f"(rms {chip_smoke.rms_rel_err(a, want):.3e}), this tree "
+                  f"{chip_smoke.rel_err(b, want):.3e} (rms {chip_smoke.rms_rel_err(b, want):.3e})")
         del a, b, want
         torch.cuda.empty_cache()
 
@@ -439,8 +478,7 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
         for planes, tag in ((rops, "f32"), (rops16, "bf16_io")):
             name = f"fftconv_block_conv_{tag}{RADIX_SUFFIX[body]}"
             parent_call, this_call = (
-                lambda side=side: bare_entry(side, name, planes, rgeom, body,
-                                             side is parent_libs[1])[0]
+                lambda side=side: bare_entry(side, name, planes, rgeom, body)[0]
                 for side in (parent_libs[1], radix_lib))
             a, c = parent_call(), this_call()
             torch.cuda.synchronize()
@@ -460,6 +498,8 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
     for peaks in (False, True):
         ops = (sd.re[None], sd.im[None], sks[peaks].re, sks[peaks].im)
         label = f"DPM plan, bf16 spectra, {'peaks' if peaks else 'f32 maps'}"
+        io_compare(f"{label}, BF16IO", *calls(ops, geom, peaks, BF16IO), peaks, ops, geom)
+        turns(f"{label}, BF16IO", *calls(ops, geom, peaks, BF16IO))
         compare(label, *calls(ops, geom, peaks), peaks, ops, geom)
         turns(label, *calls(ops, geom, peaks))
     ops = (sd.re[None], sd.im[None], sks[0].re, sks[0].im)
@@ -467,6 +507,9 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
           f"{chip_smoke.cuda_ms(lambda: block_conv_reference(*ops, *geom)):.3f} ms")
     ops = tuple(t.float() for t in ops)
     turns("DPM plan, the same planes upcast to f32, f32 maps", *calls(ops, geom, False), runs=3)
+    for splits in (6, 1):
+        turns(f"DPM plan, the same planes upcast to f32, f32 maps, {tier_name(splits)}",
+              *calls(ops, geom, False, splits), runs=3)
     del sd, sks, ops
     torch.cuda.empty_cache()
 
@@ -478,11 +521,137 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
     skf = fc.fft_kernels(fbank, spectral=sd, store_dtype="bfloat16")
     geom = (sd.block_h, sd.block_w, sd.max_kh, sd.max_kw, sd.out_h, sd.out_w)
     ops = (sd.re[None], sd.im[None], skf.re, skf.im)
-    a, b = (f_() for f_ in calls(ops, geom, False, BF16IO))
-    torch.cuda.synchronize()
-    print(f"F=8 plan {geom[:4]}, BF16IO maps: parent vs this tree bitwise equal {torch.equal(a, b)}")
-    del a, b
-    turns(f"F=8 plan {geom[:4]}, BF16IO maps", *calls(ops, geom, False, BF16IO))
+    for peaks in (False, True):
+        label = f"F=8 plan {geom[:4]}, BF16IO {'peaks' if peaks else 'maps'}"
+        io_compare(label, *calls(ops, geom, peaks, BF16IO), peaks, ops, geom)
+        turns(label, *calls(ops, geom, peaks, BF16IO))
+
+
+# The stage-split patches of the stacked configuration, by the sources
+# they apply to: (file, text, replacement) a variant; a variant whose text
+# is not in a copy's sources is skipped. "parent" is the cp.async design
+# (one kernel a CTA, fp32-FMA H stage), "tensor-core" this tree's.
+SPLIT_PATCHES = {
+    "parent": {
+        "no W stage": [("block_conv.cuh", "    w_stage(x_s, epi);\n    epi.finish(stage);\n  }\n}",
+                        "    if (!STACKED) w_stage(x_s, epi);\n    epi.finish(stage);\n  }\n}")],
+        "no H stage": [("block_conv.cuh",
+                        "  for (int c0 = 0; c0 < wc_pad; c0 += kCols) {\n    // (Karatsuba",
+                        "  for (int c0 = 0; c0 < 0; c0 += kCols) {\n    // (Karatsuba")],
+        "no H copies": [("block_conv.cuh", "            cp_async16(dst, reinterpret_cast<const char*>(a0) + 16 * k);",
+                         "            if (k < 0) cp_async16(dst, reinterpret_cast<const char*>(a0) + 16 * k);")],
+        "H copies only": [("block_conv.cuh", "        if (on) {\n          const char* slot = ring",
+                           "        if (on && f < 0) {\n          const char* slot = ring"),
+                          ("block_conv.cuh", "      for (int uu = 0; uu < kug; ++uu) {",
+                           "      for (int uu = 0; uu < 0; ++uu) {")],
+        "no H products": [("block_conv.cuh", "      for (int uu = 0; uu < kug; ++uu) {",
+                           "      for (int uu = 0; uu < 0; ++uu) {")],
+    },
+    "tensor-core": {
+        "no W stage": [("block_conv.cuh", "      w_stage(x_s + k * 64 * xs, epi);",
+                        "      if (k < 0) w_stage(x_s + k * 64 * xs, epi);")],
+        "no H stage": [("block_conv.cuh", "    for (int uc = 0; uc < nuc; ++uc) {",
+                        "    for (int uc = 0; uc < 0; ++uc) {")],
+        "no H copies": [("block_conv.cuh", "      mbar_expect_tx(full(sl), bytes);\n      if (bytes)",
+                         "      mbar_expect_tx(full(sl), 0);\n      if (false && bytes)")],
+        "H copies only": [("block_conv.cuh",
+                           "            if (2 * (32 * warp + kMacThreads * j) >= npx) break;",
+                           "            if (f > 0 || 2 * (32 * warp + kMacThreads * j) >= npx) break;"),
+                          ("block_conv.cuh", "        for (int task = warp; task < ntask;",
+                           "        for (int task = warp; task < 0;")],
+        "no H products": [("block_conv.cuh", "        for (int task = warp; task < ntask;",
+                           "        for (int task = warp; task < 0;")],
+    },
+}
+# The epilogue's stores, in every design: the maps' and the peaks' tile().
+_NO_EPILOGUE = [
+    ("block_conv_maps.cuh", "  __device__ void tile(const float (&acc)[MT][NT][4], int row0, int col0, int row_end) {\n",
+     "  __device__ void tile(const float (&acc)[MT][NT][4], int row0, int col0, int row_end) {\n    if (row_end != -7) return;\n"),
+    ("block_conv_peaks.cuh", "  __device__ void tile(const float (&acc)[MT][NT][4], int row0, int col0, int row_end) {\n",
+     "  __device__ void tile(const float (&acc)[MT][NT][4], int row0, int col0, int row_end) {\n    if (row_end != -7) return;\n"),
+]
+_SPLIT_UNIT = """#include "block_conv_maps.cuh"
+#include "block_conv_peaks.cuh"
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16_io, __nv_bfloat16, float, StoreF32, kBF16IO)
+FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_bf16_io, __nv_bfloat16, kBF16IO)
+"""
+
+
+def stacked_split(csrc: pathlib.Path, seed: int) -> None:
+    """Time the stacked configuration's stages (module docstring)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import cuda_fft_convolution_torch as fc
+    from cuda_fft_convolution_torch import _build
+
+    design = "tensor-core" if "kMacWarps" in (csrc / "block_conv.cuh").read_text() else "parent"
+    variants = {"whole": [], **SPLIT_PATCHES[design], "no epilogue": _NO_EPILOGUE}
+    root = _build.BUILD_DIR / "stacked_split" / design
+    nvcc = _build._nvcc()
+    procs = {}
+    for name, patches in variants.items():
+        out = root / name.replace(" ", "_")
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.copytree(csrc, out)
+        ok = True
+        for file, text, new in patches:
+            src = (out / file).read_text()
+            if src.count(text) != 1:
+                print(f"split {design}, {name}: patch text found {src.count(text)} times in {file}; skipped")
+                ok = False
+                break
+            (out / file).write_text(src.replace(text, new))
+        if not ok:
+            continue
+        (out / "split.cu").write_text(_SPLIT_UNIT)
+        procs[name] = (out, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, *_build.LINK_FLAGS[2:], "-o", str(out / "libsplit.so"),
+             str(out / "split.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (out, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            print(f"split {design}, {name}: nvcc failed:\n{log[-3000:]}")
+            continue
+        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        print(f"split {design}, {name}: built; " + " | ".join(regs[-4:]))
+        lib = ctypes.CDLL(str(out / "libsplit.so"))
+        for entry in ("fftconv_block_conv_bf16_io", "fftconv_block_conv_peaks_bf16_io"):
+            getattr(lib, entry).argtypes, getattr(lib, entry).restype = _build._SIGNATURES[entry]
+        libs[name] = lib
+
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                             "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(f"split {design}: SM clock now, most: {clocks.strip()}")
+    feats, dbank, _ = chip_smoke.dpm_inputs(seed)
+    k = chip_smoke.DPM["k"]
+    sd = fc.fft_data_tiled(feats, k, k, trim_mode="same", store_dtype="bfloat16")
+    sk = fc.fft_kernels(dbank, spectral=sd, store_dtype="bfloat16")
+    cases = [("DPM maps", "fftconv_block_conv_bf16_io", (sd.re[None], sd.im[None], sk.re, sk.im),
+              (sd.block_h, sd.block_w, sd.max_kh, sd.max_kw, sd.out_h, sd.out_w)),
+             ("DPM peaks", "fftconv_block_conv_peaks_bf16_io",
+              (sd.re[None], sd.im[None], sk.re, sk.im),
+              (sd.block_h, sd.block_w, sd.max_kh, sd.max_kw, sd.out_h, sd.out_w))]
+    rng = np.random.default_rng(seed)
+    size, f, n, kk = (chip_smoke.F8_TIER[x] for x in ("size", "f", "n", "k"))
+    data = torch.as_tensor(rng.standard_normal((size, size, f)).astype(np.float32), device="cuda")
+    fbank = torch.as_tensor(rng.standard_normal((n, kk, kk, f)).astype(np.float32), device="cuda")
+    fsd = fc.fft_data_tiled(data, kk, kk, trim_mode="same", store_dtype="bfloat16")
+    fsk = fc.fft_kernels(fbank, spectral=fsd, store_dtype="bfloat16")
+    cases.append(("F=8 maps", "fftconv_block_conv_bf16_io",
+                  (fsd.re[None], fsd.im[None], fsk.re, fsk.im),
+                  (fsd.block_h, fsd.block_w, fsd.max_kh, fsd.max_kw, fsd.out_h, fsd.out_w)))
+    whole = {}
+    for label, entry, ops, geom in cases:
+        for name, lib in libs.items():
+            ms = chip_smoke.cuda_ms(lambda: bare_entry(lib, entry, ops, geom))
+            whole.setdefault(label, ms)
+            print(f"split {design}, {label}, {name}: {ms:.3f} ms "
+                  f"({ms - whole[label]:+.3f} against the whole kernel; {chip_smoke.card()})")
+            torch.cuda.empty_cache()
 
 
 def submit_soak(stream, frames, pinned, host, seconds: float) -> None:
@@ -810,6 +979,8 @@ def main(argv=None) -> int:
                              "busy processes")
     parser.add_argument("--bf16io-witness", action="store_true",
                         help="where the BF16IO maps entry parts from its plain version")
+    parser.add_argument("--stacked-split", type=pathlib.Path, default=None,
+                        help="a csrc whose stacked configuration's stages to time")
     parser.add_argument("--soak", type=float, default=0.0,
                         help="with --submit-probe: repeat the submit trial this many seconds")
     args = parser.parse_args(argv)
@@ -828,6 +999,9 @@ def main(argv=None) -> int:
     chip_smoke.env_report()
     if args.ab_parent is not None:
         ab_parent(args.ab_parent.resolve(), args.seed)
+        return 0
+    if args.stacked_split is not None:
+        stacked_split(args.stacked_split.resolve(), args.seed)
         return 0
     if args.submit_probe:
         submit_probe(args.seed, args.soak)

@@ -123,7 +123,8 @@ def test_fused_splits_bf16_is_bf16io(setting):
 
 def _c_smem(wc, vh):
     """csrc/block_conv.cuh smem_bytes at kBF16IO (one piece an operand, one
-    plane of M^T), written out from the header's formulas."""
+    plane of M^T), written out from the header's formulas → (shared
+    memory, rows, blocks a CTA, kernels a CTA)."""
     x_stride = 2 * (-(-wc // 32) * 32) + 4
     m_plane = (128 // 8) * (32 // 4) * 32
     stage_w = 2 * 1 * m_plane
@@ -132,39 +133,46 @@ def _c_smem(wc, vh):
         stage_h = (2 * 128 * 16 + 3 * rows * 16) if rows == 64 else (2 * 128 * 20 + 2 * rows * 20)
         return 4 * (rows * x_stride + max(stage_h, stage_w))
 
-    g = 1 if vh > 32 else min(64 // vh, 16)
+    g = 1 if vh > 32 else min(64 // vh, 4)
     if g > 1:
-        seg = 16 * ((4 * min(wc, 128) + 11) // 16 + 1)
-        per_channel = 2 * (g + 1) * (16 // g) * seg
-        left = 232448 - 4 * 64 * x_stride - 4 * (2 * 16 * 128 + 2 * 8 * 64)
-        for cps in (4, 2, 1):
-            steps = min(max(left, 0) // (cps * per_channel), 8)
-            if steps >= 2:
-                smem = 4 * 64 * x_stride + max(4 * (2 * 16 * 128 + 2 * 8 * 64)
-                                               + steps * cps * per_channel, 4 * stage_w)
-                if smem <= 232448:
-                    return smem, 64, g
-                break
+        # the stack: t kernels' X, S of one kernel (16-row u-chunks), a ring
+        # of 2 to 8 steps of bf16 spans, 16 barriers; the u-chunk's pixel
+        # pairs within 96 // (4 g t) a thread of the MAC's 224
+        span = 16 * ((16 * wc * 2 + 13) // 16 + 1)
+        for t in (2, 1):
+            x = 4 * t * 64 * x_stride
+            s = 4 * g * 2 * 16 * (-(-wc // 8) * 8)
+            steps = min((232448 - x - s - 128) // (2 * (g + t) * span), 8)
+            smem = x + max(s + steps * 2 * (g + t) * span, 4 * stage_w) + 128
+            fits = wc <= 96 // (4 * g * t) * 2 * 224 // 16
+            if fits and steps >= 2 and smem <= 232448:
+                return smem, 64, g, t
     rows = 64 if one_block(64) <= 232448 else 32
-    return one_block(rows), rows, 1
+    return one_block(rows), rows, 1, 1
 
 
 @pytest.mark.parametrize("wc", [17, 70, 129, 224, 256, 301, 320, 385, 513, 577, 769])
 def test_mirror_at_bf16io(wc):
     """The shared-memory mirror at BF16IO is the C side's formulas (one
-    piece an operand: the one-pass tier's layout), at every window height:
+    piece an operand: the one-pass tier's layout in the one-block
+    configurations; the stack's u-chunks of 16 rows and bf16 spans), at
+    every window height:
     148,480 B at the headline (Wc 224, Vh 64); the DPM plan stacks 4
-    blocks; the C queries take the tier as 0."""
+    blocks and 2 kernels; the C queries take the tier as 0."""
     assert tbc.BF16IO == 0 and tbc.TIERS[tbc.BF16IO] == 1
     for vh in (1, 2, 7, 16, 21, 32, 33, 64, 100, 961):
-        smem, rows, g = _c_smem(wc, vh)
+        smem, rows, g, t = _c_smem(wc, vh)
         io = tbc.BF16IO
         assert (tbc.smem_bytes(wc, vh, io), tbc.tile_rows(wc, vh, io),
-                tbc.blocks_per_cta(wc, vh, io)) == (smem, rows, g), (wc, vh)
-        assert tbc.smem_bytes(wc, vh, io) == tbc.smem_bytes(wc, vh, 1)
+                tbc.blocks_per_cta(wc, vh, io), tbc.kernels_per_cta(wc, vh, io)
+                ) == (smem, rows, g, t), (wc, vh)
+        if g == 1 == tbc.blocks_per_cta(wc, vh, 1):
+            # the one-pass tier's layout; a stack's is its own (16-row u-chunks)
+            assert tbc.smem_bytes(wc, vh, io) == tbc.smem_bytes(wc, vh, 1)
         assert tbc.m_planes(tbc.tile_rows(wc, vh, io), io) == 1
     assert tbc.smem_bytes(224, 64, tbc.BF16IO) == 148480
     assert tbc.blocks_per_cta(70, 16, tbc.BF16IO) == 4
+    assert tbc.kernels_per_cta(70, 16, tbc.BF16IO) == 2
 
 
 def test_kernel_mats_at_bf16io():

@@ -192,16 +192,19 @@ def test_smem_model_matches_kernel_constants():
     assert tbc.smem_bytes(2048 // 2 + 1, 64) > tbc.SMEM_LIMIT_BYTES
 
 
-def _stacked_smem(wc, g, channels, steps):
-    """X for 64 rows (the bins padded to 32, twice, plus 4 floats a row),
-    then the larger of the W stage's 16,384 staging floats and S and G^T
-    (5120 floats) followed by a ring of ``steps`` steps of ``channels``
-    channels × 2·(g + 1)·(16 // g) row segments, each the 16-byte chunks
-    that can hold min(wc, 128) fp32 values."""
-    bins = -(-wc // 32) * 32
-    segment = 4 * ((4 * min(wc, 128) + 11) // 16 + 1)
-    ring = steps * channels * 2 * (g + 1) * (16 // g) * segment
-    return (64 * (2 * bins + 4) + max(5120 + ring, 16384)) * 4
+def _stacked_smem(wc, g, t):
+    """(ring steps, shared memory) of a stack of g blocks × t kernels at
+    3×TF32: X for t kernels' 64 rows (the bins padded to 32, twice, plus 4
+    floats a row), then the larger of the W stage's 16,384 staging floats
+    and S (one kernel's g cells × re and im × 8 rows × the bins padded to
+    8) followed by a ring of as many steps as fit (2 to 8), a step 2·(g + t)
+    spans of the 16-byte chunks that hold 8 rows × wc fp32 values wherever
+    they start, then 16 barriers of 8 bytes."""
+    x = t * 64 * (2 * (-(-wc // 32) * 32) + 4) * 4
+    s = g * 2 * 8 * (-(-wc // 8) * 8) * 4
+    step = 2 * (g + t) * 16 * ((8 * wc * 4 + 11) // 16 + 1)
+    steps = min((tbc.SMEM_LIMIT_BYTES - x - s - 128) // step, 8)
+    return steps, x + max(s + steps * step, 16384 * 4) + 128
 
 
 def _one_block_smem(wc, rows):
@@ -211,61 +214,82 @@ def _one_block_smem(wc, rows):
 
 
 @pytest.mark.parametrize(
-    "wc,vh,blocks,rows,smem,chunks",
+    "wc,vh,blocks,kernels,rows,smem,chunks",
     [
-        # the DPM plan (27, 139, 12, 12): Vh 16, Wc 70 → 4 blocks a CTA,
-        # 3 ring steps of 4 channels
-        (70, 16, 4, 64, _stacked_smem(70, 4, 4, 3), 1),
-        # Vh = 1: 64 // 1 capped at 16 blocks
-        (70, 1, 16, 64, _stacked_smem(70, 16, 4, 3), 1),
-        # Vh = 21: 3 blocks, a thread's 8 rows straddle two blocks
-        (70, 21, 3, 64, _stacked_smem(70, 3, 4, 3), 1),
-        # Vh = 32: 2 blocks; wider blocks leave room for fewer channels
-        (70, 32, 2, 64, _stacked_smem(70, 2, 4, 2), 1),
-        (129, 32, 2, 64, _stacked_smem(129, 2, 2, 2), 1),
-        (256, 32, 2, 64, _stacked_smem(256, 2, 1, 3), 1),
-        # two column passes of 4 blocks (Wc 160, 224; Vh 16)
-        (160, 16, 4, 64, _stacked_smem(160, 4, 2, 3), 1),
-        (224, 16, 4, 64, _stacked_smem(224, 4, 2, 2), 1),
-        # Wc 257: three column passes, one channel a ring step
-        (257, 16, 4, 64, _stacked_smem(257, 4, 1, 3), 1),
-        # Wc 320: a ring of two 1-channel steps beside X; Wc 384: no ring
-        # fits, nor X for 64 rows beside the W stage: one block of 32 rows
-        (320, 16, 4, 64, _stacked_smem(320, 4, 1, 2), 1),
-        (384, 16, 1, 32, _one_block_smem(384, 32), 1),
+        # the DPM plan (27, 139, 12, 12): Vh 16, Wc 70 → 4 blocks and 2
+        # kernels a CTA, 3 ring steps (sized for fp32 spectra)
+        (70, 16, 4, 2, 64, _stacked_smem(70, 4, 2)[1], 1),
+        # Vh = 1: 64 // 1 capped at 4 blocks
+        (70, 1, 4, 2, 64, _stacked_smem(70, 4, 2)[1], 1),
+        # Vh = 21: 3 blocks, two 16-row m-tiles a block
+        (70, 21, 3, 2, 64, _stacked_smem(70, 3, 2)[1], 1),
+        # Vh = 32: 2 blocks; from Wc 129 one kernel a CTA
+        (70, 32, 2, 2, 64, _stacked_smem(70, 2, 2)[1], 1),
+        (129, 32, 2, 1, 64, _stacked_smem(129, 2, 1)[1], 1),
+        # past 224 bins nothing stacks (Vh 32; Vh 16 past 160): the
+        # one-block configurations (64 rows to Wc 320, then 32)
+        (256, 32, 1, 1, 64, _one_block_smem(256, 64), 1),
+        # Wc 160 (Vh 16): the widest stack, one kernel a CTA
+        (160, 16, 4, 1, 64, _stacked_smem(160, 4, 1)[1], 1),
+        (224, 16, 1, 1, 64, _one_block_smem(224, 64), 1),
+        (257, 16, 1, 1, 64, _one_block_smem(257, 64), 1),
+        (320, 16, 1, 1, 64, _one_block_smem(320, 64), 1),
+        (384, 16, 1, 1, 32, _one_block_smem(384, 32), 1),
+        # T's limits: Wc 96 the widest 2 kernels a CTA at Vh 16, 97 one;
+        # Vh 32 two to Wc 128; Vh 21 stacks to 187 bins, Vh 16 to 160 (the
+        # 64-row X and ring beside 8 KB of S for one kernel)
+        (96, 16, 4, 2, 64, _stacked_smem(96, 4, 2)[1], 1),
+        (97, 16, 4, 1, 64, _stacked_smem(97, 4, 1)[1], 1),
+        (128, 32, 2, 2, 64, _stacked_smem(128, 2, 2)[1], 1),
+        (187, 21, 3, 1, 64, _stacked_smem(187, 3, 1)[1], 1),
+        (188, 21, 1, 1, 64, _one_block_smem(188, 64), 1),
+        (161, 16, 1, 1, 64, _one_block_smem(161, 64), 1),
+        # Vh = 8: 4 blocks fill 32 of the 64 rows
+        (128, 8, 4, 1, 64, _stacked_smem(128, 4, 1)[1], 1),
         # Vh = 33 keeps the one-block 64-row configuration
-        (70, 33, 1, 64, _one_block_smem(70, 64), 1),
+        (70, 33, 1, 1, 64, _one_block_smem(70, 64), 1),
         # the headline (Wc 224, Vh 64): 181,248 B, one block
-        (224, 64, 1, 64, 181248, 1),
+        (224, 64, 1, 1, 64, 181248, 1),
         # Wc 320, the widest 64-row block; Wc 321 takes 32 rows, 2 row chunks
-        (288, 64, 1, 64, _one_block_smem(288, 64), 1),
-        (289, 64, 1, 64, _one_block_smem(289, 64), 1),
-        (320, 64, 1, 64, _one_block_smem(320, 64), 1),
-        (321, 64, 1, 32, _one_block_smem(321, 32), 2),
+        (288, 64, 1, 1, 64, _one_block_smem(288, 64), 1),
+        (289, 64, 1, 1, 64, _one_block_smem(289, 64), 1),
+        (320, 64, 1, 1, 64, _one_block_smem(320, 64), 1),
+        (321, 64, 1, 1, 32, _one_block_smem(321, 32), 2),
         # Wc 449: 32-row tiles, one block, two row chunks at Vh 64
-        (449, 16, 1, 32, _one_block_smem(449, 32), 1),
-        (449, 64, 1, 32, _one_block_smem(449, 32), 2),
+        (449, 16, 1, 1, 32, _one_block_smem(449, 32), 1),
+        (449, 64, 1, 1, 32, _one_block_smem(449, 32), 2),
         # the 1024 block (Wc 513, Vh 961): 31 row chunks of 32
-        (513, 961, 1, 32, _one_block_smem(513, 32), 31),
+        (513, 961, 1, 1, 32, _one_block_smem(513, 32), 31),
     ],
 )
-def test_configuration_mirror(wc, vh, blocks, rows, smem, chunks):
-    """The Python mirror of the kernel's configuration rule: blocks per CTA,
-    rows, shared memory and row chunks at (Wc, Vh). chip_smoke.py holds the
-    same pairs against the compiled kernel's C entries."""
+def test_configuration_mirror(wc, vh, blocks, kernels, rows, smem, chunks):
+    """The Python mirror of the kernel's configuration rule: blocks and
+    kernels per CTA, rows, shared memory and row chunks at (Wc, Vh).
+    chip_smoke.py holds the same pairs against the compiled kernel's C
+    entries."""
     assert tbc.blocks_per_cta(wc, vh) == blocks
+    assert tbc.kernels_per_cta(wc, vh) == kernels
     assert tbc.tile_rows(wc, vh) == rows
     assert tbc.smem_bytes(wc, vh) == smem <= tbc.SMEM_LIMIT_BYTES
     assert tbc.row_chunks(wc, vh) == chunks
+    if blocks > 1:
+        assert _stacked_smem(wc, blocks, kernels)[0] >= 2
+        assert blocks * vh <= 64
 
 
 @pytest.mark.parametrize(
     "wc,vh,n,f,dtype,tile",
     [
-        # the DPM plan: 1024 bf16 kernels of 234 KB → tiles of 35 kernels
-        (70, 16, 1024, 31, torch.bfloat16, (8 << 20) // (2 * 31 * 27 * 70 * 2)),
-        # float32 spectra: half as many
-        (70, 16, 1024, 31, torch.float32, (8 << 20) // (2 * 31 * 27 * 70 * 4)),
+        # the DPM plan: 1024 bf16 kernels of 234 KB → 35 fit, tiles of 34
+        # (a whole number of CTAs of 2 kernels)
+        (70, 16, 1024, 31, torch.bfloat16, 34),
+        # float32 spectra: 17 fit, tiles of 16
+        (70, 16, 1024, 31, torch.float32, 16),
+        # one kernel a CTA (Vh 32, Wc 144: the F=8 plan): as many as fit
+        (144, 32, 64, 8, torch.bfloat16, 64),
+        (144, 32, 1024, 31, torch.bfloat16, (8 << 20) // (2 * 31 * 27 * 144 * 2)),
+        # a kernel wider than the tile: the tile is the bank, not a CTA's 2
+        (70, 16, 1, 4000, torch.float32, 1),
         # a bank that fits the tile: one tile, the kernel index fastest
         (70, 16, 100, 1, torch.float32, 100),
         # the headline (not stacked): the kernel index fastest
@@ -275,7 +299,7 @@ def test_configuration_mirror(wc, vh, blocks, rows, smem, chunks):
 )
 def test_kernel_tile_follows_what_fits_l2(wc, vh, n, f, dtype, tile):
     """The stacked configuration launches tiles of as many kernels as 8 MB
-    of their spectra hold; the other configurations run the kernel index
-    fastest."""
+    of their spectra hold, a whole number of its CTAs' kernels; the other
+    configurations run the kernel index fastest."""
     bank = torch.empty((n, f, 27, wc), dtype=dtype, device="meta")
     assert tbc.kernel_tile(wc, vh, bank) == tile

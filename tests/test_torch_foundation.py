@@ -232,7 +232,8 @@ def test_build_library_named_by_source_hash(tmp_path):
     sources = _build._sources()
     headers = ["block_conv.cuh", "block_conv_maps.cuh", "block_conv_peaks.cuh"]
     assert [s.name for s in sources] == [
-        "block_conv.cu", *headers[:2], "block_conv_peaks.cu", headers[2], "spectral_mac.cu",
+        "block_conv.cu", *headers[:2], "block_conv_peaks.cu", headers[2], "block_conv_tiers.cu",
+        "spectral_mac.cu",
     ]
     radix_sources = _build._sources(radix=True)
     assert [s.name for s in radix_sources] == [
@@ -252,7 +253,7 @@ def test_build_library_named_by_source_hash(tmp_path):
     # every C entry point the wrappers call has a signature: one per kernel
     # dtype mode, synthesis tier and body (the radix bodies' entries, in
     # the radix library, take three more pointers), and the configuration
-    # model's three queries (packed width, window height, tier)
+    # model's four queries (packed width, window height, tier)
     v3 = {
         "fftconv_block_conv_f32", "fftconv_block_conv_f32_bf16maps",
         "fftconv_block_conv_bf16", "fftconv_block_conv_bf16_bf16maps",
@@ -260,14 +261,14 @@ def test_build_library_named_by_source_hash(tmp_path):
         "fftconv_block_conv_f32_x1", "fftconv_block_conv_f32_bf16maps_x1",
         "fftconv_block_conv_bf16_io", "fftconv_block_conv_bf16_bf16maps_io",
         "fftconv_block_conv_f32_smem_bytes", "fftconv_block_conv_f32_rows",
-        "fftconv_block_conv_f32_blocks",
+        "fftconv_block_conv_f32_blocks", "fftconv_block_conv_f32_kernels",
         "fftconv_block_conv_peaks_f32", "fftconv_block_conv_peaks_bf16",
         "fftconv_block_conv_peaks_f32_x6", "fftconv_block_conv_peaks_f32_x1",
         "fftconv_block_conv_peaks_bf16_io",
         "fftconv_spectral_mac_f32", "fftconv_spectral_mac_bf16",
     }
     kernels = {n for n in v3 if n.startswith("fftconv_block_conv") and n.count("_") > 2
-               and not n.endswith(("smem_bytes", "rows", "blocks"))}
+               and not n.endswith(("smem_bytes", "rows", "blocks", "kernels"))}
     assert len(kernels) == 15
     radix = {f"{n}{body}" for n in kernels for body in ("_r4", "_r5", "_r5x")}
     assert set(_build._SIGNATURES) == v3
@@ -276,15 +277,15 @@ def test_build_library_named_by_source_hash(tmp_path):
         v3_args = _build._SIGNATURES[name.rsplit("_", 1)[0]][0]
         assert _build._RADIX_SIGNATURES[name][0] == (
             v3_args[:8] + [ctypes.c_void_p] * 3 + v3_args[8:])
-    for query in ("smem_bytes", "rows", "blocks"):
+    for query in ("smem_bytes", "rows", "blocks", "kernels"):
         assert len(_build._SIGNATURES[f"fftconv_block_conv_f32_{query}"][0]) == 3
     # the forms library: the Karatsuba maps and peaks entries (_k) and the
     # v2 maps entries (_v2, _v2_k), with the v3 entries' arguments, and the
     # queries of both forms' configurations (v2's take the form as a fourth)
     forms_sources = _build._sources(forms=True)
     assert [s.name for s in forms_sources] == [
-        "block_conv.cuh", "block_conv_k.cu", *headers[1:], "block_conv_peaks_k.cu",
-        "block_conv_v2.cu", "block_conv_v2_k.cu",
+        "block_conv.cuh", "block_conv_k.cu", "block_conv_k_tiers.cu", *headers[1:],
+        "block_conv_peaks_k.cu", "block_conv_v2.cu", "block_conv_v2_k.cu",
     ]
     forms_path = _build._library_path(forms_sources)
     assert forms_path.name.startswith("libfftconv_torch_forms_")

@@ -29,17 +29,31 @@ BF16_TOL = 2e-2  # the bf16 tier against float32 maps
 # the largest error and the root mean square one
 IO_TOL = 5e-3
 IO_RMS_TOL = 1e-4
-# Windows of at most 32 rows stack blocks in a CTA (ops/block_conv.py
-# blocks_per_cta): the DPM plan's blocks (Vh 16, Wc 70) at F = 31 with 15
-# blocks an image (a last group of 3 of 4) and clipped edges; Vh = 1 (16
-# blocks a CTA); Vh = 21 (3 blocks, thread tiles straddling two); Vh = 32;
-# Wc = 320, the widest stack (a ring of 1-channel steps).
+# Windows of at most 32 rows stack blocks in a CTA, and a CTA takes T
+# kernels (ops/block_conv.py blocks_per_cta, kernels_per_cta): the DPM
+# plan's blocks (Vh 16, Wc 70: 4 blocks, T = 2) at F = 31 with 15 blocks an
+# image (a last group of 3 of 4), clipped edges and N = 3 (a last CTA of one
+# kernel); Vh = 1 (4 blocks of 64 rows' 4); Vh = 21 (3 blocks, two 16-row
+# m-tiles, one masked past 21); Vh = 32 (2 blocks); Wc = 320 (no longer
+# stacked: the one-block 64-row configuration at Vh 16); T's limits at Vh
+# 16: Wc 84 and 85 (the widest T = 2 at BF16IO, and T = 1), 96 and 97 (at
+# the TF32 tiers), Wc 160 (the widest stack at the TF32 tiers; one block at
+# BF16IO); Vh 32 at Wc 128 (its widest T = 2); Vh 8 (4 blocks in 32 rows);
+# an odd Wc (77: no element pairs, one value a load).
 SHORT_WINDOWS = [
     (1, 31, 3, 27, 139, 12, 12, 70, 300),
     (2, 3, 5, 17, 151, 17, 24, 10, 300),
     (2, 3, 5, 45, 151, 25, 24, 100, 300),
     (1, 2, 3, 40, 151, 9, 24, 100, 300),
     (1, 2, 3, 27, 639, 12, 40, 60, 1500),
+    (1, 4, 3, 27, 166, 12, 24, 70, 300),
+    (1, 4, 3, 27, 168, 12, 24, 70, 300),
+    (1, 4, 3, 27, 190, 12, 24, 70, 300),
+    (1, 4, 3, 27, 192, 12, 24, 70, 300),
+    (1, 2, 3, 27, 318, 12, 40, 60, 600),
+    (1, 3, 3, 40, 254, 9, 24, 100, 300),
+    (1, 2, 3, 20, 151, 13, 24, 40, 300),
+    (2, 3, 5, 45, 152, 25, 24, 100, 300),
 ]
 GEOMETRIES = [
     (2, 3, 5, 45, 151, 10, 24, 100, 300),
@@ -1298,14 +1312,15 @@ def test_radix_peaks_planted_ties_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, o
 def test_radix_flags_refused_on_gpu(cuda):
     """On the card an explicit radix flag raises where the JAX package's
     rules reject the plan, and where they admit it but the Hopper kernels
-    stack blocks (RADIX_GEOM's Vh = 24: radix_fits is False); nothing runs
-    v3 in its place."""
+    stack blocks (Vh = 24 at Wc 129: radix_fits is False; v4 only, since no
+    plan the DIF rule admits, W a multiple of 512, stacks); nothing runs v3
+    in its place."""
     rng = np.random.default_rng(43)
-    stacked = (32, 512, 9, 129, 40, 500)
+    stacked = (32, 256, 9, 129, 40, 300)
     ops = _planes(rng, cuda, 1, 1, 2, *stacked)
-    assert tbc.radix_h_legal(32, 24) and not tbc.radix_fits(257, 24)
+    assert tbc.radix_h_legal(32, 24) and not tbc.radix_fits(129, 24)
     before = (tbc.block_conv.launches, tbc.block_conv_peaks.launches)
-    for flags in RADIX_BODIES.values():
+    for flags in (RADIX_BODIES["v4"], dict(radix_h=True, karatsuba=True)):
         with pytest.raises(ValueError, match="radix_fits"):
             tbc.block_conv(*ops, *stacked, **flags)
         with pytest.raises(ValueError, match="radix_fits"):

@@ -83,3 +83,28 @@ def test_launch_stops_a_failed_or_hung_world():
     assert "fail_one_rank ProcessRaisedException" in lines
     assert "hang_one_rank TimeoutError" in lines
     assert time.monotonic() - t0 < 60
+
+
+def test_launch_does_not_time_out_a_world_that_starts_slowly():
+    """The launch's deadline starts once every rank has joined the group: a
+    world whose ranks spend longer than the timeout starting up (each
+    unpickles an argument that sleeps 6 s) runs its work within a 4 s
+    timeout. The start-up's own limit still fails a world that never
+    joins."""
+    code = (
+        "from cuda_fft_convolution_torch.parallel import dryrun\n"
+        "from tests import torch_parallel_ranks as r\n"
+        "dryrun.launch(2, r.meet, r.LateArgument(6.0), device='cpu', timeout=4)\n"
+        "print('slow start passed', flush=True)\n"
+        "try:\n"
+        "    dryrun.launch(2, r.meet, r.LateArgument(30.0), device='cpu', timeout=4, startup=3)\n"
+        "except TimeoutError as exc:\n"
+        "    print('late world', type(exc).__name__, 'joined' in str(exc), flush=True)\n"
+    )
+    t0 = time.monotonic()
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lines = proc.stdout.splitlines()
+    assert "slow start passed" in lines
+    assert "late world TimeoutError True" in lines
+    assert time.monotonic() - t0 < 90

@@ -205,8 +205,10 @@ def test_registry_matches_jax(registries):
     # the override: re-registered with sliver='kernel', the plan runs v5
     assert not tbc.radix_w_xsliver(256, 512, 129)
     assert tbc.radix_w_xsliver(256, 1024, 129, head="peaks")
-    # the stacked plan is registered and legal but not taken on Hopper
-    assert jbc.radix_w_enabled(32, 512, 9, 129, 2) and not tbc.radix_w_enabled(32, 512, 9, 129, 2)
+    # (32, 512, 9, 129) (Wc 257, Vh 24) no longer stacks on Hopper (the
+    # stack ends at 168 bins; the DIF rule's W, a multiple of 512, is wider):
+    # registered and legal, it is taken as JAX takes it
+    assert jbc.radix_w_enabled(32, 512, 9, 129, 2) and tbc.radix_w_enabled(32, 512, 9, 129, 2)
 
 
 def _routes(monkeypatch, plan, ops_shape, dtype=torch.float32):
@@ -250,10 +252,16 @@ def test_dispatch_follows_jax(monkeypatch, registries):
         "block_conv": (True, True, False), "block_conv_peaks": (True, True, True)}
     # registered at F=1 only
     assert _routes(monkeypatch, v5_plan, (1, 2, 2, 1, 1))["block_conv"] == (True, False, False)
-    stacked = (32, 512, 9, 129)
-    tbc.register_radix_w_plan(32, 512, 129)
+    # a plan the Hopper kernels stack (Wc 129, Vh 24: 2 blocks a CTA) keeps
+    # v3 though JAX's radix_h_legal holds; (32, 512, 9, 129), stacked before
+    # the configuration's redesign, now runs v5 once registered
+    stacked = (32, 256, 9, 129)
+    assert tbc.radix_h_legal(32, 24) and tbc.blocks_per_cta(129, 24) == 2
     assert _routes(monkeypatch, stacked, (1, 1, 2, 1, 1)) == {
         "block_conv": (False, False, False), "block_conv_peaks": (False, False, False)}
+    tbc.register_radix_w_plan(32, 512, 129)
+    assert _routes(monkeypatch, (32, 512, 9, 129), (1, 1, 2, 1, 1)) == {
+        "block_conv": (True, True, False), "block_conv_peaks": (True, False, False)}
 
 
 @pytest.mark.parametrize("shape,kernel,f,store", [
@@ -307,10 +315,11 @@ def test_radix_fits_is_the_one_block_configurations(splits):
     """``radix_fits``: the one-block 64- and 32-row configurations at the
     tier, not the stacked one; the pair and single chunks of a block cover
     its window once."""
-    # RADIX_GEOM (Wc 257, Vh 24) stacks 2 blocks a CTA but at 6xTF32, whose
-    # W stage's buffers leave the stack no room
-    assert tbc.radix_fits(257, 24, splits) == (splits == 6)
+    # RADIX_GEOM (Wc 257, Vh 24) runs the one-block configuration (the stack
+    # ends at 168 bins); at Wc 129 the same window stacks 2 blocks a CTA
+    assert tbc.radix_fits(257, 24, splits)
     assert tbc.radix_fits(257, 24, splits) == (tbc.blocks_per_cta(257, 24, splits) == 1)
+    assert not tbc.radix_fits(129, 24, splits) and tbc.blocks_per_cta(129, 24, splits) == 2
     assert tbc.radix_fits(257, 192, splits) and tbc.radix_fits(513, 192, splits)
     for lh, vh in ((256, 192), (256, 200), (128, 96), (80, 64), (48, 40)):
         for rows in (64, 32):

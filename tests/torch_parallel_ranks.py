@@ -395,3 +395,26 @@ def hang_one_rank() -> None:
 
         time.sleep(3600)
     dist.barrier()
+
+
+def _arrive_late(seconds: float) -> float:
+    import time
+
+    time.sleep(seconds)
+    return seconds
+
+
+class LateArgument:
+    """An argument that takes ``seconds`` to unpickle: a spawned rank that
+    receives it starts that much later, before it joins the group."""
+
+    def __init__(self, seconds: float):
+        self.seconds = seconds
+
+    def __reduce__(self):
+        return _arrive_late, (self.seconds,)
+
+
+def meet(seconds: float) -> None:
+    """Every rank meets the others in one collective."""
+    dist.barrier()
