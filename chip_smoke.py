@@ -14,14 +14,19 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      entries'), prints what ptxas reports
      (registers, shared memory, spills) and fails on a spill, and holds
      the Python configuration model (shared memory, rows, blocks and
-     kernels per CTA; the Karatsuba and v2 configurations too) against the
-     kernel's over (vh, wc) pairs;
+     kernels per CTA, the cluster size and a pair's bins; the Karatsuba
+     and v2 configurations too) against the kernel's over (vh, wc) pairs;
   3. holds the fused block-conv kernel against its plain PyTorch version on
      the card at a small ragged shape, the widest 64-row block, a wide
-     block (32-row tiles), two short-window
+     block (the paired configuration: a cluster of two 64-row CTAs that
+     split the bins), two short-window
      shapes whose blocks stack in a CTA (a partial last group; rows
      straddling blocks), the planner's largest block (1024², the longest
-     contractions of the 3xTF32 syntheses) and the headline plan's geometry;
+     contractions of the 3xTF32 syntheses), the (256, 896) plan of 129²
+     kernels (a pair) and the headline plan's geometry; for each paired
+     geometry it prints each tier's and form's bins and passes a CTA, the
+     cluster size, row chunks and shared memory, and the paired kernels'
+     registers and spills (fails on a pass of under 32 bins or columns);
   4. runs the headline call — ``fft_conv`` of a 2048² fp32 image with 100
      kernels of 64², mode 'same', on the GPU — checks that it went through
      the kernel and agrees with a float64 numpy reference on 8 kernels, and
@@ -192,7 +197,7 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      ``from_packed`` (complex and planes) and ``from_complex`` give
      ``fft_data``'s planes bitwise;
  29. ``selftest()`` on the card: every C entry (the four maps entries and
-     the two peaks entries in the 64-row, 32-row and stacked
+     the two peaks entries in the 64-row, paired, 32-row and stacked
      configurations, the two MAC entries at every tile) within its bar of
      its plain version, the peaks' indices equal;
  30. ``utils.profiling.benchmark`` of the headline ``fft_conv`` beside this
@@ -223,7 +228,7 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
  33. the two BASELINE paths no earlier step runs at full size: the maps and
      peaks kernels in every dtype mode against their plain versions at the
      large-kernel plan (1023, 1024, 512, 512) (an odd Lh, the 1023-long H
-     contraction, Wc 513 in the 32-row configuration) with N=3 and a
+     contraction, Wc 513 in the paired configuration) with N=3 and a
      clipped window, and at the F=8 tier's plan (63, 287, 32, 32) (stacked)
      with F=8, N=5; ``fft_conv`` of the headline image with 16 kernels of
      512², 'same' (BASELINE.json configs[2]): every maps launch at that
@@ -269,7 +274,7 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      ``precision=BF16X3`` on bf16 planes; no route of the package takes
      them) and ``detect_peaks`` at the tier
      (the 8 plants, = the argmax of the tier's maps); the twins at the F=8
-     plan; the 16 x 512² large-kernel call at the tier (32-row
+     plan; the 16 x 512² large-kernel call at the tier (paired
      configuration) against float64 (2e-2) and its kernel; then each _io
      entry's ms beside its twin's and its bound (one bf16 pass at 989
      TFLOP/s, or the bytes).
@@ -277,7 +282,8 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      radix_h``, ``radix_w``, ``xsliver``) at three of JAX's one-block
      plans, reached through the tuner's table (``RADIX_PLANS``): (256,
      512, 65, 129), JAX's fp32 and bf16 F=1 plan, 64 rows; (128, 512, 33,
-     129), its 32² plan; (256, 1024, 65, 129), Wc 513, 32 rows — each on
+     129), its 32² plan; (256, 1024, 65, 129), Wc 513, 32 rows (the radix
+     bodies keep the 32-row tiles there) — each on
      the headline image with 100 kernels (64², or 32² at the 32² plan): v3
      and every radix entry in both H-stage forms (the 4-product entries and
      the Karatsuba ones, ``_r4_k``, ``_r5_k``, ``_r5x_k``: f32 and bf16
@@ -341,7 +347,11 @@ of 10 calls, and of one call), the outputs compared: bitwise where both
 rules pick the same form, within 1e-5 of the plain version where the
 parent ran the (1, 1) tile and this tree the split form (it sums in
 another order); at such a row the wrapper and the complex einsum are timed
-in the same turns.
+in the same turns. It also builds the parent's fused kernels and times, in
+the same turns, every entry the paired configuration took over from the
+parent's 32-row tiles at the 512² plan (and the 3xTF32 and BF16IO maps
+and peaks at the (256, 896) and (511, 1024) plans), each side against the
+plain version (``wide_ab``).
 
 Steps 13–37 print each check, each time (CUDA events, median of 7, unless
 said otherwise) beside the card's name and power limit, the kernel launches
@@ -468,7 +478,9 @@ def build_kernels() -> None:
     from cuda_fft_convolution_torch.ops.block_conv import (
         TIERS,
         blocks_per_cta,
+        cluster_size,
         kernels_per_cta,
+        pair_bins,
         smem_bytes,
         tier_name,
         tile_rows,
@@ -514,22 +526,29 @@ def build_kernels() -> None:
                 got = (lib.fftconv_block_conv_f32_smem_bytes(wc, vh, splits),
                        lib.fftconv_block_conv_f32_rows(wc, vh, splits),
                        lib.fftconv_block_conv_f32_blocks(wc, vh, splits),
-                       lib.fftconv_block_conv_f32_kernels(wc, vh, splits))
+                       lib.fftconv_block_conv_f32_kernels(wc, vh, splits),
+                       lib.fftconv_block_conv_f32_cluster(wc, vh, splits),
+                       lib.fftconv_block_conv_f32_pair_bins(wc, vh, splits))
                 want = (smem_bytes(wc, vh, splits), tile_rows(wc, vh, splits),
-                        blocks_per_cta(wc, vh, splits), kernels_per_cta(wc, vh, splits))
+                        blocks_per_cta(wc, vh, splits), kernels_per_cta(wc, vh, splits),
+                        cluster_size(wc, vh, splits), pair_bins(wc, vh, splits))
                 if got != want:
                     raise AssertionError(
                         f"configuration model differs from the kernel at Wc={wc}, Vh={vh}, "
-                        f"{tier_name(splits)}: kernel (smem, rows, blocks, kernels) {got}, "
+                        f"{tier_name(splits)}: kernel (smem, rows, blocks, kernels, cluster, pair "
+                        f"bins) {got}, "
                         f"Python {want}")
                 # the Karatsuba configurations, and v2's with either form
                 got = (forms_lib.fftconv_block_conv_k_smem_bytes(wc, vh, splits),
                        forms_lib.fftconv_block_conv_k_rows(wc, vh, splits),
+                       forms_lib.fftconv_block_conv_k_cluster(wc, vh, splits),
+                       forms_lib.fftconv_block_conv_k_pair_bins(wc, vh, splits),
                        *((forms_lib.fftconv_block_conv_v2_smem_bytes(wc, vh, splits, kara),
                           forms_lib.fftconv_block_conv_v2_rows(wc, vh, splits, kara),
                           forms_lib.fftconv_block_conv_v2_blocks(wc, vh, splits, kara))
                          for kara in (0, 1)))
                 want = (smem_bytes(wc, vh, splits, True), tile_rows(wc, vh, splits, True),
+                        cluster_size(wc, vh, splits, True), pair_bins(wc, vh, splits, True),
                         *((v2_smem_bytes(wc, vh, splits, kara), v2_rows(wc, vh, splits, kara),
                            v2_blocks(wc, vh, splits, kara)) for kara in (False, True)))
                 if got != want:
@@ -640,7 +659,7 @@ def stacked_ptxas(spectra="13__nv_bfloat16", splits=0) -> tuple:
 
     from cuda_fft_convolution_torch import _build
 
-    want = (f"block_conv_kernelI{spectra}Li64ELb1ELi{splits}ELi0ENS_9StoreMapsIfLb1EEELb0EEEv")
+    want = (f"block_conv_kernelI{spectra}Li64ELb1ELi{splits}ELi0ENS_9StoreMapsIfLb1EEELb0ELb0EEEv")
     entry = regs = spill = None
     for line in _build.build_log().splitlines():
         if "Compiling entry" in line:
@@ -653,6 +672,30 @@ def stacked_ptxas(spectra="13__nv_bfloat16", splits=0) -> tuple:
                 regs = int(m.group(1))
                 entry = None
     return regs, spill
+
+
+def paired_ptxas() -> list:
+    """(kernel, registers, spill bytes) ptxas reported for each
+    instantiation of the paired configuration (template argument PAIRED,
+    the last: ``...Lb1EEEv`` after the H-stage form's flag) in this
+    process's build log; empty where the libraries were built before it."""
+    import re
+
+    from cuda_fft_convolution_torch import _build
+
+    out, entry, spill = [], None, 0
+    for line in _build.build_log().splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"(block_conv_kernelI\S*Lb[01]ELb1EEEv)", line)
+            entry, spill = (m.group(1) if m else None), 0
+        elif entry:
+            if "spill" in line:
+                spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out.append((entry, int(m.group(1)), spill))
+                entry = None
+    return out
 
 
 def stacked_model(ops, geom, splits=None) -> dict:
@@ -732,6 +775,59 @@ def stacked_report(label, ops, geom, splits=None) -> dict:
           f"on the CUDA cores (the MAC) and {m['tc_mflop']:.3f} on the tensor cores for "
           f"{m['useful_mflop']:.3f} useful; the H stage on the {m['h_stage']}")
     return m
+
+
+def paired_model(wc, vh, vw, splits=3, karatsuba=False) -> dict:
+    """The paired configuration at packed width ``wc``, window (vh, vw),
+    tier and H-stage form, from the kernel's loop counts (block_conv.cuh):
+    rank 0's and rank 1's bins and H passes of 128 bins (and the fewest
+    bins any of them runs), their W passes of 128 columns (and the fewest
+    columns), whether a last column runs alone, the row chunks and the
+    shared memory; {} where the v3 kernels do not pair there."""
+    from cuda_fft_convolution_torch.ops import block_conv as bc
+
+    half = bc.pair_bins(wc, vh, splits, karatsuba)
+    if not half:
+        return {}
+    bins = (half, wc - 1 - half)
+    cols = bc.pair_columns(vw)
+    passes = -(-cols // 128)
+    w = ((passes + 1) // 2, passes // 2)
+    widths = [min(128, c - 128 * p) for c in bins for p in range(-(-c // 128))]
+    widths += [min(128, cols - 128 * p) for p in range(passes)]
+    return dict(cluster=bc.cluster_size(wc, vh, splits, karatsuba), rows=bc.tile_rows(
+        wc, vh, splits, karatsuba), bins=bins, h_passes=tuple(-(-c // 128) for c in bins),
+        w_passes=w, last_alone=cols < vw, fewest=min(widths),
+        row_chunks=bc.row_chunks(wc, vh, splits, karatsuba),
+        smem=bc.smem_bytes(wc, vh, splits, karatsuba))
+
+
+def paired_report(label, wc, vh, vw) -> None:
+    """Print ``paired_model`` at every tier and form that pairs, with the
+    paired kernels' registers and spills from this process's build
+    (``paired_ptxas``); fail on a pass under 32 bins or columns."""
+    from cuda_fft_convolution_torch.ops.block_conv import TIERS, tier_name
+
+    regs, paired = paired_ptxas(), False
+    for splits in TIERS:
+        for kara in (False, True):
+            m = paired_model(wc, vh, vw, splits, kara)
+            if not m:
+                continue
+            paired = True
+            print(f"{label} (Wc {wc}, Vh {vh}, Vw {vw}), {tier_name(splits)}"
+                  f"{', Karatsuba' if kara else ''}: a cluster of {m['cluster']} CTAs of "
+                  f"{m['rows']} rows, bins {m['bins'][0]} / {m['bins'][1]} (H passes "
+                  f"{m['h_passes'][0]} / {m['h_passes'][1]}), W passes {m['w_passes'][0]} / "
+                  f"{m['w_passes'][1]}{', a last column alone' if m['last_alone'] else ''}, "
+                  f"the narrowest pass {m['fewest']} bins or columns, {m['row_chunks']} row "
+                  f"chunks, {m['smem']} B of shared memory")
+            if m["fewest"] < 32:
+                raise AssertionError(f"{label}: a pass of {m['fewest']} bins or columns")
+    if paired and regs:
+        print(f"{label}: the paired kernels ({len(regs)} instantiations): registers "
+              f"{min(r for _, r, _ in regs)}..{max(r for _, r, _ in regs)}, spill bytes "
+              f"{sum(sp for _, _, sp in regs)} ({card()})")
 
 
 def resolved(d_re, splits) -> int:
@@ -915,20 +1011,22 @@ def check_random_geometries(rng, geometries, check=None) -> None:
 # Step 3's random-plane geometries: a small ragged shape (B=2, F=3, N=5, odd
 # blocks, out_h/out_w not multiples of the valid window: clipped edge
 # tiles); the widest block of the 64-row configuration (Wc = 301, bins
-# padded to 320); a block wide enough (Wc = 451) for its 32-row
-# configuration, 2 row chunks; then short windows, whose blocks stack in a
-# CTA: the DPM plan's blocks (Vh 16, Wc 70, F 31) with 15 blocks an image (a
-# last group of 3 of 4) and clipped edges, and Vh 21 (3 blocks, thread
-# tiles straddling two); and the planner's largest block (Wc 513, Vh 961:
-# 32-row tiles, 31 row chunks, the longest contractions the split-TF32
-# syntheses see).
+# padded to 320; a pair at 6xTF32); a block wide enough (Wc = 451) for the
+# paired configuration (256 / 194 bins a CTA), one row chunk of Vh 32; then
+# short windows, whose blocks stack in a CTA: the DPM plan's blocks (Vh 16,
+# Wc 70, F 31) with 15 blocks an image (a last group of 3 of 4) and clipped
+# edges, and Vh 21 (3 blocks, thread tiles straddling two); the planner's
+# largest block (Wc 513, Vh 961: a pair of 256 bins a CTA, 16 row chunks,
+# the longest contractions the split-TF32 syntheses see); and the (256,
+# 896) plan of 129² kernels (Wc 513, Vh 256, Vw 896 = 7 passes of 128).
 CHECK_GEOMETRIES = (
     (2, 3, 5, 45, 151, 10, 24, 100, 300, "small ragged"),
     (1, 2, 3, 80, 601, 17, 50, 200, 1100, "Wc 301, the widest 64-row tiles"),
-    (1, 2, 2, 40, 901, 9, 101, 150, 1700, "wide block, 32-row tiles"),
+    (1, 2, 2, 40, 901, 9, 101, 150, 1700, "wide block, a pair"),
     (2, 31, 3, 27, 139, 12, 12, 70, 300, "short window, stacked, partial group"),
     (1, 3, 4, 45, 151, 25, 24, 100, 300, "Vh 21, stacked, straddling rows"),
-    (1, 1, 2, 1024, 1024, 64, 64, 1500, 1200, "1024 block, 31 row chunks"),
+    (1, 1, 2, 1024, 1024, 64, 64, 1500, 1200, "1024 block, 16 row chunks of a pair"),
+    (1, 1, 3, 384, 1024, 129, 129, 700, 1500, "(256, 896) plan of 129² kernels, a pair"),
 )
 
 
@@ -936,6 +1034,8 @@ def check_kernel_shapes(fc, rng) -> None:
     import torch
 
     check_random_geometries(rng, CHECK_GEOMETRIES)
+    for _, _, _, bh, bw, kh, kw, _, _, label in CHECK_GEOMETRIES:
+        paired_report(label, bw // 2 + 1, bh - kh + 1, bw - kw + 1)
 
     # The headline plan's geometry, real spectra, a few kernels.
     s, kk = HEADLINE["size"], HEADLINE["k"]
@@ -1252,6 +1352,18 @@ AB_ROWS = {}
 SPLIT_RANGE_HW = ((64, 33), (160, 210), (320, 313))
 SPLIT_RANGE_F = (2, 4, 8, 31)
 AB_REPS = 10  # MAC calls a CUDA-event window in the tile times and the A/B
+
+
+def wide_ab(csrc: pathlib.Path, seed: int) -> None:
+    """``--ab-parent``'s turns of the entries the paired configuration took
+    over from the parent's 32-row tiles: the parent's fused libraries built
+    from ``csrc`` beside this tree's, every v3 maps and peaks entry of both
+    H-stage forms at the 512² plan (and the 3xTF32 and BF16IO ones at the
+    (256, 896) and (511, 1024) plans), parent / this tree / this tree /
+    parent (``profile_torch_paths.wide_turns``)."""
+    import profile_torch_paths
+
+    profile_torch_paths.wide_turns(profile_torch_paths.build_parent(csrc, radix=False), seed)
 
 
 def build_parent_mac(csrc: pathlib.Path) -> None:
@@ -3607,7 +3719,7 @@ def parallel_phase(fc, seed, image_d, bank_d, path_launches, times, rows,
 
 # Step 33. The large-kernel regime (BASELINE.json configs[2], bench.py:
 # 613-655): the headline image with `n` kernels of `k`², 'same', which the
-# planner tiles at `plan` (an odd Lh of 1023, Wc 513: the 32-row
+# planner tiles at `plan` (an odd Lh of 1023, Wc 513: the paired
 # configuration). The F=8 tier (bench.py:591-611): a `size`² image of `f`
 # channels, `n` kernels of `k`²×`f`, bf16 spectra, planned at `plan` (the
 # stacked configuration). Each maps against float64 on 8 maps.
@@ -3774,6 +3886,8 @@ def bigkernel_phase(fc, seed, image, image_d, path_launches, times, rows, row_la
     print(f"large-kernel route: direct / auto (tiled) = {direct / auto:.3f}")
     geom = (spec.block_h, spec.block_w, spec.max_kh, spec.max_kw, spec.out_h, spec.out_w)
     ops = (spec.re[None], spec.im[None], sk.re, sk.im)
+    paired_report("large-kernel plan", geom[1] // 2 + 1, geom[0] - geom[2] + 1,
+                  geom[1] - geom[3] + 1)
     rows["block_conv_f32:large_kernel"] = kernel_row(ops, geom, f"large-kernel plan, N={n}")
     detect_row("large-kernel", "block_conv_peaks_f32:large_kernel",
                lambda: detect_peaks(image_d, bank_d, mode="same"), "block_conv_peaks_f32",
@@ -4062,7 +4176,7 @@ def bf16io_phase(fc, seed, image_d, bank_d, idx, want, big, path_launches, times
     import torch
 
     from cuda_fft_convolution_torch.models import detect_peaks
-    from cuda_fft_convolution_torch.ops.block_conv import BF16IO, tile_rows
+    from cuda_fft_convolution_torch.ops.block_conv import BF16IO, cluster_size, tile_rows
     from cuda_fft_convolution_torch.ops.tiled import peaks_from_maps
 
     t0 = time.perf_counter()
@@ -4151,7 +4265,7 @@ def bf16io_phase(fc, seed, image_d, bank_d, idx, want, big, path_launches, times
               path_launches, rows, row_launches, ops)
     del ops, data8, bank8
 
-    # the large-kernel plan (32 rows) at the tier
+    # the large-kernel plan (paired) at the tier
     big_bank_d, big_idx, big_want = big
     bk = BIGKERNEL["k"]
     bmaps = main_path("large-kernel fft_conv at bf16io", lambda: fc.fft_conv(
@@ -4159,8 +4273,9 @@ def bf16io_phase(fc, seed, image_d, bank_d, idx, want, big, path_launches, times
         "block_conv_bf16_io", path_launches)
     plan = tier_plan(image_d, bk)
     row_launches["block_conv_bf16_io:large_kernel"] = plan_launches("block_conv_bf16_io", plan)
-    print(f"large-kernel at bf16io: plan {plan}, "
-          f"{tile_rows(plan[1] // 2 + 1, plan[0] - plan[2] + 1, BF16IO)}-row tiles")
+    wc_, vh_ = plan[1] // 2 + 1, plan[0] - plan[2] + 1
+    print(f"large-kernel at bf16io: plan {plan}, {tile_rows(wc_, vh_, BF16IO)}-row tiles, "
+          f"clusters of {cluster_size(wc_, vh_, BF16IO)} CTAs")
     berr = max_rel_err_f64(bmaps, big_idx, big_want)
     print(f"large-kernel fft_conv at bf16io vs float64 on kernels {big_idx}: max rel err "
           f"{berr:.3e} (bar {BF16_TOL:g})")
@@ -4879,7 +4994,8 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--ab-parent", type=pathlib.Path, default=None,
                         help="a parent checkout's cuda_fft_convolution_torch/csrc: time its "
-                             "MAC kernel against this tree's at every MAC row")
+                             "MAC kernel against this tree's at every MAC row, and its fused "
+                             "kernels' 32-row entries against the pairs that replaced them")
     args = parser.parse_args(argv)
     started = time.perf_counter()
 
@@ -4908,6 +5024,7 @@ def main(argv=None) -> int:
     build_kernels()
     if args.ab_parent is not None:
         build_parent_mac(args.ab_parent.resolve())
+        wide_ab(args.ab_parent.resolve(), args.seed)
     rng = np.random.default_rng(args.seed)
     check_kernel_shapes(fc, rng)
     # kernel mode → launches in the main-path runs, and its JSON fields

@@ -77,6 +77,8 @@ _SIGNATURES = {
     "fftconv_block_conv_f32_rows": _QUERY,
     "fftconv_block_conv_f32_blocks": _QUERY,
     "fftconv_block_conv_f32_kernels": _QUERY,
+    "fftconv_block_conv_f32_cluster": _QUERY,
+    "fftconv_block_conv_f32_pair_bins": _QUERY,
     "fftconv_block_conv_peaks_f32": _PEAKS,
     "fftconv_block_conv_peaks_bf16": _PEAKS,
     "fftconv_block_conv_peaks_f32_x6": _PEAKS,
@@ -97,6 +99,8 @@ _FORM_SIGNATURES = {
     **{f"{name}_k": sig for name, sig in _SIGNATURES.items() if sig is _PEAKS},
     "fftconv_block_conv_k_smem_bytes": _SMEM_QUERY,
     "fftconv_block_conv_k_rows": _QUERY,
+    "fftconv_block_conv_k_cluster": _QUERY,
+    "fftconv_block_conv_k_pair_bins": _QUERY,
     "fftconv_block_conv_v2_smem_bytes": ([_I] * 4, ctypes.c_longlong),
     "fftconv_block_conv_v2_rows": ([_I] * 4, ctypes.c_int),
     "fftconv_block_conv_v2_blocks": ([_I] * 4, ctypes.c_int),

@@ -20,7 +20,7 @@
 
 // Shared-memory bytes the kernels need at packed width wc, window height
 // vh and tier `splits` (1, 3 or 6 tensor-core products, or 0 for kBF16IO;
-// -1 for another), the rows a CTA holds there, the blocks it stacks (1: one
+// -1 for another), the window rows a CTA holds there (64 in a pair), the blocks it stacks (1: one
 // block per CTA) and the kernels a stacked CTA takes (1 where it does not
 // stack); the Python legality rule (ops/block_conv.py smem_bytes,
 // tile_rows, blocks_per_cta, kernels_per_cta) mirrors all four.
@@ -35,6 +35,15 @@ extern "C" int fftconv_block_conv_f32_blocks(int wc, int vh, int splits) {
 }
 extern "C" int fftconv_block_conv_f32_kernels(int wc, int vh, int splits) {
   return valid_splits(splits) ? kernels_per_cta(wc, vh, splits) : -1;
+}
+// The CTAs of a thread-block cluster (2: the paired configuration, else 1)
+// and rank 0's bins there (0 elsewhere); ops/block_conv.py cluster_size and
+// pair_bins mirror them.
+extern "C" int fftconv_block_conv_f32_cluster(int wc, int vh, int splits) {
+  return valid_splits(splits) ? cluster_of(wc, vh, splits) : -1;
+}
+extern "C" int fftconv_block_conv_f32_pair_bins(int wc, int vh, int splits) {
+  return valid_splits(splits) ? pair_bins(wc, vh, splits) : -1;
 }
 
 // One entry per (spectra, maps) dtype pair and tier:

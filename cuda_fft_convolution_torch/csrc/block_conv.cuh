@@ -160,13 +160,61 @@
 // The 32-row configuration's S^T and G rows are padded to 20 floats, X's
 // rows to 2 x bins + 4, and the 64-row S^T and G and every M^T are held in
 // core matrices (8 columns x 4 rows, 128 contiguous bytes), so that the
-// fragment reads and the S^T stores are free of bank conflicts. Two
-// one-block configurations are built: 64 rows (the headline) and, where
-// that X does not fit in shared memory (Wc > 320), 32 rows. Blocks run in
+// fragment reads and the S^T stores are free of bank conflicts. The
+// one-block configurations: 64 rows (the headline) and, where that X does
+// not fit in shared memory (Wc > 320 at 3xTF32), the paired configuration
+// below (v3) or 32 rows (the radix bodies and v2; v3 where the pair does not
+// fit either: 6xTF32 past Wc 513, the Karatsuba form at one pass and kBF16IO
+// past Wc 705). Blocks run in
 // parallel and in no order, unlike the TPU grid that kept the kernel index
 // innermost so a data block stayed in VMEM across the bank; here the kernel
 // index is the fastest-varying launch index, so the CTAs resident at one
 // time share a data block (and the whole bank) in L2.
+//
+// Wide blocks: the paired configuration (PAIRED; v3 in both H-stage forms,
+// at every tier, where the 64-row X does not fit). A thread-block cluster of
+// kPair = 2 CTAs takes 64 window rows of one cell (row chunks of 64), and
+// each CTA owns part of the bins 0 .. wc - 2: rank 0 the first pair_half
+// (half of them rounded up to kKB, or kKB more where that leaves rank 1 no
+// pass under kKB bins), rank 1 the rest; each CTA's X holds its bins, padded
+// to pair_half (132,096 B at the 1024 block). So a cell's S is built once a
+// row chunk of 64 rows, not once a chunk of 32 (the 32-row configuration
+// built the 1024 block's S 16 times a cell), and the H stage runs on wgmma
+// (the 64-row stage above) over two passes of 128 bins at the 1024 block,
+// not five of mma.sync.
+//   - The last bin (the Nyquist bin of an even block) gets no pass of its
+//     own (at Wc = 4 128 + 1 a fifth pass of each stage ran for one bin):
+//     its X column G S[:, wc - 1] is summed in fp32 FMAs beside the products
+//     in the first pass, the last kUK threads forming its S a chunk (S
+//     rounded as the staged S is), every thread four spectrum rows of a
+//     row's G from its staging loads, the row's four threads added at the
+//     pass's end, in the form's factorisation (Karatsuba: t1, t2, t3), into
+//     the sliver past the staging area; the W stage adds it to each tile as a
+//     rank-1 term, Xn (rounded at kBF16IO as X is) times the last row of [Mr ;
+//     Mi] (exact, or rounded at kBF16IO: m_tc's sliver), in fp32.
+//   - W stage: each rank computes half of the output columns' passes (rank
+//     0 the first half, rounded up) over the whole contraction, rank 0's [Xr
+//     | Xi] then rank 1's (M^T laid out in that order, ops/block_conv.py
+//     _pair_m), on the 64-row TMA ring: a chunk of this rank's X by ldmatrix,
+//     one of its partner's by four 32-bit ld.shared::cluster a fragment
+//     (mapa, after a barrier.cluster that follows both H stages). A last
+//     output column alone past whole passes (vw = 128 q + 1) gets no pass
+//     either: each rank sums its half of the column's dot in float64 (exact
+//     products, a sum that does not round) after its H stage, and rank 1
+//     adds both and the last bin's term and rounds once. A last barrier.cluster
+//     keeps each CTA until its partner has read its shared memory.
+//   - The peaks epilogue writes an entry a CTA: the pyramid's row chunks are
+//     rc kPair + rank, reduced by the wrapper (ops/block_conv.py
+//     _best_chunk).
+//   - Shared memory: X, the 64-row staging area and a sliver of kPairSliver
+//     floats: 198,656 B at 3xTF32 at the 1024 block, 231,424 at 6xTF32,
+//     165,888 at one pass and kBF16IO (the Karatsuba form's at 6xTF32 does
+//     not fit there, as the 32-row one did not). Launched with
+//     cudaLaunchKernelEx, cluster dimension 2, the pair's CTAs fastest in the
+//     grid, then the kernel index.
+// Precision: the same short stretches on the tensor cores; the last bin's X
+// is an fp32 sum of 1,023 terms at the 1024 block, the last column's a
+// float64 one.
 //
 // Short windows (Vh <= 32): block-stacked CTAs. A 64-row CTA holding one
 // block of Vh = 16 rows (the DPM plan) leaves 48 rows idle, and a cell's
@@ -356,6 +404,12 @@ __host__ __device__ constexpr int stage_all(int rows, int splits, bool kara = fa
 
 // The v2 body's blocks of a block column a CTA, at most.
 constexpr int kMaxGroup = 16;
+// The paired configuration: the CTAs of its cluster, and the floats past its
+// staging area (a sliver: the Nyquist bin's X of each of the 64 rows, re and
+// im, then the last column's partial sum of each row, a double; during the
+// H stage the Nyquist bin's S of a chunk).
+constexpr int kPair = 2;
+constexpr int kPairSliver = 64 * 4;
 // The block-stacked configuration: g blocks x T kernels of one image a CTA.
 constexpr int kStackG = 4;       // blocks a stacked CTA takes, at most
 constexpr int kStackT = 2;       // kernels a stacked CTA takes, at most
@@ -754,13 +808,45 @@ inline int kernels_per_cta(int wc, int vh, int splits) {
   return t;
 }
 
+// The paired configuration (v3, both H-stage forms, where the 64-row X does
+// not fit; see "Wide blocks" above): rank 0's bins, half of the wc - 1 bins
+// below the Nyquist bin rounded up to kKB, or kKB more where that leaves
+// rank 1 no pass under kKB bins and still fits (pass_ok); 0 where the pair
+// does not fit.
+__host__ __device__ inline bool pass_ok(int bins) { return bins % kCols == 0 || bins % kCols >= kKB; }
+__host__ __device__ inline long long pair_smem_bytes(int half, int splits, bool kara) {
+  return 4LL * (64LL * (2 * half + 4) + stage_all(64, splits, kara) + kPairSliver);
+}
+__host__ __device__ inline int pair_half(int wc, int splits, bool kara) {
+  const int nb = wc - 1;
+  const int h0 = ((nb + 1) / 2 + kKB - 1) / kKB * kKB;
+  for (int h = h0; h <= h0 + kKB; h += kKB)
+    if (h < nb && pass_ok(nb - h) && pair_smem_bytes(h, splits, kara) <= kMaxSmem) return h;
+  return h0 < nb && pair_smem_bytes(h0, splits, kara) <= kMaxSmem ? h0 : 0;
+}
+// The output columns the paired configuration's passes cover: a last column
+// alone past whole passes (vw = 128 q + 1) is a dot of its own.
+__host__ __device__ inline int pair_cols(int vw) { return vw % kCols == 1 ? vw - 1 : vw; }
+
+// Rank 0's bins where v3 runs the paired configuration at (wc, vh), else 0.
+inline int pair_bins(int wc, int vh, int splits, bool kara = false) {
+  return blocks_per_cta(wc, vh, splits) > 1 || !wide(wc, splits, kara) ? 0 : pair_half(wc, splits, kara);
+}
+
+inline int cluster_of(int wc, int vh, int splits, bool kara = false) {
+  return pair_bins(wc, vh, splits, kara) ? kPair : 1;
+}
+
 inline int tile_rows(int wc, int vh, int splits, bool kara = false) {
-  return blocks_per_cta(wc, vh, splits) > 1 || !wide(wc, splits, kara) ? 64 : 32;
+  return blocks_per_cta(wc, vh, splits) > 1 || !wide(wc, splits, kara) || pair_bins(wc, vh, splits, kara) ? 64
+                                                                                                           : 32;
 }
 
 inline long long smem_bytes(int wc, int vh, int splits, bool kara = false) {
   const int g = blocks_per_cta(wc, vh, splits);
   if (g > 1) return stacked_smem_bytes(wc, g, kernels_per_cta(wc, vh, splits), splits);
+  const int half = pair_bins(wc, vh, splits, kara);
+  if (half) return pair_smem_bytes(half, splits, kara);
   return tile_smem_bytes(wide(wc, splits, kara) ? 32 : 64, wc, splits, kara);
 }
 
@@ -850,6 +936,35 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
+// ---- the paired configuration's cluster: distributed shared memory ----
+// The address in the cluster's shared window of shared address a in the
+// shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ uint32_t mapa(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+// 32 bits at a cluster shared address (volatile: never moved across a
+// cluster barrier).
+__device__ __forceinline__ uint32_t ld_cluster(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared::cluster.b32 %0, [%1];\n" : "=r"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ double ld_cluster_f64(uint32_t a) {
+  double v;
+  asm volatile("ld.shared::cluster.f64 %0, [%1];\n" : "=d"(v) : "r"(a));
+  return v;
+}
+// Every thread of the cluster's CTAs: this thread's shared-memory writes
+// before it are visible to the cluster's threads after their wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // d += a b: a 16 x 16 A fragment and a 16 x 8 B fragment of bf16 values
 // (a register holds two: the lower half the first), fp32 accumulators; the
 // layouts are mma.m16n8k16's (g = lane / 4, t = lane % 4): a[0] row g,
@@ -867,7 +982,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   return (bf16r(x) >> 16) | (bf16r(y) & 0xFFFF0000u);
 }
 
-template <class TS, int ROWS, bool STACKED, int SPLITS, int BODY, class Epi, bool KARA>
+template <class TS, int ROWS, bool STACKED, int SPLITS, int BODY, class Epi, bool KARA, bool PAIRED>
 __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     const TS* __restrict__ d_re, const TS* __restrict__ d_im,
     const TS* __restrict__ k_re, const TS* __restrict__ k_im,
@@ -884,11 +999,17 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   constexpr bool kApart = SPLITS == 6;
   constexpr bool kDif = dif_body(BODY);
   static_assert(BODY != kV2 || !STACKED, "v2 stacks blocks its own way");
+  static_assert(!PAIRED || (BODY == kV3 && ROWS == 64 && !STACKED), "the pair is v3's, of 64-row CTAs");
   extern __shared__ __align__(16) float smem[];
-  const int wc_pad = padded_bins(wc);
-  const int xs = x_stride(wc);
+  // PAIRED: this CTA's rank in its cluster, and its X's bins (pair_half):
+  // rank 0 holds bins 0 .. half - 1, rank 1 half .. wc - 2, each padded to
+  // half; the Nyquist bin wc - 1 is the sliver's.
+  const int crank = PAIRED ? static_cast<int>(blockIdx.x % kPair) : 0;
+  const int wc_pad = PAIRED ? pair_half(wc, SPLITS, KARA) : padded_bins(wc);
+  const int xs = 2 * wc_pad + 4;
   float* x_s = smem;                   // [ROWS][xs]  X: Xr at bins 0.., Xi at wc_pad.. (v2: a group's)
   float* stage = x_s + (BODY == kV2 ? group : STACKED ? kpc : 1) * ROWS * xs;  // staging, reused by both stages
+  float* sliver = stage + stage_all(ROWS, SPLITS, KARA);  // PAIRED: [Xn re 64][Xn im 64][partial sums 64 doubles]
   // The DIF stage's half period W/2 and quarter; its H stage stores X's
   // bins permuted, [even | odd | Nyquist] (xcol), and v5x's stops at W/2.
   const int l2 = wc - 1, l4 = l2 / 2;
@@ -924,7 +1045,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
 
   // Kernel index fastest, then the row chunk, then the cell (b, i, j) — for
   // v2 the group (b, i / group, j) of `group` blocks down block column j.
-  long long bid = blockIdx.x;
+  long long bid = PAIRED ? blockIdx.x / kPair : blockIdx.x;
   const int ni = static_cast<int>(bid % n);
   bid /= n;
   const int rc = static_cast<int>(bid % row_chunks);
@@ -936,7 +1057,8 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   // v2: the group's blocks (bi + t, bj), t < count
   const int count = BODY == kV2 ? min(group, nbh - bi) : 1;
   r0 = rc * ROWS;
-  cell_at = Cell{bb, bi, bj, rc, ni, count};
+  // (a pair's ranks write a pyramid entry each: chunk rc kPair + rank)
+  cell_at = Cell{bb, bi, bj, PAIRED ? rc * kPair + crank : rc, ni, count};
   // A radix body's chunk: a pair chunk (rc < its count) holds x[v'] at
   // local rows k and x[v' + M] at RW + k for v' = p0 + k; a single chunk
   // window rows r0.. of [M - w0, M), x[v' + M] for v' = r0 - (M - w0) + k
@@ -1393,6 +1515,27 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   // x_s + t * ROWS * xs; its bins past wc, which no column reaches, are
   // zeroed here (the W stage's chunks read them).
   const int h_cols = BODY == kV2 ? count * wc : hb_pad;
+  // PAIRED: this rank's bins of the spectra, bin0 .. bin0 + nbins - 1 (X's
+  // local bins 0.., zeros past nbins), and the Nyquist bin's X of each row,
+  // summed in fp32 in pass 0 beside the products (the sliver's S a chunk,
+  // G from this thread's staging loads, gv): the 4-product form's re and im,
+  // or the Karatsuba form's t1, t2, t3 (x_nq), four spectrum rows a thread,
+  // the row's four threads added after the stage.
+  const int bin0 = crank * wc_pad;
+  const int nbins = PAIRED && crank ? wc - 1 - wc_pad : wc_pad;
+  float* s_nq = sliver + 2 * ROWS;  // a chunk's Nyquist S: (re, im, re + im) a spectrum row
+  float x_nq[3] = {0.f, 0.f, 0.f};
+  float nq[4];  // channel 0 of D and K at the Nyquist bin (re, im; re, im): the last kUK threads'
+  const int nq_u = tid - (kThreads - kUK);  // this thread's spectrum row of a chunk (< 0: none)
+  auto nq_load = [&](int u0, int ff, float (&d)[4]) {
+    const int u = u0 + nq_u;
+    const bool ok = nq_u >= 0 && u < lh;
+    const long long off = ok ? static_cast<long long>(u) * wc + wc - 1 + ff * plane : 0;
+    d[0] = ok ? to_f32(dr_c[off]) : 0.f;
+    d[1] = ok ? to_f32(di_c[off]) : 0.f;
+    d[2] = ok ? to_f32(kr_c[off]) : 0.f;
+    d[3] = ok ? to_f32(ki_c[off]) : 0.f;
+  };
   if constexpr (BODY == kV2) {
     const int pad = wc_pad - wc;
     for (int e = tid; e < count * ROWS * 2 * pad; e += kThreads) {
@@ -1441,13 +1584,43 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         }
       }
     };
-    load_dk(c0, 0, 0, kCols);
+    // the pass's first bin in the spectra and its bins there (PAIRED: this
+    // rank's)
+    const int cg = PAIRED ? bin0 + c0 : c0;
+    const int cw = PAIRED ? min(kCols, nbins - c0) : kCols;
+    const bool nyq = PAIRED && c0 == 0;  // the pass that sums the Nyquist bin's X
+    load_dk(cg, 0, 0, cw);
     load_g(0);
+    if (nyq) nq_load(0, 0, nq);
     for (int u0 = 0; u0 < lh; u0 += kUK) {
       float sv[St::kPerS][2];
-      mac(c0, u0, sv, kCols);
+      mac(cg, u0, sv, cw);
+      float snq[2] = {0.f, 0.f};  // the Nyquist bin's S at this thread's row
+      if (PAIRED && nyq && nq_u >= 0) {
+        snq[0] = fmaf(nq[2], nq[0], -nq[3] * nq[1]);
+        snq[1] = fmaf(nq[2], nq[1], nq[3] * nq[0]);
+        for (int ff = 1; ff < f; ++ff) {
+          nq_load(u0, ff, nq);
+          snq[0] = fmaf(nq[2], nq[0], fmaf(-nq[3], nq[1], snq[0]));
+          snq[1] = fmaf(nq[2], nq[1], fmaf(nq[3], nq[0], snq[1]));
+        }
+      }
       __syncthreads();  // the previous chunk's products are done with staging
       stage_s(sv, false);
+      if (nyq && nq_u >= 0) {
+        // S rounded as the staged S is (kBF16IO; the Karatsuba sum before
+        // its one rounding)
+        float* p = s_nq + 3 * nq_u;
+        if constexpr (SPLITS == kBF16IO) {
+          p[0] = __uint_as_float(bf16r(snq[0]));
+          p[1] = __uint_as_float(bf16r(snq[1]));
+          p[2] = __uint_as_float(bf16r(snq[0] + snq[1]));
+        } else {
+          p[0] = snq[0];
+          p[1] = snq[1];
+          p[2] = snq[0] + snq[1];
+        }
+      }
       if constexpr (KARA) {
         if (tid < St::kGPos) {
           const int row = tid / 4;
@@ -1493,9 +1666,31 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       // this thread's stores are visible to the tensor cores' reads
       if (kWG) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
+      if constexpr (PAIRED) {
+        if (nyq) {
+        // the Nyquist bin's X at row tid / 4 over spectrum rows 4 (tid % 4)..
+        // of the chunk: G from gv (re, im; exact, or rounded at kBF16IO)
+        const float gr[4] = {gv[0].x, gv[0].y, gv[0].z, gv[0].w};
+        const float gi[4] = {gv[1].x, gv[1].y, gv[1].z, gv[1].w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float* p = s_nq + 3 * (4 * (tid & 3) + i);
+          if constexpr (KARA) {
+            const float g3 = SPLITS == kBF16IO ? __uint_as_float(bf16r(gr[i] + gi[i])) : gr[i] + gi[i];
+            x_nq[0] = fmaf(gr[i], p[0], x_nq[0]);
+            x_nq[1] = fmaf(gi[i], p[1], x_nq[1]);
+            x_nq[2] = fmaf(g3, p[2], x_nq[2]);
+          } else {
+            x_nq[0] = fmaf(gr[i], p[0], fmaf(-gi[i], p[1], x_nq[0]));
+            x_nq[1] = fmaf(gr[i], p[1], fmaf(gi[i], p[0], x_nq[1]));
+          }
+        }
+        }
+      }
       if (u0 + kUK < lh) {  // in flight during the products
-        load_dk(c0, u0 + kUK, 0, kCols);
+        load_dk(cg, u0 + kUK, 0, cw);
         load_g(u0 + kUK);
+        if (nyq) nq_load(u0 + kUK, 0, nq);
       }
       if constexpr (kWG) {
         if constexpr (KARA) {
@@ -1682,6 +1877,21 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
           }
       }
     }
+    if constexpr (PAIRED) {
+      if (nyq) {
+        // The Nyquist bin's X of row tid / 4: its four threads' sums added,
+        // in the sliver (the Karatsuba form: Xr = t1 - t2, Xi = t3 - t1 - t2).
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          x_nq[m] += __shfl_xor_sync(0xffffffffu, x_nq[m], 1);
+          x_nq[m] += __shfl_xor_sync(0xffffffffu, x_nq[m], 2);
+        }
+        if ((tid & 3) == 0) {
+          sliver[tid >> 2] = KARA ? x_nq[0] - x_nq[1] : x_nq[0];
+          sliver[ROWS + (tid >> 2)] = KARA ? x_nq[2] - x_nq[0] - x_nq[1] : x_nq[1];
+        }
+      }
+    }
     // Bins past wc hold zeros (S was zero there), which pads X for the W
     // stage's chunks. The DIF bodies store the bins permuted (xcol): a
     // pair of adjacent bins lands in the even and the odd half. v2: column
@@ -1733,6 +1943,30 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
             }
           }
     }
+  }
+  if constexpr (PAIRED) {
+    __syncthreads();  // X and the sliver are written
+    // A last column alone (vw = 128 q + 1): its dot over this rank's X in
+    // float64 (exact products, a sum that does not round), four threads a
+    // row over interleaved columns, in the sliver for rank 1 to finish.
+    if (vw > pair_cols(vw)) {
+      const int mcols = m_cols(pair_cols(vw));
+      const float* ml = m_tc + static_cast<long long>(St::kMP) * mcols * (4 * wc_pad) + 2 * mcols +
+                        crank * 2 * wc_pad;
+      const float* xrow = x_s + (tid >> 2) * xs;
+      double sum = 0.0;
+      for (int k = tid & 3; k < 2 * wc_pad; k += 4) {
+        const float x = SPLITS == kBF16IO ? __uint_as_float(bf16r(xrow[k])) : xrow[k];
+        sum = fma(static_cast<double>(x), static_cast<double>(ml[k]), sum);
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if ((tid & 3) == 0) reinterpret_cast<double*>(sliver + 2 * ROWS)[tid >> 2] = sum;
+    }
+    // both ranks' X, Nyquist X and partial sums are written: each reads its
+    // partner's from here on
+    cluster_arrive();
+    cluster_wait();
   }
   }
   } else {
@@ -2146,11 +2380,17 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   // copied kM - 1 steps ahead. The DIF bodies: rows of [epr; epi; oqr;
   // oqi] for t'-columns, the first half of a pass's chunks summing P over
   // X's even bins (re, then im), the second Q over its odd bins.
-  const int kw2 = kDif ? 2 * l2 : 2 * wc_pad;
+  // PAIRED: the contraction runs over both ranks' X, [Xr | Xi] of rank 0
+  // then of rank 1, and the passes over pair_cols(vw) columns; rank 0 takes
+  // the first half of the passes (rounded up), rank 1 the rest: this rank's
+  // p_beg ...
+  const int kw2 = kDif ? 2 * l2 : (PAIRED ? kPair : 1) * 2 * wc_pad;
   const int nkc = kw2 / kKC;
-  const int wcols = kDif ? min(vw, l2) : vw;  // the columns the products run over
+  const int wcols = kDif ? min(vw, l2) : PAIRED ? pair_cols(vw) : vw;  // the columns the products run over
   const int mcols = m_cols(wcols);
-  const int steps = mcols / kCols * nkc;
+  const int all_p = mcols / kCols;
+  const int p_beg = PAIRED && crank ? (all_p + 1) / 2 : 0;
+  const int steps = (PAIRED ? (crank ? all_p - p_beg : (all_p + 1) / 2) : all_p) * nkc;
   // X's column of chunk kc's first row of [Mr ; Mi] (or of [epr; ..]).
   auto x_col = [&](int kc) {
     if constexpr (kDif) {
@@ -2227,6 +2467,28 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   };
   // The W stage of the X at xw, its tiles to epi (v2: once a block of the
   // group, each block's Vh rows a product of their own).
+  // PAIRED: the Nyquist bin's rank-1 term added to a pass's tile at local
+  // rows l, l + 8 (acc[0][j][2 h + e]: column col + 8 j + e): Xn (rounded
+  // at kBF16IO as X is) times its row of [Mr ; Mi] from m_tc's sliver, in
+  // fp32.
+  const float* m_sl = m_tc + static_cast<long long>(St::kMP) * mcols * kw2;  // Mr, Mi rows; the last column
+  auto x_nyq = [&](int l, int c) {
+    const float x = sliver[c * ROWS + l];
+    return SPLITS == kBF16IO ? __uint_as_float(bf16r(x)) : x;
+  };
+  auto add_nyq = [&](float (&a)[1][8][4], int l, int col) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float xr = x_nyq(l + 8 * h, 0), xi = x_nyq(l + 8 * h, 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = col + 8 * j + e;
+          a[0][j][2 * h + e] = fmaf(xi, m_sl[mcols + c], fmaf(xr, m_sl[c], a[0][j][2 * h + e]));
+        }
+    }
+  };
   auto w_stage = [&](const float* xw, Epi& epi) {
   __syncthreads();  // X is written; the H stage (v2: the last block's W stage) is done with the staging area
   if constexpr (ROWS == 64) {
@@ -2251,8 +2513,8 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     // Thread 0 fills slot sl with step j's chunk.
     auto fill = [&](int j, int sl) {
       mbar_expect_tx(full(sl), kMChunk * 4);
-      bulk_copy(smem_u32(m_st) + 4 * sl * kMChunk, m_tc + static_cast<long long>(j) * kMChunk, kMChunk * 4,
-                full(sl));
+      bulk_copy(smem_u32(m_st) + 4 * sl * kMChunk,
+                m_tc + (static_cast<long long>(p_beg) * nkc + j) * kMChunk, kMChunk * 4, full(sl));
     };
     if (tid == 0)
       for (int j = 0; j < kM && j < steps; ++j) fill(j, j);
@@ -2260,9 +2522,11 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     // pass's columns; warp `rank` of it holds rows 16 rank.. .
     const int wg = warp >> 2;
     const int rank = warp & 3;
+    // PAIRED: the partner's X, read through distributed shared memory
+    const uint32_t x_peer = PAIRED ? mapa(smem_u32(xw), crank ^ 1) : 0;
     float acc[1][8][4], accq[1][8][4];  // (DIF: P, Q)
     for (int it = 0; it < steps; ++it) {
-      const int p = it / nkc;
+      const int p = p_beg + it / nkc;
       const int kc = it % nkc;
       if (kc == 0) {
 #pragma unroll
@@ -2298,10 +2562,22 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         // buffer's registers to other values while the tensor cores may
         // still read them.
         uint32_t xp[2][P][4];
-        const int xc = x_col(kc);
+        // PAIRED: chunk kc lies in the X of rank src, the partner's read
+        // with four 32-bit loads a fragment (ldmatrix reads this CTA's)
+        const int src = PAIRED ? kc / (nkc / kPair) : 0;
+        const bool remote = PAIRED && src != crank;
+        const int xc = PAIRED ? (kc - src * (nkc / kPair)) * kKC : x_col(kc);
         auto frag = [&](int ks, int bf) {
           uint32_t xa[4];
-          ldsm4(xa, xw + rank * 16 * xs + xc + ks * 8 + a_lane(lane, xs));
+          if (remote) {
+            const uint32_t a = x_peer + 4 * ((rank * 16 + g8) * xs + xc + ks * 8 + t4);
+            xa[0] = ld_cluster(a);
+            xa[1] = ld_cluster(a + 32 * xs);
+            xa[2] = ld_cluster(a + 16);
+            xa[3] = ld_cluster(a + 32 * xs + 16);
+          } else {
+            ldsm4(xa, xw + rank * 16 * xs + xc + ks * 8 + a_lane(lane, xs));
+          }
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             uint32_t pc[P];
@@ -2355,6 +2631,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       if (kc == nkc - 1) {
         const int col = p * kCols + wg * 64 + 2 * t4;
         if constexpr (!radix_body(BODY)) {
+          if constexpr (PAIRED) add_nyq(acc, rank * 16 + g8, col);
           epi.tile(acc, r0 + rank * 16 + g8, col, INT_MAX);
         } else {
           const int l0 = rank * 16 + g8;
@@ -2484,7 +2761,31 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     }
   }
   };
-  const OutGeom geom{n, nbh, nbw, row_chunks, vh, vw, out_h, out_w};
+  // PAIRED: the last column alone, by warp 0 of rank 1 (whose passes are no
+  // more than rank 0's): both ranks' partial sums (float64) and the Nyquist
+  // bin's term, rounded once; then the pair's last barrier, so that neither
+  // CTA leaves while its partner may read its shared memory.
+  auto pair_last = [&](auto& epi) {  // (generic: instantiated only where a pair calls it)
+    if (crank == 1 && vw > wcols && warp == 0) {
+      const double* part = reinterpret_cast<const double*>(sliver + 2 * ROWS);
+      const uint32_t peer = mapa(smem_u32(part), 0);
+      const int l = 16 * (lane >> 3) + (lane & 7);
+      float a[1][1][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = l + 8 * h;
+        const double v = ld_cluster_f64(peer + 8 * row) + part[row] +
+                         static_cast<double>(x_nyq(row, 0)) * m_sl[2 * mcols + kw2] +
+                         static_cast<double>(x_nyq(row, 1)) * m_sl[2 * mcols + kw2 + 1];
+        a[0][0][2 * h] = static_cast<float>(v);
+        a[0][0][2 * h + 1] = 0.f;
+      }
+      epi.tile(a, r0 + l, vw - 1, INT_MAX);
+    }
+    cluster_arrive();
+    cluster_wait();
+  };
+  const OutGeom geom{n, nbh, nbw, PAIRED ? row_chunks * kPair : row_chunks, vh, vw, out_h, out_w};
   if constexpr (BODY == kV2) {
     for (int t = 0;; ++t) {
       // block t's cell, decoded anew from the block index (the H stage's
@@ -2512,11 +2813,12 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   } else {
     Epi epi(out, cell_at, geom);
     w_stage(x_s, epi);
+    if constexpr (PAIRED) pair_last(epi);
     epi.finish(stage);
   }
 }
 
-template <class TS, int ROWS, bool STACKED, int SPLITS, int BODY, class Epi, bool KARA>
+template <class TS, int ROWS, bool STACKED, int SPLITS, int BODY, class Epi, bool KARA, bool PAIRED = false>
 int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
            const float* gt_re, const float* gt_im, const float* g_pad,
            const float* m_tc, RadixOps rx, typename Epi::Out out, int b, int nbh, int nbw,
@@ -2530,6 +2832,7 @@ int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
   const int kpc = STACKED ? kernels_per_cta(wc, vh, SPLITS) : 1;
   const long long smem = STACKED        ? stacked_smem_bytes(wc, group, kpc, SPLITS)
                          : BODY == kV2 ? v2_smem_bytes(wc, vh, SPLITS, KARA)
+                         : PAIRED      ? pair_smem_bytes(pair_half(wc, SPLITS, KARA), SPLITS, KARA)
                                        : tile_smem_bytes(ROWS, wc, SPLITS, KARA);
   const int row_chunks = STACKED               ? 1
                          : !radix_body(BODY) ? (vh + ROWS - 1) / ROWS
@@ -2537,19 +2840,41 @@ int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
   const Ring ring = STACKED ? stacked_ring<TS>(wc, group, kpc, SPLITS) : Ring{0, 0};
   // stacked: b images x tiles of ktile kernels x block groups x the tile's
   // CTAs of kpc kernels; v2: b images x block groups (of `group` blocks
-  // down a column) x row chunks x kernels
+  // down a column) x row chunks x kernels; paired: the same x the pair's
+  // two CTAs (fastest: a cluster is two consecutive CTAs)
   const long long grid =
       STACKED ? static_cast<long long>(b) * ((n + ktile - 1) / ktile) * ((ktile + kpc - 1) / kpc) *
                     ((static_cast<long long>(nbh) * nbw + group - 1) / group)
-              : static_cast<long long>(b) * ((nbh + group - 1) / group) * nbw * row_chunks * n;
+              : static_cast<long long>(b) * ((nbh + group - 1) / group) * nbw * row_chunks * n *
+                    (PAIRED ? kPair : 1);
   if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  auto kernel = block_conv_kernel<TS, ROWS, STACKED, SPLITS, BODY, Epi, KARA>;
+  auto kernel = block_conv_kernel<TS, ROWS, STACKED, SPLITS, BODY, Epi, KARA, PAIRED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(smem), stream>>>(
-      d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc, rx, out, nbh, nbw, f, n,
-      lh, wc, vh, vw, out_h, out_w, row_chunks, group, kpc, ring.stages, ktile);
+  if constexpr (PAIRED) {
+    // a thread-block cluster of kPair CTAs
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(grid));
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kPair;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc, rx, out, nbh,
+                             nbw, f, n, lh, wc, vh, vw, out_h, out_w, row_chunks, group, kpc, ring.stages,
+                             ktile);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    kernel<<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(smem), stream>>>(
+        d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc, rx, out, nbh, nbw, f, n,
+        lh, wc, vh, vw, out_h, out_w, row_chunks, group, kpc, ring.stages, ktile);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2604,6 +2929,13 @@ int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
     if (blocks_per_cta(wc, vh, SPLITS) > 1 || !radix_h_ok(lh, vh) || !rx.u_pad || !rx.tw ||
         (dif_body(BODY) && !radix_w_ok(wc)) || (BODY == kV5X && !rx.slv))
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if constexpr (BODY == kV3) {
+    if (pair_bins(wc, vh, SPLITS, KARA))
+      return launch<TS, 64, false, SPLITS, BODY, Epi<false>, KARA, true>(d_re, d_im, k_re, k_im, gt_re, gt_im,
+                                                                       g_pad, m_tc, rx, out, b, nbh, nbw, f,
+                                                                       n, lh, wc, vh, vw, out_h, out_w, ktile,
+                                                                       s);
   }
   if (wide(wc, SPLITS, KARA))
     return launch<TS, 32, false, SPLITS, BODY, Epi<false>, KARA>(d_re, d_im, k_re, k_im, gt_re, gt_im,

@@ -13,15 +13,21 @@
 
 #include "block_conv_maps.cuh"
 
-// Shared memory and rows of the Karatsuba configurations at packed width
-// wc, window height vh and tier `splits` (-1 for a tier outside 0, 1, 3,
-// 6); ops/block_conv.py smem_bytes and tile_rows (karatsuba=True) mirror
-// them. The blocks a CTA stacks are fftconv_block_conv_f32_blocks'.
+// Shared memory, rows, cluster size and pair bins of the Karatsuba
+// configurations at packed width wc, window height vh and tier `splits` (-1
+// for a tier outside 0, 1, 3, 6); ops/block_conv.py smem_bytes, tile_rows,
+// cluster_size and pair_bins (karatsuba=True) mirror them. The blocks a CTA stacks are fftconv_block_conv_f32_blocks'.
 extern "C" long long fftconv_block_conv_k_smem_bytes(int wc, int vh, int splits) {
   return valid_splits(splits) ? smem_bytes(wc, vh, splits, true) : -1;
 }
 extern "C" int fftconv_block_conv_k_rows(int wc, int vh, int splits) {
   return valid_splits(splits) ? tile_rows(wc, vh, splits, true) : -1;
+}
+extern "C" int fftconv_block_conv_k_cluster(int wc, int vh, int splits) {
+  return valid_splits(splits) ? cluster_of(wc, vh, splits, true) : -1;
+}
+extern "C" int fftconv_block_conv_k_pair_bins(int wc, int vh, int splits) {
+  return valid_splits(splits) ? pair_bins(wc, vh, splits, true) : -1;
 }
 
 // (the 6xTF32 and one-pass entries: block_conv_k_tiers.cu)

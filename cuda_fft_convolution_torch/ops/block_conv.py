@@ -101,10 +101,12 @@ from cuda_fft_convolution_torch.utils.errors import InvalidInputError, validate
 # Mirrors csrc/block_conv.cuh's configuration rule, per synthesis tier
 # (``splits``: the tensor-core products a product of two fp32 operands runs
 # as, 3, 6 or 1, or ``BF16IO``, one product of bf16-rounded operands, laid
-# out as one pass; ``fused_splits``). A CTA holds X, 64 rows (32 where that
-# does not fit) × [Xr | Xi] over the packed bins padded to 32 (a row stride
-# of 2·bins + 4 floats), plus a staging area, within Hopper's 227 KB
-# (232,448 B) per-block shared-memory limit. The staging area is the larger
+# out as one pass; ``fused_splits``). A CTA holds X, 64 rows × [Xr | Xi]
+# over the packed bins padded to 32 (a row stride of 2·bins + 4 floats) —
+# where that does not fit, the v3 kernels pair two 64-row CTAs that split
+# the bins (``pair_bins``, below) and the other bodies (and v3 where the
+# pair does not fit either) take 32 rows — plus a staging area, within
+# Hopper's 227 KB (232,448 B) per-block shared-memory limit. The staging area is the larger
 # of the H stage's (S^T, 128 bins, and a G chunk, as the TF32 pieces of 16
 # spectrum rows — 2 at 3×TF32, 3 at 6×TF32, 1 at one pass — with −Gi's at
 # 64 rows: 14,336 floats for 64 rows, 12,800 for 32 rows padded to 20
@@ -258,19 +260,84 @@ def kernels_per_cta(wc: int, vh: int, splits: int = 3) -> int:
     return next(t for t in range(_STACK_T, 0, -1) if t == 1 or _stack_fits(wc, g, t, splits))
 
 
-def tile_rows(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
-    """Rows one CTA holds: 64 (stacked, or one block's window rows where
-    that configuration's shared memory fits, at the tier and H-stage
-    form), else 32."""
-    if blocks_per_cta(wc, vh, splits) > 1:
-        return 64
+def _one_block_rows(wc: int, splits: int = 3, karatsuba: bool = False) -> int:
+    """Rows of the one-block configuration without pairs (the radix bodies'
+    at every width, v3's where the pair does not fit): 64 where that X
+    fits beside the staging area, else 32."""
     fits = _tile_smem_bytes(wc, 64, splits=splits, karatsuba=karatsuba) <= SMEM_LIMIT_BYTES
     return 64 if fits else 32
 
 
+# The paired configuration (v3, both H-stage forms, where the 64-row X does
+# not fit: Wc > 320 at 3×TF32): a thread-block cluster of 2 CTAs of 64
+# window rows of one cell, rank r holding X over its share of the bins 0 ..
+# Wc − 2 (rank 0 the first ``pair_bins``, rank 1 the rest; X of
+# ``pair_bins`` bins each, a row stride of 2·bins + 4 floats), and the
+# Nyquist bin Wc − 1 apart: its X column summed in fp32 beside the products,
+# added to the tiles as a rank-1 term in the epilogue. Each rank computes
+# half of the output columns' passes over both halves of X (its partner's
+# through distributed shared memory); a last column alone (Vw = 128·q + 1)
+# is a dot of the two halves' partial sums, kept in float64. Shared memory:
+# X, the 64-row staging area and a sliver of 256 floats (the Nyquist X and
+# the last column's partial sums).
+PAIR = 2  # CTAs of the paired configuration's cluster
+_PAIR_SLIVER = 64 * 4  # floats
+
+
+def _pass_ok(bins: int) -> bool:
+    """Whether passes of 128 over ``bins`` end in one of at least 32 (or
+    none): no pass runs for a handful of bins."""
+    return bins % _COLS == 0 or bins % _COLS >= _KB
+
+
+def _pair_smem(half: int, splits: int, karatsuba: bool) -> int:
+    """Shared memory of the paired configuration whose X holds ``half``
+    bins (a multiple of 32)."""
+    return _x_bytes(half, 64) + 4 * (_stage_all(64, splits, karatsuba) + _PAIR_SLIVER)
+
+
+def _pair_half(wc: int, splits: int, karatsuba: bool) -> int:
+    """Rank 0's bins: half of the Wc − 1 bins rounded up to 32, or 32 more
+    where that leaves rank 1 no pass under 32 bins and still fits; 0 where
+    neither fits."""
+    nb = wc - 1
+    h0 = -(-(-(-nb // 2)) // _KB) * _KB
+    for h in (h0, h0 + _KB):
+        if h < nb and _pass_ok(nb - h) and _pair_smem(h, splits, karatsuba) <= SMEM_LIMIT_BYTES:
+            return h
+    return h0 if h0 < nb and _pair_smem(h0, splits, karatsuba) <= SMEM_LIMIT_BYTES else 0
+
+
+def pair_bins(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
+    """The bins rank 0 of the paired configuration takes at packed width
+    ``wc``, window height ``vh``, tier ``splits`` and H-stage form; 0 where
+    the v3 body does not run that configuration (the blocks stack, the
+    64-row X fits, or the pair does not fit either: 32-row tiles)."""
+    if blocks_per_cta(wc, vh, splits) > 1 or _one_block_rows(wc, splits, karatsuba) == 64:
+        return 0
+    return _pair_half(wc, splits, karatsuba)
+
+
+def cluster_size(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
+    """CTAs of a thread-block cluster in the v3 kernels: 2 in the paired
+    configuration, else 1."""
+    return PAIR if pair_bins(wc, vh, splits, karatsuba) else 1
+
+
+def tile_rows(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
+    """Window rows one CTA of the v3 kernels holds: 64 (stacked, one
+    block's rows where that X fits, or a pair's), else 32."""
+    if blocks_per_cta(wc, vh, splits) > 1 or pair_bins(wc, vh, splits, karatsuba):
+        return 64
+    return _one_block_rows(wc, splits, karatsuba)
+
+
 def smem_bytes(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
-    """Shared memory the CUDA kernels need at packed width ``wc``, window
+    """Shared memory the v3 kernels need at packed width ``wc``, window
     height ``vh``, tier ``splits`` and H-stage form (``karatsuba``)."""
+    half = pair_bins(wc, vh, splits, karatsuba)
+    if half:
+        return _pair_smem(half, splits, karatsuba)
     return _tile_smem_bytes(
         wc, tile_rows(wc, vh, splits, karatsuba), blocks_per_cta(wc, vh, splits), splits,
         karatsuba, kernels_per_cta(wc, vh, splits),
@@ -278,11 +345,29 @@ def smem_bytes(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> in
 
 
 def row_chunks(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
-    """CTAs that split one block's window rows: 1 where blocks stack, else
-    ceil(vh / tile_rows)."""
+    """Row chunks of one block's window in the v3 kernels: 1 where blocks
+    stack, else ceil(vh / tile_rows) (a pair's two CTAs share a chunk)."""
     if blocks_per_cta(wc, vh, splits) > 1:
         return 1
     return -(-vh // tile_rows(wc, vh, splits, karatsuba))
+
+
+def peaks_chunks(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
+    """Pairs the v3 peaks kernel writes a block: one a row chunk and CTA of
+    a cluster (a pair's ranks each reduce their own columns)."""
+    return row_chunks(wc, vh, splits, karatsuba) * cluster_size(wc, vh, splits, karatsuba)
+
+
+def kernel_layout(body: str, wc: int, vh: int, splits: int = 3,
+                  karatsuba: bool = False) -> tuple[int, int]:
+    """(rows, pair bins) of the configuration ``body`` runs, whose operands
+    ``_kernel_mats`` lays out: v2 ``v2_rows``; the radix bodies the
+    one-block rule without pairs; v3 ``tile_rows`` and ``pair_bins``."""
+    if body == "v2":
+        return v2_rows(wc, vh, splits, karatsuba), 0
+    if body in _RADIX_BODIES:
+        return _one_block_rows(wc, splits, karatsuba), 0
+    return tile_rows(wc, vh, splits, karatsuba), pair_bins(wc, vh, splits, karatsuba)
 
 
 def v2_rows(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
@@ -523,7 +608,8 @@ def radix_fits(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> bo
     blocks and kernels, with no radix split."""
     _check_splits(splits)
     return (blocks_per_cta(wc, vh, splits) == 1
-            and smem_bytes(wc, vh, splits, karatsuba) <= SMEM_LIMIT_BYTES)
+            and _tile_smem_bytes(wc, _one_block_rows(wc, splits, karatsuba), splits=splits,
+                                 karatsuba=karatsuba) <= SMEM_LIMIT_BYTES)
 
 
 def radix_chunks(lh: int, vh: int, rows: int) -> tuple[int, int]:
@@ -543,7 +629,7 @@ def radix_chunks(lh: int, vh: int, rows: int) -> tuple[int, int]:
 def radix_row_chunks(wc: int, lh: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
     """CTAs a block takes in the radix kernels (``radix_chunks``) at the
     tier and H-stage form."""
-    return sum(radix_chunks(lh, vh, tile_rows(wc, vh, splits, karatsuba)))
+    return sum(radix_chunks(lh, vh, _one_block_rows(wc, splits, karatsuba)))
 
 
 def _body(radix_h: bool, radix_w: bool, xsliver: bool, wstack: bool = True) -> str:
@@ -981,13 +1067,14 @@ def block_conv(
     b, nbh, nbw, f, n, lh, wc, vh, vw = _geometry(
         dr, kr, block_h, block_w, kh, kw, out_h, out_w
     )
-    rows = (v2_rows if body == "v2" else tile_rows)(wc, vh, splits, kara)
+    rows, half = kernel_layout(body, wc, vh, splits, kara)
     _check_fit(block_w, wc, vh, splits, body, kara)
     _check_radix_fits(body, wc, vh, splits, kara)
     from cuda_fft_convolution_torch._build import library
 
     lib = library(radix=body in _RADIX_BODIES, forms=body == "v2" or kara)
-    gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev), splits, rows)
+    gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev), splits, rows,
+                                             half)
     mode = (f"block_conv_{tag}{_MAPS_SUFFIX[out_dtype]}{TIER_SUFFIX[splits]}"
             f"{body_suffix(body, kara)}")
     ktile = kernel_tile(wc, vh, kr, splits)
@@ -1056,7 +1143,7 @@ def tf32_product(a: torch.Tensor, b: torch.Tensor, splits: int) -> torch.Tensor:
 @functools.lru_cache(maxsize=16)
 def _kernel_mats(
     block_h: int, block_w: int, kh: int, kw: int, device: str, splits: int = 3,
-    rows: int | None = None,
+    rows: int | None = None, half: int = 0,
 ):
     """The kernels' matrix operands at tier ``splits`` (csrc/block_conv.cuh
     launch_block_conv) → (gt_re, gt_im, g_pad, m_tc): G^T (Lh, Vh), re and
@@ -1076,20 +1163,64 @@ def _kernel_mats(
     matrix. Zeros fill every padding. At ``BF16IO`` G, G^T and M^T (one
     plane) are the windows rounded to bf16, the operands of that tier's
     products. The operands depend on the tier, so the tier is part of the
-    cache key; ``rows`` is the configuration's (None: ``tile_rows`` at the
-    tier — the v3 body's 4-product form), whose M^T planes these are."""
+    cache key; ``rows`` and ``half`` are the configuration's (``rows`` None:
+    ``tile_rows`` and ``pair_bins`` at the tier — the v3 body's 4-product
+    form), whose M^T planes these are. The paired configuration (``half``
+    > 0: its rank 0's bins) reads ``_pair_m``'s operand instead."""
     gr, gi, mr, mi = _window_mats(block_h, block_w, kh, kw, device)
     if splits == BF16IO:
         gr, gi, mr, mi = (bf16_round(m) for m in (gr, gi, mr, mi))
     (vh, lh), (wc, vw) = gr.shape, mr.shape
     g_pad = torch.zeros((2, -(-vh // 64) * 64, -(-lh // _UK) * _UK), device=device)
     g_pad[0, :vh, :lh], g_pad[1, :vh, :lh] = gr, gi
+    if rows is None:
+        rows = tile_rows(wc, block_h - kh + 1, splits)
+        half = pair_bins(wc, block_h - kh + 1, splits)
+    if half:
+        return gr.t().contiguous(), gi.t().contiguous(), g_pad, _pair_m(mr, mi, half, splits)
     bins = -(-wc // _KB) * _KB
     cols = -(-vw // _COLS) * _COLS
     m_t = torch.zeros((cols, 2 * bins), device=device)
     m_t[:vw, :wc], m_t[:vw, bins : bins + wc] = mr.t(), mi.t()
-    rows = rows or tile_rows(wc, block_h - kh + 1, splits)
     return gr.t().contiguous(), gi.t().contiguous(), g_pad, _core_matrices(m_t, rows, splits)
+
+
+def pair_columns(vw: int) -> int:
+    """Output columns the paired configuration's passes cover: all of them,
+    but a last column alone past whole passes (Vw = 128·q + 1), which is a
+    dot of its own."""
+    return vw - 1 if vw % _COLS == 1 else vw
+
+
+def _pair_m(mr: torch.Tensor, mi: torch.Tensor, half: int, splits: int) -> torch.Tensor:
+    """The paired configuration's W-stage operand, flat: M^T over the bins
+    0 .. Wc − 2 in the pair's contraction order — rank 0's X columns [Xr |
+    Xi] over its ``half`` bins, then rank 1's over the rest, each padded to
+    ``half`` (K = 4·half) — and the passes' columns (``pair_columns``,
+    padded to 128), laid out chunk by chunk as ``_core_matrices`` does for
+    64 rows; then, exact (rounded to bf16 at BF16IO, as the planes), the
+    Nyquist row of [Mr ; Mi] over those columns (re, then im; 2 × the
+    padded columns), the last column alone over the K order (K values, zeros
+    where the passes cover every column) and the Nyquist bin's two values of
+    that column, padded to 4 floats."""
+    wc, vw = mr.shape
+    nb, vm = wc - 1, pair_columns(vw)
+    cols, k = -(-vm // _COLS) * _COLS, 4 * half
+    m_t = torch.zeros((cols, k), device=mr.device)
+    last = torch.zeros(k + 4, device=mr.device)
+    for r in range(PAIR):
+        b0, cnt = r * half, min(half, nb - r * half)
+        for c, m in enumerate((mr, mi)):
+            at = r * 2 * half + c * half
+            m_t[:vm, at : at + cnt] = m[b0 : b0 + cnt, :vm].t()
+            if vm < vw:
+                last[at : at + cnt] = m[b0 : b0 + cnt, vw - 1]
+    nyq = torch.zeros((2, cols), device=mr.device)
+    nyq[0, :vm], nyq[1, :vm] = mr[nb, :vm], mi[nb, :vm]
+    if vm < vw:
+        last[k], last[k + 1] = mr[nb, vw - 1], mi[nb, vw - 1]
+    core = _core_matrices(m_t, 64, splits)
+    return torch.cat([core.reshape(-1), nyq.reshape(-1), last])
 
 
 def _core_matrices(m_t: torch.Tensor, rows: int, splits: int) -> torch.Tensor:
@@ -1336,9 +1467,10 @@ def block_conv_peaks(
     (None: ``fused_splits``) and body on the current stream and count the
     launch in ``block_conv_peaks.launches`` and, per mode, in
     ``block_conv_peaks.launches_by_mode``. A CTA holds one block (or a
-    stack of blocks), so the kernel writes one pair per (block, row chunk:
-    ``row_chunks``, or ``radix_row_chunks`` for a radix body); a block split
-    into several row chunks is combined here (``_best_chunk``: a radix
+    stack of blocks), so the kernel writes one pair per (block, row chunk
+    and CTA of a pair: ``peaks_chunks``, or ``radix_row_chunks`` for a
+    radix body); a block split into several row chunks or a pair's column
+    halves is combined here (``_best_chunk``: a radix
     body's chunks hold rows from both halves of the window, so the rule is
     applied by index, not by chunk order), and the blocks into cells by
     ``group_cells``."""
@@ -1364,10 +1496,11 @@ def block_conv_peaks(
     from cuda_fft_convolution_torch._build import library
 
     lib = library(radix=body in _RADIX_BODIES, forms=kara)
-    rows = tile_rows(wc, vh, splits, kara)
-    gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev), splits, rows)
+    rows, half = kernel_layout(body, wc, vh, splits, kara)
+    gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev), splits, rows,
+                                             half)
     m_tc, radix = _radix_args(ops, block_h, block_w, kh, kw, str(dev), splits, body, m_tc, rows)
-    chunks = (row_chunks(wc, vh, splits, kara) if body == "v3"
+    chunks = (peaks_chunks(wc, vh, splits, kara) if body == "v3"
               else radix_row_chunks(wc, lh, vh, splits, kara))
     ktile = kernel_tile(wc, vh, kr, splits)
     shape = (b, n, nbh, chunks, nbw)

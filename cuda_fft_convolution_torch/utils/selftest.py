@@ -30,12 +30,12 @@ IO_TOL = 5e-3
 IO_RMS_TOL = 1e-4
 # (B, F, N, block_h, block_w, kh, kw, out_h, out_w) of each configuration
 # of the block-conv and peaks kernels (ops/block_conv.py tile_rows,
-# blocks_per_cta): one block's 36 window rows in a 64-row CTA, Wc 451 in
-# 32-row tiles, and 21-row windows stacked 3 to a CTA. Ragged in B, F, N and
-# the clipped edge tiles.
+# blocks_per_cta, cluster_size): one block's 36 window rows in a 64-row
+# CTA, Wc 451 in a pair of 64-row CTAs that split the bins, and 21-row
+# windows stacked 3 to a CTA. Ragged in B, F, N and the clipped edge tiles.
 CONFIGS = {
     "64 rows": (2, 3, 5, 45, 151, 10, 24, 100, 300),
-    "32 rows": (1, 2, 2, 40, 901, 9, 101, 150, 1700),
+    "paired": (1, 2, 2, 40, 901, 9, 101, 150, 1700),
     "stacked": (1, 3, 4, 45, 151, 25, 24, 100, 300),
 }
 # (B, N, F, H, Wc) of the MAC kernel's check: partial image and filter tiles

@@ -49,6 +49,18 @@ v5's Nyquist term this tree computes as the JAX kernels do, printed with
 their distance from the parent and whether the pair chunks' rows are
 bitwise the parent's.
 
+    python3 profile_torch_paths.py --wide-split CSRC
+
+instead splits the wide configuration's time (the v3 kernels where the
+64-row X does not fit: the large-kernel plan (1023, 1024, 512, 512) of 16
+kernels of 512² on the 2048² headline image) into its stages, as
+``--stacked-split`` does (``WIDE_SPLIT_PATCHES``: no W stage, no H stage, no
+MAC loads, no H products, no fifth passes (the parent's 32-row design) or
+no remote X reads (the paired design: each rank reads its own half twice),
+no epilogue stores), for the 3×TF32 f32 maps and peaks entries and the
+BF16IO maps entry, CUDA events, median of 7. A parent's csrc (its 32-row
+tiles) gets the operands of that layout.
+
     python3 profile_torch_paths.py --submit-probe
 
 instead times, on the host's clock, a headline ``ConvStream`` submit (a
@@ -163,20 +175,23 @@ def serve(stream, frames):
     stream.flush()
 
 
-def build_parent(csrc: pathlib.Path):
+def build_parent(csrc: pathlib.Path, radix: bool = True):
     """The parent's maps and peaks kernels, built from ``csrc`` into
     ``build/parent_ab`` with this tree's nvcc flags, every nvcc started
-    together → (the loaded library of the v3 entries, that of the radix
-    bodies' entries, that of the Karatsuba and v2 entries, each None where
-    the parent has none)."""
+    together → (the loaded library of the v3 entries — every unit but the
+    MAC's and the other libraries' —, that of the radix bodies' entries
+    (not built without ``radix``), that of the Karatsuba and v2 entries,
+    each None where the parent has none)."""
     from cuda_fft_convolution_torch import _build
 
     out = _build.BUILD_DIR / "parent_ab"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
-    units = {"libparent.so": ("block_conv", "block_conv_peaks"),
+    others = (*_build._RADIX_UNITS, *_build._FORM_UNITS, *_build._RADIX_FORM_UNITS,
+              "spectral_mac.cu")
+    units = {"libparent.so": tuple(u.stem for u in sorted(csrc.glob("*.cu")) if u.name not in others),
              "libparent_radix.so": tuple(u.removesuffix(".cu") for u in _build._RADIX_UNITS
-                                         if (csrc / u).exists()),
+                                         if radix and (csrc / u).exists()),
              "libparent_forms.so": tuple(u.removesuffix(".cu") for u in _build._FORM_UNITS
                                          if (csrc / u).exists())}
     objs = {lib: [out / f"{name}.o" for name in names] for lib, names in units.items()}
@@ -206,15 +221,17 @@ def build_parent(csrc: pathlib.Path):
     return tuple(libs)
 
 
-def bare_entry(lib, name, ops, geom, body="v3"):
+def bare_entry(lib, name, ops, geom, body="v3", layout=None):
     """The C entry ``name`` (a maps or peaks entry of any tier, body and
     H-stage form: ``body`` names the body, the ``_k`` suffix the Karatsuba
     form) of ``lib`` on ``ops`` at ``geom``, with this tree's operands of
     its tier, body and form, the wrappers' launch order and no wrapper
     around it (a wrapper's host checks would show in a one-call CUDA-event
     window) → its outputs: maps (B, N, out_h, out_w), or the partial
-    pyramid (vals, idxs) (B, N, nbh, row chunks, nbw). Raises where the
-    entry refuses the launch."""
+    pyramid (vals, idxs) (B, N, nbh, row chunks, nbw). ``layout`` (rows,
+    pair bins) overrides this tree's configuration of the operands: (32, 0)
+    for a parent that runs the wide blocks on 32-row tiles. Raises where
+    the entry refuses the launch."""
     import torch
 
     from cuda_fft_convolution_torch.ops import block_conv as bc
@@ -227,12 +244,17 @@ def bare_entry(lib, name, ops, geom, body="v3"):
     kara = name.endswith("_k")
     stem = name.removesuffix(bc.body_suffix(body, kara))
     splits = next((t for t, sfx in bc.TIER_SUFFIX.items() if sfx and stem.endswith(sfx)), 3)
-    rows = (bc.v2_rows if body == "v2" else bc.tile_rows)(wc, vh, splits, kara)
-    mats = bc._kernel_mats(bh, bw, kh, kw, str(dev), splits, rows)
+    if layout is None:
+        rows = (bc.v2_rows if body == "v2" else bc.tile_rows)(wc, vh, splits, kara)
+        half = bc.pair_bins(wc, vh, splits, kara) if body == "v3" else 0
+        chunks = (bc.peaks_chunks(wc, vh, splits, kara) if body == "v3"
+                  else bc.radix_row_chunks(wc, lh, vh, splits, kara))
+    else:
+        rows, half = layout
+        chunks = -(-vh // rows) * (2 if half else 1)
+    mats = bc._kernel_mats(bh, bw, kh, kw, str(dev), splits, rows, half)
     m_tc, radix = bc._radix_args(ops, bh, bw, kh, kw, str(dev), splits, body, mats[3], rows)
     if "_peaks_" in name:
-        chunks = (bc.row_chunks(wc, vh, splits, kara) if body == "v3"
-                  else bc.radix_row_chunks(wc, lh, vh, splits, kara))
         outs = (torch.empty((b, n, nbh, chunks, nbw), device=dev),
                 torch.empty((b, n, nbh, chunks, nbw), dtype=torch.int32, device=dev))
     else:
@@ -322,21 +344,32 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
                 if body in ("v5", "v5x") and not bc.radix_w_legal(bw, kw, vw):
                     continue
                 planes = ops16 if "_bf16" in name.replace("_bf16maps", "") else ops
-                a, c = (refused_or(lambda: bare_entry(lib, name, planes, geom, body))
-                        for lib in libs)
+                stem = name.removesuffix(bc.body_suffix(body, name.endswith("_k")))
+                tier = next((t_ for t_, sfx in bc.TIER_SUFFIX.items() if sfx and stem.endswith(sfx)),
+                            3)
+                # where this tree pairs 64-row CTAs the parent ran 32-row tiles
+                paired = body == "v3" and bc.cluster_size(wc, vh, tier, name.endswith("_k")) > 1
+                a, c = (refused_or(lambda lib=lib, lay=lay: bare_entry(lib, name, planes, geom, body,
+                                                                       layout=lay))
+                        for lib, lay in zip(libs, ((32, 0) if paired else None, None)))
                 torch.cuda.synchronize()
                 total += 1
                 same = (a is None and c is None) or (
                     a is not None and c is not None and all(torch.equal(x, y)
                                                             for x, y in zip(a, c)))
-                stem = name.removesuffix(bc.body_suffix(body, name.endswith("_k")))
-                tier = next((t_ for t_, sfx in bc.TIER_SUFFIX.items() if sfx and stem.endswith(sfx)),
-                            3)
                 if (not radix and not same and a is not None and c is not None
-                        and body == "v3" and bc.blocks_per_cta(wc, vh, tier) > 1):
-                    dist = float((c[0].float() - a[0].float()).abs().max()
-                                 / a[0].float().abs().max())
-                    moved.append(f"{label}: {name} {dist:.3e} from the parent (stacked)")
+                        and body == "v3" and (bc.blocks_per_cta(wc, vh, tier) > 1 or paired)):
+                    if paired and "_peaks_" in name:  # the parent's pyramid of 32-row chunks
+                        av, ai = bc._best_chunk(*a, 3)
+                        cv, ci = bc._best_chunk(*c, 3)
+                        dist = float((cv - av).abs().max() / av.abs().max())
+                        moved.append(f"{label}: {name} {dist:.3e} from the parent (paired), "
+                                     f"index flips {int((ai != ci).sum())}")
+                    else:
+                        dist = float((c[0].float() - a[0].float()).abs().max()
+                                     / a[0].float().abs().max())
+                        moved.append(f"{label}: {name} {dist:.3e} from the parent "
+                                     f"({'paired' if paired else 'stacked'})")
                 elif radix and a is not None and c is not None and not same:
                     dist = float((c[0].float() - a[0].float()).abs().max()
                                  / a[0].float().abs().max())
@@ -354,11 +387,104 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
             del ops, ops16
             torch.cuda.empty_cache()
     print(f"every entry, parent vs this tree: {equal} bitwise equal, {refused} refused by both, "
-          f"{len(moved)} radix or stacked entries moved, of {total} (entry, geometry) pairs")
+          f"{len(moved)} radix, stacked or paired entries moved, of {total} (entry, geometry) "
+          f"pairs")
     for line in moved:
         print(f"  moved: {line}")
     if bad:
         raise AssertionError(f"entries that differ from the parent's: {bad}")
+
+
+# The plans where the paired configuration took over from the parent's
+# 32-row tiles, on random planes: (label, B, F, N, block_h, block_w, kh,
+# kw, out_h, out_w): the large-kernel plan (16 kernels of 512² on the 2048²
+# image), the (256, 896) plan of 129² kernels and the (511, 1024) plan of
+# 256² kernels, N = 16 each.
+WIDE_AB_PLANS = [("512² plan", 1, 1, 16, 1023, 1024, 512, 512, 2048, 2048),
+                 ("(256, 896) plan, 129² kernels", 1, 1, 16, 384, 1024, 129, 129, 2048, 2048),
+                 ("(511, 1024) plan, 256² kernels", 1, 1, 16, 511, 1024, 256, 256, 2048, 2048)]
+
+
+def wide_entries() -> list:
+    """Every maps and peaks entry of the v3 body in both H-stage forms (the
+    entries the paired configuration runs at the wide plans)."""
+    from cuda_fft_convolution_torch import _build
+
+    maps = [n for n, sig in _build._SIGNATURES.items()
+            if n.startswith("fftconv_block_conv") and len(sig[0]) > 3]
+    return maps + [f"{n}_k" for n in maps]
+
+
+def wide_turns(parent_libs, seed: int, plans=None) -> dict:
+    """The moved entries (``wide_entries``) in turns, parent / this tree /
+    this tree / parent, bare C entries (the parent with its 32-row operands,
+    this tree with the pair's), at ``WIDE_AB_PLANS`` (every entry at the
+    first plan; the 3×TF32 and BF16IO maps and peaks at the others), each
+    side against the plain version → {(plan, entry): (the four ms)}. An
+    entry both sides refuse (the Karatsuba form at 6×TF32 on the 1024
+    block) is printed as refused."""
+    import numpy as np
+    import torch
+
+    from cuda_fft_convolution_torch import _build
+    from cuda_fft_convolution_torch.ops import block_conv as bc
+
+    libs = {False: (parent_libs[0], _build.library()), True: (parent_libs[2],
+                                                            _build.library(forms=True))}
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i, (label, b, f, n, bh, bw, kh, kw, out_h, out_w) in enumerate(plans or WIDE_AB_PLANS):
+        vh, vw, wc = bh - kh + 1, bw - kw + 1, bw // 2 + 1
+        nbh, nbw = -(-out_h // vh), -(-out_w // vw)
+
+        def t(*shape):
+            return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device="cuda")
+
+        ops = (t(b, nbh, nbw, f, bh, wc), t(b, nbh, nbw, f, bh, wc), t(n, f, bh, wc),
+               t(n, f, bh, wc))
+        ops16 = tuple(x.to(torch.bfloat16) for x in ops)
+        geom = (bh, bw, kh, kw, out_h, out_w)
+        names = wide_entries() if i == 0 else [
+            f"fftconv_block_conv{p}_{tag}" for p in ("", "_peaks") for tag in ("f32", "bf16_io")]
+        for name in names:
+            kara = name.endswith("_k")
+            stem = name.removesuffix("_k")
+            tier = next((t_ for t_, sfx in bc.TIER_SUFFIX.items() if sfx and stem.endswith(sfx)), 3)
+            planes = ops16 if "_bf16" in stem.replace("_bf16maps", "") else ops
+            if bc.cluster_size(wc, vh, tier, kara) == 1:
+                print(f"A/B {label} {name}: not paired here; refused by this tree "
+                      f"{not bc.form_taken(wc, vh, tier, True, kara)}")
+                continue
+            par, new = libs[kara]
+
+            def side(lib, lay):
+                return lambda: bare_entry(lib, name, planes, geom, layout=lay)
+
+            parent_call, this_call = side(par, (32, 0)), side(new, None)
+            a, c = parent_call(), this_call()
+            peaks = "_peaks_" in name
+            want = (bc.block_conv_peaks_reference(*planes, *geom, tier, radix_h=False,
+                                                  karatsuba=kara) if peaks
+                    else bc.block_conv_reference(*planes, *geom, splits=tier, karatsuba=kara))
+            torch.cuda.synchronize()
+            if peaks:
+                a, c = bc._best_chunk(*a, 3), bc._best_chunk(*c, 3)
+                errs = (f"values vs plain: parent {chip_smoke.rel_err(a[0], want[0]):.3e}, this "
+                        f"tree {chip_smoke.rel_err(c[0], want[0]):.3e}; indices = plain: parent "
+                        f"{torch.equal(a[1], want[1])}, this tree {torch.equal(c[1], want[1])}")
+            else:
+                errs = (f"vs plain: parent {chip_smoke.rel_err(a[0], want):.3e}, this tree "
+                        f"{chip_smoke.rel_err(c[0], want):.3e}")
+            del a, c, want
+            ts = [chip_smoke.cuda_ms(fn) for fn in (parent_call, this_call, this_call, parent_call)]
+            out[(label, name)] = ts
+            print(f"A/B {label} {name}: parent {ts[0]:.3f}, this tree {ts[1]:.3f}, this tree "
+                  f"{ts[2]:.3f}, parent {ts[3]:.3f} ms (this tree / parent "
+                  f"{(ts[1] + ts[2]) / (ts[0] + ts[3]):.3f}); {errs} ({chip_smoke.card()})")
+            torch.cuda.empty_cache()
+        del ops, ops16
+        torch.cuda.empty_cache()
+    return out
 
 
 def ab_parent(csrc: pathlib.Path, seed: int) -> None:
@@ -381,6 +507,7 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
     lib = parent_libs[0]
     this = _build.library()
     every_entry_bitwise(parent_libs, seed)
+    wide_turns(parent_libs, seed)
 
     def calls(ops, geom, peaks, splits=3):
         """(the parent's call, this tree's call): both bare C entries of the
@@ -650,6 +777,138 @@ def stacked_split(csrc: pathlib.Path, seed: int) -> None:
             ms = chip_smoke.cuda_ms(lambda: bare_entry(lib, entry, ops, geom))
             whole.setdefault(label, ms)
             print(f"split {design}, {label}, {name}: {ms:.3f} ms "
+                  f"({ms - whole[label]:+.3f} against the whole kernel; {chip_smoke.card()})")
+            torch.cuda.empty_cache()
+
+
+# The stage-split patches of the wide configuration (Wc > 320: the
+# large-kernel plan's 1024 block), by design: "32 rows" is the parent's
+# (mma.sync, one CTA a 32-row chunk of a cell), "paired" this tree's (a
+# cluster of two 64-row CTAs splitting the bins). (file, text, replacement)
+# a variant, as SPLIT_PATCHES; "no fifth passes" drops the passes past the
+# fourth of 128 bins and columns (the 1024 block's H bin 512 and W column
+# 512 in the parent).
+WIDE_SPLIT_PATCHES = {
+    "32 rows": {
+        "no W stage": [("block_conv.cuh", "    Epi epi(out, cell_at, geom);\n    w_stage(x_s, epi);",
+                        "    Epi epi(out, cell_at, geom);\n    if (cell_at.ni < 0) w_stage(x_s, epi);")],
+        "no H stage": [("block_conv.cuh", "  for (int c0 = 0; c0 < h_cols; c0 += kCols) {",
+                        "  for (int c0 = 0; c0 < 0; c0 += kCols) {")],
+        "no MAC loads": [("block_conv.cuh", "        const bool ok = u < lh && v < wc && s_v(q) < w;",
+                          "        const bool ok = u < 0 && v < wc && s_v(q) < w;")],
+        "no H products": [("block_conv.cuh",
+                           "        for (int ks = 0; ks < kUK / 8; ++ks)\n#pragma unroll\n"
+                           "          for (int np = 0; np < 2; ++np) {\n            // B: S rows",
+                           "        for (int ks = 0; ks < 0; ++ks)\n#pragma unroll\n"
+                           "          for (int np = 0; np < 2; ++np) {\n            // B: S rows")],
+        "no fifth passes": [("block_conv.cuh", "  for (int c0 = 0; c0 < h_cols; c0 += kCols) {",
+                             "  for (int c0 = 0; c0 < min(h_cols, 4 * kCols); c0 += kCols) {"),
+                            ("block_conv.cuh", "  const int mcols = m_cols(wcols);",
+                             "  const int mcols = min(m_cols(wcols), 4 * kCols);")],
+    },
+    "paired": {
+        "no W stage": [("block_conv.cuh", "    Epi epi(out, cell_at, geom);\n    w_stage(x_s, epi);",
+                        "    Epi epi(out, cell_at, geom);\n    if (cell_at.ni < 0) w_stage(x_s, epi);")],
+        "no H stage": [("block_conv.cuh", "  for (int c0 = 0; c0 < h_cols; c0 += kCols) {",
+                        "  for (int c0 = 0; c0 < 0; c0 += kCols) {")],
+        "no MAC loads": [("block_conv.cuh", "        const bool ok = u < lh && v < wc && s_v(q) < w;",
+                          "        const bool ok = u < 0 && v < wc && s_v(q) < w;")],
+        "no H products": [("block_conv.cuh", "        } else if (live) {\n          // The warpgroup's 64 rows",
+                           "        } else if (live && lh < 0) {\n          // The warpgroup's 64 rows")],
+        "no remote X": [("block_conv.cuh", "        const bool remote = PAIRED && src != crank;",
+                         "        const bool remote = false;")],
+        "no Nyquist H sums": [("block_conv.cuh", "    const bool nyq = PAIRED && c0 == 0;",
+                               "    const bool nyq = false;")],
+        "no Nyquist W term": [("block_conv.cuh",
+                               "          if constexpr (PAIRED) add_nyq(acc, rank * 16 + g8, col);\n",
+                               "")],
+        "no last column": [("block_conv.cuh", "    if (vw > pair_cols(vw)) {",
+                            "    if (vw < 0) {")],
+        "32-bit MAC offsets": [("block_conv.cuh",
+                                "        const long long off = ok ? static_cast<long long>(u) * wc + v + ff * plane : 0;",
+                                "        const int off = ok ? u * wc + v + ff * static_cast<int>(plane) : 0;")],
+    },
+}
+_WIDE_SPLIT_UNIT = """#include "block_conv_maps.cuh"
+#include "block_conv_peaks.cuh"
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32, float, float, StoreF32, 3)
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16_io, __nv_bfloat16, float, StoreF32, kBF16IO)
+FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_f32, float, 3)
+"""
+
+
+def wide_split(csrc: pathlib.Path, seed: int) -> None:
+    """Time the wide configuration's stages at the large-kernel plan
+    (module docstring)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import cuda_fft_convolution_torch as fc
+    from cuda_fft_convolution_torch import _build
+
+    design = "paired" if "PAIRED" in (csrc / "block_conv.cuh").read_text() else "32 rows"
+    variants = {"whole": [], **WIDE_SPLIT_PATCHES[design], "no epilogue": _NO_EPILOGUE}
+    root = _build.BUILD_DIR / "wide_split" / design.replace(" ", "_")
+    nvcc = _build._nvcc()
+    procs = {}
+    for name, patches in variants.items():
+        out = root / name.replace(" ", "_")
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.copytree(csrc, out)
+        ok = True
+        for file, text, new in patches:
+            src = (out / file).read_text()
+            if src.count(text) != 1:
+                print(f"wide split {design}, {name}: patch text found {src.count(text)} times "
+                      f"in {file}; skipped")
+                ok = False
+                break
+            (out / file).write_text(src.replace(text, new))
+        if not ok:
+            continue
+        (out / "split.cu").write_text(_WIDE_SPLIT_UNIT)
+        procs[name] = (out, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, *_build.LINK_FLAGS[2:], "-o", str(out / "libsplit.so"),
+             str(out / "split.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    entries = ("fftconv_block_conv_f32", "fftconv_block_conv_bf16_io",
+               "fftconv_block_conv_peaks_f32")
+    libs = {}
+    for name, (out, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            print(f"wide split {design}, {name}: nvcc failed:\n{log[-3000:]}")
+            continue
+        print(f"wide split {design}, {name}: built")
+        lib = ctypes.CDLL(str(out / "libsplit.so"))
+        for entry in entries:
+            getattr(lib, entry).argtypes, getattr(lib, entry).restype = _build._SIGNATURES[entry]
+        libs[name] = lib
+
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                             "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(f"wide split {design}: SM clock now, most: {clocks.strip()}")
+    rng = np.random.default_rng(seed)
+    s, n, k = chip_smoke.HEADLINE["size"], chip_smoke.BIGKERNEL["n"], chip_smoke.BIGKERNEL["k"]
+    image = torch.as_tensor(rng.standard_normal((s, s, 1)).astype(np.float32), device="cuda")
+    bank = torch.as_tensor(rng.standard_normal((n, k, k, 1)).astype(np.float32), device="cuda")
+    spec = fc.fft_data_tiled(image, k, k, trim_mode="same")
+    sk = fc.fft_kernels(bank, spectral=spec)
+    geom = (spec.block_h, spec.block_w, spec.max_kh, spec.max_kw, spec.out_h, spec.out_w)
+    if geom[:4] != chip_smoke.BIGKERNEL["plan"]:
+        raise AssertionError(f"large-kernel plan {geom[:4]}")
+    ops = (spec.re[None], spec.im[None], sk.re, sk.im)
+    ops16 = tuple(x.to(torch.bfloat16) for x in ops)
+    layout = (32, 0) if design == "32 rows" else None  # a parent's 32-row operands
+    whole = {}
+    for label, entry, planes in (("f32 maps, 3xTF32", entries[0], ops),
+                                 ("bf16 spectra maps, BF16IO", entries[1], ops16),
+                                 ("f32 peaks, 3xTF32", entries[2], ops)):
+        for name, lib in libs.items():
+            ms = chip_smoke.cuda_ms(lambda: bare_entry(lib, entry, planes, geom, layout=layout))
+            whole.setdefault(label, ms)
+            print(f"wide split {design}, 512² plan {label}, {name}: {ms:.3f} ms "
                   f"({ms - whole[label]:+.3f} against the whole kernel; {chip_smoke.card()})")
             torch.cuda.empty_cache()
 
@@ -981,6 +1240,8 @@ def main(argv=None) -> int:
                         help="where the BF16IO maps entry parts from its plain version")
     parser.add_argument("--stacked-split", type=pathlib.Path, default=None,
                         help="a csrc whose stacked configuration's stages to time")
+    parser.add_argument("--wide-split", type=pathlib.Path, default=None,
+                        help="a csrc whose wide configuration's stages to time")
     parser.add_argument("--soak", type=float, default=0.0,
                         help="with --submit-probe: repeat the submit trial this many seconds")
     args = parser.parse_args(argv)
@@ -1002,6 +1263,9 @@ def main(argv=None) -> int:
         return 0
     if args.stacked_split is not None:
         stacked_split(args.stacked_split.resolve(), args.seed)
+        return 0
+    if args.wide_split is not None:
+        wide_split(args.wide_split.resolve(), args.seed)
         return 0
     if args.submit_probe:
         submit_probe(args.seed, args.soak)

@@ -124,7 +124,8 @@ def test_fused_splits_bf16_is_bf16io(setting):
 def _c_smem(wc, vh):
     """csrc/block_conv.cuh smem_bytes at kBF16IO (one piece an operand, one
     plane of M^T), written out from the header's formulas → (shared
-    memory, rows, blocks a CTA, kernels a CTA)."""
+    memory, rows, blocks a CTA, kernels a CTA; a pair's CTA holds 64
+    rows)."""
     x_stride = 2 * (-(-wc // 32) * 32) + 4
     m_plane = (128 // 8) * (32 // 4) * 32
     stage_w = 2 * 1 * m_plane
@@ -147,8 +148,23 @@ def _c_smem(wc, vh):
             fits = wc <= 96 // (4 * g * t) * 2 * 224 // 16
             if fits and steps >= 2 and smem <= 232448:
                 return smem, 64, g, t
-    rows = 64 if one_block(64) <= 232448 else 32
-    return one_block(rows), rows, 1, 1
+    if one_block(64) <= 232448:
+        return one_block(64), 64, 1, 1
+    # the pair: X of h bins a CTA (half of the wc - 1 below the last,
+    # rounded up to 32; 32 more where that leaves the other CTA a pass of
+    # under 32 bins), the 64-row staging area, a sliver of 256 floats
+    nb = wc - 1
+
+    def pair(h):
+        return 4 * (64 * (2 * h + 4) + max(2 * 128 * 16 + 3 * 64 * 16, stage_w) + 256)
+
+    h0 = ((nb + 1) // 2 + 31) // 32 * 32
+    for h in (h0, h0 + 32):
+        if h < nb and ((nb - h) % 128 == 0 or (nb - h) % 128 >= 32) and pair(h) <= 232448:
+            return pair(h), 64, 1, 1
+    if h0 < nb and pair(h0) <= 232448:
+        return pair(h0), 64, 1, 1
+    return one_block(32), 32, 1, 1
 
 
 @pytest.mark.parametrize("wc", [17, 70, 129, 224, 256, 301, 320, 385, 513, 577, 769])

@@ -182,12 +182,14 @@ def test_smem_model_matches_kernel_constants():
     # 64-row tiles: X (64 rows of [Xr | Xi] over the bins padded to 32, plus
     # 4 floats) and the W stage's ring (two 32-row chunks of M^T's TF32 hi
     # and lo planes, 128 columns each: 16,384 floats) — 181,248 B at the
-    # headline width (Wc = 224, Vh = 64). Past Wc = 320 the 32-row tiles
-    # take over; JAX's largest block (1024) still fits.
+    # headline width (Wc = 224, Vh = 64). Past Wc = 320 a pair of 64-row
+    # CTAs splits the bins below the last (X of half of them, rounded up to
+    # 32, and a sliver of 256 floats); JAX's largest block (1024) still
+    # fits, and a block of 2048 fits neither the pair nor 32-row tiles.
     assert tbc.smem_bytes(224, 64) == (64 * (2 * 224 + 4) + 16384) * 4 == 181248
     assert tbc.smem_bytes(320, 64) == (64 * (2 * 320 + 4) + 16384) * 4
-    assert tbc.smem_bytes(321, 64) == (32 * (2 * 352 + 4) + 16384) * 4
-    assert tbc.smem_bytes(449, 64) == (32 * (2 * 480 + 4) + 16384) * 4
+    assert tbc.smem_bytes(321, 64) == (64 * (2 * 160 + 4) + 16384 + 256) * 4
+    assert tbc.smem_bytes(449, 64) == (64 * (2 * 224 + 4) + 16384 + 256) * 4
     assert tbc.smem_bytes(1024 // 2 + 1, 64) <= tbc.SMEM_LIMIT_BYTES
     assert tbc.smem_bytes(2048 // 2 + 1, 64) > tbc.SMEM_LIMIT_BYTES
 
@@ -213,6 +215,13 @@ def _one_block_smem(wc, rows):
     return (rows * (2 * (-(-wc // 32) * 32) + 4) + 16384) * 4
 
 
+def _pair_smem(half):
+    """The paired configuration: X of ``half`` bins a CTA (64 rows), the
+    64-row staging area, and the sliver (the last bin's X, the last
+    column's partial sums: 256 floats)."""
+    return (64 * (2 * half + 4) + 16384 + 256) * 4
+
+
 @pytest.mark.parametrize(
     "wc,vh,blocks,kernels,rows,smem,chunks",
     [
@@ -227,14 +236,15 @@ def _one_block_smem(wc, rows):
         (70, 32, 2, 2, 64, _stacked_smem(70, 2, 2)[1], 1),
         (129, 32, 2, 1, 64, _stacked_smem(129, 2, 1)[1], 1),
         # past 224 bins nothing stacks (Vh 32; Vh 16 past 160): the
-        # one-block configurations (64 rows to Wc 320, then 32)
+        # one-block configurations (64 rows to Wc 320, then pairs of 64-row
+        # CTAs)
         (256, 32, 1, 1, 64, _one_block_smem(256, 64), 1),
         # Wc 160 (Vh 16): the widest stack, one kernel a CTA
         (160, 16, 4, 1, 64, _stacked_smem(160, 4, 1)[1], 1),
         (224, 16, 1, 1, 64, _one_block_smem(224, 64), 1),
         (257, 16, 1, 1, 64, _one_block_smem(257, 64), 1),
         (320, 16, 1, 1, 64, _one_block_smem(320, 64), 1),
-        (384, 16, 1, 1, 32, _one_block_smem(384, 32), 1),
+        (384, 16, 1, 1, 64, _pair_smem(192), 1),
         # T's limits: Wc 96 the widest 2 kernels a CTA at Vh 16, 97 one;
         # Vh 32 two to Wc 128; Vh 21 stacks to 187 bins, Vh 16 to 160 (the
         # 64-row X and ring beside 8 KB of S for one kernel)
@@ -250,16 +260,18 @@ def _one_block_smem(wc, rows):
         (70, 33, 1, 1, 64, _one_block_smem(70, 64), 1),
         # the headline (Wc 224, Vh 64): 181,248 B, one block
         (224, 64, 1, 1, 64, 181248, 1),
-        # Wc 320, the widest 64-row block; Wc 321 takes 32 rows, 2 row chunks
+        # Wc 320, the widest 64-row block; Wc 321 takes a pair (160 bins a
+        # CTA), 1 row chunk
         (288, 64, 1, 1, 64, _one_block_smem(288, 64), 1),
         (289, 64, 1, 1, 64, _one_block_smem(289, 64), 1),
         (320, 64, 1, 1, 64, _one_block_smem(320, 64), 1),
-        (321, 64, 1, 1, 32, _one_block_smem(321, 32), 2),
-        # Wc 449: 32-row tiles, one block, two row chunks at Vh 64
-        (449, 16, 1, 1, 32, _one_block_smem(449, 32), 1),
-        (449, 64, 1, 1, 32, _one_block_smem(449, 32), 2),
-        # the 1024 block (Wc 513, Vh 961): 31 row chunks of 32
-        (513, 961, 1, 1, 32, _one_block_smem(513, 32), 31),
+        (321, 64, 1, 1, 64, _pair_smem(160), 1),
+        # Wc 449: a pair of 224 bins a CTA, one row chunk at Vh 64
+        (449, 16, 1, 1, 64, _pair_smem(224), 1),
+        (449, 64, 1, 1, 64, _pair_smem(224), 1),
+        # the 1024 block (Wc 513, Vh 961): a pair of 256 bins a CTA, 16 row
+        # chunks of 64
+        (513, 961, 1, 1, 64, _pair_smem(256), 16),
     ],
 )
 def test_configuration_mirror(wc, vh, blocks, kernels, rows, smem, chunks):

@@ -253,7 +253,7 @@ def test_build_library_named_by_source_hash(tmp_path):
     # every C entry point the wrappers call has a signature: one per kernel
     # dtype mode, synthesis tier and body (the radix bodies' entries, in
     # the radix library, take three more pointers), and the configuration
-    # model's four queries (packed width, window height, tier)
+    # model's six queries (packed width, window height, tier)
     v3 = {
         "fftconv_block_conv_f32", "fftconv_block_conv_f32_bf16maps",
         "fftconv_block_conv_bf16", "fftconv_block_conv_bf16_bf16maps",
@@ -262,13 +262,15 @@ def test_build_library_named_by_source_hash(tmp_path):
         "fftconv_block_conv_bf16_io", "fftconv_block_conv_bf16_bf16maps_io",
         "fftconv_block_conv_f32_smem_bytes", "fftconv_block_conv_f32_rows",
         "fftconv_block_conv_f32_blocks", "fftconv_block_conv_f32_kernels",
+        "fftconv_block_conv_f32_cluster", "fftconv_block_conv_f32_pair_bins",
         "fftconv_block_conv_peaks_f32", "fftconv_block_conv_peaks_bf16",
         "fftconv_block_conv_peaks_f32_x6", "fftconv_block_conv_peaks_f32_x1",
         "fftconv_block_conv_peaks_bf16_io",
         "fftconv_spectral_mac_f32", "fftconv_spectral_mac_bf16",
     }
     kernels = {n for n in v3 if n.startswith("fftconv_block_conv") and n.count("_") > 2
-               and not n.endswith(("smem_bytes", "rows", "blocks", "kernels"))}
+               and not n.endswith(("smem_bytes", "rows", "blocks", "kernels", "cluster",
+                                   "pair_bins"))}
     assert len(kernels) == 15
     radix = {f"{n}{body}" for n in kernels for body in ("_r4", "_r5", "_r5x")}
     assert set(_build._SIGNATURES) == v3
@@ -277,7 +279,7 @@ def test_build_library_named_by_source_hash(tmp_path):
         v3_args = _build._SIGNATURES[name.rsplit("_", 1)[0]][0]
         assert _build._RADIX_SIGNATURES[name][0] == (
             v3_args[:8] + [ctypes.c_void_p] * 3 + v3_args[8:])
-    for query in ("smem_bytes", "rows", "blocks", "kernels"):
+    for query in ("smem_bytes", "rows", "blocks", "kernels", "cluster", "pair_bins"):
         assert len(_build._SIGNATURES[f"fftconv_block_conv_f32_{query}"][0]) == 3
     # the forms library: the Karatsuba maps and peaks entries (_k) and the
     # v2 maps entries (_v2, _v2_k), with the v3 entries' arguments, and the
@@ -294,6 +296,7 @@ def test_build_library_named_by_source_hash(tmp_path):
     forms = ({f"{n}{sfx}" for n in maps for sfx in ("_k", "_v2", "_v2_k")}
              | {f"{n}_k" for n in kernels - maps})
     queries = {"fftconv_block_conv_k_smem_bytes", "fftconv_block_conv_k_rows",
+               "fftconv_block_conv_k_cluster", "fftconv_block_conv_k_pair_bins",
                "fftconv_block_conv_v2_smem_bytes", "fftconv_block_conv_v2_rows",
                "fftconv_block_conv_v2_blocks"}
     assert set(_build._FORM_SIGNATURES) == forms | queries

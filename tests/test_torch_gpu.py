@@ -59,16 +59,19 @@ GEOMETRIES = [
     (2, 3, 5, 45, 151, 10, 24, 100, 300),
     (1, 1, 3, 127, 447, 64, 64, 2048, 2048),  # the headline plan
     (1, 2, 3, 80, 601, 17, 50, 200, 1100),  # Wc = 301: the widest 64-row tiles
-    (1, 2, 2, 40, 901, 9, 101, 150, 1700),  # Wc = 451: 32-row tiles, 2 row chunks
-    # the planner's largest block (Wc = 513, Vh = 961): 32-row tiles, 31 row
+    (1, 2, 2, 40, 901, 9, 101, 150, 1700),  # Wc = 451: a pair of 64-row CTAs, Vh 32
+    # the planner's largest block (Wc = 513, Vh = 961): a pair, 16 row
     # chunks, the longest contractions the 3xTF32 syntheses see
     (1, 1, 2, 1024, 1024, 64, 64, 1500, 1200),
     # the large-kernel plan (bench.py's 512² kernels on a 2048² image): an
-    # odd Lh of 1023, Wc = 513, the longest H contraction
+    # odd Lh of 1023, Wc = 513, the longest H contraction; a pair, the last
+    # output column (Vw 513) alone
     (1, 1, 3, 1023, 1024, 512, 512, 1500, 1200),
     # the F=8 tier's plan (bench.py's 64 kernels of 32²x8): stacked, F = 8
     (1, 8, 5, 63, 287, 32, 32, 200, 700),
     *SHORT_WINDOWS,
+    # the (256, 896) plan of 129² kernels: a pair, 7 W passes (4 / 3)
+    (1, 1, 3, 384, 1024, 129, 129, 700, 1500),
 ]
 
 
@@ -1178,7 +1181,8 @@ def test_train_step_sharded_on_gpu(nccl_mesh):
 
 # The radix-2 bodies (JAX's v4, v5, v5x; ops/block_conv.py radix_h_legal,
 # radix_w_legal): JAX's fp32 and bf16 F=1 plan (256, 512, 65, 129) in the
-# 64-row configuration, its 32² plan (128, 512, 33, 129), Wc = 513 (32 rows),
+# 64-row configuration, its 32² plan (128, 512, 33, 129), Wc = 513 (32 rows:
+# the radix bodies keep the 32-row tiles where v3 pairs),
 # a window start that leaves a partial pair chunk and a partial single
 # chunk (Vh 200: M − w0 = 72 pairs, 56 single rows), and a v4-only plan
 # (Wc = 301, M = 40; W odd, so no DIF).
@@ -1336,11 +1340,11 @@ def test_radix_flags_refused_on_gpu(cuda):
 
 
 # The other H-stage forms (ops/block_conv.py karatsuba, wstack): the
-# Karatsuba H stage in v3's three configurations (64 rows, 32 rows and
-# stacked) and v2 (v2_rows, v2_blocks: one block a CTA at 64 rows, several
-# of a column at 32), at the small ragged shape, the headline plan, Wc 301
-# (the Karatsuba stage's 64 rows stop at Wc 288: 32 rows), Wc 451 (2 row
-# chunks), the 1024 block (where 6xTF32's Karatsuba stage does not fit),
+# Karatsuba H stage in v3's configurations (64 rows, paired and stacked)
+# and v2 (v2_rows, v2_blocks: one block a CTA at 64 rows, several of a
+# column at 32), at the small ragged shape, the headline plan, Wc 301 (the
+# Karatsuba stage's 64 rows stop at Wc 288: a pair), Wc 451 (a pair), the
+# 1024 block (where 6xTF32's Karatsuba stage does not fit),
 # the F=8 and the DPM plans (stacked; v2 at 4 and 6 blocks a CTA).
 FORM_GEOMETRIES = [GEOMETRIES[0], GEOMETRIES[1], GEOMETRIES[2], GEOMETRIES[3], GEOMETRIES[4],
                    GEOMETRIES[6], SHORT_WINDOWS[0]]

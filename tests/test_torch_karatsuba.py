@@ -255,6 +255,26 @@ def _c_stage_h(rows, pieces, kara):
     return s * pieces * (128 + rows) * 20
 
 
+def _c_pair(wc, splits, kara):
+    """csrc/block_conv.cuh's paired configuration written out → (rank 0's
+    bins, shared memory), (0, 0) where it does not fit: X of h bins a CTA
+    (half of the wc - 1 below the last, rounded up to 32; 32 more where
+    that leaves rank 1 a pass of under 32 bins), the 64-row staging area, a
+    sliver of 256 floats."""
+    pieces = tbc.TIERS[splits]
+    stage = max(_c_stage_h(64, pieces, kara), 2 * pieces * 128 * 32)
+
+    def smem(h):
+        return 4 * (64 * (2 * h + 4) + stage + 256)
+
+    nb = wc - 1
+    h0 = ((nb + 1) // 2 + 31) // 32 * 32
+    for h in (h0, h0 + 32):
+        if h < nb and ((nb - h) % 128 == 0 or (nb - h) % 128 >= 32) and smem(h) <= 232448:
+            return h, smem(h)
+    return (h0, smem(h0)) if h0 < nb and smem(h0) <= 232448 else (0, 0)
+
+
 def _c_one_block(wc, rows, splits, kara):
     """csrc/block_conv.cuh tile_smem_bytes written out (the W stage's ring:
     2 chunks of M^T's planes, one plane at 32 rows and 6xTF32)."""
@@ -270,7 +290,9 @@ def test_mirror_of_both_forms(splits):
     the C side's formulas: the one-block configurations stage Sr + Si and
     Gr + Gi (the stacked one nothing more); v2 takes 32 rows for windows of
     at most 32 rows or where 64 do not fit, and the most blocks (up to 16,
-    at least 1) whose X fits beside the staging area."""
+    at least 1) whose X fits beside the staging area; v3 pairs 64-row CTAs
+    where 64 rows do not fit and the pair does (``_c_pair``), else 32
+    rows."""
     for wc in (17, 70, 129, 144, 224, 225, 256, 257, 301, 320, 321, 451, 513):
         for vh in (1, 8, 16, 21, 32, 33, 64, 100, 961):
             g = tbc.blocks_per_cta(wc, vh, splits)
@@ -279,9 +301,12 @@ def test_mirror_of_both_forms(splits):
                 assert rows == 64
                 assert tbc.smem_bytes(wc, vh, splits, True) == tbc.smem_bytes(wc, vh, splits)
             else:
-                want_rows = 64 if _c_one_block(wc, 64, splits, True) <= 232448 else 32
-                assert rows == want_rows
-                assert tbc.smem_bytes(wc, vh, splits, True) == _c_one_block(wc, rows, splits, True)
+                fits64 = _c_one_block(wc, 64, splits, True) <= 232448
+                half, pair_smem = (0, 0) if fits64 else _c_pair(wc, splits, True)
+                assert rows == (64 if fits64 or half else 32)
+                assert tbc.cluster_size(wc, vh, splits, True) == (2 if half else 1)
+                assert tbc.smem_bytes(wc, vh, splits, True) == (
+                    pair_smem if half else _c_one_block(wc, rows, splits, True))
             assert tbc.row_chunks(wc, vh, splits, True) == (1 if g > 1 else -(-vh // rows))
             for kara in (False, True):
                 v2_rows = 32 if vh <= 32 or _c_one_block(wc, 64, splits, kara) > 232448 else 64

@@ -310,15 +310,17 @@ def test_smem_within_the_limit_wherever_admitted(splits):
 def test_smem_per_tier_at_the_plans():
     """The headline (Wc 224) stays on 64 rows at every tier; 6×TF32 holds
     three planes of M^T in the ring (64 × 452 + 24,576 floats); the 1024
-    block (Wc 513) runs 32 rows, at 6×TF32 with M^T as one plane; the DPM
-    plan stacks 4 blocks at every tier; Wc 301 takes 32 rows at 6×TF32."""
+    block (Wc 513) runs a pair of 64-row CTAs of 256 bins each, at 6×TF32
+    with M^T's three planes in the ring and the 256-float sliver; the DPM
+    plan stacks 4 blocks at every tier; Wc 301 takes a pair at 6×TF32."""
     assert tbc.smem_bytes(224, 64) == 181248  # unchanged
     assert tbc.smem_bytes(224, 64, 6) == 4 * (64 * 452 + 2 * 3 * 4096) == 214016
     assert tbc.smem_bytes(224, 64, 1) == 4 * (64 * 452 + 2 * 4096) == 148480
-    assert tbc.tile_rows(513, 961, 6) == 32 and tbc.m_planes(32, 6) == 1
-    assert tbc.smem_bytes(513, 961, 6) == 4 * (32 * 1092 + 6 * 128 * 20 + 6 * 32 * 20)
+    assert tbc.tile_rows(513, 961, 6) == 64 and tbc.cluster_size(513, 961, 6) == 2
+    assert tbc.smem_bytes(513, 961, 6) == 4 * (64 * 516 + 2 * 3 * 4096 + 256) == 231424
     assert all(tbc.blocks_per_cta(70, 16, s) == 4 for s in tbc.TIERS)
-    assert tbc.tile_rows(301, 64, 3) == 64 and tbc.tile_rows(301, 64, 6) == 32
+    assert tbc.tile_rows(301, 64, 3) == 64 and tbc.cluster_size(301, 64, 3) == 1
+    assert tbc.tile_rows(301, 64, 6) == 64 and tbc.pair_bins(301, 64, 6) == 192
 
 
 def test_a_tier_that_does_not_fit_runs_unfused(rng, tier, monkeypatch):
@@ -343,8 +345,9 @@ def test_a_tier_that_does_not_fit_runs_unfused(rng, tier, monkeypatch):
 @pytest.mark.parametrize("splits,planes", [(3, 2), (6, 3), (1, 1)])
 def test_kernel_mats_planes_per_tier(splits, planes):
     """M^T's planes are the tier's TF32 pieces (the default tier's hi and lo
-    unchanged), or M^T itself in the 32-row configuration at 6×TF32; the
-    tier is part of the operands' cache key."""
+    unchanged), also in the pair's operand (the 1024 block), whose pieces
+    at 6×TF32 sum to M^T exactly; the tier is part of the operands' cache
+    key."""
     m3 = tbc.m_core(tbc._kernel_mats(127, 447, 64, 64, "cpu")[3])
     m6 = tbc.m_core(tbc._kernel_mats(127, 447, 64, 64, "cpu", 6)[3])
     m = tbc.m_core(tbc._kernel_mats(127, 447, 64, 64, "cpu", splits)[3])
@@ -357,12 +360,16 @@ def test_kernel_mats_planes_per_tier(splits, planes):
     reach = {1: 2.0**-10, 3: 2.0**-21, 6: 0.0}[splits]
     assert (m.double().sum(0) - exact).abs().max() <= reach * exact.abs().max()
     wide = tbc._kernel_mats(1024, 1024, 64, 64, "cpu", splits)[3]
-    want_wide = 1 if splits == 6 else planes  # 32 rows: M^T as one plane at 6×TF32
-    assert wide.shape[0] == want_wide
+    # the pair: K = 4 × 256 (rank 0's [Mr | Mi], rank 1's), 961 columns in
+    # 8 passes of 128, then the sliver's 2 × 1024 + 1024 + 4 floats
+    main = planes * 1024 * 1024
+    assert wide.ndim == 1 and wide.numel() == main + 2 * 1024 + 1024 + 4
     if splits == 6:
-        raw = wide[0].permute(0, 2, 1, 3).reshape(wide.shape[1] * 8, -1)
+        core = tbc.m_core(wide[:main].reshape(8, 32, planes, 16, 8, 8, 4))
+        raw = core.permute(0, 1, 3, 2, 4).reshape(planes, 1024, 1024).double().sum(0)
         _, _, mr1, mi1 = tbc._window_mats(1024, 1024, 64, 64, "cpu")
-        assert torch.equal(raw[: mr1.shape[1], : mr1.shape[0]], mr1.t())
+        assert torch.equal(raw[: mr1.shape[1], :256], mr1[:256].t().double())
+        assert torch.equal(raw[: mr1.shape[1], 256:512], mi1[:256].t().double())
 
 
 def _recording(monkeypatch):

@@ -89,7 +89,7 @@ def test_ring_keeps_the_shared_memory_and_every_configuration(splits):
     chunk = tbc.m_planes(64, splits) * 128 * 32
     for wc in (17, 70, 129, 224, 256, 301, 320):
         x = _x_floats(wc, 64)
-        if tbc.tile_rows(wc, 64, splits) == 64:
+        if tbc.tile_rows(wc, 64, splits) == 64 and tbc.cluster_size(wc, 64, splits) == 1:
             stage_h = 2 * tbc.TIERS[splits] * 128 * 16 + 3 * tbc.TIERS[splits] * 64 * 16
             assert tbc.smem_bytes(wc, 64, splits) == 4 * (x + max(stage_h, 2 * chunk))
         # each of the 64 rows has 4 floats of padding past [Xr | Xi]: room
