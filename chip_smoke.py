@@ -282,8 +282,9 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      radix_h``, ``radix_w``, ``xsliver``) at three of JAX's one-block
      plans, reached through the tuner's table (``RADIX_PLANS``): (256,
      512, 65, 129), JAX's fp32 and bf16 F=1 plan, 64 rows; (128, 512, 33,
-     129), its 32² plan; (256, 1024, 65, 129), Wc 513, 32 rows (the radix
-     bodies keep the 32-row tiles there) — each on
+     129), its 32² plan; (256, 1024, 65, 129), Wc 513 (v4 runs the cluster
+     pair there, as v3 does, and at 6xTF32 on Wc 257; v5 and v5x 32 rows)
+     — each on
      the headline image with 100 kernels (64², or 32² at the 32² plan): v3
      and every radix entry in both H-stage forms (the 4-product entries and
      the Karatsuba ones, ``_r4_k``, ``_r5_k``, ``_r5x_k``: f32 and bf16
@@ -293,7 +294,8 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      float64 on 8 maps (1e-5 at fp32, 2e-3 at one pass, 2e-2 at bf16
      spectra), the refusal where the kernels do not take a form (the
      Karatsuba form at 6xTF32 on Wc 513), and every 4-product entry's
-     time, beside the
+     time (and every v4 Karatsuba entry's), with the configuration it runs
+     (the pair, 64 or 32 rows) and its plain version's time, beside the
      bound of the body's own products (``synthesis_flop`` with the body,
      the JSON rows' ``bound_ms``) and the bound of v3's work, the same
      work whatever body runs it (``same_work_bound_ms``); then the main
@@ -349,9 +351,9 @@ parent ran the (1, 1) tile and this tree the split form (it sums in
 another order); at such a row the wrapper and the complex einsum are timed
 in the same turns. It also builds the parent's fused kernels and times, in
 the same turns, every entry the paired configuration took over from the
-parent's 32-row tiles at the 512² plan (and the 3xTF32 and BF16IO maps
-and peaks at the (256, 896) and (511, 1024) plans), each side against the
-plain version (``wide_ab``).
+parent's 32-row tiles (the v4 maps and peaks entries of both H-stage
+forms where v4 pairs at step 36's plans), each side against the plain
+version, v3's paired entry timed beside each (``wide_ab``).
 
 Steps 13–37 print each check, each time (CUDA events, median of 7, unless
 said otherwise) beside the card's name and power limit, the kernel launches
@@ -1357,13 +1359,13 @@ AB_REPS = 10  # MAC calls a CUDA-event window in the tile times and the A/B
 def wide_ab(csrc: pathlib.Path, seed: int) -> None:
     """``--ab-parent``'s turns of the entries the paired configuration took
     over from the parent's 32-row tiles: the parent's fused libraries built
-    from ``csrc`` beside this tree's, every v3 maps and peaks entry of both
-    H-stage forms at the 512² plan (and the 3xTF32 and BF16IO ones at the
-    (256, 896) and (511, 1024) plans), parent / this tree / this tree /
-    parent (``profile_torch_paths.wide_turns``)."""
+    from ``csrc`` beside this tree's, every v4 maps and peaks entry of both
+    H-stage forms where v4 pairs at step 36's plans (6xTF32 at Wc 257,
+    every tier at Wc 513), parent / this tree / this tree / parent, v3's
+    paired entry beside each (``profile_torch_paths.wide_turns``)."""
     import profile_torch_paths
 
-    profile_torch_paths.wide_turns(profile_torch_paths.build_parent(csrc, radix=False), seed)
+    profile_torch_paths.wide_turns(profile_torch_paths.build_parent(csrc), seed)
 
 
 def build_parent_mac(csrc: pathlib.Path) -> None:
@@ -4311,12 +4313,13 @@ def bf16io_phase(fc, seed, image_d, bank_d, idx, want, big, path_launches, times
 # ---- step 36: the radix-2 bodies (JAX's v4, v5, v5x) ----
 # JAX's one-block radix plans, reached through the tuner's table (valid
 # window and blocks under the kernel envelope k²): its fp32 and bf16 F=1
-# plan (256, 512, 65, 129) in the 64-row configuration (32 rows at 6xTF32),
-# its 32² plan (128, 512, 33, 129), and W = 1024 (Wc 513: 32 rows).
+# plan (256, 512, 65, 129) in the 64-row configuration (at 6xTF32 v4 the
+# cluster pair, v5 and v5x 32 rows), its 32² plan (128, 512, 33, 129), and
+# W = 1024 (Wc 513: v4 the pair, v5 and v5x 32 rows).
 RADIX_PLANS = (
     dict(label="JAX F=1 plan", k=64, valid=(192, 384), block=(256, 512)),
     dict(label="JAX 32² plan", k=32, valid=(96, 384), block=(128, 512)),
-    dict(label="W 1024, 32 rows", k=64, valid=(192, 896), block=(256, 1024)),
+    dict(label="W 1024", k=64, valid=(192, 896), block=(256, 1024)),
 )
 RADIX_FLAGS = {"v3": {}, "v4": dict(radix_h=True), "v5": dict(radix_w=True),
                "v5x": dict(radix_w=True, xsliver=True)}
@@ -4397,20 +4400,24 @@ def radix_checks(ops, ops16, geom, label, want, idx, table, karatsuba_rows=False
     their plain versions but for the bf16 maps (their f32 maps rounded
     once), and not at all with ``karatsuba_rows``, where their JSON rows
     check every entry (``kernel_row``, ``peaks_row``), and timed there.
-    The 4-product entries are timed here, a line of ``table`` each: (label,
-    tier, head, body, ms, bound ms, bound by — the bound of the body's own
-    products, ``block_conv_bound`` — the bound of v3's work, the body's
-    synthesis products and v3's, ``synthesis_flop``)."""
+    The 4-product entries and v4's Karatsuba ones are timed here, a line of
+    ``table`` each: (label, tier, head, body, the configuration
+    ``kernel_layout`` gives — the pair, 64 or 32 rows —, ms, the plain
+    version's ms (median of 3), bound ms, bound by — the bound of the
+    body's own products, ``block_conv_bound`` — the bound of v3's work, the
+    body's synthesis products and v3's, ``synthesis_flop``)."""
     import torch
 
     from cuda_fft_convolution_torch.ops.block_conv import (
         block_conv,
         block_conv_peaks,
+        block_conv_peaks_reference,
         block_conv_reference,
+        form_taken,
+        kernel_layout,
         radix_w_legal,
     )
 
-    from cuda_fft_convolution_torch.ops.block_conv import form_taken
     from cuda_fft_convolution_torch.utils.errors import InvalidInputError
 
     bh, bw, kh, kw, out_h, out_w = geom
@@ -4461,18 +4468,24 @@ def radix_checks(ops, ops16, geom, label, want, idx, table, karatsuba_rows=False
                   f"{err:.3e} (bar {f64_tol:g})")
             if err > f64_tol:
                 raise AssertionError(f"{label} {name} {tier}: {err} from float64")
-            if kara:
+            if kara and body != "v4":
                 continue
-            for head, fn in (
-                ("maps", lambda: block_conv(*planes, *geom, torch.float32, splits, **flags)),
-                ("bf16 maps", lambda: block_conv(*planes, *geom, torch.bfloat16, splits, **flags)),
-                ("peaks", lambda: block_conv_peaks(*planes, *geom, splits, **pflags)),
+            tier_s = resolved(planes[0], splits)
+            rows, half = kernel_layout(body, bw // 2 + 1, bh - kh + 1, tier_s, kara)
+            config = f"pair, {half} bins a rank" if half else f"{rows} rows"
+            for head, fn, plain in (
+                ("maps", lambda: block_conv(*planes, *geom, torch.float32, splits, **flags),
+                 lambda: block_conv_reference(*planes, *geom, torch.float32, splits, **flags)),
+                ("bf16 maps", lambda: block_conv(*planes, *geom, torch.bfloat16, splits, **flags),
+                 lambda: block_conv_reference(*planes, *geom, torch.bfloat16, splits, **flags)),
+                ("peaks", lambda: block_conv_peaks(*planes, *geom, splits, **pflags),
+                 lambda: block_conv_peaks_reference(*planes, *geom, splits, **pflags)),
             ):
-                tier_s = resolved(planes[0], splits)
                 bound_ms, by = block_conv_bound(planes, geom, out_bytes[head], tier_s, body, kara)
                 same_ms = block_conv_bound(planes, geom, out_bytes[head], tier_s)[0]
-                table.append((label, f"{tag} {tier}", head, name, cuda_ms(fn), bound_ms, by,
-                              same_ms, vflop[(body, kara)], vflop[("v3", False)]))
+                table.append((label, f"{tag} {tier}", head, name, config, cuda_ms(fn),
+                              cuda_ms(plain, runs=3), bound_ms, by, same_ms, vflop[(body, kara)],
+                              vflop[("v3", False)]))
             torch.cuda.empty_cache()
         if taken(6):
             x6 = rel_err(block_conv(*ops, *geom, torch.float32, 6, **flags).double(),
@@ -4517,8 +4530,10 @@ def radix_phase(fc, seed, image, image_d, bank, bank_d, idx, want, path_launches
     # products, the same-work bound (v3's synthesis_flop at the tier) and
     # the body's synthesis products
     print(f"radix bodies at JAX's plans, ms ({card()}):")
-    for label, tier, head, body, ms, bound_ms, by, same_ms, flop, v3_flop in table:
-        print(f"  {label} {tier} {head} {body}: {ms:.3f} ms; bound {bound_ms:.3f} ms ({by}), "
+    for (label, tier, head, body, config, ms, plain_ms, bound_ms, by, same_ms, flop,
+         v3_flop) in table:
+        print(f"  {label} {tier} {head} {body} ({config}): {ms:.3f} ms; plain version "
+              f"{plain_ms:.3f} ms; bound {bound_ms:.3f} ms ({by}), "
               f"{100 * bound_ms / ms:.1f}%; bound of v3's work {same_ms:.3f} ms, "
               f"{100 * same_ms / ms:.1f}%; synthesis products {flop / 1e12:.3f} TFLOP, "
               f"{flop / v3_flop:.3f} of v3's")

@@ -163,17 +163,17 @@
 // fragment reads and the S^T stores are free of bank conflicts. The
 // one-block configurations: 64 rows (the headline) and, where that X does
 // not fit in shared memory (Wc > 320 at 3xTF32), the paired configuration
-// below (v3) or 32 rows (the radix bodies and v2; v3 where the pair does not
-// fit either: 6xTF32 past Wc 513, the Karatsuba form at one pass and kBF16IO
-// past Wc 705). Blocks run in
+// below (v3 and v4) or 32 rows (v5, v5x and v2; v3 and v4 where the pair
+// does not fit either: 6xTF32 past Wc 513, the Karatsuba form at one pass
+// and kBF16IO past Wc 705). Blocks run in
 // parallel and in no order, unlike the TPU grid that kept the kernel index
 // innermost so a data block stayed in VMEM across the bank; here the kernel
 // index is the fastest-varying launch index, so the CTAs resident at one
 // time share a data block (and the whole bank) in L2.
 //
-// Wide blocks: the paired configuration (PAIRED; v3 in both H-stage forms,
-// at every tier, where the 64-row X does not fit). A thread-block cluster of
-// kPair = 2 CTAs takes 64 window rows of one cell (row chunks of 64), and
+// Wide blocks: the paired configuration (PAIRED; v3 and v4 in both H-stage
+// forms, at every tier, where the 64-row X does not fit). A thread-block
+// cluster of kPair = 2 CTAs takes 64 window rows of one cell (row chunks of 64), and
 // each CTA owns part of the bins 0 .. wc - 2: rank 0 the first pair_half
 // (half of them rounded up to kKB, or kKB more where that leaves rank 1 no
 // pass under kKB bins), rank 1 the rest; each CTA's X holds its bins, padded
@@ -273,8 +273,8 @@
 //
 // Radix-2 bodies (the template argument BODY: the JAX kernel's v4, v5 and
 // v5x beside v3; ops/block_conv.py radix_h_legal, radix_w_legal). They run
-// in the one-block 64- and 32-row configurations (not stacked) and change
-// two stages:
+// in the one-block 64- and 32-row configurations (not stacked), v4 also in
+// the pair where v3 runs it, and change two stages:
 //   - v4's H stage. Lh = 2M; x[v] = E[v mod M] +- t[v mod M] O[v mod M]
 //     with E = U S_even, O = U S_odd (U[v', j] = exp(2 pi i v' j / M) / Lh,
 //     t[v'] = exp(i pi v' / M)), the window's rows v = w0 + r, w0 = Lh - Vh.
@@ -304,6 +304,22 @@
 //     third plane) are staged beside the others (Ur + Ui in place of -Ui at
 //     64 rows), three products for E and three for O, their loop not
 //     unrolled at 64 rows (as v3's).
+//   - v4 in the pair (PAIRED, where v3 runs it): each rank runs the 64-row
+//     stage above over its own bins of 0 .. wc - 2 (at Wc 257 one pass of
+//     128 bins a pair chunk and two of 64 a single chunk, where the 32-row
+//     code ran 3 and 5 over every bin), so S is built once a chunk over a
+//     rank's bins. The last bin gets no pass: in the rank's first pass the
+//     last kUK threads form its S a chunk, as v3's pair does (rounded as the
+//     staged S is; in the sliver), and thread k < the chunk's v' sums its
+//     v''s E and O (re and im) from U as staged (the sum of its pieces) in
+//     fp32 FMAs, four sums in X's row padding (which the H stage does not
+//     write); after the pass E +- t O goes to the sliver, in the 4-product
+//     form whatever the H stage's (as v5's Nyquist term). (Measured, PERF.md:
+//     these sums cost 2-4 ms of 40 at JAX's F=1 plan; a cp.async prefetch
+//     of the bin's values and a split of the sums over every warp did not
+//     make them cheaper.) The W stage, the
+//     last bin's rank-1 term, a last column alone and the peaks entries are
+//     the pair's; the epilogue masks each chunk's rows (row_end).
 //   - v5's W stage (DIF). With W = 2 (Wc - 1), the W/2 even bins give P =
 //     half the W/2-point packed synthesis, the odd bins the twiddle-folded Q
 //     (ops/block_conv.py _dif_w_mats: one (Tn x W) operand [epr; epi; oqr;
@@ -808,9 +824,9 @@ inline int kernels_per_cta(int wc, int vh, int splits) {
   return t;
 }
 
-// The paired configuration (v3, both H-stage forms, where the 64-row X does
-// not fit; see "Wide blocks" above): rank 0's bins, half of the wc - 1 bins
-// below the Nyquist bin rounded up to kKB, or kKB more where that leaves
+// The paired configuration (v3 and v4, both H-stage forms, where the 64-row
+// X does not fit; see "Wide blocks" above): rank 0's bins, half of the wc -
+// 1 bins below the Nyquist bin rounded up to kKB, or kKB more where that leaves
 // rank 1 no pass under kKB bins and still fits (pass_ok); 0 where the pair
 // does not fit.
 __host__ __device__ inline bool pass_ok(int bins) { return bins % kCols == 0 || bins % kCols >= kKB; }
@@ -828,7 +844,8 @@ __host__ __device__ inline int pair_half(int wc, int splits, bool kara) {
 // alone past whole passes (vw = 128 q + 1) is a dot of its own.
 __host__ __device__ inline int pair_cols(int vw) { return vw % kCols == 1 ? vw - 1 : vw; }
 
-// Rank 0's bins where v3 runs the paired configuration at (wc, vh), else 0.
+// Rank 0's bins where v3 and v4 run the paired configuration at (wc, vh),
+// else 0.
 inline int pair_bins(int wc, int vh, int splits, bool kara = false) {
   return blocks_per_cta(wc, vh, splits) > 1 || !wide(wc, splits, kara) ? 0 : pair_half(wc, splits, kara);
 }
@@ -999,7 +1016,8 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   constexpr bool kApart = SPLITS == 6;
   constexpr bool kDif = dif_body(BODY);
   static_assert(BODY != kV2 || !STACKED, "v2 stacks blocks its own way");
-  static_assert(!PAIRED || (BODY == kV3 && ROWS == 64 && !STACKED), "the pair is v3's, of 64-row CTAs");
+  static_assert(!PAIRED || ((BODY == kV3 || BODY == kV4) && ROWS == 64 && !STACKED),
+                "the pair is v3's and v4's, of 64-row CTAs");
   extern __shared__ __align__(16) float smem[];
   // PAIRED: this CTA's rank in its cluster, and its X's bins (pair_half):
   // rank 0 holds bins 0 .. half - 1, rank 1 half .. wc - 2, each padded to
@@ -1173,6 +1191,36 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       }
     }
   };
+  // PAIRED: this rank's bins of the spectra, pbin0 .. pbin0 + pbins - 1
+  // (X's local bins 0.., zeros past pbins), and the Nyquist bin's S, which
+  // the last kUK threads form a chunk in the rank's first pass (a
+  // spectrum row each, its channels in order as the MAC's) and park in the
+  // sliver (s_nq).
+  const int pbin0 = crank * wc_pad;
+  const int pbins = PAIRED && crank ? wc - 1 - wc_pad : wc_pad;
+  float* s_nq = sliver + 2 * ROWS;  // v3: (re, im, re + im) a spectrum row; v4: (re, im)
+  float nq[4];  // channel 0 of D and K at the Nyquist bin (re, im; re, im): the last kUK threads'
+  const int nq_u = tid - (kThreads - kUK);  // this thread's spectrum row of a chunk (< 0: none)
+  auto nq_load = [&](int u0, int ff, float (&d)[4]) {
+    const int u = u0 + nq_u;
+    const bool ok = nq_u >= 0 && u < lh;
+    const long long off = ok ? static_cast<long long>(u) * wc + wc - 1 + ff * plane : 0;
+    d[0] = ok ? to_f32(dr_c[off]) : 0.f;
+    d[1] = ok ? to_f32(di_c[off]) : 0.f;
+    d[2] = ok ? to_f32(kr_c[off]) : 0.f;
+    d[3] = ok ? to_f32(ki_c[off]) : 0.f;
+  };
+  // The Nyquist bin's S at this thread's row of the chunk at u0: channel 0
+  // was prefetched into nq, the rest load here.
+  auto nq_mac = [&](int u0, float (&snq)[2]) {
+    snq[0] = fmaf(nq[2], nq[0], -nq[3] * nq[1]);
+    snq[1] = fmaf(nq[2], nq[1], nq[3] * nq[0]);
+    for (int ff = 1; ff < f; ++ff) {
+      nq_load(u0, ff, nq);
+      snq[0] = fmaf(nq[2], nq[0], fmaf(-nq[3], nq[1], snq[0]));
+      snq[1] = fmaf(nq[2], nq[1], fmaf(nq[3], nq[0], snq[1]));
+    }
+  };
   if constexpr (radix_body(BODY)) {
   // ---- radix-2 H stage (v4): E = U S_even and O = U S_odd at NV = ROWS / 2
   // v' a half, summed over the spectrum rows, then combined in fp32 with
@@ -1253,13 +1301,32 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     const int bin0 = c0 + col0;
     const bool live = bin0 < hb_pad;
     const bool nyq_pass = BODY == kV5 && c0 <= l2 && l2 < c0 + pass_w;
-    load_dk(c0, 0, 0, pass_w);
+    // the pass's first bin in the spectra and its bins there (PAIRED: this
+    // rank's), and whether it sums the Nyquist bin's E and O (PAIRED: the
+    // rank's first pass)
+    const int cg = PAIRED ? pbin0 + c0 : c0;
+    const int cw = PAIRED ? min(pass_w, pbins - c0) : pass_w;
+    const bool nyq_pair = PAIRED && c0 == 0;
+    load_dk(cg, 0, 0, cw);
     load_u(0);
     for (int u0 = 0; u0 < lh; u0 += kUK) {
       float sv[St::kPerS][2];
-      mac(c0, u0, sv, pass_w);
+      mac(cg, u0, sv, cw);
+      float snq[2] = {0.f, 0.f};  // the Nyquist bin's S at this thread's row
+      if (nyq_pair && nq_u >= 0) {
+        // (channel 0 loaded here, not ahead: held through the products, it
+        // spilled the Karatsuba form's registers at 6xTF32)
+        nq_load(u0, 0, nq);
+        nq_mac(u0, snq);
+      }
       __syncthreads();  // the previous chunk's products are done with staging
       stage_s(sv, true);
+      if (nyq_pair && nq_u >= 0) {
+        // rounded as the staged S is: s_nq's float4 j holds spectrum rows
+        // 2 j (E's) and 2 j + 1 (O's), re and im
+        s_nq[2 * nq_u] = SPLITS == kBF16IO ? __uint_as_float(bf16r(snq[0])) : snq[0];
+        s_nq[2 * nq_u + 1] = SPLITS == kBF16IO ? __uint_as_float(bf16r(snq[1])) : snq[1];
+      }
 #pragma unroll
       for (int q = 0; q < kUQ; ++q) {
         int pl, row, h;
@@ -1290,8 +1357,34 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       if (kWG) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
       if (u0 + kUK < lh) {  // in flight during the products
-        load_dk(c0, u0 + kUK, 0, pass_w);
+        load_dk(cg, u0 + kUK, 0, cw);
         load_u((u0 + kUK) / 2);
+      }
+      if (nyq_pair && tid < nu) {
+        // v' = v0 + tid: E and O (re, im) at the Nyquist bin, U as staged
+        // (the sum of its pieces), the 4-product form; the sums in X's row
+        // padding of local row tid
+        float* a_s = x_s + tid * xs + 2 * wc_pad;
+        float a[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) a[m] = u0 == 0 ? 0.f : a_s[m];
+#pragma unroll 1
+        for (int j = 0; j < kUK / 2; ++j) {
+          const float* pu = u_st + ((tid >> 3) * (kUK / 4) + (j >> 2)) * kCore + (tid & 7) * 4 + (j & 3);
+          float ur = 0.f, ui = 0.f;
+#pragma unroll
+          for (int k2 = 0; k2 < P; ++k2) {
+            ur += pu[k2 * kUP];
+            ui += pu[(P + k2) * kUP];
+          }
+          const float4 s = *reinterpret_cast<const float4*>(s_nq + 4 * j);  // Se re, im; So re, im
+          a[0] = fmaf(-ui, s.y, fmaf(ur, s.x, a[0]));
+          a[1] = fmaf(ui, s.x, fmaf(ur, s.y, a[1]));
+          a[2] = fmaf(-ui, s.w, fmaf(ur, s.z, a[2]));
+          a[3] = fmaf(ui, s.z, fmaf(ur, s.w, a[3]));
+        }
+#pragma unroll
+        for (int m = 0; m < 4; ++m) a_s[m] = a[m];
       }
       if (nyq_pass && tid < nu) {
         float a[3];
@@ -1508,6 +1601,21 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         }
       }
     }
+    if (nyq_pair && tid < nu) {
+      // the Nyquist bin's x at the local rows of v' = v0 + tid (a pair's
+      // tid and NV + tid, a single chunk's tid), re then im, in the sliver
+      const float* a = x_s + tid * xs + 2 * wc_pad;
+      float twr, twi;
+      tw_at(v0 + tid, twr, twi);
+      const float t_r = twr * a[2] - twi * a[3];
+      const float t_i = twr * a[3] + twi * a[2];
+      sliver[tid] = pair ? a[0] + t_r : a[0] - t_r;
+      sliver[ROWS + tid] = pair ? a[1] + t_i : a[1] - t_i;
+      if (pair) {
+        sliver[NV + tid] = a[0] - t_r;
+        sliver[ROWS + NV + tid] = a[1] - t_i;
+      }
+    }
   }
   } else {
   // ---- H stage: X[r, v] = sum_u G[r0 + r, u] S[u, v] ----
@@ -1515,27 +1623,12 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   // x_s + t * ROWS * xs; its bins past wc, which no column reaches, are
   // zeroed here (the W stage's chunks read them).
   const int h_cols = BODY == kV2 ? count * wc : hb_pad;
-  // PAIRED: this rank's bins of the spectra, bin0 .. bin0 + nbins - 1 (X's
-  // local bins 0.., zeros past nbins), and the Nyquist bin's X of each row,
-  // summed in fp32 in pass 0 beside the products (the sliver's S a chunk,
-  // G from this thread's staging loads, gv): the 4-product form's re and im,
-  // or the Karatsuba form's t1, t2, t3 (x_nq), four spectrum rows a thread,
-  // the row's four threads added after the stage.
-  const int bin0 = crank * wc_pad;
-  const int nbins = PAIRED && crank ? wc - 1 - wc_pad : wc_pad;
-  float* s_nq = sliver + 2 * ROWS;  // a chunk's Nyquist S: (re, im, re + im) a spectrum row
+  // PAIRED: the Nyquist bin's X of each row, summed in fp32 in pass 0
+  // beside the products (the sliver's S a chunk, G from this thread's
+  // staging loads, gv): the 4-product form's re and im, or the Karatsuba
+  // form's t1, t2, t3 (x_nq), four spectrum rows a thread, the row's four
+  // threads added after the stage.
   float x_nq[3] = {0.f, 0.f, 0.f};
-  float nq[4];  // channel 0 of D and K at the Nyquist bin (re, im; re, im): the last kUK threads'
-  const int nq_u = tid - (kThreads - kUK);  // this thread's spectrum row of a chunk (< 0: none)
-  auto nq_load = [&](int u0, int ff, float (&d)[4]) {
-    const int u = u0 + nq_u;
-    const bool ok = nq_u >= 0 && u < lh;
-    const long long off = ok ? static_cast<long long>(u) * wc + wc - 1 + ff * plane : 0;
-    d[0] = ok ? to_f32(dr_c[off]) : 0.f;
-    d[1] = ok ? to_f32(di_c[off]) : 0.f;
-    d[2] = ok ? to_f32(kr_c[off]) : 0.f;
-    d[3] = ok ? to_f32(ki_c[off]) : 0.f;
-  };
   if constexpr (BODY == kV2) {
     const int pad = wc_pad - wc;
     for (int e = tid; e < count * ROWS * 2 * pad; e += kThreads) {
@@ -1586,8 +1679,8 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     };
     // the pass's first bin in the spectra and its bins there (PAIRED: this
     // rank's)
-    const int cg = PAIRED ? bin0 + c0 : c0;
-    const int cw = PAIRED ? min(kCols, nbins - c0) : kCols;
+    const int cg = PAIRED ? pbin0 + c0 : c0;
+    const int cw = PAIRED ? min(kCols, pbins - c0) : kCols;
     const bool nyq = PAIRED && c0 == 0;  // the pass that sums the Nyquist bin's X
     load_dk(cg, 0, 0, cw);
     load_g(0);
@@ -1596,15 +1689,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       float sv[St::kPerS][2];
       mac(cg, u0, sv, cw);
       float snq[2] = {0.f, 0.f};  // the Nyquist bin's S at this thread's row
-      if (PAIRED && nyq && nq_u >= 0) {
-        snq[0] = fmaf(nq[2], nq[0], -nq[3] * nq[1]);
-        snq[1] = fmaf(nq[2], nq[1], nq[3] * nq[0]);
-        for (int ff = 1; ff < f; ++ff) {
-          nq_load(u0, ff, nq);
-          snq[0] = fmaf(nq[2], nq[0], fmaf(-nq[3], nq[1], snq[0]));
-          snq[1] = fmaf(nq[2], nq[1], fmaf(nq[3], nq[0], snq[1]));
-        }
-      }
+      if (PAIRED && nyq && nq_u >= 0) nq_mac(u0, snq);
       __syncthreads();  // the previous chunk's products are done with staging
       stage_s(sv, false);
       if (nyq && nq_u >= 0) {
@@ -1944,6 +2029,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
           }
     }
   }
+  }
   if constexpr (PAIRED) {
     __syncthreads();  // X and the sliver are written
     // A last column alone (vw = 128 q + 1): its dot over this rank's X in
@@ -1967,7 +2053,6 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     // partner's from here on
     cluster_arrive();
     cluster_wait();
-  }
   }
   } else {
   static_assert(ROWS == 64, "the stacked configuration is 64 rows");
@@ -2639,6 +2724,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
             dif_combine(acc, accq, l0, col);
             if (p * kCols + wg * 64 + l2 < vw) epi.tile(accq, win_row(l0), col + l2, win_end(l0));
           }
+          if constexpr (PAIRED) add_nyq(acc, l0, col);
           epi.tile(acc, win_row(l0), col, win_end(l0));
         }
       }
@@ -2780,7 +2866,11 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         a[0][0][2 * h] = static_cast<float>(v);
         a[0][0][2 * h + 1] = 0.f;
       }
-      epi.tile(a, r0 + l, vw - 1, INT_MAX);
+      // (rows l and l + 8 of one radix chunk's half: the same segment)
+      if constexpr (radix_body(BODY))
+        epi.tile(a, win_row(l), vw - 1, win_end(l));
+      else
+        epi.tile(a, r0 + l, vw - 1, INT_MAX);
     }
     cluster_arrive();
     cluster_wait();
@@ -2887,10 +2977,12 @@ int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
 // padded_bins(wc) on): its TF32 pieces, or M^T exact where the
 // configuration stages one plane; zeros wherever the padding reaches. At
 // kBF16IO G^T, G and M^T (one plane) are rounded to bf16 instead of exact.
-// The DIF bodies take in m_tc the planes of [epr; epi; oqr; oqi]^T
-// (m_cols(min(vw, W/2)), W) instead, and the radix bodies the operands of
-// RadixOps (v5x: slv; the others may pass null there); they run only where
-// the one-block configurations do (blocks_per_cta = 1) on the plans
+// The paired configuration (pair_bins > 0: v3 and v4) takes
+// ops/block_conv.py _pair_m's operand in m_tc instead. The DIF bodies take
+// in m_tc the planes of [epr; epi; oqr; oqi]^T (m_cols(min(vw, W/2)), W)
+// instead, and the radix bodies the operands of RadixOps (v5x: slv; the
+// others may pass null there); they run only where the one-block
+// configurations (and v4's pair) do (blocks_per_cta = 1) on the plans
 // radix_h_ok (and, DIF, radix_w_ok) admit. KARA runs the Karatsuba H stage
 // (every body). `ktile` (1..n), the kernels a launch tile of the
 // stacked configuration holds, is its launch order (n: the kernel index
@@ -2930,7 +3022,7 @@ int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
         (dif_body(BODY) && !radix_w_ok(wc)) || (BODY == kV5X && !rx.slv))
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  if constexpr (BODY == kV3) {
+  if constexpr (BODY == kV3 || BODY == kV4) {
     if (pair_bins(wc, vh, SPLITS, KARA))
       return launch<TS, 64, false, SPLITS, BODY, Epi<false>, KARA, true>(d_re, d_im, k_re, k_im, gt_re, gt_im,
                                                                        g_pad, m_tc, rx, out, b, nbh, nbw, f,

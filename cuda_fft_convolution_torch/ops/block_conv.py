@@ -63,7 +63,8 @@ x[t' + W/2] = P − Q — with the Nyquist bin added as a (−1)^t rank-1 term)
 and v5x (``xsliver``: v5 with that Nyquist term synthesised outside the
 kernel, ``_xsliver``). Their kernel entries carry the suffixes ``_r4``,
 ``_r5``, ``_r5x`` (``RADIX_SUFFIX``); they run in the one-block 64- and
-32-row configurations only (``radix_fits``). ``block_conv_reference``
+32-row configurations, and v4 also in the cluster pair where v3 runs it
+(``kernel_layout``, ``radix_fits``). ``block_conv_reference``
 follows each body's factorisation (``_radix_x``, ``_dif_tile``), which is
 the JAX kernels': every window row from the sub-transforms Ê and Ô and the
 twiddle, v5's Nyquist term from the unrounded S.
@@ -103,9 +104,9 @@ from cuda_fft_convolution_torch.utils.errors import InvalidInputError, validate
 # as, 3, 6 or 1, or ``BF16IO``, one product of bf16-rounded operands, laid
 # out as one pass; ``fused_splits``). A CTA holds X, 64 rows × [Xr | Xi]
 # over the packed bins padded to 32 (a row stride of 2·bins + 4 floats) —
-# where that does not fit, the v3 kernels pair two 64-row CTAs that split
-# the bins (``pair_bins``, below) and the other bodies (and v3 where the
-# pair does not fit either) take 32 rows — plus a staging area, within
+# where that does not fit, the v3 and v4 kernels pair two 64-row CTAs that
+# split the bins (``pair_bins``, below) and the other bodies (and v3 and v4
+# where the pair does not fit either) take 32 rows — plus a staging area, within
 # Hopper's 227 KB (232,448 B) per-block shared-memory limit. The staging area is the larger
 # of the H stage's (S^T, 128 bins, and a G chunk, as the TF32 pieces of 16
 # spectrum rows — 2 at 3×TF32, 3 at 6×TF32, 1 at one pass — with −Gi's at
@@ -261,15 +262,15 @@ def kernels_per_cta(wc: int, vh: int, splits: int = 3) -> int:
 
 
 def _one_block_rows(wc: int, splits: int = 3, karatsuba: bool = False) -> int:
-    """Rows of the one-block configuration without pairs (the radix bodies'
-    at every width, v3's where the pair does not fit): 64 where that X
-    fits beside the staging area, else 32."""
+    """Rows of the one-block configuration without pairs (v5's and v5x's at
+    every width, v3's and v4's where the pair does not fit): 64 where that
+    X fits beside the staging area, else 32."""
     fits = _tile_smem_bytes(wc, 64, splits=splits, karatsuba=karatsuba) <= SMEM_LIMIT_BYTES
     return 64 if fits else 32
 
 
-# The paired configuration (v3, both H-stage forms, where the 64-row X does
-# not fit: Wc > 320 at 3×TF32): a thread-block cluster of 2 CTAs of 64
+# The paired configuration (v3 and v4, both H-stage forms, where the 64-row
+# X does not fit: Wc > 320 at 3×TF32): a thread-block cluster of 2 CTAs of 64
 # window rows of one cell, rank r holding X over its share of the bins 0 ..
 # Wc − 2 (rank 0 the first ``pair_bins``, rank 1 the rest; X of
 # ``pair_bins`` bins each, a row stride of 2·bins + 4 floats), and the
@@ -311,8 +312,8 @@ def _pair_half(wc: int, splits: int, karatsuba: bool) -> int:
 def pair_bins(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
     """The bins rank 0 of the paired configuration takes at packed width
     ``wc``, window height ``vh``, tier ``splits`` and H-stage form; 0 where
-    the v3 body does not run that configuration (the blocks stack, the
-    64-row X fits, or the pair does not fit either: 32-row tiles)."""
+    the v3 and v4 bodies do not run that configuration (the blocks stack,
+    the 64-row X fits, or the pair does not fit either: 32-row tiles)."""
     if blocks_per_cta(wc, vh, splits) > 1 or _one_block_rows(wc, splits, karatsuba) == 64:
         return 0
     return _pair_half(wc, splits, karatsuba)
@@ -352,21 +353,28 @@ def row_chunks(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> in
     return -(-vh // tile_rows(wc, vh, splits, karatsuba))
 
 
-def peaks_chunks(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
-    """Pairs the v3 peaks kernel writes a block: one a row chunk and CTA of
-    a cluster (a pair's ranks each reduce their own columns)."""
-    return row_chunks(wc, vh, splits, karatsuba) * cluster_size(wc, vh, splits, karatsuba)
+def peaks_chunks(wc: int, vh: int, splits: int = 3, karatsuba: bool = False,
+                 body: str = "v3", lh: int | None = None) -> int:
+    """Pairs the peaks kernel of ``body`` writes a block: one a row chunk
+    (v3 ``row_chunks``; a radix body ``radix_row_chunks``, at block height
+    ``lh``) and CTA of a cluster (a pair's ranks each reduce their own
+    columns)."""
+    chunks = (row_chunks(wc, vh, splits, karatsuba) if body == "v3"
+              else radix_row_chunks(wc, lh, vh, splits, karatsuba, body))
+    return chunks * (PAIR if kernel_layout(body, wc, vh, splits, karatsuba)[1] else 1)
 
 
 def kernel_layout(body: str, wc: int, vh: int, splits: int = 3,
                   karatsuba: bool = False) -> tuple[int, int]:
     """(rows, pair bins) of the configuration ``body`` runs, whose operands
-    ``_kernel_mats`` lays out: v2 ``v2_rows``; the radix bodies the
-    one-block rule without pairs; v3 ``tile_rows`` and ``pair_bins``."""
+    ``_kernel_mats`` lays out: v2 ``v2_rows``; v5 and v5x the one-block
+    rule without pairs; v4 the pair where v3 runs it (``pair_bins``), else
+    that rule; v3 ``tile_rows`` and ``pair_bins``."""
     if body == "v2":
         return v2_rows(wc, vh, splits, karatsuba), 0
     if body in _RADIX_BODIES:
-        return _one_block_rows(wc, splits, karatsuba), 0
+        half = pair_bins(wc, vh, splits, karatsuba) if body == "v4" else 0
+        return (64, half) if half else (_one_block_rows(wc, splits, karatsuba), 0)
     return tile_rows(wc, vh, splits, karatsuba), pair_bins(wc, vh, splits, karatsuba)
 
 
@@ -598,18 +606,23 @@ def _sliver_parity_row(block_w: int, kw: int, vw: int) -> np.ndarray:
     return (np.where((k + kw - 1) % 2 == 0, 1.0, -1.0) / block_w).astype(np.float32)[None, :]
 
 
-def radix_fits(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> bool:
-    """Whether the Hopper kernels take the radix-2 stages at packed width
-    ``wc``, window height ``vh``, tier ``splits`` and H-stage form
-    (``karatsuba``): the one-block 64- or 32-row configuration (the radix
-    stages stage no more than the plain ones: U's planes in G's room), within
+def radix_fits(wc: int, vh: int, splits: int = 3, karatsuba: bool = False,
+               body: str = "v4") -> bool:
+    """Whether the Hopper kernels take the radix-2 body ``body`` (v4, or v5
+    and v5x, which share a configuration) at packed width ``wc``, window
+    height ``vh``, tier ``splits`` and H-stage form (``karatsuba``): its
+    configuration (``kernel_layout``: v4's cluster pair where v3 runs it,
+    else the one-block 64- or 32-row configuration; the radix stages stage
+    no more than the plain ones: U's planes in G's room) within
     ``SMEM_LIMIT_BYTES``. The block-stacked configuration (Vh ≤ 32 where it
     fits) does not: its H stage runs v3's products over u-chunks of stacked
     blocks and kernels, with no radix split."""
     _check_splits(splits)
-    return (blocks_per_cta(wc, vh, splits) == 1
-            and _tile_smem_bytes(wc, _one_block_rows(wc, splits, karatsuba), splits=splits,
-                                 karatsuba=karatsuba) <= SMEM_LIMIT_BYTES)
+    if blocks_per_cta(wc, vh, splits) > 1:
+        return False
+    rows, half = kernel_layout(body, wc, vh, splits, karatsuba)
+    return bool(half) or _tile_smem_bytes(wc, rows, splits=splits,
+                                          karatsuba=karatsuba) <= SMEM_LIMIT_BYTES
 
 
 def radix_chunks(lh: int, vh: int, rows: int) -> tuple[int, int]:
@@ -626,10 +639,12 @@ def radix_chunks(lh: int, vh: int, rows: int) -> tuple[int, int]:
     return -(-(m - w0) // (rows // 2)), -(-w0 // rows)
 
 
-def radix_row_chunks(wc: int, lh: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
-    """CTAs a block takes in the radix kernels (``radix_chunks``) at the
-    tier and H-stage form."""
-    return sum(radix_chunks(lh, vh, _one_block_rows(wc, splits, karatsuba)))
+def radix_row_chunks(wc: int, lh: int, vh: int, splits: int = 3, karatsuba: bool = False,
+                     body: str = "v4") -> int:
+    """Row chunks a block takes in the kernels of radix body ``body``
+    (``radix_chunks`` in the rows of its ``kernel_layout``) at the tier and
+    H-stage form: its CTAs, or its clusters where v4 pairs."""
+    return sum(radix_chunks(lh, vh, kernel_layout(body, wc, vh, splits, karatsuba)[0]))
 
 
 def _body(radix_h: bool, radix_w: bool, xsliver: bool, wstack: bool = True) -> str:
@@ -671,9 +686,10 @@ def _check_radix_fits(body: str, wc: int, vh: int, splits: int, karatsuba: bool 
     """On CUDA tensors a radix body needs ``radix_fits`` at the call's tier
     and H-stage form: no other configuration runs it, and none is run in
     its place."""
-    if body in _RADIX_BODIES and not radix_fits(wc, vh, splits, karatsuba):
+    if body in _RADIX_BODIES and not radix_fits(wc, vh, splits, karatsuba, body):
         raise InvalidInputError(
-            f"the {body} body runs in the one-block configurations only; Wc={wc}, Vh={vh} at "
+            f"the {body} body runs in the one-block configurations (v4 also in the pair) only; "
+            f"Wc={wc}, Vh={vh} at "
             f"{tier_name(splits)} stacks {blocks_per_cta(wc, vh, splits)} blocks a CTA "
             f"(radix_fits is False)")
 
@@ -716,7 +732,7 @@ def radix_w_enabled(
     splits = fused_splits(torch.bfloat16 if spec_bytes == 2 else torch.float32)
     return (
         listed and radix_h_legal(block_h, vh) and radix_w_legal(block_w, kw, vw)
-        and radix_fits(block_w // 2 + 1, vh, splits)
+        and radix_fits(block_w // 2 + 1, vh, splits, body="v5")
     )
 
 
@@ -1468,9 +1484,8 @@ def block_conv_peaks(
     launch in ``block_conv_peaks.launches`` and, per mode, in
     ``block_conv_peaks.launches_by_mode``. A CTA holds one block (or a
     stack of blocks), so the kernel writes one pair per (block, row chunk
-    and CTA of a pair: ``peaks_chunks``, or ``radix_row_chunks`` for a
-    radix body); a block split into several row chunks or a pair's column
-    halves is combined here (``_best_chunk``: a radix
+    and CTA of a pair: ``peaks_chunks``); a block split into several row
+    chunks or a pair's column halves is combined here (``_best_chunk``: a radix
     body's chunks hold rows from both halves of the window, so the rule is
     applied by index, not by chunk order), and the blocks into cells by
     ``group_cells``."""
@@ -1500,8 +1515,7 @@ def block_conv_peaks(
     gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev), splits, rows,
                                              half)
     m_tc, radix = _radix_args(ops, block_h, block_w, kh, kw, str(dev), splits, body, m_tc, rows)
-    chunks = (peaks_chunks(wc, vh, splits, kara) if body == "v3"
-              else radix_row_chunks(wc, lh, vh, splits, kara))
+    chunks = peaks_chunks(wc, vh, splits, kara, body, lh)
     ktile = kernel_tile(wc, vh, kr, splits)
     shape = (b, n, nbh, chunks, nbw)
     vals = torch.empty(shape, dtype=torch.float32, device=dev)

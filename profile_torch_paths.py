@@ -37,17 +37,16 @@ and the same planes upcast to float32 at the three fp32 tiers) and at the
 F=8 tier's plan (BF16IO maps and peaks), printing how far the outputs differ and each side's error
 against the plain version; at JAX's
 F=1 radix plan (256, 512, 65, 129) on the headline image, N=100, it times
-each radix body's maps entry at 3×TF32 and BF16IO in turns. Before that it holds every C entry the parent
-has (its v3, radix and forms libraries, each built from its sources)
-against this tree's on random planes (``every_entry_bitwise``): the v3
-entries and the Karatsuba and v2 ones (``_k``, ``_v2``, ``_v2_k``) at
-``chip_smoke``'s kernel-check geometries bitwise where they run a one-block
-configuration, failing on any difference (where this tree's rule stacks
-blocks, its redesigned configuration's distance from the parent is
-printed); the radix entries at step 36's plans, whose single chunks and
-v5's Nyquist term this tree computes as the JAX kernels do, printed with
-their distance from the parent and whether the pair chunks' rows are
-bitwise the parent's.
+each radix body's maps entry at 3×TF32 and BF16IO in turns. Before that it
+holds every C entry the parent has (its v3, radix, forms and radix forms
+libraries, each built from its sources) against this tree's on random
+planes (``every_entry_bitwise``): the v3 entries and the Karatsuba and v2
+ones (``_k``, ``_v2``, ``_v2_k``) at ``chip_smoke``'s kernel-check
+geometries, the radix entries in both forms at step 36's plans, failing
+on any difference but where this tree pairs v4 and the parent ran 32-row
+tiles (those print their distance from the parent); then it times those
+paired v4 entries in turns at step 36's plans on the headline image
+(``wide_turns``), v3's paired entry of the same tier beside each.
 
     python3 profile_torch_paths.py --wide-split CSRC
 
@@ -60,6 +59,15 @@ no remote X reads (the paired design: each rank reads its own half twice),
 no epilogue stores), for the 3×TF32 f32 maps and peaks entries and the
 BF16IO maps entry, CUDA events, median of 7. A parent's csrc (its 32-row
 tiles) gets the operands of that layout.
+
+    python3 profile_torch_paths.py --radix-split CSRC
+
+splits the v4 body's time the same way at JAX's F=1 plan on the headline
+image (N=100) at 6×TF32, the maps entry in both H-stage forms and the peaks
+entry (``RADIX_SPLIT_PATCHES``: no W stage, no H stage, no MAC loads, no H
+products, then no one-bin passes in the parent's 32-row design, or no
+remote X, no Nyquist H sums and no Nyquist W term in the paired one; no
+epilogue stores).
 
     python3 profile_torch_paths.py --submit-probe
 
@@ -179,9 +187,10 @@ def build_parent(csrc: pathlib.Path, radix: bool = True):
     """The parent's maps and peaks kernels, built from ``csrc`` into
     ``build/parent_ab`` with this tree's nvcc flags, every nvcc started
     together → (the loaded library of the v3 entries — every unit but the
-    MAC's and the other libraries' —, that of the radix bodies' entries
-    (not built without ``radix``), that of the Karatsuba and v2 entries,
-    each None where the parent has none)."""
+    MAC's and the other libraries' —, that of the radix bodies' entries,
+    that of the Karatsuba and v2 entries, that of the radix bodies'
+    Karatsuba entries; the radix ones not built without ``radix``), each
+    None where the parent has none)."""
     from cuda_fft_convolution_torch import _build
 
     out = _build.BUILD_DIR / "parent_ab"
@@ -193,7 +202,10 @@ def build_parent(csrc: pathlib.Path, radix: bool = True):
              "libparent_radix.so": tuple(u.removesuffix(".cu") for u in _build._RADIX_UNITS
                                          if radix and (csrc / u).exists()),
              "libparent_forms.so": tuple(u.removesuffix(".cu") for u in _build._FORM_UNITS
-                                         if (csrc / u).exists())}
+                                         if (csrc / u).exists()),
+             "libparent_radix_forms.so": tuple(u.removesuffix(".cu")
+                                               for u in _build._RADIX_FORM_UNITS
+                                               if radix and (csrc / u).exists())}
     objs = {lib: [out / f"{name}.o" for name in names] for lib, names in units.items()}
     procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", str(csrc / f"{o.stem}.cu"),
                                "-o", str(o)], stdout=subprocess.PIPE,
@@ -213,7 +225,8 @@ def build_parent(csrc: pathlib.Path, radix: bool = True):
         lib = ctypes.CDLL(str(out / name))
         # this tree's signatures, for every entry the parent has
         for entry, (argtypes, restype) in {**_build._SIGNATURES, **_build._RADIX_SIGNATURES,
-                                           **_build._FORM_SIGNATURES}.items():
+                                           **_build._FORM_SIGNATURES,
+                                           **_build._RADIX_FORM_SIGNATURES}.items():
             if entry.startswith("fftconv_block_conv") and hasattr(lib, entry):
                 getattr(lib, entry).argtypes = argtypes
                 getattr(lib, entry).restype = restype
@@ -229,9 +242,9 @@ def bare_entry(lib, name, ops, geom, body="v3", layout=None):
     around it (a wrapper's host checks would show in a one-call CUDA-event
     window) → its outputs: maps (B, N, out_h, out_w), or the partial
     pyramid (vals, idxs) (B, N, nbh, row chunks, nbw). ``layout`` (rows,
-    pair bins) overrides this tree's configuration of the operands: (32, 0)
-    for a parent that runs the wide blocks on 32-row tiles. Raises where
-    the entry refuses the launch."""
+    pair bins) overrides this tree's configuration of the operands
+    (``kernel_layout``): (32, 0) for a parent that runs the wide blocks on
+    32-row tiles. Raises where the entry refuses the launch."""
     import torch
 
     from cuda_fft_convolution_torch.ops import block_conv as bc
@@ -244,14 +257,9 @@ def bare_entry(lib, name, ops, geom, body="v3", layout=None):
     kara = name.endswith("_k")
     stem = name.removesuffix(bc.body_suffix(body, kara))
     splits = next((t for t, sfx in bc.TIER_SUFFIX.items() if sfx and stem.endswith(sfx)), 3)
-    if layout is None:
-        rows = (bc.v2_rows if body == "v2" else bc.tile_rows)(wc, vh, splits, kara)
-        half = bc.pair_bins(wc, vh, splits, kara) if body == "v3" else 0
-        chunks = (bc.peaks_chunks(wc, vh, splits, kara) if body == "v3"
-                  else bc.radix_row_chunks(wc, lh, vh, splits, kara))
-    else:
-        rows, half = layout
-        chunks = -(-vh // rows) * (2 if half else 1)
+    rows, half = layout or bc.kernel_layout(body, wc, vh, splits, kara)
+    chunks = (-(-vh // rows) if body in ("v3", "v2") else sum(bc.radix_chunks(lh, vh, rows)))
+    chunks *= bc.PAIR if half else 1
     mats = bc._kernel_mats(bh, bw, kh, kw, str(dev), splits, rows, half)
     m_tc, radix = bc._radix_args(ops, bh, bw, kh, kw, str(dev), splits, body, mats[3], rows)
     if "_peaks_" in name:
@@ -296,13 +304,16 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
     """Every C entry the parent has against this tree's on random planes
     from ``seed``: the v3 library's maps and peaks entries and the forms
     library's (``_k``, ``_v2``, ``_v2_k``) at ``chip_smoke``'s kernel-check
-    geometries (every configuration: 64 and 32 rows, stacked, 31 row
-    chunks) bitwise — an entry both sides refuse counts as equal, any other
-    difference fails; the radix library's at step 36's three plans (each
-    body where its rules take the plan), each printed with its distance
-    from the parent (largest difference relative to the parent's largest
-    value) and, for the maps entries, whether the rows of the pair chunks
-    (window rows outside [M − w0, M)) are bitwise the parent's."""
+    geometries (every configuration: 64 rows, paired, 32 rows, stacked, 31
+    row chunks), the radix library's and the radix forms library's (the
+    Karatsuba form, ``_r*_k``) at step 36's three plans (each body where
+    its rules take the plan). Each must be bitwise the parent's — an entry
+    both sides refuse counts as equal, any other difference fails — but the
+    v4 entries where this tree pairs v4 (``kernel_layout``; the parent ran
+    32-row tiles there, and gets their operands), which are printed with
+    their distance from the parent (largest difference relative to the
+    parent's largest value; for the peaks, of the reduced pyramid, and the
+    index flips)."""
     import numpy as np
     import torch
 
@@ -310,17 +321,19 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
     from cuda_fft_convolution_torch.ops import block_conv as bc
 
     rng = np.random.default_rng(seed)
-    this = (_build.library(), _build.library(radix=True), _build.library(forms=True))
+    this = (_build.library(), _build.library(radix=True), _build.library(forms=True),
+            _build.library(radix=True, forms=True))
     entries = [n for n, sig in _build._SIGNATURES.items()
                if n.startswith("fftconv_block_conv") and len(sig[0]) > 3]
     forms = [n for n, sig in _build._FORM_SIGNATURES.items()
              if n.startswith("fftconv_block_conv") and len(sig[0]) > 4]
     equal = refused = total = 0
     bad, moved = [], []
-    for geoms, libs, names, radix in (
-        (chip_smoke.CHECK_GEOMETRIES, (parent_libs[0], this[0]), entries, False),
-        (chip_smoke.CHECK_GEOMETRIES, (parent_libs[2], this[2]), forms, False),
-        (RADIX_AB_PLANS, (parent_libs[1], this[1]), list(_build._RADIX_SIGNATURES), True),
+    for geoms, libs, names in (
+        (chip_smoke.CHECK_GEOMETRIES, (parent_libs[0], this[0]), entries),
+        (chip_smoke.CHECK_GEOMETRIES, (parent_libs[2], this[2]), forms),
+        (RADIX_AB_PLANS, (parent_libs[1], this[1]), list(_build._RADIX_SIGNATURES)),
+        (RADIX_AB_PLANS, (parent_libs[3], this[3]), list(_build._RADIX_FORM_SIGNATURES)),
     ):
         if libs[0] is None:
             print(f"every entry: the parent has no library of {names[0]}..")
@@ -328,8 +341,6 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
         for b, f, n, bh, bw, kh, kw, out_h, out_w, label in geoms:
             vh, vw = bh - kh + 1, bw - kw + 1
             nbh, nbw, wc = -(-out_h // vh), -(-out_w // vw), bw // 2 + 1
-            m, w0 = bh // 2, bh - vh
-            pair_rows = (np.arange(out_h) % vh < m - w0) | (np.arange(out_h) % vh >= m)
 
             def t(*shape):
                 return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
@@ -341,14 +352,15 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
             geom = (bh, bw, kh, kw, out_h, out_w)
             for name in names:
                 body = _entry_body(name)
+                kara = name.endswith("_k")
                 if body in ("v5", "v5x") and not bc.radix_w_legal(bw, kw, vw):
                     continue
                 planes = ops16 if "_bf16" in name.replace("_bf16maps", "") else ops
-                stem = name.removesuffix(bc.body_suffix(body, name.endswith("_k")))
+                stem = name.removesuffix(bc.body_suffix(body, kara))
                 tier = next((t_ for t_, sfx in bc.TIER_SUFFIX.items() if sfx and stem.endswith(sfx)),
                             3)
-                # where this tree pairs 64-row CTAs the parent ran 32-row tiles
-                paired = body == "v3" and bc.cluster_size(wc, vh, tier, name.endswith("_k")) > 1
+                # where this tree pairs v4 the parent ran 32-row tiles
+                paired = body == "v4" and bc.kernel_layout(body, wc, vh, tier, kara)[1] > 0
                 a, c = (refused_or(lambda lib=lib, lay=lay: bare_entry(lib, name, planes, geom, body,
                                                                        layout=lay))
                         for lib, lay in zip(libs, ((32, 0) if paired else None, None)))
@@ -357,9 +369,8 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
                 same = (a is None and c is None) or (
                     a is not None and c is not None and all(torch.equal(x, y)
                                                             for x, y in zip(a, c)))
-                if (not radix and not same and a is not None and c is not None
-                        and body == "v3" and (bc.blocks_per_cta(wc, vh, tier) > 1 or paired)):
-                    if paired and "_peaks_" in name:  # the parent's pyramid of 32-row chunks
+                if paired and a is not None and c is not None:
+                    if "_peaks_" in name:  # the parent's pyramid of 32-row chunks
                         av, ai = bc._best_chunk(*a, 3)
                         cv, ci = bc._best_chunk(*c, 3)
                         dist = float((cv - av).abs().max() / av.abs().max())
@@ -368,17 +379,7 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
                     else:
                         dist = float((c[0].float() - a[0].float()).abs().max()
                                      / a[0].float().abs().max())
-                        moved.append(f"{label}: {name} {dist:.3e} from the parent "
-                                     f"({'paired' if paired else 'stacked'})")
-                elif radix and a is not None and c is not None and not same:
-                    dist = float((c[0].float() - a[0].float()).abs().max()
-                                 / a[0].float().abs().max())
-                    rows = ""
-                    if "_peaks_" not in name:
-                        keep = torch.as_tensor(pair_rows, device=a[0].device)
-                        rows = (f"; pair rows bitwise "
-                                f"{torch.equal(a[0][:, :, keep], c[0][:, :, keep])}")
-                    moved.append(f"{label}: {name} {dist:.3e} from the parent{rows}")
+                        moved.append(f"{label}: {name} {dist:.3e} from the parent (paired)")
                 elif same:
                     equal += 1
                     refused += a is None
@@ -387,85 +388,80 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
             del ops, ops16
             torch.cuda.empty_cache()
     print(f"every entry, parent vs this tree: {equal} bitwise equal, {refused} refused by both, "
-          f"{len(moved)} radix, stacked or paired entries moved, of {total} (entry, geometry) "
-          f"pairs")
+          f"{len(moved)} paired v4 entries moved, of {total} (entry, geometry) pairs")
     for line in moved:
         print(f"  moved: {line}")
     if bad:
         raise AssertionError(f"entries that differ from the parent's: {bad}")
 
 
-# The plans where the paired configuration took over from the parent's
-# 32-row tiles, on random planes: (label, B, F, N, block_h, block_w, kh,
-# kw, out_h, out_w): the large-kernel plan (16 kernels of 512² on the 2048²
-# image), the (256, 896) plan of 129² kernels and the (511, 1024) plan of
-# 256² kernels, N = 16 each.
-WIDE_AB_PLANS = [("512² plan", 1, 1, 16, 1023, 1024, 512, 512, 2048, 2048),
-                 ("(256, 896) plan, 129² kernels", 1, 1, 16, 384, 1024, 129, 129, 2048, 2048),
-                 ("(511, 1024) plan, 256² kernels", 1, 1, 16, 511, 1024, 256, 256, 2048, 2048)]
-
-
 def wide_entries() -> list:
-    """Every maps and peaks entry of the v3 body in both H-stage forms (the
-    entries the paired configuration runs at the wide plans)."""
+    """Every maps and peaks entry of the v4 body in both H-stage forms (the
+    entries that run the paired configuration where v3 does)."""
     from cuda_fft_convolution_torch import _build
 
-    maps = [n for n, sig in _build._SIGNATURES.items()
-            if n.startswith("fftconv_block_conv") and len(sig[0]) > 3]
-    return maps + [f"{n}_k" for n in maps]
+    return [n for n in (*_build._RADIX_SIGNATURES, *_build._RADIX_FORM_SIGNATURES)
+            if n.removesuffix("_k").endswith("_r4")]
 
 
-def wide_turns(parent_libs, seed: int, plans=None) -> dict:
-    """The moved entries (``wide_entries``) in turns, parent / this tree /
-    this tree / parent, bare C entries (the parent with its 32-row operands,
-    this tree with the pair's), at ``WIDE_AB_PLANS`` (every entry at the
-    first plan; the 3×TF32 and BF16IO maps and peaks at the others), each
-    side against the plain version → {(plan, entry): (the four ms)}. An
-    entry both sides refuse (the Karatsuba form at 6×TF32 on the 1024
-    block) is printed as refused."""
+def wide_turns(parent_libs, seed: int) -> dict:
+    """The moved entries (``wide_entries`` where this tree pairs v4) in
+    turns, parent / this tree / this tree / parent, bare C entries (the
+    parent with its 32-row operands, this tree with the pair's), at
+    ``chip_smoke.RADIX_PLANS`` on the headline image from ``seed`` (N =
+    100: 64² kernels, 32² at the 32² plan), each side against the plain
+    version, and beside them this tree's v3 entry of the same tier, form
+    and head at the same plan (the pair too) and the plain version →
+    {(plan, entry): (the four ms, v3's ms, the plain version's ms)}. An
+    entry both sides refuse (the Karatsuba form at 6×TF32 on Wc 513) is
+    printed as refused."""
     import numpy as np
     import torch
 
+    import cuda_fft_convolution_torch as fc
     from cuda_fft_convolution_torch import _build
     from cuda_fft_convolution_torch.ops import block_conv as bc
 
-    libs = {False: (parent_libs[0], _build.library()), True: (parent_libs[2],
-                                                            _build.library(forms=True))}
+    libs = {False: (parent_libs[1], _build.library(radix=True)),
+            True: (parent_libs[3], _build.library(radix=True, forms=True))}
+    v3_libs = {False: _build.library(), True: _build.library(forms=True)}
     rng = np.random.default_rng(seed)
+    s, n = chip_smoke.HEADLINE["size"], chip_smoke.HEADLINE["n"]
+    image = torch.as_tensor(rng.standard_normal((s, s, 1)).astype(np.float32), device="cuda")
     out = {}
-    for i, (label, b, f, n, bh, bw, kh, kw, out_h, out_w) in enumerate(plans or WIDE_AB_PLANS):
-        vh, vw, wc = bh - kh + 1, bw - kw + 1, bw // 2 + 1
-        nbh, nbw = -(-out_h // vh), -(-out_w // vw)
-
-        def t(*shape):
-            return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device="cuda")
-
-        ops = (t(b, nbh, nbw, f, bh, wc), t(b, nbh, nbw, f, bh, wc), t(n, f, bh, wc),
-               t(n, f, bh, wc))
-        ops16 = tuple(x.to(torch.bfloat16) for x in ops)
-        geom = (bh, bw, kh, kw, out_h, out_w)
-        names = wide_entries() if i == 0 else [
-            f"fftconv_block_conv{p}_{tag}" for p in ("", "_peaks") for tag in ("f32", "bf16_io")]
-        for name in names:
+    for plan in chip_smoke.RADIX_PLANS:
+        k = plan["k"]
+        bank = rng.standard_normal((n, k, k, 1)).astype(np.float32)
+        ops, ops16, geom = chip_smoke.radix_geometry(fc, plan, image, bank)
+        bh, bw, kh, kw = geom[:4]
+        vh, wc = bh - kh + 1, bw // 2 + 1
+        label = f"{plan['label']} {geom[:4]}"
+        for name in wide_entries():
             kara = name.endswith("_k")
-            stem = name.removesuffix("_k")
+            stem = name.removesuffix(bc.body_suffix("v4", kara))
             tier = next((t_ for t_, sfx in bc.TIER_SUFFIX.items() if sfx and stem.endswith(sfx)), 3)
             planes = ops16 if "_bf16" in stem.replace("_bf16maps", "") else ops
-            if bc.cluster_size(wc, vh, tier, kara) == 1:
-                print(f"A/B {label} {name}: not paired here; refused by this tree "
-                      f"{not bc.form_taken(wc, vh, tier, True, kara)}")
+            if not bc.kernel_layout("v4", wc, vh, tier, kara)[1]:
+                if not bc.form_taken(wc, vh, tier, True, kara):
+                    print(f"A/B {label} {name}: refused by this tree (and the parent's 32 rows)")
                 continue
             par, new = libs[kara]
 
-            def side(lib, lay):
-                return lambda: bare_entry(lib, name, planes, geom, layout=lay)
+            def side(lib, lay, entry=name, body="v4"):
+                return lambda: bare_entry(lib, entry, planes, geom, body, layout=lay)
 
             parent_call, this_call = side(par, (32, 0)), side(new, None)
+            v3_call = side(v3_libs[kara], None, stem + ("_k" if kara else ""), "v3")
             a, c = parent_call(), this_call()
             peaks = "_peaks_" in name
-            want = (bc.block_conv_peaks_reference(*planes, *geom, tier, radix_h=False,
-                                                  karatsuba=kara) if peaks
-                    else bc.block_conv_reference(*planes, *geom, splits=tier, karatsuba=kara))
+            flags = dict(radix_h=True, karatsuba=kara)
+            out_dtype = torch.bfloat16 if "_bf16maps" in name else torch.float32
+
+            def plain():
+                return (bc.block_conv_peaks_reference(*planes, *geom, tier, **flags) if peaks
+                        else bc.block_conv_reference(*planes, *geom, out_dtype, tier, **flags))
+
+            want = plain()
             torch.cuda.synchronize()
             if peaks:
                 a, c = bc._best_chunk(*a, 3), bc._best_chunk(*c, 3)
@@ -473,14 +469,18 @@ def wide_turns(parent_libs, seed: int, plans=None) -> dict:
                         f"tree {chip_smoke.rel_err(c[0], want[0]):.3e}; indices = plain: parent "
                         f"{torch.equal(a[1], want[1])}, this tree {torch.equal(c[1], want[1])}")
             else:
-                errs = (f"vs plain: parent {chip_smoke.rel_err(a[0], want):.3e}, this tree "
-                        f"{chip_smoke.rel_err(c[0], want):.3e}")
+                errs = (f"vs plain: parent {chip_smoke.rel_err(a[0].float(), want.float()):.3e}, "
+                        f"this tree {chip_smoke.rel_err(c[0].float(), want.float()):.3e}")
             del a, c, want
             ts = [chip_smoke.cuda_ms(fn) for fn in (parent_call, this_call, this_call, parent_call)]
-            out[(label, name)] = ts
+            v3_ms = chip_smoke.cuda_ms(v3_call)
+            plain_ms = chip_smoke.cuda_ms(plain, runs=3)
+            out[(label, name)] = (*ts, v3_ms, plain_ms)
             print(f"A/B {label} {name}: parent {ts[0]:.3f}, this tree {ts[1]:.3f}, this tree "
                   f"{ts[2]:.3f}, parent {ts[3]:.3f} ms (this tree / parent "
-                  f"{(ts[1] + ts[2]) / (ts[0] + ts[3]):.3f}); {errs} ({chip_smoke.card()})")
+                  f"{(ts[1] + ts[2]) / (ts[0] + ts[3]):.3f}); v3 paired {v3_ms:.3f} ms (v4 / v3 "
+                  f"{(ts[1] + ts[2]) / 2 / v3_ms:.3f}); plain version {plain_ms:.3f} ms (median "
+                  f"of 3); {errs} ({chip_smoke.card()})")
             torch.cuda.empty_cache()
         del ops, ops16
         torch.cuda.empty_cache()
@@ -837,20 +837,17 @@ FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_f32, float, 3)
 """
 
 
-def wide_split(csrc: pathlib.Path, seed: int) -> None:
-    """Time the wide configuration's stages at the large-kernel plan
-    (module docstring)."""
+def _split_variants(kind: str, csrc: pathlib.Path, variants: dict, unit: str, entries) -> dict:
+    """Copies of ``csrc`` under ``build/<kind>``, each with its variant's
+    patches applied (a variant whose text is not in the sources exactly
+    once is skipped), each built with ``unit`` as its one translation unit
+    (one nvcc a copy, all started together) → {variant: the loaded library,
+    ``entries`` bound with this tree's signatures}."""
     import shutil
 
-    import numpy as np
-    import torch
-
-    import cuda_fft_convolution_torch as fc
     from cuda_fft_convolution_torch import _build
 
-    design = "paired" if "PAIRED" in (csrc / "block_conv.cuh").read_text() else "32 rows"
-    variants = {"whole": [], **WIDE_SPLIT_PATCHES[design], "no epilogue": _NO_EPILOGUE}
-    root = _build.BUILD_DIR / "wide_split" / design.replace(" ", "_")
+    root = _build.BUILD_DIR / kind
     nvcc = _build._nvcc()
     procs = {}
     for name, patches in variants.items():
@@ -861,34 +858,49 @@ def wide_split(csrc: pathlib.Path, seed: int) -> None:
         for file, text, new in patches:
             src = (out / file).read_text()
             if src.count(text) != 1:
-                print(f"wide split {design}, {name}: patch text found {src.count(text)} times "
-                      f"in {file}; skipped")
+                print(f"{kind}, {name}: patch text found {src.count(text)} times in {file}; "
+                      f"skipped")
                 ok = False
                 break
             (out / file).write_text(src.replace(text, new))
         if not ok:
             continue
-        (out / "split.cu").write_text(_WIDE_SPLIT_UNIT)
+        (out / "split.cu").write_text(unit)
         procs[name] = (out, subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, *_build.LINK_FLAGS[2:], "-o", str(out / "libsplit.so"),
              str(out / "split.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    entries = ("fftconv_block_conv_f32", "fftconv_block_conv_bf16_io",
-               "fftconv_block_conv_peaks_f32")
+    sigs = {**_build._SIGNATURES, **_build._RADIX_SIGNATURES, **_build._RADIX_FORM_SIGNATURES}
     libs = {}
     for name, (out, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            print(f"wide split {design}, {name}: nvcc failed:\n{log[-3000:]}")
+            print(f"{kind}, {name}: nvcc failed:\n{log[-3000:]}")
             continue
-        print(f"wide split {design}, {name}: built")
+        print(f"{kind}, {name}: built")
         lib = ctypes.CDLL(str(out / "libsplit.so"))
         for entry in entries:
-            getattr(lib, entry).argtypes, getattr(lib, entry).restype = _build._SIGNATURES[entry]
+            getattr(lib, entry).argtypes, getattr(lib, entry).restype = sigs[entry]
         libs[name] = lib
-
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
                              "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(f"wide split {design}: SM clock now, most: {clocks.strip()}")
+    print(f"{kind}: SM clock now, most: {clocks.strip()}")
+    return libs
+
+
+def wide_split(csrc: pathlib.Path, seed: int) -> None:
+    """Time the wide configuration's stages at the large-kernel plan
+    (module docstring)."""
+    import numpy as np
+    import torch
+
+    import cuda_fft_convolution_torch as fc
+
+    design = "paired" if "PAIRED" in (csrc / "block_conv.cuh").read_text() else "32 rows"
+    variants = {"whole": [], **WIDE_SPLIT_PATCHES[design], "no epilogue": _NO_EPILOGUE}
+    entries = ("fftconv_block_conv_f32", "fftconv_block_conv_bf16_io",
+               "fftconv_block_conv_peaks_f32")
+    libs = _split_variants(f"wide_split/{design.replace(' ', '_')}", csrc, variants,
+                           _WIDE_SPLIT_UNIT, entries)
     rng = np.random.default_rng(seed)
     s, n, k = chip_smoke.HEADLINE["size"], chip_smoke.BIGKERNEL["n"], chip_smoke.BIGKERNEL["k"]
     image = torch.as_tensor(rng.standard_normal((s, s, 1)).astype(np.float32), device="cuda")
@@ -909,6 +921,79 @@ def wide_split(csrc: pathlib.Path, seed: int) -> None:
             ms = chip_smoke.cuda_ms(lambda: bare_entry(lib, entry, planes, geom, layout=layout))
             whole.setdefault(label, ms)
             print(f"wide split {design}, 512² plan {label}, {name}: {ms:.3f} ms "
+                  f"({ms - whole[label]:+.3f} against the whole kernel; {chip_smoke.card()})")
+            torch.cuda.empty_cache()
+
+
+# The stage-split patches of the v4 body at JAX's F=1 plan (Wc 257) at
+# 6xTF32, by design: "32 rows" the parent's (mma.sync; a pair chunk's 3
+# passes of 128 bins and a single chunk's 5 of 64, over every bin), "paired"
+# this tree's (each rank's bins on wgmma, the last bin apart). (file, text,
+# replacement) a variant, as SPLIT_PATCHES; "no one-bin passes" drops the
+# passes past the second of 128 bins (the fourth of 64) in the parent, the
+# passes that hold bin 256 alone.
+_RADIX_SPLIT_COMMON = {
+    "no W stage": WIDE_SPLIT_PATCHES["paired"]["no W stage"],
+    "no H stage": [("block_conv.cuh", "  for (int c0 = 0; c0 < hb_pad; c0 += pass_w) {",
+                    "  for (int c0 = 0; c0 < 0; c0 += pass_w) {")],
+    "no MAC loads": WIDE_SPLIT_PATCHES["paired"]["no MAC loads"],
+    "no H products": [("block_conv.cuh",
+                       "      if (!live) continue;\n      if constexpr (kWG) {\n        // A = S^T's",
+                       "      if (!live || lh > 0) continue;\n      if constexpr (kWG) {\n"
+                       "        // A = S^T's")],
+}
+RADIX_SPLIT_PATCHES = {
+    "32 rows": {
+        **_RADIX_SPLIT_COMMON,
+        "no one-bin passes": [("block_conv.cuh", "  for (int c0 = 0; c0 < hb_pad; c0 += pass_w) {",
+                               "  for (int c0 = 0; c0 < min(hb_pad, 2 * kCols); c0 += pass_w) {")],
+    },
+    "paired": {
+        **_RADIX_SPLIT_COMMON,
+        "no remote X": WIDE_SPLIT_PATCHES["paired"]["no remote X"],
+        "no Nyquist H sums": [("block_conv.cuh", "    const bool nyq_pair = PAIRED && c0 == 0;",
+                               "    const bool nyq_pair = false;")],
+        "no Nyquist W term": [("block_conv.cuh",
+                               "          if constexpr (PAIRED) add_nyq(acc, l0, col);\n", "")],
+    },
+}
+_RADIX_SPLIT_UNIT = """#include "block_conv_maps.cuh"
+#include "block_conv_peaks.cuh"
+FFTCONV_BLOCK_CONV_RADIX_ENTRY(fftconv_block_conv_f32_x6_r4, float, float, StoreF32, 6, kV4, false)
+FFTCONV_BLOCK_CONV_RADIX_ENTRY(fftconv_block_conv_f32_x6_r4_k, float, float, StoreF32, 6, kV4, true)
+FFTCONV_PEAKS_RADIX_ENTRY(fftconv_block_conv_peaks_f32_x6_r4, float, 6, kV4, false)
+"""
+
+
+def radix_split(csrc: pathlib.Path, seed: int) -> None:
+    """Time the v4 body's stages at JAX's F=1 plan at 6xTF32 (module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    import cuda_fft_convolution_torch as fc
+
+    text = (csrc / "block_conv.cuh").read_text()
+    design = "paired" if "BODY == kV3 || BODY == kV4" in text else "32 rows"
+    variants = {"whole": [], **RADIX_SPLIT_PATCHES[design], "no epilogue": _NO_EPILOGUE}
+    entries = ("fftconv_block_conv_f32_x6_r4", "fftconv_block_conv_f32_x6_r4_k",
+               "fftconv_block_conv_peaks_f32_x6_r4")
+    libs = _split_variants(f"radix_split/{design.replace(' ', '_')}", csrc, variants,
+                           _RADIX_SPLIT_UNIT, entries)
+    rng = np.random.default_rng(seed)
+    s, n, k = chip_smoke.HEADLINE["size"], chip_smoke.HEADLINE["n"], chip_smoke.HEADLINE["k"]
+    image = torch.as_tensor(rng.standard_normal((s, s, 1)).astype(np.float32), device="cuda")
+    bank = rng.standard_normal((n, k, k, 1)).astype(np.float32)
+    ops, _, geom = chip_smoke.radix_geometry(fc, chip_smoke.RADIX_PLANS[0], image, bank)
+    layout = (32, 0) if design == "32 rows" else None  # a parent's 32-row operands
+    whole = {}
+    for label, entry in (("f32 maps, 6xTF32", entries[0]),
+                         ("f32 maps, 6xTF32 Karatsuba", entries[1]),
+                         ("f32 peaks, 6xTF32", entries[2])):
+        for name, lib in libs.items():
+            ms = chip_smoke.cuda_ms(lambda: bare_entry(lib, entry, ops, geom, "v4", layout=layout))
+            whole.setdefault(label, ms)
+            print(f"radix split {design}, JAX F=1 plan {geom[:4]} {label}, {name}: {ms:.3f} ms "
                   f"({ms - whole[label]:+.3f} against the whole kernel; {chip_smoke.card()})")
             torch.cuda.empty_cache()
 
@@ -1240,6 +1325,9 @@ def main(argv=None) -> int:
                         help="where the BF16IO maps entry parts from its plain version")
     parser.add_argument("--stacked-split", type=pathlib.Path, default=None,
                         help="a csrc whose stacked configuration's stages to time")
+    parser.add_argument("--radix-split", type=pathlib.Path, default=None,
+                        help="split the v4 body's time at JAX's F=1 plan into its stages "
+                             "(this csrc or a parent's)")
     parser.add_argument("--wide-split", type=pathlib.Path, default=None,
                         help="a csrc whose wide configuration's stages to time")
     parser.add_argument("--soak", type=float, default=0.0,
@@ -1266,6 +1354,9 @@ def main(argv=None) -> int:
         return 0
     if args.wide_split is not None:
         wide_split(args.wide_split.resolve(), args.seed)
+        return 0
+    if args.radix_split is not None:
+        radix_split(args.radix_split.resolve(), args.seed)
         return 0
     if args.submit_probe:
         submit_probe(args.seed, args.soak)

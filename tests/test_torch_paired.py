@@ -356,7 +356,9 @@ def test_configuration_model(splits):
     size, the shared memory (the C side's formulas written out: X of
     ``pair_bins`` bins, the 64-row staging area and a 256-float sliver) and
     the row chunks; every (Wc, Vh, tier, form) the parent took is still
-    taken; the radix bodies keep the parent's one-block rule."""
+    taken; v5 and v5x keep the parent's one-block rule, and v4 takes the
+    pair where v3 does (and so also where the pair fits but the parent's
+    32 rows did not)."""
     taken_before = taken_now = 0
     for wc in (17, 70, 224, 257, 289, 301, 320, 321, 351, 385, 449, 451, 513, 577, 609,
                641, 705, 737, 769):
@@ -377,8 +379,12 @@ def test_configuration_model(splits):
                     taken_before += 1
                     assert tbc.form_taken(wc, vh, splits, True, kara)
                 taken_now += tbc.form_taken(wc, vh, splits, True, kara)
-                assert tbc.radix_fits(wc, vh, splits, kara) == (
+                assert tbc.radix_fits(wc, vh, splits, kara, "v5") == (
                     g == 1 and before <= tbc.SMEM_LIMIT_BYTES)
+                assert tbc.radix_fits(wc, vh, splits, kara) == (
+                    g == 1 and (paired or before <= tbc.SMEM_LIMIT_BYTES))
+                assert tbc.kernel_layout("v4", wc, vh, splits, kara) == (
+                    (64, half) if paired else (tbc._one_block_rows(wc, splits, kara), 0))
                 if paired:
                     assert half % 32 == 0 and 2 * half >= wc - 1 > half
     assert taken_now >= taken_before > 0
@@ -402,7 +408,8 @@ def test_the_1024_block_per_tier():
     assert tbc.smem_bytes(513, 512, 3, True) == x + 73728 + 1024
     assert tbc.pair_bins(513, 512, 6, True) == 0
     assert not tbc.form_taken(513, 512, 6, True, True)
-    assert tbc.kernel_layout("v4", 513, 512, 3) == (32, 0)
+    assert tbc.kernel_layout("v4", 513, 512, 3) == (64, 256)
+    assert tbc.kernel_layout("v5", 513, 512, 3) == (32, 0)
     assert tbc.kernel_layout("v2", 513, 512, 3)[1] == 0
 
 
