@@ -282,8 +282,8 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      radix_h``, ``radix_w``, ``xsliver``) at three of JAX's one-block
      plans, reached through the tuner's table (``RADIX_PLANS``): (256,
      512, 65, 129), JAX's fp32 and bf16 F=1 plan, 64 rows; (128, 512, 33,
-     129), its 32² plan; (256, 1024, 65, 129), Wc 513 (v4 runs the cluster
-     pair there, as v3 does, and at 6xTF32 on Wc 257; v5 and v5x 32 rows)
+     129), its 32² plan; (256, 1024, 65, 129), Wc 513 (every radix body
+     runs the cluster pair there, as v3 does, and at 6xTF32 on Wc 257)
      — each on
      the headline image with 100 kernels (64², or 32² at the 32² plan): v3
      and every radix entry in both H-stage forms (the 4-product entries and
@@ -351,9 +351,10 @@ parent ran the (1, 1) tile and this tree the split form (it sums in
 another order); at such a row the wrapper and the complex einsum are timed
 in the same turns. It also builds the parent's fused kernels and times, in
 the same turns, every entry the paired configuration took over from the
-parent's 32-row tiles (the v4 maps and peaks entries of both H-stage
-forms where v4 pairs at step 36's plans), each side against the plain
-version, v3's paired entry timed beside each (``wide_ab``).
+parent's 32-row tiles (the radix maps and peaks entries of both H-stage
+forms that this tree pairs and the parent did not, at step 36's plans),
+each side against the plain version, the paired entries of v4 (beside
+v5's and v5x's) and v3 timed beside each (``wide_ab``).
 
 Steps 13–37 print each check, each time (CUDA events, median of 7, unless
 said otherwise) beside the card's name and power limit, the kernel launches
@@ -1359,13 +1360,15 @@ AB_REPS = 10  # MAC calls a CUDA-event window in the tile times and the A/B
 def wide_ab(csrc: pathlib.Path, seed: int) -> None:
     """``--ab-parent``'s turns of the entries the paired configuration took
     over from the parent's 32-row tiles: the parent's fused libraries built
-    from ``csrc`` beside this tree's, every v4 maps and peaks entry of both
-    H-stage forms where v4 pairs at step 36's plans (6xTF32 at Wc 257,
-    every tier at Wc 513), parent / this tree / this tree / parent, v3's
-    paired entry beside each (``profile_torch_paths.wide_turns``)."""
+    from ``csrc`` beside this tree's, every radix maps and peaks entry of
+    both H-stage forms that this tree pairs and the parent did not, at step
+    36's plans (6xTF32 at Wc 257, every tier at Wc 513), parent / this tree
+    / this tree / parent, the paired entries of v4 (beside v5's and v5x's)
+    and v3 beside each (``profile_torch_paths.wide_turns``)."""
     import profile_torch_paths
 
-    profile_torch_paths.wide_turns(profile_torch_paths.build_parent(csrc), seed)
+    profile_torch_paths.wide_turns(profile_torch_paths.build_parent(csrc), seed,
+                                   profile_torch_paths.parent_paired_bodies(csrc))
 
 
 def build_parent_mac(csrc: pathlib.Path) -> None:
@@ -4313,9 +4316,9 @@ def bf16io_phase(fc, seed, image_d, bank_d, idx, want, big, path_launches, times
 # ---- step 36: the radix-2 bodies (JAX's v4, v5, v5x) ----
 # JAX's one-block radix plans, reached through the tuner's table (valid
 # window and blocks under the kernel envelope k²): its fp32 and bf16 F=1
-# plan (256, 512, 65, 129) in the 64-row configuration (at 6xTF32 v4 the
-# cluster pair, v5 and v5x 32 rows), its 32² plan (128, 512, 33, 129), and
-# W = 1024 (Wc 513: v4 the pair, v5 and v5x 32 rows).
+# plan (256, 512, 65, 129) in the 64-row configuration (at 6xTF32 every
+# radix body the cluster pair), its 32² plan (128, 512, 33, 129), and W =
+# 1024 (Wc 513: every radix body the pair, as v3).
 RADIX_PLANS = (
     dict(label="JAX F=1 plan", k=64, valid=(192, 384), block=(256, 512)),
     dict(label="JAX 32² plan", k=32, valid=(96, 384), block=(128, 512)),
@@ -4461,18 +4464,18 @@ def radix_checks(ops, ops16, geom, label, want, idx, table, karatsuba_rows=False
                     check_kernel(*planes, geom, label, torch.bfloat16, max(tol, BF16_OUT_TOL),
                                  splits, flags)
                 check_peaks(*planes, geom, label, tol, splits, pflags)
+            tier_s = resolved(planes[0], splits)
+            rows, half = kernel_layout(body, bw // 2 + 1, bh - kh + 1, tier_s, kara)
+            config = f"pair, {half} bins a rank" if half else f"{rows} rows"
             maps = block_conv(*planes, *geom, torch.float32, splits, **flags)[0]
             err = max_rel_err_f64(maps, idx, want)
             del maps
-            print(f"radix [{label}] {name} {tag} {tier} maps vs float64 on maps {idx}: "
-                  f"{err:.3e} (bar {f64_tol:g})")
+            print(f"radix [{label}] {name} {tag} {tier} ({config}) maps vs float64 on maps "
+                  f"{idx}: {err:.3e} (bar {f64_tol:g})")
             if err > f64_tol:
                 raise AssertionError(f"{label} {name} {tier}: {err} from float64")
             if kara and body != "v4":
                 continue
-            tier_s = resolved(planes[0], splits)
-            rows, half = kernel_layout(body, bw // 2 + 1, bh - kh + 1, tier_s, kara)
-            config = f"pair, {half} bins a rank" if half else f"{rows} rows"
             for head, fn, plain in (
                 ("maps", lambda: block_conv(*planes, *geom, torch.float32, splits, **flags),
                  lambda: block_conv_reference(*planes, *geom, torch.float32, splits, **flags)),

@@ -163,16 +163,17 @@
 // fragment reads and the S^T stores are free of bank conflicts. The
 // one-block configurations: 64 rows (the headline) and, where that X does
 // not fit in shared memory (Wc > 320 at 3xTF32), the paired configuration
-// below (v3 and v4) or 32 rows (v5, v5x and v2; v3 and v4 where the pair
-// does not fit either: 6xTF32 past Wc 513, the Karatsuba form at one pass
-// and kBF16IO past Wc 705). Blocks run in
+// below (v3 and the radix bodies) or 32 rows (v2; the others where the
+// pair does not fit either: 6xTF32 past Wc 513, the Karatsuba form at one
+// pass and kBF16IO past Wc 705). Blocks run in
 // parallel and in no order, unlike the TPU grid that kept the kernel index
 // innermost so a data block stayed in VMEM across the bank; here the kernel
 // index is the fastest-varying launch index, so the CTAs resident at one
 // time share a data block (and the whole bank) in L2.
 //
-// Wide blocks: the paired configuration (PAIRED; v3 and v4 in both H-stage
-// forms, at every tier, where the 64-row X does not fit). A thread-block
+// Wide blocks: the paired configuration (PAIRED; v3 and the radix bodies
+// in both H-stage forms, at every tier, where the 64-row X does not fit;
+// the radix bodies' pair below). A thread-block
 // cluster of kPair = 2 CTAs takes 64 window rows of one cell (row chunks of 64), and
 // each CTA owns part of the bins 0 .. wc - 2: rank 0 the first pair_half
 // (half of them rounded up to kKB, or kKB more where that leaves rank 1 no
@@ -273,8 +274,8 @@
 //
 // Radix-2 bodies (the template argument BODY: the JAX kernel's v4, v5 and
 // v5x beside v3; ops/block_conv.py radix_h_legal, radix_w_legal). They run
-// in the one-block 64- and 32-row configurations (not stacked), v4 also in
-// the pair where v3 runs it, and change two stages:
+// in the one-block 64- and 32-row configurations (not stacked), and in the
+// pair where v3 runs it, and change two stages:
 //   - v4's H stage. Lh = 2M; x[v] = E[v mod M] +- t[v mod M] O[v mod M]
 //     with E = U S_even, O = U S_odd (U[v', j] = exp(2 pi i v' j / M) / Lh,
 //     t[v'] = exp(i pi v' / M)), the window's rows v = w0 + r, w0 = Lh - Vh.
@@ -304,7 +305,8 @@
 //     third plane) are staged beside the others (Ur + Ui in place of -Ui at
 //     64 rows), three products for E and three for O, their loop not
 //     unrolled at 64 rows (as v3's).
-//   - v4 in the pair (PAIRED, where v3 runs it): each rank runs the 64-row
+//   - The H stage in the pair (PAIRED, where v3 runs it; every radix
+//     body): each rank runs the 64-row
 //     stage above over its own bins of 0 .. wc - 2 (at Wc 257 one pass of
 //     128 bins a pair chunk and two of 64 a single chunk, where the 32-row
 //     code ran 3 and 5 over every bin), so S is built once a chunk over a
@@ -317,9 +319,12 @@
 //     form whatever the H stage's (as v5's Nyquist term). (Measured, PERF.md:
 //     these sums cost 2-4 ms of 40 at JAX's F=1 plan; a cp.async prefetch
 //     of the bin's values and a split of the sums over every warp did not
-//     make them cheaper.) The W stage, the
+//     make them cheaper.) v4's W stage, the
 //     last bin's rank-1 term, a last column alone and the peaks entries are
-//     the pair's; the epilogue masks each chunk's rows (row_end).
+//     the pair's; the epilogue masks each chunk's rows (row_end). v5 sums
+//     the last bin the same way from the unrounded S (the JAX kernel's VPU
+//     term: its sliver value is nyq), v5x not at all (its H stage skips the
+//     Nyquist bin); the DIF pair's W stage is below.
 //   - v5's W stage (DIF). With W = 2 (Wc - 1), the W/2 even bins give P =
 //     half the W/2-point packed synthesis, the odd bins the twiddle-folded Q
 //     (ops/block_conv.py _dif_w_mats: one (Tn x W) operand [epr; epi; oqr;
@@ -336,6 +341,27 @@
 //     the kernel (ops/block_conv.py _xsliver), rounded to bf16 at kBF16IO
 //     as the JAX kernel's BF16IO dot rounds it, and its H stage skips the
 //     Nyquist bin (W/2 bins: one pass fewer at W = 512).
+//   - v5's and v5x's W stage in the pair (PAIRED, where v3 runs it: at
+//     6xTF32 on Wc 257, at every tier on Wc 513). The ranks split the W/2
+//     bins below the Nyquist bin evenly (pair_half is W/4 on every plan
+//     radix_w_legal admits; the launch refuses another split), each rank's
+//     X stored [even | odd] within its bins (xcol, xq), so a W-stage chunk
+//     of kKC rows of [epr; epi; oqr; oqi] lies in one rank's X: the
+//     contraction keeps the one-block order (even re, even im, odd re, odd
+//     im, each segment's bins rank 0's, then rank 1's; x_at), and
+//     the 64-row operand serves as it is. Each rank takes half of the
+//     t'-passes (1 / 1 at Tn 256, 2 / 2 at Tn 512), P over both ranks' even
+//     chunks and Q over their odd ones, the partner's through
+//     ld.shared::cluster as v3's pair reads it; the Nyquist term enters P
+//     as above (v5: the sliver's value of each row; 1 / W from RadixOps,
+//     set at launch), and the epilogue gets P +- Q at t' - t0 and P - Q at
+//     t' - t0 + W/2, so a rank's columns are two stretches (the peaks
+//     kernel's entry a rank reduces both; ties go to the smaller flat
+//     index). No last column alone: the passes run over t'-columns.
+//     Registers: the chunk's row segments and cell are decoded anew from
+//     the block index after the H stage, in 32-bit arithmetic (held
+//     through it, or decoded with a 64-bit division, whose subroutine
+//     call needs registers, they spilled the 6xTF32 entries; PERF.md).
 // Precision: the same short stretches (8 spectrum rows of E or O a chunk;
 // kKC rows of a half a W-stage chunk) summed on the tensor cores and added
 // in IEEE fp32, and the same tiers, as above.
@@ -471,11 +497,14 @@ __host__ __device__ constexpr bool radix_body(int body) { return body == kV4 || 
 // The radix bodies' operands (ops/block_conv.py _radix_kernel_mats): U (3,
 // u_rows(M), g_cols(M)) = re, im, re + im (the Karatsuba form's plane); the
 // twiddle (2, M) = cos, sin; v5x's sliver (B, N, nbh, nbw, Vh), the Nyquist
-// bin's windowed H synthesis.
+// bin's windowed H synthesis; and the DIF stage's 1 / W, which
+// launch_block_conv sets (a division in the kernel calls a subroutine whose
+// registers spilled the DIF pair's peaks entry at 6xTF32).
 struct RadixOps {
   const float* u_pad;
   const float* tw;
   const float* slv;
+  float inv_w;
 };
 __host__ __device__ inline int u_rows(int m) { return (m + 63) / 64 * 64; }
 // A block's radix row chunks in the configuration of `rows` rows: pair
@@ -486,6 +515,19 @@ __host__ __device__ inline int pair_chunks(int lh, int vh, int rows) {
 }
 __host__ __device__ inline int single_chunks(int lh, int vh, int rows) {
   return (lh - vh + rows - 1) / rows;
+}
+// The window rows of radix row chunk rc's local rows: [0, rows / 2) from a,
+// [rows / 2, rows) from b, each below ea and eb. A pair chunk's are x[v']
+// and x[v' + M] for v' = w0 + rc rows / 2 + k (rows k and rows / 2 + k),
+// a single chunk's window rows r0.. of [M - w0, M).
+struct Segs {
+  int a, b, ea, eb;
+};
+__host__ __device__ inline Segs radix_segs(int rc, int lh, int vh, int rows) {
+  const int m = lh / 2, w0 = lh - vh, npc = pair_chunks(lh, vh, rows);
+  if (rc < npc) return Segs{rc * (rows / 2), rc * (rows / 2) + m, m - w0, vh};
+  const int r0 = m - w0 + (rc - npc) * rows;
+  return Segs{r0, r0 + rows / 2, m, m};
 }
 // The plans the radix bodies take: an even Lh whose window starts in the
 // first half period (0 < w0 < M), and for the DIF W stage W/4 a whole
@@ -824,8 +866,9 @@ inline int kernels_per_cta(int wc, int vh, int splits) {
   return t;
 }
 
-// The paired configuration (v3 and v4, both H-stage forms, where the 64-row
-// X does not fit; see "Wide blocks" above): rank 0's bins, half of the wc -
+// The paired configuration (v3 and the radix bodies, both H-stage forms,
+// where the 64-row X does not fit; see "Wide blocks" above): rank 0's bins,
+// half of the wc -
 // 1 bins below the Nyquist bin rounded up to kKB, or kKB more where that leaves
 // rank 1 no pass under kKB bins and still fits (pass_ok); 0 where the pair
 // does not fit.
@@ -844,8 +887,8 @@ __host__ __device__ inline int pair_half(int wc, int splits, bool kara) {
 // alone past whole passes (vw = 128 q + 1) is a dot of its own.
 __host__ __device__ inline int pair_cols(int vw) { return vw % kCols == 1 ? vw - 1 : vw; }
 
-// Rank 0's bins where v3 and v4 run the paired configuration at (wc, vh),
-// else 0.
+// Rank 0's bins where v3 and the radix bodies run the paired configuration
+// at (wc, vh), else 0.
 inline int pair_bins(int wc, int vh, int splits, bool kara = false) {
   return blocks_per_cta(wc, vh, splits) > 1 || !wide(wc, splits, kara) ? 0 : pair_half(wc, splits, kara);
 }
@@ -1016,8 +1059,8 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   constexpr bool kApart = SPLITS == 6;
   constexpr bool kDif = dif_body(BODY);
   static_assert(BODY != kV2 || !STACKED, "v2 stacks blocks its own way");
-  static_assert(!PAIRED || ((BODY == kV3 || BODY == kV4) && ROWS == 64 && !STACKED),
-                "the pair is v3's and v4's, of 64-row CTAs");
+  static_assert(!PAIRED || ((BODY == kV3 || radix_body(BODY)) && ROWS == 64 && !STACKED),
+                "the pair is v3's and the radix bodies', of 64-row CTAs");
   extern __shared__ __align__(16) float smem[];
   // PAIRED: this CTA's rank in its cluster, and its X's bins (pair_half):
   // rank 0 holds bins 0 .. half - 1, rank 1 half .. wc - 2, each padded to
@@ -1030,9 +1073,12 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   float* sliver = stage + stage_all(ROWS, SPLITS, KARA);  // PAIRED: [Xn re 64][Xn im 64][partial sums 64 doubles]
   // The DIF stage's half period W/2 and quarter; its H stage stores X's
   // bins permuted, [even | odd | Nyquist] (xcol), and v5x's stops at W/2.
+  // PAIRED: each rank's W/4 bins [even | odd] (xq: where its odd bins
+  // start), the Nyquist bin apart in the sliver.
   const int l2 = wc - 1, l4 = l2 / 2;
-  const int hb_pad = BODY == kV5X ? l2 : wc_pad;
-  auto xcol = [&](int v) { return kDif && v < l2 ? (v & 1) * l4 + (v >> 1) : v; };
+  const int hb_pad = BODY == kV5X && !PAIRED ? l2 : wc_pad;
+  const int xq = PAIRED ? wc_pad / 2 : l4;
+  auto xcol = [&](int v) { return kDif && (PAIRED || v < l2) ? (v & 1) * xq + (v >> 1) : v; };
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -1045,10 +1091,10 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   Cell cell_at;
   int kernels_at = 1;  // the stacked CTA's kernels (cell_at.ni on)
   int r0 = 0;
-  // The window rows of X's local rows: [0, RW) from seg_a, [RW, ROWS) from
-  // seg_b, up to end_a and end_b (a radix chunk's rows; v3 and the stacked
-  // configuration: r0.. in order, masked by the epilogue alone).
-  int seg_a = 0, seg_b = RW, end_a = INT_MAX, end_b = INT_MAX;
+  // The window rows of X's local rows and the rows the chunk owns: a radix
+  // chunk's (radix_segs); the others' are r0.. in order, masked by the
+  // epilogue alone.
+  Segs sg{0, RW, INT_MAX, INT_MAX};
   if constexpr (!STACKED) {
   // S^T: the pieces of re, then of im (then, Karatsuba, of re + im); G
   // chunk: the same planes, then the pieces of -Gi at 64 rows (Karatsuba:
@@ -1077,27 +1123,14 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   r0 = rc * ROWS;
   // (a pair's ranks write a pyramid entry each: chunk rc kPair + rank)
   cell_at = Cell{bb, bi, bj, PAIRED ? rc * kPair + crank : rc, ni, count};
-  // A radix body's chunk: a pair chunk (rc < its count) holds x[v'] at
-  // local rows k and x[v' + M] at RW + k for v' = p0 + k; a single chunk
-  // window rows r0.. of [M - w0, M), x[v' + M] for v' = r0 - (M - w0) + k
-  // at local row k.
+  // A radix body's chunk (radix_segs): a pair chunk (rc < its count)
+  // holds x[v'] at local rows k and x[v' + M] at RW + k for v' = p0 + k; a
+  // single chunk x[v' + M] for v' = (rc - npc) ROWS + k at local row k.
   const int m_h = lh / 2, w0 = lh - vh;
   const int npc = radix_body(BODY) ? pair_chunks(lh, vh, ROWS) : 0;
   const bool pair = radix_body(BODY) && rc < npc;
   const int p0 = w0 + rc * RW;
-  if constexpr (radix_body(BODY)) {
-    if (pair) {
-      seg_a = p0 - w0;
-      seg_b = p0 + m_h - w0;
-      end_a = m_h - w0;
-      end_b = vh;
-    } else {
-      r0 = m_h - w0 + (rc - npc) * ROWS;
-      seg_a = r0;
-      seg_b = r0 + RW;
-      end_a = end_b = m_h;
-    }
-  }
+  if constexpr (radix_body(BODY)) sg = radix_segs(rc, lh, vh, ROWS);
 
   const long long plane = static_cast<long long>(lh) * wc;
   const long long dcell = (bb * nbh + bi) * nbw + bj;  // the (first) block's cell
@@ -1300,13 +1333,13 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     const int col0 = kWG ? (pair ? (warp >> 2) * 64 : 0) : (pair ? warp : warp & 3) * 16;
     const int bin0 = c0 + col0;
     const bool live = bin0 < hb_pad;
-    const bool nyq_pass = BODY == kV5 && c0 <= l2 && l2 < c0 + pass_w;
+    const bool nyq_pass = BODY == kV5 && !PAIRED && c0 <= l2 && l2 < c0 + pass_w;
     // the pass's first bin in the spectra and its bins there (PAIRED: this
     // rank's), and whether it sums the Nyquist bin's E and O (PAIRED: the
-    // rank's first pass)
+    // rank's first pass; v5x's H stage skips that bin)
     const int cg = PAIRED ? pbin0 + c0 : c0;
     const int cw = PAIRED ? min(pass_w, pbins - c0) : pass_w;
-    const bool nyq_pair = PAIRED && c0 == 0;
+    const bool nyq_pair = PAIRED && BODY != kV5X && c0 == 0;
     load_dk(cg, 0, 0, cw);
     load_u(0);
     for (int u0 = 0; u0 < lh; u0 += kUK) {
@@ -1322,10 +1355,12 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       __syncthreads();  // the previous chunk's products are done with staging
       stage_s(sv, true);
       if (nyq_pair && nq_u >= 0) {
-        // rounded as the staged S is: s_nq's float4 j holds spectrum rows
+        // v4: rounded as the staged S is; v5: unrounded, as the JAX
+        // kernel's VPU term takes it. s_nq's float4 j holds spectrum rows
         // 2 j (E's) and 2 j + 1 (O's), re and im
-        s_nq[2 * nq_u] = SPLITS == kBF16IO ? __uint_as_float(bf16r(snq[0])) : snq[0];
-        s_nq[2 * nq_u + 1] = SPLITS == kBF16IO ? __uint_as_float(bf16r(snq[1])) : snq[1];
+        constexpr bool kRound = SPLITS == kBF16IO && BODY == kV4;
+        s_nq[2 * nq_u] = kRound ? __uint_as_float(bf16r(snq[0])) : snq[0];
+        s_nq[2 * nq_u + 1] = kRound ? __uint_as_float(bf16r(snq[1])) : snq[1];
       }
 #pragma unroll
       for (int q = 0; q < kUQ; ++q) {
@@ -2032,10 +2067,11 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   }
   if constexpr (PAIRED) {
     __syncthreads();  // X and the sliver are written
-    // A last column alone (vw = 128 q + 1): its dot over this rank's X in
-    // float64 (exact products, a sum that does not round), four threads a
-    // row over interleaved columns, in the sliver for rank 1 to finish.
-    if (vw > pair_cols(vw)) {
+    // A last column alone (vw = 128 q + 1; not in the DIF stage, whose
+    // passes run over t'-columns): its dot over this rank's X in float64
+    // (exact products, a sum that does not round), four threads a row over
+    // interleaved columns, in the sliver for rank 1 to finish.
+    if (!kDif && vw > pair_cols(vw)) {
       const int mcols = m_cols(pair_cols(vw));
       const float* ml = m_tc + static_cast<long long>(St::kMP) * mcols * (4 * wc_pad) + 2 * mcols +
                         crank * 2 * wc_pad;
@@ -2466,42 +2502,68 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   // oqi] for t'-columns, the first half of a pass's chunks summing P over
   // X's even bins (re, then im), the second Q over its odd bins.
   // PAIRED: the contraction runs over both ranks' X, [Xr | Xi] of rank 0
-  // then of rank 1, and the passes over pair_cols(vw) columns; rank 0 takes
-  // the first half of the passes (rounded up), rank 1 the rest: this rank's
-  // p_beg ...
+  // then of rank 1 (DIF: the one-block order, each segment's bins rank 0's
+  // then rank 1's: the 64-row operand as it is), and the passes over
+  // pair_cols(vw) columns (DIF: its t'-columns); rank 0 takes the first
+  // half of the passes (rounded up), rank 1 the rest: this rank's p_beg
+  // ...
   const int kw2 = kDif ? 2 * l2 : (PAIRED ? kPair : 1) * 2 * wc_pad;
   const int nkc = kw2 / kKC;
+  // chunks of a DIF segment (else of a CTA's X), and of them one CTA's
+  const int seg_c = (kDif ? l4 : 2 * wc_pad) / kKC;
+  const int own_c = kDif && PAIRED ? seg_c / kPair : seg_c;
   const int wcols = kDif ? min(vw, l2) : PAIRED ? pair_cols(vw) : vw;  // the columns the products run over
   const int mcols = m_cols(wcols);
   const int all_p = mcols / kCols;
   const int p_beg = PAIRED && crank ? (all_p + 1) / 2 : 0;
   const int steps = (PAIRED ? (crank ? all_p - p_beg : (all_p + 1) / 2) : all_p) * nkc;
-  // X's column of chunk kc's first row of [Mr ; Mi] (or of [epr; ..]).
-  auto x_col = [&](int kc) {
+  // X's column of chunk kc's first row of [Mr ; Mi] (or of [epr; ..]), in
+  // the X of rank src (PAIRED: of the chunks of a DIF segment, or of the
+  // whole contraction, rank 0's own_c come first; else this CTA's). DIF:
+  // segment kc / seg_c is even re, even im, odd re, odd im. (One division
+  // a step: this runs in the W stage's loop.)
+  static_assert(kPair == 2, "a chunk is rank 0's or rank 1's");
+  auto x_at = [&](int kc, int& src) {
+    int i = kc, base = 0;
     if constexpr (kDif) {
-      const int per = l4 / kKC;
-      const int seg = kc / per;
-      return (seg & 1) * wc_pad + (seg >> 1) * l4 + (kc - seg * per) * kKC;
-    } else {
-      return kc * kKC;
+      const int seg = kc / seg_c;
+      i = kc - seg * seg_c;
+      base = (seg & 1) * wc_pad + (seg >> 1) * xq;
     }
+    src = PAIRED && i >= own_c ? 1 : 0;
+    return base + (i - src * own_c) * kKC;
   };
-  // The window row of X's local row l and the rows the chunk owns.
-  auto win_row = [&](int l) { return l < RW ? seg_a + l : seg_b + l - RW; };
-  auto win_end = [&](int l) { return l < RW ? end_a : end_b; };
+  // A radix body's pair decodes its cell and row chunk anew from the block
+  // index here, in 32-bit arithmetic (a 64-bit division calls a
+  // subroutine), so that none of them is held in registers through the H
+  // stage (held, they spilled the DIF pair's 6xTF32 entries; the one-block
+  // configurations keep them, as they ran faster so).
+  if constexpr (PAIRED && radix_body(BODY)) {
+    unsigned bidx = static_cast<unsigned>(opaque(blockIdx.x)) / kPair;
+    const int ni = static_cast<int>(bidx % n);
+    bidx /= n;
+    const int rc = static_cast<int>(bidx % row_chunks);
+    bidx /= row_chunks;
+    const int bj = static_cast<int>(bidx % nbw);
+    bidx /= nbw;
+    cell_at = Cell{bidx / nbh, static_cast<int>(bidx % nbh), bj, rc * kPair + crank, ni, 1};
+    sg = radix_segs(rc, lh, vh, ROWS);
+  }
+  auto win_row = [&](int l) { return l < RW ? sg.a + l : sg.b + l - RW; };
+  auto win_end = [&](int l) { return l < RW ? sg.ea : sg.eb; };
   // DIF: P += nyq[r] (-1)^(t0 + k) / W, then the epilogue's two tiles,
   // column k: P + Q (t0 + k < W/2) or P - Q, and column k + W/2: P - Q.
   // The Nyquist values of local rows l and l + 8: X's Nyquist bin (v5), or
   // v5x's sliver at their window rows.
   const int t0 = kDif ? 2 * l2 - vw : 0;  // kw - 1
-  const float inv_w = kDif ? static_cast<float>(1.0 / (2.0 * l2)) : 0.f;
+  const float inv_w = rx.inv_w;
   const float* slv_c = nullptr;
   if constexpr (BODY == kV5X && !STACKED)
     slv_c = rx.slv + (((cell_at.bb * n + cell_at.ni) * nbh + cell_at.bi) * static_cast<long long>(nbw) +
                       cell_at.bj) * vh;
   auto nyq_of = [&](int l) -> float {
     if constexpr (BODY == kV5) {
-      return x_s[l * xs + l2];
+      return PAIRED ? sliver[l] : x_s[l * xs + l2];
     } else {
       const int r = win_row(l);
       const float v = r < vh && r < win_end(l) ? slv_c[r] : 0.f;
@@ -2649,9 +2711,9 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         uint32_t xp[2][P][4];
         // PAIRED: chunk kc lies in the X of rank src, the partner's read
         // with four 32-bit loads a fragment (ldmatrix reads this CTA's)
-        const int src = PAIRED ? kc / (nkc / kPair) : 0;
+        int src;
+        const int xc = x_at(kc, src);
         const bool remote = PAIRED && src != crank;
-        const int xc = PAIRED ? (kc - src * (nkc / kPair)) * kKC : x_col(kc);
         auto frag = [&](int ks, int bf) {
           uint32_t xa[4];
           if (remote) {
@@ -2724,7 +2786,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
             dif_combine(acc, accq, l0, col);
             if (p * kCols + wg * 64 + l2 < vw) epi.tile(accq, win_row(l0), col + l2, win_end(l0));
           }
-          if constexpr (PAIRED) add_nyq(acc, l0, col);
+          if constexpr (PAIRED && !kDif) add_nyq(acc, l0, col);
           epi.tile(acc, win_row(l0), col, win_end(l0));
         }
       }
@@ -2758,7 +2820,8 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
       issue_m(it + kM - 1);
       if (p * kCols + wn * 32 < wcols) {
         const float* mb = m_st + (it % kM) * kMChunk + wn * 4 * (kKC / 4) * kCore + core_lane(lane);
-        const float* xb = xw + wm * RW * xs + x_col(kc) + a_lane(lane, xs);
+        int src;
+        const float* xb = xw + wm * RW * xs + x_at(kc, src) + a_lane(lane, xs);
         // t: the chunk's sums on the tensor cores (at 6xTF32 the small
         // terms in tc, apart)
         float t[MT][4][4], tc[MT][4][4];
@@ -2852,7 +2915,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   // bin's term, rounded once; then the pair's last barrier, so that neither
   // CTA leaves while its partner may read its shared memory.
   auto pair_last = [&](auto& epi) {  // (generic: instantiated only where a pair calls it)
-    if (crank == 1 && vw > wcols && warp == 0) {
+    if (!kDif && crank == 1 && vw > wcols && warp == 0) {
       const double* part = reinterpret_cast<const double*>(sliver + 2 * ROWS);
       const uint32_t peer = mapa(smem_u32(part), 0);
       const int l = 16 * (lane >> 3) + (lane & 7);
@@ -2980,10 +3043,11 @@ int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
 // The paired configuration (pair_bins > 0: v3 and v4) takes
 // ops/block_conv.py _pair_m's operand in m_tc instead. The DIF bodies take
 // in m_tc the planes of [epr; epi; oqr; oqi]^T (m_cols(min(vw, W/2)), W)
-// instead, and the radix bodies the operands of RadixOps (v5x: slv; the
-// others may pass null there); they run only where the one-block
-// configurations (and v4's pair) do (blocks_per_cta = 1) on the plans
-// radix_h_ok (and, DIF, radix_w_ok) admit. KARA runs the Karatsuba H stage
+// instead (in the pair as for 64 rows), and the radix bodies the operands
+// of RadixOps (v5x: slv; the others may pass null there; inv_w is set
+// here); they run only where the one-block configurations and the pair do
+// (blocks_per_cta = 1) on the plans radix_h_ok (and, DIF, radix_w_ok, and
+// in the pair an even split) admit. KARA runs the Karatsuba H stage
 // (every body). `ktile` (1..n), the kernels a launch tile of the
 // stacked configuration holds, is its launch order (n: the kernel index
 // fastest); the others run the kernel index fastest. Epi is the epilogue
@@ -3003,6 +3067,7 @@ int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
       ktile < 1 || ktile > n || need > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  rx.inv_w = static_cast<float>(1.0 / (2.0 * (wc - 1)));  // the DIF stage's 1 / W
   if constexpr (BODY == kV2) {
     if (v2_rows(wc, vh, SPLITS, KARA) == 32)
       return launch<TS, 32, false, SPLITS, BODY, Epi<false>, KARA>(d_re, d_im, k_re, k_im, gt_re, gt_im,
@@ -3022,9 +3087,12 @@ int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
         (dif_body(BODY) && !radix_w_ok(wc)) || (BODY == kV5X && !rx.slv))
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  if constexpr (BODY == kV3 || BODY == kV4) {
-    if (pair_bins(wc, vh, SPLITS, KARA))
-      return launch<TS, 64, false, SPLITS, BODY, Epi<false>, KARA, true>(d_re, d_im, k_re, k_im, gt_re, gt_im,
+  if (const int half = pair_bins(wc, vh, SPLITS, KARA)) {
+    // the DIF pair: the ranks split the W/2 bins evenly, in whole W-stage
+    // chunks of each parity (radix_w_legal's plans, W a multiple of 512)
+    if (dif_body(BODY) && (2 * half != wc - 1 || half % (2 * kKC)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch<TS, 64, false, SPLITS, BODY, Epi<false>, KARA, true>(d_re, d_im, k_re, k_im, gt_re, gt_im,
                                                                        g_pad, m_tc, rx, out, b, nbh, nbw, f,
                                                                        n, lh, wc, vh, vw, out_h, out_w, ktile,
                                                                        s);
@@ -3036,8 +3104,7 @@ int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
   if constexpr (dif_body(BODY) && SPLITS == 6) {
     // The 64-row configuration takes bins up to 256 at 6xTF32, the DIF
     // stage W = 2 (Wc - 1) a multiple of 512 (radix_w_legal): no plan
-    // reaches it, and it is not built (its P and Q tiles beside 6xTF32's
-    // apart sums would spill).
+    // reaches it (Wc 257 is the pair's there), and it is not built.
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     return launch<TS, 64, false, SPLITS, BODY, Epi<false>, KARA>(d_re, d_im, k_re, k_im, gt_re, gt_im,

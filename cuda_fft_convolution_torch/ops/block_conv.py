@@ -63,7 +63,7 @@ x[t' + W/2] = P − Q — with the Nyquist bin added as a (−1)^t rank-1 term)
 and v5x (``xsliver``: v5 with that Nyquist term synthesised outside the
 kernel, ``_xsliver``). Their kernel entries carry the suffixes ``_r4``,
 ``_r5``, ``_r5x`` (``RADIX_SUFFIX``); they run in the one-block 64- and
-32-row configurations, and v4 also in the cluster pair where v3 runs it
+32-row configurations, and in the cluster pair where v3 runs it
 (``kernel_layout``, ``radix_fits``). ``block_conv_reference``
 follows each body's factorisation (``_radix_x``, ``_dif_tile``), which is
 the JAX kernels': every window row from the sub-transforms Ê and Ô and the
@@ -104,9 +104,9 @@ from cuda_fft_convolution_torch.utils.errors import InvalidInputError, validate
 # as, 3, 6 or 1, or ``BF16IO``, one product of bf16-rounded operands, laid
 # out as one pass; ``fused_splits``). A CTA holds X, 64 rows × [Xr | Xi]
 # over the packed bins padded to 32 (a row stride of 2·bins + 4 floats) —
-# where that does not fit, the v3 and v4 kernels pair two 64-row CTAs that
-# split the bins (``pair_bins``, below) and the other bodies (and v3 and v4
-# where the pair does not fit either) take 32 rows — plus a staging area, within
+# where that does not fit, the v3 and radix kernels pair two 64-row CTAs
+# that split the bins (``pair_bins``, below) and v2 (and the others where
+# the pair does not fit either) takes 32 rows — plus a staging area, within
 # Hopper's 227 KB (232,448 B) per-block shared-memory limit. The staging area is the larger
 # of the H stage's (S^T, 128 bins, and a G chunk, as the TF32 pieces of 16
 # spectrum rows — 2 at 3×TF32, 3 at 6×TF32, 1 at one pass — with −Gi's at
@@ -262,15 +262,16 @@ def kernels_per_cta(wc: int, vh: int, splits: int = 3) -> int:
 
 
 def _one_block_rows(wc: int, splits: int = 3, karatsuba: bool = False) -> int:
-    """Rows of the one-block configuration without pairs (v5's and v5x's at
-    every width, v3's and v4's where the pair does not fit): 64 where that
-    X fits beside the staging area, else 32."""
+    """Rows of the one-block configuration without pairs (where the pair
+    does not fit, or, for v2, at every width): 64 where that X fits beside
+    the staging area, else 32."""
     fits = _tile_smem_bytes(wc, 64, splits=splits, karatsuba=karatsuba) <= SMEM_LIMIT_BYTES
     return 64 if fits else 32
 
 
-# The paired configuration (v3 and v4, both H-stage forms, where the 64-row
-# X does not fit: Wc > 320 at 3×TF32): a thread-block cluster of 2 CTAs of 64
+# The paired configuration (v3 and the radix bodies, both H-stage forms,
+# where the 64-row X does not fit: Wc > 320 at 3×TF32): a thread-block
+# cluster of 2 CTAs of 64
 # window rows of one cell, rank r holding X over its share of the bins 0 ..
 # Wc − 2 (rank 0 the first ``pair_bins``, rank 1 the rest; X of
 # ``pair_bins`` bins each, a row stride of 2·bins + 4 floats), and the
@@ -312,8 +313,9 @@ def _pair_half(wc: int, splits: int, karatsuba: bool) -> int:
 def pair_bins(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
     """The bins rank 0 of the paired configuration takes at packed width
     ``wc``, window height ``vh``, tier ``splits`` and H-stage form; 0 where
-    the v3 and v4 bodies do not run that configuration (the blocks stack,
-    the 64-row X fits, or the pair does not fit either: 32-row tiles)."""
+    the v3 and radix bodies do not run that configuration (the blocks
+    stack, the 64-row X fits, or the pair does not fit either: 32-row
+    tiles)."""
     if blocks_per_cta(wc, vh, splits) > 1 or _one_block_rows(wc, splits, karatsuba) == 64:
         return 0
     return _pair_half(wc, splits, karatsuba)
@@ -360,22 +362,32 @@ def peaks_chunks(wc: int, vh: int, splits: int = 3, karatsuba: bool = False,
     ``lh``) and CTA of a cluster (a pair's ranks each reduce their own
     columns)."""
     chunks = (row_chunks(wc, vh, splits, karatsuba) if body == "v3"
-              else radix_row_chunks(wc, lh, vh, splits, karatsuba, body))
+              else radix_row_chunks(wc, lh, vh, splits, karatsuba))
     return chunks * (PAIR if kernel_layout(body, wc, vh, splits, karatsuba)[1] else 1)
 
 
 def kernel_layout(body: str, wc: int, vh: int, splits: int = 3,
                   karatsuba: bool = False) -> tuple[int, int]:
     """(rows, pair bins) of the configuration ``body`` runs, whose operands
-    ``_kernel_mats`` lays out: v2 ``v2_rows``; v5 and v5x the one-block
-    rule without pairs; v4 the pair where v3 runs it (``pair_bins``), else
-    that rule; v3 ``tile_rows`` and ``pair_bins``."""
+    ``_kernel_mats`` lays out: v2 ``v2_rows``; the radix bodies (v4, v5,
+    v5x) the pair where v3 runs it (``pair_bins``), else the one-block rule
+    without pairs; v3 ``tile_rows`` and ``pair_bins``. In the DIF bodies'
+    pair (v5, v5x) each rank holds W/4 bins, [even | odd], and the W stage
+    runs P over both ranks' even bins and Q over their odd ones: a plan
+    ``radix_w_legal`` admits (W a multiple of 512) splits so, and the
+    kernels refuse one that does not."""
     if body == "v2":
         return v2_rows(wc, vh, splits, karatsuba), 0
     if body in _RADIX_BODIES:
-        half = pair_bins(wc, vh, splits, karatsuba) if body == "v4" else 0
-        return (64, half) if half else (_one_block_rows(wc, splits, karatsuba), 0)
+        return _radix_layout(wc, vh, splits, karatsuba)
     return tile_rows(wc, vh, splits, karatsuba), pair_bins(wc, vh, splits, karatsuba)
+
+
+def _radix_layout(wc: int, vh: int, splits: int, karatsuba: bool) -> tuple[int, int]:
+    """(rows, pair bins) of every radix body's configuration: the pair where
+    v3 runs it, else the one-block rule without pairs."""
+    half = pair_bins(wc, vh, splits, karatsuba)
+    return (64, half) if half else (_one_block_rows(wc, splits, karatsuba), 0)
 
 
 def v2_rows(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
@@ -606,12 +618,11 @@ def _sliver_parity_row(block_w: int, kw: int, vw: int) -> np.ndarray:
     return (np.where((k + kw - 1) % 2 == 0, 1.0, -1.0) / block_w).astype(np.float32)[None, :]
 
 
-def radix_fits(wc: int, vh: int, splits: int = 3, karatsuba: bool = False,
-               body: str = "v4") -> bool:
-    """Whether the Hopper kernels take the radix-2 body ``body`` (v4, or v5
-    and v5x, which share a configuration) at packed width ``wc``, window
-    height ``vh``, tier ``splits`` and H-stage form (``karatsuba``): its
-    configuration (``kernel_layout``: v4's cluster pair where v3 runs it,
+def radix_fits(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> bool:
+    """Whether the Hopper kernels take the radix-2 bodies (v4, v5 and v5x,
+    which share a configuration) at packed width ``wc``, window height
+    ``vh``, tier ``splits`` and H-stage form (``karatsuba``): their
+    configuration (``kernel_layout``: the cluster pair where v3 runs it,
     else the one-block 64- or 32-row configuration; the radix stages stage
     no more than the plain ones: U's planes in G's room) within
     ``SMEM_LIMIT_BYTES``. The block-stacked configuration (Vh ≤ 32 where it
@@ -620,7 +631,7 @@ def radix_fits(wc: int, vh: int, splits: int = 3, karatsuba: bool = False,
     _check_splits(splits)
     if blocks_per_cta(wc, vh, splits) > 1:
         return False
-    rows, half = kernel_layout(body, wc, vh, splits, karatsuba)
+    rows, half = _radix_layout(wc, vh, splits, karatsuba)
     return bool(half) or _tile_smem_bytes(wc, rows, splits=splits,
                                           karatsuba=karatsuba) <= SMEM_LIMIT_BYTES
 
@@ -639,12 +650,11 @@ def radix_chunks(lh: int, vh: int, rows: int) -> tuple[int, int]:
     return -(-(m - w0) // (rows // 2)), -(-w0 // rows)
 
 
-def radix_row_chunks(wc: int, lh: int, vh: int, splits: int = 3, karatsuba: bool = False,
-                     body: str = "v4") -> int:
-    """Row chunks a block takes in the kernels of radix body ``body``
-    (``radix_chunks`` in the rows of its ``kernel_layout``) at the tier and
-    H-stage form: its CTAs, or its clusters where v4 pairs."""
-    return sum(radix_chunks(lh, vh, kernel_layout(body, wc, vh, splits, karatsuba)[0]))
+def radix_row_chunks(wc: int, lh: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
+    """Row chunks a block takes in the radix bodies' kernels (``radix_chunks``
+    in the rows of their ``kernel_layout``) at the tier and H-stage form:
+    its CTAs, or its clusters where they pair."""
+    return sum(radix_chunks(lh, vh, _radix_layout(wc, vh, splits, karatsuba)[0]))
 
 
 def _body(radix_h: bool, radix_w: bool, xsliver: bool, wstack: bool = True) -> str:
@@ -686,9 +696,9 @@ def _check_radix_fits(body: str, wc: int, vh: int, splits: int, karatsuba: bool 
     """On CUDA tensors a radix body needs ``radix_fits`` at the call's tier
     and H-stage form: no other configuration runs it, and none is run in
     its place."""
-    if body in _RADIX_BODIES and not radix_fits(wc, vh, splits, karatsuba, body):
+    if body in _RADIX_BODIES and not radix_fits(wc, vh, splits, karatsuba):
         raise InvalidInputError(
-            f"the {body} body runs in the one-block configurations (v4 also in the pair) only; "
+            f"the {body} body runs in the one-block and paired configurations only; "
             f"Wc={wc}, Vh={vh} at "
             f"{tier_name(splits)} stacks {blocks_per_cta(wc, vh, splits)} blocks a CTA "
             f"(radix_fits is False)")
@@ -732,7 +742,7 @@ def radix_w_enabled(
     splits = fused_splits(torch.bfloat16 if spec_bytes == 2 else torch.float32)
     return (
         listed and radix_h_legal(block_h, vh) and radix_w_legal(block_w, kw, vw)
-        and radix_fits(block_w // 2 + 1, vh, splits, body="v5")
+        and radix_fits(block_w // 2 + 1, vh, splits)
     )
 
 

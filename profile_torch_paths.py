@@ -43,10 +43,11 @@ libraries, each built from its sources) against this tree's on random
 planes (``every_entry_bitwise``): the v3 entries and the Karatsuba and v2
 ones (``_k``, ``_v2``, ``_v2_k``) at ``chip_smoke``'s kernel-check
 geometries, the radix entries in both forms at step 36's plans, failing
-on any difference but where this tree pairs v4 and the parent ran 32-row
-tiles (those print their distance from the parent); then it times those
-paired v4 entries in turns at step 36's plans on the headline image
-(``wide_turns``), v3's paired entry of the same tier beside each.
+on any difference but where this tree pairs a radix body and the parent
+ran 32-row tiles (``moved``; those print their distance from the parent);
+then it times those moved entries in turns at step 36's plans on the
+headline image (``wide_turns``), the paired entries of v4 and v3 of the
+same tier beside each.
 
     python3 profile_torch_paths.py --wide-split CSRC
 
@@ -62,12 +63,15 @@ tiles) gets the operands of that layout.
 
     python3 profile_torch_paths.py --radix-split CSRC
 
-splits the v4 body's time the same way at JAX's F=1 plan on the headline
-image (N=100) at 6×TF32, the maps entry in both H-stage forms and the peaks
-entry (``RADIX_SPLIT_PATCHES``: no W stage, no H stage, no MAC loads, no H
-products, then no one-bin passes in the parent's 32-row design, or no
-remote X, no Nyquist H sums and no Nyquist W term in the paired one; no
-epilogue stores).
+splits the radix bodies' time (v4, v5, v5x) the same way at JAX's F=1
+plan on the headline image (N=100) at 6×TF32, the maps entry in both
+H-stage forms and the peaks entry of each (``RADIX_SPLIT_PATCHES``: no W
+stage, no H stage, no MAC loads, no H products, no one-bin passes — the
+32-row design's passes that hold the last bin alone —, no remote X — the
+pair's W stage reading its own half twice, not the partner's —, no
+Nyquist H sums, no Nyquist W term, no epilogue stores), each entry marked
+with the design the csrc runs it in (``parent_paired_bodies``); a variant
+that touches no code of an entry's design reads the whole kernel's time.
 
     python3 profile_torch_paths.py --submit-probe
 
@@ -300,7 +304,26 @@ def _entry_body(name: str) -> str:
                 "v3")
 
 
-def every_entry_bitwise(parent_libs, seed: int) -> None:
+def parent_paired_bodies(csrc: pathlib.Path) -> tuple:
+    """The radix bodies a csrc runs in the cluster pair where v3 pairs: all
+    three in this tree's design, v4 alone in the design before it, none in
+    the first pair design (its radix bodies ran 32-row tiles there)."""
+    text = (csrc / "block_conv.cuh").read_text()
+    if "BODY == kV3 || radix_body(BODY)" in text:
+        return ("v4", "v5", "v5x")
+    return ("v4",) if "BODY == kV3 || BODY == kV4" in text else ()
+
+
+def moved(body: str, wc: int, vh: int, tier: int, kara: bool, parent_paired: tuple) -> bool:
+    """Whether this tree pairs a radix body's entry where the parent ran
+    32-row tiles (``parent_paired``: the bodies the parent pairs)."""
+    from cuda_fft_convolution_torch.ops import block_conv as bc
+
+    return (body in ("v4", "v5", "v5x") and body not in parent_paired
+            and bc.kernel_layout(body, wc, vh, tier, kara)[1] > 0)
+
+
+def every_entry_bitwise(parent_libs, seed: int, parent_paired: tuple = ()) -> None:
     """Every C entry the parent has against this tree's on random planes
     from ``seed``: the v3 library's maps and peaks entries and the forms
     library's (``_k``, ``_v2``, ``_v2_k``) at ``chip_smoke``'s kernel-check
@@ -309,11 +332,12 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
     Karatsuba form, ``_r*_k``) at step 36's three plans (each body where
     its rules take the plan). Each must be bitwise the parent's — an entry
     both sides refuse counts as equal, any other difference fails — but the
-    v4 entries where this tree pairs v4 (``kernel_layout``; the parent ran
-    32-row tiles there, and gets their operands), which are printed with
-    their distance from the parent (largest difference relative to the
-    parent's largest value; for the peaks, of the reduced pyramid, and the
-    index flips)."""
+    radix entries this tree pairs where the parent ran 32-row tiles
+    (``moved``: the bodies ``parent_paired`` leaves out, where
+    ``kernel_layout`` pairs; the parent gets the 32-row operands), which are
+    printed with their distance from the parent (largest difference
+    relative to the parent's largest value; for the peaks, of the reduced
+    pyramid, and the index flips)."""
     import numpy as np
     import torch
 
@@ -328,7 +352,7 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
     forms = [n for n, sig in _build._FORM_SIGNATURES.items()
              if n.startswith("fftconv_block_conv") and len(sig[0]) > 4]
     equal = refused = total = 0
-    bad, moved = [], []
+    bad, shifted = [], []
     for geoms, libs, names in (
         (chip_smoke.CHECK_GEOMETRIES, (parent_libs[0], this[0]), entries),
         (chip_smoke.CHECK_GEOMETRIES, (parent_libs[2], this[2]), forms),
@@ -359,8 +383,8 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
                 stem = name.removesuffix(bc.body_suffix(body, kara))
                 tier = next((t_ for t_, sfx in bc.TIER_SUFFIX.items() if sfx and stem.endswith(sfx)),
                             3)
-                # where this tree pairs v4 the parent ran 32-row tiles
-                paired = body == "v4" and bc.kernel_layout(body, wc, vh, tier, kara)[1] > 0
+                # where this tree pairs the body and the parent ran 32-row tiles
+                paired = moved(body, wc, vh, tier, kara, parent_paired)
                 a, c = (refused_or(lambda lib=lib, lay=lay: bare_entry(lib, name, planes, geom, body,
                                                                        layout=lay))
                         for lib, lay in zip(libs, ((32, 0) if paired else None, None)))
@@ -374,12 +398,12 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
                         av, ai = bc._best_chunk(*a, 3)
                         cv, ci = bc._best_chunk(*c, 3)
                         dist = float((cv - av).abs().max() / av.abs().max())
-                        moved.append(f"{label}: {name} {dist:.3e} from the parent (paired), "
+                        shifted.append(f"{label}: {name} {dist:.3e} from the parent (paired), "
                                      f"index flips {int((ai != ci).sum())}")
                     else:
                         dist = float((c[0].float() - a[0].float()).abs().max()
                                      / a[0].float().abs().max())
-                        moved.append(f"{label}: {name} {dist:.3e} from the parent (paired)")
+                        shifted.append(f"{label}: {name} {dist:.3e} from the parent (paired)")
                 elif same:
                     equal += 1
                     refused += a is None
@@ -388,33 +412,34 @@ def every_entry_bitwise(parent_libs, seed: int) -> None:
             del ops, ops16
             torch.cuda.empty_cache()
     print(f"every entry, parent vs this tree: {equal} bitwise equal, {refused} refused by both, "
-          f"{len(moved)} paired v4 entries moved, of {total} (entry, geometry) pairs")
-    for line in moved:
+          f"{len(shifted)} entries moved into the pair, of {total} (entry, geometry) pairs")
+    for line in shifted:
         print(f"  moved: {line}")
     if bad:
         raise AssertionError(f"entries that differ from the parent's: {bad}")
 
 
 def wide_entries() -> list:
-    """Every maps and peaks entry of the v4 body in both H-stage forms (the
-    entries that run the paired configuration where v3 does)."""
+    """Every maps and peaks entry of the radix bodies (v4, v5, v5x) in both
+    H-stage forms: the entries that run the paired configuration where v3
+    does."""
     from cuda_fft_convolution_torch import _build
 
-    return [n for n in (*_build._RADIX_SIGNATURES, *_build._RADIX_FORM_SIGNATURES)
-            if n.removesuffix("_k").endswith("_r4")]
+    return [*_build._RADIX_SIGNATURES, *_build._RADIX_FORM_SIGNATURES]
 
 
-def wide_turns(parent_libs, seed: int) -> dict:
-    """The moved entries (``wide_entries`` where this tree pairs v4) in
-    turns, parent / this tree / this tree / parent, bare C entries (the
-    parent with its 32-row operands, this tree with the pair's), at
-    ``chip_smoke.RADIX_PLANS`` on the headline image from ``seed`` (N =
-    100: 64² kernels, 32² at the 32² plan), each side against the plain
-    version, and beside them this tree's v3 entry of the same tier, form
-    and head at the same plan (the pair too) and the plain version →
-    {(plan, entry): (the four ms, v3's ms, the plain version's ms)}. An
-    entry both sides refuse (the Karatsuba form at 6×TF32 on Wc 513) is
-    printed as refused."""
+def wide_turns(parent_libs, seed: int, parent_paired: tuple = ()) -> dict:
+    """The moved entries (``wide_entries`` that ``moved`` names: this tree
+    pairs them, the parent ran 32-row tiles) in turns, parent / this tree /
+    this tree / parent, bare C entries (the parent with its 32-row
+    operands, this tree with the pair's), at ``chip_smoke.RADIX_PLANS``
+    (each body where its rules take the plan) on the headline image from
+    ``seed`` (N = 100: 64² kernels, 32² at the 32² plan), each side against
+    the plain version, and beside them this tree's paired entries of the
+    same tier, form and head at the same plan — v4's (for v5 and v5x) and
+    v3's — and the plain version → {(plan, entry): (the four ms, v4's ms or
+    None, v3's ms, the plain version's ms)}. An entry both sides refuse
+    (the Karatsuba form at 6×TF32 on Wc 513) is printed as refused."""
     import numpy as np
     import torch
 
@@ -437,24 +462,29 @@ def wide_turns(parent_libs, seed: int) -> dict:
         vh, wc = bh - kh + 1, bw // 2 + 1
         label = f"{plan['label']} {geom[:4]}"
         for name in wide_entries():
+            body = _entry_body(name)
             kara = name.endswith("_k")
-            stem = name.removesuffix(bc.body_suffix("v4", kara))
+            if body in ("v5", "v5x") and not bc.radix_w_legal(bw, kw, bw - kw + 1):
+                continue
+            stem = name.removesuffix(bc.body_suffix(body, kara))
             tier = next((t_ for t_, sfx in bc.TIER_SUFFIX.items() if sfx and stem.endswith(sfx)), 3)
             planes = ops16 if "_bf16" in stem.replace("_bf16maps", "") else ops
-            if not bc.kernel_layout("v4", wc, vh, tier, kara)[1]:
+            if not moved(body, wc, vh, tier, kara, parent_paired):
                 if not bc.form_taken(wc, vh, tier, True, kara):
                     print(f"A/B {label} {name}: refused by this tree (and the parent's 32 rows)")
                 continue
             par, new = libs[kara]
 
-            def side(lib, lay, entry=name, body="v4"):
+            def side(lib, lay, entry=name, body=body):
                 return lambda: bare_entry(lib, entry, planes, geom, body, layout=lay)
 
             parent_call, this_call = side(par, (32, 0)), side(new, None)
             v3_call = side(v3_libs[kara], None, stem + ("_k" if kara else ""), "v3")
+            v4_call = (side(new, None, stem + bc.body_suffix("v4", kara), "v4")
+                       if body != "v4" else None)
             a, c = parent_call(), this_call()
             peaks = "_peaks_" in name
-            flags = dict(radix_h=True, karatsuba=kara)
+            flags = dict(chip_smoke.RADIX_FLAGS[body], karatsuba=kara)
             out_dtype = torch.bfloat16 if "_bf16maps" in name else torch.float32
 
             def plain():
@@ -473,14 +503,17 @@ def wide_turns(parent_libs, seed: int) -> dict:
                         f"this tree {chip_smoke.rel_err(c[0].float(), want.float()):.3e}")
             del a, c, want
             ts = [chip_smoke.cuda_ms(fn) for fn in (parent_call, this_call, this_call, parent_call)]
+            mean = (ts[1] + ts[2]) / 2
+            v4_ms = chip_smoke.cuda_ms(v4_call) if v4_call else None
             v3_ms = chip_smoke.cuda_ms(v3_call)
             plain_ms = chip_smoke.cuda_ms(plain, runs=3)
-            out[(label, name)] = (*ts, v3_ms, plain_ms)
+            out[(label, name)] = (*ts, v4_ms, v3_ms, plain_ms)
+            v4_txt = f"v4 paired {v4_ms:.3f} ms ({body} / v4 {mean / v4_ms:.3f}); " if v4_ms else ""
             print(f"A/B {label} {name}: parent {ts[0]:.3f}, this tree {ts[1]:.3f}, this tree "
                   f"{ts[2]:.3f}, parent {ts[3]:.3f} ms (this tree / parent "
-                  f"{(ts[1] + ts[2]) / (ts[0] + ts[3]):.3f}); v3 paired {v3_ms:.3f} ms (v4 / v3 "
-                  f"{(ts[1] + ts[2]) / 2 / v3_ms:.3f}); plain version {plain_ms:.3f} ms (median "
-                  f"of 3); {errs} ({chip_smoke.card()})")
+                  f"{(ts[1] + ts[2]) / (ts[0] + ts[3]):.3f}); {v4_txt}v3 paired {v3_ms:.3f} ms "
+                  f"({body} / v3 {mean / v3_ms:.3f}); plain version {plain_ms:.3f} ms (median "
+                  f"of 3; this tree / plain {mean / plain_ms:.3f}); {errs} ({chip_smoke.card()})")
             torch.cuda.empty_cache()
         del ops, ops16
         torch.cuda.empty_cache()
@@ -506,8 +539,9 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
     parent_libs = build_parent(csrc)
     lib = parent_libs[0]
     this = _build.library()
-    every_entry_bitwise(parent_libs, seed)
-    wide_turns(parent_libs, seed)
+    paired = parent_paired_bodies(csrc)
+    every_entry_bitwise(parent_libs, seed, paired)
+    wide_turns(parent_libs, seed, paired)
 
     def calls(ops, geom, peaks, splits=3):
         """(the parent's call, this tree's call): both bare C entries of the
@@ -822,7 +856,8 @@ WIDE_SPLIT_PATCHES = {
         "no Nyquist W term": [("block_conv.cuh",
                                "          if constexpr (PAIRED) add_nyq(acc, rank * 16 + g8, col);\n",
                                "")],
-        "no last column": [("block_conv.cuh", "    if (vw > pair_cols(vw)) {",
+        "no last column": [("block_conv.cuh", ("    if (!kDif && vw > pair_cols(vw)) {",
+                                               "    if (vw > pair_cols(vw)) {"),
                             "    if (vw < 0) {")],
         "32-bit MAC offsets": [("block_conv.cuh",
                                 "        const long long off = ok ? static_cast<long long>(u) * wc + v + ff * plane : 0;",
@@ -839,8 +874,9 @@ FFTCONV_PEAKS_ENTRY(fftconv_block_conv_peaks_f32, float, 3)
 
 def _split_variants(kind: str, csrc: pathlib.Path, variants: dict, unit: str, entries) -> dict:
     """Copies of ``csrc`` under ``build/<kind>``, each with its variant's
-    patches applied (a variant whose text is not in the sources exactly
-    once is skipped), each built with ``unit`` as its one translation unit
+    patches applied (a patch's text, or the first of its forms where it
+    gives a tuple, found in the sources exactly once; a variant with a text
+    not found so is skipped), each built with ``unit`` as its one translation unit
     (one nvcc a copy, all started together) → {variant: the loaded library,
     ``entries`` bound with this tree's signatures}."""
     import shutil
@@ -857,9 +893,10 @@ def _split_variants(kind: str, csrc: pathlib.Path, variants: dict, unit: str, en
         ok = True
         for file, text, new in patches:
             src = (out / file).read_text()
-            if src.count(text) != 1:
-                print(f"{kind}, {name}: patch text found {src.count(text)} times in {file}; "
-                      f"skipped")
+            text = next((t for t in (text if isinstance(text, tuple) else (text,))
+                         if src.count(t) == 1), text)
+            if isinstance(text, tuple) or src.count(text) != 1:
+                print(f"{kind}, {name}: patch text not found once in {file}; skipped")
                 ok = False
                 break
             (out / file).write_text(src.replace(text, new))
@@ -925,14 +962,15 @@ def wide_split(csrc: pathlib.Path, seed: int) -> None:
             torch.cuda.empty_cache()
 
 
-# The stage-split patches of the v4 body at JAX's F=1 plan (Wc 257) at
-# 6xTF32, by design: "32 rows" the parent's (mma.sync; a pair chunk's 3
-# passes of 128 bins and a single chunk's 5 of 64, over every bin), "paired"
-# this tree's (each rank's bins on wgmma, the last bin apart). (file, text,
-# replacement) a variant, as SPLIT_PATCHES; "no one-bin passes" drops the
-# passes past the second of 128 bins (the fourth of 64) in the parent, the
-# passes that hold bin 256 alone.
-_RADIX_SPLIT_COMMON = {
+# The stage-split patches of the radix bodies at JAX's F=1 plan (Wc 257) at
+# 6xTF32, for either design of each body: the 32-row one (mma.sync; a pair
+# chunk's 3 passes of 128 bins and a single chunk's 5 of 64, over every
+# bin: "no one-bin passes" drops the passes past the second of 128 bins, the
+# fourth of 64, which hold bin 256 alone) and the pair (each rank's bins on
+# wgmma, the last bin apart). (file, text, replacement) a patch, as
+# SPLIT_PATCHES; a text given as a tuple is the first of its forms found in
+# the sources (this tree's, then a parent's).
+RADIX_SPLIT_PATCHES = {
     "no W stage": WIDE_SPLIT_PATCHES["paired"]["no W stage"],
     "no H stage": [("block_conv.cuh", "  for (int c0 = 0; c0 < hb_pad; c0 += pass_w) {",
                     "  for (int c0 = 0; c0 < 0; c0 += pass_w) {")],
@@ -941,60 +979,62 @@ _RADIX_SPLIT_COMMON = {
                        "      if (!live) continue;\n      if constexpr (kWG) {\n        // A = S^T's",
                        "      if (!live || lh > 0) continue;\n      if constexpr (kWG) {\n"
                        "        // A = S^T's")],
+    "no one-bin passes": [("block_conv.cuh", "  for (int c0 = 0; c0 < hb_pad; c0 += pass_w) {",
+                           "  for (int c0 = 0; c0 < min(hb_pad, 2 * kCols); c0 += pass_w) {")],
+    "no remote X": WIDE_SPLIT_PATCHES["paired"]["no remote X"],
+    "no Nyquist H sums": [("block_conv.cuh",
+                           ("    const bool nyq_pair = PAIRED && BODY != kV5X && c0 == 0;",
+                            "    const bool nyq_pair = PAIRED && c0 == 0;"),
+                           "    const bool nyq_pair = false;")],
+    "no Nyquist W term": [("block_conv.cuh",
+                           ("          if constexpr (PAIRED && !kDif) add_nyq(acc, l0, col);\n",
+                            "          if constexpr (PAIRED) add_nyq(acc, l0, col);\n"), ""),
+                          ("block_conv.cuh",
+                           "          const float p = accp[mt][nt][i] + ny[i >> 1] * par;",
+                           "          const float p = accp[mt][nt][i];")],
 }
-RADIX_SPLIT_PATCHES = {
-    "32 rows": {
-        **_RADIX_SPLIT_COMMON,
-        "no one-bin passes": [("block_conv.cuh", "  for (int c0 = 0; c0 < hb_pad; c0 += pass_w) {",
-                               "  for (int c0 = 0; c0 < min(hb_pad, 2 * kCols); c0 += pass_w) {")],
-    },
-    "paired": {
-        **_RADIX_SPLIT_COMMON,
-        "no remote X": WIDE_SPLIT_PATCHES["paired"]["no remote X"],
-        "no Nyquist H sums": [("block_conv.cuh", "    const bool nyq_pair = PAIRED && c0 == 0;",
-                               "    const bool nyq_pair = false;")],
-        "no Nyquist W term": [("block_conv.cuh",
-                               "          if constexpr (PAIRED) add_nyq(acc, l0, col);\n", "")],
-    },
-}
+# (body, entry) of the split: each body's maps entry in both H-stage forms
+# and its peaks entry, at 6xTF32
+_RADIX_SPLIT_ENTRIES = tuple(
+    (body, f"fftconv_block_conv{head}_f32_x6{sfx}{k}")
+    for body, sfx in (("v4", "_r4"), ("v5", "_r5"), ("v5x", "_r5x"))
+    for head, k in (("", ""), ("", "_k"), ("_peaks", "")))
+_RADIX_KV = {"v4": "kV4", "v5": "kV5", "v5x": "kV5X"}
 _RADIX_SPLIT_UNIT = """#include "block_conv_maps.cuh"
 #include "block_conv_peaks.cuh"
-FFTCONV_BLOCK_CONV_RADIX_ENTRY(fftconv_block_conv_f32_x6_r4, float, float, StoreF32, 6, kV4, false)
-FFTCONV_BLOCK_CONV_RADIX_ENTRY(fftconv_block_conv_f32_x6_r4_k, float, float, StoreF32, 6, kV4, true)
-FFTCONV_PEAKS_RADIX_ENTRY(fftconv_block_conv_peaks_f32_x6_r4, float, 6, kV4, false)
-"""
+""" + "".join(
+    f"FFTCONV_PEAKS_RADIX_ENTRY({name}, float, 6, {_RADIX_KV[body]}, false)\n" if "_peaks" in name
+    else f"FFTCONV_BLOCK_CONV_RADIX_ENTRY({name}, float, float, StoreF32, 6, {_RADIX_KV[body]}, "
+         f"{'true' if name.endswith('_k') else 'false'})\n"
+    for body, name in _RADIX_SPLIT_ENTRIES)
 
 
 def radix_split(csrc: pathlib.Path, seed: int) -> None:
-    """Time the v4 body's stages at JAX's F=1 plan at 6xTF32 (module
+    """Time the radix bodies' stages at JAX's F=1 plan at 6xTF32 (module
     docstring)."""
     import numpy as np
     import torch
 
     import cuda_fft_convolution_torch as fc
 
-    text = (csrc / "block_conv.cuh").read_text()
-    design = "paired" if "BODY == kV3 || BODY == kV4" in text else "32 rows"
-    variants = {"whole": [], **RADIX_SPLIT_PATCHES[design], "no epilogue": _NO_EPILOGUE}
-    entries = ("fftconv_block_conv_f32_x6_r4", "fftconv_block_conv_f32_x6_r4_k",
-               "fftconv_block_conv_peaks_f32_x6_r4")
-    libs = _split_variants(f"radix_split/{design.replace(' ', '_')}", csrc, variants,
-                           _RADIX_SPLIT_UNIT, entries)
+    paired = parent_paired_bodies(csrc)
+    variants = {"whole": [], **RADIX_SPLIT_PATCHES, "no epilogue": _NO_EPILOGUE}
+    names = tuple(name for _, name in _RADIX_SPLIT_ENTRIES)
+    libs = _split_variants("radix_split", csrc, variants, _RADIX_SPLIT_UNIT, names)
     rng = np.random.default_rng(seed)
     s, n, k = chip_smoke.HEADLINE["size"], chip_smoke.HEADLINE["n"], chip_smoke.HEADLINE["k"]
     image = torch.as_tensor(rng.standard_normal((s, s, 1)).astype(np.float32), device="cuda")
     bank = rng.standard_normal((n, k, k, 1)).astype(np.float32)
     ops, _, geom = chip_smoke.radix_geometry(fc, chip_smoke.RADIX_PLANS[0], image, bank)
-    layout = (32, 0) if design == "32 rows" else None  # a parent's 32-row operands
     whole = {}
-    for label, entry in (("f32 maps, 6xTF32", entries[0]),
-                         ("f32 maps, 6xTF32 Karatsuba", entries[1]),
-                         ("f32 peaks, 6xTF32", entries[2])):
+    for body, entry in _RADIX_SPLIT_ENTRIES:
+        design = "paired" if body in paired else "32 rows"
+        layout = None if body in paired else (32, 0)  # a parent's 32-row operands
         for name, lib in libs.items():
-            ms = chip_smoke.cuda_ms(lambda: bare_entry(lib, entry, ops, geom, "v4", layout=layout))
-            whole.setdefault(label, ms)
-            print(f"radix split {design}, JAX F=1 plan {geom[:4]} {label}, {name}: {ms:.3f} ms "
-                  f"({ms - whole[label]:+.3f} against the whole kernel; {chip_smoke.card()})")
+            ms = chip_smoke.cuda_ms(lambda: bare_entry(lib, entry, ops, geom, body, layout=layout))
+            whole.setdefault(entry, ms)
+            print(f"radix split, JAX F=1 plan {geom[:4]} {entry} ({design}), {name}: {ms:.3f} ms "
+                  f"({ms - whole[entry]:+.3f} against the whole kernel; {chip_smoke.card()})")
             torch.cuda.empty_cache()
 
 
@@ -1326,8 +1366,8 @@ def main(argv=None) -> int:
     parser.add_argument("--stacked-split", type=pathlib.Path, default=None,
                         help="a csrc whose stacked configuration's stages to time")
     parser.add_argument("--radix-split", type=pathlib.Path, default=None,
-                        help="split the v4 body's time at JAX's F=1 plan into its stages "
-                             "(this csrc or a parent's)")
+                        help="split the radix bodies' time at JAX's F=1 plan into their "
+                             "stages (this csrc or a parent's)")
     parser.add_argument("--wide-split", type=pathlib.Path, default=None,
                         help="a csrc whose wide configuration's stages to time")
     parser.add_argument("--soak", type=float, default=0.0,

@@ -1181,8 +1181,8 @@ def test_train_step_sharded_on_gpu(nccl_mesh):
 
 # The radix-2 bodies (JAX's v4, v5, v5x; ops/block_conv.py radix_h_legal,
 # radix_w_legal): JAX's fp32 and bf16 F=1 plan (256, 512, 65, 129) in the
-# 64-row configuration (v4 the cluster pair at 6×TF32), its 32² plan (128,
-# 512, 33, 129), Wc = 513 (v4 the pair where v3 pairs, v5 and v5x 32 rows),
+# 64-row configuration (every body the cluster pair at 6×TF32), its 32²
+# plan (128, 512, 33, 129), Wc = 513 (every body the pair where v3 pairs),
 # a window start that leaves a partial pair chunk and a partial single
 # chunk (Vh 200: M − w0 = 72 pairs, 56 single rows), and a v4-only plan
 # (Wc = 301, M = 40; W odd, so no DIF).
@@ -1287,12 +1287,13 @@ def test_radix_karatsuba_entries_match_plain_on_gpu(cuda, b, f, n, bh, bw, kh, k
     _check_radix_entries(cuda, b, f, n, geom, True)
 
 
-# The plans where v4 runs the cluster pair (ops/block_conv.py
+# The plans where the radix bodies run the cluster pair (ops/block_conv.py
 # kernel_layout: where v3 does): W 1024 (Wc 513, 256 bins a rank) at every
 # tier but the Karatsuba form at 6×TF32 (refused), with a last output
-# column alone (Vw 897 = 7·128 + 1) and with partial pair and single chunks
-# (Vh 200: 72 pair rows, 56 single rows); JAX's 32² plan (Wc 257, 128 bins
-# a rank) at 6×TF32 (64 rows at the other tiers).
+# column alone (Vw 897 = 7·128 + 1: v4 only, the DIF rule rejects it) and
+# with partial pair and single chunks (Vh 200: 72 pair rows, 56 single
+# rows; every body); JAX's 32² plan (Wc 257, 128 bins a rank) at 6×TF32
+# (64 rows at the other tiers; every body).
 PAIRED_RADIX_GEOMETRIES = [
     (1, 2, 2, 256, 1024, 65, 128, 400, 1800),
     (2, 1, 2, 256, 1024, 57, 129, 450, 1700),
@@ -1305,35 +1306,40 @@ PAIRED_RADIX_GEOMETRIES = [
 @pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", PAIRED_RADIX_GEOMETRIES)
 def test_paired_radix_entries_match_plain_on_gpu(cuda, karatsuba, b, f, n, bh, bw, kh, kw,
                                                  out_h, out_w):
-    """v4 where v3 pairs: ``kernel_layout`` gives the pair (64 rows,
-    ``pair_bins`` bins a rank; the peaks kernel writes 2 ×
-    ``radix_row_chunks`` entries a block), and every v4 entry of the form
-    at every tier matches its plain version at the radix entries' bars,
-    6×TF32 also in float64; where the pair does not fit (the Karatsuba
-    form at 6×TF32 on Wc 513) both heads raise and launch nothing."""
+    """Each radix body where v3 pairs: ``kernel_layout`` gives the pair (64
+    rows, ``pair_bins`` bins a rank, half of W/2 for v5 and v5x; the peaks
+    kernel writes 2 × ``radix_row_chunks`` entries a block), and every
+    entry of the form at every tier of every body the plan's rules admit
+    matches its plain version at the radix entries' bars, 6×TF32 also in
+    float64; where the pair does not fit (the Karatsuba form at 6×TF32 on
+    Wc 513) both heads raise and launch nothing."""
     geom = (bh, bw, kh, kw, out_h, out_w)
     wc, vh = bw // 2 + 1, bh - kh + 1
-    paired = [s for s in tbc.TIERS if tbc.kernel_layout("v4", wc, vh, s, karatsuba)[1]]
-    assert paired == ([6] if bw == 512 else [s for s in tbc.TIERS if not (karatsuba and s == 6)])
-    for s in paired:
-        half = tbc.pair_bins(wc, vh, s, karatsuba)
-        assert tbc.kernel_layout("v4", wc, vh, s, karatsuba) == (64, half) and half % 32 == 0
-        assert tbc.peaks_chunks(wc, vh, s, karatsuba, "v4", bh) == 2 * sum(
-            tbc.radix_chunks(bh, vh, 64))
-        assert tbc.radix_fits(wc, vh, s, karatsuba)
-    _check_radix_entries(cuda, b, f, n, geom, karatsuba, bodies=("v4",))
+    for body in _radix_bodies(geom):
+        paired = [s for s in tbc.TIERS if tbc.kernel_layout(body, wc, vh, s, karatsuba)[1]]
+        assert paired == ([6] if bw == 512 else
+                          [s for s in tbc.TIERS if not (karatsuba and s == 6)]), body
+        for s in paired:
+            half = tbc.pair_bins(wc, vh, s, karatsuba)
+            assert tbc.kernel_layout(body, wc, vh, s, karatsuba) == (64, half) and half % 32 == 0
+            assert body == "v4" or 2 * half == wc - 1
+            assert tbc.peaks_chunks(wc, vh, s, karatsuba, body, bh) == 2 * sum(
+                tbc.radix_chunks(bh, vh, 64))
+            assert tbc.radix_fits(wc, vh, s, karatsuba)
+    _check_radix_entries(cuda, b, f, n, geom, karatsuba)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w",
-                         RADIX_GEOMETRIES[:1] + RADIX_GEOMETRIES[3:4] + PAIRED_RADIX_GEOMETRIES[:1])
+                         RADIX_GEOMETRIES[:1] + RADIX_GEOMETRIES[3:4] + PAIRED_RADIX_GEOMETRIES[:2])
 def test_radix_peaks_planted_ties_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
     """DC-only spectra make every block's window constant through every
     body (the twiddles and the DIF halves see zeros but for bin 0), so each
     block's pair must be its first position inside the output: the
     first-index rule survives pair chunks that hold rows from both halves
     of the window, DIF columns t' and t' + W/2 that are not adjacent, and
-    v4's pair, whose ranks each write an entry (W 1024)."""
+    the pair, whose ranks each write an entry (W 1024: v4 alone, and every
+    body, whose DIF ranks each hold two stretches of columns)."""
     rng = np.random.default_rng(41)
     geom = (bh, bw, kh, kw, out_h, out_w)
     ops = [torch.zeros_like(x) for x in _planes(rng, cuda, b, f, n, *geom)]

@@ -356,9 +356,8 @@ def test_configuration_model(splits):
     size, the shared memory (the C side's formulas written out: X of
     ``pair_bins`` bins, the 64-row staging area and a 256-float sliver) and
     the row chunks; every (Wc, Vh, tier, form) the parent took is still
-    taken; v5 and v5x keep the parent's one-block rule, and v4 takes the
-    pair where v3 does (and so also where the pair fits but the parent's
-    32 rows did not)."""
+    taken; the radix bodies (v4, v5, v5x) take the pair where v3 does (and
+    so also where the pair fits but the parent's 32 rows did not)."""
     taken_before = taken_now = 0
     for wc in (17, 70, 224, 257, 289, 301, 320, 321, 351, 385, 449, 451, 513, 577, 609,
                641, 705, 737, 769):
@@ -379,12 +378,11 @@ def test_configuration_model(splits):
                     taken_before += 1
                     assert tbc.form_taken(wc, vh, splits, True, kara)
                 taken_now += tbc.form_taken(wc, vh, splits, True, kara)
-                assert tbc.radix_fits(wc, vh, splits, kara, "v5") == (
-                    g == 1 and before <= tbc.SMEM_LIMIT_BYTES)
                 assert tbc.radix_fits(wc, vh, splits, kara) == (
                     g == 1 and (paired or before <= tbc.SMEM_LIMIT_BYTES))
-                assert tbc.kernel_layout("v4", wc, vh, splits, kara) == (
-                    (64, half) if paired else (tbc._one_block_rows(wc, splits, kara), 0))
+                for body in ("v4", "v5", "v5x"):
+                    assert tbc.kernel_layout(body, wc, vh, splits, kara) == (
+                        (64, half) if paired else (tbc._one_block_rows(wc, splits, kara), 0))
                 if paired:
                     assert half % 32 == 0 and 2 * half >= wc - 1 > half
     assert taken_now >= taken_before > 0
@@ -396,7 +394,8 @@ def test_the_1024_block_per_tier():
     chunks; shared memory as reckoned (X 132,096 B, the staging area, the
     sliver's 1,024 B): 198,656 at 3×TF32, 231,424 at 6×TF32, 165,888 at one
     pass and BF16IO; the Karatsuba form pairs but at 6×TF32, which stays
-    refused."""
+    refused; the radix bodies pair as v3 does (256 bins a rank, half of the
+    DIF stage's W/2), v2 never."""
     x = 64 * (2 * 256 + 4) * 4
     assert x == 132096
     want = {3: x + 65536 + 1024, 6: x + 98304 + 1024, 1: x + 32768 + 1024,
@@ -408,8 +407,9 @@ def test_the_1024_block_per_tier():
     assert tbc.smem_bytes(513, 512, 3, True) == x + 73728 + 1024
     assert tbc.pair_bins(513, 512, 6, True) == 0
     assert not tbc.form_taken(513, 512, 6, True, True)
-    assert tbc.kernel_layout("v4", 513, 512, 3) == (64, 256)
-    assert tbc.kernel_layout("v5", 513, 512, 3) == (32, 0)
+    for body in ("v4", "v5", "v5x"):
+        assert tbc.kernel_layout(body, 513, 512, 3) == (64, 256)
+        assert tbc.kernel_layout(body, 513, 512, 6, True) == (32, 0)
     assert tbc.kernel_layout("v2", 513, 512, 3)[1] == 0
 
 

@@ -142,11 +142,12 @@ def _sub_transforms(ur, ui, u3, s_re, s_im, splits, karatsuba):
     return sums
 
 
-def _nyquist_sub_transforms(ur, ui, s_re, s_im, splits):
+def _nyquist_sub_transforms(ur, ui, s_re, s_im, splits, round_s=True):
     """The last bin's (Êr, Êi, Ôr, Ôi), each (…, M): fp32 fused
     multiply-adds over the spectrum-row pairs in order (one thread a v'),
-    U as staged, the bin's S rounded at BF16IO."""
-    rnd = tbc.bf16_round if splits == tbc.BF16IO else (lambda x: x)
+    U as staged, the bin's S rounded at BF16IO (v4; ``round_s=False``: v5's
+    term, from the unrounded S)."""
+    rnd = tbc.bf16_round if splits == tbc.BF16IO and round_s else (lambda x: x)
     sr, si = rnd(s_re[..., -1]), rnd(s_im[..., -1])  # (…, Lh)
     u_r, u_i = _staged(ur, splits), _staged(ui, splits)  # (M, M)
     m = u_r.shape[0]
@@ -237,9 +238,10 @@ def _emulated(i, splits, karatsuba):
 def test_cases_run_the_pair():
     """Each case runs v4 in the pair where ``F32_RUNS`` (and BF16IO on the
     second) say — 64 rows, ``pair_bins`` bins a rank, 2 ×
-    ``radix_row_chunks`` peaks entries a block — and v5, v5x and v2 never
-    pair; v4 keeps the 64-row configuration elsewhere, and the Karatsuba
-    form at 6×TF32 on Wc 513 is refused (``form_taken``)."""
+    ``radix_row_chunks`` peaks entries a block — and v5 and v5x take the
+    same configuration (``tests/test_torch_paired_dif.py`` runs them), v2
+    never pairs; v4 keeps the 64-row configuration elsewhere, and the
+    Karatsuba form at 6×TF32 on Wc 513 is refused (``form_taken``)."""
     for i, (_, _, _, bh, bw, kh, _, _, _) in enumerate(CASES):
         vh, wc = bh - kh + 1, bw // 2 + 1
         assert tbc.radix_h_legal(bh, vh) and tbc.blocks_per_cta(wc, vh, 3) == 1
@@ -253,8 +255,10 @@ def test_cases_run_the_pair():
             assert tbc.radix_row_chunks(wc, bh, vh, splits, kara) == chunks
             assert tbc.peaks_chunks(wc, vh, splits, kara, "v4", bh) == chunks * (
                 2 if paired else 1)
-            for body in ("v5", "v5x", "v2"):
-                assert tbc.kernel_layout(body, wc, vh, splits, kara)[1] == 0
+            for body in ("v5", "v5x"):
+                assert tbc.kernel_layout(body, wc, vh, splits, kara) == tbc.kernel_layout(
+                    "v4", wc, vh, splits, kara)
+            assert tbc.kernel_layout("v2", wc, vh, splits, kara)[1] == 0
             refused = i == 1 and splits == 6 and kara
             assert tbc.radix_fits(wc, vh, splits, kara) != refused
             assert tbc.form_taken(wc, vh, splits, True, kara) != refused
@@ -407,9 +411,10 @@ def test_configuration_mirrors_the_c_formulas(splits):
     exactly where ``pair_bins`` is nonzero (the C side's ``pair_half``
     written out in ``_c_pair``: X of h bins a rank, the 64-row staging
     area, the 256-float sliver) and the one-block rule without pairs
-    elsewhere (``_c_one_block``); v5, v5x and v2 never pair; the radix
-    bodies' shared memory is the mirror's (``smem_bytes``) wherever v4
-    pairs, and ``radix_fits`` is whether v4's configuration fits."""
+    elsewhere (``_c_one_block``); v5 and v5x take v4's configuration, v2
+    never pairs; the radix bodies' shared memory is the mirror's
+    (``smem_bytes``) wherever v4 pairs, and ``radix_fits`` is whether that
+    configuration fits, for every radix body."""
     for wc, vh in itertools.product((129, 224, 257, 289, 321, 385, 451, 513, 577, 641, 705,
                                      769), (16, 33, 40, 48, 96, 192, 200)):
         for kara in (False, True):
@@ -421,11 +426,11 @@ def test_configuration_mirrors_the_c_formulas(splits):
             v4 = tbc.kernel_layout("v4", wc, vh, splits, kara)
             assert v4 == ((64, half) if half else (rows, 0)), (wc, vh, kara)
             assert v4 == ((64, half) if half else (tbc._one_block_rows(wc, splits, kara), 0))
-            for body in ("v5", "v5x", "v2"):
-                assert tbc.kernel_layout(body, wc, vh, splits, kara)[1] == 0
+            for body in ("v5", "v5x"):
+                assert tbc.kernel_layout(body, wc, vh, splits, kara) == v4
+            assert tbc.kernel_layout("v2", wc, vh, splits, kara)[1] == 0
             if half:
                 assert tbc.smem_bytes(wc, vh, splits, kara) == smem
                 assert tbc.kernel_layout("v3", wc, vh, splits, kara) == v4
             one = _c_one_block(wc, rows, splits, kara) <= tbc.SMEM_LIMIT_BYTES
             assert tbc.radix_fits(wc, vh, splits, kara) == (g == 1 and (half > 0 or one))
-            assert tbc.radix_fits(wc, vh, splits, kara, "v5") == (g == 1 and one)

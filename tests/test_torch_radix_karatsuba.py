@@ -270,17 +270,17 @@ def test_karatsuba_radix_runs_on_cpu():
 
 @pytest.mark.parametrize("splits", list(tbc.TIERS))
 def test_radix_fits_mirrors_the_c_formulas(splits):
-    """``radix_fits(..., karatsuba, body)``: v5 and v5x the one-block
-    configuration (no stack) whose shared memory (``csrc/block_conv.cuh``
-    tile_smem_bytes, written out in ``_c_one_block``: the Karatsuba form
-    stages Sr + Si, and U's planes, Ur + Ui among them, in G's room) fits,
-    64 rows where they fit; v4 the cluster pair where 64 rows do not fit
-    and the pair does (``_c_pair``, v3's rule: U's planes in G's room
-    there too), else that one-block configuration; ``radix_row_chunks``
-    counts each configuration's chunks (a pair's two CTAs one chunk) and
-    ``peaks_chunks`` the peaks kernel's entries (two a pair's chunk). The
-    Karatsuba form at 6×TF32 does not fit Wc 513 (W 1024), paired or
-    not."""
+    """``radix_fits(..., karatsuba)``: every radix body (v4, v5, v5x,
+    ``kernel_layout``) the cluster pair where 64 rows do not fit and the pair does
+    (``_c_pair``, v3's rule: U's planes in G's room there too), else the
+    one-block configuration (no stack) whose shared memory
+    (``csrc/block_conv.cuh`` tile_smem_bytes, written out in
+    ``_c_one_block``: the Karatsuba form stages Sr + Si, and U's planes, Ur
+    + Ui among them, in G's room) fits, 64 rows where they fit;
+    ``radix_row_chunks`` counts each configuration's chunks (a pair's two
+    CTAs one chunk) and ``peaks_chunks`` the peaks kernel's entries (two a
+    pair's chunk). The Karatsuba form at 6×TF32 does not fit Wc 513 (W
+    1024), paired or not."""
     legal = ((48, 40), (80, 64), (128, 96), (256, 192), (256, 200), (32, 24))
     for wc, (lh, vh) in itertools.product((129, 224, 257, 288, 289, 301, 385, 449, 513, 577,
                                            641), legal):
@@ -290,21 +290,20 @@ def test_radix_fits_mirrors_the_c_formulas(splits):
             rows = 64 if _c_one_block(wc, 64, splits, kara) <= tbc.SMEM_LIMIT_BYTES else 32
             one = _c_one_block(wc, rows, splits, kara) <= tbc.SMEM_LIMIT_BYTES
             half = _c_pair(wc, splits, kara)[0] if g == 1 and rows == 32 else 0
-            assert tbc.radix_fits(wc, vh, splits, kara, "v5") == (g == 1 and one), (wc, vh, kara)
+            assert tbc.pair_bins(wc, vh, splits, kara) == half
+            chunks = sum(tbc.radix_chunks(lh, vh, 64 if half else rows))
             assert tbc.radix_fits(wc, vh, splits, kara) == (g == 1 and (half > 0 or one)), (
                 wc, vh, kara)
-            assert tbc.pair_bins(wc, vh, splits, kara) == half
-            assert tbc.kernel_layout("v4", wc, vh, splits, kara) == ((64, half) if half
-                                                                     else (rows, 0))
-            assert tbc.radix_row_chunks(wc, lh, vh, splits, kara, "v5") == sum(
-                tbc.radix_chunks(lh, vh, rows))
-            v4_chunks = sum(tbc.radix_chunks(lh, vh, 64 if half else rows))
-            assert tbc.radix_row_chunks(wc, lh, vh, splits, kara) == v4_chunks
-            assert tbc.peaks_chunks(wc, vh, splits, kara, "v4", lh) == v4_chunks * (
-                2 if half else 1)
+            assert tbc.radix_row_chunks(wc, lh, vh, splits, kara) == chunks
+            for body in ("v4", "v5", "v5x"):
+                assert tbc.kernel_layout(body, wc, vh, splits, kara) == (
+                    (64, half) if half else (rows, 0))
+                assert tbc.peaks_chunks(wc, vh, splits, kara, body, lh) == chunks * (
+                    2 if half else 1)
     assert tbc.radix_fits(257, 192, splits, True)
     assert tbc.radix_fits(513, 192, splits, True) == (splits != 6)
-    assert tbc.radix_fits(513, 192, splits, True, "v5") == (splits != 6)
+    assert tbc.kernel_layout("v5", 513, 192, splits, True) == tbc.kernel_layout(
+        "v4", 513, 192, splits, True)
     assert tbc.radix_fits(513, 192, splits)
 
 
