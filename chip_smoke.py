@@ -316,7 +316,8 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
  37. the other H-stage forms (``ops/block_conv.py karatsuba``,
      ``wstack``): the Karatsuba H stage in v3 (maps and peaks, entries
      ``_k``) and the v2 body (maps, ``_v2`` and ``_v2_k``) at the headline
-     plan (N=100), the DPM plan (float32 HOG features, 1024 filters; bf16
+     plan (N=100), JAX's F=1 plan (256, 512, 65, 129) on the same image and
+     bank, the DPM plan (float32 HOG features, 1024 filters; bf16
      spectra the same planes rounded), the 512² plan and the F=8 plan:
      every entry at every tier against its plain version with the same
      flags (the bars of steps 3, 6, 34 and 35), the f32 maps at the fp32
@@ -325,14 +326,15 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
      step 34 holds v3's, on step 3's and step 33's random planes; a
      reading at the real-data DPM, 512² and F=8 plans), the refusal where
      the kernels do not take a form (``form_taken``: the Karatsuba stage
-     at 6xTF32 on the 1024 blocks, whose shared memory does not fit); v2's rows and blocks a CTA (MBH) at each plan (one plan must
-     run MBH >= 2); every entry's row at the headline plan (launched by an
+     at 6xTF32 on the 1024 blocks, whose shared memory does not fit);
+     v2's configuration at each plan (v3's of the same form: rows, pair
+     bins, blocks a CTA — MBH; one plan must run MBH >= 2); every entry's row
+     at the headline plan (launched by an
      explicit ops-level call: no route passes either flag), its bound
      counting the Karatsuba form's 3 of 4 H products (``synthesis_flop``)
      beside v3's 4-product work (``same_work_bound_ms``); the headline
      maps entry in turns, 4-product / Karatsuba / Karatsuba / 4-product;
-     and each form's maps kernel ms beside v3's at every plan (3xTF32 and
-     BF16IO).
+     and each form's maps kernel ms beside v3's at every plan and tier.
 
 At every MAC row (the direct shape's F=1 and F=3, f32 and bf16, the
 unfused headline's and the model layer's shapes) it prints the form the
@@ -482,6 +484,7 @@ def build_kernels() -> None:
         TIERS,
         blocks_per_cta,
         cluster_size,
+        kernel_layout,
         kernels_per_cta,
         pair_bins,
         smem_bytes,
@@ -509,7 +512,7 @@ def build_kernels() -> None:
         radix_forms_s = radix_forms_build.result()[1]
     print(f"build: {max(core_s, radix_s, forms_s, radix_forms_s):.1f} s (side by side: the "
           f"library {core_s:.1f} s, the radix bodies' library {radix_s:.1f} s, the Karatsuba "
-          f"and v2 entries' library {forms_s:.1f} s, the radix bodies' Karatsuba entries' "
+          f"entries' library {forms_s:.1f} s, the radix bodies' Karatsuba entries' "
           f"library {radix_forms_s:.1f} s)")
     spills = []
     for line in _build.build_log().splitlines():
@@ -558,6 +561,17 @@ def build_kernels() -> None:
                     raise AssertionError(
                         f"the Karatsuba or v2 configuration model differs from the kernel at "
                         f"Wc={wc}, Vh={vh}, {tier_name(splits)}: kernel {got}, Python {want}")
+                # v2's operands' layout: its rows and the pair bins of v3's
+                # form (the kernels it launches)
+                for kara in (False, True):
+                    c_half = (forms_lib.fftconv_block_conv_k_pair_bins(wc, vh, splits) if kara
+                              else lib.fftconv_block_conv_f32_pair_bins(wc, vh, splits))
+                    c_layout = (got[4 + kara][1], c_half)  # v2's rows, v3's pair bins
+                    if kernel_layout("v2", wc, vh, splits, kara) != c_layout:
+                        raise AssertionError(
+                            f"v2's layout differs from the kernel's at Wc={wc}, Vh={vh}, "
+                            f"{tier_name(splits)}, karatsuba={kara}: kernel {c_layout}, Python "
+                            f"{kernel_layout('v2', wc, vh, splits, kara)}")
                 pairs += 1
     if lib.fftconv_block_conv_f32_smem_bytes(224, 64, 2) != -1:
         raise AssertionError("the configuration queries take a tier outside (0, 1, 3, 6)")
@@ -4715,8 +4729,8 @@ FORMS = {"_k": dict(karatsuba=True), "_v2": dict(wstack=False),
          "_v2_k": dict(wstack=False, karatsuba=True)}
 FORM_REPLACES = {("block_conv", "_k"): 153, ("block_conv", "_v2"): 269,
                  ("block_conv", "_v2_k"): 290, ("block_conv_peaks", "_k"): 1737}
-FORM_SOURCES = {("block_conv", "_k"): "block_conv_k.cu", ("block_conv", "_v2"): "block_conv_v2.cu",
-                ("block_conv", "_v2_k"): "block_conv_v2_k.cu",
+FORM_SOURCES = {("block_conv", "_k"): "block_conv_k.cu", ("block_conv", "_v2"): "block_conv.cu",
+                ("block_conv", "_v2_k"): "block_conv_k.cu",
                 ("block_conv_peaks", "_k"): "block_conv_peaks_k.cu"}
 # (spectra, tier, bar against the plain version)
 FORM_TIERS = (("f32", 3, TOL), ("f32", 6, TOL), ("f32", 1, X1_TOL), ("bf16", 0, IO_TOL),
@@ -4818,15 +4832,20 @@ def form_checks(ops, ops16, geom, label, idx, want, plain=True, x6_bar=False) ->
 
 def forms_table(ops, ops16, geom, label, table) -> None:
     """Kernel ms of each form beside v3's 4-product form at ``geom`` (f32
-    maps at 3xTF32, BF16IO on bf16 spectra) → ``table`` lines (label, tier,
-    form, ms, bound ms, bound by)."""
+    maps at every tier of ``FORM_TIERS``: 3xTF32, 6xTF32 and one pass on
+    f32 spectra, BF16IO and 3xTF32 on bf16) → ``table`` lines (label, tier,
+    form, ms, bound ms, bound by); a form the kernels do not take is left
+    out."""
     import torch
 
     from cuda_fft_convolution_torch.ops.block_conv import block_conv
 
     out_bytes = 4 * ops[0].shape[0] * ops[2].shape[0] * geom[4] * geom[5]
-    for planes, tier in ((ops, 3), (ops16, 0)):
+    for tag, tier, _ in FORM_TIERS:
+        planes = ops if tag == "f32" else ops16
         for suffix, flags in {"": {}, **FORMS}.items():
+            if not form_fits(planes, geom, tier, flags):
+                continue
             kara = flags.get("karatsuba", False)
             bound_ms, by = block_conv_bound(planes, geom, out_bytes, tier, radix_body(flags), kara)
             ms = cuda_ms(lambda: block_conv(*planes, *geom, torch.float32, tier, **flags))
@@ -4859,12 +4878,13 @@ def forms_phase(fc, seed, image, image_d, bank_d, idx, want, big, path_launches,
 
     def mbh_line(label, ops, geom):
         wc, vh, nbh = ops[0].shape[-1], geom[0] - geom[2] + 1, ops[0].shape[1]
-        got = {(bc.tier_name(t), kara): (bc.v2_rows(wc, vh, t, kara),
+        got = {(bc.tier_name(t), kara): (*bc.kernel_layout("v2", wc, vh, t, kara),
                                           min(bc.v2_blocks(wc, vh, t, kara), nbh))
                for t in (3, 6, 1, bc.BF16IO) for kara in (False, True)}
-        print(f"v2 at the {label} {geom[:4]} (Vh {vh}, Wc {wc}, {nbh} block rows): (rows, MBH) "
-              f"by (tier, karatsuba) {got}")
-        return max(m for _, m in got.values())
+        print(f"v2 at the {label} {geom[:4]} (Vh {vh}, Wc {wc}, {nbh} block rows): (rows, pair "
+              f"bins, MBH: v3's configuration of the same form) by (tier, karatsuba) "
+              f"{got}")
+        return max(m[2] for m in got.values())
 
     # the headline plan, N=100: every entry checked and timed (its JSON row,
     # launched once by an ops-level call); the 4-product and Karatsuba maps
@@ -4904,6 +4924,17 @@ def forms_phase(fc, seed, image, image_d, bank_d, idx, want, big, path_launches,
           f"{turns[0]:.3f} / {turns[1]:.3f} / {turns[2]:.3f} / {turns[3]:.3f} ms "
           f"({(turns[1] + turns[2]) / (turns[0] + turns[3]):.3f}x; {card()})")
     forms_table(ops, ops16, geom, "headline plan", table)
+    del ops, ops16
+    torch.cuda.empty_cache()
+
+    # JAX's F=1 plan (256, 512, 65, 129) on the headline image and bank:
+    # v2 at one block a CTA in v3's configurations (64 rows, and the pair
+    # at 6xTF32), every entry checked, maps against float64
+    ops, ops16, geom = radix_geometry(fc, RADIX_PLANS[0], image_d, bank_d)
+    label = f"JAX F=1 plan, N={HEADLINE['n']}"
+    mbh["JAX F=1"] = mbh_line("JAX F=1 plan", ops, geom)
+    form_checks(ops, ops16, geom, label, idx, want)
+    forms_table(ops, ops16, geom, "JAX F=1 plan", table)
     del ops, ops16
     torch.cuda.empty_cache()
 

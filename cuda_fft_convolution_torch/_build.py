@@ -6,9 +6,9 @@ together, links the objects into a shared library with a plain C interface
 in ``build/`` at the repository root, and loads it with ``ctypes``. The
 radix-2 bodies' sources (``block_conv_r4.cu``, ``_r5.cu``, ``_r5x.cu``)
 make a second library, ``library(radix=True)``, built at the first radix
-call, and the other H-stage forms' (the Karatsuba entries and the v2 body:
-``block_conv_k.cu``, ``block_conv_k_tiers.cu``, ``block_conv_peaks_k.cu``,
-``block_conv_v2.cu``, ``block_conv_v2_k.cu``) a third, ``library(forms=True)``, and the radix
+call, and the Karatsuba H stage's (``block_conv_k.cu``,
+``block_conv_k_tiers.cu``, ``block_conv_peaks_k.cu``) a third,
+``library(forms=True)``, and the radix
 bodies' Karatsuba entries (``block_conv_r4_k.cu``, ``_r5_k.cu``,
 ``_r5x_k.cu``) a fourth, ``library(radix=True, forms=True)``: no default
 route launches them, so the other paths do not wait for their builds. A
@@ -54,13 +54,14 @@ _SMEM_QUERY = ([_I, _I, _I], ctypes.c_longlong)
 # 6xTF32 (_x6) and one-pass (_x1) synthesis tiers, bf16 spectra at BF16IO
 # (_io). The radix library has each of those for the radix-2 bodies (_r4,
 # _r5, _r5x: three more pointers, csrc/block_conv.cuh RadixOps); the forms
-# library the Karatsuba H stage's (_k: maps and peaks) and the v2 body's
-# maps entries (_v2, _v2_k), with the v3 entries' arguments, and the
-# configuration queries of both forms; the radix forms library the radix
-# bodies' entries in the Karatsuba form (_r4_k, _r5_k, _r5x_k).
+# library the Karatsuba H stage's (_k: maps and peaks) and its
+# configuration queries; the radix forms library the radix bodies' entries
+# in the Karatsuba form (_r4_k, _r5_k, _r5x_k). The v2 body's maps entries
+# (_v2, _v2_k: v3's kernels, csrc/block_conv.cu) sit beside v3's entries of
+# the same form, in the main and the forms library, with v3's arguments; its
+# configuration queries are the forms library's.
 _RADIX_UNITS = ("block_conv_r4.cu", "block_conv_r5.cu", "block_conv_r5x.cu")
-_FORM_UNITS = ("block_conv_k.cu", "block_conv_k_tiers.cu", "block_conv_peaks_k.cu",
-               "block_conv_v2.cu", "block_conv_v2_k.cu")
+_FORM_UNITS = ("block_conv_k.cu", "block_conv_k_tiers.cu", "block_conv_peaks_k.cu")
 _RADIX_FORM_UNITS = ("block_conv_r4_k.cu", "block_conv_r5_k.cu", "block_conv_r5x_k.cu")
 _SIGNATURES = {
     "fftconv_block_conv_f32": _MAPS,
@@ -95,7 +96,7 @@ _RADIX_SIGNATURES = {
 
 _FORM_SIGNATURES = {
     **{f"{name}{form}": sig for name, sig in _SIGNATURES.items() if sig is _MAPS
-       for form in ("_k", "_v2", "_v2_k")},
+       for form in ("_k", "_v2_k")},
     **{f"{name}_k": sig for name, sig in _SIGNATURES.items() if sig is _PEAKS},
     "fftconv_block_conv_k_smem_bytes": _SMEM_QUERY,
     "fftconv_block_conv_k_rows": _QUERY,
@@ -106,10 +107,11 @@ _FORM_SIGNATURES = {
     "fftconv_block_conv_v2_blocks": ([_I] * 4, ctypes.c_int),
 }
 _RADIX_FORM_SIGNATURES = {f"{name}_k": sig for name, sig in _RADIX_SIGNATURES.items()}
+_V2_SIGNATURES = {f"{name}_v2": sig for name, sig in _SIGNATURES.items() if sig is _MAPS}
 # library kind → (its translation units: None for every unit the others do
 # not take, its signatures, its file name's tag)
 _KINDS = {
-    "main": (None, _SIGNATURES, ""),
+    "main": (None, {**_SIGNATURES, **_V2_SIGNATURES}, ""),
     "radix": (_RADIX_UNITS, _RADIX_SIGNATURES, "radix_"),
     "forms": (_FORM_UNITS, _FORM_SIGNATURES, "forms_"),
     "radix_forms": (_RADIX_FORM_UNITS, _RADIX_FORM_SIGNATURES, "radix_forms_"),

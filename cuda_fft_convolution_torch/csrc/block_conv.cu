@@ -62,3 +62,17 @@ FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16, __nv_bfloat16, float, StoreF32
 FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16_bf16maps, __nv_bfloat16, __nv_bfloat16, StoreBF16, 3)
 FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16_io, __nv_bfloat16, float, StoreF32, kBF16IO)
 FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16_bf16maps_io, __nv_bfloat16, __nv_bfloat16, StoreBF16, kBF16IO)
+
+// JAX's v2 body (_make_kernel, :269-308; block_conv_pallas under
+// wstack=False): MBH blocks of one block column, one H product G [S_1 |
+// ... | S_MBH], then the W stage. Each output element's products are v3's
+// (block_conv.cuh, "The bodies"), so its entries, with the suffix _v2
+// (the 6xTF32 and one-pass ones in block_conv_tiers.cu, the Karatsuba
+// form's _v2_k in block_conv_k.cu), launch v3's configuration of the same
+// dtype mode and tier: the stacked one, 64 rows, the pair or 32 rows.
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_v2, float, float, StoreF32, 3)
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_f32_bf16maps_v2, float, __nv_bfloat16, StoreBF16, 3)
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16_v2, __nv_bfloat16, float, StoreF32, 3)
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16_bf16maps_v2, __nv_bfloat16, __nv_bfloat16, StoreBF16, 3)
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16_io_v2, __nv_bfloat16, float, StoreF32, kBF16IO)
+FFTCONV_BLOCK_CONV_ENTRY(fftconv_block_conv_bf16_bf16maps_io_v2, __nv_bfloat16, __nv_bfloat16, StoreBF16, kBF16IO)

@@ -163,9 +163,9 @@
 // fragment reads and the S^T stores are free of bank conflicts. The
 // one-block configurations: 64 rows (the headline) and, where that X does
 // not fit in shared memory (Wc > 320 at 3xTF32), the paired configuration
-// below (v3 and the radix bodies) or 32 rows (v2; the others where the
-// pair does not fit either: 6xTF32 past Wc 513, the Karatsuba form at one
-// pass and kBF16IO past Wc 705). Blocks run in
+// below or, where the pair does not fit either, 32 rows (6xTF32 past Wc
+// 513, the Karatsuba form at one pass and kBF16IO past Wc 705). Blocks run
+// in
 // parallel and in no order, unlike the TPU grid that kept the kernel index
 // innermost so a data block stayed in VMEM across the bank; here the kernel
 // index is the fastest-varying launch index, so the CTAs resident at one
@@ -444,8 +444,6 @@ __host__ __device__ constexpr int stage_all(int rows, int splits, bool kara = fa
                                                              : stage_w(rows, splits);
 }
 
-// The v2 body's blocks of a block column a CTA, at most.
-constexpr int kMaxGroup = 16;
 // The paired configuration: the CTAs of its cluster, and the floats past its
 // staging area (a sliver: the Nyquist bin's X of each of the 64 rows, re and
 // im, then the last column's partial sum of each row, a double; during the
@@ -489,9 +487,12 @@ static_assert(kGS % 32 == 20, "conflict-free fragment loads");
 static_assert((2 * kKB) % kKC == 0, "W-stage chunks tile [Xr | Xi]");
 
 // The bodies (BODY): v3, the radix-2 v4 (H stage), v5 (H and DIF W
-// stages, in-kernel Nyquist term) and v5x (the Nyquist term an operand), and
-// v2 (column-stacked H stage, per-block W stages).
-constexpr int kV3 = 0, kV4 = 1, kV5 = 2, kV5X = 3, kV2 = 4;
+// stages, in-kernel Nyquist term) and v5x (the Nyquist term an operand).
+// JAX's v2 body (_make_kernel, block_conv_pallas under wstack=False: MBH
+// blocks of one block column, one H product G [S_1 | ... | S_MBH]) has no
+// body here: each output element's products are v3's, and its entries
+// (_v2, _v2_k) launch v3's configuration of the same form (block_conv.cu).
+constexpr int kV3 = 0, kV4 = 1, kV5 = 2, kV5X = 3;
 __host__ __device__ constexpr bool dif_body(int body) { return body == kV5 || body == kV5X; }
 __host__ __device__ constexpr bool radix_body(int body) { return body == kV4 || dif_body(body); }
 // The radix bodies' operands (ops/block_conv.py _radix_kernel_mats): U (3,
@@ -910,27 +911,6 @@ inline long long smem_bytes(int wc, int vh, int splits, bool kara = false) {
   return tile_smem_bytes(wide(wc, splits, kara) ? 32 : 64, wc, splits, kara);
 }
 
-// The v2 body: a CTA holds `rows` window rows of MBH blocks of one block
-// column, their X side by side. 32 rows for windows of at most 32 rows or
-// where the 64-row X does not fit, else 64; MBH the most blocks (up to
-// kMaxGroup) whose X fits beside the staging area, at least 1 (where even
-// one does not fit, v2_smem_bytes is over the limit and the launch refuses).
-inline int v2_rows(int wc, int vh, int splits, bool kara = false) {
-  return vh <= 32 || wide(wc, splits, kara) ? 32 : 64;
-}
-inline int v2_blocks(int wc, int vh, int splits, bool kara = false) {
-  const int rows = v2_rows(wc, vh, splits, kara);
-  const long long x = 4LL * rows * x_stride(wc);
-  const long long left = kMaxSmem - 4LL * stage_all(rows, splits, kara);
-  const long long m = left / x;
-  return m < 1 ? 1 : m > kMaxGroup ? kMaxGroup : static_cast<int>(m);
-}
-inline long long v2_smem_bytes(int wc, int vh, int splits, bool kara = false) {
-  const int rows = v2_rows(wc, vh, splits, kara);
-  return 4LL * (static_cast<long long>(v2_blocks(wc, vh, splits, kara)) * rows * x_stride(wc) +
-                stage_all(rows, splits, kara));
-}
-
 // The CTA's place: image bb, block (bi, bj), row chunk rc, kernel ni; a
 // stacked CTA holds `count` blocks from (bi, bj) on in row-major block
 // order (count is 1 otherwise).
@@ -1058,7 +1038,6 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   // 6xTF32 sums its small terms apart from the main term (see Precision).
   constexpr bool kApart = SPLITS == 6;
   constexpr bool kDif = dif_body(BODY);
-  static_assert(BODY != kV2 || !STACKED, "v2 stacks blocks its own way");
   static_assert(!PAIRED || ((BODY == kV3 || radix_body(BODY)) && ROWS == 64 && !STACKED),
                 "the pair is v3's and the radix bodies', of 64-row CTAs");
   extern __shared__ __align__(16) float smem[];
@@ -1068,8 +1047,8 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   const int crank = PAIRED ? static_cast<int>(blockIdx.x % kPair) : 0;
   const int wc_pad = PAIRED ? pair_half(wc, SPLITS, KARA) : padded_bins(wc);
   const int xs = 2 * wc_pad + 4;
-  float* x_s = smem;                   // [ROWS][xs]  X: Xr at bins 0.., Xi at wc_pad.. (v2: a group's)
-  float* stage = x_s + (BODY == kV2 ? group : STACKED ? kpc : 1) * ROWS * xs;  // staging, reused by both stages
+  float* x_s = smem;                   // [ROWS][xs]  X: Xr at bins 0.., Xi at wc_pad..
+  float* stage = x_s + (STACKED ? kpc : 1) * ROWS * xs;  // staging, reused by both stages
   float* sliver = stage + stage_all(ROWS, SPLITS, KARA);  // PAIRED: [Xn re 64][Xn im 64][partial sums 64 doubles]
   // The DIF stage's half period W/2 and quarter; its H stage stores X's
   // bins permuted, [even | odd | Nyquist] (xcol), and v5x's stops at W/2.
@@ -1107,22 +1086,18 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   float* s_st = stage;
   float* g_st = s_st + s_planes(KARA) * P * kSP;
 
-  // Kernel index fastest, then the row chunk, then the cell (b, i, j) — for
-  // v2 the group (b, i / group, j) of `group` blocks down block column j.
+  // Kernel index fastest, then the row chunk, then the cell (b, i, j).
   long long bid = PAIRED ? blockIdx.x / kPair : blockIdx.x;
   const int ni = static_cast<int>(bid % n);
   bid /= n;
   const int rc = static_cast<int>(bid % row_chunks);
   const long long cell = bid / row_chunks;
   const int bj = static_cast<int>(cell % nbw);
-  const int gbh = BODY == kV2 ? (nbh + group - 1) / group : nbh;
-  const int bi = static_cast<int>((cell / nbw) % gbh) * (BODY == kV2 ? group : 1);
-  const long long bb = cell / (static_cast<long long>(nbw) * gbh);
-  // v2: the group's blocks (bi + t, bj), t < count
-  const int count = BODY == kV2 ? min(group, nbh - bi) : 1;
+  const int bi = static_cast<int>((cell / nbw) % nbh);
+  const long long bb = cell / (static_cast<long long>(nbw) * nbh);
   r0 = rc * ROWS;
   // (a pair's ranks write a pyramid entry each: chunk rc kPair + rank)
-  cell_at = Cell{bb, bi, bj, PAIRED ? rc * kPair + crank : rc, ni, count};
+  cell_at = Cell{bb, bi, bj, PAIRED ? rc * kPair + crank : rc, ni, 1};
   // A radix body's chunk (radix_segs): a pair chunk (rc < its count)
   // holds x[v'] at local rows k and x[v' + M] at RW + k for v' = p0 + k; a
   // single chunk x[v' + M] for v' = (rc - npc) ROWS + k at local row k.
@@ -1133,7 +1108,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   if constexpr (radix_body(BODY)) sg = radix_segs(rc, lh, vh, ROWS);
 
   const long long plane = static_cast<long long>(lh) * wc;
-  const long long dcell = (bb * nbh + bi) * nbw + bj;  // the (first) block's cell
+  const long long dcell = (bb * nbh + bi) * nbw + bj;  // the block's cell
   const TS* dr_c = d_re + dcell * f * plane;
   const TS* di_c = d_im + dcell * f * plane;
   const TS* kr_c = k_re + static_cast<long long>(ni) * f * plane;
@@ -1145,19 +1120,6 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   // rows, so their S^T stores hit 32 distinct banks.
   auto s_u = [&](int q) { return 4 * ((q * 8 + warp) >> 4) + (lane >> 3); };
   auto s_v = [&](int q) { return 8 * ((q * 8 + warp) & 15) + (lane & 7); };
-  // v2: the H stage's columns are the group's blocks' bins side by side,
-  // column c = t * wc + v for block t, bin v (c < count * wc); a pass's
-  // columns of this thread's S elements, as (t, v), set by v2_columns.
-  // (t, v) packed as t << 16 | v, -1 past the columns; wc < 2^16
-  int col_tv[St::kPerS];
-  auto v2_columns = [&](int c0) {
-#pragma unroll
-    for (int q = 0; q < St::kPerS; ++q) {
-      const int c = c0 + s_v(q);
-      const int t = c / wc;
-      col_tv[q] = c < count * wc ? t << 16 | (c - t * wc) : -1;
-    }
-  };
   // Channel ff of this thread's S elements of the chunk at (u0, c0): D and K
   // (zeros at the columns past a pass of `w` bins, a radix single chunk's).
   float dk[St::kPerS][4];
@@ -1165,25 +1127,13 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
 #pragma unroll
     for (int q = 0; q < St::kPerS; ++q) {
       const int u = u0 + s_u(q);
-      if constexpr (BODY == kV2) {
-        const int tv = col_tv[q];
-        const bool ok = u < lh && tv >= 0;
-        const long long off = ok ? static_cast<long long>(u) * wc + (tv & 0xFFFF) + ff * plane : 0;
-        // D from block t to t + 1: nbw cells
-        const long long doff = ok ? off + static_cast<long long>(tv >> 16) * nbw * f * plane : 0;
-        dk[q][0] = ok ? to_f32(dr_c[doff]) : 0.f;
-        dk[q][1] = ok ? to_f32(di_c[doff]) : 0.f;
-        dk[q][2] = ok ? to_f32(kr_c[off]) : 0.f;
-        dk[q][3] = ok ? to_f32(ki_c[off]) : 0.f;
-      } else {
-        const int v = c0 + s_v(q);
-        const bool ok = u < lh && v < wc && s_v(q) < w;
-        const long long off = ok ? static_cast<long long>(u) * wc + v + ff * plane : 0;
-        dk[q][0] = ok ? to_f32(dr_c[off]) : 0.f;
-        dk[q][1] = ok ? to_f32(di_c[off]) : 0.f;
-        dk[q][2] = ok ? to_f32(kr_c[off]) : 0.f;
-        dk[q][3] = ok ? to_f32(ki_c[off]) : 0.f;
-      }
+      const int v = c0 + s_v(q);
+      const bool ok = u < lh && v < wc && s_v(q) < w;
+      const long long off = ok ? static_cast<long long>(u) * wc + v + ff * plane : 0;
+      dk[q][0] = ok ? to_f32(dr_c[off]) : 0.f;
+      dk[q][1] = ok ? to_f32(di_c[off]) : 0.f;
+      dk[q][2] = ok ? to_f32(kr_c[off]) : 0.f;
+      dk[q][3] = ok ? to_f32(ki_c[off]) : 0.f;
     }
   };
   // S = sum_f K D at (u0, c0) into sv, over a pass of `w` bins: channel 0
@@ -1654,24 +1604,13 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
   }
   } else {
   // ---- H stage: X[r, v] = sum_u G[r0 + r, u] S[u, v] ----
-  // v2: over the group's columns (v2_columns), X of block t at
-  // x_s + t * ROWS * xs; its bins past wc, which no column reaches, are
-  // zeroed here (the W stage's chunks read them).
-  const int h_cols = BODY == kV2 ? count * wc : hb_pad;
   // PAIRED: the Nyquist bin's X of each row, summed in fp32 in pass 0
   // beside the products (the sliver's S a chunk, G from this thread's
   // staging loads, gv): the 4-product form's re and im, or the Karatsuba
   // form's t1, t2, t3 (x_nq), four spectrum rows a thread, the row's four
   // threads added after the stage.
   float x_nq[3] = {0.f, 0.f, 0.f};
-  if constexpr (BODY == kV2) {
-    const int pad = wc_pad - wc;
-    for (int e = tid; e < count * ROWS * 2 * pad; e += kThreads) {
-      const int row = e / (2 * pad), h = e % (2 * pad);
-      x_s[row * xs + (h < pad ? wc + h : wc_pad + wc + h - pad)] = 0.f;  // rows of all blocks
-    }
-  }
-  for (int c0 = 0; c0 < h_cols; c0 += kCols) {
+  for (int c0 = 0; c0 < hb_pad; c0 += kCols) {
     // X's accumulators: 64 rows, a warpgroup's 64 x 64 tile (wgmma); 32
     // rows, a warp's 16 x 32 tile (mma.sync).
     constexpr int XM = kWG ? 1 : MT, XN = kWG ? 8 : 4;
@@ -1684,9 +1623,8 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
         for (int c = 0; c < 4; ++c) xr[a][b][c] = xi[a][b][c] = 0.f;
     // The warp's 32 bins are either all below wc_pad or all past it
     // (mma.sync); the warpgroup's 64 bins start below it or are all past
-    // it (wgmma). (v2: the columns past count * wc.)
-    const bool live = kWG ? c0 + (warp >> 2) * 64 < h_cols : c0 + wn * 32 < h_cols;
-    if constexpr (BODY == kV2) v2_columns(c0);
+    // it (wgmma).
+    const bool live = kWG ? c0 + (warp >> 2) * 64 < hb_pad : c0 + wn * 32 < hb_pad;
 
     // G (re, im) for rows r0.., spectrum rows u0.. (zero-padded past vh
     // and lh), loaded a chunk ahead and split as it is staged. Karatsuba: a thread's
@@ -2014,34 +1952,19 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     }
     // Bins past wc hold zeros (S was zero there), which pads X for the W
     // stage's chunks. The DIF bodies store the bins permuted (xcol): a
-    // pair of adjacent bins lands in the even and the odd half. v2: column
-    // c to bin c % wc of block c / wc's X; the columns past count * wc are
-    // dropped.
-    auto store_v2 = [&](int row, int c, float re, float im) {
-      if (c < h_cols) {
-        const int t = c / wc;
-        float* p = x_s + (t * ROWS + row) * xs + c - t * wc;
-        p[0] = re;
-        p[wc_pad] = im;
-      }
-    };
+    // pair of adjacent bins lands in the even and the odd half.
     if constexpr (kWG) {
       const int rank = warp & 3;
 #pragma unroll
       for (int j = 0; j < XN; ++j) {
         const int v = c0 + (warp >> 2) * 64 + j * 8;  // the n-tile's bins: all below wc_pad, or none
-        if (live && v < (BODY == kV2 ? h_cols : hb_pad)) {
+        if (live && v < hb_pad) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             float* p = x_s + (rank * 16 + 8 * h + g8) * xs;
             const int b2 = v + 2 * t4;
-            if constexpr (BODY == kV2) {
-              store_v2(rank * 16 + 8 * h + g8, b2, xr[0][j][2 * h], xi[0][j][2 * h]);
-              store_v2(rank * 16 + 8 * h + g8, b2 + 1, xr[0][j][2 * h + 1], xi[0][j][2 * h + 1]);
-            } else {
-              *reinterpret_cast<float2*>(p + b2) = make_float2(xr[0][j][2 * h], xr[0][j][2 * h + 1]);
-              *reinterpret_cast<float2*>(p + b2 + wc_pad) = make_float2(xi[0][j][2 * h], xi[0][j][2 * h + 1]);
-            }
+            *reinterpret_cast<float2*>(p + b2) = make_float2(xr[0][j][2 * h], xr[0][j][2 * h + 1]);
+            *reinterpret_cast<float2*>(p + b2 + wc_pad) = make_float2(xi[0][j][2 * h], xi[0][j][2 * h + 1]);
           }
         }
       }
@@ -2054,13 +1977,8 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
           for (int h = 0; h < 2; ++h) {
             float* p = x_s + (wm * RW + mt * 16 + 8 * h + g8) * xs;
             const int b2 = c0 + wn * 32 + nt * 8 + 2 * t4;
-            if constexpr (BODY == kV2) {
-              store_v2(wm * RW + mt * 16 + 8 * h + g8, b2, xr[mt][nt][2 * h], xi[mt][nt][2 * h]);
-              store_v2(wm * RW + mt * 16 + 8 * h + g8, b2 + 1, xr[mt][nt][2 * h + 1], xi[mt][nt][2 * h + 1]);
-            } else {
-              *reinterpret_cast<float2*>(p + b2) = make_float2(xr[mt][nt][2 * h], xr[mt][nt][2 * h + 1]);
-              *reinterpret_cast<float2*>(p + b2 + wc_pad) = make_float2(xi[mt][nt][2 * h], xi[mt][nt][2 * h + 1]);
-            }
+            *reinterpret_cast<float2*>(p + b2) = make_float2(xr[mt][nt][2 * h], xr[mt][nt][2 * h + 1]);
+            *reinterpret_cast<float2*>(p + b2 + wc_pad) = make_float2(xi[mt][nt][2 * h], xi[mt][nt][2 * h + 1]);
           }
     }
   }
@@ -2612,8 +2530,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     }
     cp_async_commit();  // an empty group past the last step keeps the count
   };
-  // The W stage of the X at xw, its tiles to epi (v2: once a block of the
-  // group, each block's Vh rows a product of their own).
+  // The W stage of the X at xw, its tiles to epi.
   // PAIRED: the Nyquist bin's rank-1 term added to a pass's tile at local
   // rows l, l + 8 (acc[0][j][2 h + e]: column col + 8 j + e): Xn (rounded
   // at kBF16IO as X is) times its row of [Mr ; Mi] from m_tc's sliver, in
@@ -2637,7 +2554,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     }
   };
   auto w_stage = [&](const float* xw, Epi& epi) {
-  __syncthreads();  // X is written; the H stage (v2: the last block's W stage) is done with the staging area
+  __syncthreads();  // X is written; the H stage is done with the staging area
   if constexpr (ROWS == 64) {
     // The ring: step j's chunk (chunk j of m_tc, kMChunk floats) in slot
     // j % kM; full(s) completes when a fill's bytes have landed (its phase
@@ -2939,24 +2856,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_conv_kernel(
     cluster_wait();
   };
   const OutGeom geom{n, nbh, nbw, PAIRED ? row_chunks * kPair : row_chunks, vh, vw, out_h, out_w};
-  if constexpr (BODY == kV2) {
-    for (int t = 0;; ++t) {
-      // block t's cell, decoded anew from the block index (the H stage's
-      // decode is not held in registers through the W stages)
-      long long bid = opaque(blockIdx.x);
-      const int ni = static_cast<int>(bid % n);
-      bid /= n;
-      const int rc = static_cast<int>(bid % row_chunks);
-      const long long cell = bid / row_chunks;
-      const int gbh = (nbh + group - 1) / group;
-      const int bi = static_cast<int>((cell / nbw) % gbh) * group;
-      if (t >= min(group, nbh - bi)) break;
-      Epi epi(out, Cell{cell / (static_cast<long long>(nbw) * gbh), bi + t, static_cast<int>(cell % nbw),
-                        rc, ni, 1}, geom);
-      w_stage(x_s + t * ROWS * xs, epi);
-      epi.finish(stage);
-    }
-  } else if constexpr (STACKED) {
+  if constexpr (STACKED) {
     // kernel by kernel: its X's 64 stacked rows, its tiles to its epilogue
     for (int k = 0; k < kernels_at; ++k) {
       Epi epi(out, Cell{cell_at.bb, cell_at.bi, cell_at.bj, 0, cell_at.ni + k, cell_at.count}, geom);
@@ -2977,29 +2877,24 @@ int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
            const float* m_tc, RadixOps rx, typename Epi::Out out, int b, int nbh, int nbw,
            int f, int n, int lh, int wc, int vh, int vw, int out_h, int out_w,
            int ktile, cudaStream_t stream) {
-  // v2: `group` blocks of a block column a CTA (v2_blocks, at most nbh)
-  const int group = STACKED ? blocks_per_cta(wc, vh, SPLITS)
-                    : BODY == kV2 ? min(v2_blocks(wc, vh, SPLITS, KARA), nbh)
-                                  : 1;
+  const int group = STACKED ? blocks_per_cta(wc, vh, SPLITS) : 1;
   // stacked: `kpc` kernels a CTA (kernels_per_cta)
   const int kpc = STACKED ? kernels_per_cta(wc, vh, SPLITS) : 1;
-  const long long smem = STACKED        ? stacked_smem_bytes(wc, group, kpc, SPLITS)
-                         : BODY == kV2 ? v2_smem_bytes(wc, vh, SPLITS, KARA)
-                         : PAIRED      ? pair_smem_bytes(pair_half(wc, SPLITS, KARA), SPLITS, KARA)
-                                       : tile_smem_bytes(ROWS, wc, SPLITS, KARA);
+  const long long smem = STACKED  ? stacked_smem_bytes(wc, group, kpc, SPLITS)
+                         : PAIRED ? pair_smem_bytes(pair_half(wc, SPLITS, KARA), SPLITS, KARA)
+                                  : tile_smem_bytes(ROWS, wc, SPLITS, KARA);
   const int row_chunks = STACKED               ? 1
                          : !radix_body(BODY) ? (vh + ROWS - 1) / ROWS
                                              : pair_chunks(lh, vh, ROWS) + single_chunks(lh, vh, ROWS);
   const Ring ring = STACKED ? stacked_ring<TS>(wc, group, kpc, SPLITS) : Ring{0, 0};
   // stacked: b images x tiles of ktile kernels x block groups x the tile's
-  // CTAs of kpc kernels; v2: b images x block groups (of `group` blocks
-  // down a column) x row chunks x kernels; paired: the same x the pair's
-  // two CTAs (fastest: a cluster is two consecutive CTAs)
+  // CTAs of kpc kernels; the others: b images x blocks x row chunks x
+  // kernels; paired: the same x the pair's two CTAs (fastest: a cluster is
+  // two consecutive CTAs)
   const long long grid =
       STACKED ? static_cast<long long>(b) * ((n + ktile - 1) / ktile) * ((ktile + kpc - 1) / kpc) *
                     ((static_cast<long long>(nbh) * nbw + group - 1) / group)
-              : static_cast<long long>(b) * ((nbh + group - 1) / group) * nbw * row_chunks * n *
-                    (PAIRED ? kPair : 1);
+              : static_cast<long long>(b) * nbh * nbw * row_chunks * n * (PAIRED ? kPair : 1);
   if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   auto kernel = block_conv_kernel<TS, ROWS, STACKED, SPLITS, BODY, Epi, KARA, PAIRED>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -3036,7 +2931,7 @@ int launch(const TS* d_re, const TS* d_im, const TS* k_re, const TS* k_im,
 // gt_im: G^T (Lh, Vh), exact (no configuration reads it); g_pad: G (2, g_rows(vh), g_cols(lh)) = re,
 // im, exact; m_tc: the m_planes(rows, SPLITS) planes of M^T (m_cols(vw),
 // 2 padded_bins(wc)) in core matrices, rows = tile_rows(wc, vh, SPLITS,
-// KARA) (v2: v2_rows), row c holding column c of [Mr ; Mi] (Mi from k =
+// KARA), row c holding column c of [Mr ; Mi] (Mi from k =
 // padded_bins(wc) on): its TF32 pieces, or M^T exact where the
 // configuration stages one plane; zeros wherever the padding reaches. At
 // kBF16IO G^T, G and M^T (one plane) are rounded to bf16 instead of exact.
@@ -3061,22 +2956,13 @@ int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
                       typename Epi<false>::Out out, int b, int nbh, int nbw,
                       int f, int n, int lh, int wc, int vh, int vw, int out_h,
                       int out_w, int ktile, void* stream) {
-  const long long need = BODY == kV2 ? v2_smem_bytes(wc, vh, SPLITS, KARA) : smem_bytes(wc, vh, SPLITS, KARA);
+  const long long need = smem_bytes(wc, vh, SPLITS, KARA);
   if (b <= 0 || nbh <= 0 || nbw <= 0 || f <= 0 || n <= 0 || lh <= 0 ||
       wc <= 0 || vh <= 0 || vw <= 0 || out_h <= 0 || out_w <= 0 ||
       ktile < 1 || ktile > n || need > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   rx.inv_w = static_cast<float>(1.0 / (2.0 * (wc - 1)));  // the DIF stage's 1 / W
-  if constexpr (BODY == kV2) {
-    if (v2_rows(wc, vh, SPLITS, KARA) == 32)
-      return launch<TS, 32, false, SPLITS, BODY, Epi<false>, KARA>(d_re, d_im, k_re, k_im, gt_re, gt_im,
-                                                                   g_pad, m_tc, rx, out, b, nbh, nbw, f, n,
-                                                                   lh, wc, vh, vw, out_h, out_w, ktile, s);
-    return launch<TS, 64, false, SPLITS, BODY, Epi<false>, KARA>(d_re, d_im, k_re, k_im, gt_re, gt_im,
-                                                                 g_pad, m_tc, rx, out, b, nbh, nbw, f, n,
-                                                                 lh, wc, vh, vw, out_h, out_w, ktile, s);
-  } else {
   if constexpr (BODY == kV3) {
     if (blocks_per_cta(wc, vh, SPLITS) > 1)
       return launch<TS, 64, true, SPLITS, BODY, Epi<true>, KARA>(d_re, d_im, k_re, k_im, gt_re, gt_im,
@@ -3110,7 +2996,6 @@ int launch_block_conv(const TS* d_re, const TS* d_im, const TS* k_re,
     return launch<TS, 64, false, SPLITS, BODY, Epi<false>, KARA>(d_re, d_im, k_re, k_im, gt_re, gt_im,
                                                                  g_pad, m_tc, rx, out, b, nbh, nbw, f,
                                                                  n, lh, wc, vh, vw, out_h, out_w, ktile, s);
-  }
   }
 }
 

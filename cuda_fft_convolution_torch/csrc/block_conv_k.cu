@@ -29,6 +29,19 @@ extern "C" int fftconv_block_conv_k_cluster(int wc, int vh, int splits) {
 extern "C" int fftconv_block_conv_k_pair_bins(int wc, int vh, int splits) {
   return valid_splits(splits) ? pair_bins(wc, vh, splits, true) : -1;
 }
+// The v2 body's configuration in H-stage form `kara` (0, 1), v3's of that
+// form (block_conv.cu, "JAX's v2 body"): its shared memory, rows and blocks
+// a CTA (MBH before the cut to the grid's nbh); ops/block_conv.py
+// v2_smem_bytes, v2_rows and v2_blocks mirror them.
+extern "C" long long fftconv_block_conv_v2_smem_bytes(int wc, int vh, int splits, int kara) {
+  return valid_splits(splits) ? smem_bytes(wc, vh, splits, kara != 0) : -1;
+}
+extern "C" int fftconv_block_conv_v2_rows(int wc, int vh, int splits, int kara) {
+  return valid_splits(splits) ? tile_rows(wc, vh, splits, kara != 0) : -1;
+}
+extern "C" int fftconv_block_conv_v2_blocks(int wc, int vh, int splits, int kara) {
+  return valid_splits(splits) ? blocks_per_cta(wc, vh, splits) : -1;
+}
 
 // (the 6xTF32 and one-pass entries: block_conv_k_tiers.cu)
 FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_f32_k, float, float, StoreF32, 3, kV3, true)
@@ -38,4 +51,14 @@ FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_bf16_bf16maps_k, __nv_bfloat16,
                               true)
 FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_bf16_io_k, __nv_bfloat16, float, StoreF32, kBF16IO, kV3, true)
 FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_bf16_bf16maps_io_k, __nv_bfloat16, __nv_bfloat16, StoreBF16,
+                              kBF16IO, kV3, true)
+// the v2 body's Karatsuba form (JAX's _make_kernel under karatsuba=True,
+// :291-297): the same kernels (block_conv.cu, "JAX's v2 body")
+FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_f32_v2_k, float, float, StoreF32, 3, kV3, true)
+FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_f32_bf16maps_v2_k, float, __nv_bfloat16, StoreBF16, 3, kV3, true)
+FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_bf16_v2_k, __nv_bfloat16, float, StoreF32, 3, kV3, true)
+FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_bf16_bf16maps_v2_k, __nv_bfloat16, __nv_bfloat16, StoreBF16, 3,
+                              kV3, true)
+FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_bf16_io_v2_k, __nv_bfloat16, float, StoreF32, kBF16IO, kV3, true)
+FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_bf16_bf16maps_io_v2_k, __nv_bfloat16, __nv_bfloat16, StoreBF16,
                               kBF16IO, kV3, true)

@@ -1,8 +1,8 @@
 // Fused overlap-save block convolution for Hopper (sm_90a): the maps
 // kernel's epilogue and the macros of its C entries, shared by the v3
 // entries (block_conv.cu), the radix bodies' (block_conv_r4.cu,
-// block_conv_r5.cu, block_conv_r5x.cu) and the other H-stage forms'
-// (block_conv_k.cu, block_conv_v2.cu, block_conv_v2_k.cu).
+// block_conv_r5.cu, block_conv_r5x.cu) and the Karatsuba form's
+// (block_conv_k.cu), and the v2 entries (beside v3's of the same form).
 
 #pragma once
 
@@ -92,7 +92,7 @@ using StoreBF16 = StoreMaps<__nv_bfloat16, S>;
 }  // namespace
 
 // One C entry of the maps kernel: fftconv_block_conv_<spectra>[_bf16maps]
-// [_x6 | _x1 | _io][_r4 | _r5 | _r5x][_k] or [_v2][_k] (block_conv.cu says what the dtype
+// [_x6 | _x1 | _io][_r4 | _r5 | _r5x][_v2][_k] (block_conv.cu says what the dtype
 // and tier suffixes select, block_conv.cuh the bodies). The radix bodies'
 // entries take RadixOps' three pointers after m_tc. Each launches on
 // `stream` and does not synchronise. Returns cudaGetLastError() after the
@@ -119,9 +119,9 @@ using StoreBF16 = StoreMaps<__nv_bfloat16, S>;
         RadixOps{u_pad, tw, slv}, out, b, nbh, nbw, f, n, lh, wc, vh, vw,        \
         out_h, out_w, ktile, stream);                                            \
   }
-// An entry of the other H-stage forms (block_conv_k.cu, block_conv_v2.cu,
-// block_conv_v2_k.cu): the v3 entries' operands, body BODY (kV3 or kV2),
-// KARA the Karatsuba H stage.
+// An entry of the other H-stage forms (block_conv_k.cu,
+// block_conv_k_tiers.cu): the v3 entries' operands, body BODY, KARA the
+// Karatsuba H stage.
 #define FFTCONV_BLOCK_CONV_FORM_ENTRY(NAME, TS, TO, EPI, SPLITS, BODY, KARA)    \
   extern "C" int NAME(const TS* d_re, const TS* d_im, const TS* k_re,           \
                       const TS* k_im, const float* gt_re, const float* gt_im,   \
@@ -132,24 +132,6 @@ using StoreBF16 = StoreMaps<__nv_bfloat16, S>;
         d_re, d_im, k_re, k_im, gt_re, gt_im, g_pad, m_tc, RadixOps{}, out, b, \
         nbh, nbw, f, n, lh, wc, vh, vw, out_h, out_w, ktile, stream);          \
   }
-// The maps kernel's ten dtype-and-tier entries of one form.
-#define FFTCONV_BLOCK_CONV_FORM_ENTRIES(SUFFIX, BODY, KARA)                                                      \
-  FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_f32##SUFFIX, float, float, StoreF32, 3, BODY, KARA)          \
-  FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_f32_bf16maps##SUFFIX, float, __nv_bfloat16, StoreBF16, 3,    \
-                                BODY, KARA)                                                                    \
-  FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_bf16##SUFFIX, __nv_bfloat16, float, StoreF32, 3, BODY, KARA) \
-  FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_bf16_bf16maps##SUFFIX, __nv_bfloat16, __nv_bfloat16,         \
-                                StoreBF16, 3, BODY, KARA)                                                      \
-  FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_f32_x6##SUFFIX, float, float, StoreF32, 6, BODY, KARA)       \
-  FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_f32_bf16maps_x6##SUFFIX, float, __nv_bfloat16, StoreBF16, 6, \
-                                BODY, KARA)                                                                    \
-  FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_f32_x1##SUFFIX, float, float, StoreF32, 1, BODY, KARA)       \
-  FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_f32_bf16maps_x1##SUFFIX, float, __nv_bfloat16, StoreBF16, 1, \
-                                BODY, KARA)                                                                    \
-  FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_bf16_io##SUFFIX, __nv_bfloat16, float, StoreF32, kBF16IO,    \
-                                BODY, KARA)                                                                    \
-  FFTCONV_BLOCK_CONV_FORM_ENTRY(fftconv_block_conv_bf16_bf16maps_io##SUFFIX, __nv_bfloat16, __nv_bfloat16,      \
-                                StoreBF16, kBF16IO, BODY, KARA)
 // The maps kernel's ten dtype-and-tier entries of one radix body, in the H
 // stage's 4-product form or (KARA) its Karatsuba form.
 #define FFTCONV_BLOCK_CONV_RADIX_ENTRIES(SUFFIX, BODY, KARA)                                                              \

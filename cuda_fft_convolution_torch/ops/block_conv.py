@@ -74,15 +74,17 @@ stage, X = G·S as three real products (t1 = Gr·Sr, t2 = Gi·Si, t3 =
 (Gr + Gi)·(Sr + Si); Xr = t1 − t2, Xi = t3 − t1 − t2), in v3 (maps and
 peaks; entries ``…_k``), v2 and the radix bodies (their sub-transforms Ê
 and Ô, JAX's ``csub``: entries ``…_r4_k``, ``…_r5_k``, ``…_r5x_k``);
-``wstack=False`` (maps only) its v2 body: ``v2_blocks`` blocks of one
-block column a CTA, one column-stacked H product, then the W stage block
-by block (entries ``…_v2``, ``…_v2_k``). ``karatsuba=None`` keeps the
+``wstack=False`` (maps only) its v2 body, one column-stacked H product
+over ``v2_blocks`` blocks of one block column (entries ``…_v2``,
+``…_v2_k``): each output element's products are v3's, and the entries
+launch v3's configuration of the same form (``v2_rows``, ``v2_blocks``,
+``v2_smem_bytes`` are v3's queries). ``karatsuba=None`` keeps the
 4-product form on every body (JAX's None means Karatsuba but for v2: a
 choice measured on a TPU, ROADMAP queue 3); a radix body does not take
 ``wstack=False`` (``_body``). The configuration mirror
 takes the form (``smem_bytes(..., karatsuba)``, ``v2_rows``,
-``form_smem_bytes``), and ``_h_synthesis`` / ``_v2_x`` compute the forms
-in the plain version.
+``v2_blocks``, ``form_smem_bytes``), and ``_h_synthesis`` / ``_v2_x``
+compute the forms in the plain version.
 """
 
 from __future__ import annotations
@@ -104,9 +106,9 @@ from cuda_fft_convolution_torch.utils.errors import InvalidInputError, validate
 # as, 3, 6 or 1, or ``BF16IO``, one product of bf16-rounded operands, laid
 # out as one pass; ``fused_splits``). A CTA holds X, 64 rows × [Xr | Xi]
 # over the packed bins padded to 32 (a row stride of 2·bins + 4 floats) —
-# where that does not fit, the v3 and radix kernels pair two 64-row CTAs
-# that split the bins (``pair_bins``, below) and v2 (and the others where
-# the pair does not fit either) takes 32 rows — plus a staging area, within
+# where that does not fit, the kernels pair two 64-row CTAs that split the
+# bins (``pair_bins``, below), and take 32 rows where the pair does not fit
+# either — plus a staging area, within
 # Hopper's 227 KB (232,448 B) per-block shared-memory limit. The staging area is the larger
 # of the H stage's (S^T, 128 bins, and a G chunk, as the TF32 pieces of 16
 # spectrum rows — 2 at 3×TF32, 3 at 6×TF32, 1 at one pass — with −Gi's at
@@ -133,7 +135,6 @@ _UK = 16
 _GS = _UK + 4
 _KC = 32  # rows of [Mr ; Mi] per W-stage chunk
 _M_PLANE = _COLS * _KC  # floats of one plane of a W-stage chunk
-_MAX_GROUP = 16  # the v2 body's blocks a CTA, at most
 _STACK_G, _STACK_T = 4, 2  # blocks, kernels a stacked CTA
 _MAC_THREADS, _MAC_ACC = 224, 96
 _MIN_STEPS, _MAX_STEPS = 2, 8
@@ -263,8 +264,8 @@ def kernels_per_cta(wc: int, vh: int, splits: int = 3) -> int:
 
 def _one_block_rows(wc: int, splits: int = 3, karatsuba: bool = False) -> int:
     """Rows of the one-block configuration without pairs (where the pair
-    does not fit, or, for v2, at every width): 64 where that X fits beside
-    the staging area, else 32."""
+    does not fit): 64 where that X fits beside the staging area, else
+    32."""
     fits = _tile_smem_bytes(wc, 64, splits=splits, karatsuba=karatsuba) <= SMEM_LIMIT_BYTES
     return 64 if fits else 32
 
@@ -369,15 +370,14 @@ def peaks_chunks(wc: int, vh: int, splits: int = 3, karatsuba: bool = False,
 def kernel_layout(body: str, wc: int, vh: int, splits: int = 3,
                   karatsuba: bool = False) -> tuple[int, int]:
     """(rows, pair bins) of the configuration ``body`` runs, whose operands
-    ``_kernel_mats`` lays out: v2 ``v2_rows``; the radix bodies (v4, v5,
-    v5x) the pair where v3 runs it (``pair_bins``), else the one-block rule
-    without pairs; v3 ``tile_rows`` and ``pair_bins``. In the DIF bodies'
+    ``_kernel_mats`` lays out: the radix bodies (v4, v5, v5x) the pair
+    where v3 runs it (``pair_bins``), else the one-block rule without
+    pairs; v3 and v2 (which runs v3's kernels) ``tile_rows`` and
+    ``pair_bins``. In the DIF bodies'
     pair (v5, v5x) each rank holds W/4 bins, [even | odd], and the W stage
     runs P over both ranks' even bins and Q over their odd ones: a plan
     ``radix_w_legal`` admits (W a multiple of 512) splits so, and the
     kernels refuse one that does not."""
-    if body == "v2":
-        return v2_rows(wc, vh, splits, karatsuba), 0
     if body in _RADIX_BODIES:
         return _radix_layout(wc, vh, splits, karatsuba)
     return tile_rows(wc, vh, splits, karatsuba), pair_bins(wc, vh, splits, karatsuba)
@@ -391,30 +391,25 @@ def _radix_layout(wc: int, vh: int, splits: int, karatsuba: bool) -> tuple[int, 
 
 
 def v2_rows(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
-    """Window rows a CTA of the v2 body holds of each of its blocks: 32 for
-    windows of at most 32 rows or where the 64-row X does not fit, else
-    64."""
+    """Window rows of the configuration the v2 body runs: v3's of the same
+    form (``tile_rows``; csrc/block_conv.cu, "JAX's v2 body")."""
     _check_splits(splits)
-    fits = _tile_smem_bytes(wc, 64, splits=splits, karatsuba=karatsuba) <= SMEM_LIMIT_BYTES
-    return 32 if vh <= 32 or not fits else 64
+    return tile_rows(wc, vh, splits, karatsuba)
 
 
 def v2_blocks(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
-    """MBH, the blocks of one block column a CTA of the v2 body takes: the
-    most (up to 16) whose X (``v2_rows`` rows each) fits beside the staging
-    area, at least 1 (``v2_smem_bytes`` then says whether one fits). The
-    kernel cuts it to the grid's block rows."""
-    rows = v2_rows(wc, vh, splits, karatsuba)
-    left = SMEM_LIMIT_BYTES - 4 * _stage_all(rows, splits, karatsuba)
-    return min(max(left // _x_bytes(wc, rows), 1), _MAX_GROUP)
+    """MBH, the blocks a CTA of the v2 body holds (``karatsuba`` changes
+    nothing): v3's (``blocks_per_cta``: 4 at Vh 16, 2 at Vh 32 where they
+    fit, else 1). The kernel cuts it to the grid's blocks; the plain
+    version groups that many blocks of one block column, as JAX's v2 does
+    (the grouping changes no product)."""
+    return blocks_per_cta(wc, vh, splits)
 
 
 def v2_smem_bytes(wc: int, vh: int, splits: int = 3, karatsuba: bool = False) -> int:
-    """Shared memory of the v2 body: ``v2_blocks`` blocks' X and the
-    staging area."""
-    rows = v2_rows(wc, vh, splits, karatsuba)
-    return (v2_blocks(wc, vh, splits, karatsuba) * _x_bytes(wc, rows)
-            + 4 * _stage_all(rows, splits, karatsuba))
+    """Shared memory of the v2 body: v3's of the same form
+    (``smem_bytes``)."""
+    return smem_bytes(wc, vh, splits, karatsuba)
 
 
 def form_smem_bytes(
@@ -920,8 +915,8 @@ def block_conv_reference(
     with ``out_dtype=torch.float64`` for float64 maps (the checks' exact
     reference). Differentiable; used on the CPU and by the tests.
 
-    ``wstack=False`` runs the v2 body (``_v2_x``: ``v2_blocks`` blocks a
-    column-stacked product, then the W stage per block), ``karatsuba=True``
+    ``wstack=False`` runs the v2 body (``_v2_x``: ``v2_blocks`` blocks of a
+    column a column-stacked product, then the W stage), ``karatsuba=True``
     the Karatsuba H stage (every body; None and False: the 4-product form).
 
     ``radix_h``, ``radix_w``, ``xsliver`` select the body (``_body``; an
@@ -1070,9 +1065,9 @@ def block_conv(
     JAX package's rules reject raises ``ValueError`` on either device; on
     CUDA tensors also where ``radix_fits`` is False.
 
-    ``wstack=False`` runs JAX's v2 body (entries ``…_v2``: ``v2_blocks``
-    blocks of a block column a CTA, one column-stacked H stage, the W stage
-    per block; no radix flag with it), ``karatsuba=True`` the Karatsuba H
+    ``wstack=False`` runs JAX's v2 body (entries ``…_v2``: v3's
+    configuration of the same form, whose products are v2's; no radix flag
+    with it), ``karatsuba=True`` the Karatsuba H
     stage in every body (entries ``…_k``, ``…_v2_k``, ``…_r4_k``,
     ``…_r5_k``, ``…_r5x_k``). ``karatsuba=None`` is the 4-product form on
     every body (JAX's None is Karatsuba but for v2). On CUDA tensors a form
@@ -1098,7 +1093,7 @@ def block_conv(
     _check_radix_fits(body, wc, vh, splits, kara)
     from cuda_fft_convolution_torch._build import library
 
-    lib = library(radix=body in _RADIX_BODIES, forms=body == "v2" or kara)
+    lib = library(radix=body in _RADIX_BODIES, forms=kara)
     gt_re, gt_im, g_pad, m_tc = _kernel_mats(block_h, block_w, kh, kw, str(dev), splits, rows,
                                              half)
     mode = (f"block_conv_{tag}{_MAPS_SUFFIX[out_dtype]}{TIER_SUFFIX[splits]}"

@@ -40,14 +40,23 @@ F=1 radix plan (256, 512, 65, 129) on the headline image, N=100, it times
 each radix body's maps entry at 3×TF32 and BF16IO in turns. Before that it
 holds every C entry the parent has (its v3, radix, forms and radix forms
 libraries, each built from its sources) against this tree's on random
-planes (``every_entry_bitwise``): the v3 entries and the Karatsuba and v2
-ones (``_k``, ``_v2``, ``_v2_k``) at ``chip_smoke``'s kernel-check
+planes (``every_entry_bitwise``; an entry from whichever of the parent's
+libraries holds it): the v3 entries and the Karatsuba and v2 ones
+(``_k``, ``_v2``, ``_v2_k``) at ``chip_smoke``'s kernel-check
 geometries, the radix entries in both forms at step 36's plans, failing
 on any difference but where this tree pairs a radix body and the parent
 ran 32-row tiles (``moved``; those print their distance from the parent);
 then it times those moved entries in turns at step 36's plans on the
 headline image (``wide_turns``), the paired entries of v4 and v3 of the
-same tier beside each.
+same tier beside each, and every v2 entry in turns at five plans
+(``v2_turns``: the headline, JAX's F=1, the 512², the DPM and the F=8
+plans), v3's entry of the same tier and form, the plain version and the
+bounds beside each, into ``chiprun_out/v2_turns.json``.
+
+    python3 profile_torch_paths.py --v2-plans
+
+times this tree's v2 entries alone the same way (``chiprun_out/
+v2_plans.json``).
 
     python3 profile_torch_paths.py --wide-split CSRC
 
@@ -228,7 +237,8 @@ def build_parent(csrc: pathlib.Path, radix: bool = True):
                        check=True)
         lib = ctypes.CDLL(str(out / name))
         # this tree's signatures, for every entry the parent has
-        for entry, (argtypes, restype) in {**_build._SIGNATURES, **_build._RADIX_SIGNATURES,
+        for entry, (argtypes, restype) in {**_build._SIGNATURES, **_build._V2_SIGNATURES,
+                                           **_build._RADIX_SIGNATURES,
                                            **_build._FORM_SIGNATURES,
                                            **_build._RADIX_FORM_SIGNATURES}.items():
             if entry.startswith("fftconv_block_conv") and hasattr(lib, entry):
@@ -323,10 +333,18 @@ def moved(body: str, wc: int, vh: int, tier: int, kara: bool, parent_paired: tup
             and bc.kernel_layout(body, wc, vh, tier, kara)[1] > 0)
 
 
+def parent_entry(parent_libs, name: str):
+    """The parent's library that holds the C entry ``name`` (the unit
+    lists are this tree's: an entry may sit in another library there), or
+    None."""
+    return next((lib for lib in parent_libs if lib is not None and hasattr(lib, name)), None)
+
+
 def every_entry_bitwise(parent_libs, seed: int, parent_paired: tuple = ()) -> None:
     """Every C entry the parent has against this tree's on random planes
-    from ``seed``: the v3 library's maps and peaks entries and the forms
-    library's (``_k``, ``_v2``, ``_v2_k``) at ``chip_smoke``'s kernel-check
+    from ``seed``: the v3 library's maps and peaks entries and v2's
+    (``_v2``), and the forms library's (``_k``, ``_v2_k``) at
+    ``chip_smoke``'s kernel-check
     geometries (every configuration: 64 rows, paired, 32 rows, stacked, 31
     row chunks), the radix library's and the radix forms library's (the
     Karatsuba form, ``_r*_k``) at step 36's three plans (each body where
@@ -347,7 +365,7 @@ def every_entry_bitwise(parent_libs, seed: int, parent_paired: tuple = ()) -> No
     rng = np.random.default_rng(seed)
     this = (_build.library(), _build.library(radix=True), _build.library(forms=True),
             _build.library(radix=True, forms=True))
-    entries = [n for n, sig in _build._SIGNATURES.items()
+    entries = [n for n, sig in {**_build._SIGNATURES, **_build._V2_SIGNATURES}.items()
                if n.startswith("fftconv_block_conv") and len(sig[0]) > 3]
     forms = [n for n, sig in _build._FORM_SIGNATURES.items()
              if n.startswith("fftconv_block_conv") and len(sig[0]) > 4]
@@ -385,9 +403,12 @@ def every_entry_bitwise(parent_libs, seed: int, parent_paired: tuple = ()) -> No
                             3)
                 # where this tree pairs the body and the parent ran 32-row tiles
                 paired = moved(body, wc, vh, tier, kara, parent_paired)
+                held = (parent_entry(parent_libs, name), libs[1])
+                if held[0] is None:
+                    continue
                 a, c = (refused_or(lambda lib=lib, lay=lay: bare_entry(lib, name, planes, geom, body,
                                                                        layout=lay))
-                        for lib, lay in zip(libs, ((32, 0) if paired else None, None)))
+                        for lib, lay in zip(held, ((32, 0) if paired else None, None)))
                 torch.cuda.synchronize()
                 total += 1
                 same = (a is None and c is None) or (
@@ -520,6 +541,157 @@ def wide_turns(parent_libs, seed: int, parent_paired: tuple = ()) -> dict:
     return out
 
 
+V2_AB_PLANS = ("headline plan", "JAX F=1 plan", "large-kernel plan", "DPM plan", "F=8 plan")
+
+
+def v2_plan_ops(fc, seed: int):
+    """The plans the v2 body is timed at, one at a time → (label, f32 ops,
+    bf16 ops, geometry): the headline plan (127, 447, 64, 64), 100 kernels
+    of 64² on a 2048² image from ``seed``; JAX's F=1 plan (256, 512, 65,
+    129), the same image and 100 kernels (``chip_smoke.radix_geometry``);
+    the large-kernel plan (1023, 1024, 512, 512), 16 kernels of 512²; the
+    DPM plan (27, 139, 12, 12) on ``chip_smoke.dpm_inputs``' float32 HOG
+    features, 1024 kernels of 12²×31; the F=8 plan (63, 287, 32, 32), 64
+    kernels of 32²×8 on a 1024² image of 8 channels. The bf16 ops are the
+    f32 planes rounded."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def tiled(data, bank, k, block):
+        spec = fc.fft_data_tiled(data, k, k, block_h=block[0], block_w=block[1],
+                                 trim_mode="same")
+        sk = fc.fft_kernels(bank, spectral=spec)
+        geom = (spec.block_h, spec.block_w, spec.max_kh, spec.max_kw, spec.out_h, spec.out_w)
+        ops = (spec.re[None], spec.im[None], sk.re, sk.im)
+        return ops, tuple(x.to(torch.bfloat16) for x in ops), geom
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device="cuda")
+
+    s, n, k = chip_smoke.HEADLINE["size"], chip_smoke.HEADLINE["n"], chip_smoke.HEADLINE["k"]
+    image = t(s, s, 1)
+    yield (V2_AB_PLANS[0], *tiled(image, t(n, k, k, 1), k, (127, 447)))
+    bank = rng.standard_normal((n, k, k, 1)).astype(np.float32)
+    yield (V2_AB_PLANS[1], *chip_smoke.radix_geometry(fc, chip_smoke.RADIX_PLANS[0], image, bank))
+    big = chip_smoke.BIGKERNEL
+    yield (V2_AB_PLANS[2], *tiled(image, t(big["n"], big["k"], big["k"], 1), big["k"],
+                                  big["plan"][:2]))
+    del image
+    feats, dbank, _ = chip_smoke.dpm_inputs(seed, "float32")
+    yield (V2_AB_PLANS[3], *tiled(feats, dbank, chip_smoke.DPM["k"], (27, 139)))
+    del feats, dbank
+    size, f, n8, k8 = (chip_smoke.F8_TIER[x] for x in ("size", "f", "n", "k"))
+    yield (V2_AB_PLANS[4], *tiled(t(size, size, f), t(n8, k8, k8, f), k8,
+                                  chip_smoke.F8_TIER["plan"][:2]))
+
+
+def v2_entries() -> list:
+    """Every v2 maps entry, both H-stage forms (``_v2``, ``_v2_k``)."""
+    from cuda_fft_convolution_torch import _build
+
+    return [*_build._V2_SIGNATURES, *(n for n in _build._FORM_SIGNATURES if n.endswith("_v2_k"))]
+
+
+def v2_turns(parent_libs, seed: int, out_json: str = "v2_turns.json") -> dict:
+    """Every v2 entry (``v2_entries``: both forms, every dtype mode and
+    tier) at the five plans of ``v2_plan_ops``: with ``parent_libs`` (a
+    parent's libraries, ``build_parent``) in turns, parent / this tree /
+    this tree / parent, each side a bare C entry (``bare_entry``, the
+    parent's from the library that holds it), else this tree's entry
+    alone; each side against the plain version (largest error relative to
+    the largest value, and at BF16IO the root mean square); beside them
+    this tree's v3 entry of the same tier, form and maps dtype, the plain
+    version (median of 3) and the bounds of v3's work
+    (``chip_smoke.block_conv_bound``: ``same_work_bound_ms``) and of the
+    form's own products. Prints a line an entry and writes every number to
+    ``chiprun_out/<out_json>`` → {(plan, entry): row}."""
+    import torch
+
+    import cuda_fft_convolution_torch as fc
+    from cuda_fft_convolution_torch import _build
+    from cuda_fft_convolution_torch.ops import block_conv as bc
+
+    libs = {False: _build.library(), True: _build.library(forms=True)}
+    out, rows = {}, []
+    for label, ops, ops16, geom in v2_plan_ops(fc, seed):
+        bh, bw, kh, kw, out_h, out_w = geom
+        vh, wc = bh - kh + 1, bw // 2 + 1
+        nbh = ops[0].shape[1]
+        for name in v2_entries():
+            kara = name.endswith("_k")
+            stem = name.removesuffix(bc.body_suffix("v2", kara))
+            tier = next((t_ for t_, sfx in bc.TIER_SUFFIX.items() if sfx and stem.endswith(sfx)), 3)
+            planes = ops16 if "_bf16" in stem.replace("_bf16maps", "") else ops
+            out_dtype = torch.bfloat16 if "_bf16maps" in stem else torch.float32
+            layout = (*bc.kernel_layout("v2", wc, vh, tier, kara), bc.v2_blocks(wc, vh, tier, kara))
+
+            def side(lib, entry=name, body="v2"):
+                return lambda: bare_entry(lib, entry, planes, geom, body)[0]
+
+            this_call = side(libs[kara])
+            sides = [this_call]
+            if parent_libs is not None:
+                parent_call = side(parent_entry(parent_libs, name))
+                sides = [parent_call, this_call]
+            got = [refused_or(fn) for fn in sides]
+            if all(g is None for g in got):
+                print(f"v2 {label} {geom[:4]} {name}: refused by every side ({chip_smoke.card()})")
+                rows.append(dict(plan=label, entry=name, refused=True))
+                continue
+            if any(g is None for g in got):
+                raise AssertionError(f"v2 {label} {name}: refused by one side only")
+            # the plain version's float32 maps (bf16 maps are held to them, as
+            # chip_smoke.check_kernel holds them)
+            want = bc.block_conv_reference(*planes, *geom, torch.float32, tier, wstack=False,
+                                           karatsuba=kara)
+            torch.cuda.synchronize()
+            errs = [chip_smoke.rel_err(g.float(), want) for g in got]
+            rms = ([chip_smoke.rms_rel_err(g.float(), want) for g in got]
+                   if tier == bc.BF16IO and out_dtype == torch.float32 else None)
+            del got, want
+            torch.cuda.empty_cache()
+            if parent_libs is not None:
+                ts = [chip_smoke.cuda_ms(fn) for fn in (parent_call, this_call, this_call,
+                                                        parent_call)]
+                mine = (ts[1] + ts[2]) / 2
+            else:
+                ts = [chip_smoke.cuda_ms(this_call)]
+                mine = ts[0]
+            v3_ms = chip_smoke.cuda_ms(side(libs[kara], stem + ("_k" if kara else ""), "v3"))
+            plain_ms = chip_smoke.cuda_ms(
+                lambda: bc.block_conv_reference(*planes, *geom, out_dtype, tier, wstack=False,
+                                                karatsuba=kara), runs=3)
+            out_bytes = (2 if out_dtype == torch.bfloat16 else 4) * ops[0].shape[0] * \
+                ops[2].shape[0] * out_h * out_w
+            same, same_by = chip_smoke.block_conv_bound(planes, geom, out_bytes, tier, "v3")
+            own, _ = chip_smoke.block_conv_bound(planes, geom, out_bytes, tier, "v3", kara)
+            row = dict(plan=label, geometry=list(geom[:4]), entry=name, nbh=nbh,
+                       layout=list(layout), turns_ms=ts, ms=mine, v3_ms=v3_ms, plain_ms=plain_ms,
+                       same_work_bound_ms=same, bound_by=same_by, own_bound_ms=own,
+                       max_rel_err_vs_plain=errs, rms_rel_err_vs_plain=rms, card=chip_smoke.card())
+            rows.append(row)
+            out[(label, name)] = row
+            turns = (f"parent {ts[0]:.3f}, this tree {ts[1]:.3f}, this tree {ts[2]:.3f}, parent "
+                     f"{ts[3]:.3f} ms (this tree / parent {(ts[1] + ts[2]) / (ts[0] + ts[3]):.3f}); "
+                     if parent_libs is not None else f"{ts[0]:.3f} ms; ")
+            print(f"v2 {label} {geom[:4]} {name} (rows, pair bins, MBH {layout[:2]}, "
+                  f"{min(layout[2], nbh)} of {nbh} block rows): {turns}"
+                  f"v3 {v3_ms:.3f} ms (v2 / v3 {mine / v3_ms:.3f}); plain {plain_ms:.3f} ms "
+                  f"(v2 / plain {mine / plain_ms:.3f}); bound {same:.3f} ms ({same_by}; the "
+                  f"form's own {own:.3f}); vs plain max {', '.join(f'{e:.3e}' for e in errs)}"
+                  f"{f', rms ' + ', '.join(f'{e:.3e}' for e in rms) if rms else ''} "
+                  f"({chip_smoke.card()})")
+            torch.cuda.empty_cache()
+        del ops, ops16
+        torch.cuda.empty_cache()
+    dest = pathlib.Path("chiprun_out")
+    dest.mkdir(exist_ok=True)
+    (dest / out_json).write_text(json.dumps(rows, indent=1))
+    return out
+
+
 def ab_parent(csrc: pathlib.Path, seed: int) -> None:
     """Time the parent's fused kernels against this tree's, in turns, at
     the headline plan and the DPM plan (module docstring)."""
@@ -542,6 +714,7 @@ def ab_parent(csrc: pathlib.Path, seed: int) -> None:
     paired = parent_paired_bodies(csrc)
     every_entry_bitwise(parent_libs, seed, paired)
     wide_turns(parent_libs, seed, paired)
+    v2_turns(parent_libs, seed)
 
     def calls(ops, geom, peaks, splits=3):
         """(the parent's call, this tree's call): both bare C entries of the
@@ -843,10 +1016,10 @@ WIDE_SPLIT_PATCHES = {
     "paired": {
         "no W stage": [("block_conv.cuh", "    Epi epi(out, cell_at, geom);\n    w_stage(x_s, epi);",
                         "    Epi epi(out, cell_at, geom);\n    if (cell_at.ni < 0) w_stage(x_s, epi);")],
-        "no H stage": [("block_conv.cuh", "  for (int c0 = 0; c0 < h_cols; c0 += kCols) {",
+        "no H stage": [("block_conv.cuh", "  for (int c0 = 0; c0 < hb_pad; c0 += kCols) {",
                         "  for (int c0 = 0; c0 < 0; c0 += kCols) {")],
-        "no MAC loads": [("block_conv.cuh", "        const bool ok = u < lh && v < wc && s_v(q) < w;",
-                          "        const bool ok = u < 0 && v < wc && s_v(q) < w;")],
+        "no MAC loads": [("block_conv.cuh", "      const bool ok = u < lh && v < wc && s_v(q) < w;",
+                          "      const bool ok = u < 0 && v < wc && s_v(q) < w;")],
         "no H products": [("block_conv.cuh", "        } else if (live) {\n          // The warpgroup's 64 rows",
                            "        } else if (live && lh < 0) {\n          // The warpgroup's 64 rows")],
         "no remote X": [("block_conv.cuh", "        const bool remote = PAIRED && src != crank;",
@@ -860,8 +1033,8 @@ WIDE_SPLIT_PATCHES = {
                                                "    if (vw > pair_cols(vw)) {"),
                             "    if (vw < 0) {")],
         "32-bit MAC offsets": [("block_conv.cuh",
-                                "        const long long off = ok ? static_cast<long long>(u) * wc + v + ff * plane : 0;",
-                                "        const int off = ok ? u * wc + v + ff * static_cast<int>(plane) : 0;")],
+                                "      const long long off = ok ? static_cast<long long>(u) * wc + v + ff * plane : 0;",
+                                "      const int off = ok ? u * wc + v + ff * static_cast<int>(plane) : 0;")],
     },
 }
 _WIDE_SPLIT_UNIT = """#include "block_conv_maps.cuh"
@@ -1370,6 +1543,8 @@ def main(argv=None) -> int:
                              "stages (this csrc or a parent's)")
     parser.add_argument("--wide-split", type=pathlib.Path, default=None,
                         help="a csrc whose wide configuration's stages to time")
+    parser.add_argument("--v2-plans", action="store_true",
+                        help="time this tree's v2 entries at the five plans beside v3")
     parser.add_argument("--soak", type=float, default=0.0,
                         help="with --submit-probe: repeat the submit trial this many seconds")
     args = parser.parse_args(argv)
@@ -1397,6 +1572,9 @@ def main(argv=None) -> int:
         return 0
     if args.radix_split is not None:
         radix_split(args.radix_split.resolve(), args.seed)
+        return 0
+    if args.v2_plans:
+        v2_turns(None, args.seed, "v2_plans.json")
         return 0
     if args.submit_probe:
         submit_probe(args.seed, args.soak)

@@ -274,6 +274,13 @@ def test_build_library_named_by_source_hash(tmp_path):
     assert len(kernels) == 15
     radix = {f"{n}{body}" for n in kernels for body in ("_r4", "_r5", "_r5x")}
     assert set(_build._SIGNATURES) == v3
+    # the v2 body's maps entries (_v2: v3's kernels) sit beside v3's, with
+    # v3's arguments
+    v2 = {f"{n}_v2" for n in kernels if "_peaks_" not in n}
+    assert set(_build._V2_SIGNATURES) == v2
+    assert set(_build._KINDS["main"][1]) == v3 | v2
+    for name in v2:
+        assert _build._V2_SIGNATURES[name] == _build._SIGNATURES[name.removesuffix("_v2")]
     assert set(_build._RADIX_SIGNATURES) == radix
     for name in radix:
         v3_args = _build._SIGNATURES[name.rsplit("_", 1)[0]][0]
@@ -282,18 +289,19 @@ def test_build_library_named_by_source_hash(tmp_path):
     for query in ("smem_bytes", "rows", "blocks", "kernels", "cluster", "pair_bins"):
         assert len(_build._SIGNATURES[f"fftconv_block_conv_f32_{query}"][0]) == 3
     # the forms library: the Karatsuba maps and peaks entries (_k) and the
-    # v2 maps entries (_v2, _v2_k), with the v3 entries' arguments, and the
-    # queries of both forms' configurations (v2's take the form as a fourth)
+    # v2 body's Karatsuba maps entries (_v2_k), with the v3 entries'
+    # arguments, and the queries of the Karatsuba and the v2 configurations
+    # (v2's take the form as a fourth)
     forms_sources = _build._sources(forms=True)
     assert [s.name for s in forms_sources] == [
         "block_conv.cuh", "block_conv_k.cu", "block_conv_k_tiers.cu", *headers[1:],
-        "block_conv_peaks_k.cu", "block_conv_v2.cu", "block_conv_v2_k.cu",
+        "block_conv_peaks_k.cu",
     ]
     forms_path = _build._library_path(forms_sources)
     assert forms_path.name.startswith("libfftconv_torch_forms_")
     assert len({path, radix_path, forms_path}) == 3
     maps = {n for n in kernels if "_peaks_" not in n}
-    forms = ({f"{n}{sfx}" for n in maps for sfx in ("_k", "_v2", "_v2_k")}
+    forms = ({f"{n}{sfx}" for n in maps for sfx in ("_k", "_v2_k")}
              | {f"{n}_k" for n in kernels - maps})
     queries = {"fftconv_block_conv_k_smem_bytes", "fftconv_block_conv_k_rows",
                "fftconv_block_conv_k_cluster", "fftconv_block_conv_k_pair_bins",

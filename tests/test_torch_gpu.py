@@ -1387,11 +1387,11 @@ def test_radix_flags_refused_on_gpu(cuda):
 
 # The other H-stage forms (ops/block_conv.py karatsuba, wstack): the
 # Karatsuba H stage in v3's configurations (64 rows, paired and stacked)
-# and v2 (v2_rows, v2_blocks: one block a CTA at 64 rows, several of a
-# column at 32), at the small ragged shape, the headline plan, Wc 301 (the
+# and v2 (v2_rows, v2_blocks: v3's configuration of the same form), at the
+# small ragged shape, the headline plan, Wc 301 (the
 # Karatsuba stage's 64 rows stop at Wc 288: a pair), Wc 451 (a pair), the
 # 1024 block (where 6xTF32's Karatsuba stage does not fit),
-# the F=8 and the DPM plans (stacked; v2 at 4 and 6 blocks a CTA).
+# the F=8 and the DPM plans (stacked: 2 and 4 blocks a CTA).
 FORM_GEOMETRIES = [GEOMETRIES[0], GEOMETRIES[1], GEOMETRIES[2], GEOMETRIES[3], GEOMETRIES[4],
                    GEOMETRIES[6], SHORT_WINDOWS[0]]
 FORMS = {"_k": dict(karatsuba=True), "_v2": dict(wstack=False),
@@ -1459,6 +1459,75 @@ def test_form_entries_match_plain_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, o
                 flat = want.reshape(b, n, -1)
                 at = flat.gather(-1, got_i.reshape(b, n, -1).long()).reshape(got_i.shape)
                 assert (at[flips] >= want_v[flips] - tol * want_v.abs().max()).all(), mode
+
+
+# The v2 body's configurations (ops/block_conv.py v2_blocks,
+# kernel_layout('v2'): v3's of the same form): v3's stacks — the DPM
+# plan's blocks (Vh 16, 4 blocks, 2 kernels) over 13 block rows, Vh 21 (3
+# blocks), the F=8 plan (Vh 32, 2 blocks, 1 kernel), Vh 1, narrow blocks
+# (Vh 16 at Wc 17 over 20 block rows; Vh 8 at Wc 40 over 13) — and the
+# one-block configurations: 64 rows (the headline's blocks), the pair (Wc
+# 451), and at Wc 545 the pair at 3xTF32 and 32 rows at 6xTF32.
+V2_GEOMETRIES = [
+    (1, 3, 3, 27, 139, 12, 12, 208, 300),
+    (1, 2, 3, 27, 32, 12, 12, 344, 60),
+    (1, 3, 3, 20, 78, 13, 12, 100, 200),
+    (2, 3, 3, 45, 151, 25, 24, 140, 300),
+    (1, 8, 5, 63, 287, 32, 32, 200, 700),
+    (1, 2, 3, 17, 151, 17, 24, 10, 300),
+    (1, 1, 3, 127, 447, 64, 64, 600, 900),
+    (1, 2, 2, 40, 901, 9, 101, 150, 1700),
+    (1, 1, 2, 100, 1088, 37, 129, 128, 960),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,n,bh,bw,kh,kw,out_h,out_w", V2_GEOMETRIES)
+def test_v2_configurations_match_plain_on_gpu(cuda, b, f, n, bh, bw, kh, kw, out_h, out_w):
+    """Every v2 entry (both forms, maps at f32 and bf16 maps, every tier)
+    in each of its configurations against its plain version at the bars of
+    the v3 entries (6×TF32 also within X6_TOL of the plain version in
+    float64, BF16IO within IO_RMS_TOL rms), one launch on its mode each;
+    its maps are bitwise v3's entry of the same form (the same kernel), and
+    where v3's form is refused so is v2's."""
+    rng = np.random.default_rng(61)
+    geom = (bh, bw, kh, kw, out_h, out_w)
+    vh, wc = bh - kh + 1, bw // 2 + 1
+    ops = _planes(rng, cuda, b, f, n, *geom)
+    ops16 = tuple(x.to(torch.bfloat16) for x in ops)
+    nbh = ops[0].shape[1]
+    for kara in (False, True):
+        suffix = tbc.body_suffix("v2", kara)
+        flags = dict(wstack=False, karatsuba=kara)
+        for planes, tag, splits, tol in ((ops, "f32", 3, TOL), (ops, "f32", 6, TOL),
+                                         (ops, "f32", 1, ONE_PASS_TOL),
+                                         (ops16, "bf16", tbc.BF16IO, IO_TOL),
+                                         (ops16, "bf16", 3, TOL)):
+            tier = tbc.TIER_SUFFIX[splits]
+            assert tbc.v2_blocks(wc, vh, splits, kara) == tbc.blocks_per_cta(wc, vh, splits)
+            if not tbc.form_taken(wc, vh, splits, False, kara):
+                assert not tbc.form_taken(wc, vh, splits, True, kara)
+                with pytest.raises(InvalidInputError, match="shared memory"):
+                    tbc.block_conv(*planes, *geom, torch.float32, splits, **flags)
+                continue
+            want = tbc.block_conv_reference(*planes, *geom, torch.float32, splits, **flags)
+            for out_dtype, maps in ((torch.float32, ""), (torch.bfloat16, "_bf16maps")):
+                mode = f"block_conv_{tag}{maps}{tier}{suffix}"
+                before = tbc.block_conv.launches_by_mode[mode]
+                got = tbc.block_conv(*planes, *geom, out_dtype, splits, **flags)
+                torch.cuda.synchronize()
+                assert tbc.block_conv.launches_by_mode[mode] == before + 1, mode
+                assert got.dtype == out_dtype and got.shape == want.shape
+                bar = tol if out_dtype == torch.float32 else max(tol, BF16_OUT_TOL)
+                assert _rel(got.float(), want) <= bar, (mode, nbh)
+                if out_dtype == torch.float32 and splits == tbc.BF16IO:
+                    assert _rms(got, want) <= IO_RMS_TOL, mode
+                if out_dtype == torch.float32 and splits == 6:
+                    want64 = tbc.block_conv_reference(*(x.double() for x in ops), *geom,
+                                                      torch.float64, **flags)
+                    assert _rel(got.double(), want64) <= X6_TOL, mode
+                v3 = tbc.block_conv(*planes, *geom, out_dtype, splits, karatsuba=kara)
+                assert torch.equal(got, v3), mode
 
 
 @pytest.mark.gpu

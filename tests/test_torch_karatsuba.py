@@ -47,8 +47,9 @@ SEEDS = (0, 1, 1234)
 # bar for the same flips (chip_smoke.py IO_RMS_TOL).
 V2_IO_RMS_BAR = 1e-4
 # Cases of several block rows for v2: groups of v2_blocks() blocks a column
-# (the DPM plan's blocks, 6 a group at 3xTF32, a partial last group; and the
-# F=8 plan's, 4 a group), beside a 64-row block (one a group).
+# (the DPM plan's blocks, 4 a group over the case's 9 block rows, a partial
+# last group; and the F=8 plan's, 2 a group), beside blocks of 36 and 49
+# window rows (one a group).
 V2_CASES = [
     (1, 3, 2, 27, 139, 12, 12, 130, 150),
     (1, 2, 2, 63, 287, 32, 32, 170, 300),
@@ -288,11 +289,10 @@ def _c_one_block(wc, rows, splits, kara):
 def test_mirror_of_both_forms(splits):
     """The shared-memory mirror with ``karatsuba`` and the v2 rule against
     the C side's formulas: the one-block configurations stage Sr + Si and
-    Gr + Gi (the stacked one nothing more); v2 takes 32 rows for windows of
-    at most 32 rows or where 64 do not fit, and the most blocks (up to 16,
-    at least 1) whose X fits beside the staging area; v3 pairs 64-row CTAs
-    where 64 rows do not fit and the pair does (``_c_pair``), else 32
-    rows."""
+    Gr + Gi (the stacked one nothing more); v2 takes v3's configuration
+    of the same form (its rows, blocks a CTA, pair and shared memory); v3
+    pairs 64-row CTAs where 64 rows do not fit and the pair does
+    (``_c_pair``), else 32 rows."""
     for wc in (17, 70, 129, 144, 224, 225, 256, 257, 301, 320, 321, 451, 513):
         for vh in (1, 8, 16, 21, 32, 33, 64, 100, 961):
             g = tbc.blocks_per_cta(wc, vh, splits)
@@ -309,14 +309,13 @@ def test_mirror_of_both_forms(splits):
                     pair_smem if half else _c_one_block(wc, rows, splits, True))
             assert tbc.row_chunks(wc, vh, splits, True) == (1 if g > 1 else -(-vh // rows))
             for kara in (False, True):
-                v2_rows = 32 if vh <= 32 or _c_one_block(wc, 64, splits, kara) > 232448 else 64
-                x = 4 * v2_rows * (2 * (-(-wc // 32) * 32) + 4)
-                staging = _c_one_block(wc, v2_rows, splits, kara) - x
-                mbh = min(max((232448 - staging) // x, 1), 16)
-                assert tbc.v2_rows(wc, vh, splits, kara) == v2_rows
-                assert tbc.v2_blocks(wc, vh, splits, kara) == mbh
-                assert tbc.v2_smem_bytes(wc, vh, splits, kara) == mbh * x + staging
-                assert tbc.form_smem_bytes(wc, vh, splits, False, kara) == mbh * x + staging
+                smem = tbc.smem_bytes(wc, vh, splits, kara)
+                want = (tbc.tile_rows(wc, vh, splits, kara), g, smem,
+                        tbc.kernel_layout("v3", wc, vh, splits, kara))
+                assert (tbc.v2_rows(wc, vh, splits, kara), tbc.v2_blocks(wc, vh, splits, kara),
+                        tbc.v2_smem_bytes(wc, vh, splits, kara),
+                        tbc.kernel_layout("v2", wc, vh, splits, kara)) == want
+                assert tbc.form_smem_bytes(wc, vh, splits, False, kara) == smem
                 assert (tbc.form_smem_bytes(wc, vh, splits, True, kara)
                         == tbc.smem_bytes(wc, vh, splits, kara))
     # the headline (Wc 224, Vh 64): Sr + Si's pieces add 8 KB at 3xTF32 and
@@ -326,7 +325,7 @@ def test_mirror_of_both_forms(splits):
     assert tbc.tile_rows(224, 64, 6, True) == 64
     # the 1024 block at 6xTF32 does not fit the Karatsuba stage
     assert tbc.smem_bytes(513, 961, 6, True) > tbc.SMEM_LIMIT_BYTES
-    assert tbc.v2_blocks(70, 16, 3) == 6 and tbc.v2_blocks(144, 32, 3) == 4
+    assert tbc.v2_blocks(70, 16, 3) == 4 and tbc.v2_blocks(144, 32, 3) == 2
     assert tbc.v2_blocks(224, 64, 3) == 1
 
 
@@ -347,11 +346,11 @@ def test_forms_the_kernels_take():
 
 
 def test_v2_groups_cover_every_block(rng):
-    """v2's plain version groups ``v2_blocks`` blocks of a column (here 6,
-    over 5 block rows: one partial group, the kernel's cut to nbh) and
-    gives each block the maps v3 gives it."""
+    """v2's plain version groups ``v2_blocks`` blocks of a column (here 4,
+    over 5 block rows: one partial group of 1) and gives each block the
+    maps v3 gives it."""
     ops, geom = _case(rng, 1, 2, 2, 27, 139, 12, 12, 75, 150)
-    assert tbc.v2_blocks(70, 16, 3) == 6 and ops[0].shape[1] == 5
+    assert tbc.v2_blocks(70, 16, 3) == 4 and ops[0].shape[1] == 5
     t = _torch(ops)
     assert _rel(tbc.block_conv(*t, *geom, wstack=False).numpy(),
                 tbc.block_conv(*t, *geom).numpy()) <= TOL

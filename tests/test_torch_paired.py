@@ -395,7 +395,7 @@ def test_the_1024_block_per_tier():
     sliver's 1,024 B): 198,656 at 3×TF32, 231,424 at 6×TF32, 165,888 at one
     pass and BF16IO; the Karatsuba form pairs but at 6×TF32, which stays
     refused; the radix bodies pair as v3 does (256 bins a rank, half of the
-    DIF stage's W/2), v2 never."""
+    DIF stage's W/2), and so does v2 (v3's configuration)."""
     x = 64 * (2 * 256 + 4) * 4
     assert x == 132096
     want = {3: x + 65536 + 1024, 6: x + 98304 + 1024, 1: x + 32768 + 1024,
@@ -410,7 +410,8 @@ def test_the_1024_block_per_tier():
     for body in ("v4", "v5", "v5x"):
         assert tbc.kernel_layout(body, 513, 512, 3) == (64, 256)
         assert tbc.kernel_layout(body, 513, 512, 6, True) == (32, 0)
-    assert tbc.kernel_layout("v2", 513, 512, 3)[1] == 0
+    assert tbc.kernel_layout("v2", 513, 512, 3) == (64, 256)
+    assert tbc.kernel_layout("v2", 513, 512, 6, True) == (32, 0)
 
 
 @pytest.mark.parametrize("splits", list(tbc.TIERS))

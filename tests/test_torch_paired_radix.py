@@ -240,7 +240,7 @@ def test_cases_run_the_pair():
     second) say — 64 rows, ``pair_bins`` bins a rank, 2 ×
     ``radix_row_chunks`` peaks entries a block — and v5 and v5x take the
     same configuration (``tests/test_torch_paired_dif.py`` runs them), v2
-    never pairs; v4 keeps the 64-row configuration elsewhere, and the
+    takes v3's; v4 keeps the 64-row configuration elsewhere, and the
     Karatsuba form at 6×TF32 on Wc 513 is refused (``form_taken``)."""
     for i, (_, _, _, bh, bw, kh, _, _, _) in enumerate(CASES):
         vh, wc = bh - kh + 1, bw // 2 + 1
@@ -258,7 +258,8 @@ def test_cases_run_the_pair():
             for body in ("v5", "v5x"):
                 assert tbc.kernel_layout(body, wc, vh, splits, kara) == tbc.kernel_layout(
                     "v4", wc, vh, splits, kara)
-            assert tbc.kernel_layout("v2", wc, vh, splits, kara)[1] == 0
+            assert tbc.kernel_layout("v2", wc, vh, splits, kara) == tbc.kernel_layout(
+                "v3", wc, vh, splits, kara)
             refused = i == 1 and splits == 6 and kara
             assert tbc.radix_fits(wc, vh, splits, kara) != refused
             assert tbc.form_taken(wc, vh, splits, True, kara) != refused
@@ -412,7 +413,7 @@ def test_configuration_mirrors_the_c_formulas(splits):
     written out in ``_c_pair``: X of h bins a rank, the 64-row staging
     area, the 256-float sliver) and the one-block rule without pairs
     elsewhere (``_c_one_block``); v5 and v5x take v4's configuration, v2
-    never pairs; the radix bodies' shared memory is the mirror's
+    v3's; the radix bodies' shared memory is the mirror's
     (``smem_bytes``) wherever v4 pairs, and ``radix_fits`` is whether that
     configuration fits, for every radix body."""
     for wc, vh in itertools.product((129, 224, 257, 289, 321, 385, 451, 513, 577, 641, 705,
@@ -428,7 +429,8 @@ def test_configuration_mirrors_the_c_formulas(splits):
             assert v4 == ((64, half) if half else (tbc._one_block_rows(wc, splits, kara), 0))
             for body in ("v5", "v5x"):
                 assert tbc.kernel_layout(body, wc, vh, splits, kara) == v4
-            assert tbc.kernel_layout("v2", wc, vh, splits, kara)[1] == 0
+            assert tbc.kernel_layout("v2", wc, vh, splits, kara) == tbc.kernel_layout(
+                "v3", wc, vh, splits, kara)
             if half:
                 assert tbc.smem_bytes(wc, vh, splits, kara) == smem
                 assert tbc.kernel_layout("v3", wc, vh, splits, kara) == v4
